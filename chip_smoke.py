@@ -16,10 +16,28 @@ Phases, each of which fails the run on a failed check:
    256 and 512 frames, with the launch counts reset just before and read
    just after; then a small accent-blend batch (the mixing encode path) and
    a small batch held against the plain path on the CPU;
-4. CUDA-event timings of each kernel, its plain version and, for the gate
-   product, ``torch._int_mm`` as the yardstick, with each kernel's bound;
-   then the host's enqueue time against the device time of one chunk, and
-   the device's busy share and time by kernel under ``torch.profiler``.
+4. device times (``torch.profiler``, as for every kernel row) of each
+   kernel, its plain version and, for the gate product and the head,
+   ``torch._int_mm`` and ``torch.addmm`` as the yardsticks, with each
+   kernel's bound; CUDA-event times of a decode step and chunk; then the
+   host's enqueue time against the device time of one chunk, and the
+   device's busy share and time by kernel under ``torch.profiler``;
+5. the training slice's kernels (K2 forward, K3 backward) against their
+   plain versions at the flagship widths (B=50, T=128, bf16): dropout and
+   zoneout choices bit-exact, every kernel on identical inputs, then 16
+   chained steps forward and backward (every output, residual and gradient
+   stream, accumulator and the final cotangent carry); then the same 16
+   steps through ``TrainDecode`` (K2 forward, K3 backward) against
+   ``torch.autograd`` through the plain K2, from the same card inputs;
+6. the training main path: ``train_step`` at B=50 (10 per language,
+   interleaved), T=128, F=512 through ``make_optimizer``, one warm-up step,
+   three timed steps at teacher forcing 1.0 and one at 0.5, with the launch
+   counts reset just before and read just after; the step split into
+   forward, backward and optimizer, audio-seconds trained per second; then
+   a small step on the card against the same step on the CPU plain path;
+7. device times (``torch.profiler``) of the K2/K3 kernels against their
+   plain versions, bounds and ``torch`` yardsticks, and the device's busy
+   share of one training step under ``torch.profiler``.
 
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -39,6 +57,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, T_SYMBOLS, CHUNK, MAX_FRAMES = 240, 128, 256, 512
+TRAIN_B, TRAIN_T, TRAIN_F, CHECK_STEPS = 50, 128, 512, 16
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
@@ -50,6 +69,49 @@ CTX_TOL = 2e-3                # context: absolute and relative
 W_TOL = 1e-2                  # attention weights: |dw| / max w, per row
 CHUNK_REL_TOL = 1e-2          # 16 autoregressive steps, kernel vs plain
 E2E_REL_TOL = 1e-2            # card kernels vs the CPU plain path, bf16
+# the training kernels, on identical inputs: max |kernel - plain| of each
+# output over its largest |plain|, per kernel and output type.  A float32
+# output differs by the order of float32 sums: its bound is a few times the
+# worst reading on an H100 that PERF.md lists.  A bf16 output can flip one
+# ulp, up to 2^-7 of the largest value, and which values sit on a rounding
+# boundary changes from run to run (readings 0 to 5.8e-3): its bound is
+# that one ulp (q holds bf16 values in float32: 1e-2)
+ULP = 8e-3
+TRAIN_KERNEL_TOL = {
+    "train_prenet": {"bf16": ULP},
+    "train_gate_lstm": {"f32": 1e-5, "bf16": ULP},      # f32 1.47e-6
+    "train_query": {"f32": 1e-2},                       # 2.53e-3 (bf16 q)
+    "train_attention": {"f32": 1e-6, "bf16": ULP},      # 1.90e-7
+    "train_head": {"f32": 4e-6},                        # 8.70e-7
+    "bwd_head": {"f32": 5e-7, "bf16": ULP},             # 1.14e-7
+    "bwd_cell": {"f32": 5e-7, "bf16": ULP},             # 7.94e-8
+    "bwd_gemm": {"f32": 2e-5},                          # 4.66e-6
+    # its float32 accumulators follow bf16 roundings of the energy
+    "att_bwd": {"f32": 5e-3, "bf16": ULP},              # 9.36e-4
+    "bwd_prenet": {"f32": 1e-6, "bf16": ULP},           # 1.61e-7
+}
+# 16 chained steps, kernels vs plain drivers: relative error (norms) of each
+# stream, gradient, accumulator and carry (measured up to 4.0e-3)
+TRAIN_CHAIN_TOL = 2e-2
+# 16 steps of TrainDecode (K2 forward, K3 backward) against torch.autograd
+# through the plain K2 in differentiable ops, same card inputs: relative
+# error (norms) of the outputs and of each input's gradient.  Autograd
+# rounds each gradient to bf16 where the forward cast to it, K3 where it
+# stores its streams (measured up to 2.4e-2, the prenet bias)
+TRAIN_AUTOGRAD_TOL = 6e-2
+# the B=10 step on the card against the CPU plain path, both bf16, teacher
+# forcing 1.0: the encoder's convolutions and the products outside the
+# kernels run in other libraries on each device, and the bf16 roundings of
+# their results differ.  Relative error (norms) of the whole gradient and of
+# each loss term, of each parameter's gradient (decoder, postnet,
+# classifier) and of the generated encoder's parameters, whose gradients sum
+# bf16-rounded convolution-weight gradients with much cancellation
+# (measured 6.4e-2, 6.6e-2 and 0.21).  The same step in bf16 against
+# float32, both on the CPU, differs by as much (PERF.md): these bounds
+# hold the model's bf16 spread, and the two checks above hold K2/K3 alone
+TRAIN_E2E_TOL = 0.2
+TRAIN_E2E_PARAM_TOL = 0.2
+TRAIN_E2E_ENCODER_TOL = 0.5
 
 
 def fail(msg: str) -> None:
@@ -72,6 +134,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10, warmup: int = 2,
+              ours_only: bool = False) -> float:
+    """Device time of one ``fn()`` call: the sum of the device kernels (and
+    copies) that ``torch.profiler`` records over ``iters`` calls, divided by
+    ``iters``; with ``ours_only``, only the port's own kernels (anonymous
+    namespace), not PyTorch's copies of the inputs.  Unlike CUDA events
+    around the calls, it leaves out the gaps while the host prepares the
+    next launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (not ours_only or "(anonymous namespace)::" in e.name))
+    if total <= 0:
+        fail("the profiler recorded no device time")
+    return total / iters / 1e3
+
+
 def bound_ms(n_bytes: float, ops: float, kind: str):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
@@ -79,7 +167,7 @@ def bound_ms(n_bytes: float, ops: float, kind: str):
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def close(name: str, got, ref, atol: float = ATOL, rtol: float = 0.0
@@ -108,7 +196,8 @@ def close_weights(name: str, cum_k, cum_p, cum) -> float:
 
 
 def rel(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
 
 
 def flagship(max_frames: int, chunk: int):
@@ -359,7 +448,9 @@ def phase_main(hp, sd):
 
 
 def phase_timings(hp, syn, errs, launches):
-    """CUDA-event times at the main path's shapes."""
+    """Device times of each kernel, its plain version and its library
+    yardstick (``device_ms``), then CUDA-event times of a decode step and
+    chunk, at the main path's shapes."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
@@ -422,14 +513,19 @@ def phase_timings(hp, syn, errs, launches):
                        device="cuda")
     qg = torch.randint(-127, 128, (B, wg.shape[0]), dtype=torch.int8,
                        device="cuda")
+    head_row = torch.cat([carry["h_gen"], carry["context"]], 1).to(
+        torch.bfloat16)
+    head_b16 = bundle.head_b.to(torch.bfloat16)
     library = {"gate_lstm": lambda: (torch._int_mm(qa, wa),
-                                     torch._int_mm(qg, wg))}
+                                     torch._int_mm(qg, wg)),
+               "head": lambda: torch.addmm(head_b16, head_row,
+                                           bundle.head_w)}
 
     rows = []
     for name, (call, kernel, plain) in calls.items():
-        ms = cuda_ms(lambda: call(kernel))
-        plain_ms = cuda_ms(lambda: call(plain), iters=5)
-        lib_ms = (cuda_ms(library[name]) if name in library else None)
+        ms = device_ms(lambda: call(kernel), ours_only=True)
+        plain_ms = device_ms(lambda: call(plain), iters=5)
+        lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops, kind = work[name]
         b_ms, b_by = bound_ms(n_bytes, ops, kind)
         rows.append({
@@ -442,7 +538,8 @@ def phase_timings(hp, syn, errs, launches):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
         })
-        print(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"[time] {name} (device time, torch.profiler): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.5f} ms ({b_by}), library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
 
@@ -499,12 +596,29 @@ def phase_profile(decode) -> None:
                              ProfilerActivity.CUDA]) as prof:
         decode(steps)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    busy = device_busy(prof)
+    if busy is None:
         print("[profile] device busy share: not measured (the profiler "
               "recorded no device events)")
         return
+    share, window, by_name = busy
+    print(f"[profile] {steps}-step chunk under torch.profiler: device busy "
+          f"{share:.4f} of {window / 1e3:.3f} ms from first to last "
+          f"kernel; device us per step by kernel: " + ", ".join(
+              f"{k} {v / steps:.2f}" for k, v in
+              sorted(by_name.items(), key=lambda kv: -kv[1])))
+
+
+def device_busy(prof):
+    """(busy share of the window from the first to the last kernel, the
+    window in us, device us by kernel name) of a ``torch.profiler`` run, or
+    None when it recorded no device events."""
+    import torch
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -521,11 +635,660 @@ def phase_profile(decode) -> None:
                 .split("(")[0].removeprefix("void ")[:48])
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end
                                                   - e.time_range.start)
-    print(f"[profile] {steps}-step chunk under torch.profiler: device busy "
-          f"{busy / window:.4f} of {window / 1e3:.3f} ms from first to last "
-          f"kernel; device us per step by kernel: " + ", ".join(
-              f"{k} {v / steps:.2f}" for k, v in
-              sorted(by_name.items(), key=lambda kv: -kv[1])))
+    return busy / window, window, by_name
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+TRAIN_SOURCE = ("multilingual_text_to_speech_tpu_torch/csrc/"
+                "fused_train_decoder.cu")
+REPLACES = {
+    "K2": "multilingual_text_to_speech_tpu/ops/pallas_train_decoder.py:298",
+    "K3": "multilingual_text_to_speech_tpu/ops/pallas_train_decoder.py:579"}
+
+
+def train_batch(hp, b: int, t: int, f: int, seed: int):
+    """A language-interleaved batch (sample k*g + j has language j) of
+    random texts and mel targets, lengths drawn as bench.py's
+    ``_make_batch`` draws them."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.training.trainer import Batch
+
+    rng = np.random.RandomState(seed)
+    text = rng.randint(3, hp.total_symbols(), (b, t))
+    lengths = np.clip(rng.randint(t // 2, t + 1, b), 2, t)
+    text[np.arange(t)[None] >= lengths[:, None]] = 0
+    mels = rng.randn(b, f, hp.num_mels).astype(np.float32)
+    flen = np.clip(rng.randint(f // 2, f + 1, b), 8, f)
+    mels[np.arange(f)[None] >= flen[:, None]] = 0.0
+    stop = np.ones((b, f), np.float32)
+    for i, n in enumerate(flen):
+        stop[i, :max(int(n) - hp.stop_frames, 0)] = 0.0
+    return Batch(text, lengths, mels, None, flen, stop,
+                 rng.randint(0, hp.speaker_number, b),
+                 np.arange(b) % hp.language_number)
+
+
+def train_model(hp, sd, device="cuda", dropout=True):
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
+
+    model = Tacotron(hp, torch.bfloat16)
+    model.load_state_dict(sd)
+    if not dropout:
+        for m in model.modules():
+            if hasattr(m, "dropout"):
+                m.dropout = 0.0
+    return model.to(device).train()
+
+
+def decoder_inputs(hp, model, batch, f: int):
+    """The training decode's operands and inputs at the batch's shapes, as
+    ``TrainDecode`` builds them: compute-type operands, memory, memory
+    transform plus bias, additive mask, shifted targets [F, B, M]."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    dev = "cuda"
+    text = torch.as_tensor(batch.utterances, device=dev)
+    lengths = torch.as_tensor(batch.utterance_lengths, device=dev)
+    t = text.shape[1]
+    with torch.no_grad():
+        emb = model.embedding(text) * (text != 0)[..., None]
+        enc = model.encoder(emb.to(torch.bfloat16), lengths).float()
+        langs = torch.as_tensor(batch.languages, device=dev)[:, None].expand(
+            -1, t)
+        memory, mt = model.decoder.prepare_memory(
+            enc, torch.as_tensor(batch.speakers, device=dev), langs)
+        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
+                                      torch.bfloat16)
+        ops = ftd.compute_operands(
+            ftd.train_operands(model.decoder.cell, cfg), cfg)
+        mtb = (mt.float() + model.decoder.cell.attention.bias).to(
+            torch.bfloat16)
+    valid = torch.arange(t, device=dev)[None] < lengths[:, None]
+    mask_add = torch.where(valid, 0.0, -1e9).float()
+    mels = torch.as_tensor(batch.mel_spectrograms[:, :f], device=dev)
+    shifted = torch.cat([torch.zeros_like(mels[:, :1]), mels[:, :-1]], 1)
+    return (cfg, ops, memory.contiguous(), mtb.contiguous(), mask_add,
+            shifted.transpose(0, 1).to(torch.bfloat16).contiguous())
+
+
+def mask_patterns(k, cfg, ops, st, shifted, seeds, step):
+    """The dropout and zoneout choices of ``step`` made visible, through the
+    functions ``k`` (``ftd.KERNELS`` or ``ftd.PLAIN``): prenet zeros with
+    the biases raised by 100 (so no ReLU zeroes a unit), and the LSTMs'
+    keep-old (zoneout) or dropped (dropout) units with both carries at 7
+    (|h_new| < 1)."""
+    import torch
+
+    b = shifted.shape[1]
+    dev, bf = shifted.device, torch.bfloat16
+
+    def e(*shape):
+        return torch.zeros(*shape, dtype=bf, device=dev)
+
+    pre = e(cfg.n_prenet, b, cfg.prenet_dim)
+    k.train_prenet(shifted[step], st["spec"][step - 1], 1,
+                   dict(ops, pre_b=ops["pre_b"] + 100.0), cfg, seeds, step,
+                   e(b, cfg.mmel), pre, e(b, cfg.prenet_dim))
+    out = [pre == 0]
+    for which in ("att", "gen"):
+        h = torch.full((b, cfg.hidden), 7.0, device=dev)
+        c = torch.full_like(h, 7.0)
+        k.train_gate_lstm(st[f"{which}_in"][step], ops[f"{which}_w"],
+                          ops[f"{which}_b"], cfg.reg(which, seeds, step), h,
+                          c, e(b, 4 * cfg.hidden), e(b, cfg.hidden),
+                          e(b, cfg.hidden), None)
+        out += [(h == 7.0) | (h == 0.0), c == 7.0]
+    return out
+
+
+def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
+                       teacher, seeds, cts, s: int):
+    """For each K2/K3 kernel, ``run(k) -> [outputs]`` through the functions
+    ``k`` (``ftd.KERNELS`` or ``ftd.PLAIN``) on fixed inputs taken from a
+    plain run's streams at step ``s`` (random cotangents where the backward
+    needs them), at the main path's shapes."""
+    import torch
+
+    b, t_len = memory.shape[:2]
+    h, p, m, mem, a = (cfg.hidden, cfg.prenet_dim, cfg.mmel, cfg.mem_dim,
+                       cfg.att_dim)
+    dev, bf, f32 = memory.device, torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def e(*shape, dtype=bf):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    frame = st["spec"][s - 1].contiguous()
+    h_prev = {"att": st["gen_in"][s - 1][:, :h].float(),
+              "gen": st["head_in"][s - 1][:, :h].float()}
+    c_prev = {w: st[f"c_{w}"][s - 1].float() for w in ("att", "gen")}
+    q = ftd.train_query_plain(st["gen_in"][s][:, :h], ops["wq"]).contiguous()
+    cum = st["cum"][s].float()
+    dframe, dh_gen, dctx = rnd(b, m), rnd(b, h, scale=0.1), rnd(b, mem)
+    dh, dc = rnd(b, h, scale=0.1), rnd(b, h, scale=0.1)
+    dg = {w: (rnd(b, 4 * h, scale=0.01)).to(bf) for w in ("att", "gen")}
+    dq = rnd(b, a, scale=0.1).to(bf)
+    dcum, dx = rnd(b, t_len, scale=0.1), rnd(b, p, scale=0.1)
+    dspec, dstop, dw = (x[s] for x in cts)
+
+    def prenet(k):
+        out = [e(b, m), e(cfg.n_prenet, b, p), e(b, p)]
+        k.train_prenet(shifted[s], frame, teacher[s], ops, cfg, seeds, s,
+                       *out)
+        return out
+
+    def gates(k):
+        outs = []
+        for w in ("att", "gen"):
+            hh, cc = h_prev[w].clone(), c_prev[w].clone()
+            o = [e(b, 4 * h), e(b, h), e(b, h)]
+            k.train_gate_lstm(st[f"{w}_in"][s], ops[f"{w}_w"], ops[f"{w}_b"],
+                              cfg.reg(w, seeds, s), hh, cc, *o, None)
+            outs += [hh, cc, *o]
+        return outs
+
+    def query(k):
+        out = e(b, a, dtype=f32)
+        k.train_query(st["gen_in"][s][:, :h], ops["wq"], out)
+        return [out]
+
+    def attention(k):
+        cc, ctx = cum.clone(), e(b, mem, dtype=f32)
+        o = [e(b, t_len, dtype=f32), e(b, t_len)]
+        dsts = (e(b, mem), e(b, mem), None)
+        k.train_attention(q, cc, memory, mtb, mask_add, ops["lc"], ops["v"],
+                          *o, ctx, dsts)
+        return [cc, ctx, *o, dsts[0]]
+
+    def head(k):
+        o = [e(b, m, dtype=f32), e(b, dtype=f32), e(b, m, dtype=f32)]
+        k.train_head(st["head_in"][s], ops["head_w"], ops["head_b"], *o)
+        return o
+
+    def bwd_head(k):
+        o = [e(b, m), e(b, h, dtype=f32), e(b, mem, dtype=f32)]
+        k.bwd_head(dspec, dstop, dframe, ops["head_w"], o[0], dh_gen, dctx,
+                   o[1], o[2], cfg)
+        return o
+
+    def bwd_cell(k):
+        outs = []
+        for w in ("att", "gen"):
+            dcc = dc.clone()
+            o = [e(b, 4 * h), e(b, h, dtype=f32)]
+            k.bwd_cell(st[f"act_{w}"][s], st[f"c_{w}"][s - 1], dh, dcc, *o,
+                       cfg.reg(w, seeds, s))
+            outs += [dcc, *o]
+        return outs
+
+    def bwd_gemm(k):
+        o = [e(b, h, dtype=f32), dctx.clone(), e(b, h, dtype=f32),
+             dh.clone(), e(b, p, dtype=f32), e(b, mem, dtype=f32),
+             e(b, h, dtype=f32)]
+        k.bwd_gemm(dg["gen"], ops["gen_w"], True,
+                   [(0, h, o[0], dh), (h, h + mem, o[1], o[1]),
+                    (h + mem, 2 * h + mem, o[2], dh)])
+        k.bwd_gemm(dq, ops["wq"], False, [(0, h, o[3], o[3])])
+        k.bwd_gemm(dg["att"], ops["att_w"], True,
+                   [(0, p, o[4], None), (p, p + mem, o[5], None),
+                    (p + mem, p + mem + h, o[6], dh)])
+        return o
+
+    def att_bwd(k):
+        acc = [torch.zeros(b, t_len, a, device=dev),
+               torch.zeros(b, cfg.taps, a, device=dev),
+               torch.zeros(b, a, device=dev)]
+        dcc = dcum.clone()
+        o = [e(b, a), e(b, mem)]
+        k.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops["lc"],
+                  ops["v"], dctx, dw, dcc, *acc, *o)
+        return [dcc, *acc, *o]
+
+    def bwd_prenet(k):
+        o = [e(cfg.n_prenet, b, p), e(b, m), e(b, m, dtype=f32)]
+        k.bwd_prenet(dx, st["pre"][:, s], ops, cfg, teacher[s], *o)
+        return o
+
+    return {"train_prenet": prenet, "train_gate_lstm": gates,
+            "train_query": query, "train_attention": attention,
+            "train_head": head, "bwd_head": bwd_head, "bwd_cell": bwd_cell,
+            "bwd_gemm": bwd_gemm, "att_bwd": att_bwd,
+            "bwd_prenet": bwd_prenet}
+
+
+def phase_train_kernels(hp, sd):
+    """K2 and K3 kernels against their plain versions at B=50, T=128, bf16.
+    Returns ({kernel: max_abs_err}, the inputs the timings reuse)."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    model = train_model(hp, sd)
+    batch = train_batch(hp, TRAIN_B, TRAIN_T, TRAIN_F, SEED + 5)
+    cfg, ops, memory, mtb, mask_add, shifted = decoder_inputs(
+        hp, model, batch, CHECK_STEPS)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    teacher = [int(x) for x in (torch.rand(CHECK_STEPS, generator=gen) < 0.5)]
+    seeds = (2654435761, 40503)
+    args = (ops, cfg, memory, mtb, mask_add, shifted, teacher, seeds)
+    st_k, carry_k = ftd.train_decode_forward(*args)
+    st_p, carry_p = ftd.train_decode_forward(*args, plain=True)
+    torch.cuda.synchronize()
+
+    for step in (3, CHECK_STEPS - 1):
+        got = mask_patterns(ftd.KERNELS, cfg, ops, st_p, shifted, seeds, step)
+        ref = mask_patterns(ftd.PLAIN, cfg, ops, st_p, shifted, seeds, step)
+        for name, g, r in zip(("prenet dropout", "att h", "att c", "gen h",
+                               "gen c"), got, ref):
+            if not torch.equal(g, r):
+                fail(f"{name} choices at step {step} differ in "
+                     f"{int((g != r).sum())} places")
+    n_masks = sum(int(x.sum()) for x in got)
+    print(f"[train:kernels] dropout and zoneout choices bit-exact at steps 3 "
+          f"and {CHECK_STEPS - 1} ({n_masks} dropped or kept-old units in "
+          f"the last)")
+
+    gen_c = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cts = [torch.randn(x.shape, device="cuda", generator=gen_c)
+           for x in (st_p["spec"], st_p["stop"], st_p["w"])]
+    calls = train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted,
+                               st_p, teacher, seeds, cts, CHECK_STEPS // 2)
+    errs = {}
+    for name, run in calls.items():
+        got, ref = run(ftd.KERNELS), run(ftd.PLAIN)
+        torch.cuda.synchronize()
+        worst = {}
+        for g, r in zip(got, ref):
+            if not torch.isfinite(g.float()).all():
+                fail(f"{name}: non-finite values")
+            kind = "bf16" if r.dtype == torch.bfloat16 else "f32"
+            worst[kind] = max(worst.get(kind, 0.0), max_err(g, r) / (
+                float(r.detach().float().abs().max()) + 1e-30))
+        bound = TRAIN_KERNEL_TOL[name]
+        if set(worst) != set(bound) or any(worst[k] > bound[k]
+                                           for k in worst):
+            fail(f"{name}: kernel vs plain off by {worst} of the largest "
+                 f"output (bounds {bound})")
+        errs[name] = max(max_err(g, r) for g, r in zip(got, ref))
+        print(f"[train:kernels] {name}: max abs err {errs[name]:.3g}; of the "
+              f"largest output: " + ", ".join(
+                  f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
+                  for k in sorted(worst)))
+
+    worst = {}
+    for k in st_p:
+        worst[f"forward {k}"] = rel(st_k[k], st_p[k])
+    for k in carry_p:
+        worst[f"forward carry {k}"] = rel(carry_k[k], carry_p[k])
+    bargs = (ops, cfg, memory, mtb, st_p, teacher, seeds, *cts)
+    g_k, s_k, c_k = ftd.train_decode_backward(*bargs)
+    g_p, s_p, c_p = ftd.train_decode_backward(*bargs, plain=True)
+    torch.cuda.synchronize()
+    for group, (gk, gp) in {"grad": (g_k, g_p), "stream": (s_k, s_p),
+                            "cotangent carry": (c_k, c_p)}.items():
+        for k in gp:
+            if not torch.isfinite(gk[k].float()).all():
+                fail(f"backward {group} {k}: non-finite values")
+            worst[f"backward {group} {k}"] = rel(gk[k], gp[k])
+    name, top = max(worst.items(), key=lambda kv: kv[1])
+    if top > TRAIN_CHAIN_TOL:
+        fail(f"{CHECK_STEPS} chained steps: {name} off by relative {top}")
+    print(f"[train:kernels] {CHECK_STEPS} chained steps at B={TRAIN_B} "
+          f"T={TRAIN_T}, forward and backward, kernels vs plain: relative "
+          f"error of {len(worst)} streams, gradients, accumulators and "
+          f"carries at most {top:.3g} ({name}; bound {TRAIN_CHAIN_TOL})")
+    check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
+                         teacher, seeds, cts)
+    return errs, (ftd, calls)
+
+
+def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
+                         teacher, seeds, cts) -> None:
+    """The decode as training differentiates it, with only K2/K3 apart:
+    ``TrainDecode`` (K2 forward, K3 backward) against ``torch.autograd``
+    through the plain K2 in differentiable ops, from the same float32
+    leaves on the card, under the loss ``sum(outputs * cts)``.  Relative
+    error (norms) of spec, stop, w and of the gradient of memory, the memory
+    transform, the shifted targets and every decoder operand."""
+    import torch
+
+    leaves = {k: v.detach().float().clone().requires_grad_()
+              for k, v in ftd.train_operands(model.decoder.cell, cfg).items()}
+    mem, mt, sh = (x.detach().float().requires_grad_()
+                   for x in (memory, mtb, shifted))
+    names = ["memory", "mtb", "shifted", *ftd.OPERAND_KEYS]
+    inputs = [mem, mt, sh] + [leaves[k] for k in ftd.OPERAND_KEYS]
+
+    def run(outs):
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cts))
+        return ([o.detach() for o in outs],
+                torch.autograd.grad(loss, inputs))
+
+    out_k, g_k = run(ftd.TrainDecode.apply(
+        cfg, tuple(teacher), tuple(seeds), mem, mt, mask_add, sh,
+        *[leaves[k] for k in ftd.OPERAND_KEYS]))
+    d = cfg.dtype
+    out_p, g_p = run(ftd.train_decode_forward_plain(
+        ftd.compute_operands(leaves, cfg), cfg, mem.to(d), mt.to(d),
+        mask_add, sh.to(d), teacher, seeds))
+    torch.cuda.synchronize()
+    worst = {f"output {k}": rel(a, b)
+             for k, a, b in zip(("spec", "stop", "w"), out_k, out_p)}
+    for k, a, b in zip(names, g_k, g_p):
+        if not torch.isfinite(a).all():
+            fail(f"TrainDecode gradient of {k}: non-finite values")
+        worst[f"grad {k}"] = rel(a, b)
+    name, top = max(worst.items(), key=lambda kv: kv[1])
+    if top > TRAIN_AUTOGRAD_TOL:
+        fail(f"TrainDecode vs autograd through the plain K2: {name} off by "
+             f"relative {top}")
+    print(f"[train:kernels] {shifted.shape[0]} steps through TrainDecode "
+          f"(K2/K3) vs torch.autograd through the plain K2, same card inputs: "
+          f"relative error at most {top:.3g} ({name}; bound "
+          f"{TRAIN_AUTOGRAD_TOL}); " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def phase_train_main(hp, sd):
+    import numpy as np
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+        TacotronLossState,
+        tacotron_loss,
+    )
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+    from multilingual_text_to_speech_tpu_torch.training import trainer
+
+    model = train_model(hp, sd)
+    opt, sched = trainer.make_optimizer(model, hp)
+    batch = train_batch(hp, TRAIN_B, TRAIN_T, TRAIN_F, SEED + 8)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    state = TacotronLossState.init(hp)
+    full = [1] * TRAIN_F
+    res = trainer.train_step(model, opt, sched, batch, state, gen,
+                             teacher=full)                      # warm-up
+    torch.cuda.synchronize()
+    state = res.loss_state
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+
+    ftd.reset_launch_counts()
+    times, results = [], []
+    for i in range(4):
+        teacher = full if i < 3 else [
+            int(x) for x in (torch.rand(TRAIN_F, generator=gen) < 0.5)]
+        t0 = time.perf_counter()
+        res = trainer.train_step(model, opt, sched, batch, state, gen,
+                                 teacher=teacher)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        results.append(res)
+        state = res.loss_state
+    launches = dict(ftd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    missing = [k for k in ftd.LAUNCHES if launches[k] == 0]
+    if missing:
+        fail(f"training kernels never launched on the main path: {missing}")
+    for i, r in enumerate(results):
+        vals = {k: float(v) for k, v in r.losses.items()}
+        if not all(np.isfinite(v) for v in vals.values()) or not np.isfinite(
+                float(r.grad_norm)):
+            fail(f"train step {i}: non-finite losses {vals}")
+    unchanged = [n for n, p in model.named_parameters()
+                 if p.grad is not None and torch.equal(p.detach(), before[n])]
+    if unchanged:
+        fail(f"parameters with a gradient that did not change: {unchanged}")
+    step_s = float(np.mean(times[:3]))
+    audio = TRAIN_B * TRAIN_F / 80.0
+    print(f"[train:main] train_step B={TRAIN_B} T={TRAIN_T} F={TRAIN_F} bf16:"
+          f" steps at teacher forcing 1.0 " + ", ".join(
+              f"{t:.4f}" for t in times[:3]) + f" s (mean {step_s:.4f} s = "
+          f"{audio / step_s:.2f} audio-seconds trained per second), at 0.5 "
+          f"{times[3]:.4f} s (host clock, after a warm-up step); peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB")
+    print("[train:main] losses: " + "; ".join(
+        ", ".join(f"{k} {float(v):.5f}" for k, v in r.losses.items())
+        + f", grad norm {float(r.grad_norm):.4f}, accuracy "
+        f"{float(r.accuracy):.4f}" for r in results))
+    per_step = {k: v / 4 for k, v in launches.items()}
+    print(f"[train:main] launches over 4 steps: {launches}")
+
+    # one more step, split by CUDA events (the pieces of train_step)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    text, lengths, mels, flen, spk, langs = (
+        torch.as_tensor(x, device="cuda") for x in (
+            batch.utterances, batch.utterance_lengths, batch.mel_spectrograms,
+            batch.spectrogram_lengths, batch.speakers, batch.languages))
+    ev[0].record()
+    out = model(text, lengths, mels, flen, spk, langs, full, (3, 4))
+    total, _ = tacotron_loss(
+        out, hp=hp, input_lengths=lengths, target_lengths=flen,
+        pre_target=mels, post_target=mels,
+        stop_target=torch.as_tensor(batch.stop_tokens, device="cuda"),
+        speakers=spk, guided_att_variance=state.guided_att_variance)
+    ev[1].record()
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    ev[2].record()
+    trainer.clip_grad_global_norm_(list(model.parameters()),
+                                   hp.gradient_clipping)
+    opt.step()
+    sched.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    print(f"[train:main] one step split by CUDA events: forward and loss "
+          f"{split[0]:.3f} ms, backward {split[1]:.3f} ms, clip and Adam "
+          f"{split[2]:.3f} ms")
+    return launches, per_step, step_s, (model, opt, sched, batch, state)
+
+
+def phase_train_vs_cpu(hp, sd) -> None:
+    """A small step on the card against the same step on the CPU plain
+    path: the same weights, batch, flags and seeds, dropout off."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+        tacotron_loss,
+    )
+
+    small = train_batch(hp, 10, 32, 32, SEED + 10)
+    teacher = [1] * 32
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = train_model(hp, sd, dev, dropout=False)
+        t = {k: torch.as_tensor(getattr(small, k), device=dev) for k in (
+            "utterances", "utterance_lengths", "mel_spectrograms",
+            "spectrogram_lengths", "stop_tokens", "speakers", "languages")}
+        o = m(t["utterances"], t["utterance_lengths"], t["mel_spectrograms"],
+              t["spectrogram_lengths"], t["speakers"], t["languages"],
+              teacher, (77, 88))
+        tot, losses = tacotron_loss(
+            o, hp=hp, input_lengths=t["utterance_lengths"],
+            target_lengths=t["spectrogram_lengths"],
+            pre_target=t["mel_spectrograms"],
+            post_target=t["mel_spectrograms"], stop_target=t["stop_tokens"],
+            speakers=t["speakers"], guided_att_variance=0.25)
+        tot.backward()
+        got[dev] = ({k: float(v) for k, v in losses.items()},
+                    {n: p.grad.detach().float().cpu()
+                     for n, p in m.named_parameters() if p.grad is not None})
+    (lk, gk), (lp, gp) = got["cuda"], got["cpu"]
+    if set(gk) != set(gp):
+        fail("card and CPU steps differ in which parameters get gradients")
+    names = sorted(gp)
+    checks = {"the whole gradient": (rel(
+        torch.cat([gk[n].reshape(-1) for n in names]),
+        torch.cat([gp[n].reshape(-1) for n in names])), TRAIN_E2E_TOL)}
+    checks.update({f"loss {k}": (abs(lk[k] - lp[k]) / (abs(lp[k]) + 1e-12),
+                                 TRAIN_E2E_TOL) for k in lp})
+    checks.update({f"grad {n}": (rel(gk[n], gp[n]), TRAIN_E2E_ENCODER_TOL
+                                 if n.startswith("encoder.")
+                                 else TRAIN_E2E_PARAM_TOL)
+                   for n in names if float(gp[n].norm()) > 0})
+    over = {k: v for k, v in checks.items() if v[0] > v[1]}
+    if over:
+        fail(f"train step card vs CPU: relative errors over their bounds: "
+             f"{over}")
+    for label, keys in (
+            ("the whole gradient and the loss terms",
+             [k for k in checks if not k.startswith("grad ")]),
+            ("decoder, postnet and classifier gradients",
+             [k for k in checks if k.startswith("grad ")
+              and not k.startswith("grad encoder.")]),
+            ("generated encoder gradients",
+             [k for k in checks if k.startswith("grad encoder.")])):
+        worst = max(keys, key=lambda k: checks[k][0])
+        print(f"[train:main] B=10 T=32 F=32 step, card vs CPU plain path "
+              f"(bf16, dropout off), {label} ({len(keys)}): relative error at "
+              f"most {checks[worst][0]:.3g} ({worst}; bound "
+              f"{checks[worst][1]})")
+
+
+def train_work(cfg, b, t_len):
+    """(bytes each input once + outputs once, operations) of each K2/K3
+    kernel row at B=b, T=t_len; products counted at the bf16 tensor rate."""
+    h, p, m, mem, a, k, n = (cfg.hidden, cfg.prenet_dim, cfg.mmel,
+                             cfg.mem_dim, cfg.att_dim, cfg.taps,
+                             cfg.n_prenet)
+    ka, kg, kh = cfg.ka, cfg.kg, cfg.kh
+    f32, bf = 4, 2
+    pre_w = (m * p + (n - 1) * p * p)
+    return {
+        "train_prenet": (b * m * (bf + f32) + pre_w * bf + n * p * f32
+                         + b * m * bf + n * b * p * bf + b * p * bf,
+                         2 * b * pre_w),
+        # both LSTMs of a step: rows, weights, biases, h/c carries read and
+        # written, activations, c stream and two h copies out
+        "train_gate_lstm": (b * (ka + kg) * bf + 4 * h * (ka + kg) * bf
+                            + 2 * 4 * h * f32
+                            + 2 * (4 * b * h * f32 + 4 * b * h * bf
+                                   + b * h * bf + 2 * b * h * bf),
+                            2 * b * (ka + kg) * 4 * h),
+        "train_query": (b * h * bf + h * a * bf + b * a * f32, 2 * b * h * a),
+        "train_attention": (b * a * f32 + 2 * b * t_len * f32
+                            + b * t_len * (mem + a) * bf + b * t_len * f32
+                            + k * a * bf + a * f32 + b * t_len * (f32 + bf)
+                            + b * mem * (f32 + 3 * bf),
+                            2 * b * t_len * (a * (k + 1) + mem)),
+        "train_head": (b * kh * bf + (m + 1) * kh * bf + (m + 1) * f32
+                       + b * (2 * m + 1) * f32, 2 * b * kh * (m + 1)),
+        "bwd_head": (b * (2 * m + 1) * f32 + (m + 1) * kh * bf
+                     + b * kh * f32 + b * m * bf + b * kh * f32,
+                     2 * b * (m + 1) * kh),
+        # both LSTM cells of a step
+        "bwd_cell": (2 * (b * 4 * h * bf + b * h * bf + 3 * b * h * f32
+                          + b * 4 * h * bf + b * h * f32), 2 * 20 * b * h),
+        # the three products of a step: generator, query, attention
+        "bwd_gemm": (b * 8 * h * bf + 4 * h * (kg + ka) * bf + h * a * bf
+                     + b * a * bf + b * (kg + ka + 3 * h + mem) * f32,
+                     2 * b * 4 * h * (kg + ka) + 2 * b * a * h),
+        "att_bwd": (b * a * f32 + b * t_len * (bf + f32)
+                    + b * t_len * (mem + a) * bf + k * a * bf + a * f32
+                    + b * mem * f32
+                    + b * t_len * f32 * 3 + 2 * b * t_len * a * f32
+                    + 2 * b * k * a * f32 + 2 * b * a * f32 + b * a * bf
+                    + b * mem * bf,
+                    2 * b * t_len * (3 * a * k + mem + 4 * a)),
+        "bwd_prenet": (b * p * f32 + n * b * p * bf + pre_w * bf
+                       + n * b * p * bf + b * m * (bf + f32), 2 * b * pre_w),
+    }
+
+
+def phase_train_timings(hp, errs, launches, per_step, inputs, main):
+    import torch
+
+    ftd, calls = inputs
+    model, opt, sched, batch, state = main
+    cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
+                                  torch.bfloat16)
+    ops = ftd.compute_operands(ftd.train_operands(model.decoder.cell, cfg),
+                               cfg)
+    b, dev, bf = TRAIN_B, "cuda", torch.bfloat16
+    rows_in = {w: torch.randn(b, ops[f"{w}_w"].shape[1], device=dev).to(bf)
+               for w in ("att", "gen", "head")}
+    h16 = torch.randn(b, cfg.hidden, device=dev).to(bf)
+    dg = torch.randn(b, 4 * cfg.hidden, device=dev).to(bf)
+    dq = torch.randn(b, cfg.att_dim, device=dev).to(bf)
+    dfv = torch.randn(b, cfg.mmel + 1, device=dev).to(bf)
+    library = {
+        "train_gate_lstm": lambda: (
+            torch.addmm(ops["att_b"].to(bf), rows_in["att"], ops["att_w"].t()),
+            torch.addmm(ops["gen_b"].to(bf), rows_in["gen"],
+                        ops["gen_w"].t())),
+        "train_query": lambda: torch.mm(h16, ops["wq"]),
+        "train_head": lambda: torch.addmm(ops["head_b"].to(bf),
+                                          rows_in["head"], ops["head_w"].t()),
+        # [dframe | dstop] @ the head weight, added to the h_gen | ctx
+        # cotangents
+        "bwd_head": lambda: torch.addmm(rows_in["head"], dfv, ops["head_w"]),
+        "bwd_gemm":lambda: (torch.mm(dg, ops["gen_w"]),
+                             torch.mm(dq, ops["wq"].t()),
+                             torch.mm(dg, ops["att_w"])),
+    }
+    work = train_work(cfg, b, TRAIN_T)
+    rows = []
+    for name, run in calls.items():
+        ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True)
+        plain_ms = device_ms(lambda: run(ftd.PLAIN), iters=5)
+        lib_ms = device_ms(library[name]) if name in library else None
+        n_bytes, ops_n = work[name]
+        b_ms, b_by = bound_ms(n_bytes, ops_n, "bf16")
+        rows.append({
+            "name": name, "route": "cuda", "source": TRAIN_SOURCE,
+            "replaces": REPLACES["K2" if name in ftd.K2_KERNELS else "K3"],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+        })
+        print(f"[train:time] {name} (device time, torch.profiler): kernel "
+              f"{ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+              f"{per_step[name] / TRAIN_F:.2f} launches per decoder step")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multilingual_text_to_speech_tpu_torch.training import trainer
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(model, opt, sched, batch, state, gen,
+                           teacher=[1] * TRAIN_F)
+        torch.cuda.synchronize()
+    busy = device_busy(prof)
+    if busy is None:
+        print("[train:profile] device busy share: not measured (the profiler "
+              "recorded no device events)")
+    else:
+        share, window, by_name = busy
+        print(f"[train:profile] one train step under torch.profiler: device "
+              f"busy {share:.4f} of {window / 1e3:.3f} ms from first to last "
+              f"kernel; device ms by kernel: " + ", ".join(
+                  f"{k} {v / 1e3:.2f}" for k, v in
+                  sorted(by_name.items(), key=lambda kv: -kv[1])[:14]))
+    return rows
 
 
 def main() -> int:
@@ -555,6 +1318,12 @@ def main() -> int:
     errs = phase_kernels(hp, sd)
     syn, launches, _ = phase_main(hp, sd)
     rows = phase_timings(hp, syn, errs, launches)
+    torch.set_grad_enabled(True)
+    train_errs, train_inputs = phase_train_kernels(hp, sd)
+    t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
+    phase_train_vs_cpu(hp, sd)
+    rows += phase_train_timings(hp, train_errs, t_launches, t_per_step,
+                                train_inputs, main_state)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

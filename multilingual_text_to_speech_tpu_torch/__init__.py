@@ -1,9 +1,13 @@
 """PyTorch port of the multilingual Tacotron 2 framework for NVIDIA Hopper.
 
 The JAX package ``multilingual_text_to_speech_tpu`` beside it is the
-reference; this package imports nothing of it.  The first slice covers
-batched serving synthesis with the flagship model: encoder, decoder (its
-step as hand-written CUDA kernels, ``ops/fused_decoder.py``), postnet.
+reference; this package imports nothing of it.  It covers, for the
+flagship model, batched serving synthesis (encoder, decoder with its step
+as hand-written CUDA kernels in ``ops/fused_decoder.py``, postnet) and the
+training step (``training/trainer.py::train_step``: the train-mode forward,
+the loss, the teacher-forced decoder's forward and backward as
+hand-written CUDA kernels in ``ops/fused_train_decoder.py``, clipping and
+Adam).
 """
 
 from multilingual_text_to_speech_tpu_torch.config import (

@@ -1,0 +1,941 @@
+// Hopper kernels of the teacher-forced Tacotron 2 decoder in training: the
+// forward step (K2) and its reverse-time backward step (K3).
+//
+// Replaces the JAX package's TPU kernels
+//   ops/pallas_train_decoder.py::_build_fwd_kernel  (K2, one chunk forward)
+//   ops/pallas_train_decoder.py::_build_bwd_kernel  (K3, one chunk backward)
+// The Python wrapper (ops/fused_train_decoder.py) loops over the steps and
+// launches, per forward step: train_prenet, gate_lstm (attention LSTM),
+// query, train_attention, gate_lstm (generator LSTM), head; per backward
+// step: bwd_head, bwd_cell, bwd_gemm (generator), query, att_bwd, bwd_gemm
+// (query), bwd_cell, bwd_gemm (attention), bwd_prenet; and once per
+// backward pass the dWq reduction (bwd_gemm over all steps and rows).
+//
+// Every product runs on the tensor cores through one tile routine
+// (mma.sync m16n8k16, bfloat16 inputs, float32 sums): the gate products
+// with the LSTM step, train-mode zoneout or dropout in the epilogue, the
+// attention query, the head, dgates @ W^T and dq @ Wq^T.  The location conv,
+// energy, softmax, context and their backward run on the CUDA cores, one
+// block per batch row.  Accumulators (dmt, the [K, A] location-conv grad dlc,
+// dv) are per batch row and summed once at the end: no float atomics, so a
+// run repeats bit for bit.
+//
+// Bound on the H100: a step's two gate products are 2*B*(K_att+K_gen)*4H
+// bf16 operations (1.6 G at B=50), 1.6 us at 989 TFLOP/s, against 32 MB of
+// gate weights that each step reads (9.6 us at 3.35 TB/s, mostly from L2
+// after the first step); the backward repeats them transposed.  This first
+// design launches one kernel per stage and step and tiles 32 rows by 64
+// columns, so with B=50 a gate product runs 128 blocks of 4 warps, bound by
+// the latency of its K loop rather than by either rate.
+//
+// Values are rounded to bfloat16 where the TPU kernels store or multiply in
+// the compute type, so the plain PyTorch versions can repeat the arithmetic.
+// Random bits: mask element (row, col) of site `salt` at global step gs
+// draws rand_bits(row, col; seed0, seed1, gs * (n_prenet + 4) + salt), as
+// ops/pallas_train_decoder.py::_salt_layout does.
+//
+// Interface: plain extern "C" launchers taking device pointers and a
+// cudaStream_t as void*, each returning cudaGetLastError().
+
+#include "common.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------------------
+// the tile product: C[BM x BN] = A[rows, K] @ B[K, cols] with bf16 operands
+// and float32 sums, four warps, mma.sync m16n8k16.  Layouts:
+//   A "MK": A[m * lda + k]          A "KM": A[k * lda + m]
+//   B "NK": B[n * ldb + k]          B "KN": B[k * ldb + n]
+// GATES (NK only): the block's 64 columns are the i, f, g, o columns of 16
+// hidden units, so an LSTM epilogue sees all four gates of a unit.
+// ---------------------------------------------------------------------------
+constexpr int BM = 32, BN = 64, BK = 32, GT = 128, SP = BK + 8;
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// eight consecutive bf16 at base[i * ld + j .. j + 7], zero outside
+// [0, I) x [0, J)
+__device__ __forceinline__ uint4 fetch8(const bf16* __restrict__ base,
+                                        int ld, int i, int j, int I, int J,
+                                        bool vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (i < 0 || i >= I) return v;
+  const bf16* p = base + (size_t)i * ld + j;
+  if (vec && j + 8 <= J) return *reinterpret_cast<const uint4*>(p);
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (j + q < J) e[q] = p[q];
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+struct TileSmem {
+  bf16 As[BM][SP];
+  bf16 Bs[BN][SP];
+  float Cs[BM][BN + 1];
+};
+
+template <bool A_KM, bool B_KN, bool GATES, class Epi>
+__global__ void __launch_bounds__(GT)
+gemm_kernel(const bf16* __restrict__ A, int lda, int avec,
+            const bf16* __restrict__ B, int ldb, int bvec, int M, int N,
+            int K, int H, Epi epi) {
+  __shared__ __align__(16) TileSmem sm;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+
+  // the B row (NK) of local column n, or -1 outside
+  auto b_row = [&](int n) -> int {
+    if (GATES) {
+      const int unit = (col0 >> 2) + (n & 15);
+      return unit < H ? (n >> 4) * H + unit : -1;
+    }
+    return col0 + n < N ? col0 + n : -1;
+  };
+  uint4 ra, rb[2];
+  auto fetch = [&](int k0) {
+    if (A_KM)
+      ra = fetch8(A, lda, k0 + (tid >> 2), row0 + (tid & 3) * 8, K, M,
+                  avec);
+    else
+      ra = fetch8(A, lda, row0 + (tid >> 2), k0 + (tid & 3) * 8, M, K,
+                  avec);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * GT;
+      if (B_KN)
+        rb[h] = fetch8(B, ldb, k0 + (p >> 3), col0 + (p & 7) * 8, K, N,
+                       bvec);
+      else
+        rb[h] = fetch8(B, ldb, b_row(p >> 2), k0 + (p & 3) * 8, 1 << 30,
+                       K, bvec);
+    }
+  };
+  auto put = [&]() {
+    const bf16* ea = reinterpret_cast<const bf16*>(&ra);
+    if (A_KM) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sm.As[(tid & 3) * 8 + q][tid >> 2] = ea[q];
+    } else {
+      *reinterpret_cast<uint4*>(&sm.As[tid >> 2][(tid & 3) * 8]) = ra;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * GT;
+      const bf16* eb = reinterpret_cast<const bf16*>(&rb[h]);
+      if (B_KN) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) sm.Bs[(p & 7) * 8 + q][p >> 3] = eb[q];
+      } else {
+        *reinterpret_cast<uint4*>(&sm.Bs[p >> 2][(p & 3) * 8]) = rb[h];
+      }
+    }
+  };
+
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+  fetch(0);
+  put();
+  __syncthreads();
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    const bool more = k0 + BK < K;
+    if (more) fetch(k0 + BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[2][4], b[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][0] = ld32(&sm.As[mt * 16 + g][kk + 2 * t]);
+        a[mt][1] = ld32(&sm.As[mt * 16 + g + 8][kk + 2 * t]);
+        a[mt][2] = ld32(&sm.As[mt * 16 + g][kk + 2 * t + 8]);
+        a[mt][3] = ld32(&sm.As[mt * 16 + g + 8][kk + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = warp * 16 + nt * 8 + g;
+        b[nt][0] = ld32(&sm.Bs[n][kk + 2 * t]);
+        b[nt][1] = ld32(&sm.Bs[n][kk + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma16816(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+    if (more) {
+      put();
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int r = mt * 16 + g, c = warp * 16 + nt * 8 + 2 * t;
+      sm.Cs[r][c] = acc[mt][nt][0];
+      sm.Cs[r][c + 1] = acc[mt][nt][1];
+      sm.Cs[r + 8][c] = acc[mt][nt][2];
+      sm.Cs[r + 8][c + 1] = acc[mt][nt][3];
+    }
+  __syncthreads();
+  epi(sm.Cs, row0, col0, M, N);
+}
+
+// regularization of a train-mode LSTM cell (ops/pallas_train_decoder.py
+// :375-401): 0 none, 1 zoneout (keep new where bits < thresh), 2 output
+// dropout on h (c untouched)
+struct Reg {
+  uint32_t seed0, seed1, salt_h, salt_c, th_h, th_c;
+  int mode;
+  float scale;  // 1 / keep of the h dropout
+};
+
+// gates + bias -> i, f, g, o; the LSTM step; the regularization; writes the
+// float32 carries, the bf16 activations and c stream, and h in bf16 into up
+// to two concat rows
+struct LstmEpi {
+  const float* bias;
+  float* h;
+  float* c;
+  bf16* act;
+  bf16* c_out;
+  bf16* h_dst0;
+  int ld0;
+  bf16* h_dst1;
+  int ld1;
+  int H;
+  Reg reg;
+  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
+                             int) const {
+    for (int idx = threadIdx.x; idx < BM * 16; idx += GT) {
+      const int r = idx >> 4, uu = idx & 15;
+      const int row = row0 + r, unit = (col0 >> 2) + uu;
+      if (row >= M || unit >= H) continue;
+      const float gi = sigmoid(Cs[r][uu] + bias[unit]);
+      const float gf = sigmoid(Cs[r][16 + uu] + bias[H + unit]);
+      const float gg = tanhf(Cs[r][32 + uu] + bias[2 * H + unit]);
+      const float go = sigmoid(Cs[r][48 + uu] + bias[3 * H + unit]);
+      const size_t o = (size_t)row * H + unit;
+      const float c_prev = c[o], h_prev = h[o];
+      const float cn = gf * c_prev + gi * gg;
+      const float hn = go * tanhf(cn);
+      bf16* a = act + (size_t)row * 4 * H + unit;
+      a[0] = __float2bfloat16_rn(gi);
+      a[H] = __float2bfloat16_rn(gf);
+      a[2 * H] = __float2bfloat16_rn(gg);
+      a[3 * H] = __float2bfloat16_rn(go);
+      float ho = hn, co = cn;
+      if (reg.mode == 1) {
+        const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                      reg.salt_h);
+        const uint32_t bc = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                      reg.salt_c);
+        ho = bh < reg.th_h ? hn : h_prev;
+        co = bc < reg.th_c ? cn : c_prev;
+      } else if (reg.mode == 2) {
+        const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                      reg.salt_h);
+        ho = bh < reg.th_h ? hn * reg.scale : 0.0f;
+      }
+      h[o] = ho;
+      c[o] = co;
+      c_out[o] = __float2bfloat16_rn(co);
+      const bf16 hb = __float2bfloat16_rn(ho);
+      h_dst0[(size_t)row * ld0 + unit] = hb;
+      if (h_dst1 != nullptr) h_dst1[(size_t)row * ld1 + unit] = hb;
+    }
+  }
+};
+
+// q = bf16(h @ Wq), held in float32
+struct RoundEpi {
+  float* out;
+  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
+                             int N) const {
+    for (int idx = threadIdx.x; idx < BM * BN; idx += GT) {
+      const int r = idx / BN, cc = idx % BN;
+      const int row = row0 + r, col = col0 + cc;
+      if (row < M && col < N)
+        out[(size_t)row * N + col] = round_bf16(Cs[r][cc]);
+    }
+  }
+};
+
+// fv = [h_gen | ctx] @ W_head + b: columns < N-1 are the frame (into the
+// spec stream and the frame carry), column N-1 the stop logit
+struct HeadEpi {
+  const float* bias;
+  float* spec;
+  float* frame;
+  float* stop;
+  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
+                             int N) const {
+    for (int idx = threadIdx.x; idx < BM * BN; idx += GT) {
+      const int r = idx / BN, cc = idx % BN;
+      const int row = row0 + r, col = col0 + cc;
+      if (row >= M || col >= N) continue;
+      const float fv = Cs[r][cc] + bias[col];
+      if (col < N - 1) {
+        spec[(size_t)row * (N - 1) + col] = fv;
+        frame[(size_t)row * (N - 1) + col] = fv;
+      } else {
+        stop[row] = fv;
+      }
+    }
+  }
+};
+
+// up to three column segments [lo, hi): out[row, col - lo] = add[row,
+// col - lo] + acc (add may be null, or equal to out)
+struct SegEpi {
+  int lo[3], hi[3], ldo[3], ldadd[3];
+  float* out[3];
+  const float* add[3];
+  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
+                             int) const {
+    for (int idx = threadIdx.x; idx < BM * BN; idx += GT) {
+      const int r = idx / BN, cc = idx % BN;
+      const int row = row0 + r, col = col0 + cc;
+      if (row >= M) continue;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        if (out[s] == nullptr || col < lo[s] || col >= hi[s]) continue;
+        const int j = col - lo[s];
+        const float base =
+            add[s] != nullptr ? add[s][(size_t)row * ldadd[s] + j] : 0.0f;
+        out[s][(size_t)row * ldo[s] + j] = base + Cs[r][cc];
+      }
+    }
+  }
+};
+
+__host__ bool vec_ok(const void* p, int ld) {
+  return ((uintptr_t)p % 16 == 0) && (ld % 8 == 0);
+}
+
+template <bool A_KM, bool B_KN, bool GATES, class Epi>
+int gemm_launch(const void* A, int lda, const void* B, int ldb, int M, int N,
+                int K, int H, const Epi& epi, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int gx = GATES ? (H + 15) / 16 : (N + BN - 1) / BN;
+  dim3 grid(gx, (M + BM - 1) / BM);
+  gemm_kernel<A_KM, B_KN, GATES, Epi><<<grid, GT, 0, (cudaStream_t)stream>>>(
+      (const bf16*)A, lda, vec_ok(A, lda), (const bf16*)B, ldb,
+      vec_ok(B, ldb), M, N, K, H, epi);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// train_prenet: the input frame (the shifted target at a teacher step, the
+// previous prediction otherwise), then n layers of relu(x @ W + b) with the
+// hashed dropout.  Writes the raw frame and each layer's post-dropout output
+// (bf16 streams) and the last layer into the attention LSTM's concat row.
+// Block: PRE_ROWS batch rows; threads walk the output columns.
+// ---------------------------------------------------------------------------
+constexpr int PRE_ROWS = 4;
+constexpr int PRE_THREADS = 256;
+
+__global__ void train_prenet_kernel(
+    const bf16* __restrict__ shifted, const float* __restrict__ frame,
+    int teacher, const bf16* __restrict__ w_all,
+    const float* __restrict__ b_all, bf16* __restrict__ raw_out,
+    bf16* __restrict__ pre_out, long long pre_stride, bf16* __restrict__ dst,
+    int ld_dst, int B, int in_dim, int P, int n_layers, uint32_t seed0,
+    uint32_t seed1, uint32_t salt0, uint32_t thresh, float scale,
+    int apply_dropout) {
+  extern __shared__ float smem[];
+  const int width = in_dim > P ? in_dim : P;
+  float* xa = smem;
+  float* xb = smem + PRE_ROWS * width;
+  const int row0 = blockIdx.x * PRE_ROWS;
+  for (int i = threadIdx.x; i < PRE_ROWS * in_dim; i += blockDim.x) {
+    const int r = i / in_dim, k = i % in_dim, row = row0 + r;
+    float x = 0.0f;
+    if (row < B) {
+      const size_t o = (size_t)row * in_dim + k;
+      x = teacher ? bf16_at(shifted, o) : frame[o];
+      raw_out[o] = __float2bfloat16_rn(x);
+    }
+    xa[r * width + k] = x;
+  }
+  __syncthreads();
+  const bf16* w = w_all;
+  const float* bias = b_all;
+  int k_dim = in_dim;
+  for (int layer = 0; layer < n_layers; ++layer) {
+    for (int j = threadIdx.x; j < P; j += blockDim.x) {
+      float acc[PRE_ROWS];
+#pragma unroll
+      for (int r = 0; r < PRE_ROWS; ++r) acc[r] = 0.0f;
+      for (int k = 0; k < k_dim; ++k) {
+        const float wv = bf16_at(w, (size_t)k * P + j);
+#pragma unroll
+        for (int r = 0; r < PRE_ROWS; ++r)
+          acc[r] = fmaf(round_bf16(xa[r * width + k]), wv, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < PRE_ROWS; ++r) {
+        const int row = row0 + r;
+        float y = fmaxf(acc[r] + bias[j], 0.0f);
+        if (apply_dropout) {
+          const bool keep = rand_bits((uint32_t)row, (uint32_t)j, (uint32_t)P,
+                                      seed0, seed1, salt0 + layer) < thresh;
+          y = keep ? y * scale : 0.0f;
+        }
+        xb[r * width + j] = y;
+        if (row < B) {
+          const bf16 yb = __float2bfloat16_rn(y);
+          pre_out[layer * pre_stride + (size_t)row * P + j] = yb;
+          if (layer == n_layers - 1) dst[(size_t)row * ld_dst + j] = yb;
+        }
+      }
+    }
+    __syncthreads();
+    float* tmp = xa;
+    xa = xb;
+    xb = tmp;
+    w += (size_t)k_dim * P;
+    bias += P;
+    k_dim = P;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// location-sensitive energy term of (row b, text position t, channel a):
+//   z = bf16(bf16(bf16(loc) + q) + mtb),  loc = sum_k bf16(cum[t+k-half]) lc
+// `s_cum` is the row's cum rounded to bf16 with (K-1)/2 zeros on each side.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float energy_tanh(const float* s_cum,
+                                             const float* s_lc,
+                                             const float* s_q, int t, int a,
+                                             int A, int K, float mtb) {
+  float loc = 0.0f;
+  for (int k = 0; k < K; ++k) loc = fmaf(s_cum[t + k], s_lc[k * A + a], loc);
+  const float z = round_bf16(round_bf16(round_bf16(loc) + s_q[a]) + mtb);
+  return round_bf16(tanhf(z));
+}
+
+// ---------------------------------------------------------------------------
+// train_attention: one block per batch row.  Energy, masked softmax,
+// w -> the weights stream, cum (before) -> its bf16 stream, cum += w,
+// ctx[m] = sum_t bf16(mem[t, m] * bf16(w[t])) -> the float32 carry and bf16
+// copies into up to three concat rows.
+// ---------------------------------------------------------------------------
+constexpr int ATT_THREADS = 256;
+
+__global__ void __launch_bounds__(ATT_THREADS)
+train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
+                       const bf16* __restrict__ memory,
+                       const bf16* __restrict__ mtb,
+                       const float* __restrict__ mask_add,
+                       const bf16* __restrict__ lc,
+                       const float* __restrict__ v, float* __restrict__ w_out,
+                       bf16* __restrict__ cum_out, float* __restrict__ ctx,
+                       bf16* __restrict__ dst0, int ld0,
+                       bf16* __restrict__ dst1, int ld1,
+                       bf16* __restrict__ dst2, int ld2, int T, int A, int Mem,
+                       int K) {
+  extern __shared__ float sm[];
+  float* s_q = sm;                   // A
+  float* s_v = s_q + A;              // A
+  float* s_lc = s_v + A;             // K * A
+  float* s_cum = s_lc + K * A;       // T + K - 1
+  float* s_e = s_cum + T + K - 1;    // T
+  float* s_red = s_e + T;            // 32
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int half = (K - 1) / 2;
+  for (int a = tid; a < A; a += blockDim.x) {
+    s_q[a] = q[(size_t)b * A + a];
+    s_v[a] = v[a];
+  }
+  for (int i = tid; i < K * A; i += blockDim.x) s_lc[i] = bf16_at(lc, i);
+  for (int i = tid; i < T + K - 1; i += blockDim.x) {
+    const int t = i - half;
+    s_cum[i] = (t >= 0 && t < T) ? round_bf16(cum[(size_t)b * T + t]) : 0.0f;
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  for (int t = warp; t < T; t += n_warps) {
+    float part = 0.0f;
+    for (int a = lane; a < A; a += 32) {
+      const float tz = energy_tanh(s_cum, s_lc, s_q, t, a, A, K,
+                                   bf16_at(mtb, ((size_t)b * T + t) * A + a));
+      part = fmaf(s_v[a], tz, part);
+    }
+    part = warp_sum(part);
+    if (lane == 0) s_e[t] = part + mask_add[(size_t)b * T + t];
+  }
+  __syncthreads();
+
+  float m = -CUDART_INF_F;
+  for (int t = tid; t < T; t += blockDim.x) m = fmaxf(m, s_e[t]);
+  m = block_reduce<true>(m, s_red);
+  float s = 0.0f;
+  for (int t = tid; t < T; t += blockDim.x) {
+    const float p = expf(s_e[t] - m);
+    s_e[t] = p;
+    s += p;
+  }
+  __syncthreads();
+  s = block_reduce<false>(s, s_red);
+  for (int t = tid; t < T; t += blockDim.x) {
+    const size_t o = (size_t)b * T + t;
+    const float wt = s_e[t] / s;
+    w_out[o] = wt;
+    const float c_old = cum[o];
+    cum_out[o] = __float2bfloat16_rn(c_old);
+    cum[o] = c_old + wt;
+    s_e[t] = round_bf16(wt);
+  }
+  __syncthreads();
+
+  for (int mm = tid; mm < Mem; mm += blockDim.x) {
+    float acc = 0.0f;
+    for (int t = 0; t < T; ++t)
+      acc += round_bf16(bf16_at(memory, ((size_t)b * T + t) * Mem + mm) *
+                        s_e[t]);
+    ctx[(size_t)b * Mem + mm] = acc;
+    const bf16 cb = __float2bfloat16_rn(acc);
+    dst0[(size_t)b * ld0 + mm] = cb;
+    dst1[(size_t)b * ld1 + mm] = cb;
+    if (dst2 != nullptr) dst2[(size_t)b * ld2 + mm] = cb;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bwd_head: one block per batch row.
+//   dframe_tot = dspec + dframe  -> the da_frame stream (bf16)
+//   dproto[j] = sum_m bf16(dframe_tot[m]) W[m, j] + dstop W[M, j]
+//   dh_gen_tot = dh_gen + dproto[:H];  dctx_tot = dctx + dproto[H:H+Mem]
+// W is the head weight [M + 1, ldw] (one row per output, inputs contiguous).
+// ---------------------------------------------------------------------------
+__global__ void bwd_head_kernel(const float* __restrict__ dspec,
+                                const float* __restrict__ dstop,
+                                const float* __restrict__ dframe,
+                                const bf16* __restrict__ w, int ldw,
+                                bf16* __restrict__ da_frame,
+                                const float* __restrict__ dh_gen,
+                                const float* __restrict__ dctx,
+                                float* __restrict__ dh_gen_tot,
+                                float* __restrict__ dctx_tot, int M, int H,
+                                int Mem) {
+  extern __shared__ float s_d[];  // M
+  const int b = blockIdx.x;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const size_t o = (size_t)b * M + m;
+    const float d = dspec[o] + dframe[o];
+    da_frame[o] = __float2bfloat16_rn(d);
+    s_d[m] = round_bf16(d);
+  }
+  __syncthreads();
+  const float ds = dstop[b];
+  for (int j = threadIdx.x; j < H + Mem; j += blockDim.x) {
+    float acc = 0.0f;
+    for (int m = 0; m < M; ++m) acc = fmaf(s_d[m], bf16_at(w, (size_t)m * ldw + j), acc);
+    acc += ds * bf16_at(w, (size_t)M * ldw + j);
+    if (j < H)
+      dh_gen_tot[(size_t)b * H + j] = dh_gen[(size_t)b * H + j] + acc;
+    else
+      dctx_tot[(size_t)b * Mem + j - H] = dctx[(size_t)b * Mem + j - H] + acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bwd_cell: the LSTM and regularization backward over the stored i|f|g|o
+// activations (ops/pallas_train_decoder.py:668-713), one thread per
+// (row, unit).  dc is the cell cotangent carry, updated in place; dh_reg is
+// the regularization's pass-through to the previous h.
+// ---------------------------------------------------------------------------
+__global__ void bwd_cell_kernel(const bf16* __restrict__ act,
+                                const bf16* __restrict__ c_prev,
+                                const float* __restrict__ dh_tot,
+                                float* __restrict__ dc, bf16* __restrict__ dg,
+                                float* __restrict__ dh_reg, int B, int H,
+                                Reg reg) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * H) return;
+  const int row = idx / H, unit = idx % H;
+  const bf16* a = act + (size_t)row * 4 * H + unit;
+  const float i = __bfloat162float(a[0]), f = __bfloat162float(a[H]);
+  const float gg = __bfloat162float(a[2 * H]), o = __bfloat162float(a[3 * H]);
+  const float cp = c_prev != nullptr ? bf16_at(c_prev, idx) : 0.0f;
+  const float tanh_c = tanhf(f * cp + i * gg);
+  const float dht = dh_tot[idx], dct = dc[idx];
+  float dh_new = dht, dh_prev = 0.0f, dc_state = dct, dc_prev = 0.0f;
+  if (reg.mode == 1) {
+    const bool zh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                              reg.salt_h) < reg.th_h;
+    const bool zc = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                              reg.salt_c) < reg.th_c;
+    dh_new = zh ? dht : 0.0f;
+    dh_prev = zh ? 0.0f : dht;
+    dc_state = zc ? dct : 0.0f;
+    dc_prev = zc ? 0.0f : dct;
+  } else if (reg.mode == 2) {
+    const bool keep = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                reg.salt_h) < reg.th_h;
+    dh_new = keep ? dht * reg.scale : 0.0f;
+  }
+  const float dc_new = dc_state + dh_new * o * (1.0f - tanh_c * tanh_c);
+  dc[idx] = dc_prev + dc_new * f;
+  dh_reg[idx] = dh_prev;
+  bf16* d = dg + (size_t)row * 4 * H + unit;
+  d[0] = __float2bfloat16_rn(dc_new * gg * i * (1.0f - i));
+  d[H] = __float2bfloat16_rn(dc_new * cp * f * (1.0f - f));
+  d[2 * H] = __float2bfloat16_rn(dc_new * i * (1.0f - gg * gg));
+  d[3 * H] = __float2bfloat16_rn(dh_new * tanh_c * o * (1.0f - o));
+}
+
+// ---------------------------------------------------------------------------
+// att_bwd: the attention backward of one step, one block per batch row
+// (ops/pallas_train_decoder.py:779-926, single fold):
+//   dw = dw_out + dcum + sum_m mem[t, m] dctx[m]
+//   de = w (dw - sum_t dw w)               (softmax backward, stored w)
+//   tz recomputed from cum and q; dz = de[t] v[a] (1 - tz^2)
+//   dmt += dz; dv += sum_t tz de; dq = sum_t dz (-> bf16 stream)
+//   dlc[k, a] += sum_t bf16(cum[t+k-half]) bf16(dz[t, a])
+//   dcum[t'] += sum_{k, a} bf16(dz[t'-k+half, a]) lc[k, a]
+// dmt [B, T, A], dlc [B, K, A] and dv [B, A] are per-row accumulators.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(ATT_THREADS)
+att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
+               const float* __restrict__ w_s, const bf16* __restrict__ memory,
+               const bf16* __restrict__ mtb, const bf16* __restrict__ lc,
+               const float* __restrict__ v, const float* __restrict__ dctx,
+               const float* __restrict__ dw_out, float* __restrict__ dcum,
+               float* __restrict__ dmt, float* __restrict__ dlc,
+               float* __restrict__ dv, bf16* __restrict__ dq_out,
+               bf16* __restrict__ dctx_out, int T, int A, int Mem, int K) {
+  extern __shared__ float sm[];
+  const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
+  float* s_q = sm;                    // A
+  float* s_v = s_q + A;               // A
+  float* s_lc = s_v + A;              // K * A
+  float* s_cum = s_lc + K * A;        // T + K - 1
+  float* s_w = s_cum + T + K - 1;     // T
+  float* s_de = s_w + T;              // T
+  float* s_dctx = s_de + T;           // Mem
+  float* s_pdv = s_dctx + Mem;        // parts * A
+  float* s_pdq = s_pdv + parts * A;   // parts * A
+  float* s_red = s_pdq + parts * A;   // 32
+  bf16* s_dz = reinterpret_cast<bf16*>(s_red + 32);  // T * A
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int half = (K - 1) / 2;
+
+  for (int a = tid; a < A; a += blockDim.x) {
+    s_q[a] = q[(size_t)b * A + a];
+    s_v[a] = v[a];
+  }
+  for (int i = tid; i < K * A; i += blockDim.x) s_lc[i] = bf16_at(lc, i);
+  for (int i = tid; i < T + K - 1; i += blockDim.x) {
+    const int t = i - half;
+    s_cum[i] = (t >= 0 && t < T) ? bf16_at(cum_s, (size_t)b * T + t) : 0.0f;
+  }
+  for (int t = tid; t < T; t += blockDim.x) s_w[t] = w_s[(size_t)b * T + t];
+  for (int m = tid; m < Mem; m += blockDim.x) {
+    const float d = dctx[(size_t)b * Mem + m];
+    s_dctx[m] = d;
+    dctx_out[(size_t)b * Mem + m] = __float2bfloat16_rn(d);
+  }
+  __syncthreads();
+
+  // dw, one warp per text position
+  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  for (int t = warp; t < T; t += n_warps) {
+    float part = 0.0f;
+    for (int m = lane; m < Mem; m += 32)
+      part = fmaf(bf16_at(memory, ((size_t)b * T + t) * Mem + m), s_dctx[m],
+                  part);
+    part = warp_sum(part);
+    if (lane == 0) {
+      const size_t o = (size_t)b * T + t;
+      s_de[t] = dw_out[o] + dcum[o] + part;
+    }
+  }
+  __syncthreads();
+  float s1 = 0.0f;
+  for (int t = tid; t < T; t += blockDim.x) s1 += s_de[t] * s_w[t];
+  s1 = block_reduce<false>(s1, s_red);
+  for (int t = tid; t < T; t += blockDim.x) s_de[t] = s_w[t] * (s_de[t] - s1);
+  __syncthreads();
+
+  // dz over (t, a): `parts` threads share a channel a, t strided
+  for (int idx = tid; idx < parts * A; idx += blockDim.x) {
+    const int a = idx % A, part = idx / A;
+    float pdv = 0.0f, pdq = 0.0f;
+    for (int t = part; t < T; t += parts) {
+      const size_t o = ((size_t)b * T + t) * A + a;
+      const float tz = energy_tanh(s_cum, s_lc, s_q, t, a, A, K,
+                                   bf16_at(mtb, o));
+      const float dtz = s_de[t] * s_v[a];
+      const float dz = dtz * (1.0f - tz * tz);
+      dmt[o] += dz;
+      pdv = fmaf(tz, s_de[t], pdv);
+      pdq += dz;
+      s_dz[t * A + a] = __float2bfloat16_rn(dz);
+    }
+    s_pdv[idx] = pdv;
+    s_pdq[idx] = pdq;
+  }
+  __syncthreads();
+  for (int a = tid; a < A; a += blockDim.x) {
+    float sv = 0.0f, sq = 0.0f;
+    for (int p = 0; p < parts; ++p) {
+      sv += s_pdv[p * A + a];
+      sq += s_pdq[p * A + a];
+    }
+    dv[(size_t)b * A + a] += sv;
+    dq_out[(size_t)b * A + a] = __float2bfloat16_rn(sq);
+  }
+
+  // the location conv's filter grad, [K, A]
+  for (int idx = tid; idx < K * A; idx += blockDim.x) {
+    const int a = idx % A, k = idx / A;
+    float acc = 0.0f;
+    for (int t = 0; t < T; ++t)
+      acc = fmaf(s_cum[t + k], __bfloat162float(s_dz[t * A + a]), acc);
+    dlc[(size_t)b * K * A + idx] += acc;
+  }
+  // the cum cotangent, one warp per position t'
+  for (int tp = warp; tp < T; tp += n_warps) {
+    float part = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      const int t = tp - k + half;
+      if (t < 0 || t >= T) continue;
+      for (int a = lane; a < A; a += 32)
+        part = fmaf(__bfloat162float(s_dz[t * A + a]), s_lc[k * A + a], part);
+    }
+    part = warp_sum(part);
+    if (lane == 0) dcum[(size_t)b * T + tp] += part;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bwd_prenet: one block per batch row.  Layers in reverse:
+//   da = (out > 0) ? dx * scale : 0     (post-dropout output > 0 replays both
+//                                        the ReLU and the dropout mask)
+//   dx = bf16(da) @ W^T
+// then the frame cotangent: dshift at a teacher step, the dframe carry
+// otherwise.
+// ---------------------------------------------------------------------------
+__global__ void bwd_prenet_kernel(const float* __restrict__ dx_in,
+                                  const bf16* __restrict__ pre_s,
+                                  long long pre_stride,
+                                  const bf16* __restrict__ w_all,
+                                  bf16* __restrict__ da_s,
+                                  long long da_stride,
+                                  bf16* __restrict__ dshift,
+                                  float* __restrict__ dframe, int teacher,
+                                  int in_dim, int P, int n_layers,
+                                  float scale) {
+  extern __shared__ float smem[];
+  const int width = in_dim > P ? in_dim : P;
+  float* s_dx = smem;           // width
+  float* s_da = smem + width;   // P
+  const int b = blockIdx.x;
+  for (int o = threadIdx.x; o < P; o += blockDim.x)
+    s_dx[o] = dx_in[(size_t)b * P + o];
+  __syncthreads();
+  for (int layer = n_layers - 1; layer >= 0; --layer) {
+    const int k_in = layer == 0 ? in_dim : P;
+    const bf16* w =
+        w_all + (layer == 0 ? 0 : (size_t)in_dim * P + (size_t)(layer - 1) * P * P);
+    for (int o = threadIdx.x; o < P; o += blockDim.x) {
+      const size_t e = (size_t)layer * da_stride + (size_t)b * P + o;
+      const float out = bf16_at(pre_s, (size_t)layer * pre_stride + (size_t)b * P + o);
+      const float da = out > 0.0f ? s_dx[o] * scale : 0.0f;
+      da_s[e] = __float2bfloat16_rn(da);
+      s_da[o] = round_bf16(da);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < k_in; i += blockDim.x) {
+      float acc = 0.0f;
+      for (int o = 0; o < P; ++o)
+        acc = fmaf(s_da[o], bf16_at(w, (size_t)i * P + o), acc);
+      s_dx[i] = acc;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < in_dim; i += blockDim.x) {
+    const size_t o = (size_t)b * in_dim + i;
+    dshift[o] = __float2bfloat16_rn(teacher ? s_dx[i] : 0.0f);
+    dframe[o] = teacher ? 0.0f : s_dx[i];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int train_prenet_launch(const void* shifted, const void* frame, int teacher,
+                        const void* w_all, const void* b_all, void* raw_out,
+                        void* pre_out, long long pre_stride, void* dst,
+                        int ld_dst, int B, int in_dim, int P, int n_layers,
+                        unsigned seed0, unsigned seed1, unsigned salt0,
+                        unsigned thresh, float scale, int apply_dropout,
+                        void* stream) {
+  const int width = in_dim > P ? in_dim : P;
+  const size_t smem = 2 * PRE_ROWS * width * sizeof(float);
+  cudaError_t err = allow_smem(train_prenet_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  train_prenet_kernel<<<(B + PRE_ROWS - 1) / PRE_ROWS, PRE_THREADS, smem,
+                        (cudaStream_t)stream>>>(
+      (const bf16*)shifted, (const float*)frame, teacher, (const bf16*)w_all,
+      (const float*)b_all, (bf16*)raw_out, (bf16*)pre_out, pre_stride,
+      (bf16*)dst, ld_dst, B, in_dim, P, n_layers, seed0, seed1, salt0, thresh,
+      scale, apply_dropout);
+  return (int)cudaGetLastError();
+}
+
+int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
+                     const void* bias, int B, int H, void* h, void* c,
+                     void* act, void* c_out, void* h_dst0, int ld0,
+                     void* h_dst1, int ld1, unsigned seed0, unsigned seed1,
+                     unsigned salt_h, unsigned salt_c, unsigned th_h,
+                     unsigned th_c, int mode, float scale, void* stream) {
+  LstmEpi epi{(const float*)bias, (float*)h, (float*)c, (bf16*)act,
+              (bf16*)c_out, (bf16*)h_dst0, ld0, (bf16*)h_dst1, ld1, H,
+              Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale}};
+  return gemm_launch<false, false, true>(row, ld_row, w, K, B, 4 * H, K, H,
+                                         epi, stream);
+}
+
+int query_launch(const void* h, int ld_h, const void* wq, int B, int H, int A,
+                 void* q_out, void* stream) {
+  return gemm_launch<false, true, false>(h, ld_h, wq, A, B, A, H, 0,
+                                         RoundEpi{(float*)q_out}, stream);
+}
+
+int head_launch(const void* row, int ld_row, const void* w, int K,
+                const void* bias, int B, int N, void* spec, void* frame,
+                void* stop, void* stream) {
+  HeadEpi epi{(const float*)bias, (float*)spec, (float*)frame, (float*)stop};
+  return gemm_launch<false, false, false>(row, ld_row, w, K, B, N, K, 0, epi,
+                                          stream);
+}
+
+// out segments of A @ B.  a_km: A is [K, M] (m contiguous); b_kn: B is
+// [K, N] (n contiguous), else [N, K].  Unused segments have a null out.
+int bwd_gemm_launch(const void* a, int lda, int a_km, const void* b, int ldb,
+                    int b_kn, int M, int N, int K, int lo0, int hi0,
+                    void* out0, int ldo0, const void* add0, int lda0, int lo1,
+                    int hi1, void* out1, int ldo1, const void* add1, int lda1,
+                    int lo2, int hi2, void* out2, int ldo2, const void* add2,
+                    int lda2, void* stream) {
+  SegEpi epi{{lo0, lo1, lo2}, {hi0, hi1, hi2}, {ldo0, ldo1, ldo2},
+             {lda0, lda1, lda2}, {(float*)out0, (float*)out1, (float*)out2},
+             {(const float*)add0, (const float*)add1, (const float*)add2}};
+  if (a_km && b_kn)
+    return gemm_launch<true, true, false>(a, lda, b, ldb, M, N, K, 0, epi,
+                                          stream);
+  if (a_km) return (int)cudaErrorInvalidValue;
+  if (b_kn)
+    return gemm_launch<false, true, false>(a, lda, b, ldb, M, N, K, 0, epi,
+                                           stream);
+  return gemm_launch<false, false, false>(a, lda, b, ldb, M, N, K, 0, epi,
+                                          stream);
+}
+
+int train_attention_launch(const void* q, void* cum, const void* memory,
+                           const void* mtb, const void* mask_add,
+                           const void* lc, const void* v, void* w_out,
+                           void* cum_out, void* ctx, void* dst0, int ld0,
+                           void* dst1, int ld1, void* dst2, int ld2, int B,
+                           int T, int A, int Mem, int K, void* stream) {
+  const size_t smem =
+      (size_t)(2 * A + K * A + (T + K - 1) + T + 32) * sizeof(float);
+  cudaError_t err = allow_smem(train_attention_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  train_attention_kernel<<<B, ATT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (float*)cum, (const bf16*)memory, (const bf16*)mtb,
+      (const float*)mask_add, (const bf16*)lc, (const float*)v,
+      (float*)w_out, (bf16*)cum_out, (float*)ctx, (bf16*)dst0, ld0,
+      (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A, Mem, K);
+  return (int)cudaGetLastError();
+}
+
+int bwd_head_launch(const void* dspec, const void* dstop, const void* dframe,
+                    const void* w, int ldw, void* da_frame,
+                    const void* dh_gen, const void* dctx, void* dh_gen_tot,
+                    void* dctx_tot, int B, int M, int H, int Mem,
+                    void* stream) {
+  bwd_head_kernel<<<B, 256, M * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)dspec, (const float*)dstop, (const float*)dframe,
+      (const bf16*)w, ldw, (bf16*)da_frame, (const float*)dh_gen,
+      (const float*)dctx, (float*)dh_gen_tot, (float*)dctx_tot, M, H, Mem);
+  return (int)cudaGetLastError();
+}
+
+int bwd_cell_launch(const void* act, const void* c_prev, const void* dh_tot,
+                    void* dc, void* dg, void* dh_reg, int B, int H,
+                    unsigned seed0, unsigned seed1, unsigned salt_h,
+                    unsigned salt_c, unsigned th_h, unsigned th_c, int mode,
+                    float scale, void* stream) {
+  const int n = B * H;
+  bwd_cell_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)act, (const bf16*)c_prev, (const float*)dh_tot,
+      (float*)dc, (bf16*)dg, (float*)dh_reg, B, H,
+      Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale});
+  return (int)cudaGetLastError();
+}
+
+int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
+                   const void* memory, const void* mtb, const void* lc,
+                   const void* v, const void* dctx, const void* dw_out,
+                   void* dcum, void* dmt, void* dlc, void* dv, void* dq_out,
+                   void* dctx_out, int B, int T, int A, int Mem, int K,
+                   void* stream) {
+  const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
+  const size_t smem =
+      (size_t)(2 * A + K * A + (T + K - 1) + 2 * T + Mem + 2 * parts * A +
+               32) * sizeof(float) +
+      (size_t)T * A * sizeof(bf16);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(att_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  att_bwd_kernel<<<B, ATT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const bf16*)cum_s, (const float*)w_s,
+      (const bf16*)memory, (const bf16*)mtb, (const bf16*)lc, (const float*)v,
+      (const float*)dctx, (const float*)dw_out, (float*)dcum, (float*)dmt,
+      (float*)dlc, (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem, K);
+  return (int)cudaGetLastError();
+}
+
+int bwd_prenet_launch(const void* dx, const void* pre_s, long long pre_stride,
+                      const void* w_all, void* da_s, long long da_stride,
+                      void* dshift, void* dframe, int teacher, int B,
+                      int in_dim, int P, int n_layers, float scale,
+                      void* stream) {
+  const int width = in_dim > P ? in_dim : P;
+  const size_t smem = (size_t)(width + P) * sizeof(float);
+  cudaError_t err = allow_smem(bwd_prenet_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_prenet_kernel<<<B, 256, smem, (cudaStream_t)stream>>>(
+      (const float*)dx, (const bf16*)pre_s, pre_stride, (const bf16*)w_all,
+      (bf16*)da_s, da_stride, (bf16*)dshift, (float*)dframe, teacher, in_dim,
+      P, n_layers, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

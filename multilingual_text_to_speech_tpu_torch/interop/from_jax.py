@@ -13,7 +13,8 @@ The port's module names mirror the flax parameter paths (``/`` becomes
 - the attention parameters and the generated batch norms' ``mean``/``var``
   keep their JAX names and layouts.
 
-Only the inference modules are ported; the speaker classifier is skipped.
+Every module of the flagship model maps over, the speaker classifier
+included.
 """
 
 from __future__ import annotations
@@ -22,9 +23,6 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
-
-_SKIPPED = ("classifier",)
-
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -60,8 +58,6 @@ def params_from_jax(variables_np: Dict[str, Any], hp=None
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables_np.get(collection, {})):
-            if path[0] in _SKIPPED:
-                continue
             names, arr = _convert(path, value, collection)
             out[".".join(names)] = torch.from_numpy(
                 np.ascontiguousarray(arr, dtype=np.float32))

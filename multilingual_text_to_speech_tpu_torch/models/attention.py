@@ -4,8 +4,9 @@ Port of ``LocationSensitiveAttention`` in the JAX package's
 ``models/attention.py``.  The parameters keep the JAX layouts and names;
 the step itself (query product, location conv over the cumulative weights,
 energy, masked softmax, context and ``cum += weights``) runs in
-``ops/fused_decoder.py`` (``lsa_attention`` and its plain version).  The
-forward-attention families are not ported.
+``ops/fused_decoder.py`` (``lsa_attention`` and its plain version) at
+inference and in ``ops/fused_train_decoder.py`` (``train_attention``,
+``att_bwd``) in training.  The forward-attention families are not ported.
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
-"""The autoregressive Tacotron 2 decoder for inference.
+"""The autoregressive Tacotron 2 decoder: teacher-forced training and
+chunked free-running inference.
 
 Port of the JAX package's ``models/decoder.py``.  The module tree mirrors
 the flax parameter paths (``cell.prenet.fc0``,
 ``cell.attention_lstm.cell.gates``, ...), so a JAX weight tree maps onto it
-by ``interop.from_jax``.  ``DecoderCell`` holds the step's weights; the step
-itself is ``ops/fused_decoder.py``, whose plain PyTorch chunk
+by ``interop.from_jax``.  ``DecoderCell`` holds the step's weights.  The
+free-running step is ``ops/fused_decoder.py``, whose plain PyTorch chunk
 ``Decoder.decode_chunk`` runs with exact gates, as the counterpart of the
-JAX package's ``lax.scan`` decode.  The serving path runs the same chunk
+JAX package's ``lax.scan`` decode; the serving path runs the same chunk
 through ``fused_decoder.decode_chunk`` (the CUDA kernels on the card).
+``Decoder.forward`` is the teacher-forced training decode of
+``ops/fused_train_decoder.py`` (its kernels on the card, its plain version
+on the CPU), the JAX package's fused train branch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,7 +28,10 @@ from multilingual_text_to_speech_tpu_torch.models.attention import (
 from multilingual_text_to_speech_tpu_torch.models.rnn import (
     RegularizedLSTMCell,
 )
-from multilingual_text_to_speech_tpu_torch.ops import fused_decoder
+from multilingual_text_to_speech_tpu_torch.ops import (
+    fused_decoder,
+    fused_train_decoder,
+)
 
 Carry = Dict[str, Any]
 
@@ -106,6 +113,27 @@ class Decoder(nn.Module):
         memory = torch.cat(parts, dim=-1).to(self.dtype)
         mt = memory @ self.memory.weight.to(self.dtype).t()
         return memory, mt
+
+    def forward(self, encoded: torch.Tensor, text_lengths: torch.Tensor,
+                target: torch.Tensor, teacher: Sequence[int],
+                seeds: Tuple[int, int], speakers: Optional[torch.Tensor],
+                languages: Optional[torch.Tensor]):
+        """The teacher-forced training decode.  ``encoded`` [B, T, C]
+        float32, ``target`` [B, F, M] mel frames, ``teacher`` F flags (1:
+        the step reads the previous target frame, 0: its own previous
+        prediction), ``seeds`` the two uint32 seeds of the dropout and
+        zoneout hash -> ``(spec [B, F, M], stop logits [B, F], alignments
+        [B, F, T])``, float32."""
+        t = encoded.shape[1]
+        memory, mt = self.prepare_memory(encoded, speakers, languages)
+        mask = (torch.arange(t, device=encoded.device)[None, :]
+                < text_lengths[:, None])
+        shifted = torch.cat([torch.zeros_like(target[:, :1]),
+                             target[:, :-1]], dim=1)
+        cfg = fused_train_decoder.TrainConfig.from_hp(
+            self.hp, self.memory_dim, self.dtype)
+        return fused_train_decoder.decode(self.cell, cfg, memory, mt, mask,
+                                          shifted, teacher, seeds)
 
     def initial_carry(self, batch_size: int, max_len: int,
                       device=None) -> Carry:

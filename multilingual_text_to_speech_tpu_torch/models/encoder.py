@@ -1,8 +1,13 @@
-"""The generated (meta-learning) grouped convolutional encoder, inference.
+"""The generated (meta-learning) grouped convolutional encoder.
 
 Port of ``GeneratedConvolutionalEncoder`` in the JAX package's
-``models/encoder.py``.  Two inference paths:
+``models/encoder.py``.  Three paths:
 
+- **language-interleaved groups** (training, and eval on a training batch):
+  sample ``k*g + j`` has language j, B is a multiple of the g languages,
+  and group j runs samples ``j, g + j, 2g + j, ...`` through language j's
+  generated encoder (the perfect sampler's contract); in train mode the
+  blocks normalize by batch statistics and apply dropout;
 - **row groups** (one-hot languages): the caller sorts the batch by language
   and pads each language's run to whole row groups; row group i (samples
   ``[i*B/r, (i+1)*B/r)``) runs only language ``group_langs[i]``'s generated
@@ -25,6 +30,19 @@ from multilingual_text_to_speech_tpu_torch.models.layers import (
     HighwayConvBlockGenerated,
 )
 
+
+def to_grouped(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, ...] language-interleaved -> group-major [g, B/g, ...]: sample
+    ``k*g + j`` becomes row ``[j, k]``."""
+    return x.reshape(x.shape[0] // groups, groups, *x.shape[1:]).transpose(
+        0, 1)
+
+
+def from_grouped(x4: torch.Tensor) -> torch.Tensor:
+    """Group-major [g, B/g, ...] -> [B, ...] (inverse of ``to_grouped``)."""
+    return x4.transpose(0, 1).reshape(-1, *x4.shape[2:])
+
+
 # (kind, kernel, dilation, activation) of the DCTTS-style stack:
 # 2 conv(k=1) + 8 highway(k=3, dilation 3^i twice) + 2 highway(k=3)
 # + 2 highway(k=1)
@@ -39,7 +57,7 @@ _STACK = (
 class GeneratedConvolutionalEncoder(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, embedding_dim: int,
                  bottleneck_dim: int, groups: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.groups = groups
         self.generator_embedding = nn.Embedding(groups, embedding_dim)
@@ -49,7 +67,7 @@ class GeneratedConvolutionalEncoder(nn.Module):
             layers[f"layer{li}"] = cls(
                 embedding_dim, bottleneck_dim,
                 (input_dim if li == 0 else output_dim) * groups,
-                output_dim * groups, k, act, dil, groups, dtype)
+                output_dim * groups, k, act, dil, groups, dtype, dropout)
         self.stack = nn.ModuleDict(layers)
 
     def _run_stack(self, x4, lang_ids, mask):
@@ -62,12 +80,21 @@ class GeneratedConvolutionalEncoder(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 lang_weights: torch.Tensor | None = None,
                 group_langs: torch.Tensor | None = None) -> torch.Tensor:
-        """``x`` [B, T, C] -> [B, T, C_out].  Exactly one of
-        ``group_langs`` [r] (row groups) and ``lang_weights`` [B, T, L]
-        (mixing) is given."""
+        """``x`` [B, T, C] -> [B, T, C_out].  At most one of ``group_langs``
+        [r] (row groups) and ``lang_weights`` [B, T, L] (mixing) is given;
+        with neither, the batch is language-interleaved."""
         b, t, c = x.shape
         mask = (torch.arange(t, device=x.device)[None, :]
                 < lengths[:, None]).float()                     # [B, T]
+        if group_langs is None and lang_weights is None:
+            g = self.groups
+            if b % g:
+                raise ValueError(f"batch {b} is not a multiple of the {g} "
+                                 "language groups")
+            h = self._run_stack(to_grouped(x, g),
+                                torch.arange(g, device=x.device),
+                                to_grouped(mask[..., None], g))
+            return from_grouped(h)
         if group_langs is not None:
             if lang_weights is not None:
                 raise ValueError("row groups and accent mixing are exclusive")
@@ -75,9 +102,6 @@ class GeneratedConvolutionalEncoder(nn.Module):
             h = self._run_stack(x.reshape(r, b // r, t, c), group_langs,
                                 mask.reshape(r, b // r, t, 1))
             return h.reshape(b, t, -1)
-        if lang_weights is None:
-            raise ValueError(
-                "the generated encoder needs group_langs or lang_weights")
         g = self.groups
         all_langs = torch.arange(g, device=x.device)
         h = self._run_stack(x[None].expand(g, b, t, c), all_langs,

@@ -1,4 +1,4 @@
-"""Convolutional blocks, plain and meta-generated (inference mode).
+"""Convolutional blocks, plain and meta-generated.
 
 Port of the JAX package's ``models/layers.py``.  Activations are
 channels-last ``[batch, time, channels]`` at the public functions, like the
@@ -6,10 +6,12 @@ JAX package.  The grouped generated blocks work on the group-major layout
 ``[r, B, T, c]`` (r row groups, each with its own language), and their
 convolutions run as one ``F.conv1d(groups=r)``.
 
-Only the eval forward is ported: batch norm uses running statistics, and
-the generated blocks fold them into the generated kernel as the JAX eval
-path does.  Parameters stay float32; ``dtype`` is the compute type of the
-convolutions.
+In eval mode batch norm uses running statistics, and the generated blocks
+fold them into the generated kernel as the JAX eval path does.  In train
+mode (``module.train()``) batch norm normalizes by the batch's own
+statistics and updates the running ones, and dropout is on, as the JAX
+blocks do with ``train=True``.  Parameters stay float32; ``dtype`` is the
+compute type of the convolutions.
 """
 
 from __future__ import annotations
@@ -57,25 +59,43 @@ def grouped_conv1d(x4: torch.Tensor, kernel: torch.Tensor,
 
 
 class ConvBlock(nn.Module):
-    """Conv1d -> BatchNorm (running statistics) -> activation, channels-last.
-    The postnet's block; dropout is off at inference."""
+    """Conv1d -> BatchNorm -> activation -> dropout, channels-last: the
+    postnet's block.
+
+    Train mode follows flax ``nn.BatchNorm`` (momentum 0.9): the batch's
+    biased variance normalizes, and the running mean and var move as
+    ``0.9 * old + 0.1 * batch`` with that biased variance.
+    ``torch.nn.BatchNorm1d`` would update the running var with the unbiased
+    estimate, so its module holds only the parameters and statistics here.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  activation: str = "identity",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.Conv_0 = nn.Conv1d(in_channels, out_channels, kernel, bias=False)
         self.BatchNorm_0 = nn.BatchNorm1d(out_channels, eps=1e-5)
         self.kernel = kernel
         self.activation = get_activation(activation)
         self.dtype = dtype
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:      # [B, F, C]
         xx = F.pad(x.to(self.dtype).transpose(1, 2),
                    same_pad_amounts(self.kernel, 1))
-        y = F.conv1d(xx, self.Conv_0.weight.to(self.dtype))
-        y = self.BatchNorm_0(y.float())
-        return self.activation(y).transpose(1, 2)
+        y = F.conv1d(xx, self.Conv_0.weight.to(self.dtype)).float()
+        bn = self.BatchNorm_0
+        if not self.training:
+            return self.activation(bn(y)).transpose(1, 2)
+        mean = y.mean(dim=(0, 2))
+        var = torch.clamp((y * y).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(0.9).add_(0.1 * mean)
+            bn.running_var.mul_(0.9).add_(0.1 * var)
+        inv = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (y - mean[:, None]) * inv[:, None] + bn.bias[:, None]
+        y = F.dropout(self.activation(y), self.dropout, training=True)
+        return y.transpose(1, 2)
 
 
 class Conv1dGenerated(nn.Module):
@@ -119,6 +139,27 @@ class BatchNorm1dGenerated(nn.Module):
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
+    def normalize_train(self, embedding: torch.Tensor,
+                        x4: torch.Tensor) -> torch.Tensor:
+        """Train mode on the group-major ``x4`` [g, B/g, T, c]: each group's
+        own batch statistics over (B/g, T), padded positions included; the
+        flat ``[g*c]`` running statistics move with momentum 0.1 and the
+        unbiased variance.  Normalizes in float32, returns ``x4``'s type."""
+        affine = self.affine(self.bottleneck(embedding))
+        scale, bias = affine[:, :self.c], affine[:, self.c:]
+        x32 = x4.float()
+        mean = x32.mean(dim=(1, 2))                             # [g, c]
+        var = (x32 * x32).mean(dim=(1, 2)) - mean * mean
+        n = x32[0, :, :, 0].numel()
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1.0, 1.0))
+            self.mean.mul_(0.9).add_(0.1 * mean.reshape(-1))
+            self.var.mul_(0.9).add_(0.1 * unbiased.reshape(-1))
+        inv = torch.rsqrt(var + self.eps) * scale
+        shift = bias - mean * inv
+        return (x4 * inv[:, None, None, :]
+                + shift[:, None, None, :]).to(x4.dtype)
+
     def scale_and_shift(self, embedding: torch.Tensor,
                         lang_ids: torch.Tensor):
         """Per-row-group ``inv = scale / sqrt(var + eps)`` and
@@ -133,13 +174,15 @@ class BatchNorm1dGenerated(nn.Module):
 
 
 class ConvBlockGenerated(nn.Module):
-    """Generated conv -> generated batch norm -> activation; at inference
-    the batch norm is folded into the generated kernel and bias."""
+    """Generated conv -> generated batch norm -> activation (-> dropout in
+    train mode); in eval mode the batch norm is folded into the generated
+    kernel and bias."""
 
     def __init__(self, embedding_dim: int, bottleneck_dim: int,
                  in_channels: int, out_channels: int, kernel: int,
                  activation: str = "identity", dilation: int = 1,
-                 groups: int = 1, dtype: torch.dtype = torch.float32):
+                 groups: int = 1, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.Conv1dGenerated_0 = Conv1dGenerated(
             embedding_dim, bottleneck_dim, in_channels, out_channels, kernel,
@@ -149,6 +192,7 @@ class ConvBlockGenerated(nn.Module):
         self.activation = get_activation(activation)
         self.dilation = dilation
         self.dtype = dtype
+        self.dropout = dropout
 
     def generate_folded(self, embedding, lang_ids):
         """Kernel [k, cin, r, cout] and bias [r*cout] with the batch norm
@@ -159,6 +203,12 @@ class ConvBlockGenerated(nn.Module):
         return kernel * inv, shift.reshape(-1)
 
     def forward(self, embedding, x4, lang_ids):
+        if self.training:
+            kernel = self.Conv1dGenerated_0.generate(embedding)
+            y = self.BatchNorm1dGenerated_0.normalize_train(
+                embedding,
+                grouped_conv1d(x4, kernel, None, self.dilation, self.dtype))
+            return F.dropout(self.activation(y), self.dropout, training=True)
         kernel, bias = self.generate_folded(embedding, lang_ids)
         return self.activation(
             grouped_conv1d(x4, kernel, bias, self.dilation, self.dtype))
@@ -173,17 +223,22 @@ class HighwayConvBlockGenerated(nn.Module):
     def __init__(self, embedding_dim: int, bottleneck_dim: int,
                  in_channels: int, out_channels: int, kernel: int,
                  activation: str = "identity", dilation: int = 1,
-                 groups: int = 1, dtype: torch.dtype = torch.float32):
+                 groups: int = 1, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.ConvBlockGenerated_0 = ConvBlockGenerated(
             embedding_dim, bottleneck_dim, in_channels, 2 * out_channels,
-            kernel, activation, dilation, groups, dtype)
+            kernel, activation, dilation, groups, dtype, dropout)
         self.c = out_channels // groups
 
     def forward(self, embedding, x4, lang_ids):
         block = self.ConvBlockGenerated_0
-        kernel, bias = block.generate_folded(embedding, lang_ids)
         c = self.c
+        if self.training:
+            h = block(embedding, x4, lang_ids)
+            p = torch.sigmoid(h[..., :c])
+            return h[..., c:] * p + x4 * (1.0 - p)
+        kernel, bias = block.generate_folded(embedding, lang_ids)
         bias = bias.reshape(embedding.shape[0], 2 * c)
         h1 = block.activation(grouped_conv1d(
             x4, kernel[..., :c], bias[:, :c].reshape(-1), block.dilation,

@@ -1,5 +1,6 @@
-"""The residual conv postnet (inference).  Port of ``Postnet`` in the JAX
-package's ``models/postnet.py``; the CBHG postnet is not ported."""
+"""The residual conv postnet.  Port of ``Postnet`` in the JAX package's
+``models/postnet.py`` (eval and train mode); the CBHG postnet is not
+ported."""
 
 from __future__ import annotations
 
@@ -10,11 +11,12 @@ from multilingual_text_to_speech_tpu_torch.models.layers import ConvBlock
 
 
 class Postnet(nn.Module):
-    """``num_blocks`` ConvBlocks (tanh except the last) plus a skip."""
+    """``num_blocks`` ConvBlocks (tanh except the last) plus a skip; in
+    train mode each block uses batch statistics and dropout ``dropout``."""
 
     def __init__(self, input_dim: int, dimension: int = 512,
                  num_blocks: int = 5, kernel_size: int = 5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         if num_blocks < 2:
             raise ValueError("the postnet needs at least two blocks")
@@ -23,7 +25,7 @@ class Postnet(nn.Module):
             self.add_module(f"conv{i}", ConvBlock(
                 input_dim if i == 0 else dimension,
                 input_dim if last else dimension, kernel_size,
-                "identity" if last else "tanh", dtype))
+                "identity" if last else "tanh", dtype, dropout))
         self.num_blocks = num_blocks
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:      # [B, F, M]

@@ -1,11 +1,13 @@
-"""Fused-gate LSTM cells with zoneout or output dropout, inference mode.
+"""Fused-gate LSTM cells with zoneout or output dropout.
 
 Port of the JAX package's ``models/rnn.py``.  One ``[x, h] @ W`` product
 gives the four gates in the order (i, f, g, o), like ``torch.nn.LSTMCell``.
 At inference zoneout is the deterministic ``z*old + (1-z)*new`` and the
 dropout cell leaves its output alone.  The modules hold the weights under
-the flax paths; the step itself runs in ``ops/fused_decoder.py``
-(``gate_lstm`` and its plain version), which uses the two functions below.
+the flax paths; the inference step runs in ``ops/fused_decoder.py``
+(``gate_lstm`` and its plain version, which use the two functions below),
+the training step with its hashed zoneout and dropout masks in
+``ops/fused_train_decoder.py``.
 """
 
 from __future__ import annotations

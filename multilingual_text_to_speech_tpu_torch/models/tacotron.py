@@ -1,15 +1,18 @@
-"""Tacotron 2 for inference: encode, chunked decode, postnet.
+"""Tacotron 2: the training forward and loss, and the inference pieces
+(encode, chunked decode, postnet).
 
-Port of the inference pieces of ``Tacotron`` in the JAX package's
-``models/tacotron.py`` for the flagship topology (the generated encoder and
+Port of ``Tacotron``, ``TacotronLossState`` and ``tacotron_loss`` in the JAX
+package's ``models/tacotron.py`` for the flagship topology (the generated
+encoder, the reversal speaker classifier, location-sensitive attention and
 the conv postnet).  Spectrograms are channels-last ``[batch, frames, bins]``
-like the JAX package.  The training forward, the speaker classifier and the
-loss are not ported.
+like the JAX package.  ``Tacotron.forward`` is the training forward: call
+``model.train()`` first for batch-statistics batch norm and dropout.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +20,10 @@ from torch import nn
 
 from multilingual_text_to_speech_tpu_torch.models.attention import (
     LocationSensitiveAttention,
+)
+from multilingual_text_to_speech_tpu_torch.models.classifier import (
+    ReversalClassifier,
+    reversal_classifier_loss,
 )
 from multilingual_text_to_speech_tpu_torch.models.decoder import Decoder
 from multilingual_text_to_speech_tpu_torch.models.encoder import (
@@ -42,18 +49,29 @@ class Tacotron(nn.Module):
                 f"encoder type {hp.encoder_type!r} is not ported")
         if hp.predict_linear:
             raise NotImplementedError("the CBHG postnet is not ported")
+        if (hp.reversal_classifier
+                and hp.reversal_classifier_type != "reversal"):
+            raise NotImplementedError(
+                "the cosine-similarity classifier is not ported")
         self.hp = hp
         self.dtype = dtype
         groups = hp.language_number if hp.multi_language else 1
         self.embedding = nn.Embedding(hp.total_symbols(),
                                       hp.embedding_dimension)
+        # the encoder's dropout is 0.05 whatever hp.dropout says, as in the
+        # reference model's factory
         self.encoder = GeneratedConvolutionalEncoder(
             hp.embedding_dimension, hp.encoder_dimension, hp.generator_dim,
-            hp.generator_bottleneck_dim, groups, dtype)
+            hp.generator_bottleneck_dim, groups, dtype, dropout=0.05)
+        if hp.reversal_classifier:
+            self.classifier = ReversalClassifier(
+                hp.encoder_dimension, hp.reversal_classifier_dim,
+                hp.speaker_number, hp.reversal_gradient_clipping,
+                dtype=dtype)
         self.decoder = Decoder(hp, dtype)
         self.postnet = Postnet(hp.num_mels, hp.postnet_dimension,
                                hp.postnet_blocks, hp.postnet_kernel_size,
-                               dtype)
+                               dtype, hp.dropout)
 
     def _language_weights(self, languages: torch.Tensor, t: int):
         """[B] language ids or [B, T, L] weights -> [B, T, L] weights."""
@@ -62,6 +80,36 @@ class Tacotron(nn.Module):
             return F.one_hot(languages.long()[:, None].expand(-1, t),
                              num_langs).float()
         return languages.float()
+
+    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
+                target: torch.Tensor, target_lengths: torch.Tensor,
+                speakers: Optional[torch.Tensor], languages: torch.Tensor,
+                teacher: Sequence[int], seeds: Tuple[int, int]
+                ) -> Dict[str, Optional[torch.Tensor]]:
+        """The teacher-forced training forward on a language-interleaved
+        batch (sample ``k*g + j`` has language j): ``text`` [B, T],
+        ``target`` [B, F, M], ``languages`` [B] ids or [B, T, L] weights,
+        ``teacher`` F flags, ``seeds`` the decoder's two uint32 seeds.
+        Padded stop logits are 1000 and padded frames of the pre and post
+        predictions 0."""
+        b, t = text.shape
+        langs_w = self._language_weights(languages, t)
+        embedded = self.embedding(text.long()) * (text != 0)[..., None]
+        encoded = self.encoder(embedded.to(self.dtype), text_lengths).float()
+        speaker_prediction = (self.classifier(encoded)
+                              if self.hp.reversal_classifier else None)
+        pre, stop, alignment = self.decoder(
+            encoded, text_lengths, target, teacher, seeds, speakers,
+            torch.argmax(langs_w, dim=2))
+        post = self.postnet(pre).float()
+        target_mask = lengths_to_mask(target_lengths, target.shape[1])
+        stop = torch.where(target_mask, stop, torch.full_like(stop, 1000.0))
+        pre = pre * target_mask[..., None]
+        post = post * target_mask[..., None]
+        return {"post_prediction": post, "pre_prediction": pre,
+                "stop_token": stop, "alignment": alignment,
+                "speaker_prediction": speaker_prediction,
+                "encoder_output": encoded}
 
     @torch.no_grad()
     def encode_for_inference(
@@ -102,6 +150,100 @@ class Tacotron(nn.Module):
     def apply_postnet(self, pre: torch.Tensor) -> torch.Tensor:
         """[B, F, M] -> [B, F, M] float32."""
         return self.postnet(pre).float()
+
+
+# ---------------------------------------------------------------------------
+# the loss
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TacotronLossState:
+    """The guided-attention schedule carried across steps."""
+
+    guided_att_variance: float
+    guided_att_steps: int
+    guided_att_gamma: float
+
+    @classmethod
+    def init(cls, hp) -> "TacotronLossState":
+        return cls(guided_att_variance=hp.guided_attention_toleration,
+                   guided_att_steps=hp.guided_attention_steps,
+                   guided_att_gamma=hp.guided_attention_gain)
+
+    def update(self) -> "TacotronLossState":
+        return TacotronLossState(
+            guided_att_variance=self.guided_att_variance
+            * self.guided_att_gamma,
+            guided_att_steps=max(0, self.guided_att_steps - 1),
+            guided_att_gamma=self.guided_att_gamma)
+
+    def state_dict(self):
+        return {"guided_att_variance": self.guided_att_variance,
+                "guided_att_steps": self.guided_att_steps,
+                "guided_att_gamma": self.guided_att_gamma}
+
+    @classmethod
+    def from_state_dict(cls, d):
+        return cls(**d)
+
+
+def _bce_with_logits_pos_weight(logits, targets, pos_weight):
+    """``binary_cross_entropy_with_logits`` with ``pos_weight``, mean."""
+    log_sig = -F.softplus(-logits)
+    log_one_minus = -F.softplus(logits)
+    return torch.mean(-(pos_weight * targets * log_sig
+                        + (1.0 - targets) * log_one_minus))
+
+
+def guided_attention_loss(alignments: torch.Tensor,
+                          input_lengths: torch.Tensor,
+                          target_lengths: torch.Tensor,
+                          variance) -> torch.Tensor:
+    """Diagonal-band penalty: ``W[b, f, l] = 1 - exp(-(l/L_b - f/F_b)^2 /
+    (2 g^2))`` in the valid rectangle; ``mean_b sum(W * A) / F_b``."""
+    _, frames, tokens = alignments.shape
+    dev = alignments.device
+    f = torch.arange(frames, device=dev, dtype=torch.float32)[None, :, None]
+    l = torch.arange(tokens, device=dev, dtype=torch.float32)[None, None, :]
+    fl = target_lengths.float()[:, None, None]
+    ll = input_lengths.float()[:, None, None]
+    w = 1.0 - torch.exp(-((l / ll - f / fl) ** 2) / (2.0 * variance ** 2))
+    w = torch.where((f < fl) & (l < ll), w, torch.zeros_like(w))
+    per_sample = (w * alignments).sum((1, 2)) / torch.clamp(
+        target_lengths.float(), min=1.0)
+    return per_sample.mean()
+
+
+def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
+                  post_target, stop_target, speakers, guided_att_variance,
+                  guided_att_active=True
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``2 MSE(pre) + MSE(post) + stop BCE (pos_weight 100) / (M + 2)``, the
+    classifier's cross-entropy times ``reversal_classifier_w / (M + 2)`` and
+    the guided-attention penalty.  Means run over all elements, padding
+    included.  A Python ``False`` for ``guided_att_active`` skips the
+    penalty (the schedule has expired)."""
+    losses = {
+        "mel_pre": 2.0 * torch.mean(
+            (outputs["pre_prediction"] - pre_target) ** 2),
+        "mel_pos": torch.mean((outputs["post_prediction"] - post_target) ** 2),
+        "stop_token": _bce_with_logits_pos_weight(
+            outputs["stop_token"], stop_target, 100.0) / (hp.num_mels + 2),
+    }
+    if hp.reversal_classifier:
+        losses["lang_class"] = reversal_classifier_loss(
+            input_lengths, speakers, outputs["speaker_prediction"]) * (
+                hp.reversal_classifier_w / (hp.num_mels + 2))
+    if hp.guided_attention_loss:
+        if (isinstance(guided_att_active, (bool, int))
+                and not guided_att_active):
+            losses["guided_att"] = torch.zeros(
+                (), device=pre_target.device)
+        else:
+            losses["guided_att"] = guided_attention_loss(
+                outputs["alignment"], input_lengths, target_lengths,
+                guided_att_variance) * guided_att_active
+    return sum(losses.values()), losses
 
 
 @torch.no_grad()

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled on first use into ``build/kernels/lib<name>_<hash>.so`` at the
-root of the checkout; the hash covers the source and the flags, so an edit
-rebuilds.  A build takes seconds: the sources include no PyTorch header.
+root of the checkout; the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds.  A build takes
+seconds: the sources include no PyTorch header.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_decoder",)
+SOURCES = ("fused_decoder", "fused_train_decoder")
 # no --use_fast_math: the W8A8 row quantization must round exactly like the
 # plain version (IEEE division, rintf)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -35,9 +36,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = _PKG / "csrc" / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    csrc = _PKG / "csrc"
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -1,0 +1,997 @@
+"""The teacher-forced training decoder: CUDA kernels for Hopper, their plain
+versions, and the autograd function that joins them.
+
+This replaces the JAX package's TPU kernels ``ops/pallas_train_decoder.py::
+_build_fwd_kernel`` (K2, the forward over a chunk of teacher-forced steps,
+writing per-step residuals) and ``::_build_bwd_kernel`` (K3, the reverse-time
+backward over those residuals), which ``make_core`` wraps in a custom VJP.
+The port keeps what they compute and none of their Mosaic layout (no 128-lane
+padding, banded location-conv matrix, T-blocked fold or VMEM model).  A first,
+simple design: the Python drivers loop over the steps, and each step
+launches the kernels of ``csrc/fused_train_decoder.cu``:
+
+- forward (K2): ``train_prenet`` (teacher selection, layers, hashed
+  dropout), ``train_gate_lstm`` for each LSTM (the bf16 gate product on the
+  tensor cores with the LSTM step and train-mode zoneout or dropout in its
+  epilogue), ``train_query`` (``bf16(h_att @ Wq)``), ``train_attention``
+  (location conv, energy, softmax, cumulative weights, context) and
+  ``train_head``;
+- backward (K3): ``bwd_head``, ``bwd_cell`` (the LSTM backward over the
+  stored i|f|g|o activations, masks regenerated from the hash), ``bwd_gemm``
+  (``dgates @ W^T`` and ``dq @ Wq^T`` with the carry additions in its
+  epilogue), ``train_query`` (the energy's query, recomputed), ``att_bwd``
+  (softmax, energy and location-conv backward, with the dmt, dlc and dv
+  accumulators per batch row) and ``bwd_prenet``; after the last step one
+  ``bwd_gemm`` reduces dWq over all steps and rows.
+
+The concat rows the gate products read are residual streams themselves:
+``att_in[s] = [x_s | ctx_{s-1} | h_att_{s-1}]``, ``gen_in[s] = [h_att_s |
+ctx_s | h_gen_{s-1}]`` and ``head_in[s] = [h_gen_s | ctx_s]``, each zero
+padded to a multiple of 64 columns, in the compute type.  The weight
+gradients are then ``stream^T @ dgates`` over all F*B rows, large products
+that the JAX package also leaves outside its kernel
+(``pallas_train_decoder.py:1416-1497``) and that go to ``torch.mm`` here.
+
+Semantics kept exactly: mask element (row, col) of site ``salt`` at global
+step ``gs`` draws ``rand_bits(row, col; seed0, seed1, gs*(n_prenet+4) +
+salt)`` with prenet layer i at salt i, then att_h, att_c, gen_h, gen_c;
+zoneout keeps the new state where the bits are below ``thresh(1-z)``; the
+dropout cell drops h at rate ``zoneout_h`` and leaves c alone; the prenet
+backward replays ReLU and dropout from ``post-dropout output > 0``.
+Residuals are stored in the compute type and read back as such; the plain
+versions round at the same places.
+
+On a CPU tensor every kernel function runs its plain version; on a CUDA
+tensor it launches the kernel or raises.  ``PLAIN`` holds the plain versions
+with the kernels' signatures; the drivers run them with ``plain=True``, on
+any device, as the reference the kernels are held against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from multilingual_text_to_speech_tpu_torch.models.attention import NEG_INF
+from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
+    _M32,
+    Seeds,
+    _is_cuda,
+    _mm,
+    _rounded,
+    _stream,
+    keep_threshold,
+    rand_bits,
+)
+
+_K_ALIGN = 64   # concat rows and gate weights are zero-padded to this
+
+# launches of each kernel since the last reset (kernel launches only)
+LAUNCHES: Dict[str, int] = {k: 0 for k in (
+    "train_prenet", "train_gate_lstm", "train_query", "train_attention",
+    "train_head", "bwd_head", "bwd_cell", "bwd_gemm", "att_bwd",
+    "bwd_prenet")}
+K2_KERNELS = ("train_prenet", "train_gate_lstm", "train_query",
+              "train_attention", "train_head")
+K3_KERNELS = ("bwd_head", "bwd_cell", "bwd_gemm", "att_bwd", "bwd_prenet")
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _pad64(n: int) -> int:
+    return -(-n // _K_ALIGN) * _K_ALIGN
+
+
+# ---------------------------------------------------------------------------
+# configuration and operands
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Static shapes and rates of the training decode
+    (``pallas_train_decoder._make_cfg``)."""
+    hidden: int
+    mem_dim: int
+    prenet_dim: int
+    n_prenet: int
+    mmel: int
+    att_dim: int
+    taps: int
+    dropout_rate: float
+    zoneout_h: float          # the h dropout rate of a dropout cell
+    zoneout_c: float
+    use_zoneout: bool
+    dtype: torch.dtype
+
+    @classmethod
+    def from_hp(cls, hp, mem_dim: int, dtype: torch.dtype) -> "TrainConfig":
+        zo = hp.decoder_regularization == "zoneout"
+        return cls(
+            hidden=int(hp.decoder_dimension), mem_dim=int(mem_dim),
+            prenet_dim=int(hp.prenet_dimension),
+            n_prenet=int(hp.prenet_layers), mmel=int(hp.num_mels),
+            att_dim=int(hp.attention_dimension),
+            taps=int(hp.attention_kernel_size),
+            dropout_rate=float(hp.dropout),
+            zoneout_h=float(hp.zoneout_hidden if zo else hp.dropout_hidden),
+            zoneout_c=float(hp.zoneout_cell) if zo else 0.0,
+            use_zoneout=zo, dtype=dtype)
+
+    @property
+    def ka(self) -> int:                       # [x | ctx | h_att]
+        return self.prenet_dim + self.mem_dim + self.hidden
+
+    @property
+    def kg(self) -> int:                       # [h_att | ctx | h_gen]
+        return 2 * self.hidden + self.mem_dim
+
+    @property
+    def kh(self) -> int:                       # [h_gen | ctx]
+        return self.hidden + self.mem_dim
+
+    def reg(self, which: str, seeds: Seeds, gs: int) -> Tuple:
+        """(seed0, seed1, salt_h, salt_c, thresh_h, thresh_c, mode, scale)
+        of one LSTM's regularization at global step ``gs``; mode 0 none,
+        1 zoneout, 2 dropout on h."""
+        n = self.n_prenet
+        site_h, site_c = (n, n + 1) if which == "att" else (n + 2, n + 3)
+        base = gs * (n + 4)
+        zh, zc = self.zoneout_h, self.zoneout_c
+        if self.use_zoneout:
+            mode = 0 if zh == 0.0 and zc == 0.0 else 1
+        else:
+            mode = 0 if zh == 0.0 else 2
+        return (seeds[0] & _M32, seeds[1] & _M32, (base + site_h) & _M32,
+                (base + site_c) & _M32, keep_threshold(zh),
+                keep_threshold(zc), mode,
+                1.0 / (1.0 - zh) if zh < 1.0 else 0.0)
+
+    def prenet_salt(self, gs: int) -> int:
+        return (gs * (self.n_prenet + 4)) & _M32
+
+
+# operand keys in the order ``TrainDecode`` takes them; the biases and v
+# stay float32, the rest is cast to the compute type
+OPERAND_KEYS = ("pre_w", "pre_b", "att_w", "att_b", "gen_w", "gen_b", "wq",
+                "lc", "v", "head_w", "head_b")
+_F32_KEYS = ("pre_b", "att_b", "gen_b", "v", "head_b")
+
+
+def train_operands(cell, cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+    """The ``DecoderCell``'s parameters in the kernels' layouts, built by
+    differentiable float32 ops so that gradients reach the parameters:
+    prenet kernels ``[in, out]`` concatenated flat; gate weights ``[4H,
+    K_pad]`` (the ``nn.Linear`` layout, zero columns to a multiple of 64);
+    ``lc = loc_filter @ location_kernel`` ``[K, A]``; the fused frame and
+    stop head ``[M + 1, K_pad]``."""
+    fcs = [getattr(cell.prenet, f"fc{i}") for i in range(cfg.n_prenet)]
+    att = cell.attention
+    att_g = cell.attention_lstm.cell.gates
+    gen_g = cell.generator_lstm.cell.gates
+    head = torch.cat([cell.frame_prediction.weight,
+                      cell.stop_prediction.weight], 0)
+    return {
+        "pre_w": torch.cat([fc.weight.t().reshape(-1) for fc in fcs]),
+        "pre_b": torch.cat([fc.bias for fc in fcs]),
+        "att_w": F.pad(att_g.weight, (0, _pad64(cfg.ka) - cfg.ka)),
+        "att_b": att_g.bias,
+        "gen_w": F.pad(gen_g.weight, (0, _pad64(cfg.kg) - cfg.kg)),
+        "gen_b": gen_g.bias,
+        "wq": att.query_kernel,
+        "lc": att.loc_filter[:, 0, :] @ att.location_kernel,
+        "v": att.energy_kernel.reshape(-1),
+        "head_w": F.pad(head, (0, _pad64(cfg.kh) - cfg.kh)),
+        "head_b": torch.cat([cell.frame_prediction.bias,
+                             cell.stop_prediction.bias]),
+    }
+
+
+def compute_operands(ops: Dict[str, torch.Tensor], cfg: TrainConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """The operands as the kernels read them: biases and v in float32, the
+    rest in the compute type, contiguous."""
+    return {k: (w.float() if k in _F32_KEYS else w.to(cfg.dtype)).contiguous()
+            for k, w in ops.items()}
+
+
+def prenet_layers(ops, cfg: TrainConfig):
+    """[(W [in, out], b [out])] views of the flat prenet operands."""
+    layers, wo = [], 0
+    p = cfg.prenet_dim
+    for i in range(cfg.n_prenet):
+        k = cfg.mmel if i == 0 else p
+        layers.append((ops["pre_w"][wo:wo + k * p].view(k, p),
+                       ops["pre_b"][i * p:(i + 1) * p]))
+        wo += k * p
+    return layers
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of compute-type operands with float32 sums and a float32
+    result (a large weight-gradient product outside the kernels)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the kernels (pure functions)
+# ---------------------------------------------------------------------------
+
+def train_prenet_plain(raw, ops, cfg: TrainConfig, seeds: Seeds, gs: int
+                       ) -> List[torch.Tensor]:
+    """[B, M] input frame -> each layer's post-dropout output [B, P]."""
+    x, outs = raw, []
+    rate = cfg.dropout_rate
+    for i, (w, b) in enumerate(prenet_layers(ops, cfg)):
+        r = torch.relu(_mm(x, w) + b)
+        if rate > 0.0:
+            keep = rand_bits(tuple(r.shape), seeds[0], seeds[1],
+                             cfg.prenet_salt(gs) + i,
+                             r.device) < keep_threshold(rate)
+            r = torch.where(keep, r * (1.0 / (1.0 - rate)),
+                            torch.zeros_like(r))
+        outs.append(r)
+        x = r
+    return outs
+
+
+def _masks(shape, reg, which: int, device):
+    seed0, seed1, salt_h, salt_c, th_h, th_c = reg[:6]
+    salt, th = (salt_h, th_h) if which == 0 else (salt_c, th_c)
+    return rand_bits(shape, seed0, seed1, salt, device) < th
+
+
+def train_gate_lstm_plain(row, w, b, h, c, reg):
+    """gates = row @ W^T + b -> LSTM step -> regularization.  ``row`` [B,
+    K_pad] in the compute type, ``w`` [4H, K_pad], ``h``/``c`` the float32
+    carries -> (h, c, i|f|g|o activations [B, 4H])."""
+    gates = _mm(row, w.t()) + b
+    gi, gf, gg, go = gates.chunk(4, dim=1)
+    gi, gf, go, gg = (torch.sigmoid(gi), torch.sigmoid(gf),
+                      torch.sigmoid(go), torch.tanh(gg))
+    c_new = gf * c + gi * gg
+    h_new = go * torch.tanh(c_new)
+    mode, scale = reg[6], reg[7]
+    if mode == 1:
+        h_new = torch.where(_masks(h.shape, reg, 0, h.device), h_new, h)
+        c_new = torch.where(_masks(c.shape, reg, 1, c.device), c_new, c)
+    elif mode == 2:
+        h_new = torch.where(_masks(h.shape, reg, 0, h.device), h_new * scale,
+                            torch.zeros_like(h_new))
+    return h_new, c_new, torch.cat([gi, gf, gg, go], dim=1)
+
+
+def train_query_plain(h, wq):
+    """q = bf16(h @ Wq), held in float32."""
+    return _rounded(_mm(h, wq), wq.dtype)
+
+
+def _energy_tanh(q, cum, mtb, lc, d):
+    """bf16(tanh(bf16(bf16(bf16(loc) + q) + mtb))) [B, T, A], loc the
+    location conv of the bf16 ``cum`` with ``lc`` [K, A]."""
+    k = lc.shape[0]
+    loc = F.conv1d(_rounded(cum, d)[:, None, :], lc.float().t()[:, None, :],
+                   padding=(k - 1) // 2).transpose(1, 2)
+    z = _rounded(_rounded(_rounded(loc, d) + q[:, None, :], d) + mtb.float(),
+                 d)
+    return _rounded(torch.tanh(z), d)
+
+
+def train_attention_plain(q, cum, memory, mtb, mask_add, lc, v):
+    """-> (w [B, T], cum + w, ctx [B, Mem]), float32."""
+    d = memory.dtype
+    tz = _energy_tanh(q, cum, mtb, lc, d)
+    w = torch.softmax((tz * v).sum(-1) + mask_add, dim=-1)
+    ctx = _rounded(memory.float() * _rounded(w, d)[:, :, None], d).sum(1)
+    return w, cum + w, ctx
+
+
+def train_head_plain(row, head_w, head_b):
+    """[B, K_pad] head row -> (frame [B, M], stop logit [B])."""
+    fv = _mm(row, head_w.t()) + head_b
+    return fv[:, :-1], fv[:, -1]
+
+
+def bwd_head_plain(dspec, dstop, dframe, head_w, dh_gen, dctx, cfg):
+    """-> (dframe_tot [B, M], dh_gen_tot [B, H], dctx_tot [B, Mem])."""
+    m, h = cfg.mmel, cfg.hidden
+    dft = dspec + dframe
+    dproto = _mm(dft, head_w[:m]) + dstop[:, None] * head_w[m].float()
+    return dft, dh_gen + dproto[:, :h], dctx + dproto[:, h:h + cfg.mem_dim]
+
+
+def bwd_cell_plain(act, c_prev, dh_tot, dc, reg):
+    """LSTM and regularization backward over the stored activations ->
+    (dgates [B, 4H], dh passed to the previous h, dc of the previous c)."""
+    gi, gf, gg, go = act.float().chunk(4, dim=1)
+    cp = torch.zeros_like(dc) if c_prev is None else c_prev.float()
+    tanh_c = torch.tanh(gf * cp + gi * gg)
+    mode, scale = reg[6], reg[7]
+    zero = torch.zeros_like(dh_tot)
+    dh_new, dh_prev, dc_state, dc_prev = dh_tot, zero, dc, zero
+    if mode == 1:
+        zh = _masks(dh_tot.shape, reg, 0, dh_tot.device)
+        zc = _masks(dc.shape, reg, 1, dc.device)
+        dh_new, dh_prev = torch.where(zh, dh_tot, zero), torch.where(
+            zh, zero, dh_tot)
+        dc_state, dc_prev = torch.where(zc, dc, zero), torch.where(
+            zc, zero, dc)
+    elif mode == 2:
+        keep = _masks(dh_tot.shape, reg, 0, dh_tot.device)
+        dh_new = torch.where(keep, dh_tot * scale, zero)
+    dc_new = dc_state + dh_new * go * (1.0 - tanh_c * tanh_c)
+    dg = torch.cat([dc_new * gg * gi * (1.0 - gi),
+                    dc_new * cp * gf * (1.0 - gf),
+                    dc_new * gi * (1.0 - gg * gg),
+                    dh_new * tanh_c * go * (1.0 - go)], dim=1)
+    return dg, dh_prev, dc_prev + dc_new * gf
+
+
+def att_bwd_plain(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum):
+    """One step's attention backward -> (dq [B, A], dmt [B, T, A], dlc [B,
+    K, A], dv [B, A], dcum [B, T]): the increments of the per-row
+    accumulators and the new cum cotangent."""
+    d = memory.dtype
+    k = lc.shape[0]
+    half = (k - 1) // 2
+    t_len = cum_s.shape[1]
+    dw = dw_out + dcum + (memory.float() * dctx[:, None, :]).sum(-1)
+    de = w_s * (dw - (dw * w_s).sum(-1, keepdim=True))
+    tz = _energy_tanh(q, cum_s.float(), mtb, lc, d)
+    dz = de[:, :, None] * v * (1.0 - tz * tz)
+    dzr = _rounded(dz, d)
+    windows = F.pad(_rounded(cum_s.float(), d), (half, half)).unfold(
+        1, t_len, 1)                                          # [B, K, T]
+    dlc = torch.einsum("bkt,bta->bka", windows, dzr)
+    dcum_inc = F.conv_transpose1d(dzr.transpose(1, 2),
+                                  lc.float().t()[:, None, :],
+                                  padding=half)[:, 0, :]
+    return (dz.sum(1), dz, dlc, (tz * de[:, :, None]).sum(1),
+            dcum + dcum_inc)
+
+
+def bwd_prenet_plain(dx, outs, ops, cfg: TrainConfig):
+    """Layers in reverse -> (pre-ReLU grads per layer, d input frame)."""
+    rate = cfg.dropout_rate
+    scale = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    das = [None] * cfg.n_prenet
+    for i, (w, _) in reversed(list(enumerate(prenet_layers(ops, cfg)))):
+        da = torch.where(outs[i].float() > 0.0, dx * scale,
+                         torch.zeros_like(dx))
+        das[i] = da
+        dx = _mm(da, w.t())
+    return das, dx
+
+
+# ---------------------------------------------------------------------------
+# the plain versions written into the kernels' outputs: the CPU path, and
+# the reference the drivers run with plain=True
+# ---------------------------------------------------------------------------
+
+def _train_prenet_plain_into(shifted_s, frame, teacher: int, ops, cfg,
+                             seeds, gs, raw_out, pre_out, dst):
+    """``train_prenet``'s plain version, written into its outputs."""
+    raw = shifted_s.float() if teacher else frame
+    outs = train_prenet_plain(raw, ops, cfg, seeds, gs)
+    raw_out.copy_(raw)
+    for i, o in enumerate(outs):
+        pre_out[i].copy_(o)
+    dst.copy_(outs[-1])
+
+
+def _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out, c_out,
+                                h_dst0, h_dst1):
+    """``train_gate_lstm``'s plain version, written into its outputs."""
+    hn, cn, act = train_gate_lstm_plain(row, w, bias, h, c, reg)
+    h.copy_(hn)
+    c.copy_(cn)
+    act_out.copy_(act)
+    c_out.copy_(cn)
+    h_dst0.copy_(hn)
+    _copy(h_dst1, hn)
+
+
+def _train_query_plain_into(h, wq, q_out):
+    """``train_query``'s plain version, written into its outputs."""
+    q_out.copy_(train_query_plain(h, wq))
+
+
+def _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc, v, w_out,
+                                cum_out, ctx, ctx_dsts):
+    """``train_attention``'s plain version, written into its outputs."""
+    w, cum_new, c = train_attention_plain(q, cum, memory, mtb, mask_add,
+                                          lc, v)
+    w_out.copy_(w)
+    cum_out.copy_(cum)
+    cum.copy_(cum_new)
+    ctx.copy_(c)
+    for dst in ctx_dsts:
+        _copy(dst, c)
+
+
+def _train_head_plain_into(row, head_w, head_b, spec_out, stop_out, frame):
+    """``train_head``'s plain version, written into its outputs."""
+    fr, st = train_head_plain(row, head_w, head_b)
+    spec_out.copy_(fr)
+    stop_out.copy_(st)
+    frame.copy_(fr)
+
+
+def _bwd_head_plain_into(dspec, dstop, dframe, head_w, da_frame_out, dh_gen,
+                         dctx, dh_gen_tot, dctx_tot, cfg):
+    """``bwd_head``'s plain version, written into its outputs."""
+    dft, dht, dct = bwd_head_plain(dspec, dstop, dframe, head_w, dh_gen,
+                                   dctx, cfg)
+    da_frame_out.copy_(dft)
+    dh_gen_tot.copy_(dht)
+    dctx_tot.copy_(dct)
+
+
+def _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
+    """``bwd_cell``'s plain version, written into its outputs."""
+    dg, dhp, dcp = bwd_cell_plain(act, c_prev, dh_tot, dc, reg)
+    dg_out.copy_(dg)
+    dh_reg.copy_(dhp)
+    dc.copy_(dcp)
+
+
+def _bwd_gemm_plain_into(a, b, b_kn: bool, segments, a_km: bool = False):
+    """``bwd_gemm``'s plain version, written into its outputs."""
+    aa = a.t() if a_km else a
+    acc = _mm(aa, b if b_kn else b.t())
+    for lo, hi, out, add in segments:
+        v = acc[:, lo:hi]
+        out.copy_(v if add is None else add + v)
+
+
+def _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out,
+                        dcum, dmt, dlc, dv, dq_out, dctx_out):
+    """``att_bwd``'s plain version, written into its outputs."""
+    dq, dz, dl, dvv, dcum_new = att_bwd_plain(q, cum_s, w_s, memory, mtb,
+                                             lc, v, dctx, dw_out, dcum)
+    dmt += dz
+    dlc += dl
+    dv += dvv
+    dcum.copy_(dcum_new)
+    dq_out.copy_(dq)
+    dctx_out.copy_(dctx)
+
+
+def _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher: int, da_out,
+                           dshift_out, dframe):
+    """``bwd_prenet``'s plain version, written into its outputs."""
+    das, dxin = bwd_prenet_plain(dx, list(pre_s), ops, cfg)
+    for i, da in enumerate(das):
+        da_out[i].copy_(da)
+    zero = torch.zeros_like(dxin)
+    dshift_out.copy_(dxin if teacher else zero)
+    dframe.copy_(zero if teacher else dxin)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers: each takes its outputs as tensors (views allowed, unit
+# stride in the last dimension) and fills them
+# ---------------------------------------------------------------------------
+
+_P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                      ctypes.c_float, ctypes.c_longlong)
+_REG = [_U, _U, _U, _U, _U, _U, _I, _F]
+_SIGNATURES = {
+    "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _I, _I,
+                            _I, _I, _U, _U, _U, _U, _F, _I, _P],
+    "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I,
+                         _P, _I] + _REG + [_P],
+    "query_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
+    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "bwd_gemm_launch": [_P, _I, _I, _P, _I, _I, _I, _I, _I]
+                       + [_I, _I, _P, _I, _P, _I] * 3 + [_P],
+    "train_attention_launch": [_P] * 10 + [_P, _I, _P, _I, _P, _I]
+                              + [_I] * 5 + [_P],
+    "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _P],
+    "bwd_cell_launch": [_P] * 6 + [_I, _I] + _REG + [_P],
+    "att_bwd_launch": [_P] * 15 + [_I] * 5 + [_P],
+    "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
+                          _I, _F, _P],
+}
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from multilingual_text_to_speech_tpu_torch.ops import _build
+
+        lib = _build.load("fused_train_decoder")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    err = getattr(_lib(), fn)(*args, _stream())
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    if t is None:
+        return None
+    if not t.is_cuda or (t.dim() > 0 and t.stride(-1) != 1):
+        raise ValueError("kernel operands must be CUDA tensors with unit "
+                         "stride in the last dimension")
+    return t.data_ptr()
+
+
+def _ld(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+
+
+def _copy(out: Optional[torch.Tensor], value: torch.Tensor) -> None:
+    if out is not None:
+        out.copy_(value)
+
+
+def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
+                 raw_out, pre_out, dst):
+    """Kernel ``train_prenet``: the input frame (``shifted_s`` at a teacher
+    step, the ``frame`` carry otherwise) -> ``raw_out`` [B, M], each
+    layer's output ``pre_out`` [layers, B, P] and the last layer into
+    ``dst`` [B, P] (bf16 streams)."""
+    if not _is_cuda(frame):
+        return _train_prenet_plain_into(shifted_s, frame, teacher, ops, cfg,
+                                        seeds, gs, raw_out, pre_out, dst)
+    for t in (raw_out, pre_out, dst, ops["pre_w"]):
+        _require(t, torch.bfloat16, "train_prenet operands")
+    b = frame.shape[0]
+    rate = cfg.dropout_rate
+    _launch("train_prenet", "train_prenet_launch",
+            _ptr(shifted_s), _ptr(frame), int(bool(teacher)),
+            _ptr(ops["pre_w"]), _ptr(ops["pre_b"]), _ptr(raw_out),
+            _ptr(pre_out), pre_out.stride(0), _ptr(dst), _ld(dst), b,
+            cfg.mmel, cfg.prenet_dim, cfg.n_prenet, seeds[0] & _M32,
+            seeds[1] & _M32, cfg.prenet_salt(gs),
+            keep_threshold(rate) if rate > 0.0 else 0,
+            1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(rate > 0.0))
+
+
+def train_gate_lstm(row, w, bias, reg, h, c, act_out, c_out, h_dst0, h_dst1):
+    """Kernel ``train_gate_lstm``: gates of the concat ``row`` [B, K_pad],
+    the LSTM step and the regularization.  Updates the float32 carries
+    ``h``, ``c`` in place and writes the activations ``act_out`` [B, 4H],
+    ``c_out`` and h into ``h_dst0`` (and ``h_dst1`` if given), bf16."""
+    if not _is_cuda(h):
+        return _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out,
+                                           c_out, h_dst0, h_dst1)
+    for t in (row, w, act_out, c_out, h_dst0):
+        _require(t, torch.bfloat16, "train_gate_lstm operands")
+    b, hidden = h.shape
+    if hidden % 16 or w.shape[1] % 8:
+        raise ValueError("train_gate_lstm needs H % 16 == 0 and K_pad % 8 "
+                         "== 0")
+    _launch("train_gate_lstm", "gate_lstm_launch",
+            _ptr(row), _ld(row), _ptr(w), w.shape[1], _ptr(bias), b, hidden,
+            _ptr(h), _ptr(c), _ptr(act_out), _ptr(c_out), _ptr(h_dst0),
+            _ld(h_dst0), _ptr(h_dst1), _ld(h_dst1), *reg)
+
+
+def train_query(h, wq, q_out):
+    """Kernel ``train_query``: ``q_out`` [B, A] = bf16(h @ Wq) in float32;
+    ``h`` [B, H] is a bf16 stream view."""
+    if not _is_cuda(q_out):
+        return _train_query_plain_into(h, wq, q_out)
+    _require(h, torch.bfloat16, "train_query h")
+    _require(wq, torch.bfloat16, "train_query wq")
+    b, hidden = h.shape
+    _launch("train_query", "query_launch", _ptr(h), _ld(h), _ptr(wq), b,
+            hidden, wq.shape[1], _ptr(q_out))
+
+
+def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
+                    ctx, ctx_dsts):
+    """Kernel ``train_attention``: updates the float32 carries ``cum`` and
+    ``ctx`` in place, writes the weights ``w_out`` [B, T] (float32), the
+    cum before the step ``cum_out`` and the context into each of
+    ``ctx_dsts`` (bf16; the last may be None)."""
+    if not _is_cuda(q):
+        return _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc,
+                                           v, w_out, cum_out, ctx, ctx_dsts)
+    for t in (memory, mtb, lc, cum_out,
+              *[x for x in ctx_dsts if x is not None]):
+        _require(t, torch.bfloat16, "train_attention operands")
+    b, t_len, mem_dim = memory.shape
+    if t_len > 512:
+        raise ValueError(f"train_attention takes T <= 512, got {t_len}")
+    d0, d1, d2 = ctx_dsts
+    _launch("train_attention", "train_attention_launch",
+            _ptr(q), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
+            _ptr(lc), _ptr(v), _ptr(w_out), _ptr(cum_out), _ptr(ctx),
+            _ptr(d0), _ld(d0), _ptr(d1), _ld(d1), _ptr(d2), _ld(d2), b,
+            t_len, lc.shape[1], mem_dim, lc.shape[0])
+
+
+def train_head(row, head_w, head_b, spec_out, stop_out, frame):
+    """Kernel ``train_head``: frame and stop heads over the head ``row`` ->
+    ``spec_out`` [B, M], ``stop_out`` [B] and the ``frame`` carry."""
+    if not _is_cuda(frame):
+        return _train_head_plain_into(row, head_w, head_b, spec_out,
+                                      stop_out, frame)
+    _require(row, torch.bfloat16, "train_head row")
+    _require(head_w, torch.bfloat16, "train_head weight")
+    _launch("train_head", "head_launch", _ptr(row), _ld(row), _ptr(head_w),
+            head_w.shape[1], _ptr(head_b), row.shape[0], head_w.shape[0],
+            _ptr(spec_out), _ptr(frame), _ptr(stop_out))
+
+
+def bwd_head(dspec, dstop, dframe, head_w, da_frame_out, dh_gen, dctx,
+             dh_gen_tot, dctx_tot, cfg):
+    """Kernel ``bwd_head``: writes ``da_frame_out`` (bf16) and the float32
+    ``dh_gen_tot``, ``dctx_tot``."""
+    if not _is_cuda(dspec):
+        return _bwd_head_plain_into(dspec, dstop, dframe, head_w,
+                                    da_frame_out, dh_gen, dctx, dh_gen_tot,
+                                    dctx_tot, cfg)
+    _require(head_w, torch.bfloat16, "bwd_head weight")
+    _launch("bwd_head", "bwd_head_launch", _ptr(dspec), _ptr(dstop),
+            _ptr(dframe), _ptr(head_w), head_w.shape[1], _ptr(da_frame_out),
+            _ptr(dh_gen), _ptr(dctx), _ptr(dh_gen_tot), _ptr(dctx_tot),
+            dspec.shape[0], cfg.mmel, cfg.hidden, cfg.mem_dim)
+
+
+def bwd_cell(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
+    """Kernel ``bwd_cell``: ``dg_out`` [B, 4H] (bf16), ``dh_reg`` and the
+    cell cotangent carry ``dc`` (updated in place)."""
+    if not _is_cuda(dc):
+        return _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg,
+                                    reg)
+    _require(act, torch.bfloat16, "bwd_cell activations")
+    b, hidden = dc.shape
+    _launch("bwd_cell", "bwd_cell_launch", _ptr(act), _ptr(c_prev),
+            _ptr(dh_tot), _ptr(dc), _ptr(dg_out), _ptr(dh_reg), b, hidden,
+            *reg)
+
+
+def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False):
+    """Kernel ``bwd_gemm``: ``acc = a @ b`` (``a`` [M, K], or [K, M] when
+    ``a_km``; ``b`` [K, N] when ``b_kn``, else [N, K]), and for each
+    ``(lo, hi, out, add)`` of ``segments``: ``out = add + acc[:, lo:hi]``
+    (``add`` may be None or ``out`` itself)."""
+    if not _is_cuda(a):
+        return _bwd_gemm_plain_into(a, b, b_kn, segments, a_km)
+    _require(a, torch.bfloat16, "bwd_gemm a")
+    _require(b, torch.bfloat16, "bwd_gemm b")
+    m, k = (a.shape[1], a.shape[0]) if a_km else a.shape
+    n = b.shape[1] if b_kn else b.shape[0]
+    segs = list(segments) + [(0, 0, None, None)] * (3 - len(segments))
+    args = []
+    for lo, hi, out, add in segs:
+        args += [lo, hi, _ptr(out), _ld(out), _ptr(add), _ld(add)]
+    _launch("bwd_gemm", "bwd_gemm_launch", _ptr(a), _ld(a), int(a_km),
+            _ptr(b), _ld(b), int(b_kn), m, n, k, *args)
+
+
+def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
+            dv, dq_out, dctx_out):
+    """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
+    A], ``dlc`` [B, K, A], ``dv`` [B, A] and the cum cotangent ``dcum``;
+    writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (bf16)."""
+    if not _is_cuda(q):
+        return _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx,
+                                   dw_out, dcum, dmt, dlc, dv, dq_out,
+                                   dctx_out)
+    b, t_len, mem_dim = memory.shape
+    if t_len > 512:
+        raise ValueError(f"att_bwd takes T <= 512, got {t_len}")
+    _launch("att_bwd", "att_bwd_launch", _ptr(q), _ptr(cum_s), _ptr(w_s),
+            _ptr(memory), _ptr(mtb), _ptr(lc), _ptr(v), _ptr(dctx),
+            _ptr(dw_out), _ptr(dcum), _ptr(dmt), _ptr(dlc), _ptr(dv),
+            _ptr(dq_out), _ptr(dctx_out), b, t_len, lc.shape[1], mem_dim,
+            lc.shape[0])
+
+
+def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,
+               dframe):
+    """Kernel ``bwd_prenet``: pre-ReLU grads ``da_out`` [layers, B, P],
+    then ``dshift_out`` (bf16, zero unless a teacher step) and the float32
+    ``dframe`` carry (zero at a teacher step)."""
+    if not _is_cuda(dx):
+        return _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher, da_out,
+                                      dshift_out, dframe)
+    rate = cfg.dropout_rate
+    _launch("bwd_prenet", "bwd_prenet_launch", _ptr(dx), _ptr(pre_s),
+            pre_s.stride(0), _ptr(ops["pre_w"]), _ptr(da_out),
+            da_out.stride(0), _ptr(dshift_out), _ptr(dframe),
+            int(bool(teacher)), dx.shape[0], cfg.mmel, cfg.prenet_dim,
+            cfg.n_prenet, 1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the drivers
+# ---------------------------------------------------------------------------
+
+# the kernel functions, and their plain versions with the same signatures
+KERNELS = SimpleNamespace(
+    train_prenet=train_prenet,
+    train_gate_lstm=train_gate_lstm,
+    train_query=train_query,
+    train_attention=train_attention,
+    train_head=train_head,
+    bwd_head=bwd_head,
+    bwd_cell=bwd_cell,
+    bwd_gemm=bwd_gemm,
+    att_bwd=att_bwd,
+    bwd_prenet=bwd_prenet,
+)
+PLAIN = SimpleNamespace(
+    train_prenet=_train_prenet_plain_into,
+    train_gate_lstm=_train_gate_lstm_plain_into,
+    train_query=_train_query_plain_into,
+    train_attention=_train_attention_plain_into,
+    train_head=_train_head_plain_into,
+    bwd_head=_bwd_head_plain_into,
+    bwd_cell=_bwd_cell_plain_into,
+    bwd_gemm=_bwd_gemm_plain_into,
+    att_bwd=_att_bwd_plain_into,
+    bwd_prenet=_bwd_prenet_plain_into,
+)
+
+
+def _zeros(*shape, like, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype, device=like.device)
+
+
+def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
+                         shifted, teacher: Sequence[int], seeds: Seeds,
+                         plain: bool = False):
+    """K2 over all F steps.  ``memory`` [B, T, Mem] and ``mtb`` (memory
+    transform plus the attention bias) [B, T, A] in the compute type,
+    ``mask_add`` [B, T] 0 / -1e9, ``shifted`` [F, B, M] (compute type),
+    ``teacher`` F flags -> ``(streams, carry)``: the outputs spec [F, B, M],
+    stop [F, B], w [F, B, T] (float32) and the residual streams (compute
+    type); the final float32 carry."""
+    n_f, b = shifted.shape[:2]
+    t_len = memory.shape[1]
+    d = cfg.dtype
+    h, p, mem, m = cfg.hidden, cfg.prenet_dim, cfg.mem_dim, cfg.mmel
+
+    def z(*shape, dtype=d):
+        return _zeros(*shape, like=memory, dtype=dtype)
+
+    st = {
+        "spec": z(n_f, b, m, dtype=torch.float32),
+        "stop": z(n_f, b, dtype=torch.float32),
+        "w": z(n_f, b, t_len, dtype=torch.float32),
+        "att_in": z(n_f, b, _pad64(cfg.ka)),
+        "gen_in": z(n_f, b, _pad64(cfg.kg)),
+        "head_in": z(n_f, b, _pad64(cfg.kh)), "raw": z(n_f, b, m),
+        "pre": z(cfg.n_prenet, n_f, b, p), "act_att": z(n_f, b, 4 * h),
+        "act_gen": z(n_f, b, 4 * h), "c_att": z(n_f, b, h),
+        "c_gen": z(n_f, b, h), "cum": z(n_f, b, t_len),
+    }
+    f32 = torch.float32
+    carry = {"h_att": z(b, h, dtype=f32), "c_att": z(b, h, dtype=f32),
+             "h_gen": z(b, h, dtype=f32), "c_gen": z(b, h, dtype=f32),
+             "ctx": z(b, mem, dtype=f32), "frame": z(b, m, dtype=f32),
+             "cum": z(b, t_len, dtype=f32)}
+    q = z(b, cfg.att_dim, dtype=f32)
+    f = PLAIN if plain else KERNELS
+    att_in, gen_in, head_in = st["att_in"], st["gen_in"], st["head_in"]
+    for s in range(n_f):
+        nxt_a = att_in[s + 1] if s + 1 < n_f else None
+        nxt_g = gen_in[s + 1] if s + 1 < n_f else None
+        f.train_prenet(shifted[s], carry["frame"], teacher[s], ops, cfg, seeds,
+                     s, st["raw"][s], st["pre"][:, s], att_in[s][:, :p])
+        f.train_gate_lstm(att_in[s], ops["att_w"], ops["att_b"],
+                        cfg.reg("att", seeds, s), carry["h_att"],
+                        carry["c_att"], st["act_att"][s], st["c_att"][s],
+                        gen_in[s][:, :h],
+                        None if nxt_a is None
+                        else nxt_a[:, p + mem:p + mem + h])
+        f.train_query(gen_in[s][:, :h], ops["wq"], q)
+        f.train_attention(q, carry["cum"], memory, mtb, mask_add, ops["lc"],
+                        ops["v"], st["w"][s], st["cum"][s], carry["ctx"],
+                        (gen_in[s][:, h:h + mem], head_in[s][:, h:h + mem],
+                         None if nxt_a is None else nxt_a[:, p:p + mem]))
+        f.train_gate_lstm(gen_in[s], ops["gen_w"], ops["gen_b"],
+                        cfg.reg("gen", seeds, s), carry["h_gen"],
+                        carry["c_gen"], st["act_gen"][s], st["c_gen"][s],
+                        head_in[s][:, :h],
+                        None if nxt_g is None
+                        else nxt_g[:, h + mem:2 * h + mem])
+        f.train_head(head_in[s], ops["head_w"], ops["head_b"], st["spec"][s],
+                   st["stop"][s], carry["frame"])
+    return st, carry
+
+
+def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
+                          teacher: Sequence[int], seeds: Seeds, dspec, dstop,
+                          dw, plain: bool = False):
+    """K3 over all F steps in reverse, then the weight gradients.  ``st``
+    holds the forward's streams; ``dspec`` [F, B, M], ``dstop`` [F, B],
+    ``dw`` [F, B, T] are the output cotangents (float32).  -> ``(grads,
+    streams, carry)``: the gradient of every operand of
+    ``train_operands`` plus ``memory``, ``mtb`` and ``shifted``; the
+    per-step gradient streams; the final cotangent carry (that of the
+    initial decoder state)."""
+    n_f, b = dspec.shape[:2]
+    t_len = memory.shape[1]
+    d = cfg.dtype
+    h, p, mem, m, a = (cfg.hidden, cfg.prenet_dim, cfg.mem_dim, cfg.mmel,
+                       cfg.att_dim)
+    f32 = torch.float32
+
+    def z(*shape, dtype=f32):
+        return _zeros(*shape, like=memory, dtype=dtype)
+
+    g = {"dg_att": z(n_f, b, 4 * h, dtype=d),
+         "dg_gen": z(n_f, b, 4 * h, dtype=d),
+         "da_frame": z(n_f, b, m, dtype=d),
+         "da_pre": z(cfg.n_prenet, n_f, b, p, dtype=d),
+         "dctx": z(n_f, b, mem, dtype=d), "dshift": z(n_f, b, m, dtype=d),
+         "dq": z(n_f, b, a, dtype=d)}
+    acc = {"dmt": z(b, t_len, a), "dlc": z(b, cfg.taps, a), "dv": z(b, a)}
+    carry = {"h_att": z(b, h), "c_att": z(b, h), "h_gen": z(b, h),
+             "c_gen": z(b, h), "ctx": z(b, mem), "frame": z(b, m),
+             "cum": z(b, t_len)}
+    dh_gen_tot, dh_att_tot, dh_reg = z(b, h), z(b, h), z(b, h)
+    dctx_tot, dx, q = z(b, mem), z(b, p), z(b, a)
+    f = PLAIN if plain else KERNELS
+    for s in range(n_f - 1, -1, -1):
+        f.bwd_head(dspec[s], dstop[s], carry["frame"], ops["head_w"],
+                 g["da_frame"][s], carry["h_gen"], carry["ctx"], dh_gen_tot,
+                 dctx_tot, cfg)
+        f.bwd_cell(st["act_gen"][s], st["c_gen"][s - 1] if s else None,
+                 dh_gen_tot, carry["c_gen"], g["dg_gen"][s], dh_reg,
+                 cfg.reg("gen", seeds, s))
+        f.bwd_gemm(g["dg_gen"][s], ops["gen_w"], True,
+                 [(0, h, dh_att_tot, carry["h_att"]),
+                  (h, h + mem, dctx_tot, dctx_tot),
+                  (h + mem, 2 * h + mem, carry["h_gen"], dh_reg)])
+        f.train_query(st["gen_in"][s][:, :h], ops["wq"], q)
+        f.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops["lc"],
+                ops["v"], dctx_tot, dw[s], carry["cum"], acc["dmt"],
+                acc["dlc"], acc["dv"], g["dq"][s], g["dctx"][s])
+        f.bwd_gemm(g["dq"][s], ops["wq"], False,
+                 [(0, h, dh_att_tot, dh_att_tot)])
+        f.bwd_cell(st["act_att"][s], st["c_att"][s - 1] if s else None,
+                 dh_att_tot, carry["c_att"], g["dg_att"][s], dh_reg,
+                 cfg.reg("att", seeds, s))
+        f.bwd_gemm(g["dg_att"][s], ops["att_w"], True,
+                 [(0, p, dx, None), (p, p + mem, carry["ctx"], None),
+                  (p + mem, p + mem + h, carry["h_att"], dh_reg)])
+        f.bwd_prenet(dx, st["pre"][:, s], ops, cfg, teacher[s],
+                   g["da_pre"][:, s], g["dshift"][s], carry["frame"])
+
+    def flat(x):
+        return x.reshape(-1, x.shape[-1])
+
+    d_wq = z(h, a)
+    f.bwd_gemm(flat(st["gen_in"])[:, :h], flat(g["dq"]), True,
+             [(0, a, d_wq, None)], a_km=True)
+    dfv = torch.cat([g["da_frame"], dstop.to(d)[..., None]], dim=-1)
+    pre_in = [st["raw"]] + [st["pre"][i] for i in range(cfg.n_prenet - 1)]
+    grads = {
+        "att_w": _mm_f32(flat(g["dg_att"]).t(), flat(st["att_in"])),
+        "att_b": g["dg_att"].float().sum((0, 1)),
+        "gen_w": _mm_f32(flat(g["dg_gen"]).t(), flat(st["gen_in"])),
+        "gen_b": g["dg_gen"].float().sum((0, 1)),
+        "head_w": _mm_f32(flat(dfv).t(), flat(st["head_in"])),
+        "head_b": dfv.float().sum((0, 1)),
+        "pre_w": torch.cat([
+            _mm_f32(flat(x).t(), flat(g["da_pre"][i])).reshape(-1)
+            for i, x in enumerate(pre_in)]),
+        "pre_b": g["da_pre"].float().sum((1, 2)).reshape(-1),
+        "wq": d_wq,
+        "lc": acc["dlc"].sum(0),
+        "v": acc["dv"].sum(0),
+        "mtb": acc["dmt"],
+        "memory": torch.einsum("sbt,sbm->btm", st["w"], g["dctx"].float()),
+        "shifted": g["dshift"].float(),
+    }
+    return grads, g, carry
+
+
+class TrainDecode(torch.autograd.Function):
+    """K2 forward, K3 backward.  Inputs: the static ``cfg``, the ``teacher``
+    flags and ``seeds``, then ``memory`` [B, T, Mem], ``mtb`` [B, T, A],
+    ``mask_add`` [B, T], ``shifted`` [F, B, M] and the operands of
+    ``OPERAND_KEYS`` (float32; cast to the compute type inside).  Outputs
+    spec [F, B, M], stop [F, B], w [F, B, T] in float32."""
+
+    @staticmethod
+    def forward(ctx, cfg, teacher, seeds, memory, mtb, mask_add, shifted,
+                *weights):
+        d = cfg.dtype
+        ops = compute_operands(dict(zip(OPERAND_KEYS, weights)), cfg)
+        mem_d, mtb_d = memory.to(d).contiguous(), mtb.to(d).contiguous()
+        st, _ = train_decode_forward(
+            ops, cfg, mem_d, mtb_d, mask_add.float().contiguous(),
+            shifted.to(d).contiguous(), teacher, seeds)
+        ctx.cfg, ctx.teacher, ctx.seeds = cfg, teacher, seeds
+        ctx.ops, ctx.st = ops, st
+        ctx.save_for_backward(mem_d, mtb_d)
+        return st["spec"], st["stop"], st["w"]
+
+    @staticmethod
+    def backward(ctx, dspec, dstop, dw):
+        mem_d, mtb_d = ctx.saved_tensors
+        grads, _, _ = train_decode_backward(
+            ctx.ops, ctx.cfg, mem_d, mtb_d, ctx.st, ctx.teacher, ctx.seeds,
+            dspec.float().contiguous(), dstop.float().contiguous(),
+            dw.float().contiguous())
+        ctx.ops = ctx.st = None
+        return (None, None, None, grads["memory"], grads["mtb"], None,
+                grads["shifted"], *[grads[k] for k in OPERAND_KEYS])
+
+
+def train_decode_forward_plain(ops, cfg: TrainConfig, memory, mtb, mask_add,
+                               shifted, teacher: Sequence[int], seeds: Seeds):
+    """K2's plain version in differentiable ops (no in-place writes), for
+    autograd: -> (spec [F, B, M], stop [F, B], w [F, B, T])."""
+    n_f, b = shifted.shape[:2]
+    d = cfg.dtype
+    h, mem, m = cfg.hidden, cfg.mem_dim, cfg.mmel
+
+    def z(width):
+        return _zeros(b, width, like=memory)
+
+    h_att, c_att, h_gen, c_gen = z(h), z(h), z(h), z(h)
+    ctx, frame, cum = z(mem), z(m), z(memory.shape[1])
+    specs, stops, ws = [], [], []
+    for s in range(n_f):
+        raw = _rounded(shifted[s].float(), d) if teacher[s] else frame
+        x = train_prenet_plain(raw, ops, cfg, seeds, s)[-1]
+        row = torch.cat([x, ctx, h_att], 1)
+        h_att, c_att, _ = train_gate_lstm_plain(
+            row, ops["att_w"][:, :cfg.ka], ops["att_b"], h_att, c_att,
+            cfg.reg("att", seeds, s))
+        q = train_query_plain(h_att, ops["wq"])
+        w, cum, ctx = train_attention_plain(q, cum, memory, mtb, mask_add,
+                                            ops["lc"], ops["v"])
+        row = torch.cat([h_att, ctx, h_gen], 1)
+        h_gen, c_gen, _ = train_gate_lstm_plain(
+            row, ops["gen_w"][:, :cfg.kg], ops["gen_b"], h_gen, c_gen,
+            cfg.reg("gen", seeds, s))
+        frame, stop = train_head_plain(torch.cat([h_gen, ctx], 1),
+                                       ops["head_w"][:, :cfg.kh],
+                                       ops["head_b"])
+        specs.append(frame)
+        stops.append(stop)
+        ws.append(w)
+    return torch.stack(specs), torch.stack(stops), torch.stack(ws)
+
+
+def decode(cell, cfg: TrainConfig, memory, memory_transform, mask, shifted,
+           teacher: Sequence[int], seeds: Seeds):
+    """The teacher-forced training decode, the contract of the JAX
+    package's ``make_train_decode_fn(...)(...)``: ``memory`` [B, T, Mem],
+    ``memory_transform`` [B, T, A], ``mask`` [B, T] bool, ``shifted`` [B, F,
+    M], ``teacher`` F flags, ``seeds`` two uint32 -> ``(spec [B, F, M],
+    stop logits [B, F], alignments [B, F, T])``, differentiable with respect
+    to the cell's parameters, ``memory`` and ``memory_transform``."""
+    ops = train_operands(cell, cfg)
+    mtb = memory_transform.float() + cell.attention.bias
+    mask_add = torch.where(mask, 0.0, NEG_INF).float()
+    spec, stop, w = TrainDecode.apply(
+        cfg, tuple(int(x) for x in teacher), tuple(seeds), memory.float(),
+        mtb, mask_add, shifted.transpose(0, 1).float(),
+        *[ops[k] for k in OPERAND_KEYS])
+    return spec.transpose(0, 1), stop.transpose(0, 1), w.transpose(0, 1)

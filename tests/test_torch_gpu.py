@@ -10,6 +10,7 @@ Small widths, bfloat16 compute, W8A8 and bfloat16 gates.
 import pytest
 import torch
 
+from chip_smoke import mask_patterns
 from multilingual_text_to_speech_tpu_torch.config import flagship_hparams
 from multilingual_text_to_speech_tpu_torch.models.tacotron import (
     Tacotron,
@@ -155,3 +156,164 @@ def test_kernels_refuse_float32_compute():
     syn.bundle.dtype = torch.float32
     with pytest.raises(ValueError, match="bfloat16"):
         fd.head(carry["h_gen"], carry["context"], syn.bundle)
+
+
+# ---------------------------------------------------------------------------
+# the training slice: K2 and K3 kernels, and a train step
+# ---------------------------------------------------------------------------
+
+def _train_setup(b=10, t=24, frames=12, dropout=0.5, seed=0):
+    """bf16 operands and realistic decoder inputs on the card."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    hp = _hp(False)
+    hp.dropout = dropout
+    torch.manual_seed(seed)
+    model = init_random_weights(Tacotron(hp, torch.bfloat16), seed).cuda()
+    text = torch.randint(3, hp.total_symbols(), (b, t), device="cuda")
+    lengths = torch.randint(t // 2, t + 1, (b,), device="cuda")
+    with torch.no_grad():
+        enc = model.encoder(model.embedding(text).bfloat16(), lengths).float()
+        memory, mt = model.decoder.prepare_memory(
+            enc, torch.randint(0, 4, (b,), device="cuda"),
+            torch.zeros(b, t, dtype=torch.long, device="cuda"))
+        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
+                                      torch.bfloat16)
+        ops = ftd.compute_operands(
+            ftd.train_operands(model.decoder.cell, cfg), cfg)
+        mtb = (mt.float() + model.decoder.cell.attention.bias).bfloat16()
+    mask_add = torch.where(torch.arange(t, device="cuda")[None] < lengths[:, None],
+                           0.0, -1e9)
+    shifted = torch.randn(frames, b, hp.num_mels, device="cuda").bfloat16()
+    teacher = [int(x) for x in (torch.rand(frames) < 0.5)]
+    return ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / (b.float().norm() + 1e-12))
+
+
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_train_forward_and_backward_kernels_match_plain(regularization):
+    """K2 and K3 through their kernels against their plain versions on the
+    card, bf16, 12 steps: every output, residual and gradient stream, every
+    accumulator and the final cotangent carry within a relative error of
+    2e-2 (bf16 roundings that a one-ulp difference of a float32 sum can
+    flip, compounded over the steps); the prenet dropout pattern of the
+    first step bit-exact."""
+    import dataclasses
+
+    ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher = _train_setup()
+    if regularization == "dropout":
+        cfg = dataclasses.replace(cfg, use_zoneout=False, zoneout_c=0.0)
+    seeds = (1234, 98765)
+    ftd.reset_launch_counts()
+    st_k, carry_k = ftd.train_decode_forward(ops, cfg, memory, mtb, mask_add,
+                                             shifted, teacher, seeds)
+    st_p, carry_p = ftd.train_decode_forward(ops, cfg, memory, mtb, mask_add,
+                                             shifted, teacher, seeds,
+                                             plain=True)
+    assert all(ftd.LAUNCHES[k] > 0 for k in ftd.K2_KERNELS), ftd.LAUNCHES
+    got, ref = (mask_patterns(k, cfg, ops, st_p, shifted, seeds, 3)
+                for k in (ftd.KERNELS, ftd.PLAIN))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for k in st_p:
+        assert _rel(st_k[k], st_p[k]) < 2e-2, k
+    for k in carry_p:
+        assert _rel(carry_k[k], carry_p[k]) < 2e-2, k
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cts = [torch.randn(x.shape, device="cuda", generator=gen)
+           for x in (st_p["spec"], st_p["stop"], st_p["w"])]
+    g_k, s_k, c_k = ftd.train_decode_backward(ops, cfg, memory, mtb, st_p,
+                                              teacher, seeds, *cts)
+    g_p, s_p, c_p = ftd.train_decode_backward(ops, cfg, memory, mtb, st_p,
+                                              teacher, seeds, *cts,
+                                              plain=True)
+    assert all(ftd.LAUNCHES[k] > 0 for k in ftd.K3_KERNELS), ftd.LAUNCHES
+    for name, (got, ref) in {**{f"grad {k}": (g_k[k], g_p[k]) for k in g_p},
+                             **{f"stream {k}": (s_k[k], s_p[k]) for k in s_p},
+                             **{f"carry {k}": (c_k[k], c_p[k]) for k in c_p}
+                             }.items():
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, ref) < 2e-2, (name, _rel(got, ref))
+
+
+def test_train_step_on_card_matches_cpu():
+    """One ``train_step`` from the same weights, batch, flags and seeds on
+    the card and on the CPU (plain path), both bf16: every loss term and the
+    gradient norm within a relative 2e-2, and every parameter moved."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+        TacotronLossState,
+    )
+    from multilingual_text_to_speech_tpu_torch.training import trainer
+
+    hp = _hp(False)
+    hp.dropout = 0.0
+    rng = np.random.RandomState(0)
+    b, t, f = 10, 16, 16
+    text = rng.randint(3, hp.total_symbols(), (b, t))
+    lengths = rng.randint(t // 2, t + 1, b)
+    text[np.arange(t)[None] >= lengths[:, None]] = 0
+    mels = rng.randn(b, f, hp.num_mels).astype(np.float32)
+    flen = np.full(b, f)
+    batch = trainer.Batch(text, lengths, mels, None, flen,
+                          np.zeros((b, f), np.float32),
+                          rng.randint(0, 4, b), np.arange(b) % 5)
+    sd = init_random_weights(Tacotron(hp, torch.bfloat16), 2).state_dict()
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = Tacotron(hp, torch.bfloat16)
+        model.load_state_dict(sd)
+        for m in model.modules():
+            if hasattr(m, "dropout"):
+                m.dropout = 0.0
+        model.to(dev)
+        opt, sched = trainer.make_optimizer(model, hp)
+        res = trainer.train_step(model, opt, sched, batch,
+                                 TacotronLossState.init(hp),
+                                 torch.Generator(), teacher=[1, 0] * (f // 2),
+                                 seeds=(5, 6), device=dev)
+        moved = all(not torch.equal(p.detach().cpu(), sd[n])
+                    for n, p in model.named_parameters())
+        results[dev] = (res, moved)
+    (rk, mk), (rp, mp) = results["cuda"], results["cpu"]
+    assert mk and mp
+    for k in rp.losses:
+        assert abs(float(rk.losses[k]) - float(rp.losses[k])) <= \
+            2e-2 * abs(float(rp.losses[k])) + 1e-6, k
+    assert abs(float(rk.grad_norm) - float(rp.grad_norm)) <= \
+        2e-2 * float(rp.grad_norm)
+
+
+@pytest.mark.parametrize("b,t", [(5, 512), (510, 16)])
+def test_train_kernels_take_long_texts_and_large_batches(b, t):
+    """Up to T=512 symbols and B=510 rows (a multiple of the 5 languages):
+    3 steps forward and backward through the kernels within a relative 2e-2
+    of the plain versions; 513 symbols raise."""
+    ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher = _train_setup(
+        b=b, t=t, frames=3)
+    seeds = (7, 8)
+    args = (ops, cfg, memory, mtb, mask_add, shifted, teacher, seeds)
+    st_k, _ = ftd.train_decode_forward(*args)
+    st_p, _ = ftd.train_decode_forward(*args, plain=True)
+    for k in ("spec", "stop", "w", "gen_in"):
+        assert _rel(st_k[k], st_p[k]) < 2e-2, k
+    cts = [torch.ones_like(x) for x in (st_p["spec"], st_p["stop"], st_p["w"])]
+    g_k, _, _ = ftd.train_decode_backward(ops, cfg, memory, mtb, st_p,
+                                          teacher, seeds, *cts)
+    g_p, _, _ = ftd.train_decode_backward(ops, cfg, memory, mtb, st_p,
+                                          teacher, seeds, *cts, plain=True)
+    for k in g_p:
+        assert _rel(g_k[k], g_p[k]) < 2e-2, k
+    if t == 512:
+        long = torch.zeros(b, 513, memory.shape[2], dtype=memory.dtype,
+                           device="cuda")
+        with pytest.raises(ValueError, match="T <= 512"):
+            ftd.train_decode_forward(ops, cfg, long, torch.zeros(
+                b, 513, cfg.att_dim, dtype=mtb.dtype, device="cuda"),
+                torch.zeros(b, 513, device="cuda"), shifted, teacher, seeds)

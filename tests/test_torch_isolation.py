@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and runs a tiny synthesis on the CPU with ``jax`` blocked."""
+package, and runs a tiny synthesis and a tiny training step on the CPU with
+``jax`` blocked."""
 
 import os
 import re
@@ -63,6 +64,24 @@ def test_port_synthesizes_with_jax_blocked():
         out = syn.synthesize_batch_lines(
             ["1|hallo|a|de", "2|salut|b|fr", "3|mix|c|de*0.5:ru*0.5"])
         assert all(o.shape[0] == 20 and np.isfinite(o).all() for o in out)
+        from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+            TacotronLossState)
+        from multilingual_text_to_speech_tpu_torch.training import trainer
+        model = Tacotron(hp)
+        model.load_state_dict(sd)
+        opt, sched = trainer.make_optimizer(model, hp)
+        rng = np.random.RandomState(0)
+        b, t, f = 5, 8, 6
+        batch = trainer.Batch(
+            rng.randint(3, hp.total_symbols(), (b, t)), np.full(b, t),
+            rng.randn(b, f, 20).astype(np.float32), None, np.full(b, f),
+            np.zeros((b, f), np.float32), rng.randint(0, 4, b),
+            np.arange(b) % 5)
+        res = trainer.train_step(model, opt, sched, batch,
+                                 TacotronLossState.init(hp),
+                                 torch.Generator().manual_seed(0),
+                                 device="cpu")
+        assert all(np.isfinite(float(v)) for v in res.losses.values())
         assert not any(m == "jax" or m.startswith(
             ("jax.", "multilingual_text_to_speech_tpu."))
             for m in sys.modules if sys.modules[m] is not None)

@@ -1,0 +1,283 @@
+"""The port's training decode (K2 forward, K3 backward) against the JAX
+package's fused train decoder, on the CPU in float32.
+
+The JAX side runs its Pallas kernels in interpret mode
+(``pallas_train_decoder.make_train_decode_fn(..., interpret=True)``); the
+port runs the plain PyTorch versions of its kernels.  Both get the same
+numpy-seeded weights and inputs, the same teacher flags and the same two
+uint32 decoder seeds (the JAX package draws them from its key as
+``jax.random.bits(rng, (2,), uint32)``).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multilingual_text_to_speech_tpu.ops import pallas_decoder
+from multilingual_text_to_speech_tpu.ops import pallas_train_decoder as ptd
+from multilingual_text_to_speech_tpu_torch.interop import params_from_jax
+from multilingual_text_to_speech_tpu_torch.models.decoder import DecoderCell
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+from tests.torch_port_utils import port_hp, tiny_hp, to_np
+
+B, T, MEM, FRAMES = 4, 10, 12, 7
+
+
+def _hp(regularization="zoneout", n_prenet=2, dropout=0.5):
+    return tiny_hp(decoder_regularization=regularization,
+                   prenet_layers=n_prenet, dropout=dropout,
+                   zoneout_hidden=0.1, zoneout_cell=0.1, dropout_hidden=0.1)
+
+
+def _cell_params(hp, seed=0):
+    """numpy weights of one DecoderCell (flax layout, scale 0.3)."""
+    rng = np.random.RandomState(seed)
+    h, p, a = hp.decoder_dimension, hp.prenet_dimension, hp.attention_dimension
+    m, k, c = hp.num_mels, hp.attention_kernel_size, \
+        hp.attention_location_dimension
+
+    def r(*shape):
+        return (rng.randn(*shape) * 0.3).astype(np.float32)
+
+    prenet = {f"fc{i}": {"kernel": r(m if i == 0 else p, p), "bias": r(p)}
+              for i in range(hp.prenet_layers)}
+    return {
+        "prenet": prenet,
+        "attention_lstm": {"cell": {"gates": {
+            "kernel": r(p + MEM + h, 4 * h), "bias": r(4 * h)}}},
+        "attention": {"query_kernel": r(h, a), "loc_filter": r(k, 1, c),
+                      "location_kernel": r(c, a), "bias": r(1, a),
+                      "energy_kernel": r(a, 1)},
+        "generator_lstm": {"cell": {"gates": {
+            "kernel": r(h + MEM + h, 4 * h), "bias": r(4 * h)}}},
+        "frame_prediction": {"kernel": r(h + MEM, m), "bias": r(m)},
+        "stop_prediction": {"kernel": r(h + MEM, 1), "bias": r(1)},
+    }
+
+
+def _port_cell(hp, params):
+    cell = DecoderCell(port_hp(hp), MEM)
+    sd = params_from_jax({"params": {"decoder": {"cell": params}}})
+    cell.load_state_dict({k[len("decoder.cell."):]: v for k, v in sd.items()},
+                         strict=True)
+    return cell
+
+
+def _inputs(hp, ratio, seed=1):
+    rng = np.random.RandomState(seed)
+    memory = rng.randn(B, T, MEM).astype(np.float32)
+    mt = (rng.randn(B, T, hp.attention_dimension) * 0.5).astype(np.float32)
+    lengths = np.array([T, T - 3, T - 1, 4])
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    shifted = rng.randn(B, FRAMES, hp.num_mels).astype(np.float32)
+    teacher = (rng.uniform(size=FRAMES) < ratio).astype(np.int32)
+    key = jax.random.PRNGKey(seed + 7)
+    seeds = tuple(int(s) for s in np.asarray(
+        jax.random.bits(key, (2,), jnp.uint32)))
+    return memory, mt, mask, shifted, teacher, key, seeds
+
+
+def _jax_decode(hp):
+    return ptd.make_train_decode_fn(hp, dtype=jnp.float32, interpret=True,
+                                    fwd_chunk=4, bwd_chunk=3)
+
+
+def _port_cfg(hp):
+    return ftd.TrainConfig.from_hp(port_hp(hp), MEM, torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(regularization, n_prenet, ratio):
+    hp = _hp(regularization, n_prenet)
+    params = _cell_params(hp)
+    memory, mt, mask, shifted, teacher, key, _ = _inputs(hp, ratio)
+    out = _jax_decode(hp)(jax.tree_util.tree_map(jnp.asarray, params),
+                          jnp.asarray(memory), jnp.asarray(mt),
+                          jnp.asarray(mask), jnp.asarray(shifted),
+                          jnp.asarray(teacher), key)
+    return tuple(np.asarray(o) for o in out)
+
+
+@pytest.mark.parametrize("ratio", [1.0, 0.5, 0.0])
+def test_forward_matches_interpret_kernel(ratio):
+    """Plain K2 (through ``decode``) against interpret-mode K2 at prenet
+    dropout 0.5 and zoneout 0.1: spec, stop and attention weights within
+    atol 2e-5 (float32 sums in another order).  A single different mask
+    element moves the outputs by far more than that."""
+    hp = _hp()
+    cell = _port_cell(hp, _cell_params(hp))
+    memory, mt, mask, shifted, teacher, _, seeds = _inputs(hp, ratio)
+    with torch.no_grad():
+        got = ftd.decode(cell, _port_cfg(hp), torch.as_tensor(memory),
+                         torch.as_tensor(mt), torch.as_tensor(mask),
+                         torch.as_tensor(shifted), teacher.tolist(), seeds)
+    for g, r, name in zip(got, _jax_forward("zoneout", 2, ratio),
+                          ("spec", "stop", "alignment")):
+        np.testing.assert_allclose(to_np(g), r, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["att", "gen"])
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_masks_bit_exact(regularization, which):
+    """The port's cell and prenet masks are the JAX kernels' draws: the
+    same salt layout (``_salt_layout``) and thresholds, bit for bit."""
+    hp = _hp(regularization)
+    cfg = _port_cfg(hp)
+    jcfg = ptd._make_cfg(hp, t_len=T, mem_dim=MEM,
+                         att_dim=hp.attention_dimension, dtype=jnp.float32)
+    seeds = (123456789, 3987654321)
+    site_h = jcfg.salt_att_h if which == "att" else jcfg.salt_gen_h
+    site_c = jcfg.salt_att_c if which == "att" else jcfg.salt_gen_c
+    for gs in (0, 5, 511):
+        reg = cfg.reg(which, seeds, gs)
+        for site, th, k in ((site_h, ptd._thresh(1.0 - jcfg.zoneout_h), 0),
+                            (site_c, ptd._thresh(1.0 - jcfg.zoneout_c), 1)):
+            ref = np.asarray(pallas_decoder._rand_bits(
+                (B, cfg.hidden), jnp.uint32(seeds[0]), jnp.uint32(seeds[1]),
+                jnp.asarray(gs * jcfg.salt_sites + site, jnp.int32))) < th
+            got = to_np(ftd._masks((B, cfg.hidden), reg, k, None))
+            np.testing.assert_array_equal(got, ref)
+        for layer in range(cfg.n_prenet):
+            ref = np.asarray(pallas_decoder._rand_bits(
+                (B, cfg.prenet_dim), jnp.uint32(seeds[0]),
+                jnp.uint32(seeds[1]),
+                jnp.asarray(gs * jcfg.salt_sites + layer, jnp.int32)))
+            got = fused_decoder.rand_bits((B, cfg.prenet_dim), *seeds,
+                                          cfg.prenet_salt(gs) + layer)
+            np.testing.assert_array_equal(to_np(got).astype(np.uint32), ref)
+
+
+def _cotangents(hp, seed=5):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, FRAMES, hp.num_mels).astype(np.float32),
+            rng.randn(B, FRAMES).astype(np.float32),
+            rng.randn(B, FRAMES, T).astype(np.float32))
+
+
+def _flat_grads(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flat_grads(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _to_jax_layout(cell, grads):
+    """The port's parameter gradients in the flax layout, keyed by path."""
+    out = {}
+    for (name, p), g in zip(cell.named_parameters(), grads):
+        g = to_np(g)
+        leaf = name.split(".")[-1]
+        path = "/".join(name.split(".")[:-1])
+        if leaf == "weight":
+            out[f"{path}/kernel"] = g.T
+        else:
+            out[f"{path}/{leaf}"] = g
+    return out
+
+
+@pytest.mark.parametrize("n_prenet", [1, 2])
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_backward_matches_jax_vjp(regularization, n_prenet):
+    """Plain K3 through ``TrainDecode`` against the JAX custom VJP (the
+    interpret-mode K3): every parameter gradient and the memory and memory
+    transform gradients within 1e-4 of that tensor's largest value."""
+    hp = _hp(regularization, n_prenet)
+    params = _cell_params(hp)
+    memory, mt, mask, shifted, teacher, key, seeds = _inputs(hp, 0.5)
+    cts = _cotangents(hp)
+    decode = _jax_decode(hp)
+
+    def f(cp, mem, mtr):
+        return decode(cp, mem, mtr, jnp.asarray(mask), jnp.asarray(shifted),
+                      jnp.asarray(teacher), key)
+
+    _, vjp = jax.vjp(f, jax.tree_util.tree_map(jnp.asarray, params),
+                     jnp.asarray(memory), jnp.asarray(mt))
+    g_cell, g_mem, g_mt = vjp(tuple(jnp.asarray(c) for c in cts))
+    ref = _flat_grads(g_cell)
+
+    cell = _port_cell(hp, params)
+    mem_t = torch.as_tensor(memory).requires_grad_()
+    mt_t = torch.as_tensor(mt).requires_grad_()
+    out = ftd.decode(cell, _port_cfg(hp), mem_t, mt_t, torch.as_tensor(mask),
+                     torch.as_tensor(shifted), teacher.tolist(), seeds)
+    loss = sum((o * torch.as_tensor(c)).sum() for o, c in zip(out, cts))
+    grads = torch.autograd.grad(loss, list(cell.parameters()) + [mem_t, mt_t])
+    got = _to_jax_layout(cell, grads[:-2])
+    got["memory"], got["memory_transform"] = to_np(grads[-2]), to_np(grads[-1])
+    ref["memory"], ref["memory_transform"] = np.asarray(g_mem), np.asarray(g_mt)
+    assert set(got) == set(ref), (sorted(got), sorted(ref))
+    for name, r in ref.items():
+        scale = np.abs(r).max() + 1e-6
+        err = np.abs(got[name].reshape(r.shape) - r).max() / scale
+        assert err < 1e-4, (name, err)
+
+
+def _operands(hp, cfg, seed=0):
+    cell = _port_cell(hp, _cell_params(hp, seed))
+    return {k: v.detach().clone().requires_grad_()
+            for k, v in ftd.train_operands(cell, cfg).items()}
+
+
+@pytest.mark.parametrize("regularization,n_prenet",
+                         [("zoneout", 2), ("dropout", 1)])
+def test_plain_backward_matches_autograd(regularization, n_prenet):
+    """Plain K3 (``TrainDecode.backward``) against ``torch.autograd.grad``
+    through plain K2 written in differentiable ops: every operand, memory
+    and memory-transform gradient within 1e-4 of its largest value."""
+    hp = _hp(regularization, n_prenet)
+    cfg = _port_cfg(hp)
+    ops = _operands(hp, cfg)
+    memory, mt, mask, shifted, teacher, _, seeds = _inputs(hp, 0.5)
+    mem = torch.as_tensor(memory).requires_grad_()
+    mtb = torch.as_tensor(mt).requires_grad_()
+    mask_add = torch.where(torch.as_tensor(mask), 0.0, -1e9)
+    sh = torch.as_tensor(shifted).transpose(0, 1).contiguous()
+    cts = [torch.as_tensor(c) for c in _cotangents(hp)]
+    cts = [cts[0].transpose(0, 1), cts[1].t(), cts[2].transpose(0, 1)]
+    inputs = [mem, mtb] + [ops[k] for k in ftd.OPERAND_KEYS]
+
+    def loss_of(outs):
+        return sum((o * c).sum() for o, c in zip(outs, cts))
+
+    ref = torch.autograd.grad(loss_of(ftd.train_decode_forward_plain(
+        ops, cfg, mem, mtb, mask_add, sh, teacher.tolist(), seeds)), inputs)
+    got = torch.autograd.grad(loss_of(ftd.TrainDecode.apply(
+        cfg, tuple(teacher.tolist()), seeds, mem, mtb, mask_add, sh,
+        *[ops[k] for k in ftd.OPERAND_KEYS])), inputs)
+    for name, g, r in zip(["memory", "mtb", *ftd.OPERAND_KEYS], got, ref):
+        scale = float(r.abs().max()) + 1e-6
+        assert float((g - r).abs().max()) / scale < 1e-4, name
+
+
+@pytest.mark.parametrize("ratio", [1.0, 0.0])
+def test_stream_driver_equals_plain_forward(ratio):
+    """The kernel driver (its wrappers run their plain versions on the CPU)
+    gives the pure plain forward's outputs, and its residual streams hold
+    the concat rows the gate products read."""
+    hp = _hp()
+    cfg = _port_cfg(hp)
+    ops = {k: v.detach() for k, v in _operands(hp, cfg).items()}
+    memory, mt, mask, shifted, teacher, _, seeds = _inputs(hp, ratio)
+    args = (ops, cfg, torch.as_tensor(memory), torch.as_tensor(mt),
+            torch.where(torch.as_tensor(mask), 0.0, -1e9),
+            torch.as_tensor(shifted).transpose(0, 1).contiguous(),
+            teacher.tolist(), seeds)
+    st, carry = ftd.train_decode_forward(*args)
+    ref = ftd.train_decode_forward_plain(*args)
+    for k, r in zip(("spec", "stop", "w"), ref):
+        torch.testing.assert_close(st[k], r, atol=1e-6, rtol=0)
+    h, p, mem = cfg.hidden, cfg.prenet_dim, cfg.mem_dim
+    torch.testing.assert_close(st["att_in"][1:, :, p:p + mem],
+                               st["gen_in"][:-1, :, h:h + mem])
+    torch.testing.assert_close(st["gen_in"][1:, :, h + mem:2 * h + mem],
+                               st["head_in"][:-1, :, :h])
+    torch.testing.assert_close(carry["frame"], st["spec"][-1])

@@ -56,11 +56,12 @@ def _randomize(tree, rng, kind):
 
 
 @functools.lru_cache(maxsize=None)
-def _variables_np(stop_bias):
-    """numpy weights (random batch_stats too) for ``tiny_hp``.  Random
-    normal weights at 0.3 stand in for a trained net; ``stop_bias``
-    overrides the stop head's bias when not None."""
-    hp = tiny_hp()
+def _variables_np(stop_bias, classifier=False):
+    """numpy weights (random batch_stats too) for ``tiny_hp`` (with the
+    reversal classifier when ``classifier``).  Random normal weights at 0.3
+    stand in for a trained net; ``stop_bias`` overrides the stop head's bias
+    when not None."""
+    hp = tiny_hp(reversal_classifier=classifier)
     model = Tacotron(hp, train=False)
     b, t = 2, 8
     key = jax.random.PRNGKey(0)
@@ -78,8 +79,8 @@ def _variables_np(stop_bias):
     return out
 
 
-def variables_np(stop_bias=None):
-    return _variables_np(stop_bias)
+def variables_np(stop_bias=None, classifier=False):
+    return _variables_np(stop_bias, classifier)
 
 
 def jax_variables(v_np):
