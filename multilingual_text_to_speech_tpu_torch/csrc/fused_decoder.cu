@@ -2,17 +2,25 @@
 //
 // Replaces the JAX package's TPU kernel ops/pallas_decoder.py::_build_kernel
 // (one pallas_call running a whole chunk of decoder steps).  This first
-// design launches four kernels per step from the Python wrapper
-// (ops/fused_decoder.py): prenet, gate_lstm (once per LSTM), lsa_attention
-// and head.  The compute type is bfloat16; carries and sums are float32.
-// Values are rounded to bfloat16 at the points where the TPU kernel rounds
-// them, so the plain PyTorch version in ops/fused_decoder.py can repeat the
-// arithmetic.
+// design launches its kernels per step from the Python wrapper
+// (ops/fused_decoder.py): prenet, gate_lstm (gate_rows and gate_mma, once
+// per LSTM), lsa_attention and head.  The compute type is bfloat16;
+// carries and sums are float32.  Values are rounded to bfloat16 at the
+// points where the TPU kernel rounds them, so the plain PyTorch version in
+// ops/fused_decoder.py can repeat the arithmetic.
 //
 // Bound on the H100: the two gate products dominate (2*B*(K_att+K_gen)*4H
-// int8 operations a step).  Here they run with __dp4a on the CUDA cores
-// from shared-memory tiles, the gate weights come from L2 every step, and
-// every kernel is one launch a step: simple and right first.
+// int8 operations a step, 7.7 G at B=240: 3.9 us at 1,979 TOP/s; their 16
+// MB of int8 weights, 4.8 us at 3.35 TB/s).  The TPU kernel quantizes each
+// row once into scratch and runs one int8 dot (pallas_decoder.py:495-511);
+// so does gate_lstm here: a row pass per LSTM builds the int8 (or bf16) row
+// once, and the product runs on the int8 (or bf16) tensor cores with
+// mma.sync from a cp.async ring of shared-memory tiles fed to ldmatrix, 128
+// rows by 64 gate columns a block (128 blocks at B=240, about one wave on
+// 132 SMs, each weight tile read twice), with the LSTM step in its
+// epilogue: csrc/tile.cuh's gate_tile_kernel, which the training decoder's
+// gate product shares.  The other kernels are first designs, one launch a
+// step each.
 //
 // Interface: plain extern "C" launchers taking device pointers and a
 // cudaStream_t as void*, each returning cudaGetLastError().  Build:
@@ -22,6 +30,7 @@
 // division and rintf to match the plain version bit for bit.
 
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -95,17 +104,18 @@ __global__ void prenet_kernel(const float* __restrict__ frame,
 }
 
 // ---------------------------------------------------------------------------
-// gate_lstm: gates = [s0 | s1 | s2] @ W (+ W8A8 dequant) + b, then the LSTM
-// pointwise step and eval zoneout.  W is [4H, Kp] (one row per gate column,
-// K contiguous, zero padded to Kp, a multiple of 64).
-// Block: G_BM batch rows x G_UN hidden units (4*G_UN gate columns); each
-// thread owns 2 rows x 1 unit x 4 gates.
+// gate_lstm, two launches per LSTM:
+//   gate_rows: the concat row [s0 | s1 | s2] in the compute type, built once
+//     per batch row.  W8A8: rs = max(amax, 1e-6) * (1/127), inv = 1/rs
+//     (IEEE), q = clip(rint(x * inv)) -> the int8 row [B, Kp] and rs [B];
+//     bf16: the bf16 row [B, Kp].  Zero padded to Kp.
+//   gate_mma: gates = row @ W^T on the tensor cores (gate_tile_kernel of
+//     csrc/tile.cuh, which the training decoder's gate product runs too),
+//     then the W8A8 dequant, the LSTM pointwise step and eval zoneout in
+//     the epilogue, EvalLstm.
+// W is [4H, Kp] (one row per gate column, K contiguous, Kp a multiple of
+// 64), so the row and W are the row.col operands of mma.sync as they lie.
 // ---------------------------------------------------------------------------
-constexpr int G_BM = 32;
-constexpr int G_UN = 16;
-constexpr int G_THREADS = 256;
-constexpr int G_KW = 16;  // 32-bit words of K per tile
-
 struct Segments {
   const float* s0;
   const float* s1;
@@ -125,130 +135,82 @@ struct Segments {
   }
 };
 
+constexpr int ROW_THREADS = 256;
+
+// one block per batch row; dynamic shared memory holds the row (K floats)
 template <bool INT8>
-__global__ void __launch_bounds__(G_THREADS)
-gate_lstm_kernel(Segments seg, const uint32_t* __restrict__ w,
-                 const float* __restrict__ ws, const float* __restrict__ bias,
-                 int kp, const float* __restrict__ h_old,
-                 const float* __restrict__ c_old, float* __restrict__ h_new,
-                 float* __restrict__ c_new, int8_t* __restrict__ q_out, int B,
-                 int H, float zh, float zc) {
-  __shared__ uint32_t As[G_BM][G_KW];
-  __shared__ uint32_t Ws[4 * G_UN][G_KW + 1];
-  __shared__ float s_rs[G_BM];
-  __shared__ float s_inv[G_BM];
-  const int tid = threadIdx.x;
-  const int unit0 = blockIdx.x * G_UN;
-  const int row0 = blockIdx.y * G_BM;
+__global__ void __launch_bounds__(ROW_THREADS)
+gate_rows_kernel(Segments seg, int kp, uint32_t* __restrict__ row_out,
+                 float* __restrict__ rs_out, int8_t* __restrict__ q_out) {
+  extern __shared__ float s_x[];
+  __shared__ float s_red[32];
+  const int row = blockIdx.x;
   const int K = seg.k0 + seg.k1 + seg.k2;
-
+  float m = 0.0f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float v = seg.at(row, k);
+    s_x[k] = v;
+    m = fmaxf(m, fabsf(v));
+  }
   if (INT8) {
-    // per-row scale: rs = max(amax, 1e-6) * (1/127), inv = 1/rs (IEEE)
-    const int lane = tid & 31, warp = tid >> 5;
-    for (int r = warp; r < G_BM; r += G_THREADS / 32) {
-      const int row = row0 + r;
-      float m = 0.0f;
-      if (row < B)
-        for (int k = lane; k < K; k += 32) m = fmaxf(m, fabsf(seg.at(row, k)));
-      m = warp_max(m);
-      if (lane == 0) {
-        const float rs = __fmul_rn(fmaxf(m, 1e-6f), (float)(1.0 / 127.0));
-        s_rs[r] = rs;
-        s_inv[r] = __fdiv_rn(1.0f, rs);
+    // block_reduce synchronizes before it returns, so s_x is complete
+    m = block_reduce<true>(m, s_red);
+    const float rs = __fmul_rn(fmaxf(m, 1e-6f), (float)(1.0 / 127.0));
+    const float inv = __fdiv_rn(1.0f, rs);
+    if (threadIdx.x == 0) rs_out[row] = rs;
+    uint32_t* dst = row_out + (size_t)row * (kp / 4);
+    for (int wd = threadIdx.x; wd < kp / 4; wd += blockDim.x) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * wd + j;
+        int q = 0;
+        if (k < K) {
+          const float qf = rintf(__fmul_rn(s_x[k], inv));
+          q = (int)fminf(fmaxf(qf, -127.0f), 127.0f);
+          if (q_out != nullptr) q_out[(size_t)row * K + k] = (int8_t)q;
+        }
+        packed |= ((uint32_t)(uint8_t)(int8_t)q) << (8 * j);
       }
+      dst[wd] = packed;
     }
+  } else {
     __syncthreads();
+    uint32_t* dst = row_out + (size_t)row * (kp / 2);
+    for (int wd = threadIdx.x; wd < kp / 2; wd += blockDim.x) {
+      const int k = 2 * wd;
+      __nv_bfloat162 p = __floats2bfloat162_rn(k < K ? s_x[k] : 0.0f,
+                                               k + 1 < K ? s_x[k + 1] : 0.0f);
+      dst[wd] = *reinterpret_cast<uint32_t*>(&p);
+    }
   }
+}
 
-  const int rp = tid / G_UN;  // row pair
-  const int u = tid % G_UN;
-  int iacc[2][4];
-  float facc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      iacc[i][g] = 0;
-      facc[i][g] = 0.0f;
-    }
-  constexpr int PER_WORD = INT8 ? 4 : 2;
-  const int words_per_row = kp / PER_WORD;
-
-  for (int kw0 = 0; kw0 < words_per_row; kw0 += G_KW) {
-    for (int i = tid; i < G_BM * G_KW; i += G_THREADS) {
-      const int r = i / G_KW, wd = i % G_KW, row = row0 + r;
-      const int kb = (kw0 + wd) * PER_WORD;
-      if (INT8) {
-        uint32_t packed = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          int q = 0;
-          if (row < B) {
-            float qf = rintf(__fmul_rn(seg.at(row, kb + j), s_inv[r]));
-            q = (int)fminf(fmaxf(qf, -127.0f), 127.0f);
-            if (q_out != nullptr && blockIdx.x == 0 && kb + j < K)
-              q_out[(size_t)row * K + kb + j] = (int8_t)q;
-          }
-          packed |= ((uint32_t)(uint8_t)(int8_t)q) << (8 * j);
-        }
-        As[r][wd] = packed;
-      } else {
-        float x0 = 0.0f, x1 = 0.0f;
-        if (row < B) {
-          x0 = seg.at(row, kb);
-          x1 = seg.at(row, kb + 1);
-        }
-        __nv_bfloat162 p = __floats2bfloat162_rn(x0, x1);
-        As[r][wd] = *reinterpret_cast<uint32_t*>(&p);
-      }
-    }
-    for (int i = tid; i < 4 * G_UN * G_KW; i += G_THREADS) {
-      const int c = i / G_KW, wd = i % G_KW;
-      const int gate = c / G_UN, unit = unit0 + c % G_UN;
-      Ws[c][wd] = unit < H
-                      ? w[(size_t)(gate * H + unit) * words_per_row + kw0 + wd]
-                      : 0u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int wd = 0; wd < G_KW; ++wd) {
-      const uint32_t a0 = As[2 * rp][wd], a1 = As[2 * rp + 1][wd];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const uint32_t wv = Ws[g * G_UN + u][wd];
-        if (INT8) {
-          iacc[0][g] = __dp4a((int)a0, (int)wv, iacc[0][g]);
-          iacc[1][g] = __dp4a((int)a1, (int)wv, iacc[1][g]);
-        } else {
-          const float2 wf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&wv));
-          const float2 f0 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&a0));
-          const float2 f1 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&a1));
-          facc[0][g] = fmaf(f0.y, wf.y, fmaf(f0.x, wf.x, facc[0][g]));
-          facc[1][g] = fmaf(f1.y, wf.y, fmaf(f1.x, wf.x, facc[1][g]));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int unit = unit0 + u;
-  if (unit >= H) return;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 2 * rp + i, row = row0 + r;
-    if (row >= B) continue;
+// gate_mma's epilogue (gate_tile_kernel, csrc/tile.cuh): the W8A8 dequant
+// in the TPU kernel's order, ((acc * rs) * ws) + b, or the bias of bf16
+// sums; the LSTM pointwise step and eval zoneout
+template <bool INT8>
+struct EvalLstm {
+  const float* rs;
+  const float* ws;
+  const float* bias;
+  const float* h_old;
+  const float* c_old;
+  float* h_new;
+  float* c_new;
+  int H;
+  float zh, zc;
+  template <class Acc>
+  __device__ void operator()(int row, int unit, const Acc* g) const {
     float gt[4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int n = g * H + unit;
-      // W8A8 dequant in the TPU kernel's order: ((acc * rs) * ws) + b
-      gt[g] = INT8 ? __fadd_rn(__fmul_rn(__fmul_rn((float)iacc[i][g], s_rs[r]),
-                                         ws[n]),
-                               bias[n])
-                   : facc[i][g] + bias[n];
+    for (int q = 0; q < 4; ++q) {
+      const int n = q * H + unit;
+      if constexpr (INT8)
+        gt[q] = __fadd_rn(__fmul_rn(__fmul_rn((float)g[q], rs[row]), ws[n]),
+                          bias[n]);
+      else
+        gt[q] = g[q] + bias[n];
     }
     const size_t o = (size_t)row * H + unit;
     const float c_prev = c_old[o], h_prev = h_old[o];
@@ -257,7 +219,7 @@ gate_lstm_kernel(Segments seg, const uint32_t* __restrict__ w,
     h_new[o] = zh == 0.0f ? hn : zh * h_prev + (1.0f - zh) * hn;
     c_new[o] = zc == 0.0f ? cn : zc * c_prev + (1.0f - zc) * cn;
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // lsa_attention: one block per batch row.
@@ -407,6 +369,41 @@ __global__ void head_kernel(const float* __restrict__ h_gen,
   }
 }
 
+struct GateArgs {
+  const void* w;
+  const void* ws;
+  const void* bias;
+  int kp;
+  void* row_buf;
+  void* rs_buf;
+  const void* h_old;
+  const void* c_old;
+  void* h_new;
+  void* c_new;
+  void* q_out;
+  int B, H;
+  float zh, zc;
+  cudaStream_t stream;
+};
+
+template <bool INT8>
+int gate_lstm_run(const Segments& seg, const GateArgs& g) {
+  const size_t row_smem = (size_t)(seg.k0 + seg.k1 + seg.k2) * sizeof(float);
+  cudaError_t err = allow_smem(gate_rows_kernel<INT8>, row_smem);
+  if (err != cudaSuccess) return (int)err;
+  gate_rows_kernel<INT8><<<g.B, ROW_THREADS, row_smem, g.stream>>>(
+      seg, g.kp, (uint32_t*)g.row_buf, (float*)g.rs_buf, (int8_t*)g.q_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const EvalLstm<INT8> epi{(const float*)g.rs_buf, (const float*)g.ws,
+                           (const float*)g.bias, (const float*)g.h_old,
+                           (const float*)g.c_old, (float*)g.h_new,
+                           (float*)g.c_new, g.H, g.zh, g.zc};
+  const int kbytes = g.kp * (INT8 ? 1 : 2);
+  return (int)gate_tile_launch<INT8>(g.row_buf, kbytes, g.w, kbytes, kbytes,
+                                     g.B, g.H, epi, g.stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -428,27 +425,23 @@ int prenet_launch(const void* frame, const void* w_all, const void* b_all,
   return (int)cudaGetLastError();
 }
 
+// row_buf: scratch of B * Kp bytes (W8A8) or B * Kp bf16; rs_buf: B floats
+// (W8A8 only).  Launches gate_rows, then gate_mma.
 int gate_lstm_launch(const void* s0, int k0, const void* s1, int k1,
                      const void* s2, int k2, const void* w, const void* ws,
-                     const void* bias, int kp, int quantized,
-                     const void* h_old, const void* c_old, void* h_new,
-                     void* c_new, void* q_out, int B, int H, float zh,
-                     float zc, void* stream) {
-  if (kp % 64 != 0 || kp < k0 + k1 + k2) return (int)cudaErrorInvalidValue;
+                     const void* bias, int kp, int quantized, void* row_buf,
+                     void* rs_buf, const void* h_old, const void* c_old,
+                     void* h_new, void* c_new, void* q_out, int B, int H,
+                     float zh, float zc, void* stream) {
+  if (kp % 64 != 0 || kp < k0 + k1 + k2 || B <= 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
   Segments seg{(const float*)s0, (const float*)s1, (const float*)s2,
                k0, k1, k2};
-  dim3 grid((H + G_UN - 1) / G_UN, (B + G_BM - 1) / G_BM);
-  if (quantized)
-    gate_lstm_kernel<true><<<grid, G_THREADS, 0, (cudaStream_t)stream>>>(
-        seg, (const uint32_t*)w, (const float*)ws, (const float*)bias, kp,
-        (const float*)h_old, (const float*)c_old, (float*)h_new,
-        (float*)c_new, (int8_t*)q_out, B, H, zh, zc);
-  else
-    gate_lstm_kernel<false><<<grid, G_THREADS, 0, (cudaStream_t)stream>>>(
-        seg, (const uint32_t*)w, nullptr, (const float*)bias, kp,
-        (const float*)h_old, (const float*)c_old, (float*)h_new,
-        (float*)c_new, nullptr, B, H, zh, zc);
-  return (int)cudaGetLastError();
+  const GateArgs args{w, ws, bias, kp, row_buf, rs_buf, h_old, c_old,
+                      h_new, c_new, q_out, B, H, zh, zc,
+                      (cudaStream_t)stream};
+  return quantized ? gate_lstm_run<true>(seg, args)
+                   : gate_lstm_run<false>(seg, args);
 }
 
 int lsa_attention_launch(const void* h_att, const void* cum,

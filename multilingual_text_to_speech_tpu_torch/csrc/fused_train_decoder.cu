@@ -9,24 +9,33 @@
 // query, train_attention, gate_lstm (generator LSTM), head; per backward
 // step: bwd_head, bwd_cell, bwd_gemm (generator), query, att_bwd, bwd_gemm
 // (query), bwd_cell, bwd_gemm (attention), bwd_prenet; and once per
-// backward pass the dWq reduction (bwd_gemm over all steps and rows).
+// backward pass the dWq reduction (bwd_gemm over all steps and rows).  A
+// train_query, train_head or bwd_gemm call is one launch, or two when it
+// splits K.
 //
-// Every product runs on the tensor cores through one tile routine
-// (mma.sync m16n8k16, bfloat16 inputs, float32 sums): the gate products
-// with the LSTM step, train-mode zoneout or dropout in the epilogue, the
-// attention query, the head, dgates @ W^T and dq @ Wq^T.  The location conv,
-// energy, softmax, context and their backward run on the CUDA cores, one
-// block per batch row.  Accumulators (dmt, the [K, A] location-conv grad dlc,
-// dv) are per batch row and summed once at the end: no float atomics, so a
-// run repeats bit for bit.
+// Every product runs on the tensor cores (mma.sync m16n8k16, bfloat16
+// inputs, float32 sums) in one of two tile routines.  The gate products
+// run in gate_tile_kernel (csrc/tile.cuh, shared with the serving
+// decoder's gate product), with the LSTM step and train-mode zoneout or
+// dropout in the epilogue.  Every other product (the attention query, the
+// head, and the backward's dgates @ W^T, dq @ Wq^T and dWq) runs in
+// splitk_kernel, which reads transposed operands as they lie through
+// ldmatrix.trans and splits K over the grid.  The location conv, energy,
+// softmax, context and their backward run on the CUDA cores, one block per
+// batch row.  Accumulators (dmt, the [K, A] location-conv grad dlc, dv) are
+// per batch row and summed once at the end, split-K partials are summed in
+// a fixed order: no float atomics, so a run repeats bit for bit.
 //
 // Bound on the H100: a step's two gate products are 2*B*(K_att+K_gen)*4H
 // bf16 operations (1.6 G at B=50), 1.6 us at 989 TFLOP/s, against 32 MB of
 // gate weights that each step reads (9.6 us at 3.35 TB/s, mostly from L2
-// after the first step); the backward repeats them transposed.  This first
-// design launches one kernel per stage and step and tiles 32 rows by 64
-// columns, so with B=50 a gate product runs 128 blocks of 4 warps, bound by
-// the latency of its K loop rather than by either rate.
+// after the first step); the backward repeats them transposed.  The forward
+// launches one kernel per stage and step; with B=50 a gate product runs 64
+// blocks of 64 rows by 16 units, each weight tile read once.  The query
+// and head products (K = 1024 and 1344 against 2 output tiles) and the
+// backward's dgates @ W^T (K = 4H) split K into S slices, so that each runs
+// a few dozen to a few hundred blocks of all 50 rows, each weight tile read
+// once, plus one small reduction launch.
 //
 // Values are rounded to bfloat16 where the TPU kernels store or multiply in
 // the compute type, so the plain PyTorch versions can repeat the arithmetic.
@@ -38,168 +47,17 @@
 // cudaStream_t as void*, each returning cudaGetLastError().
 
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// the tile product: C[BM x BN] = A[rows, K] @ B[K, cols] with bf16 operands
-// and float32 sums, four warps, mma.sync m16n8k16.  Layouts:
-//   A "MK": A[m * lda + k]          A "KM": A[k * lda + m]
-//   B "NK": B[n * ldb + k]          B "KN": B[k * ldb + n]
-// GATES (NK only): the block's 64 columns are the i, f, g, o columns of 16
-// hidden units, so an LSTM epilogue sees all four gates of a unit.
+// train_gate_lstm: gates = row @ W^T on the tensor cores, the shared
+// gate_tile_kernel of csrc/tile.cuh (bf16, float32 sums), with the LSTM
+// step and the train-mode regularization in its epilogue, LstmEpi.
 // ---------------------------------------------------------------------------
-constexpr int BM = 32, BN = 64, BK = 32, GT = 128, SP = BK + 8;
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// eight consecutive bf16 at base[i * ld + j .. j + 7], zero outside
-// [0, I) x [0, J)
-__device__ __forceinline__ uint4 fetch8(const bf16* __restrict__ base,
-                                        int ld, int i, int j, int I, int J,
-                                        bool vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (i < 0 || i >= I) return v;
-  const bf16* p = base + (size_t)i * ld + j;
-  if (vec && j + 8 <= J) return *reinterpret_cast<const uint4*>(p);
-  bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    if (j + q < J) e[q] = p[q];
-  return v;
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-struct TileSmem {
-  bf16 As[BM][SP];
-  bf16 Bs[BN][SP];
-  float Cs[BM][BN + 1];
-};
-
-template <bool A_KM, bool B_KN, bool GATES, class Epi>
-__global__ void __launch_bounds__(GT)
-gemm_kernel(const bf16* __restrict__ A, int lda, int avec,
-            const bf16* __restrict__ B, int ldb, int bvec, int M, int N,
-            int K, int H, Epi epi) {
-  __shared__ __align__(16) TileSmem sm;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  // the B row (NK) of local column n, or -1 outside
-  auto b_row = [&](int n) -> int {
-    if (GATES) {
-      const int unit = (col0 >> 2) + (n & 15);
-      return unit < H ? (n >> 4) * H + unit : -1;
-    }
-    return col0 + n < N ? col0 + n : -1;
-  };
-  uint4 ra, rb[2];
-  auto fetch = [&](int k0) {
-    if (A_KM)
-      ra = fetch8(A, lda, k0 + (tid >> 2), row0 + (tid & 3) * 8, K, M,
-                  avec);
-    else
-      ra = fetch8(A, lda, row0 + (tid >> 2), k0 + (tid & 3) * 8, M, K,
-                  avec);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = tid + h * GT;
-      if (B_KN)
-        rb[h] = fetch8(B, ldb, k0 + (p >> 3), col0 + (p & 7) * 8, K, N,
-                       bvec);
-      else
-        rb[h] = fetch8(B, ldb, b_row(p >> 2), k0 + (p & 3) * 8, 1 << 30,
-                       K, bvec);
-    }
-  };
-  auto put = [&]() {
-    const bf16* ea = reinterpret_cast<const bf16*>(&ra);
-    if (A_KM) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) sm.As[(tid & 3) * 8 + q][tid >> 2] = ea[q];
-    } else {
-      *reinterpret_cast<uint4*>(&sm.As[tid >> 2][(tid & 3) * 8]) = ra;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = tid + h * GT;
-      const bf16* eb = reinterpret_cast<const bf16*>(&rb[h]);
-      if (B_KN) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) sm.Bs[(p & 7) * 8 + q][p >> 3] = eb[q];
-      } else {
-        *reinterpret_cast<uint4*>(&sm.Bs[p >> 2][(p & 3) * 8]) = rb[h];
-      }
-    }
-  };
-
-  float acc[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-
-  fetch(0);
-  put();
-  __syncthreads();
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) fetch(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[2][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        a[mt][0] = ld32(&sm.As[mt * 16 + g][kk + 2 * t]);
-        a[mt][1] = ld32(&sm.As[mt * 16 + g + 8][kk + 2 * t]);
-        a[mt][2] = ld32(&sm.As[mt * 16 + g][kk + 2 * t + 8]);
-        a[mt][3] = ld32(&sm.As[mt * 16 + g + 8][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int n = warp * 16 + nt * 8 + g;
-        b[nt][0] = ld32(&sm.Bs[n][kk + 2 * t]);
-        b[nt][1] = ld32(&sm.Bs[n][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) mma16816(acc[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();
-    if (more) {
-      put();
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int r = mt * 16 + g, c = warp * 16 + nt * 8 + 2 * t;
-      sm.Cs[r][c] = acc[mt][nt][0];
-      sm.Cs[r][c + 1] = acc[mt][nt][1];
-      sm.Cs[r + 8][c] = acc[mt][nt][2];
-      sm.Cs[r + 8][c + 1] = acc[mt][nt][3];
-    }
-  __syncthreads();
-  epi(sm.Cs, row0, col0, M, N);
-}
 
 // regularization of a train-mode LSTM cell (ops/pallas_train_decoder.py
 // :375-401): 0 none, 1 zoneout (keep new where bits < thresh), 2 output
@@ -225,123 +83,292 @@ struct LstmEpi {
   int ld1;
   int H;
   Reg reg;
-  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
-                             int) const {
-    for (int idx = threadIdx.x; idx < BM * 16; idx += GT) {
-      const int r = idx >> 4, uu = idx & 15;
-      const int row = row0 + r, unit = (col0 >> 2) + uu;
-      if (row >= M || unit >= H) continue;
-      const float gi = sigmoid(Cs[r][uu] + bias[unit]);
-      const float gf = sigmoid(Cs[r][16 + uu] + bias[H + unit]);
-      const float gg = tanhf(Cs[r][32 + uu] + bias[2 * H + unit]);
-      const float go = sigmoid(Cs[r][48 + uu] + bias[3 * H + unit]);
-      const size_t o = (size_t)row * H + unit;
-      const float c_prev = c[o], h_prev = h[o];
-      const float cn = gf * c_prev + gi * gg;
-      const float hn = go * tanhf(cn);
-      bf16* a = act + (size_t)row * 4 * H + unit;
-      a[0] = __float2bfloat16_rn(gi);
-      a[H] = __float2bfloat16_rn(gf);
-      a[2 * H] = __float2bfloat16_rn(gg);
-      a[3 * H] = __float2bfloat16_rn(go);
-      float ho = hn, co = cn;
-      if (reg.mode == 1) {
-        const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
-                                      reg.salt_h);
-        const uint32_t bc = rand_bits(row, unit, H, reg.seed0, reg.seed1,
-                                      reg.salt_c);
-        ho = bh < reg.th_h ? hn : h_prev;
-        co = bc < reg.th_c ? cn : c_prev;
-      } else if (reg.mode == 2) {
-        const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
-                                      reg.salt_h);
-        ho = bh < reg.th_h ? hn * reg.scale : 0.0f;
-      }
-      h[o] = ho;
-      c[o] = co;
-      c_out[o] = __float2bfloat16_rn(co);
-      const bf16 hb = __float2bfloat16_rn(ho);
-      h_dst0[(size_t)row * ld0 + unit] = hb;
-      if (h_dst1 != nullptr) h_dst1[(size_t)row * ld1 + unit] = hb;
+  __device__ void operator()(int row, int unit, const float* g) const {
+    const float gi = sigmoid(g[0] + bias[unit]);
+    const float gf = sigmoid(g[1] + bias[H + unit]);
+    const float gg = tanhf(g[2] + bias[2 * H + unit]);
+    const float go = sigmoid(g[3] + bias[3 * H + unit]);
+    const size_t o = (size_t)row * H + unit;
+    const float c_prev = c[o], h_prev = h[o];
+    const float cn = gf * c_prev + gi * gg;
+    const float hn = go * tanhf(cn);
+    bf16* a = act + (size_t)row * 4 * H + unit;
+    a[0] = __float2bfloat16_rn(gi);
+    a[H] = __float2bfloat16_rn(gf);
+    a[2 * H] = __float2bfloat16_rn(gg);
+    a[3 * H] = __float2bfloat16_rn(go);
+    float ho = hn, co = cn;
+    if (reg.mode == 1) {
+      const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                    reg.salt_h);
+      const uint32_t bc = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                    reg.salt_c);
+      ho = bh < reg.th_h ? hn : h_prev;
+      co = bc < reg.th_c ? cn : c_prev;
+    } else if (reg.mode == 2) {
+      const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                    reg.salt_h);
+      ho = bh < reg.th_h ? hn * reg.scale : 0.0f;
     }
+    h[o] = ho;
+    c[o] = co;
+    c_out[o] = __float2bfloat16_rn(co);
+    const bf16 hb = __float2bfloat16_rn(ho);
+    h_dst0[(size_t)row * ld0 + unit] = hb;
+    if (h_dst1 != nullptr) h_dst1[(size_t)row * ld1 + unit] = hb;
   }
 };
 
-// q = bf16(h @ Wq), held in float32
-struct RoundEpi {
-  float* out;
-  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
-                             int N) const {
-    for (int idx = threadIdx.x; idx < BM * BN; idx += GT) {
-      const int r = idx / BN, cc = idx % BN;
-      const int row = row0 + r, col = col0 + cc;
-      if (row < M && col < N)
-        out[(size_t)row * N + col] = round_bf16(Cs[r][cc]);
-    }
-  }
-};
-
-// fv = [h_gen | ctx] @ W_head + b: columns < N-1 are the frame (into the
-// spec stream and the frame carry), column N-1 the stop logit
-struct HeadEpi {
-  const float* bias;
-  float* spec;
-  float* frame;
-  float* stop;
-  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
-                             int N) const {
-    for (int idx = threadIdx.x; idx < BM * BN; idx += GT) {
-      const int r = idx / BN, cc = idx % BN;
-      const int row = row0 + r, col = col0 + cc;
-      if (row >= M || col >= N) continue;
-      const float fv = Cs[r][cc] + bias[col];
-      if (col < N - 1) {
-        spec[(size_t)row * (N - 1) + col] = fv;
-        frame[(size_t)row * (N - 1) + col] = fv;
-      } else {
-        stop[row] = fv;
-      }
-    }
-  }
-};
-
-// up to three column segments [lo, hi): out[row, col - lo] = add[row,
-// col - lo] + acc (add may be null, or equal to out)
-struct SegEpi {
-  int lo[3], hi[3], ldo[3], ldadd[3];
-  float* out[3];
-  const float* add[3];
-  __device__ void operator()(float (*Cs)[BN + 1], int row0, int col0, int M,
-                             int) const {
-    for (int idx = threadIdx.x; idx < BM * BN; idx += GT) {
-      const int r = idx / BN, cc = idx % BN;
-      const int row = row0 + r, col = col0 + cc;
-      if (row >= M) continue;
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        if (out[s] == nullptr || col < lo[s] || col >= hi[s]) continue;
-        const int j = col - lo[s];
-        const float base =
-            add[s] != nullptr ? add[s][(size_t)row * ldadd[s] + j] : 0.0f;
-        out[s][(size_t)row * ldo[s] + j] = base + Cs[r][cc];
-      }
-    }
-  }
-};
+// ---------------------------------------------------------------------------
+// splitk_kernel: every other product, C = A @ B with bf16 operands and
+// float32 sums, then an epilogue epi.put(row, col, value) per element:
+//   train_query  q = bf16(h @ Wq)                     RoundOut
+//   train_head   [h_gen | ctx] @ W_head^T + b         HeadOut
+//   bwd_gemm     dgates @ W, dq @ Wq^T, dWq, into up  SegOut
+//                to three column segments
+// A is "MK" ([M, K], k contiguous) or "KM" ([K, M], m contiguous: dWq); B
+// is "KN" ([K, N], n contiguous: h @ Wq, dgates @ W with W [4H, K_in]) or
+// "NK" ([N, K]: the head, dq @ Wq^T).
+//
+// Tiles are copied into shared memory as they lie, 16 bytes a thread with
+// cp.async through an SK_STAGES-deep ring, each tile row padded by 16 bytes
+// so that the eight row addresses of an ldmatrix fall in distinct banks.
+// The fragments of the transposed layouts ("KM" A, "KN" B) come from
+// ldmatrix.trans: no thread stores a transposed element.  The grid's z
+// dimension splits K into S slices of kslice (a multiple of SK_BK) so that
+// a product with few M x N tiles (M=50: 37 tiles for the generator's
+// dgates @ W, 2 for the query) still fills the card.  With S > 1 each block
+// writes its float32 partial tile into scratch [S, M, N], and splitk_reduce
+// sums the S partials in slice order and applies the epilogue; with S = 1
+// the block applies it itself.  No atomics: a run repeats bit for bit.
+// The wrapper reads the tile through splitk_tile to choose S.
+// ---------------------------------------------------------------------------
+constexpr int SK_BM = 64, SK_BN = 64, SK_BK = 32, SK_THREADS = 128;
+constexpr int SK_STAGES = 4;
+constexpr int SK_LD_K = SK_BK + 8;    // [64][32] tiles (k contiguous): 80 B
+constexpr int SK_LD_MN = SK_BN + 8;   // [32][64] tiles (m or n contiguous)
+constexpr int SK_TILE = 64 * SK_LD_K > SK_BK * SK_LD_MN ? 64 * SK_LD_K
+                                                         : SK_BK * SK_LD_MN;
 
 __host__ bool vec_ok(const void* p, int ld) {
   return ((uintptr_t)p % 16 == 0) && (ld % 8 == 0);
 }
 
-template <bool A_KM, bool B_KN, bool GATES, class Epi>
-int gemm_launch(const void* A, int lda, const void* B, int ldb, int M, int N,
-                int K, int H, const Epi& epi, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const int gx = GATES ? (H + 15) / 16 : (N + BN - 1) / BN;
-  dim3 grid(gx, (M + BM - 1) / BM);
-  gemm_kernel<A_KM, B_KN, GATES, Epi><<<grid, GT, 0, (cudaStream_t)stream>>>(
+// out[row, col - lo] = add[row, col - lo] + v for the segment [lo, hi) that
+// holds col (add may be null, or equal to out; unused segments: null out)
+struct SegOut {
+  int lo[3], hi[3], ldo[3], ldadd[3];
+  float* out[3];
+  const float* add[3];
+  __device__ __forceinline__ void put(int row, int col, float v) const {
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      if (out[s] == nullptr || col < lo[s] || col >= hi[s]) continue;
+      const int j = col - lo[s];
+      const float base =
+          add[s] != nullptr ? add[s][(size_t)row * ldadd[s] + j] : 0.0f;
+      out[s][(size_t)row * ldo[s] + j] = base + v;
+    }
+  }
+};
+
+// q = bf16(h @ Wq), held in float32 [M, N]
+struct RoundOut {
+  float* out;
+  int n;
+  __device__ __forceinline__ void put(int row, int col, float v) const {
+    out[(size_t)row * n + col] = round_bf16(v);
+  }
+};
+
+// fv = [h_gen | ctx] @ W_head^T + b: columns < N-1 are the frame (into the
+// spec stream and the frame carry), column N-1 the stop logit
+struct HeadOut {
+  const float* bias;
+  float* spec;
+  float* frame;
+  float* stop;
+  int n;
+  __device__ __forceinline__ void put(int row, int col, float v) const {
+    const float fv = v + bias[col];
+    if (col < n - 1) {
+      spec[(size_t)row * (n - 1) + col] = fv;
+      frame[(size_t)row * (n - 1) + col] = fv;
+    } else {
+      stop[row] = fv;
+    }
+  }
+};
+
+// eight consecutive bf16 at base[i * ld + j ..] into shared memory at dst,
+// zero outside [0, I) x [0, J); `vec` (base and ld 16-byte aligned) copies
+// with cp.async, otherwise with plain loads and one 16-byte store
+__device__ __forceinline__ void load8(bf16* dst, const bf16* __restrict__ base,
+                                      int ld, int i, int j, int I, int J,
+                                      bool vec) {
+  const bool in = i < I && j < J;
+  if (vec) {
+    const int n = in ? min(J - j, 8) : 0;
+    cp_async16(dst, in ? base + (size_t)i * ld + j : base, 2 * n);
+    return;
+  }
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (in) {
+    bf16* e = reinterpret_cast<bf16*>(&v);
+    const bf16* p = base + (size_t)i * ld + j;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (j + q < J) e[q] = p[q];
+  }
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+template <bool A_KM, bool B_KN, class Epi>
+__global__ void __launch_bounds__(SK_THREADS)
+splitk_kernel(const bf16* __restrict__ A, int lda, int avec,
+              const bf16* __restrict__ B, int ldb, int bvec, int M, int N,
+              int K, int kslice, float* __restrict__ part, Epi epi) {
+  __shared__ __align__(16) bf16 sm[SK_STAGES][2][SK_TILE];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * SK_BM, col0 = blockIdx.x * SK_BN;
+  const int k_lo = blockIdx.z * kslice;
+  const int k_hi = min(K, k_lo + kslice);
+  const int nk = (k_hi - k_lo + SK_BK - 1) / SK_BK;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+
+  // stage s <- K tile k0: 256 chunks of A and 256 of B, four per thread
+  auto load = [&](int s, int k0) {
+    bf16* as = sm[s][0];
+    bf16* bs = sm[s][1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * SK_THREADS;
+      if (A_KM)   // [32 k][64 m]
+        load8(as + (p >> 3) * SK_LD_MN + (p & 7) * 8, A, lda, k0 + (p >> 3),
+              row0 + (p & 7) * 8, k_hi, M, avec);
+      else        // [64 m][32 k]
+        load8(as + (p >> 2) * SK_LD_K + (p & 3) * 8, A, lda, row0 + (p >> 2),
+              k0 + (p & 3) * 8, M, k_hi, avec);
+      if (B_KN)   // [32 k][64 n]
+        load8(bs + (p >> 3) * SK_LD_MN + (p & 7) * 8, B, ldb, k0 + (p >> 3),
+              col0 + (p & 7) * 8, k_hi, N, bvec);
+      else        // [64 n][32 k]
+        load8(bs + (p >> 2) * SK_LD_K + (p & 3) * 8, B, ldb, col0 + (p >> 2),
+              k0 + (p & 3) * 8, N, k_hi, bvec);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < nk) load(s, k_lo + s * SK_BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();
+    const int nxt = kt + SK_STAGES - 1;
+    if (nxt < nk) load(nxt % SK_STAGES, k_lo + nxt * SK_BK);
+    cp_async_commit();
+    const bf16* as = sm[kt % SK_STAGES][0];
+    const bf16* bs = sm[kt % SK_STAGES][1];
+#pragma unroll
+    for (int kk = 0; kk < SK_BK; kk += 16) {
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m0 = wm + mt * 16;
+        if (A_KM)
+          ldsm_x4_trans(af[mt], as + (kk + (lane & 7) + (lane >> 4) * 8) *
+                                         SK_LD_MN +
+                                     m0 + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4(af[mt], as + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   SK_LD_K +
+                               kk + (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int n0 = wn + np * 16;
+        uint32_t r[4];
+        if (B_KN)
+          ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                    SK_LD_MN +
+                                n0 + (lane >> 4) * 8);
+        else
+          ldsm_x4(r, bs + (n0 + (lane & 7) + (lane >> 4) * 8) * SK_LD_K + kk +
+                         ((lane >> 3) & 1) * 8);
+        bfr[2 * np][0] = r[0];
+        bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2];
+        bfr[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = part != nullptr ? part + (size_t)blockIdx.z * M * N : nullptr;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+        if (row >= M || col >= N) continue;
+        if (dst != nullptr)
+          dst[(size_t)row * N + col] = acc[mt][nt][e];
+        else
+          epi.put(row, col, acc[mt][nt][e]);
+      }
+}
+
+// the S partials of each (row, col), summed in slice order
+template <class Epi>
+__global__ void splitk_reduce_kernel(const float* __restrict__ part, int S,
+                                     int M, int N, Epi epi) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t mn = (size_t)M * N;
+  if (idx >= mn) return;
+  float v = part[idx];
+  for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + idx];
+  epi.put((int)(idx / N), (int)(idx % N), v);
+}
+
+// K is split into `slices` of `kslice`; with slices > 1, `scratch` holds
+// slices * M * N floats and a second launch sums them
+template <bool A_KM, bool B_KN, class Epi>
+int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
+                  int N, int K, int slices, int kslice, void* scratch,
+                  const Epi& epi, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || slices < 1 || kslice % SK_BK != 0 ||
+      (long long)kslice * slices < K ||
+      (long long)kslice * (slices - 1) >= K ||
+      (slices > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* part = slices > 1 ? (float*)scratch : nullptr;
+  dim3 grid((N + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, slices);
+  splitk_kernel<A_KM, B_KN, Epi><<<grid, SK_THREADS, 0, st>>>(
       (const bf16*)A, lda, vec_ok(A, lda), (const bf16*)B, ldb,
-      vec_ok(B, ldb), M, N, K, H, epi);
+      vec_ok(B, ldb), M, N, K, kslice, part, epi);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  splitk_reduce_kernel<Epi><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      part, slices, M, N, epi);
   return (int)cudaGetLastError();
 }
 
@@ -808,53 +835,73 @@ int train_prenet_launch(const void* shifted, const void* frame, int teacher,
   return (int)cudaGetLastError();
 }
 
+// the splitk_kernel tile, {SK_BM, SK_BN, SK_BK}, from which the wrapper
+// chooses the slices of K
+void splitk_tile(int* out) {
+  out[0] = SK_BM;
+  out[1] = SK_BN;
+  out[2] = SK_BK;
+}
+
+// row [B, K] (rows of ld_row bf16) and w [4H, K], K a multiple of 8, both
+// 16-byte aligned
 int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
                      const void* bias, int B, int H, void* h, void* c,
                      void* act, void* c_out, void* h_dst0, int ld0,
                      void* h_dst1, int ld1, unsigned seed0, unsigned seed1,
                      unsigned salt_h, unsigned salt_c, unsigned th_h,
                      unsigned th_c, int mode, float scale, void* stream) {
-  LstmEpi epi{(const float*)bias, (float*)h, (float*)c, (bf16*)act,
-              (bf16*)c_out, (bf16*)h_dst0, ld0, (bf16*)h_dst1, ld1, H,
-              Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale}};
-  return gemm_launch<false, false, true>(row, ld_row, w, K, B, 4 * H, K, H,
-                                         epi, stream);
+  const LstmEpi epi{(const float*)bias, (float*)h, (float*)c, (bf16*)act,
+                    (bf16*)c_out, (bf16*)h_dst0, ld0, (bf16*)h_dst1, ld1, H,
+                    Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode,
+                        scale}};
+  return (int)gate_tile_launch<false>(row, 2 * ld_row, w, 2 * K, 2 * K, B, H,
+                                      epi, (cudaStream_t)stream);
 }
 
+// q [B, A] = bf16(h @ Wq), h [B, H] (rows of ld_h), Wq [H, A]
 int query_launch(const void* h, int ld_h, const void* wq, int B, int H, int A,
-                 void* q_out, void* stream) {
-  return gemm_launch<false, true, false>(h, ld_h, wq, A, B, A, H, 0,
-                                         RoundEpi{(float*)q_out}, stream);
+                 void* q_out, int slices, int kslice, void* scratch,
+                 void* stream) {
+  return splitk_launch<false, true>(h, ld_h, wq, A, B, A, H, slices, kslice,
+                                    scratch, RoundOut{(float*)q_out, A},
+                                    stream);
 }
 
+// row [B, K] (rows of ld_row) against the head weight [N, K]
 int head_launch(const void* row, int ld_row, const void* w, int K,
                 const void* bias, int B, int N, void* spec, void* frame,
-                void* stop, void* stream) {
-  HeadEpi epi{(const float*)bias, (float*)spec, (float*)frame, (float*)stop};
-  return gemm_launch<false, false, false>(row, ld_row, w, K, B, N, K, 0, epi,
-                                          stream);
+                void* stop, int slices, int kslice, void* scratch,
+                void* stream) {
+  const HeadOut epi{(const float*)bias, (float*)spec, (float*)frame,
+                    (float*)stop, N};
+  return splitk_launch<false, false>(row, ld_row, w, K, B, N, K, slices,
+                                     kslice, scratch, epi, stream);
 }
 
 // out segments of A @ B.  a_km: A is [K, M] (m contiguous); b_kn: B is
 // [K, N] (n contiguous), else [N, K].  Unused segments have a null out.
 int bwd_gemm_launch(const void* a, int lda, int a_km, const void* b, int ldb,
-                    int b_kn, int M, int N, int K, int lo0, int hi0,
-                    void* out0, int ldo0, const void* add0, int lda0, int lo1,
-                    int hi1, void* out1, int ldo1, const void* add1, int lda1,
-                    int lo2, int hi2, void* out2, int ldo2, const void* add2,
-                    int lda2, void* stream) {
-  SegEpi epi{{lo0, lo1, lo2}, {hi0, hi1, hi2}, {ldo0, ldo1, ldo2},
-             {lda0, lda1, lda2}, {(float*)out0, (float*)out1, (float*)out2},
-             {(const float*)add0, (const float*)add1, (const float*)add2}};
-  if (a_km && b_kn)
-    return gemm_launch<true, true, false>(a, lda, b, ldb, M, N, K, 0, epi,
-                                          stream);
-  if (a_km) return (int)cudaErrorInvalidValue;
+                    int b_kn, int M, int N, int K, int slices, int kslice,
+                    void* scratch, int lo0, int hi0, void* out0, int ldo0,
+                    const void* add0, int lda0, int lo1, int hi1, void* out1,
+                    int ldo1, const void* add1, int lda1, int lo2, int hi2,
+                    void* out2, int ldo2, const void* add2, int lda2,
+                    void* stream) {
+  if (a_km && !b_kn) return (int)cudaErrorInvalidValue;
+  const SegOut epi{{lo0, lo1, lo2}, {hi0, hi1, hi2}, {ldo0, ldo1, ldo2},
+                   {lda0, lda1, lda2},
+                   {(float*)out0, (float*)out1, (float*)out2},
+                   {(const float*)add0, (const float*)add1,
+                    (const float*)add2}};
+  if (a_km)
+    return splitk_launch<true, true>(a, lda, b, ldb, M, N, K, slices, kslice,
+                                     scratch, epi, stream);
   if (b_kn)
-    return gemm_launch<false, true, false>(a, lda, b, ldb, M, N, K, 0, epi,
-                                           stream);
-  return gemm_launch<false, false, false>(a, lda, b, ldb, M, N, K, 0, epi,
-                                          stream);
+    return splitk_launch<false, true>(a, lda, b, ldb, M, N, K, slices,
+                                      kslice, scratch, epi, stream);
+  return splitk_launch<false, false>(a, lda, b, ldb, M, N, K, slices, kslice,
+                                     scratch, epi, stream);
 }
 
 int train_attention_launch(const void* q, void* cum, const void* memory,

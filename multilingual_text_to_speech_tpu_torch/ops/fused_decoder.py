@@ -5,17 +5,18 @@ _build_kernel`` (driven by ``fused_decode_chunk``), which runs S free-running
 decoder steps with all state on chip.  The port keeps WHAT that kernel
 computes and none of its Mosaic layout (no A-major band matrix, lane
 replication, T-blocked fold or VMEM model).  It is a first, simple design:
-the Python wrapper loops over the S steps of a chunk, and each step launches
-four kernels of ``csrc/fused_decoder.cu``:
+the Python wrapper loops over the S steps of a chunk, and each step calls
+four kernel functions of ``csrc/fused_decoder.cu``:
 
 1. ``prenet``: the prenet layers with ReLU and the always-on hashed dropout;
-2. ``gate_lstm`` (twice): one fused-gate LSTM.  Each block assembles the
-   concat row ``[x | context | h]`` in the compute type, and in W8A8 mode
-   quantizes it per row, takes the int8 x int8 -> int32 product with
-   ``__dp4a`` (or the bf16 product with float32 sums), dequantizes with
-   ``g*rs*ws + b`` and runs the LSTM pointwise step and zoneout in the
-   epilogue.  Blocks own whole hidden units, so the i/f/g/o columns
-   ``j, H+j, 2H+j, 3H+j`` of a unit meet in one block;
+2. ``gate_lstm`` (twice): one fused-gate LSTM in two launches.  A row pass
+   assembles each concat row ``[x | context | h]`` once in the compute type
+   and, in W8A8 mode, quantizes it per row into an int8 scratch row and its
+   scale (``quantize_rows_plain``); the product runs on the tensor cores
+   (int8 x int8 -> int32 with mma.sync, or bf16 with float32 sums),
+   dequantizes with ``g*rs*ws + b`` and runs the LSTM pointwise step and
+   zoneout in its epilogue.  Blocks own whole hidden units, so the i/f/g/o
+   columns ``j, H+j, 2H+j, 3H+j`` of a unit meet in one block;
 3. ``lsa_attention``: one block per batch row: the query product, the 31-tap
    location conv straight from ``cum`` and ``lc`` (loc_filter x
    location_kernel, folded once on the host in float32), the energy, the
@@ -28,9 +29,9 @@ What bounds it on the H100: the two gate products, 2*B*(K_att+K_gen)*4H int8
 operations a step (7.7 G at the flagship's B=240), are 3.9 us at the card's
 1,979 TOP/s int8 tensor rate; a 256-step chunk reads about 42 MB of weights
 and attention memory once (12.7 us at 3.35 TB/s), so the chunk is bound by
-operations.  This design uses ``__dp4a`` on the CUDA cores instead of the
-tensor cores, re-reads the gate weights from L2 every step and pays a
-launch per kernel and step; PERF.md has its measured times.
+operations.  The gate products run on the tensor cores but re-read the
+gate weights from L2 every step, and every kernel pays a launch a step;
+PERF.md has the measured times.
 
 Random bits: the prenet dropout keeps a unit when the lowbias32 counter
 hash ``rand_bits(row, col; seed0, seed1, salt = step*n_prenet + layer + 1)``
@@ -46,6 +47,7 @@ the plain version on any device and is what the kernels are held against.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -240,6 +242,18 @@ def prenet_plain(frame: torch.Tensor, bundle: DecoderBundle,
     return x
 
 
+def quantize_rows_plain(row: torch.Tensor):
+    """W8A8's per-row activation quantization, the row pass of
+    ``gate_lstm``: ``rs = max(amax, 1e-6) * (1/127)`` and ``q = clip(
+    round(row * (1/rs)), -127, 127)`` in that op order -> (q [B, K] holding
+    integers in float32, rs [B, 1])."""
+    amax = row.abs().amax(dim=1, keepdim=True)
+    rs = torch.clamp(amax, min=1e-6) * torch.tensor(
+        _INV127, dtype=torch.float32, device=row.device)
+    q = torch.clamp(torch.round(row * torch.reciprocal(rs)), -127, 127)
+    return q, rs
+
+
 def gate_lstm_plain(segments: Tuple[torch.Tensor, ...], h: torch.Tensor,
                     c: torch.Tensor, bundle: DecoderBundle, which: str,
                     zoneout_h: float, zoneout_c: float,
@@ -251,10 +265,7 @@ def gate_lstm_plain(segments: Tuple[torch.Tensor, ...], h: torch.Tensor,
     row = _rounded(torch.cat(segments, dim=1), bundle.dtype)
     k = row.shape[1]
     if bundle.quantized:
-        amax = row.abs().amax(dim=1, keepdim=True)
-        rs = torch.clamp(amax, min=1e-6) * torch.tensor(
-            _INV127, dtype=torch.float32, device=row.device)
-        q = torch.clamp(torch.round(row * torch.reciprocal(rs)), -127, 127)
+        q, rs = quantize_rows_plain(row)
         if q_out is not None:
             q_out.copy_(q.to(torch.int8))
         # exact integer sums: |sum| < 2^31 fits a float64 mantissa
@@ -305,7 +316,7 @@ _SIGNATURES = {
     "prenet_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _U,
                       _F, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
-                         _P, _P, _P, _I, _I, _F, _F, _P],
+                         _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "lsa_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _P],
     "head_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -385,9 +396,20 @@ def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None):
     return out
 
 
+def gate_row_scratch(b: int, weights, device):
+    """Scratch of ``gate_lstm``'s row pass, for any of the gate ``weights``
+    ([4H, K_pad] each): the concat row of each of ``b`` batch rows in the
+    weights' type (int8 or bf16), zero padded to K_pad and held as bytes,
+    and the row scales [b] (read only in W8A8)."""
+    width = max(w.shape[1] * w.element_size() for w in weights)
+    return (torch.empty(b, width, dtype=torch.uint8, device=device),
+            torch.empty(b, dtype=torch.float32, device=device))
+
+
 def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
-              q_out=None):
-    """Kernel ``gate_lstm`` (see ``gate_lstm_plain``)."""
+              q_out=None, scratch=None):
+    """Kernel ``gate_lstm`` (see ``gate_lstm_plain``).  ``scratch`` is the
+    row pass's (``gate_row_scratch``); without one the call gets its own."""
     if not _is_cuda(h):
         return gate_lstm_plain(segments, h, c, bundle, which, zoneout_h,
                                zoneout_c, q_out)
@@ -402,11 +424,17 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
     if q_out is not None and q_out.dtype != torch.int8:
         raise ValueError("q_out must be int8")
     _check("gate_lstm", s0, s1, s2, w, ws, bias, h, c, q_out)
+    row_buf, rs_buf = (gate_row_scratch(b, (w,), h.device) if scratch is None
+                       else scratch)
+    if (row_buf.numel() < b * w.shape[1] * w.element_size()
+            or rs_buf.numel() < b):
+        raise ValueError("gate_lstm: the row scratch is too small")
     err = _lib().gate_lstm_launch(
         _ptr(s0), s0.shape[1], _ptr(s1), s1.shape[1], _ptr(s2), s2.shape[1],
         _ptr(w), _ptr(ws), _ptr(bias), w.shape[1], int(bundle.quantized),
-        _ptr(h), _ptr(c), _ptr(h_new), _ptr(c_new), _ptr(q_out), b, hidden,
-        float(zoneout_h), float(zoneout_c), _stream())
+        _ptr(row_buf), _ptr(rs_buf), _ptr(h), _ptr(c), _ptr(h_new),
+        _ptr(c_new), _ptr(q_out), b, hidden, float(zoneout_h),
+        float(zoneout_c), _stream())
     _launched("gate_lstm", err)
     return h_new, c_new
 
@@ -507,7 +535,15 @@ def decode_chunk(bundle: DecoderBundle, carry, memory, memory_transform,
     ``fused_decode_chunk``.  The carry keeps the JAX keys, so chunks chain
     across implementations.  CUDA tensors run the kernels; CPU tensors the
     plain version."""
-    return _run_chunk(_KERNELS, bundle, carry, memory, memory_transform,
+    h = carry["h_att"]
+    kernels = _KERNELS
+    if _is_cuda(h):
+        # one row-pass scratch for every gate_lstm call of the chunk
+        scratch = gate_row_scratch(h.shape[0], (bundle.att_w, bundle.gen_w),
+                                   h.device)
+        kernels = (prenet, functools.partial(gate_lstm, scratch=scratch),
+                   lsa_attention, head)
+    return _run_chunk(kernels, bundle, carry, memory, memory_transform,
                       mask, seeds, chunk_frames, dropout_rate, zoneout_h,
                       zoneout_c)
 

@@ -15,11 +15,13 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   tensor cores with the LSTM step and train-mode zoneout or dropout in its
   epilogue), ``train_query`` (``bf16(h_att @ Wq)``), ``train_attention``
   (location conv, energy, softmax, cumulative weights, context) and
-  ``train_head``;
+  ``train_head``; the query and head products split K over the grid like
+  ``bwd_gemm`` below;
 - backward (K3): ``bwd_head``, ``bwd_cell`` (the LSTM backward over the
   stored i|f|g|o activations, masks regenerated from the hash), ``bwd_gemm``
   (``dgates @ W^T`` and ``dq @ Wq^T`` with the carry additions in its
-  epilogue), ``train_query`` (the energy's query, recomputed), ``att_bwd``
+  epilogue, K split over the grid and the partials summed by a second
+  launch), ``train_query`` (the energy's query, recomputed), ``att_bwd``
   (softmax, energy and location-conv backward, with the dmt, dlc and dv
   accumulators per batch row) and ``bwd_prenet``; after the last step one
   ``bwd_gemm`` reduces dWq over all steps and rows.
@@ -86,8 +88,12 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def _pad64(n: int) -> int:
-    return -(-n // _K_ALIGN) * _K_ALIGN
+    return _cdiv(n, _K_ALIGN) * _K_ALIGN
 
 
 # ---------------------------------------------------------------------------
@@ -400,8 +406,9 @@ def _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out, c_out,
     _copy(h_dst1, hn)
 
 
-def _train_query_plain_into(h, wq, q_out):
-    """``train_query``'s plain version, written into its outputs."""
+def _train_query_plain_into(h, wq, q_out, scratch=None):
+    """``train_query``'s plain version, written into its outputs (it needs
+    no ``scratch``)."""
     q_out.copy_(train_query_plain(h, wq))
 
 
@@ -418,8 +425,10 @@ def _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc, v, w_out,
         _copy(dst, c)
 
 
-def _train_head_plain_into(row, head_w, head_b, spec_out, stop_out, frame):
-    """``train_head``'s plain version, written into its outputs."""
+def _train_head_plain_into(row, head_w, head_b, spec_out, stop_out, frame,
+                           scratch=None):
+    """``train_head``'s plain version, written into its outputs (it needs no
+    ``scratch``)."""
     fr, st = train_head_plain(row, head_w, head_b)
     spec_out.copy_(fr)
     stop_out.copy_(st)
@@ -444,8 +453,10 @@ def _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
     dc.copy_(dcp)
 
 
-def _bwd_gemm_plain_into(a, b, b_kn: bool, segments, a_km: bool = False):
-    """``bwd_gemm``'s plain version, written into its outputs."""
+def _bwd_gemm_plain_into(a, b, b_kn: bool, segments, a_km: bool = False,
+                         scratch=None):
+    """``bwd_gemm``'s plain version, written into its outputs (it needs no
+    ``scratch``)."""
     aa = a.t() if a_km else a
     acc = _mm(aa, b if b_kn else b.t())
     for lo, hi, out, add in segments:
@@ -490,9 +501,9 @@ _SIGNATURES = {
                             _I, _I, _U, _U, _U, _U, _F, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I,
                          _P, _I] + _REG + [_P],
-    "query_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
-    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
-    "bwd_gemm_launch": [_P, _I, _I, _P, _I, _I, _I, _I, _I]
+    "query_launch": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
+    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    "bwd_gemm_launch": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
                        + [_I, _I, _P, _I, _P, _I] * 3 + [_P],
     "train_attention_launch": [_P] * 10 + [_P, _I, _P, _I, _P, _I]
                               + [_I] * 5 + [_P],
@@ -516,6 +527,8 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.splitk_tile.argtypes = [_P]
+        lib.splitk_tile.restype = None
         _LIB = lib
     return _LIB
 
@@ -584,25 +597,29 @@ def train_gate_lstm(row, w, bias, reg, h, c, act_out, c_out, h_dst0, h_dst1):
     for t in (row, w, act_out, c_out, h_dst0):
         _require(t, torch.bfloat16, "train_gate_lstm operands")
     b, hidden = h.shape
-    if hidden % 16 or w.shape[1] % 8:
-        raise ValueError("train_gate_lstm needs H % 16 == 0 and K_pad % 8 "
-                         "== 0")
+    if (w.shape[1] % 8 or row.stride(0) % 8 or w.stride(0) % 8
+            or row.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("train_gate_lstm needs K_pad % 8 == 0 and the row "
+                         "and weight rows 16-byte aligned")
     _launch("train_gate_lstm", "gate_lstm_launch",
             _ptr(row), _ld(row), _ptr(w), w.shape[1], _ptr(bias), b, hidden,
             _ptr(h), _ptr(c), _ptr(act_out), _ptr(c_out), _ptr(h_dst0),
             _ld(h_dst0), _ptr(h_dst1), _ld(h_dst1), *reg)
 
 
-def train_query(h, wq, q_out):
+def train_query(h, wq, q_out, scratch=None):
     """Kernel ``train_query``: ``q_out`` [B, A] = bf16(h @ Wq) in float32;
-    ``h`` [B, H] is a bf16 stream view."""
+    ``h`` [B, H] is a bf16 stream view.  K is split as ``bwd_gemm``
+    splits it."""
     if not _is_cuda(q_out):
         return _train_query_plain_into(h, wq, q_out)
     _require(h, torch.bfloat16, "train_query h")
     _require(wq, torch.bfloat16, "train_query wq")
     b, hidden = h.shape
+    a = wq.shape[1]
+    slices, kslice, part = _split(b, a, hidden, scratch, q_out.device)
     _launch("train_query", "query_launch", _ptr(h), _ld(h), _ptr(wq), b,
-            hidden, wq.shape[1], _ptr(q_out))
+            hidden, a, _ptr(q_out), slices, kslice, _ptr(part))
 
 
 def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
@@ -628,17 +645,21 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
             t_len, lc.shape[1], mem_dim, lc.shape[0])
 
 
-def train_head(row, head_w, head_b, spec_out, stop_out, frame):
+def train_head(row, head_w, head_b, spec_out, stop_out, frame,
+               scratch=None):
     """Kernel ``train_head``: frame and stop heads over the head ``row`` ->
-    ``spec_out`` [B, M], ``stop_out`` [B] and the ``frame`` carry."""
+    ``spec_out`` [B, M], ``stop_out`` [B] and the ``frame`` carry.  K is
+    split as ``bwd_gemm`` splits it."""
     if not _is_cuda(frame):
         return _train_head_plain_into(row, head_w, head_b, spec_out,
                                       stop_out, frame)
     _require(row, torch.bfloat16, "train_head row")
     _require(head_w, torch.bfloat16, "train_head weight")
+    (n, k), b = head_w.shape, row.shape[0]
+    slices, kslice, part = _split(b, n, k, scratch, frame.device)
     _launch("train_head", "head_launch", _ptr(row), _ld(row), _ptr(head_w),
-            head_w.shape[1], _ptr(head_b), row.shape[0], head_w.shape[0],
-            _ptr(spec_out), _ptr(frame), _ptr(stop_out))
+            k, _ptr(head_b), b, n, _ptr(spec_out), _ptr(frame),
+            _ptr(stop_out), slices, kslice, _ptr(part))
 
 
 def bwd_head(dspec, dstop, dframe, head_w, da_frame_out, dh_gen, dctx,
@@ -669,11 +690,84 @@ def bwd_cell(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
             *reg)
 
 
-def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False):
+# splitk_kernel's split of K (csrc/fused_train_decoder.cu): at most this
+# many slices, each at least two K tiles long
+_SK_MAX_SLICES = 32
+_SK_GEOMETRY: Dict[int, Tuple[Tuple[int, int, int], int]] = {}
+
+
+def splitk_slices(m: int, n: int, k: int, tile: Tuple[int, int, int],
+                  blocks: int) -> Tuple[int, int]:
+    """``(S, kslice)``: a product on ``splitk_kernel``'s ``tile`` (BM, BN,
+    BK) splits K into S slices of ``kslice`` (a multiple of BK, the last
+    slice possibly shorter), so that the ``M x N`` tiles times S come to
+    about ``blocks``, each slice at least 2 BK long and S at most
+    ``_SK_MAX_SLICES``.  S = 1 leaves K whole."""
+    bm, bn, bk = tile
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    s = max(1, min(blocks // tiles, k // (2 * bk), _SK_MAX_SLICES))
+    kslice = _cdiv(_cdiv(k, s), bk) * bk
+    return _cdiv(k, kslice), kslice
+
+
+def splitk_scratch_floats(products, tile, blocks) -> int:
+    """Floats of the one scratch that holds the split-K partials [S, M, N]
+    of whichever of ``products`` (``(m, n, k)`` each) runs."""
+    need = 0
+    for m, n, k in products:
+        s, _ = splitk_slices(m, n, k, tile, blocks)
+        if s > 1:
+            need = max(need, s * m * n)
+    return need
+
+
+def _splitk_geometry(device) -> Tuple[Tuple[int, int, int], int]:
+    """``splitk_kernel``'s tile as the library reports it, and the blocks
+    a split aims at: two per SM of ``device``."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SK_GEOMETRY:
+        tile = (ctypes.c_int * 3)()
+        _lib().splitk_tile(tile)
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _SK_GEOMETRY[idx] = (tuple(tile), 2 * sms)
+    return _SK_GEOMETRY[idx]
+
+
+def splitk_scratch(products, like: torch.Tensor) -> Optional[torch.Tensor]:
+    """One float32 scratch on ``like``'s device for the split-K launches of
+    a decoder pass, each ``(m, n, k)`` of ``products`` in turn (they run
+    one after another on the stream); None when none splits, or on the CPU,
+    where the plain versions run."""
+    if not _is_cuda(like):
+        return None
+    need = splitk_scratch_floats(products, *_splitk_geometry(like.device))
+    return torch.empty(need, device=like.device) if need else None
+
+
+def _split(m: int, n: int, k: int, scratch: Optional[torch.Tensor], device):
+    """``(S, kslice, scratch)`` of one split-K launch.  A split product
+    without a ``scratch`` from its caller gets one of its own."""
+    slices, kslice = splitk_slices(m, n, k, *_splitk_geometry(device))
+    if slices == 1:
+        return slices, kslice, None
+    need = slices * m * n
+    if scratch is None:
+        scratch = torch.empty(need, device=device)
+    elif scratch.dtype != torch.float32 or scratch.numel() < need:
+        raise ValueError(f"split-K scratch: {need} float32 needed, got "
+                         f"{scratch.numel()} {scratch.dtype}")
+    return slices, kslice, scratch
+
+
+def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None):
     """Kernel ``bwd_gemm``: ``acc = a @ b`` (``a`` [M, K], or [K, M] when
     ``a_km``; ``b`` [K, N] when ``b_kn``, else [N, K]), and for each
     ``(lo, hi, out, add)`` of ``segments``: ``out = add + acc[:, lo:hi]``
-    (``add`` may be None or ``out`` itself)."""
+    (``add`` may be None or ``out`` itself).  K is split as
+    ``splitk_slices`` says; the partials go to the float32 ``scratch`` (at
+    least [S, M, N]; one of its own if None) and a second launch sums them
+    in slice order."""
     if not _is_cuda(a):
         return _bwd_gemm_plain_into(a, b, b_kn, segments, a_km)
     _require(a, torch.bfloat16, "bwd_gemm a")
@@ -684,8 +778,10 @@ def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False):
     args = []
     for lo, hi, out, add in segs:
         args += [lo, hi, _ptr(out), _ld(out), _ptr(add), _ld(add)]
+    slices, kslice, part = _split(m, n, k, scratch, a.device)
     _launch("bwd_gemm", "bwd_gemm_launch", _ptr(a), _ld(a), int(a_km),
-            _ptr(b), _ld(b), int(b_kn), m, n, k, *args)
+            _ptr(b), _ld(b), int(b_kn), m, n, k, slices, kslice,
+            _ptr(part), *args)
 
 
 def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
@@ -793,6 +889,8 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
              "cum": z(b, t_len, dtype=f32)}
     q = z(b, cfg.att_dim, dtype=f32)
     f = PLAIN if plain else KERNELS
+    scratch = None if plain else splitk_scratch(
+        [(b, cfg.att_dim, h), (b, m + 1, _pad64(cfg.kh))], memory)
     att_in, gen_in, head_in = st["att_in"], st["gen_in"], st["head_in"]
     for s in range(n_f):
         nxt_a = att_in[s + 1] if s + 1 < n_f else None
@@ -805,7 +903,7 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
                         gen_in[s][:, :h],
                         None if nxt_a is None
                         else nxt_a[:, p + mem:p + mem + h])
-        f.train_query(gen_in[s][:, :h], ops["wq"], q)
+        f.train_query(gen_in[s][:, :h], ops["wq"], q, scratch=scratch)
         f.train_attention(q, carry["cum"], memory, mtb, mask_add, ops["lc"],
                         ops["v"], st["w"][s], st["cum"][s], carry["ctx"],
                         (gen_in[s][:, h:h + mem], head_in[s][:, h:h + mem],
@@ -817,7 +915,7 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
                         None if nxt_g is None
                         else nxt_g[:, h + mem:2 * h + mem])
         f.train_head(head_in[s], ops["head_w"], ops["head_b"], st["spec"][s],
-                   st["stop"][s], carry["frame"])
+                   st["stop"][s], carry["frame"], scratch=scratch)
     return st, carry
 
 
@@ -854,6 +952,9 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
     dh_gen_tot, dh_att_tot, dh_reg = z(b, h), z(b, h), z(b, h)
     dctx_tot, dx, q = z(b, mem), z(b, p), z(b, a)
     f = PLAIN if plain else KERNELS
+    scratch = None if plain else splitk_scratch(
+        [(b, _pad64(cfg.kg), 4 * h), (b, a, h), (b, h, a),
+         (b, _pad64(cfg.ka), 4 * h), (h, a, n_f * b)], memory)
     for s in range(n_f - 1, -1, -1):
         f.bwd_head(dspec[s], dstop[s], carry["frame"], ops["head_w"],
                  g["da_frame"][s], carry["h_gen"], carry["ctx"], dh_gen_tot,
@@ -864,19 +965,21 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
         f.bwd_gemm(g["dg_gen"][s], ops["gen_w"], True,
                  [(0, h, dh_att_tot, carry["h_att"]),
                   (h, h + mem, dctx_tot, dctx_tot),
-                  (h + mem, 2 * h + mem, carry["h_gen"], dh_reg)])
-        f.train_query(st["gen_in"][s][:, :h], ops["wq"], q)
+                  (h + mem, 2 * h + mem, carry["h_gen"], dh_reg)],
+                 scratch=scratch)
+        f.train_query(st["gen_in"][s][:, :h], ops["wq"], q, scratch=scratch)
         f.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops["lc"],
                 ops["v"], dctx_tot, dw[s], carry["cum"], acc["dmt"],
                 acc["dlc"], acc["dv"], g["dq"][s], g["dctx"][s])
         f.bwd_gemm(g["dq"][s], ops["wq"], False,
-                 [(0, h, dh_att_tot, dh_att_tot)])
+                 [(0, h, dh_att_tot, dh_att_tot)], scratch=scratch)
         f.bwd_cell(st["act_att"][s], st["c_att"][s - 1] if s else None,
                  dh_att_tot, carry["c_att"], g["dg_att"][s], dh_reg,
                  cfg.reg("att", seeds, s))
         f.bwd_gemm(g["dg_att"][s], ops["att_w"], True,
                  [(0, p, dx, None), (p, p + mem, carry["ctx"], None),
-                  (p + mem, p + mem + h, carry["h_att"], dh_reg)])
+                  (p + mem, p + mem + h, carry["h_att"], dh_reg)],
+                 scratch=scratch)
         f.bwd_prenet(dx, st["pre"][:, s], ops, cfg, teacher[s],
                    g["da_pre"][:, s], g["dshift"][s], carry["frame"])
 
@@ -885,7 +988,7 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
 
     d_wq = z(h, a)
     f.bwd_gemm(flat(st["gen_in"])[:, :h], flat(g["dq"]), True,
-             [(0, a, d_wq, None)], a_km=True)
+             [(0, a, d_wq, None)], a_km=True, scratch=scratch)
     dfv = torch.cat([g["da_frame"], dstop.to(d)[..., None]], dim=-1)
     pre_in = [st["raw"]] + [st["pre"][i] for i in range(cfg.n_prenet - 1)]
     grads = {

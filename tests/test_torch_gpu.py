@@ -4,8 +4,11 @@ Marked ``gpu``: run with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` on a machine with an NVIDIA Hopper GPU and nvcc
 (``--noconftest`` because ``tests/conftest.py`` imports jax); elsewhere
 every test skips.
-Small widths, bfloat16 compute, W8A8 and bfloat16 gates.
+Small widths, bfloat16 compute, W8A8 and bfloat16 gates; the gate product
+and the backward's split-K product also at the flagship's widths.
 """
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -317,3 +320,222 @@ def test_train_kernels_take_long_texts_and_large_batches(b, t):
             ftd.train_decode_forward(ops, cfg, long, torch.zeros(
                 b, 513, cfg.att_dim, dtype=mtb.dtype, device="cuda"),
                 torch.zeros(b, 513, device="cuda"), shifted, teacher, seeds)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core tile products at the flagship's widths
+# ---------------------------------------------------------------------------
+
+# the concat row [x | context | h] of each LSTM at the flagship's widths
+_SEGMENTS = {"att": (256, 292, 1024), "gen": (1024, 292, 1024)}
+_HIDDEN = 1024
+
+
+def _gate_bundle(int8, k, seed):
+    """One LSTM's random gate operands ([4H, K], column scales, bias) in the
+    layouts ``extract_decoder_bundle`` makes, as the "att" LSTM of a
+    bundle."""
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn(4 * _HIDDEN, k, generator=gen) / k ** 0.5
+    ws = None
+    if int8:
+        w, ws = fd._quantize_columns(w)
+        ws = ws.cuda()
+    w = fd._pad_k(w if int8 else w.to(torch.bfloat16)).cuda()
+    b = 0.1 * torch.randn(4 * _HIDDEN, generator=gen)
+    return SimpleNamespace(dtype=torch.bfloat16, quantized=int8, att_w=w,
+                           att_ws=ws, att_b=b.cuda())
+
+
+@pytest.mark.parametrize("which", ["att", "gen"])
+@pytest.mark.parametrize("b", [1, 17, 100, 240])
+@pytest.mark.parametrize("int8", [True, False])
+def test_gate_lstm_matches_plain_at_flagship_widths(int8, b, which):
+    """The row pass and the tensor-core gate product at H=1024 and the
+    flagship's gate K (1572 for the attention LSTM, 2340 for the generator;
+    32, 64 and 128 rows a block by the batch):
+    the int8 activations bit-exact, h and c within atol 2e-3 (float32 sums
+    in another order; the int8 sums are exact, so in W8A8 only the device's
+    tanh and exp differ), eval zoneout 0.1."""
+    ks = _SEGMENTS[which]
+    bundle = _gate_bundle(int8, sum(ks), seed=b)
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    segs = tuple(torch.randn(b, k, device="cuda", generator=gen) for k in ks)
+    h, c = (torch.randn(b, _HIDDEN, device="cuda", generator=gen)
+            for _ in range(2))
+    q_k = torch.zeros(b, sum(ks), dtype=torch.int8, device="cuda")
+    q_p = torch.zeros_like(q_k)
+    fd.reset_launch_counts()
+    got = fd.gate_lstm(segs, h, c, bundle, "att", 0.1, 0.1,
+                       q_out=q_k if int8 else None)
+    assert fd.LAUNCHES["gate_lstm"] == 1
+    ref = fd.gate_lstm_plain(segs, h, c, bundle, "att", 0.1, 0.1,
+                             q_out=q_p if int8 else None)
+    assert torch.equal(q_k, q_p)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+
+
+def _bwd_gemm_operands(m, n, k, b_kn, seed):
+    """bf16 ``a`` [M, K] and ``b`` ([K, N] or [N, K], contiguous: N=1572 and
+    2340 give rows that are not 16-byte aligned), and three output segments
+    of N: one with a separate addend, one added in place, one plain."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    a = rnd(m, k).bfloat16()
+    b = (rnd(k, n) if b_kn else rnd(n, k)).bfloat16()
+    t = n // 3
+    add0, acc1 = rnd(m, t), rnd(m, t)
+
+    def segments():
+        acc = acc1.clone()
+        return [(0, t, torch.empty(m, t, device="cuda"), add0),
+                (t, 2 * t, acc, acc),
+                (2 * t, n, torch.empty(m, n - 2 * t, device="cuda"), None)]
+
+    return a, b, segments
+
+
+def _run_bwd_gemm(fn, a, b, b_kn, segs):
+    fn(a, b, b_kn, segs)
+    return [out for _, _, out, _ in segs]
+
+
+@pytest.mark.parametrize("b_kn", [True, False])
+@pytest.mark.parametrize("k", [128, 4096])
+@pytest.mark.parametrize("n", [1024, 1572, 2340])
+@pytest.mark.parametrize("m", [1, 50])
+def test_bwd_gemm_matches_plain(m, n, k, b_kn):
+    """The split-K product against its plain version: every output within
+    2e-5 of its largest value (chip_smoke's bound; float32 sums in another
+    order), and a second run bit-identical to the first."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    a, b, segments = _bwd_gemm_operands(m, n, k, b_kn, seed=m + n + k)
+    got = _run_bwd_gemm(ftd.bwd_gemm, a, b, b_kn, segments())
+    again = _run_bwd_gemm(ftd.bwd_gemm, a, b, b_kn, segments())
+    ref = _run_bwd_gemm(ftd.PLAIN.bwd_gemm, a, b, b_kn, segments())
+    for g, r, g2 in zip(got, ref, again):
+        assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max())
+        assert torch.equal(g, g2)
+
+
+def test_bwd_gemm_matches_plain_at_the_dwq_shape():
+    """dWq = gen_in[:, :H]^T @ dq over all F*B = 25,600 rows of the flagship
+    pass: ``a`` a [K, M] view with the generator row's stride, ``b`` [K,
+    A]; within 2e-5 of the largest value, and bit-identical twice."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, hidden, att, ld = 512 * 50, 1024, 128, 2368
+    a = torch.randn(rows, ld, device="cuda", generator=gen).bfloat16()
+    a = a[:, :hidden]
+    b = torch.randn(rows, att, device="cuda", generator=gen).bfloat16()
+    outs = []
+    for fn in (ftd.bwd_gemm, ftd.bwd_gemm, ftd.PLAIN.bwd_gemm):
+        out = torch.empty(hidden, att, device="cuda")
+        fn(a, b, True, [(0, att, out, None)], True)
+        outs.append(out)
+    got, again, ref = outs
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b", [1, 50, 100, 240])
+def test_train_gate_lstm_matches_plain_at_flagship_widths(b):
+    """The training decoder's gate product in the shared gate routine
+    (``csrc/tile.cuh``; 32, 64 or 128 rows a block by the batch) at H=1024
+    and both gate K's, zoneout 0.1 in train mode: h, c and the float32
+    carries within 1e-5 of their largest value, the bf16 activations and
+    streams within one ulp (chip_smoke's bounds), the zoneout choices
+    bit-exact."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    reg = (11, 12, 5, 6, 2 ** 31, 2 ** 31, 1, 1.0)
+    for which, ks in _SEGMENTS.items():
+        kp = -(-sum(ks) // 64) * 64
+        row = torch.zeros(b, kp, device="cuda")
+        row[:, :sum(ks)] = torch.randn(b, sum(ks), device="cuda",
+                                       generator=gen)
+        row = row.bfloat16()
+        w = (torch.randn(4 * _HIDDEN, kp, device="cuda", generator=gen)
+             / kp ** 0.5).bfloat16()
+        bias = 0.1 * torch.randn(4 * _HIDDEN, device="cuda", generator=gen)
+        h0, c0 = (torch.randn(b, _HIDDEN, device="cuda", generator=gen)
+                  for _ in range(2))
+        outs = []
+        for fn in (ftd.train_gate_lstm, ftd.PLAIN.train_gate_lstm):
+            h, c = h0.clone(), c0.clone()
+            o = [torch.empty(b, 4 * _HIDDEN, dtype=torch.bfloat16,
+                             device="cuda")] + [
+                torch.empty(b, _HIDDEN, dtype=torch.bfloat16, device="cuda")
+                for _ in range(3)]
+            fn(row, w, bias, reg, h, c, *o)
+            outs.append([h, c, *o])
+        for g, r in zip(*outs):
+            bound = 1e-5 if r.dtype == torch.float32 else 8e-3
+            assert float((g.float() - r.float()).abs().max()) <= \
+                bound * float(r.float().abs().max()), which
+        kept_k = (outs[0][0] == h0)
+        kept_p = (outs[1][0] == h0)
+        assert torch.equal(kept_k, kept_p) and bool(kept_p.any()), which
+
+
+@pytest.mark.parametrize("b", [1, 50])
+def test_train_query_and_head_split_k_match_plain(b):
+    """The attention query (K = H = 1024, 16 slices at B=50) and the head
+    (K = 1344, 21 slices) through ``splitk_kernel`` and its ordered
+    reduction, at the flagship's widths: q within one bf16 ulp, the frame,
+    stop and frame carry within 4e-6 of their largest value (chip_smoke's
+    bounds); a pass-wide scratch and a call's own give bit-identical
+    results, and a scratch too small for the split raises."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(b + 1)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    h = rnd(b, 2368).bfloat16()[:, :_HIDDEN]      # a generator-row view
+    wq = rnd(_HIDDEN, 128, scale=_HIDDEN ** -0.5).bfloat16()
+    row = rnd(b, 1344).bfloat16()
+    head_w = rnd(81, 1344, scale=1344 ** -0.5).bfloat16()
+    head_b = rnd(81, scale=0.1)
+    scratch = ftd.splitk_scratch([(b, 128, _HIDDEN), (b, 81, 1344)], h)
+
+    def query(fn, **kw):
+        out = torch.empty(b, 128, device="cuda")
+        fn(h, wq, out, **kw)
+        return [out]
+
+    def head(fn, **kw):
+        out = [torch.empty(b, 80, device="cuda"),
+               torch.empty(b, device="cuda"),
+               torch.empty(b, 80, device="cuda")]
+        fn(row, head_w, head_b, *out, **kw)
+        return out
+
+    for run, kernel, plain, bound in (
+            (query, ftd.train_query, ftd.PLAIN.train_query, 1e-2),
+            (head, ftd.train_head, ftd.PLAIN.train_head, 4e-6)):
+        got = run(kernel, scratch=scratch)
+        own = run(kernel)
+        ref = run(plain)
+        for g, o, r in zip(got, own, ref):
+            assert float((g - r).abs().max()) <= bound * float(r.abs().max())
+            assert torch.equal(g, o)
+    if b == 50:
+        with pytest.raises(ValueError, match="split-K scratch"):
+            query(ftd.train_query, scratch=torch.empty(16, device="cuda"))

@@ -206,7 +206,10 @@ def test_w8a8_dropout_chunk_matches_pallas_kernel():
 def test_w8a8_quantization_matches_jax():
     """Column scales and int8 weights equal the JAX package's
     ``_quantize_columns``; the row quantization of the plain gate step
-    rounds like the TPU kernel's."""
+    (``quantize_rows_plain``, the row pass of ``gate_lstm``) rounds like the
+    TPU kernel's (``pallas_decoder.py`` ``gate_matmul``, written out in jnp
+    below), bit for bit: random rows, an all-zero row (the 1e-6 floor of
+    the scale) and a row of exact halves (round half to even)."""
     _, _, variables, port = _models()
     bundle = fused_decoder.extract_decoder_bundle(
         port.decoder.cell, torch.float32, quantize_gates=True)
@@ -218,6 +221,19 @@ def test_w8a8_quantization_matches_jax():
     np.testing.assert_array_equal(to_np(bundle.att_ws),
                                   np.asarray(scale)[0])
     assert not to_np(bundle.att_w)[:, k:].any()
+
+    rows = np.random.RandomState(4).randn(4, k).astype(np.float32)
+    rows[1] = 0.0
+    rows[2] = 0.0
+    rows[2, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5]
+    x = jnp.asarray(rows)
+    rs_x = jnp.maximum(jnp.max(jnp.abs(x), axis=1, keepdims=True),
+                       1e-6) * (1.0 / 127.0)
+    q_x = jnp.clip(jnp.round(x * (1.0 / rs_x)), -127.0, 127.0)
+    q_p, rs_p = fused_decoder.quantize_rows_plain(torch.as_tensor(rows))
+    np.testing.assert_array_equal(to_np(rs_p), np.asarray(rs_x))
+    np.testing.assert_array_equal(to_np(q_p), np.asarray(q_x))
+    assert not to_np(q_p)[1].any() and to_np(rs_p)[1, 0] > 0.0
 
 
 def test_postnet_matches_jax():
