@@ -9,8 +9,10 @@ Phases, each of which fails the run on a failed check:
    with nvcc for sm_90a and print ptxas's register/shared-memory report;
 2. hold every kernel against its plain PyTorch version at the flagship
    widths (B=240, T=128), for W8A8 and for bfloat16 gates: dropout masks and
-   int8 activations bit-exact, the rest within a stated tolerance; then one
-   16-step chunk through the kernels against the plain chunk;
+   int8 activations bit-exact, the rest within a stated tolerance; the head
+   row that the generator's ``gate_lstm`` and ``lsa_attention`` write
+   bit-exact, and the head over it twice, bit-identical; then one 16-step
+   chunk through the kernels against the plain chunk;
 3. the main path: ``Synthesizer.synthesize_batch_lines`` on 240 lines (48
    per language, random 127-letter texts, random speakers), decode chunk
    256 and 512 frames, with the launch counts reset just before and read
@@ -18,7 +20,7 @@ Phases, each of which fails the run on a failed check:
    a small batch held against the plain path on the CPU;
 4. device times (``torch.profiler``, as for every kernel row) of each
    kernel (every launch of its stage: ``gate_lstm``'s row passes and
-   products; the split-K products of ``train_query``, ``train_head`` and
+   products; the split-K products of the heads, ``train_query`` and
    ``bwd_gemm`` and their reductions), its plain version and, for the gate
    product and the head,
    ``torch._int_mm`` and ``torch.addmm`` as the yardsticks, with each
@@ -30,7 +32,8 @@ Phases, each of which fails the run on a failed check:
    that repeat from run to run: dropout and zoneout choices bit-exact,
    every kernel on identical inputs (``bwd_prenet``'s frame cotangent
    against the plain product of its own bf16 first-layer gradient), two
-   ``bwd_gemm`` runs bit-identical (its split-K reduction), then 16
+   ``bwd_gemm`` runs (its split-K reduction) and two ``bwd_head`` runs
+   bit-identical, then 16
    chained steps forward and backward (every output, residual and gradient
    stream, accumulator and the final cotangent carry); then the same 16
    steps through ``TrainDecode`` (K2 forward, K3 backward) against
@@ -352,8 +355,14 @@ def phase_kernels(hp, sd):
         e_gate = max(close(f"gate_lstm att h[{tag}]", hk, h_att),
                      close(f"gate_lstm att c[{tag}]", ck, c_att))
 
-        ctx_k, cum_k = fd.lsa_attention(h_att, carry["att_state"]["weights"],
-                                        memory, mtb, mask_add, bundle)
+        # the head row, as a chunk fills it: bf16(context) from
+        # lsa_attention, bf16(h_gen) from the generator's gate_lstm
+        hidden = h_att.shape[1]
+        row = torch.zeros(B, bundle.head_w.shape[1], dtype=torch.bfloat16,
+                          device="cuda")
+        ctx_k, cum_k = fd.lsa_attention(
+            h_att, carry["att_state"]["weights"], memory, mtb, mask_add,
+            bundle, ctx_row=row[:, hidden:hidden + memory.shape[2]])
         ctx, cum = fd.lsa_attention_plain(h_att, carry["att_state"]["weights"],
                                           memory, mtb, mask_add, bundle)
         e_att = close_weights(f"lsa_attention[{tag}]", cum_k, cum,
@@ -366,7 +375,8 @@ def phase_kernels(hp, sd):
                           dtype=torch.int8, device="cuda")
         q_p = torch.zeros_like(q_k)
         hk, ck = fd.gate_lstm(segs_gen, carry["h_gen"], carry["c_gen"], bundle,
-                              "gen", zh, zc, q_out=q_k if int8 else None)
+                              "gen", zh, zc, q_out=q_k if int8 else None,
+                              h_row=row[:, :hidden])
         h_gen, c_gen = fd.gate_lstm_plain(segs_gen, carry["h_gen"],
                                           carry["c_gen"], bundle, "gen", zh,
                                           zc, q_out=q_p if int8 else None)
@@ -377,12 +387,21 @@ def phase_kernels(hp, sd):
         e_gate = max(e_gate, close(f"gate_lstm gen h[{tag}]", hk, h_gen),
                      close(f"gate_lstm gen c[{tag}]", ck, c_gen))
 
-        f_k, s_k = fd.head(h_gen, ctx, bundle)
-        f_p, s_p = fd.head_plain(h_gen, ctx, bundle)
+        want = fd.head_row(hk, ctx_k, bundle)
+        if not torch.equal(row, want):
+            fail(f"head row[{tag}]: differs from bf16(h_gen) | bf16(context) "
+                 f"in {int((row != want).sum())} places")
+        f_k, s_k = fd.head(hk, ctx_k, bundle, row=row)
+        f_again, s_again = fd.head(hk, ctx_k, bundle, row=row)
+        f_p, s_p = fd.head_plain(hk, ctx_k, bundle)
+        torch.cuda.synchronize()
+        if not (torch.equal(f_k, f_again) and torch.equal(s_k, s_again)):
+            fail(f"head[{tag}]: two runs on the same row differ")
         e_head = max(close(f"head frame[{tag}]", f_k, f_p),
                      close(f"head stop[{tag}]", s_k, s_p))
         print(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
-              f"{' and int8 activations' if int8 else ''} bit-exact; max abs "
+              f"{' and int8 activations' if int8 else ''} and the head row "
+              f"bit-exact, two head runs bit-identical; max abs "
               f"err prenet {e_pre:.3g}, gate_lstm {e_gate:.3g}, "
               f"lsa_attention {e_att:.3g}, head {e_head:.3g} (atol "
               f"{ATOL}; context {CTX_TOL}; weights {W_TOL} of the row max)")
@@ -481,20 +500,35 @@ def phase_timings(hp, syn, errs, launches):
     segs_att = (x, carry["context"], carry["h_att"])
     segs_gen = (carry["h_att"], carry["context"], carry["h_gen"])
     k_att, k_gen = p_dim + m_dim + hidden, 2 * hidden + m_dim
-    n_head = bundle.head_w.shape[1]
+    n_head = bundle.head_w.shape[0]
+    # the kernels as a chunk runs them: the generator's gate_lstm and
+    # lsa_attention write the head row, and the head reads it
+    row = fd.head_row(carry["h_gen"], carry["context"], bundle)
+    gen_row, ctx_row = row[:, :hidden], row[:, hidden:hidden + m_dim]
 
-    calls = {
-        "prenet": (lambda f: f(carry["frame"], bundle, kw["dropout_rate"],
-                               seeds, 0), fd.prenet, fd.prenet_plain),
-        "gate_lstm": (lambda f: (
-            f(segs_att, carry["h_att"], carry["c_att"], bundle, "att", zh, zc),
-            f(segs_gen, carry["h_gen"], carry["c_gen"], bundle, "gen", zh,
-              zc)), fd.gate_lstm, fd.gate_lstm_plain),
-        "lsa_attention": (lambda f: f(
-            carry["h_att"], carry["att_state"]["weights"], memory, mtb,
-            mask_add, bundle), fd.lsa_attention, fd.lsa_attention_plain),
-        "head": (lambda f: f(carry["h_gen"], carry["context"], bundle),
-                 fd.head, fd.head_plain),
+    def gates(f, **gen_kw):
+        return (f(segs_att, carry["h_att"], carry["c_att"], bundle, "att", zh,
+                  zc),
+                f(segs_gen, carry["h_gen"], carry["c_gen"], bundle, "gen", zh,
+                  zc, **gen_kw))
+
+    def attend(f, **kw_row):
+        return f(carry["h_att"], carry["att_state"]["weights"], memory, mtb,
+                 mask_add, bundle, **kw_row)
+
+    calls = {   # (kernel call, plain call)
+        "prenet": (lambda: fd.prenet(carry["frame"], bundle,
+                                     kw["dropout_rate"], seeds, 0),
+                   lambda: fd.prenet_plain(carry["frame"], bundle,
+                                           kw["dropout_rate"], seeds, 0)),
+        "gate_lstm": (lambda: gates(fd.gate_lstm, h_row=gen_row),
+                      lambda: gates(fd.gate_lstm_plain)),
+        "lsa_attention": (lambda: attend(fd.lsa_attention, ctx_row=ctx_row),
+                          lambda: attend(fd.lsa_attention_plain)),
+        "head": (lambda: fd.head(carry["h_gen"], carry["context"], bundle,
+                                 row=row),
+                 lambda: fd.head_plain(carry["h_gen"], carry["context"],
+                                       bundle)),
     }
     f32, bf = 4, 2
     work = {   # (bytes each input once + outputs once, operations, type)
@@ -516,7 +550,8 @@ def phase_timings(hp, syn, errs, launches):
                           2 * B * (hidden * a_dim + T_SYMBOLS * a_dim
                                    * (k_taps + 1) + T_SYMBOLS * m_dim),
                           "bf16"),
-        "head": (B * (hidden + m_dim) * f32 + (hidden + m_dim) * n_head * bf
+        # the bf16 head row, the weight, the bias, frame and stop out
+        "head": (B * (hidden + m_dim) * bf + (hidden + m_dim) * n_head * bf
                  + n_head * f32 + B * n_head * f32,
                  2 * B * (hidden + m_dim) * n_head, "bf16"),
     }
@@ -526,18 +561,15 @@ def phase_timings(hp, syn, errs, launches):
                        device="cuda")
     qg = torch.randint(-127, 128, (B, wg.shape[0]), dtype=torch.int8,
                        device="cuda")
-    head_row = torch.cat([carry["h_gen"], carry["context"]], 1).to(
-        torch.bfloat16)
     head_b16 = bundle.head_b.to(torch.bfloat16)
     library = {"gate_lstm": lambda: (torch._int_mm(qa, wa),
                                      torch._int_mm(qg, wg)),
-               "head": lambda: torch.addmm(head_b16, head_row,
-                                           bundle.head_w)}
+               "head": lambda: torch.addmm(head_b16, row, bundle.head_w.t())}
 
     rows = []
-    for name, (call, kernel, plain) in calls.items():
-        ms = device_ms(lambda: call(kernel), ours_only=True)
-        plain_ms = device_ms(lambda: call(plain), iters=5)
+    for name, (kernel, plain) in calls.items():
+        ms = device_ms(kernel, ours_only=True)
+        plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops, kind = work[name]
         b_ms, b_by = bound_ms(n_bytes, ops, kind)
@@ -967,13 +999,15 @@ def phase_train_kernels(hp, sd):
               f"largest output: " + ", ".join(
                   f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
                   for k in sorted(worst)))
-    # split-K sums its partials in a fixed order: a second run repeats the
-    # first bit for bit
-    first, again = (calls["bwd_gemm"](ftd.KERNELS) for _ in range(2))
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(first, again)):
-        fail("bwd_gemm: two runs on the same inputs differ")
-    print("[train:kernels] bwd_gemm: two runs on the same inputs bit-identical")
+    # split-K sums its partials in a fixed order, and bwd_head sums each
+    # output in one thread: a second run repeats the first bit for bit
+    for name in ("bwd_gemm", "bwd_head"):
+        first, again = (calls[name](ftd.KERNELS) for _ in range(2))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            fail(f"{name}: two runs on the same inputs differ")
+        print(f"[train:kernels] {name}: two runs on the same inputs "
+              f"bit-identical")
 
     worst = {}
     for k in st_p:

@@ -1,13 +1,13 @@
 // Hopper kernels of one free-running Tacotron 2 decoder step.
 //
 // Replaces the JAX package's TPU kernel ops/pallas_decoder.py::_build_kernel
-// (one pallas_call running a whole chunk of decoder steps).  This first
-// design launches its kernels per step from the Python wrapper
-// (ops/fused_decoder.py): prenet, gate_lstm (gate_rows and gate_mma, once
-// per LSTM), lsa_attention and head.  The compute type is bfloat16;
-// carries and sums are float32.  Values are rounded to bfloat16 at the
-// points where the TPU kernel rounds them, so the plain PyTorch version in
-// ops/fused_decoder.py can repeat the arithmetic.
+// (one pallas_call running a whole chunk of decoder steps).  The Python
+// wrapper (ops/fused_decoder.py) launches the kernels of a step: prenet,
+// gate_lstm (gate_rows and gate_mma, once per LSTM), lsa_attention and
+// head (the split-K product and its ordered reduction).  The compute type
+// is bfloat16; carries and sums are float32.  Values are rounded to
+// bfloat16 at the points where the TPU kernel rounds them, so the plain
+// PyTorch version in ops/fused_decoder.py can repeat the arithmetic.
 //
 // Bound on the H100: the two gate products dominate (2*B*(K_att+K_gen)*4H
 // int8 operations a step, 7.7 G at B=240: 3.9 us at 1,979 TOP/s; their 16
@@ -19,8 +19,18 @@
 // rows by 64 gate columns a block (128 blocks at B=240, about one wave on
 // 132 SMs, each weight tile read twice), with the LSTM step in its
 // epilogue: csrc/tile.cuh's gate_tile_kernel, which the training decoder's
-// gate product shares.  The other kernels are first designs, one launch a
-// step each.
+// gate product shares.  The frame and stop head (pallas_decoder.py:659-665,
+// fv = [bf16(h_gen) | ctx] @ W_head + b: 2*B*(H+Mem)*(M+1) operations, 51 M
+// at B=240, against 0.2 MB of weights) reads its bf16 row
+// [bf16(h_gen) | bf16(ctx)] from a per-chunk buffer that the generator
+// LSTM's epilogue and lsa_attention write as they finish, so the row costs
+// no launch; the product is csrc/tile.cuh's splitk_kernel, which the
+// training decoder's head shares: 8 output tiles at B=240 split K = 1344
+// into 14 slices of 96 (112 blocks, one per SM; each weight tile read four
+// times, once per row tile) and a second launch sums the partials in slice
+// order.
+// prenet and lsa_attention are first designs, one block per few batch rows
+// or per row.
 //
 // Interface: plain extern "C" launchers taking device pointers and a
 // cudaStream_t as void*, each returning cudaGetLastError().  Build:
@@ -188,8 +198,12 @@ gate_rows_kernel(Segments seg, int kp, uint32_t* __restrict__ row_out,
 
 // gate_mma's epilogue (gate_tile_kernel, csrc/tile.cuh): the W8A8 dequant
 // in the TPU kernel's order, ((acc * rs) * ws) + b, or the bias of bf16
-// sums; the LSTM pointwise step and eval zoneout
-template <bool INT8>
+// sums; the LSTM pointwise step and eval zoneout; with ROW (the generator
+// LSTM in a chunk) also h in bf16 into the head row.  ROW is a template
+// argument because the store alone changes the compiled gate kernel: at
+// B=240 in W8A8 it drops from 121 to 97 registers and runs about 5 % slower
+// on the H100, which the attention LSTM need not pay.
+template <bool INT8, bool ROW>
 struct EvalLstm {
   const float* rs;
   const float* ws;
@@ -198,6 +212,8 @@ struct EvalLstm {
   const float* c_old;
   float* h_new;
   float* c_new;
+  __nv_bfloat16* h_row;   // bf16(h_new) into the head row (ROW)
+  int ld_row;
   int H;
   float zh, zc;
   template <class Acc>
@@ -216,8 +232,11 @@ struct EvalLstm {
     const float c_prev = c_old[o], h_prev = h_old[o];
     const float cn = sigmoid(gt[1]) * c_prev + sigmoid(gt[0]) * tanhf(gt[2]);
     const float hn = sigmoid(gt[3]) * tanhf(cn);
-    h_new[o] = zh == 0.0f ? hn : zh * h_prev + (1.0f - zh) * hn;
+    const float ho = zh == 0.0f ? hn : zh * h_prev + (1.0f - zh) * hn;
+    h_new[o] = ho;
     c_new[o] = zc == 0.0f ? cn : zc * c_prev + (1.0f - zc) * cn;
+    if constexpr (ROW)
+      h_row[(size_t)row * ld_row + unit] = __float2bfloat16_rn(ho);
   }
 };
 
@@ -226,6 +245,7 @@ struct EvalLstm {
 //   q = bf16(h_att @ Wq); loc[t,a] = bf16(sum_k bf16(cum[t+k-half]) lc[k,a])
 //   z = bf16(bf16(loc + q) + mtb); e[t] = sum_a v[a] bf16(tanh(z)) + mask
 //   w = softmax(e); cum' = cum + w; ctx[m] = sum_t bf16(mem[t,m] bf16(w[t]))
+// and bf16(ctx) into the head row, when one is given
 // ---------------------------------------------------------------------------
 constexpr int ATT_THREADS = 256;
 
@@ -238,8 +258,9 @@ lsa_attention_kernel(const float* __restrict__ h_att,
                      const __nv_bfloat16* __restrict__ wq,
                      const __nv_bfloat16* __restrict__ lc,
                      const float* __restrict__ v, float* __restrict__ ctx_out,
-                     float* __restrict__ cum_out, int T, int H, int A, int M,
-                     int K) {
+                     float* __restrict__ cum_out,
+                     __nv_bfloat16* __restrict__ ctx_row, int ld_row, int T,
+                     int H, int A, int M, int K) {
   extern __shared__ float sm[];
   const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
   float* s_h = sm;                         // H
@@ -320,52 +341,8 @@ lsa_attention_kernel(const float* __restrict__ h_att,
     for (int t = 0; t < T; ++t)
       acc += round_bf16(bf16_at(memory, ((size_t)b * T + t) * M + mm) * s_e[t]);
     ctx_out[(size_t)b * M + mm] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// head: [h_gen | ctx] @ W_head + b -> frame (first N-1 columns) and stop.
-// Block: HEAD_ROWS batch rows; threads walk the output columns.
-// ---------------------------------------------------------------------------
-constexpr int HEAD_ROWS = 4;
-constexpr int HEAD_THREADS = 128;
-
-__global__ void head_kernel(const float* __restrict__ h_gen,
-                            const float* __restrict__ ctx,
-                            const __nv_bfloat16* __restrict__ w,
-                            const float* __restrict__ bias,
-                            float* __restrict__ frame, float* __restrict__ stop,
-                            int B, int H, int M, int N) {
-  extern __shared__ float s_x[];  // [HEAD_ROWS][H + M]
-  const int K = H + M;
-  const int row0 = blockIdx.x * HEAD_ROWS;
-  for (int i = threadIdx.x; i < HEAD_ROWS * K; i += blockDim.x) {
-    const int r = i / K, k = i % K, row = row0 + r;
-    float x = 0.0f;
-    if (row < B)
-      x = k < H ? h_gen[(size_t)row * H + k] : ctx[(size_t)row * M + k - H];
-    s_x[i] = round_bf16(x);
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float acc[HEAD_ROWS];
-#pragma unroll
-    for (int r = 0; r < HEAD_ROWS; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float wv = bf16_at(w, (size_t)k * N + n);
-#pragma unroll
-      for (int r = 0; r < HEAD_ROWS; ++r) acc[r] = fmaf(s_x[r * K + k], wv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < HEAD_ROWS; ++r) {
-      const int row = row0 + r;
-      if (row >= B) continue;
-      const float y = acc[r] + bias[n];
-      if (n < N - 1)
-        frame[(size_t)row * (N - 1) + n] = y;
-      else
-        stop[row] = y;
-    }
+    if (ctx_row != nullptr)
+      ctx_row[(size_t)b * ld_row + mm] = __float2bfloat16_rn(acc);
   }
 }
 
@@ -380,11 +357,25 @@ struct GateArgs {
   const void* c_old;
   void* h_new;
   void* c_new;
+  void* h_row;
+  int ld_row;
   void* q_out;
   int B, H;
   float zh, zc;
   cudaStream_t stream;
 };
+
+template <bool INT8, bool ROW>
+int gate_mma(const GateArgs& g) {
+  const EvalLstm<INT8, ROW> epi{(const float*)g.rs_buf, (const float*)g.ws,
+                                (const float*)g.bias, (const float*)g.h_old,
+                                (const float*)g.c_old, (float*)g.h_new,
+                                (float*)g.c_new, (__nv_bfloat16*)g.h_row,
+                                g.ld_row, g.H, g.zh, g.zc};
+  const int kbytes = g.kp * (INT8 ? 1 : 2);
+  return (int)gate_tile_launch<INT8>(g.row_buf, kbytes, g.w, kbytes, kbytes,
+                                     g.B, g.H, epi, g.stream);
+}
 
 template <bool INT8>
 int gate_lstm_run(const Segments& seg, const GateArgs& g) {
@@ -395,13 +386,8 @@ int gate_lstm_run(const Segments& seg, const GateArgs& g) {
       seg, g.kp, (uint32_t*)g.row_buf, (float*)g.rs_buf, (int8_t*)g.q_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const EvalLstm<INT8> epi{(const float*)g.rs_buf, (const float*)g.ws,
-                           (const float*)g.bias, (const float*)g.h_old,
-                           (const float*)g.c_old, (float*)g.h_new,
-                           (float*)g.c_new, g.H, g.zh, g.zc};
-  const int kbytes = g.kp * (INT8 ? 1 : 2);
-  return (int)gate_tile_launch<INT8>(g.row_buf, kbytes, g.w, kbytes, kbytes,
-                                     g.B, g.H, epi, g.stream);
+  return g.h_row != nullptr ? gate_mma<INT8, true>(g)
+                            : gate_mma<INT8, false>(g);
 }
 
 }  // namespace
@@ -426,29 +412,33 @@ int prenet_launch(const void* frame, const void* w_all, const void* b_all,
 }
 
 // row_buf: scratch of B * Kp bytes (W8A8) or B * Kp bf16; rs_buf: B floats
-// (W8A8 only).  Launches gate_rows, then gate_mma.
+// (W8A8 only); h_row: null, or bf16 rows of ld_row that receive bf16(h_new).
+// Launches gate_rows, then gate_mma.
 int gate_lstm_launch(const void* s0, int k0, const void* s1, int k1,
                      const void* s2, int k2, const void* w, const void* ws,
                      const void* bias, int kp, int quantized, void* row_buf,
                      void* rs_buf, const void* h_old, const void* c_old,
-                     void* h_new, void* c_new, void* q_out, int B, int H,
-                     float zh, float zc, void* stream) {
+                     void* h_new, void* c_new, void* h_row, int ld_row,
+                     void* q_out, int B, int H, float zh, float zc,
+                     void* stream) {
   if (kp % 64 != 0 || kp < k0 + k1 + k2 || B <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   Segments seg{(const float*)s0, (const float*)s1, (const float*)s2,
                k0, k1, k2};
   const GateArgs args{w, ws, bias, kp, row_buf, rs_buf, h_old, c_old,
-                      h_new, c_new, q_out, B, H, zh, zc,
+                      h_new, c_new, h_row, ld_row, q_out, B, H, zh, zc,
                       (cudaStream_t)stream};
   return quantized ? gate_lstm_run<true>(seg, args)
                    : gate_lstm_run<false>(seg, args);
 }
 
+// ctx_row: null, or bf16 rows of ld_row that receive bf16(ctx)
 int lsa_attention_launch(const void* h_att, const void* cum,
                          const void* memory, const void* mtb,
                          const void* mask_add, const void* wq, const void* lc,
-                         const void* v, void* ctx_out, void* cum_out, int B,
-                         int T, int H, int A, int M, int K, void* stream) {
+                         const void* v, void* ctx_out, void* cum_out,
+                         void* ctx_row, int ld_row, int B, int T, int H,
+                         int A, int M, int K, void* stream) {
   const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
   const size_t smem =
       (size_t)(H + parts * A + A + (T + K - 1) + K * A + A + T + 32) *
@@ -459,21 +449,21 @@ int lsa_attention_launch(const void* h_att, const void* cum,
       (const float*)h_att, (const float*)cum, (const __nv_bfloat16*)memory,
       (const __nv_bfloat16*)mtb, (const float*)mask_add,
       (const __nv_bfloat16*)wq, (const __nv_bfloat16*)lc, (const float*)v,
-      (float*)ctx_out, (float*)cum_out, T, H, A, M, K);
+      (float*)ctx_out, (float*)cum_out, (__nv_bfloat16*)ctx_row, ld_row, T, H,
+      A, M, K);
   return (int)cudaGetLastError();
 }
 
-int head_launch(const void* h_gen, const void* ctx, const void* w,
-                const void* bias, void* frame, void* stop, int B, int H,
-                int M, int N, void* stream) {
-  const size_t smem = (size_t)HEAD_ROWS * (H + M) * sizeof(float);
-  cudaError_t err = allow_smem(head_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + HEAD_ROWS - 1) / HEAD_ROWS;
-  head_kernel<<<grid, HEAD_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)h_gen, (const float*)ctx, (const __nv_bfloat16*)w,
-      (const float*)bias, (float*)frame, (float*)stop, B, H, M, N);
-  return (int)cudaGetLastError();
+// the head row [B, K] (bf16 rows of ld_row) against the head weight [N, K]
+// (N = M + 1): frame [B, M] and stop [B].  K is split into `slices` of
+// `kslice`; with more than one, `scratch` holds slices * B * N floats.
+int head_launch(const void* row, int ld_row, const void* w, int K,
+                const void* bias, int B, int N, void* frame, void* stop,
+                int slices, int kslice, void* scratch, void* stream) {
+  const HeadOut epi{(const float*)bias, nullptr, (float*)frame, (float*)stop,
+                    N};
+  return splitk_launch<false, false>(row, ld_row, w, K, B, N, K, slices,
+                                     kslice, scratch, epi, stream);
 }
 
 }  // extern "C"

@@ -14,17 +14,20 @@
 // splits K.
 //
 // Every product runs on the tensor cores (mma.sync m16n8k16, bfloat16
-// inputs, float32 sums) in one of two tile routines.  The gate products
-// run in gate_tile_kernel (csrc/tile.cuh, shared with the serving
-// decoder's gate product), with the LSTM step and train-mode zoneout or
-// dropout in the epilogue.  Every other product (the attention query, the
-// head, and the backward's dgates @ W^T, dq @ Wq^T and dWq) runs in
-// splitk_kernel, which reads transposed operands as they lie through
-// ldmatrix.trans and splits K over the grid.  The location conv, energy,
-// softmax, context and their backward run on the CUDA cores, one block per
-// batch row.  Accumulators (dmt, the [K, A] location-conv grad dlc, dv) are
-// per batch row and summed once at the end, split-K partials are summed in
-// a fixed order: no float atomics, so a run repeats bit for bit.
+// inputs, float32 sums) in the two tile routines of csrc/tile.cuh, or in
+// bwd_head.  The gate products run in gate_tile_kernel (shared with the
+// serving decoder's gate product), with the LSTM step and train-mode
+// zoneout or dropout in the epilogue.  The attention query, the head and
+// the backward's dgates @ W^T, dq @ Wq^T and dWq run in splitk_kernel
+// (shared with the serving decoder's head), which reads transposed
+// operands as they lie through ldmatrix.trans and splits K over the grid.
+// The head backward (K = 80 mels) is one launch of its own kernel, a grid
+// over column tiles of H + Mem that builds its A tile from the float32
+// cotangents.  The location conv, energy, softmax, context and their
+// backward run on the CUDA cores, one block per batch row.  Accumulators
+// (dmt, the [K, A] location-conv grad dlc, dv) are per batch row and summed
+// once at the end, split-K partials are summed in a fixed order: no float
+// atomics, so a run repeats bit for bit.
 //
 // Bound on the H100: a step's two gate products are 2*B*(K_att+K_gen)*4H
 // bf16 operations (1.6 G at B=50), 1.6 us at 989 TFLOP/s, against 32 MB of
@@ -50,8 +53,6 @@
 #include "tile.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // train_gate_lstm: gates = row @ W^T on the tensor cores, the shared
@@ -120,39 +121,9 @@ struct LstmEpi {
 };
 
 // ---------------------------------------------------------------------------
-// splitk_kernel: every other product, C = A @ B with bf16 operands and
-// float32 sums, then an epilogue epi.put(row, col, value) per element:
-//   train_query  q = bf16(h @ Wq)                     RoundOut
-//   train_head   [h_gen | ctx] @ W_head^T + b         HeadOut
-//   bwd_gemm     dgates @ W, dq @ Wq^T, dWq, into up  SegOut
-//                to three column segments
-// A is "MK" ([M, K], k contiguous) or "KM" ([K, M], m contiguous: dWq); B
-// is "KN" ([K, N], n contiguous: h @ Wq, dgates @ W with W [4H, K_in]) or
-// "NK" ([N, K]: the head, dq @ Wq^T).
-//
-// Tiles are copied into shared memory as they lie, 16 bytes a thread with
-// cp.async through an SK_STAGES-deep ring, each tile row padded by 16 bytes
-// so that the eight row addresses of an ldmatrix fall in distinct banks.
-// The fragments of the transposed layouts ("KM" A, "KN" B) come from
-// ldmatrix.trans: no thread stores a transposed element.  The grid's z
-// dimension splits K into S slices of kslice (a multiple of SK_BK) so that
-// a product with few M x N tiles (M=50: 37 tiles for the generator's
-// dgates @ W, 2 for the query) still fills the card.  With S > 1 each block
-// writes its float32 partial tile into scratch [S, M, N], and splitk_reduce
-// sums the S partials in slice order and applies the epilogue; with S = 1
-// the block applies it itself.  No atomics: a run repeats bit for bit.
-// The wrapper reads the tile through splitk_tile to choose S.
+// the epilogues of splitk_kernel (csrc/tile.cuh) that only the training
+// decoder runs; the heads' HeadOut is in tile.cuh
 // ---------------------------------------------------------------------------
-constexpr int SK_BM = 64, SK_BN = 64, SK_BK = 32, SK_THREADS = 128;
-constexpr int SK_STAGES = 4;
-constexpr int SK_LD_K = SK_BK + 8;    // [64][32] tiles (k contiguous): 80 B
-constexpr int SK_LD_MN = SK_BN + 8;   // [32][64] tiles (m or n contiguous)
-constexpr int SK_TILE = 64 * SK_LD_K > SK_BK * SK_LD_MN ? 64 * SK_LD_K
-                                                         : SK_BK * SK_LD_MN;
-
-__host__ bool vec_ok(const void* p, int ld) {
-  return ((uintptr_t)p % 16 == 0) && (ld % 8 == 0);
-}
 
 // out[row, col - lo] = add[row, col - lo] + v for the segment [lo, hi) that
 // holds col (add may be null, or equal to out; unused segments: null out)
@@ -180,197 +151,6 @@ struct RoundOut {
     out[(size_t)row * n + col] = round_bf16(v);
   }
 };
-
-// fv = [h_gen | ctx] @ W_head^T + b: columns < N-1 are the frame (into the
-// spec stream and the frame carry), column N-1 the stop logit
-struct HeadOut {
-  const float* bias;
-  float* spec;
-  float* frame;
-  float* stop;
-  int n;
-  __device__ __forceinline__ void put(int row, int col, float v) const {
-    const float fv = v + bias[col];
-    if (col < n - 1) {
-      spec[(size_t)row * (n - 1) + col] = fv;
-      frame[(size_t)row * (n - 1) + col] = fv;
-    } else {
-      stop[row] = fv;
-    }
-  }
-};
-
-// eight consecutive bf16 at base[i * ld + j ..] into shared memory at dst,
-// zero outside [0, I) x [0, J); `vec` (base and ld 16-byte aligned) copies
-// with cp.async, otherwise with plain loads and one 16-byte store
-__device__ __forceinline__ void load8(bf16* dst, const bf16* __restrict__ base,
-                                      int ld, int i, int j, int I, int J,
-                                      bool vec) {
-  const bool in = i < I && j < J;
-  if (vec) {
-    const int n = in ? min(J - j, 8) : 0;
-    cp_async16(dst, in ? base + (size_t)i * ld + j : base, 2 * n);
-    return;
-  }
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (in) {
-    bf16* e = reinterpret_cast<bf16*>(&v);
-    const bf16* p = base + (size_t)i * ld + j;
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      if (j + q < J) e[q] = p[q];
-  }
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-
-template <bool A_KM, bool B_KN, class Epi>
-__global__ void __launch_bounds__(SK_THREADS)
-splitk_kernel(const bf16* __restrict__ A, int lda, int avec,
-              const bf16* __restrict__ B, int ldb, int bvec, int M, int N,
-              int K, int kslice, float* __restrict__ part, Epi epi) {
-  __shared__ __align__(16) bf16 sm[SK_STAGES][2][SK_TILE];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.y * SK_BM, col0 = blockIdx.x * SK_BN;
-  const int k_lo = blockIdx.z * kslice;
-  const int k_hi = min(K, k_lo + kslice);
-  const int nk = (k_hi - k_lo + SK_BK - 1) / SK_BK;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-
-  // stage s <- K tile k0: 256 chunks of A and 256 of B, four per thread
-  auto load = [&](int s, int k0) {
-    bf16* as = sm[s][0];
-    bf16* bs = sm[s][1];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = tid + h * SK_THREADS;
-      if (A_KM)   // [32 k][64 m]
-        load8(as + (p >> 3) * SK_LD_MN + (p & 7) * 8, A, lda, k0 + (p >> 3),
-              row0 + (p & 7) * 8, k_hi, M, avec);
-      else        // [64 m][32 k]
-        load8(as + (p >> 2) * SK_LD_K + (p & 3) * 8, A, lda, row0 + (p >> 2),
-              k0 + (p & 3) * 8, M, k_hi, avec);
-      if (B_KN)   // [32 k][64 n]
-        load8(bs + (p >> 3) * SK_LD_MN + (p & 7) * 8, B, ldb, k0 + (p >> 3),
-              col0 + (p & 7) * 8, k_hi, N, bvec);
-      else        // [64 n][32 k]
-        load8(bs + (p >> 2) * SK_LD_K + (p & 3) * 8, B, ldb, col0 + (p >> 2),
-              k0 + (p & 3) * 8, N, k_hi, bvec);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < SK_STAGES - 1; ++s) {
-    if (s < nk) load(s, k_lo + s * SK_BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<SK_STAGES - 2>();
-    __syncthreads();
-    const int nxt = kt + SK_STAGES - 1;
-    if (nxt < nk) load(nxt % SK_STAGES, k_lo + nxt * SK_BK);
-    cp_async_commit();
-    const bf16* as = sm[kt % SK_STAGES][0];
-    const bf16* bs = sm[kt % SK_STAGES][1];
-#pragma unroll
-    for (int kk = 0; kk < SK_BK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int m0 = wm + mt * 16;
-        if (A_KM)
-          ldsm_x4_trans(af[mt], as + (kk + (lane & 7) + (lane >> 4) * 8) *
-                                         SK_LD_MN +
-                                     m0 + ((lane >> 3) & 1) * 8);
-        else
-          ldsm_x4(af[mt], as + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   SK_LD_K +
-                               kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int n0 = wn + np * 16;
-        uint32_t r[4];
-        if (B_KN)
-          ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                    SK_LD_MN +
-                                n0 + (lane >> 4) * 8);
-        else
-          ldsm_x4(r, bs + (n0 + (lane & 7) + (lane >> 4) * 8) * SK_LD_K + kk +
-                         ((lane >> 3) & 1) * 8);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
-    }
-  }
-  cp_async_wait<0>();
-
-  float* dst = part != nullptr ? part + (size_t)blockIdx.z * M * N : nullptr;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
-        if (row >= M || col >= N) continue;
-        if (dst != nullptr)
-          dst[(size_t)row * N + col] = acc[mt][nt][e];
-        else
-          epi.put(row, col, acc[mt][nt][e]);
-      }
-}
-
-// the S partials of each (row, col), summed in slice order
-template <class Epi>
-__global__ void splitk_reduce_kernel(const float* __restrict__ part, int S,
-                                     int M, int N, Epi epi) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t mn = (size_t)M * N;
-  if (idx >= mn) return;
-  float v = part[idx];
-  for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + idx];
-  epi.put((int)(idx / N), (int)(idx % N), v);
-}
-
-// K is split into `slices` of `kslice`; with slices > 1, `scratch` holds
-// slices * M * N floats and a second launch sums them
-template <bool A_KM, bool B_KN, class Epi>
-int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
-                  int N, int K, int slices, int kslice, void* scratch,
-                  const Epi& epi, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || slices < 1 || kslice % SK_BK != 0 ||
-      (long long)kslice * slices < K ||
-      (long long)kslice * (slices - 1) >= K ||
-      (slices > 1 && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  float* part = slices > 1 ? (float*)scratch : nullptr;
-  dim3 grid((N + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, slices);
-  splitk_kernel<A_KM, B_KN, Epi><<<grid, SK_THREADS, 0, st>>>(
-      (const bf16*)A, lda, vec_ok(A, lda), (const bf16*)B, ldb,
-      vec_ok(B, ldb), M, N, K, kslice, part, epi);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || slices == 1) return (int)err;
-  const size_t mn = (size_t)M * N;
-  splitk_reduce_kernel<Epi><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-      part, slices, M, N, epi);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // train_prenet: the input frame (the shifted target at a teacher step, the
@@ -551,41 +331,185 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
 }
 
 // ---------------------------------------------------------------------------
-// bwd_head: one block per batch row.
+// bwd_head: the head backward (ops/pallas_train_decoder.py:731-743)
 //   dframe_tot = dspec + dframe  -> the da_frame stream (bf16)
-//   dproto[j] = sum_m bf16(dframe_tot[m]) W[m, j] + dstop W[M, j]
-//   dh_gen_tot = dh_gen + dproto[:H];  dctx_tot = dctx + dproto[H:H+Mem]
-// W is the head weight [M + 1, ldw] (one row per output, inputs contiguous).
+//   dproto = bf16(dframe_tot) @ W[:M] + dstop W[M]
+//   dh_gen_tot = dh_gen + dproto[:, :H];  dctx_tot = dctx + dproto[:, H:]
+// W is the head weight [M + 1, ldw] (one row per output, inputs
+// contiguous), so W[:M] is the product's B as it lies ("KN", n contiguous).
+//
+// Bound on the H100: 2*B*(M+1)*(H+Mem) operations (10.7 M at B=50) and
+// 0.8 MB in and out, 0.23 us; what costs is latency and launches, so the
+// product is one launch on the tensor cores.  Block: all BH_BM rows of a
+// row tile (grid y over row tiles when B > BH_BM) by BH_BN columns of
+// H + Mem (21 blocks at the flagship's 1316).  Each block copies its
+// [M, BH_BN] weight tile as it lies with cp.async (rows past M zero),
+// reads the carries its outputs add to, and builds its A tile
+// bf16(dspec + dframe) [BH_BM, M] in shared memory from the float32 inputs
+// with every 16-byte load in flight at once (the blocks of column 0 also
+// write da_frame), so that the three latencies overlap; eight
+// warps of 32 rows x 16 columns read the fragments with ldmatrix (.trans
+// for W) and run mma.sync m16n8k16 with float32 sums over K = M (zero-padded
+// to a multiple of 16).  The stop term stays in float32, as in the JAX
+// kernel, and the epilogue adds it in the plain version's order, each
+// operation rounded once: base + (acc + dstop * W[M]).
 // ---------------------------------------------------------------------------
-__global__ void bwd_head_kernel(const float* __restrict__ dspec,
-                                const float* __restrict__ dstop,
-                                const float* __restrict__ dframe,
-                                const bf16* __restrict__ w, int ldw,
-                                bf16* __restrict__ da_frame,
-                                const float* __restrict__ dh_gen,
-                                const float* __restrict__ dctx,
-                                float* __restrict__ dh_gen_tot,
-                                float* __restrict__ dctx_tot, int M, int H,
-                                int Mem) {
-  extern __shared__ float s_d[];  // M
-  const int b = blockIdx.x;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const size_t o = (size_t)b * M + m;
-    const float d = dspec[o] + dframe[o];
-    da_frame[o] = __float2bfloat16_rn(d);
-    s_d[m] = round_bf16(d);
+constexpr int BH_BM = 64, BH_BN = 64, BH_THREADS = 256;
+constexpr int BH_LD_N = BH_BN + 8;   // bf16 a row of the weight tile
+// float4 slots of the A tile a thread loads at once: the whole tile while
+// K_pad <= 128, so that every load is in flight before the first store
+constexpr int BH_SLOTS = 8;
+
+__host__ size_t bwd_head_smem(int kp) {
+  return (size_t)BH_BM * (kp + 8) * sizeof(bf16) +
+         (size_t)kp * BH_LD_N * sizeof(bf16) + (BH_BN + BH_BM) * sizeof(float);
+}
+
+// four consecutive floats of a row at p, zero past `n` of them; `vec`: p is
+// 16-byte aligned and n >= 4
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int n,
+                                        bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (n > 0) v.x = p[0];
+  if (n > 1) v.y = p[1];
+  if (n > 2) v.z = p[2];
+  if (n > 3) v.w = p[3];
+  return v;
+}
+
+__global__ void __launch_bounds__(BH_THREADS)
+bwd_head_kernel(const float* __restrict__ dspec,
+                const float* __restrict__ dstop,
+                const float* __restrict__ dframe, const bf16* __restrict__ w,
+                int ldw, int wvec, int dvec, bf16* __restrict__ da_frame,
+                const float* __restrict__ dh_gen,
+                const float* __restrict__ dctx, float* __restrict__ dh_gen_tot,
+                float* __restrict__ dctx_tot, int B, int M, int kp, int H,
+                int Mem) {
+  extern __shared__ __align__(16) uint8_t bh_smem[];
+  const int lda = kp + 8;                       // bf16 a row of the A tile
+  bf16* as = reinterpret_cast<bf16*>(bh_smem);  // [BH_BM][lda]
+  bf16* bs = as + BH_BM * lda;                  // [kp][BH_LD_N]
+  float* s_wm = reinterpret_cast<float*>(bs + kp * BH_LD_N);  // W[M] tile
+  float* s_ds = s_wm + BH_BN;                   // dstop of the rows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * BH_BM, col0 = blockIdx.x * BH_BN;
+  const int N = H + Mem;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+
+  for (int p = tid; p < kp * (BH_BN / 8); p += BH_THREADS) {
+    const int k = p / (BH_BN / 8), c = (p % (BH_BN / 8)) * 8;
+    load8(bs + k * BH_LD_N + c, w, ldw, k, col0 + c, M, N, wvec);
   }
+  cp_async_commit();
+
+  // the carries this thread adds its outputs to, read now so that their
+  // latency overlaps the A tile's
+  float base[2][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+        base[mt][nt][e] =
+            row >= B || col >= N ? 0.0f
+            : col < H            ? dh_gen[(size_t)row * H + col]
+                                 : dctx[(size_t)row * Mem + col - H];
+      }
+
+  // the A tile bf16(dspec + dframe), four columns a slot; the blocks of
+  // column 0 also write da_frame
+  const int row_slots = kp / 4, slots = BH_BM * row_slots;
+  for (int p0 = 0; p0 < slots; p0 += BH_SLOTS * BH_THREADS) {
+    float4 x[BH_SLOTS], y[BH_SLOTS];
+#pragma unroll
+    for (int j = 0; j < BH_SLOTS; ++j) {
+      const int p = p0 + tid + j * BH_THREADS;
+      const int r = p / row_slots, k = (p % row_slots) * 4, row = row0 + r;
+      x[j] = y[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p < slots && row < B && k < M) {
+        const size_t o = (size_t)row * M + k;
+        x[j] = load4(dspec + o, M - k, dvec);
+        y[j] = load4(dframe + o, M - k, dvec);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BH_SLOTS; ++j) {
+      const int p = p0 + tid + j * BH_THREADS;
+      if (p >= slots) continue;
+      const int r = p / row_slots, k = (p % row_slots) * 4, row = row0 + r;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(x[j].x + y[j].x,
+                                                      x[j].y + y[j].y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x[j].z + y[j].z,
+                                                      x[j].w + y[j].w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(as + r * lda + k) = packed;
+      if (blockIdx.x == 0 && row < B) {
+        const bf16 v[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (k + q < M) da_frame[(size_t)row * M + k + q] = v[q];
+      }
+    }
+  }
+  for (int c = tid; c < BH_BN; c += BH_THREADS)
+    s_wm[c] = col0 + c < N ? bf16_at(w, (size_t)M * ldw + col0 + c) : 0.0f;
+  for (int r = tid; r < BH_BM; r += BH_THREADS)
+    s_ds[r] = row0 + r < B ? dstop[row0 + r] : 0.0f;
+  cp_async_wait<0>();
   __syncthreads();
-  const float ds = dstop[b];
-  for (int j = threadIdx.x; j < H + Mem; j += blockDim.x) {
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc = fmaf(s_d[m], bf16_at(w, (size_t)m * ldw + j), acc);
-    acc += ds * bf16_at(w, (size_t)M * ldw + j);
-    if (j < H)
-      dh_gen_tot[(size_t)b * H + j] = dh_gen[(size_t)b * H + j] + acc;
-    else
-      dctx_tot[(size_t)b * Mem + j - H] = dctx[(size_t)b * Mem + j - H] + acc;
+
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+  for (int kk = 0; kk < kp; kk += 16) {
+    uint32_t af[2][4], bfr[2][2], r[4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
+                            ((lane >> 3) & 1) * 8) * lda +
+                          kk + (lane >> 4) * 8);
+    ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              BH_LD_N +
+                          wn + (lane >> 4) * 8);
+    bfr[0][0] = r[0];
+    bfr[0][1] = r[1];
+    bfr[1][0] = r[2];
+    bfr[1][1] = r[3];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
   }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int c = wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+        const int row = row0 + r, col = col0 + c;
+        if (row >= B || col >= N) continue;
+        const float dp =
+            __fadd_rn(acc[mt][nt][e], __fmul_rn(s_ds[r], s_wm[c]));
+        const float v = base[mt][nt][e] + dp;
+        if (col < H)
+          dh_gen_tot[(size_t)row * H + col] = v;
+        else
+          dctx_tot[(size_t)row * Mem + col - H] = v;
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -835,14 +759,6 @@ int train_prenet_launch(const void* shifted, const void* frame, int teacher,
   return (int)cudaGetLastError();
 }
 
-// the splitk_kernel tile, {SK_BM, SK_BN, SK_BK}, from which the wrapper
-// chooses the slices of K
-void splitk_tile(int* out) {
-  out[0] = SK_BM;
-  out[1] = SK_BN;
-  out[2] = SK_BK;
-}
-
 // row [B, K] (rows of ld_row bf16) and w [4H, K], K a multiple of 8, both
 // 16-byte aligned
 int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
@@ -927,10 +843,19 @@ int bwd_head_launch(const void* dspec, const void* dstop, const void* dframe,
                     const void* dh_gen, const void* dctx, void* dh_gen_tot,
                     void* dctx_tot, int B, int M, int H, int Mem,
                     void* stream) {
-  bwd_head_kernel<<<B, 256, M * sizeof(float), (cudaStream_t)stream>>>(
+  if (B <= 0 || M <= 0 || ldw < H + Mem) return (int)cudaErrorInvalidValue;
+  const int kp = (M + 15) / 16 * 16;
+  const bool dvec = M % 4 == 0 && (uintptr_t)dspec % 16 == 0 &&
+                    (uintptr_t)dframe % 16 == 0;
+  const size_t smem = bwd_head_smem(kp);
+  cudaError_t err = allow_smem(bwd_head_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + Mem + BH_BN - 1) / BH_BN, (B + BH_BM - 1) / BH_BM);
+  bwd_head_kernel<<<grid, BH_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)dspec, (const float*)dstop, (const float*)dframe,
-      (const bf16*)w, ldw, (bf16*)da_frame, (const float*)dh_gen,
-      (const float*)dctx, (float*)dh_gen_tot, (float*)dctx_tot, M, H, Mem);
+      (const bf16*)w, ldw, vec_ok(w, ldw), dvec, (bf16*)da_frame,
+      (const float*)dh_gen, (const float*)dctx, (float*)dh_gen_tot,
+      (float*)dctx_tot, B, M, kp, H, Mem);
   return (int)cudaGetLastError();
 }
 

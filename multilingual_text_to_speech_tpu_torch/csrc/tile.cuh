@@ -2,8 +2,10 @@
 // (fused_decoder.cu and fused_train_decoder.cu): 16-byte asynchronous
 // copies from device memory into shared memory, ldmatrix fragment loads
 // (plain and transposing), the mma.sync products, bf16 m16n8k16 with
-// float32 sums and int8 m16n8k32 with int32 sums, and the fused-gate LSTM
-// product that both decoders run (gate_tile_kernel, at the end).
+// float32 sums and int8 m16n8k32 with int32 sums, and the two tile routines
+// that both decoders run: the fused-gate LSTM product (gate_tile_kernel)
+// and the split-K product of every other weight (splitk_kernel, with the
+// frame and stop head's epilogue HeadOut), each templated on its epilogue.
 //
 // The two products read their fragments in the same byte layout: an A
 // fragment is rows g and g+8 (g = lane / 4) of a 16-row tile, 4 bytes at
@@ -268,4 +270,246 @@ cudaError_t gate_tile_launch(const void* a, int lda, const void* w, int ldw,
   return gate_tile_run<INT8, 1>(a, lda, w, ldw, kbytes, M, H, epi, stream);
 }
 
+// ---------------------------------------------------------------------------
+// splitk_kernel: C = A @ B with bf16 operands and float32 sums, then an
+// epilogue epi.put(row, col, value) per element.  Every product of the two
+// decoders other than the fused-gate LSTM runs in it: the frame and stop
+// head of both (HeadOut, below), and in fused_train_decoder.cu the
+// attention query (RoundOut) and the backward's dgates @ W, dq @ Wq^T and
+// dWq (SegOut).
+// A is "MK" ([M, K], k contiguous) or "KM" ([K, M], m contiguous: dWq); B
+// is "KN" ([K, N], n contiguous: h @ Wq, dgates @ W with W [4H, K_in]) or
+// "NK" ([N, K]: the heads, dq @ Wq^T).
+//
+// Tiles are copied into shared memory as they lie, 16 bytes a thread with
+// cp.async through an SK_STAGES-deep ring, each tile row padded by 16 bytes
+// so that the eight row addresses of an ldmatrix fall in distinct banks.
+// The fragments of the transposed layouts ("KM" A, "KN" B) come from
+// ldmatrix.trans: no thread stores a transposed element.  The grid's z
+// dimension splits K into S slices of kslice (a multiple of SK_BK) so that
+// a product with few M x N tiles (the heads: 8 at B=240, 2 at B=50; M=50:
+// 37 tiles for the generator's dgates @ W) still fills the card.  With S >
+// 1 each block writes its float32 partial tile into scratch [S, M, N], and
+// splitk_reduce sums the S partials in slice order and applies the
+// epilogue; with S = 1 the block applies it itself.  No atomics: a run
+// repeats bit for bit.  The wrapper reads the tile through splitk_tile (at
+// the end, exported by each library) to choose S.
+// ---------------------------------------------------------------------------
+typedef __nv_bfloat16 bf16;
+
+constexpr int SK_BM = 64, SK_BN = 64, SK_BK = 32, SK_THREADS = 128;
+constexpr int SK_STAGES = 4;
+constexpr int SK_LD_K = SK_BK + 8;    // [64][32] tiles (k contiguous): 80 B
+constexpr int SK_LD_MN = SK_BN + 8;   // [32][64] tiles (m or n contiguous)
+constexpr int SK_TILE = 64 * SK_LD_K > SK_BK * SK_LD_MN ? 64 * SK_LD_K
+                                                         : SK_BK * SK_LD_MN;
+
+__host__ bool vec_ok(const void* p, int ld) {
+  return ((uintptr_t)p % 16 == 0) && (ld % 8 == 0);
+}
+
+// fv = row @ W_head^T + b over the head row [h_gen | ctx]: columns < N-1
+// are the frame (into the frame carry and, when not null, the spec
+// stream), column N-1 the stop logit
+struct HeadOut {
+  const float* bias;
+  float* spec;
+  float* frame;
+  float* stop;
+  int n;
+  __device__ __forceinline__ void put(int row, int col, float v) const {
+    const float fv = v + bias[col];
+    if (col < n - 1) {
+      if (spec != nullptr) spec[(size_t)row * (n - 1) + col] = fv;
+      frame[(size_t)row * (n - 1) + col] = fv;
+    } else {
+      stop[row] = fv;
+    }
+  }
+};
+
+// eight consecutive bf16 at base[i * ld + j ..] into shared memory at dst,
+// zero outside [0, I) x [0, J); `vec` (base and ld 16-byte aligned) copies
+// with cp.async, otherwise with plain loads and one 16-byte store
+__device__ __forceinline__ void load8(bf16* dst, const bf16* __restrict__ base,
+                                      int ld, int i, int j, int I, int J,
+                                      bool vec) {
+  const bool in = i < I && j < J;
+  if (vec) {
+    const int n = in ? min(J - j, 8) : 0;
+    cp_async16(dst, in ? base + (size_t)i * ld + j : base, 2 * n);
+    return;
+  }
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (in) {
+    bf16* e = reinterpret_cast<bf16*>(&v);
+    const bf16* p = base + (size_t)i * ld + j;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (j + q < J) e[q] = p[q];
+  }
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+template <bool A_KM, bool B_KN, class Epi>
+__global__ void __launch_bounds__(SK_THREADS)
+splitk_kernel(const bf16* __restrict__ A, int lda, int avec,
+              const bf16* __restrict__ B, int ldb, int bvec, int M, int N,
+              int K, int kslice, float* __restrict__ part, Epi epi) {
+  __shared__ __align__(16) bf16 sm[SK_STAGES][2][SK_TILE];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * SK_BM, col0 = blockIdx.x * SK_BN;
+  const int k_lo = blockIdx.z * kslice;
+  const int k_hi = min(K, k_lo + kslice);
+  const int nk = (k_hi - k_lo + SK_BK - 1) / SK_BK;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+
+  // stage s <- K tile k0: 256 chunks of A and 256 of B, four per thread
+  auto load = [&](int s, int k0) {
+    bf16* as = sm[s][0];
+    bf16* bs = sm[s][1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * SK_THREADS;
+      if (A_KM)   // [32 k][64 m]
+        load8(as + (p >> 3) * SK_LD_MN + (p & 7) * 8, A, lda, k0 + (p >> 3),
+              row0 + (p & 7) * 8, k_hi, M, avec);
+      else        // [64 m][32 k]
+        load8(as + (p >> 2) * SK_LD_K + (p & 3) * 8, A, lda, row0 + (p >> 2),
+              k0 + (p & 3) * 8, M, k_hi, avec);
+      if (B_KN)   // [32 k][64 n]
+        load8(bs + (p >> 3) * SK_LD_MN + (p & 7) * 8, B, ldb, k0 + (p >> 3),
+              col0 + (p & 7) * 8, k_hi, N, bvec);
+      else        // [64 n][32 k]
+        load8(bs + (p >> 2) * SK_LD_K + (p & 3) * 8, B, ldb, col0 + (p >> 2),
+              k0 + (p & 3) * 8, N, k_hi, bvec);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < nk) load(s, k_lo + s * SK_BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();
+    const int nxt = kt + SK_STAGES - 1;
+    if (nxt < nk) load(nxt % SK_STAGES, k_lo + nxt * SK_BK);
+    cp_async_commit();
+    const bf16* as = sm[kt % SK_STAGES][0];
+    const bf16* bs = sm[kt % SK_STAGES][1];
+#pragma unroll
+    for (int kk = 0; kk < SK_BK; kk += 16) {
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m0 = wm + mt * 16;
+        if (A_KM)
+          ldsm_x4_trans(af[mt], as + (kk + (lane & 7) + (lane >> 4) * 8) *
+                                         SK_LD_MN +
+                                     m0 + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4(af[mt], as + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   SK_LD_K +
+                               kk + (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int n0 = wn + np * 16;
+        uint32_t r[4];
+        if (B_KN)
+          ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                    SK_LD_MN +
+                                n0 + (lane >> 4) * 8);
+        else
+          ldsm_x4(r, bs + (n0 + (lane & 7) + (lane >> 4) * 8) * SK_LD_K + kk +
+                         ((lane >> 3) & 1) * 8);
+        bfr[2 * np][0] = r[0];
+        bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2];
+        bfr[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = part != nullptr ? part + (size_t)blockIdx.z * M * N : nullptr;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+        if (row >= M || col >= N) continue;
+        if (dst != nullptr)
+          dst[(size_t)row * N + col] = acc[mt][nt][e];
+        else
+          epi.put(row, col, acc[mt][nt][e]);
+      }
+}
+
+// the S partials of each (row, col), summed in slice order
+template <class Epi>
+__global__ void splitk_reduce_kernel(const float* __restrict__ part, int S,
+                                     int M, int N, Epi epi) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t mn = (size_t)M * N;
+  if (idx >= mn) return;
+  float v = part[idx];
+  for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + idx];
+  epi.put((int)(idx / N), (int)(idx % N), v);
+}
+
+// K is split into `slices` of `kslice`; with slices > 1, `scratch` holds
+// slices * M * N floats and a second launch sums them
+template <bool A_KM, bool B_KN, class Epi>
+int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
+                  int N, int K, int slices, int kslice, void* scratch,
+                  const Epi& epi, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || slices < 1 || kslice % SK_BK != 0 ||
+      (long long)kslice * slices < K ||
+      (long long)kslice * (slices - 1) >= K ||
+      (slices > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* part = slices > 1 ? (float*)scratch : nullptr;
+  dim3 grid((N + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, slices);
+  splitk_kernel<A_KM, B_KN, Epi><<<grid, SK_THREADS, 0, st>>>(
+      (const bf16*)A, lda, vec_ok(A, lda), (const bf16*)B, ldb,
+      vec_ok(B, ldb), M, N, K, kslice, part, epi);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  splitk_reduce_kernel<Epi><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      part, slices, M, N, epi);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" {
+
+// the splitk_kernel tile, {SK_BM, SK_BN, SK_BK}, from which the wrapper
+// chooses the slices of K
+void splitk_tile(int* out) {
+  out[0] = SK_BM;
+  out[1] = SK_BN;
+  out[2] = SK_BK;
+}
+
+}  // extern "C"

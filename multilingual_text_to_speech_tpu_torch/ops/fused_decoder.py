@@ -21,9 +21,17 @@ four kernel functions of ``csrc/fused_decoder.cu``:
    location conv straight from ``cum`` and ``lc`` (loc_filter x
    location_kernel, folded once on the host in float32), the energy, the
    masked softmax, ``cum += w`` and the context;
-4. ``head``: the fused frame and stop projection.
+4. ``head``: the fused frame and stop projection over the head row
+   ``[bf16(h_gen) | bf16(ctx)]`` on the tensor cores, split over K like the
+   training decoder's products (``csrc/tile.cuh::splitk_kernel`` and its
+   ordered reduction, ``ops/_splitk.py``).  In a chunk the generator LSTM's
+   epilogue and ``lsa_attention`` write that row as they finish, so it
+   costs no launch of its own.
 
-Every product of the step runs in these kernels; none goes to cuBLAS.
+Every product of the step runs in these kernels; none goes to cuBLAS.  A
+chunk allocates every buffer its kernels write once (``_ChunkKernels``):
+the row-pass and split-K scratch, the head row, and two of each carry that
+the steps take in turns.
 
 What bounds it on the H100: the two gate products, 2*B*(K_att+K_gen)*4H int8
 operations a step (7.7 G at the flagship's B=240), are 3.9 us at the card's
@@ -47,7 +55,6 @@ the plain version on any device and is what the kernels are held against.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -58,11 +65,17 @@ from multilingual_text_to_speech_tpu_torch.models.rnn import (
     lstm_pointwise,
     zoneout,
 )
+from multilingual_text_to_speech_tpu_torch.ops import _splitk
 
 Seeds = Tuple[int, int]
 
 _M32 = 0xFFFFFFFF
 _K_ALIGN = 64          # gate weight rows are zero-padded to this many inputs
+# the head's split aims at one block per SM, not the training products' two:
+# at B=240 its 8 output tiles would take 21 slices of the shortest length
+# (64), and each block would write as many partial bytes as it reads; one
+# block per SM gives 14 slices of 96 (csrc/tile.cuh::splitk_kernel)
+_HEAD_BLOCKS_PER_SM = 1
 
 # launches of each kernel since the last reset (kernel launches only)
 LAUNCHES: Dict[str, int] = {
@@ -123,10 +136,11 @@ def draw_seeds(generator: torch.Generator) -> Seeds:
 @dataclass
 class DecoderBundle:
     """The decoder weights in the layouts the kernels read.  Gate weights
-    are ``[4H, K_pad]`` (one row per gate column, inputs contiguous, zero
-    rows padding K to a multiple of 64); the prenet and head kernels are
-    ``[in, out]``.  Zero padding changes neither the per-column scales nor
-    the per-row activation amax."""
+    are ``[4H, K_pad]`` and the frame and stop head ``[M + 1, K_pad]`` (one
+    row per output column, inputs contiguous, zero columns padding K to a
+    multiple of 64); the prenet kernels are ``[in, out]``.  Zero padding
+    changes neither the per-column scales nor the per-row activation
+    amax."""
     dtype: torch.dtype
     quantized: bool
     pre_w: torch.Tensor          # flat concat of the [in, out] kernels
@@ -142,7 +156,7 @@ class DecoderBundle:
     att_bias: torch.Tensor       # [A] float32
     lc: torch.Tensor             # [K, A] folded location conv, compute type
     v: torch.Tensor              # [A] float32
-    head_w: torch.Tensor         # [H + Mem, M + 1]
+    head_w: torch.Tensor         # [M + 1, K_pad], K = H + Mem
     head_b: torch.Tensor         # [M + 1] float32
 
     def prenet_layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -190,7 +204,7 @@ def extract_decoder_bundle(cell, dtype: torch.dtype,
     gen_w, gen_ws, gen_b = gates(cell.generator_lstm)
     lc = att.loc_filter[:, 0, :].float() @ att.location_kernel.float()
     head_w = torch.cat([cell.frame_prediction.weight,
-                        cell.stop_prediction.weight], 0).t()
+                        cell.stop_prediction.weight], 0)
     head_b = torch.cat([cell.frame_prediction.bias,
                         cell.stop_prediction.bias])
     return DecoderBundle(
@@ -204,7 +218,7 @@ def extract_decoder_bundle(cell, dtype: torch.dtype,
         att_bias=att.bias.reshape(-1).float().contiguous(),
         lc=lc.to(dtype).contiguous(),
         v=att.energy_kernel.reshape(-1).float().contiguous(),
-        head_w=head_w.to(dtype).contiguous(),
+        head_w=_pad_k(head_w.to(dtype)),
         head_b=head_b.float().contiguous(),
     )
 
@@ -302,7 +316,8 @@ def head_plain(h_gen: torch.Tensor, ctx: torch.Tensor,
                bundle: DecoderBundle):
     """Frame and stop heads over ``[h_gen | ctx]`` -> (frame [B, M],
     stop logit [B])."""
-    fv = _mm(torch.cat([h_gen, ctx], dim=1), bundle.head_w) + bundle.head_b
+    row = torch.cat([h_gen, ctx], dim=1)
+    fv = _mm(row, bundle.head_w[:, :row.shape[1]].t()) + bundle.head_b
     mmel = fv.shape[1] - 1
     return fv[:, :mmel], fv[:, mmel]
 
@@ -316,10 +331,10 @@ _SIGNATURES = {
     "prenet_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _U,
                       _F, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
-                         _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
-    "lsa_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _P],
-    "head_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                         _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _P],
+    "lsa_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _I, _P],
+    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P],
 }
 _LIB = None
 
@@ -373,8 +388,35 @@ def _require_bf16(bundle: DecoderBundle) -> None:
                          f"got {bundle.dtype}")
 
 
-def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None):
-    """Kernel ``prenet`` (see ``prenet_plain``)."""
+def _row_view(name: str, t: Optional[torch.Tensor]) -> int:
+    """The row stride of a bf16 destination view ``t`` (rows of a larger
+    buffer, unit stride in the last dimension); 0 for None."""
+    if t is None:
+        return 0
+    if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head row must be a bfloat16 CUDA "
+                         "view with unit stride in its last dimension")
+    return t.stride(0)
+
+
+def _outputs(out, *like: Tuple):
+    """``out`` (the caller's float32 output tensors, checked) or new ones:
+    each of ``like`` is ``(shape, reference tensor)``."""
+    if out is None:
+        return tuple(torch.empty(shape, device=ref.device)
+                     for shape, ref in like)
+    _check("out", *out)
+    if any(o.dtype != torch.float32 or tuple(o.shape) != tuple(shape)
+           for o, (shape, _) in zip(out, like)):
+        raise ValueError("out: float32 tensors of shapes "
+                         f"{[tuple(s) for s, _ in like]} expected")
+    return out
+
+
+def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None,
+           out=None):
+    """Kernel ``prenet`` (see ``prenet_plain``); writes ``out`` [B, P] when
+    given."""
     if not _is_cuda(frame):
         return prenet_plain(frame, bundle, dropout_rate, seeds, step,
                             keep_out)
@@ -382,7 +424,7 @@ def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None):
     frame = frame.float().contiguous()
     in_dim, p, n = bundle.pre_dims
     b = frame.shape[0]
-    out = torch.empty(b, p, device=frame.device)
+    (out,) = _outputs(None if out is None else (out,), ((b, p), frame))
     if keep_out is not None and keep_out.dtype != torch.uint8:
         raise ValueError("keep_out must be uint8")
     _check("prenet", frame, bundle.pre_w, bundle.pre_b, keep_out)
@@ -407,9 +449,11 @@ def gate_row_scratch(b: int, weights, device):
 
 
 def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
-              q_out=None, scratch=None):
+              q_out=None, scratch=None, h_row=None, out=None):
     """Kernel ``gate_lstm`` (see ``gate_lstm_plain``).  ``scratch`` is the
-    row pass's (``gate_row_scratch``); without one the call gets its own."""
+    row pass's (``gate_row_scratch``); without one the call gets its own.
+    ``h_row`` (a bf16 [B, H] view) also receives bf16(h_new); ``out`` are
+    the (h_new, c_new) to write, new ones if None."""
     if not _is_cuda(h):
         return gate_lstm_plain(segments, h, c, bundle, which, zoneout_h,
                                zoneout_c, q_out)
@@ -419,11 +463,11 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
     b, hidden = h.shape
     h = h.contiguous()
     c = c.contiguous()
-    h_new = torch.empty_like(h)
-    c_new = torch.empty_like(c)
+    h_new, c_new = _outputs(out, (h.shape, h), (c.shape, c))
     if q_out is not None and q_out.dtype != torch.int8:
         raise ValueError("q_out must be int8")
     _check("gate_lstm", s0, s1, s2, w, ws, bias, h, c, q_out)
+    ld_row = _row_view("gate_lstm", h_row)
     row_buf, rs_buf = (gate_row_scratch(b, (w,), h.device) if scratch is None
                        else scratch)
     if (row_buf.numel() < b * w.shape[1] * w.element_size()
@@ -433,14 +477,17 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
         _ptr(s0), s0.shape[1], _ptr(s1), s1.shape[1], _ptr(s2), s2.shape[1],
         _ptr(w), _ptr(ws), _ptr(bias), w.shape[1], int(bundle.quantized),
         _ptr(row_buf), _ptr(rs_buf), _ptr(h), _ptr(c), _ptr(h_new),
-        _ptr(c_new), _ptr(q_out), b, hidden, float(zoneout_h),
-        float(zoneout_c), _stream())
+        _ptr(c_new), _ptr(h_row), ld_row, _ptr(q_out), b, hidden,
+        float(zoneout_h), float(zoneout_c), _stream())
     _launched("gate_lstm", err)
     return h_new, c_new
 
 
-def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle):
-    """Kernel ``lsa_attention`` (see ``lsa_attention_plain``)."""
+def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle, ctx_row=None,
+                  out=None):
+    """Kernel ``lsa_attention`` (see ``lsa_attention_plain``).  ``ctx_row``
+    (a bf16 [B, Mem] view) also receives bf16(context); ``out`` are the
+    (context, cum) to write, new ones if None."""
     if not _is_cuda(h_att):
         return lsa_attention_plain(h_att, cum, memory, mtb, mask_add, bundle)
     _require_bf16(bundle)
@@ -449,34 +496,59 @@ def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle):
         raise ValueError("memory and memory transform must be bfloat16")
     h_att, cum, mask_add = (x.float().contiguous()
                             for x in (h_att, cum, mask_add))
-    ctx = torch.empty(b, mem_dim, device=h_att.device)
-    cum_new = torch.empty_like(cum)
+    ctx, cum_new = _outputs(out, ((b, mem_dim), h_att), (cum.shape, cum))
     _check("lsa_attention", h_att, cum, memory, mtb, mask_add, bundle.wq,
            bundle.lc, bundle.v)
+    ld_row = _row_view("lsa_attention", ctx_row)
     err = _lib().lsa_attention_launch(
         _ptr(h_att), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
         _ptr(bundle.wq), _ptr(bundle.lc), _ptr(bundle.v), _ptr(ctx),
-        _ptr(cum_new), b, t, h_att.shape[1], bundle.wq.shape[1], mem_dim,
-        bundle.lc.shape[0], _stream())
+        _ptr(cum_new), _ptr(ctx_row), ld_row, b, t, h_att.shape[1],
+        bundle.wq.shape[1], mem_dim, bundle.lc.shape[0], _stream())
     _launched("lsa_attention", err)
     return ctx, cum_new
 
 
-def head(h_gen, ctx, bundle):
-    """Kernel ``head`` (see ``head_plain``)."""
+def head_row(h_gen: torch.Tensor, ctx: torch.Tensor,
+             bundle: DecoderBundle) -> torch.Tensor:
+    """The head row ``[bf16(h_gen) | bf16(ctx) | 0]`` [B, K_pad] that the
+    ``head`` kernel reads, assembled by PyTorch; in a chunk the generator's
+    ``gate_lstm`` and ``lsa_attention`` write it instead (``h_row``,
+    ``ctx_row``)."""
+    row = torch.zeros(h_gen.shape[0], bundle.head_w.shape[1],
+                      dtype=bundle.head_w.dtype, device=h_gen.device)
+    hidden = h_gen.shape[1]
+    row[:, :hidden] = h_gen
+    row[:, hidden:hidden + ctx.shape[1]] = ctx
+    return row
+
+
+def head(h_gen, ctx, bundle, row=None, scratch=None, out=None):
+    """Kernel ``head`` (see ``head_plain``): the split-K product over the
+    head ``row`` (``head_row``'s layout; assembled from ``h_gen`` and
+    ``ctx`` if None, which the kernel then does not read) and its ordered
+    reduction, split for ``_HEAD_BLOCKS_PER_SM``.  ``scratch`` holds the
+    split's partials (``_splitk.split``: one of its own if None); ``out``
+    are the (frame, stop) to write, new ones if None."""
     if not _is_cuda(h_gen):
         return head_plain(h_gen, ctx, bundle)
     _require_bf16(bundle)
-    h_gen, ctx = h_gen.float().contiguous(), ctx.float().contiguous()
     b = h_gen.shape[0]
-    n_out = bundle.head_w.shape[1]
-    frame = torch.empty(b, n_out - 1, device=h_gen.device)
-    stop = torch.empty(b, device=h_gen.device)
-    _check("head", h_gen, ctx, bundle.head_w, bundle.head_b)
+    (n_out, k), m_dim = bundle.head_w.shape, bundle.head_w.shape[0] - 1
+    if row is None:
+        row = head_row(h_gen, ctx, bundle)
+    _row_view("head", row)
+    if row.shape != (b, k):
+        raise ValueError(f"head: the head row must be [{b}, {k}], got "
+                         f"{list(row.shape)}")
+    frame, stop = _outputs(out, ((b, m_dim), h_gen), ((b,), h_gen))
+    _check("head", bundle.head_w, bundle.head_b)
+    slices, kslice, part = _splitk.split(_lib(), b, n_out, k, scratch,
+                                         h_gen.device, _HEAD_BLOCKS_PER_SM)
     err = _lib().head_launch(
-        _ptr(h_gen), _ptr(ctx), _ptr(bundle.head_w), _ptr(bundle.head_b),
-        _ptr(frame), _ptr(stop), b, h_gen.shape[1], ctx.shape[1], n_out,
-        _stream())
+        _ptr(row), row.stride(0), _ptr(bundle.head_w), k,
+        _ptr(bundle.head_b), b, n_out, _ptr(frame), _ptr(stop), slices,
+        kslice, _ptr(part), _stream())
     _launched("head", err)
     return frame, stop
 
@@ -522,7 +594,69 @@ def _run_chunk(ops, bundle, carry, memory, memory_transform, mask, seeds,
     return new_carry, (torch.stack(frames, 1), torch.stack(stops, 1))
 
 
-_KERNELS = (prenet, gate_lstm, lsa_attention, head)
+class _ChunkKernels:
+    """The four kernel functions of one chunk on the card, with the
+    signatures of the plain ones, and every buffer they write allocated once
+    for the chunk: the row pass's scratch, the head's split-K scratch, the
+    head row (written by the generator LSTM and ``lsa_attention``, read by
+    ``head``; its pad columns stay zero), the prenet output, two of each
+    carry, which the steps write in turns (a step reads the one the step
+    before wrote), and one frame and stop logit per step."""
+
+    def __init__(self, bundle: DecoderBundle, carry, memory: torch.Tensor,
+                 steps: int):
+        h = carry["h_att"]
+        b, hidden = h.shape
+        dev = h.device
+
+        def pair(*shape):
+            return [torch.empty(*shape, device=dev) for _ in range(2)]
+
+        self.gate_scratch = gate_row_scratch(
+            b, (bundle.att_w, bundle.gen_w), dev)
+        self.head_scratch = _splitk.splitk_scratch(
+            _lib(), [(b, *bundle.head_w.shape)], h, _HEAD_BLOCKS_PER_SM)
+        self.row = torch.zeros(b, bundle.head_w.shape[1],
+                               dtype=bundle.head_w.dtype, device=dev)
+        self.h_row = self.row[:, :hidden]
+        self.ctx_row = self.row[:, hidden:hidden + memory.shape[2]]
+        self.x = torch.empty(b, bundle.pre_dims[1], device=dev)
+        self.carries = {"att": (pair(b, hidden), pair(b, hidden)),
+                        "gen": (pair(b, hidden), pair(b, hidden)),
+                        "ctx": (pair(b, memory.shape[2]),
+                                pair(b, memory.shape[1]))}
+        self.frames = torch.empty(steps, b, bundle.head_w.shape[0] - 1,
+                                  device=dev)
+        self.stops = torch.empty(steps, b, device=dev)
+        self.calls = {"att": 0, "gen": 0, "ctx": 0, "head": 0}
+
+    def _next(self, which: str):
+        first, second = self.carries[which]
+        i = self.calls[which] % 2
+        self.calls[which] += 1
+        return first[i], second[i]
+
+    def pre(self, frame, bundle, dropout_rate, seeds, step):
+        return prenet(frame, bundle, dropout_rate, seeds, step, out=self.x)
+
+    def gate(self, segments, h, c, bundle, which, zoneout_h, zoneout_c):
+        return gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
+                         scratch=self.gate_scratch,
+                         h_row=self.h_row if which == "gen" else None,
+                         out=self._next(which))
+
+    def attend(self, h_att, cum, memory, mtb, mask_add, bundle):
+        return lsa_attention(h_att, cum, memory, mtb, mask_add, bundle,
+                             ctx_row=self.ctx_row, out=self._next("ctx"))
+
+    def proj(self, h_gen, ctx, bundle):
+        s = self.calls["head"]
+        self.calls["head"] += 1
+        return head(h_gen, ctx, bundle, row=self.row,
+                    scratch=self.head_scratch,
+                    out=(self.frames[s], self.stops[s]))
+
+
 _PLAIN = (prenet_plain, gate_lstm_plain, lsa_attention_plain, head_plain)
 
 
@@ -535,14 +669,10 @@ def decode_chunk(bundle: DecoderBundle, carry, memory, memory_transform,
     ``fused_decode_chunk``.  The carry keeps the JAX keys, so chunks chain
     across implementations.  CUDA tensors run the kernels; CPU tensors the
     plain version."""
-    h = carry["h_att"]
-    kernels = _KERNELS
-    if _is_cuda(h):
-        # one row-pass scratch for every gate_lstm call of the chunk
-        scratch = gate_row_scratch(h.shape[0], (bundle.att_w, bundle.gen_w),
-                                   h.device)
-        kernels = (prenet, functools.partial(gate_lstm, scratch=scratch),
-                   lsa_attention, head)
+    kernels = _PLAIN
+    if _is_cuda(carry["h_att"]):
+        k = _ChunkKernels(bundle, carry, memory, int(chunk_frames))
+        kernels = (k.pre, k.gate, k.attend, k.proj)
     return _run_chunk(kernels, bundle, carry, memory, memory_transform,
                       mask, seeds, chunk_frames, dropout_rate, zoneout_h,
                       zoneout_c)

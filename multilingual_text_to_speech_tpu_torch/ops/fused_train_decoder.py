@@ -17,14 +17,15 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   (location conv, energy, softmax, cumulative weights, context) and
   ``train_head``; the query and head products split K over the grid like
   ``bwd_gemm`` below;
-- backward (K3): ``bwd_head``, ``bwd_cell`` (the LSTM backward over the
-  stored i|f|g|o activations, masks regenerated from the hash), ``bwd_gemm``
-  (``dgates @ W^T`` and ``dq @ Wq^T`` with the carry additions in its
-  epilogue, K split over the grid and the partials summed by a second
-  launch), ``train_query`` (the energy's query, recomputed), ``att_bwd``
-  (softmax, energy and location-conv backward, with the dmt, dlc and dv
-  accumulators per batch row) and ``bwd_prenet``; after the last step one
-  ``bwd_gemm`` reduces dWq over all steps and rows.
+- backward (K3): ``bwd_head`` (the head backward, one tensor-core launch
+  over column tiles of ``[h_gen | ctx]``), ``bwd_cell`` (the LSTM backward
+  over the stored i|f|g|o activations, masks regenerated from the hash),
+  ``bwd_gemm`` (``dgates @ W^T`` and ``dq @ Wq^T`` with the carry
+  additions in its epilogue, K split over the grid and the partials summed
+  by a second launch), ``train_query`` (the energy's query, recomputed),
+  ``att_bwd`` (softmax, energy and location-conv backward, with the dmt,
+  dlc and dv accumulators per batch row) and ``bwd_prenet``; after the last
+  step one ``bwd_gemm`` reduces dWq over all steps and rows.
 
 The concat rows the gate products read are residual streams themselves:
 ``att_in[s] = [x_s | ctx_{s-1} | h_att_{s-1}]``, ``gen_in[s] = [h_att_s |
@@ -60,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from multilingual_text_to_speech_tpu_torch.models.attention import NEG_INF
+from multilingual_text_to_speech_tpu_torch.ops import _splitk
 from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     _M32,
     Seeds,
@@ -527,8 +529,6 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.splitk_tile.argtypes = [_P]
-        lib.splitk_tile.restype = None
         _LIB = lib
     return _LIB
 
@@ -617,7 +617,8 @@ def train_query(h, wq, q_out, scratch=None):
     _require(wq, torch.bfloat16, "train_query wq")
     b, hidden = h.shape
     a = wq.shape[1]
-    slices, kslice, part = _split(b, a, hidden, scratch, q_out.device)
+    slices, kslice, part = _splitk.split(_lib(), b, a, hidden, scratch,
+                                         q_out.device)
     _launch("train_query", "query_launch", _ptr(h), _ld(h), _ptr(wq), b,
             hidden, a, _ptr(q_out), slices, kslice, _ptr(part))
 
@@ -656,7 +657,8 @@ def train_head(row, head_w, head_b, spec_out, stop_out, frame,
     _require(row, torch.bfloat16, "train_head row")
     _require(head_w, torch.bfloat16, "train_head weight")
     (n, k), b = head_w.shape, row.shape[0]
-    slices, kslice, part = _split(b, n, k, scratch, frame.device)
+    slices, kslice, part = _splitk.split(_lib(), b, n, k, scratch,
+                                         frame.device)
     _launch("train_head", "head_launch", _ptr(row), _ld(row), _ptr(head_w),
             k, _ptr(head_b), b, n, _ptr(spec_out), _ptr(frame),
             _ptr(stop_out), slices, kslice, _ptr(part))
@@ -690,84 +692,14 @@ def bwd_cell(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
             *reg)
 
 
-# splitk_kernel's split of K (csrc/fused_train_decoder.cu): at most this
-# many slices, each at least two K tiles long
-_SK_MAX_SLICES = 32
-_SK_GEOMETRY: Dict[int, Tuple[Tuple[int, int, int], int]] = {}
-
-
-def splitk_slices(m: int, n: int, k: int, tile: Tuple[int, int, int],
-                  blocks: int) -> Tuple[int, int]:
-    """``(S, kslice)``: a product on ``splitk_kernel``'s ``tile`` (BM, BN,
-    BK) splits K into S slices of ``kslice`` (a multiple of BK, the last
-    slice possibly shorter), so that the ``M x N`` tiles times S come to
-    about ``blocks``, each slice at least 2 BK long and S at most
-    ``_SK_MAX_SLICES``.  S = 1 leaves K whole."""
-    bm, bn, bk = tile
-    tiles = _cdiv(m, bm) * _cdiv(n, bn)
-    s = max(1, min(blocks // tiles, k // (2 * bk), _SK_MAX_SLICES))
-    kslice = _cdiv(_cdiv(k, s), bk) * bk
-    return _cdiv(k, kslice), kslice
-
-
-def splitk_scratch_floats(products, tile, blocks) -> int:
-    """Floats of the one scratch that holds the split-K partials [S, M, N]
-    of whichever of ``products`` (``(m, n, k)`` each) runs."""
-    need = 0
-    for m, n, k in products:
-        s, _ = splitk_slices(m, n, k, tile, blocks)
-        if s > 1:
-            need = max(need, s * m * n)
-    return need
-
-
-def _splitk_geometry(device) -> Tuple[Tuple[int, int, int], int]:
-    """``splitk_kernel``'s tile as the library reports it, and the blocks
-    a split aims at: two per SM of ``device``."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SK_GEOMETRY:
-        tile = (ctypes.c_int * 3)()
-        _lib().splitk_tile(tile)
-        sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        _SK_GEOMETRY[idx] = (tuple(tile), 2 * sms)
-    return _SK_GEOMETRY[idx]
-
-
-def splitk_scratch(products, like: torch.Tensor) -> Optional[torch.Tensor]:
-    """One float32 scratch on ``like``'s device for the split-K launches of
-    a decoder pass, each ``(m, n, k)`` of ``products`` in turn (they run
-    one after another on the stream); None when none splits, or on the CPU,
-    where the plain versions run."""
-    if not _is_cuda(like):
-        return None
-    need = splitk_scratch_floats(products, *_splitk_geometry(like.device))
-    return torch.empty(need, device=like.device) if need else None
-
-
-def _split(m: int, n: int, k: int, scratch: Optional[torch.Tensor], device):
-    """``(S, kslice, scratch)`` of one split-K launch.  A split product
-    without a ``scratch`` from its caller gets one of its own."""
-    slices, kslice = splitk_slices(m, n, k, *_splitk_geometry(device))
-    if slices == 1:
-        return slices, kslice, None
-    need = slices * m * n
-    if scratch is None:
-        scratch = torch.empty(need, device=device)
-    elif scratch.dtype != torch.float32 or scratch.numel() < need:
-        raise ValueError(f"split-K scratch: {need} float32 needed, got "
-                         f"{scratch.numel()} {scratch.dtype}")
-    return slices, kslice, scratch
-
-
 def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None):
     """Kernel ``bwd_gemm``: ``acc = a @ b`` (``a`` [M, K], or [K, M] when
     ``a_km``; ``b`` [K, N] when ``b_kn``, else [N, K]), and for each
     ``(lo, hi, out, add)`` of ``segments``: ``out = add + acc[:, lo:hi]``
     (``add`` may be None or ``out`` itself).  K is split as
-    ``splitk_slices`` says; the partials go to the float32 ``scratch`` (at
-    least [S, M, N]; one of its own if None) and a second launch sums them
-    in slice order."""
+    ``_splitk.splitk_slices`` says; the partials go to the float32
+    ``scratch`` (at least [S, M, N]; one of its own if None) and a second
+    launch sums them in slice order."""
     if not _is_cuda(a):
         return _bwd_gemm_plain_into(a, b, b_kn, segments, a_km)
     _require(a, torch.bfloat16, "bwd_gemm a")
@@ -778,7 +710,7 @@ def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None):
     args = []
     for lo, hi, out, add in segs:
         args += [lo, hi, _ptr(out), _ld(out), _ptr(add), _ld(add)]
-    slices, kslice, part = _split(m, n, k, scratch, a.device)
+    slices, kslice, part = _splitk.split(_lib(), m, n, k, scratch, a.device)
     _launch("bwd_gemm", "bwd_gemm_launch", _ptr(a), _ld(a), int(a_km),
             _ptr(b), _ld(b), int(b_kn), m, n, k, slices, kslice,
             _ptr(part), *args)
@@ -854,6 +786,14 @@ def _zeros(*shape, like, dtype=torch.float32):
     return torch.zeros(*shape, dtype=dtype, device=like.device)
 
 
+def _pass_scratch(plain: bool, products, like: torch.Tensor):
+    """The one split-K scratch of a decoder pass (``_splitk.splitk_scratch``)
+    for the kernels; None for the plain versions and on the CPU."""
+    if plain or not _is_cuda(like):
+        return None
+    return _splitk.splitk_scratch(_lib(), products, like)
+
+
 def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
                          shifted, teacher: Sequence[int], seeds: Seeds,
                          plain: bool = False):
@@ -889,8 +829,8 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
              "cum": z(b, t_len, dtype=f32)}
     q = z(b, cfg.att_dim, dtype=f32)
     f = PLAIN if plain else KERNELS
-    scratch = None if plain else splitk_scratch(
-        [(b, cfg.att_dim, h), (b, m + 1, _pad64(cfg.kh))], memory)
+    scratch = _pass_scratch(
+        plain, [(b, cfg.att_dim, h), (b, m + 1, _pad64(cfg.kh))], memory)
     att_in, gen_in, head_in = st["att_in"], st["gen_in"], st["head_in"]
     for s in range(n_f):
         nxt_a = att_in[s + 1] if s + 1 < n_f else None
@@ -952,9 +892,9 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
     dh_gen_tot, dh_att_tot, dh_reg = z(b, h), z(b, h), z(b, h)
     dctx_tot, dx, q = z(b, mem), z(b, p), z(b, a)
     f = PLAIN if plain else KERNELS
-    scratch = None if plain else splitk_scratch(
-        [(b, _pad64(cfg.kg), 4 * h), (b, a, h), (b, h, a),
-         (b, _pad64(cfg.ka), 4 * h), (h, a, n_f * b)], memory)
+    scratch = _pass_scratch(
+        plain, [(b, _pad64(cfg.kg), 4 * h), (b, a, h), (b, h, a),
+                (b, _pad64(cfg.ka), 4 * h), (h, a, n_f * b)], memory)
     for s in range(n_f - 1, -1, -1):
         f.bwd_head(dspec[s], dstop[s], carry["frame"], ops["head_w"],
                  g["da_frame"][s], carry["h_gen"], carry["ctx"], dh_gen_tot,

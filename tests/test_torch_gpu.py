@@ -4,8 +4,9 @@ Marked ``gpu``: run with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` on a machine with an NVIDIA Hopper GPU and nvcc
 (``--noconftest`` because ``tests/conftest.py`` imports jax); elsewhere
 every test skips.
-Small widths, bfloat16 compute, W8A8 and bfloat16 gates; the gate product
-and the backward's split-K product also at the flagship's widths.
+Small widths, bfloat16 compute, W8A8 and bfloat16 gates; the tensor-core
+products (both decoders' gate products, the split-K query, heads and
+backward products, the head backward) also at the flagship's widths.
 """
 
 from types import SimpleNamespace
@@ -13,7 +14,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from chip_smoke import mask_patterns
+from chip_smoke import ATOL, TRAIN_KERNEL_TOL, mask_patterns
 from multilingual_text_to_speech_tpu_torch.config import flagship_hparams
 from multilingual_text_to_speech_tpu_torch.models.tacotron import (
     Tacotron,
@@ -328,12 +329,12 @@ def test_train_kernels_take_long_texts_and_large_batches(b, t):
 
 # the concat row [x | context | h] of each LSTM at the flagship's widths
 _SEGMENTS = {"att": (256, 292, 1024), "gen": (1024, 292, 1024)}
-_HIDDEN = 1024
+_HIDDEN, _MEM, _ATT, _TAPS, _MELS = 1024, 292, 128, 31, 80
 
 
-def _gate_bundle(int8, k, seed):
+def _gate_bundle(int8, k, seed, which="att"):
     """One LSTM's random gate operands ([4H, K], column scales, bias) in the
-    layouts ``extract_decoder_bundle`` makes, as the "att" LSTM of a
+    layouts ``extract_decoder_bundle`` makes, as the ``which`` LSTM of a
     bundle."""
     gen = torch.Generator().manual_seed(seed)
     w = torch.randn(4 * _HIDDEN, k, generator=gen) / k ** 0.5
@@ -343,8 +344,9 @@ def _gate_bundle(int8, k, seed):
         ws = ws.cuda()
     w = fd._pad_k(w if int8 else w.to(torch.bfloat16)).cuda()
     b = 0.1 * torch.randn(4 * _HIDDEN, generator=gen)
-    return SimpleNamespace(dtype=torch.bfloat16, quantized=int8, att_w=w,
-                           att_ws=ws, att_b=b.cuda())
+    return SimpleNamespace(**{"dtype": torch.bfloat16, "quantized": int8,
+                              f"{which}_w": w, f"{which}_ws": ws,
+                              f"{which}_b": b.cuda()})
 
 
 @pytest.mark.parametrize("which", ["att", "gen"])
@@ -374,6 +376,103 @@ def test_gate_lstm_matches_plain_at_flagship_widths(int8, b, which):
     assert torch.equal(q_k, q_p)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+
+
+def _head_weights(gen):
+    """The fused frame and stop head [M + 1, K_pad] (bf16, zero columns past
+    K = H + Mem) and its float32 bias, at the flagship's widths."""
+    k = _HIDDEN + _MEM
+    w = torch.zeros(_MELS + 1, 1344, device="cuda")
+    w[:, :k] = torch.randn(_MELS + 1, k, device="cuda", generator=gen) \
+        / k ** 0.5
+    return (w.bfloat16(),
+            0.1 * torch.randn(_MELS + 1, device="cuda", generator=gen))
+
+
+@pytest.mark.parametrize("b", [1, 17, 240])
+@pytest.mark.parametrize("int8", [True, False])
+def test_head_matches_plain_through_the_head_row(int8, b):
+    """The serving head as a chunk runs it, at the flagship's widths: the
+    generator's ``gate_lstm`` (W8A8 or bf16) and ``lsa_attention`` write
+    bf16(h) and bf16(context) into the head row, bit for bit, its pad
+    columns stay zero, and the split-K head over that row gives the frame
+    and stop within ATOL of ``head_plain`` over the same h and context; a
+    second head run is bit-identical to the first."""
+    bundle = _gate_bundle(int8, sum(_SEGMENTS["gen"]), seed=b, which="gen")
+    gen = torch.Generator(device="cuda").manual_seed(b + 2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    bundle.wq = rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5).bfloat16()
+    bundle.lc = rnd(_TAPS, _ATT, scale=0.1).bfloat16()
+    bundle.v = rnd(_ATT, scale=_ATT ** -0.5)
+    bundle.head_w, bundle.head_b = _head_weights(gen)
+    t = 128
+    memory = rnd(b, t, _MEM).bfloat16()
+    mtb = rnd(b, t, _ATT, scale=0.5).bfloat16()
+    lengths = torch.randint(t // 2, t + 1, (b,), device="cuda", generator=gen)
+    mask = torch.arange(t, device="cuda")[None] < lengths[:, None]
+    mask_add = torch.where(mask, 0.0, -1e9)
+    cum = ramp_alignment(mask, seed=b)
+    segs = tuple(rnd(b, k) for k in _SEGMENTS["gen"])
+    h, c, h_att = rnd(b, _HIDDEN), rnd(b, _HIDDEN), rnd(b, _HIDDEN)
+
+    row = torch.zeros(b, 1344, dtype=torch.bfloat16, device="cuda")
+    fd.reset_launch_counts()
+    ctx, _ = fd.lsa_attention(h_att, cum, memory, mtb, mask_add, bundle,
+                              ctx_row=row[:, _HIDDEN:_HIDDEN + _MEM])
+    h_gen, _ = fd.gate_lstm(segs, h, c, bundle, "gen", 0.1, 0.1,
+                            h_row=row[:, :_HIDDEN])
+    assert torch.equal(row[:, :_HIDDEN], h_gen.bfloat16())
+    assert torch.equal(row[:, _HIDDEN:_HIDDEN + _MEM], ctx.bfloat16())
+    assert not row[:, _HIDDEN + _MEM:].any()
+    got = fd.head(h_gen, ctx, bundle, row=row)
+    again = fd.head(h_gen, ctx, bundle, row=row)
+    assert fd.LAUNCHES["head"] == 2
+    ref = fd.head_plain(h_gen, ctx, bundle)
+    for g, a, r in zip(got, again, ref):
+        torch.testing.assert_close(g, r, atol=ATOL, rtol=0)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("b", [1, 50, 77])
+def test_bwd_head_matches_plain(b):
+    """The head backward's one tensor-core launch at the flagship's widths
+    (M = 80 mels, H + Mem = 1316; 77 rows take a second row tile): the bf16
+    da_frame stream bit-exact, dh_gen_tot and dctx_tot within chip_smoke's
+    bound of their largest value (float32 sums in another order), and a
+    second run bit-identical to the first."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(b + 3)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    cfg = SimpleNamespace(mmel=_MELS, hidden=_HIDDEN, mem_dim=_MEM)
+    head_w, _ = _head_weights(gen)
+    dspec, dframe, dstop = rnd(b, _MELS), rnd(b, _MELS), rnd(b)
+    dh_gen, dctx = rnd(b, _HIDDEN, scale=0.1), rnd(b, _MEM)
+
+    def run(fn):
+        out = [torch.empty(b, _MELS, dtype=torch.bfloat16, device="cuda"),
+               torch.empty(b, _HIDDEN, device="cuda"),
+               torch.empty(b, _MEM, device="cuda")]
+        fn(dspec, dstop, dframe, head_w, out[0], dh_gen, dctx, out[1],
+           out[2], cfg)
+        return out
+
+    got, again, ref = run(ftd.bwd_head), run(ftd.bwd_head), run(
+        ftd.PLAIN.bwd_head)
+    assert torch.equal(got[0], ref[0])
+    bound = TRAIN_KERNEL_TOL["bwd_head"]["f32"]
+    for g, r in zip(got[1:], ref[1:]):
+        assert float((g - r).abs().max()) <= bound * float(r.abs().max())
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 def _bwd_gemm_operands(m, n, k, b_kn, seed):
@@ -491,15 +590,17 @@ def test_train_gate_lstm_matches_plain_at_flagship_widths(b):
         assert torch.equal(kept_k, kept_p) and bool(kept_p.any()), which
 
 
-@pytest.mark.parametrize("b", [1, 50])
+@pytest.mark.parametrize("b", [1, 50, 240])
 def test_train_query_and_head_split_k_match_plain(b):
-    """The attention query (K = H = 1024, 16 slices at B=50) and the head
-    (K = 1344, 21 slices) through ``splitk_kernel`` and its ordered
-    reduction, at the flagship's widths: q within one bf16 ulp, the frame,
-    stop and frame carry within 4e-6 of their largest value (chip_smoke's
-    bounds); a pass-wide scratch and a call's own give bit-identical
+    """The attention query (K = H = 1024, 16 slices at B=50) and the
+    training and serving heads (K = 1344: 21 slices, and 14 for the serving
+    head at B=240) through ``splitk_kernel`` and its ordered reduction, at
+    the flagship's widths: q within one bf16 ulp, the frame, stop and frame
+    carry within 4e-6 of their largest value (chip_smoke's bound for the
+    training head); a pass-wide scratch and a call's own give bit-identical
     results, and a scratch too small for the split raises."""
     from multilingual_text_to_speech_tpu_torch.ops import (
+        _splitk,
         fused_train_decoder as ftd,
     )
 
@@ -513,7 +614,10 @@ def test_train_query_and_head_split_k_match_plain(b):
     row = rnd(b, 1344).bfloat16()
     head_w = rnd(81, 1344, scale=1344 ** -0.5).bfloat16()
     head_b = rnd(81, scale=0.1)
-    scratch = ftd.splitk_scratch([(b, 128, _HIDDEN), (b, 81, 1344)], h)
+    scratch = _splitk.splitk_scratch(
+        ftd._lib(), [(b, 128, _HIDDEN), (b, 81, 1344)], h)
+    serving = SimpleNamespace(dtype=torch.bfloat16, head_w=head_w,
+                              head_b=head_b)
 
     def query(fn, **kw):
         out = torch.empty(b, 128, device="cuda")
@@ -527,12 +631,24 @@ def test_train_query_and_head_split_k_match_plain(b):
         fn(row, head_w, head_b, *out, **kw)
         return out
 
+    # the serving head row: [h_gen | ctx], zero past K = H + Mem
+    srow = row.clone()
+    srow[:, _HIDDEN + _MEM:] = 0
+
+    def serving_head(fn, **kw):
+        h_gen, ctx = srow[:, :_HIDDEN], srow[:, _HIDDEN:_HIDDEN + _MEM]
+        if fn is fd.head:
+            kw["row"] = srow
+        return list(fn(h_gen, ctx, serving, **kw))
+
     for run, kernel, plain, bound in (
             (query, ftd.train_query, ftd.PLAIN.train_query, 1e-2),
-            (head, ftd.train_head, ftd.PLAIN.train_head, 4e-6)):
+            (head, ftd.train_head, ftd.PLAIN.train_head, 4e-6),
+            (serving_head, fd.head, fd.head_plain, 4e-6)):
         got = run(kernel, scratch=scratch)
         own = run(kernel)
         ref = run(plain)
+        assert len(got) == len(ref)
         for g, o, r in zip(got, own, ref):
             assert float((g - r).abs().max()) <= bound * float(r.abs().max())
             assert torch.equal(g, o)
