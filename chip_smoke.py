@@ -11,8 +11,9 @@ Phases, each of which fails the run on a failed check:
    widths (B=240, T=128), for W8A8 and for bfloat16 gates: dropout masks and
    int8 activations bit-exact, the rest within a stated tolerance; the head
    row that the generator's ``gate_lstm`` and ``lsa_attention`` write
-   bit-exact, and the head over it twice, bit-identical; then one 16-step
-   chunk through the kernels against the plain chunk;
+   bit-exact, and two runs of ``lsa_attention`` and of the head over that
+   row bit-identical; then one 16-step chunk through the kernels against
+   the plain chunk;
 3. the main path: ``Synthesizer.synthesize_batch_lines`` on 240 lines (48
    per language, random 127-letter texts, random speakers), decode chunk
    256 and 512 frames, with the launch counts reset just before and read
@@ -32,8 +33,8 @@ Phases, each of which fails the run on a failed check:
    that repeat from run to run: dropout and zoneout choices bit-exact,
    every kernel on identical inputs (``bwd_prenet``'s frame cotangent
    against the plain product of its own bf16 first-layer gradient), two
-   ``bwd_gemm`` runs (its split-K reduction) and two ``bwd_head`` runs
-   bit-identical, then 16
+   runs each of ``bwd_gemm`` (its split-K reduction), ``bwd_head`` and
+   ``att_bwd`` (its cluster's partial sums) bit-identical, then 16
    chained steps forward and backward (every output, residual and gradient
    stream, accumulator and the final cotangent carry); then the same 16
    steps through ``TrainDecode`` (K2 forward, K3 backward) against
@@ -363,8 +364,15 @@ def phase_kernels(hp, sd):
         ctx_k, cum_k = fd.lsa_attention(
             h_att, carry["att_state"]["weights"], memory, mtb, mask_add,
             bundle, ctx_row=row[:, hidden:hidden + memory.shape[2]])
+        ctx_again, cum_again = fd.lsa_attention(
+            h_att, carry["att_state"]["weights"], memory, mtb, mask_add,
+            bundle)
         ctx, cum = fd.lsa_attention_plain(h_att, carry["att_state"]["weights"],
                                           memory, mtb, mask_add, bundle)
+        torch.cuda.synchronize()
+        if not (torch.equal(ctx_k, ctx_again) and torch.equal(cum_k,
+                                                              cum_again)):
+            fail(f"lsa_attention[{tag}]: two runs on the same inputs differ")
         e_att = close_weights(f"lsa_attention[{tag}]", cum_k, cum,
                               carry["att_state"]["weights"])
         e_att = max(e_att, close(f"lsa_attention ctx[{tag}]", ctx_k, ctx,
@@ -401,7 +409,8 @@ def phase_kernels(hp, sd):
                      close(f"head stop[{tag}]", s_k, s_p))
         print(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
               f"{' and int8 activations' if int8 else ''} and the head row "
-              f"bit-exact, two head runs bit-identical; max abs "
+              f"bit-exact, two runs of lsa_attention and of the head "
+              f"bit-identical; max abs "
               f"err prenet {e_pre:.3g}, gate_lstm {e_gate:.3g}, "
               f"lsa_attention {e_att:.3g}, head {e_head:.3g} (atol "
               f"{ATOL}; context {CTX_TOL}; weights {W_TOL} of the row max)")
@@ -999,9 +1008,10 @@ def phase_train_kernels(hp, sd):
               f"largest output: " + ", ".join(
                   f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
                   for k in sorted(worst)))
-    # split-K sums its partials in a fixed order, and bwd_head sums each
-    # output in one thread: a second run repeats the first bit for bit
-    for name in ("bwd_gemm", "bwd_head"):
+    # split-K sums its partials in a fixed order, bwd_head sums each output
+    # in one thread, and att_bwd sums its cluster's partials in rank order:
+    # a second run repeats the first bit for bit
+    for name in ("bwd_gemm", "bwd_head", "att_bwd"):
         first, again = (calls[name](ftd.KERNELS) for _ in range(2))
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, again)):

@@ -29,8 +29,13 @@
 // into 14 slices of 96 (112 blocks, one per SM; each weight tile read four
 // times, once per row tile) and a second launch sums the partials in slice
 // order.
-// prenet and lsa_attention are first designs, one block per few batch rows
-// or per row.
+// lsa_attention (2 * B * T * A * 32 operations of its location conv, the
+// rest a few per element of the 32 KB of mtb and 73 KB of memory a row
+// reads: bound by those bytes, 7.7 us at B=240, T=128) runs one CTA per
+// row in clusters of 8 rows that share the query product, the location
+// conv on the tensor cores as a band product (csrc/tile.cuh, shared with
+// the training backward's att_bwd) and the context over 16-byte loads.
+// prenet is a first design, one block per few batch rows.
 //
 // Interface: plain extern "C" launchers taking device pointers and a
 // cudaStream_t as void*, each returning cudaGetLastError().  Build:
@@ -241,15 +246,58 @@ struct EvalLstm {
 };
 
 // ---------------------------------------------------------------------------
-// lsa_attention: one block per batch row.
-//   q = bf16(h_att @ Wq); loc[t,a] = bf16(sum_k bf16(cum[t+k-half]) lc[k,a])
+// lsa_attention: one CTA per batch row, in clusters of LSA_ROWS CTAs that
+// share the query product.
+//   q = bf16(h_att @ Wq); loc = bf16(band(bf16(cum)) @ lc)
 //   z = bf16(bf16(loc + q) + mtb); e[t] = sum_a v[a] bf16(tanh(z)) + mask
 //   w = softmax(e); cum' = cum + w; ctx[m] = sum_t bf16(mem[t,m] bf16(w[t]))
-// and bf16(ctx) into the head row, when one is given
+// and bf16(ctx) into the head row, when one is given.
+// 1. Query: CTA `rank` of a cluster multiplies the cluster's LSA_ROWS rows
+//    of bf16(h_att) by its slice of kq rows of Wq on the tensor cores (rows
+//    8..15 of the m16 tile are zero); after a cluster barrier each CTA sums
+//    its row's LSA_ROWS partials from its peers' shared memory in rank
+//    order.  Wq is read once a cluster, not once a row.
+// 2. Energy: the location conv is csrc/tile.cuh's band product, one warp
+//    per 16 positions; the epilogue rounds, adds q and mtb (read as bf16
+//    pairs in the accumulator layout), takes tanh and the v reduction.
+// 3. Masked softmax and cum over the block.
+// 4. Context: the row's memory [T, Mem] is read as 16-byte chunks of
+//    `period` rows at a time (period * Mem a multiple of 8 elements, so
+//    every chunk is aligned when T * Mem is), each thread one fixed chunk
+//    column, `groups` threads down the periods; the groups' partial sums
+//    are added in a fixed order.
 // ---------------------------------------------------------------------------
-constexpr int ATT_THREADS = 256;
+constexpr int LSA_THREADS = 256, LSA_WARPS = LSA_THREADS / 32;
+constexpr int LSA_ROWS = 8;   // CTAs (batch rows) a cluster
 
-__global__ void __launch_bounds__(ATT_THREADS)
+// shared-memory layout of lsa_attention_kernel (byte offsets)
+struct LsaLayout {
+  int kq, ldh, ld, tpad, period, chunks, groups;
+  size_t wq, h, qp, q, v, lc, cum, e, red, cpart, total;
+  __host__ __device__ LsaLayout(int T, int H, int A, int M) {
+    kq = ((H + LSA_ROWS - 1) / LSA_ROWS + 31) / 32 * 32;
+    ldh = kq + 8;
+    ld = A + 8;   // rows of Wq and of lc
+    tpad = (T + 15) / 16 * 16;
+    const int g8 = M % 8 == 0 ? 8 : M % 4 == 0 ? 4 : M % 2 == 0 ? 2 : 1;
+    period = 8 / g8;
+    chunks = period * M / 8;
+    groups = LSA_THREADS / chunks > 0 ? LSA_THREADS / chunks : 1;
+    wq = 0;
+    h = wq + align16((size_t)kq * ld * 2);
+    qp = h + align16((size_t)LSA_ROWS * ldh * 2);
+    q = qp + align16((size_t)LSA_ROWS * A * 4);
+    v = q + align16((size_t)A * 4);
+    lc = v + align16((size_t)A * 4);
+    cum = lc + align16((size_t)BAND_K * ld * 2);
+    e = cum + align16((size_t)(tpad + BAND_K) * 2);
+    red = e + align16((size_t)tpad * 4);
+    cpart = red + 32 * 4;
+    total = cpart + align16((size_t)groups * period * M * 4);
+  }
+};
+
+__global__ void __launch_bounds__(LSA_THREADS)
 lsa_attention_kernel(const float* __restrict__ h_att,
                      const float* __restrict__ cum,
                      const __nv_bfloat16* __restrict__ memory,
@@ -259,91 +307,190 @@ lsa_attention_kernel(const float* __restrict__ h_att,
                      const __nv_bfloat16* __restrict__ lc,
                      const float* __restrict__ v, float* __restrict__ ctx_out,
                      float* __restrict__ cum_out,
-                     __nv_bfloat16* __restrict__ ctx_row, int ld_row, int T,
-                     int H, int A, int M, int K) {
-  extern __shared__ float sm[];
-  const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
-  float* s_h = sm;                         // H
-  float* s_part = s_h + H;                 // parts * A
-  float* s_q = s_part + parts * A;         // A
-  float* s_cum = s_q + A;                  // T + K - 1, zero padded
-  float* s_lc = s_cum + T + K - 1;         // K * A
-  float* s_v = s_lc + K * A;               // A
-  float* s_e = s_v + A;                    // T
-  float* s_red = s_e + T;                  // 32
-  const int b = blockIdx.x, tid = threadIdx.x;
+                     __nv_bfloat16* __restrict__ ctx_row, int ld_row, int B,
+                     int T, int H, int A, int M, int K, int vec) {
+  extern __shared__ __align__(16) uint8_t lsa_smem[];
+  const LsaLayout L(T, H, A, M);
+  bf16* s_wq = reinterpret_cast<bf16*>(lsa_smem + L.wq);     // [kq][ld]
+  bf16* s_h = reinterpret_cast<bf16*>(lsa_smem + L.h);       // [ROWS][ldh]
+  float* s_qp = reinterpret_cast<float*>(lsa_smem + L.qp);   // [ROWS][A]
+  float* s_q = reinterpret_cast<float*>(lsa_smem + L.q);     // [A]
+  float* s_v = reinterpret_cast<float*>(lsa_smem + L.v);     // [A]
+  bf16* s_lc = reinterpret_cast<bf16*>(lsa_smem + L.lc);     // [32][ld]
+  bf16* s_cum = reinterpret_cast<bf16*>(lsa_smem + L.cum);   // [tpad + 32]
+  float* s_e = reinterpret_cast<float*>(lsa_smem + L.e);     // [tpad]
+  float* s_red = reinterpret_cast<float*>(lsa_smem + L.red); // [32]
+  float* s_cpart = reinterpret_cast<float*>(lsa_smem + L.cpart);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int b = blockIdx.x, row0 = b - rank;
+  const bool live = b < B;
   const int half = (K - 1) / 2;
+  const __nv_bfloat16* mem_b = memory + (size_t)b * T * M;
+  const __nv_bfloat16* mtb_b = mtb + (size_t)b * T * A;
 
-  for (int k = tid; k < H; k += blockDim.x)
-    s_h[k] = round_bf16(h_att[(size_t)b * H + k]);
-  for (int i = tid; i < T + K - 1; i += blockDim.x) {
-    const int t = i - half;
-    s_cum[i] = (t >= 0 && t < T) ? round_bf16(cum[(size_t)b * T + t]) : 0.0f;
+  // this CTA's kq rows of Wq (zero past H) and the cluster's rows of
+  // bf16(h_att) over them (zero past B)
+  const int k_lo = rank * L.kq, a_chunks = A / 8;
+  for (int i = tid; i < L.kq * a_chunks; i += LSA_THREADS) {
+    const int r = i / a_chunks, c = (i - r * a_chunks) * 8, k = k_lo + r;
+    cp_async16(s_wq + r * L.ld + c, k < H ? wq + (size_t)k * A + c : wq,
+               k < H ? 16 : 0);
   }
-  for (int i = tid; i < K * A; i += blockDim.x) s_lc[i] = bf16_at(lc, i);
-  for (int a = tid; a < A; a += blockDim.x) s_v[a] = v[a];
+  cp_async_commit();
+  for (int i = tid; i < LSA_ROWS * L.kq; i += LSA_THREADS) {
+    const int r = i / L.kq, k = i - r * L.kq;
+    const int row = row0 + r, kk = k_lo + k;
+    s_h[r * L.ldh + k] = __float2bfloat16_rn(
+        row < B && kk < H ? h_att[(size_t)row * H + kk] : 0.0f);
+  }
+  if (live) {
+    band_stage_lc(s_lc, L.ld, lc, K, A);
+    band_stage_cum(s_cum, L.tpad + BAND_K, cum + (size_t)b * T, 0, half, T);
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // query product, split over `parts` slices of H, summed in a fixed order
-  for (int idx = tid; idx < parts * A; idx += blockDim.x) {
-    const int a = idx % A, part = idx / A;
-    float acc = 0.0f;
-    for (int k = part; k < H; k += parts)
-      acc = fmaf(s_h[k], bf16_at(wq, (size_t)k * A + a), acc);
-    s_part[idx] = acc;
-  }
-  __syncthreads();
-  for (int a = tid; a < A; a += blockDim.x) {
-    float acc = 0.0f;
-    for (int p = 0; p < parts; ++p) acc += s_part[p * A + a];
-    s_q[a] = round_bf16(acc);
-  }
-  __syncthreads();
-
-  // energies: one warp per text position
-  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-  for (int t = warp; t < T; t += n_warps) {
-    float part = 0.0f;
-    for (int a = lane; a < A; a += 32) {
-      float loc = 0.0f;
-      for (int k = 0; k < K; ++k) loc = fmaf(s_cum[t + k], s_lc[k * A + a], loc);
-      const float z = round_bf16(round_bf16(round_bf16(loc) + s_q[a]) +
-                                 bf16_at(mtb, ((size_t)b * T + t) * A + a));
-      part = fmaf(s_v[a], round_bf16(tanhf(z)), part);
+  // 1. the query's partial over this CTA's slice of H, rows g < 8
+  for (int n0 = warp * 8; n0 < A; n0 += LSA_WARPS * 8) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int kk = 0; kk < L.kq; kk += 32) {
+      uint32_t bq[4], a[4];
+      ldsm_x4_trans(bq, s_wq + (kk + lane) * L.ld + n0);
+      const bf16* hr = s_h + g * L.ldh + kk + 2 * qd;
+      a[1] = a[3] = 0u;
+      a[0] = *reinterpret_cast<const uint32_t*>(hr);
+      a[2] = *reinterpret_cast<const uint32_t*>(hr + 8);
+      mma_bf16(acc, a, bq);
+      a[0] = *reinterpret_cast<const uint32_t*>(hr + 16);
+      a[2] = *reinterpret_cast<const uint32_t*>(hr + 24);
+      mma_bf16(acc, a, bq + 2);
     }
-    part = warp_sum(part);
-    if (lane == 0) s_e[t] = part + mask_add[(size_t)b * T + t];
+    s_qp[g * A + n0 + 2 * qd] = acc[0];
+    s_qp[g * A + n0 + 2 * qd + 1] = acc[1];
   }
+  cluster_sync();
+  for (int a = tid; a < A; a += LSA_THREADS) {
+    float sum = 0.0f;
+    for (int j = 0; j < LSA_ROWS; ++j)
+      sum += cluster_peer(s_qp, j)[rank * A + a];
+    s_q[a] = round_bf16(sum);
+    s_v[a] = v[a];
+  }
+  // the peers' partials are read: they may exit once this CTA has too
+  cluster_arrive();
   __syncthreads();
 
-  // masked softmax, cum update
-  float m = -CUDART_INF_F;
-  for (int t = tid; t < T; t += blockDim.x) m = fmaxf(m, s_e[t]);
-  m = block_reduce<true>(m, s_red);
-  float s = 0.0f;
-  for (int t = tid; t < T; t += blockDim.x) {
-    const float p = expf(s_e[t] - m);
-    s_e[t] = p;
-    s += p;
-  }
-  __syncthreads();
-  s = block_reduce<false>(s, s_red);
-  for (int t = tid; t < T; t += blockDim.x) {
-    const float wt = s_e[t] / s;
-    cum_out[(size_t)b * T + t] = cum[(size_t)b * T + t] + wt;
-    s_e[t] = round_bf16(wt);
-  }
-  __syncthreads();
+  if (live) {
+    // 2. energies, one warp per 16 positions
+    for (int t0 = warp * 16; t0 < L.tpad; t0 += LSA_WARPS * 16) {
+      uint32_t af[2][4];
+      band_frags(af, s_cum + t0, lane);
+      const int ta = t0 + g, tb = ta + 8;
+      float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll 4
+      for (int n0 = 0; n0 < A; n0 += 8) {
+        const int a = n0 + 2 * qd;
+        const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
+        const __nv_bfloat162 m0 =
+            ta < T ? *reinterpret_cast<const __nv_bfloat162*>(
+                         mtb_b + (size_t)ta * A + a)
+                   : zero2;
+        const __nv_bfloat162 m1 =
+            tb < T ? *reinterpret_cast<const __nv_bfloat162*>(
+                         mtb_b + (size_t)tb * A + a)
+                   : zero2;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        band_loc(acc, af, s_lc, L.ld, n0, lane);
+        const float q0 = s_q[a], q1 = s_q[a + 1];
+        const float v0 = s_v[a], v1 = s_v[a + 1];
+        e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
+        e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
+        e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
+        e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
+      }
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+      if (qd == 0) {
+        if (ta < T) s_e[ta] = e0 + mask_add[(size_t)b * T + ta];
+        if (tb < T) s_e[tb] = e1 + mask_add[(size_t)b * T + tb];
+      }
+    }
+    __syncthreads();
 
-  // context
-  for (int mm = tid; mm < M; mm += blockDim.x) {
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t)
-      acc += round_bf16(bf16_at(memory, ((size_t)b * T + t) * M + mm) * s_e[t]);
-    ctx_out[(size_t)b * M + mm] = acc;
-    if (ctx_row != nullptr)
-      ctx_row[(size_t)b * ld_row + mm] = __float2bfloat16_rn(acc);
+    // 3. masked softmax, cum update; s_e <- bf16(w)
+    float mx = -CUDART_INF_F;
+    for (int t = tid; t < T; t += LSA_THREADS) mx = fmaxf(mx, s_e[t]);
+    mx = block_reduce<true>(mx, s_red);
+    float sum = 0.0f;
+    for (int t = tid; t < T; t += LSA_THREADS) {
+      const float p = expf(s_e[t] - mx);
+      s_e[t] = p;
+      sum += p;
+    }
+    sum = block_reduce<false>(sum, s_red);
+    for (int t = tid; t < T; t += LSA_THREADS) {
+      const float wt = s_e[t] / sum;
+      cum_out[(size_t)b * T + t] = cum[(size_t)b * T + t] + wt;
+      s_e[t] = round_bf16(wt);
+    }
+    __syncthreads();
+
+    // 4. context: chunk column c of the flat [period * M] block, periods
+    // grp, grp + groups, ...
+    const int P = L.period, C = L.chunks, G = L.groups, PM = P * M;
+    const int n_per = (T + P - 1) / P;
+    const long long n_el = (long long)T * M;
+    for (int slot = tid; slot < G * C; slot += LSA_THREADS) {
+      const int c = slot % C, grp = slot / C;
+      int rr[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rr[j] = (8 * c + j) / M;
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+#pragma unroll 2
+      for (int p = grp; p < n_per; p += G) {
+        const long long base = (long long)p * PM + 8 * c;
+        float x[8];
+        if (vec && base + 8 <= n_el) {
+          const uint4 u = *reinterpret_cast<const uint4*>(mem_b + base);
+          const __nv_bfloat162* h2 =
+              reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            x[2 * j] = __low2float(h2[j]);
+            x[2 * j + 1] = __high2float(h2[j]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            x[j] = base + j < n_el ? __bfloat162float(mem_b[base + j]) : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int t = p * P + rr[j];
+          const float wt = t < T ? s_e[t] : 0.0f;
+          acc[j] += round_bf16(x[j] * wt);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s_cpart[grp * PM + 8 * c + j] = acc[j];
+    }
+    __syncthreads();
+    for (int m = tid; m < M; m += LSA_THREADS) {
+      float acc = 0.0f;
+      for (int grp = 0; grp < G; ++grp)
+        for (int r = 0; r < P; ++r) acc += s_cpart[grp * PM + r * M + m];
+      ctx_out[(size_t)b * M + m] = acc;
+      if (ctx_row != nullptr)
+        ctx_row[(size_t)b * ld_row + m] = __float2bfloat16_rn(acc);
+    }
   }
+  cluster_wait();
 }
 
 struct GateArgs {
@@ -432,26 +579,29 @@ int gate_lstm_launch(const void* s0, int k0, const void* s1, int k1,
                    : gate_lstm_run<false>(seg, args);
 }
 
-// ctx_row: null, or bf16 rows of ld_row that receive bf16(ctx)
+// ctx_row: null, or bf16 rows of ld_row that receive bf16(ctx).  A
+// multiple of 8, K <= 32 taps, Wq 16-byte aligned.
 int lsa_attention_launch(const void* h_att, const void* cum,
                          const void* memory, const void* mtb,
                          const void* mask_add, const void* wq, const void* lc,
                          const void* v, void* ctx_out, void* cum_out,
                          void* ctx_row, int ld_row, int B, int T, int H,
                          int A, int M, int K, void* stream) {
-  const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
-  const size_t smem =
-      (size_t)(H + parts * A + A + (T + K - 1) + K * A + A + T + 32) *
-      sizeof(float);
-  cudaError_t err = allow_smem(lsa_attention_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  lsa_attention_kernel<<<B, ATT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)h_att, (const float*)cum, (const __nv_bfloat16*)memory,
-      (const __nv_bfloat16*)mtb, (const float*)mask_add,
-      (const __nv_bfloat16*)wq, (const __nv_bfloat16*)lc, (const float*)v,
-      (float*)ctx_out, (float*)cum_out, (__nv_bfloat16*)ctx_row, ld_row, T, H,
-      A, M, K);
-  return (int)cudaGetLastError();
+  if (B <= 0 || T <= 0 || H <= 0 || M <= 0 || A <= 0 || A % 8 != 0 ||
+      K < 1 || K > BAND_K || (uintptr_t)wq % 16 != 0 ||
+      (uintptr_t)mtb % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const LsaLayout L(T, H, A, M);
+  const int vec = (uintptr_t)memory % 16 == 0 && ((long long)T * M) % 8 == 0;
+  const int grid = (B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS;
+  return (int)launch_cluster(
+      lsa_attention_kernel, grid, LSA_THREADS, L.total, LSA_ROWS,
+      (cudaStream_t)stream, (const float*)h_att, (const float*)cum,
+      (const __nv_bfloat16*)memory, (const __nv_bfloat16*)mtb,
+      (const float*)mask_add, (const __nv_bfloat16*)wq,
+      (const __nv_bfloat16*)lc, (const float*)v, (float*)ctx_out,
+      (float*)cum_out, (__nv_bfloat16*)ctx_row, ld_row, B, T, H, A, M, K,
+      vec);
 }
 
 // the head row [B, K] (bf16 rows of ld_row) against the head weight [N, K]

@@ -23,11 +23,17 @@
 // operands as they lie through ldmatrix.trans and splits K over the grid.
 // The head backward (K = 80 mels) is one launch of its own kernel, a grid
 // over column tiles of H + Mem that builds its A tile from the float32
-// cotangents.  The location conv, energy, softmax, context and their
-// backward run on the CUDA cores, one block per batch row.  Accumulators
-// (dmt, the [K, A] location-conv grad dlc, dv) are per batch row and summed
-// once at the end, split-K partials are summed in a fixed order: no float
-// atomics, so a run repeats bit for bit.
+// cotangents.  The forward's location conv, energy, softmax and context
+// run on the CUDA cores, one block per batch row (train_attention).  Their
+// backward (att_bwd) splits each batch row over a thread-block cluster of
+// up to 8 tiles of positions and runs the location conv's three products
+// (the energy recompute, the filter and the cum gradients) on the tensor
+// cores as band products (csrc/tile.cuh, shared with the serving
+// decoder's lsa_attention), exchanging the softmax sum, the cum halo and
+// the partial sums through distributed shared memory.  Accumulators (dmt,
+// the [K, A] location-conv grad dlc, dv) are per batch row and summed once
+// at the end, partial sums are summed in a fixed order: no float atomics,
+// so a run repeats bit for bit.
 //
 // Bound on the H100: a step's two gate products are 2*B*(K_att+K_gen)*4H
 // bf16 operations (1.6 G at B=50), 1.6 us at 989 TFLOP/s, against 32 MB of
@@ -559,7 +565,7 @@ __global__ void bwd_cell_kernel(const bf16* __restrict__ act,
 }
 
 // ---------------------------------------------------------------------------
-// att_bwd: the attention backward of one step, one block per batch row
+// att_bwd: the attention backward of one step
 // (ops/pallas_train_decoder.py:779-926, single fold):
 //   dw = dw_out + dcum + sum_m mem[t, m] dctx[m]
 //   de = w (dw - sum_t dw w)               (softmax backward, stored w)
@@ -568,8 +574,48 @@ __global__ void bwd_cell_kernel(const bf16* __restrict__ act,
 //   dlc[k, a] += sum_t bf16(cum[t+k-half]) bf16(dz[t, a])
 //   dcum[t'] += sum_{k, a} bf16(dz[t'-k+half, a]) lc[k, a]
 // dmt [B, T, A], dlc [B, K, A] and dv [B, A] are per-row accumulators.
+//
+// A batch row is a cluster of `cl` CTAs, CTA `rank` owning the `tile`
+// positions from rank * tile (tile a multiple of 16; cl * tile covers T).
+// Each CTA: dw over its positions (a warp a row, 16-byte loads of memory
+// with a scalar head and tail); its partial of sum_t dw w, summed by every
+// CTA from the cluster's shared memory in rank order after a cluster
+// barrier; the energy recompute as the band product loc = band(cum) @ lc
+// (csrc/tile.cuh), with dz, the dmt update and the dv and dq column sums in
+// its epilogue and bf16(dz) into shared memory; dlc's partial band(cum)^T @
+// bf16(dz) and P = bf16(dz) @ lc^T on the tensor cores.  After a second
+// cluster barrier each CTA sums the diagonals of P for its own positions,
+// reading the halo rows from its neighbours, and a 1/cl share of the dlc,
+// dv and dq partials in rank order before its "+=".  No float atomics: a
+// run repeats bit for bit.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(ATT_THREADS)
+constexpr int AB_THREADS = 256, AB_WARPS = AB_THREADS / 32;
+
+// shared-memory layout of att_bwd_kernel (byte offsets)
+struct AbLayout {
+  int ld;
+  size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, red, s1, total;
+  __host__ __device__ AbLayout(int tile, int A, int Mem) {
+    ld = A + 8;
+    lc = 0;
+    dz = lc + align16((size_t)BAND_K * ld * 2);
+    p = dz + align16((size_t)tile * ld * 2);
+    dlcp = p + align16((size_t)tile * BAND_K * 4);
+    q = dlcp + align16((size_t)BAND_K * A * 4);
+    v = q + align16((size_t)A * 4);
+    dvp = v + align16((size_t)A * 4);
+    dqp = dvp + align16((size_t)A * 4);
+    w = dqp + align16((size_t)A * 4);
+    de = w + align16((size_t)tile * 4);
+    dctx = de + align16((size_t)tile * 4);
+    cum = dctx + align16((size_t)Mem * 4);
+    red = cum + align16((size_t)(tile + BAND_K) * 2);
+    s1 = red + 32 * 4;
+    total = s1 + 16;
+  }
+};
+
+__global__ void __launch_bounds__(AB_THREADS)
 att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
                const float* __restrict__ w_s, const bf16* __restrict__ memory,
                const bf16* __restrict__ mtb, const bf16* __restrict__ lc,
@@ -577,109 +623,204 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
                const float* __restrict__ dw_out, float* __restrict__ dcum,
                float* __restrict__ dmt, float* __restrict__ dlc,
                float* __restrict__ dv, bf16* __restrict__ dq_out,
-               bf16* __restrict__ dctx_out, int T, int A, int Mem, int K) {
-  extern __shared__ float sm[];
-  const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
-  float* s_q = sm;                    // A
-  float* s_v = s_q + A;               // A
-  float* s_lc = s_v + A;              // K * A
-  float* s_cum = s_lc + K * A;        // T + K - 1
-  float* s_w = s_cum + T + K - 1;     // T
-  float* s_de = s_w + T;              // T
-  float* s_dctx = s_de + T;           // Mem
-  float* s_pdv = s_dctx + Mem;        // parts * A
-  float* s_pdq = s_pdv + parts * A;   // parts * A
-  float* s_red = s_pdq + parts * A;   // 32
-  bf16* s_dz = reinterpret_cast<bf16*>(s_red + 32);  // T * A
-  const int b = blockIdx.x, tid = threadIdx.x;
+               bf16* __restrict__ dctx_out, int T, int A, int Mem, int K,
+               int tile, int cl) {
+  extern __shared__ __align__(16) uint8_t ab_smem[];
+  const AbLayout L(tile, A, Mem);
+  const int ld = L.ld;
+  bf16* s_lc = reinterpret_cast<bf16*>(ab_smem + L.lc);        // [32][ld]
+  bf16* s_dz = reinterpret_cast<bf16*>(ab_smem + L.dz);        // [tile][ld]
+  float* s_p = reinterpret_cast<float*>(ab_smem + L.p);        // [tile][32]
+  float* s_dlcp = reinterpret_cast<float*>(ab_smem + L.dlcp);  // [32][A]
+  float* s_q = reinterpret_cast<float*>(ab_smem + L.q);
+  float* s_v = reinterpret_cast<float*>(ab_smem + L.v);
+  float* s_dvp = reinterpret_cast<float*>(ab_smem + L.dvp);
+  float* s_dqp = reinterpret_cast<float*>(ab_smem + L.dqp);
+  float* s_w = reinterpret_cast<float*>(ab_smem + L.w);        // [tile]
+  float* s_de = reinterpret_cast<float*>(ab_smem + L.de);      // [tile]
+  float* s_dctx = reinterpret_cast<float*>(ab_smem + L.dctx);  // [Mem]
+  bf16* s_cum = reinterpret_cast<bf16*>(ab_smem + L.cum);      // [tile + 32]
+  float* s_red = reinterpret_cast<float*>(ab_smem + L.red);
+  float* s_s1 = reinterpret_cast<float*>(ab_smem + L.s1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int b = blockIdx.x / cl, t_lo = rank * tile;
   const int half = (K - 1) / 2;
+  const size_t rowT = (size_t)b * T;
 
-  for (int a = tid; a < A; a += blockDim.x) {
+  for (int a = tid; a < A; a += AB_THREADS) {
     s_q[a] = q[(size_t)b * A + a];
     s_v[a] = v[a];
   }
-  for (int i = tid; i < K * A; i += blockDim.x) s_lc[i] = bf16_at(lc, i);
-  for (int i = tid; i < T + K - 1; i += blockDim.x) {
-    const int t = i - half;
-    s_cum[i] = (t >= 0 && t < T) ? bf16_at(cum_s, (size_t)b * T + t) : 0.0f;
-  }
-  for (int t = tid; t < T; t += blockDim.x) s_w[t] = w_s[(size_t)b * T + t];
-  for (int m = tid; m < Mem; m += blockDim.x) {
+  band_stage_lc(s_lc, ld, lc, K, A);
+  band_stage_cum(s_cum, tile + BAND_K, cum_s + rowT, t_lo, half, T);
+  for (int i = tid; i < tile; i += AB_THREADS)
+    s_w[i] = t_lo + i < T ? w_s[rowT + t_lo + i] : 0.0f;
+  for (int m = tid; m < Mem; m += AB_THREADS) {
     const float d = dctx[(size_t)b * Mem + m];
     s_dctx[m] = d;
-    dctx_out[(size_t)b * Mem + m] = __float2bfloat16_rn(d);
+    if (rank == 0) dctx_out[(size_t)b * Mem + m] = __float2bfloat16_rn(d);
   }
   __syncthreads();
 
-  // dw, one warp per text position
-  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-  for (int t = warp; t < T; t += n_warps) {
+  // dw, a warp per position: 16-byte loads of the row's aligned body
+  for (int i = warp; i < tile; i += AB_WARPS) {
+    const int t = t_lo + i;
     float part = 0.0f;
-    for (int m = lane; m < Mem; m += 32)
-      part = fmaf(bf16_at(memory, ((size_t)b * T + t) * Mem + m), s_dctx[m],
-                  part);
-    part = warp_sum(part);
-    if (lane == 0) {
-      const size_t o = (size_t)b * T + t;
-      s_de[t] = dw_out[o] + dcum[o] + part;
+    if (t < T) {
+      const bf16* row = memory + (rowT + t) * Mem;
+      const int head = min(Mem, (int)((16 - ((uintptr_t)row & 15)) & 15) / 2);
+      const int body = (Mem - head) / 8, rest = head + 8 * body;
+      for (int c = lane; c < body; c += 32) {
+        const uint4 u = *reinterpret_cast<const uint4*>(row + head + 8 * c);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+        const float* d = s_dctx + head + 8 * c;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          part = fmaf(__low2float(h2[j]), d[2 * j], part);
+          part = fmaf(__high2float(h2[j]), d[2 * j + 1], part);
+        }
+      }
+      if (lane < head) part = fmaf(bf16_at(row, lane), s_dctx[lane], part);
+      if (rest + lane < Mem)
+        part = fmaf(bf16_at(row, rest + lane), s_dctx[rest + lane], part);
     }
+    part = warp_sum(part);
+    if (lane == 0)
+      s_de[i] = t < T ? dw_out[rowT + t] + dcum[rowT + t] + part : 0.0f;
   }
   __syncthreads();
   float s1 = 0.0f;
-  for (int t = tid; t < T; t += blockDim.x) s1 += s_de[t] * s_w[t];
+  for (int i = tid; i < tile; i += AB_THREADS) s1 += s_de[i] * s_w[i];
   s1 = block_reduce<false>(s1, s_red);
-  for (int t = tid; t < T; t += blockDim.x) s_de[t] = s_w[t] * (s_de[t] - s1);
+  if (tid == 0) *s_s1 = s1;
+  cluster_sync();
+  s1 = 0.0f;
+  for (int j = 0; j < cl; ++j) s1 += *cluster_peer(s_s1, j);
+  for (int i = tid; i < tile; i += AB_THREADS)
+    s_de[i] = s_w[i] * (s_de[i] - s1);
   __syncthreads();
 
-  // dz over (t, a): `parts` threads share a channel a, t strided
-  for (int idx = tid; idx < parts * A; idx += blockDim.x) {
-    const int a = idx % A, part = idx / A;
-    float pdv = 0.0f, pdq = 0.0f;
-    for (int t = part; t < T; t += parts) {
-      const size_t o = ((size_t)b * T + t) * A + a;
-      const float tz = energy_tanh(s_cum, s_lc, s_q, t, a, A, K,
-                                   bf16_at(mtb, o));
-      const float dtz = s_de[t] * s_v[a];
-      const float dz = dtz * (1.0f - tz * tz);
-      dmt[o] += dz;
-      pdv = fmaf(tz, s_de[t], pdv);
-      pdq += dz;
-      s_dz[t * A + a] = __float2bfloat16_rn(dz);
+  // dz over (position, channel): the band product loc = band(cum) @ lc, a
+  // warp per 8 channels down the tile
+  const int mtiles = tile / 16;
+  for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+    const int a = n0 + 2 * qd;
+    const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a], v1 = s_v[a + 1];
+    float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
+    for (int mt = 0; mt < mtiles; ++mt) {
+      uint32_t af[2][4];
+      band_frags(af, s_cum + mt * 16, lane);
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      band_loc(acc, af, s_lc, ld, n0, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = mt * 16 + g + 8 * h, t = t_lo + i;
+        float dz0 = 0.0f, dz1 = 0.0f;
+        if (t < T) {
+          const size_t o = (rowT + t) * A + a;
+          const __nv_bfloat162 m2 =
+              *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
+          const float tz0 = band_energy_tanh(acc[2 * h], q0, __low2float(m2));
+          const float tz1 =
+              band_energy_tanh(acc[2 * h + 1], q1, __high2float(m2));
+          const float de = s_de[i];
+          dz0 = de * v0 * (1.0f - tz0 * tz0);
+          dz1 = de * v1 * (1.0f - tz1 * tz1);
+          float2* pm = reinterpret_cast<float2*>(dmt + o);
+          float2 old = *pm;
+          old.x += dz0;
+          old.y += dz1;
+          *pm = old;
+          pdv0 = fmaf(tz0, de, pdv0);
+          pdv1 = fmaf(tz1, de, pdv1);
+          pdq0 += dz0;
+          pdq1 += dz1;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ld + a) =
+            __floats2bfloat162_rn(dz0, dz1);
+      }
     }
-    s_pdv[idx] = pdv;
-    s_pdq[idx] = pdq;
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
+      pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
+      pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
+      pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
+    }
+    if (g == 0) {
+      s_dvp[a] = pdv0;
+      s_dvp[a + 1] = pdv1;
+      s_dqp[a] = pdq0;
+      s_dqp[a + 1] = pdq1;
+    }
   }
   __syncthreads();
-  for (int a = tid; a < A; a += blockDim.x) {
+
+  // dlc's partial band(cum)^T @ bf16(dz), a warp per 16 channels, both
+  // halves of the 32 taps
+  for (int n0 = warp * 16; n0 < A; n0 += AB_WARPS * 16) {
+    float acc[2][2][4] = {};
+    for (int mt = 0; mt < mtiles; ++mt)
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh)
+        band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ld, ld,
+                 n0, lane);
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + nt * 8 + 2 * qd +
+                 (e & 1)] = acc[kh][nt][e];
+  }
+  // P = bf16(dz) @ lc^T, [tile][32]: a warp per 16 positions x 16 taps
+  for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
+    const int mt = it >> 1, kh = it & 1;
+    float acc[2][4] = {};
+    band_p(acc, s_dz + mt * 16 * ld, s_lc, ld, kh * 16, A, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s_p[(mt * 16 + g + 8 * (e >> 1)) * BAND_K + kh * 16 + nt * 8 +
+            2 * qd + (e & 1)] = acc[nt][e];
+  }
+  cluster_sync();
+
+  // the cum cotangent of each own position: a diagonal of P, halo rows
+  // from the neighbours, a lane per tap
+  for (int i = warp; i < tile && t_lo + i < T; i += AB_WARPS) {
+    const int t = t_lo + i;
+    float part = 0.0f;
+    const int t2 = t - lane + half;
+    if (lane < K && t2 >= 0 && t2 < T) {
+      const int r = t2 / tile;
+      part = cluster_peer(s_p, r)[(t2 - r * tile) * BAND_K + lane];
+    }
+    part = warp_sum(part);
+    if (lane == 0) dcum[rowT + t] += part;
+  }
+  // this CTA's share of the row's dlc, dv and dq, partials in rank order
+  for (int idx = rank * AB_THREADS + tid; idx < K * A;
+       idx += cl * AB_THREADS) {
+    float sum = 0.0f;
+    for (int j = 0; j < cl; ++j) sum += cluster_peer(s_dlcp, j)[idx];
+    dlc[(size_t)b * K * A + idx] += sum;
+  }
+  for (int a = rank * AB_THREADS + tid; a < A; a += cl * AB_THREADS) {
     float sv = 0.0f, sq = 0.0f;
-    for (int p = 0; p < parts; ++p) {
-      sv += s_pdv[p * A + a];
-      sq += s_pdq[p * A + a];
+    for (int j = 0; j < cl; ++j) {
+      sv += cluster_peer(s_dvp, j)[a];
+      sq += cluster_peer(s_dqp, j)[a];
     }
     dv[(size_t)b * A + a] += sv;
     dq_out[(size_t)b * A + a] = __float2bfloat16_rn(sq);
   }
-
-  // the location conv's filter grad, [K, A]
-  for (int idx = tid; idx < K * A; idx += blockDim.x) {
-    const int a = idx % A, k = idx / A;
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t)
-      acc = fmaf(s_cum[t + k], __bfloat162float(s_dz[t * A + a]), acc);
-    dlc[(size_t)b * K * A + idx] += acc;
-  }
-  // the cum cotangent, one warp per position t'
-  for (int tp = warp; tp < T; tp += n_warps) {
-    float part = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int t = tp - k + half;
-      if (t < 0 || t >= T) continue;
-      for (int a = lane; a < A; a += 32)
-        part = fmaf(__bfloat162float(s_dz[t * A + a]), s_lc[k * A + a], part);
-    }
-    part = warp_sum(part);
-    if (lane == 0) dcum[(size_t)b * T + tp] += part;
-  }
+  // no CTA leaves while its peers may still read its shared memory
+  cluster_sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -872,26 +1013,27 @@ int bwd_cell_launch(const void* act, const void* c_prev, const void* dh_tot,
   return (int)cudaGetLastError();
 }
 
+// the row's positions in `cl` tiles of `tile` (a multiple of 16; cl <= 8,
+// the last tile not empty); A a multiple of 16, K <= 32 taps
 int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                    const void* memory, const void* mtb, const void* lc,
                    const void* v, const void* dctx, const void* dw_out,
                    void* dcum, void* dmt, void* dlc, void* dv, void* dq_out,
                    void* dctx_out, int B, int T, int A, int Mem, int K,
-                   void* stream) {
-  const int parts = ATT_THREADS / A > 0 ? ATT_THREADS / A : 1;
-  const size_t smem =
-      (size_t)(2 * A + K * A + (T + K - 1) + 2 * T + Mem + 2 * parts * A +
-               32) * sizeof(float) +
-      (size_t)T * A * sizeof(bf16);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(att_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  att_bwd_kernel<<<B, ATT_THREADS, smem, (cudaStream_t)stream>>>(
+                   int tile, int cl, void* stream) {
+  if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || K < 1 ||
+      K > BAND_K || tile <= 0 || tile % 16 != 0 || cl < 1 || cl > 8 ||
+      (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
+      (uintptr_t)mtb % 4 != 0 || (uintptr_t)dmt % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const AbLayout L(tile, A, Mem);
+  return (int)launch_cluster(
+      att_bwd_kernel, B * cl, AB_THREADS, L.total, cl, (cudaStream_t)stream,
       (const float*)q, (const bf16*)cum_s, (const float*)w_s,
       (const bf16*)memory, (const bf16*)mtb, (const bf16*)lc, (const float*)v,
       (const float*)dctx, (const float*)dw_out, (float*)dcum, (float*)dmt,
-      (float*)dlc, (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem, K);
-  return (int)cudaGetLastError();
+      (float*)dlc, (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem, K,
+      tile, cl);
 }
 
 int bwd_prenet_launch(const void* dx, const void* pre_s, long long pre_stride,

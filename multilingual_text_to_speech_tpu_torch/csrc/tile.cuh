@@ -5,7 +5,9 @@
 // float32 sums and int8 m16n8k32 with int32 sums, and the two tile routines
 // that both decoders run: the fused-gate LSTM product (gate_tile_kernel)
 // and the split-K product of every other weight (splitk_kernel, with the
-// frame and stop head's epilogue HeadOut), each templated on its epilogue.
+// frame and stop head's epilogue HeadOut), each templated on its epilogue;
+// then the thread-block-cluster helpers and the location-conv band routine
+// of the attention kernels (band_*).
 //
 // The two products read their fragments in the same byte layout: an A
 // fragment is rows g and g+8 (g = lane / 4) of a 16-row tile, 4 bytes at
@@ -17,7 +19,10 @@
 
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <type_traits>
+#include <utility>
 
 #include "common.cuh"
 
@@ -498,6 +503,176 @@ int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
   splitk_reduce_kernel<Epi><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
       part, slices, M, N, epi);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: a split barrier (arrive, then wait) across the
+// CTAs of a cluster, and a launch with a cluster size chosen at run time.
+// arrive releases this CTA's shared-memory writes to the cluster, wait
+// acquires the others'; a CTA whose shared memory its peers read must not
+// exit before they have arrived.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the same shared-memory variable of CTA `rank` of this cluster
+template <class T>
+__device__ __forceinline__ const T* cluster_peer(const T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// a 1-D grid of `grid` CTAs in clusters of `cluster` consecutive CTAs; the
+// first launch of each kernel opts it in to all of a block's shared memory
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
+                           size_t smem, int cluster, cudaStream_t stream,
+                           Args&&... args) {
+  static const cudaError_t opt_in = allow_smem(kernel, 227 * 1024);
+  if (opt_in != cudaSuccess) return opt_in;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The location-conv band routine of both attention kernels (K1's
+// lsa_attention, K3's att_bwd; the JAX kernels' `loc = cum @ Band`,
+// ops/pallas_decoder.py:572-575, ops/pallas_train_decoder.py:779-926).
+// The conv of the bf16 cum row with the folded filter lc [K, A] (K <= 32
+// taps, padded to BAND_K = 32 with zero taps) is a product with the band
+// matrix of cum, band(cum)[t][k] = cum[t + k - half] (zero outside
+// [0, T)):
+//   loc      = band(cum) @ lc              [T, 32] x [32, A]
+//   dlc      = band(cum)^T @ bf16(dz)      [32, T] x [T, A]
+//   P        = bf16(dz) @ lc^T             [T, A] x [A, 32]
+//   dcum[t'] = sum_k P[t' - k + half][k]   (15 rows of P on each side)
+// all on mma.sync bf16 m16n8k16 with float32 sums.  A tile of positions
+// from t0 keeps cum in shared memory as bf16 with its halo, s_cum[i] =
+// cum[t0 + i - half] (band_stage_cum), so band(cum)[t0 + r][k] =
+// s_cum[r + k]: a Hankel matrix, equal to its transpose, whose A fragments
+// come straight from s_cum (band_frag) for band and band^T alike.  lc lies
+// in shared memory as [BAND_K][ld] bf16 rows (band_stage_lc): its B
+// fragments come from ldmatrix.trans for loc and from ldmatrix for P;
+// those of bf16(dz) ([rows][ld] bf16) from ldmatrix.trans for dlc.  Every
+// ld is a multiple of 8 elements, and A a multiple of 16 (8 for loc).
+// ---------------------------------------------------------------------------
+constexpr int BAND_K = 32;
+
+// n rounded up to a multiple of 16 (bytes of a shared-memory region)
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// the A fragment (16 x 16) of the Hankel matrix M[r][c] = p[r + c]; rows
+// g + 8 and columns c + 8 meet on one anti-diagonal, so a[1] == a[2]
+__device__ __forceinline__ void band_frag(uint32_t* a, const bf16* p,
+                                          int lane) {
+  const int i = (lane >> 2) + 2 * (lane & 3);
+  a[0] = pack_bf16(p[i], p[i + 1]);
+  a[1] = pack_bf16(p[i + 8], p[i + 9]);
+  a[2] = pack_bf16(p[i + 8], p[i + 9]);
+  a[3] = pack_bf16(p[i + 16], p[i + 17]);
+}
+
+// both k halves of band(cum)[r0 .. r0 + 16)[0 .. 32), p = s_cum + r0
+__device__ __forceinline__ void band_frags(uint32_t (*a)[4], const bf16* p,
+                                           int lane) {
+  band_frag(a[0], p, lane);
+  band_frag(a[1], p + 16, lane);
+}
+
+// lc [K, A] into s_lc [BAND_K][ld], taps K.. zero
+__device__ void band_stage_lc(bf16* s_lc, int ld, const bf16* lc, int K,
+                              int A) {
+  for (int i = threadIdx.x; i < BAND_K * A; i += blockDim.x) {
+    const int k = i / A, a = i - k * A;
+    s_lc[k * ld + a] = k < K ? lc[(size_t)k * A + a] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// s_cum[i] = bf16(cum[t0 + i - half]) for i < n, zero outside [0, T)
+template <class Src>
+__device__ void band_stage_cum(bf16* s_cum, int n, const Src* cum, int t0,
+                               int half, int T) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = t0 + i - half;
+    s_cum[i] = __float2bfloat16_rn(t >= 0 && t < T ? (float)cum[t] : 0.0f);
+  }
+}
+
+// acc += band(cum)[r0 .. r0 + 16) @ lc[:, n0 .. n0 + 8) (a: band_frags)
+__device__ __forceinline__ void band_loc(float* acc, const uint32_t (*a)[4],
+                                         const bf16* s_lc, int ld, int n0,
+                                         int lane) {
+  uint32_t b[4];
+  ldsm_x4_trans(b, s_lc + lane * ld + n0);
+  mma_bf16(acc, a[0], b);
+  mma_bf16(acc, a[1], b + 2);
+}
+
+// acc[j] += band(cum)^T[m0 .. m0 + 16) over 16 positions @ dz[those
+// positions][n0 + 8j .. n0 + 8j + 8), j = 0, 1; p = s_cum + (the first
+// position's offset) + m0, s_dz at the first position's row
+__device__ __forceinline__ void band_dlc(float (*acc)[4], const bf16* p,
+                                         const bf16* s_dz, int ld, int n0,
+                                         int lane) {
+  uint32_t a[4], b[4];
+  band_frag(a, p, lane);
+  ldsm_x4_trans(b, s_dz + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+                       (lane >> 4) * 8);
+  mma_bf16(acc[0], a, b);
+  mma_bf16(acc[1], a, b + 2);
+}
+
+// acc[j] += dz[16 rows from s_dz][0 .. A) @ lc[n0 + 8j .. n0 + 8j + 8)^T
+__device__ __forceinline__ void band_p(float (*acc)[4], const bf16* s_dz,
+                                       const bf16* s_lc, int ld, int n0,
+                                       int A, int lane) {
+  for (int kk = 0; kk < A; kk += 16) {
+    uint32_t a[4], b[4];
+    ldsm_x4(a, s_dz + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk +
+                   (lane >> 4) * 8);
+    ldsm_x4(b, s_lc + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + kk +
+                   ((lane >> 3) & 1) * 8);
+    mma_bf16(acc[0], a, b);
+    mma_bf16(acc[1], a, b + 2);
+  }
+}
+
+// the energy term of one (t, a) from its loc sum, as the TPU kernels round:
+// bf16(tanh(bf16(bf16(bf16(loc) + q) + mtb)))
+__device__ __forceinline__ float band_energy_tanh(float loc, float q,
+                                                  float mtb) {
+  return round_bf16(tanhf(round_bf16(round_bf16(round_bf16(loc) + q) + mtb)));
 }
 
 }  // namespace

@@ -3,9 +3,9 @@
 This replaces the JAX package's TPU kernel ``ops/pallas_decoder.py::
 _build_kernel`` (driven by ``fused_decode_chunk``), which runs S free-running
 decoder steps with all state on chip.  The port keeps WHAT that kernel
-computes and none of its Mosaic layout (no A-major band matrix, lane
-replication, T-blocked fold or VMEM model).  It is a first, simple design:
-the Python wrapper loops over the S steps of a chunk, and each step calls
+computes and none of its Mosaic layout (no A-major flattened band
+matrix, lane replication, T-blocked fold or VMEM model).  The Python
+wrapper loops over the S steps of a chunk, and each step calls
 four kernel functions of ``csrc/fused_decoder.cu``:
 
 1. ``prenet``: the prenet layers with ReLU and the always-on hashed dropout;
@@ -17,10 +17,13 @@ four kernel functions of ``csrc/fused_decoder.cu``:
    dequantizes with ``g*rs*ws + b`` and runs the LSTM pointwise step and
    zoneout in its epilogue.  Blocks own whole hidden units, so the i/f/g/o
    columns ``j, H+j, 2H+j, 3H+j`` of a unit meet in one block;
-3. ``lsa_attention``: one block per batch row: the query product, the 31-tap
-   location conv straight from ``cum`` and ``lc`` (loc_filter x
-   location_kernel, folded once on the host in float32), the energy, the
-   masked softmax, ``cum += w`` and the context;
+3. ``lsa_attention``: one block per batch row, in thread-block clusters of
+   8 rows: the query product on the tensor cores, each CTA over an eighth
+   of H for the cluster's 8 rows, summed across the cluster; the 31-tap
+   location conv (``lc`` = loc_filter x location_kernel, folded once on
+   the host in float32) as a tensor-core product with the band matrix of
+   ``cum``, as the TPU kernel folds it; the energy, the masked softmax,
+   ``cum += w`` and the context over 16-byte loads of ``memory``;
 4. ``head``: the fused frame and stop projection over the head row
    ``[bf16(h_gen) | bf16(ctx)]`` on the tensor cores, split over K like the
    training decoder's products (``csrc/tile.cuh::splitk_kernel`` and its

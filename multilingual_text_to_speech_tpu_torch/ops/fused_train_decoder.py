@@ -24,8 +24,11 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   additions in its epilogue, K split over the grid and the partials summed
   by a second launch), ``train_query`` (the energy's query, recomputed),
   ``att_bwd`` (softmax, energy and location-conv backward, with the dmt,
-  dlc and dv accumulators per batch row) and ``bwd_prenet``; after the last
-  step one ``bwd_gemm`` reduces dWq over all steps and rows.
+  dlc and dv accumulators per batch row; a cluster of CTAs per batch row
+  over tiles of its positions, ``att_bwd_tiles``, the location conv's
+  three products on the tensor cores as band products) and
+  ``bwd_prenet``; after the last step one ``bwd_gemm`` reduces dWq over
+  all steps and rows.
 
 The concat rows the gate products read are residual streams themselves:
 ``att_in[s] = [x_s | ctx_{s-1} | h_att_{s-1}]``, ``gen_in[s] = [h_att_s |
@@ -512,7 +515,7 @@ _SIGNATURES = {
     "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _P],
     "bwd_cell_launch": [_P] * 6 + [_I, _I] + _REG + [_P],
-    "att_bwd_launch": [_P] * 15 + [_I] * 5 + [_P],
+    "att_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
     "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
                           _I, _F, _P],
 }
@@ -716,11 +719,31 @@ def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None):
             _ptr(part), *args)
 
 
+# att_bwd splits a batch row's positions over a thread-block cluster of at
+# most this many CTAs (the portable cluster size), in tiles of whole
+# 16-row mma tiles
+_ATT_CLUSTER_MAX, _ATT_TILE_ROWS = 8, 16
+
+
+def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
+    """``(tile, cluster)`` of ``att_bwd`` at T = ``t_len``: the fewest
+    16-row mma tiles a CTA such that at most 8 CTAs cover T, and as many
+    CTAs as the tiles need (none empty).  T=128 gives 8 CTAs of 16
+    positions; T=200, 7 of 32; T=512, 8 of 64."""
+    if t_len < 1:
+        raise ValueError(f"att_bwd needs T >= 1, got {t_len}")
+    mma_tiles = _cdiv(t_len, _ATT_TILE_ROWS)
+    tile = _ATT_TILE_ROWS * _cdiv(mma_tiles, _ATT_CLUSTER_MAX)
+    return tile, _cdiv(t_len, tile)
+
+
 def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
             dv, dq_out, dctx_out):
     """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
     A], ``dlc`` [B, K, A], ``dv`` [B, A] and the cum cotangent ``dcum``;
-    writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (bf16)."""
+    writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (bf16).  Each batch
+    row is a cluster of CTAs over tiles of its positions
+    (``att_bwd_tiles``)."""
     if not _is_cuda(q):
         return _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx,
                                    dw_out, dcum, dmt, dlc, dv, dq_out,
@@ -728,11 +751,12 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
     b, t_len, mem_dim = memory.shape
     if t_len > 512:
         raise ValueError(f"att_bwd takes T <= 512, got {t_len}")
+    tile, cluster = att_bwd_tiles(t_len)
     _launch("att_bwd", "att_bwd_launch", _ptr(q), _ptr(cum_s), _ptr(w_s),
             _ptr(memory), _ptr(mtb), _ptr(lc), _ptr(v), _ptr(dctx),
             _ptr(dw_out), _ptr(dcum), _ptr(dmt), _ptr(dlc), _ptr(dv),
             _ptr(dq_out), _ptr(dctx_out), b, t_len, lc.shape[1], mem_dim,
-            lc.shape[0])
+            lc.shape[0], tile, cluster)
 
 
 def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,

@@ -1,0 +1,157 @@
+"""The algebra of the attention kernels' location-conv band routine
+(``csrc/tile.cuh``: ``band_*``), on the CPU, as the kernels tile it.
+
+The conv of a bf16 cum row with the folded filter lc [K, A] is a product
+with the band matrix of cum, ``band(cum)[t][k] = cum[t + k - half]`` (zero
+outside [0, T)), K padded to 32 taps with zero taps:
+
+- ``band(cum) @ lc`` is the location conv of ``lsa_attention_plain`` and
+  of the training forward (``F.conv1d``, padding ``half``);
+- ``band(cum)^T @ dz`` is that conv's filter gradient;
+- ``P = dz @ lc^T`` summed along its diagonals, ``dcum[t'] = sum_k
+  P[t' - k + half][k]``, is its cum gradient.
+
+Each tile of positions keeps cum from ``half`` before its first position
+on (the kernels' ``s_cum``), so band rows are windows of that one vector;
+``att_bwd`` splits T into the tiles of ``att_bwd_tiles`` and reads P's
+halo rows from the neighbouring tiles, summing the filter gradient's tile
+partials in tile order.  The products run in float64 here so that only
+the algebra is compared; the kernels' float32 sums are held against the
+plain versions on the card (``tests/test_torch_gpu.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from multilingual_text_to_speech_tpu_torch.ops.fused_train_decoder import (
+    att_bwd_tiles,
+)
+
+BAND_K = 32
+_A, _ROWS = 16, 3
+
+
+def _operands(t_len, k_taps, seed):
+    """bf16-valued cum [B, T] (a ramp plus noise), lc [K, A] and a
+    cotangent dz [B, T, A], in float64."""
+    rng = np.random.RandomState(seed)
+    cum = np.clip(np.linspace(1.5, -0.5, t_len)[None]
+                  + 0.1 * rng.randn(_ROWS, t_len), 0.0, None)
+    lc = 0.1 * rng.randn(k_taps, _A)
+    dz = rng.randn(_ROWS, t_len, _A)
+
+    def bf16(x):
+        return torch.as_tensor(x, dtype=torch.float32).bfloat16().double()
+
+    return bf16(cum), bf16(lc), bf16(dz)
+
+
+def _s_cum(cum, t0, n, half):
+    """The kernels' shared cum of a tile from ``t0``: ``s_cum[i] =
+    cum[t0 + i - half]`` for i < n, zero outside [0, T)."""
+    t = t0 + torch.arange(n) - half
+    ok = (t >= 0) & (t < cum.shape[-1])
+    return torch.where(ok, cum[..., t.clamp(0, cum.shape[-1] - 1)],
+                       torch.zeros(()).double())
+
+
+def _band(cum, t0, rows, half):
+    """band(cum) rows [t0, t0 + rows) over 32 taps: windows of ``s_cum``."""
+    s = _s_cum(cum, t0, rows + BAND_K, half)
+    idx = torch.arange(rows)[:, None] + torch.arange(BAND_K)[None]
+    return s[..., idx]                                   # [B, rows, 32]
+
+
+def _lc32(lc):
+    return F.pad(lc, (0, 0, 0, BAND_K - lc.shape[0]))    # [32, A]
+
+
+def _conv(cum, lc):
+    """The location conv as ``lsa_attention_plain`` computes it."""
+    k = lc.shape[0]
+    return F.conv1d(cum[:, None, :], lc.t()[:, None, :],
+                    padding=(k - 1) // 2).transpose(1, 2)   # [B, T, A]
+
+
+_CASES = pytest.mark.parametrize("t_len", [1, 7, 16, 45, 128])
+_TAPS = pytest.mark.parametrize("k_taps", [3, 31])
+
+
+@_TAPS
+@_CASES
+def test_band_product_is_the_location_conv(t_len, k_taps):
+    """``band(cum) @ lc`` over 16-row tiles (the forward's mma tiles, T
+    padded to a multiple of 16) equals the conv, T < K included."""
+    cum, lc, _ = _operands(t_len, k_taps, seed=t_len + k_taps)
+    half = (k_taps - 1) // 2
+    tpad = -(-t_len // 16) * 16
+    loc = torch.cat([_band(cum, t0, 16, half) @ _lc32(lc)
+                     for t0 in range(0, tpad, 16)], dim=1)[:, :t_len]
+    torch.testing.assert_close(loc, _conv(cum, lc), rtol=1e-12, atol=1e-12)
+
+
+@_TAPS
+@_CASES
+def test_band_transpose_product_is_the_filter_gradient(t_len, k_taps):
+    """``band(cum)^T @ dz``, one partial per ``att_bwd`` tile summed in
+    tile order, equals autograd's filter gradient through the conv; its
+    padded taps K..31 are dropped."""
+    cum, lc, dz = _operands(t_len, k_taps, seed=2 * t_len + k_taps)
+    half = (k_taps - 1) // 2
+    tile, cluster = att_bwd_tiles(t_len)
+    dzp = F.pad(dz, (0, 0, 0, cluster * tile - t_len))
+    dlc = torch.zeros(_ROWS, BAND_K, _A, dtype=torch.float64)
+    for r in range(cluster):
+        band = _band(cum, r * tile, tile, half)
+        dlc = dlc + band.transpose(1, 2) @ dzp[:, r * tile:(r + 1) * tile]
+    lcg = lc.clone().requires_grad_(True)
+    (_conv(cum, lcg) * dz).sum().backward()
+    torch.testing.assert_close(dlc.sum(0)[:k_taps], lcg.grad, rtol=1e-12,
+                               atol=1e-12)
+
+
+@_TAPS
+@_CASES
+def test_band_diagonal_sum_is_the_cum_gradient(t_len, k_taps):
+    """P = dz @ lc^T per ``att_bwd`` tile; the cum gradient of a position
+    is a diagonal of P whose rows reach up to ``half`` positions into the
+    neighbouring tiles; it equals autograd's cum gradient through the
+    conv."""
+    cum, lc, dz = _operands(t_len, k_taps, seed=3 * t_len + k_taps)
+    half = (k_taps - 1) // 2
+    tile, cluster = att_bwd_tiles(t_len)
+    dzp = F.pad(dz, (0, 0, 0, cluster * tile - t_len))
+    p_tiles = [dzp[:, r * tile:(r + 1) * tile] @ _lc32(lc).t()
+               for r in range(cluster)]                 # [B, tile, 32]
+    dcum = torch.zeros(_ROWS, t_len, dtype=torch.float64)
+    for t in range(t_len):
+        for k in range(k_taps):
+            t2 = t - k + half
+            if 0 <= t2 < t_len:
+                dcum[:, t] += p_tiles[t2 // tile][:, t2 % tile, k]
+    cumg = cum.clone().requires_grad_(True)
+    (_conv(cumg, lc) * dz).sum().backward()
+    torch.testing.assert_close(dcum, cumg.grad, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("t_len,want", [
+    (1, (16, 1)), (16, (16, 1)), (17, (16, 2)), (128, (16, 8)),
+    (129, (32, 5)), (200, (32, 7)), (256, (32, 8)), (512, (64, 8))])
+def test_att_bwd_tiles_at_known_lengths(t_len, want):
+    """T=128 (the training path) takes 8 CTAs of 16 positions; T=200
+    takes 7 of 32, its last part filled; T=512 takes 8 of 64."""
+    assert att_bwd_tiles(t_len) == want
+
+
+def test_att_bwd_tiles_cover_every_length():
+    """For every T up to 512: whole 16-row tiles, at most 8 CTAs (the
+    portable cluster size), none empty, and the smallest such tile."""
+    for t_len in range(1, 513):
+        tile, cluster = att_bwd_tiles(t_len)
+        assert tile % 16 == 0 and 1 <= cluster <= 8
+        assert (cluster - 1) * tile < t_len <= cluster * tile
+        assert tile == 16 or -(-t_len // (tile - 16)) > 8
+    with pytest.raises(ValueError):
+        att_bwd_tiles(0)

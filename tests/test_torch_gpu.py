@@ -655,3 +655,112 @@ def test_train_query_and_head_split_k_match_plain(b):
     if b == 50:
         with pytest.raises(ValueError, match="split-K scratch"):
             query(ftd.train_query, scratch=torch.empty(16, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels on the band routine, at the flagship's widths
+# ---------------------------------------------------------------------------
+
+def _attention_operands(b, t, seed):
+    """Random bf16 memory [B, T, Mem] and memory transform [B, T, A], the
+    additive mask of random lengths, and a cumulative attention of 1 up to
+    a point part way through each text."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    memory = rnd(b, t, _MEM).bfloat16()
+    mtb = rnd(b, t, _ATT, scale=0.5).bfloat16()
+    lengths = torch.randint(max(1, t // 2), t + 1, (b,), device="cuda",
+                            generator=gen)
+    mask = torch.arange(t, device="cuda")[None] < lengths[:, None]
+    return rnd, memory, mtb, mask, ramp_alignment(mask, seed=seed)
+
+
+@pytest.mark.parametrize("t", [45, 128, 200, 512])
+@pytest.mark.parametrize("b", [1, 37, 240])
+@pytest.mark.parametrize("int8", [True, False])
+def test_lsa_attention_matches_plain_at_flagship_widths(int8, b, t):
+    """``lsa_attention`` (clusters of 8 rows sharing the query product, the
+    location conv as a band product) at H=1024, A=128, Mem=292, 31 taps, in
+    a W8A8 and a bf16 bundle: B=37 leaves a cluster part empty, T=45 and
+    200 are not multiples of 16, and at T=45 the rows of memory are not
+    all 16-byte aligned (the context's scalar loads); the context within atol and rtol 2e-3 of
+    ``lsa_attention_plain``, the step's attention weights within 1e-2 of
+    each row's largest, the head row's context bit-exact bf16(context),
+    one launch, and a second run bit-identical to the first."""
+    bundle = _gate_bundle(int8, sum(_SEGMENTS["att"]), seed=b)
+    rnd, memory, mtb, mask, cum = _attention_operands(b, t, seed=b + t)
+    bundle.wq = rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5).bfloat16()
+    bundle.lc = rnd(_TAPS, _ATT, scale=0.1).bfloat16()
+    bundle.v = rnd(_ATT, scale=_ATT ** -0.5)
+    h_att = rnd(b, _HIDDEN)
+    mask_add = torch.where(mask, 0.0, -1e9)
+    row = torch.zeros(b, 1344, dtype=torch.bfloat16, device="cuda")
+    fd.reset_launch_counts()
+    ctx_k, cum_k = fd.lsa_attention(h_att, cum, memory, mtb, mask_add, bundle,
+                                    ctx_row=row[:, _HIDDEN:_HIDDEN + _MEM])
+    assert fd.LAUNCHES["lsa_attention"] == 1
+    again = fd.lsa_attention(h_att, cum, memory, mtb, mask_add, bundle)
+    ctx_p, cum_p = fd.lsa_attention_plain(h_att, cum, memory, mtb, mask_add,
+                                          bundle)
+    torch.testing.assert_close(ctx_k, ctx_p, atol=2e-3, rtol=2e-3)
+    w_k, w_p = cum_k - cum, cum_p - cum
+    assert float(((w_k - w_p).abs().amax(1) / w_p.amax(1)).max()) < 1e-2
+    assert torch.equal(row[:, _HIDDEN:_HIDDEN + _MEM], ctx_k.bfloat16())
+    assert not row[:, :_HIDDEN].any() and not row[:, _HIDDEN + _MEM:].any()
+    assert torch.equal(again[0], ctx_k) and torch.equal(again[1], cum_k)
+
+
+@pytest.mark.parametrize("t", [45, 128, 200, 512])
+@pytest.mark.parametrize("b", [1, 50, 96])
+def test_att_bwd_matches_plain_at_flagship_widths(b, t):
+    """``att_bwd`` (a cluster of CTAs over tiles of each row's positions:
+    3 of 16 at T=45, whose memory rows are not all 16-byte aligned, 8 of
+    16 at T=128, 7 of 32 at T=200 with a part-filled last tile, 8 of 64 at
+    T=512) at A=128, Mem=292, 31 taps, three chained calls so that
+    the dmt, dlc and dv "+=" and the dcum carry are covered: every float32
+    output within chip_smoke's bound of its largest value, the bf16 dq and
+    dctx streams within one ulp; two chains from the same start
+    bit-identical."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    rnd, memory, mtb, mask, cum = _attention_operands(b, t, seed=3 * b + t)
+    lc = rnd(_TAPS, _ATT, scale=0.1).bfloat16()
+    v = rnd(_ATT, scale=_ATT ** -0.5)
+    steps = []
+    for _ in range(3):
+        e = torch.where(mask, rnd(b, t), torch.full_like(cum, -1e9))
+        steps.append((rnd(b, _ATT).bfloat16().float(),          # q
+                      (cum + 0.1 * rnd(b, t).abs()).bfloat16(),  # cum_s
+                      torch.softmax(e, -1),                     # w_s
+                      rnd(b, _MEM), rnd(b, t, scale=0.1)))      # dctx, dw
+    dcum0 = rnd(b, t, scale=0.1)
+
+    def chain(fn):
+        acc = [torch.zeros(b, t, _ATT, device="cuda"),
+               torch.zeros(b, _TAPS, _ATT, device="cuda"),
+               torch.zeros(b, _ATT, device="cuda"), dcum0.clone()]
+        outs = []
+        for q, cum_s, w_s, dctx, dw in steps:
+            o = [torch.empty(b, _ATT, dtype=torch.bfloat16, device="cuda"),
+                 torch.empty(b, _MEM, dtype=torch.bfloat16, device="cuda")]
+            fn(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw, acc[3], acc[0],
+               acc[1], acc[2], *o)
+            outs += o
+        return acc + outs
+
+    ftd.reset_launch_counts()
+    got = chain(ftd.att_bwd)
+    assert ftd.LAUNCHES["att_bwd"] == 3
+    again = chain(ftd.att_bwd)
+    ref = chain(ftd.PLAIN.att_bwd)
+    bound = TRAIN_KERNEL_TOL["att_bwd"]
+    for g, a, r in zip(got, again, ref):
+        kind = "bf16" if r.dtype == torch.bfloat16 else "f32"
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= bound[kind] * float(r.float().abs().max()), kind
+        assert torch.equal(g, a)
