@@ -33,8 +33,9 @@ Phases, each of which fails the run on a failed check:
    that repeat from run to run: dropout and zoneout choices bit-exact,
    every kernel on identical inputs (``bwd_prenet``'s frame cotangent
    against the plain product of its own bf16 first-layer gradient), two
-   runs each of ``bwd_gemm`` (its split-K reduction), ``bwd_head`` and
-   ``att_bwd`` (its cluster's partial sums) bit-identical, then 16
+   runs each of ``bwd_gemm`` (its split-K reduction), ``bwd_head``,
+   ``train_attention``, ``att_bwd`` and ``bwd_prenet`` (their clusters'
+   exchanges and partial sums) bit-identical, then 16
    chained steps forward and backward (every output, residual and gradient
    stream, accumulator and the final cotangent carry); then the same 16
    steps through ``TrainDecode`` (K2 forward, K3 backward) against
@@ -45,6 +46,11 @@ Phases, each of which fails the run on a failed check:
    counts reset just before and read just after; the step split into
    forward, backward and optimizer, audio-seconds trained per second; then
    a small step on the card against the same step on the CPU plain path;
+   then the eval forward (``[train:eval]``): 16 steps of K2's eval variant
+   (zoneout interpolated, no residual streams) through the kernels against
+   its plain version at B=50, T=128, and ``model.eval()``'s teacher-forced
+   forward at B=10 on the card against the CPU plain path, with the launch
+   counts reset just before and read just after (every K2 kernel, no K3);
 7. device times (``torch.profiler``) of the K2/K3 kernels against their
    plain versions, bounds and ``torch`` yardsticks, and the device's busy
    share of one training step under ``torch.profiler``.
@@ -1009,9 +1015,11 @@ def phase_train_kernels(hp, sd):
                   f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
                   for k in sorted(worst)))
     # split-K sums its partials in a fixed order, bwd_head sums each output
-    # in one thread, and att_bwd sums its cluster's partials in rank order:
-    # a second run repeats the first bit for bit
-    for name in ("bwd_gemm", "bwd_head", "att_bwd"):
+    # in one thread, and train_attention, att_bwd and bwd_prenet exchange
+    # their clusters' partials in rank order: a second run repeats the
+    # first bit for bit
+    for name in ("bwd_gemm", "bwd_head", "train_attention", "att_bwd",
+                 "bwd_prenet"):
         first, again = (calls[name](ftd.KERNELS) for _ in range(2))
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
@@ -1253,6 +1261,90 @@ def phase_train_vs_cpu(hp, sd) -> None:
               f"{checks[worst][1]})")
 
 
+def phase_train_eval(hp, sd) -> None:
+    """The eval/GTA forward, K2's eval variant (``TrainConfig.train``
+    False): 16 steps through the kernels against the plain drivers on the
+    same card inputs at B=50, T=128 (no residual stream kept), then
+    ``model.eval()``'s teacher-forced forward at B=10, T=32, F=32 on the
+    card against the same forward on the CPU plain path (prenet dropout on:
+    the hashed masks are the same on both), teacher forcing 0.5."""
+    import dataclasses
+
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    model = train_model(hp, sd).eval()
+    batch = train_batch(hp, TRAIN_B, TRAIN_T, TRAIN_F, SEED + 13)
+    torch.manual_seed(SEED + 14)
+    cfg, ops, memory, mtb, mask_add, shifted = decoder_inputs(
+        hp, model, batch, CHECK_STEPS)
+    cfg = dataclasses.replace(cfg, train=False)
+    teacher = [1, 0] * (CHECK_STEPS // 2)
+    args = (ops, cfg, memory, mtb, mask_add, shifted, teacher, (11, 12))
+    with torch.no_grad():
+        st_k, carry_k = ftd.train_decode_forward(*args)
+        st_p, carry_p = ftd.train_decode_forward(*args, plain=True)
+    torch.cuda.synchronize()
+    if set(st_k) != {"spec", "stop", "w"}:
+        fail(f"the eval forward kept streams {sorted(st_k)}")
+    worst = {f"forward {k}": rel(st_k[k], st_p[k]) for k in st_p}
+    worst.update({f"forward carry {k}": rel(carry_k[k], carry_p[k])
+                  for k in carry_p})
+    name, top = max(worst.items(), key=lambda kv: kv[1])
+    if top > TRAIN_CHAIN_TOL:
+        fail(f"eval forward, {CHECK_STEPS} steps: {name} off by relative "
+             f"{top}")
+    print(f"[train:eval] {CHECK_STEPS} eval-forward steps at B={TRAIN_B} "
+          f"T={TRAIN_T}, kernels vs plain: relative error of spec, stop, w "
+          f"and the carries at most {top:.3g} ({name}; bound "
+          f"{TRAIN_CHAIN_TOL}); no residual stream kept")
+
+    small = train_batch(hp, 10, 32, 32, SEED + 15)
+    teacher = [1, 0] * 16
+    keys = ("pre_prediction", "post_prediction", "alignment")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = train_model(hp, sd, dev).eval()
+        t = {k: torch.as_tensor(getattr(small, k), device=dev) for k in (
+            "utterances", "utterance_lengths", "mel_spectrograms",
+            "spectrogram_lengths", "speakers", "languages")}
+        if dev == "cuda":
+            ftd.reset_launch_counts()
+        o = m(t["utterances"], t["utterance_lengths"], t["mel_spectrograms"],
+              t["spectrogram_lengths"], t["speakers"], t["languages"],
+              teacher, (77, 88))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(ftd.LAUNCHES)
+        if o["pre_prediction"].grad_fn is not None or \
+                o["alignment"].grad_fn is not None:
+            fail("the eval forward's decoder outputs carry a grad_fn")
+        valid = t["mel_spectrograms"].new_zeros(o["stop_token"].shape,
+                                                dtype=torch.bool)
+        for i, n in enumerate(small.spectrogram_lengths):
+            valid[i, :int(n)] = True
+        got[dev] = {k: o[k].detach().float().cpu() for k in keys}
+        got[dev]["stop_token"] = o["stop_token"][valid].detach().float().cpu()
+    missing = [k for k in ftd.K2_KERNELS if launches[k] == 0]
+    stray = [k for k in ftd.K3_KERNELS if launches[k] != 0]
+    if missing or stray:
+        fail(f"eval forward on the card: K2 kernels never launched {missing},"
+             f" K3 kernels launched {stray}")
+    checks = {k: rel(got["cuda"][k], got["cpu"][k]) for k in got["cpu"]}
+    name, top = max(checks.items(), key=lambda kv: kv[1])
+    if top > TRAIN_E2E_TOL:
+        fail(f"eval forward card vs CPU: {name} off by relative {top}")
+    print(f"[train:eval] model.eval() forward B=10 T=32 F=32, card vs CPU "
+          f"plain path (bf16, teacher forcing 0.5): relative error at most "
+          f"{top:.3g} ({name}; bound {TRAIN_E2E_TOL}); " + ", ".join(
+              f"{k} {v:.3g}" for k, v in checks.items()))
+    print(f"[train:eval] launches of the eval forward (32 steps): "
+          f"{ {k: launches[k] for k in ftd.K2_KERNELS} }; K3 none")
+
+
 def train_work(cfg, b, t_len):
     """(bytes each input once + outputs once, operations) of each K2/K3
     kernel row at B=b, T=t_len; products counted at the bf16 tensor rate."""
@@ -1411,6 +1503,7 @@ def main() -> int:
     train_errs, train_inputs = phase_train_kernels(hp, sd)
     t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
     phase_train_vs_cpu(hp, sd)
+    phase_train_eval(hp, sd)
     rows += phase_train_timings(hp, train_errs, t_launches, t_per_step,
                                 train_inputs, main_state)
 

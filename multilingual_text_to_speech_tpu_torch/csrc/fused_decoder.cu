@@ -272,17 +272,15 @@ constexpr int LSA_ROWS = 8;   // CTAs (batch rows) a cluster
 
 // shared-memory layout of lsa_attention_kernel (byte offsets)
 struct LsaLayout {
-  int kq, ldh, ld, tpad, period, chunks, groups;
+  int kq, ldh, ld, tpad;
+  CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
   size_t wq, h, qp, q, v, lc, cum, e, red, cpart, total;
-  __host__ __device__ LsaLayout(int T, int H, int A, int M) {
+  __host__ __device__ LsaLayout(int T, int H, int A, int M)
+      : cs(M, LSA_THREADS) {
     kq = ((H + LSA_ROWS - 1) / LSA_ROWS + 31) / 32 * 32;
     ldh = kq + 8;
     ld = A + 8;   // rows of Wq and of lc
     tpad = (T + 15) / 16 * 16;
-    const int g8 = M % 8 == 0 ? 8 : M % 4 == 0 ? 4 : M % 2 == 0 ? 2 : 1;
-    period = 8 / g8;
-    chunks = period * M / 8;
-    groups = LSA_THREADS / chunks > 0 ? LSA_THREADS / chunks : 1;
     wq = 0;
     h = wq + align16((size_t)kq * ld * 2);
     qp = h + align16((size_t)LSA_ROWS * ldh * 2);
@@ -293,7 +291,7 @@ struct LsaLayout {
     e = cum + align16((size_t)(tpad + BAND_K) * 2);
     red = e + align16((size_t)tpad * 4);
     cpart = red + 32 * 4;
-    total = cpart + align16((size_t)groups * period * M * 4);
+    total = cpart + align16(cs.scratch_floats(M) * 4);
   }
 };
 
@@ -439,52 +437,11 @@ lsa_attention_kernel(const float* __restrict__ h_att,
     }
     __syncthreads();
 
-    // 4. context: chunk column c of the flat [period * M] block, periods
-    // grp, grp + groups, ...
-    const int P = L.period, C = L.chunks, G = L.groups, PM = P * M;
-    const int n_per = (T + P - 1) / P;
-    const long long n_el = (long long)T * M;
-    for (int slot = tid; slot < G * C; slot += LSA_THREADS) {
-      const int c = slot % C, grp = slot / C;
-      int rr[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) rr[j] = (8 * c + j) / M;
-      float acc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-#pragma unroll 2
-      for (int p = grp; p < n_per; p += G) {
-        const long long base = (long long)p * PM + 8 * c;
-        float x[8];
-        if (vec && base + 8 <= n_el) {
-          const uint4 u = *reinterpret_cast<const uint4*>(mem_b + base);
-          const __nv_bfloat162* h2 =
-              reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            x[2 * j] = __low2float(h2[j]);
-            x[2 * j + 1] = __high2float(h2[j]);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            x[j] = base + j < n_el ? __bfloat162float(mem_b[base + j]) : 0.0f;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int t = p * P + rr[j];
-          const float wt = t < T ? s_e[t] : 0.0f;
-          acc[j] += round_bf16(x[j] * wt);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s_cpart[grp * PM + 8 * c + j] = acc[j];
-    }
+    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column)
+    ctx_partials(L.cs, s_cpart, mem_b, s_e, T, M, vec, LSA_THREADS);
     __syncthreads();
     for (int m = tid; m < M; m += LSA_THREADS) {
-      float acc = 0.0f;
-      for (int grp = 0; grp < G; ++grp)
-        for (int r = 0; r < P; ++r) acc += s_cpart[grp * PM + r * M + m];
+      const float acc = ctx_column(L.cs, s_cpart, M, m);
       ctx_out[(size_t)b * M + m] = acc;
       if (ctx_row != nullptr)
         ctx_row[(size_t)b * ld_row + m] = __float2bfloat16_rn(acc);

@@ -15,25 +15,30 @@
 //
 // Every product runs on the tensor cores (mma.sync m16n8k16, bfloat16
 // inputs, float32 sums) in the two tile routines of csrc/tile.cuh, or in
-// bwd_head.  The gate products run in gate_tile_kernel (shared with the
-// serving decoder's gate product), with the LSTM step and train-mode
+// bwd_head and bwd_prenet.  The gate products run in gate_tile_kernel
+// (shared with the serving decoder's gate product), with the LSTM step and
 // zoneout or dropout in the epilogue.  The attention query, the head and
 // the backward's dgates @ W^T, dq @ Wq^T and dWq run in splitk_kernel
 // (shared with the serving decoder's head), which reads transposed
 // operands as they lie through ldmatrix.trans and splits K over the grid.
 // The head backward (K = 80 mels) is one launch of its own kernel, a grid
 // over column tiles of H + Mem that builds its A tile from the float32
-// cotangents.  The forward's location conv, energy, softmax and context
-// run on the CUDA cores, one block per batch row (train_attention).  Their
-// backward (att_bwd) splits each batch row over a thread-block cluster of
-// up to 8 tiles of positions and runs the location conv's three products
-// (the energy recompute, the filter and the cum gradients) on the tensor
-// cores as band products (csrc/tile.cuh, shared with the serving
-// decoder's lsa_attention), exchanging the softmax sum, the cum halo and
-// the partial sums through distributed shared memory.  Accumulators (dmt,
-// the [K, A] location-conv grad dlc, dv) are per batch row and summed once
-// at the end, partial sums are summed in a fixed order: no float atomics,
-// so a run repeats bit for bit.
+// cotangents.  The forward's attention (train_attention) and its backward
+// (att_bwd) each split a batch row over a thread-block cluster of up to 8
+// tiles of positions and run the location conv on the tensor cores as band
+// products (csrc/tile.cuh, shared with the serving decoder's
+// lsa_attention: the forward's energy; the backward's energy recompute,
+// filter and cum gradients), exchanging the softmax statistics, the cum
+// halo and the partial sums through distributed shared memory; the
+// forward's context reads the tile's memory rows with 16-byte loads
+// (csrc/tile.cuh ctx_*, shared with lsa_attention).  The
+// prenet backward (bwd_prenet) is one clustered launch whose CTAs own
+// column slices of each layer and exchange the bf16 da rows the same way.
+// An eval forward (ops/pallas_train_decoder.py train=False) runs the same
+// kernels with deterministic zoneout and writes no residual streams.
+// Accumulators (dmt, the [K, A] location-conv grad dlc, dv) are per batch
+// row and summed once at the end, partial sums are summed in a fixed order:
+// no float atomics, so a run repeats bit for bit.
 //
 // Bound on the H100: a step's two gate products are 2*B*(K_att+K_gen)*4H
 // bf16 operations (1.6 G at B=50), 1.6 us at 989 TFLOP/s, against 32 MB of
@@ -66,17 +71,21 @@ namespace {
 // step and the train-mode regularization in its epilogue, LstmEpi.
 // ---------------------------------------------------------------------------
 
-// regularization of a train-mode LSTM cell (ops/pallas_train_decoder.py
-// :375-401): 0 none, 1 zoneout (keep new where bits < thresh), 2 output
-// dropout on h (c untouched)
+// regularization of an LSTM cell (ops/pallas_train_decoder.py:375-401):
+// in train mode 0 none, 1 zoneout (keep new where bits < thresh), 2 output
+// dropout on h (c untouched); in eval mode 3, zoneout's deterministic
+// interpolation z * old + (1 - z) * new for h and c (an eval dropout cell
+// is mode 0)
 struct Reg {
   uint32_t seed0, seed1, salt_h, salt_c, th_h, th_c;
   int mode;
-  float scale;  // 1 / keep of the h dropout
+  float scale;   // 1 / keep of the h dropout
+  float zh, zc;  // the zoneout rates of h and c
 };
 
 // gates + bias -> i, f, g, o; the LSTM step; the regularization; writes the
-// float32 carries, the bf16 activations and c stream, and h in bf16 into up
+// float32 carries, the bf16 activations and c stream (train mode; null in
+// an eval forward, which keeps no residual streams), and h in bf16 into up
 // to two concat rows
 struct LstmEpi {
   const float* bias;
@@ -99,11 +108,13 @@ struct LstmEpi {
     const float c_prev = c[o], h_prev = h[o];
     const float cn = gf * c_prev + gi * gg;
     const float hn = go * tanhf(cn);
-    bf16* a = act + (size_t)row * 4 * H + unit;
-    a[0] = __float2bfloat16_rn(gi);
-    a[H] = __float2bfloat16_rn(gf);
-    a[2 * H] = __float2bfloat16_rn(gg);
-    a[3 * H] = __float2bfloat16_rn(go);
+    if (act != nullptr) {
+      bf16* a = act + (size_t)row * 4 * H + unit;
+      a[0] = __float2bfloat16_rn(gi);
+      a[H] = __float2bfloat16_rn(gf);
+      a[2 * H] = __float2bfloat16_rn(gg);
+      a[3 * H] = __float2bfloat16_rn(go);
+    }
     float ho = hn, co = cn;
     if (reg.mode == 1) {
       const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
@@ -116,10 +127,14 @@ struct LstmEpi {
       const uint32_t bh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
                                     reg.salt_h);
       ho = bh < reg.th_h ? hn * reg.scale : 0.0f;
+    } else if (reg.mode == 3) {
+      // each product and the sum rounded once, as the plain version
+      ho = __fadd_rn(__fmul_rn(reg.zh, h_prev), __fmul_rn(1.0f - reg.zh, hn));
+      co = __fadd_rn(__fmul_rn(reg.zc, c_prev), __fmul_rn(1.0f - reg.zc, cn));
     }
     h[o] = ho;
     c[o] = co;
-    c_out[o] = __float2bfloat16_rn(co);
+    if (c_out != nullptr) c_out[o] = __float2bfloat16_rn(co);
     const bf16 hb = __float2bfloat16_rn(ho);
     h_dst0[(size_t)row * ld0 + unit] = hb;
     if (h_dst1 != nullptr) h_dst1[(size_t)row * ld1 + unit] = hb;
@@ -162,7 +177,8 @@ struct RoundOut {
 // train_prenet: the input frame (the shifted target at a teacher step, the
 // previous prediction otherwise), then n layers of relu(x @ W + b) with the
 // hashed dropout.  Writes the raw frame and each layer's post-dropout output
-// (bf16 streams) and the last layer into the attention LSTM's concat row.
+// (bf16 streams; null in an eval forward) and the last layer into the
+// attention LSTM's concat row.
 // Block: PRE_ROWS batch rows; threads walk the output columns.
 // ---------------------------------------------------------------------------
 constexpr int PRE_ROWS = 4;
@@ -187,7 +203,7 @@ __global__ void train_prenet_kernel(
     if (row < B) {
       const size_t o = (size_t)row * in_dim + k;
       x = teacher ? bf16_at(shifted, o) : frame[o];
-      raw_out[o] = __float2bfloat16_rn(x);
+      if (raw_out != nullptr) raw_out[o] = __float2bfloat16_rn(x);
     }
     xa[r * width + k] = x;
   }
@@ -218,7 +234,8 @@ __global__ void train_prenet_kernel(
         xb[r * width + j] = y;
         if (row < B) {
           const bf16 yb = __float2bfloat16_rn(y);
-          pre_out[layer * pre_stride + (size_t)row * P + j] = yb;
+          if (pre_out != nullptr)
+            pre_out[layer * pre_stride + (size_t)row * P + j] = yb;
           if (layer == n_layers - 1) dst[(size_t)row * ld_dst + j] = yb;
         }
       }
@@ -234,29 +251,69 @@ __global__ void train_prenet_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// location-sensitive energy term of (row b, text position t, channel a):
-//   z = bf16(bf16(bf16(loc) + q) + mtb),  loc = sum_k bf16(cum[t+k-half]) lc
-// `s_cum` is the row's cum rounded to bf16 with (K-1)/2 zeros on each side.
+// train_attention: the attention of one teacher-forced step
+// (ops/pallas_train_decoder.py:437-517, location-sensitive):
+//   loc = band(cum) @ lc (the location conv of the bf16 cum)
+//   e[t] = sum_a v[a] bf16(tanh(bf16(bf16(bf16(loc) + q) + mtb))) + mask
+//   w = softmax(e) -> the weights stream; cum before the step -> its bf16
+//   stream (train mode; null in an eval forward); cum += w
+//   ctx[m] = sum_t bf16(mem[t, m] * bf16(w[t])) -> the float32 carry and
+//   bf16 copies into up to three concat rows
+// A batch row is a cluster of `cl` CTAs, CTA `rank` owning the `tile`
+// positions from rank * tile (tile a multiple of 16; cl * tile covers T:
+// ops/fused_train_decoder.py::att_bwd_tiles, as att_bwd).  Each CTA
+// issues all its reads of device memory at the start (lc and its tile's
+// mtb and memory rows with cp.async), so that their latencies overlap;
+// then the energies of its positions as the band product on the tensor
+// cores (csrc/tile.cuh band_*, cum staged with its 15-position halo), a
+// warp per 16 channels down the tile with the bf16 pairs of mtb in the
+// epilogue, the warps' partials summed in warp order; the row's softmax
+// from the tile maxima and then the tile sums of exp(e - max), each summed
+// by every CTA from the cluster's shared memory in rank order after a
+// cluster barrier, so that all CTAs hold the same max and sum; its tile's
+// context partial with 16-byte loads of the tile's memory rows
+// (csrc/tile.cuh ctx_*); after a third barrier a 1/cl share of the Mem
+// columns, summed over the cluster's partials in rank order.  No float
+// atomics: a run repeats bit for bit.
+//
+// Bound on the H100: the bytes of memory and mtb (B*T*(Mem + A) bf16,
+// 5.4 MB at B=50, T=128) and the rest, 1.69 us at 3.35 TB/s.  What costs
+// is latency: one block a batch row would fill 50 of 132 SMs at B=50 and
+// wait on each dependent load in turn, so T=128 runs 8 CTAs of 16
+// positions a row (400 CTAs at B=50), each with all its loads in flight at
+// once and three cluster barriers.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float energy_tanh(const float* s_cum,
-                                             const float* s_lc,
-                                             const float* s_q, int t, int a,
-                                             int A, int K, float mtb) {
-  float loc = 0.0f;
-  for (int k = 0; k < K; ++k) loc = fmaf(s_cum[t + k], s_lc[k * A + a], loc);
-  const float z = round_bf16(round_bf16(round_bf16(loc) + s_q[a]) + mtb);
-  return round_bf16(tanhf(z));
-}
+constexpr int TA_THREADS = 256, TA_WARPS = TA_THREADS / 32;
 
-// ---------------------------------------------------------------------------
-// train_attention: one block per batch row.  Energy, masked softmax,
-// w -> the weights stream, cum (before) -> its bf16 stream, cum += w,
-// ctx[m] = sum_t bf16(mem[t, m] * bf16(w[t])) -> the float32 carry and bf16
-// copies into up to three concat rows.
-// ---------------------------------------------------------------------------
-constexpr int ATT_THREADS = 256;
+// shared-memory layout of train_attention_kernel (byte offsets)
+struct TaLayout {
+  int ld, ldm;
+  CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
+  size_t lc, mtb, mem, q, v, ep, e, cumf, mask, cum, stat, red, ctxp, cpart,
+      total;
+  __host__ __device__ TaLayout(int tile, int A, int Mem)
+      : cs(Mem, TA_THREADS) {
+    ld = A + 8;    // rows of lc
+    ldm = A + 8;   // rows of the mtb tile: eight rows g in distinct banks
+    lc = 0;
+    mtb = lc + align16((size_t)BAND_K * ld * 2);
+    mem = mtb + align16((size_t)tile * ldm * 2);
+    q = mem + align16((size_t)tile * Mem * 2);
+    v = q + align16((size_t)A * 4);
+    ep = v + align16((size_t)A * 4);
+    e = ep + align16((size_t)TA_WARPS * tile * 4);
+    cumf = e + align16((size_t)tile * 4);
+    mask = cumf + align16((size_t)tile * 4);
+    cum = mask + align16((size_t)tile * 4);
+    stat = cum + align16((size_t)(tile + BAND_K) * 2);
+    red = stat + 16;
+    ctxp = red + 32 * 4;
+    cpart = ctxp + align16((size_t)Mem * 4);
+    total = cpart + align16(cs.scratch_floats(Mem) * 4);
+  }
+};
 
-__global__ void __launch_bounds__(ATT_THREADS)
+__global__ void __launch_bounds__(TA_THREADS)
 train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
                        const bf16* __restrict__ memory,
                        const bf16* __restrict__ mtb,
@@ -267,73 +324,171 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
                        bf16* __restrict__ dst0, int ld0,
                        bf16* __restrict__ dst1, int ld1,
                        bf16* __restrict__ dst2, int ld2, int T, int A, int Mem,
-                       int K) {
-  extern __shared__ float sm[];
-  float* s_q = sm;                   // A
-  float* s_v = s_q + A;              // A
-  float* s_lc = s_v + A;             // K * A
-  float* s_cum = s_lc + K * A;       // T + K - 1
-  float* s_e = s_cum + T + K - 1;    // T
-  float* s_red = s_e + T;            // 32
-  const int b = blockIdx.x, tid = threadIdx.x;
+                       int K, int tile, int cl, int vec) {
+  extern __shared__ __align__(16) uint8_t ta_smem[];
+  const TaLayout L(tile, A, Mem);
+  const int ld = L.ld, ldm = L.ldm;
+  bf16* s_lc = reinterpret_cast<bf16*>(ta_smem + L.lc);        // [32][ld]
+  bf16* s_mtb = reinterpret_cast<bf16*>(ta_smem + L.mtb);      // [tile][ldm]
+  bf16* s_mem = reinterpret_cast<bf16*>(ta_smem + L.mem);      // [tile * Mem]
+  float* s_q = reinterpret_cast<float*>(ta_smem + L.q);        // [A]
+  float* s_v = reinterpret_cast<float*>(ta_smem + L.v);        // [A]
+  float* s_ep = reinterpret_cast<float*>(ta_smem + L.ep);      // [WARPS][tile]
+  float* s_e = reinterpret_cast<float*>(ta_smem + L.e);        // [tile]
+  float* s_cumf = reinterpret_cast<float*>(ta_smem + L.cumf);  // [tile]
+  float* s_mask = reinterpret_cast<float*>(ta_smem + L.mask);  // [tile]
+  bf16* s_cum = reinterpret_cast<bf16*>(ta_smem + L.cum);      // [tile + 32]
+  float* s_stat = reinterpret_cast<float*>(ta_smem + L.stat);  // [4]
+  float* s_red = reinterpret_cast<float*>(ta_smem + L.red);    // [32]
+  float* s_ctxp = reinterpret_cast<float*>(ta_smem + L.ctxp);  // [Mem]
+  float* s_cpart = reinterpret_cast<float*>(ta_smem + L.cpart);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int b = blockIdx.x / cl, t_lo = rank * tile;
+  const int rows = min(tile, T - t_lo);   // >= 1 (the launcher's check)
   const int half = (K - 1) / 2;
-  for (int a = tid; a < A; a += blockDim.x) {
+  const size_t rowT = (size_t)b * T;
+
+  // every read of device memory is issued here, so that their latencies
+  // overlap: lc and the tile's mtb rows (cp.async group 0), the tile's
+  // memory rows (group 1, when 16-byte aligned), then q, v, cum and the mask
+  band_copy_lc(s_lc, ld, lc, K, A);
+  const int a_chunks = A / 8;
+  for (int i = tid; i < tile * a_chunks; i += TA_THREADS) {
+    const int r = i / a_chunks, c = (i - r * a_chunks) * 8;
+    cp_async16(s_mtb + r * ldm + c,
+               r < rows ? mtb + (rowT + t_lo + r) * A + c : mtb,
+               r < rows ? 16 : 0);
+  }
+  cp_async_commit();
+  const bf16* mem_tile = memory + (rowT + t_lo) * Mem;
+  if (vec) {
+    const int bytes = rows * Mem * 2;
+    for (int o = tid * 16; o < bytes; o += TA_THREADS * 16)
+      cp_async16(reinterpret_cast<uint8_t*>(s_mem) + o,
+                 reinterpret_cast<const uint8_t*>(mem_tile) + o,
+                 min(16, bytes - o));
+  }
+  cp_async_commit();
+  for (int a = tid; a < A; a += TA_THREADS) {
     s_q[a] = q[(size_t)b * A + a];
     s_v[a] = v[a];
   }
-  for (int i = tid; i < K * A; i += blockDim.x) s_lc[i] = bf16_at(lc, i);
-  for (int i = tid; i < T + K - 1; i += blockDim.x) {
-    const int t = i - half;
-    s_cum[i] = (t >= 0 && t < T) ? round_bf16(cum[(size_t)b * T + t]) : 0.0f;
+  for (int i = tid; i < rows; i += TA_THREADS) {
+    s_cumf[i] = cum[rowT + t_lo + i];
+    s_mask[i] = mask_add[rowT + t_lo + i];
   }
+  band_stage_cum(s_cum, tile + BAND_K, cum + rowT, t_lo, half, T);
+  cp_async_wait<1>();
   __syncthreads();
 
-  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-  for (int t = warp; t < T; t += n_warps) {
-    float part = 0.0f;
-    for (int a = lane; a < A; a += 32) {
-      const float tz = energy_tanh(s_cum, s_lc, s_q, t, a, A, K,
-                                   bf16_at(mtb, ((size_t)b * T + t) * A + a));
-      part = fmaf(s_v[a], tz, part);
+  // 1. energies: loc = band(cum) @ lc, a warp per 16 channels (two n8
+  // groups) down the tile's 16-row mma tiles; each warp's partial of e
+  for (int mt = 0; mt < tile / 16; ++mt) {
+    uint32_t af[2][4];
+    band_frags(af, s_cum + mt * 16, lane);
+    const int ra = mt * 16 + g, rb = ra + 8;   // rows past T read zeros
+    float e0 = 0.0f, e1 = 0.0f;
+    for (int n0 = warp * 16; n0 < A; n0 += TA_WARPS * 16) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = n0 + 8 * h, a = c0 + 2 * qd;
+        const __nv_bfloat162 m0 =
+            *reinterpret_cast<const __nv_bfloat162*>(s_mtb + ra * ldm + a);
+        const __nv_bfloat162 m1 =
+            *reinterpret_cast<const __nv_bfloat162*>(s_mtb + rb * ldm + a);
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        band_loc(acc, af, s_lc, ld, c0, lane);
+        const float q0 = s_q[a], q1 = s_q[a + 1];
+        const float v0 = s_v[a], v1 = s_v[a + 1];
+        e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
+        e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
+        e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
+        e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
+      }
     }
-    part = warp_sum(part);
-    if (lane == 0) s_e[t] = part + mask_add[(size_t)b * T + t];
+    e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+    e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+    e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+    e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+    if (qd == 0) {
+      s_ep[warp * tile + mt * 16 + g] = e0;
+      s_ep[warp * tile + mt * 16 + g + 8] = e1;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < rows; i += TA_THREADS) {
+    float e = 0.0f;
+    for (int w = 0; w < TA_WARPS; ++w) e += s_ep[w * tile + i];
+    s_e[i] = e + s_mask[i];
   }
   __syncthreads();
 
-  float m = -CUDART_INF_F;
-  for (int t = tid; t < T; t += blockDim.x) m = fmaxf(m, s_e[t]);
-  m = block_reduce<true>(m, s_red);
-  float s = 0.0f;
-  for (int t = tid; t < T; t += blockDim.x) {
-    const float p = expf(s_e[t] - m);
-    s_e[t] = p;
-    s += p;
+  // 2. the row's masked softmax: tile maxima, then tile sums, each combined
+  // in rank order by every CTA
+  float mx = -CUDART_INF_F;
+  for (int i = tid; i < rows; i += TA_THREADS) mx = fmaxf(mx, s_e[i]);
+  mx = block_reduce<true>(mx, s_red);
+  if (tid == 0) s_stat[0] = mx;
+  cluster_sync();
+  if (tid == 0) {
+    float m = -CUDART_INF_F;
+    for (int j = 0; j < cl; ++j) m = fmaxf(m, cluster_peer(s_stat, j)[0]);
+    s_stat[2] = m;
   }
   __syncthreads();
-  s = block_reduce<false>(s, s_red);
-  for (int t = tid; t < T; t += blockDim.x) {
-    const size_t o = (size_t)b * T + t;
-    const float wt = s_e[t] / s;
+  mx = s_stat[2];
+  float sum = 0.0f;
+  for (int i = tid; i < rows; i += TA_THREADS) {
+    const float p = expf(s_e[i] - mx);
+    s_e[i] = p;
+    sum += p;
+  }
+  sum = block_reduce<false>(sum, s_red);
+  if (tid == 0) s_stat[1] = sum;
+  cluster_sync();
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int j = 0; j < cl; ++j) s += cluster_peer(s_stat, j)[1];
+    s_stat[3] = s;
+  }
+  __syncthreads();
+  sum = s_stat[3];
+  for (int i = tid; i < rows; i += TA_THREADS) {
+    const size_t o = rowT + t_lo + i;
+    const float wt = s_e[i] / sum;
     w_out[o] = wt;
-    const float c_old = cum[o];
-    cum_out[o] = __float2bfloat16_rn(c_old);
+    const float c_old = s_cumf[i];
+    if (cum_out != nullptr) cum_out[o] = __float2bfloat16_rn(c_old);
     cum[o] = c_old + wt;
-    s_e[t] = round_bf16(wt);
+    s_e[i] = round_bf16(wt);
   }
   __syncthreads();
 
-  for (int mm = tid; mm < Mem; mm += blockDim.x) {
+  // 3. the context: this tile's partial (from the copy of its memory rows
+  // when aligned), then a share of the columns over the cluster's partials
+  // in rank order
+  cp_async_wait<0>();
+  __syncthreads();
+  ctx_partials(L.cs, s_cpart, vec ? s_mem : mem_tile, s_e, rows, Mem, vec,
+               TA_THREADS);
+  __syncthreads();
+  for (int m = tid; m < Mem; m += TA_THREADS)
+    s_ctxp[m] = ctx_column(L.cs, s_cpart, Mem, m);
+  cluster_sync();
+  const int share = (Mem + cl - 1) / cl, m_hi = min(Mem, (rank + 1) * share);
+  for (int m = rank * share + tid; m < m_hi; m += TA_THREADS) {
     float acc = 0.0f;
-    for (int t = 0; t < T; ++t)
-      acc += round_bf16(bf16_at(memory, ((size_t)b * T + t) * Mem + mm) *
-                        s_e[t]);
-    ctx[(size_t)b * Mem + mm] = acc;
+    for (int j = 0; j < cl; ++j) acc += cluster_peer(s_ctxp, j)[m];
+    ctx[(size_t)b * Mem + m] = acc;
     const bf16 cb = __float2bfloat16_rn(acc);
-    dst0[(size_t)b * ld0 + mm] = cb;
-    dst1[(size_t)b * ld1 + mm] = cb;
-    if (dst2 != nullptr) dst2[(size_t)b * ld2 + mm] = cb;
+    dst0[(size_t)b * ld0 + m] = cb;
+    dst1[(size_t)b * ld1 + m] = cb;
+    if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
   }
+  // no CTA leaves while its peers may still read its shared memory
+  cluster_sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -824,56 +979,213 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
 }
 
 // ---------------------------------------------------------------------------
-// bwd_prenet: one block per batch row.  Layers in reverse:
-//   da = (out > 0) ? dx * scale : 0     (post-dropout output > 0 replays both
-//                                        the ReLU and the dropout mask)
-//   dx = bf16(da) @ W^T
+// bwd_prenet: the prenet backward (ops/pallas_train_decoder.py:944-957),
+// layers in reverse:
+//   da = (out > 0) ? dx * scale : 0    -> the da stream (bf16); the
+//                                         post-dropout output > 0 replays
+//                                         both the ReLU and the dropout mask
+//   dx = bf16(da) @ W^T                (W [in, out] as it lies: the [N, K]
+//                                       operand of mma.sync, K = out = P)
 // then the frame cotangent: dshift at a teacher step, the dframe carry
 // otherwise.
+//
+// One launch: a thread-block cluster of `cl` CTAs for each BP_ROWS = 16
+// rows (one mma tile of rows; 4 clusters at B=50, 32 CTAs).  CTA `rank`
+// owns the columns [rank * np, rank * np + np) of P and [rank * n0,
+// rank * n0 + n0) of the input frame's M (whole 8-column mma tiles:
+// ops/fused_train_decoder.py::bwd_prenet_split).  At the start it copies,
+// with cp.async, its columns of dx_in and of every layer's output (the
+// masks) and its rows of every layer's weight (W_l[i, :] for its columns i
+// of the layer's input), so that all the copies are in flight at once and
+// the weights' overlap the first mask.  Then, for each layer from the top:
+// its columns of da (from dx_in for the top layer, from its own product's
+// accumulators below) go to the da stream and, in bf16, to its shared
+// slice; after a cluster barrier it gathers the full bf16 da rows from its
+// peers' slices (16-byte reads of distributed shared memory, four in
+// flight a thread) and computes its columns of dx = da @ W^T on mma.sync
+// m16n8k16 with float32 sums.  Two slices alternate, so one barrier a
+// layer suffices.  No float atomics: a run repeats bit for bit.
+//
+// Bound on the H100: 2*B*(M*P + (n-1)*P*P) operations (8.6 M at B=50, two
+// layers) and the weights, masks and cotangents once (0.35 MB), 0.10 us:
+// what costs is latency, so each CTA reads only its slices of the weights
+// (25 KB at the flagship's widths), all copies in flight at once, and a
+// layer costs one cluster barrier, one gather and one 16-step mma chain.
 // ---------------------------------------------------------------------------
-__global__ void bwd_prenet_kernel(const float* __restrict__ dx_in,
-                                  const bf16* __restrict__ pre_s,
-                                  long long pre_stride,
-                                  const bf16* __restrict__ w_all,
-                                  bf16* __restrict__ da_s,
-                                  long long da_stride,
-                                  bf16* __restrict__ dshift,
-                                  float* __restrict__ dframe, int teacher,
-                                  int in_dim, int P, int n_layers,
-                                  float scale) {
-  extern __shared__ float smem[];
-  const int width = in_dim > P ? in_dim : P;
-  float* s_dx = smem;           // width
-  float* s_da = smem + width;   // P
-  const int b = blockIdx.x;
-  for (int o = threadIdx.x; o < P; o += blockDim.x)
-    s_dx[o] = dx_in[(size_t)b * P + o];
+constexpr int BP_ROWS = 16, BP_THREADS = 256, BP_WARPS = BP_THREADS / 32;
+
+// shared-memory layout of bwd_prenet_kernel (byte offsets)
+struct BpLayout {
+  int kp, ldw, ldo;
+  size_t w, pre, dx, a, own, total;
+  __host__ __device__ BpLayout(int P, int np, int n0, int n_layers) {
+    kp = (P + 31) / 32 * 32;   // K of every layer's product, zero-padded
+    ldw = kp + 8;              // bf16 a row of the weights and of da
+    ldo = np + 8;              // bf16 a row of a slice
+    w = 0;
+    pre = w + align16((size_t)(n0 + (n_layers - 1) * np) * ldw * 2);
+    dx = pre + align16((size_t)n_layers * BP_ROWS * ldo * 2);
+    a = dx + align16((size_t)BP_ROWS * np * 4);
+    own = a + align16((size_t)BP_ROWS * ldw * 2);
+    total = own + 2 * align16((size_t)BP_ROWS * ldo * 2);
+  }
+};
+
+__global__ void __launch_bounds__(BP_THREADS)
+bwd_prenet_kernel(const float* __restrict__ dx_in,
+                  int dvec, const bf16* __restrict__ pre_s,
+                  long long pre_stride, int pvec,
+                  const bf16* __restrict__ w_all, int wvec,
+                  bf16* __restrict__ da_s, long long da_stride,
+                  bf16* __restrict__ dshift, float* __restrict__ dframe,
+                  int teacher, int B, int in_dim, int P, int n_layers,
+                  float scale, int cl, int np, int n0) {
+  extern __shared__ __align__(16) uint8_t bp_smem[];
+  const BpLayout L(P, np, n0, n_layers);
+  const int ldw = L.ldw, ldo = L.ldo, kp = L.kp;
+  bf16* s_w = reinterpret_cast<bf16*>(bp_smem + L.w);      // layers' rows
+  bf16* s_pre = reinterpret_cast<bf16*>(bp_smem + L.pre);  // [n][ROWS][ldo]
+  float* s_dx = reinterpret_cast<float*>(bp_smem + L.dx);  // [ROWS][np]
+  bf16* s_a = reinterpret_cast<bf16*>(bp_smem + L.a);      // [ROWS][ldw]
+  bf16* s_own = reinterpret_cast<bf16*>(bp_smem + L.own);  // 2 x [ROWS][ldo]
+  const size_t own_slot = align16((size_t)BP_ROWS * ldo * 2) / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int row0 = (blockIdx.x / cl) * BP_ROWS;
+  const int mtiles = (min(BP_ROWS, B - row0) + 15) / 16;
+  const int c_lo = rank * np;   // this CTA's columns of P
+
+  // this CTA's columns of dx_in and of every layer's output, then its rows
+  // of every layer's weight (layer 0: its n0 columns of the input frame),
+  // zero outside the matrices
+  for (int i = tid; i < BP_ROWS * np / 4; i += BP_THREADS) {
+    const int r = i / (np / 4), c = (i % (np / 4)) * 4;
+    const int row = row0 + r, col = c_lo + c, n = min(4, P - col);
+    float* dst = s_dx + r * np + c;
+    if (dvec) {
+      const bool in = row < B && n > 0;
+      cp_async16(dst, in ? dx_in + (size_t)row * P + col : dx_in,
+                 in ? 4 * n : 0);
+    } else {
+      for (int q = 0; q < 4; ++q)
+        dst[q] = row < B && q < n ? dx_in[(size_t)row * P + col + q] : 0.0f;
+    }
+  }
+  const int chunks_o = np / 8;
+  for (int i = tid; i < n_layers * BP_ROWS * chunks_o; i += BP_THREADS) {
+    const int l = i / (BP_ROWS * chunks_o), r = (i / chunks_o) % BP_ROWS;
+    const int c = (i % chunks_o) * 8;
+    load8(s_pre + ((size_t)l * BP_ROWS + r) * ldo + c,
+          pre_s + (size_t)l * pre_stride, P, row0 + r, c_lo + c, B, P, pvec);
+  }
+  cp_async_commit();
+  const int chunks_k = kp / 8;
+  for (int l = 0, off = 0; l < n_layers; ++l) {
+    const int n_l = l == 0 ? n0 : np, k_l = l == 0 ? in_dim : P;
+    const bf16* w_l =
+        w_all + (l == 0 ? 0 : (size_t)in_dim * P + (size_t)(l - 1) * P * P);
+    for (int i = tid; i < n_l * chunks_k; i += BP_THREADS) {
+      const int r = i / chunks_k, k = (i % chunks_k) * 8;
+      load8(s_w + (size_t)(off + r) * ldw + k, w_l, P, rank * n_l + r, k,
+            k_l, P, wvec);
+    }
+    off += n_l;
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  for (int layer = n_layers - 1; layer >= 0; --layer) {
-    const int k_in = layer == 0 ? in_dim : P;
-    const bf16* w =
-        w_all + (layer == 0 ? 0 : (size_t)in_dim * P + (size_t)(layer - 1) * P * P);
-    for (int o = threadIdx.x; o < P; o += blockDim.x) {
-      const size_t e = (size_t)layer * da_stride + (size_t)b * P + o;
-      const float out = bf16_at(pre_s, (size_t)layer * pre_stride + (size_t)b * P + o);
-      const float da = out > 0.0f ? s_dx[o] * scale : 0.0f;
-      da_s[e] = __float2bfloat16_rn(da);
-      s_da[o] = round_bf16(da);
+
+  // the top layer's da: this CTA's columns from dx_in
+  {
+    const int l = n_layers - 1;
+    for (int i = tid; i < BP_ROWS * np; i += BP_THREADS) {
+      const int r = i / np, c = i % np, row = row0 + r, col = c_lo + c;
+      float da = 0.0f;
+      if (row < B && col < P) {
+        const float out = __bfloat162float(
+            s_pre[((size_t)l * BP_ROWS + r) * ldo + c]);
+        da = out > 0.0f ? s_dx[r * np + c] * scale : 0.0f;
+        da_s[l * da_stride + (size_t)row * P + col] = __float2bfloat16_rn(da);
+      }
+      s_own[(size_t)r * ldo + c] = __float2bfloat16_rn(da);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < k_in; i += blockDim.x) {
-      float acc = 0.0f;
-      for (int o = 0; o < P; ++o)
-        acc = fmaf(s_da[o], bf16_at(w, (size_t)i * P + o), acc);
-      s_dx[i] = acc;
+  }
+
+  for (int l = n_layers - 1; l >= 0; --l) {
+    const bf16* own = s_own + ((n_layers - 1 - l) & 1) * own_slot;
+    bf16* nxt = s_own + ((n_layers - l) & 1) * own_slot;
+    // every slice of this layer's da is written: gather the full rows
+    cluster_sync();
+    const int n_chunks = mtiles * 16 * (kp / 8);
+    for (int i0 = tid; i0 < n_chunks; i0 += 4 * BP_THREADS) {
+      uint4 u[4];   // four loads in flight before their stores
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + q * BP_THREADS;
+        const int r = i / (kp / 8), col = (i % (kp / 8)) * 8, j = col / np;
+        u[q] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < n_chunks && j < cl)
+          u[q] = *reinterpret_cast<const uint4*>(
+              cluster_peer(own, j) + (size_t)r * ldo + col - j * np);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + q * BP_THREADS;
+        if (i < n_chunks)
+          *reinterpret_cast<uint4*>(s_a + (size_t)(i / (kp / 8)) * ldw +
+                                    (i % (kp / 8)) * 8) = u[q];
+      }
     }
+    if (l == n_layers - 1) cp_async_wait<0>();   // the weights
     __syncthreads();
+
+    // this CTA's columns of dx = da @ W_l^T: a warp per (m tile, n8 tile)
+    const int n_l = l == 0 ? n0 : np, k_l = l == 0 ? in_dim : P;
+    const int col0 = rank * n_l;
+    const bf16* w_l = s_w + (size_t)(l == 0 ? 0 : n0 + (l - 1) * np) * ldw;
+    for (int pair = warp; pair < mtiles * (n_l / 8); pair += BP_WARPS) {
+      const int mt = pair / (n_l / 8), nt = pair % (n_l / 8);
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int kk = 0; kk < kp; kk += 32) {
+        uint32_t a0[4], a1[4], bw[4];
+        const bf16* ar = s_a + (size_t)(mt * 16 + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * ldw +
+                         kk + (lane >> 4) * 8;
+        ldsm_x4(a0, ar);
+        ldsm_x4(a1, ar + 16);
+        ldsm_x4(bw, w_l + (size_t)(nt * 8 + (lane & 7)) * ldw + kk +
+                        (lane >> 3) * 8);
+        mma_bf16(acc, a0, bw);
+        mma_bf16(acc, a1, bw + 2);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = mt * 16 + g + 8 * (e >> 1);
+        const int c = nt * 8 + 2 * qd + (e & 1);
+        const int row = row0 + r, col = col0 + c;
+        const bool in = row < B && col < k_l;
+        if (l > 0) {
+          // the next layer down's da, its columns of P
+          float da = 0.0f;
+          if (in) {
+            const float out = __bfloat162float(
+                s_pre[((size_t)(l - 1) * BP_ROWS + r) * ldo + c]);
+            da = out > 0.0f ? acc[e] * scale : 0.0f;
+            da_s[(l - 1) * da_stride + (size_t)row * P + col] =
+                __float2bfloat16_rn(da);
+          }
+          nxt[(size_t)r * ldo + c] = __float2bfloat16_rn(da);
+        } else if (in) {
+          const size_t o = (size_t)row * in_dim + col;
+          dshift[o] = __float2bfloat16_rn(teacher ? acc[e] : 0.0f);
+          dframe[o] = teacher ? 0.0f : acc[e];
+        }
+      }
+    }
   }
-  for (int i = threadIdx.x; i < in_dim; i += blockDim.x) {
-    const size_t o = (size_t)b * in_dim + i;
-    dshift[o] = __float2bfloat16_rn(teacher ? s_dx[i] : 0.0f);
-    dframe[o] = teacher ? 0.0f : s_dx[i];
-  }
+  // no CTA leaves while its peers may still read its shared memory
+  cluster_sync();
 }
 
 }  // namespace
@@ -907,11 +1219,12 @@ int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
                      void* act, void* c_out, void* h_dst0, int ld0,
                      void* h_dst1, int ld1, unsigned seed0, unsigned seed1,
                      unsigned salt_h, unsigned salt_c, unsigned th_h,
-                     unsigned th_c, int mode, float scale, void* stream) {
+                     unsigned th_c, int mode, float scale, float zh, float zc,
+                     void* stream) {
   const LstmEpi epi{(const float*)bias, (float*)h, (float*)c, (bf16*)act,
                     (bf16*)c_out, (bf16*)h_dst0, ld0, (bf16*)h_dst1, ld1, H,
                     Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode,
-                        scale}};
+                        scale, zh, zc}};
   return (int)gate_tile_launch<false>(row, 2 * ld_row, w, 2 * K, 2 * K, B, H,
                                       epi, (cudaStream_t)stream);
 }
@@ -961,22 +1274,30 @@ int bwd_gemm_launch(const void* a, int lda, int a_km, const void* b, int ldb,
                                      scratch, epi, stream);
 }
 
+// the row's positions in `cl` tiles of `tile` (att_bwd_tiles); A a multiple
+// of 16, K <= 32 taps, mtb and lc 16-byte aligned
 int train_attention_launch(const void* q, void* cum, const void* memory,
                            const void* mtb, const void* mask_add,
                            const void* lc, const void* v, void* w_out,
                            void* cum_out, void* ctx, void* dst0, int ld0,
                            void* dst1, int ld1, void* dst2, int ld2, int B,
-                           int T, int A, int Mem, int K, void* stream) {
-  const size_t smem =
-      (size_t)(2 * A + K * A + (T + K - 1) + T + 32) * sizeof(float);
-  cudaError_t err = allow_smem(train_attention_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  train_attention_kernel<<<B, ATT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (float*)cum, (const bf16*)memory, (const bf16*)mtb,
-      (const float*)mask_add, (const bf16*)lc, (const float*)v,
-      (float*)w_out, (bf16*)cum_out, (float*)ctx, (bf16*)dst0, ld0,
-      (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A, Mem, K);
-  return (int)cudaGetLastError();
+                           int T, int A, int Mem, int K, int tile, int cl,
+                           void* stream) {
+  if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || K < 1 ||
+      K > BAND_K || tile <= 0 || tile % 16 != 0 || cl < 1 || cl > 8 ||
+      (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
+      (uintptr_t)mtb % 16 != 0 || (uintptr_t)lc % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const TaLayout L(tile, A, Mem);
+  const int vec =
+      (uintptr_t)memory % 16 == 0 && ((long long)T * Mem) % 8 == 0;
+  return (int)launch_cluster(
+      train_attention_kernel, B * cl, TA_THREADS, L.total, cl,
+      (cudaStream_t)stream, (const float*)q, (float*)cum,
+      (const bf16*)memory, (const bf16*)mtb, (const float*)mask_add,
+      (const bf16*)lc, (const float*)v, (float*)w_out, (bf16*)cum_out,
+      (float*)ctx, (bf16*)dst0, ld0, (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A,
+      Mem, K, tile, cl, vec);
 }
 
 int bwd_head_launch(const void* dspec, const void* dstop, const void* dframe,
@@ -1004,12 +1325,13 @@ int bwd_cell_launch(const void* act, const void* c_prev, const void* dh_tot,
                     void* dc, void* dg, void* dh_reg, int B, int H,
                     unsigned seed0, unsigned seed1, unsigned salt_h,
                     unsigned salt_c, unsigned th_h, unsigned th_c, int mode,
-                    float scale, void* stream) {
+                    float scale, float zh, float zc, void* stream) {
+  if (mode == 3) return (int)cudaErrorInvalidValue;   // eval: no backward
   const int n = B * H;
   bwd_cell_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const bf16*)act, (const bf16*)c_prev, (const float*)dh_tot,
       (float*)dc, (bf16*)dg, (float*)dh_reg, B, H,
-      Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale});
+      Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale, zh, zc});
   return (int)cudaGetLastError();
 }
 
@@ -1036,20 +1358,28 @@ int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
       tile, cl);
 }
 
+// the columns of P and of the input frame in `cl` shares of np and n0
+// (bwd_prenet_split); every layer's weight rows must fit in shared memory
 int bwd_prenet_launch(const void* dx, const void* pre_s, long long pre_stride,
                       const void* w_all, void* da_s, long long da_stride,
                       void* dshift, void* dframe, int teacher, int B,
-                      int in_dim, int P, int n_layers, float scale,
-                      void* stream) {
-  const int width = in_dim > P ? in_dim : P;
-  const size_t smem = (size_t)(width + P) * sizeof(float);
-  cudaError_t err = allow_smem(bwd_prenet_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd_prenet_kernel<<<B, 256, smem, (cudaStream_t)stream>>>(
-      (const float*)dx, (const bf16*)pre_s, pre_stride, (const bf16*)w_all,
-      (bf16*)da_s, da_stride, (bf16*)dshift, (float*)dframe, teacher, in_dim,
-      P, n_layers, scale);
-  return (int)cudaGetLastError();
+                      int in_dim, int P, int n_layers, float scale, int cl,
+                      int np, int n0, void* stream) {
+  if (B <= 0 || in_dim <= 0 || P <= 0 || n_layers < 1 || cl < 1 || cl > 8 ||
+      np <= 0 || np % 8 != 0 || n0 <= 0 || n0 % 8 != 0 ||
+      (long long)cl * np < P || (long long)cl * n0 < in_dim)
+    return (int)cudaErrorInvalidValue;
+  const BpLayout L(P, np, n0, n_layers);
+  const int dvec = (uintptr_t)dx % 16 == 0 && P % 4 == 0;
+  const int pvec = (uintptr_t)pre_s % 16 == 0 && P % 8 == 0 &&
+                   pre_stride % 8 == 0;
+  const int wvec = (uintptr_t)w_all % 16 == 0 && P % 8 == 0;
+  return (int)launch_cluster(
+      bwd_prenet_kernel, (B + BP_ROWS - 1) / BP_ROWS * cl, BP_THREADS,
+      L.total, cl, (cudaStream_t)stream, (const float*)dx, dvec,
+      (const bf16*)pre_s, pre_stride, pvec, (const bf16*)w_all, wvec,
+      (bf16*)da_s, da_stride, (bf16*)dshift, (float*)dframe, teacher, B,
+      in_dim, P, n_layers, scale, cl, np, n0);
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@
 // that both decoders run: the fused-gate LSTM product (gate_tile_kernel)
 // and the split-K product of every other weight (splitk_kernel, with the
 // frame and stop head's epilogue HeadOut), each templated on its epilogue;
-// then the thread-block-cluster helpers and the location-conv band routine
-// of the attention kernels (band_*).
+// then the thread-block-cluster helpers, the location-conv band routine of
+// the attention kernels (band_*) and the forward attention's context sum
+// (ctx_*).
 //
 // The two products read their fragments in the same byte layout: an A
 // fragment is rows g and g+8 (g = lane / 4) of a 16-row tile, 4 bytes at
@@ -619,6 +620,18 @@ __device__ void band_stage_lc(bf16* s_lc, int ld, const bf16* lc, int K,
   }
 }
 
+// the same with cp.async (the caller commits and waits); lc and its rows
+// 16-byte aligned (A a multiple of 8)
+__device__ void band_copy_lc(bf16* s_lc, int ld, const bf16* lc, int K,
+                             int A) {
+  const int chunks = A / 8;
+  for (int i = threadIdx.x; i < BAND_K * chunks; i += blockDim.x) {
+    const int k = i / chunks, c = (i - k * chunks) * 8;
+    cp_async16(s_lc + k * ld + c, k < K ? lc + (size_t)k * A + c : lc,
+               k < K ? 16 : 0);
+  }
+}
+
 // s_cum[i] = bf16(cum[t0 + i - half]) for i < n, zero outside [0, T)
 template <class Src>
 __device__ void band_stage_cum(bf16* s_cum, int n, const Src* cum, int t0,
@@ -673,6 +686,88 @@ __device__ __forceinline__ void band_p(float (*acc)[4], const bf16* s_dz,
 __device__ __forceinline__ float band_energy_tanh(float loc, float q,
                                                   float mtb) {
   return round_bf16(tanhf(round_bf16(round_bf16(round_bf16(loc) + q) + mtb)));
+}
+
+// ---------------------------------------------------------------------------
+// The context sum of both forward attention kernels over a block of `rows`
+// consecutive memory rows of M bf16 (K1's lsa_attention: a batch row; K2's
+// train_attention: a tile of one):
+//   ctx[m] = sum_r bf16(mem[r, m] * w[r])      (w: bf16 values in float)
+// A row of M bf16 is 16-byte aligned only every `period` rows (M = 292:
+// 584 bytes, period 2), so the block is read as a flat array of 16-byte
+// chunks, `chunks` of them a period: the thread of slot (group, chunk
+// column c) walks the periods group, group + groups, ... with 16-byte loads
+// (`vec`: the block starts 16-byte aligned), summing 8 float32 for its
+// chunk column into the scratch [groups][period * M] (ctx_partials); the
+// sum of column m over the groups and the period's rows is then taken in a
+// fixed order (ctx_column).
+// ---------------------------------------------------------------------------
+struct CtxScheme {
+  int period, chunks, groups;
+  __host__ __device__ CtxScheme(int M, int threads) {
+    const int g8 = M % 8 == 0 ? 8 : M % 4 == 0 ? 4 : M % 2 == 0 ? 2 : 1;
+    period = 8 / g8;
+    chunks = period * M / 8;
+    groups = threads / chunks > 0 ? threads / chunks : 1;
+  }
+  __host__ __device__ size_t scratch_floats(int M) const {
+    return (size_t)groups * period * M;
+  }
+};
+
+__device__ __forceinline__ void ctx_partials(
+    const CtxScheme& S, float* __restrict__ scratch,
+    const bf16* __restrict__ mem, const float* __restrict__ w, int rows,
+    int M, int vec, int threads) {
+  const int P = S.period, C = S.chunks, G = S.groups, PM = P * M;
+  const int n_per = (rows + P - 1) / P;
+  const long long n_el = (long long)rows * M;
+  for (int slot = threadIdx.x; slot < G * C; slot += threads) {
+    const int c = slot % C, grp = slot / C;
+    int rr[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) rr[j] = (8 * c + j) / M;
+    float acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+#pragma unroll 2
+    for (int p = grp; p < n_per; p += G) {
+      const long long base = (long long)p * PM + 8 * c;
+      float x[8];
+      if (vec && base + 8 <= n_el) {
+        const uint4 u = *reinterpret_cast<const uint4*>(mem + base);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          x[2 * j] = __low2float(h2[j]);
+          x[2 * j + 1] = __high2float(h2[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          x[j] = base + j < n_el ? __bfloat162float(mem[base + j]) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = p * P + rr[j];
+        const float wt = r < rows ? w[r] : 0.0f;
+        acc[j] += round_bf16(x[j] * wt);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) scratch[grp * PM + 8 * c + j] = acc[j];
+  }
+}
+
+// column m of the context from ctx_partials' scratch (after a barrier)
+__device__ __forceinline__ float ctx_column(const CtxScheme& S,
+                                            const float* scratch, int M,
+                                            int m) {
+  const int PM = S.period * M;
+  float acc = 0.0f;
+  for (int grp = 0; grp < S.groups; ++grp)
+    for (int r = 0; r < S.period; ++r) acc += scratch[grp * PM + r * M + m];
+  return acc;
 }
 
 }  // namespace

@@ -9,9 +9,10 @@ free-running step is ``ops/fused_decoder.py``, whose plain PyTorch chunk
 ``Decoder.decode_chunk`` runs with exact gates, as the counterpart of the
 JAX package's ``lax.scan`` decode; the serving path runs the same chunk
 through ``fused_decoder.decode_chunk`` (the CUDA kernels on the card).
-``Decoder.forward`` is the teacher-forced training decode of
+``Decoder.forward`` is the teacher-forced decode of
 ``ops/fused_train_decoder.py`` (its kernels on the card, its plain version
-on the CPU), the JAX package's fused train branch.
+on the CPU), the JAX package's fused train branch, in train or eval mode as
+the module is.
 """
 
 from __future__ import annotations
@@ -118,12 +119,16 @@ class Decoder(nn.Module):
                 target: torch.Tensor, teacher: Sequence[int],
                 seeds: Tuple[int, int], speakers: Optional[torch.Tensor],
                 languages: Optional[torch.Tensor]):
-        """The teacher-forced training decode.  ``encoded`` [B, T, C]
-        float32, ``target`` [B, F, M] mel frames, ``teacher`` F flags (1:
-        the step reads the previous target frame, 0: its own previous
-        prediction), ``seeds`` the two uint32 seeds of the dropout and
-        zoneout hash -> ``(spec [B, F, M], stop logits [B, F], alignments
-        [B, F, T])``, float32."""
+        """The teacher-forced decode.  ``encoded`` [B, T, C] float32,
+        ``target`` [B, F, M] mel frames, ``teacher`` F flags (1: the step
+        reads the previous target frame, 0: its own previous prediction),
+        ``seeds`` the two uint32 seeds of the dropout and zoneout hash ->
+        ``(spec [B, F, M], stop logits [B, F], alignments [B, F, T])``,
+        float32.  In train mode (``self.training``) it is differentiable;
+        in eval mode it is the JAX package's ``Tacotron(train=False)``
+        decode (zoneout interpolated, no dropout on the LSTM outputs,
+        prenet dropout on), for evaluation and GTA, and its outputs carry
+        no ``grad_fn``."""
         t = encoded.shape[1]
         memory, mt = self.prepare_memory(encoded, speakers, languages)
         mask = (torch.arange(t, device=encoded.device)[None, :]
@@ -131,7 +136,7 @@ class Decoder(nn.Module):
         shifted = torch.cat([torch.zeros_like(target[:, :1]),
                              target[:, :-1]], dim=1)
         cfg = fused_train_decoder.TrainConfig.from_hp(
-            self.hp, self.memory_dim, self.dtype)
+            self.hp, self.memory_dim, self.dtype, train=self.training)
         return fused_train_decoder.decode(self.cell, cfg, memory, mt, mask,
                                           shifted, teacher, seeds)
 

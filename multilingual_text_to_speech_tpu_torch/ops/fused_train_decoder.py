@@ -16,7 +16,10 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   epilogue), ``train_query`` (``bf16(h_att @ Wq)``), ``train_attention``
   (location conv, energy, softmax, cumulative weights, context) and
   ``train_head``; the query and head products split K over the grid like
-  ``bwd_gemm`` below;
+  ``bwd_gemm`` below; ``train_attention`` splits a batch row over a
+  thread-block cluster of CTAs over tiles of its positions
+  (``att_bwd_tiles``, as ``att_bwd``), its location conv on the tensor
+  cores as a band product;
 - backward (K3): ``bwd_head`` (the head backward, one tensor-core launch
   over column tiles of ``[h_gen | ctx]``), ``bwd_cell`` (the LSTM backward
   over the stored i|f|g|o activations, masks regenerated from the hash),
@@ -27,8 +30,15 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   dlc and dv accumulators per batch row; a cluster of CTAs per batch row
   over tiles of its positions, ``att_bwd_tiles``, the location conv's
   three products on the tensor cores as band products) and
-  ``bwd_prenet``; after the last step one ``bwd_gemm`` reduces dWq over
-  all steps and rows.
+  ``bwd_prenet`` (one clustered launch over all rows, each CTA a column
+  slice of every layer, ``bwd_prenet_split``, the products on the tensor
+  cores); after the last step one ``bwd_gemm`` reduces dWq over all steps
+  and rows.
+
+An eval forward (``TrainConfig.train`` False, the JAX package's
+``make_train_decode_fn(train=False)``) runs the same K2 kernels with
+zoneout's deterministic interpolation, no dropout on the LSTM outputs
+(prenet dropout stays on) and no residual streams; it has no backward.
 
 The concat rows the gate products read are residual streams themselves:
 ``att_in[s] = [x_s | ctx_{s-1} | h_att_{s-1}]``, ``gen_in[s] = [h_att_s |
@@ -121,9 +131,11 @@ class TrainConfig:
     zoneout_c: float
     use_zoneout: bool
     dtype: torch.dtype
+    train: bool = True        # False: the eval/GTA forward, no backward
 
     @classmethod
-    def from_hp(cls, hp, mem_dim: int, dtype: torch.dtype) -> "TrainConfig":
+    def from_hp(cls, hp, mem_dim: int, dtype: torch.dtype,
+                train: bool = True) -> "TrainConfig":
         zo = hp.decoder_regularization == "zoneout"
         return cls(
             hidden=int(hp.decoder_dimension), mem_dim=int(mem_dim),
@@ -134,7 +146,7 @@ class TrainConfig:
             dropout_rate=float(hp.dropout),
             zoneout_h=float(hp.zoneout_hidden if zo else hp.dropout_hidden),
             zoneout_c=float(hp.zoneout_cell) if zo else 0.0,
-            use_zoneout=zo, dtype=dtype)
+            use_zoneout=zo, dtype=dtype, train=bool(train))
 
     @property
     def ka(self) -> int:                       # [x | ctx | h_att]
@@ -149,21 +161,25 @@ class TrainConfig:
         return self.hidden + self.mem_dim
 
     def reg(self, which: str, seeds: Seeds, gs: int) -> Tuple:
-        """(seed0, seed1, salt_h, salt_c, thresh_h, thresh_c, mode, scale)
-        of one LSTM's regularization at global step ``gs``; mode 0 none,
-        1 zoneout, 2 dropout on h."""
+        """(seed0, seed1, salt_h, salt_c, thresh_h, thresh_c, mode, scale,
+        zh, zc) of one LSTM's regularization at global step ``gs``; in
+        train mode, mode 0 none, 1 zoneout, 2 dropout on h; in eval mode, 3
+        zoneout's interpolation ``z * old + (1 - z) * new`` and 0 for a
+        dropout cell (``pallas_train_decoder.py:376-384``)."""
         n = self.n_prenet
         site_h, site_c = (n, n + 1) if which == "att" else (n + 2, n + 3)
         base = gs * (n + 4)
         zh, zc = self.zoneout_h, self.zoneout_c
-        if self.use_zoneout:
+        if not self.train:
+            mode = 3 if self.use_zoneout else 0
+        elif self.use_zoneout:
             mode = 0 if zh == 0.0 and zc == 0.0 else 1
         else:
             mode = 0 if zh == 0.0 else 2
         return (seeds[0] & _M32, seeds[1] & _M32, (base + site_h) & _M32,
                 (base + site_c) & _M32, keep_threshold(zh),
                 keep_threshold(zc), mode,
-                1.0 / (1.0 - zh) if zh < 1.0 else 0.0)
+                1.0 / (1.0 - zh) if zh < 1.0 else 0.0, zh, zc)
 
     def prenet_salt(self, gs: int) -> int:
         return (gs * (self.n_prenet + 4)) & _M32
@@ -262,22 +278,26 @@ def _masks(shape, reg, which: int, device):
 
 
 def train_gate_lstm_plain(row, w, b, h, c, reg):
-    """gates = row @ W^T + b -> LSTM step -> regularization.  ``row`` [B,
-    K_pad] in the compute type, ``w`` [4H, K_pad], ``h``/``c`` the float32
-    carries -> (h, c, i|f|g|o activations [B, 4H])."""
+    """gates = row @ W^T + b -> LSTM step -> regularization (``reg``:
+    ``TrainConfig.reg``).  ``row`` [B, K_pad] in the compute type, ``w``
+    [4H, K_pad], ``h``/``c`` the float32 carries -> (h, c, i|f|g|o
+    activations [B, 4H])."""
     gates = _mm(row, w.t()) + b
     gi, gf, gg, go = gates.chunk(4, dim=1)
     gi, gf, go, gg = (torch.sigmoid(gi), torch.sigmoid(gf),
                       torch.sigmoid(go), torch.tanh(gg))
     c_new = gf * c + gi * gg
     h_new = go * torch.tanh(c_new)
-    mode, scale = reg[6], reg[7]
+    mode, scale, zh, zc = reg[6:10]
     if mode == 1:
         h_new = torch.where(_masks(h.shape, reg, 0, h.device), h_new, h)
         c_new = torch.where(_masks(c.shape, reg, 1, c.device), c_new, c)
     elif mode == 2:
         h_new = torch.where(_masks(h.shape, reg, 0, h.device), h_new * scale,
                             torch.zeros_like(h_new))
+    elif mode == 3:
+        h_new = zh * h + (1.0 - zh) * h_new
+        c_new = zc * c + (1.0 - zc) * c_new
     return h_new, c_new, torch.cat([gi, gf, gg, go], dim=1)
 
 
@@ -390,23 +410,26 @@ def bwd_prenet_plain(dx, outs, ops, cfg: TrainConfig):
 
 def _train_prenet_plain_into(shifted_s, frame, teacher: int, ops, cfg,
                              seeds, gs, raw_out, pre_out, dst):
-    """``train_prenet``'s plain version, written into its outputs."""
+    """``train_prenet``'s plain version, written into its outputs (the
+    streams ``raw_out`` and ``pre_out`` may be None)."""
     raw = shifted_s.float() if teacher else frame
     outs = train_prenet_plain(raw, ops, cfg, seeds, gs)
-    raw_out.copy_(raw)
-    for i, o in enumerate(outs):
-        pre_out[i].copy_(o)
+    _copy(raw_out, raw)
+    if pre_out is not None:
+        for i, o in enumerate(outs):
+            pre_out[i].copy_(o)
     dst.copy_(outs[-1])
 
 
 def _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out, c_out,
                                 h_dst0, h_dst1):
-    """``train_gate_lstm``'s plain version, written into its outputs."""
+    """``train_gate_lstm``'s plain version, written into its outputs (the
+    streams ``act_out`` and ``c_out`` may be None)."""
     hn, cn, act = train_gate_lstm_plain(row, w, bias, h, c, reg)
     h.copy_(hn)
     c.copy_(cn)
-    act_out.copy_(act)
-    c_out.copy_(cn)
+    _copy(act_out, act)
+    _copy(c_out, cn)
     h_dst0.copy_(hn)
     _copy(h_dst1, hn)
 
@@ -419,11 +442,12 @@ def _train_query_plain_into(h, wq, q_out, scratch=None):
 
 def _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc, v, w_out,
                                 cum_out, ctx, ctx_dsts):
-    """``train_attention``'s plain version, written into its outputs."""
+    """``train_attention``'s plain version, written into its outputs (the
+    stream ``cum_out`` may be None)."""
     w, cum_new, c = train_attention_plain(q, cum, memory, mtb, mask_add,
                                           lc, v)
     w_out.copy_(w)
-    cum_out.copy_(cum)
+    _copy(cum_out, cum)
     cum.copy_(cum_new)
     ctx.copy_(c)
     for dst in ctx_dsts:
@@ -500,7 +524,7 @@ def _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher: int, da_out,
 
 _P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float, ctypes.c_longlong)
-_REG = [_U, _U, _U, _U, _U, _U, _I, _F]
+_REG = [_U, _U, _U, _U, _U, _U, _I, _F, _F, _F]
 _SIGNATURES = {
     "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _I, _I,
                             _I, _I, _U, _U, _U, _U, _F, _I, _P],
@@ -511,13 +535,13 @@ _SIGNATURES = {
     "bwd_gemm_launch": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
                        + [_I, _I, _P, _I, _P, _I] * 3 + [_P],
     "train_attention_launch": [_P] * 10 + [_P, _I, _P, _I, _P, _I]
-                              + [_I] * 5 + [_P],
+                              + [_I] * 7 + [_P],
     "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _P],
     "bwd_cell_launch": [_P] * 6 + [_I, _I] + _REG + [_P],
     "att_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
     "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
-                          _I, _F, _P],
+                          _I, _F, _I, _I, _I, _P],
 }
 _LIB = None
 
@@ -556,8 +580,9 @@ def _ld(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.stride(0)
 
 
-def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
-    if t.dtype != dtype:
+def _require(t: Optional[torch.Tensor], dtype: torch.dtype, name: str
+             ) -> None:
+    if t is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
 
 
@@ -571,7 +596,8 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
     """Kernel ``train_prenet``: the input frame (``shifted_s`` at a teacher
     step, the ``frame`` carry otherwise) -> ``raw_out`` [B, M], each
     layer's output ``pre_out`` [layers, B, P] and the last layer into
-    ``dst`` [B, P] (bf16 streams)."""
+    ``dst`` [B, P] (bf16; the streams ``raw_out`` and ``pre_out`` may be
+    None)."""
     if not _is_cuda(frame):
         return _train_prenet_plain_into(shifted_s, frame, teacher, ops, cfg,
                                         seeds, gs, raw_out, pre_out, dst)
@@ -582,7 +608,7 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
     _launch("train_prenet", "train_prenet_launch",
             _ptr(shifted_s), _ptr(frame), int(bool(teacher)),
             _ptr(ops["pre_w"]), _ptr(ops["pre_b"]), _ptr(raw_out),
-            _ptr(pre_out), pre_out.stride(0), _ptr(dst), _ld(dst), b,
+            _ptr(pre_out), _ld(pre_out), _ptr(dst), _ld(dst), b,
             cfg.mmel, cfg.prenet_dim, cfg.n_prenet, seeds[0] & _M32,
             seeds[1] & _M32, cfg.prenet_salt(gs),
             keep_threshold(rate) if rate > 0.0 else 0,
@@ -593,7 +619,8 @@ def train_gate_lstm(row, w, bias, reg, h, c, act_out, c_out, h_dst0, h_dst1):
     """Kernel ``train_gate_lstm``: gates of the concat ``row`` [B, K_pad],
     the LSTM step and the regularization.  Updates the float32 carries
     ``h``, ``c`` in place and writes the activations ``act_out`` [B, 4H],
-    ``c_out`` and h into ``h_dst0`` (and ``h_dst1`` if given), bf16."""
+    ``c_out`` and h into ``h_dst0`` (and ``h_dst1`` if given), bf16; the
+    streams ``act_out`` and ``c_out`` may be None."""
     if not _is_cuda(h):
         return _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out,
                                            c_out, h_dst0, h_dst1)
@@ -630,8 +657,10 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
                     ctx, ctx_dsts):
     """Kernel ``train_attention``: updates the float32 carries ``cum`` and
     ``ctx`` in place, writes the weights ``w_out`` [B, T] (float32), the
-    cum before the step ``cum_out`` and the context into each of
-    ``ctx_dsts`` (bf16; the last may be None)."""
+    cum before the step ``cum_out`` (bf16; may be None) and the context
+    into each of ``ctx_dsts`` (bf16; the last may be None).  Each batch
+    row is a cluster of CTAs over tiles of its positions
+    (``att_bwd_tiles``)."""
     if not _is_cuda(q):
         return _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc,
                                            v, w_out, cum_out, ctx, ctx_dsts)
@@ -641,12 +670,13 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
     b, t_len, mem_dim = memory.shape
     if t_len > 512:
         raise ValueError(f"train_attention takes T <= 512, got {t_len}")
+    tile, cluster = att_bwd_tiles(t_len)
     d0, d1, d2 = ctx_dsts
     _launch("train_attention", "train_attention_launch",
             _ptr(q), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
             _ptr(lc), _ptr(v), _ptr(w_out), _ptr(cum_out), _ptr(ctx),
             _ptr(d0), _ld(d0), _ptr(d1), _ld(d1), _ptr(d2), _ld(d2), b,
-            t_len, lc.shape[1], mem_dim, lc.shape[0])
+            t_len, lc.shape[1], mem_dim, lc.shape[0], tile, cluster)
 
 
 def train_head(row, head_w, head_b, spec_out, stop_out, frame,
@@ -737,6 +767,25 @@ def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
     return tile, _cdiv(t_len, tile)
 
 
+# bwd_prenet's cluster: at most this many CTAs, each whole 8-column mma
+# tiles of every layer's output
+_BP_CLUSTER_MAX = 8
+
+
+def bwd_prenet_split(in_dim: int, p: int) -> Tuple[int, int, int]:
+    """``(cluster, cols_p, cols_in)`` of ``bwd_prenet``: each CTA's share
+    of P's columns, the fewest whole 8-column tiles such that at most 8
+    CTAs cover P, as many CTAs as that needs (none empty), and each CTA's
+    share of the input frame's columns (the last shares may reach past M,
+    or be empty).  P=256, M=80 gives 8 CTAs of 32 and 16 columns."""
+    if in_dim < 1 or p < 1:
+        raise ValueError(f"bwd_prenet needs M, P >= 1, got {in_dim}, {p}")
+    tiles = _cdiv(p, 8)
+    per = _cdiv(tiles, _BP_CLUSTER_MAX)
+    cluster = _cdiv(tiles, per)
+    return cluster, 8 * per, 8 * _cdiv(_cdiv(in_dim, 8), cluster)
+
+
 def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
             dv, dq_out, dctx_out):
     """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
@@ -763,16 +812,23 @@ def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,
                dframe):
     """Kernel ``bwd_prenet``: pre-ReLU grads ``da_out`` [layers, B, P],
     then ``dshift_out`` (bf16, zero unless a teacher step) and the float32
-    ``dframe`` carry (zero at a teacher step)."""
+    ``dframe`` carry (zero at a teacher step).  One launch: a cluster of
+    CTAs for each 16 rows, each CTA a column slice of every layer
+    (``bwd_prenet_split``), every layer's weight slice in its shared
+    memory at once (up to 11 layers at P=256)."""
     if not _is_cuda(dx):
         return _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher, da_out,
                                       dshift_out, dframe)
+    for t in (pre_s, ops["pre_w"], da_out, dshift_out):
+        _require(t, torch.bfloat16, "bwd_prenet operands")
     rate = cfg.dropout_rate
+    cluster, cols_p, cols_in = bwd_prenet_split(cfg.mmel, cfg.prenet_dim)
     _launch("bwd_prenet", "bwd_prenet_launch", _ptr(dx), _ptr(pre_s),
             pre_s.stride(0), _ptr(ops["pre_w"]), _ptr(da_out),
             da_out.stride(0), _ptr(dshift_out), _ptr(dframe),
             int(bool(teacher)), dx.shape[0], cfg.mmel, cfg.prenet_dim,
-            cfg.n_prenet, 1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
+            cfg.n_prenet, 1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
+            cluster, cols_p, cols_in)
 
 
 # ---------------------------------------------------------------------------
@@ -825,8 +881,11 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
     transform plus the attention bias) [B, T, A] in the compute type,
     ``mask_add`` [B, T] 0 / -1e9, ``shifted`` [F, B, M] (compute type),
     ``teacher`` F flags -> ``(streams, carry)``: the outputs spec [F, B, M],
-    stop [F, B], w [F, B, T] (float32) and the residual streams (compute
-    type); the final float32 carry."""
+    stop [F, B], w [F, B, T] (float32) and, in train mode, the residual
+    streams (compute type); the final float32 carry.  An eval forward
+    (``cfg.train`` False) keeps no residual stream: its concat rows are
+    two buffers a row kind that the steps alternate (a gate product writes
+    the next step's row while it reads its own)."""
     n_f, b = shifted.shape[:2]
     t_len = memory.shape[1]
     d = cfg.dtype
@@ -839,13 +898,20 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
         "spec": z(n_f, b, m, dtype=torch.float32),
         "stop": z(n_f, b, dtype=torch.float32),
         "w": z(n_f, b, t_len, dtype=torch.float32),
-        "att_in": z(n_f, b, _pad64(cfg.ka)),
-        "gen_in": z(n_f, b, _pad64(cfg.kg)),
-        "head_in": z(n_f, b, _pad64(cfg.kh)), "raw": z(n_f, b, m),
-        "pre": z(cfg.n_prenet, n_f, b, p), "act_att": z(n_f, b, 4 * h),
-        "act_gen": z(n_f, b, 4 * h), "c_att": z(n_f, b, h),
-        "c_gen": z(n_f, b, h), "cum": z(n_f, b, t_len),
     }
+    n_rows = n_f if cfg.train else 2
+    rows = {"att_in": z(n_rows, b, _pad64(cfg.ka)),
+            "gen_in": z(n_rows, b, _pad64(cfg.kg)),
+            "head_in": z(n_rows, b, _pad64(cfg.kh))}
+    if cfg.train:
+        st.update(rows, raw=z(n_f, b, m), pre=z(cfg.n_prenet, n_f, b, p),
+                  act_att=z(n_f, b, 4 * h), act_gen=z(n_f, b, 4 * h),
+                  c_att=z(n_f, b, h), c_gen=z(n_f, b, h),
+                  cum=z(n_f, b, t_len))
+
+    def stream(name, s):
+        return st[name][s] if cfg.train else None
+
     f32 = torch.float32
     carry = {"h_att": z(b, h, dtype=f32), "c_att": z(b, h, dtype=f32),
              "h_gen": z(b, h, dtype=f32), "c_gen": z(b, h, dtype=f32),
@@ -855,30 +921,31 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
     f = PLAIN if plain else KERNELS
     scratch = _pass_scratch(
         plain, [(b, cfg.att_dim, h), (b, m + 1, _pad64(cfg.kh))], memory)
-    att_in, gen_in, head_in = st["att_in"], st["gen_in"], st["head_in"]
     for s in range(n_f):
-        nxt_a = att_in[s + 1] if s + 1 < n_f else None
-        nxt_g = gen_in[s + 1] if s + 1 < n_f else None
+        att_in, gen_in, head_in = (rows[k][s % n_rows]
+                                   for k in ("att_in", "gen_in", "head_in"))
+        last = s + 1 == n_f
+        nxt_a = None if last else rows["att_in"][(s + 1) % n_rows]
+        nxt_g = None if last else rows["gen_in"][(s + 1) % n_rows]
         f.train_prenet(shifted[s], carry["frame"], teacher[s], ops, cfg, seeds,
-                     s, st["raw"][s], st["pre"][:, s], att_in[s][:, :p])
-        f.train_gate_lstm(att_in[s], ops["att_w"], ops["att_b"],
+                     s, stream("raw", s),
+                     st["pre"][:, s] if cfg.train else None, att_in[:, :p])
+        f.train_gate_lstm(att_in, ops["att_w"], ops["att_b"],
                         cfg.reg("att", seeds, s), carry["h_att"],
-                        carry["c_att"], st["act_att"][s], st["c_att"][s],
-                        gen_in[s][:, :h],
-                        None if nxt_a is None
-                        else nxt_a[:, p + mem:p + mem + h])
-        f.train_query(gen_in[s][:, :h], ops["wq"], q, scratch=scratch)
+                        carry["c_att"], stream("act_att", s),
+                        stream("c_att", s), gen_in[:, :h],
+                        None if last else nxt_a[:, p + mem:p + mem + h])
+        f.train_query(gen_in[:, :h], ops["wq"], q, scratch=scratch)
         f.train_attention(q, carry["cum"], memory, mtb, mask_add, ops["lc"],
-                        ops["v"], st["w"][s], st["cum"][s], carry["ctx"],
-                        (gen_in[s][:, h:h + mem], head_in[s][:, h:h + mem],
-                         None if nxt_a is None else nxt_a[:, p:p + mem]))
-        f.train_gate_lstm(gen_in[s], ops["gen_w"], ops["gen_b"],
+                        ops["v"], st["w"][s], stream("cum", s), carry["ctx"],
+                        (gen_in[:, h:h + mem], head_in[:, h:h + mem],
+                         None if last else nxt_a[:, p:p + mem]))
+        f.train_gate_lstm(gen_in, ops["gen_w"], ops["gen_b"],
                         cfg.reg("gen", seeds, s), carry["h_gen"],
-                        carry["c_gen"], st["act_gen"][s], st["c_gen"][s],
-                        head_in[s][:, :h],
-                        None if nxt_g is None
-                        else nxt_g[:, h + mem:2 * h + mem])
-        f.train_head(head_in[s], ops["head_w"], ops["head_b"], st["spec"][s],
+                        carry["c_gen"], stream("act_gen", s),
+                        stream("c_gen", s), head_in[:, :h],
+                        None if last else nxt_g[:, h + mem:2 * h + mem])
+        f.train_head(head_in, ops["head_w"], ops["head_b"], st["spec"][s],
                    st["stop"][s], carry["frame"], scratch=scratch)
     return st, carry
 
@@ -986,6 +1053,9 @@ class TrainDecode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, teacher, seeds, memory, mtb, mask_add, shifted,
                 *weights):
+        if not cfg.train:
+            raise ValueError("TrainDecode differentiates the train-mode "
+                             "forward; an eval forward has no backward")
         d = cfg.dtype
         ops = compute_operands(dict(zip(OPERAND_KEYS, weights)), cfg)
         mem_d, mtb_d = memory.to(d).contiguous(), mtb.to(d).contiguous()
@@ -1048,17 +1118,32 @@ def train_decode_forward_plain(ops, cfg: TrainConfig, memory, mtb, mask_add,
 
 def decode(cell, cfg: TrainConfig, memory, memory_transform, mask, shifted,
            teacher: Sequence[int], seeds: Seeds):
-    """The teacher-forced training decode, the contract of the JAX
-    package's ``make_train_decode_fn(...)(...)``: ``memory`` [B, T, Mem],
-    ``memory_transform`` [B, T, A], ``mask`` [B, T] bool, ``shifted`` [B, F,
-    M], ``teacher`` F flags, ``seeds`` two uint32 -> ``(spec [B, F, M],
-    stop logits [B, F], alignments [B, F, T])``, differentiable with respect
-    to the cell's parameters, ``memory`` and ``memory_transform``."""
+    """The teacher-forced decode, the contract of the JAX package's
+    ``make_train_decode_fn(..., train=cfg.train)(...)``: ``memory`` [B, T,
+    Mem], ``memory_transform`` [B, T, A], ``mask`` [B, T] bool, ``shifted``
+    [B, F, M], ``teacher`` F flags, ``seeds`` two uint32 -> ``(spec [B, F,
+    M], stop logits [B, F], alignments [B, F, T])``.  In train mode the
+    outputs are differentiable with respect to the cell's parameters,
+    ``memory`` and ``memory_transform`` (``TrainDecode``).  The eval
+    forward (``cfg.train`` False) runs K2's eval variant directly, outside
+    autograd, as the JAX package's has no VJP: its outputs carry no
+    ``grad_fn``."""
+    mask_add = torch.where(mask, 0.0, NEG_INF).float()
+    teacher = tuple(int(x) for x in teacher)
+    sh = shifted.transpose(0, 1)
+    if not cfg.train:
+        with torch.no_grad():
+            ops = compute_operands(train_operands(cell, cfg), cfg)
+            mtb = memory_transform.float() + cell.attention.bias
+            d = cfg.dtype
+            st, _ = train_decode_forward(
+                ops, cfg, memory.to(d).contiguous(), mtb.to(d).contiguous(),
+                mask_add, sh.to(d).contiguous(), teacher, tuple(seeds))
+        return (st["spec"].transpose(0, 1), st["stop"].transpose(0, 1),
+                st["w"].transpose(0, 1))
     ops = train_operands(cell, cfg)
     mtb = memory_transform.float() + cell.attention.bias
-    mask_add = torch.where(mask, 0.0, NEG_INF).float()
     spec, stop, w = TrainDecode.apply(
-        cfg, tuple(int(x) for x in teacher), tuple(seeds), memory.float(),
-        mtb, mask_add, shifted.transpose(0, 1).float(),
-        *[ops[k] for k in OPERAND_KEYS])
+        cfg, teacher, tuple(seeds), memory.float(), mtb, mask_add,
+        sh.float(), *[ops[k] for k in OPERAND_KEYS])
     return spec.transpose(0, 1), stop.transpose(0, 1), w.transpose(0, 1)

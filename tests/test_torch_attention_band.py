@@ -18,6 +18,14 @@ halo rows from the neighbouring tiles, summing the filter gradient's tile
 partials in tile order.  The products run in float64 here so that only
 the algebra is compared; the kernels' float32 sums are held against the
 plain versions on the card (``tests/test_torch_gpu.py``).
+
+The training forward's ``train_attention`` splits T into the same tiles:
+each tile's energies from its band rows, the row's softmax from the tile
+maxima and tile sums combined in rank order, and the context from each
+tile's partial, summed in rank order by the CTA that owns a share of the
+memory columns.  A torch model of that split is held against
+``train_attention_plain`` in float32, on cum and filter values whose conv
+is exact in any order.
 """
 
 import numpy as np
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 
 from multilingual_text_to_speech_tpu_torch.ops.fused_train_decoder import (
     att_bwd_tiles,
+    train_attention_plain,
 )
 
 BAND_K = 32
@@ -54,7 +63,7 @@ def _s_cum(cum, t0, n, half):
     t = t0 + torch.arange(n) - half
     ok = (t >= 0) & (t < cum.shape[-1])
     return torch.where(ok, cum[..., t.clamp(0, cum.shape[-1] - 1)],
-                       torch.zeros(()).double())
+                       cum.new_zeros(()))
 
 
 def _band(cum, t0, rows, half):
@@ -155,3 +164,88 @@ def test_att_bwd_tiles_cover_every_length():
         assert tile == 16 or -(-t_len // (tile - 16)) > 8
     with pytest.raises(ValueError):
         att_bwd_tiles(0)
+
+
+def _tiled_train_attention(q, cum, memory, mtb, mask_add, lc, v):
+    """``train_attention`` as its kernel splits a batch row over the CTAs
+    of a cluster (``att_bwd_tiles``): each tile's energies from band(cum)
+    rows with the halo (16-row mma tiles), the tile maxima and then the
+    tile sums of exp(e - max) combined in rank order, and each tile's
+    context partial summed in rank order for each CTA's share of the
+    memory columns.  -> (w, cum + w, ctx), float32."""
+    b, t_len, n_mem = memory.shape
+    d = memory.dtype
+    k = lc.shape[0]
+    half = (k - 1) // 2
+    tile, cluster = att_bwd_tiles(t_len)
+    cum16 = cum.to(d).float()
+    lc32 = _lc32(lc.float())
+    tiles = [(r * tile, min(tile, t_len - r * tile)) for r in range(cluster)]
+
+    def rounded(x):
+        return x.to(d).float()
+
+    energies = []
+    for t0, rows in tiles:
+        band = torch.cat([_band(cum16, t0 + 16 * mt, 16, half)
+                          for mt in range(tile // 16)], dim=1)[:, :rows]
+        z = rounded(rounded(rounded(band @ lc32) + q[:, None, :])
+                    + mtb[:, t0:t0 + rows].float())
+        tz = rounded(torch.tanh(z))
+        energies.append((tz * v).sum(-1) + mask_add[:, t0:t0 + rows])
+    mx = energies[0].amax(1)
+    for e in energies[1:]:
+        mx = torch.maximum(mx, e.amax(1))
+    ps = [torch.exp(e - mx[:, None]) for e in energies]
+    total = ps[0].sum(1)
+    for p in ps[1:]:
+        total = total + p.sum(1)
+    w = torch.cat([p / total[:, None] for p in ps], dim=1)
+    partials = [rounded(memory[:, t0:t0 + rows].float()
+                        * rounded(w[:, t0:t0 + rows])[:, :, None]).sum(1)
+                for t0, rows in tiles]
+    share = -(-n_mem // cluster)
+    ctx = torch.zeros(b, n_mem)
+    owned = torch.zeros(n_mem, dtype=torch.int64)
+    for r in range(cluster):
+        cols = slice(r * share, min(n_mem, (r + 1) * share))
+        acc = partials[0][:, cols]
+        for part in partials[1:]:
+            acc = acc + part[:, cols]
+        ctx[:, cols] = acc
+        owned[cols] += 1
+    assert bool((owned == 1).all())
+    return w, cum + w, ctx
+
+
+@pytest.mark.parametrize("t_len", [16, 100, 128, 200, 512])
+def test_tiled_train_attention_is_the_plain_attention(t_len):
+    """The tiled model equals ``train_attention_plain`` at the training
+    path's memory width (292 columns, 8 CTAs of 37) and 31 taps: the
+    weights and the new cum within float32 sum order (rtol 1e-5), the
+    context within one bf16 ulp of one weight times the largest memory
+    value (a weight on a rounding boundary may round the other way after a
+    sum in another order).  cum lies on a 1/64 grid and the filter on a
+    1/256 grid, so that the conv is exact in any order."""
+    rng = np.random.RandomState(t_len)
+    b, a, n_mem, k = 3, 16, 292, 31
+    cum = torch.as_tensor(rng.randint(0, 256, (b, t_len)) / 64.0,
+                          dtype=torch.float32)
+    lc = torch.as_tensor(rng.randint(-255, 256, (k, a)) / 256.0,
+                         dtype=torch.float32).bfloat16()
+    q = torch.as_tensor(rng.randn(b, a), dtype=torch.float32).bfloat16()
+    memory = torch.as_tensor(rng.randn(b, t_len, n_mem),
+                             dtype=torch.float32).bfloat16()
+    mtb = torch.as_tensor(0.5 * rng.randn(b, t_len, a),
+                          dtype=torch.float32).bfloat16()
+    v = torch.as_tensor(rng.randn(a) / a ** 0.5, dtype=torch.float32)
+    lengths = np.array([t_len, max(1, t_len - 7), max(1, t_len // 2)])
+    mask_add = torch.as_tensor(np.where(
+        np.arange(t_len)[None] < lengths[:, None], 0.0, -1e9),
+        dtype=torch.float32)
+    got = _tiled_train_attention(q.float(), cum, memory, mtb, mask_add, lc, v)
+    ref = train_attention_plain(q.float(), cum, memory, mtb, mask_add, lc, v)
+    for g, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-7)
+    ulp = 2.0 ** -8 * float(ref[0].max()) * float(memory.float().abs().max())
+    assert float((got[2] - ref[2]).abs().max()) <= ulp + 1e-6

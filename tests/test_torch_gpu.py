@@ -547,20 +547,23 @@ def test_bwd_gemm_matches_plain_at_the_dwq_shape():
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("mode", ["train", "eval"])
 @pytest.mark.parametrize("b", [1, 50, 100, 240])
-def test_train_gate_lstm_matches_plain_at_flagship_widths(b):
+def test_train_gate_lstm_matches_plain_at_flagship_widths(b, mode):
     """The training decoder's gate product in the shared gate routine
     (``csrc/tile.cuh``; 32, 64 or 128 rows a block by the batch) at H=1024
-    and both gate K's, zoneout 0.1 in train mode: h, c and the float32
-    carries within 1e-5 of their largest value, the bf16 activations and
-    streams within one ulp (chip_smoke's bounds), the zoneout choices
-    bit-exact."""
+    and both gate K's, zoneout 0.5 in train mode (the zoneout choices
+    bit-exact) and its eval interpolation (``LstmEpi`` mode 3, no
+    activation or c stream written): h, c and the float32 carries within
+    1e-5 of their largest value, the bf16 activations and streams within
+    one ulp (chip_smoke's bounds)."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(b)
-    reg = (11, 12, 5, 6, 2 ** 31, 2 ** 31, 1, 1.0)
+    reg = (11, 12, 5, 6, 2 ** 31, 2 ** 31, 1 if mode == "train" else 3,
+           1.0, 0.5, 0.5)
     for which, ks in _SEGMENTS.items():
         kp = -(-sum(ks) // 64) * 64
         row = torch.zeros(b, kp, device="cuda")
@@ -579,15 +582,18 @@ def test_train_gate_lstm_matches_plain_at_flagship_widths(b):
                              device="cuda")] + [
                 torch.empty(b, _HIDDEN, dtype=torch.bfloat16, device="cuda")
                 for _ in range(3)]
+            if mode == "eval":
+                o[0] = o[1] = None
             fn(row, w, bias, reg, h, c, *o)
-            outs.append([h, c, *o])
+            outs.append([x for x in (h, c, *o) if x is not None])
         for g, r in zip(*outs):
             bound = 1e-5 if r.dtype == torch.float32 else 8e-3
             assert float((g.float() - r.float()).abs().max()) <= \
                 bound * float(r.float().abs().max()), which
-        kept_k = (outs[0][0] == h0)
-        kept_p = (outs[1][0] == h0)
-        assert torch.equal(kept_k, kept_p) and bool(kept_p.any()), which
+        if mode == "train":
+            kept_k = (outs[0][0] == h0)
+            kept_p = (outs[1][0] == h0)
+            assert torch.equal(kept_k, kept_p) and bool(kept_p.any()), which
 
 
 @pytest.mark.parametrize("b", [1, 50, 240])
@@ -764,3 +770,152 @@ def test_att_bwd_matches_plain_at_flagship_widths(b, t):
         err = float((g.float() - r.float()).abs().max())
         assert err <= bound[kind] * float(r.float().abs().max()), kind
         assert torch.equal(g, a)
+
+
+@pytest.fixture
+def _full_f32():
+    """The plain versions' float32 convolutions in full float32, as
+    chip_smoke runs them (cuDNN takes TF32 by default)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("t", [17, 128, 512])
+@pytest.mark.parametrize("b", [1, 50, 67])
+def test_train_attention_matches_plain_at_flagship_widths(b, t, _full_f32):
+    """``train_attention`` (a cluster of CTAs over tiles of each row's
+    positions: 2 of 16 at T=17, whose memory rows are not all 16-byte
+    aligned, 8 of 16 at T=128, 8 of 64 at T=512) at A=128, Mem=292, 31
+    taps, on three sets of random inputs, each with the cum stream and
+    without it (the eval forward), against the plain version on the same
+    inputs, at the bounds of ``lsa_attention``'s test of the same function:
+    each row's weights (and the cum increment) within W_TOL of the row's
+    largest weight, the context within atol and rtol CTX_TOL; the bf16
+    concat rows equal to the kernel's own context in bf16, the cum stream
+    exact; two runs bit-identical.  (On random cum the plain version's
+    float32 conv1d rounds a few bf16(loc) values to the other neighbour
+    than the kernel's sums: the weights then differ by up to 7e-5 of the
+    largest at B=50, T=512, the same with the location conv in the plain
+    version's tap order, tools/torch_kernel_variants.py train_attention_taps;
+    chip_smoke's check holds the kernel to 1e-6 on the training path's
+    inputs.)"""
+    from chip_smoke import CTX_TOL, W_TOL
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    rnd, memory, mtb, mask, cum0 = _attention_operands(b, t, seed=5 * b + t)
+    mask_add = torch.where(mask, 0.0, -1e9)
+    lc = rnd(_TAPS, _ATT, scale=0.1).bfloat16()
+    v = rnd(_ATT, scale=_ATT ** -0.5)
+    ftd.reset_launch_counts()
+    for step in range(3):
+        q = rnd(b, _ATT).bfloat16().float()
+        cum = cum0 + 0.3 * step * rnd(b, t).abs() * mask
+
+        def run(fn, streams=True):
+            cc, ctx = cum.clone(), torch.empty(b, _MEM, device="cuda")
+            w = torch.empty(b, t, device="cuda")
+            cum_s = (torch.empty(b, t, dtype=torch.bfloat16, device="cuda")
+                     if streams else None)
+            dsts = [torch.empty(b, _MEM, dtype=torch.bfloat16, device="cuda")
+                    for _ in range(3)]
+            fn(q, cc, memory, mtb, mask_add, lc, v, w, cum_s, ctx, dsts)
+            return [x for x in (cc, w, ctx, cum_s, *dsts) if x is not None]
+
+        for streams in (True, False):
+            got, again = (run(ftd.train_attention, streams) for _ in range(2))
+            ref = run(ftd.PLAIN.train_attention, streams)
+            (cc_k, w_k, ctx_k, *rows_k), (cc_p, w_p, ctx_p, *rows_p) = got, ref
+            w_max = w_p.amax(1)
+            for g in (w_k, cc_k - cum):
+                assert float(((g - w_p).abs().amax(1) / w_max).max()) < W_TOL
+            torch.testing.assert_close(ctx_k, ctx_p, atol=CTX_TOL,
+                                       rtol=CTX_TOL)
+            for row in rows_k[-3:]:
+                assert torch.equal(row, ctx_k.bfloat16())
+            if streams:
+                assert torch.equal(rows_k[0], rows_p[0])
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert ftd.LAUNCHES["train_attention"] == 12
+
+
+@pytest.mark.parametrize("teacher", [0, 1])
+@pytest.mark.parametrize("n_prenet", [1, 2, 3])
+@pytest.mark.parametrize("b", [1, 50, 67])
+def test_bwd_prenet_matches_plain_at_flagship_widths(b, n_prenet, teacher):
+    """``bwd_prenet`` (one launch: a cluster of 8 CTAs for each 64 rows,
+    each a column slice of every layer, the products on mma.sync) at P=256
+    and M=80 for prenet depths 1 to 3 and both teacher flags: the da
+    streams within one bf16 ulp of their largest value, the frame
+    cotangent within chip_smoke's float32 bound of the plain product of the
+    kernel's own first-layer da (``chip_smoke.bwd_prenet_reference``); two
+    runs bit-identical."""
+    from chip_smoke import bwd_prenet_reference
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    p, m = 256, _MELS
+    cfg = ftd.TrainConfig(hidden=_HIDDEN, mem_dim=_MEM, prenet_dim=p,
+                          n_prenet=n_prenet, mmel=m, att_dim=_ATT,
+                          taps=_TAPS, dropout_rate=0.5, zoneout_h=0.1,
+                          zoneout_c=0.1, use_zoneout=True,
+                          dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(b + 10 * n_prenet)
+    n_w = m * p + (n_prenet - 1) * p * p
+    ops = {"pre_w": (torch.randn(n_w, device="cuda", generator=gen)
+                     / 16.0).bfloat16(),
+           "pre_b": torch.zeros(n_prenet * p, device="cuda")}
+    x = torch.randn(n_prenet, b, p, device="cuda", generator=gen)
+    keep = torch.rand(n_prenet, b, p, device="cuda", generator=gen) < 0.5
+    pre = (x.clamp(min=0.0) * keep).bfloat16()
+    dx = 0.1 * torch.randn(b, p, device="cuda", generator=gen)
+
+    def run(fn):
+        o = [torch.empty(n_prenet, b, p, dtype=torch.bfloat16, device="cuda"),
+             torch.empty(b, m, dtype=torch.bfloat16, device="cuda"),
+             torch.empty(b, m, device="cuda")]
+        fn(dx, pre, ops, cfg, teacher, *o)
+        return o
+
+    ftd.reset_launch_counts()
+    got = run(ftd.bwd_prenet)
+    assert ftd.LAUNCHES["bwd_prenet"] == 1
+    again = run(ftd.bwd_prenet)
+    ref = bwd_prenet_reference(ftd, ops, cfg, teacher, got,
+                               run(ftd.PLAIN.bwd_prenet))
+    bound = TRAIN_KERNEL_TOL["bwd_prenet"]
+    for g, a, r in zip(got, again, ref):
+        kind = "bf16" if r.dtype == torch.bfloat16 else "f32"
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= bound[kind] * (float(r.float().abs().max()) + 1e-30), \
+            kind
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_eval_forward_kernels_match_plain(regularization):
+    """The eval forward (``TrainConfig.train`` False) through the K2
+    kernels against its plain version on the card, bf16, 12 steps: spec,
+    stop and weights within a relative 2e-2, as the train-mode forward; no
+    residual stream, and no K3 kernel launched."""
+    import dataclasses
+
+    ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher = _train_setup()
+    cfg = dataclasses.replace(cfg, train=False)
+    if regularization == "dropout":
+        cfg = dataclasses.replace(cfg, use_zoneout=False, zoneout_c=0.0)
+    args = (ops, cfg, memory, mtb, mask_add, shifted, teacher, (5, 6))
+    ftd.reset_launch_counts()
+    st_k, carry_k = ftd.train_decode_forward(*args)
+    st_p, carry_p = ftd.train_decode_forward(*args, plain=True)
+    assert all(ftd.LAUNCHES[k] > 0 for k in ftd.K2_KERNELS), ftd.LAUNCHES
+    assert not any(ftd.LAUNCHES[k] for k in ftd.K3_KERNELS), ftd.LAUNCHES
+    assert set(st_k) == {"spec", "stop", "w"}
+    for k in st_p:
+        assert _rel(st_k[k], st_p[k]) < 2e-2, k
+    for k in carry_p:
+        assert _rel(carry_k[k], carry_p[k]) < 2e-2, k

@@ -1,12 +1,16 @@
-"""The pure-Python pieces around the port's split-K kernel, on the CPU: how
+"""The pure-Python pieces around the port's split kernels, on the CPU: how
 ``splitk_kernel``'s K is split (``ops/_splitk.py``, shared by both
 decoders) and how large the one scratch of a decoder pass or serving chunk
-must be.  The kernels themselves run only on the card
-(``tests/test_torch_gpu.py``)."""
+must be; how ``bwd_prenet`` splits each layer's columns over the CTAs of
+a cluster and exchanges its da rows.  The kernels themselves run only on
+the card (``tests/test_torch_gpu.py``)."""
 
+import numpy as np
 import pytest
+import torch
 
 from multilingual_text_to_speech_tpu_torch.ops import _splitk
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
 
 # splitk_kernel's tile (csrc/tile.cuh: SK_BM, SK_BN, SK_BK) and two blocks
 # per SM of an H100
@@ -77,3 +81,87 @@ def test_splitk_scratch_of_the_serving_chunk():
     split for one block per SM: 14 slices of [240, 81]."""
     assert _splitk.splitk_scratch_floats(
         [(240, 81, 1344)], _TILE, _BLOCKS // 2) == 14 * 240 * 81
+
+
+@pytest.mark.parametrize("in_dim,p,want", [
+    (80, 256, (8, 32, 16)), (96, 256, (8, 32, 16)), (20, 24, (3, 8, 8)),
+    (80, 7, (1, 8, 80)), (1, 1000, (8, 128, 8))])
+def test_bwd_prenet_split_at_known_widths(in_dim, p, want):
+    """The flagship's prenet (M=80, P=256) runs 8 CTAs of 32 columns of P
+    and 16 of the frame's 80 (the last three own none); a P of one
+    8-column tile runs one CTA."""
+    assert ftd.bwd_prenet_split(in_dim, p) == want
+
+
+def test_bwd_prenet_split_covers_every_width():
+    """Whole 8-column tiles, at most 8 CTAs, every column of P and of the
+    input frame owned, and no CTA of P's columns empty."""
+    for p in range(1, 300):
+        for in_dim in (1, 7, 80, 96, 257):
+            cl, cols_p, cols_in = ftd.bwd_prenet_split(in_dim, p)
+            assert 1 <= cl <= 8 and cols_p % 8 == 0 and cols_in % 8 == 0
+            assert (cl - 1) * cols_p < p <= cl * cols_p
+            assert in_dim <= cl * cols_in
+    with pytest.raises(ValueError):
+        ftd.bwd_prenet_split(0, 8)
+
+
+def _split_bwd_prenet(dx, outs, ops, cfg):
+    """``bwd_prenet`` as its kernel splits it: each CTA masks its own
+    columns of da, the CTAs exchange their bf16 slices (the full rows are
+    the slices in rank order), and each computes its columns of dx =
+    bf16(da) @ W^T from its rows of W.  -> (da per layer, d input frame)."""
+    p, m = cfg.prenet_dim, cfg.mmel
+    cl, cols_p, cols_in = ftd.bwd_prenet_split(m, p)
+    scale = 1.0 / (1.0 - cfg.dropout_rate)
+    layers = ftd.prenet_layers(ops, cfg)
+    own = [slice(r * cols_p, min(p, (r + 1) * cols_p)) for r in range(cl)]
+
+    def mask(layer, r, x):
+        out = outs[layer][:, own[r]].float()
+        return torch.where(out > 0.0, x * scale, torch.zeros_like(x))
+
+    slices = [mask(cfg.n_prenet - 1, r, dx[:, own[r]]) for r in range(cl)]
+    das = [None] * cfg.n_prenet
+    for layer in range(cfg.n_prenet - 1, -1, -1):
+        da = torch.cat(slices, 1)
+        das[layer] = da
+        w = layers[layer][0]
+        n = cols_in if layer == 0 else cols_p
+        cols = [w[r * n:(r + 1) * n] for r in range(cl)]
+        dx_cols = [ftd._mm(da, c.t()) for c in cols]
+        if layer > 0:
+            slices = [mask(layer - 1, r, x) for r, x in enumerate(dx_cols)]
+    return das, torch.cat(dx_cols, 1)
+
+
+@pytest.mark.parametrize("in_dim", [80, 96])
+@pytest.mark.parametrize("n_prenet", [1, 2, 3])
+def test_bwd_prenet_split_is_the_plain_backward(n_prenet, in_dim):
+    """The column split and exchange of ``bwd_prenet`` at P=256 (8 CTAs)
+    equals ``bwd_prenet_plain``: each layer's da and the input frame's
+    gradient within float32 sum order (rtol 1e-6), on bf16 weights and
+    post-dropout outputs with zeros from the ReLU and the dropout."""
+    p = 256
+    cfg = ftd.TrainConfig(hidden=16, mem_dim=8, prenet_dim=p,
+                          n_prenet=n_prenet, mmel=in_dim, att_dim=16, taps=3,
+                          dropout_rate=0.5, zoneout_h=0.1, zoneout_c=0.1,
+                          use_zoneout=True, dtype=torch.bfloat16)
+    rng = np.random.RandomState(10 * n_prenet + in_dim)
+    n_w = in_dim * p + (n_prenet - 1) * p * p
+    ops = {"pre_w": torch.as_tensor(rng.randn(n_w) / 16.0,
+                                    dtype=torch.float32).bfloat16(),
+           "pre_b": torch.zeros(n_prenet * p)}
+    b = 50
+    outs = [torch.as_tensor(np.maximum(rng.randn(b, p), 0.0)
+                            * (rng.uniform(size=(b, p)) < 0.5),
+                            dtype=torch.float32).bfloat16()
+            for _ in range(n_prenet)]
+    dx = torch.as_tensor(rng.randn(b, p), dtype=torch.float32)
+    das, dx_in = _split_bwd_prenet(dx, outs, ops, cfg)
+    ref_das, ref_in = ftd.bwd_prenet_plain(dx, outs, ops, cfg)
+    for g, r in zip(das, ref_das):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(dx_in[:, :in_dim], ref_in, rtol=1e-6,
+                               atol=1e-6)
+    assert dx_in.shape[1] >= in_dim

@@ -281,3 +281,110 @@ def test_stream_driver_equals_plain_forward(ratio):
     torch.testing.assert_close(st["gen_in"][1:, :, h + mem:2 * h + mem],
                                st["head_in"][:-1, :, :h])
     torch.testing.assert_close(carry["frame"], st["spec"][-1])
+
+
+# ---------------------------------------------------------------------------
+# the eval/GTA forward: K2 with train=False
+# ---------------------------------------------------------------------------
+
+def _port_cfg_eval(hp):
+    return ftd.TrainConfig.from_hp(port_hp(hp), MEM, torch.float32,
+                                   train=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward_eval(regularization, n_prenet, ratio):
+    hp = _hp(regularization, n_prenet)
+    memory, mt, mask, shifted, teacher, key, _ = _inputs(hp, ratio)
+    decode = ptd.make_train_decode_fn(hp, dtype=jnp.float32, interpret=True,
+                                      fwd_chunk=4, bwd_chunk=3, train=False)
+    out = decode(jax.tree_util.tree_map(jnp.asarray, _cell_params(hp)),
+                 jnp.asarray(memory), jnp.asarray(mt), jnp.asarray(mask),
+                 jnp.asarray(shifted), jnp.asarray(teacher), key)
+    return tuple(np.asarray(o) for o in out)
+
+
+@pytest.mark.parametrize("ratio", [1.0, 0.5])
+@pytest.mark.parametrize("n_prenet", [1, 2])
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_eval_forward_matches_interpret_kernel(regularization, n_prenet,
+                                               ratio):
+    """The eval forward (``TrainConfig.train`` False: zoneout interpolated,
+    a dropout cell's h left alone, prenet dropout 0.5 still on) against
+    interpret-mode K2 built with ``train=False``: spec, stop and attention
+    weights within atol 2e-5, as the train-mode forward test.  It differs
+    from the train-mode forward by far more than that."""
+    hp = _hp(regularization, n_prenet)
+    cell = _port_cell(hp, _cell_params(hp))
+    memory, mt, mask, shifted, teacher, _, seeds = _inputs(hp, ratio)
+    args = (torch.as_tensor(memory), torch.as_tensor(mt),
+            torch.as_tensor(mask), torch.as_tensor(shifted), teacher.tolist(),
+            seeds)
+    got = ftd.decode(cell, _port_cfg_eval(hp), *args)
+    ref = _jax_forward_eval(regularization, n_prenet, ratio)
+    for g, r, name in zip(got, ref, ("spec", "stop", "alignment")):
+        np.testing.assert_allclose(to_np(g), r, atol=2e-5, err_msg=name)
+    with torch.no_grad():
+        train = ftd.decode(cell, _port_cfg(hp), *args)
+    assert np.abs(to_np(train[0]) - ref[0]).max() > 1e-3
+
+
+@pytest.mark.parametrize("n_prenet", [1, 2])
+def test_eval_forward_keeps_prenet_dropout_bit_exact(n_prenet):
+    """Eval mode leaves the prenet's dropout on: each layer's dropped units
+    at a step are the JAX kernels' draws at that step's salt, bit for bit
+    (zero weights and unit biases, so that no ReLU zeroes a unit)."""
+    hp = _hp("zoneout", n_prenet)
+    cfg = _port_cfg_eval(hp)
+    jcfg = ptd._make_cfg(hp, t_len=T, mem_dim=MEM,
+                         att_dim=hp.attention_dimension, dtype=jnp.float32,
+                         train=False)
+    ops = {k: v.detach() for k, v in _operands(hp, cfg).items()}
+    ops["pre_w"] = torch.zeros_like(ops["pre_w"])
+    ops["pre_b"] = torch.ones_like(ops["pre_b"])
+    seeds = (2654435761, 40503)
+    rng = np.random.RandomState(n_prenet)
+    frame = torch.as_tensor(rng.randn(B, cfg.mmel).astype(np.float32))
+    thresh = ptd._thresh(1.0 - jcfg.dropout_rate)
+    for gs in (0, 6):
+        pre = torch.zeros(cfg.n_prenet, B, cfg.prenet_dim)
+        ftd.train_prenet(frame, frame, 1, ops, cfg, seeds, gs, None, pre,
+                         torch.zeros(B, cfg.prenet_dim))
+        for layer in range(cfg.n_prenet):
+            ref = np.asarray(pallas_decoder._rand_bits(
+                (B, cfg.prenet_dim), jnp.uint32(seeds[0]),
+                jnp.uint32(seeds[1]),
+                jnp.asarray(gs * jcfg.salt_sites + layer, jnp.int32))) >= thresh
+            np.testing.assert_array_equal(to_np(pre[layer] == 0), ref)
+
+
+def test_eval_forward_keeps_no_streams_and_no_graph():
+    """An eval forward allocates and returns no residual stream (spec, stop
+    and weights only), equals the differentiable plain K2 run with the same
+    eval config, and carries no ``grad_fn`` even from inputs that require
+    gradients; ``TrainDecode`` refuses it, as the JAX eval forward has no
+    VJP."""
+    hp = _hp("zoneout", 2)
+    cfg = _port_cfg_eval(hp)
+    ops = {k: v.detach() for k, v in _operands(hp, cfg).items()}
+    memory, mt, mask, shifted, teacher, _, seeds = _inputs(hp, 0.5)
+    args = (ops, cfg, torch.as_tensor(memory), torch.as_tensor(mt),
+            torch.where(torch.as_tensor(mask), 0.0, -1e9),
+            torch.as_tensor(shifted).transpose(0, 1).contiguous(),
+            teacher.tolist(), seeds)
+    st, carry = ftd.train_decode_forward(*args)
+    assert set(st) == {"spec", "stop", "w"}
+    for k, r in zip(("spec", "stop", "w"),
+                    ftd.train_decode_forward_plain(*args)):
+        torch.testing.assert_close(st[k], r, atol=1e-6, rtol=0)
+    torch.testing.assert_close(carry["frame"], st["spec"][-1])
+
+    cell = _port_cell(hp, _cell_params(hp))
+    mem_t = torch.as_tensor(memory).requires_grad_()
+    out = ftd.decode(cell, cfg, mem_t, torch.as_tensor(mt),
+                     torch.as_tensor(mask), torch.as_tensor(shifted),
+                     teacher.tolist(), seeds)
+    assert all(o.grad_fn is None and not o.requires_grad for o in out)
+    with pytest.raises(ValueError, match="eval"):
+        ftd.TrainDecode.apply(cfg, tuple(teacher.tolist()), seeds, *args[2:6],
+                              *[ops[k] for k in ftd.OPERAND_KEYS])

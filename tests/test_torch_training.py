@@ -173,6 +173,39 @@ def test_training_forward_loss_and_grads_match_jax(ratio):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("ratio", [1.0, 0.5])
+def test_eval_forward_matches_jax(ratio):
+    """``Tacotron.eval()``'s teacher-forced forward (K2's eval variant:
+    zoneout 0.1 interpolated) against ``Tacotron(train=False)`` on the JAX
+    package's XLA path, at prenet dropout 0 (that path draws its prenet
+    dropout from ``jax.random`` keys, not the kernels' hash): the pre and
+    post predictions, stop logits and alignments within atol 1e-5
+    (measured 6.6e-7; the train-mode forward is 0.6 away), and the
+    decoder's outputs carry no ``grad_fn``."""
+    hp = _hp()
+    v_np = variables_np(classifier=True)
+    text, lengths, speakers = batch(hp, B, T, seed=7)
+    languages = np.arange(B) % hp.language_number
+    target, tlen, _ = _targets(hp)
+    key = jax.random.PRNGKey(13)
+    ref = jtac.Tacotron(hp, train=False).apply(
+        jax_variables(v_np), jnp.asarray(text), jnp.asarray(lengths),
+        jnp.asarray(target), jnp.asarray(tlen), jnp.asarray(speakers),
+        jnp.asarray(languages), ratio, key)
+    teacher = np.asarray(jax.random.bernoulli(jax.random.split(key)[0],
+                                              ratio, (FRAMES,)))
+    model = _port_model(hp, v_np).eval()
+    args = [torch.as_tensor(x) for x in (text, lengths, target, tlen,
+                                         speakers, languages)]
+    out = model(*args, teacher.astype(int).tolist(), (5, 6))
+    for k in ("pre_prediction", "post_prediction", "stop_token",
+              "alignment"):
+        np.testing.assert_allclose(to_np(out[k]), np.asarray(ref[k]),
+                                   atol=1e-5, err_msg=k)
+    assert out["pre_prediction"].grad_fn is None
+    assert out["alignment"].grad_fn is None
+
+
 class _Toy(torch.nn.Module):
     def __init__(self, w):
         super().__init__()

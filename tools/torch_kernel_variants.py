@@ -3,27 +3,37 @@
 the PyTorch port's CUDA sources, on one NVIDIA GPU.
 
     python3 tools/torch_kernel_variants.py faults
+    python3 tools/torch_kernel_variants.py checks train_attention_taps
     python3 tools/torch_kernel_variants.py time lsa_l2_prefetch att_bwd_l2_prefetch
+    python3 tools/torch_kernel_variants.py time train_attention_taps
 
 Each variant copies ``multilingual_text_to_speech_tpu_torch`` under the
-ignored ``build/variants/<name>/``, replaces one piece of a ``csrc`` source
-there (the piece must occur exactly once), and runs in a fresh process that
+ignored ``build/variants/<name>/``, replaces pieces of a ``csrc`` source
+there (each must occur exactly once), and runs in a fresh process that
 imports the copy before the checkout's own package, so the kernels build
 from the changed source into the copy's own build directory.
 
-``faults`` plants one wrong location-conv tap at a time (K1's
-``lsa_attention``; K3's ``att_bwd``, in its cum gradient and in its filter
-gradient) and runs the checks of that kernel's ``chip_smoke`` phase
-(``phase_kernels`` for K1, ``phase_train_kernels`` for K3) with
+``faults`` plants one fault at a time: a wrong location-conv tap (K1's
+``lsa_attention``; K2's ``train_attention``; K3's ``att_bwd``, in its cum
+gradient and in its filter gradient) or a dropped ReLU/dropout mask in one
+layer of K3's ``bwd_prenet``, and runs the checks of that kernel's
+``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_train_kernels``
+for K2 and K3) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
 every check's reading prints.  The run fails unless every fault fails at
 least one check.
 
+``checks`` runs the same checks on each named design variant and prints
+every reading, failed or not: ``train_attention_taps`` computes K2's
+location conv on the CUDA cores, K FMAs in the reference's tap order,
+instead of as the band product on the tensor cores.
+
 ``time`` times each named variant's kernel and the checkout's own in turns
 (as is, variant, variant, as is): ``lsa_attention`` at the serving path's
 B=240, T=128, W8A8, alone (``chip_smoke.device_ms``) and a step inside a
-32-step chunk (``torch.profiler``); ``att_bwd`` at the training path's
-B=50, T=128 on random inputs of the flagship's widths, alone.
+32-step chunk (``torch.profiler``); ``att_bwd`` and ``train_attention`` at
+the training path's B=50, T=128 on random inputs of the flagship's widths,
+alone.
 
 Prints every run and, last, one JSON object of the results, also written
 to ``build/variants/kernel_variants_<mode>.json``.
@@ -41,7 +51,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PKG = "multilingual_text_to_speech_tpu_torch"
 
-# name: (source, piece, replacement, what to run)
+# K2 train_attention's energies on the CUDA cores, a warp a position and a
+# lane a channel, the location conv as K FMAs in tap order (the order of
+# the reference's float32 conv1d) instead of the band product
+_TA_TAPS_ENERGIES = r"""  // 1. energies, a warp a position, a lane a channel: loc in tap order
+  for (int i = warp; i < rows; i += TA_WARPS) {
+    float part = 0.0f;
+    for (int a = lane; a < A; a += 32) {
+      float loc = 0.0f;
+      for (int k = 0; k < K; ++k)
+        loc = fmaf(__bfloat162float(s_cum[i + k]),
+                   __bfloat162float(s_lc[k * ld + a]), loc);
+      const float tz = band_energy_tanh(
+          loc, s_q[a], __bfloat162float(s_mtb[i * ldm + a]));
+      part = fmaf(s_v[a], tz, part);
+    }
+    part = warp_sum(part);
+    if (lane == 0) s_e[i] = part + s_mask[i];
+  }
+  __syncthreads();
+
+"""
+
+# name: (source, piece, replacement, what to run), or (source, [(start,
+# end, replacement), ...], what to run): the text from start up to end
+# replaced
 VARIANTS = {
     "lsa_location_tap": (
         "fused_decoder.cu",
@@ -55,6 +89,21 @@ VARIANTS = {
         "fused_train_decoder.cu",
         "band_dlc(acc[kh], s_cum + mt * 16 + kh * 16,",
         "band_dlc(acc[kh], s_cum + mt * 16 + kh * 16 + 1,", "K3"),
+    "train_attention_tap": (
+        "fused_train_decoder.cu",
+        "band_stage_cum(s_cum, tile + BAND_K, cum + rowT, t_lo, half, T);",
+        "band_stage_cum(s_cum, tile + BAND_K, cum + rowT, t_lo, half + 1,"
+        " T);", "K2"),
+    # the layers below the top one lose their mask (layer 0 of two)
+    "bwd_prenet_mask": (
+        "fused_train_decoder.cu",
+        "da = out > 0.0f ? acc[e] * scale : 0.0f;",
+        "da = acc[e] * scale;", "K3"),
+    "train_attention_taps": (
+        "fused_train_decoder.cu",
+        [("  // 1. energies: loc = band(cum) @ lc",
+          "  // 2. the row's masked softmax", _TA_TAPS_ENERGIES)],
+        "design K2"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -164,10 +213,35 @@ print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone}}))
 """
 
 
+# train_attention at B=50, T=128 and the flagship's widths on random
+# inputs, the cum carry and the context updated in place
+_TIME_K2 = _PRELUDE + r"""
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+torch.set_grad_enabled(False)
+b, t, a, mem, k = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 31
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape, scale=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * scale
+bf = torch.bfloat16
+cum = rnd(b, t).abs()
+ctx = torch.empty(b, mem, device="cuda")
+outs = (torch.empty(b, t, device="cuda"), torch.empty(b, t, dtype=bf,
+        device="cuda"))
+dsts = [torch.empty(b, mem, dtype=bf, device="cuda") for _ in range(3)]
+args = (rnd(b, a).to(bf).float(), cum, rnd(b, t, mem).to(bf),
+        rnd(b, t, a, scale=0.5).to(bf), torch.zeros(b, t, device="cuda"),
+        rnd(k, a, scale=0.1).to(bf), rnd(a, scale=a ** -0.5), *outs, ctx,
+        dsts)
+alone = cs.device_ms(lambda: ftd.train_attention(*args), ours_only=True)
+print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone}}))
+"""
+
+
 def make_copy(name: str) -> Path:
-    """The package under build/variants/<name>/ with the variant's piece
+    """The package under build/variants/<name>/ with the variant's pieces
     replaced; its own build directory starts empty."""
-    source, piece, repl, _ = VARIANTS[name]
+    source, *edits, _ = VARIANTS[name]
+    spans = edits[0] if len(edits) == 1 else [tuple(edits)]
     root = ROOT / "build" / "variants" / name
     if root.exists():
         shutil.rmtree(root)
@@ -175,10 +249,16 @@ def make_copy(name: str) -> Path:
                     ignore=shutil.ignore_patterns("__pycache__"))
     path = root / PKG / "csrc" / source
     text = path.read_text()
-    if text.count(piece) != 1:
-        raise SystemExit(f"kernel_variants: {name}: the piece to replace "
-                         f"occurs {text.count(piece)} times in {source}")
-    path.write_text(text.replace(piece, repl))
+    for span in spans:
+        start, end, repl = span if len(span) == 3 else (span[0], None,
+                                                         span[1])
+        if text.count(start) != 1:
+            raise SystemExit(f"kernel_variants: {name}: the piece to replace "
+                             f"occurs {text.count(start)} times in {source}")
+        i = text.index(start)
+        j = i + len(start) if end is None else text.index(end, i)
+        text = text[:i] + repl + text[j:]
+    path.write_text(text)
     return root
 
 
@@ -196,10 +276,15 @@ def run(root: Path, script: str, **fmt) -> dict:
     raise SystemExit(f"kernel_variants: the run in {root} failed")
 
 
+def _kind(name: str) -> str:
+    return VARIANTS[name][-1]
+
+
 def faults() -> dict:
     out, caught = {}, True
-    for name, (_, _, _, phase) in VARIANTS.items():
-        if phase.startswith("time"):
+    for name in VARIANTS:
+        phase = _kind(name)
+        if phase.startswith(("time", "design")):
             continue
         print(f"[faults] {name} ({phase})")
         res = run(make_copy(name), _CHECKS, phase=phase)
@@ -212,13 +297,28 @@ def faults() -> dict:
     return out
 
 
+def checks(names) -> dict:
+    out = {}
+    for name in names:
+        if name not in VARIANTS or not _kind(name).startswith("design"):
+            raise SystemExit(f"kernel_variants: {name} is not a design "
+                             "variant")
+        print(f"[checks] {name} ({_kind(name)})")
+        res = run(make_copy(name), _CHECKS, phase=_kind(name).split()[1])
+        out[name] = res["failed"]
+        print(f"[checks] {name}: {len(res['failed'])} check(s) failed")
+    return out
+
+
 def time_variants(names) -> dict:
     out = {}
     for name in names:
-        if not VARIANTS.get(name, "---")[3].startswith("time"):
+        if name not in VARIANTS or not _kind(name).startswith(("time",
+                                                               "design")):
             raise SystemExit(f"kernel_variants: {name} is not a timing "
                              "variant")
-        script = _TIME_K1 if VARIANTS[name][3] == "time K1" else _TIME_K3
+        script = {"K1": _TIME_K1, "K2": _TIME_K2,
+                  "K3": _TIME_K3}[_kind(name).split()[1]]
         roots = {"as is": ROOT, name: make_copy(name)}
         out[name] = {k: [] for k in roots}
         for which in ("as is", name, name, "as is"):
@@ -231,18 +331,21 @@ def time_variants(names) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("faults", "time"))
-    ap.add_argument("names", nargs="*", help="the variants to time: " +
-                    ", ".join(k for k, v in VARIANTS.items()
-                              if v[3].startswith("time")))
+    ap.add_argument("what", choices=("faults", "checks", "time"))
+    ap.add_argument("names", nargs="*", help="the variants to check or "
+                    "time: " + ", ".join(
+                        k for k in VARIANTS
+                        if _kind(k).startswith(("time", "design"))))
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout else "unknown"
     print(f"[variants] {card}")
-    result = {"card": card, args.what: (
-        faults() if args.what == "faults" else time_variants(args.names))}
+    run_mode = {"faults": lambda: faults(),
+                "checks": lambda: checks(args.names),
+                "time": lambda: time_variants(args.names)}[args.what]
+    result = {"card": card, args.what: run_mode()}
     out_dir = ROOT / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"kernel_variants_{args.what}.json").write_text(
