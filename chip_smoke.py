@@ -11,9 +11,9 @@ Phases, each of which fails the run on a failed check:
    widths (B=240, T=128), for W8A8 and for bfloat16 gates: dropout masks and
    int8 activations bit-exact, the rest within a stated tolerance; the head
    row that the generator's ``gate_lstm`` and ``lsa_attention`` write
-   bit-exact, and two runs of ``lsa_attention`` and of the head over that
-   row bit-identical; then one 16-step chunk through the kernels against
-   the plain chunk;
+   bit-exact, and two runs of the prenet, of ``lsa_attention`` and of the
+   head over that row bit-identical; then one 16-step chunk through the
+   kernels against the plain chunk;
 3. the main path: ``Synthesizer.synthesize_batch_lines`` on 240 lines (48
    per language, random 127-letter texts, random speakers), decode chunk
    256 and 512 frames, with the launch counts reset just before and read
@@ -34,8 +34,8 @@ Phases, each of which fails the run on a failed check:
    every kernel on identical inputs (``bwd_prenet``'s frame cotangent
    against the plain product of its own bf16 first-layer gradient), two
    runs each of ``bwd_gemm`` (its split-K reduction), ``bwd_head``,
-   ``train_attention``, ``att_bwd`` and ``bwd_prenet`` (their clusters'
-   exchanges and partial sums) bit-identical, then 16
+   ``train_prenet``, ``train_attention``, ``att_bwd`` and ``bwd_prenet``
+   (their clusters' exchanges and partial sums) bit-identical, then 16
    chained steps forward and backward (every output, residual and gradient
    stream, accumulator and the final cotangent carry); then the same 16
    steps through ``TrainDecode`` (K2 forward, K3 backward) against
@@ -335,14 +335,18 @@ def phase_kernels(hp, sd):
         n_pre, p_dim = bundle.pre_dims[2], bundle.pre_dims[1]
 
         keep_k = torch.zeros(n_pre, B, p_dim, dtype=torch.uint8, device="cuda")
-        keep_p = torch.zeros_like(keep_k)
+        keep_p, keep_again = torch.zeros_like(keep_k), torch.zeros_like(keep_k)
         x_k = fd.prenet(carry["frame"], bundle, kw["dropout_rate"], seeds,
                         step, keep_out=keep_k)
+        x_again = fd.prenet(carry["frame"], bundle, kw["dropout_rate"], seeds,
+                            step, keep_out=keep_again)
         x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"], seeds,
                             step, keep_out=keep_p)
         torch.cuda.synchronize()
         if not torch.equal(keep_k, keep_p):
             fail(f"prenet[{tag}]: dropout masks differ")
+        if not (torch.equal(x_k, x_again) and torch.equal(keep_k, keep_again)):
+            fail(f"prenet[{tag}]: two runs on the same inputs differ")
         e_pre = close(f"prenet[{tag}]", x_k, x)
 
         e_gate = 0.0
@@ -415,8 +419,8 @@ def phase_kernels(hp, sd):
                      close(f"head stop[{tag}]", s_k, s_p))
         print(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
               f"{' and int8 activations' if int8 else ''} and the head row "
-              f"bit-exact, two runs of lsa_attention and of the head "
-              f"bit-identical; max abs "
+              f"bit-exact, two runs of the prenet, of lsa_attention and of "
+              f"the head bit-identical; max abs "
               f"err prenet {e_pre:.3g}, gate_lstm {e_gate:.3g}, "
               f"lsa_attention {e_att:.3g}, head {e_head:.3g} (atol "
               f"{ATOL}; context {CTX_TOL}; weights {W_TOL} of the row max)")
@@ -667,6 +671,10 @@ def phase_profile(decode) -> None:
           f"kernel; device us per step by kernel: " + ", ".join(
               f"{k} {v / steps:.2f}" for k, v in
               sorted(by_name.items(), key=lambda kv: -kv[1])))
+    prenet_us = sum(v for k, v in by_name.items()
+                    if k.startswith("prenet_tile_kernel")) / steps
+    print(f"[profile] prenet inside the chunk: {prenet_us:.2f} us a step "
+          f"(device time, torch.profiler)")
 
 
 def device_busy(prof):
@@ -1015,11 +1023,11 @@ def phase_train_kernels(hp, sd):
                   f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
                   for k in sorted(worst)))
     # split-K sums its partials in a fixed order, bwd_head sums each output
-    # in one thread, and train_attention, att_bwd and bwd_prenet exchange
-    # their clusters' partials in rank order: a second run repeats the
-    # first bit for bit
-    for name in ("bwd_gemm", "bwd_head", "train_attention", "att_bwd",
-                 "bwd_prenet"):
+    # in one thread, train_attention, att_bwd and bwd_prenet exchange their
+    # clusters' partials in rank order, and train_prenet's CTAs exchange
+    # whole bf16 rows: a second run repeats the first bit for bit
+    for name in ("train_prenet", "bwd_gemm", "bwd_head", "train_attention",
+                 "att_bwd", "bwd_prenet"):
         first, again = (calls[name](ftd.KERNELS) for _ in range(2))
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, again)):

@@ -35,7 +35,13 @@
 // row in clusters of 8 rows that share the query product, the location
 // conv on the tensor cores as a band product (csrc/tile.cuh, shared with
 // the training backward's att_bwd) and the context over 16-byte loads.
-// prenet is a first design, one block per few batch rows.
+// prenet (2*B*(M*P + (n-1)*P*P) operations, 41 M at B=240, against 0.5 MB
+// of weights, input and output: a bound of 0.15 us, so its time is
+// latency) is csrc/tile.cuh's prenet_tile_kernel, which the training
+// decoder's train_prenet shares: a cluster of 8 CTAs for each 16 rows, each
+// a column slice of every layer with all its weight reads issued at the
+// start, the layers on mma.sync and the bf16 rows exchanged over
+// distributed shared memory.
 //
 // Interface: plain extern "C" launchers taking device pointers and a
 // cudaStream_t as void*, each returning cudaGetLastError().  Build:
@@ -50,73 +56,22 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// prenet: n layers of relu(x @ W + b) with the hashed always-on dropout.
-// Block: PRENET_ROWS batch rows; threads walk the output columns.
+// prenet: csrc/tile.cuh's prenet_tile_kernel (shared with the training
+// decoder's train_prenet) with the serving epilogue: the last layer's
+// float32 output and, when asked, every layer's uint8 keep mask.
 // ---------------------------------------------------------------------------
-constexpr int PRENET_ROWS = 4;
-constexpr int PRENET_THREADS = 256;
-
-__global__ void prenet_kernel(const float* __restrict__ frame,
-                              const __nv_bfloat16* __restrict__ w_all,
-                              const float* __restrict__ b_all,
-                              float* __restrict__ out,
-                              uint8_t* __restrict__ keep_out, int B,
-                              int in_dim, int P, int n_layers, uint32_t seed0,
-                              uint32_t seed1, int step, uint32_t thresh,
-                              float scale, int apply_dropout) {
-  extern __shared__ float smem[];
-  const int width = in_dim > P ? in_dim : P;
-  float* xa = smem;                         // [ROWS][width] layer input
-  float* xb = smem + PRENET_ROWS * width;   // [ROWS][width] layer output
-  const int row0 = blockIdx.x * PRENET_ROWS;
-  for (int i = threadIdx.x; i < PRENET_ROWS * in_dim; i += blockDim.x) {
-    const int r = i / in_dim, k = i % in_dim, row = row0 + r;
-    xa[r * width + k] = row < B ? frame[(size_t)row * in_dim + k] : 0.0f;
+struct PrenetOut {
+  float* out;        // [B, P]
+  uint8_t* keep;     // [n_layers, B, P], or null
+  int B, P, n_layers;
+  __device__ __forceinline__ void raw(int, int, bf16) const {}
+  __device__ __forceinline__ void put(int layer, int row, int col, float y,
+                                      bool kept) const {
+    if (keep != nullptr)
+      keep[((size_t)layer * B + row) * P + col] = kept ? 1 : 0;
+    if (layer == n_layers - 1) out[(size_t)row * P + col] = y;
   }
-  __syncthreads();
-  const __nv_bfloat16* w = w_all;
-  const float* bias = b_all;
-  int k_dim = in_dim;
-  for (int layer = 0; layer < n_layers; ++layer) {
-    const uint32_t salt = (uint32_t)(step * n_layers + layer + 1);
-    for (int j = threadIdx.x; j < P; j += blockDim.x) {
-      float acc[PRENET_ROWS];
-#pragma unroll
-      for (int r = 0; r < PRENET_ROWS; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < k_dim; ++k) {
-        const float wv = bf16_at(w, (size_t)k * P + j);
-#pragma unroll
-        for (int r = 0; r < PRENET_ROWS; ++r)
-          acc[r] = fmaf(round_bf16(xa[r * width + k]), wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < PRENET_ROWS; ++r) {
-        const int row = row0 + r;
-        float y = fmaxf(acc[r] + bias[j], 0.0f);
-        if (apply_dropout) {
-          const bool keep =
-              rand_bits((uint32_t)row, (uint32_t)j, (uint32_t)P, seed0,
-                        seed1, salt) < thresh;
-          y = keep ? y * scale : 0.0f;
-          if (keep_out != nullptr && row < B)
-            keep_out[((size_t)layer * B + row) * P + j] = keep ? 1 : 0;
-        }
-        xb[r * width + j] = y;
-      }
-    }
-    __syncthreads();
-    float* t = xa;
-    xa = xb;
-    xb = t;
-    w += (size_t)k_dim * P;
-    bias += P;
-    k_dim = P;
-  }
-  for (int i = threadIdx.x; i < PRENET_ROWS * P; i += blockDim.x) {
-    const int r = i / P, j = i % P, row = row0 + r;
-    if (row < B) out[(size_t)row * P + j] = xa[r * width + j];
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // gate_lstm, two launches per LSTM:
@@ -498,21 +453,22 @@ int gate_lstm_run(const Segments& seg, const GateArgs& g) {
 
 extern "C" {
 
+// the columns of P in `cl` shares of np (prenet_split); layer i draws its
+// dropout at salt step * n_layers + i + 1 (pallas_decoder.py:518); keep_out
+// (uint8 [n_layers, B, P]) is written only with the dropout on
 int prenet_launch(const void* frame, const void* w_all, const void* b_all,
                   void* out, void* keep_out, int B, int in_dim, int P,
                   int n_layers, unsigned seed0, unsigned seed1, int step,
-                  unsigned thresh, float scale, int apply_dropout,
-                  void* stream) {
-  const int width = in_dim > P ? in_dim : P;
-  const size_t smem = 2 * PRENET_ROWS * width * sizeof(float);
-  cudaError_t err = allow_smem(prenet_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + PRENET_ROWS - 1) / PRENET_ROWS;
-  prenet_kernel<<<grid, PRENET_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)frame, (const __nv_bfloat16*)w_all, (const float*)b_all,
-      (float*)out, (uint8_t*)keep_out, B, in_dim, P, n_layers, seed0, seed1,
-      step, thresh, scale, apply_dropout);
-  return (int)cudaGetLastError();
+                  unsigned thresh, float scale, int apply_dropout, int cl,
+                  int np, void* stream) {
+  const PrenetArgs args{(const bf16*)w_all, (const float*)b_all, B, in_dim,
+                        P, n_layers, seed0, seed1,
+                        (uint32_t)(step * n_layers + 1), thresh, scale,
+                        apply_dropout, cl, np};
+  const PrenetOut epi{(float*)out,
+                      apply_dropout ? (uint8_t*)keep_out : nullptr, B, P,
+                      n_layers};
+  return (int)prenet_tile_launch(frame, 0, args, epi, (cudaStream_t)stream);
 }
 
 // row_buf: scratch of B * Kp bytes (W8A8) or B * Kp bf16; rs_buf: B floats

@@ -14,8 +14,11 @@
 // splits K.
 //
 // Every product runs on the tensor cores (mma.sync m16n8k16, bfloat16
-// inputs, float32 sums) in the two tile routines of csrc/tile.cuh, or in
-// bwd_head and bwd_prenet.  The gate products run in gate_tile_kernel
+// inputs, float32 sums) in the three tile routines of csrc/tile.cuh, or in
+// bwd_head and bwd_prenet.  The forward prenet runs in prenet_tile_kernel
+// (shared with the serving decoder's prenet): one clustered launch whose
+// CTAs own column slices of each layer and exchange the bf16 rows over
+// distributed shared memory.  The gate products run in gate_tile_kernel
 // (shared with the serving decoder's gate product), with the LSTM step and
 // zoneout or dropout in the epilogue.  The attention query, the head and
 // the backward's dgates @ W^T, dq @ Wq^T and dWq run in splitk_kernel
@@ -174,81 +177,30 @@ struct RoundOut {
 };
 
 // ---------------------------------------------------------------------------
-// train_prenet: the input frame (the shifted target at a teacher step, the
-// previous prediction otherwise), then n layers of relu(x @ W + b) with the
-// hashed dropout.  Writes the raw frame and each layer's post-dropout output
-// (bf16 streams; null in an eval forward) and the last layer into the
-// attention LSTM's concat row.
-// Block: PRE_ROWS batch rows; threads walk the output columns.
+// train_prenet: csrc/tile.cuh's prenet_tile_kernel (shared with the serving
+// decoder's prenet) on the input frame (the shifted target at a teacher
+// step, the previous prediction otherwise), with the training epilogue:
+// the raw frame and each layer's post-dropout output in bf16 (streams; null
+// in an eval forward) and the last layer into the attention LSTM's concat
+// row.
 // ---------------------------------------------------------------------------
-constexpr int PRE_ROWS = 4;
-constexpr int PRE_THREADS = 256;
-
-__global__ void train_prenet_kernel(
-    const bf16* __restrict__ shifted, const float* __restrict__ frame,
-    int teacher, const bf16* __restrict__ w_all,
-    const float* __restrict__ b_all, bf16* __restrict__ raw_out,
-    bf16* __restrict__ pre_out, long long pre_stride, bf16* __restrict__ dst,
-    int ld_dst, int B, int in_dim, int P, int n_layers, uint32_t seed0,
-    uint32_t seed1, uint32_t salt0, uint32_t thresh, float scale,
-    int apply_dropout) {
-  extern __shared__ float smem[];
-  const int width = in_dim > P ? in_dim : P;
-  float* xa = smem;
-  float* xb = smem + PRE_ROWS * width;
-  const int row0 = blockIdx.x * PRE_ROWS;
-  for (int i = threadIdx.x; i < PRE_ROWS * in_dim; i += blockDim.x) {
-    const int r = i / in_dim, k = i % in_dim, row = row0 + r;
-    float x = 0.0f;
-    if (row < B) {
-      const size_t o = (size_t)row * in_dim + k;
-      x = teacher ? bf16_at(shifted, o) : frame[o];
-      if (raw_out != nullptr) raw_out[o] = __float2bfloat16_rn(x);
-    }
-    xa[r * width + k] = x;
+struct TrainPrenetOut {
+  bf16* raw_out;         // [B, in_dim], or null
+  bf16* pre_out;         // [n_layers] x [B, P] at pre_stride, or null
+  long long pre_stride;
+  bf16* dst;             // [B, P] rows of ld_dst
+  int ld_dst, in_dim, P, n_layers;
+  __device__ __forceinline__ void raw(int row, int k, bf16 v) const {
+    if (raw_out != nullptr) raw_out[(size_t)row * in_dim + k] = v;
   }
-  __syncthreads();
-  const bf16* w = w_all;
-  const float* bias = b_all;
-  int k_dim = in_dim;
-  for (int layer = 0; layer < n_layers; ++layer) {
-    for (int j = threadIdx.x; j < P; j += blockDim.x) {
-      float acc[PRE_ROWS];
-#pragma unroll
-      for (int r = 0; r < PRE_ROWS; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < k_dim; ++k) {
-        const float wv = bf16_at(w, (size_t)k * P + j);
-#pragma unroll
-        for (int r = 0; r < PRE_ROWS; ++r)
-          acc[r] = fmaf(round_bf16(xa[r * width + k]), wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < PRE_ROWS; ++r) {
-        const int row = row0 + r;
-        float y = fmaxf(acc[r] + bias[j], 0.0f);
-        if (apply_dropout) {
-          const bool keep = rand_bits((uint32_t)row, (uint32_t)j, (uint32_t)P,
-                                      seed0, seed1, salt0 + layer) < thresh;
-          y = keep ? y * scale : 0.0f;
-        }
-        xb[r * width + j] = y;
-        if (row < B) {
-          const bf16 yb = __float2bfloat16_rn(y);
-          if (pre_out != nullptr)
-            pre_out[layer * pre_stride + (size_t)row * P + j] = yb;
-          if (layer == n_layers - 1) dst[(size_t)row * ld_dst + j] = yb;
-        }
-      }
-    }
-    __syncthreads();
-    float* tmp = xa;
-    xa = xb;
-    xb = tmp;
-    w += (size_t)k_dim * P;
-    bias += P;
-    k_dim = P;
+  __device__ __forceinline__ void put(int layer, int row, int col, float y,
+                                      bool) const {
+    const bf16 yb = __float2bfloat16_rn(y);
+    if (pre_out != nullptr)
+      pre_out[layer * pre_stride + (size_t)row * P + col] = yb;
+    if (layer == n_layers - 1) dst[(size_t)row * ld_dst + col] = yb;
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // train_attention: the attention of one teacher-forced step
@@ -993,11 +945,11 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
 // rows (one mma tile of rows; 4 clusters at B=50, 32 CTAs).  CTA `rank`
 // owns the columns [rank * np, rank * np + np) of P and [rank * n0,
 // rank * n0 + n0) of the input frame's M (whole 8-column mma tiles:
-// ops/fused_train_decoder.py::bwd_prenet_split).  At the start it copies,
-// with cp.async, its columns of dx_in and of every layer's output (the
-// masks) and its rows of every layer's weight (W_l[i, :] for its columns i
-// of the layer's input), so that all the copies are in flight at once and
-// the weights' overlap the first mask.  Then, for each layer from the top:
+// ops/fused_decoder.py::prenet_split, shared with the forward prenet).
+// At the start it copies, with cp.async, its columns of dx_in and of every
+// layer's output (the masks) and its rows of every layer's weight (W_l[i,
+// :] for its columns i of the layer's input), so that all the copies are
+// in flight at once and the weights' overlap the first mask.  Then, for each layer from the top:
 // its columns of da (from dx_in for the top layer, from its own product's
 // accumulators below) go to the da stream and, in bf16, to its shared
 // slice; after a cluster barrier it gathers the full bf16 da rows from its
@@ -1117,26 +1069,8 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
     bf16* nxt = s_own + ((n_layers - l) & 1) * own_slot;
     // every slice of this layer's da is written: gather the full rows
     cluster_sync();
-    const int n_chunks = mtiles * 16 * (kp / 8);
-    for (int i0 = tid; i0 < n_chunks; i0 += 4 * BP_THREADS) {
-      uint4 u[4];   // four loads in flight before their stores
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + q * BP_THREADS;
-        const int r = i / (kp / 8), col = (i % (kp / 8)) * 8, j = col / np;
-        u[q] = make_uint4(0u, 0u, 0u, 0u);
-        if (i < n_chunks && j < cl)
-          u[q] = *reinterpret_cast<const uint4*>(
-              cluster_peer(own, j) + (size_t)r * ldo + col - j * np);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + q * BP_THREADS;
-        if (i < n_chunks)
-          *reinterpret_cast<uint4*>(s_a + (size_t)(i / (kp / 8)) * ldw +
-                                    (i % (kp / 8)) * 8) = u[q];
-      }
-    }
+    cluster_gather_rows(s_a, ldw, own, ldo, np, cl, mtiles * 16, kp,
+                        BP_THREADS);
     if (l == n_layers - 1) cp_async_wait<0>();   // the weights
     __syncthreads();
 
@@ -1192,24 +1126,22 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
 
 extern "C" {
 
+// the columns of P in `cl` shares of np (prenet_split); the input is
+// shifted (bf16) at a teacher step, the float32 frame carry otherwise
 int train_prenet_launch(const void* shifted, const void* frame, int teacher,
                         const void* w_all, const void* b_all, void* raw_out,
                         void* pre_out, long long pre_stride, void* dst,
                         int ld_dst, int B, int in_dim, int P, int n_layers,
                         unsigned seed0, unsigned seed1, unsigned salt0,
                         unsigned thresh, float scale, int apply_dropout,
-                        void* stream) {
-  const int width = in_dim > P ? in_dim : P;
-  const size_t smem = 2 * PRE_ROWS * width * sizeof(float);
-  cudaError_t err = allow_smem(train_prenet_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  train_prenet_kernel<<<(B + PRE_ROWS - 1) / PRE_ROWS, PRE_THREADS, smem,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)shifted, (const float*)frame, teacher, (const bf16*)w_all,
-      (const float*)b_all, (bf16*)raw_out, (bf16*)pre_out, pre_stride,
-      (bf16*)dst, ld_dst, B, in_dim, P, n_layers, seed0, seed1, salt0, thresh,
-      scale, apply_dropout);
-  return (int)cudaGetLastError();
+                        int cl, int np, void* stream) {
+  const PrenetArgs args{(const bf16*)w_all, (const float*)b_all, B, in_dim,
+                        P, n_layers, seed0, seed1, salt0, thresh, scale,
+                        apply_dropout, cl, np};
+  const TrainPrenetOut epi{(bf16*)raw_out, (bf16*)pre_out, pre_stride,
+                           (bf16*)dst, ld_dst, in_dim, P, n_layers};
+  return (int)prenet_tile_launch(teacher ? shifted : frame, teacher ? 1 : 0,
+                                 args, epi, (cudaStream_t)stream);
 }
 
 // row [B, K] (rows of ld_row bf16) and w [4H, K], K a multiple of 8, both
@@ -1359,7 +1291,7 @@ int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
 }
 
 // the columns of P and of the input frame in `cl` shares of np and n0
-// (bwd_prenet_split); every layer's weight rows must fit in shared memory
+// (prenet_split); every layer's weight rows must fit in shared memory
 int bwd_prenet_launch(const void* dx, const void* pre_s, long long pre_stride,
                       const void* w_all, void* da_s, long long da_stride,
                       void* dshift, void* dframe, int teacher, int B,

@@ -6,9 +6,10 @@
 // that both decoders run: the fused-gate LSTM product (gate_tile_kernel)
 // and the split-K product of every other weight (splitk_kernel, with the
 // frame and stop head's epilogue HeadOut), each templated on its epilogue;
-// then the thread-block-cluster helpers, the location-conv band routine of
-// the attention kernels (band_*) and the forward attention's context sum
-// (ctx_*).
+// then the thread-block-cluster helpers, the forward prenet of both
+// decoders (prenet_tile_kernel, clustered, templated on its epilogue), the
+// location-conv band routine of the attention kernels (band_*) and the
+// forward attention's context sum (ctx_*).
 //
 // The two products read their fragments in the same byte layout: an A
 // fragment is rows g and g+8 (g = lane / 4) of a 16-row tile, 4 bytes at
@@ -506,6 +507,11 @@ int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
   return (int)cudaGetLastError();
 }
 
+// n rounded up to a multiple of 16 (bytes of a shared-memory region)
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
 // ---------------------------------------------------------------------------
 // Thread block clusters: a split barrier (arrive, then wait) across the
 // CTAs of a cluster, and a launch with a cluster size chosen at run time.
@@ -530,6 +536,39 @@ __device__ __forceinline__ void cluster_sync() {
 template <class T>
 __device__ __forceinline__ const T* cluster_peer(const T* p, int rank) {
   return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// the full bf16 rows [0, rows) x [0, k) of the cluster's slices into dst
+// (rows of ldd): CTA j's slice `own` (the same shared variable in every
+// CTA; rows of ldo) holds the columns [j * np, j * np + np), np a multiple
+// of 8; columns past cl * np are zero.  16-byte reads of distributed shared
+// memory, four in flight a thread, after a cluster barrier that follows
+// the slices' writes
+__device__ __forceinline__ void cluster_gather_rows(bf16* dst, int ldd,
+                                                    const bf16* own, int ldo,
+                                                    int np, int cl, int rows,
+                                                    int k, int threads) {
+  const int row_chunks = k / 8, n_chunks = rows * row_chunks;
+  for (int i0 = threadIdx.x; i0 < n_chunks; i0 += 4 * threads) {
+    uint4 u[4];   // four loads in flight before their stores
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + q * threads;
+      const int r = i / row_chunks, col = (i % row_chunks) * 8;
+      const int j = col / np;
+      u[q] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < n_chunks && j < cl)
+        u[q] = *reinterpret_cast<const uint4*>(
+            cluster_peer(own, j) + (size_t)r * ldo + col - j * np);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + q * threads;
+      if (i < n_chunks)
+        *reinterpret_cast<uint4*>(dst + (size_t)(i / row_chunks) * ldd +
+                                  (i % row_chunks) * 8) = u[q];
+    }
+  }
 }
 
 // a 1-D grid of `grid` CTAs in clusters of `cluster` consecutive CTAs; the
@@ -560,6 +599,247 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
 }
 
 // ---------------------------------------------------------------------------
+// prenet_tile_kernel: the forward prenet of both decoders (K1's prenet,
+// replacing ops/pallas_decoder.py:513-519; K2's train_prenet, replacing
+// ops/pallas_train_decoder.py:409-425): n layers of
+//   y = relu(bf16(x) @ W_l + b_l), then the hashed dropout:
+//   keep = rand_bits(row, col, P, seed0, seed1, salt0 + l) < thresh,
+//   y = keep ? y * scale : 0
+// with W_l [in, out] bf16 as it lies, float32 sums, and the next layer's
+// input bf16(y), as the TPU kernels and the plain versions round.  The
+// epilogue epi sees the input (raw: row, k, bf16(x)) and every layer's
+// output (put: layer, row, col, y, keep) inside [0, B) x [0, P).
+//
+// One launch: a thread-block cluster of `cl` CTAs (<= 8) for each PN_ROWS =
+// 16 rows (one mma row tile).  CTA `rank` owns the columns [rank * np,
+// rank * np + np) of P in every layer (np a multiple of 8: ops/
+// fused_decoder.py::prenet_split, shared with bwd_prenet).  At the start
+// it copies, with cp.async, the 16 input rows (float32, or bf16 with
+// x_bf16), its bias slices and its column slice of every layer's weight
+// (W_l[:, cols], K zero-padded to a multiple of 16), so that every read is
+// in flight at once.  Each layer is a warp per 8-column mma tile of its
+// columns on mma.sync m16n8k16 (B fragments from ldmatrix.trans of the
+// [K][np] slice) with the bias, ReLU and dropout in the epilogue; the CTA
+// writes its columns in bf16 into its own shared slice, and after one
+// cluster barrier gathers the full bf16 rows from its peers (16-byte reads
+// of distributed shared memory).  Two slices alternate, so a layer costs
+// one barrier.  Each CTA sums its own columns over the whole K: nothing is
+// summed across CTAs and no float atomics are used, so a run repeats bit
+// for bit.  The bf16 exchange is exact: the next layer rounds its input to
+// bf16 anyway.
+//
+// Bound on the H100: 2 * B * (in * P + (n - 1) * P * P) operations (41 M
+// at B=240, two layers of 256) and the weights, biases, input and output
+// once (0.35 to 0.5 MB): 0.1 to 0.15 us.  What costs is latency, so each
+// CTA reads only its 21 KB of weight slices (flagship widths), all at
+// once, and a layer is one mma chain of K / 16 steps and one barrier.
+// ---------------------------------------------------------------------------
+constexpr int PN_ROWS = 16, PN_THREADS = 256, PN_WARPS = PN_THREADS / 32;
+
+// the scalars of one prenet launch
+struct PrenetArgs {
+  const bf16* w;      // the layers' [in, out] weights, concatenated
+  const float* b;     // the layers' biases, concatenated
+  int B, in_dim, P, n_layers;
+  uint32_t seed0, seed1, salt0, thresh;
+  float scale;
+  int drop;           // apply the dropout
+  int cl, np;         // CTAs a cluster, columns a CTA
+};
+
+// shared-memory layout of prenet_tile_kernel (byte offsets)
+struct PnLayout {
+  int kp0, kpp, lda, ldw, ldo, ldx;
+  size_t w, bias, x, a, own, total;
+  __host__ __device__ PnLayout(int in_dim, int P, int np, int n_layers) {
+    kp0 = (in_dim + 15) / 16 * 16;   // K of layer 0, zero-padded
+    kpp = (P + 15) / 16 * 16;        // K of the layers above
+    lda = (kp0 > kpp ? kp0 : kpp) + 8;   // bf16 a row of the A tile
+    ldw = np + 8;                    // bf16 a row of a weight slice
+    ldo = np + 8;                    // bf16 a row of an own slice
+    ldx = (int)align16((size_t)in_dim * 4);   // bytes an input row
+    w = 0;
+    bias = w + align16((size_t)(kp0 + (n_layers - 1) * kpp) * ldw * 2);
+    x = bias + align16((size_t)n_layers * np * 4);
+    a = x + (size_t)PN_ROWS * ldx;
+    own = a + align16((size_t)PN_ROWS * lda * 2);
+    total = own + 2 * align16((size_t)PN_ROWS * ldo * 2);
+  }
+};
+
+// four floats base[j .. j + 4) into shared memory at dst, zero past J;
+// `vec` (base 16-byte aligned, j a multiple of 4) copies with cp.async
+__device__ __forceinline__ void load4f(float* dst,
+                                       const float* __restrict__ base, int j,
+                                       int J, bool vec) {
+  if (vec) {
+    const int n = j < J ? min(J - j, 4) : 0;
+    cp_async16(dst, n > 0 ? base + j : base, 4 * n);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dst[q] = j + q < J ? base[j + q] : 0.0f;
+}
+
+template <class Epi>
+__global__ void __launch_bounds__(PN_THREADS)
+prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
+                   int wvec, int bvec, PrenetArgs args, Epi epi) {
+  extern __shared__ __align__(16) uint8_t pn_smem[];
+  const int B = args.B, in_dim = args.in_dim, P = args.P;
+  const int n_layers = args.n_layers, np = args.np, cl = args.cl;
+  const PnLayout L(in_dim, P, np, n_layers);
+  const int lda = L.lda, ldw = L.ldw, ldo = L.ldo;
+  bf16* s_w = reinterpret_cast<bf16*>(pn_smem + L.w);     // layers' slices
+  float* s_b = reinterpret_cast<float*>(pn_smem + L.bias);  // [n][np]
+  uint8_t* s_x = pn_smem + L.x;                           // input rows
+  bf16* s_a = reinterpret_cast<bf16*>(pn_smem + L.a);     // [ROWS][lda]
+  bf16* s_own = reinterpret_cast<bf16*>(pn_smem + L.own);  // 2 x [ROWS][ldo]
+  const size_t own_slot = align16((size_t)PN_ROWS * ldo * 2) / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int row0 = (blockIdx.x / cl) * PN_ROWS;
+  const int c_lo = rank * np;   // this CTA's columns of P
+
+  // group 0: the input rows, the bias slices, layer 0's weight slice;
+  // group 1: the other layers' weight slices.  Zero outside the matrices.
+  if (x_bf16) {
+    const int chunks = L.ldx / 16;   // 8 bf16 a chunk
+    for (int i = tid; i < PN_ROWS * chunks; i += PN_THREADS) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      load8(reinterpret_cast<bf16*>(s_x + (size_t)r * L.ldx) + c,
+            (const bf16*)x_in, in_dim, row0 + r, c, B, in_dim, xvec);
+    }
+  } else {
+    const int chunks = L.ldx / 16;   // 4 floats a chunk
+    const float* xf = (const float*)x_in;
+    for (int i = tid; i < PN_ROWS * chunks; i += PN_THREADS) {
+      const int r = i / chunks, c = (i % chunks) * 4, row = row0 + r;
+      float* dst = reinterpret_cast<float*>(s_x + (size_t)r * L.ldx) + c;
+      if (row < B)
+        load4f(dst, xf + (size_t)row * in_dim, c, in_dim, xvec);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  for (int i = tid; i < n_layers * (np / 4); i += PN_THREADS) {
+    const int l = i / (np / 4), c = (i % (np / 4)) * 4;
+    load4f(s_b + l * np + c, args.b + (size_t)l * P, c_lo + c, P, bvec);
+  }
+  const int chunks_n = np / 8;
+  for (int l = 0, row_off = 0; l < n_layers; ++l) {
+    const int k_l = l == 0 ? in_dim : P, kp = l == 0 ? L.kp0 : L.kpp;
+    const bf16* w_l = args.w + (l == 0 ? 0
+                                       : (size_t)in_dim * P +
+                                             (size_t)(l - 1) * P * P);
+    for (int i = tid; i < kp * chunks_n; i += PN_THREADS) {
+      const int k = i / chunks_n, c = (i % chunks_n) * 8;
+      load8(s_w + (size_t)(row_off + k) * ldw + c, w_l, P, k, c_lo + c, k_l,
+            P, wvec);
+    }
+    row_off += kp;
+    if (l == 0) cp_async_commit();
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // layer 0's A tile: bf16 of the input rows, zero past in_dim; the cluster's
+  // first CTA hands the rows to the epilogue
+  for (int i = tid; i < PN_ROWS * L.kp0; i += PN_THREADS) {
+    const int r = i / L.kp0, k = i % L.kp0, row = row0 + r;
+    const uint8_t* xr = s_x + (size_t)r * L.ldx;
+    bf16 v = __float2bfloat16_rn(0.0f);
+    if (k < in_dim)
+      v = x_bf16 ? reinterpret_cast<const bf16*>(xr)[k]
+                 : __float2bfloat16_rn(reinterpret_cast<const float*>(xr)[k]);
+    s_a[(size_t)r * lda + k] = v;
+    if (rank == 0 && row < B && k < in_dim) epi.raw(row, k, v);
+  }
+  __syncthreads();
+
+  for (int l = 0, row_off = 0; l < n_layers; ++l) {
+    const int kp = l == 0 ? L.kp0 : L.kpp;
+    const bool last = l == n_layers - 1;
+    const bf16* w_l = s_w + (size_t)row_off * ldw;
+    bf16* own = s_own + (l & 1) * own_slot;
+    const uint32_t salt = args.salt0 + (uint32_t)l;
+    // this CTA's columns of y: a warp per 8-column mma tile, K in steps of
+    // 32 (16 in the last step when kp is an odd multiple of 16)
+    for (int nt = warp; nt < np / 8; nt += PN_WARPS) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const bf16* ar = s_a + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 lda + (lane >> 4) * 8;
+      for (int kk = 0; kk < kp; kk += 32) {
+        const bool two = kk + 16 < kp;   // the same in every lane
+        uint32_t a0[4], a1[4], bw[4];
+        ldsm_x4(a0, ar + kk);
+        if (two) ldsm_x4(a1, ar + kk + 16);
+        ldsm_x4_trans(bw, w_l + (size_t)(kk + (two ? lane : lane & 15)) *
+                                    ldw + nt * 8);
+        mma_bf16(acc, a0, bw);
+        if (two) mma_bf16(acc, a1, bw + 2);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), c = nt * 8 + 2 * qd + (e & 1);
+        const int row = row0 + r, col = c_lo + c;
+        float y = fmaxf(acc[e] + s_b[l * np + c], 0.0f);
+        bool keep = true;
+        if (args.drop) {
+          keep = rand_bits((uint32_t)row, (uint32_t)col, (uint32_t)P,
+                           args.seed0, args.seed1, salt) < args.thresh;
+          y = keep ? y * args.scale : 0.0f;
+        }
+        const bool in = row < B && col < P;
+        if (!last) own[(size_t)r * ldo + c] = __float2bfloat16_rn(in ? y
+                                                                    : 0.0f);
+        if (in) epi.put(l, row, col, y, keep);
+      }
+    }
+    if (last) break;
+    row_off += kp;
+
+    // every slice of this layer is written: gather the full bf16 rows
+    cluster_sync();
+    cluster_gather_rows(s_a, lda, own, ldo, np, cl, PN_ROWS, L.kpp,
+                        PN_THREADS);
+    // after the last gather from the peers, this CTA's reads of their
+    // shared memory are done: arrive now, wait before leaving
+    if (l == n_layers - 2) cluster_arrive();
+    if (l == 0) cp_async_wait<0>();   // the weights of the layers above
+    __syncthreads();
+  }
+  // no CTA leaves while its peers may still read its shared memory
+  if (n_layers > 1) cluster_wait();
+}
+
+// the forward prenet of a decoder over B rows: the input x (float32, or
+// bf16 with x_bf16; rows of in_dim), the layers' weights and biases in
+// args, the columns of P in args.cl shares of args.np (prenet_split)
+template <class Epi>
+cudaError_t prenet_tile_launch(const void* x, int x_bf16,
+                               const PrenetArgs& args, const Epi& epi,
+                               cudaStream_t stream) {
+  const int B = args.B, in_dim = args.in_dim, P = args.P;
+  if (B <= 0 || in_dim <= 0 || P <= 0 || args.n_layers < 1 || args.cl < 1 ||
+      args.cl > 8 || args.np <= 0 || args.np % 8 != 0 ||
+      (long long)args.cl * args.np < P ||
+      (long long)(args.cl - 1) * args.np >= P)
+    return cudaErrorInvalidValue;
+  const PnLayout L(in_dim, P, args.np, args.n_layers);
+  const int xvec = (uintptr_t)x % 16 == 0 &&
+                   in_dim % (x_bf16 ? 8 : 4) == 0;
+  const int wvec = (uintptr_t)args.w % 16 == 0 && P % 8 == 0;
+  const int bvec = (uintptr_t)args.b % 16 == 0 && P % 4 == 0;
+  return launch_cluster(prenet_tile_kernel<Epi>,
+                        (B + PN_ROWS - 1) / PN_ROWS * args.cl, PN_THREADS,
+                        L.total, args.cl, stream, x, x_bf16, xvec, wvec, bvec,
+                        args, epi);
+}
+
+// ---------------------------------------------------------------------------
 // The location-conv band routine of both attention kernels (K1's
 // lsa_attention, K3's att_bwd; the JAX kernels' `loc = cum @ Band`,
 // ops/pallas_decoder.py:572-575, ops/pallas_train_decoder.py:779-926).
@@ -582,11 +862,6 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
 // ld is a multiple of 8 elements, and A a multiple of 16 (8 for loc).
 // ---------------------------------------------------------------------------
 constexpr int BAND_K = 32;
-
-// n rounded up to a multiple of 16 (bytes of a shared-memory region)
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~(size_t)15;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |

@@ -8,7 +8,12 @@ matrix, lane replication, T-blocked fold or VMEM model).  The Python
 wrapper loops over the S steps of a chunk, and each step calls
 four kernel functions of ``csrc/fused_decoder.cu``:
 
-1. ``prenet``: the prenet layers with ReLU and the always-on hashed dropout;
+1. ``prenet``: the prenet layers with ReLU and the always-on hashed
+   dropout, in one launch of thread-block clusters of up to 8 CTAs for each
+   16 rows, each CTA a column slice of every layer on the tensor cores, the
+   bf16 rows exchanged over distributed shared memory
+   (``csrc/tile.cuh::prenet_tile_kernel``, shared with the training
+   decoder's ``train_prenet``);
 2. ``gate_lstm`` (twice): one fused-gate LSTM in two launches.  A row pass
    assembles each concat row ``[x | context | h]`` once in the compute type
    and, in W8A8 mode, quantizes it per row into an int8 scratch row and its
@@ -332,7 +337,7 @@ def head_plain(h_gen: torch.Tensor, ctx: torch.Tensor,
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "prenet_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _U,
-                      _F, _I, _P],
+                      _F, _I, _I, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _P],
     "lsa_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -416,10 +421,34 @@ def _outputs(out, *like: Tuple):
     return out
 
 
+# the prenet kernels' cluster (csrc/tile.cuh prenet_tile_kernel, the
+# training decoder's bwd_prenet): at most this many CTAs, each whole 8-column
+# mma tiles of every layer's output
+_PRENET_CLUSTER_MAX = 8
+
+
+def prenet_split(in_dim: int, p: int) -> Tuple[int, int, int]:
+    """``(cluster, cols_p, cols_in)`` of the prenet kernels (this module's
+    ``prenet``, the training decoder's ``train_prenet`` and ``bwd_prenet``):
+    each CTA's share of P's columns, the fewest whole 8-column tiles such
+    that at most 8 CTAs cover P, as many CTAs as that needs (none empty),
+    and each CTA's share of the input frame's columns, which only the
+    backward splits (the last shares may reach past M, or be empty).  P=256,
+    M=80 gives 8 CTAs of 32 and 16 columns."""
+    if in_dim < 1 or p < 1:
+        raise ValueError(f"the prenet needs M, P >= 1, got {in_dim}, {p}")
+    cdiv = _splitk._cdiv
+    tiles = cdiv(p, 8)
+    per = cdiv(tiles, _PRENET_CLUSTER_MAX)
+    cluster = cdiv(tiles, per)
+    return cluster, 8 * per, 8 * cdiv(cdiv(in_dim, 8), cluster)
+
+
 def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None,
            out=None):
     """Kernel ``prenet`` (see ``prenet_plain``); writes ``out`` [B, P] when
-    given."""
+    given.  One launch: a cluster of CTAs for each 16 rows, each CTA a
+    column slice of every layer (``prenet_split``)."""
     if not _is_cuda(frame):
         return prenet_plain(frame, bundle, dropout_rate, seeds, step,
                             keep_out)
@@ -432,11 +461,13 @@ def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None,
         raise ValueError("keep_out must be uint8")
     _check("prenet", frame, bundle.pre_w, bundle.pre_b, keep_out)
     drop = dropout_rate > 0.0
+    cluster, cols_p, _ = prenet_split(in_dim, p)
     err = _lib().prenet_launch(
         _ptr(frame), _ptr(bundle.pre_w), _ptr(bundle.pre_b), _ptr(out),
         _ptr(keep_out), b, in_dim, p, n, seeds[0] & _M32, seeds[1] & _M32,
         step, keep_threshold(dropout_rate) if drop else 0,
-        1.0 / (1.0 - dropout_rate) if drop else 1.0, int(drop), _stream())
+        1.0 / (1.0 - dropout_rate) if drop else 1.0, int(drop), cluster,
+        cols_p, _stream())
     _launched("prenet", err)
     return out
 

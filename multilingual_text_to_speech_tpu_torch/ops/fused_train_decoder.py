@@ -11,7 +11,9 @@ simple design: the Python drivers loop over the steps, and each step
 launches the kernels of ``csrc/fused_train_decoder.cu``:
 
 - forward (K2): ``train_prenet`` (teacher selection, layers, hashed
-  dropout), ``train_gate_lstm`` for each LSTM (the bf16 gate product on the
+  dropout; one clustered launch, each CTA a column slice of every layer,
+  ``prenet_split``, on the tensor cores, as the serving ``prenet``),
+  ``train_gate_lstm`` for each LSTM (the bf16 gate product on the
   tensor cores with the LSTM step and train-mode zoneout or dropout in its
   epilogue), ``train_query`` (``bf16(h_att @ Wq)``), ``train_attention``
   (location conv, energy, softmax, cumulative weights, context) and
@@ -31,7 +33,7 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   over tiles of its positions, ``att_bwd_tiles``, the location conv's
   three products on the tensor cores as band products) and
   ``bwd_prenet`` (one clustered launch over all rows, each CTA a column
-  slice of every layer, ``bwd_prenet_split``, the products on the tensor
+  slice of every layer, ``prenet_split``, the products on the tensor
   cores); after the last step one ``bwd_gemm`` reduces dWq over all steps
   and rows.
 
@@ -83,6 +85,7 @@ from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     _rounded,
     _stream,
     keep_threshold,
+    prenet_split,
     rand_bits,
 )
 
@@ -527,7 +530,7 @@ _P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 _REG = [_U, _U, _U, _U, _U, _U, _I, _F, _F, _F]
 _SIGNATURES = {
     "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _I, _I,
-                            _I, _I, _U, _U, _U, _U, _F, _I, _P],
+                            _I, _I, _U, _U, _U, _U, _F, _I, _I, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I,
                          _P, _I] + _REG + [_P],
     "query_launch": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
@@ -597,7 +600,9 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
     step, the ``frame`` carry otherwise) -> ``raw_out`` [B, M], each
     layer's output ``pre_out`` [layers, B, P] and the last layer into
     ``dst`` [B, P] (bf16; the streams ``raw_out`` and ``pre_out`` may be
-    None)."""
+    None).  One launch: a cluster of CTAs for each 16 rows, each CTA a
+    column slice of every layer (``prenet_split``), as the serving
+    decoder's ``prenet``."""
     if not _is_cuda(frame):
         return _train_prenet_plain_into(shifted_s, frame, teacher, ops, cfg,
                                         seeds, gs, raw_out, pre_out, dst)
@@ -605,6 +610,7 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
         _require(t, torch.bfloat16, "train_prenet operands")
     b = frame.shape[0]
     rate = cfg.dropout_rate
+    cluster, cols_p, _ = prenet_split(cfg.mmel, cfg.prenet_dim)
     _launch("train_prenet", "train_prenet_launch",
             _ptr(shifted_s), _ptr(frame), int(bool(teacher)),
             _ptr(ops["pre_w"]), _ptr(ops["pre_b"]), _ptr(raw_out),
@@ -612,7 +618,8 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
             cfg.mmel, cfg.prenet_dim, cfg.n_prenet, seeds[0] & _M32,
             seeds[1] & _M32, cfg.prenet_salt(gs),
             keep_threshold(rate) if rate > 0.0 else 0,
-            1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(rate > 0.0))
+            1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(rate > 0.0),
+            cluster, cols_p)
 
 
 def train_gate_lstm(row, w, bias, reg, h, c, act_out, c_out, h_dst0, h_dst1):
@@ -767,25 +774,6 @@ def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
     return tile, _cdiv(t_len, tile)
 
 
-# bwd_prenet's cluster: at most this many CTAs, each whole 8-column mma
-# tiles of every layer's output
-_BP_CLUSTER_MAX = 8
-
-
-def bwd_prenet_split(in_dim: int, p: int) -> Tuple[int, int, int]:
-    """``(cluster, cols_p, cols_in)`` of ``bwd_prenet``: each CTA's share
-    of P's columns, the fewest whole 8-column tiles such that at most 8
-    CTAs cover P, as many CTAs as that needs (none empty), and each CTA's
-    share of the input frame's columns (the last shares may reach past M,
-    or be empty).  P=256, M=80 gives 8 CTAs of 32 and 16 columns."""
-    if in_dim < 1 or p < 1:
-        raise ValueError(f"bwd_prenet needs M, P >= 1, got {in_dim}, {p}")
-    tiles = _cdiv(p, 8)
-    per = _cdiv(tiles, _BP_CLUSTER_MAX)
-    cluster = _cdiv(tiles, per)
-    return cluster, 8 * per, 8 * _cdiv(_cdiv(in_dim, 8), cluster)
-
-
 def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
             dv, dq_out, dctx_out):
     """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
@@ -814,7 +802,7 @@ def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,
     then ``dshift_out`` (bf16, zero unless a teacher step) and the float32
     ``dframe`` carry (zero at a teacher step).  One launch: a cluster of
     CTAs for each 16 rows, each CTA a column slice of every layer
-    (``bwd_prenet_split``), every layer's weight slice in its shared
+    (``prenet_split``), every layer's weight slice in its shared
     memory at once (up to 11 layers at P=256)."""
     if not _is_cuda(dx):
         return _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher, da_out,
@@ -822,7 +810,7 @@ def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,
     for t in (pre_s, ops["pre_w"], da_out, dshift_out):
         _require(t, torch.bfloat16, "bwd_prenet operands")
     rate = cfg.dropout_rate
-    cluster, cols_p, cols_in = bwd_prenet_split(cfg.mmel, cfg.prenet_dim)
+    cluster, cols_p, cols_in = prenet_split(cfg.mmel, cfg.prenet_dim)
     _launch("bwd_prenet", "bwd_prenet_launch", _ptr(dx), _ptr(pre_s),
             pre_s.stride(0), _ptr(ops["pre_w"]), _ptr(da_out),
             da_out.stride(0), _ptr(dshift_out), _ptr(dframe),

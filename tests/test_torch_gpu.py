@@ -896,6 +896,139 @@ def test_bwd_prenet_matches_plain_at_flagship_widths(b, n_prenet, teacher):
         assert torch.equal(g, a)
 
 
+def _prenet_operands(n_prenet, b, seed):
+    """Random bf16 prenet weights and float32 biases at the flagship's
+    widths (M=80, P=256), as K1's bundle and as the training decoder's
+    operands, and a float32 frame and a bf16 shifted target of b rows."""
+    import dataclasses
+
+    p, m = 256, _MELS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_w = m * p + (n_prenet - 1) * p * p
+    w = (torch.randn(n_w, device="cuda", generator=gen) / 16.0).bfloat16()
+    bias = 0.1 * torch.randn(n_prenet * p, device="cuda", generator=gen)
+    fields = {f.name: None for f in dataclasses.fields(fd.DecoderBundle)}
+    fields.update(dtype=torch.bfloat16, quantized=False, pre_w=w,
+                  pre_b=bias, pre_dims=(m, p, n_prenet))
+    frame = torch.randn(b, m, device="cuda", generator=gen)
+    shifted = torch.randn(b, m, device="cuda", generator=gen).bfloat16()
+    return fd.DecoderBundle(**fields), {"pre_w": w, "pre_b": bias}, frame, \
+        shifted
+
+
+@pytest.mark.parametrize("kernel", ["prenet", "train_prenet"])
+@pytest.mark.parametrize("n_prenet", [1, 2, 3])
+@pytest.mark.parametrize("b", [1, 50, 240])
+def test_prenet_matches_plain_at_flagship_widths(b, n_prenet, kernel):
+    """K1 ``prenet`` and K2 ``train_prenet`` (one launch each: a cluster of
+    8 CTAs for each 16 rows, each a column slice of every layer, the layers
+    on mma.sync) at P=256 and M=80 for prenet depths 1 to 3, dropout 0.5,
+    against their plain versions on the same inputs.
+    K1, with ``keep_out`` and without: the keep masks bit-exact at steps 0
+    and 3; the float32 output within 1e-6 of its largest value of the plain
+    last layer over the kernel's own bf16 input to it (the kernel run on
+    the first n - 1 layers at step 0, where their salts are the same),
+    since a float32 sum order that differs can flip one bf16 rounding of a
+    lower layer's output.
+    K2, at both teacher flags, with the raw and per-layer streams and
+    without them (the eval forward): the raw frame exact; each layer's bf16
+    output within one ulp (ULP of the largest value), the concat row equal
+    to the last layer; the masks (zero weights, positive biases: every
+    zero a dropped unit) bit-exact.
+    Two runs bit-identical; one launch a call."""
+    import dataclasses
+
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    bundle, ops, frame, shifted = _prenet_operands(n_prenet, b,
+                                                   b + 10 * n_prenet)
+    p, m = 256, _MELS
+    seeds = (123456789, 987654321)
+    if kernel == "prenet":
+        def run(fn, step, keep=True, bnd=bundle):
+            k = (torch.zeros(bnd.pre_dims[2], b, p, dtype=torch.uint8,
+                             device="cuda") if keep else None)
+            return fn(frame, bnd, 0.5, seeds, step, keep_out=k), k
+
+        for step in (0, 3):
+            fd.reset_launch_counts()
+            got, keep_k = run(fd.prenet, step)
+            assert fd.LAUNCHES["prenet"] == 1
+            again, keep_a = run(fd.prenet, step)
+            alone, _ = run(fd.prenet, step, keep=False)
+            ref, keep_p = run(fd.prenet_plain, step)
+            assert torch.equal(keep_k, keep_p)
+            assert bool((keep_p == 0).any() and (keep_p == 1).any())
+            assert torch.equal(got, again) and torch.equal(keep_k, keep_a)
+            assert torch.equal(got, alone)
+            assert fd.LAUNCHES["prenet"] == 3
+        # step 0: the last layer of the plain version over the kernel's own
+        # bf16 input to it
+        x_in = frame
+        if n_prenet > 1:
+            w_lo = bundle.prenet_layers()[:-1]
+            lower = dataclasses.replace(
+                bundle, pre_w=torch.cat([w.reshape(-1) for w, _ in w_lo]),
+                pre_b=torch.cat([bb for _, bb in w_lo]),
+                pre_dims=(m, p, n_prenet - 1))
+            x_in, _ = run(fd.prenet, 0, keep=False, bnd=lower)
+        w_top, b_top = bundle.prenet_layers()[-1]
+        want = fd.hashed_dropout(torch.relu(fd._mm(x_in, w_top) + b_top),
+                                 0.5, seeds, n_prenet)
+        got, _ = run(fd.prenet, 0)
+        err = float((got - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), err
+        return
+
+    cfg = ftd.TrainConfig(hidden=_HIDDEN, mem_dim=_MEM, prenet_dim=p,
+                          n_prenet=n_prenet, mmel=m, att_dim=_ATT,
+                          taps=_TAPS, dropout_rate=0.5, zoneout_h=0.1,
+                          zoneout_c=0.1, use_zoneout=True,
+                          dtype=torch.bfloat16)
+    masks = {"pre_w": torch.zeros_like(ops["pre_w"]),
+             "pre_b": ops["pre_b"].abs() + 1.0}
+
+    def run(fn, teacher, streams, o=ops):
+        row = torch.zeros(b, p + 96, dtype=torch.bfloat16, device="cuda")
+        raw = (torch.empty(b, m, dtype=torch.bfloat16, device="cuda")
+               if streams else None)
+        pre = (torch.empty(n_prenet, b, p, dtype=torch.bfloat16,
+                           device="cuda") if streams else None)
+        fn(shifted, frame, teacher, o, cfg, seeds, 7, raw, pre, row[:, :p])
+        return [x for x in (raw, pre, row) if x is not None]
+
+    ulp = TRAIN_KERNEL_TOL["train_prenet"]["bf16"]
+    for teacher in (0, 1):
+        for streams in (True, False):
+            ftd.reset_launch_counts()
+            got = run(ftd.train_prenet, teacher, streams)
+            assert ftd.LAUNCHES["train_prenet"] == 1
+            again = run(ftd.train_prenet, teacher, streams)
+            ref = run(ftd.PLAIN.train_prenet, teacher, streams)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            row = got[-1]
+            assert not row[:, p:].any()
+            if streams:
+                raw, pre = got[0], got[1]
+                assert torch.equal(raw, (shifted if teacher
+                                         else frame.bfloat16()))
+                assert torch.equal(row[:, :p], pre[-1])
+                outs, refs = list(pre), list(ref[1])
+            else:
+                outs, refs = [row[:, :p]], [ref[-1][:, :p]]
+            for g, r in zip(outs, refs):
+                err = float((g.float() - r.float()).abs().max())
+                assert err <= ulp * float(r.float().abs().max()), err
+            got_m = run(ftd.train_prenet, teacher, streams, masks)
+            ref_m = run(ftd.PLAIN.train_prenet, teacher, streams, masks)
+            for g, r in zip(got_m[1:] if streams else got_m,
+                            ref_m[1:] if streams else ref_m):
+                assert torch.equal(g == 0, r == 0)
+            assert bool((got_m[-1][:, :p] == 0).any())
+
+
 @pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
 def test_eval_forward_kernels_match_plain(regularization):
     """The eval forward (``TrainConfig.train`` False) through the K2

@@ -27,9 +27,9 @@ from tests.torch_port_utils import (
 
 
 @functools.lru_cache(maxsize=None)
-def _models():
-    hp = tiny_hp()
-    v_np = variables_np()
+def _models(prenet_layers=2):
+    hp = tiny_hp(prenet_layers=prenet_layers)
+    v_np = variables_np(prenet_layers=prenet_layers)
     return hp, Tacotron(hp, train=False), jax_variables(v_np), port_model(hp, v_np)
 
 
@@ -111,8 +111,8 @@ def test_mixing_one_hot_equals_row_groups():
         np.testing.assert_allclose(to_np(m), to_np(r), atol=1e-5)
 
 
-def _decode_setup(b=4, t=12):
-    hp, model, variables, port = _models()
+def _decode_setup(b=4, t=12, prenet_layers=2):
+    hp, model, variables, port = _models(prenet_layers)
     text, lengths, speakers = batch(hp, b, t, seed=7)
     langs = np.array([0, 1] * (b // 2), np.int32)
     memory, mt, mask, carry = _jax_encode(
@@ -161,13 +161,16 @@ def test_decode_chunk_exact_gates_matches_xla_scan(steps):
             assert _rel(stop_p, np.asarray(stop_x)) < 1e-3
 
 
-def test_w8a8_dropout_chunk_matches_pallas_kernel():
+@pytest.mark.parametrize("prenet_layers", [1, 2, 3])
+def test_w8a8_dropout_chunk_matches_pallas_kernel(prenet_layers):
     """W8A8 gates and prenet dropout 0.5: the port's plain chunk against
     the JAX Pallas kernel (interpret mode, one batch block) with the same
-    seed pair.  Dropout masks are identical; spec and stop agree to atol
-    1e-4 over 2 steps (requantization may flip one int8 level where the
-    inputs differ by an ulp)."""
-    hp, _, variables, port, jx, t_in, t_carry = _decode_setup()
+    seed pair, at prenet depths 1 to 3 (the flagship's 2).  Dropout masks
+    are identical; spec and stop agree to atol 1e-4 over 2 steps
+    (requantization may flip one int8 level where the inputs differ by an
+    ulp)."""
+    hp, _, variables, port, jx, t_in, t_carry = _decode_setup(
+        prenet_layers=prenet_layers)
     b = t_in[0].shape[0]
     rng = jax.random.PRNGKey(42)
     jb = pallas_decoder.extract_decoder_bundle(variables, jnp.float32,

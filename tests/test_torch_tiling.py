@@ -1,15 +1,19 @@
 """The pure-Python pieces around the port's split kernels, on the CPU: how
 ``splitk_kernel``'s K is split (``ops/_splitk.py``, shared by both
 decoders) and how large the one scratch of a decoder pass or serving chunk
-must be; how ``bwd_prenet`` splits each layer's columns over the CTAs of
-a cluster and exchanges its da rows.  The kernels themselves run only on
-the card (``tests/test_torch_gpu.py``)."""
+must be; how the prenet kernels (the forward ``prenet`` and
+``train_prenet``, and ``bwd_prenet``) split each layer's columns over the
+CTAs of a cluster (``prenet_split``) and exchange their bf16 rows.  The
+kernels themselves run only on the card (``tests/test_torch_gpu.py``)."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from multilingual_text_to_speech_tpu_torch.ops import _splitk
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
 from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
 
 # splitk_kernel's tile (csrc/tile.cuh: SK_BM, SK_BN, SK_BK) and two blocks
@@ -85,12 +89,15 @@ def test_splitk_scratch_of_the_serving_chunk():
 
 @pytest.mark.parametrize("in_dim,p,want", [
     (80, 256, (8, 32, 16)), (96, 256, (8, 32, 16)), (20, 24, (3, 8, 8)),
-    (80, 7, (1, 8, 80)), (1, 1000, (8, 128, 8))])
+    (80, 7, (1, 8, 80)), (1, 1000, (8, 128, 8)), (27, 40, (5, 8, 8)),
+    (80, 8, (1, 8, 80))])
 def test_bwd_prenet_split_at_known_widths(in_dim, p, want):
     """The flagship's prenet (M=80, P=256) runs 8 CTAs of 32 columns of P
     and 16 of the frame's 80 (the last three own none); a P of one
-    8-column tile runs one CTA."""
-    assert ftd.bwd_prenet_split(in_dim, p) == want
+    8-column tile runs one CTA.  The forward prenet kernels take the same
+    split of P (``prenet_split`` is the one helper of all three)."""
+    assert fd.prenet_split(in_dim, p) == want
+    assert ftd.prenet_split is fd.prenet_split
 
 
 def test_bwd_prenet_split_covers_every_width():
@@ -98,12 +105,12 @@ def test_bwd_prenet_split_covers_every_width():
     input frame owned, and no CTA of P's columns empty."""
     for p in range(1, 300):
         for in_dim in (1, 7, 80, 96, 257):
-            cl, cols_p, cols_in = ftd.bwd_prenet_split(in_dim, p)
+            cl, cols_p, cols_in = fd.prenet_split(in_dim, p)
             assert 1 <= cl <= 8 and cols_p % 8 == 0 and cols_in % 8 == 0
             assert (cl - 1) * cols_p < p <= cl * cols_p
             assert in_dim <= cl * cols_in
     with pytest.raises(ValueError):
-        ftd.bwd_prenet_split(0, 8)
+        fd.prenet_split(0, 8)
 
 
 def _split_bwd_prenet(dx, outs, ops, cfg):
@@ -112,7 +119,7 @@ def _split_bwd_prenet(dx, outs, ops, cfg):
     the slices in rank order), and each computes its columns of dx =
     bf16(da) @ W^T from its rows of W.  -> (da per layer, d input frame)."""
     p, m = cfg.prenet_dim, cfg.mmel
-    cl, cols_p, cols_in = ftd.bwd_prenet_split(m, p)
+    cl, cols_p, cols_in = fd.prenet_split(m, p)
     scale = 1.0 / (1.0 - cfg.dropout_rate)
     layers = ftd.prenet_layers(ops, cfg)
     own = [slice(r * cols_p, min(p, (r + 1) * cols_p)) for r in range(cl)]
@@ -165,3 +172,117 @@ def test_bwd_prenet_split_is_the_plain_backward(n_prenet, in_dim):
     torch.testing.assert_close(dx_in[:, :in_dim], ref_in, rtol=1e-6,
                                atol=1e-6)
     assert dx_in.shape[1] >= in_dim
+
+
+def _split_prenet(x, layers, rate, seeds, salt0):
+    """The forward prenet as its kernel splits it: the rows in 16-row tiles
+    (the last one ragged, its pad rows zero), each CTA of a tile's cluster
+    computing its own columns of a layer, relu(bf16(x) @ W[:, cols] + b),
+    with the dropout mask drawn at the global columns; the CTAs exchange
+    their bf16 slices (the full rows are the slices in rank order) as the
+    next layer's input.  -> (each layer's float32 output, each layer's keep
+    mask), the pad rows dropped."""
+    b, in_dim = x.shape
+    p = layers[0][0].shape[1]
+    cl, cols_p, _ = fd.prenet_split(in_dim, p)
+    own = [slice(r * cols_p, min(p, (r + 1) * cols_p)) for r in range(cl)]
+    rows = -(-b // 16) * 16
+    a = torch.zeros(rows, in_dim)
+    a[:b] = x.float()
+    outs, keeps = [], []
+    for i, (w, bias) in enumerate(layers):
+        bits = fd.rand_bits((rows, p), seeds[0], seeds[1], salt0 + i)
+        keep = bits < fd.keep_threshold(rate)
+        slices, kept = [], []
+        for r in range(cl):
+            y = torch.relu(fd._mm(a, w[:, own[r]]) + bias[own[r]])
+            y = torch.where(keep[:, own[r]], y * (1.0 / (1.0 - rate)),
+                            torch.zeros_like(y))
+            slices.append(y)
+            kept.append(keep[:, own[r]])
+        y = torch.cat(slices, 1)
+        outs.append(y[:b])
+        keeps.append(torch.cat(kept, 1)[:b])
+        a = y.bfloat16().float()   # the exchange of the bf16 rows
+    return outs, keeps
+
+
+def _prenet_weights(in_dim, p, n_prenet, seed):
+    rng = np.random.RandomState(seed)
+    n_w = in_dim * p + (n_prenet - 1) * p * p
+    return (torch.as_tensor(rng.randn(n_w) / 8.0,
+                            dtype=torch.float32).bfloat16(),
+            torch.as_tensor(0.1 * rng.randn(n_prenet * p),
+                            dtype=torch.float32))
+
+
+_PRENET_WIDTHS = [(80, 256), (80, 40), (27, 24)]
+
+
+@pytest.mark.parametrize("in_dim,p", _PRENET_WIDTHS)
+@pytest.mark.parametrize("n_prenet", [1, 2, 3])
+def test_prenet_split_is_the_plain_serving_prenet(n_prenet, in_dim, p):
+    """The column split and bf16 exchange of the forward prenet kernel, at
+    B=50 (a ragged last 16-row tile), dropout 0.5, step 3, equals
+    ``fused_decoder.prenet_plain``: the keep masks exactly, the float32
+    output within float32 sum order (rtol 1e-6)."""
+    w, bias = _prenet_weights(in_dim, p, n_prenet, 7 * n_prenet + p)
+    bundle = SimpleNamespace(pre_w=w, pre_b=bias,
+                             pre_dims=(in_dim, p, n_prenet))
+    bundle.prenet_layers = lambda: fd.DecoderBundle.prenet_layers(bundle)
+    b, step, seeds = 50, 3, (123456789, 987654321)
+    frame = torch.as_tensor(np.random.RandomState(p).randn(b, in_dim),
+                            dtype=torch.float32)
+    outs, keeps = _split_prenet(frame, bundle.prenet_layers(), 0.5, seeds,
+                                step * n_prenet + 1)
+    keep_p = torch.zeros(n_prenet, b, p, dtype=torch.uint8)
+    ref = fd.prenet_plain(frame, bundle, 0.5, seeds, step, keep_out=keep_p)
+    assert torch.equal(torch.stack(keeps).to(torch.uint8), keep_p)
+    assert bool((keep_p == 0).any() and (keep_p == 1).any())
+    torch.testing.assert_close(outs[-1], ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("in_dim,p", _PRENET_WIDTHS)
+@pytest.mark.parametrize("n_prenet", [1, 2, 3])
+def test_prenet_split_is_the_plain_train_prenet(n_prenet, in_dim, p):
+    """The same split against ``train_prenet``'s plain route (the CPU path
+    of ``fused_train_decoder.train_prenet``) at both teacher flags, with
+    the raw and per-layer streams and without them (the eval forward): the
+    raw frame and every bf16 output equal; the masks (zero weights and
+    positive biases, so that every zero is a dropped unit) exactly those of
+    the plain version."""
+    w, bias = _prenet_weights(in_dim, p, n_prenet, 3 * n_prenet + p)
+    cfg = ftd.TrainConfig(hidden=16, mem_dim=8, prenet_dim=p,
+                          n_prenet=n_prenet, mmel=in_dim, att_dim=16, taps=3,
+                          dropout_rate=0.5, zoneout_h=0.1, zoneout_c=0.1,
+                          use_zoneout=True, dtype=torch.bfloat16)
+    b, gs, seeds = 50, 11, (2654435761, 40503)
+    rng = np.random.RandomState(in_dim)
+    shifted = torch.as_tensor(rng.randn(b, in_dim),
+                              dtype=torch.float32).bfloat16()
+    frame = torch.as_tensor(rng.randn(b, in_dim), dtype=torch.float32)
+    for masks in (False, True):
+        ops = ({"pre_w": torch.zeros_like(w), "pre_b": bias.abs() + 1.0}
+               if masks else {"pre_w": w, "pre_b": bias})
+        layers = ftd.prenet_layers(ops, cfg)
+        for teacher in (0, 1):
+            x = shifted if teacher else frame
+            outs, keeps = _split_prenet(x, layers, 0.5, seeds,
+                                        cfg.prenet_salt(gs))
+            for streams in (True, False):
+                raw = torch.zeros(b, in_dim, dtype=torch.bfloat16)
+                pre = torch.zeros(n_prenet, b, p, dtype=torch.bfloat16)
+                dst = torch.zeros(b, p, dtype=torch.bfloat16)
+                ftd.train_prenet(shifted, frame, teacher, ops, cfg, seeds,
+                                 gs, raw if streams else None,
+                                 pre if streams else None, dst)
+                assert torch.equal(dst, outs[-1].bfloat16())
+                if streams:
+                    assert torch.equal(raw, x.bfloat16())
+                    for got, want in zip(pre, outs):
+                        assert torch.equal(got, want.bfloat16())
+                if masks:
+                    assert torch.equal(dst == 0, ~keeps[-1])
+                    if streams:
+                        for got, keep in zip(pre, keeps):
+                            assert torch.equal(got == 0, ~keep)

@@ -56,12 +56,12 @@ def _randomize(tree, rng, kind):
 
 
 @functools.lru_cache(maxsize=None)
-def _variables_np(stop_bias, classifier=False):
+def _variables_np(stop_bias, classifier=False, prenet_layers=2):
     """numpy weights (random batch_stats too) for ``tiny_hp`` (with the
-    reversal classifier when ``classifier``).  Random normal weights at 0.3
-    stand in for a trained net; ``stop_bias`` overrides the stop head's bias
-    when not None."""
-    hp = tiny_hp(reversal_classifier=classifier)
+    reversal classifier when ``classifier``, and ``prenet_layers`` prenet
+    layers).  Random normal weights at 0.3 stand in for a trained net;
+    ``stop_bias`` overrides the stop head's bias when not None."""
+    hp = tiny_hp(reversal_classifier=classifier, prenet_layers=prenet_layers)
     model = Tacotron(hp, train=False)
     b, t = 2, 8
     key = jax.random.PRNGKey(0)
@@ -79,8 +79,8 @@ def _variables_np(stop_bias, classifier=False):
     return out
 
 
-def variables_np(stop_bias=None, classifier=False):
-    return _variables_np(stop_bias, classifier)
+def variables_np(stop_bias=None, classifier=False, prenet_layers=2):
+    return _variables_np(stop_bias, classifier, prenet_layers)
 
 
 def jax_variables(v_np):

@@ -15,8 +15,12 @@ from the changed source into the copy's own build directory.
 
 ``faults`` plants one fault at a time: a wrong location-conv tap (K1's
 ``lsa_attention``; K2's ``train_attention``; K3's ``att_bwd``, in its cum
-gradient and in its filter gradient) or a dropped ReLU/dropout mask in one
-layer of K3's ``bwd_prenet``, and runs the checks of that kernel's
+gradient and in its filter gradient), a dropped ReLU/dropout mask in one
+layer of K3's ``bwd_prenet``, or, in the forward prenet routine that K1's
+``prenet`` and K2's ``train_prenet`` share (``csrc/tile.cuh``), a dropout
+mask drawn at the CTA's local column instead of the global one or one
+peer's slice skipped in the gather of the bf16 rows (each run under K1's
+checks and under K2's), and runs the checks of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_train_kernels``
 for K2 and K3) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
@@ -99,6 +103,23 @@ VARIANTS = {
         "fused_train_decoder.cu",
         "da = out > 0.0f ? acc[e] * scale : 0.0f;",
         "da = acc[e] * scale;", "K3"),
+    # the forward prenet routine: the mask drawn at the CTA's own column
+    # (right only in the cluster's first CTA), or the gather of the bf16
+    # rows skipping the last CTA's slice (zeros in its columns)
+    "prenet_mask_local_col": (
+        "tile.cuh",
+        "keep = rand_bits((uint32_t)row, (uint32_t)col, (uint32_t)P,",
+        "keep = rand_bits((uint32_t)row, (uint32_t)c, (uint32_t)P,", "K1"),
+    "train_prenet_mask_local_col": (
+        "tile.cuh",
+        "keep = rand_bits((uint32_t)row, (uint32_t)col, (uint32_t)P,",
+        "keep = rand_bits((uint32_t)row, (uint32_t)c, (uint32_t)P,", "K2"),
+    "prenet_gather_skip_peer": (
+        "tile.cuh", "cluster_gather_rows(s_a, lda, own, ldo, np, cl,",
+        "cluster_gather_rows(s_a, lda, own, ldo, np, cl - 1,", "K1"),
+    "train_prenet_gather_skip_peer": (
+        "tile.cuh", "cluster_gather_rows(s_a, lda, own, ldo, np, cl,",
+        "cluster_gather_rows(s_a, lda, own, ldo, np, cl - 1,", "K2"),
     "train_attention_taps": (
         "fused_train_decoder.cu",
         [("  // 1. energies: loc = band(cum) @ lc",
