@@ -28,14 +28,22 @@ Phases, each of which fails the run on a failed check:
    kernel's bound; CUDA-event times of a decode step and chunk; then the
    host's enqueue time against the device time of one chunk, and the
    device's busy share and time by kernel under ``torch.profiler``;
+   then ``[main:shared]`` and ``[main:separate]``: the same synthesis, 256
+   frames, at the paper's shared strategy (``shared_switching_hparams``:
+   the simple BiLSTM encoder, 548-wide memory; its K1 kernels also held
+   against plain and timed there, W8A8) and separate strategy
+   (``separate_switching_hparams``: the plain grouped convolutional
+   encoder, 288-wide memory);
 5. the training slice's kernels (K2 forward, K3 backward) against their
    plain versions at the flagship widths (B=50, T=128, bf16), on inputs
    that repeat from run to run: dropout and zoneout choices bit-exact,
    every kernel on identical inputs (``bwd_prenet``'s frame cotangent
    against the plain product of its own bf16 first-layer gradient), two
-   runs each of ``bwd_gemm`` (its split-K reduction), ``bwd_head``,
-   ``train_prenet``, ``train_attention``, ``att_bwd`` and ``bwd_prenet``
-   (their clusters' exchanges and partial sums) bit-identical, then 16
+   runs each of ``bwd_gemm`` (its split-K reduction), ``bwd_head``, the
+   cells (fused into ``bwd_head`` and the dq product, their zoneout choices
+   bit-exact), ``train_prenet``, ``train_attention``, ``att_bwd`` and
+   ``bwd_prenet`` (their clusters' exchanges and partial sums)
+   bit-identical, then 16
    chained steps forward and backward (every output, residual and gradient
    stream, accumulator and the final cotangent carry); then the same 16
    steps through ``TrainDecode`` (K2 forward, K3 backward) against
@@ -52,19 +60,29 @@ Phases, each of which fails the run on a failed check:
    forward at B=10 on the card against the CPU plain path, with the launch
    counts reset just before and read just after (every K2 kernel, no K3);
 7. device times (``torch.profiler``) of the K2/K3 kernels against their
-   plain versions, bounds and ``torch`` yardsticks, and the device's busy
-   share of one training step under ``torch.profiler``.
+   plain versions, bounds and ``torch`` yardsticks (the cells' row: what
+   they add to ``bwd_head`` and the dq product, beside their standalone
+   launches), and the device's busy share of one training step under
+   ``torch.profiler``;
+8. ``[train:shared]`` and ``[train:separate]``: training steps of both
+   strategies at B=50, T=128, F=512 (a warm-up, two timed steps and one at
+   teacher forcing 0.5), every K2/K3 kernel launched, and a small step on
+   the card against the CPU plain path; at the shared strategy's widths
+   the K2/K3 kernels are also held against plain and timed as in 5 and 7.
 
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
 result.  Weights are the port's own seeded initialization; the stop head's
-bias is set to -10 so that every stream decodes the full 512 frames.
+bias is set to -10 so that every stream decodes all its frames.  Lines of
+a phase at the shared or separate strategy carry its name in their tag.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +91,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, T_SYMBOLS, CHUNK, MAX_FRAMES = 240, 128, 256, 512
+# the paper's shared and separate strategies (config.py): one chunk each
+SWITCHING, SWITCHING_FRAMES = ("shared", "separate"), 256
 TRAIN_B, TRAIN_T, TRAIN_F, CHECK_STEPS = 50, 128, 512, 16
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
@@ -100,7 +120,9 @@ TRAIN_KERNEL_TOL = {
     "train_attention": {"f32": 1e-6, "bf16": ULP},      # 1.90e-7
     "train_head": {"f32": 4e-6},                        # 8.70e-7
     "bwd_head": {"f32": 5e-7, "bf16": ULP},             # 1.14e-7
-    "bwd_cell": {"f32": 5e-7, "bf16": ULP},             # 7.94e-8
+    # the two cells as they run fused into bwd_head and the dq product,
+    # against the plain product or head followed by the plain cell
+    "bwd_cell": {"f32": 5e-7, "bf16": ULP},             # 7.94e-8 (alone)
     "bwd_gemm": {"f32": 2e-5},                          # 4.66e-6
     # its float32 accumulators follow bf16 roundings of the energy
     "att_bwd": {"f32": 5e-3, "bf16": ULP},              # 9.36e-4
@@ -134,6 +156,34 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# the configuration a phase runs, when not the flagship: added to the tag
+# that starts each line it prints ("[time]" -> "[time:shared]")
+_LABEL = ""
+
+
+def say(msg: str) -> None:
+    if _LABEL:
+        def tag(m):
+            parts = m.group(1).split(":")
+            if len(parts) > 1 and parts[-1] == "main":   # [train:main]
+                parts[-1] = _LABEL
+            else:
+                parts.append(_LABEL)
+            return "[" + ":".join(parts) + "]"
+        msg = re.sub(r"^\[([^\]]*)\]", tag, msg)
+    print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def labelled(label: str):
+    global _LABEL
+    old, _LABEL = _LABEL, label
+    try:
+        yield
+    finally:
+        _LABEL = old
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -157,29 +207,33 @@ def device_ms(fn, iters: int = 10, warmup: int = 2,
     ``iters``; with ``ours_only``, only the port's own kernels (anonymous
     namespace), not PyTorch's copies of the inputs.  Unlike CUDA events
     around the calls, it leaves out the gaps while the host prepares the
-    next launch.  The profiler now and then delivers no device events for
-    a whole session: such a session is run again, up to three in all, and
-    after three the call is timed with CUDA events instead (the whole
-    call, gaps included), which the line printed says."""
+    next launch.  The profiler now and then delivers only some of a
+    session's device events, or none: two sessions run, and the one that
+    recorded more events counts; when neither recorded any, a third runs,
+    and after three empty ones the call is timed with CUDA events instead
+    (the whole call, gaps included), which the line printed says."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    best = (0, 0.0)            # (events, their total us) of the fullest
+    for session in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.end - e.time_range.start
-                    for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and (not ours_only or "(anonymous namespace)::" in e.name))
-        if total > 0:
-            return total / iters / 1e3
-    print("[time] the profiler recorded no device events in three sessions:"
-          " the next time is CUDA events around the whole call")
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (not ours_only or "(anonymous namespace)::" in e.name)]
+        if len(spans) > best[0]:
+            best = (len(spans), sum(spans))
+        if best[0] and session >= 1:
+            return best[1] / iters / 1e3
+    say("[time] the profiler recorded no device events in three sessions:"
+        " the next time is CUDA events around the whole call")
     return cuda_ms(fn, iters=iters, warmup=0)
 
 
@@ -213,7 +267,7 @@ def close_weights(name: str, cum_k, cum_p, cum) -> float:
     worst = float(((w_k - w_p).abs().amax(1) / w_p.amax(1)).max())
     if not (torch.isfinite(w_k).all() and worst < W_TOL):
         fail(f"{name}: attention weights off by {worst} of the row maximum")
-    print(f"[kernels] {name}: attention weights within {worst:.3g} of the "
+    say(f"[kernels] {name}: attention weights within {worst:.3g} of the "
           f"row maximum (bound {W_TOL})")
     return max_err(cum_k, cum_p)
 
@@ -226,7 +280,19 @@ def rel(a, b) -> float:
 def flagship(max_frames: int, chunk: int):
     from multilingual_text_to_speech_tpu_torch import flagship_hparams
 
-    hp = flagship_hparams()
+    return serving_hp(flagship_hparams(), max_frames, chunk)
+
+
+def switching(name: str, max_frames: int, chunk: int):
+    """The published ``shared_switching`` or ``separate_switching``
+    configuration (``config.py``), set up for serving as the flagship."""
+    from multilingual_text_to_speech_tpu_torch import config
+
+    return serving_hp(getattr(config, f"{name}_switching_hparams")(),
+                      max_frames, chunk)
+
+
+def serving_hp(hp, max_frames: int, chunk: int):
     hp.compute_dtype = "bfloat16"
     hp.max_output_length = max_frames
     hp.decode_chunk_frames = chunk
@@ -273,9 +339,9 @@ def phase_build():
 
     t0 = time.time()
     logs = _build.build(force=True)
-    print(f"[build] {len(logs)} source(s) in {time.time() - t0:.1f} s")
+    say(f"[build] {len(logs)} source(s) in {time.time() - t0:.1f} s")
     for name, text in logs.items():
-        print(f"[build] {name}: nvcc -Xptxas -v")
+        say(f"[build] {name}: nvcc -Xptxas -v")
         for line in text.splitlines():
             if "spill" in line or ("ptxas" in line and (
                     "registers" in line or "Compiling" in line)):
@@ -314,16 +380,17 @@ def encoded_batch(syn, hp):
     return memory, mt, mask, carry
 
 
-def phase_kernels(hp, sd):
-    """Each kernel against its plain version on identical inputs; returns
-    {kernel: max_abs_err} for the W8A8 bundle (the main path's)."""
+def phase_kernels(hp, sd, modes=(True, False)):
+    """Each kernel against its plain version on identical inputs, with W8A8
+    and bf16 gates (``modes``: int8 or not); returns {kernel: max_abs_err}
+    for the W8A8 bundle (the main path's)."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
     from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
 
     errs = {}
-    for int8 in (True, False):
+    for int8 in modes:
         hp.pallas_decoder_int8 = int8
         syn = Synthesizer(hp, sd, device="cuda")
         bundle, kw = syn.bundle, syn.decode_kwargs
@@ -417,7 +484,7 @@ def phase_kernels(hp, sd):
             fail(f"head[{tag}]: two runs on the same row differ")
         e_head = max(close(f"head frame[{tag}]", f_k, f_p),
                      close(f"head stop[{tag}]", s_k, s_p))
-        print(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
+        say(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
               f"{' and int8 activations' if int8 else ''} and the head row "
               f"bit-exact, two runs of the prenet, of lsa_attention and of "
               f"the head bit-identical; max abs "
@@ -434,7 +501,7 @@ def phase_kernels(hp, sd):
                 and r_stop < CHUNK_REL_TOL):
             fail(f"16-step chunk[{tag}]: relative error spec {r_spec}, "
                  f"stop {r_stop}")
-        print(f"[kernels:{tag}] 16-step chunk: relative error spec "
+        say(f"[kernels:{tag}] 16-step chunk: relative error spec "
               f"{r_spec:.3g}, stop {r_stop:.3g} (bound {CHUNK_REL_TOL})")
         if int8:
             errs = {"prenet": e_pre, "gate_lstm": e_gate,
@@ -443,7 +510,12 @@ def phase_kernels(hp, sd):
     return errs
 
 
-def phase_main(hp, sd):
+def phase_main(hp, sd, small):
+    """Synthesis of B lines through ``Synthesizer.synthesize_batch_lines``
+    (``hp.max_output_length`` frames each), with the launch counts reset
+    just before and read just after; an accent-blend batch; and a small
+    batch at the configuration ``small`` on the card against the CPU plain
+    path."""
     import numpy as np
     import torch
 
@@ -464,24 +536,27 @@ def phase_main(hp, sd):
 
     if any(n == 0 for n in launches.values()):
         fail(f"a kernel of the main path never launched: {launches}")
-    if len(out) != B or any(o.shape != (hp.num_mels, MAX_FRAMES)
+    n_frames = hp.max_output_length
+    if len(out) != B or any(o.shape != (hp.num_mels, n_frames)
                             or not np.isfinite(o).all() for o in out):
         fail("main path: wrong shapes or non-finite spectrograms")
-    frames = B * MAX_FRAMES
-    print(f"[main] {B} streams x {MAX_FRAMES} frames (chunk {CHUNK}, W8A8): "
-          f"{frames} frames in {seconds:.4f} s = {frames / seconds:.1f} "
-          f"mel frames/s (host clock, after a warm-up run)")
-    print(f"[main] launches: {launches}")
+    frames = B * n_frames
+    say(f"[main] {B} streams x {n_frames} frames (chunk "
+        f"{hp.decode_chunk_frames}, W8A8, memory width "
+        f"{syn.model.decoder.memory_dim}): {frames} frames in {seconds:.4f} "
+        f"s = {frames / seconds:.1f} mel frames/s = "
+        f"{frames / 80.0 / seconds:.1f} audio-seconds/s (host clock, after a"
+        f" warm-up run)")
+    say(f"[main] launches: {launches}")
 
     blend = lines_for(hp, 2, SEED + 3, blend=True)
     out_b = syn.synthesize_batch_lines(blend, seed=3)
     if any(not np.isfinite(o).all() or o.shape[0] != hp.num_mels
            for o in out_b):
         fail("accent-blend batch: bad output")
-    print(f"[main] accent-blend batch of {len(blend)} lines: mixing path ok")
+    say(f"[main] accent-blend batch of {len(blend)} lines: mixing path ok")
 
     # a small batch against the plain path on the CPU (bf16 there too)
-    small = flagship(32, 16)
     small_lines = lines_for(small, 1, SEED + 4)
     got = Synthesizer(small, sd, device="cuda").synthesize_batch_lines(
         small_lines, seed=4)
@@ -492,7 +567,7 @@ def phase_main(hp, sd):
     if max(errs) > E2E_REL_TOL or any(g.shape != r.shape
                                       for g, r in zip(got, ref)):
         fail(f"card vs CPU plain path: relative errors {errs}")
-    print(f"[main] {len(small_lines)} lines x 32 frames, card kernels vs CPU "
+    say(f"[main] {len(small_lines)} lines x 32 frames, card kernels vs CPU "
           f"plain path: max relative error {max(errs):.3g} "
           f"(bound {E2E_REL_TOL})")
     return syn, launches, frames / seconds
@@ -602,7 +677,7 @@ def phase_timings(hp, syn, errs, launches):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
         })
-        print(f"[time] {name} (device time, torch.profiler): kernel "
+        say(f"[time] {name} (device time, torch.profiler): kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.5f} ms ({b_by}), library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -615,7 +690,7 @@ def phase_timings(hp, syn, errs, launches):
     plain_chunk_ms = cuda_ms(lambda: fd.decode_chunk_plain(
         bundle, carry, memory, mt, mask, seeds, CHUNK, **kw), iters=2,
         warmup=1)
-    print(f"[time] decode step (B={B}, T={T_SYMBOLS}, W8A8): {step_ms:.4f} ms;"
+    say(f"[time] decode step (B={B}, T={T_SYMBOLS}, W8A8): {step_ms:.4f} ms;"
           f" {CHUNK}-step chunk: kernels {chunk_ms:.3f} ms, plain "
           f"{plain_chunk_ms:.3f} ms")
     # a chunk reads its weights and attention operands once and writes its
@@ -625,7 +700,7 @@ def phase_timings(hp, syn, errs, launches):
     chunk_bytes = ((k_att + k_gen) * 4 * hidden * bundle.att_w.element_size()
                    + B * T_SYMBOLS * (m_dim + a_dim) * bf
                    + B * CHUNK * n_head * f32)
-    print(f"[bound] decode step: {step_ops_s * 1e3:.5f} ms (operations); "
+    say(f"[bound] decode step: {step_ops_s * 1e3:.5f} ms (operations); "
           f"{CHUNK}-step chunk: operations {CHUNK * step_ops_s * 1e3:.4f} "
           f"ms, bytes {chunk_bytes / HBM_BYTES_S * 1e3:.4f} ms "
           f"({chunk_bytes / 1e6:.1f} MB)")
@@ -650,7 +725,7 @@ def phase_profile(decode) -> None:
     host_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
-    print(f"[profile] {CHUNK}-step chunk: host enqueue {host_ms:.3f} ms, "
+    say(f"[profile] {CHUNK}-step chunk: host enqueue {host_ms:.3f} ms, "
           f"device {start.elapsed_time(end):.3f} ms (CUDA events)")
 
     steps = 32
@@ -662,18 +737,18 @@ def phase_profile(decode) -> None:
         torch.cuda.synchronize()
     busy = device_busy(prof)
     if busy is None:
-        print("[profile] device busy share: not measured (the profiler "
+        say("[profile] device busy share: not measured (the profiler "
               "recorded no device events)")
         return
     share, window, by_name = busy
-    print(f"[profile] {steps}-step chunk under torch.profiler: device busy "
+    say(f"[profile] {steps}-step chunk under torch.profiler: device busy "
           f"{share:.4f} of {window / 1e3:.3f} ms from first to last "
           f"kernel; device us per step by kernel: " + ", ".join(
               f"{k} {v / steps:.2f}" for k, v in
               sorted(by_name.items(), key=lambda kv: -kv[1])))
     prenet_us = sum(v for k, v in by_name.items()
                     if k.startswith("prenet_tile_kernel")) / steps
-    print(f"[profile] prenet inside the chunk: {prenet_us:.2f} us a step "
+    say(f"[profile] prenet inside the chunk: {prenet_us:.2f} us a step "
           f"(device time, torch.profiler)")
 
 
@@ -886,34 +961,72 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
         k.train_head(st["head_in"][s], ops["head_w"], ops["head_b"], *o)
         return o
 
-    def bwd_head(k):
-        o = [e(b, m), e(b, h, dtype=f32), e(b, mem, dtype=f32)]
+    def cell_args(w):
+        return ftd.CellArgs(st[f"act_{w}"][s], st[f"c_{w}"][s - 1],
+                            dc.clone(), e(b, 4 * h), e(b, h, dtype=f32),
+                            cfg.reg(w, seeds, s))
+
+    def head_with_cell(k, cell):
+        o = [e(b, m), e(b, mem, dtype=f32)]
         k.bwd_head(dspec, dstop, dframe, ops["head_w"], o[0], dh_gen, dctx,
-                   o[1], o[2], cfg)
+                   None if cell else e(b, h, dtype=f32), o[1], cfg,
+                   cell=cell_args("gen") if cell else None)
         return o
+
+    def dq_with_cell(k, cell):
+        if not cell:
+            out = dh.clone()
+            k.bwd_gemm(dq, ops["wq"], False, [(0, h, out, out)])
+            return [out]
+        c = cell_args("att")
+        k.bwd_gemm(dq, ops["wq"], False, [(0, h, None, dh)], cell=c)
+        return [c.dc, c.dg, c.dh_reg]
+
+    # as on the training path: the generator cell in bwd_head's epilogue
+    # (its head outputs; the cell's are bwd_cell's), the attention cell in
+    # the dq product's
+    def bwd_head(k):
+        return head_with_cell(k, True)
 
     def bwd_cell(k):
         outs = []
-        for w in ("att", "gen"):
-            dcc = dc.clone()
-            o = [e(b, 4 * h), e(b, h, dtype=f32)]
-            k.bwd_cell(st[f"act_{w}"][s], st[f"c_{w}"][s - 1], dh, dcc, *o,
-                       cfg.reg(w, seeds, s))
-            outs += [dcc, *o]
+        for w in ("gen", "att"):
+            c = cell_args(w)
+            if w == "gen":
+                k.bwd_head(dspec, dstop, dframe, ops["head_w"], e(b, m),
+                           dh_gen, dctx, None, e(b, mem, dtype=f32), cfg,
+                           cell=c)
+            else:
+                k.bwd_gemm(dq, ops["wq"], False, [(0, h, None, dh)], cell=c)
+            outs += [c.dc, c.dg, c.dh_reg]
         return outs
 
     def bwd_gemm(k):
         o = [e(b, h, dtype=f32), dctx.clone(), e(b, h, dtype=f32),
-             dh.clone(), e(b, p, dtype=f32), e(b, mem, dtype=f32),
-             e(b, h, dtype=f32)]
+             e(b, p, dtype=f32), e(b, mem, dtype=f32), e(b, h, dtype=f32)]
         k.bwd_gemm(dg["gen"], ops["gen_w"], True,
                    [(0, h, o[0], dh), (h, h + mem, o[1], o[1]),
                     (h + mem, 2 * h + mem, o[2], dh)])
-        k.bwd_gemm(dq, ops["wq"], False, [(0, h, o[3], o[3])])
+        dq_with_cell(k, True)
         k.bwd_gemm(dg["att"], ops["att_w"], True,
-                   [(0, p, o[4], None), (p, p + mem, o[5], None),
-                    (p + mem, p + mem + h, o[6], dh)])
+                   [(0, p, o[3], None), (p, p + mem, o[4], None),
+                    (p + mem, p + mem + h, o[5], dh)])
         return o
+
+    # without the cells, to time what the cells add to their hosts; and
+    # the cells alone (bwd_cell's standalone launch), as before the fusion
+    def cells_alone(k):
+        outs = []
+        for w in ("gen", "att"):
+            c = cell_args(w)
+            k.bwd_cell(c.act, c.c_prev, dh, c.dc, c.dg, c.dh_reg, c.reg)
+            outs += [c.dc, c.dg, c.dh_reg]
+        return outs
+
+    unfused = {"bwd_head": lambda k: head_with_cell(k, False),
+               "dq_product": lambda k: dq_with_cell(k, False),
+               "dq_product_with_cell": lambda k: dq_with_cell(k, True),
+               "cells_alone": cells_alone}
 
     def att_bwd(k):
         acc = [torch.zeros(b, t_len, a, device=dev),
@@ -934,7 +1047,7 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
             "train_query": query, "train_attention": attention,
             "train_head": head, "bwd_head": bwd_head, "bwd_cell": bwd_cell,
             "bwd_gemm": bwd_gemm, "att_bwd": att_bwd,
-            "bwd_prenet": bwd_prenet}
+            "bwd_prenet": bwd_prenet}, unfused
 
 
 def bwd_prenet_reference(ftd, ops, cfg, teacher: int, got, ref):
@@ -989,15 +1102,16 @@ def phase_train_kernels(hp, sd):
                 fail(f"{name} choices at step {step} differ in "
                      f"{int((g != r).sum())} places")
     n_masks = sum(int(x.sum()) for x in got)
-    print(f"[train:kernels] dropout and zoneout choices bit-exact at steps 3 "
+    say(f"[train:kernels] dropout and zoneout choices bit-exact at steps 3 "
           f"and {CHECK_STEPS - 1} ({n_masks} dropped or kept-old units in "
           f"the last)")
 
     gen_c = torch.Generator(device="cuda").manual_seed(SEED + 7)
     cts = [torch.randn(x.shape, device="cuda", generator=gen_c)
            for x in (st_p["spec"], st_p["stop"], st_p["w"])]
-    calls = train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted,
-                               st_p, teacher, seeds, cts, CHECK_STEPS // 2)
+    calls, unfused = train_kernel_calls(ftd, cfg, ops, memory, mtb,
+                                        mask_add, shifted, st_p, teacher,
+                                        seeds, cts, CHECK_STEPS // 2)
     errs = {}
     for name, run in calls.items():
         got, ref = run(ftd.KERNELS), run(ftd.PLAIN)
@@ -1005,6 +1119,8 @@ def phase_train_kernels(hp, sd):
             ref = bwd_prenet_reference(ftd, ops, cfg,
                                        teacher[CHECK_STEPS // 2], got, ref)
         torch.cuda.synchronize()
+        if name == "bwd_cell":
+            check_cell_masks(cfg.hidden, got, ref)
         worst = {}
         for g, r in zip(got, ref):
             if not torch.isfinite(g.float()).all():
@@ -1018,7 +1134,7 @@ def phase_train_kernels(hp, sd):
             fail(f"{name}: kernel vs plain off by {worst} of the largest "
                  f"output (bounds {bound})")
         errs[name] = max(max_err(g, r) for g, r in zip(got, ref))
-        print(f"[train:kernels] {name}: max abs err {errs[name]:.3g}; of the "
+        say(f"[train:kernels] {name}: max abs err {errs[name]:.3g}; of the "
               f"largest output: " + ", ".join(
                   f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
                   for k in sorted(worst)))
@@ -1026,13 +1142,13 @@ def phase_train_kernels(hp, sd):
     # in one thread, train_attention, att_bwd and bwd_prenet exchange their
     # clusters' partials in rank order, and train_prenet's CTAs exchange
     # whole bf16 rows: a second run repeats the first bit for bit
-    for name in ("train_prenet", "bwd_gemm", "bwd_head", "train_attention",
-                 "att_bwd", "bwd_prenet"):
+    for name in ("train_prenet", "bwd_gemm", "bwd_head", "bwd_cell",
+                 "train_attention", "att_bwd", "bwd_prenet"):
         first, again = (calls[name](ftd.KERNELS) for _ in range(2))
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
             fail(f"{name}: two runs on the same inputs differ")
-        print(f"[train:kernels] {name}: two runs on the same inputs "
+        say(f"[train:kernels] {name}: two runs on the same inputs "
               f"bit-identical")
 
     worst = {}
@@ -1053,13 +1169,32 @@ def phase_train_kernels(hp, sd):
     name, top = max(worst.items(), key=lambda kv: kv[1])
     if top > TRAIN_CHAIN_TOL:
         fail(f"{CHECK_STEPS} chained steps: {name} off by relative {top}")
-    print(f"[train:kernels] {CHECK_STEPS} chained steps at B={TRAIN_B} "
+    say(f"[train:kernels] {CHECK_STEPS} chained steps at B={TRAIN_B} "
           f"T={TRAIN_T}, forward and backward, kernels vs plain: relative "
           f"error of {len(worst)} streams, gradients, accumulators and "
           f"carries at most {top:.3g} ({name}; bound {TRAIN_CHAIN_TOL})")
     check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
                          teacher, seeds, cts)
-    return errs, (ftd, calls)
+    return errs, (ftd, calls, unfused)
+
+
+def check_cell_masks(hidden, got, ref) -> None:
+    """The cells' regularization choices, from their (dc, dg, dh_reg)
+    outputs: where zoneout keeps the old state, dh passes to dh_reg; where
+    dropout (or zoneout) drops the new h, the o-gate gradient is zero.
+    Both patterns bit-exact."""
+    import torch
+
+    for i in range(0, len(ref), 3):
+        for what, g, r in (
+                ("dh pass-through", got[i + 2] != 0, ref[i + 2] != 0),
+                ("dropped h", got[i + 1][:, 3 * hidden:] == 0,
+                 ref[i + 1][:, 3 * hidden:] == 0)):
+            if not torch.equal(g, r):
+                fail(f"bwd_cell: the {what} choices of cell {i // 3} differ "
+                     f"in {int((g != r).sum())} places")
+    say("[train:kernels] bwd_cell: the fused cells' zoneout choices "
+          "bit-exact")
 
 
 def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
@@ -1102,14 +1237,17 @@ def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
     if top > TRAIN_AUTOGRAD_TOL:
         fail(f"TrainDecode vs autograd through the plain K2: {name} off by "
              f"relative {top}")
-    print(f"[train:kernels] {shifted.shape[0]} steps through TrainDecode "
+    say(f"[train:kernels] {shifted.shape[0]} steps through TrainDecode "
           f"(K2/K3) vs torch.autograd through the plain K2, same card inputs: "
           f"relative error at most {top:.3g} ({name}; bound "
           f"{TRAIN_AUTOGRAD_TOL}); " + ", ".join(
               f"{k} {v:.3g}" for k, v in worst.items()))
 
 
-def phase_train_main(hp, sd):
+def phase_train_main(hp, sd, timed: int = 3):
+    """``train_step`` at B=50, T=128, F=512: a warm-up step, ``timed`` steps
+    at teacher forcing 1.0 and one at 0.5, with the launch counts reset
+    just before and read just after; then one step split by CUDA events."""
     import numpy as np
     import torch
 
@@ -1137,8 +1275,8 @@ def phase_train_main(hp, sd):
 
     ftd.reset_launch_counts()
     times, results = [], []
-    for i in range(4):
-        teacher = full if i < 3 else [
+    for i in range(timed + 1):
+        teacher = full if i < timed else [
             int(x) for x in (torch.rand(TRAIN_F, generator=gen) < 0.5)]
         t0 = time.perf_counter()
         res = trainer.train_step(model, opt, sched, batch, state, gen,
@@ -1162,20 +1300,22 @@ def phase_train_main(hp, sd):
                  if p.grad is not None and torch.equal(p.detach(), before[n])]
     if unchanged:
         fail(f"parameters with a gradient that did not change: {unchanged}")
-    step_s = float(np.mean(times[:3]))
+    step_s = float(np.mean(times[:timed]))
     audio = TRAIN_B * TRAIN_F / 80.0
-    print(f"[train:main] train_step B={TRAIN_B} T={TRAIN_T} F={TRAIN_F} bf16:"
-          f" steps at teacher forcing 1.0 " + ", ".join(
-              f"{t:.4f}" for t in times[:3]) + f" s (mean {step_s:.4f} s = "
-          f"{audio / step_s:.2f} audio-seconds trained per second), at 0.5 "
-          f"{times[3]:.4f} s (host clock, after a warm-up step); peak "
-          f"device memory {peak / 2 ** 30:.2f} GiB")
-    print("[train:main] losses: " + "; ".join(
+    say(f"[train:main] train_step B={TRAIN_B} T={TRAIN_T} F={TRAIN_F} bf16 "
+        f"(encoder {hp.encoder_type}, memory width "
+        f"{model.decoder.memory_dim}): steps at teacher forcing 1.0 "
+        + ", ".join(f"{t:.4f}" for t in times[:timed])
+        + f" s (mean {step_s:.4f} s = {audio / step_s:.2f} audio-seconds "
+        f"trained per second), at 0.5 {times[timed]:.4f} s (host clock, "
+        f"after a warm-up step); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    say("[train:main] losses: " + "; ".join(
         ", ".join(f"{k} {float(v):.5f}" for k, v in r.losses.items())
         + f", grad norm {float(r.grad_norm):.4f}, accuracy "
         f"{float(r.accuracy):.4f}" for r in results))
-    per_step = {k: v / 4 for k, v in launches.items()}
-    print(f"[train:main] launches over 4 steps: {launches}")
+    per_step = {k: v / (timed + 1) for k, v in launches.items()}
+    say(f"[train:main] launches over {timed + 1} steps: {launches}")
 
     # one more step, split by CUDA events (the pieces of train_step)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1201,7 +1341,7 @@ def phase_train_main(hp, sd):
     ev[3].record()
     torch.cuda.synchronize()
     split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    print(f"[train:main] one step split by CUDA events: forward and loss "
+    say(f"[train:main] one step split by CUDA events: forward and loss "
           f"{split[0]:.3f} ms, backward {split[1]:.3f} ms, clip and Adam "
           f"{split[2]:.3f} ms")
     return launches, per_step, step_s, (model, opt, sched, batch, state)
@@ -1260,10 +1400,10 @@ def phase_train_vs_cpu(hp, sd) -> None:
             ("decoder, postnet and classifier gradients",
              [k for k in checks if k.startswith("grad ")
               and not k.startswith("grad encoder.")]),
-            ("generated encoder gradients",
+            ("encoder gradients",
              [k for k in checks if k.startswith("grad encoder.")])):
         worst = max(keys, key=lambda k: checks[k][0])
-        print(f"[train:main] B=10 T=32 F=32 step, card vs CPU plain path "
+        say(f"[train:main] B=10 T=32 F=32 step, card vs CPU plain path "
               f"(bf16, dropout off), {label} ({len(keys)}): relative error at "
               f"most {checks[worst][0]:.3g} ({worst}; bound "
               f"{checks[worst][1]})")
@@ -1305,7 +1445,7 @@ def phase_train_eval(hp, sd) -> None:
     if top > TRAIN_CHAIN_TOL:
         fail(f"eval forward, {CHECK_STEPS} steps: {name} off by relative "
              f"{top}")
-    print(f"[train:eval] {CHECK_STEPS} eval-forward steps at B={TRAIN_B} "
+    say(f"[train:eval] {CHECK_STEPS} eval-forward steps at B={TRAIN_B} "
           f"T={TRAIN_T}, kernels vs plain: relative error of spec, stop, w "
           f"and the carries at most {top:.3g} ({name}; bound "
           f"{TRAIN_CHAIN_TOL}); no residual stream kept")
@@ -1345,11 +1485,11 @@ def phase_train_eval(hp, sd) -> None:
     name, top = max(checks.items(), key=lambda kv: kv[1])
     if top > TRAIN_E2E_TOL:
         fail(f"eval forward card vs CPU: {name} off by relative {top}")
-    print(f"[train:eval] model.eval() forward B=10 T=32 F=32, card vs CPU "
+    say(f"[train:eval] model.eval() forward B=10 T=32 F=32, card vs CPU "
           f"plain path (bf16, teacher forcing 0.5): relative error at most "
           f"{top:.3g} ({name}; bound {TRAIN_E2E_TOL}); " + ", ".join(
               f"{k} {v:.3g}" for k, v in checks.items()))
-    print(f"[train:eval] launches of the eval forward (32 steps): "
+    say(f"[train:eval] launches of the eval forward (32 steps): "
           f"{ {k: launches[k] for k in ftd.K2_KERNELS} }; K3 none")
 
 
@@ -1362,6 +1502,10 @@ def train_work(cfg, b, t_len):
     ka, kg, kh = cfg.ka, cfg.kg, cfg.kh
     f32, bf = 4, 2
     pre_w = (m * p + (n - 1) * p * p)
+    # one LSTM cell's backward as it runs fused: the activations and the
+    # previous c read, dc read and written, dg and dh_reg written (its h
+    # cotangent stays in registers)
+    cell = b * (4 * h * bf + h * bf + 2 * h * f32 + 4 * h * bf + h * f32)
     return {
         "train_prenet": (b * m * (bf + f32) + pre_w * bf + n * p * f32
                          + b * m * bf + n * b * p * bf + b * p * bf,
@@ -1381,16 +1525,17 @@ def train_work(cfg, b, t_len):
                             2 * b * t_len * (a * (k + 1) + mem)),
         "train_head": (b * kh * bf + (m + 1) * kh * bf + (m + 1) * f32
                        + b * (2 * m + 1) * f32, 2 * b * kh * (m + 1)),
+        # with the generator cell: dctx_tot written, dh_gen_tot not
         "bwd_head": (b * (2 * m + 1) * f32 + (m + 1) * kh * bf
-                     + b * kh * f32 + b * m * bf + b * kh * f32,
-                     2 * b * (m + 1) * kh),
-        # both LSTM cells of a step
-        "bwd_cell": (2 * (b * 4 * h * bf + b * h * bf + 3 * b * h * f32
-                          + b * 4 * h * bf + b * h * f32), 2 * 20 * b * h),
-        # the three products of a step: generator, query, attention
+                     + b * kh * f32 + b * m * bf + b * mem * f32 + cell,
+                     2 * b * (m + 1) * kh + 20 * b * h),
+        # both LSTM cells of a step, inside their host launches
+        "bwd_cell": (2 * cell, 2 * 20 * b * h),
+        # the three products of a step: generator, query (with the
+        # attention cell, dh_att_tot read and not written), attention
         "bwd_gemm": (b * 8 * h * bf + 4 * h * (kg + ka) * bf + h * a * bf
-                     + b * a * bf + b * (kg + ka + 3 * h + mem) * f32,
-                     2 * b * 4 * h * (kg + ka) + 2 * b * a * h),
+                     + b * a * bf + b * (kg + ka + 2 * h + mem) * f32 + cell,
+                     2 * b * 4 * h * (kg + ka) + 2 * b * a * h + 20 * b * h),
         "att_bwd": (b * a * f32 + b * t_len * (bf + f32)
                     + b * t_len * (mem + a) * bf + k * a * bf + a * f32
                     + b * mem * f32
@@ -1406,7 +1551,7 @@ def train_work(cfg, b, t_len):
 def phase_train_timings(hp, errs, launches, per_step, inputs, main):
     import torch
 
-    ftd, calls = inputs
+    ftd, calls, unfused = inputs
     model, opt, sched, batch, state = main
     cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
                                   torch.bfloat16)
@@ -1435,10 +1580,27 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
                              torch.mm(dg, ops["att_w"])),
     }
     work = train_work(cfg, b, TRAIN_T)
+    rows_ms = {}
+    alone = {k: device_ms(lambda r=run: r(ftd.KERNELS), ours_only=True)
+             for k, run in unfused.items()}
     rows = []
     for name, run in calls.items():
-        ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True)
-        plain_ms = device_ms(lambda: run(ftd.PLAIN), iters=5)
+        if name == "bwd_cell":
+            # what the two cells add to the launches that run them
+            ms = (rows_ms["bwd_head"] + alone["dq_product_with_cell"]
+                  - alone["bwd_head"] - alone["dq_product"])
+            plain_ms = device_ms(lambda: unfused["cells_alone"](ftd.PLAIN),
+                                 iters=5)
+            say(f"[train:time] bwd_cell fused: bwd_head {alone['bwd_head']:.4f}"
+                  f" -> {rows_ms['bwd_head']:.4f} ms with the generator cell, "
+                  f"the dq product {alone['dq_product']:.4f} -> "
+                  f"{alone['dq_product_with_cell']:.4f} ms with the attention "
+                  f"cell; the two cells alone (bwd_cell's own launches) "
+                  f"{alone['cells_alone']:.4f} ms")
+        else:
+            ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True)
+            plain_ms = device_ms(lambda: run(ftd.PLAIN), iters=5)
+        rows_ms[name] = ms
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops_n = work[name]
         b_ms, b_by = bound_ms(n_bytes, ops_n, "bf16")
@@ -1449,7 +1611,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
         })
-        print(f"[train:time] {name} (device time, torch.profiler): kernel "
+        say(f"[train:time] {name} (device time, torch.profiler): kernel "
               f"{ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
@@ -1468,11 +1630,11 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
         torch.cuda.synchronize()
     busy = device_busy(prof)
     if busy is None:
-        print("[train:profile] device busy share: not measured (the profiler "
+        say("[train:profile] device busy share: not measured (the profiler "
               "recorded no device events)")
     else:
         share, window, by_name = busy
-        print(f"[train:profile] one train step under torch.profiler: device "
+        say(f"[train:profile] one train step under torch.profiler: device "
               f"busy {share:.4f} of {window / 1e3:.3f} ms from first to last "
               f"kernel; device ms by kernel: " + ", ".join(
                   f"{k} {v / 1e3:.2f}" for k, v in
@@ -1498,15 +1660,29 @@ def main() -> int:
     # the plain versions run float32 products in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
+    say(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     phase_build()
     hp = flagship(MAX_FRAMES, CHUNK)
     sd = seeded_state_dict(hp)
     errs = phase_kernels(hp, sd)
-    syn, launches, _ = phase_main(hp, sd)
+    syn, launches, _ = phase_main(hp, sd, flagship(32, 16))
     rows = phase_timings(hp, syn, errs, launches)
+    del syn
+    # serving at the shared strategy's 548-wide memory (K1 against plain
+    # and timed there too) and the separate strategy's 288
+    for name in SWITCHING:
+        with labelled(name):
+            hp_s = switching(name, SWITCHING_FRAMES, CHUNK)
+            sd_s = seeded_state_dict(hp_s)
+            if name == "shared":
+                errs_s = phase_kernels(hp_s, sd_s, modes=(True,))
+            syn_s, launches_s, _ = phase_main(hp_s, sd_s,
+                                              switching(name, 32, 16))
+            if name == "shared":
+                phase_timings(hp_s, syn_s, errs_s, launches_s)
+            del syn_s
     torch.set_grad_enabled(True)
     train_errs, train_inputs = phase_train_kernels(hp, sd)
     t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
@@ -1514,6 +1690,22 @@ def main() -> int:
     phase_train_eval(hp, sd)
     rows += phase_train_timings(hp, train_errs, t_launches, t_per_step,
                                 train_inputs, main_state)
+    del main_state, train_inputs
+    # training steps of both strategies (K2/K3 against plain and timed at
+    # the shared strategy's 548-wide memory)
+    for name in SWITCHING:
+        with labelled(name):
+            hp_s = switching(name, SWITCHING_FRAMES, CHUNK)
+            sd_s = seeded_state_dict(hp_s)
+            if name == "shared":
+                errs_s, inputs_s = phase_train_kernels(hp_s, sd_s)
+            l_s, per_s, _, main_s = phase_train_main(hp_s, sd_s, timed=2)
+            phase_train_vs_cpu(hp_s, sd_s)
+            if name == "shared":
+                phase_train_timings(hp_s, errs_s, l_s, per_s, inputs_s,
+                                    main_s)
+                del inputs_s
+            del main_s
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

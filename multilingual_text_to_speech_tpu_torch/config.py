@@ -244,3 +244,79 @@ def flagship_hparams() -> HParams:
     hp.perfect_sampling = True
     hp.decoder_regularization = "zoneout"
     return hp
+
+
+# the multilingual overlays of the JAX package's params/shared_switching.json
+# and params/separate_switching.json (the paper's shared and separate
+# strategies on the code-switching corpus), copied key for key
+_SWITCHING_CHARACTERS = (
+    " abcdefghijklmnopqrstuvwxyzçèéßäöōǎǐíǒàáǔüèéìūòóùúāēěīâêôûñőűабвгдежзий"
+    "клмнопрстуфхцчшщъыьэюяё")
+_SWITCHING_COMMON: Dict[str, Any] = {
+    "balanced_sampling": True,
+    "batch_size": 50,
+    "case_sensitive": False,
+    "characters": _SWITCHING_CHARACTERS,
+    "checkpoint_each_epochs": 5,
+    "dataset": "css_comvoi",
+    "epochs": 300,
+    "languages": ["de", "fr", "zh", "ru", "nl"],
+    "multi_language": True,
+    "multi_speaker": True,
+    "predict_linear": False,
+    "speaker_embedding_dimension": 32,
+}
+_SHARED_SWITCHING: Dict[str, Any] = dict(
+    _SWITCHING_COMMON,
+    encoder_type="simple",
+    language_embedding_dimension=4,
+    learning_rate=0.001,
+    learning_rate_decay_each=10000,
+    learning_rate_decay_start=10000,
+    reversal_classifier=True,
+    reversal_classifier_dim=256,
+    reversal_classifier_w=0.5,
+    reversal_gradient_clipping=0.25,
+    version="SHARED-SWITCHING",
+)
+_SEPARATE_SWITCHING: Dict[str, Any] = dict(
+    _SWITCHING_COMMON,
+    encoder_dimension=256,
+    encoder_type="convolutional",
+    language_embedding_dimension=0,
+    learning_rate=0.0001,
+    learning_rate_decay_each=15000,
+    learning_rate_decay_start=15000,
+    perfect_sampling=True,
+    reversal_classifier=False,
+    version="SEPARATE-SWITCHING",
+)
+
+
+def _switching(overlay: Dict[str, Any]) -> HParams:
+    hp = HParams().load_state_dict(copy.deepcopy(overlay))
+    # the published overlays leave both counts to the trainer, which takes
+    # the languages' from their list and the speakers' from the data: 16
+    # speakers, as for the flagship
+    hp.language_number = len(hp.languages)
+    hp.speaker_number = 16
+    return hp
+
+
+def shared_switching_hparams() -> HParams:
+    """The paper's shared strategy on the code-switching corpus
+    (``params/shared_switching.json``): the simple encoder (3 conv blocks
+    and a BiLSTM, width 512) shared by 5 languages, a 4-wide language
+    embedding on the decoder's memory (548 wide with the 32-wide speaker
+    embedding), the reversal speaker classifier (256, weight 0.5), dropout
+    cells in the decoder, 16 speakers."""
+    return _switching(_SHARED_SWITCHING)
+
+
+def separate_switching_hparams() -> HParams:
+    """The paper's separate strategy on the code-switching corpus
+    (``params/separate_switching.json``): the plain grouped convolutional
+    encoder (width 256, one group a language, 5 languages), no language
+    embedding on the memory (288 wide), no classifier, dropout cells in the
+    decoder, 16 speakers."""
+    return _switching(_SEPARATE_SWITCHING)

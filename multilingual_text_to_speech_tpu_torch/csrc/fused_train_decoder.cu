@@ -7,11 +7,13 @@
 // The Python wrapper (ops/fused_train_decoder.py) loops over the steps and
 // launches, per forward step: train_prenet, gate_lstm (attention LSTM),
 // query, train_attention, gate_lstm (generator LSTM), head; per backward
-// step: bwd_head, bwd_cell, bwd_gemm (generator), query, att_bwd, bwd_gemm
-// (query), bwd_cell, bwd_gemm (attention), bwd_prenet; and once per
-// backward pass the dWq reduction (bwd_gemm over all steps and rows).  A
-// train_query, train_head or bwd_gemm call is one launch, or two when it
-// splits K.
+// step: bwd_head (with the generator cell's backward in its epilogue),
+// bwd_gemm (generator), query, att_bwd, bwd_gemm (query, with the
+// attention cell's backward in its epilogue), bwd_gemm (attention),
+// bwd_prenet; and once per backward pass the dWq reduction (bwd_gemm over
+// all steps and rows).  A train_query, train_head or bwd_gemm call is one
+// launch, or two when it splits K: 11 launches a backward step at the
+// flagship's widths and B=50.
 //
 // Every product runs on the tensor cores (mma.sync m16n8k16, bfloat16
 // inputs, float32 sums) in the three tile routines of csrc/tile.cuh, or in
@@ -444,39 +446,127 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
 }
 
 // ---------------------------------------------------------------------------
+// The LSTM cell's backward with its regularization for one (row, unit)
+// (ops/pallas_train_decoder.py:668-713), over the stored i|f|g|o
+// activations act [B, 4H] (bf16) and the previous cell state c_prev (bf16;
+// null at the first step), given dht, the total cotangent of the cell's h
+// output.  dc is the cell cotangent carry, updated in place; dh_reg gets
+// the regularization's pass-through to the previous h; dg the gate
+// gradients [B, 4H] (bf16).  It runs in the epilogue of the kernel that
+// computes dht's last term: bwd_head for the generator's cell, the dq @
+// Wq^T product (splitk_kernel or its reduction, CellOut) for the attention
+// cell; bwd_cell_kernel runs it alone.  Each (row, unit) is one thread's:
+// the in-place dc update reads and writes only its own element.
+// ---------------------------------------------------------------------------
+struct CellBwd {
+  const bf16* act;
+  const bf16* c_prev;
+  float* dc;
+  bf16* dg;
+  float* dh_reg;
+  int H;
+  Reg reg;
+  // reads its operands from global memory
+  __device__ void operator()(int row, int unit, float dht) const {
+    const size_t o = (size_t)row * H + unit;
+    const bf16* a = act + (size_t)row * 4 * H + unit;
+    apply(row, unit, dht, __bfloat162float(a[0]), __bfloat162float(a[H]),
+          __bfloat162float(a[2 * H]), __bfloat162float(a[3 * H]),
+          c_prev != nullptr ? __bfloat162float(c_prev[o]) : 0.0f, dc[o]);
+  }
+  // on operands already read: the gates i, f, g, o, the previous c and dc
+  __device__ void apply(int row, int unit, float dht, float i, float f,
+                        float gg, float og, float cp, float dct) const {
+    const size_t o = (size_t)row * H + unit;
+    const float tanh_c = tanhf(f * cp + i * gg);
+    float dh_new = dht, dh_prev = 0.0f, dc_state = dct, dc_prev = 0.0f;
+    if (reg.mode == 1) {
+      const bool zh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                reg.salt_h) < reg.th_h;
+      const bool zc = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                reg.salt_c) < reg.th_c;
+      dh_new = zh ? dht : 0.0f;
+      dh_prev = zh ? 0.0f : dht;
+      dc_state = zc ? dct : 0.0f;
+      dc_prev = zc ? 0.0f : dct;
+    } else if (reg.mode == 2) {
+      const bool keep = rand_bits(row, unit, H, reg.seed0, reg.seed1,
+                                  reg.salt_h) < reg.th_h;
+      dh_new = keep ? dht * reg.scale : 0.0f;
+    }
+    const float dc_new = dc_state + dh_new * og * (1.0f - tanh_c * tanh_c);
+    dc[o] = dc_prev + dc_new * f;
+    dh_reg[o] = dh_prev;
+    bf16* d = dg + (size_t)row * 4 * H + unit;
+    d[0] = __float2bfloat16_rn(dc_new * gg * i * (1.0f - i));
+    d[H] = __float2bfloat16_rn(dc_new * cp * f * (1.0f - f));
+    d[2 * H] = __float2bfloat16_rn(dc_new * i * (1.0f - gg * gg));
+    d[3 * H] = __float2bfloat16_rn(dh_new * tanh_c * og * (1.0f - og));
+  }
+};
+
+// the dq @ Wq^T product's epilogue (N = H): dh_tot = add + v, the final sum
+// (splitk_kernel's own when K is whole, splitk_reduce_kernel's when it is
+// split, never a slice's partial), then the attention cell's backward
+struct CellOut {
+  const float* add;
+  int ldadd;
+  CellBwd cell;
+  __device__ __forceinline__ void put(int row, int col, float v) const {
+    cell(row, col, add[(size_t)row * ldadd + col] + v);
+  }
+};
+
+// ---------------------------------------------------------------------------
 // bwd_head: the head backward (ops/pallas_train_decoder.py:731-743)
 //   dframe_tot = dspec + dframe  -> the da_frame stream (bf16)
 //   dproto = bf16(dframe_tot) @ W[:M] + dstop W[M]
 //   dh_gen_tot = dh_gen + dproto[:, :H];  dctx_tot = dctx + dproto[:, H:]
-// W is the head weight [M + 1, ldw] (one row per output, inputs
+// With a cell (cell.act not null), the generator cell's backward (CellBwd)
+// runs on each dh_gen_tot value in the epilogue, and dh_gen_tot is not
+// stored: a block of columns < H copies the cell's operands of its tile
+// (the four gate slices, c_prev, dc) into shared memory with cp.async
+// beside its weight tile, so that their latency overlaps, parks its
+// dh_gen_tot tile in shared memory after the product, and then runs the
+// cells a thread a unit, consecutive threads on consecutive units.  W is
+// the head weight [M + 1, ldw] (one row per output, inputs
 // contiguous), so W[:M] is the product's B as it lies ("KN", n contiguous).
 //
 // Bound on the H100: 2*B*(M+1)*(H+Mem) operations (10.7 M at B=50) and
 // 0.8 MB in and out, 0.23 us; what costs is latency and launches, so the
-// product is one launch on the tensor cores.  Block: all BH_BM rows of a
-// row tile (grid y over row tiles when B > BH_BM) by BH_BN columns of
-// H + Mem (21 blocks at the flagship's 1316).  Each block copies its
+// product is one launch on the tensor cores.  Block: the BH_BM rows of a
+// row tile (grid y over the row tiles) by BH_BN columns of H + Mem (21 x 4
+// = 84 blocks at the flagship's 1316 and B=50: short row tiles spread the
+// fused cell's work, which is most of the block's, over the SMs).  Each block copies its
 // [M, BH_BN] weight tile as it lies with cp.async (rows past M zero),
 // reads the carries its outputs add to, and builds its A tile
 // bf16(dspec + dframe) [BH_BM, M] in shared memory from the float32 inputs
 // with every 16-byte load in flight at once (the blocks of column 0 also
-// write da_frame), so that the three latencies overlap; eight
-// warps of 32 rows x 16 columns read the fragments with ldmatrix (.trans
+// write da_frame), so that the three latencies overlap; four
+// warps of 16 rows x 16 columns read the fragments with ldmatrix (.trans
 // for W) and run mma.sync m16n8k16 with float32 sums over K = M (zero-padded
 // to a multiple of 16).  The stop term stays in float32, as in the JAX
 // kernel, and the epilogue adds it in the plain version's order, each
 // operation rounded once: base + (acc + dstop * W[M]).
 // ---------------------------------------------------------------------------
-constexpr int BH_BM = 64, BH_BN = 64, BH_THREADS = 256;
+constexpr int BH_BM = 16, BH_BN = 64, BH_THREADS = 128;
+// warps along the columns (16 each), and 16-row mma tiles a warp
+constexpr int BH_WN = BH_BN / 16;
+constexpr int BH_MT = BH_BM / 16 / (BH_THREADS / 32 / BH_WN);
 constexpr int BH_LD_N = BH_BN + 8;   // bf16 a row of the weight tile
 // float4 slots of the A tile a thread loads at once: the whole tile while
 // K_pad <= 128, so that every load is in flight before the first store
 constexpr int BH_SLOTS = 8;
 
-__host__ size_t bwd_head_smem(int kp) {
+__host__ __device__ inline size_t bwd_head_smem(int kp) {
   return (size_t)BH_BM * (kp + 8) * sizeof(bf16) +
          (size_t)kp * BH_LD_N * sizeof(bf16) + (BH_BN + BH_BM) * sizeof(float);
 }
+// the fused cell's tile after bwd_head_smem: its gates [BH_BM][4][BH_BN]
+// and c_prev [BH_BM][BH_BN] in bf16, dc and dh_gen_tot [BH_BM][BH_BN] in
+// float32
+constexpr size_t BH_CELL_SMEM =
+    (size_t)BH_BM * BH_BN * (5 * sizeof(bf16) + 2 * sizeof(float));
 
 // four consecutive floats of a row at p, zero past `n` of them; `vec`: p is
 // 16-byte aligned and n >= 4
@@ -499,29 +589,53 @@ bwd_head_kernel(const float* __restrict__ dspec,
                 const float* __restrict__ dh_gen,
                 const float* __restrict__ dctx, float* __restrict__ dh_gen_tot,
                 float* __restrict__ dctx_tot, int B, int M, int kp, int H,
-                int Mem) {
+                int Mem, CellBwd cell, int cvec) {
   extern __shared__ __align__(16) uint8_t bh_smem[];
   const int lda = kp + 8;                       // bf16 a row of the A tile
   bf16* as = reinterpret_cast<bf16*>(bh_smem);  // [BH_BM][lda]
   bf16* bs = as + BH_BM * lda;                  // [kp][BH_LD_N]
   float* s_wm = reinterpret_cast<float*>(bs + kp * BH_LD_N);  // W[M] tile
   float* s_ds = s_wm + BH_BN;                   // dstop of the rows
+  // the fused cell's operands and dh_gen_tot tile
+  bf16* s_act = reinterpret_cast<bf16*>(bh_smem + bwd_head_smem(kp));
+  bf16* s_cp = s_act + BH_BM * 4 * BH_BN;
+  float* s_dc = reinterpret_cast<float*>(s_cp + BH_BM * BH_BN);
+  float* s_dht = s_dc + BH_BM * BH_BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.y * BH_BM, col0 = blockIdx.x * BH_BN;
   const int N = H + Mem;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+  const int wm = (warp / BH_WN) * 16 * BH_MT, wn = (warp % BH_WN) * 16;
+  const bool fused = cell.act != nullptr && col0 < H;
 
   for (int p = tid; p < kp * (BH_BN / 8); p += BH_THREADS) {
     const int k = p / (BH_BN / 8), c = (p % (BH_BN / 8)) * 8;
     load8(bs + k * BH_LD_N + c, w, ldw, k, col0 + c, M, N, wvec);
   }
+  if (fused) {
+    const int rows = min(BH_BM, B - row0);
+    for (int p = tid; p < rows * (BH_BN / 8); p += BH_THREADS) {
+      const int r = p / (BH_BN / 8), c = (p % (BH_BN / 8)) * 8;
+      const int row = row0 + r;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        load8(s_act + (r * 4 + q) * BH_BN + c, cell.act + (size_t)q * H,
+              4 * H, row, col0 + c, B, H, cvec);
+      if (cell.c_prev != nullptr)
+        load8(s_cp + r * BH_BN + c, cell.c_prev, H, row, col0 + c, B, H,
+              cvec);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        load4f(s_dc + r * BH_BN + c + 4 * q,
+               cell.dc + (size_t)row * H, col0 + c + 4 * q, H, cvec);
+    }
+  }
   cp_async_commit();
 
   // the carries this thread adds its outputs to, read now so that their
   // latency overlaps the A tile's
-  float base[2][2][4];
+  float base[BH_MT][2][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < BH_MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -578,17 +692,17 @@ bwd_head_kernel(const float* __restrict__ dspec,
   cp_async_wait<0>();
   __syncthreads();
 
-  float acc[2][2][4];
+  float acc[BH_MT][2][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < BH_MT; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
   for (int kk = 0; kk < kp; kk += 16) {
-    uint32_t af[2][4], bfr[2][2], r[4];
+    uint32_t af[BH_MT][4], bfr[2][2], r[4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < BH_MT; ++mt)
       ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
                             ((lane >> 3) & 1) * 8) * lda +
                           kk + (lane >> 4) * 8);
@@ -600,13 +714,13 @@ bwd_head_kernel(const float* __restrict__ dspec,
     bfr[1][0] = r[2];
     bfr[1][1] = r[3];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < BH_MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
   }
 
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < BH_MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -618,57 +732,37 @@ bwd_head_kernel(const float* __restrict__ dspec,
         const float dp =
             __fadd_rn(acc[mt][nt][e], __fmul_rn(s_ds[r], s_wm[c]));
         const float v = base[mt][nt][e] + dp;
-        if (col < H)
-          dh_gen_tot[(size_t)row * H + col] = v;
-        else
+        if (col >= H)
           dctx_tot[(size_t)row * Mem + col - H] = v;
+        else if (fused)
+          s_dht[r * BH_BN + c] = v;
+        else
+          dh_gen_tot[(size_t)row * H + col] = v;
       }
+  if (!fused) return;
+  __syncthreads();
+  for (int p = tid; p < BH_BM * BH_BN; p += BH_THREADS) {
+    const int r = p / BH_BN, c = p % BH_BN;
+    const int row = row0 + r, col = col0 + c;
+    if (row >= B || col >= H) continue;
+    const bf16* a = s_act + r * 4 * BH_BN + c;
+    cell.apply(row, col, s_dht[p], __bfloat162float(a[0]),
+               __bfloat162float(a[BH_BN]), __bfloat162float(a[2 * BH_BN]),
+               __bfloat162float(a[3 * BH_BN]),
+               cell.c_prev != nullptr ? __bfloat162float(s_cp[p]) : 0.0f,
+               s_dc[p]);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// bwd_cell: the LSTM and regularization backward over the stored i|f|g|o
-// activations (ops/pallas_train_decoder.py:668-713), one thread per
-// (row, unit).  dc is the cell cotangent carry, updated in place; dh_reg is
-// the regularization's pass-through to the previous h.
+// bwd_cell: the cell backward alone (CellBwd), one thread per (row, unit);
+// the training path runs it fused into bwd_head and the dq @ Wq^T product
 // ---------------------------------------------------------------------------
-__global__ void bwd_cell_kernel(const bf16* __restrict__ act,
-                                const bf16* __restrict__ c_prev,
-                                const float* __restrict__ dh_tot,
-                                float* __restrict__ dc, bf16* __restrict__ dg,
-                                float* __restrict__ dh_reg, int B, int H,
-                                Reg reg) {
+__global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
+                                CellBwd cell) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * H) return;
-  const int row = idx / H, unit = idx % H;
-  const bf16* a = act + (size_t)row * 4 * H + unit;
-  const float i = __bfloat162float(a[0]), f = __bfloat162float(a[H]);
-  const float gg = __bfloat162float(a[2 * H]), o = __bfloat162float(a[3 * H]);
-  const float cp = c_prev != nullptr ? bf16_at(c_prev, idx) : 0.0f;
-  const float tanh_c = tanhf(f * cp + i * gg);
-  const float dht = dh_tot[idx], dct = dc[idx];
-  float dh_new = dht, dh_prev = 0.0f, dc_state = dct, dc_prev = 0.0f;
-  if (reg.mode == 1) {
-    const bool zh = rand_bits(row, unit, H, reg.seed0, reg.seed1,
-                              reg.salt_h) < reg.th_h;
-    const bool zc = rand_bits(row, unit, H, reg.seed0, reg.seed1,
-                              reg.salt_c) < reg.th_c;
-    dh_new = zh ? dht : 0.0f;
-    dh_prev = zh ? 0.0f : dht;
-    dc_state = zc ? dct : 0.0f;
-    dc_prev = zc ? 0.0f : dct;
-  } else if (reg.mode == 2) {
-    const bool keep = rand_bits(row, unit, H, reg.seed0, reg.seed1,
-                                reg.salt_h) < reg.th_h;
-    dh_new = keep ? dht * reg.scale : 0.0f;
-  }
-  const float dc_new = dc_state + dh_new * o * (1.0f - tanh_c * tanh_c);
-  dc[idx] = dc_prev + dc_new * f;
-  dh_reg[idx] = dh_prev;
-  bf16* d = dg + (size_t)row * 4 * H + unit;
-  d[0] = __float2bfloat16_rn(dc_new * gg * i * (1.0f - i));
-  d[H] = __float2bfloat16_rn(dc_new * cp * f * (1.0f - f));
-  d[2 * H] = __float2bfloat16_rn(dc_new * i * (1.0f - gg * gg));
-  d[3 * H] = __float2bfloat16_rn(dh_new * tanh_c * o * (1.0f - o));
+  if (idx >= B * cell.H) return;
+  cell(idx / cell.H, idx % cell.H, dh_tot[idx]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1232,16 +1326,39 @@ int train_attention_launch(const void* q, void* cum, const void* memory,
       Mem, K, tile, cl, vec);
 }
 
+// the LSTM cell backward's arguments, in the launchers' order: act, c_prev
+// (null at the first step), dc, dg, dh_reg, H, then the regularization;
+// mode 3 (an eval forward's) has no backward
+#define CELL_PARAMS                                                         \
+  const void *act, const void *c_prev, void *dc, void *dg, void *dh_reg,   \
+      int H, unsigned seed0, unsigned seed1, unsigned salt_h,              \
+      unsigned salt_c, unsigned th_h, unsigned th_c, int mode, float scale, \
+      float zh, float zc
+#define CELL_ARGS                                                          \
+  CellBwd {                                                                \
+    (const bf16*)act, (const bf16*)c_prev, (float*)dc, (bf16*)dg,         \
+        (float*)dh_reg, H,                                                 \
+        Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale, zh, zc} \
+  }
+
+// with act not null, the generator cell's backward runs in the epilogue and
+// dh_gen_tot may be null; with act null, the cell's other arguments are
+// ignored
 int bwd_head_launch(const void* dspec, const void* dstop, const void* dframe,
                     const void* w, int ldw, void* da_frame,
                     const void* dh_gen, const void* dctx, void* dh_gen_tot,
-                    void* dctx_tot, int B, int M, int H, int Mem,
+                    void* dctx_tot, int B, int M, int Mem, CELL_PARAMS,
                     void* stream) {
-  if (B <= 0 || M <= 0 || ldw < H + Mem) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || M <= 0 || ldw < H + Mem ||
+      (act != nullptr ? mode == 3 : dh_gen_tot == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int kp = (M + 15) / 16 * 16;
   const bool dvec = M % 4 == 0 && (uintptr_t)dspec % 16 == 0 &&
                     (uintptr_t)dframe % 16 == 0;
-  const size_t smem = bwd_head_smem(kp);
+  const size_t smem = bwd_head_smem(kp) + (act != nullptr ? BH_CELL_SMEM : 0);
+  // the cell's operands with cp.async: 16-byte aligned rows
+  const int cvec = (uintptr_t)act % 16 == 0 && (uintptr_t)c_prev % 16 == 0 &&
+                   (uintptr_t)dc % 16 == 0 && H % 8 == 0;
   cudaError_t err = allow_smem(bwd_head_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + Mem + BH_BN - 1) / BH_BN, (B + BH_BM - 1) / BH_BM);
@@ -1249,22 +1366,31 @@ int bwd_head_launch(const void* dspec, const void* dstop, const void* dframe,
       (const float*)dspec, (const float*)dstop, (const float*)dframe,
       (const bf16*)w, ldw, vec_ok(w, ldw), dvec, (bf16*)da_frame,
       (const float*)dh_gen, (const float*)dctx, (float*)dh_gen_tot,
-      (float*)dctx_tot, B, M, kp, H, Mem);
+      (float*)dctx_tot, B, M, kp, H, Mem, CELL_ARGS, cvec);
   return (int)cudaGetLastError();
 }
 
-int bwd_cell_launch(const void* act, const void* c_prev, const void* dh_tot,
-                    void* dc, void* dg, void* dh_reg, int B, int H,
-                    unsigned seed0, unsigned seed1, unsigned salt_h,
-                    unsigned salt_c, unsigned th_h, unsigned th_c, int mode,
-                    float scale, float zh, float zc, void* stream) {
-  if (mode == 3) return (int)cudaErrorInvalidValue;   // eval: no backward
+int bwd_cell_launch(const void* dh_tot, int B, CELL_PARAMS, void* stream) {
+  if (B <= 0 || H <= 0 || mode == 3) return (int)cudaErrorInvalidValue;
   const int n = B * H;
   bwd_cell_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)act, (const bf16*)c_prev, (const float*)dh_tot,
-      (float*)dc, (bf16*)dg, (float*)dh_reg, B, H,
-      Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale, zh, zc});
+      (const float*)dh_tot, B, CELL_ARGS);
   return (int)cudaGetLastError();
+}
+
+// A [M, K] @ B (b_kn: [K, N], else [N, K]) with N = H, then the attention
+// cell's backward on dh_tot = add + the product (CellOut)
+int bwd_gemm_cell_launch(const void* a, int lda, const void* b, int ldb,
+                         int b_kn, int M, int K, int slices, int kslice,
+                         void* scratch, const void* add, int ldadd,
+                         CELL_PARAMS, void* stream) {
+  if (add == nullptr || mode == 3) return (int)cudaErrorInvalidValue;
+  const CellOut epi{(const float*)add, ldadd, CELL_ARGS};
+  if (b_kn)
+    return splitk_launch<false, true>(a, lda, b, ldb, M, H, K, slices,
+                                      kslice, scratch, epi, stream);
+  return splitk_launch<false, false>(a, lda, b, ldb, M, H, K, slices, kslice,
+                                     scratch, epi, stream);
 }
 
 // the row's positions in `cl` tiles of `tile` (a multiple of 16; cl <= 8,

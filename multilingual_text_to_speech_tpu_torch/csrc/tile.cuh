@@ -453,7 +453,23 @@ splitk_kernel(const bf16* __restrict__ A, int lda, int avec,
   }
   cp_async_wait<0>();
 
-  float* dst = part != nullptr ? part + (size_t)blockIdx.z * M * N : nullptr;
+  // the partials' stores and the epilogue in loops of their own: an
+  // epilogue inlined between the stores (a cell backward is long) would
+  // put its code between every two of them, to be fetched cold
+  if (part != nullptr) {
+    float* dst = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+          if (row < M && col < N) dst[(size_t)row * N + col] = acc[mt][nt][e];
+        }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -462,11 +478,7 @@ splitk_kernel(const bf16* __restrict__ A, int lda, int avec,
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
         const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
-        if (row >= M || col >= N) continue;
-        if (dst != nullptr)
-          dst[(size_t)row * N + col] = acc[mt][nt][e];
-        else
-          epi.put(row, col, acc[mt][nt][e]);
+        if (row < M && col < N) epi.put(row, col, acc[mt][nt][e]);
       }
 }
 

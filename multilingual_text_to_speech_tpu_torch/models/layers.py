@@ -2,9 +2,9 @@
 
 Port of the JAX package's ``models/layers.py``.  Activations are
 channels-last ``[batch, time, channels]`` at the public functions, like the
-JAX package.  The grouped generated blocks work on the group-major layout
-``[r, B, T, c]`` (r row groups, each with its own language), and their
-convolutions run as one ``F.conv1d(groups=r)``.
+JAX package.  The grouped blocks, plain and generated, work on the
+group-major layout ``[r, B, T, c]`` (r row groups, each with its own
+language), and their convolutions run as one ``F.conv1d(groups=r)``.
 
 In eval mode batch norm uses running statistics, and the generated blocks
 fold them into the generated kernel as the JAX eval path does.  In train
@@ -37,6 +37,14 @@ def same_pad_amounts(kernel: int, dilation: int) -> tuple[int, int]:
     """'same' padding, even kernels included (one more on the right)."""
     p = (kernel - 1) * dilation // 2
     return (p, p) if kernel % 2 != 0 else (p, p + 1)
+
+
+def highway_gate(gate: torch.Tensor, value: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The highway combination ``value * sigmoid(gate) + x * (1 -
+    sigmoid(gate))`` of a gated block's two halves."""
+    p = torch.sigmoid(gate)
+    return value * p + x * (1.0 - p)
 
 
 def grouped_conv1d(x4: torch.Tensor, kernel: torch.Tensor,
@@ -96,6 +104,88 @@ class ConvBlock(nn.Module):
         y = (y - mean[:, None]) * inv[:, None] + bn.bias[:, None]
         y = F.dropout(self.activation(y), self.dropout, training=True)
         return y.transpose(1, 2)
+
+
+class GroupedConvBlock(nn.Module):
+    """Grouped conv -> batch norm -> activation (-> dropout in train mode)
+    on the group-major ``[r, B, T, c]`` layout: the JAX package's
+    ``ConvBlock`` with ``groups`` > 1 (its ``_GroupedConv1d`` and
+    ``_GroupedBatchNorm``).  ``Conv_0`` holds the grouped kernel in
+    ``nn.Conv1d(groups=g)``'s layout ``[g*cout, cin, k]`` and
+    ``BatchNorm_0`` the flat ``[g*cout]`` affine and running statistics,
+    group j's channels at ``[j*cout, (j+1)*cout)``; ``group_langs`` [r]
+    picks each row group's kernel block, affine and statistics (eval
+    only).  Batch norm follows flax: in train mode each group's biased
+    batch variance over (B, T), padded positions included, with the running
+    statistics moving as ``0.9 * old + 0.1 * batch``; it normalizes in
+    float32 and returns float32, as the JAX block does."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 activation: str = "identity", dilation: int = 1,
+                 groups: int = 1, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.Conv_0 = nn.Conv1d(in_channels * groups, out_channels, kernel,
+                                groups=groups, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm1d(out_channels, eps=1e-5)
+        self.groups = groups
+        self.activation = get_activation(activation)
+        self.dilation = dilation
+        self.dtype = dtype
+        self.dropout = dropout
+
+    def forward(self, x4: torch.Tensor,
+                group_langs: torch.Tensor | None = None) -> torch.Tensor:
+        g, bn = self.groups, self.BatchNorm_0
+        cout_g, cin, k = self.Conv_0.weight.shape
+        cout = cout_g // g
+        kernel = self.Conv_0.weight.reshape(g, cout, cin, k).permute(
+            3, 2, 0, 1)                                      # [k, cin, g, cout]
+        scale, bias = bn.weight.reshape(g, cout), bn.bias.reshape(g, cout)
+        if group_langs is not None:
+            kernel = kernel[:, :, group_langs]
+            scale, bias = scale[group_langs], bias[group_langs]
+        y = grouped_conv1d(x4, kernel, None, self.dilation, self.dtype).float()
+        if self.training:
+            if group_langs is not None:
+                raise ValueError("row-group language gathers are "
+                                 "inference-only")
+            mean = y.mean(dim=(1, 2))                            # [g, cout]
+            var = (y * y).mean(dim=(1, 2)) - mean * mean
+            with torch.no_grad():
+                bn.running_mean.mul_(0.9).add_(0.1 * mean.reshape(-1))
+                bn.running_var.mul_(0.9).add_(0.1 * var.reshape(-1))
+        else:
+            mean = bn.running_mean.reshape(g, cout)
+            var = bn.running_var.reshape(g, cout)
+            if group_langs is not None:
+                mean, var = mean[group_langs], var[group_langs]
+        inv = torch.rsqrt(var + bn.eps) * scale
+        shift = bias - mean * inv
+        y = self.activation(y * inv[:, None, None, :]
+                            + shift[:, None, None, :])
+        return F.dropout(y, self.dropout, training=self.training)
+
+
+class GroupedHighwayConvBlock(nn.Module):
+    """Gated grouped conv (the JAX package's ``HighwayConvBlock`` with
+    ``groups`` > 1): a 2c-wide ``GroupedConvBlock`` whose per-group channels
+    are ``[gate c | value c]``, then ``highway_gate``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 activation: str = "identity", dilation: int = 1,
+                 groups: int = 1, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.ConvBlock_0 = GroupedConvBlock(
+            in_channels, 2 * out_channels, kernel, activation, dilation,
+            groups, dtype, dropout)
+        self.c = out_channels // groups
+
+    def forward(self, x4: torch.Tensor,
+                group_langs: torch.Tensor | None = None) -> torch.Tensor:
+        h = self.ConvBlock_0(x4, group_langs)
+        return highway_gate(h[..., :self.c], h[..., self.c:], x4)
 
 
 class Conv1dGenerated(nn.Module):
@@ -236,8 +326,7 @@ class HighwayConvBlockGenerated(nn.Module):
         c = self.c
         if self.training:
             h = block(embedding, x4, lang_ids)
-            p = torch.sigmoid(h[..., :c])
-            return h[..., c:] * p + x4 * (1.0 - p)
+            return highway_gate(h[..., :c], h[..., c:], x4)
         kernel, bias = block.generate_folded(embedding, lang_ids)
         bias = bias.reshape(embedding.shape[0], 2 * c)
         h1 = block.activation(grouped_conv1d(
@@ -246,5 +335,4 @@ class HighwayConvBlockGenerated(nn.Module):
         h2 = block.activation(grouped_conv1d(
             x4, kernel[..., c:], bias[:, c:].reshape(-1), block.dilation,
             block.dtype))
-        p = torch.sigmoid(h1)
-        return h2 * p + x4 * (1.0 - p)
+        return highway_gate(h1, h2, x4)

@@ -2,9 +2,10 @@
 (encode, chunked decode, postnet).
 
 Port of ``Tacotron``, ``TacotronLossState`` and ``tacotron_loss`` in the JAX
-package's ``models/tacotron.py`` for the flagship topology (the generated
-encoder, the reversal speaker classifier, location-sensitive attention and
-the conv postnet).  Spectrograms are channels-last ``[batch, frames, bins]``
+package's ``models/tacotron.py``: every encoder of the paper's strategies
+(``simple``, ``shared``, ``separate``, ``convolutional`` and the flagship's
+``generated``), the reversal speaker classifier, location-sensitive
+attention and the conv postnet.  Spectrograms are channels-last ``[batch, frames, bins]``
 like the JAX package.  ``Tacotron.forward`` is the training forward: call
 ``model.train()`` first for batch-statistics batch norm and dropout.
 """
@@ -27,7 +28,11 @@ from multilingual_text_to_speech_tpu_torch.models.classifier import (
 )
 from multilingual_text_to_speech_tpu_torch.models.decoder import Decoder
 from multilingual_text_to_speech_tpu_torch.models.encoder import (
+    ConditionalEncoder,
+    ConvolutionalEncoder,
+    Encoder,
     GeneratedConvolutionalEncoder,
+    MultiEncoder,
 )
 from multilingual_text_to_speech_tpu_torch.models.layers import (
     BatchNorm1dGenerated,
@@ -41,12 +46,40 @@ def lengths_to_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
             < lengths[:, None])
 
 
+# the encoders that take a language-interleaved batch and row groups
+GROUPED_ENCODERS = ("convolutional", "generated")
+
+
+def make_encoder(hp, dtype: torch.dtype) -> nn.Module:
+    """The encoder of ``hp.encoder_type`` (the JAX package's
+    ``Tacotron._make_encoder``).  The grouped convolutional encoders' dropout
+    is 0.05 whatever ``hp.dropout`` says, as in the reference model's
+    factory; the others take ``hp.dropout``."""
+    langs = hp.language_number if hp.multi_language else 1
+    e, d = hp.embedding_dimension, hp.encoder_dimension
+    common = dict(num_blocks=hp.encoder_blocks,
+                  kernel_size=hp.encoder_kernel_size, dropout=hp.dropout,
+                  dtype=dtype)
+    kind = hp.encoder_type
+    if kind == "simple":
+        return Encoder(e, d, **common)
+    if kind == "separate":
+        return MultiEncoder(langs, e, d, **common)
+    if kind == "shared":
+        return ConditionalEncoder(langs, hp.input_language_embedding, e, d,
+                                  **common)
+    if kind == "convolutional":
+        return ConvolutionalEncoder(e, d, langs, dtype, dropout=0.05)
+    if kind == "generated":
+        return GeneratedConvolutionalEncoder(
+            e, d, hp.generator_dim, hp.generator_bottleneck_dim, langs, dtype,
+            dropout=0.05)
+    raise ValueError(f"unknown encoder type: {kind!r}")
+
+
 class Tacotron(nn.Module):
     def __init__(self, hp, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if hp.encoder_type != "generated":
-            raise NotImplementedError(
-                f"encoder type {hp.encoder_type!r} is not ported")
         if hp.predict_linear:
             raise NotImplementedError("the CBHG postnet is not ported")
         if (hp.reversal_classifier
@@ -55,14 +88,9 @@ class Tacotron(nn.Module):
                 "the cosine-similarity classifier is not ported")
         self.hp = hp
         self.dtype = dtype
-        groups = hp.language_number if hp.multi_language else 1
         self.embedding = nn.Embedding(hp.total_symbols(),
                                       hp.embedding_dimension)
-        # the encoder's dropout is 0.05 whatever hp.dropout says, as in the
-        # reference model's factory
-        self.encoder = GeneratedConvolutionalEncoder(
-            hp.embedding_dimension, hp.encoder_dimension, hp.generator_dim,
-            hp.generator_bottleneck_dim, groups, dtype, dropout=0.05)
+        self.encoder = make_encoder(hp, dtype)
         if hp.reversal_classifier:
             self.classifier = ReversalClassifier(
                 hp.encoder_dimension, hp.reversal_classifier_dim,
@@ -81,21 +109,41 @@ class Tacotron(nn.Module):
                              num_langs).float()
         return languages.float()
 
+    def _encode(self, text: torch.Tensor, text_lengths: torch.Tensor,
+                langs_w: torch.Tensor, mix: bool,
+                group_langs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The JAX package's ``Tacotron._encode``: -> [B, T, C] float32.  A
+        grouped encoder gets ``group_langs`` (row groups) when given, else
+        the language weights when ``mix`` (accent mixing), else nothing (a
+        language-interleaved batch); the other encoders always get the
+        weights."""
+        embedded = self.embedding(text.long())
+        embedded = embedded * (text != 0)[..., None]      # PAD embeds to 0
+        embedded = embedded.to(self.dtype)
+        grouped = self.hp.encoder_type in GROUPED_ENCODERS
+        if group_langs is not None and grouped:
+            encoded = self.encoder(embedded, text_lengths,
+                                   group_langs=group_langs.long())
+        else:
+            encoded = self.encoder(
+                embedded, text_lengths,
+                lang_weights=langs_w if mix or not grouped else None)
+        return encoded.float()
+
     def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
                 target: torch.Tensor, target_lengths: torch.Tensor,
                 speakers: Optional[torch.Tensor], languages: torch.Tensor,
                 teacher: Sequence[int], seeds: Tuple[int, int]
                 ) -> Dict[str, Optional[torch.Tensor]]:
-        """The teacher-forced training forward on a language-interleaved
-        batch (sample ``k*g + j`` has language j): ``text`` [B, T],
+        """The teacher-forced training forward (a grouped encoder takes a
+        language-interleaved batch: sample ``k*g + j`` has language j):
+        ``text`` [B, T],
         ``target`` [B, F, M], ``languages`` [B] ids or [B, T, L] weights,
         ``teacher`` F flags, ``seeds`` the decoder's two uint32 seeds.
         Padded stop logits are 1000 and padded frames of the pre and post
         predictions 0."""
-        b, t = text.shape
-        langs_w = self._language_weights(languages, t)
-        embedded = self.embedding(text.long()) * (text != 0)[..., None]
-        encoded = self.encoder(embedded.to(self.dtype), text_lengths).float()
+        langs_w = self._language_weights(languages, text.shape[1])
+        encoded = self._encode(text, text_lengths, langs_w, mix=False)
         speaker_prediction = (self.classifier(encoded)
                               if self.hp.reversal_classifier else None)
         pre, stop, alignment = self.decoder(
@@ -121,21 +169,16 @@ class Tacotron(nn.Module):
         group_langs: Optional[torch.Tensor] = None,
     ):
         """-> (memory, memory_transform, mask, carry).  ``group_langs`` [r]
-        selects the row-group encode (language-sorted batch); without it the
-        language weights are mixed across all language groups."""
+        selects a grouped encoder's row-group encode (language-sorted
+        batch); without it the language weights are mixed across all
+        language groups.  The other encoders take the weights either way."""
         b, t = text.shape
         langs_w = self._language_weights(languages, t)
-        embedded = self.embedding(text.long())
-        embedded = embedded * (text != 0)[..., None]      # PAD embeds to 0
-        embedded = embedded.to(self.dtype)
-        if group_langs is not None:
-            encoded = self.encoder(embedded, text_lengths,
-                                   group_langs=group_langs.long())
-        else:
-            encoded = self.encoder(embedded, text_lengths,
-                                   lang_weights=langs_w)
+        encoded = self._encode(text, text_lengths, langs_w,
+                               mix=group_langs is None,
+                               group_langs=group_langs)
         memory, mt = self.decoder.prepare_memory(
-            encoded.float(), speakers, torch.argmax(langs_w, dim=2))
+            encoded, speakers, torch.argmax(langs_w, dim=2))
         mask = lengths_to_mask(text_lengths, t)
         carry = self.decoder.initial_carry(b, t, text.device)
         return memory, mt, mask, carry
@@ -254,7 +297,9 @@ def init_random_weights(model: Tacotron, seed: int) -> Tacotron:
     generator is scaled so that the generated kernel has variance
     1/(k*cin), and a generated batch norm's affine starts near (1, 0).
     PyTorch's default init would let the 14 generated blocks of the encoder
-    grow the activations by orders of magnitude."""
+    grow the activations by orders of magnitude.  An LSTM's weights and
+    trained biases are uniform in +-1/sqrt(units), PyTorch's default,
+    drawn from the seed; its frozen second biases are zero."""
     gen = torch.Generator().manual_seed(seed)
 
     def normal_(t: torch.Tensor, var: float) -> None:
@@ -266,7 +311,13 @@ def init_random_weights(model: Tacotron, seed: int) -> Tacotron:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Conv1d):
-            normal_(m.weight, 1.0 / (m.in_channels * m.kernel_size[0]))
+            normal_(m.weight, 1.0 / (m.in_channels // m.groups
+                                     * m.kernel_size[0]))
+        elif isinstance(m, nn.LSTM):
+            bound = m.hidden_size ** -0.5
+            for p in m.parameters():
+                p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0)
+                        * bound if p.requires_grad else 0.0)
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 1.0)
         elif isinstance(m, LocationSensitiveAttention):

@@ -23,11 +23,12 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   (``att_bwd_tiles``, as ``att_bwd``), its location conv on the tensor
   cores as a band product;
 - backward (K3): ``bwd_head`` (the head backward, one tensor-core launch
-  over column tiles of ``[h_gen | ctx]``), ``bwd_cell`` (the LSTM backward
-  over the stored i|f|g|o activations, masks regenerated from the hash),
-  ``bwd_gemm`` (``dgates @ W^T`` and ``dq @ Wq^T`` with the carry
-  additions in its epilogue, K split over the grid and the partials summed
-  by a second launch), ``train_query`` (the energy's query, recomputed),
+  over column tiles of ``[h_gen | ctx]``, with the generator cell's
+  backward in its epilogue), ``bwd_gemm`` (``dgates @ W^T`` and ``dq @
+  Wq^T`` with the carry additions in its epilogue, K split over the grid
+  and the partials summed by a second launch; the ``dq @ Wq^T`` product
+  runs the attention cell's backward on its final sums), ``train_query``
+  (the energy's query, recomputed),
   ``att_bwd`` (softmax, energy and location-conv backward, with the dmt,
   dlc and dv accumulators per batch row; a cluster of CTAs per batch row
   over tiles of its positions, ``att_bwd_tiles``, the location conv's
@@ -35,7 +36,10 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   ``bwd_prenet`` (one clustered launch over all rows, each CTA a column
   slice of every layer, ``prenet_split``, the products on the tensor
   cores); after the last step one ``bwd_gemm`` reduces dWq over all steps
-  and rows.
+  and rows.  The cell backward (``bwd_cell``: the LSTM backward over the
+  stored i|f|g|o activations, masks regenerated from the hash) thus runs
+  inside the launch that computes its input's last term; its wrapper runs
+  it alone.
 
 An eval forward (``TrainConfig.train`` False, the JAX package's
 ``make_train_decode_fn(train=False)``) runs the same K2 kernels with
@@ -70,7 +74,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,7 +95,10 @@ from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
 
 _K_ALIGN = 64   # concat rows and gate weights are zero-padded to this
 
-# launches of each kernel since the last reset (kernel launches only)
+# launches of each kernel since the last reset (kernel launches only).
+# "bwd_cell" counts the launches that run the cell backward: one launch of
+# bwd_cell alone, or a bwd_head or bwd_gemm launch with the cell in its
+# epilogue, which its own kernel's count holds too
 LAUNCHES: Dict[str, int] = {k: 0 for k in (
     "train_prenet", "train_gate_lstm", "train_query", "train_attention",
     "train_head", "bwd_head", "bwd_cell", "bwd_gemm", "att_bwd",
@@ -186,6 +193,21 @@ class TrainConfig:
 
     def prenet_salt(self, gs: int) -> int:
         return (gs * (self.n_prenet + 4)) & _M32
+
+
+class CellArgs(NamedTuple):
+    """The LSTM cell backward's operands besides its h cotangent: the
+    stored activations ``act`` [B, 4H] and previous cell state ``c_prev``
+    [B, H] (compute type; None at the first step), the cell cotangent carry
+    ``dc`` (float32, updated in place), the outputs ``dg`` [B, 4H]
+    (compute type) and ``dh_reg`` [B, H] (float32), and ``reg``
+    (``TrainConfig.reg``)."""
+    act: torch.Tensor
+    c_prev: Optional[torch.Tensor]
+    dc: torch.Tensor
+    dg: torch.Tensor
+    dh_reg: torch.Tensor
+    reg: Tuple
 
 
 # operand keys in the order ``TrainDecode`` takes them; the biases and v
@@ -468,13 +490,18 @@ def _train_head_plain_into(row, head_w, head_b, spec_out, stop_out, frame,
 
 
 def _bwd_head_plain_into(dspec, dstop, dframe, head_w, da_frame_out, dh_gen,
-                         dctx, dh_gen_tot, dctx_tot, cfg):
-    """``bwd_head``'s plain version, written into its outputs."""
+                         dctx, dh_gen_tot, dctx_tot, cfg,
+                         cell: Optional[CellArgs] = None):
+    """``bwd_head``'s plain version, written into its outputs; with a
+    ``cell``, then the cell's backward on dh_gen_tot, which may be None."""
     dft, dht, dct = bwd_head_plain(dspec, dstop, dframe, head_w, dh_gen,
                                    dctx, cfg)
     da_frame_out.copy_(dft)
-    dh_gen_tot.copy_(dht)
+    _copy(dh_gen_tot, dht)
     dctx_tot.copy_(dct)
+    if cell is not None:
+        _bwd_cell_plain_into(cell.act, cell.c_prev, dht, cell.dc, cell.dg,
+                             cell.dh_reg, cell.reg)
 
 
 def _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
@@ -486,14 +513,20 @@ def _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
 
 
 def _bwd_gemm_plain_into(a, b, b_kn: bool, segments, a_km: bool = False,
-                         scratch=None):
+                         scratch=None, cell: Optional[CellArgs] = None):
     """``bwd_gemm``'s plain version, written into its outputs (it needs no
-    ``scratch``)."""
+    ``scratch``); with a ``cell``, the one segment's sum goes to the cell's
+    backward instead."""
     aa = a.t() if a_km else a
     acc = _mm(aa, b if b_kn else b.t())
     for lo, hi, out, add in segments:
         v = acc[:, lo:hi]
-        out.copy_(v if add is None else add + v)
+        v = v if add is None else add + v
+        if cell is None:
+            out.copy_(v)
+        else:
+            _bwd_cell_plain_into(cell.act, cell.c_prev, v, cell.dc, cell.dg,
+                                 cell.dh_reg, cell.reg)
 
 
 def _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out,
@@ -528,6 +561,7 @@ def _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher: int, da_out,
 _P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float, ctypes.c_longlong)
 _REG = [_U, _U, _U, _U, _U, _U, _I, _F, _F, _F]
+_CELL = [_P] * 5 + [_I] + _REG          # act, c_prev, dc, dg, dh_reg, H, reg
 _SIGNATURES = {
     "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _I, _I,
                             _I, _I, _U, _U, _U, _U, _F, _I, _I, _I, _P],
@@ -539,9 +573,11 @@ _SIGNATURES = {
                        + [_I, _I, _P, _I, _P, _I] * 3 + [_P],
     "train_attention_launch": [_P] * 10 + [_P, _I, _P, _I, _P, _I]
                               + [_I] * 7 + [_P],
-    "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _P],
-    "bwd_cell_launch": [_P] * 6 + [_I, _I] + _REG + [_P],
+    "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I]
+                       + _CELL + [_P],
+    "bwd_cell_launch": [_P, _I] + _CELL + [_P],
+    "bwd_gemm_cell_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I]
+                            + _CELL + [_P],
     "att_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
     "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
                           _I, _F, _I, _I, _I, _P],
@@ -563,11 +599,24 @@ def _lib():
     return _LIB
 
 
-def _launch(name: str, fn: str, *args) -> None:
+def _launch(name: str, fn: str, *args, cell: bool = False) -> None:
     err = getattr(_lib(), fn)(*args, _stream())
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    if cell:
+        LAUNCHES["bwd_cell"] += 1
+
+
+def _cell_args(cell: Optional[CellArgs], hidden: int) -> list:
+    """The cell operands of a launcher (all null without a cell)."""
+    if cell is None:
+        return [None] * 5 + [hidden] + [0] * 6 + [0, 0.0, 0.0, 0.0]
+    _require(cell.act, torch.bfloat16, "cell activations")
+    _require(cell.c_prev, torch.bfloat16, "cell state stream")
+    _require(cell.dg, torch.bfloat16, "cell gate gradients")
+    return [_ptr(cell.act), _ptr(cell.c_prev), _ptr(cell.dc), _ptr(cell.dg),
+            _ptr(cell.dh_reg), hidden, *cell.reg]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -705,47 +754,64 @@ def train_head(row, head_w, head_b, spec_out, stop_out, frame,
 
 
 def bwd_head(dspec, dstop, dframe, head_w, da_frame_out, dh_gen, dctx,
-             dh_gen_tot, dctx_tot, cfg):
+             dh_gen_tot, dctx_tot, cfg, cell: Optional[CellArgs] = None):
     """Kernel ``bwd_head``: writes ``da_frame_out`` (bf16) and the float32
-    ``dh_gen_tot``, ``dctx_tot``."""
+    ``dh_gen_tot``, ``dctx_tot``.  With a ``cell`` (the generator's), its
+    epilogue runs the cell's backward on each dh_gen_tot value, and
+    ``dh_gen_tot`` may be None (it is then not stored)."""
     if not _is_cuda(dspec):
         return _bwd_head_plain_into(dspec, dstop, dframe, head_w,
                                     da_frame_out, dh_gen, dctx, dh_gen_tot,
-                                    dctx_tot, cfg)
+                                    dctx_tot, cfg, cell)
     _require(head_w, torch.bfloat16, "bwd_head weight")
     _launch("bwd_head", "bwd_head_launch", _ptr(dspec), _ptr(dstop),
             _ptr(dframe), _ptr(head_w), head_w.shape[1], _ptr(da_frame_out),
             _ptr(dh_gen), _ptr(dctx), _ptr(dh_gen_tot), _ptr(dctx_tot),
-            dspec.shape[0], cfg.mmel, cfg.hidden, cfg.mem_dim)
+            dspec.shape[0], cfg.mmel, cfg.mem_dim,
+            *_cell_args(cell, cfg.hidden), cell=cell is not None)
 
 
 def bwd_cell(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
-    """Kernel ``bwd_cell``: ``dg_out`` [B, 4H] (bf16), ``dh_reg`` and the
-    cell cotangent carry ``dc`` (updated in place)."""
+    """Kernel ``bwd_cell`` alone: ``dg_out`` [B, 4H] (bf16), ``dh_reg`` and
+    the cell cotangent carry ``dc`` (updated in place).  The training
+    decode runs the cell inside ``bwd_head`` and ``bwd_gemm`` (``cell=``)."""
     if not _is_cuda(dc):
         return _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg,
                                     reg)
-    _require(act, torch.bfloat16, "bwd_cell activations")
     b, hidden = dc.shape
-    _launch("bwd_cell", "bwd_cell_launch", _ptr(act), _ptr(c_prev),
-            _ptr(dh_tot), _ptr(dc), _ptr(dg_out), _ptr(dh_reg), b, hidden,
-            *reg)
+    _launch("bwd_cell", "bwd_cell_launch", _ptr(dh_tot), b,
+            *_cell_args(CellArgs(act, c_prev, dc, dg_out, dh_reg, reg),
+                        hidden))
 
 
-def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None):
+def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None,
+             cell: Optional[CellArgs] = None):
     """Kernel ``bwd_gemm``: ``acc = a @ b`` (``a`` [M, K], or [K, M] when
     ``a_km``; ``b`` [K, N] when ``b_kn``, else [N, K]), and for each
     ``(lo, hi, out, add)`` of ``segments``: ``out = add + acc[:, lo:hi]``
     (``add`` may be None or ``out`` itself).  K is split as
     ``_splitk.splitk_slices`` says; the partials go to the float32
     ``scratch`` (at least [S, M, N]; one of its own if None) and a second
-    launch sums them in slice order."""
+    launch sums them in slice order.  With a ``cell``, ``segments`` is the
+    one ``(0, N, None, add)`` with N = H, and the cell's backward runs on
+    each final ``add + acc`` value instead of a store."""
     if not _is_cuda(a):
-        return _bwd_gemm_plain_into(a, b, b_kn, segments, a_km)
+        return _bwd_gemm_plain_into(a, b, b_kn, segments, a_km, cell=cell)
     _require(a, torch.bfloat16, "bwd_gemm a")
     _require(b, torch.bfloat16, "bwd_gemm b")
     m, k = (a.shape[1], a.shape[0]) if a_km else a.shape
     n = b.shape[1] if b_kn else b.shape[0]
+    if cell is not None:
+        (lo, hi, out, add), = segments
+        if a_km or (lo, hi, out) != (0, n, None) or add is None:
+            raise ValueError("a bwd_gemm with a cell takes one segment "
+                             "(0, N, None, add) and an [M, K] a")
+        slices, kslice, part = _splitk.split(_lib(), m, n, k, scratch,
+                                             a.device)
+        _launch("bwd_gemm", "bwd_gemm_cell_launch", _ptr(a), _ld(a), _ptr(b),
+                _ld(b), int(b_kn), m, k, slices, kslice, _ptr(part),
+                _ptr(add), _ld(add), *_cell_args(cell, n), cell=True)
+        return
     segs = list(segments) + [(0, 0, None, None)] * (3 - len(segments))
     args = []
     for lo, hi, out, add in segs:
@@ -968,19 +1034,23 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
     carry = {"h_att": z(b, h), "c_att": z(b, h), "h_gen": z(b, h),
              "c_gen": z(b, h), "ctx": z(b, mem), "frame": z(b, m),
              "cum": z(b, t_len)}
-    dh_gen_tot, dh_att_tot, dh_reg = z(b, h), z(b, h), z(b, h)
+    dh_att_tot, dh_reg = z(b, h), z(b, h)
     dctx_tot, dx, q = z(b, mem), z(b, p), z(b, a)
     f = PLAIN if plain else KERNELS
     scratch = _pass_scratch(
         plain, [(b, _pad64(cfg.kg), 4 * h), (b, a, h), (b, h, a),
                 (b, _pad64(cfg.ka), 4 * h), (h, a, n_f * b)], memory)
     for s in range(n_f - 1, -1, -1):
+        # each cell's backward runs where its h cotangent's last term is
+        # summed: the generator's in bwd_head, the attention LSTM's in the
+        # dq @ Wq^T product
         f.bwd_head(dspec[s], dstop[s], carry["frame"], ops["head_w"],
-                 g["da_frame"][s], carry["h_gen"], carry["ctx"], dh_gen_tot,
-                 dctx_tot, cfg)
-        f.bwd_cell(st["act_gen"][s], st["c_gen"][s - 1] if s else None,
-                 dh_gen_tot, carry["c_gen"], g["dg_gen"][s], dh_reg,
-                 cfg.reg("gen", seeds, s))
+                 g["da_frame"][s], carry["h_gen"], carry["ctx"], None,
+                 dctx_tot, cfg,
+                 cell=CellArgs(st["act_gen"][s],
+                               st["c_gen"][s - 1] if s else None,
+                               carry["c_gen"], g["dg_gen"][s], dh_reg,
+                               cfg.reg("gen", seeds, s)))
         f.bwd_gemm(g["dg_gen"][s], ops["gen_w"], True,
                  [(0, h, dh_att_tot, carry["h_att"]),
                   (h, h + mem, dctx_tot, dctx_tot),
@@ -991,10 +1061,11 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
                 ops["v"], dctx_tot, dw[s], carry["cum"], acc["dmt"],
                 acc["dlc"], acc["dv"], g["dq"][s], g["dctx"][s])
         f.bwd_gemm(g["dq"][s], ops["wq"], False,
-                 [(0, h, dh_att_tot, dh_att_tot)], scratch=scratch)
-        f.bwd_cell(st["act_att"][s], st["c_att"][s - 1] if s else None,
-                 dh_att_tot, carry["c_att"], g["dg_att"][s], dh_reg,
-                 cfg.reg("att", seeds, s))
+                 [(0, h, None, dh_att_tot)], scratch=scratch,
+                 cell=CellArgs(st["act_att"][s],
+                               st["c_att"][s - 1] if s else None,
+                               carry["c_att"], g["dg_att"][s], dh_reg,
+                               cfg.reg("att", seeds, s)))
         f.bwd_gemm(g["dg_att"][s], ops["att_w"], True,
                  [(0, p, dx, None), (p, p + mem, carry["ctx"], None),
                   (p + mem, p + mem + h, carry["h_att"], dh_reg)],

@@ -9,8 +9,9 @@ same:
     accent blending:      "id|text|speaker|de-10,fr*0.75:de*0.25-9,de"
 
 One-hot language batches are sorted by language and encoded in row groups
-(each sample pays only its own language's encoder); true blends take the
-mixing path.  The decoder runs ``hp.decode_chunk_frames`` steps at a time
+(a grouped encoder then runs each sample through its own language's
+weights only; the other encoders take the per-character weights as they
+always do); true blends take the mixing path.  The decoder runs ``hp.decode_chunk_frames`` steps at a time
 through ``ops.fused_decoder`` (the CUDA kernels on the card, their plain
 version on the CPU), and the host checks the stop tokens between chunks.
 Checkpoint loading and vocoding are not ported yet.

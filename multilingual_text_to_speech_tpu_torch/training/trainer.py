@@ -1,4 +1,4 @@
-"""One training step of the flagship model.
+"""One training step, for every encoder the port builds.
 
 Port of the step machinery of the JAX package's ``training/trainer.py``:
 ``make_optimizer`` (global-norm clipping, then Adam with the L2 weight
@@ -135,7 +135,9 @@ def train_step(model, optimizer, scheduler, batch: Batch,
     ``generator`` unless ``teacher`` and ``seeds`` are given.  The step runs
     on ``device``, ``cuda`` unless the caller passes ``'cpu'`` (raising
     without a card); the model must already lie there, and the batch's
-    arrays move there."""
+    arrays move there.  A grouped encoder (``convolutional``,
+    ``generated``) needs a language-interleaved batch (sample ``k*g + j``
+    has language j); the others take any order."""
     hp = model.hp
     dev = resolve_device(device)
     _check_model_device(model, dev)

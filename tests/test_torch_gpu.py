@@ -475,6 +475,166 @@ def test_bwd_head_matches_plain(b):
         assert torch.equal(g, a)
 
 
+def _cell_operands(b, regularization, first, seed):
+    """A cell backward's operands at the flagship's widths (H = 1024): the
+    stored bf16 activations (sigmoid/tanh ranges), the previous bf16 cell
+    state (None for the first step), a float32 dc carry, and a train-mode
+    regularization of zoneout 0.1 or h dropout 0.1."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    act = torch.sigmoid(rnd(b, 4 * _HIDDEN))
+    act[:, 2 * _HIDDEN:3 * _HIDDEN] = torch.tanh(rnd(b, _HIDDEN))
+    c_prev = None if first else rnd(b, _HIDDEN).bfloat16()
+    cfg = ftd.TrainConfig(
+        hidden=_HIDDEN, mem_dim=_MEM, prenet_dim=256, n_prenet=2,
+        mmel=_MELS, att_dim=_ATT, taps=_TAPS, dropout_rate=0.5,
+        zoneout_h=0.1, zoneout_c=0.1 if regularization == "zoneout" else 0.0,
+        use_zoneout=regularization == "zoneout", dtype=torch.bfloat16)
+    reg = cfg.reg("gen", (2654435761, 40503), 5)
+    return act.bfloat16(), c_prev, rnd(b, _HIDDEN, scale=0.1), reg, rnd
+
+
+def _check_cell_outputs(got, again, ref, regularization):
+    """The fused cell's outputs (dc, dg, dh_reg) against the plain cell's:
+    its masks bit-exact (the units zoneout keeps old pass dh through to
+    dh_reg; the units dropout drops give a zero o-gate gradient), float32
+    within 1e-6 and bf16 within one ulp (2^-7) of the largest output, and a
+    second run bit-identical to the first."""
+    dc, dg, dh_reg = got
+    if regularization == "zoneout":
+        assert torch.equal(dh_reg != 0, ref[2] != 0)
+        assert 0 < int((ref[2] != 0).sum()) < ref[2].numel()
+    else:
+        o_g, o_r = dg[:, 3 * _HIDDEN:], ref[1][:, 3 * _HIDDEN:]
+        assert torch.equal(o_g == 0, o_r == 0)
+        assert 0 < int((o_r == 0).sum()) < o_r.numel()
+    for g, r in zip(got, ref):
+        bound = 2.0 ** -7 if r.dtype == torch.bfloat16 else 1e-6
+        assert float((g.float() - r.float()).abs().max()) <= \
+            bound * float(r.float().abs().max())
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+@pytest.mark.parametrize("b", [1, 50])
+def test_bwd_head_with_the_generator_cell_matches_plain(b, regularization,
+                                                        first):
+    """``bwd_head`` with the generator cell's backward in its epilogue (one
+    launch, counted for ``bwd_head`` and ``bwd_cell``) against
+    ``bwd_head_plain`` followed by ``bwd_cell_plain``: da_frame bit-exact,
+    dctx_tot within chip_smoke's ``bwd_head`` bound, the cell's outputs as
+    ``_check_cell_outputs`` says; the first step's null c_prev included."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    act, c_prev, dc0, reg, rnd = _cell_operands(b, regularization, first,
+                                                seed=b + 31)
+    cfg = SimpleNamespace(mmel=_MELS, hidden=_HIDDEN, mem_dim=_MEM)
+    head_w, _ = _head_weights(torch.Generator(device="cuda").manual_seed(b))
+    dspec, dframe, dstop = rnd(b, _MELS), rnd(b, _MELS), rnd(b)
+    dh_gen, dctx = rnd(b, _HIDDEN, scale=0.1), rnd(b, _MEM)
+
+    def run(fn):
+        dc = dc0.clone()
+        cell = ftd.CellArgs(act, c_prev, dc, torch.empty(
+            b, 4 * _HIDDEN, dtype=torch.bfloat16, device="cuda"),
+            torch.empty(b, _HIDDEN, device="cuda"), reg)
+        head = [torch.empty(b, _MELS, dtype=torch.bfloat16, device="cuda"),
+                torch.empty(b, _MEM, device="cuda")]
+        fn(dspec, dstop, dframe, head_w, head[0], dh_gen, dctx, None,
+           head[1], cfg, cell=cell)
+        return head, [dc, cell.dg, cell.dh_reg]
+
+    ftd.reset_launch_counts()
+    (h_k, c_k), (h_a, c_a) = run(ftd.bwd_head), run(ftd.bwd_head)
+    assert ftd.LAUNCHES["bwd_head"] == ftd.LAUNCHES["bwd_cell"] == 2
+    h_p, c_p = run(ftd.PLAIN.bwd_head)
+    assert torch.equal(h_k[0], h_p[0])
+    bound = TRAIN_KERNEL_TOL["bwd_head"]["f32"]
+    assert float((h_k[1] - h_p[1]).abs().max()) <= \
+        bound * float(h_p[1].abs().max())
+    assert all(torch.equal(g, a) for g, a in zip(h_k, h_a))
+    _check_cell_outputs(c_k, c_a, c_p, regularization)
+
+
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("b", [1, 50])
+def test_dq_product_with_the_attention_cell_matches_plain(b, k,
+                                                          regularization,
+                                                          first):
+    """The dq @ Wq^T ``bwd_gemm`` with the attention cell's backward in its
+    epilogue: K = 64 leaves K whole (the cell runs in ``splitk_kernel``'s
+    epilogue, one launch), K = 128 (the flagship's attention width) splits
+    it (the cell runs in the reduction's epilogue on the final sums, a
+    second launch of the same wrapper call); against the plain product
+    followed by ``bwd_cell_plain``, as ``_check_cell_outputs`` says."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    act, c_prev, dc0, reg, rnd = _cell_operands(b, regularization, first,
+                                                seed=b + k)
+    dq = rnd(b, k, scale=0.1).bfloat16()
+    wq = rnd(_HIDDEN, k, scale=k ** -0.5).bfloat16()
+    add = rnd(b, _HIDDEN, scale=0.1)
+
+    def run(fn):
+        dc = dc0.clone()
+        cell = ftd.CellArgs(act, c_prev, dc, torch.empty(
+            b, 4 * _HIDDEN, dtype=torch.bfloat16, device="cuda"),
+            torch.empty(b, _HIDDEN, device="cuda"), reg)
+        fn(dq, wq, False, [(0, _HIDDEN, None, add)], cell=cell)
+        return [dc, cell.dg, cell.dh_reg]
+
+    from multilingual_text_to_speech_tpu_torch.ops import _splitk
+
+    slices, _, _ = _splitk.split(ftd._lib(), b, _HIDDEN, k, None, dq.device)
+    assert (slices > 1) == (k == 128)
+    ftd.reset_launch_counts()
+    got, again = run(ftd.bwd_gemm), run(ftd.bwd_gemm)
+    assert ftd.LAUNCHES["bwd_gemm"] == ftd.LAUNCHES["bwd_cell"] == 2
+    _check_cell_outputs(got, again, run(ftd.PLAIN.bwd_gemm), regularization)
+
+
+@pytest.mark.parametrize("phase", ["serving", "training"])
+@pytest.mark.parametrize("strategy", ["shared", "separate"])
+def test_kernels_match_plain_at_the_strategies_widths(strategy, phase):
+    """K1 (one step and a 16-step chunk at B=240, W8A8 and bf16 gates) and
+    K2/K3 (each kernel alone at B=50, 16 chained steps, ``TrainDecode``
+    against autograd through the plain K2) against their plain versions at
+    the published shared (548-wide memory: 1096-byte rows, which are not
+    16-byte aligned, and a gate K of 1828) and separate (288) strategies'
+    widths, through ``chip_smoke``'s own checks at its bounds (a failed
+    check raises)."""
+    import chip_smoke as cs
+
+    hp = cs.switching(strategy, 32, 16)
+    sd = cs.seeded_state_dict(hp)
+    if phase == "serving":
+        with torch.no_grad():
+            errs = cs.phase_kernels(hp, sd)
+        assert set(errs) == {"prenet", "gate_lstm", "lsa_attention", "head"}
+    else:
+        errs, _ = cs.phase_train_kernels(hp, sd)
+        from multilingual_text_to_speech_tpu_torch.ops import (
+            fused_train_decoder as ftd,
+        )
+
+        assert set(errs) == set(ftd.LAUNCHES)
+
+
 def _bwd_gemm_operands(m, n, k, b_kn, seed):
     """bf16 ``a`` [M, K] and ``b`` ([K, N] or [N, K], contiguous: N=1572 and
     2340 give rows that are not 16-byte aligned), and three output segments

@@ -183,9 +183,7 @@ def _to_jax_layout(cell, grads):
     return out
 
 
-@pytest.mark.parametrize("n_prenet", [1, 2])
-@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
-def test_backward_matches_jax_vjp(regularization, n_prenet):
+def _check_backward_against_jax_vjp(regularization, n_prenet):
     """Plain K3 through ``TrainDecode`` against the JAX custom VJP (the
     interpret-mode K3): every parameter gradient and the memory and memory
     transform gradients within 1e-4 of that tensor's largest value."""
@@ -219,6 +217,56 @@ def test_backward_matches_jax_vjp(regularization, n_prenet):
         scale = np.abs(r).max() + 1e-6
         err = np.abs(got[name].reshape(r.shape) - r).max() / scale
         assert err < 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("n_prenet", [1, 2])
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_backward_matches_jax_vjp(regularization, n_prenet):
+    """Plain K3 through ``TrainDecode`` against the JAX custom VJP: see
+    ``_check_backward_against_jax_vjp``."""
+    _check_backward_against_jax_vjp(regularization, n_prenet)
+
+
+# a K3 step's wrapper calls in order: each LSTM cell's backward runs inside
+# the call that sums its h cotangent's last term
+_K3_STEP = ("bwd_head", "bwd_gemm", "train_query", "att_bwd", "bwd_gemm",
+            "bwd_gemm", "bwd_prenet")
+
+
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
+def test_k3_loop_runs_each_cell_in_its_producer(regularization, monkeypatch):
+    """The K3 loop in its new order, through the plain versions (the CPU
+    route of the kernel wrappers): 7 wrapper calls a step, no standalone
+    ``bwd_cell``; the generator cell rides on ``bwd_head`` and the
+    attention cell on the dq @ Wq^T ``bwd_gemm`` (a zoneout or dropout cell
+    at that step's salts, its previous c the forward's stream, None at the
+    first step); and in that order the gradients match the JAX custom VJP
+    at the file's bound (1e-4 of each tensor's largest value)."""
+    calls = []
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            calls.append((name, kw.get("cell")))
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(ftd, "KERNELS", ftd.SimpleNamespace(**{
+        name: recorder(name, fn) for name, fn in vars(ftd.PLAIN).items()}))
+    _check_backward_against_jax_vjp(regularization, 2)
+    assert not any(name == "bwd_cell" for name, _ in calls)
+    first = [name for name, _ in calls].index("bwd_head")   # K2 before it
+    k3, n = calls[first:], len(_K3_STEP)
+    assert len(k3) == FRAMES * n + 1 and k3[-1][0] == "bwd_gemm"   # dWq
+    steps = [k3[i * n:(i + 1) * n] for i in range(FRAMES)]
+    cfg = _port_cfg(_hp(regularization))
+    seeds = _inputs(_hp(regularization), 0.5)[-1]
+    for s, step in zip(range(FRAMES - 1, -1, -1), steps):
+        assert tuple(name for name, _ in step) == _K3_STEP
+        cells = {i: c for i, (_, c) in enumerate(step) if c is not None}
+        assert sorted(cells) == [0, 4]
+        for i, which in ((0, "gen"), (4, "att")):
+            assert cells[i].reg == cfg.reg(which, seeds, s)
+            assert (cells[i].c_prev is None) == (s == 0)
 
 
 def _operands(hp, cfg, seed=0):

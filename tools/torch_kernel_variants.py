@@ -20,7 +20,10 @@ layer of K3's ``bwd_prenet``, or, in the forward prenet routine that K1's
 ``prenet`` and K2's ``train_prenet`` share (``csrc/tile.cuh``), a dropout
 mask drawn at the CTA's local column instead of the global one or one
 peer's slice skipped in the gather of the bf16 rows (each run under K1's
-checks and under K2's), and runs the checks of that kernel's
+checks and under K2's), or, in K3's LSTM cell backward (which runs fused
+into ``bwd_head`` and the dq @ Wq^T product), the cell-state zoneout mask
+drawn with the h salt or the attention cell run on each split-K slice's
+partial sum instead of the reduced one, and runs the checks of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_train_kernels``
 for K2 and K3) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
@@ -120,6 +123,25 @@ VARIANTS = {
     "train_prenet_gather_skip_peer": (
         "tile.cuh", "cluster_gather_rows(s_a, lda, own, ldo, np, cl,",
         "cluster_gather_rows(s_a, lda, own, ldo, np, cl - 1,", "K2"),
+    # K3's cell backward (CellBwd, fused into bwd_head and the dq
+    # product): the c mask drawn with the h mask's salt; or the dq product
+    # launched without its reduction, every K slice running the attention
+    # cell on its own partial sum
+    "cell_c_mask_h_salt": (
+        "fused_train_decoder.cu",
+        "reg.salt_c) < reg.th_c;",
+        "reg.salt_h) < reg.th_c;", "K3"),
+    "cell_on_split_partial": (
+        "fused_train_decoder.cu",
+        "  return splitk_launch<false, false>(a, lda, b, ldb, M, H, K, "
+        "slices, kslice,\n                                     scratch, "
+        "epi, stream);",
+        "  splitk_kernel<false, false, CellOut>\n"
+        "      <<<dim3((H + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, "
+        "slices),\n         SK_THREADS, 0, (cudaStream_t)stream>>>(\n"
+        "          (const bf16*)a, lda, vec_ok(a, lda), (const bf16*)b, ldb,"
+        "\n          vec_ok(b, ldb), M, H, K, kslice, nullptr, epi);\n"
+        "  return (int)cudaGetLastError();", "K3"),
     "train_attention_taps": (
         "fused_train_decoder.cu",
         [("  // 1. energies: loc = band(cum) @ lc",
