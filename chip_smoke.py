@@ -70,6 +70,19 @@ Phases, each of which fails the run on a failed check:
    the card against the CPU plain path; at the shared strategy's widths
    the K2/K3 kernels are also held against plain and timed as in 5 and 7.
 
+9. ``[*:fwd]`` and ``[*:fwd_trans]``: the forward-attention family
+   (``forward`` and ``forward_transition_agent``) at the flagship's widths:
+   K1's ``fwd_attention`` against its plain version (W8A8 and bf16 gates:
+   masks bit-exact, two runs bit-identical, weights a floored
+   distribution, t_prob; a 16-step chunk with the carried weights and
+   t_prob), synthesis of 240 lines x 256 frames through it (launching it
+   and not ``lsa_attention``), its device time; K2's and K3's family
+   variants against plain (alone, then 16 chained steps with ``dtp`` and
+   ``dlin``, and ``TrainDecode`` against autograd with the agent's weight
+   gradients), training steps through them, their device times; at the
+   transition agent also a small synthesis, a small train step and
+   ``model.eval()``'s forward on the card against the CPU plain path.
+
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
@@ -93,6 +106,11 @@ SEED = 0
 B, T_SYMBOLS, CHUNK, MAX_FRAMES = 240, 128, 256, 512
 # the paper's shared and separate strategies (config.py): one chunk each
 SWITCHING, SWITCHING_FRAMES = ("shared", "separate"), 256
+# the forward-attention family at the flagship's widths: one chunk each;
+# the phases' tags carry the kind's label
+FAMILY = {"forward": "fwd", "forward_transition_agent": "fwd_trans"}
+FAMILY_FRAMES = 256
+FAMILY_TRAIN_KERNELS = ("train_attention_fwd", "att_bwd_fwd")
 TRAIN_B, TRAIN_T, TRAIN_F, CHECK_STEPS = 50, 128, 512, 16
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
@@ -104,6 +122,7 @@ ATOL = 2e-3                   # prenet, h, c, frame, stop: absolute
 CTX_TOL = 2e-3                # context: absolute and relative
 W_TOL = 1e-2                  # attention weights: |dw| / max w, per row
 CHUNK_REL_TOL = 1e-2          # 16 autoregressive steps, kernel vs plain
+SUM_TOL = 1e-5                # the forward family's weights: |sum - 1|
 E2E_REL_TOL = 1e-2            # card kernels vs the CPU plain path, bf16
 # the training kernels, on identical inputs: max |kernel - plain| of each
 # output over its largest |plain|, per kernel and output type.  A float32
@@ -127,6 +146,10 @@ TRAIN_KERNEL_TOL = {
     # its float32 accumulators follow bf16 roundings of the energy
     "att_bwd": {"f32": 5e-3, "bf16": ULP},              # 9.36e-4
     "bwd_prenet": {"f32": 1e-6, "bf16": ULP},           # 1.61e-7
+    # the forward family's variants (PERF.md), at the bounds of their
+    # location-sensitive siblings
+    "train_attention_fwd": {"f32": 1e-6, "bf16": ULP},
+    "att_bwd_fwd": {"f32": 5e-3, "bf16": ULP},
 }
 # 16 chained steps, kernels vs plain drivers: relative error (norms) of each
 # stream, gradient, accumulator and carry (measured up to 4.0e-3)
@@ -277,10 +300,15 @@ def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def flagship(max_frames: int, chunk: int):
+def flagship(max_frames: int, chunk: int,
+             attention_type: str = "location_sensitive"):
+    """The flagship, served; at another ``attention_type`` for the forward
+    family's phases (every width stays the flagship's)."""
     from multilingual_text_to_speech_tpu_torch import flagship_hparams
 
-    return serving_hp(flagship_hparams(), max_frames, chunk)
+    hp = serving_hp(flagship_hparams(), max_frames, chunk)
+    hp.attention_type = attention_type
+    return hp
 
 
 def switching(name: str, max_frames: int, chunk: int):
@@ -373,11 +401,79 @@ def encoded_batch(syn, hp):
         text, lengths, speakers, langs, group_langs=group)
     carry, _ = fd.decode_chunk_plain(syn.bundle, carry, memory, mt, mask,
                                      (7, 11), 3, **syn.decode_kwargs)
+    if syn.bundle.att_kind != "ls":
+        # the forward family's state is the last step's weights, a
+        # distribution: three steps in, as it comes
+        return memory, mt, mask, carry
     pos = torch.as_tensor(rng.uniform(0.2, 0.8, B), device="cuda") * lengths
     t = torch.arange(T_SYMBOLS, device="cuda")[None].float()
     ramp = torch.clamp(pos[:, None].float() - t, 0.0, 1.0) * mask
     carry["att_state"] = {"weights": carry["att_state"]["weights"] + ramp}
     return memory, mt, mask, carry
+
+
+def check_attention_step(fd, bundle, tag, h_att, x, carry, memory, mtb,
+                         mask_add, ctx_row):
+    """One step of the bundle's attention kernel (``lsa_attention``, or the
+    forward family's ``fwd_attention``) against its plain version on the
+    same inputs, the context into ``ctx_row``: two runs bit-identical, the
+    weights within W_TOL of each row's largest, the context within CTX_TOL;
+    the family's weights a distribution (sum within SUM_TOL of 1) and its
+    t_prob within ATOL.  -> (kernel name, context, plain context, max abs
+    error)."""
+    import torch
+
+    state = carry["att_state"]
+    if bundle.att_kind == "ls":
+        name = "lsa_attention"
+        cum = state["weights"]
+        args = (h_att, cum, memory, mtb, mask_add, bundle)
+        got = fd.lsa_attention(*args, ctx_row=ctx_row)
+        again = fd.lsa_attention(*args)
+        ref = fd.lsa_attention_plain(*args)
+    else:
+        name = "fwd_attention"
+        cum = torch.zeros_like(state["weights"])
+        args = (h_att, state["weights"], state.get("t_prob"), memory, mtb,
+                mask_add, x, bundle)
+        got = fd.fwd_attention(*args, ctx_row=ctx_row)
+        again = fd.fwd_attention(*args)
+        ref = fd.fwd_attention_plain(*args)
+    torch.cuda.synchronize()
+    if not all(g is a or torch.equal(g, a) for g, a in zip(got, again)):
+        fail(f"{name}[{tag}]: two runs on the same inputs differ")
+    err = close_weights(f"{name}[{tag}]", got[1], ref[1], cum)
+    err = max(err, close(f"{name} ctx[{tag}]", got[0], ref[0], CTX_TOL,
+                         CTX_TOL))
+    if name == "fwd_attention":
+        # also at a text bucket that is not a multiple of 16, whose padding
+        # in the kernel must take part in neither the softmax nor the floor
+        t_short = memory.shape[1] - 8
+        prev = state["weights"][:, :t_short]
+        short = (h_att, prev / prev.sum(-1, keepdim=True), state.get("t_prob"),
+                 memory[:, :t_short].contiguous(),
+                 mtb[:, :t_short].contiguous(), mask_add[:, :t_short], x,
+                 bundle)
+        got_s, ref_s = fd.fwd_attention(*short), fd.fwd_attention_plain(*short)
+        for w, label in ((got[1], ""), (got_s[1], f", T={t_short}")):
+            off = float((w.sum(-1) - 1.0).abs().max())
+            if off > SUM_TOL or float(w.min()) <= 0.0:
+                fail(f"{name}[{tag}{label}]: weights not a floored "
+                     f"distribution (sum off by {off}, least "
+                     f"{float(w.min())})")
+        close_weights(f"{name}[{tag}, T={t_short}]", got_s[1], ref_s[1],
+                      torch.zeros_like(ref_s[1]))
+        close(f"{name} ctx[{tag}, T={t_short}]", got_s[0], ref_s[0],
+              CTX_TOL, CTX_TOL)
+        if got[2] is not None:
+            err = max(err, close(f"{name} t_prob[{tag}]", got[2], ref[2]),
+                      close(f"{name} t_prob[{tag}, T={t_short}]", got_s[2],
+                            ref_s[2]))
+        say(f"[kernels:{tag}] {name}: every row's weights sum to 1 within "
+            f"{off:.3g} at T={t_short} (bound {SUM_TOL}), the least "
+            f"{float(got[1].min()):.3g}" + ("" if got[2] is None else
+               f"; t_prob within {max_err(got[2], ref[2]):.3g} (atol {ATOL})"))
+    return name, got[0], ref[0], err
 
 
 def phase_kernels(hp, sd, modes=(True, False)):
@@ -433,27 +529,14 @@ def phase_kernels(hp, sd, modes=(True, False)):
         e_gate = max(close(f"gate_lstm att h[{tag}]", hk, h_att),
                      close(f"gate_lstm att c[{tag}]", ck, c_att))
 
-        # the head row, as a chunk fills it: bf16(context) from
-        # lsa_attention, bf16(h_gen) from the generator's gate_lstm
+        # the head row, as a chunk fills it: bf16(context) from the
+        # attention kernel, bf16(h_gen) from the generator's gate_lstm
         hidden = h_att.shape[1]
         row = torch.zeros(B, bundle.head_w.shape[1], dtype=torch.bfloat16,
                           device="cuda")
-        ctx_k, cum_k = fd.lsa_attention(
-            h_att, carry["att_state"]["weights"], memory, mtb, mask_add,
-            bundle, ctx_row=row[:, hidden:hidden + memory.shape[2]])
-        ctx_again, cum_again = fd.lsa_attention(
-            h_att, carry["att_state"]["weights"], memory, mtb, mask_add,
-            bundle)
-        ctx, cum = fd.lsa_attention_plain(h_att, carry["att_state"]["weights"],
-                                          memory, mtb, mask_add, bundle)
-        torch.cuda.synchronize()
-        if not (torch.equal(ctx_k, ctx_again) and torch.equal(cum_k,
-                                                              cum_again)):
-            fail(f"lsa_attention[{tag}]: two runs on the same inputs differ")
-        e_att = close_weights(f"lsa_attention[{tag}]", cum_k, cum,
-                              carry["att_state"]["weights"])
-        e_att = max(e_att, close(f"lsa_attention ctx[{tag}]", ctx_k, ctx,
-                                 CTX_TOL, CTX_TOL))
+        att_name, ctx_k, ctx, e_att = check_attention_step(
+            fd, bundle, tag, h_att, x, carry, memory, mtb, mask_add,
+            row[:, hidden:hidden + memory.shape[2]])
 
         segs_gen = (h_att, ctx, carry["h_gen"])
         q_k = torch.zeros(B, sum(s.shape[1] for s in segs_gen),
@@ -486,36 +569,49 @@ def phase_kernels(hp, sd, modes=(True, False)):
                      close(f"head stop[{tag}]", s_k, s_p))
         say(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
               f"{' and int8 activations' if int8 else ''} and the head row "
-              f"bit-exact, two runs of the prenet, of lsa_attention and of "
+              f"bit-exact, two runs of the prenet, of {att_name} and of "
               f"the head bit-identical; max abs "
               f"err prenet {e_pre:.3g}, gate_lstm {e_gate:.3g}, "
-              f"lsa_attention {e_att:.3g}, head {e_head:.3g} (atol "
+              f"{att_name} {e_att:.3g}, head {e_head:.3g} (atol "
               f"{ATOL}; context {CTX_TOL}; weights {W_TOL} of the row max)")
 
-        _, (spec_k, stop_k) = fd.decode_chunk(
+        carry_k, (spec_k, stop_k) = fd.decode_chunk(
             bundle, carry, memory, mt, mask, seeds, 16, **kw)
-        _, (spec_p, stop_p) = fd.decode_chunk_plain(
+        carry_p, (spec_p, stop_p) = fd.decode_chunk_plain(
             bundle, carry, memory, mt, mask, seeds, 16, **kw)
-        r_spec, r_stop = rel(spec_k, spec_p), rel(stop_k, stop_p)
-        if not (torch.isfinite(spec_k).all() and r_spec < CHUNK_REL_TOL
-                and r_stop < CHUNK_REL_TOL):
-            fail(f"16-step chunk[{tag}]: relative error spec {r_spec}, "
-                 f"stop {r_stop}")
-        say(f"[kernels:{tag}] 16-step chunk: relative error spec "
-              f"{r_spec:.3g}, stop {r_stop:.3g} (bound {CHUNK_REL_TOL})")
+        chunk = {"spec": rel(spec_k, spec_p), "stop": rel(stop_k, stop_p)}
+        if bundle.att_kind != "ls":
+            # the carried state of the forward family: the last weights
+            # (a distribution) and the transition agent's t_prob
+            st_k, st_p = carry_k["att_state"], carry_p["att_state"]
+            if set(st_k) != set(st_p):
+                fail(f"16-step chunk[{tag}]: carried state {sorted(st_k)}")
+            chunk.update({f"carried {k}": rel(st_k[k], st_p[k])
+                          for k in st_p})
+            off = float((st_k["weights"].sum(-1) - 1.0).abs().max())
+            if off > SUM_TOL:
+                fail(f"16-step chunk[{tag}]: carried weights sum to 1 "
+                     f"within {off}")
+        worst = max(chunk.values())
+        if not (torch.isfinite(spec_k).all() and worst < CHUNK_REL_TOL):
+            fail(f"16-step chunk[{tag}]: relative errors {chunk}")
+        say(f"[kernels:{tag}] 16-step chunk: relative error " + ", ".join(
+            f"{k} {v:.3g}" for k, v in chunk.items())
+            + f" (bound {CHUNK_REL_TOL})")
         if int8:
             errs = {"prenet": e_pre, "gate_lstm": e_gate,
-                    "lsa_attention": e_att, "head": e_head}
+                    att_name: e_att, "head": e_head}
     hp.pallas_decoder_int8 = True
     return errs
 
 
-def phase_main(hp, sd, small):
+def phase_main(hp, sd, small=None):
     """Synthesis of B lines through ``Synthesizer.synthesize_batch_lines``
     (``hp.max_output_length`` frames each), with the launch counts reset
-    just before and read just after; an accent-blend batch; and a small
-    batch at the configuration ``small`` on the card against the CPU plain
-    path."""
+    just before and read just after (every kernel of the attention kind's
+    path launched, the other attention kernel not); an accent-blend batch;
+    and, unless ``small`` is None, a small batch at the configuration
+    ``small`` on the card against the CPU plain path."""
     import numpy as np
     import torch
 
@@ -534,8 +630,10 @@ def phase_main(hp, sd, small):
     seconds = time.perf_counter() - t0
     launches = dict(fd.LAUNCHES)
 
-    if any(n == 0 for n in launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
+    path = fd.path_kernels(syn.bundle.att_kind)
+    if any(launches[k] == 0 for k in path) or any(
+            launches[k] for k in launches if k not in path):
+        fail(f"the main path's kernels {path}: launches {launches}")
     n_frames = hp.max_output_length
     if len(out) != B or any(o.shape != (hp.num_mels, n_frames)
                             or not np.isfinite(o).all() for o in out):
@@ -555,6 +653,8 @@ def phase_main(hp, sd, small):
            for o in out_b):
         fail("accent-blend batch: bad output")
     say(f"[main] accent-blend batch of {len(blend)} lines: mixing path ok")
+    if small is None:
+        return syn, launches, frames / seconds
 
     # a small batch against the plain path on the CPU (bf16 there too)
     small_lines = lines_for(small, 1, SEED + 4)
@@ -573,10 +673,11 @@ def phase_main(hp, sd, small):
     return syn, launches, frames / seconds
 
 
-def phase_timings(hp, syn, errs, launches):
-    """Device times of each kernel, its plain version and its library
-    yardstick (``device_ms``), then CUDA-event times of a decode step and
-    chunk, at the main path's shapes."""
+def phase_timings(hp, syn, errs, launches, only=None):
+    """Device times of each kernel (of ``only``, when given), its plain
+    version and its library yardstick (``device_ms``), then CUDA-event
+    times of a decode step and chunk, at the main path's shapes.  A row of
+    a labelled phase carries its label in its name."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
@@ -588,8 +689,10 @@ def phase_timings(hp, syn, errs, launches):
     hidden = carry["h_att"].shape[1]
     m_dim = memory.shape[2]
     a_dim = bundle.wq.shape[1]
-    k_taps = bundle.lc.shape[0]
+    k_taps = 0 if bundle.lc is None else bundle.lc.shape[0]
     in_dim, p_dim, n_pre = bundle.pre_dims
+    att_name = fd.path_kernels(bundle.att_kind)[2]
+    agent = bundle.att_kind == "fwd_trans"
     x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"], seeds, 0)
     segs_att = (x, carry["context"], carry["h_att"])
     segs_gen = (carry["h_att"], carry["context"], carry["h_gen"])
@@ -607,8 +710,12 @@ def phase_timings(hp, syn, errs, launches):
                   zc, **gen_kw))
 
     def attend(f, **kw_row):
-        return f(carry["h_att"], carry["att_state"]["weights"], memory, mtb,
-                 mask_add, bundle, **kw_row)
+        state = carry["att_state"]
+        if att_name == "fwd_attention":
+            return f(carry["h_att"], state["weights"], state.get("t_prob"),
+                     memory, mtb, mask_add, x, bundle, **kw_row)
+        return f(carry["h_att"], state["weights"], memory, mtb, mask_add,
+                 bundle, **kw_row)
 
     calls = {   # (kernel call, plain call)
         "prenet": (lambda: fd.prenet(carry["frame"], bundle,
@@ -617,8 +724,8 @@ def phase_timings(hp, syn, errs, launches):
                                            kw["dropout_rate"], seeds, 0)),
         "gate_lstm": (lambda: gates(fd.gate_lstm, h_row=gen_row),
                       lambda: gates(fd.gate_lstm_plain)),
-        "lsa_attention": (lambda: attend(fd.lsa_attention, ctx_row=ctx_row),
-                          lambda: attend(fd.lsa_attention_plain)),
+        att_name: (lambda: attend(getattr(fd, att_name), ctx_row=ctx_row),
+                   lambda: attend(getattr(fd, att_name + "_plain"))),
         "head": (lambda: fd.head(carry["h_gen"], carry["context"], bundle,
                                  row=row),
                  lambda: fd.head_plain(carry["h_gen"], carry["context"],
@@ -644,6 +751,21 @@ def phase_timings(hp, syn, errs, launches):
                           2 * B * (hidden * a_dim + T_SYMBOLS * a_dim
                                    * (k_taps + 1) + T_SYMBOLS * m_dim),
                           "bf16"),
+        # h_att, the last weights, memory, mtb and mask read, Wq and v; the
+        # weights and the context written; with the transition agent, its
+        # t_prob in and out, the prenet output and its bf16 weights
+        "fwd_attention": (B * hidden * f32 + 2 * B * T_SYMBOLS * f32
+                          + B * T_SYMBOLS * (m_dim + a_dim) * bf
+                          + B * T_SYMBOLS * f32 + hidden * a_dim * bf
+                          + a_dim * f32 + B * m_dim * f32
+                          + (2 * B * f32 + B * p_dim * f32
+                             + (m_dim + hidden + p_dim) * bf + f32
+                             if agent else 0),
+                          2 * B * (hidden * a_dim + T_SYMBOLS * a_dim
+                                   + T_SYMBOLS * m_dim
+                                   + (m_dim + hidden + p_dim if agent
+                                      else 0)),
+                          "bf16"),
         # the bf16 head row, the weight, the bias, frame and stop out
         "head": (B * (hidden + m_dim) * bf + (hidden + m_dim) * n_head * bf
                  + n_head * f32 + B * n_head * f32,
@@ -662,13 +784,15 @@ def phase_timings(hp, syn, errs, launches):
 
     rows = []
     for name, (kernel, plain) in calls.items():
+        if only is not None and name not in only:
+            continue
         ms = device_ms(kernel, ours_only=True)
         plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops, kind = work[name]
         b_ms, b_by = bound_ms(n_bytes, ops, kind)
         rows.append({
-            "name": name, "route": "cuda",
+            "name": f"{name}[{_LABEL}]" if _LABEL else name, "route": "cuda",
             "source": "multilingual_text_to_speech_tpu_torch/csrc/"
                       "fused_decoder.cu",
             "replaces": "multilingual_text_to_speech_tpu/ops/"
@@ -696,7 +820,8 @@ def phase_timings(hp, syn, errs, launches):
     # a chunk reads its weights and attention operands once and writes its
     # frames once; its products run at the tensor cores' peaks, int8 gates
     # and bf16 rest one after the other
-    step_ops_s = sum(ops / PEAK_OPS[kind] for _, ops, kind in work.values())
+    step_ops_s = sum(ops / PEAK_OPS[kind] for name, (_, ops, kind)
+                     in work.items() if name in calls)
     chunk_bytes = ((k_att + k_gen) * 4 * hidden * bundle.att_w.element_size()
                    + B * T_SYMBOLS * (m_dim + a_dim) * bf
                    + B * CHUNK * n_head * f32)
@@ -854,7 +979,7 @@ def decoder_inputs(hp, model, batch, f: int):
                                       torch.bfloat16)
         ops = ftd.compute_operands(
             ftd.train_operands(model.decoder.cell, cfg), cfg)
-        mtb = (mt.float() + model.decoder.cell.attention.bias).to(
+        mtb = (mt.float() + model.decoder.cell.attention.energy_bias).to(
             torch.bfloat16)
     valid = torch.arange(t, device=dev)[None] < lengths[:, None]
     mask_add = torch.where(valid, 0.0, -1e9).float()
@@ -925,6 +1050,7 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
     dg = {w: (rnd(b, 4 * h, scale=0.01)).to(bf) for w in ("att", "gen")}
     dq = rnd(b, a, scale=0.1).to(bf)
     dcum, dx = rnd(b, t_len, scale=0.1), rnd(b, p, scale=0.1)
+    dtp = rnd(b, scale=0.5)
     dspec, dstop, dw = (x[s] for x in cts)
 
     def prenet(k):
@@ -952,9 +1078,17 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
         cc, ctx = cum.clone(), e(b, mem, dtype=f32)
         o = [e(b, t_len, dtype=f32), e(b, t_len)]
         dsts = (e(b, mem), e(b, mem), None)
-        k.train_attention(q, cc, memory, mtb, mask_add, ops["lc"], ops["v"],
-                          *o, ctx, dsts)
-        return [cc, ctx, *o, dsts[0]]
+        agent, extra = None, []
+        if cfg.agent:
+            # the step's own h_att and prenet output (their bf16 streams)
+            extra = [st["tp"][s - 1].clone(), e(b, dtype=f32)]
+            agent = ftd.AgentArgs(extra[0], extra[1],
+                                  st["gen_in"][s][:, :h].float(),
+                                  st["pre"][cfg.n_prenet - 1][s].float(),
+                                  ops["ta_w"], ops["ta_b"])
+        k.train_attention(q, cc, memory, mtb, mask_add, ops.get("lc"),
+                          ops["v"], *o, ctx, dsts, agent=agent)
+        return [cc, ctx, *o, dsts[0], *extra]
 
     def head(k):
         o = [e(b, m, dtype=f32), e(b, dtype=f32), e(b, m, dtype=f32)]
@@ -1030,23 +1164,34 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
 
     def att_bwd(k):
         acc = [torch.zeros(b, t_len, a, device=dev),
-               torch.zeros(b, cfg.taps, a, device=dev),
+               None if cfg.family else torch.zeros(b, cfg.taps, a, device=dev),
                torch.zeros(b, a, device=dev)]
         dcc = dcum.clone()
         o = [e(b, a), e(b, mem)]
-        k.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops["lc"],
-                  ops["v"], dctx, dw, dcc, *acc, *o)
-        return [dcc, *acc, *o]
+        fam, extra = None, []
+        if cfg.agent:
+            extra = [dtp.clone(), e(b, dtype=f32), dh.clone(),
+                     e(b, p, dtype=f32)]
+            fam = ftd.FamilyBwd(mask_add, st["tp"][s - 1], st["tp"][s],
+                                extra[0], extra[1], ops["ta_w"], extra[2],
+                                extra[3])
+        elif cfg.family:
+            fam = ftd.FamilyBwd(mask_add)
+        k.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops.get("lc"),
+                  ops["v"], dctx, dw, dcc, *acc, *o, fam=fam)
+        return [dcc, *[x for x in acc if x is not None], *o, *extra]
 
     def bwd_prenet(k):
         o = [e(cfg.n_prenet, b, p), e(b, m), e(b, m, dtype=f32)]
         k.bwd_prenet(dx, st["pre"][:, s], ops, cfg, teacher[s], *o)
         return o
 
+    # the forward family's attention kernels are their "_fwd" variants
+    fwd = "_fwd" if cfg.family else ""
     return {"train_prenet": prenet, "train_gate_lstm": gates,
-            "train_query": query, "train_attention": attention,
+            "train_query": query, "train_attention" + fwd: attention,
             "train_head": head, "bwd_head": bwd_head, "bwd_cell": bwd_cell,
-            "bwd_gemm": bwd_gemm, "att_bwd": att_bwd,
+            "bwd_gemm": bwd_gemm, "att_bwd" + fwd: att_bwd,
             "bwd_prenet": bwd_prenet}, unfused
 
 
@@ -1068,9 +1213,11 @@ def bwd_prenet_reference(ftd, ops, cfg, teacher: int, got, ref):
             zero if teacher else d_in]
 
 
-def phase_train_kernels(hp, sd):
-    """K2 and K3 kernels against their plain versions at B=50, T=128, bf16.
-    Returns ({kernel: max_abs_err}, the inputs the timings reuse)."""
+def phase_train_kernels(hp, sd, only=None):
+    """K2 and K3 kernels (of ``only``, when given, alone; the chained
+    steps and the autograd check run every kernel) against their plain
+    versions at B=50, T=128, bf16.  Returns ({kernel: max_abs_err}, the
+    inputs the timings reuse)."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.ops import (
@@ -1112,6 +1259,8 @@ def phase_train_kernels(hp, sd):
     calls, unfused = train_kernel_calls(ftd, cfg, ops, memory, mtb,
                                         mask_add, shifted, st_p, teacher,
                                         seeds, cts, CHECK_STEPS // 2)
+    if only is not None:
+        calls = {k: v for k, v in calls.items() if k in only}
     errs = {}
     for name, run in calls.items():
         got, ref = run(ftd.KERNELS), run(ftd.PLAIN)
@@ -1143,7 +1292,10 @@ def phase_train_kernels(hp, sd):
     # clusters' partials in rank order, and train_prenet's CTAs exchange
     # whole bf16 rows: a second run repeats the first bit for bit
     for name in ("train_prenet", "bwd_gemm", "bwd_head", "bwd_cell",
-                 "train_attention", "att_bwd", "bwd_prenet"):
+                 "train_attention", "att_bwd", "train_attention_fwd",
+                 "att_bwd_fwd", "bwd_prenet"):
+        if name not in calls:
+            continue
         first, again = (calls[name](ftd.KERNELS) for _ in range(2))
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
@@ -1156,9 +1308,18 @@ def phase_train_kernels(hp, sd):
         worst[f"forward {k}"] = rel(st_k[k], st_p[k])
     for k in carry_p:
         worst[f"forward carry {k}"] = rel(carry_k[k], carry_p[k])
+    if cfg.family:
+        # every step's alignment a distribution
+        off = float((st_k["w"].sum(-1) - 1.0).abs().max())
+        if off > SUM_TOL:
+            fail(f"{CHECK_STEPS} chained steps: a step's weights sum to 1 "
+                 f"within {off} only")
+        say(f"[train:kernels] {CHECK_STEPS} chained steps: every step's "
+            f"weights sum to 1 within {off:.3g} (bound {SUM_TOL})")
     bargs = (ops, cfg, memory, mtb, st_p, teacher, seeds, *cts)
-    g_k, s_k, c_k = ftd.train_decode_backward(*bargs)
-    g_p, s_p, c_p = ftd.train_decode_backward(*bargs, plain=True)
+    g_k, s_k, c_k = ftd.train_decode_backward(*bargs, mask_add=mask_add)
+    g_p, s_p, c_p = ftd.train_decode_backward(*bargs, plain=True,
+                                              mask_add=mask_add)
     torch.cuda.synchronize()
     for group, (gk, gp) in {"grad": (g_k, g_p), "stream": (s_k, s_p),
                             "cotangent carry": (c_k, c_p)}.items():
@@ -1211,8 +1372,9 @@ def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
               for k, v in ftd.train_operands(model.decoder.cell, cfg).items()}
     mem, mt, sh = (x.detach().float().requires_grad_()
                    for x in (memory, mtb, shifted))
-    names = ["memory", "mtb", "shifted", *ftd.OPERAND_KEYS]
-    inputs = [mem, mt, sh] + [leaves[k] for k in ftd.OPERAND_KEYS]
+    keys = ftd.operand_keys(cfg)
+    names = ["memory", "mtb", "shifted", *keys]
+    inputs = [mem, mt, sh] + [leaves[k] for k in keys]
 
     def run(outs):
         loss = sum((o.float() * c).sum() for o, c in zip(outs, cts))
@@ -1221,7 +1383,7 @@ def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
 
     out_k, g_k = run(ftd.TrainDecode.apply(
         cfg, tuple(teacher), tuple(seeds), mem, mt, mask_add, sh,
-        *[leaves[k] for k in ftd.OPERAND_KEYS]))
+        *[leaves[k] for k in keys]))
     d = cfg.dtype
     out_p, g_p = run(ftd.train_decode_forward_plain(
         ftd.compute_operands(leaves, cfg), cfg, mem.to(d), mt.to(d),
@@ -1288,9 +1450,13 @@ def phase_train_main(hp, sd, timed: int = 3):
     launches = dict(ftd.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    missing = [k for k in ftd.LAUNCHES if launches[k] == 0]
-    if missing:
-        fail(f"training kernels never launched on the main path: {missing}")
+    k2, k3 = ftd.path_kernels(ftd.TrainConfig.from_hp(
+        hp, model.decoder.memory_dim, torch.bfloat16).att_kind)
+    missing = [k for k in k2 + k3 if launches[k] == 0]
+    stray = [k for k in launches if k not in k2 + k3 and launches[k]]
+    if missing or stray:
+        fail(f"training kernels of the main path never launched: {missing};"
+             f" kernels of another path launched: {stray}")
     for i, r in enumerate(results):
         vals = {k: float(v) for k, v in r.losses.items()}
         if not all(np.isfinite(v) for v in vals.values()) or not np.isfinite(
@@ -1476,11 +1642,12 @@ def phase_train_eval(hp, sd) -> None:
             valid[i, :int(n)] = True
         got[dev] = {k: o[k].detach().float().cpu() for k in keys}
         got[dev]["stop_token"] = o["stop_token"][valid].detach().float().cpu()
-    missing = [k for k in ftd.K2_KERNELS if launches[k] == 0]
-    stray = [k for k in ftd.K3_KERNELS if launches[k] != 0]
+    k2, _ = ftd.path_kernels(cfg.att_kind)
+    missing = [k for k in k2 if launches[k] == 0]
+    stray = [k for k in launches if k not in k2 and launches[k] != 0]
     if missing or stray:
         fail(f"eval forward on the card: K2 kernels never launched {missing},"
-             f" K3 kernels launched {stray}")
+             f" other kernels launched {stray}")
     checks = {k: rel(got["cuda"][k], got["cpu"][k]) for k in got["cpu"]}
     name, top = max(checks.items(), key=lambda kv: kv[1])
     if top > TRAIN_E2E_TOL:
@@ -1490,7 +1657,7 @@ def phase_train_eval(hp, sd) -> None:
           f"{top:.3g} ({name}; bound {TRAIN_E2E_TOL}); " + ", ".join(
               f"{k} {v:.3g}" for k, v in checks.items()))
     say(f"[train:eval] launches of the eval forward (32 steps): "
-          f"{ {k: launches[k] for k in ftd.K2_KERNELS} }; K3 none")
+          f"{ {k: launches[k] for k in k2} }; K3 none")
 
 
 def train_work(cfg, b, t_len):
@@ -1545,6 +1712,25 @@ def train_work(cfg, b, t_len):
                     2 * b * t_len * (3 * a * k + mem + 4 * a)),
         "bwd_prenet": (b * p * f32 + n * b * p * bf + pre_w * bf
                        + n * b * p * bf + b * m * (bf + f32), 2 * b * pre_w),
+        # the forward family's: no location conv; with the transition
+        # agent, its t_prob, h_att, prenet output and weights
+        "train_attention_fwd": (
+            b * a * f32 + 2 * b * t_len * f32 + b * t_len * (mem + a) * bf
+            + b * t_len * f32 + a * f32 + b * t_len * (f32 + bf)
+            + b * mem * (f32 + 3 * bf)
+            + (3 * b * f32 + b * (h + p) * f32 + (mem + h + p + 1) * f32
+               if cfg.agent else 0),
+            2 * b * t_len * (a + mem) + (2 * b * (mem + h + p)
+                                         if cfg.agent else 0)),
+        "att_bwd_fwd": (
+            b * a * f32 + b * t_len * (bf + f32) + b * t_len * (mem + a) * bf
+            + b * t_len * f32 + a * f32 + b * mem * f32 + b * t_len * f32
+            + 2 * b * t_len * f32 + 2 * b * t_len * a * f32
+            + 2 * b * a * f32 + b * a * bf + b * mem * bf
+            + (5 * b * f32 + (mem + h + p) * f32 + 2 * b * h * f32
+               + b * p * f32 if cfg.agent else 0),
+            2 * b * t_len * (mem + 3 * a) + (2 * b * (mem + h + p)
+                                             if cfg.agent else 0)),
     }
 
 
@@ -1580,9 +1766,10 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
                              torch.mm(dg, ops["att_w"])),
     }
     work = train_work(cfg, b, TRAIN_T)
+    k2, _ = ftd.path_kernels(cfg.att_kind)
     rows_ms = {}
-    alone = {k: device_ms(lambda r=run: r(ftd.KERNELS), ours_only=True)
-             for k, run in unfused.items()}
+    alone = ({k: device_ms(lambda r=run: r(ftd.KERNELS), ours_only=True)
+              for k, run in unfused.items()} if "bwd_cell" in calls else {})
     rows = []
     for name, run in calls.items():
         if name == "bwd_cell":
@@ -1605,8 +1792,9 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
         n_bytes, ops_n = work[name]
         b_ms, b_by = bound_ms(n_bytes, ops_n, "bf16")
         rows.append({
-            "name": name, "route": "cuda", "source": TRAIN_SOURCE,
-            "replaces": REPLACES["K2" if name in ftd.K2_KERNELS else "K3"],
+            "name": f"{name}[{_LABEL}]" if _LABEL else name, "route": "cuda",
+            "source": TRAIN_SOURCE,
+            "replaces": REPLACES["K2" if name in k2 else "K3"],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
@@ -1683,6 +1871,20 @@ def main() -> int:
             if name == "shared":
                 phase_timings(hp_s, syn_s, errs_s, launches_s)
             del syn_s
+    # the forward family: K1's fwd_attention against plain (W8A8 and bf16
+    # gates), synthesis through it, and its time; the card against the CPU
+    # plain path at the transition agent
+    for kind, label in FAMILY.items():
+        with labelled(label):
+            hp_f = flagship(FAMILY_FRAMES, CHUNK, kind)
+            sd_f = seeded_state_dict(hp_f)
+            errs_f = phase_kernels(hp_f, sd_f)
+            syn_f, launches_f, _ = phase_main(
+                hp_f, sd_f, flagship(32, 16, kind) if label == "fwd_trans"
+                else None)
+            rows += phase_timings(hp_f, syn_f, errs_f, launches_f,
+                                  only=("fwd_attention",))
+            del syn_f
     torch.set_grad_enabled(True)
     train_errs, train_inputs = phase_train_kernels(hp, sd)
     t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
@@ -1706,6 +1908,23 @@ def main() -> int:
                                     main_s)
                 del inputs_s
             del main_s
+    # the forward family's K2/K3 variants against plain, training steps
+    # through them, and their times; the card against the CPU (a train
+    # step and the eval forward) at the transition agent
+    for kind, label in FAMILY.items():
+        with labelled(label):
+            hp_f = flagship(FAMILY_FRAMES, CHUNK, kind)
+            sd_f = seeded_state_dict(hp_f)
+            errs_f, inputs_f = phase_train_kernels(
+                hp_f, sd_f, only=FAMILY_TRAIN_KERNELS)
+            l_f, per_f, _, main_f = phase_train_main(
+                hp_f, sd_f, timed=2 if label == "fwd_trans" else 1)
+            if label == "fwd_trans":
+                phase_train_vs_cpu(hp_f, sd_f)
+                phase_train_eval(hp_f, sd_f)
+            rows += phase_train_timings(hp_f, errs_f, l_f, per_f, inputs_f,
+                                        main_f)
+            del main_f, inputs_f
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -221,9 +221,40 @@ struct EvalLstm {
 //    every chunk is aligned when T * Mem is), each thread one fixed chunk
 //    column, `groups` threads down the periods; the groups' partial sums
 //    are added in a fixed order.
+//
+// fwd_attention, the same kernel at KIND ATT_FWD or ATT_FWD_TRANS: the
+// forward family's step (ops/pallas_decoder.py:573-643), which has no
+// location conv:
+//   e[t] = sum_a v[a] bf16(tanh(bf16(q + mtb)))       (no mask)
+//   energy = softmax(e) over the row's T positions
+//   comb = prev + bf16(prev[t-1])    or, with the transition agent,
+//   comb = (1 - tp) prev + tp bf16(prev[t-1])     (prev[-1] = 0)
+//   w = mask ? comb * energy : 0; w = max(w, 1e-6); w /= sum_t w
+//   the state out is w (not cum + w); the context as above; and with the
+//   agent tp' = sigmoid(sum bf16(ctx) wc + sum bf16(h_att) wq
+//                       + sum bf16(x) wx + b)
+// for x the prenet output of the same step.  The 1e-6 floor and the
+// softmax run over the row's T positions only: the kernel's own padding
+// (tpad) takes part in neither, as the TPU kernel leaves its padding past
+// t_in out (pallas_decoder.py:602-604, :620-622).  Steps 1 and 4 are
+// lsa_attention's; the shift reads prev[t-1] beside prev[t].  Bound on the
+// H100: the bytes of memory and mtb a row reads, as lsa_attention's (8.3 us
+// at B=240, T=128); without the band product it does strictly less work.
 // ---------------------------------------------------------------------------
 constexpr int LSA_THREADS = 256, LSA_WARPS = LSA_THREADS / 32;
 constexpr int LSA_ROWS = 8;   // CTAs (batch rows) a cluster
+
+// the forward family's extra operands (all null for location-sensitive)
+struct FwdArgs {
+  const float* tp_in;    // [B] the transition probability of the last step
+  float* tp_out;         // [B]
+  const float* x;        // [B, P] float32 prenet output of this step
+  const __nv_bfloat16* wc;   // [Mem] the agent's weights, bf16
+  const __nv_bfloat16* wq;   // [H]
+  const __nv_bfloat16* wx;   // [P]
+  const float* bias;     // [1]
+  int P;
+};
 
 // shared-memory layout of lsa_attention_kernel (byte offsets)
 struct LsaLayout {
@@ -250,6 +281,7 @@ struct LsaLayout {
   }
 };
 
+template <int KIND>
 __global__ void __launch_bounds__(LSA_THREADS)
 lsa_attention_kernel(const float* __restrict__ h_att,
                      const float* __restrict__ cum,
@@ -261,7 +293,7 @@ lsa_attention_kernel(const float* __restrict__ h_att,
                      const float* __restrict__ v, float* __restrict__ ctx_out,
                      float* __restrict__ cum_out,
                      __nv_bfloat16* __restrict__ ctx_row, int ld_row, int B,
-                     int T, int H, int A, int M, int K, int vec) {
+                     int T, int H, int A, int M, int K, int vec, FwdArgs fa) {
   extern __shared__ __align__(16) uint8_t lsa_smem[];
   const LsaLayout L(T, H, A, M);
   bf16* s_wq = reinterpret_cast<bf16*>(lsa_smem + L.wq);     // [kq][ld]
@@ -298,7 +330,7 @@ lsa_attention_kernel(const float* __restrict__ h_att,
     s_h[r * L.ldh + k] = __float2bfloat16_rn(
         row < B && kk < H ? h_att[(size_t)row * H + kk] : 0.0f);
   }
-  if (live) {
+  if (KIND == ATT_LS && live) {
     band_stage_lc(s_lc, L.ld, lc, K, A);
     band_stage_cum(s_cum, L.tpad + BAND_K, cum + (size_t)b * T, 0, half, T);
   }
@@ -339,7 +371,7 @@ lsa_attention_kernel(const float* __restrict__ h_att,
     // 2. energies, one warp per 16 positions
     for (int t0 = warp * 16; t0 < L.tpad; t0 += LSA_WARPS * 16) {
       uint32_t af[2][4];
-      band_frags(af, s_cum + t0, lane);
+      if (KIND == ATT_LS) band_frags(af, s_cum + t0, lane);
       const int ta = t0 + g, tb = ta + 8;
       float e0 = 0.0f, e1 = 0.0f;
 #pragma unroll 4
@@ -354,27 +386,37 @@ lsa_attention_kernel(const float* __restrict__ h_att,
             tb < T ? *reinterpret_cast<const __nv_bfloat162*>(
                          mtb_b + (size_t)tb * A + a)
                    : zero2;
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        band_loc(acc, af, s_lc, L.ld, n0, lane);
         const float q0 = s_q[a], q1 = s_q[a + 1];
         const float v0 = s_v[a], v1 = s_v[a + 1];
-        e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
-        e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
-        e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
-        e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
+        if (KIND == ATT_LS) {
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          band_loc(acc, af, s_lc, L.ld, n0, lane);
+          e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
+          e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
+          e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
+          e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
+        } else {
+          e0 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m0)), e0);
+          e0 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m0)), e0);
+          e1 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m1)), e1);
+          e1 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m1)), e1);
+        }
       }
       e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
       e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
       e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
       e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
       if (qd == 0) {
-        if (ta < T) s_e[ta] = e0 + mask_add[(size_t)b * T + ta];
-        if (tb < T) s_e[tb] = e1 + mask_add[(size_t)b * T + tb];
+        // the forward family's softmax is unmasked
+        const float* mk = mask_add + (size_t)b * T;
+        if (ta < T) s_e[ta] = KIND == ATT_LS ? e0 + mk[ta] : e0;
+        if (tb < T) s_e[tb] = KIND == ATT_LS ? e1 + mk[tb] : e1;
       }
     }
     __syncthreads();
 
-    // 3. masked softmax, cum update; s_e <- bf16(w)
+    // 3. softmax; ls: cum' = cum + w; the forward family: the recurrence,
+    // the mask, the floor and the renorm, state w.  s_e <- bf16(w)
     float mx = -CUDART_INF_F;
     for (int t = tid; t < T; t += LSA_THREADS) mx = fmaxf(mx, s_e[t]);
     mx = block_reduce<true>(mx, s_red);
@@ -385,21 +427,60 @@ lsa_attention_kernel(const float* __restrict__ h_att,
       sum += p;
     }
     sum = block_reduce<false>(sum, s_red);
-    for (int t = tid; t < T; t += LSA_THREADS) {
-      const float wt = s_e[t] / sum;
-      cum_out[(size_t)b * T + t] = cum[(size_t)b * T + t] + wt;
-      s_e[t] = round_bf16(wt);
+    const float* cum_b = cum + (size_t)b * T;
+    if (KIND == ATT_LS) {
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float wt = s_e[t] / sum;
+        cum_out[(size_t)b * T + t] = cum_b[t] + wt;
+        s_e[t] = round_bf16(wt);
+      }
+    } else {
+      const float tp = KIND == ATT_FWD_TRANS ? fa.tp_in[b] : 0.0f;
+      float wsum = 0.0f;
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float energy = s_e[t] / sum;
+        const float prev = cum_b[t];
+        const float sh = t > 0 ? round_bf16(cum_b[t - 1]) : 0.0f;
+        const float comb = KIND == ATT_FWD_TRANS
+                               ? (1.0f - tp) * prev + tp * sh
+                               : prev + sh;
+        float wt = mask_add[(size_t)b * T + t] > -0.5f ? comb * energy : 0.0f;
+        wt = fmaxf(wt, 1e-6f);
+        s_e[t] = wt;
+        wsum += wt;
+      }
+      wsum = block_reduce<false>(wsum, s_red);
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float wt = s_e[t] / wsum;
+        cum_out[(size_t)b * T + t] = wt;
+        s_e[t] = round_bf16(wt);
+      }
     }
     __syncthreads();
 
-    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column)
+    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column); the agent's
+    // context term on the way
     ctx_partials(L.cs, s_cpart, mem_b, s_e, T, M, vec, LSA_THREADS);
     __syncthreads();
+    float lin = 0.0f;
     for (int m = tid; m < M; m += LSA_THREADS) {
       const float acc = ctx_column(L.cs, s_cpart, M, m);
       ctx_out[(size_t)b * M + m] = acc;
       if (ctx_row != nullptr)
         ctx_row[(size_t)b * ld_row + m] = __float2bfloat16_rn(acc);
+      if (KIND == ATT_FWD_TRANS)
+        lin = fmaf(round_bf16(acc), __bfloat162float(fa.wc[m]), lin);
+    }
+    if (KIND == ATT_FWD_TRANS) {
+      // 5. the transition agent over [bf16(ctx) | bf16(h_att) | bf16(x)]
+      for (int k = tid; k < H; k += LSA_THREADS)
+        lin = fmaf(round_bf16(h_att[(size_t)b * H + k]),
+                   __bfloat162float(fa.wq[k]), lin);
+      for (int p = tid; p < fa.P; p += LSA_THREADS)
+        lin = fmaf(round_bf16(fa.x[(size_t)b * fa.P + p]),
+                   __bfloat162float(fa.wx[p]), lin);
+      lin = block_reduce<false>(lin, s_red);
+      if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + fa.bias[0])));
     }
   }
   cluster_wait();
@@ -508,13 +589,50 @@ int lsa_attention_launch(const void* h_att, const void* cum,
   const int vec = (uintptr_t)memory % 16 == 0 && ((long long)T * M) % 8 == 0;
   const int grid = (B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS;
   return (int)launch_cluster(
-      lsa_attention_kernel, grid, LSA_THREADS, L.total, LSA_ROWS,
+      lsa_attention_kernel<ATT_LS>, grid, LSA_THREADS, L.total, LSA_ROWS,
       (cudaStream_t)stream, (const float*)h_att, (const float*)cum,
       (const __nv_bfloat16*)memory, (const __nv_bfloat16*)mtb,
       (const float*)mask_add, (const __nv_bfloat16*)wq,
       (const __nv_bfloat16*)lc, (const float*)v, (float*)ctx_out,
       (float*)cum_out, (__nv_bfloat16*)ctx_row, ld_row, B, T, H, A, M, K,
-      vec);
+      vec, FwdArgs{});
+}
+
+// the forward family's step: prev [B, T] the last step's weights, w_out
+// the new ones (not in place); with the transition agent (trans = 1) tp_in
+// and tp_out [B] (not in place), x [B, P] the prenet output, the agent's
+// bf16 weight parts wc [Mem], wq_t [H], wx [P] and its bias [1].  ctx_row
+// and the alignments as lsa_attention_launch's.
+int fwd_attention_launch(const void* h_att, const void* prev,
+                         const void* tp_in, const void* memory,
+                         const void* mtb, const void* mask_add,
+                         const void* x, const void* wq, const void* v,
+                         const void* wc, const void* wq_t, const void* wx,
+                         const void* bias, void* ctx_out, void* w_out,
+                         void* tp_out, void* ctx_row, int ld_row, int B,
+                         int T, int H, int A, int M, int P, int trans,
+                         void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || M <= 0 || A <= 0 || A % 8 != 0 ||
+      (uintptr_t)wq % 16 != 0 || (uintptr_t)mtb % 4 != 0 ||
+      (trans && (P <= 0 || tp_in == nullptr || tp_out == nullptr ||
+                 x == nullptr || wc == nullptr || wq_t == nullptr ||
+                 wx == nullptr || bias == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const LsaLayout L(T, H, A, M);
+  const int vec = (uintptr_t)memory % 16 == 0 && ((long long)T * M) % 8 == 0;
+  const int grid = (B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS;
+  const FwdArgs fa{(const float*)tp_in, (float*)tp_out, (const float*)x,
+                   (const __nv_bfloat16*)wc, (const __nv_bfloat16*)wq_t,
+                   (const __nv_bfloat16*)wx, (const float*)bias, P};
+  return (int)launch_cluster(
+      trans ? &lsa_attention_kernel<ATT_FWD_TRANS>
+            : &lsa_attention_kernel<ATT_FWD>,
+      grid, LSA_THREADS, L.total, LSA_ROWS, (cudaStream_t)stream,
+      (const float*)h_att, (const float*)prev, (const __nv_bfloat16*)memory,
+      (const __nv_bfloat16*)mtb, (const float*)mask_add,
+      (const __nv_bfloat16*)wq, (const __nv_bfloat16*)nullptr,
+      (const float*)v, (float*)ctx_out, (float*)w_out,
+      (__nv_bfloat16*)ctx_row, ld_row, B, T, H, A, M, 1, vec, fa);
 }
 
 // the head row [B, K] (bf16 rows of ld_row) against the head weight [N, K]

@@ -191,7 +191,9 @@ struct TrainPrenetOut {
   bf16* pre_out;         // [n_layers] x [B, P] at pre_stride, or null
   long long pre_stride;
   bf16* dst;             // [B, P] rows of ld_dst
-  int ld_dst, in_dim, P, n_layers;
+  int ld_dst;
+  float* x_out;          // [B, P] float32 copy of the output, or null
+  int in_dim, P, n_layers;
   __device__ __forceinline__ void raw(int row, int k, bf16 v) const {
     if (raw_out != nullptr) raw_out[(size_t)row * in_dim + k] = v;
   }
@@ -200,7 +202,10 @@ struct TrainPrenetOut {
     const bf16 yb = __float2bfloat16_rn(y);
     if (pre_out != nullptr)
       pre_out[layer * pre_stride + (size_t)row * P + col] = yb;
-    if (layer == n_layers - 1) dst[(size_t)row * ld_dst + col] = yb;
+    if (layer == n_layers - 1) {
+      dst[(size_t)row * ld_dst + col] = yb;
+      if (x_out != nullptr) x_out[(size_t)row * P + col] = y;
+    }
   }
 };
 
@@ -236,8 +241,35 @@ struct TrainPrenetOut {
 // wait on each dependent load in turn, so T=128 runs 8 CTAs of 16
 // positions a row (400 CTAs at B=50), each with all its loads in flight at
 // once and three cluster barriers.
+//
+// The forward family (KIND ATT_FWD, ATT_FWD_TRANS;
+// ops/pallas_train_decoder.py:483-539) runs the same kernel without the
+// location conv: e[t] = sum_a v[a] bf16(tanh(bf16(q + mtb))), unmasked;
+// energy = softmax(e); comb = prev + bf16(prev[t-1]), or (1 - tp) prev +
+// tp bf16(prev[t-1]) with the transition agent, prev the float32 carry
+// (the last step's weights; the tile's first position reads its
+// neighbour's last as a halo before any CTA writes); w = mask ? comb *
+// energy : 0, floored at 1e-6, over its sum (a fourth exchange of tile
+// sums); the carry receives w itself.  With the agent, the step's tp' =
+// sigmoid(ctx . wc + h_att . wq + x . wx + b) in float32, each CTA a share
+// of the three dot products, summed in rank order by rank 0 after a
+// further barrier: into the tp carry (in place: every CTA read it before
+// the first barrier) and the tp stream.  Bound: the same bytes as the
+// location-sensitive step's (1.7 us at B=50, T=128), less work.
 // ---------------------------------------------------------------------------
 constexpr int TA_THREADS = 256, TA_WARPS = TA_THREADS / 32;
+
+// the transition agent's operands of train_attention (the forward family
+// with the agent only)
+struct TaAgent {
+  float* tp;             // [B] the t_prob carry, in place
+  float* tp_out;         // [B] the t_prob stream, or null
+  const float* h_att;    // [B, H] float32
+  const float* x;        // [B, P] float32 prenet output
+  const float* w;        // [Mem + H + P] float32
+  const float* bias;     // [1]
+  int H, P;
+};
 
 // shared-memory layout of train_attention_kernel (byte offsets)
 struct TaLayout {
@@ -260,13 +292,14 @@ struct TaLayout {
     mask = cumf + align16((size_t)tile * 4);
     cum = mask + align16((size_t)tile * 4);
     stat = cum + align16((size_t)(tile + BAND_K) * 2);
-    red = stat + 16;
+    red = stat + 32;
     ctxp = red + 32 * 4;
     cpart = ctxp + align16((size_t)Mem * 4);
     total = cpart + align16(cs.scratch_floats(Mem) * 4);
   }
 };
 
+template <int KIND>
 __global__ void __launch_bounds__(TA_THREADS)
 train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
                        const bf16* __restrict__ memory,
@@ -278,7 +311,7 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
                        bf16* __restrict__ dst0, int ld0,
                        bf16* __restrict__ dst1, int ld1,
                        bf16* __restrict__ dst2, int ld2, int T, int A, int Mem,
-                       int K, int tile, int cl, int vec) {
+                       int K, int tile, int cl, int vec, TaAgent ag) {
   extern __shared__ __align__(16) uint8_t ta_smem[];
   const TaLayout L(tile, A, Mem);
   const int ld = L.ld, ldm = L.ldm;
@@ -292,7 +325,10 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   float* s_cumf = reinterpret_cast<float*>(ta_smem + L.cumf);  // [tile]
   float* s_mask = reinterpret_cast<float*>(ta_smem + L.mask);  // [tile]
   bf16* s_cum = reinterpret_cast<bf16*>(ta_smem + L.cum);      // [tile + 32]
-  float* s_stat = reinterpret_cast<float*>(ta_smem + L.stat);  // [4]
+  // [0] max, [1] sum, [2] the row's max, [3] the row's sum; the forward
+  // family: [4] the renorm's tile sum, [5] the row's, [6] the agent's
+  // partial, [7] the halo prev[t_lo - 1]
+  float* s_stat = reinterpret_cast<float*>(ta_smem + L.stat);  // [8]
   float* s_red = reinterpret_cast<float*>(ta_smem + L.red);    // [32]
   float* s_ctxp = reinterpret_cast<float*>(ta_smem + L.ctxp);  // [Mem]
   float* s_cpart = reinterpret_cast<float*>(ta_smem + L.cpart);
@@ -307,7 +343,7 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   // every read of device memory is issued here, so that their latencies
   // overlap: lc and the tile's mtb rows (cp.async group 0), the tile's
   // memory rows (group 1, when 16-byte aligned), then q, v, cum and the mask
-  band_copy_lc(s_lc, ld, lc, K, A);
+  if (KIND == ATT_LS) band_copy_lc(s_lc, ld, lc, K, A);
   const int a_chunks = A / 8;
   for (int i = tid; i < tile * a_chunks; i += TA_THREADS) {
     const int r = i / a_chunks, c = (i - r * a_chunks) * 8;
@@ -333,7 +369,12 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     s_cumf[i] = cum[rowT + t_lo + i];
     s_mask[i] = mask_add[rowT + t_lo + i];
   }
-  band_stage_cum(s_cum, tile + BAND_K, cum + rowT, t_lo, half, T);
+  if (KIND == ATT_LS) {
+    band_stage_cum(s_cum, tile + BAND_K, cum + rowT, t_lo, half, T);
+  } else if (tid == 0) {
+    s_stat[7] = t_lo > 0 ? cum[rowT + t_lo - 1] : 0.0f;
+  }
+  const float tp_prev = KIND == ATT_FWD_TRANS ? ag.tp[b] : 0.0f;
   cp_async_wait<1>();
   __syncthreads();
 
@@ -341,7 +382,7 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   // groups) down the tile's 16-row mma tiles; each warp's partial of e
   for (int mt = 0; mt < tile / 16; ++mt) {
     uint32_t af[2][4];
-    band_frags(af, s_cum + mt * 16, lane);
+    if (KIND == ATT_LS) band_frags(af, s_cum + mt * 16, lane);
     const int ra = mt * 16 + g, rb = ra + 8;   // rows past T read zeros
     float e0 = 0.0f, e1 = 0.0f;
     for (int n0 = warp * 16; n0 < A; n0 += TA_WARPS * 16) {
@@ -352,14 +393,21 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
             *reinterpret_cast<const __nv_bfloat162*>(s_mtb + ra * ldm + a);
         const __nv_bfloat162 m1 =
             *reinterpret_cast<const __nv_bfloat162*>(s_mtb + rb * ldm + a);
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        band_loc(acc, af, s_lc, ld, c0, lane);
         const float q0 = s_q[a], q1 = s_q[a + 1];
         const float v0 = s_v[a], v1 = s_v[a + 1];
-        e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
-        e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
-        e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
-        e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
+        if (KIND == ATT_LS) {
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          band_loc(acc, af, s_lc, ld, c0, lane);
+          e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
+          e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
+          e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
+          e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
+        } else {
+          e0 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m0)), e0);
+          e0 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m0)), e0);
+          e1 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m1)), e1);
+          e1 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m1)), e1);
+        }
       }
     }
     e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
@@ -375,12 +423,13 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   for (int i = tid; i < rows; i += TA_THREADS) {
     float e = 0.0f;
     for (int w = 0; w < TA_WARPS; ++w) e += s_ep[w * tile + i];
-    s_e[i] = e + s_mask[i];
+    // the forward family's softmax is unmasked
+    s_e[i] = KIND == ATT_LS ? e + s_mask[i] : e;
   }
   __syncthreads();
 
-  // 2. the row's masked softmax: tile maxima, then tile sums, each combined
-  // in rank order by every CTA
+  // 2. the row's masked softmax (unmasked for the forward family): tile
+  // maxima, then tile sums, each combined in rank order by every CTA
   float mx = -CUDART_INF_F;
   for (int i = tid; i < rows; i += TA_THREADS) mx = fmaxf(mx, s_e[i]);
   mx = block_reduce<true>(mx, s_red);
@@ -409,13 +458,38 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   }
   __syncthreads();
   sum = s_stat[3];
+  if (KIND != ATT_LS) {
+    // the recurrence, the mask and the floor; then the row's sum
+    float wsum = 0.0f;
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      const float energy = s_e[i] / sum;
+      const float prev = s_cumf[i];
+      const float sh = round_bf16(i > 0 ? s_cumf[i - 1] : s_stat[7]);
+      const float comb = KIND == ATT_FWD_TRANS
+                             ? (1.0f - tp_prev) * prev + tp_prev * sh
+                             : prev + sh;
+      const float wt = fmaxf(s_mask[i] > -0.5f ? comb * energy : 0.0f, 1e-6f);
+      s_e[i] = wt;
+      wsum += wt;
+    }
+    wsum = block_reduce<false>(wsum, s_red);
+    if (tid == 0) s_stat[4] = wsum;
+    cluster_sync();
+    if (tid == 0) {
+      float s = 0.0f;
+      for (int j = 0; j < cl; ++j) s += cluster_peer(s_stat, j)[4];
+      s_stat[5] = s;
+    }
+    __syncthreads();
+    sum = s_stat[5];
+  }
   for (int i = tid; i < rows; i += TA_THREADS) {
     const size_t o = rowT + t_lo + i;
     const float wt = s_e[i] / sum;
     w_out[o] = wt;
     const float c_old = s_cumf[i];
     if (cum_out != nullptr) cum_out[o] = __float2bfloat16_rn(c_old);
-    cum[o] = c_old + wt;
+    cum[o] = KIND == ATT_LS ? c_old + wt : wt;
     s_e[i] = round_bf16(wt);
   }
   __syncthreads();
@@ -432,6 +506,7 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     s_ctxp[m] = ctx_column(L.cs, s_cpart, Mem, m);
   cluster_sync();
   const int share = (Mem + cl - 1) / cl, m_hi = min(Mem, (rank + 1) * share);
+  float lin = 0.0f;
   for (int m = rank * share + tid; m < m_hi; m += TA_THREADS) {
     float acc = 0.0f;
     for (int j = 0; j < cl; ++j) acc += cluster_peer(s_ctxp, j)[m];
@@ -440,6 +515,30 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     dst0[(size_t)b * ld0 + m] = cb;
     dst1[(size_t)b * ld1 + m] = cb;
     if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
+    if (KIND == ATT_FWD_TRANS) lin = fmaf(acc, ag.w[m], lin);
+  }
+  if (KIND == ATT_FWD_TRANS) {
+    // 4. the transition agent: this CTA's shares of the h_att and x dot
+    // products beside its context columns, the partials in rank order
+    const float* wq = ag.w + Mem;
+    const float* wx = wq + ag.H;
+    const int sh_h = (ag.H + cl - 1) / cl, sh_p = (ag.P + cl - 1) / cl;
+    for (int k = rank * sh_h + tid; k < min(ag.H, (rank + 1) * sh_h);
+         k += TA_THREADS)
+      lin = fmaf(ag.h_att[(size_t)b * ag.H + k], wq[k], lin);
+    for (int k = rank * sh_p + tid; k < min(ag.P, (rank + 1) * sh_p);
+         k += TA_THREADS)
+      lin = fmaf(ag.x[(size_t)b * ag.P + k], wx[k], lin);
+    lin = block_reduce<false>(lin, s_red);
+    if (tid == 0) s_stat[6] = lin;
+    cluster_sync();
+    if (rank == 0 && tid == 0) {
+      float z = ag.bias[0];
+      for (int j = 0; j < cl; ++j) z += cluster_peer(s_stat, j)[6];
+      const float tp = 1.0f / (1.0f + expf(-z));
+      ag.tp[b] = tp;
+      if (ag.tp_out != nullptr) ag.tp_out[b] = tp;
+    }
   }
   // no CTA leaves while its peers may still read its shared memory
   cluster_sync();
@@ -789,20 +888,63 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 // reading the halo rows from its neighbours, and a 1/cl share of the dlc,
 // dv and dq partials in rank order before its "+=".  No float atomics: a
 // run repeats bit for bit.
+//
+// The forward family (KIND ATT_FWD, ATT_FWD_TRANS;
+// ops/pallas_train_decoder.py:857-896) has no location conv and no band
+// product.  Each CTA replays its positions' energies (a warp a position,
+// bf16(tanh(bf16(q + mtb))) kept in shared memory for dz) and, with
+// exchanges of tile maxima and sums in rank order, the row's softmax and
+// the recurrence from the stored state (the tile's first position reads
+// its neighbour's last state as a halo), the masked w and the renorm's sum
+// of max(w, 1e-6); then
+//   dwc = (dw - sum_t dw w_s) / sum;  dw_raw = wm > 1e-6 ? dwc : 0
+//   denergy = dw_raw comb;  dcomb = dw_raw energy
+//   dcum[t] = dcomb[t] + bf16(dcomb[t+1])          (assigned: the state is
+//   or (1 - tp) dcomb[t] + bf16(tp dcomb[t+1])      w, not cum + w)
+//   dtp = sum_t dcomb (bf16(prev[t-1]) - prev[t])  (into the dtp carry)
+//   de = energy (denergy - sum_t denergy energy)
+// with dcomb[t+1] of the tile's last position read from the next CTA, and
+// dz, dmt, dv and dq as above (a thread a channel down the tile).  With
+// the transition agent, the prologue runs the agent's backward
+// (pallas_train_decoder.py:759-785, :936-937): dlin = dtp tp (1 - tp) from
+// the dtp carry that the next step left and the step's own tp, which the
+// context cotangent consumed here gets as dlin wc, the attention LSTM's h
+// cotangent (complete once the generator's product has run) as dlin wq,
+// and dx, the prenet output's cotangent that the attention gates' product
+// adds to next, as dlin wx; each CTA a 1/cl share of h_att's and x's.
+// Bound: the bytes of memory, mtb and the dmt accumulator's read and write
+// (3.7 us at B=50, T=128), as the location-sensitive backward's.
 // ---------------------------------------------------------------------------
 constexpr int AB_THREADS = 256, AB_WARPS = AB_THREADS / 32;
 
-// shared-memory layout of att_bwd_kernel (byte offsets)
+// the forward family's operands of att_bwd (null for location-sensitive;
+// all but mask_add null without the transition agent)
+struct AbFam {
+  const float* mask_add;   // [B, T]
+  const float* tp_prev;    // [B] the t_prob that the step's recurrence read
+  const float* tp;         // [B] the t_prob the step made
+  float* dtp;              // [B] its cotangent carry: read, then replaced
+  float* dlin;             // [B] the pre-sigmoid gradient stream
+  const float* w;          // [Mem + H + P] the agent's weight, float32
+  float* dh_att;           // [B, H] float32, added to
+  float* dx;               // [B, P] float32, written
+  int H, P;
+};
+
+// shared-memory layout of att_bwd_kernel (byte offsets); the forward family
+// needs no band operands but five float rows of its tile and the tile's
+// energy terms
 struct AbLayout {
   int ld;
-  size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, red, s1, total;
-  __host__ __device__ AbLayout(int tile, int A, int Mem) {
+  size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, red, s1, fam,
+      tz, total;
+  __host__ __device__ AbLayout(int tile, int A, int Mem, bool family) {
     ld = A + 8;
     lc = 0;
-    dz = lc + align16((size_t)BAND_K * ld * 2);
-    p = dz + align16((size_t)tile * ld * 2);
-    dlcp = p + align16((size_t)tile * BAND_K * 4);
-    q = dlcp + align16((size_t)BAND_K * A * 4);
+    dz = lc + (family ? 0 : align16((size_t)BAND_K * ld * 2));
+    p = dz + (family ? 0 : align16((size_t)tile * ld * 2));
+    dlcp = p + (family ? 0 : align16((size_t)tile * BAND_K * 4));
+    q = dlcp + (family ? 0 : align16((size_t)BAND_K * A * 4));
     v = q + align16((size_t)A * 4);
     dvp = v + align16((size_t)A * 4);
     dqp = dvp + align16((size_t)A * 4);
@@ -810,12 +952,15 @@ struct AbLayout {
     de = w + align16((size_t)tile * 4);
     dctx = de + align16((size_t)tile * 4);
     cum = dctx + align16((size_t)Mem * 4);
-    red = cum + align16((size_t)(tile + BAND_K) * 2);
+    red = cum + (family ? 0 : align16((size_t)(tile + BAND_K) * 2));
     s1 = red + 32 * 4;
-    total = s1 + 16;
+    fam = s1 + 32;
+    tz = fam + (family ? align16((size_t)5 * tile * 4) : 0);
+    total = tz + (family ? align16((size_t)tile * A * 2) : 0);
   }
 };
 
+template <int KIND>
 __global__ void __launch_bounds__(AB_THREADS)
 att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
                const float* __restrict__ w_s, const bf16* __restrict__ memory,
@@ -825,9 +970,9 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
                float* __restrict__ dmt, float* __restrict__ dlc,
                float* __restrict__ dv, bf16* __restrict__ dq_out,
                bf16* __restrict__ dctx_out, int T, int A, int Mem, int K,
-               int tile, int cl) {
+               int tile, int cl, AbFam fa) {
   extern __shared__ __align__(16) uint8_t ab_smem[];
-  const AbLayout L(tile, A, Mem);
+  const AbLayout L(tile, A, Mem, KIND != ATT_LS);
   const int ld = L.ld;
   bf16* s_lc = reinterpret_cast<bf16*>(ab_smem + L.lc);        // [32][ld]
   bf16* s_dz = reinterpret_cast<bf16*>(ab_smem + L.dz);        // [tile][ld]
@@ -842,11 +987,22 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
   float* s_dctx = reinterpret_cast<float*>(ab_smem + L.dctx);  // [Mem]
   bf16* s_cum = reinterpret_cast<bf16*>(ab_smem + L.cum);      // [tile + 32]
   float* s_red = reinterpret_cast<float*>(ab_smem + L.red);
-  float* s_s1 = reinterpret_cast<float*>(ab_smem + L.s1);
+  // [0] sum_t dw w; the forward family: [1] max, [2] the softmax's sum,
+  // [3] the renorm's sum, [4] sum_t denergy energy, [5] dtp, [6] the halo
+  // state prev[t_lo - 1]
+  float* s_s1 = reinterpret_cast<float*>(ab_smem + L.s1);      // [8]
+  // the forward family's tile rows: prev, energy, comb, wm, dcomb
+  float* s_prev = reinterpret_cast<float*>(ab_smem + L.fam);
+  float* s_en = s_prev + tile;
+  float* s_comb = s_en + tile;
+  float* s_wm = s_comb + tile;
+  float* s_dcb = s_wm + tile;
+  bf16* s_tz = reinterpret_cast<bf16*>(ab_smem + L.tz);        // [tile][A]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
   const int b = blockIdx.x / cl, t_lo = rank * tile;
+  const int rows = min(tile, T - t_lo);
   const int half = (K - 1) / 2;
   const size_t rowT = (size_t)b * T;
 
@@ -854,12 +1010,38 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
     s_q[a] = q[(size_t)b * A + a];
     s_v[a] = v[a];
   }
-  band_stage_lc(s_lc, ld, lc, K, A);
-  band_stage_cum(s_cum, tile + BAND_K, cum_s + rowT, t_lo, half, T);
+  if constexpr (KIND == ATT_LS) {
+    band_stage_lc(s_lc, ld, lc, K, A);
+    band_stage_cum(s_cum, tile + BAND_K, cum_s + rowT, t_lo, half, T);
+  } else {
+    for (int i = tid; i < tile; i += AB_THREADS)
+      s_prev[i] = t_lo + i < T ? __bfloat162float(cum_s[rowT + t_lo + i])
+                               : 0.0f;
+    if (tid == 0)
+      s_s1[6] = t_lo > 0 ? __bfloat162float(cum_s[rowT + t_lo - 1]) : 0.0f;
+  }
   for (int i = tid; i < tile; i += AB_THREADS)
     s_w[i] = t_lo + i < T ? w_s[rowT + t_lo + i] : 0.0f;
+  // the transition agent's backward: dlin from the dtp carry (read here,
+  // before any CTA of the row replaces it after the barriers below)
+  float dlin = 0.0f;
+  if constexpr (KIND == ATT_FWD_TRANS) {
+    const float p = fa.tp[b];
+    dlin = fa.dtp[b] * p * (1.0f - p);
+    const float* wq = fa.w + Mem;
+    const float* wx = wq + fa.H;
+    const int sh_h = (fa.H + cl - 1) / cl, sh_p = (fa.P + cl - 1) / cl;
+    for (int k = rank * sh_h + tid; k < min(fa.H, (rank + 1) * sh_h);
+         k += AB_THREADS)
+      fa.dh_att[(size_t)b * fa.H + k] += dlin * wq[k];
+    for (int k = rank * sh_p + tid; k < min(fa.P, (rank + 1) * sh_p);
+         k += AB_THREADS)
+      fa.dx[(size_t)b * fa.P + k] = dlin * wx[k];
+    if (rank == 0 && tid == 0) fa.dlin[b] = dlin;
+  }
   for (int m = tid; m < Mem; m += AB_THREADS) {
-    const float d = dctx[(size_t)b * Mem + m];
+    float d = dctx[(size_t)b * Mem + m];
+    if constexpr (KIND == ATT_FWD_TRANS) d += dlin * fa.w[m];
     s_dctx[m] = d;
     if (rank == 0) dctx_out[(size_t)b * Mem + m] = __float2bfloat16_rn(d);
   }
@@ -895,122 +1077,248 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
   float s1 = 0.0f;
   for (int i = tid; i < tile; i += AB_THREADS) s1 += s_de[i] * s_w[i];
   s1 = block_reduce<false>(s1, s_red);
-  if (tid == 0) *s_s1 = s1;
-  cluster_sync();
-  s1 = 0.0f;
-  for (int j = 0; j < cl; ++j) s1 += *cluster_peer(s_s1, j);
-  for (int i = tid; i < tile; i += AB_THREADS)
-    s_de[i] = s_w[i] * (s_de[i] - s1);
-  __syncthreads();
+  if (tid == 0) s_s1[0] = s1;
 
-  // dz over (position, channel): the band product loc = band(cum) @ lc, a
-  // warp per 8 channels down the tile
-  const int mtiles = tile / 16;
-  for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
-    const int a = n0 + 2 * qd;
-    const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a], v1 = s_v[a + 1];
-    float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
-    for (int mt = 0; mt < mtiles; ++mt) {
-      uint32_t af[2][4];
-      band_frags(af, s_cum + mt * 16, lane);
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      band_loc(acc, af, s_lc, ld, n0, lane);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = mt * 16 + g + 8 * h, t = t_lo + i;
-        float dz0 = 0.0f, dz1 = 0.0f;
-        if (t < T) {
-          const size_t o = (rowT + t) * A + a;
-          const __nv_bfloat162 m2 =
-              *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
-          const float tz0 = band_energy_tanh(acc[2 * h], q0, __low2float(m2));
-          const float tz1 =
-              band_energy_tanh(acc[2 * h + 1], q1, __high2float(m2));
-          const float de = s_de[i];
-          dz0 = de * v0 * (1.0f - tz0 * tz0);
-          dz1 = de * v1 * (1.0f - tz1 * tz1);
-          float2* pm = reinterpret_cast<float2*>(dmt + o);
-          float2 old = *pm;
-          old.x += dz0;
-          old.y += dz1;
-          *pm = old;
-          pdv0 = fmaf(tz0, de, pdv0);
-          pdv1 = fmaf(tz1, de, pdv1);
-          pdq0 += dz0;
-          pdq1 += dz1;
+  if constexpr (KIND != ATT_LS) {
+    // the energies of the tile's positions, a warp a position; their
+    // bf16 tanh terms kept for dz
+    for (int i = warp; i < tile; i += AB_WARPS) {
+      const int t = t_lo + i;
+      float e = 0.0f;
+      if (t < T) {
+        for (int a = 2 * lane; a < A; a += 64) {
+          const __nv_bfloat162 m2 = *reinterpret_cast<const __nv_bfloat162*>(
+              mtb + (rowT + t) * A + a);
+          const float tz0 = fwd_energy_tanh(s_q[a], __low2float(m2));
+          const float tz1 = fwd_energy_tanh(s_q[a + 1], __high2float(m2));
+          *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
+              __floats2bfloat162_rn(tz0, tz1);
+          e = fmaf(s_v[a], tz0, e);
+          e = fmaf(s_v[a + 1], tz1, e);
         }
-        *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ld + a) =
-            __floats2bfloat162_rn(dz0, dz1);
+      }
+      e = warp_sum(e);
+      if (lane == 0) s_en[i] = e;
+    }
+    __syncthreads();
+    float mx = -CUDART_INF_F;
+    for (int i = tid; i < rows; i += AB_THREADS) mx = fmaxf(mx, s_en[i]);
+    mx = block_reduce<true>(mx, s_red);
+    if (tid == 0) s_s1[1] = mx;
+    cluster_sync();
+    s1 = 0.0f;
+    mx = -CUDART_INF_F;
+    for (int j = 0; j < cl; ++j) {
+      s1 += cluster_peer(s_s1, j)[0];
+      mx = fmaxf(mx, cluster_peer(s_s1, j)[1]);
+    }
+    float psum = 0.0f;
+    for (int i = tid; i < rows; i += AB_THREADS) {
+      const float p = expf(s_en[i] - mx);
+      s_en[i] = p;
+      psum += p;
+    }
+    psum = block_reduce<false>(psum, s_red);
+    if (tid == 0) s_s1[2] = psum;
+    cluster_sync();
+    psum = 0.0f;
+    for (int j = 0; j < cl; ++j) psum += cluster_peer(s_s1, j)[2];
+    // the replayed recurrence, the mask and the renorm's sum
+    const float tp = KIND == ATT_FWD_TRANS ? fa.tp_prev[b] : 0.0f;
+    float nsum = 0.0f;
+    for (int i = tid; i < rows; i += AB_THREADS) {
+      const float energy = s_en[i] / psum;
+      const float prev = s_prev[i];
+      const float sh = i > 0 ? s_prev[i - 1] : s_s1[6];
+      const float comb = KIND == ATT_FWD_TRANS
+                             ? (1.0f - tp) * prev + tp * sh
+                             : prev + sh;
+      const float wm =
+          fa.mask_add[rowT + t_lo + i] > -0.5f ? comb * energy : 0.0f;
+      s_en[i] = energy;
+      s_comb[i] = comb;
+      s_wm[i] = wm;
+      nsum += fmaxf(wm, 1e-6f);
+    }
+    nsum = block_reduce<false>(nsum, s_red);
+    if (tid == 0) s_s1[3] = nsum;
+    cluster_sync();
+    nsum = 0.0f;
+    for (int j = 0; j < cl; ++j) nsum += cluster_peer(s_s1, j)[3];
+    // the renorm's and the floor's backward, then the recurrence's
+    float pe = 0.0f, pt = 0.0f;
+    for (int i = tid; i < rows; i += AB_THREADS) {
+      const float dwc = (s_de[i] - s1) / nsum;
+      const float dwr = s_wm[i] > 1e-6f ? dwc : 0.0f;
+      const float den = dwr * s_comb[i], dcb = dwr * s_en[i];
+      s_de[i] = den;
+      s_dcb[i] = dcb;
+      pe = fmaf(den, s_en[i], pe);
+      if (KIND == ATT_FWD_TRANS)
+        pt = fmaf(dcb, (i > 0 ? s_prev[i - 1] : s_s1[6]) - s_prev[i], pt);
+    }
+    pe = block_reduce<false>(pe, s_red);
+    if (KIND == ATT_FWD_TRANS) pt = block_reduce<false>(pt, s_red);
+    if (tid == 0) {
+      s_s1[4] = pe;
+      s_s1[5] = pt;
+    }
+    cluster_sync();
+    pe = 0.0f;
+    pt = 0.0f;
+    for (int j = 0; j < cl; ++j) {
+      pe += cluster_peer(s_s1, j)[4];
+      pt += cluster_peer(s_s1, j)[5];
+    }
+    // the softmax's backward; the state's cotangent, assigned, with the
+    // next position's dcomb from the next CTA at the tile's end
+    for (int i = tid; i < rows; i += AB_THREADS) {
+      const int t = t_lo + i;
+      s_de[i] = s_en[i] * (s_de[i] - pe);
+      const float nxt = t + 1 >= T ? 0.0f
+                        : i + 1 < tile ? s_dcb[i + 1]
+                                       : cluster_peer(s_dcb, rank + 1)[0];
+      const float dcb = s_dcb[i];
+      dcum[rowT + t] = KIND == ATT_FWD_TRANS
+                           ? (1.0f - tp) * dcb + round_bf16(tp * nxt)
+                           : dcb + round_bf16(nxt);
+    }
+    if (KIND == ATT_FWD_TRANS && rank == 0 && tid == 0) fa.dtp[b] = pt;
+    __syncthreads();
+    // dz, dmt, and the dv and dq partials: a thread a channel down the
+    // tile
+    for (int a = tid; a < A; a += AB_THREADS) {
+      const float va = s_v[a];
+      float pdv = 0.0f, pdq = 0.0f;
+      for (int i = 0; i < rows; ++i) {
+        const float tz = __bfloat162float(s_tz[i * A + a]);
+        const float de = s_de[i];
+        const float dz = de * va * (1.0f - tz * tz);
+        dmt[(rowT + t_lo + i) * A + a] += dz;
+        pdv = fmaf(tz, de, pdv);
+        pdq += dz;
+      }
+      s_dvp[a] = pdv;
+      s_dqp[a] = pdq;
+    }
+    cluster_sync();
+  } else {
+    cluster_sync();
+    s1 = 0.0f;
+    for (int j = 0; j < cl; ++j) s1 += cluster_peer(s_s1, j)[0];
+    for (int i = tid; i < tile; i += AB_THREADS)
+      s_de[i] = s_w[i] * (s_de[i] - s1);
+    __syncthreads();
+    // dz over (position, channel): the band product loc = band(cum) @ lc, a
+    // warp per 8 channels down the tile
+    const int mtiles = tile / 16;
+    for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+      const int a = n0 + 2 * qd;
+      const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a], v1 = s_v[a + 1];
+      float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
+      for (int mt = 0; mt < mtiles; ++mt) {
+        uint32_t af[2][4];
+        band_frags(af, s_cum + mt * 16, lane);
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        band_loc(acc, af, s_lc, ld, n0, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = mt * 16 + g + 8 * h, t = t_lo + i;
+          float dz0 = 0.0f, dz1 = 0.0f;
+          if (t < T) {
+            const size_t o = (rowT + t) * A + a;
+            const __nv_bfloat162 m2 =
+                *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
+            const float tz0 = band_energy_tanh(acc[2 * h], q0, __low2float(m2));
+            const float tz1 =
+                band_energy_tanh(acc[2 * h + 1], q1, __high2float(m2));
+            const float de = s_de[i];
+            dz0 = de * v0 * (1.0f - tz0 * tz0);
+            dz1 = de * v1 * (1.0f - tz1 * tz1);
+            float2* pm = reinterpret_cast<float2*>(dmt + o);
+            float2 old = *pm;
+            old.x += dz0;
+            old.y += dz1;
+            *pm = old;
+            pdv0 = fmaf(tz0, de, pdv0);
+            pdv1 = fmaf(tz1, de, pdv1);
+            pdq0 += dz0;
+            pdq1 += dz1;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ld + a) =
+              __floats2bfloat162_rn(dz0, dz1);
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
+        pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
+        pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
+        pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
+      }
+      if (g == 0) {
+        s_dvp[a] = pdv0;
+        s_dvp[a + 1] = pdv1;
+        s_dqp[a] = pdq0;
+        s_dqp[a + 1] = pdq1;
       }
     }
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
-      pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
-      pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
-      pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
-    }
-    if (g == 0) {
-      s_dvp[a] = pdv0;
-      s_dvp[a + 1] = pdv1;
-      s_dqp[a] = pdq0;
-      s_dqp[a + 1] = pdq1;
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // dlc's partial band(cum)^T @ bf16(dz), a warp per 16 channels, both
-  // halves of the 32 taps
-  for (int n0 = warp * 16; n0 < A; n0 += AB_WARPS * 16) {
-    float acc[2][2][4] = {};
-    for (int mt = 0; mt < mtiles; ++mt)
+    // dlc's partial band(cum)^T @ bf16(dz), a warp per 16 channels, both
+    // halves of the 32 taps
+    for (int n0 = warp * 16; n0 < A; n0 += AB_WARPS * 16) {
+      float acc[2][2][4] = {};
+      for (int mt = 0; mt < mtiles; ++mt)
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+          band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ld, ld,
+                   n0, lane);
 #pragma unroll
       for (int kh = 0; kh < 2; ++kh)
-        band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ld, ld,
-                 n0, lane);
 #pragma unroll
-    for (int kh = 0; kh < 2; ++kh)
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + nt * 8 + 2 * qd +
+                   (e & 1)] = acc[kh][nt][e];
+    }
+    // P = bf16(dz) @ lc^T, [tile][32]: a warp per 16 positions x 16 taps
+    for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
+      const int mt = it >> 1, kh = it & 1;
+      float acc[2][4] = {};
+      band_p(acc, s_dz + mt * 16 * ld, s_lc, ld, kh * 16, A, lane);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + nt * 8 + 2 * qd +
-                 (e & 1)] = acc[kh][nt][e];
-  }
-  // P = bf16(dz) @ lc^T, [tile][32]: a warp per 16 positions x 16 taps
-  for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
-    const int mt = it >> 1, kh = it & 1;
-    float acc[2][4] = {};
-    band_p(acc, s_dz + mt * 16 * ld, s_lc, ld, kh * 16, A, lane);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s_p[(mt * 16 + g + 8 * (e >> 1)) * BAND_K + kh * 16 + nt * 8 +
-            2 * qd + (e & 1)] = acc[nt][e];
-  }
-  cluster_sync();
-
-  // the cum cotangent of each own position: a diagonal of P, halo rows
-  // from the neighbours, a lane per tap
-  for (int i = warp; i < tile && t_lo + i < T; i += AB_WARPS) {
-    const int t = t_lo + i;
-    float part = 0.0f;
-    const int t2 = t - lane + half;
-    if (lane < K && t2 >= 0 && t2 < T) {
-      const int r = t2 / tile;
-      part = cluster_peer(s_p, r)[(t2 - r * tile) * BAND_K + lane];
+          s_p[(mt * 16 + g + 8 * (e >> 1)) * BAND_K + kh * 16 + nt * 8 +
+              2 * qd + (e & 1)] = acc[nt][e];
     }
-    part = warp_sum(part);
-    if (lane == 0) dcum[rowT + t] += part;
+    cluster_sync();
+
+    // the cum cotangent of each own position: a diagonal of P, halo rows
+    // from the neighbours, a lane per tap
+    for (int i = warp; i < tile && t_lo + i < T; i += AB_WARPS) {
+      const int t = t_lo + i;
+      float part = 0.0f;
+      const int t2 = t - lane + half;
+      if (lane < K && t2 >= 0 && t2 < T) {
+        const int r = t2 / tile;
+        part = cluster_peer(s_p, r)[(t2 - r * tile) * BAND_K + lane];
+      }
+      part = warp_sum(part);
+      if (lane == 0) dcum[rowT + t] += part;
+    }
+    // this CTA's share of the row's dlc, partials in rank order
+    for (int idx = rank * AB_THREADS + tid; idx < K * A;
+         idx += cl * AB_THREADS) {
+      float sum = 0.0f;
+      for (int j = 0; j < cl; ++j) sum += cluster_peer(s_dlcp, j)[idx];
+      dlc[(size_t)b * K * A + idx] += sum;
+    }
   }
-  // this CTA's share of the row's dlc, dv and dq, partials in rank order
-  for (int idx = rank * AB_THREADS + tid; idx < K * A;
-       idx += cl * AB_THREADS) {
-    float sum = 0.0f;
-    for (int j = 0; j < cl; ++j) sum += cluster_peer(s_dlcp, j)[idx];
-    dlc[(size_t)b * K * A + idx] += sum;
-  }
+  // this CTA's share of the row's dv and dq, partials in rank order
   for (int a = rank * AB_THREADS + tid; a < A; a += cl * AB_THREADS) {
     float sv = 0.0f, sq = 0.0f;
     for (int j = 0; j < cl; ++j) {
@@ -1221,11 +1529,13 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
 extern "C" {
 
 // the columns of P in `cl` shares of np (prenet_split); the input is
-// shifted (bf16) at a teacher step, the float32 frame carry otherwise
+// shifted (bf16) at a teacher step, the float32 frame carry otherwise; x_out
+// (null, or [B, P] float32) also receives the last layer's output
 int train_prenet_launch(const void* shifted, const void* frame, int teacher,
                         const void* w_all, const void* b_all, void* raw_out,
                         void* pre_out, long long pre_stride, void* dst,
-                        int ld_dst, int B, int in_dim, int P, int n_layers,
+                        int ld_dst, void* x_out, int B, int in_dim, int P,
+                        int n_layers,
                         unsigned seed0, unsigned seed1, unsigned salt0,
                         unsigned thresh, float scale, int apply_dropout,
                         int cl, int np, void* stream) {
@@ -1233,7 +1543,8 @@ int train_prenet_launch(const void* shifted, const void* frame, int teacher,
                         P, n_layers, seed0, seed1, salt0, thresh, scale,
                         apply_dropout, cl, np};
   const TrainPrenetOut epi{(bf16*)raw_out, (bf16*)pre_out, pre_stride,
-                           (bf16*)dst, ld_dst, in_dim, P, n_layers};
+                           (bf16*)dst, ld_dst, (float*)x_out, in_dim, P,
+                           n_layers};
   return (int)prenet_tile_launch(teacher ? shifted : frame, teacher ? 1 : 0,
                                  args, epi, (cudaStream_t)stream);
 }
@@ -1318,12 +1629,49 @@ int train_attention_launch(const void* q, void* cum, const void* memory,
   const int vec =
       (uintptr_t)memory % 16 == 0 && ((long long)T * Mem) % 8 == 0;
   return (int)launch_cluster(
-      train_attention_kernel, B * cl, TA_THREADS, L.total, cl,
+      train_attention_kernel<ATT_LS>, B * cl, TA_THREADS, L.total, cl,
       (cudaStream_t)stream, (const float*)q, (float*)cum,
       (const bf16*)memory, (const bf16*)mtb, (const float*)mask_add,
       (const bf16*)lc, (const float*)v, (float*)w_out, (bf16*)cum_out,
       (float*)ctx, (bf16*)dst0, ld0, (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A,
-      Mem, K, tile, cl, vec);
+      Mem, K, tile, cl, vec, TaAgent{});
+}
+
+// the forward family's step (trans = 1: with the transition agent, whose
+// tp carry [B] is updated in place, tp_out [B] a stream or null, h_att
+// [B, H] and x [B, P] float32, w [Mem + H + P] and bias [1] float32); cum
+// holds the last step's weights and receives the new ones; the rest as
+// train_attention_launch's
+int train_fwd_attention_launch(const void* q, void* cum, const void* memory,
+                               const void* mtb, const void* mask_add,
+                               const void* v, void* w_out, void* cum_out,
+                               void* ctx, void* dst0, int ld0, void* dst1,
+                               int ld1, void* dst2, int ld2, void* tp,
+                               void* tp_out, const void* h_att,
+                               const void* x, const void* w,
+                               const void* bias, int B, int T, int A,
+                               int Mem, int H, int P, int tile, int cl,
+                               int trans, void* stream) {
+  if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || tile <= 0 ||
+      tile % 16 != 0 || cl < 1 || cl > 8 || (long long)cl * tile < T ||
+      (long long)(cl - 1) * tile >= T || (uintptr_t)mtb % 16 != 0 ||
+      (trans && (tp == nullptr || h_att == nullptr || x == nullptr ||
+                 w == nullptr || bias == nullptr || H <= 0 || P <= 0)))
+    return (int)cudaErrorInvalidValue;
+  const TaLayout L(tile, A, Mem);
+  const int vec =
+      (uintptr_t)memory % 16 == 0 && ((long long)T * Mem) % 8 == 0;
+  const TaAgent ag{(float*)tp, (float*)tp_out, (const float*)h_att,
+                   (const float*)x, (const float*)w, (const float*)bias, H,
+                   P};
+  return (int)launch_cluster(
+      trans ? &train_attention_kernel<ATT_FWD_TRANS>
+            : &train_attention_kernel<ATT_FWD>,
+      B * cl, TA_THREADS, L.total, cl, (cudaStream_t)stream, (const float*)q,
+      (float*)cum, (const bf16*)memory, (const bf16*)mtb,
+      (const float*)mask_add, (const bf16*)nullptr, (const float*)v,
+      (float*)w_out, (bf16*)cum_out, (float*)ctx, (bf16*)dst0, ld0,
+      (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A, Mem, 1, tile, cl, vec, ag);
 }
 
 // the LSTM cell backward's arguments, in the launchers' order: act, c_prev
@@ -1406,14 +1754,53 @@ int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
       (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
       (uintptr_t)mtb % 4 != 0 || (uintptr_t)dmt % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const AbLayout L(tile, A, Mem);
+  const AbLayout L(tile, A, Mem, false);
   return (int)launch_cluster(
-      att_bwd_kernel, B * cl, AB_THREADS, L.total, cl, (cudaStream_t)stream,
-      (const float*)q, (const bf16*)cum_s, (const float*)w_s,
-      (const bf16*)memory, (const bf16*)mtb, (const bf16*)lc, (const float*)v,
+      att_bwd_kernel<ATT_LS>, B * cl, AB_THREADS, L.total, cl,
+      (cudaStream_t)stream, (const float*)q, (const bf16*)cum_s,
+      (const float*)w_s, (const bf16*)memory, (const bf16*)mtb,
+      (const bf16*)lc, (const float*)v, (const float*)dctx,
+      (const float*)dw_out, (float*)dcum, (float*)dmt, (float*)dlc,
+      (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem, K, tile, cl,
+      AbFam{});
+}
+
+// the forward family's attention backward: dcum [B, T] the state's
+// cotangent (replaced), mask_add [B, T]; with the transition agent
+// (trans = 1) tp_prev and tp [B] (float32 streams), the dtp carry [B]
+// (replaced), the dlin stream [B], the agent's weight w [Mem + H + P], the
+// attention LSTM's dh_att [B, H] (added to) and the prenet output's dx
+// [B, P] (written), all float32; the rest as att_bwd_launch's, without lc
+// and dlc
+int fwd_att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
+                       const void* memory, const void* mtb,
+                       const void* mask_add, const void* v, const void* dctx,
+                       const void* dw_out, void* dcum, void* dmt, void* dv,
+                       void* dq_out, void* dctx_out, const void* tp_prev,
+                       const void* tp, void* dtp, void* dlin, const void* w,
+                       void* dh_att, void* dx, int B, int T, int A, int Mem,
+                       int H, int P, int tile, int cl, int trans,
+                       void* stream) {
+  if (B <= 0 || T <= 0 || A <= 0 || A % 2 != 0 || Mem <= 0 || tile <= 0 ||
+      tile % 16 != 0 || cl < 1 || cl > 8 || (long long)cl * tile < T ||
+      (long long)(cl - 1) * tile >= T || (uintptr_t)mtb % 4 != 0 ||
+      mask_add == nullptr ||
+      (trans && (tp_prev == nullptr || tp == nullptr || dtp == nullptr ||
+                 dlin == nullptr || w == nullptr || dh_att == nullptr ||
+                 dx == nullptr || H <= 0 || P <= 0)))
+    return (int)cudaErrorInvalidValue;
+  const AbLayout L(tile, A, Mem, true);
+  const AbFam fa{(const float*)mask_add, (const float*)tp_prev,
+                 (const float*)tp, (float*)dtp, (float*)dlin,
+                 (const float*)w, (float*)dh_att, (float*)dx, H, P};
+  return (int)launch_cluster(
+      trans ? &att_bwd_kernel<ATT_FWD_TRANS> : &att_bwd_kernel<ATT_FWD>,
+      B * cl, AB_THREADS, L.total, cl, (cudaStream_t)stream, (const float*)q,
+      (const bf16*)cum_s, (const float*)w_s, (const bf16*)memory,
+      (const bf16*)mtb, (const bf16*)nullptr, (const float*)v,
       (const float*)dctx, (const float*)dw_out, (float*)dcum, (float*)dmt,
-      (float*)dlc, (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem, K,
-      tile, cl);
+      (float*)nullptr, (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem,
+      1, tile, cl, fa);
 }
 
 // the columns of P and of the input frame in `cl` shares of np and n0

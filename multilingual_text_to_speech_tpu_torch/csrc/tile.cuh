@@ -583,13 +583,28 @@ __device__ __forceinline__ void cluster_gather_rows(bf16* dst, int ldd,
   }
 }
 
+// opts `kernel` in to all of a block's shared memory at its first launch;
+// kernels of one signature (the instances of a template over the attention
+// kind) share the table, keyed by the kernel's address
+template <typename... KArgs>
+cudaError_t opt_in_smem(void (*kernel)(KArgs...)) {
+  static const void* done[8];
+  static int n_done = 0;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < n_done; ++i)
+    if (done[i] == key) return cudaSuccess;
+  const cudaError_t err = allow_smem(kernel, 227 * 1024);
+  if (err == cudaSuccess && n_done < 8) done[n_done++] = key;
+  return err;
+}
+
 // a 1-D grid of `grid` CTAs in clusters of `cluster` consecutive CTAs; the
 // first launch of each kernel opts it in to all of a block's shared memory
 template <typename... KArgs, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
                            size_t smem, int cluster, cudaStream_t stream,
                            Args&&... args) {
-  static const cudaError_t opt_in = allow_smem(kernel, 227 * 1024);
+  const cudaError_t opt_in = opt_in_smem(kernel);
   if (opt_in != cudaSuccess) return opt_in;
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
@@ -973,6 +988,16 @@ __device__ __forceinline__ void band_p(float (*acc)[4], const bf16* s_dz,
 __device__ __forceinline__ float band_energy_tanh(float loc, float q,
                                                   float mtb) {
   return round_bf16(tanhf(round_bf16(round_bf16(round_bf16(loc) + q) + mtb)));
+}
+
+// the attention kinds of the attention kernels' template parameter:
+// location-sensitive, forward, forward with the transition agent
+constexpr int ATT_LS = 0, ATT_FWD = 1, ATT_FWD_TRANS = 2;
+
+// the forward family's energy term of one (t, a), which has no location
+// conv: bf16(tanh(bf16(q + mtb)))
+__device__ __forceinline__ float fwd_energy_tanh(float q, float mtb) {
+  return round_bf16(tanhf(round_bf16(q + mtb)));
 }
 
 // ---------------------------------------------------------------------------

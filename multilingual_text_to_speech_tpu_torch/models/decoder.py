@@ -23,8 +23,8 @@ import torch
 from torch import nn
 
 from multilingual_text_to_speech_tpu_torch.models.attention import (
-    LocationSensitiveAttention,
     init_attention_state,
+    make_attention,
 )
 from multilingual_text_to_speech_tpu_torch.models.rnn import (
     RegularizedLSTMCell,
@@ -51,21 +51,17 @@ class Prenet(nn.Module):
 
 class DecoderCell(nn.Module):
     """The weights of one free-running step: prenet, attention LSTM,
-    location-sensitive attention, generator LSTM, frame and stop heads."""
+    attention (``hp.attention_type``), generator LSTM, frame and stop
+    heads."""
 
     def __init__(self, hp, memory_dim: int):
         super().__init__()
-        if hp.attention_type != "location_sensitive":
-            raise NotImplementedError(
-                f"attention type {hp.attention_type!r} is not ported")
         h = hp.decoder_dimension
         self.prenet = Prenet(hp.num_mels, hp.prenet_dimension,
                              hp.prenet_layers)
         self.attention_lstm = RegularizedLSTMCell(
             hp.prenet_dimension + memory_dim, h)
-        self.attention = LocationSensitiveAttention(
-            h, hp.attention_dimension, hp.attention_kernel_size,
-            hp.attention_location_dimension)
+        self.attention = make_attention(hp, memory_dim)
         self.generator_lstm = RegularizedLSTMCell(h + memory_dim, h)
         self.frame_prediction = nn.Linear(h + memory_dim, hp.num_mels)
         self.stop_prediction = nn.Linear(h + memory_dim, 1)

@@ -28,7 +28,13 @@ four kernel functions of ``csrc/fused_decoder.cu``:
    location conv (``lc`` = loc_filter x location_kernel, folded once on
    the host in float32) as a tensor-core product with the band matrix of
    ``cum``, as the TPU kernel folds it; the energy, the masked softmax,
-   ``cum += w`` and the context over 16-byte loads of ``memory``;
+   ``cum += w`` and the context over 16-byte loads of ``memory``; with
+   the forward-attention family (``hp.attention_type`` ``forward`` or
+   ``forward_transition_agent``) the same kernel without the location conv
+   runs as ``fwd_attention``: the unmasked softmax energy, the monotonic
+   shift recurrence (gated by the transition agent's ``t_prob``), the
+   mask, the 1e-6 floor, the L1 renorm, the context and the agent's next
+   ``t_prob``;
 4. ``head``: the fused frame and stop projection over the head row
    ``[bf16(h_gen) | bf16(ctx)]`` on the tensor cores, split over K like the
    training decoder's products (``csrc/tile.cuh::splitk_kernel`` and its
@@ -87,7 +93,16 @@ _HEAD_BLOCKS_PER_SM = 1
 
 # launches of each kernel since the last reset (kernel launches only)
 LAUNCHES: Dict[str, int] = {
-    "prenet": 0, "gate_lstm": 0, "lsa_attention": 0, "head": 0}
+    "prenet": 0, "gate_lstm": 0, "lsa_attention": 0, "fwd_attention": 0,
+    "head": 0}
+
+
+def path_kernels(att_kind: str) -> Tuple[str, ...]:
+    """The kernels (``LAUNCHES`` keys) that a serving chunk at ``att_kind``
+    launches: the location-sensitive path's ``lsa_attention``, or the
+    forward family's ``fwd_attention``."""
+    return ("prenet", "gate_lstm",
+            "lsa_attention" if att_kind == "ls" else "fwd_attention", "head")
 
 
 def reset_launch_counts() -> None:
@@ -162,10 +177,19 @@ class DecoderBundle:
     gen_b: torch.Tensor
     wq: torch.Tensor             # [H, A]
     att_bias: torch.Tensor       # [A] float32
-    lc: torch.Tensor             # [K, A] folded location conv, compute type
+    lc: Optional[torch.Tensor]   # [K, A] folded location conv, compute
+                                 # type (location-sensitive only)
     v: torch.Tensor              # [A] float32
     head_w: torch.Tensor         # [M + 1, K_pad], K = H + Mem
     head_b: torch.Tensor         # [M + 1] float32
+    att_kind: str = "ls"         # "ls", "fwd" or "fwd_trans"
+    # the transition agent's weight split as the TPU kernel splits it
+    # (pallas_decoder.py:88-102): its context, h_att and prenet-output
+    # rows in the compute type, and its bias [1] in float32
+    ta_wc: Optional[torch.Tensor] = None     # [Mem]
+    ta_wq: Optional[torch.Tensor] = None     # [H]
+    ta_wx: Optional[torch.Tensor] = None     # [P]
+    ta_b: Optional[torch.Tensor] = None      # [1]
 
     def prenet_layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         in_dim, p, n = self.pre_dims
@@ -210,11 +234,27 @@ def extract_decoder_bundle(cell, dtype: torch.dtype,
 
     att_w, att_ws, att_b = gates(cell.attention_lstm)
     gen_w, gen_ws, gen_b = gates(cell.generator_lstm)
-    lc = att.loc_filter[:, 0, :].float() @ att.location_kernel.float()
     head_w = torch.cat([cell.frame_prediction.weight,
                         cell.stop_prediction.weight], 0)
     head_b = torch.cat([cell.frame_prediction.bias,
                         cell.stop_prediction.bias])
+    if hasattr(att, "energy_net"):          # the forward family
+        en = att.energy_net
+        wq, v, lc = en.query.weight.t(), en.energy.weight.reshape(-1), None
+        kind = "fwd_trans" if hasattr(att, "transition_agent") else "fwd"
+    else:
+        wq, v, kind = att.query_kernel, att.energy_kernel.reshape(-1), "ls"
+        lc = (att.loc_filter[:, 0, :].float()
+              @ att.location_kernel.float()).to(dtype).contiguous()
+    agent = {}
+    if kind == "fwd_trans":
+        mem = cell.generator_lstm.cell.gates.in_features - 2 * wq.shape[0]
+        ta = att.transition_agent.weight.reshape(-1)
+        parts = torch.split(ta, [mem, wq.shape[0], ta.numel() - mem
+                                 - wq.shape[0]])
+        agent = dict(zip(("ta_wc", "ta_wq", "ta_wx"),
+                         (p.to(dtype).contiguous() for p in parts)))
+        agent["ta_b"] = att.transition_agent.bias.float().contiguous()
     return DecoderBundle(
         dtype=dtype, quantized=quantize_gates,
         pre_w=torch.cat([fc.weight.t().reshape(-1) for fc in fcs]).to(dtype),
@@ -222,17 +262,15 @@ def extract_decoder_bundle(cell, dtype: torch.dtype,
         pre_dims=(fcs[0].in_features, fcs[0].out_features, len(fcs)),
         att_w=att_w, att_ws=att_ws, att_b=att_b,
         gen_w=gen_w, gen_ws=gen_ws, gen_b=gen_b,
-        wq=att.query_kernel.to(dtype).contiguous(),
-        att_bias=att.bias.reshape(-1).float().contiguous(),
-        lc=lc.to(dtype).contiguous(),
-        v=att.energy_kernel.reshape(-1).float().contiguous(),
+        wq=wq.to(dtype).contiguous(),
+        att_bias=att.energy_bias.reshape(-1).float().contiguous(),
+        lc=lc, v=v.float().contiguous(),
         head_w=_pad_k(head_w.to(dtype)),
-        head_b=head_b.float().contiguous(),
-    )
+        head_b=head_b.float().contiguous(), att_kind=kind, **agent)
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch versions of the four kernels
+# plain PyTorch versions of the kernels
 # ---------------------------------------------------------------------------
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -320,6 +358,63 @@ def lsa_attention_plain(h_att: torch.Tensor, cum: torch.Tensor,
     return ctx, cum + w
 
 
+def fwd_attention_plain(h_att: torch.Tensor, prev: torch.Tensor,
+                        t_prob: Optional[torch.Tensor], memory: torch.Tensor,
+                        mtb: torch.Tensor, mask_add: torch.Tensor,
+                        x: torch.Tensor, bundle: DecoderBundle):
+    """The forward family's attention step -> (context [B, Mem], weights
+    [B, T], next t_prob [B, 1] or None).  ``prev`` [B, T] are the last
+    step's weights, ``t_prob`` [B, 1] the transition probability (the agent
+    only), ``x`` [B, P] the prenet output of this step; the other operands
+    as ``lsa_attention_plain``'s.  The softmax energy is unmasked over the
+    T positions given; the mask zeroes the recurrence's weights, which are
+    then floored at 1e-6 and L1-renormalized (``pallas_decoder.py:
+    593-624``).  Rounds to the compute type where the TPU kernel does: the
+    shifted weights are a compute-type product, and the agent's three
+    products take compute-type operands with float32 sums."""
+    d = bundle.dtype
+    q = _rounded(_mm(h_att, bundle.wq), d)                        # [B, A]
+    z = _rounded(q[:, None, :] + mtb.float(), d)
+    energy = torch.softmax((_rounded(torch.tanh(z), d) * bundle.v).sum(-1),
+                           dim=-1)
+    shifted = torch.nn.functional.pad(_rounded(prev, d), (1, 0))[:, :-1]
+    if t_prob is None:
+        comb = prev + shifted
+    else:
+        comb = (1.0 - t_prob) * prev + t_prob * shifted
+    w = torch.where(mask_add > -0.5, comb * energy, torch.zeros_like(comb))
+    w = torch.clamp(w, min=1e-6)
+    w = w / w.sum(-1, keepdim=True)
+    ctx = _rounded(memory.float() * _rounded(w, d)[:, :, None], d).sum(1)
+    if t_prob is None:
+        return ctx, w, None
+    lin = (_mm(ctx, bundle.ta_wc[:, None]) + _mm(h_att, bundle.ta_wq[:, None])
+           + _mm(x, bundle.ta_wx[:, None]) + bundle.ta_b)
+    return ctx, w, torch.sigmoid(lin)
+
+
+def attention_plain(h_att: torch.Tensor, state, x: torch.Tensor,
+                    memory: torch.Tensor, mtb: torch.Tensor,
+                    mask_add: torch.Tensor, bundle: DecoderBundle):
+    """The attention step of ``bundle.att_kind`` on the carry's attention
+    ``state`` -> (context, new state), the plain versions of
+    ``lsa_attention`` and ``fwd_attention``."""
+    if bundle.att_kind == "ls":
+        ctx, cum = lsa_attention_plain(h_att, state["weights"], memory, mtb,
+                                       mask_add, bundle)
+        return ctx, {"weights": cum}
+    ctx, w, tp = fwd_attention_plain(h_att, state["weights"],
+                                     state.get("t_prob"), memory, mtb,
+                                     mask_add, x, bundle)
+    return ctx, _fwd_state(w, tp)
+
+
+def _fwd_state(w: torch.Tensor, t_prob: Optional[torch.Tensor]):
+    """The forward family's carried attention state."""
+    return {"weights": w} if t_prob is None else {"weights": w,
+                                                   "t_prob": t_prob}
+
+
 def head_plain(h_gen: torch.Tensor, ctx: torch.Tensor,
                bundle: DecoderBundle):
     """Frame and stop heads over ``[h_gen | ctx]`` -> (frame [B, M],
@@ -342,6 +437,7 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _P],
     "lsa_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _I, _P],
+    "fwd_attention_launch": [_P] * 17 + [_I] * 8 + [_P],
     "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P],
 }
 _LIB = None
@@ -543,6 +639,49 @@ def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle, ctx_row=None,
     return ctx, cum_new
 
 
+def fwd_attention(h_att, prev, t_prob, memory, mtb, mask_add, x, bundle,
+                  ctx_row=None, out=None):
+    """Kernel ``fwd_attention`` (see ``fwd_attention_plain``): the forward
+    family's step, ``lsa_attention``'s kernel without the location conv.
+    ``x`` is the prenet output of the step, read by the transition agent
+    only.  ``ctx_row`` as ``lsa_attention``'s; ``out`` are the (context,
+    weights, t_prob [B, 1] or None) to write, new ones if None."""
+    if not _is_cuda(h_att):
+        return fwd_attention_plain(h_att, prev, t_prob, memory, mtb,
+                                   mask_add, x, bundle)
+    _require_bf16(bundle)
+    trans = bundle.att_kind == "fwd_trans"
+    if bundle.att_kind not in ("fwd", "fwd_trans") or trans != (
+            t_prob is not None):
+        raise ValueError("fwd_attention: a forward-family bundle, and a "
+                         "t_prob exactly with the transition agent")
+    b, t, mem_dim = memory.shape
+    if memory.dtype != torch.bfloat16 or mtb.dtype != torch.bfloat16:
+        raise ValueError("memory and memory transform must be bfloat16")
+    h_att, prev, mask_add = (v.float().contiguous()
+                             for v in (h_att, prev, mask_add))
+    like = [((b, mem_dim), h_att), (prev.shape, prev)]
+    if trans:
+        t_prob, x = t_prob.float().contiguous(), x.float().contiguous()
+        like.append(((b, 1), t_prob))
+    ctx, w, *tp = _outputs(None if out is None else out[:len(like)], *like)
+    tp = tp[0] if trans else None
+    _check("fwd_attention", h_att, prev, memory, mtb, mask_add, bundle.wq,
+           bundle.v, *((t_prob, x, bundle.ta_wc, bundle.ta_wq, bundle.ta_wx,
+                        bundle.ta_b) if trans else ()))
+    ld_row = _row_view("fwd_attention", ctx_row)
+    agent = ((x, bundle.ta_wc, bundle.ta_wq, bundle.ta_wx, bundle.ta_b)
+             if trans else (None,) * 5)
+    err = _lib().fwd_attention_launch(
+        _ptr(h_att), _ptr(prev), _ptr(t_prob), _ptr(memory), _ptr(mtb),
+        _ptr(mask_add), _ptr(agent[0]), _ptr(bundle.wq), _ptr(bundle.v),
+        *(_ptr(a) for a in agent[1:]), _ptr(ctx), _ptr(w), _ptr(tp),
+        _ptr(ctx_row), ld_row, b, t, h_att.shape[1], bundle.wq.shape[1],
+        mem_dim, bundle.pre_dims[1], int(trans), _stream())
+    _launched("fwd_attention", err)
+    return ctx, w, tp
+
+
 def head_row(h_gen: torch.Tensor, ctx: torch.Tensor,
              bundle: DecoderBundle) -> torch.Tensor:
     """The head row ``[bf16(h_gen) | bf16(ctx) | 0]`` [B, K_pad] that the
@@ -610,13 +749,13 @@ def _run_chunk(ops, bundle, carry, memory, memory_transform, mask, seeds,
     h_att, c_att = carry["h_att"], carry["c_att"]
     h_gen, c_gen = carry["h_gen"], carry["c_gen"]
     ctx, frame = carry["context"], carry["frame"]
-    cum = carry["att_state"]["weights"]
+    state = carry["att_state"]
     frames, stops = [], []
     for s in range(int(chunk_frames)):
         x = pre(frame, bundle, dropout_rate, seeds, s)
         h_att, c_att = gate((x, ctx, h_att), h_att, c_att, bundle, "att",
                             zoneout_h, zoneout_c)
-        ctx, cum = attend(h_att, cum, memory, mtb, mask_add, bundle)
+        ctx, state = attend(h_att, state, x, memory, mtb, mask_add, bundle)
         h_gen, c_gen = gate((h_att, ctx, h_gen), h_gen, c_gen, bundle,
                             "gen", zoneout_h, zoneout_c)
         frame, stop = proj(h_gen, ctx, bundle)
@@ -624,12 +763,12 @@ def _run_chunk(ops, bundle, carry, memory, memory_transform, mask, seeds,
         stops.append(stop)
     new_carry = {"h_att": h_att, "c_att": c_att, "h_gen": h_gen,
                  "c_gen": c_gen, "context": ctx, "frame": frame,
-                 "att_state": {"weights": cum}}
+                 "att_state": state}
     return new_carry, (torch.stack(frames, 1), torch.stack(stops, 1))
 
 
 class _ChunkKernels:
-    """The four kernel functions of one chunk on the card, with the
+    """The kernel functions of one chunk on the card, with the
     signatures of the plain ones, and every buffer they write allocated once
     for the chunk: the row pass's scratch, the head's split-K scratch, the
     head row (written by the generator LSTM and ``lsa_attention``, read by
@@ -658,17 +797,16 @@ class _ChunkKernels:
         self.carries = {"att": (pair(b, hidden), pair(b, hidden)),
                         "gen": (pair(b, hidden), pair(b, hidden)),
                         "ctx": (pair(b, memory.shape[2]),
-                                pair(b, memory.shape[1]))}
+                                pair(b, memory.shape[1]), pair(b, 1))}
         self.frames = torch.empty(steps, b, bundle.head_w.shape[0] - 1,
                                   device=dev)
         self.stops = torch.empty(steps, b, device=dev)
         self.calls = {"att": 0, "gen": 0, "ctx": 0, "head": 0}
 
     def _next(self, which: str):
-        first, second = self.carries[which]
         i = self.calls[which] % 2
         self.calls[which] += 1
-        return first[i], second[i]
+        return tuple(c[i] for c in self.carries[which])
 
     def pre(self, frame, bundle, dropout_rate, seeds, step):
         return prenet(frame, bundle, dropout_rate, seeds, step, out=self.x)
@@ -679,9 +817,18 @@ class _ChunkKernels:
                          h_row=self.h_row if which == "gen" else None,
                          out=self._next(which))
 
-    def attend(self, h_att, cum, memory, mtb, mask_add, bundle):
-        return lsa_attention(h_att, cum, memory, mtb, mask_add, bundle,
-                             ctx_row=self.ctx_row, out=self._next("ctx"))
+    def attend(self, h_att, state, x, memory, mtb, mask_add, bundle):
+        ctx, w, tp = self._next("ctx")
+        if bundle.att_kind == "ls":
+            ctx, cum = lsa_attention(h_att, state["weights"], memory, mtb,
+                                     mask_add, bundle, ctx_row=self.ctx_row,
+                                     out=(ctx, w))
+            return ctx, {"weights": cum}
+        ctx, w, tp = fwd_attention(h_att, state["weights"],
+                                   state.get("t_prob"), memory, mtb, mask_add,
+                                   x, bundle, ctx_row=self.ctx_row,
+                                   out=(ctx, w, tp))
+        return ctx, _fwd_state(w, tp)
 
     def proj(self, h_gen, ctx, bundle):
         s = self.calls["head"]
@@ -691,7 +838,7 @@ class _ChunkKernels:
                     out=(self.frames[s], self.stops[s]))
 
 
-_PLAIN = (prenet_plain, gate_lstm_plain, lsa_attention_plain, head_plain)
+_PLAIN = (prenet_plain, gate_lstm_plain, attention_plain, head_plain)
 
 
 @torch.no_grad()

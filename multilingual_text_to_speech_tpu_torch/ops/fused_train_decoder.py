@@ -41,6 +41,20 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   inside the launch that computes its input's last term; its wrapper runs
   it alone.
 
+The forward-attention family (``TrainConfig.att_kind`` "fwd" or
+"fwd_trans") runs the same loops with ``train_attention`` and ``att_bwd``
+at their family variant: the unmasked softmax energy without a location
+conv, the shift recurrence, the mask, the 1e-6 floor and the renorm, the
+state ``w`` (not ``cum + w``); with the transition agent, K2 also computes
+the next ``t_prob`` from the float32 context, ``h_att`` and prenet output
+(a ``t_prob`` stream), and K3's ``att_bwd`` runs the agent's backward in
+its prologue: ``dlin = dtp * tp * (1 - tp)``, its context term into the
+context cotangent it consumes, its ``h_att`` term into the attention
+cell's h cotangent (complete by then) and its prenet term into ``dx``,
+to which the attention gates' product then adds.  The agent's weight
+gradients are row sums over the streams outside the kernels
+(``pallas_train_decoder.py:1472-1490``).
+
 An eval forward (``TrainConfig.train`` False, the JAX package's
 ``make_train_decode_fn(train=False)``) runs the same K2 kernels with
 zoneout's deterministic interpolation, no dropout on the LSTM outputs
@@ -79,7 +93,10 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multilingual_text_to_speech_tpu_torch.models.attention import NEG_INF
+from multilingual_text_to_speech_tpu_torch.models.attention import (
+    NEG_INF,
+    att_kind_of,
+)
 from multilingual_text_to_speech_tpu_torch.ops import _splitk
 from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     _M32,
@@ -101,11 +118,23 @@ _K_ALIGN = 64   # concat rows and gate weights are zero-padded to this
 # epilogue, which its own kernel's count holds too
 LAUNCHES: Dict[str, int] = {k: 0 for k in (
     "train_prenet", "train_gate_lstm", "train_query", "train_attention",
-    "train_head", "bwd_head", "bwd_cell", "bwd_gemm", "att_bwd",
-    "bwd_prenet")}
+    "train_attention_fwd", "train_head", "bwd_head", "bwd_cell", "bwd_gemm",
+    "att_bwd", "att_bwd_fwd", "bwd_prenet")}
+# the kernels of the location-sensitive path; the forward family's path
+# runs the "_fwd" variants of the attention kernels instead (path_kernels)
 K2_KERNELS = ("train_prenet", "train_gate_lstm", "train_query",
               "train_attention", "train_head")
 K3_KERNELS = ("bwd_head", "bwd_cell", "bwd_gemm", "att_bwd", "bwd_prenet")
+
+
+def path_kernels(att_kind: str) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The K2 and K3 kernels (``LAUNCHES`` keys) that a training decode at
+    ``att_kind`` launches."""
+    if att_kind == "ls":
+        return K2_KERNELS, K3_KERNELS
+    fwd = {"train_attention": "train_attention_fwd", "att_bwd": "att_bwd_fwd"}
+    return (tuple(fwd.get(k, k) for k in K2_KERNELS),
+            tuple(fwd.get(k, k) for k in K3_KERNELS))
 
 
 def reset_launch_counts() -> None:
@@ -142,6 +171,7 @@ class TrainConfig:
     use_zoneout: bool
     dtype: torch.dtype
     train: bool = True        # False: the eval/GTA forward, no backward
+    att_kind: str = "ls"      # "ls", "fwd" or "fwd_trans"
 
     @classmethod
     def from_hp(cls, hp, mem_dim: int, dtype: torch.dtype,
@@ -156,7 +186,16 @@ class TrainConfig:
             dropout_rate=float(hp.dropout),
             zoneout_h=float(hp.zoneout_hidden if zo else hp.dropout_hidden),
             zoneout_c=float(hp.zoneout_cell) if zo else 0.0,
-            use_zoneout=zo, dtype=dtype, train=bool(train))
+            use_zoneout=zo, dtype=dtype, train=bool(train),
+            att_kind=att_kind_of(hp.attention_type))
+
+    @property
+    def family(self) -> bool:                  # the forward family
+        return self.att_kind != "ls"
+
+    @property
+    def agent(self) -> bool:                   # the transition agent
+        return self.att_kind == "fwd_trans"
 
     @property
     def ka(self) -> int:                       # [x | ctx | h_att]
@@ -210,11 +249,55 @@ class CellArgs(NamedTuple):
     reg: Tuple
 
 
-# operand keys in the order ``TrainDecode`` takes them; the biases and v
-# stay float32, the rest is cast to the compute type
+class AgentArgs(NamedTuple):
+    """The transition agent's operands in K2's ``train_attention``: the
+    t_prob carry ``tp`` [B] (float32, updated in place), its stream
+    ``tp_out`` [B] (float32; None in an eval forward), the step's ``h_att``
+    [B, H] and prenet output ``x`` [B, P] (float32), and the agent's weight
+    ``w`` [Mem + H + P] and bias ``b`` [1] (float32)."""
+    tp: torch.Tensor
+    tp_out: Optional[torch.Tensor]
+    h_att: torch.Tensor
+    x: torch.Tensor
+    w: torch.Tensor
+    b: torch.Tensor
+
+
+class FamilyBwd(NamedTuple):
+    """The forward family's operands in K3's ``att_bwd``: the additive
+    ``mask_add`` [B, T]; with the transition agent, the t_prob that the
+    step's recurrence read ``tp_prev`` [B] and the one the step made ``tp``
+    [B] (float32 streams), the t_prob cotangent carry ``dtp`` [B] (float32,
+    replaced), the pre-sigmoid gradient stream ``dlin`` [B] (float32,
+    written), the agent's weight ``w`` [Mem + H + P] (float32), the
+    attention LSTM's h cotangent ``dh_att`` [B, H] (float32, added to) and
+    the prenet output's ``dx`` [B, P] (float32, written)."""
+    mask_add: torch.Tensor
+    tp_prev: Optional[torch.Tensor] = None
+    tp: Optional[torch.Tensor] = None
+    dtp: Optional[torch.Tensor] = None
+    dlin: Optional[torch.Tensor] = None
+    w: Optional[torch.Tensor] = None
+    dh_att: Optional[torch.Tensor] = None
+    dx: Optional[torch.Tensor] = None
+
+
+# operand keys in the order ``TrainDecode`` takes them (location-sensitive;
+# ``operand_keys`` gives each attention kind's); the biases, v and the
+# transition agent stay float32, the rest is cast to the compute type
 OPERAND_KEYS = ("pre_w", "pre_b", "att_w", "att_b", "gen_w", "gen_b", "wq",
                 "lc", "v", "head_w", "head_b")
-_F32_KEYS = ("pre_b", "att_b", "gen_b", "v", "head_b")
+_F32_KEYS = ("pre_b", "att_b", "gen_b", "v", "head_b", "ta_w", "ta_b")
+
+
+def operand_keys(cfg: "TrainConfig") -> Tuple[str, ...]:
+    """``TrainDecode``'s operand keys at ``cfg.att_kind``: the forward
+    family has no location conv ``lc``; the transition agent adds its
+    weight ``ta_w`` [Mem + H + P] and bias ``ta_b`` [1]."""
+    if not cfg.family:
+        return OPERAND_KEYS
+    keys = tuple(k for k in OPERAND_KEYS if k != "lc")
+    return keys + (("ta_w", "ta_b") if cfg.agent else ())
 
 
 def train_operands(cell, cfg: TrainConfig) -> Dict[str, torch.Tensor]:
@@ -223,35 +306,51 @@ def train_operands(cell, cfg: TrainConfig) -> Dict[str, torch.Tensor]:
     prenet kernels ``[in, out]`` concatenated flat; gate weights ``[4H,
     K_pad]`` (the ``nn.Linear`` layout, zero columns to a multiple of 64);
     ``lc = loc_filter @ location_kernel`` ``[K, A]``; the fused frame and
-    stop head ``[M + 1, K_pad]``."""
+    stop head ``[M + 1, K_pad]``; for the forward family the energy net's
+    query ``wq`` [H, A] and ``v`` [A], and the transition agent's weight
+    [context | h_att | prenet output] and bias."""
     fcs = [getattr(cell.prenet, f"fc{i}") for i in range(cfg.n_prenet)]
     att = cell.attention
     att_g = cell.attention_lstm.cell.gates
     gen_g = cell.generator_lstm.cell.gates
     head = torch.cat([cell.frame_prediction.weight,
                       cell.stop_prediction.weight], 0)
-    return {
+    ops = {
         "pre_w": torch.cat([fc.weight.t().reshape(-1) for fc in fcs]),
         "pre_b": torch.cat([fc.bias for fc in fcs]),
         "att_w": F.pad(att_g.weight, (0, _pad64(cfg.ka) - cfg.ka)),
         "att_b": att_g.bias,
         "gen_w": F.pad(gen_g.weight, (0, _pad64(cfg.kg) - cfg.kg)),
         "gen_b": gen_g.bias,
-        "wq": att.query_kernel,
-        "lc": att.loc_filter[:, 0, :] @ att.location_kernel,
-        "v": att.energy_kernel.reshape(-1),
         "head_w": F.pad(head, (0, _pad64(cfg.kh) - cfg.kh)),
         "head_b": torch.cat([cell.frame_prediction.bias,
                              cell.stop_prediction.bias]),
     }
+    if cfg.family:
+        ops["wq"] = att.energy_net.query.weight.t()
+        ops["v"] = att.energy_net.energy.weight.reshape(-1)
+    else:
+        ops["wq"] = att.query_kernel
+        ops["lc"] = att.loc_filter[:, 0, :] @ att.location_kernel
+        ops["v"] = att.energy_kernel.reshape(-1)
+    if cfg.agent:
+        ops["ta_w"] = att.transition_agent.weight.reshape(-1)
+        ops["ta_b"] = att.transition_agent.bias
+    return ops
 
 
 def compute_operands(ops: Dict[str, torch.Tensor], cfg: TrainConfig
                      ) -> Dict[str, torch.Tensor]:
-    """The operands as the kernels read them: biases and v in float32, the
-    rest in the compute type, contiguous."""
+    """The operands as the kernels read them: biases, v and the transition
+    agent in float32, the rest in the compute type, contiguous."""
     return {k: (w.float() if k in _F32_KEYS else w.to(cfg.dtype)).contiguous()
             for k, w in ops.items()}
+
+
+def agent_parts(w: torch.Tensor, mem_dim: int, hidden: int):
+    """The transition agent's weight [Mem + H + P] split into its context,
+    h_att and prenet-output parts (views)."""
+    return torch.split(w, [mem_dim, hidden, w.numel() - mem_dim - hidden])
 
 
 def prenet_layers(ops, cfg: TrainConfig):
@@ -351,6 +450,51 @@ def train_attention_plain(q, cum, memory, mtb, mask_add, lc, v):
     return w, cum + w, ctx
 
 
+def fwd_energy_tanh(q, mtb, d):
+    """The forward family's energy terms bf16(tanh(bf16(q + mtb))) [B, T,
+    A]: no location conv."""
+    return _rounded(torch.tanh(_rounded(q[:, None, :] + mtb.float(), d)), d)
+
+
+def _shift(w: torch.Tensor) -> torch.Tensor:
+    """``shift(w)[t] = w[t - 1]``, ``shift(w)[0] = 0``."""
+    return F.pad(w, (1, 0))[:, :-1]
+
+
+def _shift_t(w: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``_shift``: ``w[t + 1]``, 0 at the last position."""
+    return F.pad(w[:, 1:], (0, 1))
+
+
+def train_fwd_attention_plain(q, prev, tp, memory, mtb, mask_add, v):
+    """The forward family's step (``pallas_train_decoder.py:483-521``) ->
+    (w [B, T], ctx [B, Mem]), float32: the unmasked softmax energy, the
+    recurrence on ``prev`` (the last step's weights, float32) with the
+    compute-type shifted weights, gated by ``tp`` [B] (None without the
+    transition agent), then the mask, the 1e-6 floor and the renorm.  The
+    state after the step is ``w``."""
+    d = memory.dtype
+    energy = torch.softmax((fwd_energy_tanh(q, mtb, d) * v).sum(-1), dim=-1)
+    shifted = _shift(_rounded(prev, d))
+    comb = prev + shifted if tp is None else (
+        (1.0 - tp[:, None]) * prev + tp[:, None] * shifted)
+    w = torch.where(mask_add > -0.5, comb * energy, torch.zeros_like(comb))
+    w = torch.clamp(w, min=1e-6)
+    w = w / w.sum(-1, keepdim=True)
+    ctx = _rounded(memory.float() * _rounded(w, d)[:, :, None], d).sum(1)
+    return w, ctx
+
+
+def transition_plain(ctx, h_att, x, w, b):
+    """K2's transition agent (``pallas_train_decoder.py:523-536``): ``tp =
+    sigmoid(ctx . w_c + h_att . w_q + x . w_x + b)`` [B], float32 row sums
+    of float32 operands."""
+    wc, wq, wx = agent_parts(w, ctx.shape[1], h_att.shape[1])
+    lin = ((ctx.float() * wc).sum(-1) + (h_att.float() * wq).sum(-1)
+           + (x.float() * wx).sum(-1))
+    return torch.sigmoid(lin + b)
+
+
 def train_head_plain(row, head_w, head_b):
     """[B, K_pad] head row -> (frame [B, M], stop logit [B])."""
     fv = _mm(row, head_w.t()) + head_b
@@ -415,6 +559,49 @@ def att_bwd_plain(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum):
             dcum + dcum_inc)
 
 
+def fwd_att_bwd_plain(q, cum_s, w_s, memory, mtb, mask_add, v, dctx,
+                      dw_out, dcum, tp_prev):
+    """The forward family's attention backward of one step
+    (``pallas_train_decoder.py:857-896``) -> (dq [B, A], dmt [B, T, A], dv
+    [B, A], the cotangent of the state before the step [B, T], dtp [B] or
+    None).  It replays the energy softmax and the recurrence from the
+    stored state ``cum_s`` (compute type) and ``tp_prev`` [B] (None without
+    the agent), then runs the renorm's, the floor's (where the masked
+    weights exceed 1e-6), the recurrence's and the softmax's backward.  The
+    state cotangent is assigned, not added: the state is ``w``."""
+    d = memory.dtype
+    dw = dw_out + dcum + (memory.float() * dctx[:, None, :]).sum(-1)
+    tz = fwd_energy_tanh(q, mtb, d)
+    energy = torch.softmax((tz * v).sum(-1), dim=-1)
+    prev = cum_s.float()
+    shifted = _shift(prev)
+    comb = prev + shifted if tp_prev is None else (
+        (1.0 - tp_prev[:, None]) * prev + tp_prev[:, None] * shifted)
+    wm = torch.where(mask_add > -0.5, comb * energy, torch.zeros_like(comb))
+    s_norm = torch.clamp(wm, min=1e-6).sum(-1, keepdim=True)
+    dwc = (dw - (dw * w_s).sum(-1, keepdim=True)) / s_norm
+    dw_raw = torch.where(wm > 1e-6, dwc, torch.zeros_like(dwc))
+    denergy, dcomb = dw_raw * comb, dw_raw * energy
+    if tp_prev is None:
+        dcum_new, dtp = dcomb + _shift_t(_rounded(dcomb, d)), None
+    else:
+        t = tp_prev[:, None]
+        dcum_new = (1.0 - t) * dcomb + _shift_t(_rounded(t * dcomb, d))
+        dtp = (dcomb * (shifted - prev)).sum(-1)
+    de = energy * (denergy - (denergy * energy).sum(-1, keepdim=True))
+    dz = de[:, :, None] * v * (1.0 - tz * tz)
+    return dz.sum(1), dz, (tz * de[:, :, None]).sum(1), dcum_new, dtp
+
+
+def agent_bwd_plain(dtp, tp, w, mem_dim: int, hidden: int):
+    """The transition agent's backward (``pallas_train_decoder.py:
+    759-785``) -> (dlin [B], its context, h_att and prenet-output terms):
+    ``dlin = dtp * tp * (1 - tp)`` times each weight part."""
+    dlin = dtp * tp * (1.0 - tp)
+    return (dlin, *(dlin[:, None] * part
+                    for part in agent_parts(w, mem_dim, hidden)))
+
+
 def bwd_prenet_plain(dx, outs, ops, cfg: TrainConfig):
     """Layers in reverse -> (pre-ReLU grads per layer, d input frame)."""
     rate = cfg.dropout_rate
@@ -434,9 +621,10 @@ def bwd_prenet_plain(dx, outs, ops, cfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 def _train_prenet_plain_into(shifted_s, frame, teacher: int, ops, cfg,
-                             seeds, gs, raw_out, pre_out, dst):
+                             seeds, gs, raw_out, pre_out, dst, x_out=None):
     """``train_prenet``'s plain version, written into its outputs (the
-    streams ``raw_out`` and ``pre_out`` may be None)."""
+    streams ``raw_out`` and ``pre_out`` and the float32 copy of the output
+    ``x_out`` may be None)."""
     raw = shifted_s.float() if teacher else frame
     outs = train_prenet_plain(raw, ops, cfg, seeds, gs)
     _copy(raw_out, raw)
@@ -444,6 +632,7 @@ def _train_prenet_plain_into(shifted_s, frame, teacher: int, ops, cfg,
         for i, o in enumerate(outs):
             pre_out[i].copy_(o)
     dst.copy_(outs[-1])
+    _copy(x_out, outs[-1])
 
 
 def _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out, c_out,
@@ -466,11 +655,23 @@ def _train_query_plain_into(h, wq, q_out, scratch=None):
 
 
 def _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc, v, w_out,
-                                cum_out, ctx, ctx_dsts):
+                                cum_out, ctx, ctx_dsts,
+                                agent: Optional[AgentArgs] = None):
     """``train_attention``'s plain version, written into its outputs (the
-    stream ``cum_out`` may be None)."""
-    w, cum_new, c = train_attention_plain(q, cum, memory, mtb, mask_add,
-                                          lc, v)
+    stream ``cum_out`` may be None); ``lc`` None runs the forward family's
+    step, with the transition ``agent`` when given."""
+    if lc is None:
+        w, c = train_fwd_attention_plain(
+            q, cum, None if agent is None else agent.tp, memory, mtb,
+            mask_add, v)
+        cum_new = w
+        if agent is not None:
+            tp = transition_plain(c, agent.h_att, agent.x, agent.w, agent.b)
+            agent.tp.copy_(tp)
+            _copy(agent.tp_out, tp)
+    else:
+        w, cum_new, c = train_attention_plain(q, cum, memory, mtb, mask_add,
+                                              lc, v)
     w_out.copy_(w)
     _copy(cum_out, cum)
     cum.copy_(cum_new)
@@ -530,12 +731,29 @@ def _bwd_gemm_plain_into(a, b, b_kn: bool, segments, a_km: bool = False,
 
 
 def _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out,
-                        dcum, dmt, dlc, dv, dq_out, dctx_out):
-    """``att_bwd``'s plain version, written into its outputs."""
-    dq, dz, dl, dvv, dcum_new = att_bwd_plain(q, cum_s, w_s, memory, mtb,
-                                             lc, v, dctx, dw_out, dcum)
+                        dcum, dmt, dlc, dv, dq_out, dctx_out,
+                        fam: Optional[FamilyBwd] = None):
+    """``att_bwd``'s plain version, written into its outputs; with
+    ``fam`` the forward family's (``lc`` and ``dlc`` None), the transition
+    agent's backward first when ``fam.dtp`` is given."""
+    if fam is not None:
+        if fam.dtp is not None:
+            dlin, d_c, d_h, d_x = agent_bwd_plain(
+                fam.dtp, fam.tp, fam.w, dctx.shape[1], fam.dh_att.shape[1])
+            dctx = dctx + d_c
+            fam.dh_att.add_(d_h)
+            fam.dx.copy_(d_x)
+            fam.dlin.copy_(dlin)
+        dq, dz, dvv, dcum_new, dtp = fwd_att_bwd_plain(
+            q, cum_s, w_s, memory, mtb, fam.mask_add, v, dctx, dw_out, dcum,
+            fam.tp_prev)
+        if dtp is not None:
+            fam.dtp.copy_(dtp)
+    else:
+        dq, dz, dl, dvv, dcum_new = att_bwd_plain(
+            q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum)
+        dlc += dl
     dmt += dz
-    dlc += dl
     dv += dvv
     dcum.copy_(dcum_new)
     dq_out.copy_(dq)
@@ -563,8 +781,8 @@ _P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 _REG = [_U, _U, _U, _U, _U, _U, _I, _F, _F, _F]
 _CELL = [_P] * 5 + [_I] + _REG          # act, c_prev, dc, dg, dh_reg, H, reg
 _SIGNATURES = {
-    "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _I, _I,
-                            _I, _I, _U, _U, _U, _U, _F, _I, _I, _I, _P],
+    "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _I,
+                            _I, _I, _I, _U, _U, _U, _U, _F, _I, _I, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I,
                          _P, _I] + _REG + [_P],
     "query_launch": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
@@ -573,12 +791,15 @@ _SIGNATURES = {
                        + [_I, _I, _P, _I, _P, _I] * 3 + [_P],
     "train_attention_launch": [_P] * 10 + [_P, _I, _P, _I, _P, _I]
                               + [_I] * 7 + [_P],
+    "train_fwd_attention_launch": [_P] * 9 + [_P, _I, _P, _I, _P, _I]
+                                  + [_P] * 6 + [_I] * 9 + [_P],
     "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I]
                        + _CELL + [_P],
     "bwd_cell_launch": [_P, _I] + _CELL + [_P],
     "bwd_gemm_cell_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I]
                             + _CELL + [_P],
     "att_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
+    "fwd_att_bwd_launch": [_P] * 21 + [_I] * 9 + [_P],
     "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
                           _I, _F, _I, _I, _I, _P],
 }
@@ -644,26 +865,29 @@ def _copy(out: Optional[torch.Tensor], value: torch.Tensor) -> None:
 
 
 def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
-                 raw_out, pre_out, dst):
+                 raw_out, pre_out, dst, x_out=None):
     """Kernel ``train_prenet``: the input frame (``shifted_s`` at a teacher
     step, the ``frame`` carry otherwise) -> ``raw_out`` [B, M], each
     layer's output ``pre_out`` [layers, B, P] and the last layer into
     ``dst`` [B, P] (bf16; the streams ``raw_out`` and ``pre_out`` may be
-    None).  One launch: a cluster of CTAs for each 16 rows, each CTA a
-    column slice of every layer (``prenet_split``), as the serving
-    decoder's ``prenet``."""
+    None) and, when given, into ``x_out`` [B, P] in float32 (the
+    transition agent's input).  One launch: a cluster of CTAs for each 16
+    rows, each CTA a column slice of every layer (``prenet_split``), as the
+    serving decoder's ``prenet``."""
     if not _is_cuda(frame):
         return _train_prenet_plain_into(shifted_s, frame, teacher, ops, cfg,
-                                        seeds, gs, raw_out, pre_out, dst)
+                                        seeds, gs, raw_out, pre_out, dst,
+                                        x_out)
     for t in (raw_out, pre_out, dst, ops["pre_w"]):
         _require(t, torch.bfloat16, "train_prenet operands")
+    _require(x_out, torch.float32, "train_prenet x_out")
     b = frame.shape[0]
     rate = cfg.dropout_rate
     cluster, cols_p, _ = prenet_split(cfg.mmel, cfg.prenet_dim)
     _launch("train_prenet", "train_prenet_launch",
             _ptr(shifted_s), _ptr(frame), int(bool(teacher)),
             _ptr(ops["pre_w"]), _ptr(ops["pre_b"]), _ptr(raw_out),
-            _ptr(pre_out), _ld(pre_out), _ptr(dst), _ld(dst), b,
+            _ptr(pre_out), _ld(pre_out), _ptr(dst), _ld(dst), _ptr(x_out), b,
             cfg.mmel, cfg.prenet_dim, cfg.n_prenet, seeds[0] & _M32,
             seeds[1] & _M32, cfg.prenet_salt(gs),
             keep_threshold(rate) if rate > 0.0 else 0,
@@ -710,16 +934,20 @@ def train_query(h, wq, q_out, scratch=None):
 
 
 def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
-                    ctx, ctx_dsts):
+                    ctx, ctx_dsts, agent: Optional[AgentArgs] = None):
     """Kernel ``train_attention``: updates the float32 carries ``cum`` and
     ``ctx`` in place, writes the weights ``w_out`` [B, T] (float32), the
     cum before the step ``cum_out`` (bf16; may be None) and the context
     into each of ``ctx_dsts`` (bf16; the last may be None).  Each batch
     row is a cluster of CTAs over tiles of its positions
-    (``att_bwd_tiles``)."""
+    (``att_bwd_tiles``).  With ``lc`` None it runs the forward family's
+    variant (``LAUNCHES["train_attention_fwd"]``; the carry ``cum`` holds
+    the last step's weights and receives the new ones), with the
+    transition ``agent`` when given."""
     if not _is_cuda(q):
         return _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc,
-                                           v, w_out, cum_out, ctx, ctx_dsts)
+                                           v, w_out, cum_out, ctx, ctx_dsts,
+                                           agent)
     for t in (memory, mtb, lc, cum_out,
               *[x for x in ctx_dsts if x is not None]):
         _require(t, torch.bfloat16, "train_attention operands")
@@ -728,6 +956,22 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
         raise ValueError(f"train_attention takes T <= 512, got {t_len}")
     tile, cluster = att_bwd_tiles(t_len)
     d0, d1, d2 = ctx_dsts
+    if lc is None:
+        a = agent
+        if a is not None:
+            for t in (a.tp, a.tp_out, a.h_att, a.x, a.w, a.b):
+                _require(t, torch.float32, "train_attention agent operands")
+        _launch("train_attention_fwd", "train_fwd_attention_launch",
+                _ptr(q), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
+                _ptr(v), _ptr(w_out), _ptr(cum_out), _ptr(ctx), _ptr(d0),
+                _ld(d0), _ptr(d1), _ld(d1), _ptr(d2), _ld(d2),
+                *(_ptr(None if a is None else getattr(a, k)) for k in (
+                    "tp", "tp_out", "h_att", "x", "w", "b")),
+                b, t_len, q.shape[1], mem_dim,
+                0 if a is None else a.h_att.shape[1],
+                0 if a is None else a.x.shape[1], tile, cluster,
+                int(a is not None))
+        return
     _launch("train_attention", "train_attention_launch",
             _ptr(q), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
             _ptr(lc), _ptr(v), _ptr(w_out), _ptr(cum_out), _ptr(ctx),
@@ -841,20 +1085,38 @@ def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
 
 
 def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
-            dv, dq_out, dctx_out):
+            dv, dq_out, dctx_out, fam: Optional[FamilyBwd] = None):
     """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
     A], ``dlc`` [B, K, A], ``dv`` [B, A] and the cum cotangent ``dcum``;
     writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (bf16).  Each batch
     row is a cluster of CTAs over tiles of its positions
-    (``att_bwd_tiles``)."""
+    (``att_bwd_tiles``).  With ``fam`` it runs the forward family's variant
+    (``LAUNCHES["att_bwd_fwd"]``; ``lc`` and ``dlc`` None; ``dcum`` is the
+    state's cotangent and is replaced), with the transition agent's
+    backward in its prologue when ``fam.dtp`` is given."""
     if not _is_cuda(q):
         return _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx,
                                    dw_out, dcum, dmt, dlc, dv, dq_out,
-                                   dctx_out)
+                                   dctx_out, fam)
     b, t_len, mem_dim = memory.shape
     if t_len > 512:
         raise ValueError(f"att_bwd takes T <= 512, got {t_len}")
     tile, cluster = att_bwd_tiles(t_len)
+    if fam is not None:
+        trans = fam.dtp is not None
+        for t in (fam.mask_add, *((fam.tp_prev, fam.tp, fam.dtp, fam.dlin,
+                                   fam.w, fam.dh_att, fam.dx) if trans
+                                  else ())):
+            _require(t, torch.float32, "att_bwd family operands")
+        _launch("att_bwd_fwd", "fwd_att_bwd_launch", _ptr(q), _ptr(cum_s),
+                _ptr(w_s), _ptr(memory), _ptr(mtb), _ptr(fam.mask_add),
+                _ptr(v), _ptr(dctx), _ptr(dw_out), _ptr(dcum), _ptr(dmt),
+                _ptr(dv), _ptr(dq_out), _ptr(dctx_out), _ptr(fam.tp_prev),
+                _ptr(fam.tp), _ptr(fam.dtp), _ptr(fam.dlin), _ptr(fam.w),
+                _ptr(fam.dh_att), _ptr(fam.dx), b, t_len, q.shape[1],
+                mem_dim, fam.dh_att.shape[1] if trans else 0,
+                fam.dx.shape[1] if trans else 0, tile, cluster, int(trans))
+        return
     _launch("att_bwd", "att_bwd_launch", _ptr(q), _ptr(cum_s), _ptr(w_s),
             _ptr(memory), _ptr(mtb), _ptr(lc), _ptr(v), _ptr(dctx),
             _ptr(dw_out), _ptr(dcum), _ptr(dmt), _ptr(dlc), _ptr(dv),
@@ -920,6 +1182,20 @@ def _zeros(*shape, like, dtype=torch.float32):
     return torch.zeros(*shape, dtype=dtype, device=like.device)
 
 
+def initial_state(cfg: TrainConfig, b: int, t_len: int, device
+                  ) -> Dict[str, torch.Tensor]:
+    """The attention state of the first step (float32): ``cum`` zero, or
+    for the forward family all mass on token 0, and the transition agent's
+    ``tp`` [B] at 0.5."""
+    cum = torch.zeros(b, t_len, device=device)
+    if not cfg.family:
+        return {"cum": cum}
+    cum[:, 0] = 1.0
+    if not cfg.agent:
+        return {"cum": cum}
+    return {"cum": cum, "tp": torch.full((b,), 0.5, device=device)}
+
+
 def _pass_scratch(plain: bool, products, like: torch.Tensor):
     """The one split-K scratch of a decoder pass (``_splitk.splitk_scratch``)
     for the kernels; None for the plain versions and on the CPU."""
@@ -957,21 +1233,25 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
     rows = {"att_in": z(n_rows, b, _pad64(cfg.ka)),
             "gen_in": z(n_rows, b, _pad64(cfg.kg)),
             "head_in": z(n_rows, b, _pad64(cfg.kh))}
+    f32 = torch.float32
     if cfg.train:
         st.update(rows, raw=z(n_f, b, m), pre=z(cfg.n_prenet, n_f, b, p),
                   act_att=z(n_f, b, 4 * h), act_gen=z(n_f, b, 4 * h),
                   c_att=z(n_f, b, h), c_gen=z(n_f, b, h),
                   cum=z(n_f, b, t_len))
+        if cfg.agent:
+            st["tp"] = z(n_f, b, dtype=f32)
 
     def stream(name, s):
         return st[name][s] if cfg.train else None
 
-    f32 = torch.float32
     carry = {"h_att": z(b, h, dtype=f32), "c_att": z(b, h, dtype=f32),
              "h_gen": z(b, h, dtype=f32), "c_gen": z(b, h, dtype=f32),
              "ctx": z(b, mem, dtype=f32), "frame": z(b, m, dtype=f32),
-             "cum": z(b, t_len, dtype=f32)}
+             **initial_state(cfg, b, t_len, memory.device)}
     q = z(b, cfg.att_dim, dtype=f32)
+    # the transition agent reads the prenet output in float32
+    x32 = z(b, p, dtype=f32) if cfg.agent else None
     f = PLAIN if plain else KERNELS
     scratch = _pass_scratch(
         plain, [(b, cfg.att_dim, h), (b, m + 1, _pad64(cfg.kh))], memory)
@@ -983,17 +1263,22 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
         nxt_g = None if last else rows["gen_in"][(s + 1) % n_rows]
         f.train_prenet(shifted[s], carry["frame"], teacher[s], ops, cfg, seeds,
                      s, stream("raw", s),
-                     st["pre"][:, s] if cfg.train else None, att_in[:, :p])
+                     st["pre"][:, s] if cfg.train else None, att_in[:, :p],
+                     x_out=x32)
         f.train_gate_lstm(att_in, ops["att_w"], ops["att_b"],
                         cfg.reg("att", seeds, s), carry["h_att"],
                         carry["c_att"], stream("act_att", s),
                         stream("c_att", s), gen_in[:, :h],
                         None if last else nxt_a[:, p + mem:p + mem + h])
         f.train_query(gen_in[:, :h], ops["wq"], q, scratch=scratch)
-        f.train_attention(q, carry["cum"], memory, mtb, mask_add, ops["lc"],
-                        ops["v"], st["w"][s], stream("cum", s), carry["ctx"],
+        f.train_attention(q, carry["cum"], memory, mtb, mask_add,
+                        ops.get("lc"), ops["v"], st["w"][s],
+                        stream("cum", s), carry["ctx"],
                         (gen_in[:, h:h + mem], head_in[:, h:h + mem],
-                         None if last else nxt_a[:, p:p + mem]))
+                         None if last else nxt_a[:, p:p + mem]),
+                        agent=AgentArgs(carry["tp"], stream("tp", s),
+                                        carry["h_att"], x32, ops["ta_w"],
+                                        ops["ta_b"]) if cfg.agent else None)
         f.train_gate_lstm(gen_in, ops["gen_w"], ops["gen_b"],
                         cfg.reg("gen", seeds, s), carry["h_gen"],
                         carry["c_gen"], stream("act_gen", s),
@@ -1006,14 +1291,17 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
 
 def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
                           teacher: Sequence[int], seeds: Seeds, dspec, dstop,
-                          dw, plain: bool = False):
+                          dw, plain: bool = False, mask_add=None):
     """K3 over all F steps in reverse, then the weight gradients.  ``st``
     holds the forward's streams; ``dspec`` [F, B, M], ``dstop`` [F, B],
-    ``dw`` [F, B, T] are the output cotangents (float32).  -> ``(grads,
+    ``dw`` [F, B, T] are the output cotangents (float32); the forward
+    family's backward replays the mask, ``mask_add``.  -> ``(grads,
     streams, carry)``: the gradient of every operand of
     ``train_operands`` plus ``memory``, ``mtb`` and ``shifted``; the
     per-step gradient streams; the final cotangent carry (that of the
     initial decoder state)."""
+    if cfg.family and mask_add is None:
+        raise ValueError("the forward family's backward needs mask_add")
     n_f, b = dspec.shape[:2]
     t_len = memory.shape[1]
     d = cfg.dtype
@@ -1030,10 +1318,16 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
          "da_pre": z(cfg.n_prenet, n_f, b, p, dtype=d),
          "dctx": z(n_f, b, mem, dtype=d), "dshift": z(n_f, b, m, dtype=d),
          "dq": z(n_f, b, a, dtype=d)}
-    acc = {"dmt": z(b, t_len, a), "dlc": z(b, cfg.taps, a), "dv": z(b, a)}
+    acc = {"dmt": z(b, t_len, a), "dv": z(b, a)}
+    if not cfg.family:
+        acc["dlc"] = z(b, cfg.taps, a)
     carry = {"h_att": z(b, h), "c_att": z(b, h), "h_gen": z(b, h),
              "c_gen": z(b, h), "ctx": z(b, mem), "frame": z(b, m),
              "cum": z(b, t_len)}
+    if cfg.agent:
+        carry["tp"] = z(b)
+        g["dlin"] = z(n_f, b)
+        tp0 = initial_state(cfg, b, t_len, memory.device)["tp"]
     dh_att_tot, dh_reg = z(b, h), z(b, h)
     dctx_tot, dx, q = z(b, mem), z(b, p), z(b, a)
     f = PLAIN if plain else KERNELS
@@ -1057,17 +1351,26 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
                   (h + mem, 2 * h + mem, carry["h_gen"], dh_reg)],
                  scratch=scratch)
         f.train_query(st["gen_in"][s][:, :h], ops["wq"], q, scratch=scratch)
-        f.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops["lc"],
+        fam = None
+        if cfg.agent:
+            fam = FamilyBwd(mask_add, st["tp"][s - 1] if s else tp0,
+                            st["tp"][s], carry["tp"], g["dlin"][s],
+                            ops["ta_w"], dh_att_tot, dx)
+        elif cfg.family:
+            fam = FamilyBwd(mask_add)
+        f.att_bwd(q, st["cum"][s], st["w"][s], memory, mtb, ops.get("lc"),
                 ops["v"], dctx_tot, dw[s], carry["cum"], acc["dmt"],
-                acc["dlc"], acc["dv"], g["dq"][s], g["dctx"][s])
+                acc.get("dlc"), acc["dv"], g["dq"][s], g["dctx"][s], fam=fam)
         f.bwd_gemm(g["dq"][s], ops["wq"], False,
                  [(0, h, None, dh_att_tot)], scratch=scratch,
                  cell=CellArgs(st["act_att"][s],
                                st["c_att"][s - 1] if s else None,
                                carry["c_att"], g["dg_att"][s], dh_reg,
                                cfg.reg("att", seeds, s)))
+        # the agent's prenet term is in dx already: the product adds to it
         f.bwd_gemm(g["dg_att"][s], ops["att_w"], True,
-                 [(0, p, dx, None), (p, p + mem, carry["ctx"], None),
+                 [(0, p, dx, dx if cfg.agent else None),
+                  (p, p + mem, carry["ctx"], None),
                   (p + mem, p + mem + h, carry["h_att"], dh_reg)],
                  scratch=scratch)
         f.bwd_prenet(dx, st["pre"][:, s], ops, cfg, teacher[s],
@@ -1093,12 +1396,22 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
             for i, x in enumerate(pre_in)]),
         "pre_b": g["da_pre"].float().sum((1, 2)).reshape(-1),
         "wq": d_wq,
-        "lc": acc["dlc"].sum(0),
         "v": acc["dv"].sum(0),
         "mtb": acc["dmt"],
         "memory": torch.einsum("sbt,sbm->btm", st["w"], g["dctx"].float()),
         "shifted": g["dshift"].float(),
     }
+    if not cfg.family:
+        grads["lc"] = acc["dlc"].sum(0)
+    if cfg.agent:
+        # row sums of dlin against the streams the agent read: the context
+        # and h_att (the generator's concat row) and the prenet output
+        dlin = g["dlin"].reshape(1, -1)
+        grads["ta_w"] = torch.cat([
+            (dlin @ flat(x).float()).reshape(-1)
+            for x in (st["gen_in"][..., h:h + mem], st["gen_in"][..., :h],
+                      st["pre"][cfg.n_prenet - 1])])
+        grads["ta_b"] = g["dlin"].sum().reshape(1)
     return grads, g, carry
 
 
@@ -1106,8 +1419,8 @@ class TrainDecode(torch.autograd.Function):
     """K2 forward, K3 backward.  Inputs: the static ``cfg``, the ``teacher``
     flags and ``seeds``, then ``memory`` [B, T, Mem], ``mtb`` [B, T, A],
     ``mask_add`` [B, T], ``shifted`` [F, B, M] and the operands of
-    ``OPERAND_KEYS`` (float32; cast to the compute type inside).  Outputs
-    spec [F, B, M], stop [F, B], w [F, B, T] in float32."""
+    ``operand_keys(cfg)`` (float32; cast to the compute type inside).
+    Outputs spec [F, B, M], stop [F, B], w [F, B, T] in float32."""
 
     @staticmethod
     def forward(ctx, cfg, teacher, seeds, memory, mtb, mask_add, shifted,
@@ -1116,26 +1429,28 @@ class TrainDecode(torch.autograd.Function):
             raise ValueError("TrainDecode differentiates the train-mode "
                              "forward; an eval forward has no backward")
         d = cfg.dtype
-        ops = compute_operands(dict(zip(OPERAND_KEYS, weights)), cfg)
+        ops = compute_operands(dict(zip(operand_keys(cfg), weights)), cfg)
         mem_d, mtb_d = memory.to(d).contiguous(), mtb.to(d).contiguous()
+        mask_add = mask_add.float().contiguous()
         st, _ = train_decode_forward(
-            ops, cfg, mem_d, mtb_d, mask_add.float().contiguous(),
-            shifted.to(d).contiguous(), teacher, seeds)
+            ops, cfg, mem_d, mtb_d, mask_add, shifted.to(d).contiguous(),
+            teacher, seeds)
         ctx.cfg, ctx.teacher, ctx.seeds = cfg, teacher, seeds
         ctx.ops, ctx.st = ops, st
-        ctx.save_for_backward(mem_d, mtb_d)
+        ctx.save_for_backward(mem_d, mtb_d, mask_add)
         return st["spec"], st["stop"], st["w"]
 
     @staticmethod
     def backward(ctx, dspec, dstop, dw):
-        mem_d, mtb_d = ctx.saved_tensors
+        mem_d, mtb_d, mask_add = ctx.saved_tensors
         grads, _, _ = train_decode_backward(
             ctx.ops, ctx.cfg, mem_d, mtb_d, ctx.st, ctx.teacher, ctx.seeds,
             dspec.float().contiguous(), dstop.float().contiguous(),
-            dw.float().contiguous())
+            dw.float().contiguous(), mask_add=mask_add)
+        keys = operand_keys(ctx.cfg)
         ctx.ops = ctx.st = None
         return (None, None, None, grads["memory"], grads["mtb"], None,
-                grads["shifted"], *[grads[k] for k in OPERAND_KEYS])
+                grads["shifted"], *[grads[k] for k in keys])
 
 
 def train_decode_forward_plain(ops, cfg: TrainConfig, memory, mtb, mask_add,
@@ -1150,7 +1465,9 @@ def train_decode_forward_plain(ops, cfg: TrainConfig, memory, mtb, mask_add,
         return _zeros(b, width, like=memory)
 
     h_att, c_att, h_gen, c_gen = z(h), z(h), z(h), z(h)
-    ctx, frame, cum = z(mem), z(m), z(memory.shape[1])
+    ctx, frame = z(mem), z(m)
+    state = initial_state(cfg, b, memory.shape[1], memory.device)
+    cum, tp = state["cum"], state.get("tp")
     specs, stops, ws = [], [], []
     for s in range(n_f):
         raw = _rounded(shifted[s].float(), d) if teacher[s] else frame
@@ -1160,8 +1477,16 @@ def train_decode_forward_plain(ops, cfg: TrainConfig, memory, mtb, mask_add,
             row, ops["att_w"][:, :cfg.ka], ops["att_b"], h_att, c_att,
             cfg.reg("att", seeds, s))
         q = train_query_plain(h_att, ops["wq"])
-        w, cum, ctx = train_attention_plain(q, cum, memory, mtb, mask_add,
-                                            ops["lc"], ops["v"])
+        if cfg.family:
+            w, ctx = train_fwd_attention_plain(q, cum, tp, memory, mtb,
+                                               mask_add, ops["v"])
+            cum = w
+            if cfg.agent:
+                tp = transition_plain(ctx, h_att, x, ops["ta_w"],
+                                      ops["ta_b"])
+        else:
+            w, cum, ctx = train_attention_plain(q, cum, memory, mtb,
+                                                mask_add, ops["lc"], ops["v"])
         row = torch.cat([h_att, ctx, h_gen], 1)
         h_gen, c_gen, _ = train_gate_lstm_plain(
             row, ops["gen_w"][:, :cfg.kg], ops["gen_b"], h_gen, c_gen,
@@ -1193,7 +1518,7 @@ def decode(cell, cfg: TrainConfig, memory, memory_transform, mask, shifted,
     if not cfg.train:
         with torch.no_grad():
             ops = compute_operands(train_operands(cell, cfg), cfg)
-            mtb = memory_transform.float() + cell.attention.bias
+            mtb = memory_transform.float() + cell.attention.energy_bias
             d = cfg.dtype
             st, _ = train_decode_forward(
                 ops, cfg, memory.to(d).contiguous(), mtb.to(d).contiguous(),
@@ -1201,8 +1526,8 @@ def decode(cell, cfg: TrainConfig, memory, memory_transform, mask, shifted,
         return (st["spec"].transpose(0, 1), st["stop"].transpose(0, 1),
                 st["w"].transpose(0, 1))
     ops = train_operands(cell, cfg)
-    mtb = memory_transform.float() + cell.attention.bias
+    mtb = memory_transform.float() + cell.attention.energy_bias
     spec, stop, w = TrainDecode.apply(
         cfg, teacher, tuple(seeds), memory.float(), mtb, mask_add,
-        sh.float(), *[ops[k] for k in OPERAND_KEYS])
+        sh.float(), *[ops[k] for k in operand_keys(cfg)])
     return spec.transpose(0, 1), stop.transpose(0, 1), w.transpose(0, 1)

@@ -125,9 +125,6 @@ class Synthesizer:
     PyTorch path."""
 
     def __init__(self, hp, state_dict, device: DeviceLike = None):
-        if hp.attention_type != "location_sensitive":
-            raise NotImplementedError(
-                f"attention type {hp.attention_type!r} is not ported")
         self.hp = hp
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if hp.compute_dtype == "bfloat16"

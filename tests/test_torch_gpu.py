@@ -134,7 +134,9 @@ def test_chunk_and_synthesis_run_the_kernels():
     fd.reset_launch_counts()
     out = syn.synthesize_batch_lines(["1|hallo|a|de", "2|salut|b|fr",
                                       "3|mix|c|de*0.5:ru*0.5"])
-    assert all(v > 0 for v in fd.LAUNCHES.values()), fd.LAUNCHES
+    assert all(fd.LAUNCHES[k] > 0 for k in fd.path_kernels("ls")), \
+        fd.LAUNCHES
+    assert fd.LAUNCHES["fwd_attention"] == 0
     assert all(torch.isfinite(torch.as_tensor(o)).all() for o in out)
 
 
@@ -148,7 +150,8 @@ def test_single_utterance_on_card_matches_cpu():
     spk = 2
     fd.reset_launch_counts()
     got = Synthesizer(hp, sd, device="cuda").spectrogram_from_ids(ids, spk)
-    assert all(v > 0 for v in fd.LAUNCHES.values()), fd.LAUNCHES
+    assert all(fd.LAUNCHES[k] > 0 for k in fd.path_kernels("ls")), \
+        fd.LAUNCHES
     ref = Synthesizer(hp, sd, device="cpu").spectrogram_from_ids(ids, spk)
     assert got.shape == ref.shape == (hp.num_mels, hp.max_output_length)
     err = float(torch.as_tensor(got - ref).norm() / torch.as_tensor(ref).norm())
@@ -187,7 +190,8 @@ def _train_setup(b=10, t=24, frames=12, dropout=0.5, seed=0):
                                       torch.bfloat16)
         ops = ftd.compute_operands(
             ftd.train_operands(model.decoder.cell, cfg), cfg)
-        mtb = (mt.float() + model.decoder.cell.attention.bias).bfloat16()
+        mtb = (mt.float()
+               + model.decoder.cell.attention.energy_bias).bfloat16()
     mask_add = torch.where(torch.arange(t, device="cuda")[None] < lengths[:, None],
                            0.0, -1e9)
     shifted = torch.randn(frames, b, hp.num_mels, device="cuda").bfloat16()
@@ -632,7 +636,7 @@ def test_kernels_match_plain_at_the_strategies_widths(strategy, phase):
             fused_train_decoder as ftd,
         )
 
-        assert set(errs) == set(ftd.LAUNCHES)
+        assert set(errs) == set(ftd.K2_KERNELS + ftd.K3_KERNELS)
 
 
 def _bwd_gemm_operands(m, n, k, b_kn, seed):
@@ -1212,3 +1216,294 @@ def test_eval_forward_kernels_match_plain(regularization):
         assert _rel(st_k[k], st_p[k]) < 2e-2, k
     for k in carry_p:
         assert _rel(carry_k[k], carry_p[k]) < 2e-2, k
+
+
+# ---------------------------------------------------------------------------
+# the forward-attention family: K1 fwd_attention, K2's and K3's variants
+# ---------------------------------------------------------------------------
+
+_FAMILY = ("forward", "forward_transition_agent")
+
+
+def _fwd_state(b, t, mask, seed):
+    """A floored, renormalized alignment part way through each text (the
+    state the family carries) and a transition probability."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.rand(b, t, device="cuda", generator=gen) ** 4 * mask
+    w = torch.clamp(w, min=1e-6)
+    return (w / w.sum(-1, keepdim=True),
+            0.1 + 0.8 * torch.rand(b, 1, device="cuda", generator=gen))
+
+
+def _fwd_bundle(kind, rnd, int8=True):
+    bundle = _gate_bundle(int8, sum(_SEGMENTS["att"]), seed=7)
+    bundle.att_kind = "fwd" if kind == "forward" else "fwd_trans"
+    bundle.wq = rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5).bfloat16()
+    bundle.lc = None
+    bundle.v = rnd(_ATT, scale=_ATT ** -0.5)
+    bundle.pre_dims = (_MELS, 256, 2)
+    if kind != "forward":
+        bundle.ta_wc = rnd(_MEM, scale=_MEM ** -0.5).bfloat16()
+        bundle.ta_wq = rnd(_HIDDEN, scale=_HIDDEN ** -0.5).bfloat16()
+        bundle.ta_wx = rnd(256, scale=256 ** -0.5).bfloat16()
+        bundle.ta_b = rnd(1, scale=0.1)
+    return bundle
+
+
+@pytest.mark.parametrize("t", [45, 128, 200])
+@pytest.mark.parametrize("b", [1, 37, 240])
+@pytest.mark.parametrize("kind", _FAMILY)
+def test_fwd_attention_matches_plain_at_flagship_widths(kind, b, t):
+    """K1 ``fwd_attention`` (``lsa_attention``'s kernel without the
+    location conv) at H=1024, A=128, Mem=292, P=256 against
+    ``fwd_attention_plain``: the context within atol and rtol 2e-3, the
+    weights within 1e-2 of each row's largest, every row a distribution,
+    the floored masked positions, t_prob within 2e-3, the head row's
+    context bf16(context), one launch, a second run bit-identical."""
+    from chip_smoke import CTX_TOL, W_TOL
+
+    rnd, memory, mtb, mask, _ = _attention_operands(b, t, seed=b + t)
+    bundle = _fwd_bundle(kind, rnd)
+    prev, tp = _fwd_state(b, t, mask, seed=b * t)
+    tp = tp if kind != "forward" else None
+    h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
+    mask_add = torch.where(mask, 0.0, -1e9)
+    row = torch.zeros(b, 1344, dtype=torch.bfloat16, device="cuda")
+    fd.reset_launch_counts()
+    ctx_k, w_k, tp_k = fd.fwd_attention(
+        h_att, prev, tp, memory, mtb, mask_add, x, bundle,
+        ctx_row=row[:, _HIDDEN:_HIDDEN + _MEM])
+    assert fd.LAUNCHES["fwd_attention"] == 1
+    again = fd.fwd_attention(h_att, prev, tp, memory, mtb, mask_add, x,
+                             bundle)
+    ctx_p, w_p, tp_p = fd.fwd_attention_plain(h_att, prev, tp, memory, mtb,
+                                              mask_add, x, bundle)
+    torch.testing.assert_close(ctx_k, ctx_p, atol=CTX_TOL, rtol=CTX_TOL)
+    assert float(((w_k - w_p).abs().amax(1) / w_p.amax(1)).max()) < W_TOL
+    torch.testing.assert_close(w_k.sum(-1), torch.ones_like(w_k[:, 0]))
+    assert float(w_k.min()) > 0.0
+    assert torch.equal(row[:, _HIDDEN:_HIDDEN + _MEM], ctx_k.bfloat16())
+    assert torch.equal(again[0], ctx_k) and torch.equal(again[1], w_k)
+    if kind == "forward":
+        assert tp_k is None and again[2] is None
+    else:
+        torch.testing.assert_close(tp_k, tp_p, atol=2e-3, rtol=0)
+        assert torch.equal(again[2], tp_k)
+
+
+def _family_train_operands(kind, b, t, seed):
+    """The family's K2/K3 operands at the flagship's widths, random."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    rnd, memory, mtb, mask, _ = _attention_operands(b, t, seed=seed)
+    ta = SimpleNamespace(
+        w=rnd(_MEM + _HIDDEN + 256, scale=0.03),
+        b=rnd(1, scale=0.1)) if kind != "forward" else None
+    return ftd, rnd, memory, mtb, mask, ta
+
+
+@pytest.mark.parametrize("t", [17, 128, 512])
+@pytest.mark.parametrize("b", [1, 50, 67])
+@pytest.mark.parametrize("kind", _FAMILY)
+def test_train_fwd_attention_matches_plain(kind, b, t):
+    """K2 ``train_attention``'s family variant (clusters over tiles of the
+    row's positions, a fourth exchange for the renorm and the agent's
+    shares) against the plain version, three steps chained through the
+    carries, with and without the streams: the weights (also the new
+    state) within 1e-2 of each row's largest, the context within 2e-3,
+    t_prob within 2e-3, the state stream exact; two runs bit-identical."""
+    from chip_smoke import CTX_TOL, W_TOL
+
+    ftd, rnd, memory, mtb, mask, ta = _family_train_operands(
+        kind, b, t, seed=7 * b + t)
+    mask_add = torch.where(mask, 0.0, -1e9)
+    v = rnd(_ATT, scale=_ATT ** -0.5)
+    state, tp0 = _fwd_state(b, t, mask, seed=b + 3 * t)
+    h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
+    for step in range(3):
+        q = rnd(b, _ATT).bfloat16().float()
+
+        def run(fn, streams=True):
+            cc, ctx = state.clone(), torch.empty(b, _MEM, device="cuda")
+            w = torch.empty(b, t, device="cuda")
+            cum_s = (torch.empty(b, t, dtype=torch.bfloat16, device="cuda")
+                     if streams else None)
+            dsts = [torch.empty(b, _MEM, dtype=torch.bfloat16, device="cuda")
+                    for _ in range(3)]
+            agent = None
+            outs = [cc, w, ctx]
+            if ta is not None:
+                tp = tp0[:, 0].clone()
+                tp_s = torch.empty(b, device="cuda") if streams else None
+                agent = ftd.AgentArgs(tp, tp_s, h_att, x, ta.w, ta.b)
+                outs += [tp] + ([tp_s] if streams else [])
+            fn(q, cc, memory, mtb, mask_add, None, v, w, cum_s, ctx, dsts,
+               agent=agent)
+            return outs + [x for x in (cum_s, *dsts) if x is not None]
+
+        for streams in (True, False):
+            ftd.reset_launch_counts()
+            got = run(ftd.train_attention, streams)
+            assert ftd.LAUNCHES["train_attention_fwd"] == 1
+            assert ftd.LAUNCHES["train_attention"] == 0
+            again = run(ftd.train_attention, streams)
+            ref = run(ftd.PLAIN.train_attention, streams)
+            assert all(torch.equal(g, a) for g, a in zip(got, again))
+            cc_k, w_k, ctx_k = got[:3]
+            cc_p, w_p, ctx_p = ref[:3]
+            w_max = w_p.amax(1)
+            for g in (w_k, cc_k):
+                assert float(((g - w_p).abs().amax(1) / w_max).max()) < W_TOL
+            torch.testing.assert_close(ctx_k, ctx_p, atol=CTX_TOL,
+                                       rtol=CTX_TOL)
+            n_tp = 0 if ta is None else (2 if streams else 1)
+            for g, r in zip(got[3:3 + n_tp], ref[3:3 + n_tp]):
+                torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+            rows_k = got[3 + n_tp:]
+            for row in rows_k[-3:]:
+                assert torch.equal(row, ctx_k.bfloat16())
+            if streams:
+                assert torch.equal(rows_k[0], state.bfloat16())
+        state = ref[0]
+
+
+@pytest.mark.parametrize("t", [45, 128, 512])
+@pytest.mark.parametrize("b", [1, 50, 96])
+@pytest.mark.parametrize("kind", _FAMILY)
+def test_fwd_att_bwd_matches_plain(kind, b, t):
+    """K3 ``att_bwd``'s family variant (the replayed softmax and
+    recurrence, the renorm, floor and shift backward, the agent's backward
+    in its prologue) against the plain version, three chained calls so
+    that the dmt and dv "+=" and the state and t_prob cotangent carries
+    are covered: every float32 output within chip_smoke's ``att_bwd``
+    bound of its largest value, the bf16 dq and dctx streams within one
+    ulp; two chains from the same start bit-identical."""
+    ftd, rnd, memory, mtb, mask, ta = _family_train_operands(
+        kind, b, t, seed=11 * b + t)
+    mask_add = torch.where(mask, 0.0, -1e9)
+    v = rnd(_ATT, scale=_ATT ** -0.5)
+    steps = []
+    for _ in range(3):
+        w_s, tp = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
+        prev, tp_prev = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
+        steps.append((rnd(b, _ATT).bfloat16().float(), prev.bfloat16(), w_s,
+                      rnd(b, _MEM), rnd(b, t, scale=0.1), tp_prev[:, 0],
+                      tp[:, 0]))
+    dcum0, dtp0 = rnd(b, t, scale=0.1), rnd(b, scale=0.5)
+    dh0 = rnd(b, _HIDDEN, scale=0.1)
+
+    def chain(fn):
+        acc = [torch.zeros(b, t, _ATT, device="cuda"),
+               torch.zeros(b, _ATT, device="cuda"), dcum0.clone()]
+        extra = [dtp0.clone(), dh0.clone()] if ta is not None else []
+        outs = []
+        for q, cum_s, w_s, dctx, dw, tp_prev, tp in steps:
+            o = [torch.empty(b, _ATT, dtype=torch.bfloat16, device="cuda"),
+                 torch.empty(b, _MEM, dtype=torch.bfloat16, device="cuda")]
+            if ta is None:
+                fam = ftd.FamilyBwd(mask_add)
+            else:
+                o += [torch.empty(b, device="cuda"),
+                      torch.empty(b, 256, device="cuda")]
+                fam = ftd.FamilyBwd(mask_add, tp_prev, tp, extra[0], o[2],
+                                    ta.w, extra[1], o[3])
+            fn(q, cum_s, w_s, memory, mtb, None, v, dctx, dw, acc[2], acc[0],
+               None, acc[1], o[0], o[1], fam=fam)
+            outs += o
+        return acc + extra + outs
+
+    ftd.reset_launch_counts()
+    got = chain(ftd.att_bwd)
+    assert ftd.LAUNCHES["att_bwd_fwd"] == 3 and ftd.LAUNCHES["att_bwd"] == 0
+    again = chain(ftd.att_bwd)
+    ref = chain(ftd.PLAIN.att_bwd)
+    bound = TRAIN_KERNEL_TOL["att_bwd"]
+    for g, a, r in zip(got, again, ref):
+        kind_ = "bf16" if r.dtype == torch.bfloat16 else "f32"
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= bound[kind_] * float(r.float().abs().max()), kind_
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("kind", _FAMILY)
+def test_family_decode_and_training_run_the_kernels(kind):
+    """A whole small model of the family on the card: a serving chunk
+    through the kernels against the plain chunk (relative 1e-2), a
+    synthesis that launches ``fwd_attention`` and not ``lsa_attention``,
+    and 12 training steps forward and backward through the K2/K3 family
+    variants against their plain versions (relative 2e-2, as the
+    location-sensitive test), launching the family's kernels only."""
+    hp = _hp(True)
+    hp.attention_type = kind
+    torch.manual_seed(0)
+    sd = init_random_weights(Tacotron(hp), 0).state_dict()
+    syn = Synthesizer(hp, sd, device="cuda")
+    b, t = 10, 24
+    text = torch.randint(3, hp.total_symbols(), (b, t), device="cuda")
+    lengths = torch.randint(t // 2, t + 1, (b,), device="cuda")
+    memory, mt, mask, carry = syn.model.encode_for_inference(
+        text, lengths, torch.randint(0, 4, (b,), device="cuda"),
+        torch.arange(b, device="cuda") % 5)
+    kw = syn.decode_kwargs
+    c_k, (spec_k, _) = fd.decode_chunk(syn.bundle, carry, memory, mt, mask,
+                                       (5, 6), 8, **kw)
+    c_p, (spec_p, _) = fd.decode_chunk_plain(syn.bundle, carry, memory, mt,
+                                             mask, (5, 6), 8, **kw)
+    assert _rel(spec_k, spec_p) < 1e-2
+    assert set(c_k["att_state"]) == set(c_p["att_state"])
+    fd.reset_launch_counts()
+    out = syn.synthesize_batch_lines(["1|hallo|a|de", "2|salut|b|fr"])
+    assert all(fd.LAUNCHES[k] > 0 for k in fd.path_kernels("fwd")), \
+        fd.LAUNCHES
+    assert fd.LAUNCHES["lsa_attention"] == 0
+    assert all(torch.isfinite(torch.as_tensor(o)).all() for o in out)
+
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    hp.dropout = 0.5
+    model = init_random_weights(Tacotron(hp, torch.bfloat16), 0).cuda()
+    with torch.no_grad():
+        enc = model.encoder(model.embedding(text).bfloat16(), lengths).float()
+        memory, mt = model.decoder.prepare_memory(
+            enc, torch.randint(0, 4, (b,), device="cuda"),
+            torch.zeros(b, t, dtype=torch.long, device="cuda"))
+        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
+                                      torch.bfloat16)
+        ops = ftd.compute_operands(
+            ftd.train_operands(model.decoder.cell, cfg), cfg)
+        mtb = (mt.float()
+               + model.decoder.cell.attention.energy_bias).bfloat16()
+    mask_add = torch.where(mask, 0.0, -1e9)
+    shifted = torch.randn(12, b, hp.num_mels, device="cuda").bfloat16()
+    teacher = [1, 0] * 6
+    seeds = (1234, 98765)
+    k2, k3 = ftd.path_kernels(cfg.att_kind)
+    ftd.reset_launch_counts()
+    args = (ops, cfg, memory.contiguous(), mtb.contiguous(), mask_add,
+            shifted, teacher, seeds)
+    st_k, carry_k = ftd.train_decode_forward(*args)
+    st_p, carry_p = ftd.train_decode_forward(*args, plain=True)
+    for k in st_p:
+        assert _rel(st_k[k], st_p[k]) < 2e-2, k
+    for k in carry_p:
+        assert _rel(carry_k[k], carry_p[k]) < 2e-2, k
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cts = [torch.randn(x.shape, device="cuda", generator=gen)
+           for x in (st_p["spec"], st_p["stop"], st_p["w"])]
+    bargs = (ops, cfg, memory.contiguous(), mtb.contiguous(), st_p, teacher,
+             seeds, *cts)
+    g_k, s_k, c_k = ftd.train_decode_backward(*bargs, mask_add=mask_add)
+    g_p, s_p, c_p = ftd.train_decode_backward(*bargs, plain=True,
+                                              mask_add=mask_add)
+    assert all(ftd.LAUNCHES[k] > 0 for k in k2 + k3), ftd.LAUNCHES
+    assert not ftd.LAUNCHES["train_attention"] and not ftd.LAUNCHES["att_bwd"]
+    for name, (got, ref) in {**{f"grad {k}": (g_k[k], g_p[k]) for k in g_p},
+                             **{f"stream {k}": (s_k[k], s_p[k]) for k in s_p},
+                             **{f"carry {k}": (c_k[k], c_p[k]) for k in c_p}
+                             }.items():
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, ref) < 2e-2, (name, _rel(got, ref))

@@ -56,12 +56,15 @@ def _randomize(tree, rng, kind):
 
 
 @functools.lru_cache(maxsize=None)
-def _variables_np(stop_bias, classifier=False, prenet_layers=2):
+def _variables_np(stop_bias, classifier=False, prenet_layers=2,
+                  attention_type="location_sensitive"):
     """numpy weights (random batch_stats too) for ``tiny_hp`` (with the
-    reversal classifier when ``classifier``, and ``prenet_layers`` prenet
-    layers).  Random normal weights at 0.3 stand in for a trained net;
-    ``stop_bias`` overrides the stop head's bias when not None."""
-    hp = tiny_hp(reversal_classifier=classifier, prenet_layers=prenet_layers)
+    reversal classifier when ``classifier``, ``prenet_layers`` prenet
+    layers and ``attention_type``).  Random normal weights at 0.3 stand in
+    for a trained net; ``stop_bias`` overrides the stop head's bias when not
+    None."""
+    hp = tiny_hp(reversal_classifier=classifier, prenet_layers=prenet_layers,
+                 attention_type=attention_type)
     model = Tacotron(hp, train=False)
     b, t = 2, 8
     key = jax.random.PRNGKey(0)
@@ -79,8 +82,10 @@ def _variables_np(stop_bias, classifier=False, prenet_layers=2):
     return out
 
 
-def variables_np(stop_bias=None, classifier=False, prenet_layers=2):
-    return _variables_np(stop_bias, classifier, prenet_layers)
+def variables_np(stop_bias=None, classifier=False, prenet_layers=2,
+                 attention_type="location_sensitive"):
+    return _variables_np(stop_bias, classifier, prenet_layers,
+                         attention_type)
 
 
 def jax_variables(v_np):

@@ -23,7 +23,11 @@ peer's slice skipped in the gather of the bf16 rows (each run under K1's
 checks and under K2's), or, in K3's LSTM cell backward (which runs fused
 into ``bwd_head`` and the dq @ Wq^T product), the cell-state zoneout mask
 drawn with the h salt or the attention cell run on each split-K slice's
-partial sum instead of the reduced one, and runs the checks of that kernel's
+partial sum instead of the reduced one, or, in the forward-attention
+family's kernels, the 1e-6 floor given to K1's own padding of the text
+length, K3's recurrence replayed with the step's own t_prob instead of
+the previous step's, or K3's state cotangent added to instead of assigned
+(each under its attention kind's phase), and runs the checks of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_train_kernels``
 for K2 and K3) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
@@ -127,6 +131,29 @@ VARIANTS = {
     # product): the c mask drawn with the h mask's salt; or the dq product
     # launched without its reduction, every K slice running the attention
     # cell on its own partial sum
+    # the forward family: the 1e-6 floor given to K1's own padding of T
+    # to 16 (its renorm sum counts those positions); K3's replay of the
+    # recurrence with the step's own t_prob instead of the one it read;
+    # K3's state cotangent added to instead of assigned (right only for
+    # the location-sensitive cum + w)
+    "fwd_floor_on_padding": (
+        "fused_decoder.cu",
+        "      float wsum = 0.0f;\n      for (int t = tid; t < T; "
+        "t += LSA_THREADS) {",
+        "      float wsum = 0.0f;\n"
+        "      for (int t = T + tid; t < L.tpad; t += LSA_THREADS) "
+        "wsum += 1e-6f;\n"
+        "      for (int t = tid; t < T; t += LSA_THREADS) {",
+        "K1:forward"),
+    "fwd_bwd_current_tp": (
+        "fused_train_decoder.cu",
+        "const float tp = KIND == ATT_FWD_TRANS ? fa.tp_prev[b] : 0.0f;",
+        "const float tp = KIND == ATT_FWD_TRANS ? fa.tp[b] : 0.0f;",
+        "K3:forward_transition_agent"),
+    "fwd_bwd_dcum_added": (
+        "fused_train_decoder.cu",
+        "dcum[rowT + t] = KIND == ATT_FWD_TRANS",
+        "dcum[rowT + t] += KIND == ATT_FWD_TRANS", "K3:forward"),
     "cell_c_mask_h_salt": (
         "fused_train_decoder.cu",
         "reg.salt_c) < reg.th_c;",
@@ -196,11 +223,17 @@ def record(msg):
     failed.append(msg)
     print("[variant] check failed: " + msg)
 cs.fail = record
-if {phase!r} == "K1":
+phase, _, attention = {phase!r}.partition(":")
+if attention:
+    # the forward family's kernels, at its own phases' configuration
+    hp = cs.flagship(cs.FAMILY_FRAMES, cs.CHUNK, attention)
+    sd = cs.seeded_state_dict(hp)
+if phase == "K1":
     torch.set_grad_enabled(False)
     cs.phase_kernels(hp, sd)
 else:
-    cs.phase_train_kernels(hp, sd)
+    cs.phase_train_kernels(
+        hp, sd, only=cs.FAMILY_TRAIN_KERNELS if attention else None)
 print("VARIANT_RESULT " + json.dumps({{"failed": failed}}))
 """
 
