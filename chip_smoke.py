@@ -83,6 +83,23 @@ Phases, each of which fails the run on a failed check:
    transition agent also a small synthesis, a small train step and
    ``model.eval()``'s forward on the card against the CPU plain path.
 
+10. K1's float32 compute and int8 streams (``phase_k1_variants``, at the
+   flagship and at each family kind): ``[kernels:f32]`` holds every float32
+   instance (prenet, both gate products with W8A8 and, location-sensitive,
+   exact float32 gates, the attention kernel, also at T=120 for the
+   family, the head) against its float32 plain version within 1e-5 of
+   each output's largest value, masks and int8 activations bit-exact, and
+   a 16-step chunk; ``[kernels:q8]`` and ``[kernels:f32-q8]`` the
+   attention kernels on int8 streams in bf16 and float32, their codes and
+   scales bit-exact with the CPU's quantization, at the 292-wide memory and
+   the shared strategy's 548 (for the family on random 548-wide streams);
+   ``[main:f32]`` synthesis in float32 with W8A8 gates (240 lines x 256
+   frames, the card against the CPU with cuDNN at PyTorch's TF32 default),
+   ``[main:q8]`` in bf16 on int8 streams (the same), and 240 lines x 32
+   frames of every other new instance, each with its launches asserted;
+   their device times.  Every phase prints its own peak device memory
+   (``[memory]``).
+
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
@@ -114,7 +131,8 @@ FAMILY_TRAIN_KERNELS = ("train_attention_fwd", "att_bwd_fwd")
 TRAIN_B, TRAIN_T, TRAIN_F, CHECK_STEPS = 50, 128, 512, 16
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
+# float32: FFMA on the CUDA cores, the route of K1's float32 instances
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 # Tolerances of kernel vs plain on the same inputs, set a few times above
 # the errors measured on an H100 (PERF.md): float32 sums in another order,
 # and bfloat16 roundings that a one-ulp difference can flip.
@@ -124,6 +142,20 @@ W_TOL = 1e-2                  # attention weights: |dw| / max w, per row
 CHUNK_REL_TOL = 1e-2          # 16 autoregressive steps, kernel vs plain
 SUM_TOL = 1e-5                # the forward family's weights: |sum - 1|
 E2E_REL_TOL = 1e-2            # card kernels vs the CPU plain path, bf16
+# K1's float32 instances against their float32 plain versions: every output
+# within this share of its largest value (float32 sums in another order; a
+# bf16 operand or a single TF32 pass would be off by about 1e-3)
+F32_TOL = 1e-5
+# 16 float32 steps, kernels vs plain: relative error (norms).  Exact gates
+# stay at float32 noise (measured 2.3e-7 on an H100); in W8A8 a row value
+# that float32 sums in another order move across a rounding boundary
+# changes one int8 code, and the chained steps grow it (measured up to
+# 6.1e-4)
+F32_CHUNK_TOL = {False: 1e-5, True: 2e-3}
+# float32 synthesis (W8A8), card kernels vs the CPU plain path: relative
+# error (measured 1.0e-7; one int8 code flipped moves a gate by one of K
+# terms' 1/127)
+F32_E2E_TOL = 1e-3
 # the training kernels, on identical inputs: max |kernel - plain| of each
 # output over its largest |plain|, per kernel and output type.  A float32
 # output differs by the order of float32 sums: its bound is a few times the
@@ -205,6 +237,35 @@ def labelled(label: str):
         yield
     finally:
         _LABEL = old
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """A phase of the run with its own peak of device memory: what earlier
+    phases left is collected and the peak statistics reset before it, and
+    its peak (``torch.cuda.max_memory_allocated``) printed after it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    if held > 2 ** 28:
+        # what an earlier phase left alive: the largest tensors by shape
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape),
+                        str(o.dtype)) for o in gc.get_objects()
+                       if torch.is_tensor(o) and o.is_cuda), reverse=True)
+        say(f"[memory] {name}: held on entry by {len(live)} live tensors, "
+            f"the largest " + ", ".join(f"{s} {d} {n / 2**20:.0f} MiB"
+                                        for n, s, d in live[:6]))
+    t0 = time.time()
+    yield
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[memory] {name}: peak {peak / 2**30:.2f} GiB ({held / 2**30:.2f}"
+        f" GiB held on entry), {time.time() - t0:.1f} s")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -301,14 +362,29 @@ def rel(a, b) -> float:
 
 
 def flagship(max_frames: int, chunk: int,
-             attention_type: str = "location_sensitive"):
+             attention_type: str = "location_sensitive", **over):
     """The flagship, served; at another ``attention_type`` for the forward
-    family's phases (every width stays the flagship's)."""
+    family's phases (every width stays the flagship's), and with the
+    settings ``over`` (``compute_dtype``, ``pallas_decoder_int8``,
+    ``pallas_decoder_int8_streams``)."""
     from multilingual_text_to_speech_tpu_torch import flagship_hparams
 
     hp = serving_hp(flagship_hparams(), max_frames, chunk)
     hp.attention_type = attention_type
+    for k, v in over.items():
+        setattr(hp, k, v)
     return hp
+
+
+# K1's configurations beside the flagship's (bf16, W8A8): float32 compute
+# with W8A8 or exact gates, int8 streams in bf16 and in float32
+F32 = {"compute_dtype": "float32"}
+F32_EXACT = {"compute_dtype": "float32", "pallas_decoder_int8": False}
+Q8 = {"pallas_decoder_int8_streams": True}
+F32_Q8 = {"compute_dtype": "float32", "pallas_decoder_int8_streams": True}
+# the small main runs that launch an instance no full phase drives: 240
+# lines of LAUNCH_FRAMES frames, one chunk
+LAUNCH_FRAMES = 32
 
 
 def switching(name: str, max_frames: int, chunk: int):
@@ -376,12 +452,13 @@ def phase_build():
                 print(f"  {line.strip()}")
 
 
-def encoded_batch(syn, hp):
+def encoded_batch(syn, hp, bundle=None):
     """Realistic decoder inputs at the main path's shapes: 240 random texts
-    through the row-group encoder, plus a carry three plain steps in whose
-    cumulative attention is that of an alignment part way through each
-    text (1 up to a random position, 0 after), so that the location term
-    is of the size it has in a real utterance."""
+    through the row-group encoder, plus a carry three plain steps (of
+    ``bundle``, ``syn``'s by default) in whose cumulative attention is that
+    of an alignment part way through each text (1 up to a random position,
+    0 after), so that the location term is of the size it has in a real
+    utterance."""
     import numpy as np
     import torch
 
@@ -399,9 +476,10 @@ def encoded_batch(syn, hp):
     group = torch.arange(hp.language_number, device="cuda")
     memory, mt, mask, carry = syn.model.encode_for_inference(
         text, lengths, speakers, langs, group_langs=group)
-    carry, _ = fd.decode_chunk_plain(syn.bundle, carry, memory, mt, mask,
+    bundle = syn.bundle if bundle is None else bundle
+    carry, _ = fd.decode_chunk_plain(bundle, carry, memory, mt, mask,
                                      (7, 11), 3, **syn.decode_kwargs)
-    if syn.bundle.att_kind != "ls":
+    if bundle.att_kind != "ls":
         # the forward family's state is the last step's weights, a
         # distribution: three steps in, as it comes
         return memory, mt, mask, carry
@@ -412,17 +490,42 @@ def encoded_batch(syn, hp):
     return memory, mt, mask, carry
 
 
+def close_f32(name: str, got, ref, tol: float = F32_TOL) -> float:
+    """A float32 instance's output within ``tol`` of the plain version's
+    largest value."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    err, top = max_err(got, ref), float(ref.detach().float().abs().max())
+    if err > tol * top:
+        fail(f"{name}: max |kernel - plain| = {err}, {err / top:.3g} of the "
+             f"largest value (bound {tol})")
+    return err
+
+
+def stream_head(x, n: int):
+    """The first ``n`` positions of an attention stream (a compute-type
+    tensor, or an ``Int8Stream`` with its scales)."""
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+
+    if isinstance(x, fd.Int8Stream):
+        return fd.Int8Stream(x.q[:, :n].contiguous(), x.scale)
+    return x[:, :n].contiguous()
+
+
 def check_attention_step(fd, bundle, tag, h_att, x, carry, memory, mtb,
                          mask_add, ctx_row):
     """One step of the bundle's attention kernel (``lsa_attention``, or the
     forward family's ``fwd_attention``) against its plain version on the
-    same inputs, the context into ``ctx_row``: two runs bit-identical, the
-    weights within W_TOL of each row's largest, the context within CTX_TOL;
-    the family's weights a distribution (sum within SUM_TOL of 1) and its
-    t_prob within ATOL.  -> (kernel name, context, plain context, max abs
-    error)."""
+    same inputs, the context into ``ctx_row``: two runs bit-identical; in
+    bf16 the weights within W_TOL of each row's largest, the context within
+    CTX_TOL, t_prob within ATOL; in float32 each within F32_TOL of its
+    largest value; the family's weights a distribution (sum within SUM_TOL
+    of 1).  -> (kernel name, context, plain context, max abs error)."""
     import torch
 
+    f32 = bundle.dtype == torch.float32
     state = carry["att_state"]
     if bundle.att_kind == "ls":
         name = "lsa_attention"
@@ -442,18 +545,33 @@ def check_attention_step(fd, bundle, tag, h_att, x, carry, memory, mtb,
     torch.cuda.synchronize()
     if not all(g is a or torch.equal(g, a) for g, a in zip(got, again)):
         fail(f"{name}[{tag}]: two runs on the same inputs differ")
-    err = close_weights(f"{name}[{tag}]", got[1], ref[1], cum)
-    err = max(err, close(f"{name} ctx[{tag}]", got[0], ref[0], CTX_TOL,
-                         CTX_TOL))
+
+    def weights(label, w_k, w_p, base):
+        if f32:
+            return close_f32(f"{name} weights[{label}]", w_k - base,
+                             w_p - base)
+        return close_weights(f"{name}[{label}]", w_k, w_p, base)
+
+    def context(label, c_k, c_p):
+        if f32:
+            return close_f32(f"{name} ctx[{label}]", c_k, c_p)
+        return close(f"{name} ctx[{label}]", c_k, c_p, CTX_TOL, CTX_TOL)
+
+    def agent(label, t_k, t_p):
+        if f32:
+            return close_f32(f"{name} t_prob[{label}]", t_k, t_p)
+        return close(f"{name} t_prob[{label}]", t_k, t_p)
+
+    err = max(weights(tag, got[1], ref[1], cum),
+              context(tag, got[0], ref[0]))
     if name == "fwd_attention":
         # also at a text bucket that is not a multiple of 16, whose padding
         # in the kernel must take part in neither the softmax nor the floor
         t_short = memory.shape[1] - 8
         prev = state["weights"][:, :t_short]
         short = (h_att, prev / prev.sum(-1, keepdim=True), state.get("t_prob"),
-                 memory[:, :t_short].contiguous(),
-                 mtb[:, :t_short].contiguous(), mask_add[:, :t_short], x,
-                 bundle)
+                 stream_head(memory, t_short), stream_head(mtb, t_short),
+                 mask_add[:, :t_short], x, bundle)
         got_s, ref_s = fd.fwd_attention(*short), fd.fwd_attention_plain(*short)
         for w, label in ((got[1], ""), (got_s[1], f", T={t_short}")):
             off = float((w.sum(-1) - 1.0).abs().max())
@@ -461,157 +579,245 @@ def check_attention_step(fd, bundle, tag, h_att, x, carry, memory, mtb,
                 fail(f"{name}[{tag}{label}]: weights not a floored "
                      f"distribution (sum off by {off}, least "
                      f"{float(w.min())})")
-        close_weights(f"{name}[{tag}, T={t_short}]", got_s[1], ref_s[1],
-                      torch.zeros_like(ref_s[1]))
-        close(f"{name} ctx[{tag}, T={t_short}]", got_s[0], ref_s[0],
-              CTX_TOL, CTX_TOL)
+        weights(f"{tag}, T={t_short}", got_s[1], ref_s[1],
+                torch.zeros_like(ref_s[1]))
+        context(f"{tag}, T={t_short}", got_s[0], ref_s[0])
         if got[2] is not None:
-            err = max(err, close(f"{name} t_prob[{tag}]", got[2], ref[2]),
-                      close(f"{name} t_prob[{tag}, T={t_short}]", got_s[2],
-                            ref_s[2]))
+            err = max(err, agent(tag, got[2], ref[2]),
+                      agent(f"{tag}, T={t_short}", got_s[2], ref_s[2]))
         say(f"[kernels:{tag}] {name}: every row's weights sum to 1 within "
             f"{off:.3g} at T={t_short} (bound {SUM_TOL}), the least "
             f"{float(got[1].min()):.3g}" + ("" if got[2] is None else
-               f"; t_prob within {max_err(got[2], ref[2]):.3g} (atol {ATOL})"))
+               f"; t_prob within {max_err(got[2], ref[2]):.3g}"))
     return name, got[0], ref[0], err
+
+
+def check_step(syn, hp, bundle, tag):
+    """Each kernel of ``bundle``'s instances against its plain version on
+    identical inputs at the main path's shapes (``encoded_batch``): masks
+    and int8 activations bit-exact, the head row bit-exact, two runs
+    bit-identical; bf16 outputs within ATOL (attention as
+    ``check_attention_step``), float32 ones within F32_TOL of their largest
+    value; then a 16-step chunk through the kernels against the plain
+    chunk (relative error CHUNK_REL_TOL; float32 F32_CHUNK_TOL, by the
+    gates).  Returns
+    {kernel: max_abs_err}."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+
+    f32 = bundle.dtype == torch.float32
+    int8 = bundle.quantized
+    kw = syn.decode_kwargs
+    raw, mt, mask, carry = encoded_batch(syn, hp, bundle)
+    seeds, step = (123456789, 987654321), 5
+    memory, mtb, mask_add = fd.chunk_operands(bundle, raw, mt, mask)
+    zh, zc = kw["zoneout_h"], kw["zoneout_c"]
+    n_pre, p_dim = bundle.pre_dims[2], bundle.pre_dims[1]
+
+    def value(name, got, ref):
+        return close_f32(name, got, ref) if f32 else close(name, got, ref)
+
+    keep_k = torch.zeros(n_pre, B, p_dim, dtype=torch.uint8, device="cuda")
+    keep_p, keep_again = torch.zeros_like(keep_k), torch.zeros_like(keep_k)
+    x_k = fd.prenet(carry["frame"], bundle, kw["dropout_rate"], seeds,
+                    step, keep_out=keep_k)
+    x_again = fd.prenet(carry["frame"], bundle, kw["dropout_rate"], seeds,
+                        step, keep_out=keep_again)
+    x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"], seeds,
+                        step, keep_out=keep_p)
+    torch.cuda.synchronize()
+    if not torch.equal(keep_k, keep_p):
+        fail(f"prenet[{tag}]: dropout masks differ")
+    if not (torch.equal(x_k, x_again) and torch.equal(keep_k, keep_again)):
+        fail(f"prenet[{tag}]: two runs on the same inputs differ")
+    e_pre = value(f"prenet[{tag}]", x_k, x)
+
+    segs_att = (x, carry["context"], carry["h_att"])
+    k_att = sum(s.shape[1] for s in segs_att)
+    q_k = torch.zeros(B, k_att, dtype=torch.int8, device="cuda")
+    q_p = torch.zeros_like(q_k)
+    hk, ck = fd.gate_lstm(segs_att, carry["h_att"], carry["c_att"], bundle,
+                          "att", zh, zc, q_out=q_k if int8 else None)
+    h_att, c_att = fd.gate_lstm_plain(segs_att, carry["h_att"],
+                                      carry["c_att"], bundle, "att", zh,
+                                      zc, q_out=q_p if int8 else None)
+    torch.cuda.synchronize()
+    if int8 and not torch.equal(q_k, q_p):
+        fail(f"gate_lstm[{tag}]: int8 activations differ in "
+             f"{int((q_k != q_p).sum())} places")
+    e_gate = max(value(f"gate_lstm att h[{tag}]", hk, h_att),
+                 value(f"gate_lstm att c[{tag}]", ck, c_att))
+
+    # the head row, as a chunk fills it: the context from the attention
+    # kernel, h_gen from the generator's gate_lstm, in the compute type
+    hidden = h_att.shape[1]
+    row = torch.zeros(B, bundle.head_w.shape[1], dtype=bundle.dtype,
+                      device="cuda")
+    att_name, ctx_k, ctx, e_att = check_attention_step(
+        fd, bundle, tag, h_att, x, carry, memory, mtb, mask_add,
+        row[:, hidden:hidden + memory.shape[2]])
+
+    segs_gen = (h_att, ctx, carry["h_gen"])
+    q_k = torch.zeros(B, sum(s.shape[1] for s in segs_gen),
+                      dtype=torch.int8, device="cuda")
+    q_p = torch.zeros_like(q_k)
+    hk, ck = fd.gate_lstm(segs_gen, carry["h_gen"], carry["c_gen"], bundle,
+                          "gen", zh, zc, q_out=q_k if int8 else None,
+                          h_row=row[:, :hidden])
+    h_gen, c_gen = fd.gate_lstm_plain(segs_gen, carry["h_gen"],
+                                      carry["c_gen"], bundle, "gen", zh,
+                                      zc, q_out=q_p if int8 else None)
+    torch.cuda.synchronize()
+    if int8 and not torch.equal(q_k, q_p):
+        fail(f"gate_lstm gen[{tag}]: int8 activations differ in "
+             f"{int((q_k != q_p).sum())} places")
+    e_gate = max(e_gate, value(f"gate_lstm gen h[{tag}]", hk, h_gen),
+                 value(f"gate_lstm gen c[{tag}]", ck, c_gen))
+
+    want = fd.head_row(hk, ctx_k, bundle)
+    if not torch.equal(row, want):
+        fail(f"head row[{tag}]: differs from h_gen | context in the compute "
+             f"type in {int((row != want).sum())} places")
+    f_k, s_k = fd.head(hk, ctx_k, bundle, row=row)
+    f_again, s_again = fd.head(hk, ctx_k, bundle, row=row)
+    f_p, s_p = fd.head_plain(hk, ctx_k, bundle)
+    torch.cuda.synchronize()
+    if not (torch.equal(f_k, f_again) and torch.equal(s_k, s_again)):
+        fail(f"head[{tag}]: two runs on the same row differ")
+    e_head = max(value(f"head frame[{tag}]", f_k, f_p),
+                 value(f"head stop[{tag}]", s_k, s_p))
+    bounds = (f"{F32_TOL} of each output's largest value" if f32 else
+              f"atol {ATOL}; context {CTX_TOL}; weights {W_TOL} of the row "
+              "max")
+    say(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
+        f"{' and int8 activations' if int8 else ''} and the head row "
+        f"bit-exact, two runs of the prenet, of {att_name} and of "
+        f"the head bit-identical; max abs "
+        f"err prenet {e_pre:.3g}, gate_lstm {e_gate:.3g}, "
+        f"{att_name} {e_att:.3g}, head {e_head:.3g} ({bounds})")
+
+    carry_k, (spec_k, stop_k) = fd.decode_chunk(
+        bundle, carry, raw, mt, mask, seeds, 16, **kw)
+    carry_p, (spec_p, stop_p) = fd.decode_chunk_plain(
+        bundle, carry, raw, mt, mask, seeds, 16, **kw)
+    chunk = {"spec": rel(spec_k, spec_p), "stop": rel(stop_k, stop_p)}
+    if bundle.att_kind != "ls":
+        # the carried state of the forward family: the last weights
+        # (a distribution) and the transition agent's t_prob
+        st_k, st_p = carry_k["att_state"], carry_p["att_state"]
+        if set(st_k) != set(st_p):
+            fail(f"16-step chunk[{tag}]: carried state {sorted(st_k)}")
+        chunk.update({f"carried {k}": rel(st_k[k], st_p[k])
+                      for k in st_p})
+        off = float((st_k["weights"].sum(-1) - 1.0).abs().max())
+        if off > SUM_TOL:
+            fail(f"16-step chunk[{tag}]: carried weights sum to 1 "
+                 f"within {off}")
+    worst = max(chunk.values())
+    bound = F32_CHUNK_TOL[int8] if f32 else CHUNK_REL_TOL
+    if not (torch.isfinite(spec_k).all() and worst < bound):
+        fail(f"16-step chunk[{tag}]: relative errors {chunk}")
+    say(f"[kernels:{tag}] 16-step chunk: relative error " + ", ".join(
+        f"{k} {v:.3g}" for k, v in chunk.items()) + f" (bound {bound})")
+    return {"prenet": e_pre, "gate_lstm": e_gate, att_name: e_att,
+            "head": e_head}
 
 
 def phase_kernels(hp, sd, modes=(True, False)):
     """Each kernel against its plain version on identical inputs, with W8A8
     and bf16 gates (``modes``: int8 or not); returns {kernel: max_abs_err}
     for the W8A8 bundle (the main path's)."""
-    import torch
-
-    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
     from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
 
     errs = {}
     for int8 in modes:
         hp.pallas_decoder_int8 = int8
         syn = Synthesizer(hp, sd, device="cuda")
-        bundle, kw = syn.bundle, syn.decode_kwargs
-        memory, mt, mask, carry = encoded_batch(syn, hp)
-        tag = "int8" if int8 else "bf16"
-        seeds, step = (123456789, 987654321), 5
-        memory, mtb, mask_add = fd.chunk_operands(bundle, memory, mt, mask)
-        zh, zc = kw["zoneout_h"], kw["zoneout_c"]
-        n_pre, p_dim = bundle.pre_dims[2], bundle.pre_dims[1]
-
-        keep_k = torch.zeros(n_pre, B, p_dim, dtype=torch.uint8, device="cuda")
-        keep_p, keep_again = torch.zeros_like(keep_k), torch.zeros_like(keep_k)
-        x_k = fd.prenet(carry["frame"], bundle, kw["dropout_rate"], seeds,
-                        step, keep_out=keep_k)
-        x_again = fd.prenet(carry["frame"], bundle, kw["dropout_rate"], seeds,
-                            step, keep_out=keep_again)
-        x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"], seeds,
-                            step, keep_out=keep_p)
-        torch.cuda.synchronize()
-        if not torch.equal(keep_k, keep_p):
-            fail(f"prenet[{tag}]: dropout masks differ")
-        if not (torch.equal(x_k, x_again) and torch.equal(keep_k, keep_again)):
-            fail(f"prenet[{tag}]: two runs on the same inputs differ")
-        e_pre = close(f"prenet[{tag}]", x_k, x)
-
-        e_gate = 0.0
-        segs_att = (x, carry["context"], carry["h_att"])
-        k_att = sum(s.shape[1] for s in segs_att)
-        q_k = torch.zeros(B, k_att, dtype=torch.int8, device="cuda")
-        q_p = torch.zeros_like(q_k)
-        hk, ck = fd.gate_lstm(segs_att, carry["h_att"], carry["c_att"], bundle,
-                              "att", zh, zc, q_out=q_k if int8 else None)
-        h_att, c_att = fd.gate_lstm_plain(segs_att, carry["h_att"],
-                                          carry["c_att"], bundle, "att", zh,
-                                          zc, q_out=q_p if int8 else None)
-        torch.cuda.synchronize()
-        if int8 and not torch.equal(q_k, q_p):
-            fail(f"gate_lstm[{tag}]: int8 activations differ in "
-                 f"{int((q_k != q_p).sum())} places")
-        e_gate = max(close(f"gate_lstm att h[{tag}]", hk, h_att),
-                     close(f"gate_lstm att c[{tag}]", ck, c_att))
-
-        # the head row, as a chunk fills it: bf16(context) from the
-        # attention kernel, bf16(h_gen) from the generator's gate_lstm
-        hidden = h_att.shape[1]
-        row = torch.zeros(B, bundle.head_w.shape[1], dtype=torch.bfloat16,
-                          device="cuda")
-        att_name, ctx_k, ctx, e_att = check_attention_step(
-            fd, bundle, tag, h_att, x, carry, memory, mtb, mask_add,
-            row[:, hidden:hidden + memory.shape[2]])
-
-        segs_gen = (h_att, ctx, carry["h_gen"])
-        q_k = torch.zeros(B, sum(s.shape[1] for s in segs_gen),
-                          dtype=torch.int8, device="cuda")
-        q_p = torch.zeros_like(q_k)
-        hk, ck = fd.gate_lstm(segs_gen, carry["h_gen"], carry["c_gen"], bundle,
-                              "gen", zh, zc, q_out=q_k if int8 else None,
-                              h_row=row[:, :hidden])
-        h_gen, c_gen = fd.gate_lstm_plain(segs_gen, carry["h_gen"],
-                                          carry["c_gen"], bundle, "gen", zh,
-                                          zc, q_out=q_p if int8 else None)
-        torch.cuda.synchronize()
-        if int8 and not torch.equal(q_k, q_p):
-            fail(f"gate_lstm gen[{tag}]: int8 activations differ in "
-                 f"{int((q_k != q_p).sum())} places")
-        e_gate = max(e_gate, close(f"gate_lstm gen h[{tag}]", hk, h_gen),
-                     close(f"gate_lstm gen c[{tag}]", ck, c_gen))
-
-        want = fd.head_row(hk, ctx_k, bundle)
-        if not torch.equal(row, want):
-            fail(f"head row[{tag}]: differs from bf16(h_gen) | bf16(context) "
-                 f"in {int((row != want).sum())} places")
-        f_k, s_k = fd.head(hk, ctx_k, bundle, row=row)
-        f_again, s_again = fd.head(hk, ctx_k, bundle, row=row)
-        f_p, s_p = fd.head_plain(hk, ctx_k, bundle)
-        torch.cuda.synchronize()
-        if not (torch.equal(f_k, f_again) and torch.equal(s_k, s_again)):
-            fail(f"head[{tag}]: two runs on the same row differ")
-        e_head = max(close(f"head frame[{tag}]", f_k, f_p),
-                     close(f"head stop[{tag}]", s_k, s_p))
-        say(f"[kernels:{tag}] one step at B={B} T={T_SYMBOLS}: masks"
-              f"{' and int8 activations' if int8 else ''} and the head row "
-              f"bit-exact, two runs of the prenet, of {att_name} and of "
-              f"the head bit-identical; max abs "
-              f"err prenet {e_pre:.3g}, gate_lstm {e_gate:.3g}, "
-              f"{att_name} {e_att:.3g}, head {e_head:.3g} (atol "
-              f"{ATOL}; context {CTX_TOL}; weights {W_TOL} of the row max)")
-
-        carry_k, (spec_k, stop_k) = fd.decode_chunk(
-            bundle, carry, memory, mt, mask, seeds, 16, **kw)
-        carry_p, (spec_p, stop_p) = fd.decode_chunk_plain(
-            bundle, carry, memory, mt, mask, seeds, 16, **kw)
-        chunk = {"spec": rel(spec_k, spec_p), "stop": rel(stop_k, stop_p)}
-        if bundle.att_kind != "ls":
-            # the carried state of the forward family: the last weights
-            # (a distribution) and the transition agent's t_prob
-            st_k, st_p = carry_k["att_state"], carry_p["att_state"]
-            if set(st_k) != set(st_p):
-                fail(f"16-step chunk[{tag}]: carried state {sorted(st_k)}")
-            chunk.update({f"carried {k}": rel(st_k[k], st_p[k])
-                          for k in st_p})
-            off = float((st_k["weights"].sum(-1) - 1.0).abs().max())
-            if off > SUM_TOL:
-                fail(f"16-step chunk[{tag}]: carried weights sum to 1 "
-                     f"within {off}")
-        worst = max(chunk.values())
-        if not (torch.isfinite(spec_k).all() and worst < CHUNK_REL_TOL):
-            fail(f"16-step chunk[{tag}]: relative errors {chunk}")
-        say(f"[kernels:{tag}] 16-step chunk: relative error " + ", ".join(
-            f"{k} {v:.3g}" for k, v in chunk.items())
-            + f" (bound {CHUNK_REL_TOL})")
+        e = check_step(syn, hp, syn.bundle, "int8" if int8 else "bf16")
         if int8:
-            errs = {"prenet": e_pre, "gate_lstm": e_gate,
-                    att_name: e_att, "head": e_head}
+            errs = e
     hp.pallas_decoder_int8 = True
     return errs
 
 
-def phase_main(hp, sd, small=None):
+def variant_bundle(syn, int8: bool, q8: bool):
+    """``syn``'s weights as a bundle of its compute type with W8A8 or exact
+    gates and int8 streams or not."""
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+
+    return fd.extract_decoder_bundle(syn.model.decoder.cell, syn.dtype,
+                                     quantize_gates=int8, q_streams=q8)
+
+
+def phase_variant_kernels(syn, hp, variants):
+    """``[kernels:f32]`` and ``[kernels:q8]``: ``check_step`` for each
+    (int8 gates, int8 streams) of ``variants`` at ``syn``'s compute type;
+    with int8 streams, first the codes and scales that ``chunk_operands``
+    makes on the card against those it makes on the CPU, bit for bit.
+    Returns {(int8, q8): {kernel: max_abs_err}}."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+
+    out = {}
+    for int8, q8 in variants:
+        bundle = variant_bundle(syn, int8, q8)
+        tag = ("int8" if int8 else "exact") + ("-q8" if q8 else "")
+        if q8:
+            memory, mt, mask, _ = encoded_batch(syn, hp, bundle)
+            card = fd.chunk_operands(bundle, memory, mt, mask)
+            cpu_bundle = variant_bundle(syn, int8, q8)
+            cpu_bundle.att_bias = bundle.att_bias.cpu()
+            host = fd.chunk_operands(cpu_bundle, memory.cpu(), mt.cpu(),
+                                     mask.cpu())
+            for which, c, h in zip(("memory", "mt + bias"), card[:2],
+                                   host[:2]):
+                n_q = int((c.q.cpu() != h.q).sum())
+                n_s = int((c.scale.cpu() != h.scale).sum())
+                if n_q or n_s:
+                    fail(f"int8 streams[{tag}]: the card's {which} differs "
+                         f"from the CPU's in {n_q} codes and {n_s} scales")
+            say(f"[kernels:{tag}] int8 streams: codes and scales of the "
+                f"memory [{B}, {T_SYMBOLS}, {memory.shape[2]}] and of mt + "
+                "bias bit-exact with the CPU's quantization")
+        out[(int8, q8)] = check_step(syn, hp, bundle, tag)
+    return out
+
+
+def mode_of(bundle) -> str:
+    """The bundle's configuration in words, for the lines printed."""
+    import torch
+
+    return ", ".join([
+        "float32" if bundle.dtype == torch.float32 else "bf16",
+        "W8A8" if bundle.quantized else "exact gates"]
+        + (["int8 streams"] if bundle.q_streams else []))
+
+
+@contextlib.contextmanager
+def cudnn_default():
+    """cuDNN at PyTorch's default (TF32 allowed) inside the block, which
+    this script otherwise turns off for its plain versions: a float32
+    ``Synthesizer`` must keep its encode in float32 by itself."""
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def phase_main(hp, sd, small=None, full=True):
     """Synthesis of B lines through ``Synthesizer.synthesize_batch_lines``
     (``hp.max_output_length`` frames each), with the launch counts reset
-    just before and read just after (every kernel of the attention kind's
-    path launched, the other attention kernel not); an accent-blend batch;
-    and, unless ``small`` is None, a small batch at the configuration
-    ``small`` on the card against the CPU plain path."""
+    just before and read just after (every kernel instance of the bundle's
+    path launched, no other); with ``full``, after a warm-up run and
+    followed by an accent-blend batch; and, unless ``small`` is None, a
+    small batch at the configuration ``small`` on the card against the CPU
+    plain path (float32: with cuDNN at PyTorch's default)."""
     import numpy as np
     import torch
 
@@ -620,7 +826,8 @@ def phase_main(hp, sd, small=None):
 
     syn = Synthesizer(hp, sd, device="cuda")
     lines = lines_for(hp, B // len(hp.languages), SEED + 2)
-    syn.synthesize_batch_lines(lines, seed=1)             # warm-up
+    if full:
+        syn.synthesize_batch_lines(lines, seed=1)         # warm-up
     torch.cuda.synchronize()
 
     fd.reset_launch_counts()
@@ -630,7 +837,8 @@ def phase_main(hp, sd, small=None):
     seconds = time.perf_counter() - t0
     launches = dict(fd.LAUNCHES)
 
-    path = fd.path_kernels(syn.bundle.att_kind)
+    b = syn.bundle
+    path = fd.path_kernels(b.att_kind, b.dtype, b.q_streams)
     if any(launches[k] == 0 for k in path) or any(
             launches[k] for k in launches if k not in path):
         fail(f"the main path's kernels {path}: launches {launches}")
@@ -640,12 +848,14 @@ def phase_main(hp, sd, small=None):
         fail("main path: wrong shapes or non-finite spectrograms")
     frames = B * n_frames
     say(f"[main] {B} streams x {n_frames} frames (chunk "
-        f"{hp.decode_chunk_frames}, W8A8, memory width "
+        f"{hp.decode_chunk_frames}, {mode_of(syn.bundle)}, memory width "
         f"{syn.model.decoder.memory_dim}): {frames} frames in {seconds:.4f} "
         f"s = {frames / seconds:.1f} mel frames/s = "
-        f"{frames / 80.0 / seconds:.1f} audio-seconds/s (host clock, after a"
-        f" warm-up run)")
-    say(f"[main] launches: {launches}")
+        f"{frames / 80.0 / seconds:.1f} audio-seconds/s (host clock"
+        f"{', after a warm-up run' if full else ', no warm-up'})")
+    say(f"[main] launches: { {k: v for k, v in launches.items() if v} }")
+    if not full:
+        return syn, launches, frames / seconds
 
     blend = lines_for(hp, 2, SEED + 3, blend=True)
     out_b = syn.synthesize_batch_lines(blend, seed=3)
@@ -656,34 +866,61 @@ def phase_main(hp, sd, small=None):
     if small is None:
         return syn, launches, frames / seconds
 
-    # a small batch against the plain path on the CPU (bf16 there too)
+    # a small batch against the plain path on the CPU (the same compute
+    # type there too)
     small_lines = lines_for(small, 1, SEED + 4)
-    got = Synthesizer(small, sd, device="cuda").synthesize_batch_lines(
-        small_lines, seed=4)
+    f32 = syn.dtype == torch.float32
+    with cudnn_default() if f32 else contextlib.nullcontext():
+        got = Synthesizer(small, sd, device="cuda").synthesize_batch_lines(
+            small_lines, seed=4)
     ref = Synthesizer(small, sd, device="cpu").synthesize_batch_lines(
         small_lines, seed=4)
     errs = [float(np.linalg.norm(g - r) / np.linalg.norm(r))
             for g, r in zip(got, ref)]
-    if max(errs) > E2E_REL_TOL or any(g.shape != r.shape
-                                      for g, r in zip(got, ref)):
+    bound = F32_E2E_TOL if f32 else E2E_REL_TOL
+    if f32:
+        # what the port's own float32 guard (device.exact_float32) keeps
+        # out: the same card run with cuDNN in TF32
+        from multilingual_text_to_speech_tpu_torch import synthesis
+
+        guard = synthesis.exact_float32
+        synthesis.exact_float32 = contextlib.nullcontext
+        try:
+            with cudnn_default():
+                tf32 = Synthesizer(small, sd, device="cuda"
+                                   ).synthesize_batch_lines(small_lines,
+                                                            seed=4)
+        finally:
+            synthesis.exact_float32 = guard
+        tf32_err = max(float(np.linalg.norm(g - r) / np.linalg.norm(r))
+                       for g, r in zip(tf32, ref))
+        say(f"[main] the same {len(small_lines)} lines without the port's "
+            "float32 guard (cuDNN in TF32) against the CPU: max relative "
+            f"error {tf32_err:.3g}")
+    if max(errs) > bound or any(g.shape != r.shape
+                                for g, r in zip(got, ref)):
         fail(f"card vs CPU plain path: relative errors {errs}")
     say(f"[main] {len(small_lines)} lines x 32 frames, card kernels vs CPU "
-          f"plain path: max relative error {max(errs):.3g} "
-          f"(bound {E2E_REL_TOL})")
+        f"plain path ({mode_of(syn.bundle)}"
+        f"{'; cuDNN at its TF32 default' if f32 else ''}): max relative "
+        f"error {max(errs):.3g} (bound {bound})")
     return syn, launches, frames / seconds
 
 
-def phase_timings(hp, syn, errs, launches, only=None):
-    """Device times of each kernel (of ``only``, when given), its plain
-    version and its library yardstick (``device_ms``), then CUDA-event
-    times of a decode step and chunk, at the main path's shapes.  A row of
-    a labelled phase carries its label in its name."""
+def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
+    """Device times of each kernel of ``syn``'s bundle (of ``only``, when
+    given), its plain version and its library yardstick (``device_ms``),
+    then, with ``chunk``, CUDA-event times of a decode step and chunk, at
+    the main path's shapes.  A row is named by the kernel's instance
+    (``fused_decoder.instance``), and a row of a labelled phase carries its
+    label in its name."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
 
     bundle, kw = syn.bundle, syn.decode_kwargs
-    memory, mt, mask, carry = encoded_batch(syn, hp)
+    memory, mt, mask, carry = encoded_batch(syn, hp, bundle)
+    raw = memory
     memory, mtb, mask_add = fd.chunk_operands(bundle, memory, mt, mask)
     seeds, zh, zc = (1, 2), kw["zoneout_h"], kw["zoneout_c"]
     hidden = carry["h_att"].shape[1]
@@ -693,13 +930,14 @@ def phase_timings(hp, syn, errs, launches, only=None):
     in_dim, p_dim, n_pre = bundle.pre_dims
     att_name = fd.path_kernels(bundle.att_kind)[2]
     agent = bundle.att_kind == "fwd_trans"
+    f32 = bundle.dtype == torch.float32
     x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"], seeds, 0)
     segs_att = (x, carry["context"], carry["h_att"])
     segs_gen = (carry["h_att"], carry["context"], carry["h_gen"])
     k_att, k_gen = p_dim + m_dim + hidden, 2 * hidden + m_dim
     n_head = bundle.head_w.shape[0]
     # the kernels as a chunk runs them: the generator's gate_lstm and
-    # lsa_attention write the head row, and the head reads it
+    # the attention kernel write the head row, and the head reads it
     row = fd.head_row(carry["h_gen"], carry["context"], bundle)
     gen_row, ctx_row = row[:, :hidden], row[:, hidden:hidden + m_dim]
 
@@ -731,56 +969,72 @@ def phase_timings(hp, syn, errs, launches, only=None):
                  lambda: fd.head_plain(carry["h_gen"], carry["context"],
                                        bundle)),
     }
-    f32, bf = 4, 2
+    # bytes of an element: float32 4; the compute type; the streams (int8
+    # with their scale rows); the type whose peak rate bounds a product
+    f4 = 4
+    es = bundle.head_w.element_size()
+    ss = 1 if bundle.q_streams else es
+    scales = (m_dim * f4 + a_dim * es) if bundle.q_streams else 0
+    kind = "f32" if f32 else "bf16"
     work = {   # (bytes each input once + outputs once, operations, type)
-        "prenet": (B * in_dim * f32 + (in_dim + (n_pre - 1) * p_dim) * p_dim
-                   * bf + n_pre * p_dim * f32 + B * p_dim * f32,
-                   2 * B * (in_dim + (n_pre - 1) * p_dim) * p_dim, "bf16"),
-        # both LSTMs: concat rows (h read there), int8 weights (unpadded),
+        "prenet": (B * in_dim * f4 + (in_dim + (n_pre - 1) * p_dim) * p_dim
+                   * es + n_pre * p_dim * f4 + B * p_dim * f4,
+                   2 * B * (in_dim + (n_pre - 1) * p_dim) * p_dim, kind),
+        # both LSTMs: concat rows (h read there), gate weights (unpadded),
         # scales and biases, c read, h and c written
-        "gate_lstm": (B * (k_att + k_gen) * f32
+        "gate_lstm": (B * (k_att + k_gen) * f4
                       + (k_att + k_gen) * 4 * hidden
                       * bundle.att_w.element_size()
-                      + 2 * 2 * 4 * hidden * f32 + 2 * 3 * B * hidden * f32,
-                      2 * B * (k_att + k_gen) * 4 * hidden, "int8"),
-        "lsa_attention": (B * hidden * f32 + 2 * B * T_SYMBOLS * f32
-                          + B * T_SYMBOLS * (m_dim + a_dim) * bf
-                          + B * T_SYMBOLS * f32 + hidden * a_dim * bf
-                          + k_taps * a_dim * bf + a_dim * f32
-                          + B * m_dim * f32,
+                      + 2 * 2 * 4 * hidden * f4 + 2 * 3 * B * hidden * f4,
+                      2 * B * (k_att + k_gen) * 4 * hidden,
+                      "int8" if bundle.quantized else kind),
+        "lsa_attention": (B * hidden * f4 + 2 * B * T_SYMBOLS * f4
+                          + B * T_SYMBOLS * (m_dim + a_dim) * ss + scales
+                          + B * T_SYMBOLS * f4 + hidden * a_dim * es
+                          + k_taps * a_dim * es + a_dim * f4
+                          + B * m_dim * f4,
                           2 * B * (hidden * a_dim + T_SYMBOLS * a_dim
                                    * (k_taps + 1) + T_SYMBOLS * m_dim),
-                          "bf16"),
+                          kind),
         # h_att, the last weights, memory, mtb and mask read, Wq and v; the
         # weights and the context written; with the transition agent, its
-        # t_prob in and out, the prenet output and its bf16 weights
-        "fwd_attention": (B * hidden * f32 + 2 * B * T_SYMBOLS * f32
-                          + B * T_SYMBOLS * (m_dim + a_dim) * bf
-                          + B * T_SYMBOLS * f32 + hidden * a_dim * bf
-                          + a_dim * f32 + B * m_dim * f32
-                          + (2 * B * f32 + B * p_dim * f32
-                             + (m_dim + hidden + p_dim) * bf + f32
+        # t_prob in and out, the prenet output and its weights
+        "fwd_attention": (B * hidden * f4 + 2 * B * T_SYMBOLS * f4
+                          + B * T_SYMBOLS * (m_dim + a_dim) * ss + scales
+                          + B * T_SYMBOLS * f4 + hidden * a_dim * es
+                          + a_dim * f4 + B * m_dim * f4
+                          + (2 * B * f4 + B * p_dim * f4
+                             + (m_dim + hidden + p_dim) * es + f4
                              if agent else 0),
                           2 * B * (hidden * a_dim + T_SYMBOLS * a_dim
                                    + T_SYMBOLS * m_dim
                                    + (m_dim + hidden + p_dim if agent
                                       else 0)),
-                          "bf16"),
-        # the bf16 head row, the weight, the bias, frame and stop out
-        "head": (B * (hidden + m_dim) * bf + (hidden + m_dim) * n_head * bf
-                 + n_head * f32 + B * n_head * f32,
-                 2 * B * (hidden + m_dim) * n_head, "bf16"),
+                          kind),
+        # the head row, the weight, the bias, frame and stop out
+        "head": (B * (hidden + m_dim) * es + (hidden + m_dim) * n_head * es
+                 + n_head * f4 + B * n_head * f4,
+                 2 * B * (hidden + m_dim) * n_head, kind),
     }
-    # torch._int_mm wants K a multiple of 8: use the kernels' zero-padded K
+    # the library yardsticks: torch._int_mm (K a multiple of 8: the
+    # kernels' zero-padded K) for W8A8 gates, torch.addmm in the compute
+    # type for exact gates (float32 in full float32: TF32 is off) and the
+    # head
     wa, wg = bundle.att_w.t(), bundle.gen_w.t()          # [K_pad, 4H]
-    qa = torch.randint(-127, 128, (B, wa.shape[0]), dtype=torch.int8,
-                       device="cuda")
-    qg = torch.randint(-127, 128, (B, wg.shape[0]), dtype=torch.int8,
-                       device="cuda")
-    head_b16 = bundle.head_b.to(torch.bfloat16)
-    library = {"gate_lstm": lambda: (torch._int_mm(qa, wa),
-                                     torch._int_mm(qg, wg)),
-               "head": lambda: torch.addmm(head_b16, row, bundle.head_w.t())}
+    if bundle.quantized:
+        qa = torch.randint(-127, 128, (B, wa.shape[0]), dtype=torch.int8,
+                           device="cuda")
+        qg = torch.randint(-127, 128, (B, wg.shape[0]), dtype=torch.int8,
+                           device="cuda")
+        gate_lib = lambda: (torch._int_mm(qa, wa), torch._int_mm(qg, wg))
+    else:
+        ra = torch.randn(B, wa.shape[0], device="cuda").to(bundle.dtype)
+        rg = torch.randn(B, wg.shape[0], device="cuda").to(bundle.dtype)
+        ba, bg = (bundle.att_b.to(bundle.dtype), bundle.gen_b.to(bundle.dtype))
+        gate_lib = lambda: (torch.addmm(ba, ra, wa), torch.addmm(bg, rg, wg))
+    head_bias = bundle.head_b.to(bundle.dtype)
+    library = {"gate_lstm": gate_lib,
+               "head": lambda: torch.addmm(head_bias, row, bundle.head_w.t())}
 
     rows = []
     for name, (kernel, plain) in calls.items():
@@ -789,48 +1043,160 @@ def phase_timings(hp, syn, errs, launches, only=None):
         ms = device_ms(kernel, ours_only=True)
         plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(library[name]) if name in library else None
-        n_bytes, ops, kind = work[name]
-        b_ms, b_by = bound_ms(n_bytes, ops, kind)
+        n_bytes, ops, op_kind = work[name]
+        b_ms, b_by = bound_ms(n_bytes, ops, op_kind)
+        inst = fd.instance(name, bundle.dtype, bundle.q_streams)
         rows.append({
-            "name": f"{name}[{_LABEL}]" if _LABEL else name, "route": "cuda",
+            "name": f"{inst}[{_LABEL}]" if _LABEL else inst, "route": "cuda",
             "source": "multilingual_text_to_speech_tpu_torch/csrc/"
                       "fused_decoder.cu",
             "replaces": "multilingual_text_to_speech_tpu/ops/"
                         "pallas_decoder.py:380",
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": launches[inst], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
         })
-        say(f"[time] {name} (device time, torch.profiler): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}), library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        say(f"[time] {inst} (device time, torch.profiler): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}, {op_kind}), library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    if not chunk:
+        return rows
 
     step_ms = cuda_ms(lambda: fd.decode_chunk(
-        bundle, carry, memory, mt, mask, seeds, 1, **kw), iters=50)
+        bundle, carry, raw, mt, mask, seeds, 1, **kw), iters=50)
     chunk_ms = cuda_ms(lambda: fd.decode_chunk(
-        bundle, carry, memory, mt, mask, seeds, CHUNK, **kw), iters=3,
+        bundle, carry, raw, mt, mask, seeds, CHUNK, **kw), iters=3,
         warmup=1)
     plain_chunk_ms = cuda_ms(lambda: fd.decode_chunk_plain(
-        bundle, carry, memory, mt, mask, seeds, CHUNK, **kw), iters=2,
+        bundle, carry, raw, mt, mask, seeds, CHUNK, **kw), iters=2,
         warmup=1)
-    say(f"[time] decode step (B={B}, T={T_SYMBOLS}, W8A8): {step_ms:.4f} ms;"
-          f" {CHUNK}-step chunk: kernels {chunk_ms:.3f} ms, plain "
-          f"{plain_chunk_ms:.3f} ms")
+    say(f"[time] decode step (B={B}, T={T_SYMBOLS}, {mode_of(bundle)}): "
+        f"{step_ms:.4f} ms; {CHUNK}-step chunk: kernels {chunk_ms:.3f} ms, "
+        f"plain {plain_chunk_ms:.3f} ms")
     # a chunk reads its weights and attention operands once and writes its
-    # frames once; its products run at the tensor cores' peaks, int8 gates
-    # and bf16 rest one after the other
-    step_ops_s = sum(ops / PEAK_OPS[kind] for name, (_, ops, kind)
+    # frames once; its products run at their types' peaks, one after the
+    # other
+    step_ops_s = sum(ops / PEAK_OPS[k] for name, (_, ops, k)
                      in work.items() if name in calls)
     chunk_bytes = ((k_att + k_gen) * 4 * hidden * bundle.att_w.element_size()
-                   + B * T_SYMBOLS * (m_dim + a_dim) * bf
-                   + B * CHUNK * n_head * f32)
+                   + B * T_SYMBOLS * (m_dim + a_dim) * ss
+                   + B * CHUNK * n_head * f4)
     say(f"[bound] decode step: {step_ops_s * 1e3:.5f} ms (operations); "
-          f"{CHUNK}-step chunk: operations {CHUNK * step_ops_s * 1e3:.4f} "
-          f"ms, bytes {chunk_bytes / HBM_BYTES_S * 1e3:.4f} ms "
-          f"({chunk_bytes / 1e6:.1f} MB)")
+        f"{CHUNK}-step chunk: operations {CHUNK * step_ops_s * 1e3:.4f} "
+        f"ms, bytes {chunk_bytes / HBM_BYTES_S * 1e3:.4f} ms "
+        f"({chunk_bytes / 1e6:.1f} MB)")
     phase_profile(lambda steps: fd.decode_chunk(
-        bundle, carry, memory, mt, mask, seeds, steps, **kw))
+        bundle, carry, raw, mt, mask, seeds, steps, **kw))
+    return rows
+
+
+def phase_shared_streams(sd) -> None:
+    """``[kernels:q8]`` at the shared strategy's 548-wide memory (int8 rows
+    of 548 bytes): ``phase_variant_kernels`` on int8 streams in bf16 and
+    float32, W8A8, for the weights ``sd`` of that strategy."""
+    from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+
+    for cfg in (Q8, F32_Q8):
+        hp = switching("shared", 32, 16)
+        for k, v in cfg.items():
+            setattr(hp, k, v)
+        syn = Synthesizer(hp, sd, device="cuda")
+        phase_variant_kernels(syn, hp, [(True, True)])
+        del syn
+
+
+def check_wide_streams(syn, hp, bundle, mem_dim: int = 548) -> None:
+    """The forward family's attention kernel on int8 streams of the shared
+    strategy's ``mem_dim``-wide memory (int8 rows of 548 bytes: not a
+    multiple of 16), which no model of the family has: ``bundle`` with a
+    random agent context weight of that width, random memory and memory
+    transform quantized by ``chunk_operands``, the step's state from
+    ``encoded_batch``; held as ``check_attention_step`` holds it."""
+    import dataclasses
+
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    _, mt, mask, carry = encoded_batch(syn, hp, bundle)
+    memory = torch.randn(B, T_SYMBOLS, mem_dim, device="cuda", generator=gen)
+    wide = dataclasses.replace(bundle, ta_wc=None if bundle.ta_wc is None
+                               else (torch.randn(mem_dim, device="cuda",
+                                                 generator=gen)
+                                     * mem_dim ** -0.5).to(bundle.dtype))
+    memory, mtb, mask_add = fd.chunk_operands(wide, memory.to(bundle.dtype),
+                                              mt, mask)
+    h_att = carry["h_att"]
+    x = torch.relu(torch.randn(B, bundle.pre_dims[1], device="cuda",
+                               generator=gen))
+    row = torch.zeros(B, mem_dim, dtype=bundle.dtype, device="cuda")
+    name, _, _, err = check_attention_step(fd, wide, f"E={mem_dim}", h_att,
+                                           x, carry, memory, mtb, mask_add,
+                                           row)
+    say(f"[kernels:E={mem_dim}] {name} on int8 streams of a {mem_dim}-wide "
+        f"memory: max abs err {err:.3g}")
+
+
+def phase_k1_variants(sd, kind: str = "location_sensitive"):
+    """K1's float32 instances (V4's K1 half) and int8 streams (V5) at the
+    flagship's widths for attention ``kind``.  ``[kernels:f32]``,
+    ``[kernels:q8]``, ``[kernels:f32-q8]``: every stage of each instance
+    against its plain version (``check_step``; location-sensitive float32
+    with W8A8 and exact gates; the family's also on 548-wide int8 streams,
+    ``check_wide_streams``).  Then the main path of each configuration
+    with the launch counts reset just before and read just after: at
+    location-sensitive attention ``[main:f32]`` (float32, W8A8: 240 lines x
+    256 frames, the card against the CPU) and ``[main:q8]`` (bf16, int8
+    streams, the same), and 240 lines x LAUNCH_FRAMES for the exact gates
+    and float32 streams; for the family 240 x LAUNCH_FRAMES of each.  Each
+    new instance is timed (``phase_timings``).  Returns the kernel rows."""
+    from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+
+    ls = kind == "location_sensitive"
+    fam = "" if ls else ":" + FAMILY[kind]
+    att = "lsa_attention" if ls else "fwd_attention"
+    errs = {}
+    for cfg, label in ((F32, "f32"), (Q8, "q8"), (F32_Q8, "f32-q8")):
+        q8 = cfg is not F32
+        variants = [(True, q8)] + ([(False, False)] if cfg is F32 and ls
+                                   else [])
+        with labelled(label + fam), phase("kernels"):
+            hp = flagship(LAUNCH_FRAMES, LAUNCH_FRAMES, kind, **cfg)
+            syn = Synthesizer(hp, sd, device="cuda")
+            for v, e in phase_variant_kernels(syn, hp, variants).items():
+                errs[(label, v[0])] = e
+            if q8 and not ls:
+                check_wide_streams(syn, hp, variant_bundle(syn, True, True))
+            del syn
+
+    rows = []
+    # (label, settings, frames, small card-vs-CPU batch, timed kernels,
+    # the rows' label, errs key)
+    runs = [("f32", F32, LAUNCH_FRAMES, False, (att,), FAMILY.get(kind, ""),
+             ("f32", True)),
+            ("q8", Q8, LAUNCH_FRAMES, False, (att,), FAMILY.get(kind, ""),
+             ("q8", True)),
+            ("f32-q8", F32_Q8, LAUNCH_FRAMES, False, (att,),
+             FAMILY.get(kind, ""), ("f32-q8", True))]
+    if ls:
+        runs = [("f32", F32, FAMILY_FRAMES, True, None, "", ("f32", True)),
+                ("f32-exact", F32_EXACT, LAUNCH_FRAMES, False,
+                 ("gate_lstm",), "exact", ("f32", False)),
+                ("q8", Q8, FAMILY_FRAMES, True, (att,), "", ("q8", True)),
+                ("f32-q8", F32_Q8, LAUNCH_FRAMES, False, (att,), "",
+                 ("f32-q8", True))]
+    for label, cfg, frames, full, only, row_label, key in runs:
+        with labelled(label + fam), phase("main"):
+            hp = flagship(frames, min(frames, CHUNK), kind, **cfg)
+            syn, launches, _ = phase_main(
+                hp, sd, flagship(32, 16, kind, **cfg) if full else None,
+                full=full)
+        with labelled(row_label), phase("time"):
+            rows += phase_timings(hp, syn, errs[key], launches, only=only,
+                                  chunk=only is None)
+        del syn
     return rows
 
 
@@ -1217,7 +1583,17 @@ def phase_train_kernels(hp, sd, only=None):
     """K2 and K3 kernels (of ``only``, when given, alone; the chained
     steps and the autograd check run every kernel) against their plain
     versions at B=50, T=128, bf16.  Returns ({kernel: max_abs_err}, the
-    inputs the timings reuse)."""
+    inputs the timings reuse).  Only the autograd check records a graph:
+    the plain versions' in-place writes into their streams, recorded,
+    would tie every step's float32 weight copies into a graph that
+    outlives the phase (1.4 GiB at the flagship)."""
+    import torch
+
+    with torch.no_grad():
+        return _train_kernel_checks(hp, sd, only)
+
+
+def _train_kernel_checks(hp, sd, only):
     import torch
 
     from multilingual_text_to_speech_tpu_torch.ops import (
@@ -1334,8 +1710,9 @@ def phase_train_kernels(hp, sd, only=None):
           f"T={TRAIN_T}, forward and backward, kernels vs plain: relative "
           f"error of {len(worst)} streams, gradients, accumulators and "
           f"carries at most {top:.3g} ({name}; bound {TRAIN_CHAIN_TOL})")
-    check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
-                         teacher, seeds, cts)
+    with torch.enable_grad():
+        check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
+                             teacher, seeds, cts)
     return errs, (ftd, calls, unfused)
 
 
@@ -1844,9 +2221,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+
     torch.set_grad_enabled(False)
-    # the plain versions run float32 products in full float32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # PyTorch runs float32 matrix products in full float32 by default: the
+    # plain versions and the library yardsticks rely on it
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("torch.backends.cuda.matmul.allow_tf32 is not False")
+    # the plain versions' float32 convolutions in full float32 too (the
+    # float32 synthesis phases restore the default around the card's run,
+    # cudnn_default)
     torch.backends.cudnn.allow_tf32 = False
     say(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1854,49 +2238,69 @@ def main() -> int:
     phase_build()
     hp = flagship(MAX_FRAMES, CHUNK)
     sd = seeded_state_dict(hp)
-    errs = phase_kernels(hp, sd)
-    syn, launches, _ = phase_main(hp, sd, flagship(32, 16))
-    rows = phase_timings(hp, syn, errs, launches)
+    with phase("kernels"):
+        errs = phase_kernels(hp, sd)
+    with phase("main"):
+        syn, launches, _ = phase_main(hp, sd, flagship(32, 16))
+    with phase("time"):
+        rows = phase_timings(hp, syn, errs, launches)
     del syn
+    # float32 compute and int8 streams at the flagship's widths
+    rows += phase_k1_variants(sd)
     # serving at the shared strategy's 548-wide memory (K1 against plain
-    # and timed there too) and the separate strategy's 288
+    # and timed there too, also on int8 streams in bf16 and float32) and
+    # the separate strategy's 288
     for name in SWITCHING:
         with labelled(name):
             hp_s = switching(name, SWITCHING_FRAMES, CHUNK)
             sd_s = seeded_state_dict(hp_s)
             if name == "shared":
-                errs_s = phase_kernels(hp_s, sd_s, modes=(True,))
-            syn_s, launches_s, _ = phase_main(hp_s, sd_s,
-                                              switching(name, 32, 16))
+                with phase("kernels"):
+                    errs_s = phase_kernels(hp_s, sd_s, modes=(True,))
+                    phase_shared_streams(sd_s)
+            with phase("main"):
+                syn_s, launches_s, _ = phase_main(hp_s, sd_s,
+                                                  switching(name, 32, 16))
             if name == "shared":
-                phase_timings(hp_s, syn_s, errs_s, launches_s)
+                with phase("time"):
+                    phase_timings(hp_s, syn_s, errs_s, launches_s)
             del syn_s
     # the forward family: K1's fwd_attention against plain (W8A8 and bf16
     # gates), synthesis through it, and its time; the card against the CPU
-    # plain path at the transition agent
+    # plain path at the transition agent; then its float32 and int8-stream
+    # instances
     for kind, label in FAMILY.items():
         with labelled(label):
             hp_f = flagship(FAMILY_FRAMES, CHUNK, kind)
             sd_f = seeded_state_dict(hp_f)
-            errs_f = phase_kernels(hp_f, sd_f)
-            syn_f, launches_f, _ = phase_main(
-                hp_f, sd_f, flagship(32, 16, kind) if label == "fwd_trans"
-                else None)
-            rows += phase_timings(hp_f, syn_f, errs_f, launches_f,
-                                  only=("fwd_attention",))
+            with phase("kernels"):
+                errs_f = phase_kernels(hp_f, sd_f)
+            with phase("main"):
+                syn_f, launches_f, _ = phase_main(
+                    hp_f, sd_f, flagship(32, 16, kind)
+                    if label == "fwd_trans" else None)
+            with phase("time"):
+                rows += phase_timings(hp_f, syn_f, errs_f, launches_f,
+                                      only=("fwd_attention",))
             del syn_f
+        rows += phase_k1_variants(sd_f, kind)
     torch.set_grad_enabled(True)
-    train_errs, train_inputs = phase_train_kernels(hp, sd)
-    t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
-    phase_train_vs_cpu(hp, sd)
-    phase_train_eval(hp, sd)
-    rows += phase_train_timings(hp, train_errs, t_launches, t_per_step,
-                                train_inputs, main_state)
+    with phase("train:kernels"):
+        train_errs, train_inputs = phase_train_kernels(hp, sd)
+    with phase("train:main"):
+        t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
+    with phase("train:cpu"):
+        phase_train_vs_cpu(hp, sd)
+    with phase("train:eval"):
+        phase_train_eval(hp, sd)
+    with phase("train:time"):
+        rows += phase_train_timings(hp, train_errs, t_launches, t_per_step,
+                                    train_inputs, main_state)
     del main_state, train_inputs
     # training steps of both strategies (K2/K3 against plain and timed at
     # the shared strategy's 548-wide memory)
     for name in SWITCHING:
-        with labelled(name):
+        with labelled(name), phase("train"):
             hp_s = switching(name, SWITCHING_FRAMES, CHUNK)
             sd_s = seeded_state_dict(hp_s)
             if name == "shared":
@@ -1912,7 +2316,7 @@ def main() -> int:
     # through them, and their times; the card against the CPU (a train
     # step and the eval forward) at the transition agent
     for kind, label in FAMILY.items():
-        with labelled(label):
+        with labelled(label), phase("train"):
             hp_f = flagship(FAMILY_FRAMES, CHUNK, kind)
             sd_f = seeded_state_dict(hp_f)
             errs_f, inputs_f = phase_train_kernels(

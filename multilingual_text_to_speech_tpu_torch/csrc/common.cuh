@@ -20,6 +20,32 @@ __device__ __forceinline__ float bf16_at(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
+// The compute type CT of the serving decoder's instances (bfloat16 or
+// float32) and its stream types (CT or int8): a float rounded to CT, held
+// in float (float32: unchanged); a float stored as CT; any of them read
+// as float.
+template <class CT>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(CT) == 2)
+    return round_bf16(x);
+  else
+    return x;
+}
+
+template <class CT>
+__device__ __forceinline__ CT from_float(float x) {
+  if constexpr (sizeof(CT) == 2)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
+}
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }

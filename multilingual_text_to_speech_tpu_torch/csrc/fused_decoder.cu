@@ -5,9 +5,16 @@
 // wrapper (ops/fused_decoder.py) launches the kernels of a step: prenet,
 // gate_lstm (gate_rows and gate_mma, once per LSTM), lsa_attention and
 // head (the split-K product and its ordered reduction).  The compute type
-// is bfloat16; carries and sums are float32.  Values are rounded to
-// bfloat16 at the points where the TPU kernel rounds them, so the plain
-// PyTorch version in ops/fused_decoder.py can repeat the arithmetic.
+// is bfloat16 or float32, each kernel a template instance on it (the TPU
+// kernel's `dtype`); carries and sums are float32.  In bfloat16, values are
+// rounded at the points where the TPU kernel rounds them, so the plain
+// PyTorch version in ops/fused_decoder.py can repeat the arithmetic; in
+// float32 nothing is rounded and every product is float32 (csrc/tile.cuh:
+// simt_tile32 and the other float32 paths, FFMA on the CUDA cores), but
+// W8A8's int8 gate product, which float32 keeps.  The attention kernels
+// also read the memory and the memory transform as int8 streams with
+// per-channel scales (the TPU kernel's q_streams, pallas_decoder.py:
+// 985-1003), dequantized where the TPU kernel dequantizes them.
 //
 // Bound on the H100: the two gate products dominate (2*B*(K_att+K_gen)*4H
 // int8 operations a step, 7.7 G at B=240: 3.9 us at 1,979 TOP/s; their 16
@@ -64,7 +71,8 @@ struct PrenetOut {
   float* out;        // [B, P]
   uint8_t* keep;     // [n_layers, B, P], or null
   int B, P, n_layers;
-  __device__ __forceinline__ void raw(int, int, bf16) const {}
+  template <class T>
+  __device__ __forceinline__ void raw(int, int, T) const {}
   __device__ __forceinline__ void put(int layer, int row, int col, float y,
                                       bool kept) const {
     if (keep != nullptr)
@@ -75,17 +83,20 @@ struct PrenetOut {
 
 // ---------------------------------------------------------------------------
 // gate_lstm, two launches per LSTM:
-//   gate_rows: the concat row [s0 | s1 | s2] in the compute type, built once
-//     per batch row.  W8A8: rs = max(amax, 1e-6) * (1/127), inv = 1/rs
-//     (IEEE), q = clip(rint(x * inv)) -> the int8 row [B, Kp] and rs [B];
-//     bf16: the bf16 row [B, Kp].  Zero padded to Kp.
-//   gate_mma: gates = row @ W^T on the tensor cores (gate_tile_kernel of
-//     csrc/tile.cuh, which the training decoder's gate product runs too),
-//     then the W8A8 dequant, the LSTM pointwise step and eval zoneout in
-//     the epilogue, EvalLstm.
+//   gate_rows: the concat row [s0 | s1 | s2] in the compute type CT, built
+//     once per batch row.  W8A8: rs = max(amax, 1e-6) * (1/127), inv = 1/rs
+//     (IEEE), q = clip(rint(x * inv)) -> the int8 row [B, Kp] and rs [B]
+//     (in float32 from the unrounded row, as the TPU kernel quantizes its
+//     float32 row, pallas_decoder.py:501-505); otherwise the CT row
+//     [B, Kp].  Zero padded to Kp.
+//   gate_mma: gates = row @ W^T (gate_tile_kernel of csrc/tile.cuh, which
+//     the training decoder's gate product runs too: int8 or bf16 on the
+//     tensor cores, float32 on simt_tile32), then the W8A8 dequant, the
+//     LSTM pointwise step and eval zoneout in the epilogue, EvalLstm.
 // W is [4H, Kp] (one row per gate column, K contiguous, Kp a multiple of
 // 64), so the row and W are the row.col operands of mma.sync as they lie.
 // ---------------------------------------------------------------------------
+template <class CT>
 struct Segments {
   const float* s0;
   const float* s1;
@@ -101,16 +112,16 @@ struct Segments {
       v = s2[(size_t)row * k2 + (k - k0 - k1)];
     else
       v = 0.0f;
-    return round_bf16(v);
+    return round_to<CT>(v);
   }
 };
 
 constexpr int ROW_THREADS = 256;
 
 // one block per batch row; dynamic shared memory holds the row (K floats)
-template <bool INT8>
+template <bool INT8, class CT>
 __global__ void __launch_bounds__(ROW_THREADS)
-gate_rows_kernel(Segments seg, int kp, uint32_t* __restrict__ row_out,
+gate_rows_kernel(Segments<CT> seg, int kp, uint32_t* __restrict__ row_out,
                  float* __restrict__ rs_out, int8_t* __restrict__ q_out) {
   extern __shared__ float s_x[];
   __shared__ float s_red[32];
@@ -144,6 +155,11 @@ gate_rows_kernel(Segments seg, int kp, uint32_t* __restrict__ row_out,
       }
       dst[wd] = packed;
     }
+  } else if constexpr (sizeof(CT) == 4) {
+    __syncthreads();
+    float* dst = reinterpret_cast<float*>(row_out) + (size_t)row * kp;
+    for (int k = threadIdx.x; k < kp; k += blockDim.x)
+      dst[k] = k < K ? s_x[k] : 0.0f;
   } else {
     __syncthreads();
     uint32_t* dst = row_out + (size_t)row * (kp / 2);
@@ -157,13 +173,13 @@ gate_rows_kernel(Segments seg, int kp, uint32_t* __restrict__ row_out,
 }
 
 // gate_mma's epilogue (gate_tile_kernel, csrc/tile.cuh): the W8A8 dequant
-// in the TPU kernel's order, ((acc * rs) * ws) + b, or the bias of bf16
+// in the TPU kernel's order, ((acc * rs) * ws) + b, or the bias of float32
 // sums; the LSTM pointwise step and eval zoneout; with ROW (the generator
-// LSTM in a chunk) also h in bf16 into the head row.  ROW is a template
-// argument because the store alone changes the compiled gate kernel: at
-// B=240 in W8A8 it drops from 121 to 97 registers and runs about 5 % slower
-// on the H100, which the attention LSTM need not pay.
-template <bool INT8, bool ROW>
+// LSTM in a chunk) also h in the compute type CT into the head row.  ROW is
+// a template argument because the store alone changes the compiled gate
+// kernel: at B=240 in W8A8 it drops from 121 to 97 registers and runs about
+// 5 % slower on the H100, which the attention LSTM need not pay.
+template <bool INT8, bool ROW, class CT>
 struct EvalLstm {
   const float* rs;
   const float* ws;
@@ -172,7 +188,7 @@ struct EvalLstm {
   const float* c_old;
   float* h_new;
   float* c_new;
-  __nv_bfloat16* h_row;   // bf16(h_new) into the head row (ROW)
+  CT* h_row;              // CT(h_new) into the head row (ROW)
   int ld_row;
   int H;
   float zh, zc;
@@ -196,7 +212,7 @@ struct EvalLstm {
     h_new[o] = ho;
     c_new[o] = zc == 0.0f ? cn : zc * c_prev + (1.0f - zc) * cn;
     if constexpr (ROW)
-      h_row[(size_t)row * ld_row + unit] = __float2bfloat16_rn(ho);
+      h_row[(size_t)row * ld_row + unit] = from_float<CT>(ho);
   }
 };
 
@@ -240,69 +256,125 @@ struct EvalLstm {
 // lsa_attention's; the shift reads prev[t-1] beside prev[t].  Bound on the
 // H100: the bytes of memory and mtb a row reads, as lsa_attention's (8.3 us
 // at B=240, T=128); without the band product it does strictly less work.
+//
+// The compute type CT and the stream type ST: every instance above is CT =
+// ST = bf16.  CT = float32 (the TPU kernel at dtype float32) rounds none of
+// the "bf16(...)" above, and runs steps 1 and 2 on the CUDA cores: the
+// query a thread an output of the cluster's rows, the energy a warp a
+// position and a lane every 32nd channel, the location conv as the float32
+// band product (csrc/tile.cuh band_loc_f32).  ST = int8 (the TPU kernel's
+// q_streams, pallas_decoder.py:571-572, :626-634): mtb is read as int8 and
+// dequantized in the compute type, mtb = CT(q * mts[a]) with the scale row
+// already in CT; the context sums CT(q * w[t]) in float32 and multiplies
+// the channel's float32 scale after the sum.  An int8 memory row (292 or
+// 548 bytes) is not a multiple of 16 bytes: the context's chunk scheme
+// reads it as a flat array (period 4, csrc/tile.cuh CtxScheme).  Bound on
+// the H100: the streams' bytes, 2x in float32 (51.6 MB a step at B=240,
+// T=128: beyond the 50 MB L2), 1/2 in int8.
 // ---------------------------------------------------------------------------
 constexpr int LSA_THREADS = 256, LSA_WARPS = LSA_THREADS / 32;
 constexpr int LSA_ROWS = 8;   // CTAs (batch rows) a cluster
 
 // the forward family's extra operands (all null for location-sensitive)
+template <class CT>
 struct FwdArgs {
   const float* tp_in;    // [B] the transition probability of the last step
   float* tp_out;         // [B]
   const float* x;        // [B, P] float32 prenet output of this step
-  const __nv_bfloat16* wc;   // [Mem] the agent's weights, bf16
-  const __nv_bfloat16* wq;   // [H]
-  const __nv_bfloat16* wx;   // [P]
+  const CT* wc;          // [Mem] the agent's weights in the compute type
+  const CT* wq;          // [H]
+  const CT* wx;          // [P]
   const float* bias;     // [1]
   int P;
 };
 
-// shared-memory layout of lsa_attention_kernel (byte offsets)
+// the int8 streams' dequant rows (ST = int8; null otherwise)
+template <class CT>
+struct StreamScales {
+  const float* mem;      // [Mem] float32, applied to the context
+  const CT* mt;          // [A] in the compute type
+};
+
+// shared-memory layout of lsa_attention_kernel (byte offsets) for a
+// compute type of `es` bytes and streams of `ss`
 struct LsaLayout {
   int kq, ldh, ld, tpad;
   CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
-  size_t wq, h, qp, q, v, lc, cum, e, red, cpart, total;
-  __host__ __device__ LsaLayout(int T, int H, int A, int M)
-      : cs(M, LSA_THREADS) {
+  size_t wq, h, qp, q, v, mts, lc, cum, e, red, cpart, total;
+  __host__ __device__ LsaLayout(int T, int H, int A, int M, int es, int ss)
+      : cs(M, LSA_THREADS, 16 / ss) {
+    const int pad = 16 / es;
     kq = ((H + LSA_ROWS - 1) / LSA_ROWS + 31) / 32 * 32;
-    ldh = kq + 8;
-    ld = A + 8;   // rows of Wq and of lc
+    ldh = kq + pad;
+    ld = A + pad;   // rows of Wq and of lc
     tpad = (T + 15) / 16 * 16;
     wq = 0;
-    h = wq + align16((size_t)kq * ld * 2);
-    qp = h + align16((size_t)LSA_ROWS * ldh * 2);
+    h = wq + align16((size_t)kq * ld * es);
+    qp = h + align16((size_t)LSA_ROWS * ldh * es);
     q = qp + align16((size_t)LSA_ROWS * A * 4);
     v = q + align16((size_t)A * 4);
-    lc = v + align16((size_t)A * 4);
-    cum = lc + align16((size_t)BAND_K * ld * 2);
-    e = cum + align16((size_t)(tpad + BAND_K) * 2);
+    mts = v + align16((size_t)A * 4);
+    lc = mts + align16((size_t)A * 4);
+    cum = lc + align16((size_t)BAND_K * ld * es);
+    e = cum + align16((size_t)(tpad + BAND_K) * es);
     red = e + align16((size_t)tpad * 4);
     cpart = red + 32 * 4;
     total = cpart + align16(cs.scratch_floats(M) * 4);
   }
 };
 
-template <int KIND>
+// the memory transform (plus bias) at i, and at i and i + 1, as the energy
+// reads it: the compute type's value, or int8 * the channel's scale
+// rounded to it (s_mts: the scale row, float of CT)
+template <class CT>
+__device__ __forceinline__ float mt_at(const float* p, size_t i,
+                                       const float*) {
+  return p[i];
+}
+template <class CT>
+__device__ __forceinline__ float mt_at(const int8_t* p, size_t i,
+                                       const float* s_mts) {
+  return round_to<CT>((float)p[i] * *s_mts);
+}
+template <class CT>
+__device__ __forceinline__ float2 mt_pair(const __nv_bfloat16* p, size_t i,
+                                          const float*) {
+  const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(p + i);
+  return make_float2(__low2float(m), __high2float(m));
+}
+template <class CT>
+__device__ __forceinline__ float2 mt_pair(const int8_t* p, size_t i,
+                                          const float* s_mts) {
+  const char2 c = *reinterpret_cast<const char2*>(p + i);
+  return make_float2(round_to<CT>((float)c.x * s_mts[0]),
+                     round_to<CT>((float)c.y * s_mts[1]));
+}
+
+template <int KIND, class CT, class ST>
 __global__ void __launch_bounds__(LSA_THREADS)
 lsa_attention_kernel(const float* __restrict__ h_att,
                      const float* __restrict__ cum,
-                     const __nv_bfloat16* __restrict__ memory,
-                     const __nv_bfloat16* __restrict__ mtb,
+                     const ST* __restrict__ memory,
+                     const ST* __restrict__ mtb,
                      const float* __restrict__ mask_add,
-                     const __nv_bfloat16* __restrict__ wq,
-                     const __nv_bfloat16* __restrict__ lc,
+                     const CT* __restrict__ wq, const CT* __restrict__ lc,
                      const float* __restrict__ v, float* __restrict__ ctx_out,
-                     float* __restrict__ cum_out,
-                     __nv_bfloat16* __restrict__ ctx_row, int ld_row, int B,
-                     int T, int H, int A, int M, int K, int vec, FwdArgs fa) {
+                     float* __restrict__ cum_out, CT* __restrict__ ctx_row,
+                     int ld_row, int B, int T, int H, int A, int M, int K,
+                     int vec, FwdArgs<CT> fa, StreamScales<CT> sc) {
+  constexpr bool F32 = std::is_same<CT, float>::value;
+  constexpr bool Q8 = std::is_same<ST, int8_t>::value;
+  constexpr int VC = 16 / sizeof(CT);   // CT elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t lsa_smem[];
-  const LsaLayout L(T, H, A, M);
-  bf16* s_wq = reinterpret_cast<bf16*>(lsa_smem + L.wq);     // [kq][ld]
-  bf16* s_h = reinterpret_cast<bf16*>(lsa_smem + L.h);       // [ROWS][ldh]
+  const LsaLayout L(T, H, A, M, sizeof(CT), sizeof(ST));
+  CT* s_wq = reinterpret_cast<CT*>(lsa_smem + L.wq);         // [kq][ld]
+  CT* s_h = reinterpret_cast<CT*>(lsa_smem + L.h);           // [ROWS][ldh]
   float* s_qp = reinterpret_cast<float*>(lsa_smem + L.qp);   // [ROWS][A]
   float* s_q = reinterpret_cast<float*>(lsa_smem + L.q);     // [A]
   float* s_v = reinterpret_cast<float*>(lsa_smem + L.v);     // [A]
-  bf16* s_lc = reinterpret_cast<bf16*>(lsa_smem + L.lc);     // [32][ld]
-  bf16* s_cum = reinterpret_cast<bf16*>(lsa_smem + L.cum);   // [tpad + 32]
+  float* s_mts = reinterpret_cast<float*>(lsa_smem + L.mts); // [A]
+  CT* s_lc = reinterpret_cast<CT*>(lsa_smem + L.lc);         // [32][ld]
+  CT* s_cum = reinterpret_cast<CT*>(lsa_smem + L.cum);       // [tpad + 32]
   float* s_e = reinterpret_cast<float*>(lsa_smem + L.e);     // [tpad]
   float* s_red = reinterpret_cast<float*>(lsa_smem + L.red); // [32]
   float* s_cpart = reinterpret_cast<float*>(lsa_smem + L.cpart);
@@ -312,14 +384,14 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   const int b = blockIdx.x, row0 = b - rank;
   const bool live = b < B;
   const int half = (K - 1) / 2;
-  const __nv_bfloat16* mem_b = memory + (size_t)b * T * M;
-  const __nv_bfloat16* mtb_b = mtb + (size_t)b * T * A;
+  const ST* mem_b = memory + (size_t)b * T * M;
+  const ST* mtb_b = mtb + (size_t)b * T * A;
 
   // this CTA's kq rows of Wq (zero past H) and the cluster's rows of
-  // bf16(h_att) over them (zero past B)
-  const int k_lo = rank * L.kq, a_chunks = A / 8;
+  // CT(h_att) over them (zero past B)
+  const int k_lo = rank * L.kq, a_chunks = A / VC;
   for (int i = tid; i < L.kq * a_chunks; i += LSA_THREADS) {
-    const int r = i / a_chunks, c = (i - r * a_chunks) * 8, k = k_lo + r;
+    const int r = i / a_chunks, c = (i - r * a_chunks) * VC, k = k_lo + r;
     cp_async16(s_wq + r * L.ld + c, k < H ? wq + (size_t)k * A + c : wq,
                k < H ? 16 : 0);
   }
@@ -327,40 +399,65 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   for (int i = tid; i < LSA_ROWS * L.kq; i += LSA_THREADS) {
     const int r = i / L.kq, k = i - r * L.kq;
     const int row = row0 + r, kk = k_lo + k;
-    s_h[r * L.ldh + k] = __float2bfloat16_rn(
+    s_h[r * L.ldh + k] = from_float<CT>(
         row < B && kk < H ? h_att[(size_t)row * H + kk] : 0.0f);
   }
   if (KIND == ATT_LS && live) {
-    band_stage_lc(s_lc, L.ld, lc, K, A);
-    band_stage_cum(s_cum, L.tpad + BAND_K, cum + (size_t)b * T, 0, half, T);
+    if constexpr (F32) {
+      for (int i = tid; i < BAND_K * A; i += LSA_THREADS) {
+        const int k = i / A, a = i - k * A;
+        s_lc[k * L.ld + a] = k < K ? lc[(size_t)k * A + a] : 0.0f;
+      }
+      for (int i = tid; i < L.tpad + BAND_K; i += LSA_THREADS) {
+        const int t = i - half;
+        s_cum[i] = t >= 0 && t < T ? cum[(size_t)b * T + t] : 0.0f;
+      }
+    } else {
+      band_stage_lc(s_lc, L.ld, lc, K, A);
+      band_stage_cum(s_cum, L.tpad + BAND_K,
+                     cum + (size_t)b * T, 0, half, T);
+    }
   }
+  if (Q8)
+    for (int a = tid; a < A; a += LSA_THREADS) s_mts[a] = to_float(sc.mt[a]);
   cp_async_wait<0>();
   __syncthreads();
 
   // 1. the query's partial over this CTA's slice of H, rows g < 8
-  for (int n0 = warp * 8; n0 < A; n0 += LSA_WARPS * 8) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int kk = 0; kk < L.kq; kk += 32) {
-      uint32_t bq[4], a[4];
-      ldsm_x4_trans(bq, s_wq + (kk + lane) * L.ld + n0);
-      const bf16* hr = s_h + g * L.ldh + kk + 2 * qd;
-      a[1] = a[3] = 0u;
-      a[0] = *reinterpret_cast<const uint32_t*>(hr);
-      a[2] = *reinterpret_cast<const uint32_t*>(hr + 8);
-      mma_bf16(acc, a, bq);
-      a[0] = *reinterpret_cast<const uint32_t*>(hr + 16);
-      a[2] = *reinterpret_cast<const uint32_t*>(hr + 24);
-      mma_bf16(acc, a, bq + 2);
+  if constexpr (F32) {
+    for (int o = tid; o < LSA_ROWS * A; o += LSA_THREADS) {
+      const int r = o / A, a = o - r * A;
+      const float* hr = s_h + r * L.ldh;
+      float acc = 0.0f;
+      for (int k = 0; k < L.kq; ++k)
+        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);
+      s_qp[r * A + a] = acc;
     }
-    s_qp[g * A + n0 + 2 * qd] = acc[0];
-    s_qp[g * A + n0 + 2 * qd + 1] = acc[1];
+  } else {
+    for (int n0 = warp * 8; n0 < A; n0 += LSA_WARPS * 8) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int kk = 0; kk < L.kq; kk += 32) {
+        uint32_t bq[4], a[4];
+        ldsm_x4_trans(bq, s_wq + (kk + lane) * L.ld + n0);
+        const bf16* hr = s_h + g * L.ldh + kk + 2 * qd;
+        a[1] = a[3] = 0u;
+        a[0] = *reinterpret_cast<const uint32_t*>(hr);
+        a[2] = *reinterpret_cast<const uint32_t*>(hr + 8);
+        mma_bf16(acc, a, bq);
+        a[0] = *reinterpret_cast<const uint32_t*>(hr + 16);
+        a[2] = *reinterpret_cast<const uint32_t*>(hr + 24);
+        mma_bf16(acc, a, bq + 2);
+      }
+      s_qp[g * A + n0 + 2 * qd] = acc[0];
+      s_qp[g * A + n0 + 2 * qd + 1] = acc[1];
+    }
   }
   cluster_sync();
   for (int a = tid; a < A; a += LSA_THREADS) {
     float sum = 0.0f;
     for (int j = 0; j < LSA_ROWS; ++j)
       sum += cluster_peer(s_qp, j)[rank * A + a];
-    s_q[a] = round_bf16(sum);
+    s_q[a] = round_to<CT>(sum);
     s_v[a] = v[a];
   }
   // the peers' partials are read: they may exit once this CTA has too
@@ -368,55 +465,71 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   __syncthreads();
 
   if (live) {
-    // 2. energies, one warp per 16 positions
-    for (int t0 = warp * 16; t0 < L.tpad; t0 += LSA_WARPS * 16) {
-      uint32_t af[2][4];
-      if (KIND == ATT_LS) band_frags(af, s_cum + t0, lane);
-      const int ta = t0 + g, tb = ta + 8;
-      float e0 = 0.0f, e1 = 0.0f;
-#pragma unroll 4
-      for (int n0 = 0; n0 < A; n0 += 8) {
-        const int a = n0 + 2 * qd;
-        const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
-        const __nv_bfloat162 m0 =
-            ta < T ? *reinterpret_cast<const __nv_bfloat162*>(
-                         mtb_b + (size_t)ta * A + a)
-                   : zero2;
-        const __nv_bfloat162 m1 =
-            tb < T ? *reinterpret_cast<const __nv_bfloat162*>(
-                         mtb_b + (size_t)tb * A + a)
-                   : zero2;
-        const float q0 = s_q[a], q1 = s_q[a + 1];
-        const float v0 = s_v[a], v1 = s_v[a + 1];
-        if (KIND == ATT_LS) {
-          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          band_loc(acc, af, s_lc, L.ld, n0, lane);
-          e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
-          e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
-          e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
-          e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
-        } else {
-          e0 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m0)), e0);
-          e0 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m0)), e0);
-          e1 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m1)), e1);
-          e1 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m1)), e1);
+    // 2. energies
+    if constexpr (F32) {
+      // a warp a position, a lane every 32nd channel
+      for (int t = warp; t < T; t += LSA_WARPS) {
+        float e = 0.0f;
+        for (int a = lane; a < A; a += 32) {
+          const float mt = mt_at<CT>(mtb_b, (size_t)t * A + a, s_mts + a);
+          const float z = KIND == ATT_LS
+              ? (band_loc_f32(s_cum + t, s_lc + a, L.ld) + s_q[a]) + mt
+              : s_q[a] + mt;
+          e = fmaf(s_v[a], tanhf(z), e);
         }
+        e = warp_sum(e);
+        if (lane == 0)
+          s_e[t] = KIND == ATT_LS ? e + mask_add[(size_t)b * T + t] : e;
       }
-      e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
-      e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
-      e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
-      e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
-      if (qd == 0) {
-        // the forward family's softmax is unmasked
-        const float* mk = mask_add + (size_t)b * T;
-        if (ta < T) s_e[ta] = KIND == ATT_LS ? e0 + mk[ta] : e0;
-        if (tb < T) s_e[tb] = KIND == ATT_LS ? e1 + mk[tb] : e1;
+    } else {
+      // one warp per 16 positions
+      for (int t0 = warp * 16; t0 < L.tpad; t0 += LSA_WARPS * 16) {
+        uint32_t af[2][4];
+        if (KIND == ATT_LS) band_frags(af, s_cum + t0, lane);
+        const int ta = t0 + g, tb = ta + 8;
+        float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll 4
+        for (int n0 = 0; n0 < A; n0 += 8) {
+          const int a = n0 + 2 * qd;
+          const float2 zero2 = make_float2(0.0f, 0.0f);
+          const float2 m0 =
+              ta < T ? mt_pair<CT>(mtb_b, (size_t)ta * A + a, s_mts + a)
+                     : zero2;
+          const float2 m1 =
+              tb < T ? mt_pair<CT>(mtb_b, (size_t)tb * A + a, s_mts + a)
+                     : zero2;
+          const float q0 = s_q[a], q1 = s_q[a + 1];
+          const float v0 = s_v[a], v1 = s_v[a + 1];
+          if (KIND == ATT_LS) {
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            band_loc(acc, af, s_lc, L.ld, n0, lane);
+            e0 = fmaf(v0, band_energy_tanh(acc[0], q0, m0.x), e0);
+            e0 = fmaf(v1, band_energy_tanh(acc[1], q1, m0.y), e0);
+            e1 = fmaf(v0, band_energy_tanh(acc[2], q0, m1.x), e1);
+            e1 = fmaf(v1, band_energy_tanh(acc[3], q1, m1.y), e1);
+          } else {
+            e0 = fmaf(v0, fwd_energy_tanh(q0, m0.x), e0);
+            e0 = fmaf(v1, fwd_energy_tanh(q1, m0.y), e0);
+            e1 = fmaf(v0, fwd_energy_tanh(q0, m1.x), e1);
+            e1 = fmaf(v1, fwd_energy_tanh(q1, m1.y), e1);
+          }
+        }
+        e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+        e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+        e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+        e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+        if (qd == 0) {
+          // the forward family's softmax is unmasked
+          const float* mk = mask_add + (size_t)b * T;
+          if (ta < T) s_e[ta] = KIND == ATT_LS ? e0 + mk[ta] : e0;
+          if (tb < T) s_e[tb] = KIND == ATT_LS ? e1 + mk[tb] : e1;
+        }
       }
     }
     __syncthreads();
 
     // 3. softmax; ls: cum' = cum + w; the forward family: the recurrence,
-    // the mask, the floor and the renorm, state w.  s_e <- bf16(w)
+    // the mask, the floor and the renorm, state w.  s_e <- CT(w)
     float mx = -CUDART_INF_F;
     for (int t = tid; t < T; t += LSA_THREADS) mx = fmaxf(mx, s_e[t]);
     mx = block_reduce<true>(mx, s_red);
@@ -432,7 +545,7 @@ lsa_attention_kernel(const float* __restrict__ h_att,
       for (int t = tid; t < T; t += LSA_THREADS) {
         const float wt = s_e[t] / sum;
         cum_out[(size_t)b * T + t] = cum_b[t] + wt;
-        s_e[t] = round_bf16(wt);
+        s_e[t] = round_to<CT>(wt);
       }
     } else {
       const float tp = KIND == ATT_FWD_TRANS ? fa.tp_in[b] : 0.0f;
@@ -440,7 +553,7 @@ lsa_attention_kernel(const float* __restrict__ h_att,
       for (int t = tid; t < T; t += LSA_THREADS) {
         const float energy = s_e[t] / sum;
         const float prev = cum_b[t];
-        const float sh = t > 0 ? round_bf16(cum_b[t - 1]) : 0.0f;
+        const float sh = t > 0 ? round_to<CT>(cum_b[t - 1]) : 0.0f;
         const float comb = KIND == ATT_FWD_TRANS
                                ? (1.0f - tp) * prev + tp * sh
                                : prev + sh;
@@ -453,37 +566,87 @@ lsa_attention_kernel(const float* __restrict__ h_att,
       for (int t = tid; t < T; t += LSA_THREADS) {
         const float wt = s_e[t] / wsum;
         cum_out[(size_t)b * T + t] = wt;
-        s_e[t] = round_bf16(wt);
+        s_e[t] = round_to<CT>(wt);
       }
     }
     __syncthreads();
 
-    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column); the agent's
-    // context term on the way
-    ctx_partials(L.cs, s_cpart, mem_b, s_e, T, M, vec, LSA_THREADS);
+    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column), int8 streams
+    // scaled after the sum; the agent's context term on the way
+    ctx_partials<!F32>(L.cs, s_cpart, mem_b, s_e, T, M, vec, LSA_THREADS);
     __syncthreads();
     float lin = 0.0f;
     for (int m = tid; m < M; m += LSA_THREADS) {
-      const float acc = ctx_column(L.cs, s_cpart, M, m);
+      float acc = ctx_column(L.cs, s_cpart, M, m);
+      if (Q8) acc *= sc.mem[m];
       ctx_out[(size_t)b * M + m] = acc;
       if (ctx_row != nullptr)
-        ctx_row[(size_t)b * ld_row + m] = __float2bfloat16_rn(acc);
+        ctx_row[(size_t)b * ld_row + m] = from_float<CT>(acc);
       if (KIND == ATT_FWD_TRANS)
-        lin = fmaf(round_bf16(acc), __bfloat162float(fa.wc[m]), lin);
+        lin = fmaf(round_to<CT>(acc), to_float(fa.wc[m]), lin);
     }
     if (KIND == ATT_FWD_TRANS) {
-      // 5. the transition agent over [bf16(ctx) | bf16(h_att) | bf16(x)]
+      // 5. the transition agent over [CT(ctx) | CT(h_att) | CT(x)]
       for (int k = tid; k < H; k += LSA_THREADS)
-        lin = fmaf(round_bf16(h_att[(size_t)b * H + k]),
-                   __bfloat162float(fa.wq[k]), lin);
+        lin = fmaf(round_to<CT>(h_att[(size_t)b * H + k]),
+                   to_float(fa.wq[k]), lin);
       for (int p = tid; p < fa.P; p += LSA_THREADS)
-        lin = fmaf(round_bf16(fa.x[(size_t)b * fa.P + p]),
-                   __bfloat162float(fa.wx[p]), lin);
+        lin = fmaf(round_to<CT>(fa.x[(size_t)b * fa.P + p]),
+                   to_float(fa.wx[p]), lin);
       lin = block_reduce<false>(lin, s_red);
       if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + fa.bias[0])));
     }
   }
   cluster_wait();
+}
+
+// the operands of one attention launch, untyped
+struct AttCall {
+  const void *h_att, *cum, *memory, *mtb, *mask_add, *wq, *lc, *v;
+  void *ctx_out, *cum_out, *ctx_row;
+  int ld_row, B, T, H, A, M, K;
+  const void *tp_in;
+  void* tp_out;
+  const void *x, *wc, *wq_t, *wx, *bias;
+  int P;
+  const void *mem_scale, *mt_scale;
+  cudaStream_t stream;
+};
+
+template <int KIND, class CT, class ST>
+cudaError_t att_run(const AttCall& c) {
+  const LsaLayout L(c.T, c.H, c.A, c.M, sizeof(CT), sizeof(ST));
+  constexpr int V = 16 / sizeof(ST);
+  const int vec = (uintptr_t)c.memory % 16 == 0 &&
+                  ((long long)c.T * c.M) % V == 0;
+  const int grid = (c.B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS;
+  const FwdArgs<CT> fa{(const float*)c.tp_in, (float*)c.tp_out,
+                       (const float*)c.x, (const CT*)c.wc, (const CT*)c.wq_t,
+                       (const CT*)c.wx, (const float*)c.bias, c.P};
+  const StreamScales<CT> sc{(const float*)c.mem_scale, (const CT*)c.mt_scale};
+  return launch_cluster(
+      lsa_attention_kernel<KIND, CT, ST>, grid, LSA_THREADS, L.total,
+      LSA_ROWS, c.stream, (const float*)c.h_att, (const float*)c.cum,
+      (const ST*)c.memory, (const ST*)c.mtb, (const float*)c.mask_add,
+      (const CT*)c.wq, (const CT*)c.lc, (const float*)c.v,
+      (float*)c.ctx_out, (float*)c.cum_out, (CT*)c.ctx_row, c.ld_row, c.B,
+      c.T, c.H, c.A, c.M, c.K, vec, fa, sc);
+}
+
+// the instance of KIND for the compute type (f32) and the streams (int8
+// when the scales are given)
+template <int KIND>
+int att_dispatch(const AttCall& c, int f32) {
+  const bool q8 = c.mem_scale != nullptr;
+  if (q8 != (c.mt_scale != nullptr) || c.B <= 0 || c.T <= 0 || c.H <= 0 ||
+      c.M <= 0 || c.A <= 0 || c.A % 8 != 0 || (uintptr_t)c.wq % 16 != 0 ||
+      (uintptr_t)c.mtb % (q8 ? 2 : 4) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (f32)
+    return (int)(q8 ? att_run<KIND, float, int8_t>(c)
+                    : att_run<KIND, float, float>(c));
+  return (int)(q8 ? att_run<KIND, bf16, int8_t>(c)
+                  : att_run<KIND, bf16, bf16>(c));
 }
 
 struct GateArgs {
@@ -505,29 +668,40 @@ struct GateArgs {
   cudaStream_t stream;
 };
 
-template <bool INT8, bool ROW>
+// the product on the W8A8 int8 row, or on the CT row (bf16 or float32)
+template <bool INT8, bool ROW, class CT>
 int gate_mma(const GateArgs& g) {
-  const EvalLstm<INT8, ROW> epi{(const float*)g.rs_buf, (const float*)g.ws,
-                                (const float*)g.bias, (const float*)g.h_old,
-                                (const float*)g.c_old, (float*)g.h_new,
-                                (float*)g.c_new, (__nv_bfloat16*)g.h_row,
-                                g.ld_row, g.H, g.zh, g.zc};
-  const int kbytes = g.kp * (INT8 ? 1 : 2);
-  return (int)gate_tile_launch<INT8>(g.row_buf, kbytes, g.w, kbytes, kbytes,
-                                     g.B, g.H, epi, g.stream);
+  typedef typename std::conditional<INT8, int8_t, CT>::type E;
+  const EvalLstm<INT8, ROW, CT> epi{
+      (const float*)g.rs_buf, (const float*)g.ws, (const float*)g.bias,
+      (const float*)g.h_old, (const float*)g.c_old, (float*)g.h_new,
+      (float*)g.c_new, (CT*)g.h_row, g.ld_row, g.H, g.zh, g.zc};
+  const int kbytes = g.kp * (int)sizeof(E);
+  return (int)gate_tile_launch<E>(g.row_buf, kbytes, g.w, kbytes, kbytes,
+                                  g.B, g.H, epi, g.stream);
 }
 
-template <bool INT8>
-int gate_lstm_run(const Segments& seg, const GateArgs& g) {
+template <bool INT8, class CT>
+int gate_lstm_run(const Segments<CT>& seg, const GateArgs& g) {
   const size_t row_smem = (size_t)(seg.k0 + seg.k1 + seg.k2) * sizeof(float);
-  cudaError_t err = allow_smem(gate_rows_kernel<INT8>, row_smem);
+  cudaError_t err = allow_smem(gate_rows_kernel<INT8, CT>, row_smem);
   if (err != cudaSuccess) return (int)err;
-  gate_rows_kernel<INT8><<<g.B, ROW_THREADS, row_smem, g.stream>>>(
+  gate_rows_kernel<INT8, CT><<<g.B, ROW_THREADS, row_smem, g.stream>>>(
       seg, g.kp, (uint32_t*)g.row_buf, (float*)g.rs_buf, (int8_t*)g.q_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return g.h_row != nullptr ? gate_mma<INT8, true>(g)
-                            : gate_mma<INT8, false>(g);
+  return g.h_row != nullptr ? gate_mma<INT8, true, CT>(g)
+                            : gate_mma<INT8, false, CT>(g);
+}
+
+template <class CT>
+int gate_lstm_typed(const void* s0, int k0, const void* s1, int k1,
+                    const void* s2, int k2, int quantized,
+                    const GateArgs& args) {
+  const Segments<CT> seg{(const float*)s0, (const float*)s1, (const float*)s2,
+                         k0, k1, k2};
+  return quantized ? gate_lstm_run<true, CT>(seg, args)
+                   : gate_lstm_run<false, CT>(seg, args);
 }
 
 }  // namespace
@@ -536,73 +710,74 @@ extern "C" {
 
 // the columns of P in `cl` shares of np (prenet_split); layer i draws its
 // dropout at salt step * n_layers + i + 1 (pallas_decoder.py:518); keep_out
-// (uint8 [n_layers, B, P]) is written only with the dropout on
+// (uint8 [n_layers, B, P]) is written only with the dropout on; the weights
+// are bf16, or float32 with f32
 int prenet_launch(const void* frame, const void* w_all, const void* b_all,
                   void* out, void* keep_out, int B, int in_dim, int P,
                   int n_layers, unsigned seed0, unsigned seed1, int step,
                   unsigned thresh, float scale, int apply_dropout, int cl,
-                  int np, void* stream) {
-  const PrenetArgs args{(const bf16*)w_all, (const float*)b_all, B, in_dim,
+                  int np, int f32, void* stream) {
+  const PrenetArgs args{w_all, (const float*)b_all, B, in_dim,
                         P, n_layers, seed0, seed1,
                         (uint32_t)(step * n_layers + 1), thresh, scale,
                         apply_dropout, cl, np};
   const PrenetOut epi{(float*)out,
                       apply_dropout ? (uint8_t*)keep_out : nullptr, B, P,
                       n_layers};
+  if (f32)
+    return (int)prenet_tile_launch<PrenetOut, float>(frame, 0, args, epi,
+                                                     (cudaStream_t)stream);
   return (int)prenet_tile_launch(frame, 0, args, epi, (cudaStream_t)stream);
 }
 
-// row_buf: scratch of B * Kp bytes (W8A8) or B * Kp bf16; rs_buf: B floats
-// (W8A8 only); h_row: null, or bf16 rows of ld_row that receive bf16(h_new).
+// row_buf: scratch of B * Kp bytes (W8A8) or B * Kp elements of the
+// compute type (bf16, or float32 with f32); rs_buf: B floats (W8A8 only);
+// h_row: null, or rows of ld_row in the compute type that receive h_new.
 // Launches gate_rows, then gate_mma.
 int gate_lstm_launch(const void* s0, int k0, const void* s1, int k1,
                      const void* s2, int k2, const void* w, const void* ws,
-                     const void* bias, int kp, int quantized, void* row_buf,
-                     void* rs_buf, const void* h_old, const void* c_old,
-                     void* h_new, void* c_new, void* h_row, int ld_row,
-                     void* q_out, int B, int H, float zh, float zc,
-                     void* stream) {
+                     const void* bias, int kp, int quantized, int f32,
+                     void* row_buf, void* rs_buf, const void* h_old,
+                     const void* c_old, void* h_new, void* c_new,
+                     void* h_row, int ld_row, void* q_out, int B, int H,
+                     float zh, float zc, void* stream) {
   if (kp % 64 != 0 || kp < k0 + k1 + k2 || B <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
-  Segments seg{(const float*)s0, (const float*)s1, (const float*)s2,
-               k0, k1, k2};
   const GateArgs args{w, ws, bias, kp, row_buf, rs_buf, h_old, c_old,
                       h_new, c_new, h_row, ld_row, q_out, B, H, zh, zc,
                       (cudaStream_t)stream};
-  return quantized ? gate_lstm_run<true>(seg, args)
-                   : gate_lstm_run<false>(seg, args);
+  return f32 ? gate_lstm_typed<float>(s0, k0, s1, k1, s2, k2, quantized,
+                                      args)
+             : gate_lstm_typed<bf16>(s0, k0, s1, k1, s2, k2, quantized,
+                                     args);
 }
 
-// ctx_row: null, or bf16 rows of ld_row that receive bf16(ctx).  A
-// multiple of 8, K <= 32 taps, Wq 16-byte aligned.
+// ctx_row: null, or rows of ld_row in the compute type that receive the
+// context.  A multiple of 8, K <= 32 taps, Wq 16-byte aligned.  f32: the
+// float32 instance (h_att, cum as ever; Wq, lc in float32); mem_scale and
+// mt_scale given: int8 memory and mtb, mem_scale [M] float32, mt_scale [A]
+// in the compute type.
 int lsa_attention_launch(const void* h_att, const void* cum,
                          const void* memory, const void* mtb,
                          const void* mask_add, const void* wq, const void* lc,
                          const void* v, void* ctx_out, void* cum_out,
                          void* ctx_row, int ld_row, int B, int T, int H,
-                         int A, int M, int K, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || M <= 0 || A <= 0 || A % 8 != 0 ||
-      K < 1 || K > BAND_K || (uintptr_t)wq % 16 != 0 ||
-      (uintptr_t)mtb % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  const LsaLayout L(T, H, A, M);
-  const int vec = (uintptr_t)memory % 16 == 0 && ((long long)T * M) % 8 == 0;
-  const int grid = (B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS;
-  return (int)launch_cluster(
-      lsa_attention_kernel<ATT_LS>, grid, LSA_THREADS, L.total, LSA_ROWS,
-      (cudaStream_t)stream, (const float*)h_att, (const float*)cum,
-      (const __nv_bfloat16*)memory, (const __nv_bfloat16*)mtb,
-      (const float*)mask_add, (const __nv_bfloat16*)wq,
-      (const __nv_bfloat16*)lc, (const float*)v, (float*)ctx_out,
-      (float*)cum_out, (__nv_bfloat16*)ctx_row, ld_row, B, T, H, A, M, K,
-      vec, FwdArgs{});
+                         int A, int M, int K, int f32, const void* mem_scale,
+                         const void* mt_scale, void* stream) {
+  if (K < 1 || K > BAND_K) return (int)cudaErrorInvalidValue;
+  const AttCall c{h_att, cum, memory, mtb, mask_add, wq, lc, v, ctx_out,
+                  cum_out, ctx_row, ld_row, B, T, H, A, M, K, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+                  mem_scale, mt_scale, (cudaStream_t)stream};
+  return att_dispatch<ATT_LS>(c, f32);
 }
 
 // the forward family's step: prev [B, T] the last step's weights, w_out
 // the new ones (not in place); with the transition agent (trans = 1) tp_in
 // and tp_out [B] (not in place), x [B, P] the prenet output, the agent's
-// bf16 weight parts wc [Mem], wq_t [H], wx [P] and its bias [1].  ctx_row
-// and the alignments as lsa_attention_launch's.
+// weight parts wc [Mem], wq_t [H], wx [P] in the compute type and its
+// bias [1].  ctx_row, the alignments, f32 and the int8 streams as
+// lsa_attention_launch's.
 int fwd_attention_launch(const void* h_att, const void* prev,
                          const void* tp_in, const void* memory,
                          const void* mtb, const void* mask_add,
@@ -611,38 +786,33 @@ int fwd_attention_launch(const void* h_att, const void* prev,
                          const void* bias, void* ctx_out, void* w_out,
                          void* tp_out, void* ctx_row, int ld_row, int B,
                          int T, int H, int A, int M, int P, int trans,
+                         int f32, const void* mem_scale, const void* mt_scale,
                          void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || M <= 0 || A <= 0 || A % 8 != 0 ||
-      (uintptr_t)wq % 16 != 0 || (uintptr_t)mtb % 4 != 0 ||
-      (trans && (P <= 0 || tp_in == nullptr || tp_out == nullptr ||
-                 x == nullptr || wc == nullptr || wq_t == nullptr ||
-                 wx == nullptr || bias == nullptr)))
+  if (trans && (P <= 0 || tp_in == nullptr || tp_out == nullptr ||
+                x == nullptr || wc == nullptr || wq_t == nullptr ||
+                wx == nullptr || bias == nullptr))
     return (int)cudaErrorInvalidValue;
-  const LsaLayout L(T, H, A, M);
-  const int vec = (uintptr_t)memory % 16 == 0 && ((long long)T * M) % 8 == 0;
-  const int grid = (B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS;
-  const FwdArgs fa{(const float*)tp_in, (float*)tp_out, (const float*)x,
-                   (const __nv_bfloat16*)wc, (const __nv_bfloat16*)wq_t,
-                   (const __nv_bfloat16*)wx, (const float*)bias, P};
-  return (int)launch_cluster(
-      trans ? &lsa_attention_kernel<ATT_FWD_TRANS>
-            : &lsa_attention_kernel<ATT_FWD>,
-      grid, LSA_THREADS, L.total, LSA_ROWS, (cudaStream_t)stream,
-      (const float*)h_att, (const float*)prev, (const __nv_bfloat16*)memory,
-      (const __nv_bfloat16*)mtb, (const float*)mask_add,
-      (const __nv_bfloat16*)wq, (const __nv_bfloat16*)nullptr,
-      (const float*)v, (float*)ctx_out, (float*)w_out,
-      (__nv_bfloat16*)ctx_row, ld_row, B, T, H, A, M, 1, vec, fa);
+  const AttCall c{h_att, prev, memory, mtb, mask_add, wq, nullptr, v,
+                  ctx_out, w_out, ctx_row, ld_row, B, T, H, A, M, 1, tp_in,
+                  tp_out, x, wc, wq_t, wx, bias, P, mem_scale, mt_scale,
+                  (cudaStream_t)stream};
+  return trans ? att_dispatch<ATT_FWD_TRANS>(c, f32)
+               : att_dispatch<ATT_FWD>(c, f32);
 }
 
-// the head row [B, K] (bf16 rows of ld_row) against the head weight [N, K]
-// (N = M + 1): frame [B, M] and stop [B].  K is split into `slices` of
-// `kslice`; with more than one, `scratch` holds slices * B * N floats.
+// the head row [B, K] (rows of ld_row in the compute type) against the head
+// weight [N, K] (N = M + 1): frame [B, M] and stop [B].  K is split into
+// `slices` of `kslice`; with more than one, `scratch` holds slices * B * N
+// floats.  f32: float32 row and weight (splitk_f32_kernel).
 int head_launch(const void* row, int ld_row, const void* w, int K,
                 const void* bias, int B, int N, void* frame, void* stop,
-                int slices, int kslice, void* scratch, void* stream) {
+                int slices, int kslice, void* scratch, int f32,
+                void* stream) {
   const HeadOut epi{(const float*)bias, nullptr, (float*)frame, (float*)stop,
                     N};
+  if (f32)
+    return splitk_f32_launch(row, ld_row, w, K, B, N, K, slices, kslice,
+                             scratch, epi, stream);
   return splitk_launch<false, false>(row, ld_row, w, K, B, N, K, slices,
                                      kslice, scratch, epi, stream);
 }

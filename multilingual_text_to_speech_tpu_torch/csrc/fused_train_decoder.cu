@@ -1562,7 +1562,7 @@ int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
                     (bf16*)c_out, (bf16*)h_dst0, ld0, (bf16*)h_dst1, ld1, H,
                     Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode,
                         scale, zh, zc}};
-  return (int)gate_tile_launch<false>(row, 2 * ld_row, w, 2 * K, 2 * K, B, H,
+  return (int)gate_tile_launch<bf16>(row, 2 * ld_row, w, 2 * K, 2 * K, B, H,
                                       epi, (cudaStream_t)stream);
 }
 

@@ -90,13 +90,60 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The float32 product of the serving decoder's float32 instances (the
+// TPU kernel's float32 matmuls take precision=None: full float32,
+// ops/pallas_decoder.py:398-412) on the CUDA cores: FFMA tiles, each
+// product rounded once into a float32 sum, so the result is float32-exact
+// up to the order of the sums.  Neither a single TF32 pass (10-bit
+// mantissas) nor bf16 operands would do: either is off by about 1e-3 of
+// the largest output, which chip_smoke.py's 1e-5 check fails.  The
+// tensor cores would need three TF32 passes (hi*hi + hi*lo + lo*hi) for the
+// same accuracy; at K1's float32 shapes only the exact gate products are
+// large enough for that to pay, and the SIMT tile is the simpler first
+// kernel.
+//
+// A warp's 32 x 32 tile of C = A @ B^T from shared memory, A rows [32][lda]
+// and B rows [32][ldb] floats, k contiguous in both (lda, ldb multiples of
+// 4, rows 16-byte aligned): lane (rg = lane % 8, cg = lane / 8) sums rows rg
+// + 8i (i < 4) against columns 8cg + j (j < 8), acc[i][j], over float4
+// loads.  The eight lanes of a quarter-warp read eight rows of A (distinct
+// banks when lda is 4 mod 32 words) and one row of B (a broadcast).
+__device__ __forceinline__ void simt_tile32(float (*acc)[8],
+                                            const float* a, int lda,
+                                            const float* b, int ldb, int klen,
+                                            int lane) {
+  const float* ar = a + (lane & 7) * lda;
+  const float* br = b + (lane >> 3) * 8 * ldb;
+  for (int k = 0; k < klen; k += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * lda + k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(br + j * ldb + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float s = acc[i][j];
+        s = fmaf(av[i].x, bv.x, s);
+        s = fmaf(av[i].y, bv.y, s);
+        s = fmaf(av[i].z, bv.z, s);
+        s = fmaf(av[i].w, bv.w, s);
+        acc[i][j] = s;
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // gate_tile_kernel: the fused-gate LSTM product of both decoders,
 //   gates[row, q * H + unit] = sum_k a[row, k] * w[q * H + unit, k]
 // for q = 0..3 (i, f, g, o).  a [M, K] and w [4H, K] (K contiguous; rows of
 // lda and ldw bytes, 16-byte aligned; K of kbytes bytes, a multiple of 16)
-// are the row.col operands of mma.sync as they lie: int8 (m16n8k32, int32
-// sums) or bf16 (m16n8k16, float32 sums).
+// of element type E are the row.col operands of mma.sync as they lie: int8
+// (m16n8k32, int32 sums) or bf16 (m16n8k16, float32 sums); float32 (the
+// serving decoder's exact float32 gates) runs simt_tile32 on the same
+// staged tiles instead.
 //
 // Block: 32 * WM rows x 16 hidden units, whose i, f, g, o weight rows it
 // gathers while copying (64 gate columns); WM x 2 warps of 32 rows x 32
@@ -122,12 +169,14 @@ struct GateTile {
                 "whole 16-byte chunks a thread");
 };
 
-template <bool INT8, int WM, class Epi>
+template <class E, int WM, class Epi>
 __global__ void __launch_bounds__(GateTile<WM>::THREADS)
 gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
                  const uint8_t* __restrict__ w, int ldw, int kbytes, int M,
                  int H, Epi epi) {
   typedef GateTile<WM> T;
+  constexpr bool INT8 = std::is_same<E, int8_t>::value;
+  constexpr bool F32 = std::is_same<E, float>::value;
   typedef typename std::conditional<INT8, int, float>::type Acc;
   extern __shared__ __align__(16) uint8_t ring[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -161,6 +210,8 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
     }
   };
 
+  // mma.sync's fragments acc[mt][nt][4], or simt_tile32's acc[4][8] (the
+  // same 32 values a thread) for float32
   Acc acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -184,6 +235,13 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
     cp_async_commit();
     const uint8_t* as = ring + (kt % GT_STAGES) * T::STAGE;
     const uint8_t* bs = as + T::BM * GT_LD;
+    if constexpr (F32) {
+      simt_tile32(reinterpret_cast<float(*)[8]>(&acc[0][0][0]),
+                  reinterpret_cast<const float*>(as + wm * GT_LD), GT_LD / 4,
+                  reinterpret_cast<const float*>(bs + wn * GT_LD), GT_LD / 4,
+                  GT_BK / 4, lane);
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < GT_BK; kk += 32) {
       uint32_t af[2][4], bf[4][2];
@@ -219,17 +277,27 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
   // the gate tile through shared memory, so that one thread sees the four
   // gates of a (row, unit)
   Acc* cs = reinterpret_cast<Acc*>(ring);
+  if constexpr (F32) {
+    const float(*af)[8] = reinterpret_cast<const float(*)[8]>(&acc[0][0][0]);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r = wm + mt * 16 + (lane >> 2);
-      const int c = wn + nt * 8 + 2 * (lane & 3);
-      cs[r * GT_CLD + c] = acc[mt][nt][0];
-      cs[r * GT_CLD + c + 1] = acc[mt][nt][1];
-      cs[(r + 8) * GT_CLD + c] = acc[mt][nt][2];
-      cs[(r + 8) * GT_CLD + c + 1] = acc[mt][nt][3];
-    }
+      for (int j = 0; j < 8; ++j)
+        cs[(wm + (lane & 7) + 8 * i) * GT_CLD + wn + (lane >> 3) * 8 + j] =
+            af[i][j];
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = wm + mt * 16 + (lane >> 2);
+        const int c = wn + nt * 8 + 2 * (lane & 3);
+        cs[r * GT_CLD + c] = acc[mt][nt][0];
+        cs[r * GT_CLD + c + 1] = acc[mt][nt][1];
+        cs[(r + 8) * GT_CLD + c] = acc[mt][nt][2];
+        cs[(r + 8) * GT_CLD + c + 1] = acc[mt][nt][3];
+      }
+  }
   __syncthreads();
 
   for (int idx = tid; idx < T::BM * (GT_BN / 4); idx += T::THREADS) {
@@ -243,17 +311,17 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
   }
 }
 
-template <bool INT8, int WM, class Epi>
+template <class E, int WM, class Epi>
 cudaError_t gate_tile_run(const void* a, int lda, const void* w, int ldw,
                           int kbytes, int M, int H, const Epi& epi,
                           cudaStream_t stream) {
   typedef GateTile<WM> T;
   // the ring's shared memory may pass the 48 KB default: opt in once
   static const cudaError_t opt_in =
-      allow_smem(gate_tile_kernel<INT8, WM, Epi>, T::SMEM);
+      allow_smem(gate_tile_kernel<E, WM, Epi>, T::SMEM);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid((H + GT_BN / 4 - 1) / (GT_BN / 4), (M + T::BM - 1) / T::BM);
-  gate_tile_kernel<INT8, WM, Epi><<<grid, T::THREADS, T::SMEM, stream>>>(
+  gate_tile_kernel<E, WM, Epi><<<grid, T::THREADS, T::SMEM, stream>>>(
       (const uint8_t*)a, lda, (const uint8_t*)w, ldw, kbytes, M, H, epi);
   return cudaGetLastError();
 }
@@ -262,7 +330,7 @@ cudaError_t gate_tile_run(const void* a, int lda, const void* w, int ldw,
 // paths' batches each weight tile is read by two row blocks (B=240: 128
 // blocks, about a wave of the H100's 132 SMs) or one (B=50: 64 blocks of 4
 // warps, faster on the H100 than 128 blocks of 2 warps that read it twice).
-template <bool INT8, class Epi>
+template <class E, class Epi>
 cudaError_t gate_tile_launch(const void* a, int lda, const void* w, int ldw,
                              int kbytes, int M, int H, const Epi& epi,
                              cudaStream_t stream) {
@@ -271,10 +339,10 @@ cudaError_t gate_tile_launch(const void* a, int lda, const void* w, int ldw,
       (uintptr_t)w % 16 != 0)
     return cudaErrorInvalidValue;
   if (M > 128)
-    return gate_tile_run<INT8, 4>(a, lda, w, ldw, kbytes, M, H, epi, stream);
+    return gate_tile_run<E, 4>(a, lda, w, ldw, kbytes, M, H, epi, stream);
   if (M > 32)
-    return gate_tile_run<INT8, 2>(a, lda, w, ldw, kbytes, M, H, epi, stream);
-  return gate_tile_run<INT8, 1>(a, lda, w, ldw, kbytes, M, H, epi, stream);
+    return gate_tile_run<E, 2>(a, lda, w, ldw, kbytes, M, H, epi, stream);
+  return gate_tile_run<E, 1>(a, lda, w, ldw, kbytes, M, H, epi, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,6 +587,103 @@ int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
   return (int)cudaGetLastError();
 }
 
+// splitk_f32_kernel: the float32 instance of splitk_kernel for the one
+// product K1's float32 instances split (the head: A "MK", B "NK", both k
+// contiguous): the same 64 x 64 tiles, SK_BK-deep slices of K and grid, so
+// the wrapper's split and splitk_reduce_kernel serve it unchanged; the
+// tiles [64][SK_BK + 4] floats through a two-stage cp.async ring (zero past
+// M, N and the slice's end), each warp's 32 x 32 on simt_tile32.  Rows of A
+// and B 16-byte aligned (lda, ldb multiples of 4 floats).
+constexpr int SKF_LD = SK_BK + 4;
+
+template <class Epi>
+__global__ void __launch_bounds__(SK_THREADS)
+splitk_f32_kernel(const float* __restrict__ A, int lda,
+                  const float* __restrict__ B, int ldb, int M, int N, int K,
+                  int kslice, float* __restrict__ part, Epi epi) {
+  __shared__ __align__(16) float sm[2][2][64 * SKF_LD];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * SK_BM, col0 = blockIdx.x * SK_BN;
+  const int k_lo = blockIdx.z * kslice;
+  const int k_hi = min(K, k_lo + kslice);
+  const int nk = (k_hi - k_lo + SK_BK - 1) / SK_BK;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+
+  // stage s <- K tile k0: 64 rows x 8 chunks of 4 floats of each operand
+  auto load = [&](int s, int k0) {
+    for (int p = tid; p < 64 * (SK_BK / 4); p += SK_THREADS) {
+      const int r = p / (SK_BK / 4), c = (p % (SK_BK / 4)) * 4, k = k0 + c;
+      const int n = k < k_hi ? min(k_hi - k, 4) : 0;
+      const int ra = row0 + r, rb = col0 + r;
+      cp_async16(sm[s][0] + r * SKF_LD + c,
+                 ra < M && n ? A + (size_t)ra * lda + k : A,
+                 ra < M ? 4 * n : 0);
+      cp_async16(sm[s][1] + r * SKF_LD + c,
+                 rb < N && n ? B + (size_t)rb * ldb + k : B,
+                 rb < N ? 4 * n : 0);
+    }
+  };
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  if (nk > 0) load(0, k_lo);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load((kt + 1) & 1, k_lo + (kt + 1) * SK_BK);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* as = sm[kt & 1][0];
+    const float* bs = sm[kt & 1][1];
+    simt_tile32(acc, as + wm * SKF_LD, SKF_LD, bs + wn * SKF_LD, SKF_LD,
+                SK_BK, lane);
+    // the slot refilled next was read in this iteration
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  float* dst = part != nullptr ? part + (size_t)blockIdx.z * M * N : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = row0 + wm + (lane & 7) + 8 * i;
+      const int col = col0 + wn + (lane >> 3) * 8 + j;
+      if (row >= M || col >= N) continue;
+      if (dst != nullptr)
+        dst[(size_t)row * N + col] = acc[i][j];
+      else
+        epi.put(row, col, acc[i][j]);
+    }
+}
+
+// splitk_launch's float32 instance (A "MK", B "NK")
+template <class Epi>
+int splitk_f32_launch(const void* A, int lda, const void* B, int ldb, int M,
+                      int N, int K, int slices, int kslice, void* scratch,
+                      const Epi& epi, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || slices < 1 || kslice % SK_BK != 0 ||
+      (long long)kslice * slices < K ||
+      (long long)kslice * (slices - 1) >= K ||
+      (slices > 1 && scratch == nullptr) || lda % 4 != 0 || ldb % 4 != 0 ||
+      (uintptr_t)A % 16 != 0 || (uintptr_t)B % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* part = slices > 1 ? (float*)scratch : nullptr;
+  dim3 grid((N + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, slices);
+  splitk_f32_kernel<Epi><<<grid, SK_THREADS, 0, st>>>(
+      (const float*)A, lda, (const float*)B, ldb, M, N, K, kslice, part, epi);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  splitk_reduce_kernel<Epi><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      part, slices, M, N, epi);
+  return (int)cudaGetLastError();
+}
+
 // n rounded up to a multiple of 16 (bytes of a shared-memory region)
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~(size_t)15;
@@ -550,23 +715,26 @@ __device__ __forceinline__ const T* cluster_peer(const T* p, int rank) {
   return cooperative_groups::this_cluster().map_shared_rank(p, rank);
 }
 
-// the full bf16 rows [0, rows) x [0, k) of the cluster's slices into dst
-// (rows of ldd): CTA j's slice `own` (the same shared variable in every
-// CTA; rows of ldo) holds the columns [j * np, j * np + np), np a multiple
-// of 8; columns past cl * np are zero.  16-byte reads of distributed shared
-// memory, four in flight a thread, after a cluster barrier that follows
-// the slices' writes
-__device__ __forceinline__ void cluster_gather_rows(bf16* dst, int ldd,
-                                                    const bf16* own, int ldo,
+// the full rows [0, rows) x [0, k) of the cluster's slices into dst (rows
+// of ldd; bf16, or float32 for the serving decoder's float32 prenet): CTA
+// j's slice `own` (the same shared variable in every CTA; rows of ldo)
+// holds the columns [j * np, j * np + np), np a multiple of 8; columns
+// past cl * np are zero.  16-byte reads of distributed shared memory, four
+// in flight a thread, after a cluster barrier that follows the slices'
+// writes
+template <class T>
+__device__ __forceinline__ void cluster_gather_rows(T* dst, int ldd,
+                                                    const T* own, int ldo,
                                                     int np, int cl, int rows,
                                                     int k, int threads) {
-  const int row_chunks = k / 8, n_chunks = rows * row_chunks;
+  constexpr int V = 16 / sizeof(T);   // elements a 16-byte chunk
+  const int row_chunks = k / V, n_chunks = rows * row_chunks;
   for (int i0 = threadIdx.x; i0 < n_chunks; i0 += 4 * threads) {
     uint4 u[4];   // four loads in flight before their stores
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int i = i0 + q * threads;
-      const int r = i / row_chunks, col = (i % row_chunks) * 8;
+      const int r = i / row_chunks, col = (i % row_chunks) * V;
       const int j = col / np;
       u[q] = make_uint4(0u, 0u, 0u, 0u);
       if (i < n_chunks && j < cl)
@@ -578,7 +746,7 @@ __device__ __forceinline__ void cluster_gather_rows(bf16* dst, int ldd,
       const int i = i0 + q * threads;
       if (i < n_chunks)
         *reinterpret_cast<uint4*>(dst + (size_t)(i / row_chunks) * ldd +
-                                  (i % row_chunks) * 8) = u[q];
+                                  (i % row_chunks) * V) = u[q];
     }
   }
 }
@@ -635,7 +803,10 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
 // with W_l [in, out] bf16 as it lies, float32 sums, and the next layer's
 // input bf16(y), as the TPU kernels and the plain versions round.  The
 // epilogue epi sees the input (raw: row, k, bf16(x)) and every layer's
-// output (put: layer, row, col, y, keep) inside [0, B) x [0, P).
+// output (put: layer, row, col, y, keep) inside [0, B) x [0, P).  The
+// element type T is bf16, or float32 for the serving decoder's float32
+// instance: float32 weights, x and every layer's input unrounded, the
+// products on simt FFMA (see simt_tile32), float32 rows exchanged.
 //
 // One launch: a thread-block cluster of `cl` CTAs (<= 8) for each PN_ROWS =
 // 16 rows (one mma row tile).  CTA `rank` owns the columns [rank * np,
@@ -653,19 +824,21 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
 // one barrier.  Each CTA sums its own columns over the whole K: nothing is
 // summed across CTAs and no float atomics are used, so a run repeats bit
 // for bit.  The bf16 exchange is exact: the next layer rounds its input to
-// bf16 anyway.
+// bf16 anyway.  In float32 a thread sums one (row, column) of the CTA's
+// 16 x np outputs at a time over the whole K, in k order.
 //
 // Bound on the H100: 2 * B * (in * P + (n - 1) * P * P) operations (41 M
 // at B=240, two layers of 256) and the weights, biases, input and output
-// once (0.35 to 0.5 MB): 0.1 to 0.15 us.  What costs is latency, so each
-// CTA reads only its 21 KB of weight slices (flagship widths), all at
-// once, and a layer is one mma chain of K / 16 steps and one barrier.
+// once (0.35 to 0.5 MB in bf16, about twice in float32): 0.1 to 0.3 us.
+// What costs is latency, so each CTA reads only its 21 KB (float32: 43 KB)
+// of weight slices (flagship widths), all at once, and a layer is one
+// product chain over K and one barrier.
 // ---------------------------------------------------------------------------
 constexpr int PN_ROWS = 16, PN_THREADS = 256, PN_WARPS = PN_THREADS / 32;
 
 // the scalars of one prenet launch
 struct PrenetArgs {
-  const bf16* w;      // the layers' [in, out] weights, concatenated
+  const void* w;      // the layers' [in, out] weights (T), concatenated
   const float* b;     // the layers' biases, concatenated
   int B, in_dim, P, n_layers;
   uint32_t seed0, seed1, salt0, thresh;
@@ -674,23 +847,26 @@ struct PrenetArgs {
   int cl, np;         // CTAs a cluster, columns a CTA
 };
 
-// shared-memory layout of prenet_tile_kernel (byte offsets)
+// shared-memory layout of prenet_tile_kernel (byte offsets) for elements of
+// `es` bytes (2: bf16, 4: float32); rows padded by 16 bytes
 struct PnLayout {
   int kp0, kpp, lda, ldw, ldo, ldx;
   size_t w, bias, x, a, own, total;
-  __host__ __device__ PnLayout(int in_dim, int P, int np, int n_layers) {
+  __host__ __device__ PnLayout(int in_dim, int P, int np, int n_layers,
+                               int es) {
+    const int pad = 16 / es;
     kp0 = (in_dim + 15) / 16 * 16;   // K of layer 0, zero-padded
     kpp = (P + 15) / 16 * 16;        // K of the layers above
-    lda = (kp0 > kpp ? kp0 : kpp) + 8;   // bf16 a row of the A tile
-    ldw = np + 8;                    // bf16 a row of a weight slice
-    ldo = np + 8;                    // bf16 a row of an own slice
+    lda = (kp0 > kpp ? kp0 : kpp) + pad;   // elements a row of the A tile
+    ldw = np + pad;                  // elements a row of a weight slice
+    ldo = np + pad;                  // elements a row of an own slice
     ldx = (int)align16((size_t)in_dim * 4);   // bytes an input row
     w = 0;
-    bias = w + align16((size_t)(kp0 + (n_layers - 1) * kpp) * ldw * 2);
+    bias = w + align16((size_t)(kp0 + (n_layers - 1) * kpp) * ldw * es);
     x = bias + align16((size_t)n_layers * np * 4);
     a = x + (size_t)PN_ROWS * ldx;
-    own = a + align16((size_t)PN_ROWS * lda * 2);
-    total = own + 2 * align16((size_t)PN_ROWS * ldo * 2);
+    own = a + align16((size_t)PN_ROWS * lda * es);
+    total = own + 2 * align16((size_t)PN_ROWS * ldo * es);
   }
 };
 
@@ -708,21 +884,24 @@ __device__ __forceinline__ void load4f(float* dst,
   for (int q = 0; q < 4; ++q) dst[q] = j + q < J ? base[j + q] : 0.0f;
 }
 
-template <class Epi>
+template <class Epi, class T = bf16>
 __global__ void __launch_bounds__(PN_THREADS)
 prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
                    int wvec, int bvec, PrenetArgs args, Epi epi) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int V = 16 / sizeof(T);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t pn_smem[];
   const int B = args.B, in_dim = args.in_dim, P = args.P;
   const int n_layers = args.n_layers, np = args.np, cl = args.cl;
-  const PnLayout L(in_dim, P, np, n_layers);
+  const PnLayout L(in_dim, P, np, n_layers, sizeof(T));
   const int lda = L.lda, ldw = L.ldw, ldo = L.ldo;
-  bf16* s_w = reinterpret_cast<bf16*>(pn_smem + L.w);     // layers' slices
+  T* s_w = reinterpret_cast<T*>(pn_smem + L.w);           // layers' slices
   float* s_b = reinterpret_cast<float*>(pn_smem + L.bias);  // [n][np]
   uint8_t* s_x = pn_smem + L.x;                           // input rows
-  bf16* s_a = reinterpret_cast<bf16*>(pn_smem + L.a);     // [ROWS][lda]
-  bf16* s_own = reinterpret_cast<bf16*>(pn_smem + L.own);  // 2 x [ROWS][ldo]
-  const size_t own_slot = align16((size_t)PN_ROWS * ldo * 2) / 2;
+  T* s_a = reinterpret_cast<T*>(pn_smem + L.a);           // [ROWS][lda]
+  T* s_own = reinterpret_cast<T*>(pn_smem + L.own);       // 2 x [ROWS][ldo]
+  const size_t own_slot = align16((size_t)PN_ROWS * ldo * sizeof(T)) /
+                          sizeof(T);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
@@ -754,16 +933,19 @@ prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
     const int l = i / (np / 4), c = (i % (np / 4)) * 4;
     load4f(s_b + l * np + c, args.b + (size_t)l * P, c_lo + c, P, bvec);
   }
-  const int chunks_n = np / 8;
+  const int chunks_n = np / V;
   for (int l = 0, row_off = 0; l < n_layers; ++l) {
     const int k_l = l == 0 ? in_dim : P, kp = l == 0 ? L.kp0 : L.kpp;
-    const bf16* w_l = args.w + (l == 0 ? 0
-                                       : (size_t)in_dim * P +
-                                             (size_t)(l - 1) * P * P);
+    const T* w_l = reinterpret_cast<const T*>(args.w) +
+                   (l == 0 ? 0
+                           : (size_t)in_dim * P + (size_t)(l - 1) * P * P);
     for (int i = tid; i < kp * chunks_n; i += PN_THREADS) {
-      const int k = i / chunks_n, c = (i % chunks_n) * 8;
-      load8(s_w + (size_t)(row_off + k) * ldw + c, w_l, P, k, c_lo + c, k_l,
-            P, wvec);
+      const int k = i / chunks_n, c = (i % chunks_n) * V;
+      T* dst = s_w + (size_t)(row_off + k) * ldw + c;
+      if constexpr (F32)
+        load4f(dst, w_l + (size_t)k * P, c_lo + c, k < k_l ? P : 0, wvec);
+      else
+        load8(dst, w_l, P, k, c_lo + c, k_l, P, wvec);
     }
     row_off += kp;
     if (l == 0) cp_async_commit();
@@ -772,15 +954,20 @@ prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
   cp_async_wait<1>();
   __syncthreads();
 
-  // layer 0's A tile: bf16 of the input rows, zero past in_dim; the cluster's
-  // first CTA hands the rows to the epilogue
+  // layer 0's A tile: the input rows in T (bf16: rounded), zero past
+  // in_dim; the cluster's first CTA hands the rows to the epilogue
   for (int i = tid; i < PN_ROWS * L.kp0; i += PN_THREADS) {
     const int r = i / L.kp0, k = i % L.kp0, row = row0 + r;
     const uint8_t* xr = s_x + (size_t)r * L.ldx;
-    bf16 v = __float2bfloat16_rn(0.0f);
-    if (k < in_dim)
-      v = x_bf16 ? reinterpret_cast<const bf16*>(xr)[k]
-                 : __float2bfloat16_rn(reinterpret_cast<const float*>(xr)[k]);
+    T v = from_float<T>(0.0f);
+    if (k < in_dim) {
+      if constexpr (F32)
+        v = reinterpret_cast<const float*>(xr)[k];
+      else
+        v = x_bf16
+                ? reinterpret_cast<const bf16*>(xr)[k]
+                : __float2bfloat16_rn(reinterpret_cast<const float*>(xr)[k]);
+    }
     s_a[(size_t)r * lda + k] = v;
     if (rank == 0 && row < B && k < in_dim) epi.raw(row, k, v);
   }
@@ -789,46 +976,59 @@ prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
   for (int l = 0, row_off = 0; l < n_layers; ++l) {
     const int kp = l == 0 ? L.kp0 : L.kpp;
     const bool last = l == n_layers - 1;
-    const bf16* w_l = s_w + (size_t)row_off * ldw;
-    bf16* own = s_own + (l & 1) * own_slot;
+    const T* w_l = s_w + (size_t)row_off * ldw;
+    T* own = s_own + (l & 1) * own_slot;
     const uint32_t salt = args.salt0 + (uint32_t)l;
-    // this CTA's columns of y: a warp per 8-column mma tile, K in steps of
-    // 32 (16 in the last step when kp is an odd multiple of 16)
-    for (int nt = warp; nt < np / 8; nt += PN_WARPS) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const bf16* ar = s_a + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 lda + (lane >> 4) * 8;
-      for (int kk = 0; kk < kp; kk += 32) {
-        const bool two = kk + 16 < kp;   // the same in every lane
-        uint32_t a0[4], a1[4], bw[4];
-        ldsm_x4(a0, ar + kk);
-        if (two) ldsm_x4(a1, ar + kk + 16);
-        ldsm_x4_trans(bw, w_l + (size_t)(kk + (two ? lane : lane & 15)) *
-                                    ldw + nt * 8);
-        mma_bf16(acc, a0, bw);
-        if (two) mma_bf16(acc, a1, bw + 2);
+    // the bias, ReLU and dropout of output (r, c) of this CTA's columns
+    auto finish = [&](int r, int c, float acc) {
+      const int row = row0 + r, col = c_lo + c;
+      float y = fmaxf(acc + s_b[l * np + c], 0.0f);
+      bool keep = true;
+      if (args.drop) {
+        keep = rand_bits((uint32_t)row, (uint32_t)col, (uint32_t)P,
+                         args.seed0, args.seed1, salt) < args.thresh;
+        y = keep ? y * args.scale : 0.0f;
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), c = nt * 8 + 2 * qd + (e & 1);
-        const int row = row0 + r, col = c_lo + c;
-        float y = fmaxf(acc[e] + s_b[l * np + c], 0.0f);
-        bool keep = true;
-        if (args.drop) {
-          keep = rand_bits((uint32_t)row, (uint32_t)col, (uint32_t)P,
-                           args.seed0, args.seed1, salt) < args.thresh;
-          y = keep ? y * args.scale : 0.0f;
+      const bool in = row < B && col < P;
+      if (!last) own[(size_t)r * ldo + c] = from_float<T>(in ? y : 0.0f);
+      if (in) epi.put(l, row, col, y, keep);
+    };
+    if constexpr (F32) {
+      // a thread an output at a time, the whole K in k order
+      for (int o = tid; o < PN_ROWS * np; o += PN_THREADS) {
+        const int r = o / np, c = o - r * np;
+        const float* ar = s_a + (size_t)r * lda;
+        float acc = 0.0f;
+        for (int k = 0; k < kp; ++k)
+          acc = fmaf(ar[k], w_l[(size_t)k * ldw + c], acc);
+        finish(r, c, acc);
+      }
+    } else {
+      // this CTA's columns of y: a warp per 8-column mma tile, K in steps
+      // of 32 (16 in the last step when kp is an odd multiple of 16)
+      for (int nt = warp; nt < np / 8; nt += PN_WARPS) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const bf16* ar = s_a + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   lda + (lane >> 4) * 8;
+        for (int kk = 0; kk < kp; kk += 32) {
+          const bool two = kk + 16 < kp;   // the same in every lane
+          uint32_t a0[4], a1[4], bw[4];
+          ldsm_x4(a0, ar + kk);
+          if (two) ldsm_x4(a1, ar + kk + 16);
+          ldsm_x4_trans(bw, w_l + (size_t)(kk + (two ? lane : lane & 15)) *
+                                      ldw + nt * 8);
+          mma_bf16(acc, a0, bw);
+          if (two) mma_bf16(acc, a1, bw + 2);
         }
-        const bool in = row < B && col < P;
-        if (!last) own[(size_t)r * ldo + c] = __float2bfloat16_rn(in ? y
-                                                                    : 0.0f);
-        if (in) epi.put(l, row, col, y, keep);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          finish(g + 8 * (e >> 1), nt * 8 + 2 * qd + (e & 1), acc[e]);
       }
     }
     if (last) break;
     row_off += kp;
 
-    // every slice of this layer is written: gather the full bf16 rows
+    // every slice of this layer is written: gather the full rows
     cluster_sync();
     cluster_gather_rows(s_a, lda, own, ldo, np, cl, PN_ROWS, L.kpp,
                         PN_THREADS);
@@ -843,9 +1043,9 @@ prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
 }
 
 // the forward prenet of a decoder over B rows: the input x (float32, or
-// bf16 with x_bf16; rows of in_dim), the layers' weights and biases in
+// bf16 with x_bf16; rows of in_dim), the layers' weights (T) and biases in
 // args, the columns of P in args.cl shares of args.np (prenet_split)
-template <class Epi>
+template <class Epi, class T = bf16>
 cudaError_t prenet_tile_launch(const void* x, int x_bf16,
                                const PrenetArgs& args, const Epi& epi,
                                cudaStream_t stream) {
@@ -853,14 +1053,16 @@ cudaError_t prenet_tile_launch(const void* x, int x_bf16,
   if (B <= 0 || in_dim <= 0 || P <= 0 || args.n_layers < 1 || args.cl < 1 ||
       args.cl > 8 || args.np <= 0 || args.np % 8 != 0 ||
       (long long)args.cl * args.np < P ||
-      (long long)(args.cl - 1) * args.np >= P)
+      (long long)(args.cl - 1) * args.np >= P ||
+      (std::is_same<T, float>::value && x_bf16))
     return cudaErrorInvalidValue;
-  const PnLayout L(in_dim, P, args.np, args.n_layers);
+  const PnLayout L(in_dim, P, args.np, args.n_layers, sizeof(T));
   const int xvec = (uintptr_t)x % 16 == 0 &&
                    in_dim % (x_bf16 ? 8 : 4) == 0;
-  const int wvec = (uintptr_t)args.w % 16 == 0 && P % 8 == 0;
+  const int wvec = (uintptr_t)args.w % 16 == 0 &&
+                   P % (int)(16 / sizeof(T)) == 0;
   const int bvec = (uintptr_t)args.b % 16 == 0 && P % 4 == 0;
-  return launch_cluster(prenet_tile_kernel<Epi>,
+  return launch_cluster(prenet_tile_kernel<Epi, T>,
                         (B + PN_ROWS - 1) / PN_ROWS * args.cl, PN_THREADS,
                         L.total, args.cl, stream, x, x_bf16, xvec, wvec, bvec,
                         args, epi);
@@ -1000,26 +1202,47 @@ __device__ __forceinline__ float fwd_energy_tanh(float q, float mtb) {
   return round_bf16(tanhf(round_bf16(q + mtb)));
 }
 
+// The band product in float32 (the serving decoder's float32 instances,
+// whose TPU kernel folds the conv in a float32 matmul): loc[t][a] =
+// sum_k cum[t + k - half] lc[k][a] over the BAND_K taps in k order, on the
+// CUDA cores from float32 s_cum (s_cum[i] = cum[i - half], zero outside
+// [0, T)) and s_lc [BAND_K][ld] (taps past K zero); p = s_cum + t,
+// lc = s_lc + a.  Nothing is rounded.
+__device__ __forceinline__ float band_loc_f32(const float* p, const float* lc,
+                                             int ld) {
+  float loc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < BAND_K; ++k) loc = fmaf(p[k], lc[k * ld], loc);
+  return loc;
+}
+
 // ---------------------------------------------------------------------------
 // The context sum of both forward attention kernels over a block of `rows`
-// consecutive memory rows of M bf16 (K1's lsa_attention: a batch row; K2's
-// train_attention: a tile of one):
-//   ctx[m] = sum_r bf16(mem[r, m] * w[r])      (w: bf16 values in float)
-// A row of M bf16 is 16-byte aligned only every `period` rows (M = 292:
-// 584 bytes, period 2), so the block is read as a flat array of 16-byte
-// chunks, `chunks` of them a period: the thread of slot (group, chunk
-// column c) walks the periods group, group + groups, ... with 16-byte loads
-// (`vec`: the block starts 16-byte aligned), summing 8 float32 for its
-// chunk column into the scratch [groups][period * M] (ctx_partials); the
-// sum of column m over the groups and the period's rows is then taken in a
-// fixed order (ctx_column).
+// consecutive memory rows of M elements of type ST (K1's lsa_attention: a
+// batch row; K2's train_attention: a tile of one):
+//   ctx[m] = sum_r round(mem[r, m] * w[r])      (w: compute-type values)
+// with ST bf16 (round: to bf16), or, in the serving decoder's float32 and
+// int8-stream instances, float32 or int8 (round: to the compute type,
+// ROUND; float32 rounds nothing; int8 codes are exact in either type, and
+// the caller multiplies the sum by the channel's scale).  A row of M
+// elements is 16-byte aligned only every `period` rows (V = 16 / sizeof(ST)
+// elements a 16-byte chunk, period = V / gcd(M, V): bf16 M = 292 is 584
+// bytes, period 2; int8 M = 292 or 548, period 4), so the block is read as
+// a flat array of 16-byte chunks, `chunks` of them a period: the thread of
+// slot (group, chunk column c) walks the periods group, group + groups,
+// ... with 16-byte loads (`vec`: the block starts 16-byte aligned), summing
+// V float32 for its chunk column into the scratch [groups][period * M]
+// (ctx_partials); the sum of column m over the groups and the period's
+// rows is then taken in a fixed order (ctx_column).  The last period's
+// chunks past rows * M elements read nothing.
 // ---------------------------------------------------------------------------
 struct CtxScheme {
   int period, chunks, groups;
-  __host__ __device__ CtxScheme(int M, int threads) {
-    const int g8 = M % 8 == 0 ? 8 : M % 4 == 0 ? 4 : M % 2 == 0 ? 2 : 1;
-    period = 8 / g8;
-    chunks = period * M / 8;
+  __host__ __device__ CtxScheme(int M, int threads, int V = 8) {
+    int g = V;   // gcd(M, V), V a power of two
+    while (M % g != 0) g >>= 1;
+    period = V / g;
+    chunks = period * M / V;
     groups = threads / chunks > 0 ? threads / chunks : 1;
   }
   __host__ __device__ size_t scratch_floats(int M) const {
@@ -1027,47 +1250,69 @@ struct CtxScheme {
   }
 };
 
+// the V elements of a 16-byte chunk as float
+__device__ __forceinline__ void chunk_floats(float* x, const uint4& u,
+                                             const __nv_bfloat16*) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[2 * j] = __low2float(h2[j]);
+    x[2 * j + 1] = __high2float(h2[j]);
+  }
+}
+__device__ __forceinline__ void chunk_floats(float* x, const uint4& u,
+                                             const float*) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void chunk_floats(float* x, const uint4& u,
+                                             const int8_t*) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) x[j] = (float)c[j];
+}
+
+// ROUND: round each product to bf16 (ST bf16, and int8 streams of a bf16
+// decoder); otherwise float32 products
+template <bool ROUND = true, class ST>
 __device__ __forceinline__ void ctx_partials(
     const CtxScheme& S, float* __restrict__ scratch,
-    const bf16* __restrict__ mem, const float* __restrict__ w, int rows,
+    const ST* __restrict__ mem, const float* __restrict__ w, int rows,
     int M, int vec, int threads) {
+  constexpr int V = 16 / sizeof(ST);
   const int P = S.period, C = S.chunks, G = S.groups, PM = P * M;
   const int n_per = (rows + P - 1) / P;
   const long long n_el = (long long)rows * M;
   for (int slot = threadIdx.x; slot < G * C; slot += threads) {
     const int c = slot % C, grp = slot / C;
-    int rr[8];
+    int rr[V];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) rr[j] = (8 * c + j) / M;
-    float acc[8];
+    for (int j = 0; j < V; ++j) rr[j] = (V * c + j) / M;
+    float acc[V];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < V; ++j) acc[j] = 0.0f;
 #pragma unroll 2
     for (int p = grp; p < n_per; p += G) {
-      const long long base = (long long)p * PM + 8 * c;
-      float x[8];
-      if (vec && base + 8 <= n_el) {
-        const uint4 u = *reinterpret_cast<const uint4*>(mem + base);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          x[2 * j] = __low2float(h2[j]);
-          x[2 * j + 1] = __high2float(h2[j]);
-        }
+      const long long base = (long long)p * PM + V * c;
+      float x[V];
+      if (vec && base + V <= n_el) {
+        chunk_floats(x, *reinterpret_cast<const uint4*>(mem + base), mem);
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          x[j] = base + j < n_el ? __bfloat162float(mem[base + j]) : 0.0f;
+        for (int j = 0; j < V; ++j)
+          x[j] = base + j < n_el ? to_float(mem[base + j]) : 0.0f;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < V; ++j) {
         const int r = p * P + rr[j];
         const float wt = r < rows ? w[r] : 0.0f;
-        acc[j] += round_bf16(x[j] * wt);
+        acc[j] += ROUND ? round_bf16(x[j] * wt) : x[j] * wt;
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) scratch[grp * PM + 8 * c + j] = acc[j];
+    for (int j = 0; j < V; ++j) scratch[grp * PM + V * c + j] = acc[j];
   }
 }
 

@@ -7,6 +7,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -24,3 +25,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """cuDNN's float32 convolutions and LSTMs in full float32 inside the
+    block: PyTorch lets cuDNN run them in TF32 (10-bit mantissas) by
+    default (``torch.backends.cudnn.allow_tf32``), which the float32
+    compute type must not.  The setting is restored on leaving; matrix
+    products are float32 by PyTorch's default already."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old

@@ -36,7 +36,7 @@ four kernel functions of ``csrc/fused_decoder.cu``:
    mask, the 1e-6 floor, the L1 renorm, the context and the agent's next
    ``t_prob``;
 4. ``head``: the fused frame and stop projection over the head row
-   ``[bf16(h_gen) | bf16(ctx)]`` on the tensor cores, split over K like the
+   ``[h_gen | ctx]`` in the compute type, split over K like the
    training decoder's products (``csrc/tile.cuh::splitk_kernel`` and its
    ordered reduction, ``ops/_splitk.py``).  In a chunk the generator LSTM's
    epilogue and ``lsa_attention`` write that row as they finish, so it
@@ -61,6 +61,15 @@ is below ``keep * 2^32``, as the TPU kernel does.  There the rows are local
 to a VMEM batch block; here one block is the whole batch, so the masks equal
 the TPU kernel's run with ``block_cap >= B``.
 
+The compute type is bfloat16 or float32 (``DecoderBundle.dtype``, the TPU
+kernel's ``dtype``), each kernel a template instance on it: float32 rounds
+nothing and runs every product in float32 (FFMA on the CUDA cores; W8A8's
+int8 gate product stays).  With ``DecoderBundle.q_streams`` (the TPU
+kernel's ``q_streams``) the attention kernels read the memory and the
+memory transform as int8 with per-channel scales (``Int8Stream``,
+quantized per chunk by ``chunk_operands``).  ``LAUNCHES`` counts each
+instance under its own name (``instance``: ``_f32``, ``_q8``).
+
 On a CPU tensor every kernel function runs its plain PyTorch version; on a
 CUDA tensor it launches the kernel or raises.  ``decode_chunk_plain`` runs
 the plain version on any device and is what the kernels are held against.
@@ -70,7 +79,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -91,18 +100,35 @@ _K_ALIGN = 64          # gate weight rows are zero-padded to this many inputs
 # block per SM gives 14 slices of 96 (csrc/tile.cuh::splitk_kernel)
 _HEAD_BLOCKS_PER_SM = 1
 
-# launches of each kernel since the last reset (kernel launches only)
+_KERNELS = ("prenet", "gate_lstm", "lsa_attention", "fwd_attention", "head")
+_STREAM_KERNELS = ("lsa_attention", "fwd_attention")
+
+
+def instance(kernel: str, dtype: torch.dtype = torch.bfloat16,
+             q_streams: bool = False) -> str:
+    """The ``LAUNCHES`` key of ``kernel``'s instance for a compute type and,
+    for the attention kernels, int8 streams: ``lsa_attention``,
+    ``lsa_attention_f32``, ``lsa_attention_q8``, ``lsa_attention_f32_q8``."""
+    name = kernel + ("_f32" if dtype == torch.float32 else "")
+    return name + ("_q8" if q_streams and kernel in _STREAM_KERNELS else "")
+
+
+# launches of each kernel instance since the last reset (kernel launches
+# only)
 LAUNCHES: Dict[str, int] = {
-    "prenet": 0, "gate_lstm": 0, "lsa_attention": 0, "fwd_attention": 0,
-    "head": 0}
+    instance(k, d, q): 0 for k in _KERNELS
+    for d in (torch.bfloat16, torch.float32) for q in (False, True)}
 
 
-def path_kernels(att_kind: str) -> Tuple[str, ...]:
-    """The kernels (``LAUNCHES`` keys) that a serving chunk at ``att_kind``
-    launches: the location-sensitive path's ``lsa_attention``, or the
-    forward family's ``fwd_attention``."""
-    return ("prenet", "gate_lstm",
-            "lsa_attention" if att_kind == "ls" else "fwd_attention", "head")
+def path_kernels(att_kind: str, dtype: torch.dtype = torch.bfloat16,
+                 q_streams: bool = False) -> Tuple[str, ...]:
+    """The kernel instances (``LAUNCHES`` keys) that a serving chunk at
+    ``att_kind``, compute type ``dtype`` and ``q_streams`` launches: the
+    location-sensitive path's ``lsa_attention``, or the forward family's
+    ``fwd_attention``."""
+    att = "lsa_attention" if att_kind == "ls" else "fwd_attention"
+    return tuple(instance(k, dtype, q_streams)
+                 for k in ("prenet", "gate_lstm", att, "head"))
 
 
 def reset_launch_counts() -> None:
@@ -190,6 +216,8 @@ class DecoderBundle:
     ta_wq: Optional[torch.Tensor] = None     # [H]
     ta_wx: Optional[torch.Tensor] = None     # [P]
     ta_b: Optional[torch.Tensor] = None      # [1]
+    # int8 memory and memory-transform streams (``chunk_operands``)
+    q_streams: bool = False
 
     def prenet_layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         in_dim, p, n = self.pre_dims
@@ -202,11 +230,18 @@ class DecoderBundle:
         return layers
 
 
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` as an IEEE division on every device: PyTorch divides a
+    CUDA tensor by a Python scalar as a product with its reciprocal, which
+    can differ by an ulp from the JAX package's division."""
+    return x / torch.full_like(x, 127.0)
+
+
 def _quantize_columns(w: torch.Tensor):
     """Symmetric per-output-column int8: ``w ~= q * scale``.  ``w`` is
     [4H, K] (one row per output column)."""
     wf = w.float()
-    scale = torch.clamp(wf.abs().amax(dim=1), min=1e-8) / 127.0
+    scale = _div127(torch.clamp(wf.abs().amax(dim=1), min=1e-8))
     q = torch.clamp(torch.round(wf / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -217,9 +252,10 @@ def _pad_k(w: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def extract_decoder_bundle(cell, dtype: torch.dtype,
-                           quantize_gates: bool) -> DecoderBundle:
-    """Slice a ``DecoderCell``'s parameters into the kernels' operands."""
+def extract_decoder_bundle(cell, dtype: torch.dtype, quantize_gates: bool,
+                           q_streams: bool = False) -> DecoderBundle:
+    """Slice a ``DecoderCell``'s parameters into the kernels' operands;
+    ``q_streams``: the attention reads int8 streams."""
     fcs = [getattr(cell.prenet, f"fc{i}")
            for i in range(cell.prenet.num_layers)]
     att = cell.attention
@@ -266,7 +302,45 @@ def extract_decoder_bundle(cell, dtype: torch.dtype,
         att_bias=att.energy_bias.reshape(-1).float().contiguous(),
         lc=lc, v=v.float().contiguous(),
         head_w=_pad_k(head_w.to(dtype)),
-        head_b=head_b.float().contiguous(), att_kind=kind, **agent)
+        head_b=head_b.float().contiguous(), att_kind=kind,
+        q_streams=bool(q_streams), **agent)
+
+
+class Int8Stream(NamedTuple):
+    """A stream of the attention stored as int8 with a scale per channel
+    (its last dimension), ``x ~= q * scale`` (the TPU kernel's
+    ``q_streams``): ``q`` [B, T, C] int8; ``scale`` [C], float32 for the
+    memory, whose scale multiplies the context after the sum over T, and in
+    the compute type for the memory transform, which is dequantized in the
+    compute type (``pallas_decoder.py:571-572``, ``:626-634``, ``:1002``)."""
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+Stream = Union[torch.Tensor, Int8Stream]
+
+# the JAX kernel pads T past 256 to a multiple of 128 before it quantizes
+# the memory transform (ops/pallas_decoder.py:143-149, :931-937)
+_SINGLE_FOLD_MAX, _T_BLOCK = 256, 128
+
+
+def quantize_lastdim(x: torch.Tensor, floor: Optional[torch.Tensor] = None):
+    """Symmetric int8 per last-dimension channel over every leading axis,
+    ``x ~= q * scale``, in ``_quantize_lastdim``'s op order (pallas_decoder.
+    py:257-266): ``scale = max(amax, 1e-8) / 127``, ``q = clip(round(x /
+    scale), -127, 127)`` -> (q int8, scale [C] float32).  ``floor`` [C]
+    joins the amax (values the JAX kernel's padding adds)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=tuple(range(x.dim() - 1)))
+    if floor is not None:
+        amax = torch.maximum(amax, floor.abs())
+    scale = _div127(torch.clamp(amax, min=1e-8))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q.contiguous(), scale.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -337,30 +411,60 @@ def gate_lstm_plain(segments: Tuple[torch.Tensor, ...], h: torch.Tensor,
     return zoneout(h, h_new, zoneout_h), zoneout(c, c_new, zoneout_c)
 
 
+def _mt_values(mtb: Stream, d: torch.dtype) -> torch.Tensor:
+    """The memory transform plus bias as the energy reads it, float32
+    holding compute-type values: int8 streams dequantized in the compute
+    type with the scale row already in it (``pallas_decoder.py:571-572``)."""
+    if isinstance(mtb, Int8Stream):
+        return _rounded(mtb.q.float() * mtb.scale.float(), d)
+    return mtb.float()
+
+
+def _context(memory: Stream, w: torch.Tensor, d: torch.dtype):
+    """sum_t round_d(memory[t] * round_d(w[t])) in float32; int8 streams
+    multiply the float32 channel scale after the sum
+    (``pallas_decoder.py:626-634``)."""
+    if isinstance(memory, Int8Stream):
+        ctx = _rounded(memory.q.float() * _rounded(w, d)[:, :, None],
+                       d).sum(1)
+        return ctx * memory.scale
+    return _rounded(memory.float() * _rounded(w, d)[:, :, None], d).sum(1)
+
+
+def _location_conv(cum: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    """[B, T] (compute-type values) x the folded filter [K, A] -> [B, T, A]
+    float32: ``loc[t] = sum_k cum[t + k - (K - 1) // 2] lc[k]`` (zero
+    outside [0, T)) as a float32 product of the windows, which PyTorch
+    runs in full float32 on the card too (a cuDNN convolution may take
+    TF32 or a transform algorithm)."""
+    k = lc.shape[0]
+    half = (k - 1) // 2
+    windows = torch.nn.functional.pad(cum, (half, k - 1 - half)).unfold(
+        1, k, 1)                                                  # [B, T, K]
+    return windows @ lc.float()
+
+
 def lsa_attention_plain(h_att: torch.Tensor, cum: torch.Tensor,
-                        memory: torch.Tensor, mtb: torch.Tensor,
+                        memory: Stream, mtb: Stream,
                         mask_add: torch.Tensor, bundle: DecoderBundle):
     """Location-sensitive attention step -> (context [B, Mem], cum [B, T]).
     ``memory`` [B, T, Mem] and ``mtb`` (memory transform plus the attention
-    bias) [B, T, A] are in the compute type; ``mask_add`` is 0 or -1e9.
-    Rounds to the compute type where the TPU kernel does."""
+    bias) [B, T, A] are in the compute type, or ``Int8Stream``s;
+    ``mask_add`` is 0 or -1e9.  Rounds to the compute type where the TPU
+    kernel does."""
     d = bundle.dtype
     q = _rounded(_mm(h_att, bundle.wq), d)                        # [B, A]
-    k = bundle.lc.shape[0]
-    loc = torch.nn.functional.conv1d(
-        _rounded(cum, d)[:, None, :], bundle.lc.float().t()[:, None, :],
-        padding=(k - 1) // 2).transpose(1, 2)                     # [B, T, A]
+    loc = _location_conv(_rounded(cum, d), bundle.lc)
     z = _rounded(_rounded(_rounded(loc, d) + q[:, None, :], d)
-                 + mtb.float(), d)
+                 + _mt_values(mtb, d), d)
     e = (_rounded(torch.tanh(z), d) * bundle.v).sum(-1) + mask_add
     w = torch.softmax(e, dim=-1)
-    ctx = _rounded(memory.float() * _rounded(w, d)[:, :, None], d).sum(1)
-    return ctx, cum + w
+    return _context(memory, w, d), cum + w
 
 
 def fwd_attention_plain(h_att: torch.Tensor, prev: torch.Tensor,
-                        t_prob: Optional[torch.Tensor], memory: torch.Tensor,
-                        mtb: torch.Tensor, mask_add: torch.Tensor,
+                        t_prob: Optional[torch.Tensor], memory: Stream,
+                        mtb: Stream, mask_add: torch.Tensor,
                         x: torch.Tensor, bundle: DecoderBundle):
     """The forward family's attention step -> (context [B, Mem], weights
     [B, T], next t_prob [B, 1] or None).  ``prev`` [B, T] are the last
@@ -374,7 +478,7 @@ def fwd_attention_plain(h_att: torch.Tensor, prev: torch.Tensor,
     products take compute-type operands with float32 sums."""
     d = bundle.dtype
     q = _rounded(_mm(h_att, bundle.wq), d)                        # [B, A]
-    z = _rounded(q[:, None, :] + mtb.float(), d)
+    z = _rounded(q[:, None, :] + _mt_values(mtb, d), d)
     energy = torch.softmax((_rounded(torch.tanh(z), d) * bundle.v).sum(-1),
                            dim=-1)
     shifted = torch.nn.functional.pad(_rounded(prev, d), (1, 0))[:, :-1]
@@ -385,7 +489,7 @@ def fwd_attention_plain(h_att: torch.Tensor, prev: torch.Tensor,
     w = torch.where(mask_add > -0.5, comb * energy, torch.zeros_like(comb))
     w = torch.clamp(w, min=1e-6)
     w = w / w.sum(-1, keepdim=True)
-    ctx = _rounded(memory.float() * _rounded(w, d)[:, :, None], d).sum(1)
+    ctx = _context(memory, w, d)
     if t_prob is None:
         return ctx, w, None
     lin = (_mm(ctx, bundle.ta_wc[:, None]) + _mm(h_att, bundle.ta_wq[:, None])
@@ -394,7 +498,7 @@ def fwd_attention_plain(h_att: torch.Tensor, prev: torch.Tensor,
 
 
 def attention_plain(h_att: torch.Tensor, state, x: torch.Tensor,
-                    memory: torch.Tensor, mtb: torch.Tensor,
+                    memory: Stream, mtb: Stream,
                     mask_add: torch.Tensor, bundle: DecoderBundle):
     """The attention step of ``bundle.att_kind`` on the carry's attention
     ``state`` -> (context, new state), the plain versions of
@@ -432,13 +536,12 @@ def head_plain(h_gen: torch.Tensor, ctx: torch.Tensor,
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "prenet_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _U,
-                      _F, _I, _I, _I, _P],
-    "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
-                         _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _P],
-    "lsa_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _P],
-    "fwd_attention_launch": [_P] * 17 + [_I] * 8 + [_P],
-    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+                      _F, _I, _I, _I, _I, _P],
+    "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P,
+                         _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _P],
+    "lsa_attention_launch": [_P] * 11 + [_I] * 8 + [_P] * 3,
+    "fwd_attention_launch": [_P] * 17 + [_I] * 9 + [_P] * 3,
+    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P],
 }
 _LIB = None
 
@@ -486,19 +589,53 @@ def _launched(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def _require_bf16(bundle: DecoderBundle) -> None:
-    if bundle.dtype != torch.bfloat16:
-        raise ValueError("the CUDA decoder kernels take bfloat16 compute; "
-                         f"got {bundle.dtype}")
+def _f32(bundle: DecoderBundle, *weights: Optional[torch.Tensor]) -> int:
+    """The kernels' compute-type flag (1: the float32 instances), after
+    checking that ``weights`` are in the bundle's compute type."""
+    d = bundle.dtype
+    if d not in (torch.bfloat16, torch.float32):
+        raise ValueError("the CUDA decoder kernels take bfloat16 or float32 "
+                         f"compute; got {d}")
+    if any(w is not None and w.dtype != d for w in weights):
+        raise ValueError(f"the kernel's weights must be {d}")
+    return int(d == torch.float32)
 
 
-def _row_view(name: str, t: Optional[torch.Tensor]) -> int:
-    """The row stride of a bf16 destination view ``t`` (rows of a larger
-    buffer, unit stride in the last dimension); 0 for None."""
+def _q8(bundle: DecoderBundle) -> bool:
+    return bool(getattr(bundle, "q_streams", False))
+
+
+def _streams(name: str, bundle: DecoderBundle, memory: Stream, mtb: Stream):
+    """(memory, mtb, memory scale, mtb scale) as an attention launch takes
+    them: int8 ``Int8Stream``s with their scales exactly when the bundle
+    has ``q_streams``, else compute-type tensors and no scales."""
+    q8 = _q8(bundle)
+    if q8 != isinstance(memory, Int8Stream) or q8 != isinstance(mtb,
+                                                                 Int8Stream):
+        raise ValueError(f"{name}: int8 streams (Int8Stream memory and "
+                         "memory transform) exactly when the bundle's "
+                         "q_streams is set")
+    if not q8:
+        if memory.dtype != bundle.dtype or mtb.dtype != bundle.dtype:
+            raise ValueError(f"{name}: memory and memory transform must be "
+                             f"{bundle.dtype}")
+        return memory, mtb, None, None
+    if (memory.q.dtype != torch.int8 or mtb.q.dtype != torch.int8
+            or memory.scale.dtype != torch.float32
+            or mtb.scale.dtype != bundle.dtype):
+        raise ValueError(f"{name}: int8 streams with a float32 memory scale "
+                         f"and a {bundle.dtype} memory-transform scale")
+    return memory.q, mtb.q, memory.scale, mtb.scale
+
+
+def _row_view(name: str, t: Optional[torch.Tensor],
+              dtype: torch.dtype) -> int:
+    """The row stride of a destination view ``t`` in the compute type (rows
+    of a larger buffer, unit stride in the last dimension); 0 for None."""
     if t is None:
         return 0
-    if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
-        raise ValueError(f"{name}: the head row must be a bfloat16 CUDA "
+    if not t.is_cuda or t.dtype != dtype or t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head row must be a {dtype} CUDA "
                          "view with unit stride in its last dimension")
     return t.stride(0)
 
@@ -548,7 +685,7 @@ def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None,
     if not _is_cuda(frame):
         return prenet_plain(frame, bundle, dropout_rate, seeds, step,
                             keep_out)
-    _require_bf16(bundle)
+    f32 = _f32(bundle, bundle.pre_w)
     frame = frame.float().contiguous()
     in_dim, p, n = bundle.pre_dims
     b = frame.shape[0]
@@ -563,16 +700,16 @@ def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None,
         _ptr(keep_out), b, in_dim, p, n, seeds[0] & _M32, seeds[1] & _M32,
         step, keep_threshold(dropout_rate) if drop else 0,
         1.0 / (1.0 - dropout_rate) if drop else 1.0, int(drop), cluster,
-        cols_p, _stream())
-    _launched("prenet", err)
+        cols_p, f32, _stream())
+    _launched(instance("prenet", bundle.dtype), err)
     return out
 
 
 def gate_row_scratch(b: int, weights, device):
     """Scratch of ``gate_lstm``'s row pass, for any of the gate ``weights``
     ([4H, K_pad] each): the concat row of each of ``b`` batch rows in the
-    weights' type (int8 or bf16), zero padded to K_pad and held as bytes,
-    and the row scales [b] (read only in W8A8)."""
+    weights' type (int8, bf16 or float32), zero padded to K_pad and held as
+    bytes, and the row scales [b] (read only in W8A8)."""
     width = max(w.shape[1] * w.element_size() for w in weights)
     return (torch.empty(b, width, dtype=torch.uint8, device=device),
             torch.empty(b, dtype=torch.float32, device=device))
@@ -582,13 +719,15 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
               q_out=None, scratch=None, h_row=None, out=None):
     """Kernel ``gate_lstm`` (see ``gate_lstm_plain``).  ``scratch`` is the
     row pass's (``gate_row_scratch``); without one the call gets its own.
-    ``h_row`` (a bf16 [B, H] view) also receives bf16(h_new); ``out`` are
-    the (h_new, c_new) to write, new ones if None."""
+    ``h_row`` (a [B, H] view in the compute type) also receives h_new;
+    ``out`` are the (h_new, c_new) to write, new ones if None."""
     if not _is_cuda(h):
         return gate_lstm_plain(segments, h, c, bundle, which, zoneout_h,
                                zoneout_c, q_out)
-    _require_bf16(bundle)
+    f32 = _f32(bundle)
     w, ws, bias = (getattr(bundle, f"{which}_{n}") for n in ("w", "ws", "b"))
+    if w.dtype != (torch.int8 if bundle.quantized else bundle.dtype):
+        raise ValueError(f"gate_lstm: {which} gate weights of {w.dtype}")
     s0, s1, s2 = (s.float().contiguous() for s in segments)
     b, hidden = h.shape
     h = h.contiguous()
@@ -597,7 +736,7 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
     if q_out is not None and q_out.dtype != torch.int8:
         raise ValueError("q_out must be int8")
     _check("gate_lstm", s0, s1, s2, w, ws, bias, h, c, q_out)
-    ld_row = _row_view("gate_lstm", h_row)
+    ld_row = _row_view("gate_lstm", h_row, bundle.dtype)
     row_buf, rs_buf = (gate_row_scratch(b, (w,), h.device) if scratch is None
                        else scratch)
     if (row_buf.numel() < b * w.shape[1] * w.element_size()
@@ -606,36 +745,37 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
     err = _lib().gate_lstm_launch(
         _ptr(s0), s0.shape[1], _ptr(s1), s1.shape[1], _ptr(s2), s2.shape[1],
         _ptr(w), _ptr(ws), _ptr(bias), w.shape[1], int(bundle.quantized),
-        _ptr(row_buf), _ptr(rs_buf), _ptr(h), _ptr(c), _ptr(h_new),
+        f32, _ptr(row_buf), _ptr(rs_buf), _ptr(h), _ptr(c), _ptr(h_new),
         _ptr(c_new), _ptr(h_row), ld_row, _ptr(q_out), b, hidden,
         float(zoneout_h), float(zoneout_c), _stream())
-    _launched("gate_lstm", err)
+    _launched(instance("gate_lstm", bundle.dtype), err)
     return h_new, c_new
 
 
 def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle, ctx_row=None,
                   out=None):
     """Kernel ``lsa_attention`` (see ``lsa_attention_plain``).  ``ctx_row``
-    (a bf16 [B, Mem] view) also receives bf16(context); ``out`` are the
-    (context, cum) to write, new ones if None."""
+    (a [B, Mem] view in the compute type) also receives the context;
+    ``out`` are the (context, cum) to write, new ones if None."""
     if not _is_cuda(h_att):
         return lsa_attention_plain(h_att, cum, memory, mtb, mask_add, bundle)
-    _require_bf16(bundle)
-    b, t, mem_dim = memory.shape
-    if memory.dtype != torch.bfloat16 or mtb.dtype != torch.bfloat16:
-        raise ValueError("memory and memory transform must be bfloat16")
+    f32 = _f32(bundle, bundle.wq, bundle.lc)
+    mem, mt, mem_scale, mt_scale = _streams("lsa_attention", bundle, memory,
+                                            mtb)
+    b, t, mem_dim = mem.shape
     h_att, cum, mask_add = (x.float().contiguous()
                             for x in (h_att, cum, mask_add))
     ctx, cum_new = _outputs(out, ((b, mem_dim), h_att), (cum.shape, cum))
-    _check("lsa_attention", h_att, cum, memory, mtb, mask_add, bundle.wq,
-           bundle.lc, bundle.v)
-    ld_row = _row_view("lsa_attention", ctx_row)
+    _check("lsa_attention", h_att, cum, mem, mt, mask_add, bundle.wq,
+           bundle.lc, bundle.v, mem_scale, mt_scale)
+    ld_row = _row_view("lsa_attention", ctx_row, bundle.dtype)
     err = _lib().lsa_attention_launch(
-        _ptr(h_att), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
+        _ptr(h_att), _ptr(cum), _ptr(mem), _ptr(mt), _ptr(mask_add),
         _ptr(bundle.wq), _ptr(bundle.lc), _ptr(bundle.v), _ptr(ctx),
         _ptr(cum_new), _ptr(ctx_row), ld_row, b, t, h_att.shape[1],
-        bundle.wq.shape[1], mem_dim, bundle.lc.shape[0], _stream())
-    _launched("lsa_attention", err)
+        bundle.wq.shape[1], mem_dim, bundle.lc.shape[0], f32,
+        _ptr(mem_scale), _ptr(mt_scale), _stream())
+    _launched(instance("lsa_attention", bundle.dtype, _q8(bundle)), err)
     return ctx, cum_new
 
 
@@ -649,15 +789,16 @@ def fwd_attention(h_att, prev, t_prob, memory, mtb, mask_add, x, bundle,
     if not _is_cuda(h_att):
         return fwd_attention_plain(h_att, prev, t_prob, memory, mtb,
                                    mask_add, x, bundle)
-    _require_bf16(bundle)
     trans = bundle.att_kind == "fwd_trans"
+    f32 = _f32(bundle, bundle.wq, *((bundle.ta_wc, bundle.ta_wq,
+                                     bundle.ta_wx) if trans else ()))
     if bundle.att_kind not in ("fwd", "fwd_trans") or trans != (
             t_prob is not None):
         raise ValueError("fwd_attention: a forward-family bundle, and a "
                          "t_prob exactly with the transition agent")
-    b, t, mem_dim = memory.shape
-    if memory.dtype != torch.bfloat16 or mtb.dtype != torch.bfloat16:
-        raise ValueError("memory and memory transform must be bfloat16")
+    mem, mt, mem_scale, mt_scale = _streams("fwd_attention", bundle, memory,
+                                            mtb)
+    b, t, mem_dim = mem.shape
     h_att, prev, mask_add = (v.float().contiguous()
                              for v in (h_att, prev, mask_add))
     like = [((b, mem_dim), h_att), (prev.shape, prev)]
@@ -666,28 +807,30 @@ def fwd_attention(h_att, prev, t_prob, memory, mtb, mask_add, x, bundle,
         like.append(((b, 1), t_prob))
     ctx, w, *tp = _outputs(None if out is None else out[:len(like)], *like)
     tp = tp[0] if trans else None
-    _check("fwd_attention", h_att, prev, memory, mtb, mask_add, bundle.wq,
-           bundle.v, *((t_prob, x, bundle.ta_wc, bundle.ta_wq, bundle.ta_wx,
-                        bundle.ta_b) if trans else ()))
-    ld_row = _row_view("fwd_attention", ctx_row)
+    _check("fwd_attention", h_att, prev, mem, mt, mask_add, bundle.wq,
+           bundle.v, mem_scale, mt_scale,
+           *((t_prob, x, bundle.ta_wc, bundle.ta_wq, bundle.ta_wx,
+              bundle.ta_b) if trans else ()))
+    ld_row = _row_view("fwd_attention", ctx_row, bundle.dtype)
     agent = ((x, bundle.ta_wc, bundle.ta_wq, bundle.ta_wx, bundle.ta_b)
              if trans else (None,) * 5)
     err = _lib().fwd_attention_launch(
-        _ptr(h_att), _ptr(prev), _ptr(t_prob), _ptr(memory), _ptr(mtb),
+        _ptr(h_att), _ptr(prev), _ptr(t_prob), _ptr(mem), _ptr(mt),
         _ptr(mask_add), _ptr(agent[0]), _ptr(bundle.wq), _ptr(bundle.v),
         *(_ptr(a) for a in agent[1:]), _ptr(ctx), _ptr(w), _ptr(tp),
         _ptr(ctx_row), ld_row, b, t, h_att.shape[1], bundle.wq.shape[1],
-        mem_dim, bundle.pre_dims[1], int(trans), _stream())
-    _launched("fwd_attention", err)
+        mem_dim, bundle.pre_dims[1], int(trans), f32, _ptr(mem_scale),
+        _ptr(mt_scale), _stream())
+    _launched(instance("fwd_attention", bundle.dtype, _q8(bundle)), err)
     return ctx, w, tp
 
 
 def head_row(h_gen: torch.Tensor, ctx: torch.Tensor,
              bundle: DecoderBundle) -> torch.Tensor:
-    """The head row ``[bf16(h_gen) | bf16(ctx) | 0]`` [B, K_pad] that the
-    ``head`` kernel reads, assembled by PyTorch; in a chunk the generator's
-    ``gate_lstm`` and ``lsa_attention`` write it instead (``h_row``,
-    ``ctx_row``)."""
+    """The head row ``[h_gen | ctx | 0]`` [B, K_pad] in the compute type
+    that the ``head`` kernel reads, assembled by PyTorch; in a chunk the
+    generator's ``gate_lstm`` and the attention kernel write it instead
+    (``h_row``, ``ctx_row``)."""
     row = torch.zeros(h_gen.shape[0], bundle.head_w.shape[1],
                       dtype=bundle.head_w.dtype, device=h_gen.device)
     hidden = h_gen.shape[1]
@@ -705,12 +848,12 @@ def head(h_gen, ctx, bundle, row=None, scratch=None, out=None):
     are the (frame, stop) to write, new ones if None."""
     if not _is_cuda(h_gen):
         return head_plain(h_gen, ctx, bundle)
-    _require_bf16(bundle)
+    f32 = _f32(bundle, bundle.head_w)
     b = h_gen.shape[0]
     (n_out, k), m_dim = bundle.head_w.shape, bundle.head_w.shape[0] - 1
     if row is None:
         row = head_row(h_gen, ctx, bundle)
-    _row_view("head", row)
+    _row_view("head", row, bundle.dtype)
     if row.shape != (b, k):
         raise ValueError(f"head: the head row must be [{b}, {k}], got "
                          f"{list(row.shape)}")
@@ -721,8 +864,8 @@ def head(h_gen, ctx, bundle, row=None, scratch=None, out=None):
     err = _lib().head_launch(
         _ptr(row), row.stride(0), _ptr(bundle.head_w), k,
         _ptr(bundle.head_b), b, n_out, _ptr(frame), _ptr(stop), slices,
-        kslice, _ptr(part), _stream())
-    _launched("head", err)
+        kslice, _ptr(part), f32, _stream())
+    _launched(instance("head", bundle.dtype), err)
     return frame, stop
 
 
@@ -734,11 +877,25 @@ def chunk_operands(bundle: DecoderBundle, memory: torch.Tensor,
                    memory_transform: torch.Tensor, mask: torch.Tensor):
     """The attention operands that stay fixed over a chunk, as
     ``lsa_attention`` takes them: ``(memory, memory transform plus the
-    attention bias, both in the compute type, additive mask 0 / -1e9)``."""
+    attention bias, additive mask 0 / -1e9)``.  The two streams are in the
+    compute type, or with ``bundle.q_streams`` ``Int8Stream``s quantized as
+    the TPU kernel quantizes them (``pallas_decoder.py:985-1003``): the
+    memory in the compute type and the unrounded float32 ``mt + bias`` per
+    channel over the whole call (every row of the batch), the memory
+    transform's scale row cast to the compute type."""
     d = bundle.dtype
-    return (memory.to(d).contiguous(),
-            (memory_transform.float() + bundle.att_bias).to(d).contiguous(),
-            torch.where(mask, 0.0, NEG_INF).float())
+    mask_add = torch.where(mask, 0.0, NEG_INF).float()
+    mtb = memory_transform.float() + bundle.att_bias
+    if not bundle.q_streams:
+        return memory.to(d).contiguous(), mtb.to(d).contiguous(), mask_add
+    t = memory.shape[1]
+    # rows of padding past T hold the bias alone in the JAX kernel's mtb
+    pad = t > _SINGLE_FOLD_MAX and t % _T_BLOCK != 0
+    mem_q, mem_scale = quantize_lastdim(memory.to(d))
+    mt_q, mt_scale = quantize_lastdim(
+        mtb, floor=bundle.att_bias if pad else None)
+    return (Int8Stream(mem_q, mem_scale),
+            Int8Stream(mt_q, mt_scale.to(d).contiguous()), mask_add)
 
 
 def _run_chunk(ops, bundle, carry, memory, memory_transform, mask, seeds,

@@ -1196,6 +1196,18 @@ def initial_state(cfg: TrainConfig, b: int, t_len: int, device
     return {"cum": cum, "tp": torch.full((b,), 0.5, device=device)}
 
 
+def _require_bf16_kernels(cfg: TrainConfig, like: torch.Tensor,
+                          plain: bool) -> None:
+    """The training decoder's kernels run bfloat16 compute only: raise for
+    another compute type on the card (the plain versions take any)."""
+    if not plain and _is_cuda(like) and cfg.dtype != torch.bfloat16:
+        raise ValueError(
+            "the training decoder's CUDA kernels (K2/K3) take bfloat16 "
+            f"compute, got {cfg.dtype}: their float32 instances are not "
+            "ported yet (ROADMAP Queue 2, V4: float32 in K2 and K3); train "
+            "in bfloat16 on the card, or in float32 on the CPU")
+
+
 def _pass_scratch(plain: bool, products, like: torch.Tensor):
     """The one split-K scratch of a decoder pass (``_splitk.splitk_scratch``)
     for the kernels; None for the plain versions and on the CPU."""
@@ -1216,6 +1228,7 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
     (``cfg.train`` False) keeps no residual stream: its concat rows are
     two buffers a row kind that the steps alternate (a gate product writes
     the next step's row while it reads its own)."""
+    _require_bf16_kernels(cfg, memory, plain)
     n_f, b = shifted.shape[:2]
     t_len = memory.shape[1]
     d = cfg.dtype
@@ -1300,6 +1313,7 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
     ``train_operands`` plus ``memory``, ``mtb`` and ``shifted``; the
     per-step gradient streams; the final cotangent carry (that of the
     initial decoder state)."""
+    _require_bf16_kernels(cfg, memory, plain)
     if cfg.family and mask_add is None:
         raise ValueError("the forward family's backward needs mask_add")
     n_f, b = dspec.shape[:2]

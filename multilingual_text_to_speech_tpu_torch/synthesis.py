@@ -14,11 +14,19 @@ weights only; the other encoders take the per-character weights as they
 always do); true blends take the mixing path.  The decoder runs ``hp.decode_chunk_frames`` steps at a time
 through ``ops.fused_decoder`` (the CUDA kernels on the card, their plain
 version on the CPU), and the host checks the stop tokens between chunks.
+``hp.compute_dtype`` picks the kernels' bfloat16 or float32 instances,
+``hp.pallas_decoder_int8`` the W8A8 gates and
+``hp.pallas_decoder_int8_streams`` (None: off) the int8 attention streams,
+as in the JAX package.  In float32
+the encoder's and postnet's cuDNN calls run in full float32
+(``device.exact_float32``), not in PyTorch's default TF32.
 Checkpoint loading and vocoding are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -26,6 +34,7 @@ import torch
 
 from multilingual_text_to_speech_tpu_torch.device import (
     DeviceLike,
+    exact_float32,
     resolve_device,
 )
 from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
@@ -117,6 +126,17 @@ def _bucket(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+def _compute_precision(method):
+    """Runs a ``Synthesizer`` method with cuDNN in full float32 when the
+    compute type is float32."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with (exact_float32() if self.dtype == torch.float32
+              else contextlib.nullcontext()):
+            return method(self, *args, **kwargs)
+    return run
+
+
 class Synthesizer:
     """An eval-mode model on one device plus the chunked decode loop.
 
@@ -136,7 +156,8 @@ class Synthesizer:
         self.max_chunks = (hp.max_output_length + self.chunk - 1) // self.chunk
         self.bundle = fused_decoder.extract_decoder_bundle(
             self.model.decoder.cell, self.dtype,
-            quantize_gates=bool(hp.pallas_decoder_int8))
+            quantize_gates=bool(hp.pallas_decoder_int8),
+            q_streams=bool(hp.pallas_decoder_int8_streams))
         self.decode_kwargs = self.model.decoder.decode_kwargs
 
     def _tensor(self, a, dtype=torch.long):
@@ -172,6 +193,7 @@ class Synthesizer:
         return out
 
     @torch.no_grad()
+    @_compute_precision
     def spectrogram_from_ids(self, sequence: np.ndarray,
                              speaker: Optional[int] = None,
                              language_weights: Optional[np.ndarray] = None,
@@ -218,6 +240,7 @@ class Synthesizer:
                                           np.asarray([total]))[0]
 
     @torch.no_grad()
+    @_compute_precision
     def spectrograms_from_batch(self, sequences, speakers=None,
                                 language_weights=None, seed: int = 0):
         """All utterances decode together; each is cropped at its own stop

@@ -6,9 +6,12 @@ tests/test_torch_gpu.py`` on a machine with an NVIDIA Hopper GPU and nvcc
 every test skips.
 Small widths, bfloat16 compute, W8A8 and bfloat16 gates; the tensor-core
 products (both decoders' gate products, the split-K query, heads and
-backward products, the head backward) also at the flagship's widths.
+backward products, the head backward) also at the flagship's widths; the
+serving kernels' float32 instances and the attention kernels on int8
+streams at the flagship's widths.
 """
 
+import functools
 from types import SimpleNamespace
 
 import pytest
@@ -158,11 +161,266 @@ def test_single_utterance_on_card_matches_cpu():
     assert err < 1e-2, err
 
 
-def test_kernels_refuse_float32_compute():
-    syn, memory, mt, mask, carry = _setup(True)
-    syn.bundle.dtype = torch.float32
-    with pytest.raises(ValueError, match="bfloat16"):
-        fd.head(carry["h_gen"], carry["context"], syn.bundle)
+def test_training_kernels_refuse_float32_compute():
+    """K2 and K3 run bfloat16 compute only (their float32 instances are
+    the next slice of the port): a float32 forward or backward on the card
+    raises and says so; the plain versions take it."""
+    import dataclasses
+
+    ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher = _train_setup()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ops32 = ftd.compute_operands(ops, cfg32)
+    args = (ops32, cfg32, memory.float(), mtb.float(), mask_add)
+    with pytest.raises(ValueError, match="bfloat16.*V4"):
+        ftd.train_decode_forward(*args, shifted.float(), teacher, (1, 2))
+    st, _ = ftd.train_decode_forward(*args, shifted.float(), teacher, (1, 2),
+                                     plain=True)
+    f, b = shifted.shape[:2]
+    with pytest.raises(ValueError, match="bfloat16.*V4"):
+        ftd.train_decode_backward(
+            ops32, cfg32, memory.float(), mtb.float(), st, teacher, (1, 2),
+            torch.zeros(f, b, cfg.mmel, device="cuda"),
+            torch.zeros(f, b, device="cuda"),
+            torch.zeros(f, b, memory.shape[1], device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# K1 in float32 and on int8 streams
+# ---------------------------------------------------------------------------
+
+# float32 instances against their float32 plain versions: every output
+# within this share of its largest value (float32 sums in another order;
+# a bf16 operand or a single TF32 pass is off by about 1e-3)
+F32_TOL = 1e-5
+
+
+def _f32_close(got, ref, tol=F32_TOL):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), (err, float(ref.abs().max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _flagship_cell(attention_type):
+    """A flagship ``DecoderCell`` (float32 weights, seeded) on the card."""
+    hp = flagship_hparams()
+    hp.attention_type = attention_type
+    model = init_random_weights(Tacotron(hp, torch.float32), 3)
+    return hp, model.decoder.cell.cuda()
+
+
+def _f32_bundle(attention_type, int8, q_streams=False,
+                dtype=torch.float32):
+    hp, cell = _flagship_cell(attention_type)
+    return hp, fd.extract_decoder_bundle(cell, dtype, quantize_gates=int8,
+                                         q_streams=q_streams)
+
+
+@pytest.mark.parametrize("b", [1, 37, 240])
+@pytest.mark.parametrize("int8", [True, False])
+def test_f32_step_kernels_match_plain_at_flagship_widths(int8, b):
+    """The float32 instances of ``prenet``, both ``gate_lstm`` (W8A8 on the
+    unrounded float32 row, or exact float32 products), ``lsa_attention``
+    and ``head`` at the flagship's widths (T=128): masks and int8
+    activations bit-exact, every other output within F32_TOL of its largest
+    value; the head row (float32 h and context) exactly the outputs; each
+    launch counted under its ``_f32`` instance."""
+    hp, bundle = _f32_bundle("location_sensitive", int8)
+    gen = torch.Generator(device="cuda").manual_seed(b)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    t, seeds = 128, (5, 6)
+    frame = rnd(b, _MELS)
+    h_att, c_att, h_gen, c_gen = (rnd(b, _HIDDEN, scale=0.5)
+                                  for _ in range(4))
+    ctx0 = rnd(b, _MEM, scale=0.5)
+    rnd_m, memory, mtb, mask, cum = _attention_operands(b, t, seed=b + 1)
+    memory, mtb = memory.float(), mtb.float()
+    mask_add = torch.where(mask, 0.0, -1e9)
+    fd.reset_launch_counts()
+
+    n_pre = bundle.pre_dims[2]
+    keep_k = torch.zeros(n_pre, b, 256, dtype=torch.uint8, device="cuda")
+    keep_p = torch.zeros_like(keep_k)
+    x = fd.prenet(frame, bundle, 0.5, seeds, 3, keep_out=keep_k)
+    x_p = fd.prenet_plain(frame, bundle, 0.5, seeds, 3, keep_out=keep_p)
+    assert torch.equal(keep_k, keep_p)
+    _f32_close(x, x_p)
+
+    row = torch.zeros(b, bundle.head_w.shape[1], device="cuda")
+    for which, segs, h, c in (("att", (x_p, ctx0, h_att), h_att, c_att),
+                              ("gen", (h_att, ctx0, h_gen), h_gen, c_gen)):
+        k = sum(s.shape[1] for s in segs)
+        q_k = torch.zeros(b, k, dtype=torch.int8, device="cuda")
+        q_p = torch.zeros_like(q_k)
+        got = fd.gate_lstm(segs, h, c, bundle, which, 0.1, 0.1,
+                           q_out=q_k if int8 else None,
+                           h_row=row[:, :_HIDDEN] if which == "gen" else None)
+        ref = fd.gate_lstm_plain(segs, h, c, bundle, which, 0.1, 0.1,
+                                 q_out=q_p if int8 else None)
+        assert torch.equal(q_k, q_p)
+        for g, r in zip(got, ref):
+            _f32_close(g, r)
+    h_new = got[0]
+    assert torch.equal(row[:, :_HIDDEN], h_new)
+
+    ctx, cum_k = fd.lsa_attention(h_att, cum, memory, mtb, mask_add, bundle,
+                                  ctx_row=row[:, _HIDDEN:_HIDDEN + _MEM])
+    ctx_p, cum_p = fd.lsa_attention_plain(h_att, cum, memory, mtb, mask_add,
+                                          bundle)
+    _f32_close(ctx, ctx_p)
+    _f32_close(cum_k - cum, cum_p - cum)
+    assert torch.equal(row[:, _HIDDEN:_HIDDEN + _MEM], ctx)
+    assert not row[:, _HIDDEN + _MEM:].any()
+
+    frame_k, stop_k = fd.head(h_new, ctx, bundle, row=row)
+    frame_p, stop_p = fd.head_plain(h_new, ctx, bundle)
+    _f32_close(frame_k, frame_p)
+    _f32_close(stop_k, stop_p)
+    assert {k: v for k, v in fd.LAUNCHES.items() if v} == {
+        "prenet_f32": 1, "gate_lstm_f32": 2, "lsa_attention_f32": 1,
+        "head_f32": 1}
+
+
+def _q8_operands(b, t, mem_dim, dtype, seed):
+    """Random attention streams quantized by ``chunk_operands`` (the
+    memory per channel, ``mt + bias`` per attention channel)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    memory = torch.randn(b, t, mem_dim, device="cuda", generator=gen)
+    mt = 0.5 * torch.randn(b, t, _ATT, device="cuda", generator=gen)
+    lengths = torch.randint(max(1, t // 2), t + 1, (b,), device="cuda",
+                            generator=gen)
+    mask = torch.arange(t, device="cuda")[None] < lengths[:, None]
+    bundle = SimpleNamespace(dtype=dtype, q_streams=True,
+                             att_bias=0.1 * torch.randn(
+                                 _ATT, device="cuda", generator=gen))
+    mem_q, mtb_q, mask_add = fd.chunk_operands(bundle, memory.to(dtype),
+                                               mt.to(dtype), mask)
+    return mem_q, mtb_q, mask, mask_add, gen
+
+
+@pytest.mark.parametrize("mem_dim", [292, 548])
+@pytest.mark.parametrize("t", [45, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["ls", "forward", "forward_transition_agent"])
+def test_attention_on_int8_streams_matches_plain(kind, dtype, t, mem_dim):
+    """``lsa_attention`` and ``fwd_attention`` (both kinds) on int8 memory
+    and memory-transform streams, bf16 and float32, at the flagship's 292-
+    and the shared strategy's 548-wide memory (int8 rows of 292 and 548
+    bytes, not multiples of 16), B=37: in float32 the context, weights and
+    t_prob within F32_TOL of their largest; in bf16 the context within
+    CTX_TOL, the weights within W_TOL of each row's largest, t_prob within
+    ATOL; one launch of the ``_q8`` instance; a second run bit-identical."""
+    from chip_smoke import CTX_TOL, W_TOL
+
+    b = 37
+    mem_q, mtb_q, mask, mask_add, gen = _q8_operands(b, t, mem_dim, dtype,
+                                                     seed=t + mem_dim)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    bundle = SimpleNamespace(
+        dtype=dtype, q_streams=True,
+        att_kind={"ls": "ls", "forward": "fwd"}.get(kind, "fwd_trans"),
+        wq=rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5).to(dtype),
+        lc=rnd(_TAPS, _ATT, scale=0.1).to(dtype) if kind == "ls" else None,
+        v=rnd(_ATT, scale=_ATT ** -0.5), pre_dims=(_MELS, 256, 2))
+    if kind == "forward_transition_agent":
+        bundle.ta_wc = rnd(mem_dim, scale=mem_dim ** -0.5).to(dtype)
+        bundle.ta_wq = rnd(_HIDDEN, scale=_HIDDEN ** -0.5).to(dtype)
+        bundle.ta_wx = rnd(256, scale=1 / 16).to(dtype)
+        bundle.ta_b = rnd(1, scale=0.1)
+    h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
+    fd.reset_launch_counts()
+    if kind == "ls":
+        cum = ramp_alignment(mask, seed=t)
+        args = (h_att, cum, mem_q, mtb_q, mask_add, bundle)
+        got, again = fd.lsa_attention(*args), fd.lsa_attention(*args)
+        ref = fd.lsa_attention_plain(*args)
+        got, again, ref = ((o[0], o[1] - cum) for o in (got, again, ref))
+        name = "lsa_attention"
+    else:
+        prev = torch.softmax(rnd(b, t), -1)
+        tp = (rnd(b, 1).sigmoid() if kind == "forward_transition_agent"
+              else None)
+        args = (h_att, prev, tp, mem_q, mtb_q, mask_add, x, bundle)
+        got, again = fd.fwd_attention(*args), fd.fwd_attention(*args)
+        ref = fd.fwd_attention_plain(*args)
+        name = "fwd_attention"
+    inst = fd.instance(name, dtype, True)
+    assert fd.LAUNCHES[inst] == 2, fd.LAUNCHES
+    assert all(g is a or torch.equal(g, a) for g, a in zip(got, again))
+    if dtype == torch.float32:
+        for g, r in zip(got, ref):
+            if r is not None:
+                _f32_close(g, r)
+        return
+    torch.testing.assert_close(got[0], ref[0], atol=CTX_TOL, rtol=CTX_TOL)
+    assert float(((got[1] - ref[1]).abs().amax(1)
+                  / ref[1].amax(1)).max()) < W_TOL
+    if kind == "forward_transition_agent":
+        torch.testing.assert_close(got[2], ref[2], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("t", [120, 128])
+@pytest.mark.parametrize("kind", ["forward", "forward_transition_agent"])
+def test_f32_fwd_attention_matches_plain(kind, t):
+    """``fwd_attention``'s float32 instance at the flagship's widths, B=240,
+    also at T=120 (the kernel pads T to 128): context, weights and t_prob
+    within F32_TOL of their largest, every row a floored distribution."""
+    b = 240
+    hp, bundle = _f32_bundle(kind, True)
+    rnd, memory, mtb, mask, _ = _attention_operands(b, t, seed=t)
+    memory, mtb = memory.float(), mtb.float()
+    prev, tp = _fwd_state(b, t, mask, seed=t)
+    tp = tp if kind != "forward" else None
+    h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
+    mask_add = torch.where(mask, 0.0, -1e9)
+    fd.reset_launch_counts()
+    got = fd.fwd_attention(h_att, prev, tp, memory, mtb, mask_add, x, bundle)
+    assert fd.LAUNCHES["fwd_attention_f32"] == 1
+    ref = fd.fwd_attention_plain(h_att, prev, tp, memory, mtb, mask_add, x,
+                                 bundle)
+    for g, r in zip(got, ref):
+        if r is not None:
+            _f32_close(g, r)
+    torch.testing.assert_close(got[1].sum(-1), torch.ones_like(got[1][:, 0]))
+    assert float(got[1].min()) > 0.0
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_f32_synthesis_on_card_matches_cpu(int8):
+    """A small float32 ``Synthesizer`` (W8A8 or exact gates) through the
+    float32 instances on the card against the plain path on the CPU, with
+    cuDNN left at PyTorch's default (TF32 allowed: the port keeps its
+    float32 encode in float32 itself): every spectrogram within a relative
+    1e-3 (exact gates) or 1e-2 (W8A8: a row that requantizes one level
+    apart grows over the steps); launches of the float32 instances only."""
+    hp = _hp(int8)
+    hp.compute_dtype = "float32"
+    sd = init_random_weights(Tacotron(hp), 1).state_dict()
+    sd["decoder.cell.stop_prediction.bias"].fill_(-10.0)
+    lines = ["1|hallo welt|a|de", "2|salut|b|fr", "3|mix|c|de*0.5:ru*0.5"]
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        fd.reset_launch_counts()
+        got = Synthesizer(hp, sd, device="cuda").synthesize_batch_lines(lines)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    path = fd.path_kernels("ls", torch.float32)
+    assert all(fd.LAUNCHES[k] > 0 for k in path), fd.LAUNCHES
+    assert not any(v for k, v in fd.LAUNCHES.items() if k not in path)
+    ref = Synthesizer(hp, sd, device="cpu").synthesize_batch_lines(lines)
+    bound = 1e-2 if int8 else 1e-3
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        err = float(torch.as_tensor(g - r).norm() / torch.as_tensor(r).norm())
+        assert err < bound, err
 
 
 # ---------------------------------------------------------------------------

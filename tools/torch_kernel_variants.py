@@ -2,7 +2,7 @@
 """Run ``chip_smoke.py``'s checks, or time one kernel, on changed copies of
 the PyTorch port's CUDA sources, on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py faults
+    python3 tools/torch_kernel_variants.py faults [NAME ...]
     python3 tools/torch_kernel_variants.py checks train_attention_taps
     python3 tools/torch_kernel_variants.py time lsa_l2_prefetch att_bwd_l2_prefetch
     python3 tools/torch_kernel_variants.py time train_attention_taps
@@ -27,9 +27,16 @@ partial sum instead of the reduced one, or, in the forward-attention
 family's kernels, the 1e-6 floor given to K1's own padding of the text
 length, K3's recurrence replayed with the step's own t_prob instead of
 the previous step's, or K3's state cotangent added to instead of assigned
-(each under its attention kind's phase), and runs the checks of that kernel's
-``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_train_kernels``
-for K2 and K3) with
+(each under its attention kind's phase), or, in K1's float32 and
+int8-stream instances, the float32 product (``simt_tile32``: the exact
+gates, the head) run on bf16-rounded operands, the W8A8 row rounded to
+bf16 before a float32 decoder quantizes it, or the last bytes of each
+int8 memory row that is not a multiple of 16 bytes (292, 548) left out of
+the context, and runs the checks of that kernel's
+``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
+for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
+at the 292- and the shared strategy's 548-wide memory) instances,
+``phase_train_kernels`` for K2 and K3) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
 every check's reading prints.  The run fails unless every fault fails at
 least one check.
@@ -154,6 +161,24 @@ VARIANTS = {
         "fused_train_decoder.cu",
         "dcum[rowT + t] = KIND == ATT_FWD_TRANS",
         "dcum[rowT + t] += KIND == ATT_FWD_TRANS", "K3:forward"),
+    # K1's float32 and int8-stream instances: the float32 product on bf16
+    # operands; the W8A8 row rounded to bf16 before a float32 decoder
+    # quantizes it; an int8 memory row's last M % 16 bytes left out of the
+    # context sum
+    "f32_product_bf16_operands": (
+        "tile.cuh",
+        "      av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * lda + k);",
+        "    {\n      const float4 u = *reinterpret_cast<const float4*>("
+        "ar + 8 * i * lda + k);\n"
+        "      av[i] = make_float4(round_bf16(u.x), round_bf16(u.y), "
+        "round_bf16(u.z), round_bf16(u.w));\n    }", "K1f32"),
+    "w8a8_row_rounded_bf16": (
+        "fused_decoder.cu", "    return round_to<CT>(v);",
+        "    return round_bf16(v);", "K1f32"),
+    "int8_row_tail_skipped": (
+        "tile.cuh", "        const float wt = r < rows ? w[r] : 0.0f;",
+        "        const bool tail = V == 16 && (V * c + j) % M >= M / V * V;\n"
+        "        const float wt = r < rows && !tail ? w[r] : 0.0f;", "K1q8"),
     "cell_c_mask_h_salt": (
         "fused_train_decoder.cu",
         "reg.salt_c) < reg.th_c;",
@@ -179,7 +204,7 @@ VARIANTS = {
     # memory transform; att_bwd: its tile's memory transform and dmt)
     "lsa_l2_prefetch": (
         "fused_decoder.cu",
-        "  const int k_lo = rank * L.kq, a_chunks = A / 8;\n",
+        "  const int k_lo = rank * L.kq, a_chunks = A / VC;\n",
         "  if (live) {\n"
         "    for (size_t off = tid * 128; off < (size_t)T * M * 2; off += "
         "LSA_THREADS * 128)\n"
@@ -190,7 +215,7 @@ VARIANTS = {
         "      asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
         "(const char*)mtb_b + off));\n"
         "  }\n"
-        "  const int k_lo = rank * L.kq, a_chunks = A / 8;\n", "time K1"),
+        "  const int k_lo = rank * L.kq, a_chunks = A / VC;\n", "time K1"),
     "att_bwd_l2_prefetch": (
         "fused_train_decoder.cu",
         "  for (int a = tid; a < A; a += AB_THREADS) {\n",
@@ -231,6 +256,22 @@ if attention:
 if phase == "K1":
     torch.set_grad_enabled(False)
     cs.phase_kernels(hp, sd)
+elif phase in ("K1f32", "K1q8"):
+    # K1's float32 (W8A8 and exact gates) or int8-stream (bf16 and float32)
+    # instances at the flagship's widths; the streams also at the shared
+    # strategy's 548-wide memory
+    from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+    torch.set_grad_enabled(False)
+    groups = ([(cs.F32, [(True, False), (False, False)])]
+              if phase == "K1f32" else
+              [(cs.Q8, [(True, True)]), (cs.F32_Q8, [(True, True)])])
+    for cfg, variants in groups:
+        h = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, **cfg)
+        cs.phase_variant_kernels(Synthesizer(h, sd, device="cuda"), h,
+                                 variants)
+    if phase == "K1q8":
+        hs = cs.switching("shared", cs.SWITCHING_FRAMES, cs.CHUNK)
+        cs.phase_shared_streams(cs.seeded_state_dict(hs))
 else:
     cs.phase_train_kernels(
         hp, sd, only=cs.FAMILY_TRAIN_KERNELS if attention else None)
@@ -356,11 +397,13 @@ def _kind(name: str) -> str:
     return VARIANTS[name][-1]
 
 
-def faults() -> dict:
+def faults(names=()) -> dict:
+    """Every planted fault, or those of ``names``."""
     out, caught = {}, True
     for name in VARIANTS:
         phase = _kind(name)
-        if phase.startswith(("time", "design")):
+        if phase.startswith(("time", "design")) or (names and
+                                                     name not in names):
             continue
         print(f"[faults] {name} ({phase})")
         res = run(make_copy(name), _CHECKS, phase=phase)
@@ -408,7 +451,8 @@ def time_variants(names) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("faults", "checks", "time"))
-    ap.add_argument("names", nargs="*", help="the variants to check or "
+    ap.add_argument("names", nargs="*", help="the faults to plant (all "
+                    "when none is named), or the variants to check or "
                     "time: " + ", ".join(
                         k for k in VARIANTS
                         if _kind(k).startswith(("time", "design"))))
@@ -418,7 +462,7 @@ def main() -> int:
                          text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout else "unknown"
     print(f"[variants] {card}")
-    run_mode = {"faults": lambda: faults(),
+    run_mode = {"faults": lambda: faults(args.names),
                 "checks": lambda: checks(args.names),
                 "time": lambda: time_variants(args.names)}[args.what]
     result = {"card": card, args.what: run_mode()}
