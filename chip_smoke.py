@@ -100,6 +100,23 @@ Phases, each of which fails the run on a failed check:
    their device times.  Every phase prints its own peak device memory
    (``[memory]``).
 
+11. float32 compute in training (``phase_train_f32_and_long``, lines
+   tagged ``f32``): every K2/K3 float32 instance against its float32 plain
+   version within 1e-5 of each output's largest value, masks and the fused
+   cells' choices bit-exact, two runs bit-identical, 16 chained steps and
+   ``TrainDecode`` against autograd; four flagship float32 ``train_step``s
+   at B=50, T=128, F=512 after a warm-up, with their launch counts (only
+   ``_f32`` instances) and a step split by CUDA events; a float32 step at
+   B=10 on the card against the CPU within 1e-4 on the losses and every
+   parameter's gradient, and the same with ``device.exact_float32`` taken
+   out and cuDNN at its TF32 default (printed, not gated); the float32 eval
+   forward; the instances' device times; then the forward family in
+   float32 at 128 frames (``f32:fwd``, ``f32:fwd_trans``);
+12. ``[train:long]``: texts of 600, 1000 and 1500 symbols, each attention
+   kind and compute type: K2's ``train_attention``, K3's ``att_bwd`` and
+   K1's attention kernel against their plain versions, their device times,
+   and a bf16 train step at T=600 on the card against the CPU.
+
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
@@ -129,6 +146,8 @@ FAMILY = {"forward": "fwd", "forward_transition_agent": "fwd_trans"}
 FAMILY_FRAMES = 256
 FAMILY_TRAIN_KERNELS = ("train_attention_fwd", "att_bwd_fwd")
 TRAIN_B, TRAIN_T, TRAIN_F, CHECK_STEPS = 50, 128, 512, 16
+# the forward family's float32 training steps: a smaller depth
+F32_FAMILY_FRAMES = 128
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
 # float32: FFMA on the CUDA cores, the route of K1's float32 instances
@@ -183,15 +202,26 @@ TRAIN_KERNEL_TOL = {
     "train_attention_fwd": {"f32": 1e-6, "bf16": ULP},
     "att_bwd_fwd": {"f32": 5e-3, "bf16": ULP},
 }
+# the training kernels' float32 instances, on identical inputs: every output
+# within F32_TOL of its largest value (train_kernel_bound)
 # 16 chained steps, kernels vs plain drivers: relative error (norms) of each
 # stream, gradient, accumulator and carry (measured up to 4.0e-3)
 TRAIN_CHAIN_TOL = 2e-2
+# the same in float32, by attention kind: every product float32 on both
+# sides, sums in another order (location-sensitive: measured 8.3e-7 on an
+# H100); the forward family's floor compares each masked weight with 1e-6,
+# and where one sits at 1e-6 within float32 noise the two sides take the
+# floor's other branch for its gradient (measured 7.3e-4, dq over 16 steps)
+TRAIN_F32_CHAIN_TOL = {"ls": 1e-4, "family": 3e-3}
 # 16 steps of TrainDecode (K2 forward, K3 backward) against torch.autograd
 # through the plain K2 in differentiable ops, same card inputs: relative
 # error (norms) of the outputs and of each input's gradient.  Autograd
 # rounds each gradient to bf16 where the forward cast to it, K3 where it
 # stores its streams (measured up to 2.4e-2, the prenet bias)
 TRAIN_AUTOGRAD_TOL = 6e-2
+# the same in float32: float32 sums in another order, nothing rounded
+# (location-sensitive: measured 1.1e-6); the family's floor as above
+TRAIN_F32_AUTOGRAD_TOL = {"ls": 1e-4, "family": 3e-3}
 # the B=10 step on the card against the CPU plain path, both bf16, teacher
 # forcing 1.0: the encoder's convolutions and the products outside the
 # kernels run in other libraries on each device, and the bf16 roundings of
@@ -205,6 +235,23 @@ TRAIN_AUTOGRAD_TOL = 6e-2
 TRAIN_E2E_TOL = 0.2
 TRAIN_E2E_PARAM_TOL = 0.2
 TRAIN_E2E_ENCODER_TOL = 0.5
+# the same step in float32 (train_step, which runs cuDNN without TF32):
+# the losses and every parameter's gradient, relative
+TRAIN_F32_E2E_TOL = 1e-4
+
+
+def kind_group(cfg) -> str:
+    """"ls" or "family": the float32 chain bounds' key."""
+    return "family" if cfg.family else "ls"
+
+
+def train_kernel_bound(name: str, dtype):
+    """The kernel-vs-plain bound of a K2/K3 kernel's outputs by their type
+    (``TRAIN_KERNEL_TOL``); every output of a float32 instance F32_TOL."""
+    import torch
+
+    return TRAIN_KERNEL_TOL[name] if dtype == torch.bfloat16 else {
+        "f32": F32_TOL}
 
 
 def fail(msg: str) -> None:
@@ -1306,12 +1353,23 @@ def train_batch(hp, b: int, t: int, f: int, seed: int):
                  np.arange(b) % hp.language_number)
 
 
-def train_model(hp, sd, device="cuda", dropout=True):
+def compute_type(hp):
+    """The torch dtype of ``hp.compute_dtype``."""
     import torch
 
+    return torch.float32 if hp.compute_dtype == "float32" else torch.bfloat16
+
+
+def dtype_label(d) -> str:
+    import torch
+
+    return "float32" if d == torch.float32 else "bf16"
+
+
+def train_model(hp, sd, device="cuda", dropout=True):
     from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
 
-    model = Tacotron(hp, torch.bfloat16)
+    model = Tacotron(hp, compute_type(hp))
     model.load_state_dict(sd)
     if not dropout:
         for m in model.modules():
@@ -1330,29 +1388,27 @@ def decoder_inputs(hp, model, batch, f: int):
         fused_train_decoder as ftd,
     )
 
-    dev = "cuda"
+    dev, d = "cuda", model.dtype
     text = torch.as_tensor(batch.utterances, device=dev)
     lengths = torch.as_tensor(batch.utterance_lengths, device=dev)
     t = text.shape[1]
     with torch.no_grad():
         emb = model.embedding(text) * (text != 0)[..., None]
-        enc = model.encoder(emb.to(torch.bfloat16), lengths).float()
+        enc = model.encoder(emb.to(d), lengths).float()
         langs = torch.as_tensor(batch.languages, device=dev)[:, None].expand(
             -1, t)
         memory, mt = model.decoder.prepare_memory(
             enc, torch.as_tensor(batch.speakers, device=dev), langs)
-        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
-                                      torch.bfloat16)
+        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim, d)
         ops = ftd.compute_operands(
             ftd.train_operands(model.decoder.cell, cfg), cfg)
-        mtb = (mt.float() + model.decoder.cell.attention.energy_bias).to(
-            torch.bfloat16)
+        mtb = (mt.float() + model.decoder.cell.attention.energy_bias).to(d)
     valid = torch.arange(t, device=dev)[None] < lengths[:, None]
     mask_add = torch.where(valid, 0.0, -1e9).float()
     mels = torch.as_tensor(batch.mel_spectrograms[:, :f], device=dev)
     shifted = torch.cat([torch.zeros_like(mels[:, :1]), mels[:, :-1]], 1)
     return (cfg, ops, memory.contiguous(), mtb.contiguous(), mask_add,
-            shifted.transpose(0, 1).to(torch.bfloat16).contiguous())
+            shifted.transpose(0, 1).to(d).contiguous())
 
 
 def mask_patterns(k, cfg, ops, st, shifted, seeds, step):
@@ -1364,10 +1420,10 @@ def mask_patterns(k, cfg, ops, st, shifted, seeds, step):
     import torch
 
     b = shifted.shape[1]
-    dev, bf = shifted.device, torch.bfloat16
+    dev, d = shifted.device, cfg.dtype
 
     def e(*shape):
-        return torch.zeros(*shape, dtype=bf, device=dev)
+        return torch.zeros(*shape, dtype=d, device=dev)
 
     pre = e(cfg.n_prenet, b, cfg.prenet_dim)
     k.train_prenet(shifted[step], st["spec"][step - 1], 1,
@@ -1396,13 +1452,13 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
     b, t_len = memory.shape[:2]
     h, p, m, mem, a = (cfg.hidden, cfg.prenet_dim, cfg.mmel, cfg.mem_dim,
                        cfg.att_dim)
-    dev, bf, f32 = memory.device, torch.bfloat16, torch.float32
+    dev, ct, f32 = memory.device, cfg.dtype, torch.float32
     gen = torch.Generator(device=dev).manual_seed(17)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
-    def e(*shape, dtype=bf):
+    def e(*shape, dtype=ct):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
     frame = st["spec"][s - 1].contiguous()
@@ -1413,8 +1469,8 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
     cum = st["cum"][s].float()
     dframe, dh_gen, dctx = rnd(b, m), rnd(b, h, scale=0.1), rnd(b, mem)
     dh, dc = rnd(b, h, scale=0.1), rnd(b, h, scale=0.1)
-    dg = {w: (rnd(b, 4 * h, scale=0.01)).to(bf) for w in ("att", "gen")}
-    dq = rnd(b, a, scale=0.1).to(bf)
+    dg = {w: (rnd(b, 4 * h, scale=0.01)).to(ct) for w in ("att", "gen")}
+    dq = rnd(b, a, scale=0.1).to(ct)
     dcum, dx = rnd(b, t_len, scale=0.1), rnd(b, p, scale=0.1)
     dtp = rnd(b, scale=0.5)
     dspec, dstop, dw = (x[s] for x in cts)
@@ -1446,12 +1502,13 @@ def train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add, shifted, st,
         dsts = (e(b, mem), e(b, mem), None)
         agent, extra = None, []
         if cfg.agent:
-            # the step's own h_att and prenet output (their bf16 streams)
+            # the step's own h_att and prenet output (their streams)
             extra = [st["tp"][s - 1].clone(), e(b, dtype=f32)]
-            agent = ftd.AgentArgs(extra[0], extra[1],
-                                  st["gen_in"][s][:, :h].float(),
-                                  st["pre"][cfg.n_prenet - 1][s].float(),
-                                  ops["ta_w"], ops["ta_b"])
+            agent = ftd.AgentArgs(
+                extra[0], extra[1],
+                st["gen_in"][s][:, :h].float().contiguous(),
+                st["pre"][cfg.n_prenet - 1][s].float().contiguous(),
+                ops["ta_w"], ops["ta_b"])
         k.train_attention(q, cc, memory, mtb, mask_add, ops.get("lc"),
                           ops["v"], *o, ctx, dsts, agent=agent)
         return [cc, ctx, *o, dsts[0], *extra]
@@ -1582,7 +1639,7 @@ def bwd_prenet_reference(ftd, ops, cfg, teacher: int, got, ref):
 def phase_train_kernels(hp, sd, only=None):
     """K2 and K3 kernels (of ``only``, when given, alone; the chained
     steps and the autograd check run every kernel) against their plain
-    versions at B=50, T=128, bf16.  Returns ({kernel: max_abs_err}, the
+    versions at B=50, T=128, in ``hp.compute_dtype``.  Returns ({kernel: max_abs_err}, the
     inputs the timings reuse).  Only the autograd check records a graph:
     the plain versions' in-place writes into their streams, recorded,
     would tie every step's float32 weight copies into a graph that
@@ -1616,6 +1673,7 @@ def _train_kernel_checks(hp, sd, only):
     st_p, carry_p = ftd.train_decode_forward(*args, plain=True)
     torch.cuda.synchronize()
 
+    tag = "" if cfg.dtype == torch.bfloat16 else " float32:"
     for step in (3, CHECK_STEPS - 1):
         got = mask_patterns(ftd.KERNELS, cfg, ops, st_p, shifted, seeds, step)
         ref = mask_patterns(ftd.PLAIN, cfg, ops, st_p, shifted, seeds, step)
@@ -1625,9 +1683,9 @@ def _train_kernel_checks(hp, sd, only):
                 fail(f"{name} choices at step {step} differ in "
                      f"{int((g != r).sum())} places")
     n_masks = sum(int(x.sum()) for x in got)
-    say(f"[train:kernels] dropout and zoneout choices bit-exact at steps 3 "
-          f"and {CHECK_STEPS - 1} ({n_masks} dropped or kept-old units in "
-          f"the last)")
+    say(f"[train:kernels]{tag} dropout and zoneout choices bit-exact at steps "
+        f"3 and {CHECK_STEPS - 1} ({n_masks} dropped or kept-old units in "
+        f"the last)")
 
     gen_c = torch.Generator(device="cuda").manual_seed(SEED + 7)
     cts = [torch.randn(x.shape, device="cuda", generator=gen_c)
@@ -1640,7 +1698,7 @@ def _train_kernel_checks(hp, sd, only):
     errs = {}
     for name, run in calls.items():
         got, ref = run(ftd.KERNELS), run(ftd.PLAIN)
-        if name == "bwd_prenet":
+        if name == "bwd_prenet" and cfg.dtype == torch.bfloat16:
             ref = bwd_prenet_reference(ftd, ops, cfg,
                                        teacher[CHECK_STEPS // 2], got, ref)
         torch.cuda.synchronize()
@@ -1653,13 +1711,14 @@ def _train_kernel_checks(hp, sd, only):
             kind = "bf16" if r.dtype == torch.bfloat16 else "f32"
             worst[kind] = max(worst.get(kind, 0.0), max_err(g, r) / (
                 float(r.detach().float().abs().max()) + 1e-30))
-        bound = TRAIN_KERNEL_TOL[name]
+        bound = train_kernel_bound(name, cfg.dtype)
+        inst = ftd.instance(name, cfg.dtype)
         if set(worst) != set(bound) or any(worst[k] > bound[k]
                                            for k in worst):
-            fail(f"{name}: kernel vs plain off by {worst} of the largest "
+            fail(f"{inst}: kernel vs plain off by {worst} of the largest "
                  f"output (bounds {bound})")
         errs[name] = max(max_err(g, r) for g, r in zip(got, ref))
-        say(f"[train:kernels] {name}: max abs err {errs[name]:.3g}; of the "
+        say(f"[train:kernels] {inst}: max abs err {errs[name]:.3g}; of the "
               f"largest output: " + ", ".join(
                   f"{k} outputs {worst[k]:.3g} (bound {bound[k]})"
                   for k in sorted(worst)))
@@ -1674,9 +1733,10 @@ def _train_kernel_checks(hp, sd, only):
             continue
         first, again = (calls[name](ftd.KERNELS) for _ in range(2))
         torch.cuda.synchronize()
+        inst = ftd.instance(name, cfg.dtype)
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
-            fail(f"{name}: two runs on the same inputs differ")
-        say(f"[train:kernels] {name}: two runs on the same inputs "
+            fail(f"{inst}: two runs on the same inputs differ")
+        say(f"[train:kernels] {inst}: two runs on the same inputs "
               f"bit-identical")
 
     worst = {}
@@ -1704,12 +1764,15 @@ def _train_kernel_checks(hp, sd, only):
                 fail(f"backward {group} {k}: non-finite values")
             worst[f"backward {group} {k}"] = rel(gk[k], gp[k])
     name, top = max(worst.items(), key=lambda kv: kv[1])
-    if top > TRAIN_CHAIN_TOL:
+    chain_tol = (TRAIN_CHAIN_TOL if cfg.dtype == torch.bfloat16
+                 else TRAIN_F32_CHAIN_TOL[kind_group(cfg)])
+    if top > chain_tol:
         fail(f"{CHECK_STEPS} chained steps: {name} off by relative {top}")
     say(f"[train:kernels] {CHECK_STEPS} chained steps at B={TRAIN_B} "
-          f"T={TRAIN_T}, forward and backward, kernels vs plain: relative "
-          f"error of {len(worst)} streams, gradients, accumulators and "
-          f"carries at most {top:.3g} ({name}; bound {TRAIN_CHAIN_TOL})")
+        f"T={TRAIN_T} {dtype_label(cfg.dtype)}, forward and backward, "
+        f"kernels vs plain: relative error of {len(worst)} streams, "
+        f"gradients, accumulators and carries at most {top:.3g} ({name}; "
+        f"bound {chain_tol})")
     with torch.enable_grad():
         check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
                              teacher, seeds, cts)
@@ -1742,7 +1805,9 @@ def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
     through the plain K2 in differentiable ops, from the same float32
     leaves on the card, under the loss ``sum(outputs * cts)``.  Relative
     error (norms) of spec, stop, w and of the gradient of memory, the memory
-    transform, the shifted targets and every decoder operand."""
+    transform, the shifted targets and every decoder operand; the
+    ``TrainDecode`` run launches exactly the path's K2/K3 instances of its
+    compute type (``TrainConfig.kernels``)."""
     import torch
 
     leaves = {k: v.detach().float().clone().requires_grad_()
@@ -1758,9 +1823,15 @@ def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
         return ([o.detach() for o in outs],
                 torch.autograd.grad(loss, inputs))
 
+    ftd.reset_launch_counts()
     out_k, g_k = run(ftd.TrainDecode.apply(
         cfg, tuple(teacher), tuple(seeds), mem, mt, mask_add, sh,
         *[leaves[k] for k in keys]))
+    k2, k3 = cfg.kernels
+    launched = {k for k, v in ftd.LAUNCHES.items() if v}
+    if launched != set(k2 + k3):
+        fail(f"TrainDecode launched {sorted(launched)}, not the instances "
+             f"{sorted(k2 + k3)}")
     d = cfg.dtype
     out_p, g_p = run(ftd.train_decode_forward_plain(
         ftd.compute_operands(leaves, cfg), cfg, mem.to(d), mt.to(d),
@@ -1773,23 +1844,27 @@ def check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
             fail(f"TrainDecode gradient of {k}: non-finite values")
         worst[f"grad {k}"] = rel(a, b)
     name, top = max(worst.items(), key=lambda kv: kv[1])
-    if top > TRAIN_AUTOGRAD_TOL:
+    bound = (TRAIN_AUTOGRAD_TOL if cfg.dtype == torch.bfloat16
+             else TRAIN_F32_AUTOGRAD_TOL[kind_group(cfg)])
+    if top > bound:
         fail(f"TrainDecode vs autograd through the plain K2: {name} off by "
              f"relative {top}")
     say(f"[train:kernels] {shifted.shape[0]} steps through TrainDecode "
-          f"(K2/K3) vs torch.autograd through the plain K2, same card inputs: "
-          f"relative error at most {top:.3g} ({name}; bound "
-          f"{TRAIN_AUTOGRAD_TOL}); " + ", ".join(
+        f"(K2/K3, {dtype_label(cfg.dtype)}) vs torch.autograd through the "
+        f"plain K2, same card inputs: relative error at most {top:.3g} "
+        f"({name}; bound {bound}); " + ", ".join(
               f"{k} {v:.3g}" for k, v in worst.items()))
 
 
-def phase_train_main(hp, sd, timed: int = 3):
-    """``train_step`` at B=50, T=128, F=512: a warm-up step, ``timed`` steps
-    at teacher forcing 1.0 and one at 0.5, with the launch counts reset
-    just before and read just after; then one step split by CUDA events."""
+def phase_train_main(hp, sd, timed: int = 3, frames: int = TRAIN_F):
+    """``train_step`` at B=50, T=128, F=``frames`` (512 unless a phase cuts
+    the depth) in ``hp.compute_dtype``: a warm-up step, ``timed`` steps at
+    teacher forcing 1.0 and one at 0.5, with the launch counts reset just
+    before and read just after; then one step split by CUDA events."""
     import numpy as np
     import torch
 
+    from multilingual_text_to_speech_tpu_torch.device import exact_float32
     from multilingual_text_to_speech_tpu_torch.models.tacotron import (
         TacotronLossState,
         tacotron_loss,
@@ -1801,10 +1876,10 @@ def phase_train_main(hp, sd, timed: int = 3):
 
     model = train_model(hp, sd)
     opt, sched = trainer.make_optimizer(model, hp)
-    batch = train_batch(hp, TRAIN_B, TRAIN_T, TRAIN_F, SEED + 8)
+    batch = train_batch(hp, TRAIN_B, TRAIN_T, frames, SEED + 8)
     gen = torch.Generator().manual_seed(SEED + 9)
     state = TacotronLossState.init(hp)
-    full = [1] * TRAIN_F
+    full = [1] * frames
     res = trainer.train_step(model, opt, sched, batch, state, gen,
                              teacher=full)                      # warm-up
     torch.cuda.synchronize()
@@ -1816,7 +1891,7 @@ def phase_train_main(hp, sd, timed: int = 3):
     times, results = [], []
     for i in range(timed + 1):
         teacher = full if i < timed else [
-            int(x) for x in (torch.rand(TRAIN_F, generator=gen) < 0.5)]
+            int(x) for x in (torch.rand(frames, generator=gen) < 0.5)]
         t0 = time.perf_counter()
         res = trainer.train_step(model, opt, sched, batch, state, gen,
                                  teacher=teacher)
@@ -1827,8 +1902,8 @@ def phase_train_main(hp, sd, timed: int = 3):
     launches = dict(ftd.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    k2, k3 = ftd.path_kernels(ftd.TrainConfig.from_hp(
-        hp, model.decoder.memory_dim, torch.bfloat16).att_kind)
+    k2, k3 = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
+                                     model.dtype).kernels
     missing = [k for k in k2 + k3 if launches[k] == 0]
     stray = [k for k in launches if k not in k2 + k3 and launches[k]]
     if missing or stray:
@@ -1844,8 +1919,9 @@ def phase_train_main(hp, sd, timed: int = 3):
     if unchanged:
         fail(f"parameters with a gradient that did not change: {unchanged}")
     step_s = float(np.mean(times[:timed]))
-    audio = TRAIN_B * TRAIN_F / 80.0
-    say(f"[train:main] train_step B={TRAIN_B} T={TRAIN_T} F={TRAIN_F} bf16 "
+    audio = TRAIN_B * frames / 80.0
+    say(f"[train:main] train_step B={TRAIN_B} T={TRAIN_T} F={frames} "
+        f"{dtype_label(model.dtype)} "
         f"(encoder {hp.encoder_type}, memory width "
         f"{model.decoder.memory_dim}): steps at teacher forcing 1.0 "
         + ", ".join(f"{t:.4f}" for t in times[:timed])
@@ -1866,17 +1942,20 @@ def phase_train_main(hp, sd, timed: int = 3):
         torch.as_tensor(x, device="cuda") for x in (
             batch.utterances, batch.utterance_lengths, batch.mel_spectrograms,
             batch.spectrogram_lengths, batch.speakers, batch.languages))
-    ev[0].record()
-    out = model(text, lengths, mels, flen, spk, langs, full, (3, 4))
-    total, _ = tacotron_loss(
-        out, hp=hp, input_lengths=lengths, target_lengths=flen,
-        pre_target=mels, post_target=mels,
-        stop_target=torch.as_tensor(batch.stop_tokens, device="cuda"),
-        speakers=spk, guided_att_variance=state.guided_att_variance)
-    ev[1].record()
-    opt.zero_grad(set_to_none=True)
-    total.backward()
-    ev[2].record()
+    # as train_step runs it: a float32 model's cuDNN calls in float32
+    with (exact_float32() if model.dtype == torch.float32
+          else contextlib.nullcontext()):
+        ev[0].record()
+        out = model(text, lengths, mels, flen, spk, langs, full, (3, 4))
+        total, _ = tacotron_loss(
+            out, hp=hp, input_lengths=lengths, target_lengths=flen,
+            pre_target=mels, post_target=mels,
+            stop_target=torch.as_tensor(batch.stop_tokens, device="cuda"),
+            speakers=spk, guided_att_variance=state.guided_att_variance)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        ev[2].record()
     trainer.clip_grad_global_norm_(list(model.parameters()),
                                    hp.gradient_clipping)
     opt.step()
@@ -1890,19 +1969,24 @@ def phase_train_main(hp, sd, timed: int = 3):
     return launches, per_step, step_s, (model, opt, sched, batch, state)
 
 
-def phase_train_vs_cpu(hp, sd) -> None:
-    """A small step on the card against the same step on the CPU plain
-    path: the same weights, batch, flags and seeds, dropout off."""
+def phase_train_vs_cpu(hp, sd, t_len: int = 32) -> None:
+    """A small step (B=10, T=``t_len``, F=32) on the card against the same step
+    on the CPU plain path: the same weights, batch, flags and seeds,
+    dropout off; every K2/K3 kernel of the path launched on the card."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.models.tacotron import (
         tacotron_loss,
     )
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
 
-    small = train_batch(hp, 10, 32, 32, SEED + 10)
+    small = train_batch(hp, 10, t_len, 32, SEED + 10)
     teacher = [1] * 32
     got = {}
     for dev in ("cuda", "cpu"):
+        ftd.reset_launch_counts()
         m = train_model(hp, sd, dev, dropout=False)
         t = {k: torch.as_tensor(getattr(small, k), device=dev) for k in (
             "utterances", "utterance_lengths", "mel_spectrograms",
@@ -1920,6 +2004,13 @@ def phase_train_vs_cpu(hp, sd) -> None:
         got[dev] = ({k: float(v) for k, v in losses.items()},
                     {n: p.grad.detach().float().cpu()
                      for n, p in m.named_parameters() if p.grad is not None})
+        if dev == "cuda":
+            k2, k3 = ftd.TrainConfig.from_hp(hp, m.decoder.memory_dim,
+                                             m.dtype).kernels
+            missing = [k for k in k2 + k3 if ftd.LAUNCHES[k] == 0]
+            if missing:
+                fail(f"train step at T={t_len} on the card: kernels never "
+                     f"launched {missing}")
     (lk, gk), (lp, gp) = got["cuda"], got["cpu"]
     if set(gk) != set(gp):
         fail("card and CPU steps differ in which parameters get gradients")
@@ -1946,10 +2037,82 @@ def phase_train_vs_cpu(hp, sd) -> None:
             ("encoder gradients",
              [k for k in checks if k.startswith("grad encoder.")])):
         worst = max(keys, key=lambda k: checks[k][0])
-        say(f"[train:main] B=10 T=32 F=32 step, card vs CPU plain path "
-              f"(bf16, dropout off), {label} ({len(keys)}): relative error at "
-              f"most {checks[worst][0]:.3g} ({worst}; bound "
-              f"{checks[worst][1]})")
+        say(f"[train:main] B=10 T={t_len} F=32 step, card vs CPU plain path "
+            f"(bf16, dropout off), {label} ({len(keys)}): relative error at "
+            f"most {checks[worst][0]:.3g} ({worst}; bound "
+            f"{checks[worst][1]})")
+
+
+@contextlib.contextmanager
+def unguarded():
+    """The port's float32 guard of its cuDNN calls taken out (the model's
+    forward and ``train_step`` run without ``device.exact_float32``)."""
+    from multilingual_text_to_speech_tpu_torch.models import tacotron
+    from multilingual_text_to_speech_tpu_torch.training import trainer
+
+    saved = tacotron.exact_float32, trainer.exact_float32
+    tacotron.exact_float32 = trainer.exact_float32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        tacotron.exact_float32, trainer.exact_float32 = saved
+
+
+def phase_train_f32_vs_cpu(hp, sd) -> None:
+    """A float32 ``train_step`` at B=10, T=32, F=32 on the card against the
+    same step on the CPU plain path (the same weights, batch, flags and
+    seeds, dropout off): every loss term and every parameter's gradient
+    (as the step leaves it, clipped by the same global norm on both sides)
+    within TRAIN_F32_E2E_TOL, relative.  Then the same step on the card
+    with the port's guard of its cuDNN calls taken out and cuDNN at
+    PyTorch's TF32 default: its reading is printed, not gated (what the
+    guard keeps out)."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+        TacotronLossState,
+    )
+    from multilingual_text_to_speech_tpu_torch.training import trainer
+
+    small = train_batch(hp, 10, 32, 32, SEED + 10)
+
+    def step(dev):
+        m = train_model(hp, sd, dev, dropout=False)
+        opt, sched = trainer.make_optimizer(m, hp)
+        res = trainer.train_step(m, opt, sched, small,
+                                 TacotronLossState.init(hp),
+                                 torch.Generator(), teacher=[1] * 32,
+                                 seeds=(77, 88), device=dev)
+        return ({k: float(v) for k, v in res.losses.items()},
+                {n: p.grad.detach().float().cpu()
+                 for n, p in m.named_parameters() if p.grad is not None})
+
+    lp, gp = step("cpu")
+
+    def errors(got):
+        lk, gk = got
+        if set(gk) != set(gp):
+            fail("card and CPU steps differ in which parameters get "
+                 "gradients")
+        errs = {f"loss {k}": abs(lk[k] - lp[k]) / (abs(lp[k]) + 1e-12)
+                for k in lp}
+        errs.update({f"grad {n}": rel(gk[n], gp[n]) for n in gp
+                     if float(gp[n].norm()) > 0})
+        return errs, max(errs, key=errs.get)
+
+    errs, worst = errors(step("cuda"))
+    if errs[worst] > TRAIN_F32_E2E_TOL:
+        fail(f"float32 train step card vs CPU: {worst} off by relative "
+             f"{errs[worst]} (bound {TRAIN_F32_E2E_TOL})")
+    say(f"[train:main] B=10 T=32 F=32 float32 train_step, card vs CPU plain "
+        f"path (dropout off), {len(errs)} loss terms and parameter "
+        f"gradients: relative error at most {errs[worst]:.3g} ({worst}; "
+        f"bound {TRAIN_F32_E2E_TOL})")
+    with cudnn_default(), unguarded():
+        errs, worst = errors(step("cuda"))
+    say(f"[train:main] the same step with the guard taken out "
+        f"(device.exact_float32 off, cuDNN at PyTorch's TF32 default): "
+        f"relative error at most {errs[worst]:.3g} ({worst}); not gated")
 
 
 def phase_train_eval(hp, sd) -> None:
@@ -1985,13 +2148,16 @@ def phase_train_eval(hp, sd) -> None:
     worst.update({f"forward carry {k}": rel(carry_k[k], carry_p[k])
                   for k in carry_p})
     name, top = max(worst.items(), key=lambda kv: kv[1])
-    if top > TRAIN_CHAIN_TOL:
+    f32 = cfg.dtype == torch.float32
+    chain_tol = (TRAIN_F32_CHAIN_TOL[kind_group(cfg)] if f32
+                 else TRAIN_CHAIN_TOL)
+    if top > chain_tol:
         fail(f"eval forward, {CHECK_STEPS} steps: {name} off by relative "
              f"{top}")
     say(f"[train:eval] {CHECK_STEPS} eval-forward steps at B={TRAIN_B} "
-          f"T={TRAIN_T}, kernels vs plain: relative error of spec, stop, w "
-          f"and the carries at most {top:.3g} ({name}; bound "
-          f"{TRAIN_CHAIN_TOL}); no residual stream kept")
+        f"T={TRAIN_T} {dtype_label(cfg.dtype)}, kernels vs plain: relative "
+        f"error of spec, stop, w and the carries at most {top:.3g} ({name}; "
+        f"bound {chain_tol}); no residual stream kept")
 
     small = train_batch(hp, 10, 32, 32, SEED + 15)
     teacher = [1, 0] * 16
@@ -2019,7 +2185,7 @@ def phase_train_eval(hp, sd) -> None:
             valid[i, :int(n)] = True
         got[dev] = {k: o[k].detach().float().cpu() for k in keys}
         got[dev]["stop_token"] = o["stop_token"][valid].detach().float().cpu()
-    k2, _ = ftd.path_kernels(cfg.att_kind)
+    k2, _ = cfg.kernels
     missing = [k for k in k2 if launches[k] == 0]
     stray = [k for k in launches if k not in k2 and launches[k] != 0]
     if missing or stray:
@@ -2027,24 +2193,209 @@ def phase_train_eval(hp, sd) -> None:
              f" other kernels launched {stray}")
     checks = {k: rel(got["cuda"][k], got["cpu"][k]) for k in got["cpu"]}
     name, top = max(checks.items(), key=lambda kv: kv[1])
-    if top > TRAIN_E2E_TOL:
+    e2e_tol = TRAIN_F32_E2E_TOL if f32 else TRAIN_E2E_TOL
+    if top > e2e_tol:
         fail(f"eval forward card vs CPU: {name} off by relative {top}")
     say(f"[train:eval] model.eval() forward B=10 T=32 F=32, card vs CPU "
-          f"plain path (bf16, teacher forcing 0.5): relative error at most "
-          f"{top:.3g} ({name}; bound {TRAIN_E2E_TOL}); " + ", ".join(
+        f"plain path ({dtype_label(cfg.dtype)}, teacher forcing 0.5): "
+        f"relative error at most {top:.3g} ({name}; bound {e2e_tol}); "
+        + ", ".join(
               f"{k} {v:.3g}" for k, v in checks.items()))
     say(f"[train:eval] launches of the eval forward (32 steps): "
           f"{ {k: launches[k] for k in k2} }; K3 none")
 
 
+# F3: the attention kernels of all three decoders on long texts
+LONG_T, LONG_B = (600, 1000, 1500), 8
+# float32 weights of a long row: each carries the absolute float32 error of
+# its energy (sums over 128 channels in another order), within this share
+# of the row's largest weight
+LONG_W_F32_TOL = 1e-4
+
+
+def phase_train_long(sd_by_kind) -> None:
+    """Texts of 600, 1000 and 1500 symbols (``att_bwd_tiles``: 8 CTAs of 80,
+    128 and 192 positions; in float32 the tile's rows stay in device
+    memory) at the flagship's widths, B=8, each attention kind and compute
+    type: K2's ``train_attention`` (one step with its streams), K3's
+    ``att_bwd`` and K1's ``lsa_attention`` or ``fwd_attention`` against
+    their plain versions on the same random inputs.  float32: the weights
+    within LONG_W_F32_TOL of each row's largest, every other output within
+    F32_TOL of its largest; bf16: the bounds of the T=128 checks (W_TOL,
+    CTX_TOL, ``att_bwd``'s TRAIN_KERNEL_TOL).  Then the device time of
+    ``train_attention`` and ``att_bwd`` at each length, and a bf16 train
+    step at T=600 on the card against the CPU."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    b = LONG_B
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    def check(name, got, ref, f32, rows=False, bound=None):
+        """max |got - ref| over the largest |ref| (of each row: rows)."""
+        g, r = got.detach().float(), ref.detach().float()
+        if not torch.isfinite(g).all():
+            fail(f"{name}: non-finite values")
+        if rows:
+            err = float(((g - r).abs().amax(1) / r.abs().amax(1)).max())
+            bound = LONG_W_F32_TOL if f32 else W_TOL
+        else:
+            err = float((g - r).abs().max() / (r.abs().max() + 1e-30))
+            bound = bound if bound is not None else (F32_TOL if f32
+                                                     else CTX_TOL)
+        if err > bound:
+            fail(f"{name}: kernel vs plain off by {err:.3g} (bound {bound})")
+        return err
+
+    times = {}
+    for kind, label in (("location_sensitive", "ls"), *FAMILY.items()):
+        hp = flagship(32, 16, kind)
+        model = Tacotron(hp)
+        model.load_state_dict(sd_by_kind[kind])
+        cell = model.decoder.cell.cuda()
+        h, a = hp.decoder_dimension, hp.attention_dimension
+        mem = model.decoder.memory_dim
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = dtype == torch.float32
+            cfg = ftd.TrainConfig.from_hp(hp, mem, dtype)
+            ops = ftd.compute_operands(ftd.train_operands(cell, cfg), cfg)
+            bundle = fd.extract_decoder_bundle(cell, dtype,
+                                               quantize_gates=True)
+            for t in LONG_T:
+                worst = {}
+                tag = f"{label} {dtype_label(dtype)} T={t}"
+                memory = rnd(b, t, mem).to(dtype)
+                mtb = rnd(b, t, a, scale=0.5).to(dtype)
+                lengths = torch.randint(t // 2, t + 1, (b,), device="cuda",
+                                        generator=gen)
+                mask = torch.arange(t, device="cuda")[None] < lengths[:, None]
+                mask_add = torch.where(mask, 0.0, -1e9)
+                if cfg.family:
+                    state = torch.clamp(torch.rand(b, t, device="cuda",
+                                                   generator=gen) ** 4 * mask,
+                                        min=1e-6)
+                    state = state / state.sum(-1, keepdim=True)
+                else:
+                    pos = (0.2 + 0.6 * torch.rand(b, 1, device="cuda",
+                                                  generator=gen)) * lengths[
+                        :, None]
+                    state = torch.clamp(pos - torch.arange(
+                        t, device="cuda")[None], 0.0, 1.0) * mask
+                tp0 = 0.1 + 0.8 * torch.rand(b, device="cuda", generator=gen)
+                h_att, x = rnd(b, h), rnd(b, hp.prenet_dimension).relu()
+                q = rnd(b, a).to(dtype).float()
+
+                def forward(fn):
+                    cc = state.clone()
+                    o = [torch.empty(b, t, device="cuda"),
+                         torch.empty(b, t, dtype=dtype, device="cuda"),
+                         torch.empty(b, mem, device="cuda")]
+                    dsts = [torch.empty(b, mem, dtype=dtype, device="cuda")
+                            for _ in range(3)]
+                    agent = (ftd.AgentArgs(tp0.clone(), torch.empty(
+                        b, device="cuda"), h_att, x, ops["ta_w"], ops["ta_b"])
+                        if cfg.agent else None)
+                    fn(q, cc, memory, mtb, mask_add, ops.get("lc"), ops["v"],
+                       o[0], o[1], o[2], dsts, agent=agent)
+                    return [cc, *o, *dsts] + ([agent.tp] if agent else [])
+
+                got = forward(ftd.train_attention)
+                ref = forward(ftd.PLAIN.train_attention)
+                worst["train_attention w"] = check(tag, got[1], ref[1], f32,
+                                                   rows=True)
+                worst["train_attention ctx"] = check(tag, got[3], ref[3], f32)
+                if cfg.agent:
+                    worst["train_attention tp"] = check(tag, got[-1], ref[-1],
+                                                        f32, bound=ATOL)
+                if not torch.equal(got[2], ref[2]):
+                    fail(f"{tag}: train_attention's state stream differs")
+
+                w_s = ref[1]
+                dctx, dw = rnd(b, mem), rnd(b, t, scale=0.1)
+                dcum0, dtp0 = rnd(b, t, scale=0.1), rnd(b, scale=0.5)
+                dh0 = rnd(b, h, scale=0.1)
+
+                def backward(fn):
+                    acc = [torch.zeros(b, t, a, device="cuda"),
+                           None if cfg.family else torch.zeros(
+                               b, cfg.taps, a, device="cuda"),
+                           torch.zeros(b, a, device="cuda"), dcum0.clone()]
+                    o = [torch.empty(b, a, dtype=dtype, device="cuda"),
+                         torch.empty(b, mem, dtype=dtype, device="cuda")]
+                    extra, fam = [], None
+                    if cfg.agent:
+                        extra = [dtp0.clone(), torch.empty(b, device="cuda"),
+                                 dh0.clone(), torch.empty(
+                                     b, hp.prenet_dimension, device="cuda")]
+                        fam = ftd.FamilyBwd(mask_add, tp0, ref[-1], extra[0],
+                                            extra[1], ops["ta_w"], extra[2],
+                                            extra[3])
+                    elif cfg.family:
+                        fam = ftd.FamilyBwd(mask_add)
+                    fn(q, ref[2], w_s, memory, mtb, ops.get("lc"), ops["v"],
+                       dctx, dw, acc[3], acc[0], acc[1], acc[2], *o, fam=fam)
+                    return [x for x in acc if x is not None] + o + extra
+
+                got, ref_b = backward(ftd.att_bwd), backward(ftd.PLAIN.att_bwd)
+                bound = TRAIN_KERNEL_TOL["att_bwd"]
+                for i, (g, r) in enumerate(zip(got, ref_b)):
+                    worst[f"att_bwd output {i}"] = check(
+                        tag, g, r, f32, bound=F32_TOL if f32 else bound[
+                            "bf16" if r.dtype == torch.bfloat16 else "f32"])
+
+                if cfg.family:
+                    tp = tp0[:, None] if cfg.agent else None
+                    got = fd.fwd_attention(h_att, state, tp, memory, mtb,
+                                           mask_add, x, bundle)
+                    ref_k = fd.fwd_attention_plain(h_att, state, tp, memory,
+                                                   mtb, mask_add, x, bundle)
+                    worst["K1 ctx"] = check(tag, got[0], ref_k[0], f32)
+                    worst["K1 w"] = check(tag, got[1], ref_k[1], f32,
+                                          rows=True)
+                else:
+                    got = fd.lsa_attention(h_att, state, memory, mtb,
+                                           mask_add, bundle)
+                    ref_k = fd.lsa_attention_plain(h_att, state, memory, mtb,
+                                                   mask_add, bundle)
+                    worst["K1 ctx"] = check(tag, got[0], ref_k[0], f32)
+                    worst["K1 w"] = check(tag, got[1] - state,
+                                          ref_k[1] - state, f32, rows=True)
+                top = max(worst, key=worst.get)
+                say(f"[train:long] {tag} B={b}: train_attention, att_bwd "
+                    f"and K1's attention vs plain, {len(worst)} outputs, "
+                    f"each within its bound; the worst {top} "
+                    f"{worst[top]:.3g}")
+                if kind == "location_sensitive":
+                    times[(dtype_label(dtype), t)] = (
+                        device_ms(lambda: forward(ftd.train_attention),
+                                  ours_only=True),
+                        device_ms(lambda: backward(ftd.att_bwd),
+                                  ours_only=True))
+    say("[train:long] device time (torch.profiler, B=8, location-sensitive)"
+        " of train_attention / att_bwd: " + "; ".join(
+            f"{d} T={t} {f:.4f} / {g:.4f} ms"
+            for (d, t), (f, g) in times.items()))
+    hp = flagship(32, 16)
+    phase_train_vs_cpu(hp, sd_by_kind["location_sensitive"], t_len=LONG_T[0])
+
+
 def train_work(cfg, b, t_len):
     """(bytes each input once + outputs once, operations) of each K2/K3
-    kernel row at B=b, T=t_len; products counted at the bf16 tensor rate."""
+    kernel row at B=b, T=t_len, compute-type operands and streams of
+    ``cfg.dtype``'s size (``bf``: 2 bytes in bf16, 4 in float32)."""
     h, p, m, mem, a, k, n = (cfg.hidden, cfg.prenet_dim, cfg.mmel,
                              cfg.mem_dim, cfg.att_dim, cfg.taps,
                              cfg.n_prenet)
     ka, kg, kh = cfg.ka, cfg.kg, cfg.kh
-    f32, bf = 4, 2
+    f32, bf = 4, cfg.dtype.itemsize
     pre_w = (m * p + (n - 1) * p * p)
     # one LSTM cell's backward as it runs fused: the activations and the
     # previous c read, dc read and written, dg and dh_reg written (its h
@@ -2111,29 +2462,31 @@ def train_work(cfg, b, t_len):
     }
 
 
-def phase_train_timings(hp, errs, launches, per_step, inputs, main):
+def phase_train_timings(hp, errs, launches, per_step, inputs, main,
+                        frames: int = TRAIN_F):
     import torch
 
     ftd, calls, unfused = inputs
     model, opt, sched, batch, state = main
-    cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
-                                  torch.bfloat16)
+    cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim, model.dtype)
     ops = ftd.compute_operands(ftd.train_operands(model.decoder.cell, cfg),
                                cfg)
-    b, dev, bf = TRAIN_B, "cuda", torch.bfloat16
-    rows_in = {w: torch.randn(b, ops[f"{w}_w"].shape[1], device=dev).to(bf)
+    # the yardsticks in the compute type (float32: full float32, as main
+    # checks torch.backends.cuda.matmul.allow_tf32 is False)
+    b, dev, ct = TRAIN_B, "cuda", cfg.dtype
+    rows_in = {w: torch.randn(b, ops[f"{w}_w"].shape[1], device=dev).to(ct)
                for w in ("att", "gen", "head")}
-    h16 = torch.randn(b, cfg.hidden, device=dev).to(bf)
-    dg = torch.randn(b, 4 * cfg.hidden, device=dev).to(bf)
-    dq = torch.randn(b, cfg.att_dim, device=dev).to(bf)
-    dfv = torch.randn(b, cfg.mmel + 1, device=dev).to(bf)
+    h16 = torch.randn(b, cfg.hidden, device=dev).to(ct)
+    dg = torch.randn(b, 4 * cfg.hidden, device=dev).to(ct)
+    dq = torch.randn(b, cfg.att_dim, device=dev).to(ct)
+    dfv = torch.randn(b, cfg.mmel + 1, device=dev).to(ct)
     library = {
         "train_gate_lstm": lambda: (
-            torch.addmm(ops["att_b"].to(bf), rows_in["att"], ops["att_w"].t()),
-            torch.addmm(ops["gen_b"].to(bf), rows_in["gen"],
+            torch.addmm(ops["att_b"].to(ct), rows_in["att"], ops["att_w"].t()),
+            torch.addmm(ops["gen_b"].to(ct), rows_in["gen"],
                         ops["gen_w"].t())),
         "train_query": lambda: torch.mm(h16, ops["wq"]),
-        "train_head": lambda: torch.addmm(ops["head_b"].to(bf),
+        "train_head": lambda: torch.addmm(ops["head_b"].to(ct),
                                           rows_in["head"], ops["head_w"].t()),
         # [dframe | dstop] @ the head weight, added to the h_gen | ctx
         # cotangents
@@ -2143,9 +2496,15 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
                              torch.mm(dg, ops["att_w"])),
     }
     work = train_work(cfg, b, TRAIN_T)
-    k2, _ = ftd.path_kernels(cfg.att_kind)
+    k2, _ = cfg.kernels
+    peak = "f32" if ct == torch.float32 else "bf16"
     rows_ms = {}
-    alone = ({k: device_ms(lambda r=run: r(ftd.KERNELS), ours_only=True)
+    # the cells' row is a difference of readings of a few microseconds:
+    # those readings (the hosts with and without their cell) over more
+    # calls
+    cell_iters = 50
+    alone = ({k: device_ms(lambda r=run: r(ftd.KERNELS), iters=cell_iters,
+                           ours_only=True)
               for k, run in unfused.items()} if "bwd_cell" in calls else {})
     rows = []
     for name, run in calls.items():
@@ -2162,25 +2521,29 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
                   f"cell; the two cells alone (bwd_cell's own launches) "
                   f"{alone['cells_alone']:.4f} ms")
         else:
-            ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True)
+            ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True,
+                           iters=cell_iters if name == "bwd_head" else 10)
             plain_ms = device_ms(lambda: run(ftd.PLAIN), iters=5)
         rows_ms[name] = ms
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops_n = work[name]
-        b_ms, b_by = bound_ms(n_bytes, ops_n, "bf16")
+        b_ms, b_by = bound_ms(n_bytes, ops_n, peak)
+        inst = ftd.instance(name, ct)
+        # the configuration beside the instance's name, its dtype left out
+        label = ":".join(x for x in _LABEL.split(":") if x and x != "f32")
         rows.append({
-            "name": f"{name}[{_LABEL}]" if _LABEL else name, "route": "cuda",
+            "name": f"{inst}[{label}]" if label else inst, "route": "cuda",
             "source": TRAIN_SOURCE,
-            "replaces": REPLACES["K2" if name in k2 else "K3"],
-            "launches": launches[name], "max_abs_err": errs[name],
+            "replaces": REPLACES["K2" if inst in k2 else "K3"],
+            "launches": launches[inst], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
         })
-        say(f"[train:time] {name} (device time, torch.profiler): kernel "
-              f"{ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-              f"{per_step[name] / TRAIN_F:.2f} launches per decoder step")
+        say(f"[train:time] {inst} (device time, torch.profiler): kernel "
+            f"{ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"{per_step[inst] / frames:.2f} launches per decoder step")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -2191,7 +2554,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.train_step(model, opt, sched, batch, state, gen,
-                           teacher=[1] * TRAIN_F)
+                           teacher=[1] * frames)
         torch.cuda.synchronize()
     busy = device_busy(prof)
     if busy is None:
@@ -2204,6 +2567,46 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main):
               f"kernel; device ms by kernel: " + ", ".join(
                   f"{k} {v / 1e3:.2f}" for k, v in
                   sorted(by_name.items(), key=lambda kv: -kv[1])[:14]))
+    return rows
+
+
+def phase_train_f32_and_long(sd) -> list:
+    """Float32 compute in training (K2/K3's float32 instances) at the
+    flagship's widths: the kernels against plain, four timed steps, the
+    card against the CPU (with and without the guard of the cuDNN calls),
+    the eval forward and the times; the forward family in float32 at a
+    smaller depth; then texts over 512 symbols (``[train:long]``).  ``sd``:
+    the flagship's weights.  Returns the kernel rows."""
+    with labelled("f32"):
+        hp32 = flagship(MAX_FRAMES, CHUNK, **F32)
+        with phase("train:kernels"):
+            errs32, inputs32 = phase_train_kernels(hp32, sd)
+        with phase("train:main"):
+            l32, per32, _, main32 = phase_train_main(hp32, sd)
+        with phase("train:cpu"):
+            phase_train_f32_vs_cpu(hp32, sd)
+        with phase("train:eval"):
+            phase_train_eval(hp32, sd)
+        with phase("train:time"):
+            rows = phase_train_timings(hp32, errs32, l32, per32, inputs32,
+                                       main32)
+        del main32, inputs32
+    sd_kind = {"location_sensitive": sd}
+    for kind, label in FAMILY.items():
+        with labelled(f"f32:{label}"), phase("train"):
+            hp_f = flagship(FAMILY_FRAMES, CHUNK, kind, **F32)
+            sd_kind[kind] = sd_f = seeded_state_dict(hp_f)
+            errs_f, inputs_f = phase_train_kernels(
+                hp_f, sd_f, only=FAMILY_TRAIN_KERNELS)
+            l_f, per_f, _, main_f = phase_train_main(
+                hp_f, sd_f, timed=1, frames=F32_FAMILY_FRAMES)
+            rows += phase_train_timings(hp_f, errs_f, l_f, per_f, inputs_f,
+                                        main_f, frames=F32_FAMILY_FRAMES)
+            del main_f, inputs_f
+    # texts over 512 symbols: all three attention kernels, both compute
+    # types, and a train step at T=600
+    with phase("train:long"):
+        phase_train_long(sd_kind)
     return rows
 
 
@@ -2329,6 +2732,7 @@ def main() -> int:
             rows += phase_train_timings(hp_f, errs_f, l_f, per_f, inputs_f,
                                         main_f)
             del main_f, inputs_f
+    rows += phase_train_f32_and_long(sd)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

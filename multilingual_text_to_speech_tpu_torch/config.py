@@ -3,10 +3,11 @@
 A copy of the JAX package's ``HParams`` with the same keys and defaults, so
 the bundled ``params/*.json`` overlays of either package load by path and a
 checkpoint's embedded ``hp`` dict round-trips.  Keys that only steer the JAX
-package's TPU paths (mesh sizes, Pallas switches, the flax dropout RNG) are
-kept so those overlays load unchanged; the port reads ``compute_dtype``,
-``decode_chunk_frames`` and ``pallas_decoder_int8`` (the W8A8 gate switch of
-the serving decoder) and ignores the rest.
+package's TPU paths (mesh sizes, the train decoder's Pallas switch, the flax
+dropout RNG) are kept so those overlays load unchanged; the port reads
+``compute_dtype``, ``decode_chunk_frames``, ``use_pallas_decoder`` and, when
+it is set, ``pallas_decoder_int8`` and ``pallas_decoder_int8_streams`` (the
+serving decoder's W8A8 gates and int8 streams) and ignores the rest.
 """
 
 from __future__ import annotations

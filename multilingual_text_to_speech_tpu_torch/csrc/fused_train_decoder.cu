@@ -15,30 +15,44 @@
 // launch, or two when it splits K: 11 launches a backward step at the
 // flagship's widths and B=50.
 //
-// Every product runs on the tensor cores (mma.sync m16n8k16, bfloat16
-// inputs, float32 sums) in the three tile routines of csrc/tile.cuh, or in
-// bwd_head and bwd_prenet.  The forward prenet runs in prenet_tile_kernel
+// Every kernel is a template on the compute type CT, bfloat16 or float32
+// (the JAX package's compute_dtype; ops/pallas_train_decoder.py writes its
+// residual streams in it), and each launcher takes an `f32` flag that picks
+// the instance.  In bf16 every product runs on the tensor cores (mma.sync
+// m16n8k16, bfloat16 inputs, float32 sums) in the three tile routines of
+// csrc/tile.cuh, or in bwd_head and bwd_prenet.  In float32 nothing is
+// rounded and every product runs on the CUDA cores in FFMA, each product
+// rounded once into a float32 sum, as the TPU kernel's full-precision
+// float32 matmuls (ops/pallas_train_decoder.py:230-239) and the serving
+// decoder's float32 instances do (csrc/tile.cuh simt_tile32): the gate
+// products on the same staged tiles, the split-K products in
+// splitk_f32_kernel, the attention kernels' location conv in band_loc_f32,
+// and bwd_head's, bwd_prenet's and att_bwd's small products a thread an
+// output.  The forward prenet runs in prenet_tile_kernel
 // (shared with the serving decoder's prenet): one clustered launch whose
-// CTAs own column slices of each layer and exchange the bf16 rows over
-// distributed shared memory.  The gate products run in gate_tile_kernel
+// CTAs own column slices of each layer and exchange the compute-type rows
+// over distributed shared memory.  The gate products run in gate_tile_kernel
 // (shared with the serving decoder's gate product), with the LSTM step and
 // zoneout or dropout in the epilogue.  The attention query, the head and
 // the backward's dgates @ W^T, dq @ Wq^T and dWq run in splitk_kernel
 // (shared with the serving decoder's head), which reads transposed
-// operands as they lie through ldmatrix.trans and splits K over the grid.
+// operands as they lie through ldmatrix.trans and splits K over the grid
+// (splitk_f32_kernel in float32, which stages them as they lie).
 // The head backward (K = 80 mels) is one launch of its own kernel, a grid
 // over column tiles of H + Mem that builds its A tile from the float32
 // cotangents.  The forward's attention (train_attention) and its backward
 // (att_bwd) each split a batch row over a thread-block cluster of up to 8
-// tiles of positions and run the location conv on the tensor cores as band
+// tiles of positions (a tile grows with T: any length whose per-position
+// rows fit a CTA's shared memory) and run the location conv as band
 // products (csrc/tile.cuh, shared with the serving decoder's
 // lsa_attention: the forward's energy; the backward's energy recompute,
 // filter and cum gradients), exchanging the softmax statistics, the cum
 // halo and the partial sums through distributed shared memory; the
 // forward's context reads the tile's memory rows with 16-byte loads
-// (csrc/tile.cuh ctx_*, shared with lsa_attention).  The
+// (csrc/tile.cuh ctx_*, shared with lsa_attention), from a copy in shared
+// memory where it fits.  The
 // prenet backward (bwd_prenet) is one clustered launch whose CTAs own
-// column slices of each layer and exchange the bf16 da rows the same way.
+// column slices of each layer and exchange the da rows the same way.
 // An eval forward (ops/pallas_train_decoder.py train=False) runs the same
 // kernels with deterministic zoneout and writes no residual streams.
 // Accumulators (dmt, the [K, A] location-conv grad dlc, dv) are per batch
@@ -54,10 +68,13 @@
 // and head products (K = 1024 and 1344 against 2 output tiles) and the
 // backward's dgates @ W^T (K = 4H) split K into S slices, so that each runs
 // a few dozen to a few hundred blocks of all 50 rows, each weight tile read
-// once, plus one small reduction launch.
+// once, plus one small reduction launch.  In float32 the gate products are
+// the same 1.6 G operations on FFMA, 24 us at 67 TFLOP/s, against 65 MB of
+// float32 gate weights (19 us), more than the 50 MB L2 holds.
 //
-// Values are rounded to bfloat16 where the TPU kernels store or multiply in
-// the compute type, so the plain PyTorch versions can repeat the arithmetic.
+// Values are rounded to the compute type where the TPU kernels store or
+// multiply in it (round_to<CT>, from_float<CT>: nothing in float32), so the
+// plain PyTorch versions can repeat the arithmetic.
 // Random bits: mask element (row, col) of site `salt` at global step gs
 // draws rand_bits(row, col; seed0, seed1, gs * (n_prenet + 4) + salt), as
 // ops/pallas_train_decoder.py::_salt_layout does.
@@ -71,9 +88,10 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// train_gate_lstm: gates = row @ W^T on the tensor cores, the shared
-// gate_tile_kernel of csrc/tile.cuh (bf16, float32 sums), with the LSTM
-// step and the train-mode regularization in its epilogue, LstmEpi.
+// train_gate_lstm: gates = row @ W^T, the shared gate_tile_kernel of
+// csrc/tile.cuh (bf16 on the tensor cores with float32 sums; float32 on
+// simt_tile32), with the LSTM step and the train-mode regularization in
+// its epilogue, LstmEpi.
 // ---------------------------------------------------------------------------
 
 // regularization of an LSTM cell (ops/pallas_train_decoder.py:375-401):
@@ -89,18 +107,19 @@ struct Reg {
 };
 
 // gates + bias -> i, f, g, o; the LSTM step; the regularization; writes the
-// float32 carries, the bf16 activations and c stream (train mode; null in
-// an eval forward, which keeps no residual streams), and h in bf16 into up
-// to two concat rows
+// float32 carries, the activations and c stream in the compute type CT
+// (train mode; null in an eval forward, which keeps no residual streams),
+// and h in CT into up to two concat rows
+template <class CT>
 struct LstmEpi {
   const float* bias;
   float* h;
   float* c;
-  bf16* act;
-  bf16* c_out;
-  bf16* h_dst0;
+  CT* act;
+  CT* c_out;
+  CT* h_dst0;
   int ld0;
-  bf16* h_dst1;
+  CT* h_dst1;
   int ld1;
   int H;
   Reg reg;
@@ -114,11 +133,11 @@ struct LstmEpi {
     const float cn = gf * c_prev + gi * gg;
     const float hn = go * tanhf(cn);
     if (act != nullptr) {
-      bf16* a = act + (size_t)row * 4 * H + unit;
-      a[0] = __float2bfloat16_rn(gi);
-      a[H] = __float2bfloat16_rn(gf);
-      a[2 * H] = __float2bfloat16_rn(gg);
-      a[3 * H] = __float2bfloat16_rn(go);
+      CT* a = act + (size_t)row * 4 * H + unit;
+      a[0] = from_float<CT>(gi);
+      a[H] = from_float<CT>(gf);
+      a[2 * H] = from_float<CT>(gg);
+      a[3 * H] = from_float<CT>(go);
     }
     float ho = hn, co = cn;
     if (reg.mode == 1) {
@@ -139,8 +158,8 @@ struct LstmEpi {
     }
     h[o] = ho;
     c[o] = co;
-    if (c_out != nullptr) c_out[o] = __float2bfloat16_rn(co);
-    const bf16 hb = __float2bfloat16_rn(ho);
+    if (c_out != nullptr) c_out[o] = from_float<CT>(co);
+    const CT hb = from_float<CT>(ho);
     h_dst0[(size_t)row * ld0 + unit] = hb;
     if (h_dst1 != nullptr) h_dst1[(size_t)row * ld1 + unit] = hb;
   }
@@ -169,12 +188,13 @@ struct SegOut {
   }
 };
 
-// q = bf16(h @ Wq), held in float32 [M, N]
+// q = round_to<CT>(h @ Wq), held in float32 [M, N]
+template <class CT>
 struct RoundOut {
   float* out;
   int n;
   __device__ __forceinline__ void put(int row, int col, float v) const {
-    out[(size_t)row * n + col] = round_bf16(v);
+    out[(size_t)row * n + col] = round_to<CT>(v);
   }
 };
 
@@ -182,24 +202,25 @@ struct RoundOut {
 // train_prenet: csrc/tile.cuh's prenet_tile_kernel (shared with the serving
 // decoder's prenet) on the input frame (the shifted target at a teacher
 // step, the previous prediction otherwise), with the training epilogue:
-// the raw frame and each layer's post-dropout output in bf16 (streams; null
-// in an eval forward) and the last layer into the attention LSTM's concat
-// row.
+// the raw frame and each layer's post-dropout output in the compute type
+// (streams; null in an eval forward) and the last layer into the attention
+// LSTM's concat row.
 // ---------------------------------------------------------------------------
+template <class CT>
 struct TrainPrenetOut {
-  bf16* raw_out;         // [B, in_dim], or null
-  bf16* pre_out;         // [n_layers] x [B, P] at pre_stride, or null
+  CT* raw_out;           // [B, in_dim], or null
+  CT* pre_out;           // [n_layers] x [B, P] at pre_stride, or null
   long long pre_stride;
-  bf16* dst;             // [B, P] rows of ld_dst
+  CT* dst;               // [B, P] rows of ld_dst
   int ld_dst;
   float* x_out;          // [B, P] float32 copy of the output, or null
   int in_dim, P, n_layers;
-  __device__ __forceinline__ void raw(int row, int k, bf16 v) const {
+  __device__ __forceinline__ void raw(int row, int k, CT v) const {
     if (raw_out != nullptr) raw_out[(size_t)row * in_dim + k] = v;
   }
   __device__ __forceinline__ void put(int layer, int row, int col, float y,
                                       bool) const {
-    const bf16 yb = __float2bfloat16_rn(y);
+    const CT yb = from_float<CT>(y);
     if (pre_out != nullptr)
       pre_out[layer * pre_stride + (size_t)row * P + col] = yb;
     if (layer == n_layers - 1) {
@@ -235,6 +256,18 @@ struct TrainPrenetOut {
 // columns, summed over the cluster's partials in rank order.  No float
 // atomics: a run repeats bit for bit.
 //
+// In float32 (CT float) nothing is rounded: the energy is a warp a
+// position, a lane every 32nd channel, the location conv band_loc_f32 from
+// the float32 cum and lc (csrc/tile.cuh), tanh((loc + q) + mtb); the
+// context sums float32 products of float32 rows.
+//
+// Long texts: a tile has T / 8 positions or more (att_bwd_tiles), and the
+// tile's copies of its mtb and memory rows are kept only while they fit the
+// CTA's 227 KB of shared memory (ta_stage: both, mtb alone, or neither);
+// otherwise the energy and the context read them from device memory (the
+// context with the same 16-byte loads).  What stays in shared memory grows
+// by under 50 bytes a position.
+//
 // Bound on the H100: the bytes of memory and mtb (B*T*(Mem + A) bf16,
 // 5.4 MB at B=50, T=128) and the rest, 1.69 us at 3.35 TB/s.  What costs
 // is latency: one block a batch row would fill 50 of 132 SMs at B=50 and
@@ -258,6 +291,8 @@ struct TrainPrenetOut {
 // location-sensitive step's (1.7 us at B=50, T=128), less work.
 // ---------------------------------------------------------------------------
 constexpr int TA_THREADS = 256, TA_WARPS = TA_THREADS / 32;
+// the shared memory a CTA may opt in to on the H100
+constexpr size_t SMEM_MAX = 227 * 1024;
 
 // the transition agent's operands of train_attention (the forward family
 // with the agent only)
@@ -271,27 +306,33 @@ struct TaAgent {
   int H, P;
 };
 
-// shared-memory layout of train_attention_kernel (byte offsets)
+// which of the tile's rows train_attention copies into shared memory
+constexpr int TA_STAGE_MTB = 1, TA_STAGE_MEM = 2;
+
+// shared-memory layout of train_attention_kernel (byte offsets) for
+// compute-type elements of `es` bytes and the copies `stage` names
 struct TaLayout {
   int ld, ldm;
   CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
   size_t lc, mtb, mem, q, v, ep, e, cumf, mask, cum, stat, red, ctxp, cpart,
       total;
-  __host__ __device__ TaLayout(int tile, int A, int Mem)
-      : cs(Mem, TA_THREADS) {
-    ld = A + 8;    // rows of lc
-    ldm = A + 8;   // rows of the mtb tile: eight rows g in distinct banks
+  __host__ __device__ TaLayout(int tile, int A, int Mem, int es, int stage)
+      : cs(Mem, TA_THREADS, 16 / es) {
+    ld = A + 16 / es;    // rows of lc
+    ldm = A + 16 / es;   // rows of the mtb tile: eight rows g in distinct banks
     lc = 0;
-    mtb = lc + align16((size_t)BAND_K * ld * 2);
-    mem = mtb + align16((size_t)tile * ldm * 2);
-    q = mem + align16((size_t)tile * Mem * 2);
+    mtb = lc + align16((size_t)BAND_K * ld * es);
+    mem = mtb + (stage & TA_STAGE_MTB ? align16((size_t)tile * ldm * es) : 0);
+    q = mem + (stage & TA_STAGE_MEM ? align16((size_t)tile * Mem * es) : 0);
     v = q + align16((size_t)A * 4);
     ep = v + align16((size_t)A * 4);
-    e = ep + align16((size_t)TA_WARPS * tile * 4);
+    // the warps' partial energies (bf16 only: float32 sums a position in
+    // one warp)
+    e = ep + (es == 2 ? align16((size_t)TA_WARPS * tile * 4) : 0);
     cumf = e + align16((size_t)tile * 4);
     mask = cumf + align16((size_t)tile * 4);
     cum = mask + align16((size_t)tile * 4);
-    stat = cum + align16((size_t)(tile + BAND_K) * 2);
+    stat = cum + align16((size_t)(tile + BAND_K) * es);
     red = stat + 32;
     ctxp = red + 32 * 4;
     cpart = ctxp + align16((size_t)Mem * 4);
@@ -299,32 +340,44 @@ struct TaLayout {
   }
 };
 
-template <int KIND>
+// the most of the tile's rows that fit: both copies, mtb's alone, or none
+__host__ inline int ta_stage(int tile, int A, int Mem, int es) {
+  const int both = TA_STAGE_MTB | TA_STAGE_MEM;
+  if (TaLayout(tile, A, Mem, es, both).total <= SMEM_MAX) return both;
+  if (TaLayout(tile, A, Mem, es, TA_STAGE_MTB).total <= SMEM_MAX)
+    return TA_STAGE_MTB;
+  return 0;
+}
+
+template <int KIND, class CT>
 __global__ void __launch_bounds__(TA_THREADS)
 train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
-                       const bf16* __restrict__ memory,
-                       const bf16* __restrict__ mtb,
+                       const CT* __restrict__ memory,
+                       const CT* __restrict__ mtb,
                        const float* __restrict__ mask_add,
-                       const bf16* __restrict__ lc,
+                       const CT* __restrict__ lc,
                        const float* __restrict__ v, float* __restrict__ w_out,
-                       bf16* __restrict__ cum_out, float* __restrict__ ctx,
-                       bf16* __restrict__ dst0, int ld0,
-                       bf16* __restrict__ dst1, int ld1,
-                       bf16* __restrict__ dst2, int ld2, int T, int A, int Mem,
-                       int K, int tile, int cl, int vec, TaAgent ag) {
+                       CT* __restrict__ cum_out, float* __restrict__ ctx,
+                       CT* __restrict__ dst0, int ld0,
+                       CT* __restrict__ dst1, int ld1,
+                       CT* __restrict__ dst2, int ld2, int T, int A, int Mem,
+                       int K, int tile, int cl, int vec, int stage,
+                       TaAgent ag) {
+  constexpr bool F32 = std::is_same<CT, float>::value;
+  constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t ta_smem[];
-  const TaLayout L(tile, A, Mem);
+  const TaLayout L(tile, A, Mem, sizeof(CT), stage);
   const int ld = L.ld, ldm = L.ldm;
-  bf16* s_lc = reinterpret_cast<bf16*>(ta_smem + L.lc);        // [32][ld]
-  bf16* s_mtb = reinterpret_cast<bf16*>(ta_smem + L.mtb);      // [tile][ldm]
-  bf16* s_mem = reinterpret_cast<bf16*>(ta_smem + L.mem);      // [tile * Mem]
+  CT* s_lc = reinterpret_cast<CT*>(ta_smem + L.lc);            // [32][ld]
+  CT* s_mtb = reinterpret_cast<CT*>(ta_smem + L.mtb);          // [tile][ldm]
+  CT* s_mem = reinterpret_cast<CT*>(ta_smem + L.mem);          // [tile * Mem]
   float* s_q = reinterpret_cast<float*>(ta_smem + L.q);        // [A]
   float* s_v = reinterpret_cast<float*>(ta_smem + L.v);        // [A]
   float* s_ep = reinterpret_cast<float*>(ta_smem + L.ep);      // [WARPS][tile]
   float* s_e = reinterpret_cast<float*>(ta_smem + L.e);        // [tile]
   float* s_cumf = reinterpret_cast<float*>(ta_smem + L.cumf);  // [tile]
   float* s_mask = reinterpret_cast<float*>(ta_smem + L.mask);  // [tile]
-  bf16* s_cum = reinterpret_cast<bf16*>(ta_smem + L.cum);      // [tile + 32]
+  CT* s_cum = reinterpret_cast<CT*>(ta_smem + L.cum);          // [tile + 32]
   // [0] max, [1] sum, [2] the row's max, [3] the row's sum; the forward
   // family: [4] the renorm's tile sum, [5] the row's, [6] the agent's
   // partial, [7] the halo prev[t_lo - 1]
@@ -339,22 +392,25 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   const int rows = min(tile, T - t_lo);   // >= 1 (the launcher's check)
   const int half = (K - 1) / 2;
   const size_t rowT = (size_t)b * T;
+  const bool mtb_staged = stage & TA_STAGE_MTB;
+  const bool mem_staged = (stage & TA_STAGE_MEM) && vec;
 
   // every read of device memory is issued here, so that their latencies
   // overlap: lc and the tile's mtb rows (cp.async group 0), the tile's
   // memory rows (group 1, when 16-byte aligned), then q, v, cum and the mask
   if (KIND == ATT_LS) band_copy_lc(s_lc, ld, lc, K, A);
-  const int a_chunks = A / 8;
-  for (int i = tid; i < tile * a_chunks; i += TA_THREADS) {
-    const int r = i / a_chunks, c = (i - r * a_chunks) * 8;
-    cp_async16(s_mtb + r * ldm + c,
-               r < rows ? mtb + (rowT + t_lo + r) * A + c : mtb,
-               r < rows ? 16 : 0);
-  }
+  const int a_chunks = A / V;
+  if (mtb_staged)
+    for (int i = tid; i < tile * a_chunks; i += TA_THREADS) {
+      const int r = i / a_chunks, c = (i - r * a_chunks) * V;
+      cp_async16(s_mtb + r * ldm + c,
+                 r < rows ? mtb + (rowT + t_lo + r) * A + c : mtb,
+                 r < rows ? 16 : 0);
+    }
   cp_async_commit();
-  const bf16* mem_tile = memory + (rowT + t_lo) * Mem;
-  if (vec) {
-    const int bytes = rows * Mem * 2;
+  const CT* mem_tile = memory + (rowT + t_lo) * Mem;
+  if (mem_staged) {
+    const int bytes = rows * Mem * (int)sizeof(CT);
     for (int o = tid * 16; o < bytes; o += TA_THREADS * 16)
       cp_async16(reinterpret_cast<uint8_t*>(s_mem) + o,
                  reinterpret_cast<const uint8_t*>(mem_tile) + o,
@@ -378,55 +434,83 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   cp_async_wait<1>();
   __syncthreads();
 
-  // 1. energies: loc = band(cum) @ lc, a warp per 16 channels (two n8
-  // groups) down the tile's 16-row mma tiles; each warp's partial of e
-  for (int mt = 0; mt < tile / 16; ++mt) {
-    uint32_t af[2][4];
-    if (KIND == ATT_LS) band_frags(af, s_cum + mt * 16, lane);
-    const int ra = mt * 16 + g, rb = ra + 8;   // rows past T read zeros
-    float e0 = 0.0f, e1 = 0.0f;
-    for (int n0 = warp * 16; n0 < A; n0 += TA_WARPS * 16) {
+  // the tile's mtb rows, from the copy or from device memory
+  const CT* mt_rows = mtb_staged ? s_mtb : mtb + (rowT + t_lo) * A;
+  const int ldmt = mtb_staged ? ldm : A;
+  if constexpr (F32) {
+    // 1. energies: a warp a position, a lane every 32nd channel
+    for (int i = warp; i < rows; i += TA_WARPS) {
+      float e = 0.0f;
+      for (int a = lane; a < A; a += 32) {
+        const float mt = mt_rows[(size_t)i * ldmt + a];
+        const float z =
+            KIND == ATT_LS
+                ? (band_loc_f32(s_cum + i, s_lc + a, ld) + s_q[a]) + mt
+                : s_q[a] + mt;
+        e = fmaf(s_v[a], tanhf(z), e);
+      }
+      e = warp_sum(e);
+      // the forward family's softmax is unmasked
+      if (lane == 0) s_e[i] = KIND == ATT_LS ? e + s_mask[i] : e;
+    }
+    __syncthreads();
+  } else {
+    // 1. energies: loc = band(cum) @ lc, a warp per 16 channels (two n8
+    // groups) down the tile's 16-row mma tiles; each warp's partial of e
+    for (int mt = 0; mt < tile / 16; ++mt) {
+      uint32_t af[2][4];
+      if (KIND == ATT_LS) band_frags(af, s_cum + mt * 16, lane);
+      const int ra = mt * 16 + g, rb = ra + 8;   // rows past T read zeros
+      const bool in_a = mtb_staged || ra < rows, in_b = mtb_staged || rb < rows;
+      float e0 = 0.0f, e1 = 0.0f;
+      for (int n0 = warp * 16; n0 < A; n0 += TA_WARPS * 16) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c0 = n0 + 8 * h, a = c0 + 2 * qd;
-        const __nv_bfloat162 m0 =
-            *reinterpret_cast<const __nv_bfloat162*>(s_mtb + ra * ldm + a);
-        const __nv_bfloat162 m1 =
-            *reinterpret_cast<const __nv_bfloat162*>(s_mtb + rb * ldm + a);
-        const float q0 = s_q[a], q1 = s_q[a + 1];
-        const float v0 = s_v[a], v1 = s_v[a + 1];
-        if (KIND == ATT_LS) {
-          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          band_loc(acc, af, s_lc, ld, c0, lane);
-          e0 = fmaf(v0, band_energy_tanh(acc[0], q0, __low2float(m0)), e0);
-          e0 = fmaf(v1, band_energy_tanh(acc[1], q1, __high2float(m0)), e0);
-          e1 = fmaf(v0, band_energy_tanh(acc[2], q0, __low2float(m1)), e1);
-          e1 = fmaf(v1, band_energy_tanh(acc[3], q1, __high2float(m1)), e1);
-        } else {
-          e0 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m0)), e0);
-          e0 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m0)), e0);
-          e1 = fmaf(v0, fwd_energy_tanh(q0, __low2float(m1)), e1);
-          e1 = fmaf(v1, fwd_energy_tanh(q1, __high2float(m1)), e1);
+        for (int h = 0; h < 2; ++h) {
+          const int c0 = n0 + 8 * h, a = c0 + 2 * qd;
+          const float2 zero2 = make_float2(0.0f, 0.0f);
+          const float2 m0 =
+              in_a ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                         mt_rows + (size_t)ra * ldmt + a))
+                   : zero2;
+          const float2 m1 =
+              in_b ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                         mt_rows + (size_t)rb * ldmt + a))
+                   : zero2;
+          const float q0 = s_q[a], q1 = s_q[a + 1];
+          const float v0 = s_v[a], v1 = s_v[a + 1];
+          if (KIND == ATT_LS) {
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            band_loc(acc, af, s_lc, ld, c0, lane);
+            e0 = fmaf(v0, band_energy_tanh(acc[0], q0, m0.x), e0);
+            e0 = fmaf(v1, band_energy_tanh(acc[1], q1, m0.y), e0);
+            e1 = fmaf(v0, band_energy_tanh(acc[2], q0, m1.x), e1);
+            e1 = fmaf(v1, band_energy_tanh(acc[3], q1, m1.y), e1);
+          } else {
+            e0 = fmaf(v0, fwd_energy_tanh(q0, m0.x), e0);
+            e0 = fmaf(v1, fwd_energy_tanh(q1, m0.y), e0);
+            e1 = fmaf(v0, fwd_energy_tanh(q0, m1.x), e1);
+            e1 = fmaf(v1, fwd_energy_tanh(q1, m1.y), e1);
+          }
         }
       }
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+      if (qd == 0) {
+        s_ep[warp * tile + mt * 16 + g] = e0;
+        s_ep[warp * tile + mt * 16 + g + 8] = e1;
+      }
     }
-    e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
-    e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
-    e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
-    e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
-    if (qd == 0) {
-      s_ep[warp * tile + mt * 16 + g] = e0;
-      s_ep[warp * tile + mt * 16 + g + 8] = e1;
+    __syncthreads();
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      float e = 0.0f;
+      for (int w = 0; w < TA_WARPS; ++w) e += s_ep[w * tile + i];
+      // the forward family's softmax is unmasked
+      s_e[i] = KIND == ATT_LS ? e + s_mask[i] : e;
     }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = tid; i < rows; i += TA_THREADS) {
-    float e = 0.0f;
-    for (int w = 0; w < TA_WARPS; ++w) e += s_ep[w * tile + i];
-    // the forward family's softmax is unmasked
-    s_e[i] = KIND == ATT_LS ? e + s_mask[i] : e;
-  }
-  __syncthreads();
 
   // 2. the row's masked softmax (unmasked for the forward family): tile
   // maxima, then tile sums, each combined in rank order by every CTA
@@ -464,7 +548,7 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     for (int i = tid; i < rows; i += TA_THREADS) {
       const float energy = s_e[i] / sum;
       const float prev = s_cumf[i];
-      const float sh = round_bf16(i > 0 ? s_cumf[i - 1] : s_stat[7]);
+      const float sh = round_to<CT>(i > 0 ? s_cumf[i - 1] : s_stat[7]);
       const float comb = KIND == ATT_FWD_TRANS
                              ? (1.0f - tp_prev) * prev + tp_prev * sh
                              : prev + sh;
@@ -488,19 +572,19 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     const float wt = s_e[i] / sum;
     w_out[o] = wt;
     const float c_old = s_cumf[i];
-    if (cum_out != nullptr) cum_out[o] = __float2bfloat16_rn(c_old);
+    if (cum_out != nullptr) cum_out[o] = from_float<CT>(c_old);
     cum[o] = KIND == ATT_LS ? c_old + wt : wt;
-    s_e[i] = round_bf16(wt);
+    s_e[i] = round_to<CT>(wt);
   }
   __syncthreads();
 
   // 3. the context: this tile's partial (from the copy of its memory rows
-  // when aligned), then a share of the columns over the cluster's partials
-  // in rank order
+  // when there is one), then a share of the columns over the cluster's
+  // partials in rank order
   cp_async_wait<0>();
   __syncthreads();
-  ctx_partials(L.cs, s_cpart, vec ? s_mem : mem_tile, s_e, rows, Mem, vec,
-               TA_THREADS);
+  ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : mem_tile, s_e,
+                     rows, Mem, vec, TA_THREADS);
   __syncthreads();
   for (int m = tid; m < Mem; m += TA_THREADS)
     s_ctxp[m] = ctx_column(L.cs, s_cpart, Mem, m);
@@ -511,7 +595,7 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     float acc = 0.0f;
     for (int j = 0; j < cl; ++j) acc += cluster_peer(s_ctxp, j)[m];
     ctx[(size_t)b * Mem + m] = acc;
-    const bf16 cb = __float2bfloat16_rn(acc);
+    const CT cb = from_float<CT>(acc);
     dst0[(size_t)b * ld0 + m] = cb;
     dst1[(size_t)b * ld1 + m] = cb;
     if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
@@ -547,31 +631,33 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
 // ---------------------------------------------------------------------------
 // The LSTM cell's backward with its regularization for one (row, unit)
 // (ops/pallas_train_decoder.py:668-713), over the stored i|f|g|o
-// activations act [B, 4H] (bf16) and the previous cell state c_prev (bf16;
-// null at the first step), given dht, the total cotangent of the cell's h
-// output.  dc is the cell cotangent carry, updated in place; dh_reg gets
-// the regularization's pass-through to the previous h; dg the gate
-// gradients [B, 4H] (bf16).  It runs in the epilogue of the kernel that
-// computes dht's last term: bwd_head for the generator's cell, the dq @
-// Wq^T product (splitk_kernel or its reduction, CellOut) for the attention
-// cell; bwd_cell_kernel runs it alone.  Each (row, unit) is one thread's:
-// the in-place dc update reads and writes only its own element.
+// activations act [B, 4H] and the previous cell state c_prev (both in the
+// compute type CT; c_prev null at the first step), given dht, the total
+// cotangent of the cell's h output.  dc is the cell cotangent carry,
+// updated in place; dh_reg gets the regularization's pass-through to the
+// previous h; dg the gate gradients [B, 4H] (CT).  It runs in the epilogue
+// of the kernel that computes dht's last term: bwd_head for the
+// generator's cell, the dq @ Wq^T product (splitk_kernel or its reduction,
+// CellOut) for the attention cell; bwd_cell_kernel runs it alone.  Each
+// (row, unit) is one thread's: the in-place dc update reads and writes only
+// its own element.
 // ---------------------------------------------------------------------------
+template <class CT>
 struct CellBwd {
-  const bf16* act;
-  const bf16* c_prev;
+  const CT* act;
+  const CT* c_prev;
   float* dc;
-  bf16* dg;
+  CT* dg;
   float* dh_reg;
   int H;
   Reg reg;
   // reads its operands from global memory
   __device__ void operator()(int row, int unit, float dht) const {
     const size_t o = (size_t)row * H + unit;
-    const bf16* a = act + (size_t)row * 4 * H + unit;
-    apply(row, unit, dht, __bfloat162float(a[0]), __bfloat162float(a[H]),
-          __bfloat162float(a[2 * H]), __bfloat162float(a[3 * H]),
-          c_prev != nullptr ? __bfloat162float(c_prev[o]) : 0.0f, dc[o]);
+    const CT* a = act + (size_t)row * 4 * H + unit;
+    apply(row, unit, dht, to_float(a[0]), to_float(a[H]), to_float(a[2 * H]),
+          to_float(a[3 * H]), c_prev != nullptr ? to_float(c_prev[o]) : 0.0f,
+          dc[o]);
   }
   // on operands already read: the gates i, f, g, o, the previous c and dc
   __device__ void apply(int row, int unit, float dht, float i, float f,
@@ -596,21 +682,22 @@ struct CellBwd {
     const float dc_new = dc_state + dh_new * og * (1.0f - tanh_c * tanh_c);
     dc[o] = dc_prev + dc_new * f;
     dh_reg[o] = dh_prev;
-    bf16* d = dg + (size_t)row * 4 * H + unit;
-    d[0] = __float2bfloat16_rn(dc_new * gg * i * (1.0f - i));
-    d[H] = __float2bfloat16_rn(dc_new * cp * f * (1.0f - f));
-    d[2 * H] = __float2bfloat16_rn(dc_new * i * (1.0f - gg * gg));
-    d[3 * H] = __float2bfloat16_rn(dh_new * tanh_c * og * (1.0f - og));
+    CT* d = dg + (size_t)row * 4 * H + unit;
+    d[0] = from_float<CT>(dc_new * gg * i * (1.0f - i));
+    d[H] = from_float<CT>(dc_new * cp * f * (1.0f - f));
+    d[2 * H] = from_float<CT>(dc_new * i * (1.0f - gg * gg));
+    d[3 * H] = from_float<CT>(dh_new * tanh_c * og * (1.0f - og));
   }
 };
 
 // the dq @ Wq^T product's epilogue (N = H): dh_tot = add + v, the final sum
 // (splitk_kernel's own when K is whole, splitk_reduce_kernel's when it is
 // split, never a slice's partial), then the attention cell's backward
+template <class CT>
 struct CellOut {
   const float* add;
   int ldadd;
-  CellBwd cell;
+  CellBwd<CT> cell;
   __device__ __forceinline__ void put(int row, int col, float v) const {
     cell(row, col, add[(size_t)row * ldadd + col] + v);
   }
@@ -618,8 +705,8 @@ struct CellOut {
 
 // ---------------------------------------------------------------------------
 // bwd_head: the head backward (ops/pallas_train_decoder.py:731-743)
-//   dframe_tot = dspec + dframe  -> the da_frame stream (bf16)
-//   dproto = bf16(dframe_tot) @ W[:M] + dstop W[M]
+//   dframe_tot = dspec + dframe  -> the da_frame stream (compute type)
+//   dproto = round(dframe_tot) @ W[:M] + dstop W[M]
 //   dh_gen_tot = dh_gen + dproto[:, :H];  dctx_tot = dctx + dproto[:, H:]
 // With a cell (cell.act not null), the generator cell's backward (CellBwd)
 // runs on each dh_gen_tot value in the epilogue, and dh_gen_tot is not
@@ -633,18 +720,19 @@ struct CellOut {
 //
 // Bound on the H100: 2*B*(M+1)*(H+Mem) operations (10.7 M at B=50) and
 // 0.8 MB in and out, 0.23 us; what costs is latency and launches, so the
-// product is one launch on the tensor cores.  Block: the BH_BM rows of a
+// product is one launch.  Block: the BH_BM rows of a
 // row tile (grid y over the row tiles) by BH_BN columns of H + Mem (21 x 4
 // = 84 blocks at the flagship's 1316 and B=50: short row tiles spread the
 // fused cell's work, which is most of the block's, over the SMs).  Each block copies its
 // [M, BH_BN] weight tile as it lies with cp.async (rows past M zero),
 // reads the carries its outputs add to, and builds its A tile
-// bf16(dspec + dframe) [BH_BM, M] in shared memory from the float32 inputs
+// round(dspec + dframe) [BH_BM, M] in shared memory from the float32 inputs
 // with every 16-byte load in flight at once (the blocks of column 0 also
-// write da_frame), so that the three latencies overlap; four
+// write da_frame), so that the three latencies overlap.  In bf16 four
 // warps of 16 rows x 16 columns read the fragments with ldmatrix (.trans
 // for W) and run mma.sync m16n8k16 with float32 sums over K = M (zero-padded
-// to a multiple of 16).  The stop term stays in float32, as in the JAX
+// to a multiple of 16); in float32 a thread sums 8 outputs over K in FFMA.
+// The stop term stays in float32, as in the JAX
 // kernel, and the epilogue adds it in the plain version's order, each
 // operation rounded once: base + (acc + dstop * W[M]).
 // ---------------------------------------------------------------------------
@@ -652,20 +740,25 @@ constexpr int BH_BM = 16, BH_BN = 64, BH_THREADS = 128;
 // warps along the columns (16 each), and 16-row mma tiles a warp
 constexpr int BH_WN = BH_BN / 16;
 constexpr int BH_MT = BH_BM / 16 / (BH_THREADS / 32 / BH_WN);
-constexpr int BH_LD_N = BH_BN + 8;   // bf16 a row of the weight tile
 // float4 slots of the A tile a thread loads at once: the whole tile while
 // K_pad <= 128, so that every load is in flight before the first store
 constexpr int BH_SLOTS = 8;
 
-__host__ __device__ inline size_t bwd_head_smem(int kp) {
-  return (size_t)BH_BM * (kp + 8) * sizeof(bf16) +
-         (size_t)kp * BH_LD_N * sizeof(bf16) + (BH_BN + BH_BM) * sizeof(float);
+// elements a row of the A tile and of the weight tile, for elements of
+// `es` bytes (rows padded by 16 bytes)
+__host__ __device__ inline int bh_lda(int kp, int es) { return kp + 16 / es; }
+__host__ __device__ inline int bh_ldn(int es) { return BH_BN + 16 / es; }
+
+__host__ __device__ inline size_t bwd_head_smem(int kp, int es) {
+  return (size_t)BH_BM * bh_lda(kp, es) * es + (size_t)kp * bh_ldn(es) * es +
+         (BH_BN + BH_BM) * sizeof(float);
 }
 // the fused cell's tile after bwd_head_smem: its gates [BH_BM][4][BH_BN]
-// and c_prev [BH_BM][BH_BN] in bf16, dc and dh_gen_tot [BH_BM][BH_BN] in
-// float32
-constexpr size_t BH_CELL_SMEM =
-    (size_t)BH_BM * BH_BN * (5 * sizeof(bf16) + 2 * sizeof(float));
+// and c_prev [BH_BM][BH_BN] in the compute type, dc and dh_gen_tot
+// [BH_BM][BH_BN] in float32
+__host__ __device__ inline size_t bh_cell_smem(int es) {
+  return (size_t)BH_BM * BH_BN * (5 * es + 2 * sizeof(float));
+}
 
 // four consecutive floats of a row at p, zero past `n` of them; `vec`: p is
 // 16-byte aligned and n >= 4
@@ -680,24 +773,28 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p, int n,
   return v;
 }
 
+template <class CT>
 __global__ void __launch_bounds__(BH_THREADS)
 bwd_head_kernel(const float* __restrict__ dspec,
                 const float* __restrict__ dstop,
-                const float* __restrict__ dframe, const bf16* __restrict__ w,
-                int ldw, int wvec, int dvec, bf16* __restrict__ da_frame,
+                const float* __restrict__ dframe, const CT* __restrict__ w,
+                int ldw, int wvec, int dvec, CT* __restrict__ da_frame,
                 const float* __restrict__ dh_gen,
                 const float* __restrict__ dctx, float* __restrict__ dh_gen_tot,
                 float* __restrict__ dctx_tot, int B, int M, int kp, int H,
-                int Mem, CellBwd cell, int cvec) {
+                int Mem, CellBwd<CT> cell, int cvec) {
+  constexpr bool F32 = std::is_same<CT, float>::value;
+  constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t bh_smem[];
-  const int lda = kp + 8;                       // bf16 a row of the A tile
-  bf16* as = reinterpret_cast<bf16*>(bh_smem);  // [BH_BM][lda]
-  bf16* bs = as + BH_BM * lda;                  // [kp][BH_LD_N]
-  float* s_wm = reinterpret_cast<float*>(bs + kp * BH_LD_N);  // W[M] tile
+  const int lda = bh_lda(kp, sizeof(CT));       // a row of the A tile
+  const int ldn = bh_ldn(sizeof(CT));           // a row of the weight tile
+  CT* as = reinterpret_cast<CT*>(bh_smem);      // [BH_BM][lda]
+  CT* bs = as + BH_BM * lda;                    // [kp][ldn]
+  float* s_wm = reinterpret_cast<float*>(bs + kp * ldn);  // W[M] tile
   float* s_ds = s_wm + BH_BN;                   // dstop of the rows
   // the fused cell's operands and dh_gen_tot tile
-  bf16* s_act = reinterpret_cast<bf16*>(bh_smem + bwd_head_smem(kp));
-  bf16* s_cp = s_act + BH_BM * 4 * BH_BN;
+  CT* s_act = reinterpret_cast<CT*>(bh_smem + bwd_head_smem(kp, sizeof(CT)));
+  CT* s_cp = s_act + BH_BM * 4 * BH_BN;
   float* s_dc = reinterpret_cast<float*>(s_cp + BH_BM * BH_BN);
   float* s_dht = s_dc + BH_BM * BH_BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -706,48 +803,54 @@ bwd_head_kernel(const float* __restrict__ dspec,
   const int wm = (warp / BH_WN) * 16 * BH_MT, wn = (warp % BH_WN) * 16;
   const bool fused = cell.act != nullptr && col0 < H;
 
-  for (int p = tid; p < kp * (BH_BN / 8); p += BH_THREADS) {
-    const int k = p / (BH_BN / 8), c = (p % (BH_BN / 8)) * 8;
-    load8(bs + k * BH_LD_N + c, w, ldw, k, col0 + c, M, N, wvec);
+  for (int p = tid; p < kp * (BH_BN / V); p += BH_THREADS) {
+    const int k = p / (BH_BN / V), c = (p % (BH_BN / V)) * V;
+    load16(bs + k * ldn + c, w, ldw, k, col0 + c, M, N, wvec);
   }
   if (fused) {
     const int rows = min(BH_BM, B - row0);
-    for (int p = tid; p < rows * (BH_BN / 8); p += BH_THREADS) {
-      const int r = p / (BH_BN / 8), c = (p % (BH_BN / 8)) * 8;
+    for (int p = tid; p < rows * (BH_BN / V); p += BH_THREADS) {
+      const int r = p / (BH_BN / V), c = (p % (BH_BN / V)) * V;
       const int row = row0 + r;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        load8(s_act + (r * 4 + q) * BH_BN + c, cell.act + (size_t)q * H,
-              4 * H, row, col0 + c, B, H, cvec);
+        load16(s_act + (r * 4 + q) * BH_BN + c, cell.act + (size_t)q * H,
+               4 * H, row, col0 + c, B, H, cvec);
       if (cell.c_prev != nullptr)
-        load8(s_cp + r * BH_BN + c, cell.c_prev, H, row, col0 + c, B, H,
-              cvec);
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-        load4f(s_dc + r * BH_BN + c + 4 * q,
-               cell.dc + (size_t)row * H, col0 + c + 4 * q, H, cvec);
+        load16(s_cp + r * BH_BN + c, cell.c_prev, H, row, col0 + c, B, H,
+               cvec);
+    }
+    for (int p = tid; p < rows * (BH_BN / 4); p += BH_THREADS) {
+      const int r = p / (BH_BN / 4), c = (p % (BH_BN / 4)) * 4;
+      load4f(s_dc + r * BH_BN + c, cell.dc + (size_t)(row0 + r) * H,
+             col0 + c, H, cvec);
     }
   }
   cp_async_commit();
 
-  // the carries this thread adds its outputs to, read now so that their
-  // latency overlaps the A tile's
+  // the carry an output (row0 + r, col0 + c) adds to
+  auto carry_at = [&](int r, int c) -> float {
+    const int row = row0 + r, col = col0 + c;
+    return row >= B || col >= N ? 0.0f
+           : col < H            ? dh_gen[(size_t)row * H + col]
+                                : dctx[(size_t)row * Mem + col - H];
+  };
+  // the bf16 products' carries, read now so that their latency overlaps the
+  // A tile's
   float base[BH_MT][2][4];
+  if constexpr (!F32) {
 #pragma unroll
-  for (int mt = 0; mt < BH_MT; ++mt)
+    for (int mt = 0; mt < BH_MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
-        base[mt][nt][e] =
-            row >= B || col >= N ? 0.0f
-            : col < H            ? dh_gen[(size_t)row * H + col]
-                                 : dctx[(size_t)row * Mem + col - H];
-      }
+        for (int e = 0; e < 4; ++e)
+          base[mt][nt][e] =
+              carry_at(wm + mt * 16 + (lane >> 2) + (e >> 1) * 8,
+                       wn + nt * 8 + 2 * (lane & 3) + (e & 1));
+  }
 
-  // the A tile bf16(dspec + dframe), four columns a slot; the blocks of
+  // the A tile round(dspec + dframe), four columns a slot; the blocks of
   // column 0 also write da_frame
   const int row_slots = kp / 4, slots = BH_BM * row_slots;
   for (int p0 = 0; p0 < slots; p0 += BH_SLOTS * BH_THREADS) {
@@ -768,16 +871,22 @@ bwd_head_kernel(const float* __restrict__ dspec,
       const int p = p0 + tid + j * BH_THREADS;
       if (p >= slots) continue;
       const int r = p / row_slots, k = (p % row_slots) * 4, row = row0 + r;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(x[j].x + y[j].x,
-                                                      x[j].y + y[j].y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x[j].z + y[j].z,
-                                                      x[j].w + y[j].w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(as + r * lda + k) = packed;
+      const float4 s4 = make_float4(x[j].x + y[j].x, x[j].y + y[j].y,
+                                    x[j].z + y[j].z, x[j].w + y[j].w);
+      CT v[4];
+      if constexpr (F32) {
+        *reinterpret_cast<float4*>(as + r * lda + k) = s4;
+        v[0] = s4.x, v[1] = s4.y, v[2] = s4.z, v[3] = s4.w;
+      } else {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(s4.x, s4.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s4.z, s4.w);
+        uint2 packed;
+        packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+        packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(as + r * lda + k) = packed;
+        v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+      }
       if (blockIdx.x == 0 && row < B) {
-        const bf16 v[4] = {lo.x, lo.y, hi.x, hi.y};
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           if (k + q < M) da_frame[(size_t)row * M + k + q] = v[q];
@@ -785,71 +894,82 @@ bwd_head_kernel(const float* __restrict__ dspec,
     }
   }
   for (int c = tid; c < BH_BN; c += BH_THREADS)
-    s_wm[c] = col0 + c < N ? bf16_at(w, (size_t)M * ldw + col0 + c) : 0.0f;
+    s_wm[c] = col0 + c < N ? to_float(w[(size_t)M * ldw + col0 + c]) : 0.0f;
   for (int r = tid; r < BH_BM; r += BH_THREADS)
     s_ds[r] = row0 + r < B ? dstop[row0 + r] : 0.0f;
   cp_async_wait<0>();
   __syncthreads();
 
-  float acc[BH_MT][2][4];
+  // output (r, c) of the tile from its product sum and carry
+  auto finish = [&](int r, int c, float acc, float carry) {
+    const int row = row0 + r, col = col0 + c;
+    if (row >= B || col >= N) return;
+    const float dp = __fadd_rn(acc, __fmul_rn(s_ds[r], s_wm[c]));
+    const float v = carry + dp;
+    if (col >= H)
+      dctx_tot[(size_t)row * Mem + col - H] = v;
+    else if (fused)
+      s_dht[r * BH_BN + c] = v;
+    else
+      dh_gen_tot[(size_t)row * H + col] = v;
+  };
+  if constexpr (F32) {
+    // a thread sums 8 outputs over K in k order: a warp's lanes on
+    // consecutive columns of one row
+    for (int p = tid; p < BH_BM * BH_BN; p += BH_THREADS) {
+      const int r = p / BH_BN, c = p % BH_BN;
+      const float* ar = as + r * lda;
+      float acc = 0.0f;
+      for (int k = 0; k < kp; ++k) acc = fmaf(ar[k], bs[k * ldn + c], acc);
+      finish(r, c, acc, carry_at(r, c));
+    }
+  } else {
+    float acc[BH_MT][2][4];
 #pragma unroll
-  for (int i = 0; i < BH_MT; ++i)
+    for (int i = 0; i < BH_MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-  for (int kk = 0; kk < kp; kk += 16) {
-    uint32_t af[BH_MT][4], bfr[2][2], r[4];
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+    for (int kk = 0; kk < kp; kk += 16) {
+      uint32_t af[BH_MT][4], bfr[2][2], r[4];
+#pragma unroll
+      for (int mt = 0; mt < BH_MT; ++mt)
+        ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
+                              ((lane >> 3) & 1) * 8) * lda +
+                            kk + (lane >> 4) * 8);
+      ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ldn +
+                            wn + (lane >> 4) * 8);
+      bfr[0][0] = r[0];
+      bfr[0][1] = r[1];
+      bfr[1][0] = r[2];
+      bfr[1][1] = r[3];
+#pragma unroll
+      for (int mt = 0; mt < BH_MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+    }
 #pragma unroll
     for (int mt = 0; mt < BH_MT; ++mt)
-      ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
-                            ((lane >> 3) & 1) * 8) * lda +
-                          kk + (lane >> 4) * 8);
-    ldsm_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              BH_LD_N +
-                          wn + (lane >> 4) * 8);
-    bfr[0][0] = r[0];
-    bfr[0][1] = r[1];
-    bfr[1][0] = r[2];
-    bfr[1][1] = r[3];
 #pragma unroll
-    for (int mt = 0; mt < BH_MT; ++mt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+        for (int e = 0; e < 4; ++e)
+          finish(wm + mt * 16 + (lane >> 2) + (e >> 1) * 8,
+                 wn + nt * 8 + 2 * (lane & 3) + (e & 1), acc[mt][nt][e],
+                 base[mt][nt][e]);
   }
-
-#pragma unroll
-  for (int mt = 0; mt < BH_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int c = wn + nt * 8 + 2 * (lane & 3) + (e & 1);
-        const int row = row0 + r, col = col0 + c;
-        if (row >= B || col >= N) continue;
-        const float dp =
-            __fadd_rn(acc[mt][nt][e], __fmul_rn(s_ds[r], s_wm[c]));
-        const float v = base[mt][nt][e] + dp;
-        if (col >= H)
-          dctx_tot[(size_t)row * Mem + col - H] = v;
-        else if (fused)
-          s_dht[r * BH_BN + c] = v;
-        else
-          dh_gen_tot[(size_t)row * H + col] = v;
-      }
   if (!fused) return;
   __syncthreads();
   for (int p = tid; p < BH_BM * BH_BN; p += BH_THREADS) {
     const int r = p / BH_BN, c = p % BH_BN;
     const int row = row0 + r, col = col0 + c;
     if (row >= B || col >= H) continue;
-    const bf16* a = s_act + r * 4 * BH_BN + c;
-    cell.apply(row, col, s_dht[p], __bfloat162float(a[0]),
-               __bfloat162float(a[BH_BN]), __bfloat162float(a[2 * BH_BN]),
-               __bfloat162float(a[3 * BH_BN]),
-               cell.c_prev != nullptr ? __bfloat162float(s_cp[p]) : 0.0f,
-               s_dc[p]);
+    const CT* a = s_act + r * 4 * BH_BN + c;
+    cell.apply(row, col, s_dht[p], to_float(a[0]), to_float(a[BH_BN]),
+               to_float(a[2 * BH_BN]), to_float(a[3 * BH_BN]),
+               cell.c_prev != nullptr ? to_float(s_cp[p]) : 0.0f, s_dc[p]);
   }
 }
 
@@ -857,8 +977,9 @@ bwd_head_kernel(const float* __restrict__ dspec,
 // bwd_cell: the cell backward alone (CellBwd), one thread per (row, unit);
 // the training path runs it fused into bwd_head and the dq @ Wq^T product
 // ---------------------------------------------------------------------------
+template <class CT>
 __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
-                                CellBwd cell) {
+                                CellBwd<CT> cell) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= B * cell.H) return;
   cell(idx / cell.H, idx % cell.H, dh_tot[idx]);
@@ -914,6 +1035,19 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 // adds to next, as dlin wx; each CTA a 1/cl share of h_att's and x's.
 // Bound: the bytes of memory, mtb and the dmt accumulator's read and write
 // (3.7 us at B=50, T=128), as the location-sensitive backward's.
+//
+// In float32 (CT float) nothing is rounded and the location conv's three
+// products run on the CUDA cores from float32 cum, lc and dz: dz a thread a
+// channel down its share of the tile (two shares at A = 128), loc from
+// band_loc_f32; dlc's partial a thread a (tap, channel) over the tile; P a
+// warp a position, a lane a tap (lc rows of A + 1 floats: the lanes' taps in
+// distinct banks).
+//
+// Long texts: the tile grows with T (att_bwd_tiles); every per-position row
+// lives in shared memory (about 410 bytes a position in bf16 and 650 in
+// float32 at A = 128, location-sensitive), which bounds T at about 3,900
+// (bf16) and 2,300 (float32) positions at the flagship's widths; the
+// launcher refuses a tile that does not fit.
 // ---------------------------------------------------------------------------
 constexpr int AB_THREADS = 256, AB_WARPS = AB_THREADS / 32;
 
@@ -931,61 +1065,68 @@ struct AbFam {
   int H, P;
 };
 
-// shared-memory layout of att_bwd_kernel (byte offsets); the forward family
-// needs no band operands but five float rows of its tile and the tile's
-// energy terms
+// shared-memory layout of att_bwd_kernel (byte offsets) for compute-type
+// elements of `es` bytes; the forward family needs no band operands but
+// five float rows of its tile and the tile's energy terms.  lc's rows: ld
+// elements (bf16 A + 8, for ldmatrix; float32 A + 1); dz's: ldz (bf16 A +
+// 8; float32 A); float32 keeps `groups` partial rows of dv and dq
 struct AbLayout {
-  int ld;
+  int ld, ldz, groups;
   size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, red, s1, fam,
       tz, total;
-  __host__ __device__ AbLayout(int tile, int A, int Mem, bool family) {
-    ld = A + 8;
+  __host__ __device__ AbLayout(int tile, int A, int Mem, bool family, int es) {
+    const bool f32 = es == 4;
+    ld = f32 ? A + 1 : A + 8;
+    ldz = f32 ? A : A + 8;
+    groups = f32 && !family && A <= AB_THREADS ? AB_THREADS / A : 1;
     lc = 0;
-    dz = lc + (family ? 0 : align16((size_t)BAND_K * ld * 2));
-    p = dz + (family ? 0 : align16((size_t)tile * ld * 2));
+    dz = lc + (family ? 0 : align16((size_t)BAND_K * ld * es));
+    p = dz + (family ? 0 : align16((size_t)tile * ldz * es));
     dlcp = p + (family ? 0 : align16((size_t)tile * BAND_K * 4));
     q = dlcp + (family ? 0 : align16((size_t)BAND_K * A * 4));
     v = q + align16((size_t)A * 4);
     dvp = v + align16((size_t)A * 4);
-    dqp = dvp + align16((size_t)A * 4);
-    w = dqp + align16((size_t)A * 4);
+    dqp = dvp + align16((size_t)groups * A * 4);
+    w = dqp + align16((size_t)groups * A * 4);
     de = w + align16((size_t)tile * 4);
     dctx = de + align16((size_t)tile * 4);
     cum = dctx + align16((size_t)Mem * 4);
-    red = cum + (family ? 0 : align16((size_t)(tile + BAND_K) * 2));
+    red = cum + (family ? 0 : align16((size_t)(tile + BAND_K) * es));
     s1 = red + 32 * 4;
     fam = s1 + 32;
     tz = fam + (family ? align16((size_t)5 * tile * 4) : 0);
-    total = tz + (family ? align16((size_t)tile * A * 2) : 0);
+    total = tz + (family ? align16((size_t)tile * A * es) : 0);
   }
 };
 
-template <int KIND>
+template <int KIND, class CT>
 __global__ void __launch_bounds__(AB_THREADS)
-att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
-               const float* __restrict__ w_s, const bf16* __restrict__ memory,
-               const bf16* __restrict__ mtb, const bf16* __restrict__ lc,
+att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
+               const float* __restrict__ w_s, const CT* __restrict__ memory,
+               const CT* __restrict__ mtb, const CT* __restrict__ lc,
                const float* __restrict__ v, const float* __restrict__ dctx,
                const float* __restrict__ dw_out, float* __restrict__ dcum,
                float* __restrict__ dmt, float* __restrict__ dlc,
-               float* __restrict__ dv, bf16* __restrict__ dq_out,
-               bf16* __restrict__ dctx_out, int T, int A, int Mem, int K,
+               float* __restrict__ dv, CT* __restrict__ dq_out,
+               CT* __restrict__ dctx_out, int T, int A, int Mem, int K,
                int tile, int cl, AbFam fa) {
+  constexpr bool F32 = std::is_same<CT, float>::value;
+  constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t ab_smem[];
-  const AbLayout L(tile, A, Mem, KIND != ATT_LS);
-  const int ld = L.ld;
-  bf16* s_lc = reinterpret_cast<bf16*>(ab_smem + L.lc);        // [32][ld]
-  bf16* s_dz = reinterpret_cast<bf16*>(ab_smem + L.dz);        // [tile][ld]
+  const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT));
+  const int ld = L.ld, ldz = L.ldz;
+  CT* s_lc = reinterpret_cast<CT*>(ab_smem + L.lc);            // [32][ld]
+  CT* s_dz = reinterpret_cast<CT*>(ab_smem + L.dz);            // [tile][ldz]
   float* s_p = reinterpret_cast<float*>(ab_smem + L.p);        // [tile][32]
   float* s_dlcp = reinterpret_cast<float*>(ab_smem + L.dlcp);  // [32][A]
   float* s_q = reinterpret_cast<float*>(ab_smem + L.q);
   float* s_v = reinterpret_cast<float*>(ab_smem + L.v);
-  float* s_dvp = reinterpret_cast<float*>(ab_smem + L.dvp);
-  float* s_dqp = reinterpret_cast<float*>(ab_smem + L.dqp);
+  float* s_dvp = reinterpret_cast<float*>(ab_smem + L.dvp);    // [groups][A]
+  float* s_dqp = reinterpret_cast<float*>(ab_smem + L.dqp);    // [groups][A]
   float* s_w = reinterpret_cast<float*>(ab_smem + L.w);        // [tile]
   float* s_de = reinterpret_cast<float*>(ab_smem + L.de);      // [tile]
   float* s_dctx = reinterpret_cast<float*>(ab_smem + L.dctx);  // [Mem]
-  bf16* s_cum = reinterpret_cast<bf16*>(ab_smem + L.cum);      // [tile + 32]
+  CT* s_cum = reinterpret_cast<CT*>(ab_smem + L.cum);          // [tile + 32]
   float* s_red = reinterpret_cast<float*>(ab_smem + L.red);
   // [0] sum_t dw w; the forward family: [1] max, [2] the softmax's sum,
   // [3] the renorm's sum, [4] sum_t denergy energy, [5] dtp, [6] the halo
@@ -997,7 +1138,7 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
   float* s_comb = s_en + tile;
   float* s_wm = s_comb + tile;
   float* s_dcb = s_wm + tile;
-  bf16* s_tz = reinterpret_cast<bf16*>(ab_smem + L.tz);        // [tile][A]
+  CT* s_tz = reinterpret_cast<CT*>(ab_smem + L.tz);            // [tile][A]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
@@ -1015,10 +1156,9 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
     band_stage_cum(s_cum, tile + BAND_K, cum_s + rowT, t_lo, half, T);
   } else {
     for (int i = tid; i < tile; i += AB_THREADS)
-      s_prev[i] = t_lo + i < T ? __bfloat162float(cum_s[rowT + t_lo + i])
-                               : 0.0f;
+      s_prev[i] = t_lo + i < T ? to_float(cum_s[rowT + t_lo + i]) : 0.0f;
     if (tid == 0)
-      s_s1[6] = t_lo > 0 ? __bfloat162float(cum_s[rowT + t_lo - 1]) : 0.0f;
+      s_s1[6] = t_lo > 0 ? to_float(cum_s[rowT + t_lo - 1]) : 0.0f;
   }
   for (int i = tid; i < tile; i += AB_THREADS)
     s_w[i] = t_lo + i < T ? w_s[rowT + t_lo + i] : 0.0f;
@@ -1043,7 +1183,7 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
     float d = dctx[(size_t)b * Mem + m];
     if constexpr (KIND == ATT_FWD_TRANS) d += dlin * fa.w[m];
     s_dctx[m] = d;
-    if (rank == 0) dctx_out[(size_t)b * Mem + m] = __float2bfloat16_rn(d);
+    if (rank == 0) dctx_out[(size_t)b * Mem + m] = from_float<CT>(d);
   }
   __syncthreads();
 
@@ -1052,22 +1192,21 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
     const int t = t_lo + i;
     float part = 0.0f;
     if (t < T) {
-      const bf16* row = memory + (rowT + t) * Mem;
-      const int head = min(Mem, (int)((16 - ((uintptr_t)row & 15)) & 15) / 2);
-      const int body = (Mem - head) / 8, rest = head + 8 * body;
+      const CT* row = memory + (rowT + t) * Mem;
+      const int head = min(
+          Mem, (int)((16 - ((uintptr_t)row & 15)) & 15) / (int)sizeof(CT));
+      const int body = (Mem - head) / V, rest = head + V * body;
       for (int c = lane; c < body; c += 32) {
-        const uint4 u = *reinterpret_cast<const uint4*>(row + head + 8 * c);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-        const float* d = s_dctx + head + 8 * c;
+        float x[V];
+        chunk_floats(x, *reinterpret_cast<const uint4*>(row + head + V * c),
+                     row);
+        const float* d = s_dctx + head + V * c;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          part = fmaf(__low2float(h2[j]), d[2 * j], part);
-          part = fmaf(__high2float(h2[j]), d[2 * j + 1], part);
-        }
+        for (int j = 0; j < V; ++j) part = fmaf(x[j], d[j], part);
       }
-      if (lane < head) part = fmaf(bf16_at(row, lane), s_dctx[lane], part);
+      if (lane < head) part = fmaf(to_float(row[lane]), s_dctx[lane], part);
       if (rest + lane < Mem)
-        part = fmaf(bf16_at(row, rest + lane), s_dctx[rest + lane], part);
+        part = fmaf(to_float(row[rest + lane]), s_dctx[rest + lane], part);
     }
     part = warp_sum(part);
     if (lane == 0)
@@ -1081,20 +1220,30 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
 
   if constexpr (KIND != ATT_LS) {
     // the energies of the tile's positions, a warp a position; their
-    // bf16 tanh terms kept for dz
+    // tanh terms kept for dz
     for (int i = warp; i < tile; i += AB_WARPS) {
       const int t = t_lo + i;
       float e = 0.0f;
       if (t < T) {
-        for (int a = 2 * lane; a < A; a += 64) {
-          const __nv_bfloat162 m2 = *reinterpret_cast<const __nv_bfloat162*>(
-              mtb + (rowT + t) * A + a);
-          const float tz0 = fwd_energy_tanh(s_q[a], __low2float(m2));
-          const float tz1 = fwd_energy_tanh(s_q[a + 1], __high2float(m2));
-          *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
-              __floats2bfloat162_rn(tz0, tz1);
-          e = fmaf(s_v[a], tz0, e);
-          e = fmaf(s_v[a + 1], tz1, e);
+        if constexpr (F32) {
+          for (int a = lane; a < A; a += 32) {
+            const float tz = fwd_energy_tanh<CT>(s_q[a],
+                                                 mtb[(rowT + t) * A + a]);
+            s_tz[i * A + a] = tz;
+            e = fmaf(s_v[a], tz, e);
+          }
+        } else {
+          for (int a = 2 * lane; a < A; a += 64) {
+            const __nv_bfloat162 m2 =
+                *reinterpret_cast<const __nv_bfloat162*>(mtb + (rowT + t) * A +
+                                                         a);
+            const float tz0 = fwd_energy_tanh(s_q[a], __low2float(m2));
+            const float tz1 = fwd_energy_tanh(s_q[a + 1], __high2float(m2));
+            *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
+                __floats2bfloat162_rn(tz0, tz1);
+            e = fmaf(s_v[a], tz0, e);
+            e = fmaf(s_v[a + 1], tz1, e);
+          }
         }
       }
       e = warp_sum(e);
@@ -1180,8 +1329,8 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
                                        : cluster_peer(s_dcb, rank + 1)[0];
       const float dcb = s_dcb[i];
       dcum[rowT + t] = KIND == ATT_FWD_TRANS
-                           ? (1.0f - tp) * dcb + round_bf16(tp * nxt)
-                           : dcb + round_bf16(nxt);
+                           ? (1.0f - tp) * dcb + round_to<CT>(tp * nxt)
+                           : dcb + round_to<CT>(nxt);
     }
     if (KIND == ATT_FWD_TRANS && rank == 0 && tid == 0) fa.dtp[b] = pt;
     __syncthreads();
@@ -1191,7 +1340,7 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
       const float va = s_v[a];
       float pdv = 0.0f, pdq = 0.0f;
       for (int i = 0; i < rows; ++i) {
-        const float tz = __bfloat162float(s_tz[i * A + a]);
+        const float tz = to_float(s_tz[i * A + a]);
         const float de = s_de[i];
         const float dz = de * va * (1.0f - tz * tz);
         dmt[(rowT + t_lo + i) * A + a] += dz;
@@ -1209,91 +1358,149 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
     for (int i = tid; i < tile; i += AB_THREADS)
       s_de[i] = s_w[i] * (s_de[i] - s1);
     __syncthreads();
-    // dz over (position, channel): the band product loc = band(cum) @ lc, a
-    // warp per 8 channels down the tile
-    const int mtiles = tile / 16;
-    for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
-      const int a = n0 + 2 * qd;
-      const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a], v1 = s_v[a + 1];
-      float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
-      for (int mt = 0; mt < mtiles; ++mt) {
-        uint32_t af[2][4];
-        band_frags(af, s_cum + mt * 16, lane);
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        band_loc(acc, af, s_lc, ld, n0, lane);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = mt * 16 + g + 8 * h, t = t_lo + i;
-          float dz0 = 0.0f, dz1 = 0.0f;
+    if constexpr (F32) {
+      // dz over (position, channel): `groups` shares of the tile's
+      // positions, a thread a channel down its share; loc from the float32
+      // band, nothing rounded
+      const int groups = L.groups;
+      for (int slot = tid; slot < groups * A; slot += AB_THREADS) {
+        const int grp = slot / A, a = slot - grp * A;
+        const float qa = s_q[a], va = s_v[a];
+        float pdv = 0.0f, pdq = 0.0f;
+        for (int i = grp; i < tile; i += groups) {
+          const int t = t_lo + i;
+          float dz = 0.0f;
           if (t < T) {
             const size_t o = (rowT + t) * A + a;
-            const __nv_bfloat162 m2 =
-                *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
-            const float tz0 = band_energy_tanh(acc[2 * h], q0, __low2float(m2));
-            const float tz1 =
-                band_energy_tanh(acc[2 * h + 1], q1, __high2float(m2));
+            const float loc = band_loc_f32(s_cum + i, s_lc + a, ld);
+            const float tz = tanhf((loc + qa) + mtb[o]);
             const float de = s_de[i];
-            dz0 = de * v0 * (1.0f - tz0 * tz0);
-            dz1 = de * v1 * (1.0f - tz1 * tz1);
-            float2* pm = reinterpret_cast<float2*>(dmt + o);
-            float2 old = *pm;
-            old.x += dz0;
-            old.y += dz1;
-            *pm = old;
-            pdv0 = fmaf(tz0, de, pdv0);
-            pdv1 = fmaf(tz1, de, pdv1);
-            pdq0 += dz0;
-            pdq1 += dz1;
+            dz = de * va * (1.0f - tz * tz);
+            dmt[o] += dz;
+            pdv = fmaf(tz, de, pdv);
+            pdq += dz;
           }
-          *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ld + a) =
-              __floats2bfloat162_rn(dz0, dz1);
+          s_dz[i * ldz + a] = dz;
+        }
+        s_dvp[grp * A + a] = pdv;
+        s_dqp[grp * A + a] = pdq;
+      }
+      __syncthreads();
+      // the shares' partials in share order (each column its own thread's)
+      for (int a = tid; a < A && groups > 1; a += AB_THREADS) {
+        float sv = s_dvp[a], sq = s_dqp[a];
+        for (int j = 1; j < groups; ++j) {
+          sv += s_dvp[j * A + a];
+          sq += s_dqp[j * A + a];
+        }
+        s_dvp[a] = sv;
+        s_dqp[a] = sq;
+      }
+      // dlc's partial band(cum)^T @ dz: a thread a (tap, channel)
+      for (int idx = tid; idx < BAND_K * A; idx += AB_THREADS) {
+        const int k = idx / A, a = idx - k * A;
+        float acc = 0.0f;
+        for (int i = 0; i < tile; ++i)
+          acc = fmaf(s_cum[i + k], s_dz[i * ldz + a], acc);
+        s_dlcp[idx] = acc;
+      }
+      // P = dz @ lc^T, [tile][32]: a warp a position, a lane a tap
+      for (int i = warp; i < tile; i += AB_WARPS) {
+        const float* dzr = s_dz + i * ldz;
+        const float* lcr = s_lc + lane * ld;
+        float acc = 0.0f;
+        for (int a = 0; a < A; ++a) acc = fmaf(dzr[a], lcr[a], acc);
+        s_p[i * BAND_K + lane] = acc;
+      }
+    } else {
+      // dz over (position, channel): the band product loc = band(cum) @
+      // lc, a warp per 8 channels down the tile
+      const int mtiles = tile / 16;
+      for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+        const int a = n0 + 2 * qd;
+        const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a],
+                    v1 = s_v[a + 1];
+        float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
+        for (int mt = 0; mt < mtiles; ++mt) {
+          uint32_t af[2][4];
+          band_frags(af, s_cum + mt * 16, lane);
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          band_loc(acc, af, s_lc, ld, n0, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = mt * 16 + g + 8 * h, t = t_lo + i;
+            float dz0 = 0.0f, dz1 = 0.0f;
+            if (t < T) {
+              const size_t o = (rowT + t) * A + a;
+              const __nv_bfloat162 m2 =
+                  *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
+              const float tz0 =
+                  band_energy_tanh(acc[2 * h], q0, __low2float(m2));
+              const float tz1 =
+                  band_energy_tanh(acc[2 * h + 1], q1, __high2float(m2));
+              const float de = s_de[i];
+              dz0 = de * v0 * (1.0f - tz0 * tz0);
+              dz1 = de * v1 * (1.0f - tz1 * tz1);
+              float2* pm = reinterpret_cast<float2*>(dmt + o);
+              float2 old = *pm;
+              old.x += dz0;
+              old.y += dz1;
+              *pm = old;
+              pdv0 = fmaf(tz0, de, pdv0);
+              pdv1 = fmaf(tz1, de, pdv1);
+              pdq0 += dz0;
+              pdq1 += dz1;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ldz + a) =
+                __floats2bfloat162_rn(dz0, dz1);
+          }
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
+          pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
+          pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
+          pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
+        }
+        if (g == 0) {
+          s_dvp[a] = pdv0;
+          s_dvp[a + 1] = pdv1;
+          s_dqp[a] = pdq0;
+          s_dqp[a + 1] = pdq1;
         }
       }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
-        pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
-        pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
-        pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
-      }
-      if (g == 0) {
-        s_dvp[a] = pdv0;
-        s_dvp[a + 1] = pdv1;
-        s_dqp[a] = pdq0;
-        s_dqp[a + 1] = pdq1;
-      }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // dlc's partial band(cum)^T @ bf16(dz), a warp per 16 channels, both
-    // halves of the 32 taps
-    for (int n0 = warp * 16; n0 < A; n0 += AB_WARPS * 16) {
-      float acc[2][2][4] = {};
-      for (int mt = 0; mt < mtiles; ++mt)
+      // dlc's partial band(cum)^T @ bf16(dz), a warp per 16 channels, both
+      // halves of the 32 taps
+      for (int n0 = warp * 16; n0 < A; n0 += AB_WARPS * 16) {
+        float acc[2][2][4] = {};
+        for (int mt = 0; mt < mtiles; ++mt)
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh)
+            band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ldz,
+                     ldz, n0, lane);
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
-          band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ld, ld,
-                   n0, lane);
 #pragma unroll
-      for (int kh = 0; kh < 2; ++kh)
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + nt * 8 + 2 * qd +
+                     (e & 1)] = acc[kh][nt][e];
+      }
+      // P = bf16(dz) @ lc^T, [tile][32]: a warp per 16 positions x 16 taps
+      for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
+        const int mt = it >> 1, kh = it & 1;
+        float acc[2][4] = {};
+        band_p(acc, s_dz + mt * 16 * ldz, s_lc, ld, kh * 16, A, lane);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + nt * 8 + 2 * qd +
-                   (e & 1)] = acc[kh][nt][e];
-    }
-    // P = bf16(dz) @ lc^T, [tile][32]: a warp per 16 positions x 16 taps
-    for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
-      const int mt = it >> 1, kh = it & 1;
-      float acc[2][4] = {};
-      band_p(acc, s_dz + mt * 16 * ld, s_lc, ld, kh * 16, A, lane);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s_p[(mt * 16 + g + 8 * (e >> 1)) * BAND_K + kh * 16 + nt * 8 +
-              2 * qd + (e & 1)] = acc[nt][e];
+            s_p[(mt * 16 + g + 8 * (e >> 1)) * BAND_K + kh * 16 + nt * 8 +
+                2 * qd + (e & 1)] = acc[nt][e];
+      }
     }
     cluster_sync();
 
@@ -1326,7 +1533,7 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
       sq += cluster_peer(s_dqp, j)[a];
     }
     dv[(size_t)b * A + a] += sv;
-    dq_out[(size_t)b * A + a] = __float2bfloat16_rn(sq);
+    dq_out[(size_t)b * A + a] = from_float<CT>(sq);
   }
   // no CTA leaves while its peers may still read its shared memory
   cluster_sync();
@@ -1360,6 +1567,10 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
 // m16n8k16 with float32 sums.  Two slices alternate, so one barrier a
 // layer suffices.  No float atomics: a run repeats bit for bit.
 //
+// In float32 the da rows, weights and masks are float32 and a thread sums
+// one output of dx over K in FFMA (float4 reads of the da row and the
+// weight row), the gather moving float32 rows.
+//
 // Bound on the H100: 2*B*(M*P + (n-1)*P*P) operations (8.6 M at B=50, two
 // layers) and the weights, masks and cotangents once (0.35 MB), 0.10 us:
 // what costs is latency, so each CTA reads only its slices of the weights
@@ -1368,41 +1579,46 @@ att_bwd_kernel(const float* __restrict__ q, const bf16* __restrict__ cum_s,
 // ---------------------------------------------------------------------------
 constexpr int BP_ROWS = 16, BP_THREADS = 256, BP_WARPS = BP_THREADS / 32;
 
-// shared-memory layout of bwd_prenet_kernel (byte offsets)
+// shared-memory layout of bwd_prenet_kernel (byte offsets) for elements of
+// `es` bytes; rows padded by 16 bytes
 struct BpLayout {
   int kp, ldw, ldo;
   size_t w, pre, dx, a, own, total;
-  __host__ __device__ BpLayout(int P, int np, int n0, int n_layers) {
+  __host__ __device__ BpLayout(int P, int np, int n0, int n_layers, int es) {
     kp = (P + 31) / 32 * 32;   // K of every layer's product, zero-padded
-    ldw = kp + 8;              // bf16 a row of the weights and of da
-    ldo = np + 8;              // bf16 a row of a slice
+    ldw = kp + 16 / es;        // elements a row of the weights and of da
+    ldo = np + 16 / es;        // elements a row of a slice
     w = 0;
-    pre = w + align16((size_t)(n0 + (n_layers - 1) * np) * ldw * 2);
-    dx = pre + align16((size_t)n_layers * BP_ROWS * ldo * 2);
+    pre = w + align16((size_t)(n0 + (n_layers - 1) * np) * ldw * es);
+    dx = pre + align16((size_t)n_layers * BP_ROWS * ldo * es);
     a = dx + align16((size_t)BP_ROWS * np * 4);
-    own = a + align16((size_t)BP_ROWS * ldw * 2);
-    total = own + 2 * align16((size_t)BP_ROWS * ldo * 2);
+    own = a + align16((size_t)BP_ROWS * ldw * es);
+    total = own + 2 * align16((size_t)BP_ROWS * ldo * es);
   }
 };
 
+template <class CT>
 __global__ void __launch_bounds__(BP_THREADS)
 bwd_prenet_kernel(const float* __restrict__ dx_in,
-                  int dvec, const bf16* __restrict__ pre_s,
+                  int dvec, const CT* __restrict__ pre_s,
                   long long pre_stride, int pvec,
-                  const bf16* __restrict__ w_all, int wvec,
-                  bf16* __restrict__ da_s, long long da_stride,
-                  bf16* __restrict__ dshift, float* __restrict__ dframe,
+                  const CT* __restrict__ w_all, int wvec,
+                  CT* __restrict__ da_s, long long da_stride,
+                  CT* __restrict__ dshift, float* __restrict__ dframe,
                   int teacher, int B, int in_dim, int P, int n_layers,
                   float scale, int cl, int np, int n0) {
+  constexpr bool F32 = std::is_same<CT, float>::value;
+  constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t bp_smem[];
-  const BpLayout L(P, np, n0, n_layers);
+  const BpLayout L(P, np, n0, n_layers, sizeof(CT));
   const int ldw = L.ldw, ldo = L.ldo, kp = L.kp;
-  bf16* s_w = reinterpret_cast<bf16*>(bp_smem + L.w);      // layers' rows
-  bf16* s_pre = reinterpret_cast<bf16*>(bp_smem + L.pre);  // [n][ROWS][ldo]
+  CT* s_w = reinterpret_cast<CT*>(bp_smem + L.w);          // layers' rows
+  CT* s_pre = reinterpret_cast<CT*>(bp_smem + L.pre);      // [n][ROWS][ldo]
   float* s_dx = reinterpret_cast<float*>(bp_smem + L.dx);  // [ROWS][np]
-  bf16* s_a = reinterpret_cast<bf16*>(bp_smem + L.a);      // [ROWS][ldw]
-  bf16* s_own = reinterpret_cast<bf16*>(bp_smem + L.own);  // 2 x [ROWS][ldo]
-  const size_t own_slot = align16((size_t)BP_ROWS * ldo * 2) / 2;
+  CT* s_a = reinterpret_cast<CT*>(bp_smem + L.a);          // [ROWS][ldw]
+  CT* s_own = reinterpret_cast<CT*>(bp_smem + L.own);      // 2 x [ROWS][ldo]
+  const size_t own_slot = align16((size_t)BP_ROWS * ldo * sizeof(CT)) /
+                          sizeof(CT);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
@@ -1426,23 +1642,23 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
         dst[q] = row < B && q < n ? dx_in[(size_t)row * P + col + q] : 0.0f;
     }
   }
-  const int chunks_o = np / 8;
+  const int chunks_o = np / V;
   for (int i = tid; i < n_layers * BP_ROWS * chunks_o; i += BP_THREADS) {
     const int l = i / (BP_ROWS * chunks_o), r = (i / chunks_o) % BP_ROWS;
-    const int c = (i % chunks_o) * 8;
-    load8(s_pre + ((size_t)l * BP_ROWS + r) * ldo + c,
-          pre_s + (size_t)l * pre_stride, P, row0 + r, c_lo + c, B, P, pvec);
+    const int c = (i % chunks_o) * V;
+    load16(s_pre + ((size_t)l * BP_ROWS + r) * ldo + c,
+           pre_s + (size_t)l * pre_stride, P, row0 + r, c_lo + c, B, P, pvec);
   }
   cp_async_commit();
-  const int chunks_k = kp / 8;
+  const int chunks_k = kp / V;
   for (int l = 0, off = 0; l < n_layers; ++l) {
     const int n_l = l == 0 ? n0 : np, k_l = l == 0 ? in_dim : P;
-    const bf16* w_l =
+    const CT* w_l =
         w_all + (l == 0 ? 0 : (size_t)in_dim * P + (size_t)(l - 1) * P * P);
     for (int i = tid; i < n_l * chunks_k; i += BP_THREADS) {
-      const int r = i / chunks_k, k = (i % chunks_k) * 8;
-      load8(s_w + (size_t)(off + r) * ldw + k, w_l, P, rank * n_l + r, k,
-            k_l, P, wvec);
+      const int r = i / chunks_k, k = (i % chunks_k) * V;
+      load16(s_w + (size_t)(off + r) * ldw + k, w_l, P, rank * n_l + r, k,
+             k_l, P, wvec);
     }
     off += n_l;
   }
@@ -1457,18 +1673,18 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
       const int r = i / np, c = i % np, row = row0 + r, col = c_lo + c;
       float da = 0.0f;
       if (row < B && col < P) {
-        const float out = __bfloat162float(
-            s_pre[((size_t)l * BP_ROWS + r) * ldo + c]);
+        const float out =
+            to_float(s_pre[((size_t)l * BP_ROWS + r) * ldo + c]);
         da = out > 0.0f ? s_dx[r * np + c] * scale : 0.0f;
-        da_s[l * da_stride + (size_t)row * P + col] = __float2bfloat16_rn(da);
+        da_s[l * da_stride + (size_t)row * P + col] = from_float<CT>(da);
       }
-      s_own[(size_t)r * ldo + c] = __float2bfloat16_rn(da);
+      s_own[(size_t)r * ldo + c] = from_float<CT>(da);
     }
   }
 
   for (int l = n_layers - 1; l >= 0; --l) {
-    const bf16* own = s_own + ((n_layers - 1 - l) & 1) * own_slot;
-    bf16* nxt = s_own + ((n_layers - l) & 1) * own_slot;
+    const CT* own = s_own + ((n_layers - 1 - l) & 1) * own_slot;
+    CT* nxt = s_own + ((n_layers - l) & 1) * own_slot;
     // every slice of this layer's da is written: gather the full rows
     cluster_sync();
     cluster_gather_rows(s_a, ldw, own, ldo, np, cl, mtiles * 16, kp,
@@ -1476,47 +1692,71 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
     if (l == n_layers - 1) cp_async_wait<0>();   // the weights
     __syncthreads();
 
-    // this CTA's columns of dx = da @ W_l^T: a warp per (m tile, n8 tile)
+    // this CTA's columns of dx = da @ W_l^T
     const int n_l = l == 0 ? n0 : np, k_l = l == 0 ? in_dim : P;
     const int col0 = rank * n_l;
-    const bf16* w_l = s_w + (size_t)(l == 0 ? 0 : n0 + (l - 1) * np) * ldw;
-    for (int pair = warp; pair < mtiles * (n_l / 8); pair += BP_WARPS) {
-      const int mt = pair / (n_l / 8), nt = pair % (n_l / 8);
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int kk = 0; kk < kp; kk += 32) {
-        uint32_t a0[4], a1[4], bw[4];
-        const bf16* ar = s_a + (size_t)(mt * 16 + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8) * ldw +
-                         kk + (lane >> 4) * 8;
-        ldsm_x4(a0, ar);
-        ldsm_x4(a1, ar + 16);
-        ldsm_x4(bw, w_l + (size_t)(nt * 8 + (lane & 7)) * ldw + kk +
-                        (lane >> 3) * 8);
-        mma_bf16(acc, a0, bw);
-        mma_bf16(acc, a1, bw + 2);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mt * 16 + g + 8 * (e >> 1);
-        const int c = nt * 8 + 2 * qd + (e & 1);
-        const int row = row0 + r, col = col0 + c;
-        const bool in = row < B && col < k_l;
-        if (l > 0) {
-          // the next layer down's da, its columns of P
-          float da = 0.0f;
-          if (in) {
-            const float out = __bfloat162float(
-                s_pre[((size_t)(l - 1) * BP_ROWS + r) * ldo + c]);
-            da = out > 0.0f ? acc[e] * scale : 0.0f;
-            da_s[(l - 1) * da_stride + (size_t)row * P + col] =
-                __float2bfloat16_rn(da);
-          }
-          nxt[(size_t)r * ldo + c] = __float2bfloat16_rn(da);
-        } else if (in) {
-          const size_t o = (size_t)row * in_dim + col;
-          dshift[o] = __float2bfloat16_rn(teacher ? acc[e] : 0.0f);
-          dframe[o] = teacher ? 0.0f : acc[e];
+    const CT* w_l = s_w + (size_t)(l == 0 ? 0 : n0 + (l - 1) * np) * ldw;
+    // output (r, c) of this CTA's columns from its sum
+    auto finish = [&](int r, int c, float acc) {
+      const int row = row0 + r, col = col0 + c;
+      const bool in = row < B && col < k_l;
+      if (l > 0) {
+        // the next layer down's da, its columns of P
+        float da = 0.0f;
+        if (in) {
+          const float out =
+              to_float(s_pre[((size_t)(l - 1) * BP_ROWS + r) * ldo + c]);
+          da = out > 0.0f ? acc * scale : 0.0f;
+          da_s[(l - 1) * da_stride + (size_t)row * P + col] =
+              from_float<CT>(da);
         }
+        nxt[(size_t)r * ldo + c] = from_float<CT>(da);
+      } else if (in) {
+        const size_t o = (size_t)row * in_dim + col;
+        dshift[o] = from_float<CT>(teacher ? acc : 0.0f);
+        dframe[o] = teacher ? 0.0f : acc;
+      }
+    };
+    if constexpr (F32) {
+      // a thread an output, the whole K in k order; a warp's lanes on
+      // consecutive columns (weight rows 16 bytes apart mod 128: no bank
+      // conflict), the da row a broadcast
+      for (int o = tid; o < mtiles * 16 * n_l; o += BP_THREADS) {
+        const int r = o / n_l, c = o - r * n_l;
+        const float* ar = s_a + (size_t)r * ldw;
+        const float* wr = w_l + (size_t)c * ldw;
+        float acc = 0.0f;
+        for (int k = 0; k < kp; k += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(ar + k);
+          const float4 y = *reinterpret_cast<const float4*>(wr + k);
+          acc = fmaf(x.x, y.x, acc);
+          acc = fmaf(x.y, y.y, acc);
+          acc = fmaf(x.z, y.z, acc);
+          acc = fmaf(x.w, y.w, acc);
+        }
+        finish(r, c, acc);
+      }
+    } else {
+      // a warp per (m tile, n8 tile), mma.sync
+      for (int pair = warp; pair < mtiles * (n_l / 8); pair += BP_WARPS) {
+        const int mt = pair / (n_l / 8), nt = pair % (n_l / 8);
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int kk = 0; kk < kp; kk += 32) {
+          uint32_t a0[4], a1[4], bw[4];
+          const bf16* ar = s_a + (size_t)(mt * 16 + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * ldw +
+                           kk + (lane >> 4) * 8;
+          ldsm_x4(a0, ar);
+          ldsm_x4(a1, ar + 16);
+          ldsm_x4(bw, w_l + (size_t)(nt * 8 + (lane & 7)) * ldw + kk +
+                          (lane >> 3) * 8);
+          mma_bf16(acc, a0, bw);
+          mma_bf16(acc, a1, bw + 2);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          finish(mt * 16 + g + 8 * (e >> 1), nt * 8 + 2 * qd + (e & 1),
+                 acc[e]);
       }
     }
   }
@@ -1524,13 +1764,118 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
   cluster_sync();
 }
 
+// ---------------------------------------------------------------------------
+// the launches of both instances, behind the launchers below
+// ---------------------------------------------------------------------------
+
+// a product of either instance: A [M, K] (a_km: [K, M]) @ B (b_kn: [K, N],
+// else [N, K]), the epilogue epi
+template <class Epi>
+int product_launch(const void* a, int lda, int a_km, const void* b, int ldb,
+                   int b_kn, int M, int N, int K, int slices, int kslice,
+                   void* scratch, const Epi& epi, int f32, void* stream) {
+  if (a_km && !b_kn) return (int)cudaErrorInvalidValue;
+  if (f32) {
+    if (a_km)
+      return splitk_f32_launch<true, true>(a, lda, b, ldb, M, N, K, slices,
+                                           kslice, scratch, epi, stream);
+    if (b_kn)
+      return splitk_f32_launch<false, true>(a, lda, b, ldb, M, N, K, slices,
+                                            kslice, scratch, epi, stream);
+    return splitk_f32_launch<false, false>(a, lda, b, ldb, M, N, K, slices,
+                                           kslice, scratch, epi, stream);
+  }
+  if (a_km)
+    return splitk_launch<true, true>(a, lda, b, ldb, M, N, K, slices, kslice,
+                                     scratch, epi, stream);
+  if (b_kn)
+    return splitk_launch<false, true>(a, lda, b, ldb, M, N, K, slices,
+                                      kslice, scratch, epi, stream);
+  return splitk_launch<false, false>(a, lda, b, ldb, M, N, K, slices, kslice,
+                                     scratch, epi, stream);
+}
+
+// the launch of train_attention_kernel<KIND, CT> over B rows
+template <int KIND, class CT>
+int train_attention_run(const void* q, void* cum, const void* memory,
+                        const void* mtb, const void* mask_add, const void* lc,
+                        const void* v, void* w_out, void* cum_out, void* ctx,
+                        void* dst0, int ld0, void* dst1, int ld1, void* dst2,
+                        int ld2, int B, int T, int A, int Mem, int K,
+                        int tile, int cl, const TaAgent& ag, void* stream) {
+  constexpr int es = sizeof(CT);
+  const int stage = ta_stage(tile, A, Mem, es);
+  const TaLayout L(tile, A, Mem, es, stage);
+  const int vec = (uintptr_t)memory % 16 == 0 &&
+                  ((long long)T * Mem) % (16 / es) == 0;
+  return (int)launch_cluster(
+      train_attention_kernel<KIND, CT>, B * cl, TA_THREADS, L.total, cl,
+      (cudaStream_t)stream, (const float*)q, (float*)cum, (const CT*)memory,
+      (const CT*)mtb, (const float*)mask_add, (const CT*)lc, (const float*)v,
+      (float*)w_out, (CT*)cum_out, (float*)ctx, (CT*)dst0, ld0, (CT*)dst1,
+      ld1, (CT*)dst2, ld2, T, A, Mem, K, tile, cl, vec, stage, ag);
+}
+
+// the launch of bwd_head_kernel<CT> over B rows
+template <class CT>
+int bwd_head_run(const void* dspec, const void* dstop, const void* dframe,
+                 const void* w, int ldw, void* da_frame, const void* dh_gen,
+                 const void* dctx, void* dh_gen_tot, void* dctx_tot, int B,
+                 int M, int Mem, const CellBwd<CT>& cell, void* stream) {
+  constexpr int es = sizeof(CT);
+  const int H = cell.H;
+  const int kp = (M + 15) / 16 * 16;
+  const bool dvec = M % 4 == 0 && (uintptr_t)dspec % 16 == 0 &&
+                    (uintptr_t)dframe % 16 == 0;
+  const size_t smem =
+      bwd_head_smem(kp, es) + (cell.act != nullptr ? bh_cell_smem(es) : 0);
+  // the cell's operands with cp.async: 16-byte aligned rows
+  const int cvec = (uintptr_t)cell.act % 16 == 0 &&
+                   (uintptr_t)cell.c_prev % 16 == 0 &&
+                   (uintptr_t)cell.dc % 16 == 0 && H % 8 == 0;
+  const int wvec = vec_ok(w, ldw, es);
+  cudaError_t err = allow_smem(bwd_head_kernel<CT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + Mem + BH_BN - 1) / BH_BN, (B + BH_BM - 1) / BH_BM);
+  bwd_head_kernel<CT><<<grid, BH_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)dspec, (const float*)dstop, (const float*)dframe,
+      (const CT*)w, ldw, wvec, dvec, (CT*)da_frame, (const float*)dh_gen,
+      (const float*)dctx, (float*)dh_gen_tot, (float*)dctx_tot, B, M, kp, H,
+      Mem, cell, cvec);
+  return (int)cudaGetLastError();
+}
+
+// the launch of att_bwd_kernel<KIND, CT> over B rows; a tile whose rows do
+// not fit a CTA's shared memory is refused
+template <int KIND, class CT>
+int att_bwd_run(const void* q, const void* cum_s, const void* w_s,
+                const void* memory, const void* mtb, const void* lc,
+                const void* v, const void* dctx, const void* dw_out,
+                void* dcum, void* dmt, void* dlc, void* dv, void* dq_out,
+                void* dctx_out, int B, int T, int A, int Mem, int K, int tile,
+                int cl, const AbFam& fa, void* stream) {
+  const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT));
+  if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return (int)launch_cluster(
+      att_bwd_kernel<KIND, CT>, B * cl, AB_THREADS, L.total, cl,
+      (cudaStream_t)stream, (const float*)q, (const CT*)cum_s,
+      (const float*)w_s, (const CT*)memory, (const CT*)mtb, (const CT*)lc,
+      (const float*)v, (const float*)dctx, (const float*)dw_out, (float*)dcum,
+      (float*)dmt, (float*)dlc, (float*)dv, (CT*)dq_out, (CT*)dctx_out, T, A,
+      Mem, K, tile, cl, fa);
+}
+
 }  // namespace
 
 extern "C" {
 
+// Every launcher takes the compute type as `f32` (1: float32 operands and
+// streams, the float32 instances; 0: bfloat16) just before the stream.
+
 // the columns of P in `cl` shares of np (prenet_split); the input is
-// shifted (bf16) at a teacher step, the float32 frame carry otherwise; x_out
-// (null, or [B, P] float32) also receives the last layer's output
+// shifted (compute type) at a teacher step, the float32 frame carry
+// otherwise; x_out (null, or [B, P] float32) also receives the last layer's
+// output
 int train_prenet_launch(const void* shifted, const void* frame, int teacher,
                         const void* w_all, const void* b_all, void* raw_out,
                         void* pre_out, long long pre_stride, void* dst,
@@ -1538,50 +1883,73 @@ int train_prenet_launch(const void* shifted, const void* frame, int teacher,
                         int n_layers,
                         unsigned seed0, unsigned seed1, unsigned salt0,
                         unsigned thresh, float scale, int apply_dropout,
-                        int cl, int np, void* stream) {
-  const PrenetArgs args{(const bf16*)w_all, (const float*)b_all, B, in_dim,
-                        P, n_layers, seed0, seed1, salt0, thresh, scale,
-                        apply_dropout, cl, np};
-  const TrainPrenetOut epi{(bf16*)raw_out, (bf16*)pre_out, pre_stride,
-                           (bf16*)dst, ld_dst, (float*)x_out, in_dim, P,
-                           n_layers};
-  return (int)prenet_tile_launch(teacher ? shifted : frame, teacher ? 1 : 0,
-                                 args, epi, (cudaStream_t)stream);
+                        int cl, int np, int f32, void* stream) {
+  const PrenetArgs args{w_all, (const float*)b_all, B, in_dim, P, n_layers,
+                        seed0, seed1, salt0, thresh, scale, apply_dropout,
+                        cl, np};
+  const void* x = teacher ? shifted : frame;
+  if (f32) {
+    const TrainPrenetOut<float> epi{(float*)raw_out, (float*)pre_out,
+                                    pre_stride, (float*)dst, ld_dst,
+                                    (float*)x_out, in_dim, P, n_layers};
+    return (int)prenet_tile_launch<TrainPrenetOut<float>, float>(
+        x, 0, args, epi, (cudaStream_t)stream);
+  }
+  const TrainPrenetOut<bf16> epi{(bf16*)raw_out, (bf16*)pre_out, pre_stride,
+                                 (bf16*)dst, ld_dst, (float*)x_out, in_dim, P,
+                                 n_layers};
+  return (int)prenet_tile_launch(x, teacher ? 1 : 0, args, epi,
+                                 (cudaStream_t)stream);
 }
 
-// row [B, K] (rows of ld_row bf16) and w [4H, K], K a multiple of 8, both
-// 16-byte aligned
+// row [B, K] (rows of ld_row elements) and w [4H, K], K a multiple of 8,
+// both 16-byte aligned
 int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
                      const void* bias, int B, int H, void* h, void* c,
                      void* act, void* c_out, void* h_dst0, int ld0,
                      void* h_dst1, int ld1, unsigned seed0, unsigned seed1,
                      unsigned salt_h, unsigned salt_c, unsigned th_h,
                      unsigned th_c, int mode, float scale, float zh, float zc,
-                     void* stream) {
-  const LstmEpi epi{(const float*)bias, (float*)h, (float*)c, (bf16*)act,
-                    (bf16*)c_out, (bf16*)h_dst0, ld0, (bf16*)h_dst1, ld1, H,
-                    Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode,
-                        scale, zh, zc}};
+                     int f32, void* stream) {
+  const Reg reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale, zh, zc};
+  if (f32) {
+    const LstmEpi<float> epi{(const float*)bias, (float*)h, (float*)c,
+                             (float*)act, (float*)c_out, (float*)h_dst0, ld0,
+                             (float*)h_dst1, ld1, H, reg};
+    return (int)gate_tile_launch<float>(row, 4 * ld_row, w, 4 * K, 4 * K, B,
+                                        H, epi, (cudaStream_t)stream);
+  }
+  const LstmEpi<bf16> epi{(const float*)bias, (float*)h, (float*)c,
+                          (bf16*)act, (bf16*)c_out, (bf16*)h_dst0, ld0,
+                          (bf16*)h_dst1, ld1, H, reg};
   return (int)gate_tile_launch<bf16>(row, 2 * ld_row, w, 2 * K, 2 * K, B, H,
                                       epi, (cudaStream_t)stream);
 }
 
-// q [B, A] = bf16(h @ Wq), h [B, H] (rows of ld_h), Wq [H, A]
+// q [B, A] = round(h @ Wq), h [B, H] (rows of ld_h), Wq [H, A]
 int query_launch(const void* h, int ld_h, const void* wq, int B, int H, int A,
-                 void* q_out, int slices, int kslice, void* scratch,
+                 void* q_out, int slices, int kslice, void* scratch, int f32,
                  void* stream) {
+  if (f32)
+    return splitk_f32_launch<false, true>(h, ld_h, wq, A, B, A, H, slices,
+                                          kslice, scratch,
+                                          RoundOut<float>{(float*)q_out, A},
+                                          stream);
   return splitk_launch<false, true>(h, ld_h, wq, A, B, A, H, slices, kslice,
-                                    scratch, RoundOut{(float*)q_out, A},
+                                    scratch, RoundOut<bf16>{(float*)q_out, A},
                                     stream);
 }
 
 // row [B, K] (rows of ld_row) against the head weight [N, K]
 int head_launch(const void* row, int ld_row, const void* w, int K,
                 const void* bias, int B, int N, void* spec, void* frame,
-                void* stop, int slices, int kslice, void* scratch,
+                void* stop, int slices, int kslice, void* scratch, int f32,
                 void* stream) {
   const HeadOut epi{(const float*)bias, (float*)spec, (float*)frame,
                     (float*)stop, N};
+  if (f32)
+    return splitk_f32_launch<false, false>(row, ld_row, w, K, B, N, K, slices,
+                                           kslice, scratch, epi, stream);
   return splitk_launch<false, false>(row, ld_row, w, K, B, N, K, slices,
                                      kslice, scratch, epi, stream);
 }
@@ -1593,22 +1961,15 @@ int bwd_gemm_launch(const void* a, int lda, int a_km, const void* b, int ldb,
                     void* scratch, int lo0, int hi0, void* out0, int ldo0,
                     const void* add0, int lda0, int lo1, int hi1, void* out1,
                     int ldo1, const void* add1, int lda1, int lo2, int hi2,
-                    void* out2, int ldo2, const void* add2, int lda2,
+                    void* out2, int ldo2, const void* add2, int lda2, int f32,
                     void* stream) {
-  if (a_km && !b_kn) return (int)cudaErrorInvalidValue;
   const SegOut epi{{lo0, lo1, lo2}, {hi0, hi1, hi2}, {ldo0, ldo1, ldo2},
                    {lda0, lda1, lda2},
                    {(float*)out0, (float*)out1, (float*)out2},
                    {(const float*)add0, (const float*)add1,
                     (const float*)add2}};
-  if (a_km)
-    return splitk_launch<true, true>(a, lda, b, ldb, M, N, K, slices, kslice,
-                                     scratch, epi, stream);
-  if (b_kn)
-    return splitk_launch<false, true>(a, lda, b, ldb, M, N, K, slices,
-                                      kslice, scratch, epi, stream);
-  return splitk_launch<false, false>(a, lda, b, ldb, M, N, K, slices, kslice,
-                                     scratch, epi, stream);
+  return product_launch(a, lda, a_km, b, ldb, b_kn, M, N, K, slices, kslice,
+                        scratch, epi, f32, stream);
 }
 
 // the row's positions in `cl` tiles of `tile` (att_bwd_tiles); A a multiple
@@ -1619,22 +1980,16 @@ int train_attention_launch(const void* q, void* cum, const void* memory,
                            void* cum_out, void* ctx, void* dst0, int ld0,
                            void* dst1, int ld1, void* dst2, int ld2, int B,
                            int T, int A, int Mem, int K, int tile, int cl,
-                           void* stream) {
+                           int f32, void* stream) {
   if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || K < 1 ||
       K > BAND_K || tile <= 0 || tile % 16 != 0 || cl < 1 || cl > 8 ||
       (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
       (uintptr_t)mtb % 16 != 0 || (uintptr_t)lc % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const TaLayout L(tile, A, Mem);
-  const int vec =
-      (uintptr_t)memory % 16 == 0 && ((long long)T * Mem) % 8 == 0;
-  return (int)launch_cluster(
-      train_attention_kernel<ATT_LS>, B * cl, TA_THREADS, L.total, cl,
-      (cudaStream_t)stream, (const float*)q, (float*)cum,
-      (const bf16*)memory, (const bf16*)mtb, (const float*)mask_add,
-      (const bf16*)lc, (const float*)v, (float*)w_out, (bf16*)cum_out,
-      (float*)ctx, (bf16*)dst0, ld0, (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A,
-      Mem, K, tile, cl, vec, TaAgent{});
+  return (f32 ? train_attention_run<ATT_LS, float>
+              : train_attention_run<ATT_LS, bf16>)(
+      q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out, ctx, dst0, ld0,
+      dst1, ld1, dst2, ld2, B, T, A, Mem, K, tile, cl, TaAgent{}, stream);
 }
 
 // the forward family's step (trans = 1: with the transition agent, whose
@@ -1651,27 +2006,23 @@ int train_fwd_attention_launch(const void* q, void* cum, const void* memory,
                                const void* x, const void* w,
                                const void* bias, int B, int T, int A,
                                int Mem, int H, int P, int tile, int cl,
-                               int trans, void* stream) {
+                               int trans, int f32, void* stream) {
   if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || tile <= 0 ||
       tile % 16 != 0 || cl < 1 || cl > 8 || (long long)cl * tile < T ||
       (long long)(cl - 1) * tile >= T || (uintptr_t)mtb % 16 != 0 ||
       (trans && (tp == nullptr || h_att == nullptr || x == nullptr ||
                  w == nullptr || bias == nullptr || H <= 0 || P <= 0)))
     return (int)cudaErrorInvalidValue;
-  const TaLayout L(tile, A, Mem);
-  const int vec =
-      (uintptr_t)memory % 16 == 0 && ((long long)T * Mem) % 8 == 0;
   const TaAgent ag{(float*)tp, (float*)tp_out, (const float*)h_att,
                    (const float*)x, (const float*)w, (const float*)bias, H,
                    P};
-  return (int)launch_cluster(
-      trans ? &train_attention_kernel<ATT_FWD_TRANS>
-            : &train_attention_kernel<ATT_FWD>,
-      B * cl, TA_THREADS, L.total, cl, (cudaStream_t)stream, (const float*)q,
-      (float*)cum, (const bf16*)memory, (const bf16*)mtb,
-      (const float*)mask_add, (const bf16*)nullptr, (const float*)v,
-      (float*)w_out, (bf16*)cum_out, (float*)ctx, (bf16*)dst0, ld0,
-      (bf16*)dst1, ld1, (bf16*)dst2, ld2, T, A, Mem, 1, tile, cl, vec, ag);
+  auto run = trans ? (f32 ? train_attention_run<ATT_FWD_TRANS, float>
+                          : train_attention_run<ATT_FWD_TRANS, bf16>)
+                   : (f32 ? train_attention_run<ATT_FWD, float>
+                          : train_attention_run<ATT_FWD, bf16>);
+  return run(q, cum, memory, mtb, mask_add, nullptr, v, w_out, cum_out, ctx,
+             dst0, ld0, dst1, ld1, dst2, ld2, B, T, A, Mem, 1, tile, cl, ag,
+             stream);
 }
 
 // the LSTM cell backward's arguments, in the launchers' order: act, c_prev
@@ -1682,11 +2033,11 @@ int train_fwd_attention_launch(const void* q, void* cum, const void* memory,
       int H, unsigned seed0, unsigned seed1, unsigned salt_h,              \
       unsigned salt_c, unsigned th_h, unsigned th_c, int mode, float scale, \
       float zh, float zc
-#define CELL_ARGS                                                          \
-  CellBwd {                                                                \
-    (const bf16*)act, (const bf16*)c_prev, (float*)dc, (bf16*)dg,         \
-        (float*)dh_reg, H,                                                 \
-        Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale, zh, zc} \
+#define CELL_ARGS(CT)                                                      \
+  CellBwd<CT> {                                                            \
+    (const CT*)act, (const CT*)c_prev, (float*)dc, (CT*)dg, (float*)dh_reg, \
+        H, Reg{seed0, seed1, salt_h, salt_c, th_h, th_c, mode, scale, zh,  \
+               zc}                                                         \
   }
 
 // with act not null, the generator cell's backward runs in the epilogue and
@@ -1696,33 +2047,30 @@ int bwd_head_launch(const void* dspec, const void* dstop, const void* dframe,
                     const void* w, int ldw, void* da_frame,
                     const void* dh_gen, const void* dctx, void* dh_gen_tot,
                     void* dctx_tot, int B, int M, int Mem, CELL_PARAMS,
-                    void* stream) {
+                    int f32, void* stream) {
   if (B <= 0 || M <= 0 || ldw < H + Mem ||
       (act != nullptr ? mode == 3 : dh_gen_tot == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int kp = (M + 15) / 16 * 16;
-  const bool dvec = M % 4 == 0 && (uintptr_t)dspec % 16 == 0 &&
-                    (uintptr_t)dframe % 16 == 0;
-  const size_t smem = bwd_head_smem(kp) + (act != nullptr ? BH_CELL_SMEM : 0);
-  // the cell's operands with cp.async: 16-byte aligned rows
-  const int cvec = (uintptr_t)act % 16 == 0 && (uintptr_t)c_prev % 16 == 0 &&
-                   (uintptr_t)dc % 16 == 0 && H % 8 == 0;
-  cudaError_t err = allow_smem(bwd_head_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + Mem + BH_BN - 1) / BH_BN, (B + BH_BM - 1) / BH_BM);
-  bwd_head_kernel<<<grid, BH_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)dspec, (const float*)dstop, (const float*)dframe,
-      (const bf16*)w, ldw, vec_ok(w, ldw), dvec, (bf16*)da_frame,
-      (const float*)dh_gen, (const float*)dctx, (float*)dh_gen_tot,
-      (float*)dctx_tot, B, M, kp, H, Mem, CELL_ARGS, cvec);
-  return (int)cudaGetLastError();
+  if (f32)
+    return bwd_head_run(dspec, dstop, dframe, w, ldw, da_frame, dh_gen, dctx,
+                        dh_gen_tot, dctx_tot, B, M, Mem, CELL_ARGS(float),
+                        stream);
+  return bwd_head_run(dspec, dstop, dframe, w, ldw, da_frame, dh_gen, dctx,
+                      dh_gen_tot, dctx_tot, B, M, Mem, CELL_ARGS(bf16),
+                      stream);
 }
 
-int bwd_cell_launch(const void* dh_tot, int B, CELL_PARAMS, void* stream) {
+int bwd_cell_launch(const void* dh_tot, int B, CELL_PARAMS, int f32,
+                    void* stream) {
   if (B <= 0 || H <= 0 || mode == 3) return (int)cudaErrorInvalidValue;
   const int n = B * H;
-  bwd_cell_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)dh_tot, B, CELL_ARGS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    bwd_cell_kernel<float><<<(n + 255) / 256, 256, 0, st>>>(
+        (const float*)dh_tot, B, CELL_ARGS(float));
+  else
+    bwd_cell_kernel<bf16><<<(n + 255) / 256, 256, 0, st>>>(
+        (const float*)dh_tot, B, CELL_ARGS(bf16));
   return (int)cudaGetLastError();
 }
 
@@ -1731,14 +2079,19 @@ int bwd_cell_launch(const void* dh_tot, int B, CELL_PARAMS, void* stream) {
 int bwd_gemm_cell_launch(const void* a, int lda, const void* b, int ldb,
                          int b_kn, int M, int K, int slices, int kslice,
                          void* scratch, const void* add, int ldadd,
-                         CELL_PARAMS, void* stream) {
+                         CELL_PARAMS, int f32, void* stream) {
   if (add == nullptr || mode == 3) return (int)cudaErrorInvalidValue;
-  const CellOut epi{(const float*)add, ldadd, CELL_ARGS};
-  if (b_kn)
-    return splitk_launch<false, true>(a, lda, b, ldb, M, H, K, slices,
-                                      kslice, scratch, epi, stream);
-  return splitk_launch<false, false>(a, lda, b, ldb, M, H, K, slices, kslice,
-                                     scratch, epi, stream);
+  if (f32)
+    return product_launch(a, lda, 0, b, ldb, b_kn, M, H, K, slices, kslice,
+                          scratch,
+                          CellOut<float>{(const float*)add, ldadd,
+                                         CELL_ARGS(float)},
+                          1, stream);
+  return product_launch(a, lda, 0, b, ldb, b_kn, M, H, K, slices, kslice,
+                        scratch,
+                        CellOut<bf16>{(const float*)add, ldadd,
+                                      CELL_ARGS(bf16)},
+                        0, stream);
 }
 
 // the row's positions in `cl` tiles of `tile` (a multiple of 16; cl <= 8,
@@ -1748,21 +2101,15 @@ int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                    const void* v, const void* dctx, const void* dw_out,
                    void* dcum, void* dmt, void* dlc, void* dv, void* dq_out,
                    void* dctx_out, int B, int T, int A, int Mem, int K,
-                   int tile, int cl, void* stream) {
+                   int tile, int cl, int f32, void* stream) {
   if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || K < 1 ||
       K > BAND_K || tile <= 0 || tile % 16 != 0 || cl < 1 || cl > 8 ||
       (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
       (uintptr_t)mtb % 4 != 0 || (uintptr_t)dmt % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const AbLayout L(tile, A, Mem, false);
-  return (int)launch_cluster(
-      att_bwd_kernel<ATT_LS>, B * cl, AB_THREADS, L.total, cl,
-      (cudaStream_t)stream, (const float*)q, (const bf16*)cum_s,
-      (const float*)w_s, (const bf16*)memory, (const bf16*)mtb,
-      (const bf16*)lc, (const float*)v, (const float*)dctx,
-      (const float*)dw_out, (float*)dcum, (float*)dmt, (float*)dlc,
-      (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem, K, tile, cl,
-      AbFam{});
+  return (f32 ? att_bwd_run<ATT_LS, float> : att_bwd_run<ATT_LS, bf16>)(
+      q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc, dv,
+      dq_out, dctx_out, B, T, A, Mem, K, tile, cl, AbFam{}, stream);
 }
 
 // the forward family's attention backward: dcum [B, T] the state's
@@ -1779,7 +2126,7 @@ int fwd_att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                        void* dq_out, void* dctx_out, const void* tp_prev,
                        const void* tp, void* dtp, void* dlin, const void* w,
                        void* dh_att, void* dx, int B, int T, int A, int Mem,
-                       int H, int P, int tile, int cl, int trans,
+                       int H, int P, int tile, int cl, int trans, int f32,
                        void* stream) {
   if (B <= 0 || T <= 0 || A <= 0 || A % 2 != 0 || Mem <= 0 || tile <= 0 ||
       tile % 16 != 0 || cl < 1 || cl > 8 || (long long)cl * tile < T ||
@@ -1789,18 +2136,16 @@ int fwd_att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                  dlin == nullptr || w == nullptr || dh_att == nullptr ||
                  dx == nullptr || H <= 0 || P <= 0)))
     return (int)cudaErrorInvalidValue;
-  const AbLayout L(tile, A, Mem, true);
   const AbFam fa{(const float*)mask_add, (const float*)tp_prev,
                  (const float*)tp, (float*)dtp, (float*)dlin,
                  (const float*)w, (float*)dh_att, (float*)dx, H, P};
-  return (int)launch_cluster(
-      trans ? &att_bwd_kernel<ATT_FWD_TRANS> : &att_bwd_kernel<ATT_FWD>,
-      B * cl, AB_THREADS, L.total, cl, (cudaStream_t)stream, (const float*)q,
-      (const bf16*)cum_s, (const float*)w_s, (const bf16*)memory,
-      (const bf16*)mtb, (const bf16*)nullptr, (const float*)v,
-      (const float*)dctx, (const float*)dw_out, (float*)dcum, (float*)dmt,
-      (float*)nullptr, (float*)dv, (bf16*)dq_out, (bf16*)dctx_out, T, A, Mem,
-      1, tile, cl, fa);
+  auto run = trans ? (f32 ? att_bwd_run<ATT_FWD_TRANS, float>
+                          : att_bwd_run<ATT_FWD_TRANS, bf16>)
+                   : (f32 ? att_bwd_run<ATT_FWD, float>
+                          : att_bwd_run<ATT_FWD, bf16>);
+  return run(q, cum_s, w_s, memory, mtb, nullptr, v, dctx, dw_out, dcum, dmt,
+             nullptr, dv, dq_out, dctx_out, B, T, A, Mem, 1, tile, cl, fa,
+             stream);
 }
 
 // the columns of P and of the input frame in `cl` shares of np and n0
@@ -1809,22 +2154,30 @@ int bwd_prenet_launch(const void* dx, const void* pre_s, long long pre_stride,
                       const void* w_all, void* da_s, long long da_stride,
                       void* dshift, void* dframe, int teacher, int B,
                       int in_dim, int P, int n_layers, float scale, int cl,
-                      int np, int n0, void* stream) {
+                      int np, int n0, int f32, void* stream) {
   if (B <= 0 || in_dim <= 0 || P <= 0 || n_layers < 1 || cl < 1 || cl > 8 ||
       np <= 0 || np % 8 != 0 || n0 <= 0 || n0 % 8 != 0 ||
       (long long)cl * np < P || (long long)cl * n0 < in_dim)
     return (int)cudaErrorInvalidValue;
-  const BpLayout L(P, np, n0, n_layers);
+  const int es = f32 ? 4 : 2, V = 16 / es;
+  const BpLayout L(P, np, n0, n_layers, es);
   const int dvec = (uintptr_t)dx % 16 == 0 && P % 4 == 0;
-  const int pvec = (uintptr_t)pre_s % 16 == 0 && P % 8 == 0 &&
-                   pre_stride % 8 == 0;
-  const int wvec = (uintptr_t)w_all % 16 == 0 && P % 8 == 0;
+  const int pvec = (uintptr_t)pre_s % 16 == 0 && P % V == 0 &&
+                   pre_stride % V == 0;
+  const int wvec = (uintptr_t)w_all % 16 == 0 && P % V == 0;
+  const int grid = (B + BP_ROWS - 1) / BP_ROWS * cl;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    return (int)launch_cluster(
+        bwd_prenet_kernel<float>, grid, BP_THREADS, L.total, cl, st,
+        (const float*)dx, dvec, (const float*)pre_s, pre_stride, pvec,
+        (const float*)w_all, wvec, (float*)da_s, da_stride, (float*)dshift,
+        (float*)dframe, teacher, B, in_dim, P, n_layers, scale, cl, np, n0);
   return (int)launch_cluster(
-      bwd_prenet_kernel, (B + BP_ROWS - 1) / BP_ROWS * cl, BP_THREADS,
-      L.total, cl, (cudaStream_t)stream, (const float*)dx, dvec,
-      (const bf16*)pre_s, pre_stride, pvec, (const bf16*)w_all, wvec,
-      (bf16*)da_s, da_stride, (bf16*)dshift, (float*)dframe, teacher, B,
-      in_dim, P, n_layers, scale, cl, np, n0);
+      bwd_prenet_kernel<bf16>, grid, BP_THREADS, L.total, cl, st,
+      (const float*)dx, dvec, (const bf16*)pre_s, pre_stride, pvec,
+      (const bf16*)w_all, wvec, (bf16*)da_s, da_stride, (bf16*)dshift,
+      (float*)dframe, teacher, B, in_dim, P, n_layers, scale, cl, np, n0);
 }
 
 }  // extern "C"

@@ -240,35 +240,35 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
                   reinterpret_cast<const float*>(as + wm * GT_LD), GT_LD / 4,
                   reinterpret_cast<const float*>(bs + wn * GT_LD), GT_LD / 4,
                   GT_BK / 4, lane);
-      continue;
-    }
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < GT_BK; kk += 32) {
-      uint32_t af[2][4], bf[4][2];
+      for (int kk = 0; kk < GT_BK; kk += 32) {
+        uint32_t af[2][4], bf[4][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
-                              ((lane >> 3) & 1) * 8) * GT_LD +
-                            kk + (lane >> 4) * 16);
+        for (int mt = 0; mt < 2; ++mt)
+          ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
+                                ((lane >> 3) & 1) * 8) * GT_LD +
+                              kk + (lane >> 4) * 16);
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4(r, bs + (wn + np * 16 + (lane & 7) + (lane >> 4) * 8) * GT_LD +
-                       kk + ((lane >> 3) & 1) * 16);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if constexpr (INT8)
-            mma_s8(acc[mt][nt], af[mt], bf[nt]);
-          else
-            mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, bs + (wn + np * 16 + (lane & 7) + (lane >> 4) * 8) * GT_LD +
+                         kk + ((lane >> 3) & 1) * 16);
+          bf[2 * np][0] = r[0];
+          bf[2 * np][1] = r[1];
+          bf[2 * np + 1][0] = r[2];
+          bf[2 * np + 1][1] = r[3];
         }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if constexpr (INT8)
+              mma_s8(acc[mt][nt], af[mt], bf[nt]);
+            else
+              mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+          }
+      }
     }
   }
   cp_async_wait<0>();
@@ -379,8 +379,10 @@ constexpr int SK_LD_MN = SK_BN + 8;   // [32][64] tiles (m or n contiguous)
 constexpr int SK_TILE = 64 * SK_LD_K > SK_BK * SK_LD_MN ? 64 * SK_LD_K
                                                          : SK_BK * SK_LD_MN;
 
-__host__ bool vec_ok(const void* p, int ld) {
-  return ((uintptr_t)p % 16 == 0) && (ld % 8 == 0);
+// rows of `ld` elements of `es` bytes (2: bf16, 4: float32) from p start
+// 16-byte aligned
+__host__ inline bool vec_ok(const void* p, int ld, int es = 2) {
+  return ((uintptr_t)p % 16 == 0) && ((long long)ld * es % 16 == 0);
 }
 
 // fv = row @ W_head^T + b over the head row [h_gen | ctx]: columns < N-1
@@ -587,21 +589,101 @@ int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
   return (int)cudaGetLastError();
 }
 
-// splitk_f32_kernel: the float32 instance of splitk_kernel for the one
-// product K1's float32 instances split (the head: A "MK", B "NK", both k
-// contiguous): the same 64 x 64 tiles, SK_BK-deep slices of K and grid, so
-// the wrapper's split and splitk_reduce_kernel serve it unchanged; the
-// tiles [64][SK_BK + 4] floats through a two-stage cp.async ring (zero past
-// M, N and the slice's end), each warp's 32 x 32 on simt_tile32.  Rows of A
-// and B 16-byte aligned (lda, ldb multiples of 4 floats).
-constexpr int SKF_LD = SK_BK + 4;
+// splitk_f32_kernel: the float32 instance of splitk_kernel, for the
+// float32 instances of both decoders (K1's head; K2's query and head, K3's
+// backward products and dWq): the same 64 x 64 tiles, SK_BK-deep slices of
+// K and grid, so the wrapper's split and splitk_reduce_kernel serve it
+// unchanged.  A is "MK" or "KM", B "NK" or "KN", as splitk_kernel's (KM only
+// with KN).  Each tile is staged as it lies (there is no 32-bit ldmatrix to
+// transpose it on the way to a fragment), 16 bytes a thread through a
+// two-stage cp.async ring, zero past M, N and the slice's end: a k-contiguous
+// tile as [64][SKF_LD], an m- or n-contiguous one as [SK_BK][SKF_LD_MN];
+// each warp's 32 x 32 on simt_tile32_any.  Rows whose start or stride is not
+// 16-byte aligned are copied with plain loads (vec 0).
+constexpr int SKF_LD = SK_BK + 4;      // floats a row of a [64][SK_BK] tile
+constexpr int SKF_LD_MN = SK_BN + 4;   // floats a row of a [SK_BK][64] tile
+constexpr int SKF_TILE = 64 * SKF_LD > SK_BK * SKF_LD_MN ? 64 * SKF_LD
+                                                         : SK_BK * SKF_LD_MN;
 
-template <class Epi>
+// A warp's 32 x 32 tile of C = A @ B in float32 from staged tiles, for every
+// layout pair of splitk_f32_kernel: A "MK" (rows of lda, k contiguous; a at
+// the warp's first row) or "KM" (rows of lda over k, m contiguous; a at the
+// warp's first column), B "NK" or "KN" likewise.  Lane (rg = lane % 8, cg =
+// lane / 8) owns rows simt_row<A_KM>(lane, i), i < 4, and columns 8 cg + j,
+// j < 8, acc[i][j], each summed in k order.  MK x NK is simt_tile32.
+template <bool A_KM>
+__device__ __forceinline__ int simt_row(int lane, int i) {
+  return A_KM ? 4 * (lane & 7) + i : (lane & 7) + 8 * i;
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <bool A_KM, bool B_KN>
+__device__ __forceinline__ void simt_tile32_any(float (*acc)[8],
+                                                const float* a, int lda,
+                                                const float* b, int ldb,
+                                                int klen, int lane) {
+  static_assert(B_KN || !A_KM, "a KM operand A goes with a KN B");
+  if constexpr (!B_KN) {
+    simt_tile32(acc, a, lda, b, ldb, klen, lane);
+  } else if constexpr (!A_KM) {
+    // A rows rg + 8i as float4s along k; B row k's columns 8cg .. 8cg + 8
+    const float* ar = a + (lane & 7) * lda;
+    const float* bc = b + (lane >> 3) * 8;
+    for (int k = 0; k < klen; k += 4) {
+      float4 av[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * lda + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(bc + (k + kk) * ldb);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(bc + (k + kk) * ldb + 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = f4_at(av[i], kk);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+        }
+      }
+    }
+  } else {
+    // A row k's columns 4rg .. 4rg + 4, B row k's 8cg .. 8cg + 8
+    const float* ac = a + (lane & 7) * 4;
+    const float* bc = b + (lane >> 3) * 8;
+    for (int k = 0; k < klen; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(ac + k * lda);
+      const float4 b0 = *reinterpret_cast<const float4*>(bc + k * ldb);
+      const float4 b1 = *reinterpret_cast<const float4*>(bc + k * ldb + 4);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// four floats of row i of a matrix at base[i * ld + j ..] into shared
+// memory at dst, zero outside [0, I) x [0, J) (see load4f)
+__device__ __forceinline__ void load4f_2d(float* dst,
+                                          const float* __restrict__ base,
+                                          int ld, int i, int j, int I, int J,
+                                          bool vec);
+
+template <bool A_KM, bool B_KN, class Epi>
 __global__ void __launch_bounds__(SK_THREADS)
-splitk_f32_kernel(const float* __restrict__ A, int lda,
-                  const float* __restrict__ B, int ldb, int M, int N, int K,
-                  int kslice, float* __restrict__ part, Epi epi) {
-  __shared__ __align__(16) float sm[2][2][64 * SKF_LD];
+splitk_f32_kernel(const float* __restrict__ A, int lda, int avec,
+                  const float* __restrict__ B, int ldb, int bvec, int M,
+                  int N, int K, int kslice, float* __restrict__ part,
+                  Epi epi) {
+  __shared__ __align__(16) float sm[2][2][SKF_TILE];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.y * SK_BM, col0 = blockIdx.x * SK_BN;
   const int k_lo = blockIdx.z * kslice;
@@ -609,18 +691,24 @@ splitk_f32_kernel(const float* __restrict__ A, int lda,
   const int nk = (k_hi - k_lo + SK_BK - 1) / SK_BK;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
 
-  // stage s <- K tile k0: 64 rows x 8 chunks of 4 floats of each operand
+  // stage s <- K tile k0: 512 chunks of 4 floats of each operand
   auto load = [&](int s, int k0) {
     for (int p = tid; p < 64 * (SK_BK / 4); p += SK_THREADS) {
-      const int r = p / (SK_BK / 4), c = (p % (SK_BK / 4)) * 4, k = k0 + c;
-      const int n = k < k_hi ? min(k_hi - k, 4) : 0;
-      const int ra = row0 + r, rb = col0 + r;
-      cp_async16(sm[s][0] + r * SKF_LD + c,
-                 ra < M && n ? A + (size_t)ra * lda + k : A,
-                 ra < M ? 4 * n : 0);
-      cp_async16(sm[s][1] + r * SKF_LD + c,
-                 rb < N && n ? B + (size_t)rb * ldb + k : B,
-                 rb < N ? 4 * n : 0);
+      // k-contiguous: [64 rows][SK_BK]; m- or n-contiguous: [SK_BK][64]
+      const int r = p / (SK_BK / 4), c = (p % (SK_BK / 4)) * 4;
+      const int kr = p / (SK_BN / 4), mc = (p % (SK_BN / 4)) * 4;
+      if (A_KM)
+        load4f_2d(sm[s][0] + kr * SKF_LD_MN + mc, A, lda, k0 + kr, row0 + mc,
+                  k_hi, M, avec);
+      else
+        load4f_2d(sm[s][0] + r * SKF_LD + c, A, lda, row0 + r, k0 + c, M,
+                  k_hi, avec);
+      if (B_KN)
+        load4f_2d(sm[s][1] + kr * SKF_LD_MN + mc, B, ldb, k0 + kr, col0 + mc,
+                  k_hi, N, bvec);
+      else
+        load4f_2d(sm[s][1] + r * SKF_LD + c, B, ldb, col0 + r, k0 + c, N,
+                  k_hi, bvec);
     }
   };
 
@@ -638,8 +726,10 @@ splitk_f32_kernel(const float* __restrict__ A, int lda,
     __syncthreads();
     const float* as = sm[kt & 1][0];
     const float* bs = sm[kt & 1][1];
-    simt_tile32(acc, as + wm * SKF_LD, SKF_LD, bs + wn * SKF_LD, SKF_LD,
-                SK_BK, lane);
+    simt_tile32_any<A_KM, B_KN>(
+        acc, A_KM ? as + wm : as + wm * SKF_LD, A_KM ? SKF_LD_MN : SKF_LD,
+        B_KN ? bs + wn : bs + wn * SKF_LD, B_KN ? SKF_LD_MN : SKF_LD, SK_BK,
+        lane);
     // the slot refilled next was read in this iteration
     __syncthreads();
   }
@@ -650,7 +740,7 @@ splitk_f32_kernel(const float* __restrict__ A, int lda,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int row = row0 + wm + (lane & 7) + 8 * i;
+      const int row = row0 + wm + simt_row<A_KM>(lane, i);
       const int col = col0 + wn + (lane >> 3) * 8 + j;
       if (row >= M || col >= N) continue;
       if (dst != nullptr)
@@ -660,22 +750,22 @@ splitk_f32_kernel(const float* __restrict__ A, int lda,
     }
 }
 
-// splitk_launch's float32 instance (A "MK", B "NK")
-template <class Epi>
+// splitk_launch's float32 instance
+template <bool A_KM = false, bool B_KN = false, class Epi>
 int splitk_f32_launch(const void* A, int lda, const void* B, int ldb, int M,
                       int N, int K, int slices, int kslice, void* scratch,
                       const Epi& epi, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || slices < 1 || kslice % SK_BK != 0 ||
       (long long)kslice * slices < K ||
       (long long)kslice * (slices - 1) >= K ||
-      (slices > 1 && scratch == nullptr) || lda % 4 != 0 || ldb % 4 != 0 ||
-      (uintptr_t)A % 16 != 0 || (uintptr_t)B % 16 != 0)
+      (slices > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* part = slices > 1 ? (float*)scratch : nullptr;
   dim3 grid((N + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, slices);
-  splitk_f32_kernel<Epi><<<grid, SK_THREADS, 0, st>>>(
-      (const float*)A, lda, (const float*)B, ldb, M, N, K, kslice, part, epi);
+  splitk_f32_kernel<A_KM, B_KN, Epi><<<grid, SK_THREADS, 0, st>>>(
+      (const float*)A, lda, vec_ok(A, lda, 4), (const float*)B, ldb,
+      vec_ok(B, ldb, 4), M, N, K, kslice, part, epi);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return (int)err;
   const size_t mn = (size_t)M * N;
@@ -882,6 +972,27 @@ __device__ __forceinline__ void load4f(float* dst,
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q) dst[q] = j + q < J ? base[j + q] : 0.0f;
+}
+
+__device__ __forceinline__ void load4f_2d(float* dst,
+                                          const float* __restrict__ base,
+                                          int ld, int i, int j, int I, int J,
+                                          bool vec) {
+  const bool in = i < I;
+  load4f(dst, in ? base + (size_t)i * ld : base, j, in ? J : 0, vec);
+}
+
+// the 16 bytes of elements of type CT (8 bf16 or 4 floats) at base[i * ld +
+// j ..] into shared memory at dst, zero outside [0, I) x [0, J): load8 or
+// load4f_2d
+template <class CT>
+__device__ __forceinline__ void load16(CT* dst, const CT* __restrict__ base,
+                                       int ld, int i, int j, int I, int J,
+                                       bool vec) {
+  if constexpr (sizeof(CT) == 2)
+    load8(dst, base, ld, i, j, I, J, vec);
+  else
+    load4f_2d(dst, base, ld, i, j, I, J, vec);
 }
 
 template <class Epi, class T = bf16>
@@ -1115,34 +1226,37 @@ __device__ __forceinline__ void band_frags(uint32_t (*a)[4], const bf16* p,
   band_frag(a[1], p + 16, lane);
 }
 
-// lc [K, A] into s_lc [BAND_K][ld], taps K.. zero
-__device__ void band_stage_lc(bf16* s_lc, int ld, const bf16* lc, int K,
-                              int A) {
+// lc [K, A] into s_lc [BAND_K][ld] (bf16, or float32 for the float32
+// instances), taps K.. zero
+template <class CT>
+__device__ void band_stage_lc(CT* s_lc, int ld, const CT* lc, int K, int A) {
   for (int i = threadIdx.x; i < BAND_K * A; i += blockDim.x) {
     const int k = i / A, a = i - k * A;
-    s_lc[k * ld + a] = k < K ? lc[(size_t)k * A + a] : __float2bfloat16_rn(0.f);
+    s_lc[k * ld + a] = k < K ? lc[(size_t)k * A + a] : from_float<CT>(0.0f);
   }
 }
 
 // the same with cp.async (the caller commits and waits); lc and its rows
-// 16-byte aligned (A a multiple of 8)
-__device__ void band_copy_lc(bf16* s_lc, int ld, const bf16* lc, int K,
-                             int A) {
-  const int chunks = A / 8;
+// 16-byte aligned (A a multiple of 16 bytes' elements, ld of 16 bytes')
+template <class CT>
+__device__ void band_copy_lc(CT* s_lc, int ld, const CT* lc, int K, int A) {
+  constexpr int V = 16 / sizeof(CT);
+  const int chunks = A / V;
   for (int i = threadIdx.x; i < BAND_K * chunks; i += blockDim.x) {
-    const int k = i / chunks, c = (i - k * chunks) * 8;
+    const int k = i / chunks, c = (i - k * chunks) * V;
     cp_async16(s_lc + k * ld + c, k < K ? lc + (size_t)k * A + c : lc,
                k < K ? 16 : 0);
   }
 }
 
-// s_cum[i] = bf16(cum[t0 + i - half]) for i < n, zero outside [0, T)
-template <class Src>
-__device__ void band_stage_cum(bf16* s_cum, int n, const Src* cum, int t0,
+// s_cum[i] = cum[t0 + i - half] for i < n, zero outside [0, T), rounded to
+// the element type of s_cum (bf16 for the band product; float32 unrounded)
+template <class CT, class Src>
+__device__ void band_stage_cum(CT* s_cum, int n, const Src* cum, int t0,
                                int half, int T) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int t = t0 + i - half;
-    s_cum[i] = __float2bfloat16_rn(t >= 0 && t < T ? (float)cum[t] : 0.0f);
+    s_cum[i] = from_float<CT>(t >= 0 && t < T ? to_float(cum[t]) : 0.0f);
   }
 }
 
@@ -1185,11 +1299,14 @@ __device__ __forceinline__ void band_p(float (*acc)[4], const bf16* s_dz,
   }
 }
 
-// the energy term of one (t, a) from its loc sum, as the TPU kernels round:
-// bf16(tanh(bf16(bf16(bf16(loc) + q) + mtb)))
+// the energy term of one (t, a) from its loc sum, as the TPU kernels round
+// at their compute type CT: bf16(tanh(bf16(bf16(bf16(loc) + q) + mtb))),
+// and in float32 tanh((loc + q) + mtb)
+template <class CT = bf16>
 __device__ __forceinline__ float band_energy_tanh(float loc, float q,
                                                   float mtb) {
-  return round_bf16(tanhf(round_bf16(round_bf16(round_bf16(loc) + q) + mtb)));
+  return round_to<CT>(tanhf(
+      round_to<CT>(round_to<CT>(round_to<CT>(loc) + q) + mtb)));
 }
 
 // the attention kinds of the attention kernels' template parameter:
@@ -1197,9 +1314,10 @@ __device__ __forceinline__ float band_energy_tanh(float loc, float q,
 constexpr int ATT_LS = 0, ATT_FWD = 1, ATT_FWD_TRANS = 2;
 
 // the forward family's energy term of one (t, a), which has no location
-// conv: bf16(tanh(bf16(q + mtb)))
+// conv: bf16(tanh(bf16(q + mtb))), in float32 tanh(q + mtb)
+template <class CT = bf16>
 __device__ __forceinline__ float fwd_energy_tanh(float q, float mtb) {
-  return round_bf16(tanhf(round_bf16(q + mtb)));
+  return round_to<CT>(tanhf(round_to<CT>(q + mtb)));
 }
 
 // The band product in float32 (the serving decoder's float32 instances,

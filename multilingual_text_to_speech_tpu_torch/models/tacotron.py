@@ -12,6 +12,7 @@ like the JAX package.  ``Tacotron.forward`` is the training forward: call
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multilingual_text_to_speech_tpu_torch.device import exact_float32
 from multilingual_text_to_speech_tpu_torch.models.attention import (
     LocationSensitiveAttention,
 )
@@ -141,7 +143,17 @@ class Tacotron(nn.Module):
         ``target`` [B, F, M], ``languages`` [B] ids or [B, T, L] weights,
         ``teacher`` F flags, ``seeds`` the decoder's two uint32 seeds.
         Padded stop logits are 1000 and padded frames of the pre and post
-        predictions 0."""
+        predictions 0.  A float32 model runs its cuDNN convolutions and
+        LSTMs in full float32 (``device.exact_float32``), in train and eval
+        mode; a backward outside this call needs the same guard
+        (``training.trainer.train_step`` holds it)."""
+        with (exact_float32() if self.dtype == torch.float32
+              else contextlib.nullcontext()):
+            return self._forward(text, text_lengths, target, target_lengths,
+                                 speakers, languages, teacher, seeds)
+
+    def _forward(self, text, text_lengths, target, target_lengths, speakers,
+                 languages, teacher, seeds):
         langs_w = self._language_weights(languages, text.shape[1])
         encoded = self._encode(text, text_lengths, langs_w, mix=False)
         speaker_prediction = (self.classifier(encoded)

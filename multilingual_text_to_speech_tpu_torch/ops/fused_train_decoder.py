@@ -68,6 +68,15 @@ gradients are then ``stream^T @ dgates`` over all F*B rows, large products
 that the JAX package also leaves outside its kernel
 (``pallas_train_decoder.py:1416-1497``) and that go to ``torch.mm`` here.
 
+The compute type (``TrainConfig.dtype``; the JAX package's ``compute_dtype``)
+is bfloat16 or float32.  Every kernel is a template instance on it: float32
+rounds nothing, keeps its residual streams in float32 (the JAX kernels write
+them "in the compute dtype", ``pallas_train_decoder.py:12-17``) and runs every
+product in full float32, in FFMA on the CUDA cores, as the JAX kernels'
+float32 matmuls do (``_mxu_precision``, ``pallas_train_decoder.py:230-239``).
+``LAUNCHES`` counts each instance under its own name (``train_prenet`` and
+``train_prenet_f32``, ...: ``instance``; ``path_kernels(att_kind, dtype)``).
+
 Semantics kept exactly: mask element (row, col) of site ``salt`` at global
 step ``gs`` draws ``rand_bits(row, col; seed0, seed1, gs*(n_prenet+4) +
 salt)`` with prenet layer i at salt i, then att_h, att_c, gen_h, gen_c;
@@ -105,6 +114,7 @@ from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     _mm,
     _rounded,
     _stream,
+    instance,
     keep_threshold,
     prenet_split,
     rand_bits,
@@ -112,14 +122,18 @@ from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
 
 _K_ALIGN = 64   # concat rows and gate weights are zero-padded to this
 
-# launches of each kernel since the last reset (kernel launches only).
-# "bwd_cell" counts the launches that run the cell backward: one launch of
-# bwd_cell alone, or a bwd_head or bwd_gemm launch with the cell in its
-# epilogue, which its own kernel's count holds too
-LAUNCHES: Dict[str, int] = {k: 0 for k in (
-    "train_prenet", "train_gate_lstm", "train_query", "train_attention",
-    "train_attention_fwd", "train_head", "bwd_head", "bwd_cell", "bwd_gemm",
-    "att_bwd", "att_bwd_fwd", "bwd_prenet")}
+_KERNELS = ("train_prenet", "train_gate_lstm", "train_query",
+            "train_attention", "train_attention_fwd", "train_head",
+            "bwd_head", "bwd_cell", "bwd_gemm", "att_bwd", "att_bwd_fwd",
+            "bwd_prenet")
+_DTYPES = (torch.bfloat16, torch.float32)
+# launches of each kernel instance since the last reset (kernel launches
+# only; ``instance``: "train_prenet", "train_prenet_f32", ...).  "bwd_cell"
+# counts the launches that run the cell backward: one launch of bwd_cell
+# alone, or a bwd_head or bwd_gemm launch with the cell in its epilogue,
+# which its own kernel's count holds too
+LAUNCHES: Dict[str, int] = {instance(k, d): 0 for k in _KERNELS
+                            for d in _DTYPES}
 # the kernels of the location-sensitive path; the forward family's path
 # runs the "_fwd" variants of the attention kernels instead (path_kernels)
 K2_KERNELS = ("train_prenet", "train_gate_lstm", "train_query",
@@ -127,14 +141,15 @@ K2_KERNELS = ("train_prenet", "train_gate_lstm", "train_query",
 K3_KERNELS = ("bwd_head", "bwd_cell", "bwd_gemm", "att_bwd", "bwd_prenet")
 
 
-def path_kernels(att_kind: str) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
-    """The K2 and K3 kernels (``LAUNCHES`` keys) that a training decode at
-    ``att_kind`` launches."""
-    if att_kind == "ls":
-        return K2_KERNELS, K3_KERNELS
-    fwd = {"train_attention": "train_attention_fwd", "att_bwd": "att_bwd_fwd"}
-    return (tuple(fwd.get(k, k) for k in K2_KERNELS),
-            tuple(fwd.get(k, k) for k in K3_KERNELS))
+def path_kernels(att_kind: str, dtype: torch.dtype = torch.bfloat16
+                 ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The K2 and K3 kernel instances (``LAUNCHES`` keys) that a training
+    decode at ``att_kind`` and compute type ``dtype`` launches."""
+    fwd = ({} if att_kind == "ls" else
+           {"train_attention": "train_attention_fwd",
+            "att_bwd": "att_bwd_fwd"})
+    return (tuple(instance(fwd.get(k, k), dtype) for k in K2_KERNELS),
+            tuple(instance(fwd.get(k, k), dtype) for k in K3_KERNELS))
 
 
 def reset_launch_counts() -> None:
@@ -188,6 +203,12 @@ class TrainConfig:
             zoneout_c=float(hp.zoneout_cell) if zo else 0.0,
             use_zoneout=zo, dtype=dtype, train=bool(train),
             att_kind=att_kind_of(hp.attention_type))
+
+    @property
+    def kernels(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """The K2 and K3 kernel instances this configuration launches on
+        the card (``path_kernels``)."""
+        return path_kernels(self.att_kind, self.dtype)
 
     @property
     def family(self) -> bool:                  # the forward family
@@ -780,28 +801,30 @@ _P, _I, _U, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float, ctypes.c_longlong)
 _REG = [_U, _U, _U, _U, _U, _U, _I, _F, _F, _F]
 _CELL = [_P] * 5 + [_I] + _REG          # act, c_prev, dc, dg, dh_reg, H, reg
+# each launcher's arguments, then the compute-type flag (1: float32) and the
+# stream, which _lib adds
 _SIGNATURES = {
     "train_prenet_launch": [_P, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _I,
-                            _I, _I, _I, _U, _U, _U, _U, _F, _I, _I, _I, _P],
+                            _I, _I, _I, _U, _U, _U, _U, _F, _I, _I, _I],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I,
-                         _P, _I] + _REG + [_P],
-    "query_launch": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
-    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+                         _P, _I] + _REG,
+    "query_launch": [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P],
+    "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "bwd_gemm_launch": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-                       + [_I, _I, _P, _I, _P, _I] * 3 + [_P],
+                       + [_I, _I, _P, _I, _P, _I] * 3,
     "train_attention_launch": [_P] * 10 + [_P, _I, _P, _I, _P, _I]
-                              + [_I] * 7 + [_P],
+                              + [_I] * 7,
     "train_fwd_attention_launch": [_P] * 9 + [_P, _I, _P, _I, _P, _I]
-                                  + [_P] * 6 + [_I] * 9 + [_P],
+                                  + [_P] * 6 + [_I] * 9,
     "bwd_head_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I]
-                       + _CELL + [_P],
-    "bwd_cell_launch": [_P, _I] + _CELL + [_P],
+                       + _CELL,
+    "bwd_cell_launch": [_P, _I] + _CELL,
     "bwd_gemm_cell_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I]
-                            + _CELL + [_P],
-    "att_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
-    "fwd_att_bwd_launch": [_P] * 21 + [_I] * 9 + [_P],
+                            + _CELL,
+    "att_bwd_launch": [_P] * 15 + [_I] * 7,
+    "fwd_att_bwd_launch": [_P] * 21 + [_I] * 9,
     "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
-                          _I, _F, _I, _I, _I, _P],
+                          _I, _F, _I, _I, _I],
 }
 _LIB = None
 
@@ -814,28 +837,47 @@ def _lib():
         lib = _build.load("fused_train_decoder")
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = argtypes
+            fn.argtypes = argtypes + [_I, _P]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _launch(name: str, fn: str, *args, cell: bool = False) -> None:
-    err = getattr(_lib(), fn)(*args, _stream())
+def _launch(name: str, fn: str, dtype: torch.dtype, *args,
+            cell: bool = False) -> None:
+    """Launch ``fn``'s instance for the compute type ``dtype`` (its last
+    argument before the stream) and count it as ``instance(name, dtype)``."""
+    err = getattr(_lib(), fn)(*args, int(dtype == torch.float32), _stream())
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{instance(name, dtype)} kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES[instance(name, dtype)] += 1
     if cell:
-        LAUNCHES["bwd_cell"] += 1
+        LAUNCHES[instance("bwd_cell", dtype)] += 1
 
 
-def _cell_args(cell: Optional[CellArgs], hidden: int) -> list:
+def _compute_type(name: str, weight: torch.Tensor,
+                  *streams: Optional[torch.Tensor]) -> torch.dtype:
+    """The compute type of a kernel call, its weight's: bfloat16 or
+    float32, and every compute-type operand or stream in ``streams`` (None
+    allowed) of the same type."""
+    d = weight.dtype
+    if d not in _DTYPES:
+        raise ValueError(f"{name}: the CUDA kernels take bfloat16 or float32 "
+                         f"compute, got {d}")
+    for t in streams:
+        _require(t, d, f"{name} operands")
+    return d
+
+
+def _cell_args(cell: Optional[CellArgs], hidden: int,
+               dtype: torch.dtype) -> list:
     """The cell operands of a launcher (all null without a cell)."""
     if cell is None:
         return [None] * 5 + [hidden] + [0] * 6 + [0, 0.0, 0.0, 0.0]
-    _require(cell.act, torch.bfloat16, "cell activations")
-    _require(cell.c_prev, torch.bfloat16, "cell state stream")
-    _require(cell.dg, torch.bfloat16, "cell gate gradients")
+    for t in (cell.act, cell.c_prev, cell.dg):
+        _require(t, dtype, "cell activations, state stream and gate "
+                 "gradients")
     return [_ptr(cell.act), _ptr(cell.c_prev), _ptr(cell.dc), _ptr(cell.dg),
             _ptr(cell.dh_reg), hidden, *cell.reg]
 
@@ -869,8 +911,8 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
     """Kernel ``train_prenet``: the input frame (``shifted_s`` at a teacher
     step, the ``frame`` carry otherwise) -> ``raw_out`` [B, M], each
     layer's output ``pre_out`` [layers, B, P] and the last layer into
-    ``dst`` [B, P] (bf16; the streams ``raw_out`` and ``pre_out`` may be
-    None) and, when given, into ``x_out`` [B, P] in float32 (the
+    ``dst`` [B, P] (compute type; the streams ``raw_out`` and ``pre_out``
+    may be None) and, when given, into ``x_out`` [B, P] in float32 (the
     transition agent's input).  One launch: a cluster of CTAs for each 16
     rows, each CTA a column slice of every layer (``prenet_split``), as the
     serving decoder's ``prenet``."""
@@ -878,13 +920,13 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
         return _train_prenet_plain_into(shifted_s, frame, teacher, ops, cfg,
                                         seeds, gs, raw_out, pre_out, dst,
                                         x_out)
-    for t in (raw_out, pre_out, dst, ops["pre_w"]):
-        _require(t, torch.bfloat16, "train_prenet operands")
+    d = _compute_type("train_prenet", ops["pre_w"], raw_out, pre_out, dst,
+                      shifted_s)
     _require(x_out, torch.float32, "train_prenet x_out")
     b = frame.shape[0]
     rate = cfg.dropout_rate
     cluster, cols_p, _ = prenet_split(cfg.mmel, cfg.prenet_dim)
-    _launch("train_prenet", "train_prenet_launch",
+    _launch("train_prenet", "train_prenet_launch", d,
             _ptr(shifted_s), _ptr(frame), int(bool(teacher)),
             _ptr(ops["pre_w"]), _ptr(ops["pre_b"]), _ptr(raw_out),
             _ptr(pre_out), _ld(pre_out), _ptr(dst), _ld(dst), _ptr(x_out), b,
@@ -899,37 +941,38 @@ def train_gate_lstm(row, w, bias, reg, h, c, act_out, c_out, h_dst0, h_dst1):
     """Kernel ``train_gate_lstm``: gates of the concat ``row`` [B, K_pad],
     the LSTM step and the regularization.  Updates the float32 carries
     ``h``, ``c`` in place and writes the activations ``act_out`` [B, 4H],
-    ``c_out`` and h into ``h_dst0`` (and ``h_dst1`` if given), bf16; the
-    streams ``act_out`` and ``c_out`` may be None."""
+    ``c_out`` and h into ``h_dst0`` (and ``h_dst1`` if given), in the
+    compute type; the streams ``act_out`` and ``c_out`` may be None."""
     if not _is_cuda(h):
         return _train_gate_lstm_plain_into(row, w, bias, reg, h, c, act_out,
                                            c_out, h_dst0, h_dst1)
-    for t in (row, w, act_out, c_out, h_dst0):
-        _require(t, torch.bfloat16, "train_gate_lstm operands")
+    d = _compute_type("train_gate_lstm", w, row, act_out, c_out, h_dst0,
+                      h_dst1)
     b, hidden = h.shape
-    if (w.shape[1] % 8 or row.stride(0) % 8 or w.stride(0) % 8
+    v = 16 // w.element_size()         # elements a 16-byte chunk
+    if (w.shape[1] % v or row.stride(0) % v or w.stride(0) % v
             or row.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("train_gate_lstm needs K_pad % 8 == 0 and the row "
-                         "and weight rows 16-byte aligned")
-    _launch("train_gate_lstm", "gate_lstm_launch",
+        raise ValueError("train_gate_lstm needs K_pad of whole 16-byte "
+                         "chunks and the row and weight rows 16-byte "
+                         "aligned")
+    _launch("train_gate_lstm", "gate_lstm_launch", d,
             _ptr(row), _ld(row), _ptr(w), w.shape[1], _ptr(bias), b, hidden,
             _ptr(h), _ptr(c), _ptr(act_out), _ptr(c_out), _ptr(h_dst0),
             _ld(h_dst0), _ptr(h_dst1), _ld(h_dst1), *reg)
 
 
 def train_query(h, wq, q_out, scratch=None):
-    """Kernel ``train_query``: ``q_out`` [B, A] = bf16(h @ Wq) in float32;
-    ``h`` [B, H] is a bf16 stream view.  K is split as ``bwd_gemm``
-    splits it."""
+    """Kernel ``train_query``: ``q_out`` [B, A] = round(h @ Wq) in float32
+    (rounded to the compute type); ``h`` [B, H] is a compute-type stream
+    view.  K is split as ``bwd_gemm`` splits it."""
     if not _is_cuda(q_out):
         return _train_query_plain_into(h, wq, q_out)
-    _require(h, torch.bfloat16, "train_query h")
-    _require(wq, torch.bfloat16, "train_query wq")
+    d = _compute_type("train_query", wq, h)
     b, hidden = h.shape
     a = wq.shape[1]
     slices, kslice, part = _splitk.split(_lib(), b, a, hidden, scratch,
                                          q_out.device)
-    _launch("train_query", "query_launch", _ptr(h), _ld(h), _ptr(wq), b,
+    _launch("train_query", "query_launch", d, _ptr(h), _ld(h), _ptr(wq), b,
             hidden, a, _ptr(q_out), slices, kslice, _ptr(part))
 
 
@@ -937,23 +980,19 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
                     ctx, ctx_dsts, agent: Optional[AgentArgs] = None):
     """Kernel ``train_attention``: updates the float32 carries ``cum`` and
     ``ctx`` in place, writes the weights ``w_out`` [B, T] (float32), the
-    cum before the step ``cum_out`` (bf16; may be None) and the context
-    into each of ``ctx_dsts`` (bf16; the last may be None).  Each batch
-    row is a cluster of CTAs over tiles of its positions
-    (``att_bwd_tiles``).  With ``lc`` None it runs the forward family's
-    variant (``LAUNCHES["train_attention_fwd"]``; the carry ``cum`` holds
-    the last step's weights and receives the new ones), with the
-    transition ``agent`` when given."""
+    cum before the step ``cum_out`` (compute type; may be None) and the
+    context into each of ``ctx_dsts`` (compute type; the last may be
+    None).  Each batch row is a cluster of CTAs over tiles of its positions
+    (``att_bwd_tiles``: any T).  With ``lc`` None it runs the forward
+    family's variant (``LAUNCHES["train_attention_fwd"]``; the carry
+    ``cum`` holds the last step's weights and receives the new ones), with
+    the transition ``agent`` when given."""
     if not _is_cuda(q):
         return _train_attention_plain_into(q, cum, memory, mtb, mask_add, lc,
                                            v, w_out, cum_out, ctx, ctx_dsts,
                                            agent)
-    for t in (memory, mtb, lc, cum_out,
-              *[x for x in ctx_dsts if x is not None]):
-        _require(t, torch.bfloat16, "train_attention operands")
+    d = _compute_type("train_attention", memory, mtb, lc, cum_out, *ctx_dsts)
     b, t_len, mem_dim = memory.shape
-    if t_len > 512:
-        raise ValueError(f"train_attention takes T <= 512, got {t_len}")
     tile, cluster = att_bwd_tiles(t_len)
     d0, d1, d2 = ctx_dsts
     if lc is None:
@@ -961,7 +1000,10 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
         if a is not None:
             for t in (a.tp, a.tp_out, a.h_att, a.x, a.w, a.b):
                 _require(t, torch.float32, "train_attention agent operands")
-        _launch("train_attention_fwd", "train_fwd_attention_launch",
+            if not (a.h_att.is_contiguous() and a.x.is_contiguous()):
+                raise ValueError("train_attention: the agent's h_att and x "
+                                 "must be contiguous [B, H] and [B, P]")
+        _launch("train_attention_fwd", "train_fwd_attention_launch", d,
                 _ptr(q), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
                 _ptr(v), _ptr(w_out), _ptr(cum_out), _ptr(ctx), _ptr(d0),
                 _ld(d0), _ptr(d1), _ld(d1), _ptr(d2), _ld(d2),
@@ -972,7 +1014,7 @@ def train_attention(q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out,
                 0 if a is None else a.x.shape[1], tile, cluster,
                 int(a is not None))
         return
-    _launch("train_attention", "train_attention_launch",
+    _launch("train_attention", "train_attention_launch", d,
             _ptr(q), _ptr(cum), _ptr(memory), _ptr(mtb), _ptr(mask_add),
             _ptr(lc), _ptr(v), _ptr(w_out), _ptr(cum_out), _ptr(ctx),
             _ptr(d0), _ld(d0), _ptr(d1), _ld(d1), _ptr(d2), _ld(d2), b,
@@ -987,19 +1029,19 @@ def train_head(row, head_w, head_b, spec_out, stop_out, frame,
     if not _is_cuda(frame):
         return _train_head_plain_into(row, head_w, head_b, spec_out,
                                       stop_out, frame)
-    _require(row, torch.bfloat16, "train_head row")
-    _require(head_w, torch.bfloat16, "train_head weight")
+    d = _compute_type("train_head", head_w, row)
     (n, k), b = head_w.shape, row.shape[0]
     slices, kslice, part = _splitk.split(_lib(), b, n, k, scratch,
                                          frame.device)
-    _launch("train_head", "head_launch", _ptr(row), _ld(row), _ptr(head_w),
+    _launch("train_head", "head_launch", d, _ptr(row), _ld(row), _ptr(head_w),
             k, _ptr(head_b), b, n, _ptr(spec_out), _ptr(frame),
             _ptr(stop_out), slices, kslice, _ptr(part))
 
 
 def bwd_head(dspec, dstop, dframe, head_w, da_frame_out, dh_gen, dctx,
              dh_gen_tot, dctx_tot, cfg, cell: Optional[CellArgs] = None):
-    """Kernel ``bwd_head``: writes ``da_frame_out`` (bf16) and the float32
+    """Kernel ``bwd_head``: writes ``da_frame_out`` (compute type) and the
+    float32
     ``dh_gen_tot``, ``dctx_tot``.  With a ``cell`` (the generator's), its
     epilogue runs the cell's backward on each dh_gen_tot value, and
     ``dh_gen_tot`` may be None (it is then not stored)."""
@@ -1007,25 +1049,27 @@ def bwd_head(dspec, dstop, dframe, head_w, da_frame_out, dh_gen, dctx,
         return _bwd_head_plain_into(dspec, dstop, dframe, head_w,
                                     da_frame_out, dh_gen, dctx, dh_gen_tot,
                                     dctx_tot, cfg, cell)
-    _require(head_w, torch.bfloat16, "bwd_head weight")
-    _launch("bwd_head", "bwd_head_launch", _ptr(dspec), _ptr(dstop),
+    d = _compute_type("bwd_head", head_w, da_frame_out)
+    _launch("bwd_head", "bwd_head_launch", d, _ptr(dspec), _ptr(dstop),
             _ptr(dframe), _ptr(head_w), head_w.shape[1], _ptr(da_frame_out),
             _ptr(dh_gen), _ptr(dctx), _ptr(dh_gen_tot), _ptr(dctx_tot),
             dspec.shape[0], cfg.mmel, cfg.mem_dim,
-            *_cell_args(cell, cfg.hidden), cell=cell is not None)
+            *_cell_args(cell, cfg.hidden, d), cell=cell is not None)
 
 
 def bwd_cell(act, c_prev, dh_tot, dc, dg_out, dh_reg, reg):
-    """Kernel ``bwd_cell`` alone: ``dg_out`` [B, 4H] (bf16), ``dh_reg`` and
+    """Kernel ``bwd_cell`` alone: ``dg_out`` [B, 4H] (compute type),
+    ``dh_reg`` and
     the cell cotangent carry ``dc`` (updated in place).  The training
     decode runs the cell inside ``bwd_head`` and ``bwd_gemm`` (``cell=``)."""
     if not _is_cuda(dc):
         return _bwd_cell_plain_into(act, c_prev, dh_tot, dc, dg_out, dh_reg,
                                     reg)
     b, hidden = dc.shape
-    _launch("bwd_cell", "bwd_cell_launch", _ptr(dh_tot), b,
+    d = _compute_type("bwd_cell", act)
+    _launch("bwd_cell", "bwd_cell_launch", d, _ptr(dh_tot), b,
             *_cell_args(CellArgs(act, c_prev, dc, dg_out, dh_reg, reg),
-                        hidden))
+                        hidden, d))
 
 
 def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None,
@@ -1041,8 +1085,7 @@ def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None,
     each final ``add + acc`` value instead of a store."""
     if not _is_cuda(a):
         return _bwd_gemm_plain_into(a, b, b_kn, segments, a_km, cell=cell)
-    _require(a, torch.bfloat16, "bwd_gemm a")
-    _require(b, torch.bfloat16, "bwd_gemm b")
+    d = _compute_type("bwd_gemm", b, a)
     m, k = (a.shape[1], a.shape[0]) if a_km else a.shape
     n = b.shape[1] if b_kn else b.shape[0]
     if cell is not None:
@@ -1052,16 +1095,16 @@ def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None,
                              "(0, N, None, add) and an [M, K] a")
         slices, kslice, part = _splitk.split(_lib(), m, n, k, scratch,
                                              a.device)
-        _launch("bwd_gemm", "bwd_gemm_cell_launch", _ptr(a), _ld(a), _ptr(b),
-                _ld(b), int(b_kn), m, k, slices, kslice, _ptr(part),
-                _ptr(add), _ld(add), *_cell_args(cell, n), cell=True)
+        _launch("bwd_gemm", "bwd_gemm_cell_launch", d, _ptr(a), _ld(a),
+                _ptr(b), _ld(b), int(b_kn), m, k, slices, kslice, _ptr(part),
+                _ptr(add), _ld(add), *_cell_args(cell, n, d), cell=True)
         return
     segs = list(segments) + [(0, 0, None, None)] * (3 - len(segments))
     args = []
     for lo, hi, out, add in segs:
         args += [lo, hi, _ptr(out), _ld(out), _ptr(add), _ld(add)]
     slices, kslice, part = _splitk.split(_lib(), m, n, k, scratch, a.device)
-    _launch("bwd_gemm", "bwd_gemm_launch", _ptr(a), _ld(a), int(a_km),
+    _launch("bwd_gemm", "bwd_gemm_launch", d, _ptr(a), _ld(a), int(a_km),
             _ptr(b), _ld(b), int(b_kn), m, n, k, slices, kslice,
             _ptr(part), *args)
 
@@ -1073,10 +1116,14 @@ _ATT_CLUSTER_MAX, _ATT_TILE_ROWS = 8, 16
 
 
 def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
-    """``(tile, cluster)`` of ``att_bwd`` at T = ``t_len``: the fewest
-    16-row mma tiles a CTA such that at most 8 CTAs cover T, and as many
-    CTAs as the tiles need (none empty).  T=128 gives 8 CTAs of 16
-    positions; T=200, 7 of 32; T=512, 8 of 64."""
+    """``(tile, cluster)`` of ``att_bwd`` and ``train_attention`` at T =
+    ``t_len``: the fewest 16-row mma tiles a CTA such that at most 8 CTAs
+    cover T, and as many CTAs as the tiles need (none empty).  T=128 gives
+    8 CTAs of 16 positions; T=200, 7 of 32; T=512, 8 of 64; T=1500, 8 of
+    192.  A tile's per-position rows live in its CTA's shared memory, which
+    holds ``att_bwd``'s up to about T = 3,900 in bf16 and 2,300 in float32
+    at the flagship's widths (``csrc/fused_train_decoder.cu``); past that
+    the launch is refused."""
     if t_len < 1:
         raise ValueError(f"att_bwd needs T >= 1, got {t_len}")
     mma_tiles = _cdiv(t_len, _ATT_TILE_ROWS)
@@ -1088,7 +1135,8 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
             dv, dq_out, dctx_out, fam: Optional[FamilyBwd] = None):
     """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
     A], ``dlc`` [B, K, A], ``dv`` [B, A] and the cum cotangent ``dcum``;
-    writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (bf16).  Each batch
+    writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (compute type).  Each
+    batch
     row is a cluster of CTAs over tiles of its positions
     (``att_bwd_tiles``).  With ``fam`` it runs the forward family's variant
     (``LAUNCHES["att_bwd_fwd"]``; ``lc`` and ``dlc`` None; ``dcum`` is the
@@ -1098,9 +1146,8 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
         return _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx,
                                    dw_out, dcum, dmt, dlc, dv, dq_out,
                                    dctx_out, fam)
+    d = _compute_type("att_bwd", memory, cum_s, mtb, lc, dq_out, dctx_out)
     b, t_len, mem_dim = memory.shape
-    if t_len > 512:
-        raise ValueError(f"att_bwd takes T <= 512, got {t_len}")
     tile, cluster = att_bwd_tiles(t_len)
     if fam is not None:
         trans = fam.dtp is not None
@@ -1108,7 +1155,8 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
                                    fam.w, fam.dh_att, fam.dx) if trans
                                   else ())):
             _require(t, torch.float32, "att_bwd family operands")
-        _launch("att_bwd_fwd", "fwd_att_bwd_launch", _ptr(q), _ptr(cum_s),
+        _launch("att_bwd_fwd", "fwd_att_bwd_launch", d, _ptr(q),
+                _ptr(cum_s),
                 _ptr(w_s), _ptr(memory), _ptr(mtb), _ptr(fam.mask_add),
                 _ptr(v), _ptr(dctx), _ptr(dw_out), _ptr(dcum), _ptr(dmt),
                 _ptr(dv), _ptr(dq_out), _ptr(dctx_out), _ptr(fam.tp_prev),
@@ -1117,7 +1165,7 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
                 mem_dim, fam.dh_att.shape[1] if trans else 0,
                 fam.dx.shape[1] if trans else 0, tile, cluster, int(trans))
         return
-    _launch("att_bwd", "att_bwd_launch", _ptr(q), _ptr(cum_s), _ptr(w_s),
+    _launch("att_bwd", "att_bwd_launch", d, _ptr(q), _ptr(cum_s), _ptr(w_s),
             _ptr(memory), _ptr(mtb), _ptr(lc), _ptr(v), _ptr(dctx),
             _ptr(dw_out), _ptr(dcum), _ptr(dmt), _ptr(dlc), _ptr(dv),
             _ptr(dq_out), _ptr(dctx_out), b, t_len, lc.shape[1], mem_dim,
@@ -1127,7 +1175,8 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
 def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,
                dframe):
     """Kernel ``bwd_prenet``: pre-ReLU grads ``da_out`` [layers, B, P],
-    then ``dshift_out`` (bf16, zero unless a teacher step) and the float32
+    then ``dshift_out`` (compute type, zero unless a teacher step) and the
+    float32
     ``dframe`` carry (zero at a teacher step).  One launch: a cluster of
     CTAs for each 16 rows, each CTA a column slice of every layer
     (``prenet_split``), every layer's weight slice in its shared
@@ -1135,11 +1184,10 @@ def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,
     if not _is_cuda(dx):
         return _bwd_prenet_plain_into(dx, pre_s, ops, cfg, teacher, da_out,
                                       dshift_out, dframe)
-    for t in (pre_s, ops["pre_w"], da_out, dshift_out):
-        _require(t, torch.bfloat16, "bwd_prenet operands")
+    d = _compute_type("bwd_prenet", ops["pre_w"], pre_s, da_out, dshift_out)
     rate = cfg.dropout_rate
     cluster, cols_p, cols_in = prenet_split(cfg.mmel, cfg.prenet_dim)
-    _launch("bwd_prenet", "bwd_prenet_launch", _ptr(dx), _ptr(pre_s),
+    _launch("bwd_prenet", "bwd_prenet_launch", d, _ptr(dx), _ptr(pre_s),
             pre_s.stride(0), _ptr(ops["pre_w"]), _ptr(da_out),
             da_out.stride(0), _ptr(dshift_out), _ptr(dframe),
             int(bool(teacher)), dx.shape[0], cfg.mmel, cfg.prenet_dim,
@@ -1196,18 +1244,6 @@ def initial_state(cfg: TrainConfig, b: int, t_len: int, device
     return {"cum": cum, "tp": torch.full((b,), 0.5, device=device)}
 
 
-def _require_bf16_kernels(cfg: TrainConfig, like: torch.Tensor,
-                          plain: bool) -> None:
-    """The training decoder's kernels run bfloat16 compute only: raise for
-    another compute type on the card (the plain versions take any)."""
-    if not plain and _is_cuda(like) and cfg.dtype != torch.bfloat16:
-        raise ValueError(
-            "the training decoder's CUDA kernels (K2/K3) take bfloat16 "
-            f"compute, got {cfg.dtype}: their float32 instances are not "
-            "ported yet (ROADMAP Queue 2, V4: float32 in K2 and K3); train "
-            "in bfloat16 on the card, or in float32 on the CPU")
-
-
 def _pass_scratch(plain: bool, products, like: torch.Tensor):
     """The one split-K scratch of a decoder pass (``_splitk.splitk_scratch``)
     for the kernels; None for the plain versions and on the CPU."""
@@ -1228,7 +1264,6 @@ def train_decode_forward(ops, cfg: TrainConfig, memory, mtb, mask_add,
     (``cfg.train`` False) keeps no residual stream: its concat rows are
     two buffers a row kind that the steps alternate (a gate product writes
     the next step's row while it reads its own)."""
-    _require_bf16_kernels(cfg, memory, plain)
     n_f, b = shifted.shape[:2]
     t_len = memory.shape[1]
     d = cfg.dtype
@@ -1313,7 +1348,6 @@ def train_decode_backward(ops, cfg: TrainConfig, memory, mtb, st,
     ``train_operands`` plus ``memory``, ``mtb`` and ``shifted``; the
     per-step gradient streams; the final cotangent carry (that of the
     initial decoder state)."""
-    _require_bf16_kernels(cfg, memory, plain)
     if cfg.family and mask_add is None:
         raise ValueError("the forward family's backward needs mask_add")
     n_f, b = dspec.shape[:2]

@@ -17,7 +17,9 @@ version on the CPU), and the host checks the stop tokens between chunks.
 ``hp.compute_dtype`` picks the kernels' bfloat16 or float32 instances,
 ``hp.pallas_decoder_int8`` the W8A8 gates and
 ``hp.pallas_decoder_int8_streams`` (None: off) the int8 attention streams,
-as in the JAX package.  In float32
+as in the JAX package; both hold only with ``hp.use_pallas_decoder``, whose
+False (the JAX package's XLA scan) decodes with exact gates on full
+streams.  In float32
 the encoder's and postnet's cuDNN calls run in full float32
 (``device.exact_float32``), not in PyTorch's default TF32.
 Checkpoint loading and vocoding are not ported yet.
@@ -154,10 +156,14 @@ class Synthesizer:
         self.model = model.to(self.device).eval()
         self.chunk = int(hp.decode_chunk_frames)
         self.max_chunks = (hp.max_output_length + self.chunk - 1) // self.chunk
+        # the JAX package decodes on its XLA scan, exact gates on full
+        # streams, unless hp.use_pallas_decoder: W8A8 and int8 streams are
+        # settings of its fused decoder alone
+        fused = bool(hp.use_pallas_decoder)
         self.bundle = fused_decoder.extract_decoder_bundle(
             self.model.decoder.cell, self.dtype,
-            quantize_gates=bool(hp.pallas_decoder_int8),
-            q_streams=bool(hp.pallas_decoder_int8_streams))
+            quantize_gates=fused and bool(hp.pallas_decoder_int8),
+            q_streams=fused and bool(hp.pallas_decoder_int8_streams))
         self.decode_kwargs = self.model.decoder.decode_kwargs
 
     def _tensor(self, a, dtype=torch.long):

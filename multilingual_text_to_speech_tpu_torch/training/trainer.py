@@ -10,6 +10,7 @@ accuracy.  The epoch loop, evaluation and checkpoints are not ported.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from multilingual_text_to_speech_tpu_torch.device import (
     DeviceLike,
+    exact_float32,
     resolve_device,
 )
 from multilingual_text_to_speech_tpu_torch.models.tacotron import (
@@ -137,7 +139,9 @@ def train_step(model, optimizer, scheduler, batch: Batch,
     without a card); the model must already lie there, and the batch's
     arrays move there.  A grouped encoder (``convolutional``,
     ``generated``) needs a language-interleaved batch (sample ``k*g + j``
-    has language j); the others take any order."""
+    has language j); the others take any order.  A float32 model
+    (``hp.compute_dtype``) runs its forward, loss and backward in
+    ``device.exact_float32``."""
     hp = model.hp
     dev = resolve_device(device)
     _check_model_device(model, dev)
@@ -157,17 +161,22 @@ def train_step(model, optimizer, scheduler, batch: Batch,
                    else _on(dev, batch.linear_spectrograms, torch.float32))
 
     model.train()
-    out = model(text, text_lengths, mels, mel_lengths, speakers, languages,
-                [int(t) for t in teacher], seeds)
-    total, losses = tacotron_loss(
-        out, hp=hp, input_lengths=text_lengths, target_lengths=mel_lengths,
-        pre_target=mels, post_target=post_target,
-        stop_target=_on(dev, batch.stop_tokens, torch.float32),
-        speakers=speakers,
-        guided_att_variance=loss_state.guided_att_variance,
-        guided_att_active=loss_state.guided_att_steps > 0)
-    optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    # a float32 model's convolutions and LSTMs run in full float32 through
+    # cuDNN, forward and backward, not in PyTorch's default TF32
+    with (exact_float32() if model.dtype == torch.float32
+          else contextlib.nullcontext()):
+        out = model(text, text_lengths, mels, mel_lengths, speakers,
+                    languages, [int(t) for t in teacher], seeds)
+        total, losses = tacotron_loss(
+            out, hp=hp, input_lengths=text_lengths,
+            target_lengths=mel_lengths, pre_target=mels,
+            post_target=post_target,
+            stop_target=_on(dev, batch.stop_tokens, torch.float32),
+            speakers=speakers,
+            guided_att_variance=loss_state.guided_att_variance,
+            guided_att_active=loss_state.guided_att_steps > 0)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
     params: List[torch.Tensor] = [p for g in optimizer.param_groups
                                   for p in g["params"]]
     grad_norm = clip_grad_global_norm_(params, hp.gradient_clipping)

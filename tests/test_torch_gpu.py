@@ -8,7 +8,9 @@ Small widths, bfloat16 compute, W8A8 and bfloat16 gates; the tensor-core
 products (both decoders' gate products, the split-K query, heads and
 backward products, the head backward) also at the flagship's widths; the
 serving kernels' float32 instances and the attention kernels on int8
-streams at the flagship's widths.
+streams at the flagship's widths; the training kernels' float32 instances
+at small widths, and all three attention kernels on long texts (T up to
+1500) in both compute types.
 """
 
 import functools
@@ -17,7 +19,12 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from chip_smoke import ATOL, TRAIN_KERNEL_TOL, mask_patterns
+from chip_smoke import (
+    ATOL,
+    TRAIN_KERNEL_TOL,
+    mask_patterns,
+    train_kernel_calls,
+)
 from multilingual_text_to_speech_tpu_torch.config import flagship_hparams
 from multilingual_text_to_speech_tpu_torch.models.tacotron import (
     Tacotron,
@@ -161,27 +168,70 @@ def test_single_utterance_on_card_matches_cpu():
     assert err < 1e-2, err
 
 
-def test_training_kernels_refuse_float32_compute():
-    """K2 and K3 run bfloat16 compute only (their float32 instances are
-    the next slice of the port): a float32 forward or backward on the card
-    raises and says so; the plain versions take it."""
+@pytest.mark.parametrize("mode", ["train", "eval"])
+@pytest.mark.parametrize("kind", ["location_sensitive", "forward",
+                                  "forward_transition_agent"])
+def test_f32_train_kernels_match_plain(kind, mode):
+    """Every float32 K2/K3 stage (train mode: the five forward and five
+    backward kernels of ``chip_smoke.train_kernel_calls``, the cells fused
+    into their hosts; eval mode: the forward's, zoneout interpolated) on
+    the same card inputs as its plain version, at small widths and each
+    attention kind: the dropout and zoneout choices (and the fused cells')
+    bit-exact, every output within F32_TOL of its largest value, and only
+    ``_f32`` instances launched."""
     import dataclasses
 
-    ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher = _train_setup()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    ops32 = ftd.compute_operands(ops, cfg32)
-    args = (ops32, cfg32, memory.float(), mtb.float(), mask_add)
-    with pytest.raises(ValueError, match="bfloat16.*V4"):
-        ftd.train_decode_forward(*args, shifted.float(), teacher, (1, 2))
-    st, _ = ftd.train_decode_forward(*args, shifted.float(), teacher, (1, 2),
-                                     plain=True)
-    f, b = shifted.shape[:2]
-    with pytest.raises(ValueError, match="bfloat16.*V4"):
-        ftd.train_decode_backward(
-            ops32, cfg32, memory.float(), mtb.float(), st, teacher, (1, 2),
-            torch.zeros(f, b, cfg.mmel, device="cuda"),
-            torch.zeros(f, b, device="cuda"),
-            torch.zeros(f, b, memory.shape[1], device="cuda"))
+    from chip_smoke import check_cell_masks
+
+    ftd, _, cfg, ops, memory, mtb, mask_add, shifted, teacher = \
+        _train_setup_model(dtype=torch.float32, attention_type=kind)
+    seeds = (1234, 98765)
+    args = (ops, cfg, memory, mtb, mask_add, shifted, teacher, seeds)
+    st_p, _ = ftd.train_decode_forward(*args, plain=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cts = [torch.randn(x.shape, device="cuda", generator=gen)
+           for x in (st_p["spec"], st_p["stop"], st_p["w"])]
+    k2, k3 = cfg.kernels
+    if mode == "eval":
+        cfg = dataclasses.replace(cfg, train=False)
+    calls, _ = train_kernel_calls(ftd, cfg, ops, memory, mtb, mask_add,
+                                  shifted, st_p, teacher, seeds, cts, 6)
+    if mode == "eval":
+        calls = {k: v for k, v in calls.items()
+                 if ftd.instance(k, torch.float32) in k2}
+    got, ref = (mask_patterns(k, cfg, ops, st_p, shifted, seeds, 3)
+                for k in (ftd.KERNELS, ftd.PLAIN))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    ftd.reset_launch_counts()
+    for name, run in calls.items():
+        got, ref = run(ftd.KERNELS), run(ftd.PLAIN)
+        if name == "bwd_cell":
+            check_cell_masks(cfg.hidden, got, ref)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert g.dtype == r.dtype == torch.float32, (name, i)
+            _f32_close(g, r)
+    launched = {k for k, v in ftd.LAUNCHES.items() if v}
+    assert launched == set(k2 if mode == "eval" else k2 + k3), launched
+
+
+def test_f32_train_decode_matches_autograd():
+    """16 float32 steps through ``TrainDecode`` (K2 forward, K3 backward)
+    against ``torch.autograd`` through the plain K2 in differentiable ops,
+    from the same card inputs (``chip_smoke.check_train_autograd``, which
+    fails above TRAIN_F32_AUTOGRAD_TOL): the outputs and every input's
+    gradient."""
+    from chip_smoke import check_train_autograd
+
+    ftd, model, cfg, ops, memory, mtb, mask_add, shifted, teacher = \
+        _train_setup_model(frames=16, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, t = mask_add.shape
+    cts = [torch.randn(*shape, device="cuda", generator=gen)
+           for shape in ((16, b, cfg.mmel), (16, b), (16, b, t))]
+    with torch.enable_grad():
+        check_train_autograd(ftd, model, cfg, memory, mtb, mask_add, shifted,
+                             teacher, (9, 10), cts)
 
 
 # ---------------------------------------------------------------------------
@@ -427,34 +477,43 @@ def test_f32_synthesis_on_card_matches_cpu(int8):
 # the training slice: K2 and K3 kernels, and a train step
 # ---------------------------------------------------------------------------
 
-def _train_setup(b=10, t=24, frames=12, dropout=0.5, seed=0):
-    """bf16 operands and realistic decoder inputs on the card."""
+def _train_setup_model(b=10, t=24, frames=12, dropout=0.5, seed=0,
+                       dtype=torch.bfloat16,
+                       attention_type="location_sensitive"):
+    """Compute-type operands and realistic decoder inputs on the card, and
+    the model they come from."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
 
     hp = _hp(False)
     hp.dropout = dropout
+    hp.attention_type = attention_type
     torch.manual_seed(seed)
-    model = init_random_weights(Tacotron(hp, torch.bfloat16), seed).cuda()
+    model = init_random_weights(Tacotron(hp, dtype), seed).cuda()
     text = torch.randint(3, hp.total_symbols(), (b, t), device="cuda")
     lengths = torch.randint(t // 2, t + 1, (b,), device="cuda")
     with torch.no_grad():
-        enc = model.encoder(model.embedding(text).bfloat16(), lengths).float()
+        enc = model.encoder(model.embedding(text).to(dtype), lengths).float()
         memory, mt = model.decoder.prepare_memory(
             enc, torch.randint(0, 4, (b,), device="cuda"),
             torch.zeros(b, t, dtype=torch.long, device="cuda"))
-        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim,
-                                      torch.bfloat16)
+        cfg = ftd.TrainConfig.from_hp(hp, model.decoder.memory_dim, dtype)
         ops = ftd.compute_operands(
             ftd.train_operands(model.decoder.cell, cfg), cfg)
         mtb = (mt.float()
-               + model.decoder.cell.attention.energy_bias).bfloat16()
+               + model.decoder.cell.attention.energy_bias).to(dtype)
     mask_add = torch.where(torch.arange(t, device="cuda")[None] < lengths[:, None],
                            0.0, -1e9)
-    shifted = torch.randn(frames, b, hp.num_mels, device="cuda").bfloat16()
+    shifted = torch.randn(frames, b, hp.num_mels, device="cuda").to(dtype)
     teacher = [int(x) for x in (torch.rand(frames) < 0.5)]
-    return ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher
+    return ftd, model, cfg, ops, memory, mtb, mask_add, shifted, teacher
+
+
+def _train_setup(b=10, t=24, frames=12, dropout=0.5, seed=0):
+    """bf16 operands and realistic decoder inputs on the card."""
+    ftd, _, *rest = _train_setup_model(b, t, frames, dropout, seed)
+    return (ftd, *rest)
 
 
 def _rel(a, b):
@@ -558,9 +617,10 @@ def test_train_step_on_card_matches_cpu():
 
 @pytest.mark.parametrize("b,t", [(5, 512), (510, 16)])
 def test_train_kernels_take_long_texts_and_large_batches(b, t):
-    """Up to T=512 symbols and B=510 rows (a multiple of the 5 languages):
+    """T=512 symbols and B=510 rows (a multiple of the 5 languages):
     3 steps forward and backward through the kernels within a relative 2e-2
-    of the plain versions; 513 symbols raise."""
+    of the plain versions; 513 symbols (7 tiles of 80 positions) too,
+    forward, no longer refused."""
     ftd, cfg, ops, memory, mtb, mask_add, shifted, teacher = _train_setup(
         b=b, t=t, frames=3)
     seeds = (7, 8)
@@ -577,12 +637,18 @@ def test_train_kernels_take_long_texts_and_large_batches(b, t):
     for k in g_p:
         assert _rel(g_k[k], g_p[k]) < 2e-2, k
     if t == 512:
-        long = torch.zeros(b, 513, memory.shape[2], dtype=memory.dtype,
-                           device="cuda")
-        with pytest.raises(ValueError, match="T <= 512"):
-            ftd.train_decode_forward(ops, cfg, long, torch.zeros(
-                b, 513, cfg.att_dim, dtype=mtb.dtype, device="cuda"),
-                torch.zeros(b, 513, device="cuda"), shifted, teacher, seeds)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        long = (torch.randn(b, 513, memory.shape[2], device="cuda",
+                            generator=gen).to(memory.dtype),
+                torch.randn(b, 513, cfg.att_dim, device="cuda",
+                            generator=gen).to(mtb.dtype),
+                torch.zeros(b, 513, device="cuda"))
+        st_k, _ = ftd.train_decode_forward(ops, cfg, *long, shifted, teacher,
+                                           seeds)
+        st_p, _ = ftd.train_decode_forward(ops, cfg, *long, shifted, teacher,
+                                           seeds, plain=True)
+        for k in ("spec", "stop", "w"):
+            assert _rel(st_k[k], st_p[k]) < 2e-2, k
 
 
 # ---------------------------------------------------------------------------
@@ -1765,3 +1831,175 @@ def test_family_decode_and_training_run_the_kernels(kind):
                              }.items():
         assert torch.isfinite(got.float()).all(), name
         assert _rel(got, ref) < 2e-2, (name, _rel(got, ref))
+
+
+# ---------------------------------------------------------------------------
+# all three attention kernels on long texts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [600, 1000, 1500])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["location_sensitive", *_FAMILY])
+def test_attention_kernels_take_long_texts(kind, dtype, t, _full_f32):
+    """T = 600, 1000 and 1500 symbols (tiles of 80, 128 and 192 positions,
+    past what a CTA's shared memory holds of the rows in float32) at the
+    flagship's widths, B=3, each attention kind and compute type: K2's
+    ``train_attention`` (one step with its streams: weights, new state,
+    context, t_prob), K3's ``att_bwd`` (two chained calls) and K1's
+    ``lsa_attention`` or ``fwd_attention`` against their plain versions on
+    the same inputs.  float32: the weights within 1e-4 of each row's
+    largest (a weight carries the absolute float32 error of its energy,
+    whose sums over 128 channels run in another order on each side:
+    measured up to 2.8e-5 at T=600), every other output within F32_TOL of
+    its largest value; bf16: the bounds of the T <= 512 tests (weights
+    within W_TOL of the row's largest, contexts within CTX_TOL,
+    ``att_bwd`` within its chip_smoke bound)."""
+    from chip_smoke import CTX_TOL, W_TOL
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    b, f32 = 3, dtype == torch.float32
+    family = kind != "location_sensitive"
+    rnd, memory, mtb, mask, cum0 = _attention_operands(b, t, seed=t + 3)
+    memory, mtb = memory.to(dtype), mtb.to(dtype)
+    mask_add = torch.where(mask, 0.0, -1e9)
+    lc = None if family else rnd(_TAPS, _ATT, scale=0.1).to(dtype)
+    v = rnd(_ATT, scale=_ATT ** -0.5)
+    if family:
+        cum0, tp0 = _fwd_state(b, t, mask, seed=t)
+        tp0 = tp0[:, 0]
+    ta = (SimpleNamespace(w=rnd(_MEM + _HIDDEN + 256, scale=0.03),
+                          b=rnd(1, scale=0.1))
+          if kind == "forward_transition_agent" else None)
+    h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
+
+    def close(g, r, w_rows=False):
+        if w_rows:
+            bound = 1e-4 if f32 else W_TOL
+            assert float(((g - r).abs().amax(1) / r.amax(1)).max()) < bound
+        elif f32:
+            _f32_close(g, r)
+        else:
+            torch.testing.assert_close(g.float(), r.float(), atol=CTX_TOL,
+                                       rtol=CTX_TOL)
+
+    # K2: one step with its streams
+    q = rnd(b, _ATT).to(dtype).float()
+
+    def forward(fn):
+        cc, ctx = cum0.clone(), torch.empty(b, _MEM, device="cuda")
+        w = torch.empty(b, t, device="cuda")
+        cum_s = torch.empty(b, t, dtype=dtype, device="cuda")
+        dsts = [torch.empty(b, _MEM, dtype=dtype, device="cuda")
+                for _ in range(3)]
+        outs, agent = [w, cc, ctx, cum_s], None
+        if ta is not None:
+            tp, tp_s = tp0.clone(), torch.empty(b, device="cuda")
+            agent = ftd.AgentArgs(tp, tp_s, h_att, x, ta.w, ta.b)
+            outs += [tp, tp_s]
+        fn(q, cc, memory, mtb, mask_add, lc, v, w, cum_s, ctx, dsts,
+           agent=agent)
+        return outs + dsts
+
+    ftd.reset_launch_counts()
+    got, ref = forward(ftd.train_attention), forward(ftd.PLAIN.train_attention)
+    att = "train_attention_fwd" if family else "train_attention"
+    assert ftd.LAUNCHES[ftd.instance(att, dtype)] == 1, ftd.LAUNCHES
+    w_k, cc_k, ctx_k, cs_k, *rest_k = got
+    w_p, cc_p, ctx_p, cs_p, *rest_p = ref
+    close(w_k, w_p, w_rows=True)
+    # the new state: cum + w, or the family's w itself
+    close(cc_k if family else cc_k - cum0, cc_p if family else cc_p - cum0,
+          w_rows=True)
+    close(ctx_k, ctx_p)
+    assert torch.equal(cs_k, cs_p)
+    for g, r in zip(rest_k[:2] if ta is not None else [],
+                    rest_p[:2] if ta is not None else []):
+        torch.testing.assert_close(g, r, atol=1e-5 if f32 else 2e-3, rtol=0)
+    for row in rest_k[-3:]:
+        assert torch.equal(row, ctx_k.to(dtype))
+
+    # K3: two chained calls
+    steps = []
+    for _ in range(2):
+        if family:
+            w_s, tp = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
+            prev, tp_prev = _fwd_state(b, t, mask,
+                                       seed=int(rnd(1).abs() * 1e4))
+            cum_s, tps = prev.to(dtype), (tp_prev[:, 0], tp[:, 0])
+        else:
+            e = torch.where(mask, rnd(b, t), torch.full_like(cum0, -1e9))
+            w_s = torch.softmax(e, -1)
+            cum_s, tps = (cum0 + 0.1 * rnd(b, t).abs()).to(dtype), None
+        steps.append((rnd(b, _ATT).to(dtype).float(), cum_s, w_s,
+                      rnd(b, _MEM), rnd(b, t, scale=0.1), tps))
+    dcum0, dtp0 = rnd(b, t, scale=0.1), rnd(b, scale=0.5)
+    dh0 = rnd(b, _HIDDEN, scale=0.1)
+
+    def backward(fn):
+        acc = [torch.zeros(b, t, _ATT, device="cuda"),
+               None if family else torch.zeros(b, _TAPS, _ATT, device="cuda"),
+               torch.zeros(b, _ATT, device="cuda"), dcum0.clone()]
+        extra = [dtp0.clone(), dh0.clone()] if ta is not None else []
+        outs = []
+        for q_s, cum_s, w_s, dctx, dw, tps in steps:
+            o = [torch.empty(b, _ATT, dtype=dtype, device="cuda"),
+                 torch.empty(b, _MEM, dtype=dtype, device="cuda")]
+            fam = None
+            if ta is not None:
+                o += [torch.empty(b, device="cuda"),
+                      torch.empty(b, 256, device="cuda")]
+                fam = ftd.FamilyBwd(mask_add, tps[0], tps[1], extra[0], o[2],
+                                    ta.w, extra[1], o[3])
+            elif family:
+                fam = ftd.FamilyBwd(mask_add)
+            fn(q_s, cum_s, w_s, memory, mtb, lc, v, dctx, dw, acc[3], acc[0],
+               acc[1], acc[2], o[0], o[1], fam=fam)
+            outs += o
+        return [a for a in acc if a is not None] + extra + outs
+
+    got, ref = backward(ftd.att_bwd), backward(ftd.PLAIN.att_bwd)
+    bwd = "att_bwd_fwd" if family else "att_bwd"
+    assert ftd.LAUNCHES[ftd.instance(bwd, dtype)] == 2, ftd.LAUNCHES
+    bound = TRAIN_KERNEL_TOL["att_bwd"]
+    for g, r in zip(got, ref):
+        if f32:
+            _f32_close(g, r)
+        else:
+            kind_ = "bf16" if r.dtype == torch.bfloat16 else "f32"
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= bound[kind_] * float(r.float().abs().max()), kind_
+
+    # K1: one serving step
+    if f32:
+        _, bundle = _f32_bundle(kind, True)
+    elif family:
+        bundle = _fwd_bundle(kind, rnd)
+    else:
+        bundle = _gate_bundle(True, sum(_SEGMENTS["att"]), seed=t)
+        bundle.wq = rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5).bfloat16()
+        bundle.lc = rnd(_TAPS, _ATT, scale=0.1).bfloat16()
+        bundle.v = rnd(_ATT, scale=_ATT ** -0.5)
+    fd.reset_launch_counts()
+    if family:
+        tp = None if ta is None else tp0[:, None]
+        got = fd.fwd_attention(h_att, cum0, tp, memory, mtb, mask_add, x,
+                               bundle)
+        ref = fd.fwd_attention_plain(h_att, cum0, tp, memory, mtb, mask_add,
+                                     x, bundle)
+        close(got[0], ref[0])
+        close(got[1], ref[1], w_rows=True)
+        if ta is not None:
+            torch.testing.assert_close(got[2], ref[2],
+                                       atol=1e-5 if f32 else 2e-3, rtol=0)
+        k1 = "fwd_attention"
+    else:
+        ctx_k, cum_k = fd.lsa_attention(h_att, cum0, memory, mtb, mask_add,
+                                        bundle)
+        ctx_p, cum_p = fd.lsa_attention_plain(h_att, cum0, memory, mtb,
+                                              mask_add, bundle)
+        close(ctx_k, ctx_p)
+        close(cum_k - cum0, cum_p - cum0, w_rows=True)
+        k1 = "lsa_attention"
+    assert fd.LAUNCHES[fd.instance(k1, dtype)] == 1, fd.LAUNCHES

@@ -12,6 +12,7 @@ import pytest
 
 from multilingual_text_to_speech_tpu.synthesis import Synthesizer
 from multilingual_text_to_speech_tpu_torch.interop import params_from_jax
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder
 from multilingual_text_to_speech_tpu_torch.synthesis import (
     Synthesizer as PortSynthesizer,
 )
@@ -96,3 +97,33 @@ def test_spectrogram_from_ids_matches_jax():
     ref = jax_syn.spectrogram_from_ids(seqs[1], speakers[1], weights[1])
     got = port_syn.spectrogram_from_ids(seqs[1], speakers[1], weights[1])
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
+
+
+def test_synthesizer_honours_use_pallas_decoder():
+    """``hp.use_pallas_decoder = False`` with ``pallas_decoder_int8`` at
+    True: the JAX ``Synthesizer`` decodes on its XLA scan, whose gates are
+    exact, and so does the port (its decode kernels without W8A8 or int8
+    streams): every spectrogram within rtol 1e-3, atol 1e-4.  The same port
+    with the W8A8 gates that the setting turns off misses that bound: the
+    switch changes the output, and the port follows it."""
+    hp = tiny_hp(max_output_length=16, decode_chunk_frames=8,
+                 pallas_decoder_int8=True, pallas_decoder_int8_streams=True,
+                 use_pallas_decoder=False)
+    v_np = variables_np(-10.0)
+    jax_syn = Synthesizer(hp, jax_variables(v_np))
+    port_syn = PortSynthesizer(port_hp(hp), params_from_jax(v_np, hp),
+                               device="cpu")
+    assert not port_syn.bundle.quantized and not port_syn.bundle.q_streams
+    seqs, speakers, weights = _inputs(False)
+    args = (seqs[:3], speakers[:3], weights[:3])
+    ref = jax_syn.spectrograms_from_batch(*args)
+    got = port_syn.spectrograms_from_batch(*args)
+    for r, g in zip(ref, got):
+        assert g.shape == r.shape == (hp.num_mels, 16)
+        np.testing.assert_allclose(g, r, rtol=1e-3, atol=1e-4)
+
+    port_syn.bundle = fused_decoder.extract_decoder_bundle(
+        port_syn.model.decoder.cell, port_syn.dtype, quantize_gates=True)
+    w8a8 = port_syn.spectrograms_from_batch(*args)
+    assert not all(np.allclose(o, r, rtol=1e-3, atol=1e-4)
+                   for o, r in zip(w8a8, ref))

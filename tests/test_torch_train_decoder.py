@@ -436,3 +436,36 @@ def test_eval_forward_keeps_no_streams_and_no_graph():
     with pytest.raises(ValueError, match="eval"):
         ftd.TrainDecode.apply(cfg, tuple(teacher.tolist()), seeds, *args[2:6],
                               *[ops[k] for k in ftd.OPERAND_KEYS])
+
+
+@pytest.mark.parametrize("attention_type", ["location_sensitive", "forward",
+                                            "forward_transition_agent"])
+def test_float32_dispatch_names_the_f32_instances(attention_type):
+    """A float32 ``TrainConfig`` names the kernels' float32 instances, the
+    ``LAUNCHES`` keys a card run counts them under: ``path_kernels(kind,
+    float32)`` is the bf16 path with ``_f32`` on every name; the CPU runs
+    the plain versions and counts no launch."""
+    hp = port_hp(tiny_hp(attention_type=attention_type))
+    cfg = ftd.TrainConfig.from_hp(hp, 24, torch.float32)
+    k2, k3 = cfg.kernels
+    assert (k2, k3) == ftd.path_kernels(cfg.att_kind, torch.float32)
+    b2, b3 = ftd.path_kernels(cfg.att_kind)
+    assert list(k2 + k3) == [k + "_f32" for k in b2 + b3]
+    assert set(k2 + k3) <= set(ftd.LAUNCHES)
+    att = "train_attention_fwd" if cfg.family else "train_attention"
+    assert ftd.instance(att, torch.float32) in k2
+    ftd.reset_launch_counts()
+    b, t = 2, 5
+    state = ftd.initial_state(cfg, b, t, "cpu")
+    ftd.train_attention(torch.zeros(b, cfg.att_dim), state["cum"],
+                        torch.zeros(b, t, 24), torch.zeros(b, t, cfg.att_dim),
+                        torch.zeros(b, t), None if cfg.family else torch.zeros(
+                            cfg.taps, cfg.att_dim), torch.zeros(cfg.att_dim),
+                        torch.zeros(b, t), None, torch.zeros(b, 24),
+                        (torch.zeros(b, 24),) * 2 + (None,),
+                        agent=ftd.AgentArgs(
+                            state["tp"], None, torch.zeros(b, cfg.hidden),
+                            torch.zeros(b, cfg.prenet_dim),
+                            torch.zeros(24 + cfg.hidden + cfg.prenet_dim),
+                            torch.zeros(1)) if cfg.agent else None)
+    assert not any(ftd.LAUNCHES.values())

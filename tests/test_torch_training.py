@@ -48,8 +48,8 @@ from tests.torch_port_utils import (
 B, T, FRAMES = 4, 8, 8
 
 
-def _hp():
-    return tiny_hp(reversal_classifier=True)
+def _hp(**over):
+    return tiny_hp(reversal_classifier=True, **over)
 
 
 def _targets(hp, seed=3):
@@ -64,14 +64,16 @@ def _targets(hp, seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(ratio):
+def _jax_step(ratio, t=T, hp_over=()):
     """One JAX training forward + loss + grads on the tiny flagship-topology
-    model, fused train decoder in interpret mode, encoder dropout 0."""
+    model at text length ``t`` and the settings ``hp_over`` (pairs), fused
+    train decoder in interpret mode where it takes the shapes (its XLA scan
+    above 512 symbols), encoder dropout 0."""
     import os
 
-    hp = _hp()
+    hp = _hp(**dict(hp_over))
     v_np = variables_np(classifier=True)
-    text, lengths, speakers = batch(hp, B, T, seed=7)
+    text, lengths, speakers = batch(hp, B, t, seed=7)
     languages = np.arange(B) % hp.language_number
     target, tlen, stop = _targets(hp)
     key = jax.random.PRNGKey(11)
@@ -132,15 +134,11 @@ def _port_model(hp, v_np):
     return model.train()
 
 
-@pytest.mark.parametrize("ratio", [0.5])
-def test_training_forward_loss_and_grads_match_jax(ratio):
-    """At teacher forcing 0.5 (teacher and free-running steps both
-    occur): every loss term within rtol 1e-5, the classifier accuracy exactly,
-    every parameter gradient within 1e-4 of that tensor's largest value,
-    and every batch-norm running statistic after the step within atol
-    1e-5."""
+def _check_step_against_jax(ratio, t=T, hp_over=()):
+    """The port's plain training forward, loss, gradients and batch-norm
+    statistics against ``_jax_step``'s (tolerances in the callers)."""
     (hp, v_np, data, teacher, seeds, ref_losses, ref_acc, ref_grads,
-     ref_stats) = _jax_step(ratio)
+     ref_stats) = _jax_step(ratio, t, hp_over)
     assert 0 < sum(teacher) < len(teacher)
     text, lengths, speakers, languages, target, tlen, stop = (
         torch.as_tensor(x) for x in data)
@@ -171,6 +169,16 @@ def test_training_forward_loss_and_grads_match_jax(ratio):
             continue
         np.testing.assert_allclose(to_np(buffers[name]), to_np(r), atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("ratio", [0.5])
+def test_training_forward_loss_and_grads_match_jax(ratio):
+    """At teacher forcing 0.5 (teacher and free-running steps both
+    occur): every loss term within rtol 1e-5, the classifier accuracy exactly,
+    every parameter gradient within 1e-4 of that tensor's largest value,
+    and every batch-norm running statistic after the step within atol
+    1e-5."""
+    _check_step_against_jax(ratio)
 
 
 @pytest.mark.parametrize("ratio", [1.0, 0.5])

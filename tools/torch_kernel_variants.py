@@ -32,11 +32,18 @@ int8-stream instances, the float32 product (``simt_tile32``: the exact
 gates, the head) run on bf16-rounded operands, the W8A8 row rounded to
 bf16 before a float32 decoder quantizes it, or the last bytes of each
 int8 memory row that is not a multiple of 16 bytes (292, 548) left out of
+the context, or, in K2's and K3's float32 instances (one fault in each),
+an operand of a float32 product rounded to bf16 (the SIMT products of the
+gates, heads and backward products, the prenet's, ``bwd_head``'s and
+``bwd_prenet``'s), a float32 stream stored in bf16 (the LSTM activations,
+the cells' gate gradients, ``att_bwd``'s dz, the family's energy terms and
+shifted weights) or the last chunk of each float32 memory row left out of
 the context, and runs the checks of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
 at the 292- and the shared strategy's 548-wide memory) instances,
-``phase_train_kernels`` for K2 and K3) with
+``phase_train_kernels`` for K2 and K3, and at float32 compute for their
+float32 instances, ``K2f32`` and ``K3f32``) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
 every check's reading prints.  The run fails unless every fault fails at
 least one check.
@@ -91,6 +98,18 @@ _TA_TAPS_ENERGIES = r"""  // 1. energies, a warp a position, a lane a channel: l
 
 """
 
+# simt_tile32's A operand (the SIMT product of K1's and K2's float32 gate
+# products and heads, and of the dq product), and the same rounded to bf16
+_SIMT_A_LOAD = ("      av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * "
+                "lda + k);\n#pragma unroll\n    for (int j = 0; j < 8; ++j) "
+                "{")
+_SIMT_A_LOAD_BF16 = (
+    "    {\n      const float4 u = *reinterpret_cast<const float4*>("
+    "ar + 8 * i * lda + k);\n"
+    "      av[i] = make_float4(round_bf16(u.x), round_bf16(u.y), "
+    "round_bf16(u.z), round_bf16(u.w));\n    }\n#pragma unroll\n"
+    "    for (int j = 0; j < 8; ++j) {")
+
 # name: (source, piece, replacement, what to run), or (source, [(start,
 # end, replacement), ...], what to run): the text from start up to end
 # replaced
@@ -115,8 +134,8 @@ VARIANTS = {
     # the layers below the top one lose their mask (layer 0 of two)
     "bwd_prenet_mask": (
         "fused_train_decoder.cu",
-        "da = out > 0.0f ? acc[e] * scale : 0.0f;",
-        "da = acc[e] * scale;", "K3"),
+        "da = out > 0.0f ? acc * scale : 0.0f;",
+        "da = acc * scale;", "K3"),
     # the forward prenet routine: the mask drawn at the CTA's own column
     # (right only in the cluster's first CTA), or the gather of the bf16
     # rows skipping the last CTA's slice (zeros in its columns)
@@ -166,12 +185,7 @@ VARIANTS = {
     # quantizes it; an int8 memory row's last M % 16 bytes left out of the
     # context sum
     "f32_product_bf16_operands": (
-        "tile.cuh",
-        "      av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * lda + k);",
-        "    {\n      const float4 u = *reinterpret_cast<const float4*>("
-        "ar + 8 * i * lda + k);\n"
-        "      av[i] = make_float4(round_bf16(u.x), round_bf16(u.y), "
-        "round_bf16(u.z), round_bf16(u.w));\n    }", "K1f32"),
+        "tile.cuh", _SIMT_A_LOAD, _SIMT_A_LOAD_BF16, "K1f32"),
     "w8a8_row_rounded_bf16": (
         "fused_decoder.cu", "    return round_to<CT>(v);",
         "    return round_bf16(v);", "K1f32"),
@@ -185,15 +199,78 @@ VARIANTS = {
         "reg.salt_h) < reg.th_c;", "K3"),
     "cell_on_split_partial": (
         "fused_train_decoder.cu",
-        "  return splitk_launch<false, false>(a, lda, b, ldb, M, H, K, "
-        "slices, kslice,\n                                     scratch, "
-        "epi, stream);",
-        "  splitk_kernel<false, false, CellOut>\n"
+        "  return product_launch(a, lda, 0, b, ldb, b_kn, M, H, K, slices, "
+        "kslice,\n                        scratch,\n                        "
+        "CellOut<bf16>{(const float*)add, ldadd,\n"
+        "                                      CELL_ARGS(bf16)},\n"
+        "                        0, stream);",
+        "  const CellOut<bf16> epi{(const float*)add, ldadd, "
+        "CELL_ARGS(bf16)};\n"
+        "  splitk_kernel<false, false, CellOut<bf16>>\n"
         "      <<<dim3((H + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, "
         "slices),\n         SK_THREADS, 0, (cudaStream_t)stream>>>(\n"
         "          (const bf16*)a, lda, vec_ok(a, lda), (const bf16*)b, ldb,"
         "\n          vec_ok(b, ldb), M, H, K, kslice, nullptr, epi);\n"
         "  return (int)cudaGetLastError();", "K3"),
+    # the training decoder's float32 instances, one fault in each (run
+    # under their float32 phase, K2f32 or K3f32: every K2/K3 kernel, or the
+    # family's two at its kind): the SIMT product on bf16 operands (the
+    # gate products, the head and the dq product: simt_tile32) or in its
+    # "KN" branch (the query, the dgates products); a float32 stream stored
+    # in bf16 (the LSTM activations, the cells' gate gradients, att_bwd's
+    # dz, the family's energy terms and shifted weights); an operand of a
+    # small FFMA product rounded to bf16 (the prenet's input, bwd_head's
+    # dframe_tot, bwd_prenet's da); the last chunk of each float32 memory
+    # row left out of the context
+    "f32_train_product_bf16_operands": (
+        "tile.cuh", _SIMT_A_LOAD, _SIMT_A_LOAD_BF16, "K2f32"),
+    "f32_splitk_kn_bf16_operands": (
+        "tile.cuh",
+        "        const float x = f4_at(av[i], kk);",
+        "        const float x = round_bf16(f4_at(av[i], kk));", "K3f32"),
+    "f32_lstm_act_stored_bf16": (
+        "fused_train_decoder.cu", "      a[0] = from_float<CT>(gi);",
+        "      a[0] = from_float<CT>(round_bf16(gi));", "K2f32"),
+    "f32_prenet_input_bf16": (
+        "tile.cuh",
+        "          acc = fmaf(ar[k], w_l[(size_t)k * ldw + c], acc);",
+        "          acc = fmaf(round_bf16(ar[k]), w_l[(size_t)k * ldw + c], "
+        "acc);", "K2f32"),
+    "f32_ctx_last_chunk_skipped": (
+        "tile.cuh",
+        "        acc[j] += ROUND ? round_bf16(x[j] * wt) : x[j] * wt;",
+        "        acc[j] += V == 4 && c == C - 1 ? 0.0f\n"
+        "                  : ROUND ? round_bf16(x[j] * wt) : x[j] * wt;",
+        "K2f32"),
+    "f32_fwd_shift_rounded_bf16": (
+        "fused_train_decoder.cu",
+        "const float sh = round_to<CT>(i > 0 ? s_cumf[i - 1] : s_stat[7]);",
+        "const float sh = round_bf16(i > 0 ? s_cumf[i - 1] : s_stat[7]);",
+        "K2f32:forward"),
+    "f32_bwd_head_dft_bf16": (
+        "fused_train_decoder.cu",
+        "for (int k = 0; k < kp; ++k) acc = fmaf(ar[k], bs[k * ldn + c], acc);",
+        "for (int k = 0; k < kp; ++k)\n"
+        "        acc = fmaf(round_bf16(ar[k]), bs[k * ldn + c], acc);",
+        "K3f32"),
+    "f32_cell_dg_stored_bf16": (
+        "fused_train_decoder.cu",
+        "    d[0] = from_float<CT>(dc_new * gg * i * (1.0f - i));",
+        "    d[0] = from_float<CT>(round_bf16(dc_new * gg * i * (1.0f - i)));",
+        "K3f32"),
+    "f32_att_bwd_dz_bf16": (
+        "fused_train_decoder.cu", "          s_dz[i * ldz + a] = dz;",
+        "          s_dz[i * ldz + a] = round_bf16(dz);", "K3f32"),
+    "f32_fwd_att_bwd_tz_bf16": (
+        "fused_train_decoder.cu", "            s_tz[i * A + a] = tz;",
+        "            s_tz[i * A + a] = round_bf16(tz);",
+        "K3f32:forward_transition_agent"),
+    "f32_bwd_prenet_da_bf16": (
+        "fused_train_decoder.cu",
+        "          const float4 x = *reinterpret_cast<const float4*>(ar + k);",
+        "          float4 x = *reinterpret_cast<const float4*>(ar + k);\n"
+        "          x = make_float4(round_bf16(x.x), round_bf16(x.y), "
+        "round_bf16(x.z), round_bf16(x.w));", "K3f32"),
     "train_attention_taps": (
         "fused_train_decoder.cu",
         [("  // 1. energies: loc = band(cum) @ lc",
@@ -218,7 +295,8 @@ VARIANTS = {
         "  const int k_lo = rank * L.kq, a_chunks = A / VC;\n", "time K1"),
     "att_bwd_l2_prefetch": (
         "fused_train_decoder.cu",
-        "  for (int a = tid; a < A; a += AB_THREADS) {\n",
+        "  for (int a = tid; a < A; a += AB_THREADS) {\n"
+        "    s_q[a] = q[(size_t)b * A + a];\n",
         "  for (size_t off = tid * 128; off < (size_t)min(tile, T - t_lo) * A"
         " * 2; off += AB_THREADS * 128)\n"
         "    asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
@@ -227,7 +305,8 @@ VARIANTS = {
         " * 4; off += AB_THREADS * 128)\n"
         "    asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
         "(const char*)(dmt + (rowT + t_lo) * A) + off));\n"
-        "  for (int a = tid; a < A; a += AB_THREADS) {\n", "time K3"),
+        "  for (int a = tid; a < A; a += AB_THREADS) {\n"
+        "    s_q[a] = q[(size_t)b * A + a];\n", "time K3"),
 }
 
 _PRELUDE = r"""
@@ -249,10 +328,14 @@ def record(msg):
     print("[variant] check failed: " + msg)
 cs.fail = record
 phase, _, attention = {phase!r}.partition(":")
+# K2f32, K3f32: the training kernels' float32 instances
+f32 = cs.F32 if phase in ("K2f32", "K3f32") else {{}}
 if attention:
     # the forward family's kernels, at its own phases' configuration
-    hp = cs.flagship(cs.FAMILY_FRAMES, cs.CHUNK, attention)
+    hp = cs.flagship(cs.FAMILY_FRAMES, cs.CHUNK, attention, **f32)
     sd = cs.seeded_state_dict(hp)
+elif f32:
+    hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK, **f32)
 if phase == "K1":
     torch.set_grad_enabled(False)
     cs.phase_kernels(hp, sd)
@@ -397,16 +480,44 @@ def _kind(name: str) -> str:
     return VARIANTS[name][-1]
 
 
+# planted faults built at once, one nvcc each (the chip machine's 8 cores)
+BUILD_JOBS = 6
+
+
+def build_copies(roots: dict) -> None:
+    """Build each copy's library of the source its phase loads
+    (``fused_decoder`` for K1's phases, ``fused_train_decoder`` for K2's
+    and K3's), BUILD_JOBS nvcc processes at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build(name):
+        source = ("fused_decoder" if _kind(name).startswith("K1")
+                  else "fused_train_decoder")
+        code = (f"import sys; sys.path.insert(0, {str(roots[name])!r}); "
+                f"from {PKG}.ops import _build; _build.build([{source!r}])")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=roots[name],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_variants: {name} does not build:\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+
+    with ThreadPoolExecutor(max_workers=BUILD_JOBS) as pool:
+        list(pool.map(build, roots))
+
+
 def faults(names=()) -> dict:
-    """Every planted fault, or those of ``names``."""
+    """Every planted fault, or those of ``names``: the copies built
+    BUILD_JOBS at a time, then each fault's checks in turn."""
     out, caught = {}, True
-    for name in VARIANTS:
+    todo = [name for name in VARIANTS
+            if not _kind(name).startswith(("time", "design"))
+            and (not names or name in names)]
+    roots = {name: make_copy(name) for name in todo}
+    build_copies(roots)
+    for name in todo:
         phase = _kind(name)
-        if phase.startswith(("time", "design")) or (names and
-                                                     name not in names):
-            continue
         print(f"[faults] {name} ({phase})")
-        res = run(make_copy(name), _CHECKS, phase=phase)
+        res = run(roots[name], _CHECKS, phase=phase)
         out[name] = res["failed"]
         caught = caught and bool(res["failed"])
         print(f"[faults] {name}: {len(res['failed'])} check(s) failed")
