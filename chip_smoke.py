@@ -150,8 +150,14 @@ TRAIN_B, TRAIN_T, TRAIN_F, CHECK_STEPS = 50, 128, 512, 16
 F32_FAMILY_FRAMES = 128
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
-# float32: FFMA on the CUDA cores, the route of K1's float32 instances
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# f32: FFMA on the CUDA cores, the route of the float32 kernels off the
+# tensor cores; tf32: the tensor cores' TF32 peak
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "tf32": 495e12}
+# the float32 products that run on the tensor cores in three TF32 passes
+# (csrc/tile.cuh mma_tf32x3): bound by three times their operations at
+# the TF32 peak (row_bound), the FFMA bound printed beside it
+TF32X3_ROWS = ("gate_lstm", "head", "train_gate_lstm", "train_query",
+               "train_head", "bwd_gemm")
 # Tolerances of kernel vs plain on the same inputs, set a few times above
 # the errors measured on an H100 (PERF.md): float32 sums in another order,
 # and bfloat16 roundings that a one-ulp difference can flip.
@@ -372,6 +378,25 @@ def bound_ms(n_bytes: float, ops: float, kind: str):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row_ops(name: str, ops: float, kind: str):
+    """(operations, peak kind) of a kernel row's work: a float32 product
+    of TF32X3_ROWS runs three TF32 passes, the others their kind's."""
+    if kind == "f32" and name in TF32X3_ROWS:
+        return 3 * ops, "tf32"
+    return ops, kind
+
+
+def row_bound(name: str, n_bytes: float, ops: float, kind: str):
+    """bound_ms of a kernel row (``row_ops``), and a note for its printed
+    line: for the rows of TF32X3_ROWS the FFMA bound beside it."""
+    n, peak = row_ops(name, ops, kind)
+    b_ms, b_by = bound_ms(n_bytes, n, peak)
+    if peak != "tf32":
+        return b_ms, b_by, ""
+    f_ms, f_by = bound_ms(n_bytes, ops, "f32")
+    return b_ms, b_by, f", on FFMA {f_ms:.5f} ms ({f_by})"
 
 
 def max_err(a, b) -> float:
@@ -1091,7 +1116,7 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
         plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops, op_kind = work[name]
-        b_ms, b_by = bound_ms(n_bytes, ops, op_kind)
+        b_ms, b_by, ffma = row_bound(name, n_bytes, ops, op_kind)
         inst = fd.instance(name, bundle.dtype, bundle.q_streams)
         rows.append({
             "name": f"{inst}[{_LABEL}]" if _LABEL else inst, "route": "cuda",
@@ -1105,7 +1130,8 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
         })
         say(f"[time] {inst} (device time, torch.profiler): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by}, {op_kind}), library "
+            f"bound {b_ms:.5f} ms ({b_by}, "
+            f"{row_ops(name, ops, op_kind)[1]}){ffma}, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     if not chunk:
         return rows
@@ -1124,8 +1150,9 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
     # a chunk reads its weights and attention operands once and writes its
     # frames once; its products run at their types' peaks, one after the
     # other
-    step_ops_s = sum(ops / PEAK_OPS[k] for name, (_, ops, k)
-                     in work.items() if name in calls)
+    step_ops_s = sum(n / PEAK_OPS[k] for n, k in (
+        row_ops(name, ops, kind) for name, (_, ops, kind) in work.items()
+        if name in calls))
     chunk_bytes = ((k_att + k_gen) * 4 * hidden * bundle.att_w.element_size()
                    + B * T_SYMBOLS * (m_dim + a_dim) * ss
                    + B * CHUNK * n_head * f4)
@@ -2527,7 +2554,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
         rows_ms[name] = ms
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops_n = work[name]
-        b_ms, b_by = bound_ms(n_bytes, ops_n, peak)
+        b_ms, b_by, ffma = row_bound(name, n_bytes, ops_n, peak)
         inst = ftd.instance(name, ct)
         # the configuration beside the instance's name, its dtype left out
         label = ":".join(x for x in _LABEL.split(":") if x and x != "f32")
@@ -2539,10 +2566,17 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
         })
+        # the library's bwd_head is the product alone: beside it, the
+        # kernel without its fused cell
+        alone_note = (f" (the kernel without its cell "
+                      f"{alone['bwd_head']:.4f} ms)"
+                      if name == "bwd_head" and "bwd_head" in alone else "")
         say(f"[train:time] {inst} (device time, torch.profiler): kernel "
             f"{ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){ffma}, "
+            f"library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            + alone_note + f", "
             f"{per_step[inst] / frames:.2f} launches per decoder step")
 
     from torch.profiler import ProfilerActivity, profile
@@ -2733,6 +2767,12 @@ def main() -> int:
                                         main_f)
             del main_f, inputs_f
     rows += phase_train_f32_and_long(sd)
+    # the rows by the time their launches spend past their bounds
+    loss = {r["name"]: r["launches"] * (r["ms"] - r["bound_ms"])
+            for r in rows}
+    say("[rank] launches x (ms - bound ms), launch-ms: " + ", ".join(
+        f"{name} {v:.1f}"
+        for name, v in sorted(loss.items(), key=lambda kv: -kv[1])[:16]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,9 +9,10 @@
 // kernel's `dtype`); carries and sums are float32.  In bfloat16, values are
 // rounded at the points where the TPU kernel rounds them, so the plain
 // PyTorch version in ops/fused_decoder.py can repeat the arithmetic; in
-// float32 nothing is rounded and every product is float32 (csrc/tile.cuh:
-// simt_tile32 and the other float32 paths, FFMA on the CUDA cores), but
-// W8A8's int8 gate product, which float32 keeps.  The attention kernels
+// float32 nothing is rounded and every product is float32-accurate (the
+// exact gates and the head on the tensor cores in three TF32 passes,
+// csrc/tile.cuh mma_tf32x3; the rest in FFMA on the CUDA cores), but W8A8's
+// int8 gate product, which float32 keeps.  The attention kernels
 // also read the memory and the memory transform as int8 streams with
 // per-channel scales (the TPU kernel's q_streams, pallas_decoder.py:
 // 985-1003), dequantized where the TPU kernel dequantizes them.
@@ -90,9 +91,10 @@ struct PrenetOut {
 //     float32 row, pallas_decoder.py:501-505); otherwise the CT row
 //     [B, Kp].  Zero padded to Kp.
 //   gate_mma: gates = row @ W^T (gate_tile_kernel of csrc/tile.cuh, which
-//     the training decoder's gate product runs too: int8 or bf16 on the
-//     tensor cores, float32 on simt_tile32), then the W8A8 dequant, the
-//     LSTM pointwise step and eval zoneout in the epilogue, EvalLstm.
+//     the training decoder's gate product runs too: int8, bf16 or float32
+//     (three TF32 passes, K split over a cluster of CTAs) on the tensor
+//     cores), then the W8A8 dequant, the LSTM pointwise step and eval
+//     zoneout in the epilogue, EvalLstm.
 // W is [4H, Kp] (one row per gate column, K contiguous, Kp a multiple of
 // 64), so the row and W are the row.col operands of mma.sync as they lie.
 // ---------------------------------------------------------------------------

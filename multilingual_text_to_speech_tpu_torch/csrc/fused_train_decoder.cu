@@ -21,17 +21,17 @@
 // the instance.  In bf16 every product runs on the tensor cores (mma.sync
 // m16n8k16, bfloat16 inputs, float32 sums) in the three tile routines of
 // csrc/tile.cuh, or in bwd_head and bwd_prenet.  In float32 nothing is
-// rounded and every product runs on the CUDA cores in FFMA, each product
-// rounded once into a float32 sum, as the TPU kernel's full-precision
-// float32 matmuls (ops/pallas_train_decoder.py:230-239) and the serving
-// decoder's float32 instances do (csrc/tile.cuh simt_tile32): the gate
-// products on the same staged tiles, the split-K products in
-// splitk_f32_kernel, the attention kernels' location conv in band_loc_f32,
-// and bwd_head's, bwd_prenet's and att_bwd's small products a thread an
-// output.  The forward prenet runs in prenet_tile_kernel
-// (shared with the serving decoder's prenet): one clustered launch whose
-// CTAs own column slices of each layer and exchange the compute-type rows
-// over distributed shared memory.  The gate products run in gate_tile_kernel
+// rounded and every product is float32-accurate, as the TPU kernel's
+// full-precision float32 matmuls (ops/pallas_train_decoder.py:230-239):
+// the gate products and the split-K products (splitk_f32_kernel) on the
+// tensor cores in three TF32 passes (csrc/tile.cuh mma_tf32x3), as the
+// serving decoder's float32 instances; the attention kernels' location
+// conv (band_loc_f32) and bwd_head's, bwd_prenet's and att_bwd's small
+// products on the CUDA cores in FFMA, a thread an output.  The forward
+// prenet runs in prenet_tile_kernel (shared with the serving decoder's
+// prenet): one clustered launch whose CTAs own column slices of each layer
+// and exchange the compute-type rows over distributed shared memory.  The
+// gate products run in gate_tile_kernel
 // (shared with the serving decoder's gate product), with the LSTM step and
 // zoneout or dropout in the epilogue.  The attention query, the head and
 // the backward's dgates @ W^T, dq @ Wq^T and dWq run in splitk_kernel
@@ -69,8 +69,9 @@
 // backward's dgates @ W^T (K = 4H) split K into S slices, so that each runs
 // a few dozen to a few hundred blocks of all 50 rows, each weight tile read
 // once, plus one small reduction launch.  In float32 the gate products are
-// the same 1.6 G operations on FFMA, 24 us at 67 TFLOP/s, against 65 MB of
-// float32 gate weights (19 us), more than the 50 MB L2 holds.
+// three TF32 passes of the same 1.6 G operations, 10 us at 495 TFLOP/s,
+// against 65 MB of float32 gate weights (19 us), more than the 50 MB L2
+// holds; K is split over clusters of two CTAs, so 128 CTAs stream them.
 //
 // Values are rounded to the compute type where the TPU kernels store or
 // multiply in it (round_to<CT>, from_float<CT>: nothing in float32), so the
@@ -89,9 +90,9 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // train_gate_lstm: gates = row @ W^T, the shared gate_tile_kernel of
-// csrc/tile.cuh (bf16 on the tensor cores with float32 sums; float32 on
-// simt_tile32), with the LSTM step and the train-mode regularization in
-// its epilogue, LstmEpi.
+// csrc/tile.cuh (on the tensor cores: bf16 with float32 sums; float32 in
+// three TF32 passes, K split over a cluster of CTAs), with the LSTM step
+// and the train-mode regularization in its epilogue, LstmEpi.
 // ---------------------------------------------------------------------------
 
 // regularization of an LSTM cell (ops/pallas_train_decoder.py:375-401):
@@ -1902,8 +1903,8 @@ int train_prenet_launch(const void* shifted, const void* frame, int teacher,
                                  (cudaStream_t)stream);
 }
 
-// row [B, K] (rows of ld_row elements) and w [4H, K], K a multiple of 8,
-// both 16-byte aligned
+// row [B, K] (rows of ld_row elements) and w [4H, K], K of whole 16-byte
+// chunks, both 16-byte aligned
 int gate_lstm_launch(const void* row, int ld_row, const void* w, int K,
                      const void* bias, int B, int H, void* h, void* c,
                      void* act, void* c_out, void* h_dst0, int ld0,

@@ -2,20 +2,22 @@
 // (fused_decoder.cu and fused_train_decoder.cu): 16-byte asynchronous
 // copies from device memory into shared memory, ldmatrix fragment loads
 // (plain and transposing), the mma.sync products, bf16 m16n8k16 with
-// float32 sums and int8 m16n8k32 with int32 sums, and the two tile routines
-// that both decoders run: the fused-gate LSTM product (gate_tile_kernel)
-// and the split-K product of every other weight (splitk_kernel, with the
-// frame and stop head's epilogue HeadOut), each templated on its epilogue;
-// then the thread-block-cluster helpers, the forward prenet of both
-// decoders (prenet_tile_kernel, clustered, templated on its epilogue), the
-// location-conv band routine of the attention kernels (band_*) and the
-// forward attention's context sum (ctx_*).
+// float32 sums, int8 m16n8k32 with int32 sums and float32 as three TF32
+// m16n8k8 passes (mma_tf32x3), the thread-block-cluster helpers, and the
+// two tile routines that both decoders run: the fused-gate LSTM product
+// (gate_tile_kernel, its float32 instance split over a cluster) and the
+// split-K product of every other weight (splitk_kernel and its float32
+// instance splitk_f32_kernel, with the frame and stop head's epilogue
+// HeadOut), each templated on its epilogue; then the forward prenet of
+// both decoders (prenet_tile_kernel, clustered, templated on its
+// epilogue), the location-conv band routine of the attention kernels
+// (band_*) and the forward attention's context sum (ctx_*).
 //
-// The two products read their fragments in the same byte layout: an A
-// fragment is rows g and g+8 (g = lane / 4) of a 16-row tile, 4 bytes at
-// byte 4 * (lane % 4) of each 16-byte half of a 32-byte slice of K; a B
-// fragment is column g, the same bytes.  So one ldmatrix.x4 of four 8 x 16
-// byte matrices feeds either product, whatever the element type.
+// The products read their fragments in the same byte layout: an A fragment
+// is rows g and g+8 (g = lane / 4) of a 16-row tile, 4 bytes at byte 4 *
+// (lane % 4) of each 16-byte half of a 32-byte slice of K; a B fragment is
+// column g, the same bytes.  So one ldmatrix.x4 of four 8 x 16 byte
+// matrices feeds any of them, whatever the element type.
 
 #pragma once
 
@@ -90,49 +92,204 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The float32 product of the serving decoder's float32 instances (the
-// TPU kernel's float32 matmuls take precision=None: full float32,
-// ops/pallas_decoder.py:398-412) on the CUDA cores: FFMA tiles, each
-// product rounded once into a float32 sum, so the result is float32-exact
-// up to the order of the sums.  Neither a single TF32 pass (10-bit
-// mantissas) nor bf16 operands would do: either is off by about 1e-3 of
-// the largest output, which chip_smoke.py's 1e-5 check fails.  The
-// tensor cores would need three TF32 passes (hi*hi + hi*lo + lo*hi) for the
-// same accuracy; at K1's float32 shapes only the exact gate products are
-// large enough for that to pay, and the SIMT tile is the simpler first
-// kernel.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The float32 products of both decoders' float32 instances (the TPU
+// kernels' float32 matmuls take precision=None: full float32,
+// ops/pallas_decoder.py:398-412, ops/pallas_train_decoder.py:230-237) on
+// the tensor cores in three TF32 passes (3xTF32).  Each float32 operand x
+// is split in registers into hi = tf32(x) and lo = tf32(x - hi) (round to
+// nearest, ties away, as cvt.rna.tf32.f32; x - hi is exact), and
+//   a * b ~ a_lo * b_hi + a_hi * b_lo + a_hi * b_hi
+// accumulates, small terms first, into float32 fragments of
+// mma.sync.m16n8k8.tf32.  What is left out, a_lo * b_lo and the rounding
+// of lo, is about 2^-22 of |a * b| (tests/test_torch_tf32x3.py emulates the
+// split against a float64 product at the decoders' shapes).  One TF32 pass
+// (10-bit mantissas) or bf16 operands would be off by about 1e-3 of the
+// largest output, which chip_smoke.py's 1e-5 check fails.  The tensor
+// cores' float32 sums are not IEEE's: summed over a whole K of 2368 the
+// gates drifted by 1.1e-5 of the largest (PERF.md).  So the passes of each
+// ring stage accumulate in a zeroed fragment, which tf32x3_promote adds to
+// the float32 sums on the CUDA cores.
 //
-// A warp's 32 x 32 tile of C = A @ B^T from shared memory, A rows [32][lda]
-// and B rows [32][ldb] floats, k contiguous in both (lda, ldb multiples of
-// 4, rows 16-byte aligned): lane (rg = lane % 8, cg = lane / 8) sums rows rg
-// + 8i (i < 4) against columns 8cg + j (j < 8), acc[i][j], over float4
-// loads.  The eight lanes of a quarter-warp read eight rows of A (distinct
-// banks when lda is 4 mod 32 words) and one row of B (a broadcast).
-__device__ __forceinline__ void simt_tile32(float (*acc)[8],
-                                            const float* a, int lda,
-                                            const float* b, int ldb, int klen,
-                                            int lane) {
-  const float* ar = a + (lane & 7) * lda;
-  const float* br = b + (lane >> 3) * 8 * ldb;
-  for (int k = 0; k < klen; k += 4) {
-    float4 av[4];
+// The m16n8k8 fragments (g = lane / 4, t = lane % 4): A a[0..3] = (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4) of a 16 x 8 tile; B b[0..1] = (k
+// t, n g), (k t + 4, n g); C as m16n8k16's.  With k contiguous, a 32-byte
+// K slice of float32 is 8 k values, and the ldmatrix.x4 of the bf16
+// products (the byte layout above) returns word t of row g of each 8 x 16
+// byte matrix: exactly these fragments, from the same addresses.
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (half of the 13
+// dropped bits added to the magnitude, then cleared), in two integer
+// operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x[i] (float32 bits) -> hi[i] + lo[i], TF32 values in float32 bits; hi
+// may be x itself
+template <int N>
+__device__ __forceinline__ void tf32_split(uint32_t* hi, uint32_t* lo,
+                                           const uint32_t* x) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * lda + k);
+  for (int i = 0; i < N; ++i) {
+    const float v = __uint_as_float(x[i]);
+    hi[i] = tf32_rna(v);
+    lo[i] = tf32_rna(v - __uint_as_float(hi[i]));
+  }
+}
+
+// c += a * b over one m16n8k8 tile in three TF32 passes, small terms first
+__device__ __forceinline__ void mma_tf32x3(float* c, const uint32_t* a_hi,
+                                           const uint32_t* a_lo,
+                                           const uint32_t* b_hi,
+                                           const uint32_t* b_lo) {
+  mma_tf32(c, a_lo, b_hi);
+  mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);
+}
+
+// acc += stage, then stage = 0: a ring stage's passes added to the float32
+// sums
+__device__ __forceinline__ void tf32x3_promote(float (*acc)[4][4],
+                                               float (*stage)[4][4]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(br + j * ldb + k);
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = acc[i][j];
-        s = fmaf(av[i].x, bv.x, s);
-        s = fmaf(av[i].y, bv.y, s);
-        s = fmaf(av[i].z, bv.z, s);
-        s = fmaf(av[i].w, bv.w, s);
-        acc[i][j] = s;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[i][j][q] += stage[i][j][q];
+        stage[i][j][q] = 0.0f;
       }
+}
+
+// a warp's 32 x 32 tile over one 8-deep K step: acc[mt][nt] += A rows
+// 16 mt .. 16 mt + 16 (fragments a[mt], float32 bits) times B columns 8 nt
+// .. 8 nt + 8 (b[nt]); a and b are split in place
+__device__ __forceinline__ void warp_tf32x3(float (*acc)[4][4],
+                                            uint32_t (*a)[4],
+                                            uint32_t (*b)[2]) {
+  uint32_t a_lo[2][4], b_lo[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) tf32_split<4>(a[mt], a_lo[mt], a[mt]);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) tf32_split<2>(b[nt], b_lo[nt], b[nt]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_tf32x3(acc[mt][nt], a[mt], a_lo[mt], b[nt], b_lo[nt]);
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: a split barrier (arrive, then wait) across the
+// CTAs of a cluster, and a launch with a cluster size chosen at run time.
+// arrive releases this CTA's shared-memory writes to the cluster, wait
+// acquires the others'; a CTA whose shared memory its peers read must not
+// exit before they have arrived.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the same shared-memory variable of CTA `rank` of this cluster
+template <class T>
+__device__ __forceinline__ const T* cluster_peer(const T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// the full rows [0, rows) x [0, k) of the cluster's slices into dst (rows
+// of ldd; bf16, or float32 for the serving decoder's float32 prenet): CTA
+// j's slice `own` (the same shared variable in every CTA; rows of ldo)
+// holds the columns [j * np, j * np + np), np a multiple of 8; columns
+// past cl * np are zero.  16-byte reads of distributed shared memory, four
+// in flight a thread, after a cluster barrier that follows the slices'
+// writes
+template <class T>
+__device__ __forceinline__ void cluster_gather_rows(T* dst, int ldd,
+                                                    const T* own, int ldo,
+                                                    int np, int cl, int rows,
+                                                    int k, int threads) {
+  constexpr int V = 16 / sizeof(T);   // elements a 16-byte chunk
+  const int row_chunks = k / V, n_chunks = rows * row_chunks;
+  for (int i0 = threadIdx.x; i0 < n_chunks; i0 += 4 * threads) {
+    uint4 u[4];   // four loads in flight before their stores
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + q * threads;
+      const int r = i / row_chunks, col = (i % row_chunks) * V;
+      const int j = col / np;
+      u[q] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < n_chunks && j < cl)
+        u[q] = *reinterpret_cast<const uint4*>(
+            cluster_peer(own, j) + (size_t)r * ldo + col - j * np);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + q * threads;
+      if (i < n_chunks)
+        *reinterpret_cast<uint4*>(dst + (size_t)(i / row_chunks) * ldd +
+                                  (i % row_chunks) * V) = u[q];
     }
   }
+}
+
+// opts `kernel` in to all of a block's shared memory at its first launch;
+// kernels of one signature (the instances of a template over the attention
+// kind) share the table, keyed by the kernel's address
+template <typename... KArgs>
+cudaError_t opt_in_smem(void (*kernel)(KArgs...)) {
+  static const void* done[8];
+  static int n_done = 0;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < n_done; ++i)
+    if (done[i] == key) return cudaSuccess;
+  const cudaError_t err = allow_smem(kernel, 227 * 1024);
+  if (err == cudaSuccess && n_done < 8) done[n_done++] = key;
+  return err;
+}
+
+// a grid of CTAs in clusters of `cluster` CTAs consecutive in x; the
+// first launch of each kernel opts it in to all of a block's shared memory
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int threads,
+                           size_t smem, int cluster, cudaStream_t stream,
+                           Args&&... args) {
+  const cudaError_t opt_in = opt_in_smem(kernel);
+  if (opt_in != cudaSuccess) return opt_in;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -141,88 +298,130 @@ __device__ __forceinline__ void simt_tile32(float (*acc)[8],
 // for q = 0..3 (i, f, g, o).  a [M, K] and w [4H, K] (K contiguous; rows of
 // lda and ldw bytes, 16-byte aligned; K of kbytes bytes, a multiple of 16)
 // of element type E are the row.col operands of mma.sync as they lie: int8
-// (m16n8k32, int32 sums) or bf16 (m16n8k16, float32 sums); float32 (the
-// serving decoder's exact float32 gates) runs simt_tile32 on the same
-// staged tiles instead.
+// (m16n8k32, int32 sums), bf16 (m16n8k16, float32 sums) or float32 (both
+// decoders' float32 instances: m16n8k8 TF32 in three passes, warp_tf32x3,
+// float32 sums).
 //
 // Block: 32 * WM rows x 16 hidden units, whose i, f, g, o weight rows it
 // gathers while copying (64 gate columns); WM x 2 warps of 32 rows x 32
-// columns.  K walks in stages of GT_BK bytes through a GT_STAGES-deep
-// cp.async ring; rows are padded by 16 bytes so that ldmatrix's eight row
-// addresses fall in distinct banks.  The gate tile goes back through shared
-// memory, and the epilogue epi(row, unit, g) sees the four gate sums g[q]
-// of each (row, unit) inside [0, M) x [0, H).
+// columns, and in float32 at up to 64 rows two such groups of warps that
+// take each stage's K in halves (KW), so that two warps share each
+// scheduler.  K walks in stages of BK bytes through a GT_STAGES-deep
+// cp.async ring: 128, and in float32 256 (64 values) at up to 64 rows;
+// rows are padded by 16 bytes so that ldmatrix's eight row addresses fall
+// in distinct banks.
+// The gate tile goes back through shared memory (the K groups' tiles
+// summed in group order), and the epilogue epi(row, unit, g) sees the four
+// gate sums g[q] of each (row, unit) inside [0, M) x [0, H).
+//
+// In float32 a thread-block cluster of GT_F32_CL CTAs splits K, so that a
+// small batch still fills the card (B=50: 64 unit blocks, each two CTAs):
+// CTA `rank` streams its share of the stages, and the cluster's first CTA
+// sums the partial gate tiles in rank order through distributed shared
+// memory before its epilogue.  No atomics: a run repeats bit for bit.
+// Every instance launches through launch_cluster (bf16 and int8 in
+// clusters of one).  Bound on the H100 (B=50, the flagship's two LSTMs):
+// 64 MB of float32 weights, 0.019 ms at 3.35 TB/s, against 3 x 1.6 GFLOP
+// of TF32 passes, 0.010 ms at 495 TFLOP/s; at B=240 the passes, 0.047 ms.
+// At B=240 it runs its passes at about 130 TFLOP/s, a quarter of that peak
+// (PERF.md); the ring is the fastest of those timed
+// (tools/torch_kernel_variants.py time gate_f32_stage_128), the rows and
+// the cluster likewise (gate_tile_launch).
 // ---------------------------------------------------------------------------
-constexpr int GT_BN = 64, GT_BK = 128, GT_STAGES = 4;
-constexpr int GT_LD = GT_BK + 16;   // bytes a staged row
+constexpr int GT_BN = 64, GT_STAGES = 4;
+constexpr int GT_F32_CL = 2;        // CTAs a float32 cluster
 constexpr int GT_CLD = GT_BN + 4;   // words a row of the epilogue tile
-constexpr int GT_ROW_CHUNKS = GT_BK / 16;
 
-template <int WM>
+template <int WM, class E>
 struct GateTile {
-  static constexpr int BM = 32 * WM, THREADS = 64 * WM;
-  static constexpr int STAGE = (BM + GT_BN) * GT_LD;   // bytes
+  static constexpr bool F32 = std::is_same<E, float>::value;
+  static constexpr int BK = F32 && WM <= 2 ? 256 : 128;
+  static constexpr int KW = F32 && WM <= 2 ? 2 : 1;   // warp groups along K
+  static constexpr int CL = F32 ? GT_F32_CL : 1;       // CTAs a cluster
+  static constexpr int LD = BK + 16;   // bytes a staged row
+  static constexpr int ROW_CHUNKS = BK / 16;
+  static constexpr int BM = 32 * WM, THREADS = 64 * WM * KW;
+  static constexpr int STAGE = (BM + GT_BN) * LD;      // bytes
   static constexpr int SMEM = GT_STAGES * STAGE;       // dynamic
-  static constexpr int CHUNKS = (BM + GT_BN) * GT_ROW_CHUNKS / THREADS;
-  static_assert(BM * GT_CLD * 4 <= SMEM, "the epilogue tile fits the ring");
-  static_assert(CHUNKS * THREADS == (BM + GT_BN) * GT_ROW_CHUNKS,
+  // float32: as many CTAs an SM as the ring lets in, which holds the
+  // registers to that (two at 128 rows: 0.2481 ms at B=240 with the 156
+  // registers nvcc takes unbounded, one CTA an SM; 0.2036 with 126)
+  static constexpr int MIN_CTAS = F32 ? 227 * 1024 / SMEM : 1;
+  static constexpr int CHUNKS = (BM + GT_BN) * ROW_CHUNKS / THREADS;
+  static_assert(KW * BM * GT_CLD * 4 <= SMEM,
+                "the epilogue tiles fit the ring");
+  static_assert(CHUNKS * THREADS == (BM + GT_BN) * ROW_CHUNKS,
                 "whole 16-byte chunks a thread");
+  static_assert(SMEM <= 227 * 1024, "the ring fits a block");
 };
 
 template <class E, int WM, class Epi>
-__global__ void __launch_bounds__(GateTile<WM>::THREADS)
+__global__ void __launch_bounds__(GateTile<WM, E>::THREADS,
+                                  GateTile<WM, E>::MIN_CTAS)
 gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
                  const uint8_t* __restrict__ w, int ldw, int kbytes, int M,
                  int H, Epi epi) {
-  typedef GateTile<WM> T;
+  typedef GateTile<WM, E> T;
   constexpr bool INT8 = std::is_same<E, int8_t>::value;
   constexpr bool F32 = std::is_same<E, float>::value;
   typedef typename std::conditional<INT8, int, float>::type Acc;
   extern __shared__ __align__(16) uint8_t ring[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int unit0 = blockIdx.x * (GT_BN / 4), row0 = blockIdx.y * T::BM;
-  const int wm = (warp % WM) * 32, wn = (warp / WM) * 32;
-  const int nk = (kbytes + GT_BK - 1) / GT_BK;
+  // a cluster's CTAs are consecutive in x (float32 only): its rank, and
+  // its share of the K stages
+  const int rank = blockIdx.x % T::CL;
+  const int unit0 = blockIdx.x / T::CL * (GT_BN / 4);
+  const int row0 = blockIdx.y * T::BM;
+  // the warp's K group, and its 32 x 32 of the block tile
+  const int wk = warp / (2 * WM), wq = warp % (2 * WM);
+  const int wm = (wq % WM) * 32, wn = (wq / WM) * 32;
+  const int nk_all = (kbytes + T::BK - 1) / T::BK;
+  const int kt0 = nk_all * rank / T::CL;
+  const int nk = nk_all * (rank + 1) / T::CL - kt0;
 
   // stage s, K tile kt: BM row slices then GT_BN weight-row slices,
-  // GT_ROW_CHUNKS 16-byte chunks each; rows outside [0, M), units outside
+  // ROW_CHUNKS 16-byte chunks each; rows outside [0, M), units outside
   // [0, H) and bytes past K are zero-filled
   auto load = [&](int s, int kt) {
     uint8_t* base = ring + s * T::STAGE;
-    const int kb = kt * GT_BK;
+    const int kb = kt * T::BK;
 #pragma unroll
     for (int j = 0; j < T::CHUNKS; ++j) {
       const int i = tid + j * T::THREADS;
-      const int r = i / GT_ROW_CHUNKS, c = (i % GT_ROW_CHUNKS) * 16;
+      const int r = i / T::ROW_CHUNKS, c = (i % T::ROW_CHUNKS) * 16;
       const bool in_k = kb + c < kbytes;
       if (r < T::BM) {
         const int row = row0 + r;
         const bool ok = in_k && row < M;
-        cp_async16(base + r * GT_LD + c,
+        cp_async16(base + r * T::LD + c,
                    ok ? a + (size_t)row * lda + kb + c : a, ok ? 16 : 0);
       } else {
         const int n = r - T::BM, unit = unit0 + (n & 15);
         const bool ok = in_k && unit < H;
-        cp_async16(base + r * GT_LD + c,
+        cp_async16(base + r * T::LD + c,
                    ok ? w + (size_t)((n >> 4) * H + unit) * ldw + kb + c : w,
                    ok ? 16 : 0);
       }
     }
   };
 
-  // mma.sync's fragments acc[mt][nt][4], or simt_tile32's acc[4][8] (the
-  // same 32 values a thread) for float32
+  // mma.sync's fragments acc[mt][nt][4]; in float32 a stage's passes go
+  // to stage_acc first (tf32x3_promote)
   Acc acc[2][4][4];
+  float stage_acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+      for (int q = 0; q < 4; ++q) {
+        acc[i][j][q] = 0;
+        stage_acc[i][j][q] = 0.0f;
+      }
 
 #pragma unroll
   for (int s = 0; s < GT_STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
+    if (s < nk) load(s, kt0 + s);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -231,34 +430,32 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
     // the slot refilled now was read in the previous iteration, which
     // every thread has finished (the barrier above)
     const int nxt = kt + GT_STAGES - 1;
-    if (nxt < nk) load(nxt % GT_STAGES, nxt);
+    if (nxt < nk) load(nxt % GT_STAGES, kt0 + nxt);
     cp_async_commit();
     const uint8_t* as = ring + (kt % GT_STAGES) * T::STAGE;
-    const uint8_t* bs = as + T::BM * GT_LD;
-    if constexpr (F32) {
-      simt_tile32(reinterpret_cast<float(*)[8]>(&acc[0][0][0]),
-                  reinterpret_cast<const float*>(as + wm * GT_LD), GT_LD / 4,
-                  reinterpret_cast<const float*>(bs + wn * GT_LD), GT_LD / 4,
-                  GT_BK / 4, lane);
-    } else {
+    const uint8_t* bs = as + T::BM * T::LD;
 #pragma unroll
-      for (int kk = 0; kk < GT_BK; kk += 32) {
-        uint32_t af[2][4], bf[4][2];
+    for (int k32 = 0; k32 < T::BK / T::KW; k32 += 32) {
+      const int kk = wk * (T::BK / T::KW) + k32;   // this group's slices
+      uint32_t af[2][4], bf[4][2];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
-                                ((lane >> 3) & 1) * 8) * GT_LD +
-                              kk + (lane >> 4) * 16);
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4(af[mt], as + (wm + mt * 16 + (lane & 7) +
+                              ((lane >> 3) & 1) * 8) * T::LD +
+                            kk + (lane >> 4) * 16);
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t r[4];
-          ldsm_x4(r, bs + (wn + np * 16 + (lane & 7) + (lane >> 4) * 8) * GT_LD +
-                         kk + ((lane >> 3) & 1) * 16);
-          bf[2 * np][0] = r[0];
-          bf[2 * np][1] = r[1];
-          bf[2 * np + 1][0] = r[2];
-          bf[2 * np + 1][1] = r[3];
-        }
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4(r, bs + (wn + np * 16 + (lane & 7) + (lane >> 4) * 8) * T::LD +
+                       kk + ((lane >> 3) & 1) * 16);
+        bf[2 * np][0] = r[0];
+        bf[2 * np][1] = r[1];
+        bf[2 * np + 1][0] = r[2];
+        bf[2 * np + 1][1] = r[3];
+      }
+      if constexpr (F32) {
+        warp_tf32x3(stage_acc, af, bf);
+      } else {
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -270,35 +467,61 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
           }
       }
     }
+    if constexpr (F32) tf32x3_promote(acc, stage_acc);
   }
   cp_async_wait<0>();
   __syncthreads();
 
   // the gate tile through shared memory, so that one thread sees the four
-  // gates of a (row, unit)
+  // gates of a (row, unit); each K group writes a tile of its own, and
+  // the second's is added to the first's
   Acc* cs = reinterpret_cast<Acc*>(ring);
-  if constexpr (F32) {
-    const float(*af)[8] = reinterpret_cast<const float(*)[8]>(&acc[0][0][0]);
+  Acc* cw = cs + wk * T::BM * GT_CLD;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        cs[(wm + (lane & 7) + 8 * i) * GT_CLD + wn + (lane >> 3) * 8 + j] =
-            af[i][j];
-  } else {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = wm + mt * 16 + (lane >> 2);
-        const int c = wn + nt * 8 + 2 * (lane & 3);
-        cs[r * GT_CLD + c] = acc[mt][nt][0];
-        cs[r * GT_CLD + c + 1] = acc[mt][nt][1];
-        cs[(r + 8) * GT_CLD + c] = acc[mt][nt][2];
-        cs[(r + 8) * GT_CLD + c + 1] = acc[mt][nt][3];
-      }
-  }
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = wm + mt * 16 + (lane >> 2);
+      const int c = wn + nt * 8 + 2 * (lane & 3);
+      cw[r * GT_CLD + c] = acc[mt][nt][0];
+      cw[r * GT_CLD + c + 1] = acc[mt][nt][1];
+      cw[(r + 8) * GT_CLD + c] = acc[mt][nt][2];
+      cw[(r + 8) * GT_CLD + c + 1] = acc[mt][nt][3];
+    }
   __syncthreads();
+  if constexpr (T::KW > 1) {
+    for (int i = tid; i < T::BM * GT_BN; i += T::THREADS) {
+      const int at = (i >> 6) * GT_CLD + (i & 63);
+      cs[at] += cs[T::BM * GT_CLD + at];
+    }
+    __syncthreads();
+  }
+  if constexpr (T::CL > 1) {
+    // every CTA's partial tile is written: the first CTA adds its peers'
+    // to its own, in rank order
+    cluster_sync();
+    if (rank == 0)
+      for (int i = tid; i < T::BM * (GT_BN / 4); i += T::THREADS) {
+        float4* p = reinterpret_cast<float4*>(cs + (i >> 4) * GT_CLD +
+                                              (i & 15) * 4);
+        float4 v = *p;
+        for (int peer = 1; peer < T::CL; ++peer) {
+          const float4 u = *cluster_peer(p, peer);
+          v.x += u.x;
+          v.y += u.y;
+          v.z += u.z;
+          v.w += u.w;
+        }
+        *p = v;
+      }
+    // the first CTA has read its peers' tiles: they may leave
+    cluster_arrive();
+    if (rank != 0) {
+      cluster_wait();
+      return;
+    }
+    __syncthreads();
+  }
 
   for (int idx = tid; idx < T::BM * (GT_BN / 4); idx += T::THREADS) {
     const int r = idx >> 4, uu = idx & 15;
@@ -309,27 +532,28 @@ gate_tile_kernel(const uint8_t* __restrict__ a, int lda,
     for (int q = 0; q < 4; ++q) g[q] = cs[r * GT_CLD + q * 16 + uu];
     epi(row, unit, g);
   }
+  if constexpr (T::CL > 1) cluster_wait();
 }
 
 template <class E, int WM, class Epi>
 cudaError_t gate_tile_run(const void* a, int lda, const void* w, int ldw,
                           int kbytes, int M, int H, const Epi& epi,
                           cudaStream_t stream) {
-  typedef GateTile<WM> T;
-  // the ring's shared memory may pass the 48 KB default: opt in once
-  static const cudaError_t opt_in =
-      allow_smem(gate_tile_kernel<E, WM, Epi>, T::SMEM);
-  if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((H + GT_BN / 4 - 1) / (GT_BN / 4), (M + T::BM - 1) / T::BM);
-  gate_tile_kernel<E, WM, Epi><<<grid, T::THREADS, T::SMEM, stream>>>(
-      (const uint8_t*)a, lda, (const uint8_t*)w, ldw, kbytes, M, H, epi);
-  return cudaGetLastError();
+  typedef GateTile<WM, E> T;
+  const dim3 grid((H + GT_BN / 4 - 1) / (GT_BN / 4) * T::CL,
+                  (M + T::BM - 1) / T::BM);
+  return launch_cluster(gate_tile_kernel<E, WM, Epi>, grid, T::THREADS,
+                        T::SMEM, T::CL, stream, (const uint8_t*)a, lda,
+                        (const uint8_t*)w, ldw, kbytes, M, H, epi);
 }
 
 // Rows a block: 128 above 128 rows, 64 above 32, else 32.  At the main
 // paths' batches each weight tile is read by two row blocks (B=240: 128
-// blocks, about a wave of the H100's 132 SMs) or one (B=50: 64 blocks of 4
-// warps, faster on the H100 than 128 blocks of 2 warps that read it twice).
+// blocks, about a wave of the H100's 132 SMs) or one (B=50: 64 blocks,
+// faster on the H100 than 128 blocks that read it twice; in float32 two
+// CTAs each, 128 CTAs).  The rows and the float32 cluster are the fastest
+// of those timed (tools/torch_kernel_variants.py time gate_f32_cluster_1
+// gate_f32_cluster_4 gate_rows_halved, PERF.md).
 template <class E, class Epi>
 cudaError_t gate_tile_launch(const void* a, int lda, const void* w, int ldw,
                              int kbytes, int M, int H, const Epi& epi,
@@ -594,80 +818,30 @@ int splitk_launch(const void* A, int lda, const void* B, int ldb, int M,
 // backward products and dWq): the same 64 x 64 tiles, SK_BK-deep slices of
 // K and grid, so the wrapper's split and splitk_reduce_kernel serve it
 // unchanged.  A is "MK" or "KM", B "NK" or "KN", as splitk_kernel's (KM only
-// with KN).  Each tile is staged as it lies (there is no 32-bit ldmatrix to
-// transpose it on the way to a fragment), 16 bytes a thread through a
-// two-stage cp.async ring, zero past M, N and the slice's end: a k-contiguous
-// tile as [64][SKF_LD], an m- or n-contiguous one as [SK_BK][SKF_LD_MN];
-// each warp's 32 x 32 on simt_tile32_any.  Rows whose start or stride is not
-// 16-byte aligned are copied with plain loads (vec 0).
+// with KN).  Each tile is staged as it lies, 16 bytes a thread through an
+// SK_STAGES-deep cp.async ring, zero past M, N and the slice's end: a
+// k-contiguous tile as [64][SKF_LD], an m- or n-contiguous one as
+// [SK_BK][SKF_LD_MN]; rows whose start or stride is not 16-byte aligned are
+// copied with plain loads (vec 0).  Each warp's 32 x 32 runs on the tensor
+// cores in three TF32 passes (warp_tf32x3).  The k-contiguous fragments
+// come from ldmatrix as the gate routine's; there is no 32-bit
+// ldmatrix.trans, so those of the transposed tiles ("KN" B, "KM" A) are
+// read word by word (frag_kmn), lane (g, t) at row t and column g, which
+// falls in distinct banks because a row is 8 words mod 32.
 constexpr int SKF_LD = SK_BK + 4;      // floats a row of a [64][SK_BK] tile
-constexpr int SKF_LD_MN = SK_BN + 4;   // floats a row of a [SK_BK][64] tile
+constexpr int SKF_LD_MN = SK_BN + 8;   // floats a row of a [SK_BK][64] tile
 constexpr int SKF_TILE = 64 * SKF_LD > SK_BK * SKF_LD_MN ? 64 * SKF_LD
                                                          : SK_BK * SKF_LD_MN;
+constexpr int SKF_SMEM = SK_STAGES * 2 * SKF_TILE * 4;   // dynamic, bytes
 
-// A warp's 32 x 32 tile of C = A @ B in float32 from staged tiles, for every
-// layout pair of splitk_f32_kernel: A "MK" (rows of lda, k contiguous; a at
-// the warp's first row) or "KM" (rows of lda over k, m contiguous; a at the
-// warp's first column), B "NK" or "KN" likewise.  Lane (rg = lane % 8, cg =
-// lane / 8) owns rows simt_row<A_KM>(lane, i), i < 4, and columns 8 cg + j,
-// j < 8, acc[i][j], each summed in k order.  MK x NK is simt_tile32.
-template <bool A_KM>
-__device__ __forceinline__ int simt_row(int lane, int i) {
-  return A_KM ? 4 * (lane & 7) + i : (lane & 7) + 8 * i;
-}
-
-__device__ __forceinline__ float f4_at(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <bool A_KM, bool B_KN>
-__device__ __forceinline__ void simt_tile32_any(float (*acc)[8],
-                                                const float* a, int lda,
-                                                const float* b, int ldb,
-                                                int klen, int lane) {
-  static_assert(B_KN || !A_KM, "a KM operand A goes with a KN B");
-  if constexpr (!B_KN) {
-    simt_tile32(acc, a, lda, b, ldb, klen, lane);
-  } else if constexpr (!A_KM) {
-    // A rows rg + 8i as float4s along k; B row k's columns 8cg .. 8cg + 8
-    const float* ar = a + (lane & 7) * lda;
-    const float* bc = b + (lane >> 3) * 8;
-    for (int k = 0; k < klen; k += 4) {
-      float4 av[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * lda + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(bc + (k + kk) * ldb);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(bc + (k + kk) * ldb + 4);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x = f4_at(av[i], kk);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
-        }
-      }
-    }
-  } else {
-    // A row k's columns 4rg .. 4rg + 4, B row k's 8cg .. 8cg + 8
-    const float* ac = a + (lane & 7) * 4;
-    const float* bc = b + (lane >> 3) * 8;
-    for (int k = 0; k < klen; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(ac + k * lda);
-      const float4 b0 = *reinterpret_cast<const float4*>(bc + k * ldb);
-      const float4 b1 = *reinterpret_cast<const float4*>(bc + k * ldb + 4);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
+// the fragment words (k0 + t, mn0 + g) and (k0 + t + 4, mn0 + g) of a
+// [SK_BK][SKF_LD_MN] float32 tile (g = lane / 4, t = lane % 4): a "KN" B
+// fragment, or half of a "KM" A fragment
+__device__ __forceinline__ void frag_kmn(uint32_t* f, const float* tile,
+                                         int k0, int mn0, int lane) {
+  const float* p = tile + (k0 + (lane & 3)) * SKF_LD_MN + mn0 + (lane >> 2);
+  f[0] = __float_as_uint(p[0]);
+  f[1] = __float_as_uint(p[4 * SKF_LD_MN]);
 }
 
 // four floats of row i of a matrix at base[i * ld + j ..] into shared
@@ -683,7 +857,7 @@ splitk_f32_kernel(const float* __restrict__ A, int lda, int avec,
                   const float* __restrict__ B, int ldb, int bvec, int M,
                   int N, int K, int kslice, float* __restrict__ part,
                   Epi epi) {
-  __shared__ __align__(16) float sm[2][2][SKF_TILE];
+  extern __shared__ __align__(16) float skf_ring[];   // [stage][A, B]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.y * SK_BM, col0 = blockIdx.x * SK_BN;
   const int k_lo = blockIdx.z * kslice;
@@ -693,61 +867,118 @@ splitk_f32_kernel(const float* __restrict__ A, int lda, int avec,
 
   // stage s <- K tile k0: 512 chunks of 4 floats of each operand
   auto load = [&](int s, int k0) {
+    float* as = skf_ring + (2 * s) * SKF_TILE;
+    float* bs = as + SKF_TILE;
     for (int p = tid; p < 64 * (SK_BK / 4); p += SK_THREADS) {
       // k-contiguous: [64 rows][SK_BK]; m- or n-contiguous: [SK_BK][64]
       const int r = p / (SK_BK / 4), c = (p % (SK_BK / 4)) * 4;
       const int kr = p / (SK_BN / 4), mc = (p % (SK_BN / 4)) * 4;
       if (A_KM)
-        load4f_2d(sm[s][0] + kr * SKF_LD_MN + mc, A, lda, k0 + kr, row0 + mc,
-                  k_hi, M, avec);
+        load4f_2d(as + kr * SKF_LD_MN + mc, A, lda, k0 + kr, row0 + mc, k_hi,
+                  M, avec);
       else
-        load4f_2d(sm[s][0] + r * SKF_LD + c, A, lda, row0 + r, k0 + c, M,
-                  k_hi, avec);
+        load4f_2d(as + r * SKF_LD + c, A, lda, row0 + r, k0 + c, M, k_hi,
+                  avec);
       if (B_KN)
-        load4f_2d(sm[s][1] + kr * SKF_LD_MN + mc, B, ldb, k0 + kr, col0 + mc,
-                  k_hi, N, bvec);
+        load4f_2d(bs + kr * SKF_LD_MN + mc, B, ldb, k0 + kr, col0 + mc, k_hi,
+                  N, bvec);
       else
-        load4f_2d(sm[s][1] + r * SKF_LD + c, B, ldb, col0 + r, k0 + c, N,
-                  k_hi, bvec);
+        load4f_2d(bs + r * SKF_LD + c, B, ldb, col0 + r, k0 + c, N, k_hi,
+                  bvec);
     }
   };
 
-  float acc[4][8];
+  // the sums, and a stage's passes (tf32x3_promote)
+  float acc[2][4][4], stage_acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  if (nk > 0) load(0, k_lo);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, k_lo + (kt + 1) * SK_BK);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = stage_acc[i][j][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < nk) load(s, k_lo + s * SK_BK);
     cp_async_commit();
-    cp_async_wait<1>();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<SK_STAGES - 2>();
     __syncthreads();
-    const float* as = sm[kt & 1][0];
-    const float* bs = sm[kt & 1][1];
-    simt_tile32_any<A_KM, B_KN>(
-        acc, A_KM ? as + wm : as + wm * SKF_LD, A_KM ? SKF_LD_MN : SKF_LD,
-        B_KN ? bs + wn : bs + wn * SKF_LD, B_KN ? SKF_LD_MN : SKF_LD, SK_BK,
-        lane);
-    // the slot refilled next was read in this iteration
-    __syncthreads();
+    // the slot refilled now was read in the previous iteration
+    const int nxt = kt + SK_STAGES - 1;
+    if (nxt < nk) load(nxt % SK_STAGES, k_lo + nxt * SK_BK);
+    cp_async_commit();
+    const float* as = skf_ring + (2 * (kt % SK_STAGES)) * SKF_TILE;
+    const float* bs = as + SKF_TILE;
+#pragma unroll
+    for (int kk = 0; kk < SK_BK; kk += 8) {
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m0 = wm + mt * 16;
+        if (A_KM) {
+          uint32_t r0[2], r8[2];   // rows g and g + 8
+          frag_kmn(r0, as, kk, m0, lane);
+          frag_kmn(r8, as, kk, m0 + 8, lane);
+          af[mt][0] = r0[0];
+          af[mt][1] = r8[0];
+          af[mt][2] = r0[1];
+          af[mt][3] = r8[1];
+        } else {
+          ldsm_x4(af[mt], as + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   SKF_LD +
+                               kk + (lane >> 4) * 4);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int n0 = wn + np * 16;
+        if (B_KN) {
+          frag_kmn(bfr[2 * np], bs, kk, n0, lane);
+          frag_kmn(bfr[2 * np + 1], bs, kk, n0 + 8, lane);
+        } else {
+          uint32_t r[4];
+          ldsm_x4(r, bs + (n0 + (lane & 7) + (lane >> 4) * 8) * SKF_LD + kk +
+                         ((lane >> 3) & 1) * 4);
+          bfr[2 * np][0] = r[0];
+          bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2];
+          bfr[2 * np + 1][1] = r[3];
+        }
+      }
+      warp_tf32x3(stage_acc, af, bfr);
+    }
+    tf32x3_promote(acc, stage_acc);
   }
   cp_async_wait<0>();
 
-  float* dst = part != nullptr ? part + (size_t)blockIdx.z * M * N : nullptr;
+  // the partials' stores and the epilogue in loops of their own, as
+  // splitk_kernel's
+  if (part != nullptr) {
+    float* dst = part + (size_t)blockIdx.z * M * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int row = row0 + wm + simt_row<A_KM>(lane, i);
-      const int col = col0 + wn + (lane >> 3) * 8 + j;
-      if (row >= M || col >= N) continue;
-      if (dst != nullptr)
-        dst[(size_t)row * N + col] = acc[i][j];
-      else
-        epi.put(row, col, acc[i][j]);
-    }
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+          if (row < M && col < N) dst[(size_t)row * N + col] = acc[mt][nt][e];
+        }
+    return;
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = col0 + wn + nt * 8 + 2 * (lane & 3) + (e & 1);
+        if (row < M && col < N) epi.put(row, col, acc[mt][nt][e]);
+      }
 }
 
 // splitk_launch's float32 instance
@@ -760,10 +991,14 @@ int splitk_f32_launch(const void* A, int lda, const void* B, int ldb, int M,
       (long long)kslice * (slices - 1) >= K ||
       (slices > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
+  // the ring passes the 48 KB default: opt in once
+  static const cudaError_t opt_in =
+      allow_smem(splitk_f32_kernel<A_KM, B_KN, Epi>, SKF_SMEM);
+  if (opt_in != cudaSuccess) return (int)opt_in;
   const cudaStream_t st = (cudaStream_t)stream;
   float* part = slices > 1 ? (float*)scratch : nullptr;
   dim3 grid((N + SK_BN - 1) / SK_BN, (M + SK_BM - 1) / SK_BM, slices);
-  splitk_f32_kernel<A_KM, B_KN, Epi><<<grid, SK_THREADS, 0, st>>>(
+  splitk_f32_kernel<A_KM, B_KN, Epi><<<grid, SK_THREADS, SKF_SMEM, st>>>(
       (const float*)A, lda, vec_ok(A, lda, 4), (const float*)B, ldb,
       vec_ok(B, ldb, 4), M, N, K, kslice, part, epi);
   cudaError_t err = cudaGetLastError();
@@ -780,110 +1015,6 @@ __host__ __device__ inline size_t align16(size_t n) {
 }
 
 // ---------------------------------------------------------------------------
-// Thread block clusters: a split barrier (arrive, then wait) across the
-// CTAs of a cluster, and a launch with a cluster size chosen at run time.
-// arrive releases this CTA's shared-memory writes to the cluster, wait
-// acquires the others'; a CTA whose shared memory its peers read must not
-// exit before they have arrived.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-
-// the same shared-memory variable of CTA `rank` of this cluster
-template <class T>
-__device__ __forceinline__ const T* cluster_peer(const T* p, int rank) {
-  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
-}
-
-// the full rows [0, rows) x [0, k) of the cluster's slices into dst (rows
-// of ldd; bf16, or float32 for the serving decoder's float32 prenet): CTA
-// j's slice `own` (the same shared variable in every CTA; rows of ldo)
-// holds the columns [j * np, j * np + np), np a multiple of 8; columns
-// past cl * np are zero.  16-byte reads of distributed shared memory, four
-// in flight a thread, after a cluster barrier that follows the slices'
-// writes
-template <class T>
-__device__ __forceinline__ void cluster_gather_rows(T* dst, int ldd,
-                                                    const T* own, int ldo,
-                                                    int np, int cl, int rows,
-                                                    int k, int threads) {
-  constexpr int V = 16 / sizeof(T);   // elements a 16-byte chunk
-  const int row_chunks = k / V, n_chunks = rows * row_chunks;
-  for (int i0 = threadIdx.x; i0 < n_chunks; i0 += 4 * threads) {
-    uint4 u[4];   // four loads in flight before their stores
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = i0 + q * threads;
-      const int r = i / row_chunks, col = (i % row_chunks) * V;
-      const int j = col / np;
-      u[q] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < n_chunks && j < cl)
-        u[q] = *reinterpret_cast<const uint4*>(
-            cluster_peer(own, j) + (size_t)r * ldo + col - j * np);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = i0 + q * threads;
-      if (i < n_chunks)
-        *reinterpret_cast<uint4*>(dst + (size_t)(i / row_chunks) * ldd +
-                                  (i % row_chunks) * V) = u[q];
-    }
-  }
-}
-
-// opts `kernel` in to all of a block's shared memory at its first launch;
-// kernels of one signature (the instances of a template over the attention
-// kind) share the table, keyed by the kernel's address
-template <typename... KArgs>
-cudaError_t opt_in_smem(void (*kernel)(KArgs...)) {
-  static const void* done[8];
-  static int n_done = 0;
-  const void* key = reinterpret_cast<const void*>(kernel);
-  for (int i = 0; i < n_done; ++i)
-    if (done[i] == key) return cudaSuccess;
-  const cudaError_t err = allow_smem(kernel, 227 * 1024);
-  if (err == cudaSuccess && n_done < 8) done[n_done++] = key;
-  return err;
-}
-
-// a 1-D grid of `grid` CTAs in clusters of `cluster` consecutive CTAs; the
-// first launch of each kernel opts it in to all of a block's shared memory
-template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
-                           size_t smem, int cluster, cudaStream_t stream,
-                           Args&&... args) {
-  const cudaError_t opt_in = opt_in_smem(kernel);
-  if (opt_in != cudaSuccess) return opt_in;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // prenet_tile_kernel: the forward prenet of both decoders (K1's prenet,
 // replacing ops/pallas_decoder.py:513-519; K2's train_prenet, replacing
 // ops/pallas_train_decoder.py:409-425): n layers of
@@ -896,7 +1027,7 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int threads,
 // output (put: layer, row, col, y, keep) inside [0, B) x [0, P).  The
 // element type T is bf16, or float32 for the serving decoder's float32
 // instance: float32 weights, x and every layer's input unrounded, the
-// products on simt FFMA (see simt_tile32), float32 rows exchanged.
+// products on FFMA, a thread an output, float32 rows exchanged.
 //
 // One launch: a thread-block cluster of `cl` CTAs (<= 8) for each PN_ROWS =
 // 16 rows (one mma row tile).  CTA `rank` owns the columns [rank * np,

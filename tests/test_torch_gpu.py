@@ -267,15 +267,16 @@ def _f32_bundle(attention_type, int8, q_streams=False,
                                          q_streams=q_streams)
 
 
-@pytest.mark.parametrize("b", [1, 37, 240])
+@pytest.mark.parametrize("b", [1, 37, 50, 67, 240])
 @pytest.mark.parametrize("int8", [True, False])
 def test_f32_step_kernels_match_plain_at_flagship_widths(int8, b):
     """The float32 instances of ``prenet``, both ``gate_lstm`` (W8A8 on the
     unrounded float32 row, or exact float32 products), ``lsa_attention``
     and ``head`` at the flagship's widths (T=128): masks and int8
     activations bit-exact, every other output within F32_TOL of its largest
-    value; the head row (float32 h and context) exactly the outputs; each
-    launch counted under its ``_f32`` instance."""
+    value; the head row (float32 h and context) exactly the outputs; a
+    second gate_lstm run bit-identical to the first; each launch counted
+    under its ``_f32`` instance."""
     hp, bundle = _f32_bundle("location_sensitive", int8)
     gen = torch.Generator(device="cuda").manual_seed(b)
 
@@ -309,11 +310,13 @@ def test_f32_step_kernels_match_plain_at_flagship_widths(int8, b):
         got = fd.gate_lstm(segs, h, c, bundle, which, 0.1, 0.1,
                            q_out=q_k if int8 else None,
                            h_row=row[:, :_HIDDEN] if which == "gen" else None)
+        again = fd.gate_lstm(segs, h, c, bundle, which, 0.1, 0.1)
         ref = fd.gate_lstm_plain(segs, h, c, bundle, which, 0.1, 0.1,
                                  q_out=q_p if int8 else None)
         assert torch.equal(q_k, q_p)
-        for g, r in zip(got, ref):
+        for g, g2, r in zip(got, again, ref):
             _f32_close(g, r)
+            assert torch.equal(g, g2)
     h_new = got[0]
     assert torch.equal(row[:, :_HIDDEN], h_new)
 
@@ -331,7 +334,7 @@ def test_f32_step_kernels_match_plain_at_flagship_widths(int8, b):
     _f32_close(frame_k, frame_p)
     _f32_close(stop_k, stop_p)
     assert {k: v for k, v in fd.LAUNCHES.items() if v} == {
-        "prenet_f32": 1, "gate_lstm_f32": 2, "lsa_attention_f32": 1,
+        "prenet_f32": 1, "gate_lstm_f32": 4, "lsa_attention_f32": 1,
         "head_f32": 1}
 
 
@@ -963,17 +966,18 @@ def test_kernels_match_plain_at_the_strategies_widths(strategy, phase):
         assert set(errs) == set(ftd.K2_KERNELS + ftd.K3_KERNELS)
 
 
-def _bwd_gemm_operands(m, n, k, b_kn, seed):
-    """bf16 ``a`` [M, K] and ``b`` ([K, N] or [N, K], contiguous: N=1572 and
-    2340 give rows that are not 16-byte aligned), and three output segments
-    of N: one with a separate addend, one added in place, one plain."""
+def _bwd_gemm_operands(m, n, k, b_kn, seed, dtype=torch.bfloat16):
+    """``a`` [M, K] and ``b`` ([K, N] or [N, K], contiguous: N=1572 and 2340
+    give rows that are not 16-byte aligned in bf16) of ``dtype``, and three
+    output segments of N: one with a separate addend, one added in place,
+    one plain."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    a = rnd(m, k).bfloat16()
-    b = (rnd(k, n) if b_kn else rnd(n, k)).bfloat16()
+    a = rnd(m, k).to(dtype)
+    b = (rnd(k, n) if b_kn else rnd(n, k)).to(dtype)
     t = n // 3
     add0, acc1 = rnd(m, t), rnd(m, t)
 
@@ -991,60 +995,77 @@ def _run_bwd_gemm(fn, a, b, b_kn, segs):
     return [out for _, _, out, _ in segs]
 
 
+# the split-K products' bounds by operand type: bf16 operands, float32
+# sums in another order (chip_smoke's bwd_gemm bound); float32 in three TF32
+# passes (F32_TOL)
+_PRODUCT_TOL = {torch.bfloat16: 2e-5, torch.float32: F32_TOL}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b_kn", [True, False])
 @pytest.mark.parametrize("k", [128, 4096])
 @pytest.mark.parametrize("n", [1024, 1572, 2340])
 @pytest.mark.parametrize("m", [1, 50])
-def test_bwd_gemm_matches_plain(m, n, k, b_kn):
-    """The split-K product against its plain version: every output within
-    2e-5 of its largest value (chip_smoke's bound; float32 sums in another
-    order), and a second run bit-identical to the first."""
+def test_bwd_gemm_matches_plain(m, n, k, b_kn, dtype):
+    """The split-K product against its plain version ("MK" A against "KN"
+    or "NK" B; float32: ``splitk_f32_kernel``, three TF32 passes): every
+    output within its bound of its largest value (``_PRODUCT_TOL``), a
+    second run bit-identical to the first, and only the instance of the
+    operands' type launched."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
 
-    a, b, segments = _bwd_gemm_operands(m, n, k, b_kn, seed=m + n + k)
+    a, b, segments = _bwd_gemm_operands(m, n, k, b_kn, seed=m + n + k,
+                                        dtype=dtype)
+    ftd.reset_launch_counts()
     got = _run_bwd_gemm(ftd.bwd_gemm, a, b, b_kn, segments())
     again = _run_bwd_gemm(ftd.bwd_gemm, a, b, b_kn, segments())
+    assert {name: v for name, v in ftd.LAUNCHES.items() if v} == {
+        ftd.instance("bwd_gemm", dtype): 2}
     ref = _run_bwd_gemm(ftd.PLAIN.bwd_gemm, a, b, b_kn, segments())
     for g, r, g2 in zip(got, ref, again):
-        assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max())
+        assert float((g - r).abs().max()) <= \
+            _PRODUCT_TOL[dtype] * float(r.abs().max())
         assert torch.equal(g, g2)
 
 
-def test_bwd_gemm_matches_plain_at_the_dwq_shape():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_gemm_matches_plain_at_the_dwq_shape(dtype):
     """dWq = gen_in[:, :H]^T @ dq over all F*B = 25,600 rows of the flagship
-    pass: ``a`` a [K, M] view with the generator row's stride, ``b`` [K,
-    A]; within 2e-5 of the largest value, and bit-identical twice."""
+    pass: ``a`` a [K, M] view with the generator row's stride ("KM"), ``b``
+    [K, A] ("KN"); within its bound of the largest value
+    (``_PRODUCT_TOL``), and bit-identical twice."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows, hidden, att, ld = 512 * 50, 1024, 128, 2368
-    a = torch.randn(rows, ld, device="cuda", generator=gen).bfloat16()
+    a = torch.randn(rows, ld, device="cuda", generator=gen).to(dtype)
     a = a[:, :hidden]
-    b = torch.randn(rows, att, device="cuda", generator=gen).bfloat16()
+    b = torch.randn(rows, att, device="cuda", generator=gen).to(dtype)
     outs = []
     for fn in (ftd.bwd_gemm, ftd.bwd_gemm, ftd.PLAIN.bwd_gemm):
         out = torch.empty(hidden, att, device="cuda")
         fn(a, b, True, [(0, att, out, None)], True)
         outs.append(out)
     got, again, ref = outs
-    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= \
+        _PRODUCT_TOL[dtype] * float(ref.abs().max())
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("mode", ["train", "eval"])
-@pytest.mark.parametrize("b", [1, 50, 100, 240])
-def test_train_gate_lstm_matches_plain_at_flagship_widths(b, mode):
-    """The training decoder's gate product in the shared gate routine
-    (``csrc/tile.cuh``; 32, 64 or 128 rows a block by the batch) at H=1024
-    and both gate K's, zoneout 0.5 in train mode (the zoneout choices
+def _train_gate_case(b, mode, dtype):
+    """The training gate product at H=1024 and both gate K's (bf16: zero
+    padded to a multiple of 64, as the model's weights; float32: K = 1572
+    and 2340 as they are, which end inside a 64-deep stage) against its
+    plain version, zoneout 0.5 in train mode (the zoneout choices
     bit-exact) and its eval interpolation (``LstmEpi`` mode 3, no
-    activation or c stream written): h, c and the float32 carries within
-    1e-5 of their largest value, the bf16 activations and streams within
-    one ulp (chip_smoke's bounds)."""
+    activation or c stream written): float32 outputs within 1e-5 of their
+    largest value, bf16 ones within one ulp (chip_smoke's bounds); a second
+    kernel run bit-identical to the first; only the instance of ``dtype``
+    launched."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
@@ -1053,46 +1074,77 @@ def test_train_gate_lstm_matches_plain_at_flagship_widths(b, mode):
     reg = (11, 12, 5, 6, 2 ** 31, 2 ** 31, 1 if mode == "train" else 3,
            1.0, 0.5, 0.5)
     for which, ks in _SEGMENTS.items():
-        kp = -(-sum(ks) // 64) * 64
+        k = sum(ks)
+        kp = -(-k // 64) * 64 if dtype == torch.bfloat16 else k
         row = torch.zeros(b, kp, device="cuda")
-        row[:, :sum(ks)] = torch.randn(b, sum(ks), device="cuda",
-                                       generator=gen)
-        row = row.bfloat16()
+        row[:, :k] = torch.randn(b, k, device="cuda", generator=gen)
+        row = row.to(dtype)
         w = (torch.randn(4 * _HIDDEN, kp, device="cuda", generator=gen)
-             / kp ** 0.5).bfloat16()
-        bias = 0.1 * torch.randn(4 * _HIDDEN, device="cuda", generator=gen)
+             / kp ** 0.5).to(dtype)
+        bias = 0.1 * torch.randn(4 * _HIDDEN, device="cuda",
+                                 generator=gen)
         h0, c0 = (torch.randn(b, _HIDDEN, device="cuda", generator=gen)
                   for _ in range(2))
         outs = []
-        for fn in (ftd.train_gate_lstm, ftd.PLAIN.train_gate_lstm):
+        ftd.reset_launch_counts()
+        for fn in (ftd.train_gate_lstm, ftd.train_gate_lstm,
+                   ftd.PLAIN.train_gate_lstm):
             h, c = h0.clone(), c0.clone()
-            o = [torch.empty(b, 4 * _HIDDEN, dtype=torch.bfloat16,
+            o = [torch.empty(b, 4 * _HIDDEN, dtype=dtype,
                              device="cuda")] + [
-                torch.empty(b, _HIDDEN, dtype=torch.bfloat16, device="cuda")
+                torch.empty(b, _HIDDEN, dtype=dtype, device="cuda")
                 for _ in range(3)]
             if mode == "eval":
                 o[0] = o[1] = None
             fn(row, w, bias, reg, h, c, *o)
             outs.append([x for x in (h, c, *o) if x is not None])
-        for g, r in zip(*outs):
+        assert {n: v for n, v in ftd.LAUNCHES.items() if v} == {
+            ftd.instance("train_gate_lstm", dtype): 2}, which
+        got, again, ref = outs
+        for g, g2, r in zip(got, again, ref):
             bound = 1e-5 if r.dtype == torch.float32 else 8e-3
             assert float((g.float() - r.float()).abs().max()) <= \
                 bound * float(r.float().abs().max()), which
+            assert torch.equal(g, g2), which
         if mode == "train":
-            kept_k = (outs[0][0] == h0)
-            kept_p = (outs[1][0] == h0)
-            assert torch.equal(kept_k, kept_p) and bool(kept_p.any()), which
+            kept_k = (got[0] == h0)
+            kept_p = (ref[0] == h0)
+            assert torch.equal(kept_k, kept_p) and bool(kept_p.any()), \
+                which
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["train", "eval"])
+@pytest.mark.parametrize("b", [1, 50, 67, 100, 240])
+def test_train_gate_lstm_matches_plain_at_flagship_widths(b, mode, dtype):
+    """The training decoder's gate product in the shared gate routine
+    (``csrc/tile.cuh``; 32, 64 or 128 rows a block by the batch, and in
+    float32 clusters of two CTAs) at the flagship's widths
+    (``_train_gate_case``)."""
+    _train_gate_case(b, mode, dtype)
+
+
+@pytest.mark.parametrize("b", [17, 32, 33, 128, 129])
+def test_f32_gate_routine_at_every_geometry(b):
+    """The float32 gate routine (three TF32 passes, clusters of two CTAs)
+    at each rows a block its launcher picks, on both sides of where the
+    pick changes (32 rows up to 32, 64 up to 128, 128 above: full and
+    partial row tiles), against its plain version (``_train_gate_case`` in
+    train mode)."""
+    _train_gate_case(b, "train", torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b", [1, 50, 240])
-def test_train_query_and_head_split_k_match_plain(b):
+def test_train_query_and_head_split_k_match_plain(b, dtype):
     """The attention query (K = H = 1024, 16 slices at B=50) and the
     training and serving heads (K = 1344: 21 slices, and 14 for the serving
     head at B=240) through ``splitk_kernel`` and its ordered reduction, at
     the flagship's widths: q within one bf16 ulp, the frame, stop and frame
     carry within 4e-6 of their largest value (chip_smoke's bound for the
-    training head); a pass-wide scratch and a call's own give bit-identical
-    results, and a scratch too small for the split raises."""
+    training head); in float32 (``splitk_f32_kernel``, three TF32 passes)
+    every output within F32_TOL; a pass-wide scratch and a call's own give
+    bit-identical results, and a scratch too small for the split raises."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         _splitk,
         fused_train_decoder as ftd,
@@ -1103,15 +1155,15 @@ def test_train_query_and_head_split_k_match_plain(b):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
 
-    h = rnd(b, 2368).bfloat16()[:, :_HIDDEN]      # a generator-row view
-    wq = rnd(_HIDDEN, 128, scale=_HIDDEN ** -0.5).bfloat16()
-    row = rnd(b, 1344).bfloat16()
-    head_w = rnd(81, 1344, scale=1344 ** -0.5).bfloat16()
+    h = rnd(b, 2368).to(dtype)[:, :_HIDDEN]      # a generator-row view
+    wq = rnd(_HIDDEN, 128, scale=_HIDDEN ** -0.5).to(dtype)
+    row = rnd(b, 1344).to(dtype)
+    head_w = rnd(81, 1344, scale=1344 ** -0.5).to(dtype)
     head_b = rnd(81, scale=0.1)
     scratch = _splitk.splitk_scratch(
         ftd._lib(), [(b, 128, _HIDDEN), (b, 81, 1344)], h)
-    serving = SimpleNamespace(dtype=torch.bfloat16, head_w=head_w,
-                              head_b=head_b)
+    serving = SimpleNamespace(dtype=dtype, head_w=head_w, head_b=head_b)
+    f32 = dtype == torch.float32
 
     def query(fn, **kw):
         out = torch.empty(b, 128, device="cuda")
@@ -1136,9 +1188,12 @@ def test_train_query_and_head_split_k_match_plain(b):
         return list(fn(h_gen, ctx, serving, **kw))
 
     for run, kernel, plain, bound in (
-            (query, ftd.train_query, ftd.PLAIN.train_query, 1e-2),
-            (head, ftd.train_head, ftd.PLAIN.train_head, 4e-6),
-            (serving_head, fd.head, fd.head_plain, 4e-6)):
+            (query, ftd.train_query, ftd.PLAIN.train_query,
+             F32_TOL if f32 else 1e-2),
+            (head, ftd.train_head, ftd.PLAIN.train_head,
+             F32_TOL if f32 else 4e-6),
+            (serving_head, fd.head, fd.head_plain,
+             F32_TOL if f32 else 4e-6)):
         got = run(kernel, scratch=scratch)
         own = run(kernel)
         ref = run(plain)

@@ -4,8 +4,10 @@ the PyTorch port's CUDA sources, on one NVIDIA GPU.
 
     python3 tools/torch_kernel_variants.py faults [NAME ...]
     python3 tools/torch_kernel_variants.py checks train_attention_taps
+    python3 tools/torch_kernel_variants.py checks tf32x3_in_place
     python3 tools/torch_kernel_variants.py time lsa_l2_prefetch att_bwd_l2_prefetch
     python3 tools/torch_kernel_variants.py time train_attention_taps
+    python3 tools/torch_kernel_variants.py time gate_f32_cluster_1 gate_f32_cluster_4 gate_rows_halved gate_f32_stage_128
 
 Each variant copies ``multilingual_text_to_speech_tpu_torch`` under the
 ignored ``build/variants/<name>/``, replaces pieces of a ``csrc`` source
@@ -28,17 +30,20 @@ family's kernels, the 1e-6 floor given to K1's own padding of the text
 length, K3's recurrence replayed with the step's own t_prob instead of
 the previous step's, or K3's state cotangent added to instead of assigned
 (each under its attention kind's phase), or, in K1's float32 and
-int8-stream instances, the float32 product (``simt_tile32``: the exact
-gates, the head) run on bf16-rounded operands, the W8A8 row rounded to
-bf16 before a float32 decoder quantizes it, or the last bytes of each
-int8 memory row that is not a multiple of 16 bytes (292, 548) left out of
-the context, or, in K2's and K3's float32 instances (one fault in each),
-an operand of a float32 product rounded to bf16 (the SIMT products of the
-gates, heads and backward products, the prenet's, ``bwd_head``'s and
-``bwd_prenet``'s), a float32 stream stored in bf16 (the LSTM activations,
-the cells' gate gradients, ``att_bwd``'s dz, the family's energy terms and
-shifted weights) or the last chunk of each float32 memory row left out of
-the context, and runs the checks of that kernel's
+int8-stream instances, the float32 gate product (``csrc/tile.cuh``, three
+TF32 passes) run in one pass, the W8A8 row rounded to bf16 before a
+float32 decoder quantizes it, or the last bytes of each int8 memory row
+that is not a multiple of 16 bytes (292, 548) left out of the context, or,
+in K2's and K3's float32 instances (one fault in each), the float32
+products on the tensor cores (the gate routine's cluster leaving its last
+CTA's partial tile out of the sum; the split-K routine in one TF32 pass,
+or reading the second word of its transposed fragments 4 k-rows off), an
+operand of a small float32 product rounded to bf16 (the prenet's,
+``bwd_head``'s and ``bwd_prenet``'s), a float32 stream stored in bf16 (the
+LSTM activations, the cells' gate gradients, ``att_bwd``'s dz, the
+family's energy terms and shifted weights) or the last chunk of each
+float32 memory row left out of the context, and runs the checks of that
+kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
 at the 292- and the shared strategy's 548-wide memory) instances,
@@ -51,14 +56,22 @@ least one check.
 ``checks`` runs the same checks on each named design variant and prints
 every reading, failed or not: ``train_attention_taps`` computes K2's
 location conv on the CUDA cores, K FMAs in the reference's tap order,
-instead of as the band product on the tensor cores.
+instead of as the band product on the tensor cores; ``tf32x3_in_place``
+sums the three TF32 passes of the float32 gate and split-K products
+straight into their float32 sums on the tensor cores, where the kernels
+sum each ring stage's apart and add it on the CUDA cores (K1's, K2's and
+K3's float32 checks).
 
 ``time`` times each named variant's kernel and the checkout's own in turns
 (as is, variant, variant, as is): ``lsa_attention`` at the serving path's
 B=240, T=128, W8A8, alone (``chip_smoke.device_ms``) and a step inside a
 32-step chunk (``torch.profiler``); ``att_bwd`` and ``train_attention`` at
 the training path's B=50, T=128 on random inputs of the flagship's widths,
-alone.
+alone; the float32 gate routine, both of the flagship's LSTMs at B=50
+and 240, for ``gate_f32_cluster_1`` and ``gate_f32_cluster_4`` (K split
+over clusters of one or four CTAs, where the checkout's are of two),
+``gate_rows_halved`` (blocks of half the rows the launcher picks: 32 at
+B=50, 64 at B=240) and ``gate_f32_stage_128`` (another ring).
 
 Prints every run and, last, one JSON object of the results, also written
 to ``build/variants/kernel_variants_<mode>.json``.
@@ -98,17 +111,24 @@ _TA_TAPS_ENERGIES = r"""  // 1. energies, a warp a position, a lane a channel: l
 
 """
 
-# simt_tile32's A operand (the SIMT product of K1's and K2's float32 gate
-# products and heads, and of the dq product), and the same rounded to bf16
-_SIMT_A_LOAD = ("      av[i] = *reinterpret_cast<const float4*>(ar + 8 * i * "
-                "lda + k);\n#pragma unroll\n    for (int j = 0; j < 8; ++j) "
-                "{")
-_SIMT_A_LOAD_BF16 = (
-    "    {\n      const float4 u = *reinterpret_cast<const float4*>("
-    "ar + 8 * i * lda + k);\n"
-    "      av[i] = make_float4(round_bf16(u.x), round_bf16(u.y), "
-    "round_bf16(u.z), round_bf16(u.w));\n    }\n#pragma unroll\n"
-    "    for (int j = 0; j < 8; ++j) {")
+# one TF32 pass in place of the three of warp_tf32x3 (the lo terms
+# dropped), on the fragments `a` and `b` of a warp's 32 x 32 tile, into
+# the stage's sums `stage_acc`
+def _one_tf32_pass(a: str, b: str) -> str:
+    return (
+        "{\n"
+        "        uint32_t a1[2][4], b1[4][2];\n"
+        "        for (int mt = 0; mt < 2; ++mt)\n"
+        "          for (int i = 0; i < 4; ++i)\n"
+        f"            a1[mt][i] = tf32_rna(__uint_as_float({a}[mt][i]));\n"
+        "        for (int nt = 0; nt < 4; ++nt)\n"
+        "          for (int i = 0; i < 2; ++i)\n"
+        f"            b1[nt][i] = tf32_rna(__uint_as_float({b}[nt][i]));\n"
+        "        for (int mt = 0; mt < 2; ++mt)\n"
+        "          for (int nt = 0; nt < 4; ++nt)\n"
+        "            mma_tf32(stage_acc[mt][nt], a1[mt], b1[nt]);\n"
+        "      }")
+
 
 # name: (source, piece, replacement, what to run), or (source, [(start,
 # end, replacement), ...], what to run): the text from start up to end
@@ -184,8 +204,9 @@ VARIANTS = {
     # operands; the W8A8 row rounded to bf16 before a float32 decoder
     # quantizes it; an int8 memory row's last M % 16 bytes left out of the
     # context sum
-    "f32_product_bf16_operands": (
-        "tile.cuh", _SIMT_A_LOAD, _SIMT_A_LOAD_BF16, "K1f32"),
+    "f32_gates_one_tf32_pass": (
+        "tile.cuh", "        warp_tf32x3(stage_acc, af, bf);",
+        "        " + _one_tf32_pass("af", "bf"), "K1f32"),
     "w8a8_row_rounded_bf16": (
         "fused_decoder.cu", "    return round_to<CT>(v);",
         "    return round_bf16(v);", "K1f32"),
@@ -214,20 +235,25 @@ VARIANTS = {
         "  return (int)cudaGetLastError();", "K3"),
     # the training decoder's float32 instances, one fault in each (run
     # under their float32 phase, K2f32 or K3f32: every K2/K3 kernel, or the
-    # family's two at its kind): the SIMT product on bf16 operands (the
-    # gate products, the head and the dq product: simt_tile32) or in its
-    # "KN" branch (the query, the dgates products); a float32 stream stored
-    # in bf16 (the LSTM activations, the cells' gate gradients, att_bwd's
-    # dz, the family's energy terms and shifted weights); an operand of a
-    # small FFMA product rounded to bf16 (the prenet's input, bwd_head's
+    # family's two at its kind): the gate routine's cluster (two CTAs at
+    # B=50) leaving its last CTA's partial tile out of the sum; the split-K
+    # routine in one TF32 pass (the query and the heads) or with the second
+    # word of its transposed fragments ("KN" B, "KM" A: the dgates
+    # products, dWq) read 4 k-rows off; a float32 stream stored in bf16 (the
+    # LSTM activations, the cells' gate gradients, att_bwd's dz, the
+    # family's energy terms and shifted weights); an operand of a small
+    # FFMA product rounded to bf16 (the prenet's input, bwd_head's
     # dframe_tot, bwd_prenet's da); the last chunk of each float32 memory
     # row left out of the context
-    "f32_train_product_bf16_operands": (
-        "tile.cuh", _SIMT_A_LOAD, _SIMT_A_LOAD_BF16, "K2f32"),
-    "f32_splitk_kn_bf16_operands": (
-        "tile.cuh",
-        "        const float x = f4_at(av[i], kk);",
-        "        const float x = round_bf16(f4_at(av[i], kk));", "K3f32"),
+    "f32_train_gates_rank_dropped": (
+        "tile.cuh", "        for (int peer = 1; peer < T::CL; ++peer) {",
+        "        for (int peer = 1; peer < T::CL - 1; ++peer) {", "K2f32"),
+    "f32_splitk_one_tf32_pass": (
+        "tile.cuh", "      warp_tf32x3(stage_acc, af, bfr);",
+        "      " + _one_tf32_pass("af", "bfr"), "K2f32"),
+    "f32_splitk_kn_row_off": (
+        "tile.cuh", "  f[1] = __float_as_uint(p[4 * SKF_LD_MN]);",
+        "  f[1] = __float_as_uint(p[0]);", "K3f32"),
     "f32_lstm_act_stored_bf16": (
         "fused_train_decoder.cu", "      a[0] = from_float<CT>(gi);",
         "      a[0] = from_float<CT>(round_bf16(gi));", "K2f32"),
@@ -276,6 +302,40 @@ VARIANTS = {
         [("  // 1. energies: loc = band(cum) @ lc",
           "  // 2. the row's masked softmax", _TA_TAPS_ENERGIES)],
         "design K2"),
+    # the float32 products with their TF32 passes summed straight into the
+    # float32 sums on the tensor cores, without tf32x3_promote's stage sums
+    "tf32x3_in_place": (
+        "tile.cuh",
+        [("        warp_tf32x3(stage_acc, af, bf);",
+          "        warp_tf32x3(acc, af, bf);"),
+         ("      warp_tf32x3(stage_acc, af, bfr);",
+          "      warp_tf32x3(acc, af, bfr);")],
+        "design K1f32,K2f32,K3f32"),
+    # the float32 gate routine's ring in 128-byte stages (32 values, as
+    # bf16's) at every rows a block, where the checkout takes 256 at up to
+    # 64 rows
+    "gate_f32_stage_128": (
+        "tile.cuh",
+        "  static constexpr int BK = F32 && WM <= 2 ? 256 : 128;",
+        "  static constexpr int BK = 128;", "time gates"),
+    # its K split over clusters of one or of four CTAs, where the checkout
+    # splits it over two
+    "gate_f32_cluster_1": (
+        "tile.cuh", "constexpr int GT_F32_CL = 2;",
+        "constexpr int GT_F32_CL = 1;", "time gates"),
+    "gate_f32_cluster_4": (
+        "tile.cuh", "constexpr int GT_F32_CL = 2;",
+        "constexpr int GT_F32_CL = 4;", "time gates"),
+    # blocks of half the rows that the launcher picks above 32 rows
+    "gate_rows_halved": (
+        "tile.cuh",
+        [("  if (M > 128)\n    return gate_tile_run<E, 4>(",
+          "  return gate_tile_run<E, 1>(",
+          "  if (M > 128)\n    return gate_tile_run<E, 2>(a, lda, w, ldw, "
+          "kbytes, M, H, epi, stream);\n"
+          "  if (M > 32)\n    return gate_tile_run<E, 1>(a, lda, w, ldw, "
+          "kbytes, M, H, epi, stream);\n")],
+        "time gates"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -437,6 +497,30 @@ print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone}}))
 """
 
 
+# the float32 gate routine (both of the flagship's LSTMs: K = 1600 and 2368
+# zero-padded, H = 1024, train mode) as the build launches it, at the
+# training step's B=50 and serving's B=240: device ms of the two launches
+_TIME_GATES = _PRELUDE + r"""
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+torch.set_grad_enabled(False)
+gen = torch.Generator(device="cuda").manual_seed(0)
+reg = (11, 12, 5, 6, 2 ** 31, 2 ** 31, 1, 1.0, 0.5, 0.5)
+def rnd(*shape, scale=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * scale
+res = {{}}
+for b in (50, 240):
+    ops = [(rnd(b, k), rnd(4096, k, scale=k ** -0.5), rnd(4096, scale=0.1),
+            rnd(b, 1024), rnd(b, 1024), torch.empty(b, 4096, device="cuda"),
+            *(torch.empty(b, 1024, device="cuda") for _ in range(3)))
+           for k in (1600, 2368)]
+    def run():
+        for row, w, bias, h, c, act, c_out, d0, d1 in ops:
+            ftd.train_gate_lstm(row, w, bias, reg, h, c, act, c_out, d0, d1)
+    res[f"B={{b}}"] = cs.device_ms(run, ours_only=True)
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+
+
 def make_copy(name: str) -> Path:
     """The package under build/variants/<name>/ with the variant's pieces
     replaced; its own build directory starts empty."""
@@ -491,7 +575,7 @@ def build_copies(roots: dict) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     def build(name):
-        source = ("fused_decoder" if _kind(name).startswith("K1")
+        source = ("fused_decoder" if "K1" in _kind(name)
                   else "fused_train_decoder")
         code = (f"import sys; sys.path.insert(0, {str(roots[name])!r}); "
                 f"from {PKG}.ops import _build; _build.build([{source!r}])")
@@ -534,22 +618,26 @@ def checks(names) -> dict:
             raise SystemExit(f"kernel_variants: {name} is not a design "
                              "variant")
         print(f"[checks] {name} ({_kind(name)})")
-        res = run(make_copy(name), _CHECKS, phase=_kind(name).split()[1])
-        out[name] = res["failed"]
-        print(f"[checks] {name}: {len(res['failed'])} check(s) failed")
+        root, out[name] = make_copy(name), []
+        # the phases, comma-separated
+        for phase in _kind(name).split()[1].split(","):
+            out[name] += run(root, _CHECKS, phase=phase)["failed"]
+        print(f"[checks] {name}: {len(out[name])} check(s) failed")
     return out
 
 
 def time_variants(names) -> dict:
     out = {}
+    copies = {name: make_copy(name) for name in names if name in VARIANTS}
+    build_copies(copies)
     for name in names:
-        if name not in VARIANTS or not _kind(name).startswith(("time",
-                                                               "design")):
+        script = {"K1": _TIME_K1, "K2": _TIME_K2, "K3": _TIME_K3,
+                  "gates": _TIME_GATES}.get(
+            _kind(name).split()[1] if name in VARIANTS else None)
+        if script is None or not _kind(name).startswith(("time", "design")):
             raise SystemExit(f"kernel_variants: {name} is not a timing "
                              "variant")
-        script = {"K1": _TIME_K1, "K2": _TIME_K2,
-                  "K3": _TIME_K3}[_kind(name).split()[1]]
-        roots = {"as is": ROOT, name: make_copy(name)}
+        roots = {"as is": ROOT, name: copies[name]}
         out[name] = {k: [] for k in roots}
         for which in ("as is", name, name, "as is"):
             res = run(roots[which], script)

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's flagship training step from two checkouts in
-turns, on one NVIDIA GPU.
+"""Time the PyTorch port's flagship training step, or the serving
+decoder's kernel rows, from two checkouts in turns, on one NVIDIA GPU.
 
     python3 tools/torch_train_step_ab.py BASE CHANGE [--pairs 4]
+        [--dtype float32]
+    python3 tools/torch_train_step_ab.py BASE CHANGE --rows [--pairs 2]
+        [--attention forward_transition_agent] [--set q8] [--only head ...]
+    python3 tools/torch_train_step_ab.py BASE CHANGE --train-rows
+        [--attention forward] [--set f32] [--only att_bwd_fwd ...]
 
 BASE and CHANGE are roots of checkouts of the repository (for example a
 ``git archive`` of the parent commit unpacked under the ignored ``build/``,
 and ``.``).  Each run is a fresh process that imports ``chip_smoke`` and the
 port from its checkout (the kernels build on the first step) and runs
-``chip_smoke.phase_train_main``: a warm-up step, three timed steps at
+``chip_smoke.phase_train_main`` (the flagship in its bfloat16 compute, or
+with ``--dtype float32`` in float32, as ``chip_smoke.py``'s float32
+training phase runs it): a warm-up step, three timed steps at
 teacher forcing 1.0 and one at 0.5 (host clock, each ending in a
 synchronize), then one step split by CUDA events into forward and loss,
 backward, and clipping and Adam; then two more steps under
@@ -17,7 +24,22 @@ kernel launches a step, in all and by kernel name, the mean of the two).  Runs g
 change, base, and
 again, ``--pairs`` pairs in all, so that a drift of the shared host's load
 falls on both sides alike.  Prints every run and, last, one JSON object with
-each run's numbers, also written to ``chiprun_out/train_step_ab.json``.
+each run's numbers, also written to ``train_step_ab_<dtype>.json`` in
+the ignored output directory.
+
+With ``--rows`` each run instead builds the serving flagship's
+``Synthesizer`` (at ``--attention``, with ``--set`` one of
+``chip_smoke``'s configurations: ``f32``, ``f32-exact``, ``q8``,
+``f32-q8``) and runs ``chip_smoke.phase_timings`` on the rows ``--only``
+names (every kernel of the path when none is named): the device time of
+one call of each kernel alone, as ``chip_smoke.py``'s ``[time]`` rows read
+it.  With ``--train-rows`` each run checks and times the training
+decoder's kernels of ``--only`` (every one when none is named) as
+``chip_smoke.py``'s ``[train:time]`` rows read them, at ``--attention``
+and ``--set`` (``f32``), at the depth of ``chip_smoke.py``'s training
+phase there: the checks (``phase_train_kernels``), one timed step
+(``phase_train_main``), then ``phase_train_timings``.  The last JSON object then holds each row's
+times by side.
 """
 
 from __future__ import annotations
@@ -38,6 +60,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK)
 sd = cs.seeded_state_dict(hp)
+if {f32!r}:
+    hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK, **cs.F32)
 _, _, step_s, (model, opt, sched, batch, state) = cs.phase_train_main(hp, sd)
 from torch.profiler import ProfilerActivity, profile
 from multilingual_text_to_speech_tpu_torch.training import trainer
@@ -60,13 +84,79 @@ print("AB_RESULT " + json.dumps({{"step_s": step_s, "device_ms": device_ms,
                                   "kernels": len(kernels) / 2,
                                   "by_kernel": by_kernel}}))
 """
+_ROWS = r"""
+import json, sys
+from collections import defaultdict
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_grad_enabled(False)
+over = {{"": {{}}, "f32": cs.F32, "f32-exact": cs.F32_EXACT, "q8": cs.Q8,
+         "f32-q8": cs.F32_Q8}}[{setting!r}]
+hp = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, {attention!r}, **over)
+syn = Synthesizer(hp, cs.seeded_state_dict(hp), device="cuda")
+rows = cs.phase_timings(hp, syn, defaultdict(float), defaultdict(int),
+                        only={only!r} or None, chunk=False)
+print("AB_RESULT " + json.dumps({{r["name"]: r["ms"] for r in rows}}))
+"""
+_TRAIN_ROWS = r"""
+import json, sys
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+over = {{"": {{}}, "f32": cs.F32}}[{setting!r}]
+family = {attention!r} in cs.FAMILY
+hp = cs.flagship(cs.FAMILY_FRAMES if family else cs.MAX_FRAMES, cs.CHUNK,
+                 {attention!r}, **over)
+# the frames of chip_smoke's training phase at this configuration
+frames = cs.F32_FAMILY_FRAMES if family and over else cs.TRAIN_F
+sd = cs.seeded_state_dict(hp)
+errs, inputs = cs.phase_train_kernels(hp, sd, only={only!r} or None)
+launches, per_step, _, main = cs.phase_train_main(hp, sd, timed=1,
+                                                  frames=frames)
+rows = cs.phase_train_timings(hp, errs, launches, per_step, inputs, main,
+                              frames=frames)
+print("AB_RESULT " + json.dumps({{r["name"]: r["ms"] for r in rows}}))
+"""
 _SPLIT = re.compile(r"forward and loss ([\d.]+) ms, backward ([\d.]+) ms, "
                     r"clip and Adam ([\d.]+) ms")
 _STEPS = re.compile(r"steps at teacher forcing 1\.0 ([\d., ]+) s \(mean")
 
 
-def run_once(root: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _RUN.format(root=str(root))],
+def run_rows(root: Path, args) -> dict:
+    """One ``--rows`` or ``--train-rows`` run: each row's device ms."""
+    code = (_TRAIN_ROWS if args.train_rows else _ROWS).format(
+        root=str(root), attention=args.attention, setting=args.setting,
+        only=list(args.only))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith("AB_RESULT "):
+            return json.loads(line[len("AB_RESULT "):])
+    sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+    raise SystemExit(f"train_step_ab: the run in {root} failed")
+
+
+def rows_ab(roots: dict, order, args, smi: str) -> dict:
+    times = {side: {} for side in roots}
+    for i, side in enumerate(order):
+        res = run_rows(roots[side], args)
+        for name, ms in res.items():
+            times[side].setdefault(name, []).append(ms)
+        print(f"[ab] run {i + 1} {side}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in res.items()))
+    return {"card": smi, "attention": args.attention, "set": args.setting,
+            "times": times}
+
+
+def run_once(root: Path, f32: bool) -> dict:
+    proc = subprocess.run([sys.executable, "-c",
+                           _RUN.format(root=str(root), f32=f32)],
                           cwd=root, capture_output=True, text=True,
                           timeout=900)
     for line in proc.stdout.splitlines():
@@ -94,7 +184,18 @@ def main() -> int:
     ap.add_argument("base", type=Path)
     ap.add_argument("change", type=Path)
     ap.add_argument("--pairs", type=int, default=4)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16", help="the compute type of the step")
+    ap.add_argument("--rows", action="store_true",
+                    help="time the serving decoder's kernel rows instead")
+    ap.add_argument("--train-rows", action="store_true",
+                    help="time the training decoder's kernel rows instead")
+    ap.add_argument("--attention", default="location_sensitive")
+    ap.add_argument("--set", dest="setting", default="",
+                    choices=("", "f32", "f32-exact", "q8", "f32-q8"))
+    ap.add_argument("--only", nargs="*", default=())
     args = ap.parse_args()
+    f32 = args.dtype == "float32"
     roots = {"base": args.base.resolve(), "change": args.change.resolve()}
     for root in roots.values():
         if not (root / "chip_smoke.py").is_file():
@@ -105,17 +206,20 @@ def main() -> int:
     print(smi)
     order = (["base", "change", "change", "base"]
              * args.pairs)[:2 * args.pairs]
+    if args.rows or args.train_rows:
+        print(json.dumps(rows_ab(roots, order, args, smi)))
+        return 0
     runs = []
     for i, side in enumerate(order):
         print(f"[ab] run {i + 1} of {len(order)}: {side} ({roots[side]})")
-        res = run_once(roots[side])
+        res = run_once(roots[side], f32)
         res.update(run=i + 1, side=side)
         runs.append(res)
         print(f"[ab] run {i + 1} {side}: mean step {res['step_s']:.4f} s, "
               f"backward {res.get('backward_ms', float('nan')):.3f} ms; "
               f"device {res['device_ms']:.3f} ms and {res['kernels']:.0f} "
               f"kernel launches a step (torch.profiler)")
-    summary = {"card": smi, "runs": runs}
+    summary = {"card": smi, "dtype": args.dtype, "runs": runs}
     for side in roots:
         steps = [r["step_s"] for r in runs if r["side"] == side]
         summary[f"{side}_steps_s"] = steps
@@ -139,7 +243,8 @@ def main() -> int:
               f"{mean['change'].get(k, 0.0):.3f} ms a step")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "train_step_ab.json").write_text(json.dumps(summary, indent=1))
+    (out / f"train_step_ab_{args.dtype}.json").write_text(
+        json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return 0
 
