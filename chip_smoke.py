@@ -154,10 +154,12 @@ HBM_BYTES_S = 3.35e12
 # tensor cores; tf32: the tensor cores' TF32 peak
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 # the float32 products that run on the tensor cores in three TF32 passes
-# (csrc/tile.cuh mma_tf32x3): bound by three times their operations at
-# the TF32 peak (row_bound), the FFMA bound printed beside it
+# (csrc/tile.cuh mma_tf32x3): bound by three times their products'
+# operations at the TF32 peak and the rest on FFMA (row_ops), the FFMA
+# bound printed beside it.  At the training path's shapes bwd_head and
+# att_bwd stay bound by their bytes either way
 TF32X3_ROWS = ("gate_lstm", "head", "train_gate_lstm", "train_query",
-               "train_head", "bwd_gemm")
+               "train_head", "bwd_gemm", "bwd_head", "att_bwd")
 # Tolerances of kernel vs plain on the same inputs, set a few times above
 # the errors measured on an H100 (PERF.md): float32 sums in another order,
 # and bfloat16 roundings that a one-ulp difference can flip.
@@ -374,28 +376,35 @@ def device_ms(fn, iters: int = 10, warmup: int = 2,
     return cuda_ms(fn, iters=iters, warmup=0)
 
 
-def bound_ms(n_bytes: float, ops: float, kind: str):
+def bound_ms(n_bytes: float, parts):
+    """The larger of the bytes' time and the operations' time, in ms:
+    ``parts`` (count, peak kind) pairs of operations run one after the
+    other."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_ops = sum(n / PEAK_OPS[k] for n, k in parts) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row_ops(name: str, ops: float, kind: str):
-    """(operations, peak kind) of a kernel row's work: a float32 product
-    of TF32X3_ROWS runs three TF32 passes, the others their kind's."""
+def row_ops(name: str, ops: float, kind: str, mm_ops: float = None):
+    """[(operations, peak kind)] of a kernel row's work: a float32 row of
+    TF32X3_ROWS runs its products (``mm_ops`` of its ``ops``, all when
+    None) as three TF32 passes and the rest on FFMA, the others their
+    kind's."""
     if kind == "f32" and name in TF32X3_ROWS:
-        return 3 * ops, "tf32"
-    return ops, kind
+        mm = ops if mm_ops is None else mm_ops
+        return [(3 * mm, "tf32")] + ([(ops - mm, "f32")] if ops > mm else [])
+    return [(ops, kind)]
 
 
-def row_bound(name: str, n_bytes: float, ops: float, kind: str):
+def row_bound(name: str, n_bytes: float, ops: float, kind: str,
+              mm_ops: float = None):
     """bound_ms of a kernel row (``row_ops``), and a note for its printed
     line: for the rows of TF32X3_ROWS the FFMA bound beside it."""
-    n, peak = row_ops(name, ops, kind)
-    b_ms, b_by = bound_ms(n_bytes, n, peak)
-    if peak != "tf32":
+    parts = row_ops(name, ops, kind, mm_ops)
+    b_ms, b_by = bound_ms(n_bytes, parts)
+    if parts[0][1] != "tf32":
         return b_ms, b_by, ""
-    f_ms, f_by = bound_ms(n_bytes, ops, "f32")
+    f_ms, f_by = bound_ms(n_bytes, [(ops, "f32")])
     return b_ms, b_by, f", on FFMA {f_ms:.5f} ms ({f_by})"
 
 
@@ -1131,7 +1140,7 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
         say(f"[time] {inst} (device time, torch.profiler): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.5f} ms ({b_by}, "
-            f"{row_ops(name, ops, op_kind)[1]}){ffma}, library "
+            f"{row_ops(name, ops, op_kind)[0][1]}){ffma}, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     if not chunk:
         return rows
@@ -1150,9 +1159,8 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
     # a chunk reads its weights and attention operands once and writes its
     # frames once; its products run at their types' peaks, one after the
     # other
-    step_ops_s = sum(n / PEAK_OPS[k] for n, k in (
-        row_ops(name, ops, kind) for name, (_, ops, kind) in work.items()
-        if name in calls))
+    step_ops_s = sum(n / PEAK_OPS[k] for name, (_, ops, kind) in work.items()
+                     if name in calls for n, k in row_ops(name, ops, kind))
     chunk_bytes = ((k_att + k_gen) * 4 * hidden * bundle.att_w.element_size()
                    + B * T_SYMBOLS * (m_dim + a_dim) * ss
                    + B * CHUNK * n_head * f4)
@@ -2447,10 +2455,12 @@ def train_work(cfg, b, t_len):
                             2 * b * t_len * (a * (k + 1) + mem)),
         "train_head": (b * kh * bf + (m + 1) * kh * bf + (m + 1) * f32
                        + b * (2 * m + 1) * f32, 2 * b * kh * (m + 1)),
-        # with the generator cell: dctx_tot written, dh_gen_tot not
+        # with the generator cell: dctx_tot written, dh_gen_tot not; the
+        # product's operations apart (the third item: row_ops)
         "bwd_head": (b * (2 * m + 1) * f32 + (m + 1) * kh * bf
                      + b * kh * f32 + b * m * bf + b * mem * f32 + cell,
-                     2 * b * (m + 1) * kh + 20 * b * h),
+                     2 * b * (m + 1) * kh + 20 * b * h,
+                     2 * b * (m + 1) * kh),
         # both LSTM cells of a step, inside their host launches
         "bwd_cell": (2 * cell, 2 * 20 * b * h),
         # the three products of a step: generator, query (with the
@@ -2464,7 +2474,8 @@ def train_work(cfg, b, t_len):
                     + b * t_len * f32 * 3 + 2 * b * t_len * a * f32
                     + 2 * b * k * a * f32 + 2 * b * a * f32 + b * a * bf
                     + b * mem * bf,
-                    2 * b * t_len * (3 * a * k + mem + 4 * a)),
+                    2 * b * t_len * (3 * a * k + mem + 4 * a),
+                    2 * b * t_len * 3 * a * k),
         "bwd_prenet": (b * p * f32 + n * b * p * bf + pre_w * bf
                        + n * b * p * bf + b * m * (bf + f32), 2 * b * pre_w),
         # the forward family's: no location conv; with the transition
@@ -2553,8 +2564,8 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
             plain_ms = device_ms(lambda: run(ftd.PLAIN), iters=5)
         rows_ms[name] = ms
         lib_ms = device_ms(library[name]) if name in library else None
-        n_bytes, ops_n = work[name]
-        b_ms, b_by, ffma = row_bound(name, n_bytes, ops_n, peak)
+        n_bytes, ops_n, *mm_ops = work[name]
+        b_ms, b_by, ffma = row_bound(name, n_bytes, ops_n, peak, *mm_ops)
         inst = ftd.instance(name, ct)
         # the configuration beside the instance's name, its dtype left out
         label = ":".join(x for x in _LABEL.split(":") if x and x != "f32")

@@ -23,11 +23,12 @@
 // csrc/tile.cuh, or in bwd_head and bwd_prenet.  In float32 nothing is
 // rounded and every product is float32-accurate, as the TPU kernel's
 // full-precision float32 matmuls (ops/pallas_train_decoder.py:230-239):
-// the gate products and the split-K products (splitk_f32_kernel) on the
-// tensor cores in three TF32 passes (csrc/tile.cuh mma_tf32x3), as the
-// serving decoder's float32 instances; the attention kernels' location
-// conv (band_loc_f32) and bwd_head's, bwd_prenet's and att_bwd's small
-// products on the CUDA cores in FFMA, a thread an output.  The forward
+// the gate products, the split-K products (splitk_f32_kernel), bwd_head's
+// product and att_bwd's three band products on the tensor cores in three
+// TF32 passes (csrc/tile.cuh mma_tf32x3), as the serving decoder's float32
+// instances; train_attention's location conv (band_loc_f32) and
+// bwd_prenet's small products on the CUDA cores in FFMA, a thread an
+// output.  The forward
 // prenet runs in prenet_tile_kernel (shared with the serving decoder's
 // prenet): one clustered launch whose CTAs own column slices of each layer
 // and exchange the compute-type rows over distributed shared memory.  The
@@ -729,11 +730,16 @@ struct CellOut {
 // reads the carries its outputs add to, and builds its A tile
 // round(dspec + dframe) [BH_BM, M] in shared memory from the float32 inputs
 // with every 16-byte load in flight at once (the blocks of column 0 also
-// write da_frame), so that the three latencies overlap.  In bf16 four
-// warps of 16 rows x 16 columns read the fragments with ldmatrix (.trans
-// for W) and run mma.sync m16n8k16 with float32 sums over K = M (zero-padded
-// to a multiple of 16); in float32 a thread sums 8 outputs over K in FFMA.
-// The stop term stays in float32, as in the JAX
+// write da_frame), so that the three latencies overlap.  Four warps of 16
+// rows x 16 columns run the product on the tensor cores over K = M
+// (zero-padded to a multiple of 16): in bf16 mma.sync m16n8k16 with
+// float32 sums, the fragments from ldmatrix (.trans for W); in float32
+// (the TPU kernel's float32 matmul takes full precision,
+// ops/pallas_train_decoder.py:735-740) mma.sync m16n8k8 TF32 in three
+// passes (mma_tf32x3), summed straight into the float32 sums over K's 10
+// steps, the A fragments from ldmatrix and W's "KN" fragments word by word
+// (frag_kmn: rows of BH_BN + 8 words, 8 mod 32, so the lanes read distinct
+// banks).  The stop term stays in float32, as in the JAX
 // kernel, and the epilogue adds it in the plain version's order, each
 // operation rounded once: base + (acc + dstop * W[M]).
 // ---------------------------------------------------------------------------
@@ -745,13 +751,14 @@ constexpr int BH_MT = BH_BM / 16 / (BH_THREADS / 32 / BH_WN);
 // K_pad <= 128, so that every load is in flight before the first store
 constexpr int BH_SLOTS = 8;
 
-// elements a row of the A tile and of the weight tile, for elements of
-// `es` bytes (rows padded by 16 bytes)
+// elements a row of the A tile, for elements of `es` bytes (rows padded
+// by 16 bytes), and of the weight tile (by 8 elements: 8 words mod 32 in
+// float32)
 __host__ __device__ inline int bh_lda(int kp, int es) { return kp + 16 / es; }
-__host__ __device__ inline int bh_ldn(int es) { return BH_BN + 16 / es; }
+constexpr int BH_LDN = BH_BN + 8;
 
 __host__ __device__ inline size_t bwd_head_smem(int kp, int es) {
-  return (size_t)BH_BM * bh_lda(kp, es) * es + (size_t)kp * bh_ldn(es) * es +
+  return (size_t)BH_BM * bh_lda(kp, es) * es + (size_t)kp * BH_LDN * es +
          (BH_BN + BH_BM) * sizeof(float);
 }
 // the fused cell's tile after bwd_head_smem: its gates [BH_BM][4][BH_BN]
@@ -788,7 +795,7 @@ bwd_head_kernel(const float* __restrict__ dspec,
   constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t bh_smem[];
   const int lda = bh_lda(kp, sizeof(CT));       // a row of the A tile
-  const int ldn = bh_ldn(sizeof(CT));           // a row of the weight tile
+  const int ldn = BH_LDN;                       // a row of the weight tile
   CT* as = reinterpret_cast<CT*>(bh_smem);      // [BH_BM][lda]
   CT* bs = as + BH_BM * lda;                    // [kp][ldn]
   float* s_wm = reinterpret_cast<float*>(bs + kp * ldn);  // W[M] tile
@@ -836,20 +843,17 @@ bwd_head_kernel(const float* __restrict__ dspec,
            : col < H            ? dh_gen[(size_t)row * H + col]
                                 : dctx[(size_t)row * Mem + col - H];
   };
-  // the bf16 products' carries, read now so that their latency overlaps the
-  // A tile's
+  // the carries of this thread's outputs, read now so that their latency
+  // overlaps the A tile's
   float base[BH_MT][2][4];
-  if constexpr (!F32) {
 #pragma unroll
-    for (int mt = 0; mt < BH_MT; ++mt)
+  for (int mt = 0; mt < BH_MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          base[mt][nt][e] =
-              carry_at(wm + mt * 16 + (lane >> 2) + (e >> 1) * 8,
-                       wn + nt * 8 + 2 * (lane & 3) + (e & 1));
-  }
+      for (int e = 0; e < 4; ++e)
+        base[mt][nt][e] = carry_at(wm + mt * 16 + (lane >> 2) + (e >> 1) * 8,
+                                   wn + nt * 8 + 2 * (lane & 3) + (e & 1));
 
   // the A tile round(dspec + dframe), four columns a slot; the blocks of
   // column 0 also write da_frame
@@ -914,24 +918,35 @@ bwd_head_kernel(const float* __restrict__ dspec,
     else
       dh_gen_tot[(size_t)row * H + col] = v;
   };
+  float acc[BH_MT][2][4];
+#pragma unroll
+  for (int i = 0; i < BH_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
   if constexpr (F32) {
-    // a thread sums 8 outputs over K in k order: a warp's lanes on
-    // consecutive columns of one row
-    for (int p = tid; p < BH_BM * BH_BN; p += BH_THREADS) {
-      const int r = p / BH_BN, c = p % BH_BN;
-      const float* ar = as + r * lda;
-      float acc = 0.0f;
-      for (int k = 0; k < kp; ++k) acc = fmaf(ar[k], bs[k * ldn + c], acc);
-      finish(r, c, acc, carry_at(r, c));
+    for (int kk = 0; kk < kp; kk += 8) {
+      uint32_t ah[BH_MT][4], al[BH_MT][4], bh[2][2], bl[2][2];
+#pragma unroll
+      for (int mt = 0; mt < BH_MT; ++mt) {
+        ldsm_x4(ah[mt], as + (wm + mt * 16 + (lane & 7) +
+                              ((lane >> 3) & 1) * 8) * lda +
+                            kk + (lane >> 4) * 4);
+        tf32_split<4>(ah[mt], al[mt], ah[mt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        frag_kmn(bh[nt], bs, kk, wn + nt * 8, lane, ldn);
+        tf32_split<2>(bh[nt], bl[nt], bh[nt]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < BH_MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          mma_tf32x3(acc[mt][nt], ah[mt], al[mt], bh[nt], bl[nt]);
     }
   } else {
-    float acc[BH_MT][2][4];
-#pragma unroll
-    for (int i = 0; i < BH_MT; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
     for (int kk = 0; kk < kp; kk += 16) {
       uint32_t af[BH_MT][4], bfr[2][2], r[4];
 #pragma unroll
@@ -951,16 +966,16 @@ bwd_head_kernel(const float* __restrict__ dspec,
         for (int nt = 0; nt < 2; ++nt)
           mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
     }
-#pragma unroll
-    for (int mt = 0; mt < BH_MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          finish(wm + mt * 16 + (lane >> 2) + (e >> 1) * 8,
-                 wn + nt * 8 + 2 * (lane & 3) + (e & 1), acc[mt][nt][e],
-                 base[mt][nt][e]);
   }
+#pragma unroll
+  for (int mt = 0; mt < BH_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        finish(wm + mt * 16 + (lane >> 2) + (e >> 1) * 8,
+               wn + nt * 8 + 2 * (lane & 3) + (e & 1), acc[mt][nt][e],
+               base[mt][nt][e]);
   if (!fused) return;
   __syncthreads();
   for (int p = tid; p < BH_BM * BH_BN; p += BH_THREADS) {
@@ -1038,17 +1053,28 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 // (3.7 us at B=50, T=128), as the location-sensitive backward's.
 //
 // In float32 (CT float) nothing is rounded and the location conv's three
-// products run on the CUDA cores from float32 cum, lc and dz: dz a thread a
-// channel down its share of the tile (two shares at A = 128), loc from
-// band_loc_f32; dlc's partial a thread a (tap, channel) over the tile; P a
-// warp a position, a lane a tap (lc rows of A + 1 floats: the lanes' taps in
-// distinct banks).
+// products run on the tensor cores in three TF32 passes (csrc/tile.cuh,
+// the band routine's float32 instance; the TPU kernel's band products take
+// full precision, ops/pallas_train_decoder.py:904-925) in the bf16
+// instance's order of work: lc copied with cp.async and split into its
+// TF32 halves once, cum split once when staged; loc, summed straight into
+// the float32 sums over the 32 taps, a warp per 8 channels down the tile
+// with dz in its epilogue (float32 dz into a swizzled tile, band_swz);
+// P = dz @ lc^T a warp per 16 positions x 8 taps over K = A (two sums,
+// even and odd K steps); then, lc dead, dlc's partial a warp per 8
+// channels over the tile, each 16-row tile's passes summed apart, into
+// lc's hi rows.  dz is split in registers where P and dlc read it.  Four
+// CTAs an SM (__launch_bounds__ holds this instance to 64 registers, and
+// it takes 47 KB of shared memory at T = 128), so that a step's 50
+// clusters of 8 are resident at once; the other instances keep the
+// compiler's choice (64 registers).
+// Bound as the bf16 instance's: bytes (5.7 us at B=50, T=128).
 //
 // Long texts: the tile grows with T (att_bwd_tiles); every per-position row
 // lives in shared memory (about 410 bytes a position in bf16 and 650 in
 // float32 at A = 128, location-sensitive), which bounds T at about 3,900
-// (bf16) and 2,300 (float32) positions at the flagship's widths; the
-// launcher refuses a tile that does not fit.
+// (bf16) and 2,304 (float32: a tile of 288 positions) at the flagship's
+// widths; the launcher refuses a tile that does not fit.
 // ---------------------------------------------------------------------------
 constexpr int AB_THREADS = 256, AB_WARPS = AB_THREADS / 32;
 
@@ -1068,31 +1094,34 @@ struct AbFam {
 
 // shared-memory layout of att_bwd_kernel (byte offsets) for compute-type
 // elements of `es` bytes; the forward family needs no band operands but
-// five float rows of its tile and the tile's energy terms.  lc's rows: ld
-// elements (bf16 A + 8, for ldmatrix; float32 A + 1); dz's: ldz (bf16 A +
-// 8; float32 A); float32 keeps `groups` partial rows of dv and dq
+// five float rows of its tile and the tile's energy terms.  bf16: lc's and
+// dz's rows of ld = A + 8 elements, for ldmatrix.  float32 (tf32): lc's hi
+// and lo tiles and dz's, swizzled rows of ld = A words (band_swz); dlc's
+// partial takes lc's hi rows once P has read them, w P's rows until P is
+// written, and cum is kept as its TF32 halves: per position the bytes of
+// the FFMA design that it replaced
 struct AbLayout {
-  int ld, ldz, groups;
-  size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, red, s1, fam,
-      tz, total;
+  int ld;
+  size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, cum_lo, red, s1,
+      fam, tz, total;
   __host__ __device__ AbLayout(int tile, int A, int Mem, bool family, int es) {
-    const bool f32 = es == 4;
-    ld = f32 ? A + 1 : A + 8;
-    ldz = f32 ? A : A + 8;
-    groups = f32 && !family && A <= AB_THREADS ? AB_THREADS / A : 1;
+    const bool tf32 = es == 4 && !family;
+    ld = tf32 ? A : A + 8;
     lc = 0;
-    dz = lc + (family ? 0 : align16((size_t)BAND_K * ld * es));
-    p = dz + (family ? 0 : align16((size_t)tile * ldz * es));
-    dlcp = p + (family ? 0 : align16((size_t)tile * BAND_K * 4));
-    q = dlcp + (family ? 0 : align16((size_t)BAND_K * A * 4));
+    dz = lc + (family ? 0 : align16((size_t)(tf32 ? 2 : 1) * BAND_K * ld * es));
+    p = dz + (family ? 0 : align16((size_t)tile * ld * es));
+    dlcp = tf32 ? lc : p + (family ? 0 : align16((size_t)tile * BAND_K * 4));
+    q = tf32 ? p + align16((size_t)tile * BAND_K * 4)
+             : dlcp + (family ? 0 : align16((size_t)BAND_K * A * 4));
     v = q + align16((size_t)A * 4);
     dvp = v + align16((size_t)A * 4);
-    dqp = dvp + align16((size_t)groups * A * 4);
-    w = dqp + align16((size_t)groups * A * 4);
-    de = w + align16((size_t)tile * 4);
+    dqp = dvp + align16((size_t)A * 4);
+    w = tf32 ? p : dqp + align16((size_t)A * 4);
+    de = tf32 ? dqp + align16((size_t)A * 4) : w + align16((size_t)tile * 4);
     dctx = de + align16((size_t)tile * 4);
     cum = dctx + align16((size_t)Mem * 4);
-    red = cum + (family ? 0 : align16((size_t)(tile + BAND_K) * es));
+    cum_lo = cum + (family ? 0 : align16((size_t)(tile + BAND_K) * es));
+    red = cum_lo + (tf32 ? align16((size_t)(tile + BAND_K) * 4) : 0);
     s1 = red + 32 * 4;
     fam = s1 + 32;
     tz = fam + (family ? align16((size_t)5 * tile * 4) : 0);
@@ -1100,34 +1129,42 @@ struct AbLayout {
   }
 };
 
+// att_bwd_kernel's parameters and arguments
+#define AB_PARAMS                                                           \
+  const float *__restrict__ q, const CT *__restrict__ cum_s,              \
+      const float *__restrict__ w_s, const CT *__restrict__ memory,       \
+      const CT *__restrict__ mtb, const CT *__restrict__ lc,              \
+      const float *__restrict__ v, const float *__restrict__ dctx,        \
+      const float *__restrict__ dw_out, float *__restrict__ dcum,         \
+      float *__restrict__ dmt, float *__restrict__ dlc,                   \
+      float *__restrict__ dv, CT *__restrict__ dq_out,                    \
+      CT *__restrict__ dctx_out, int T, int A, int Mem, int K, int tile,  \
+      int cl, AbFam fa
+#define AB_ARGS                                                            \
+  q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc, dv,     \
+      dq_out, dctx_out, T, A, Mem, K, tile, cl, fa
+
 template <int KIND, class CT>
-__global__ void __launch_bounds__(AB_THREADS)
-att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
-               const float* __restrict__ w_s, const CT* __restrict__ memory,
-               const CT* __restrict__ mtb, const CT* __restrict__ lc,
-               const float* __restrict__ v, const float* __restrict__ dctx,
-               const float* __restrict__ dw_out, float* __restrict__ dcum,
-               float* __restrict__ dmt, float* __restrict__ dlc,
-               float* __restrict__ dv, CT* __restrict__ dq_out,
-               CT* __restrict__ dctx_out, int T, int A, int Mem, int K,
-               int tile, int cl, AbFam fa) {
+__device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
   constexpr bool F32 = std::is_same<CT, float>::value;
   constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t ab_smem[];
   const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT));
-  const int ld = L.ld, ldz = L.ldz;
+  const int ld = L.ld;
   CT* s_lc = reinterpret_cast<CT*>(ab_smem + L.lc);            // [32][ld]
-  CT* s_dz = reinterpret_cast<CT*>(ab_smem + L.dz);            // [tile][ldz]
+  CT* s_dz = reinterpret_cast<CT*>(ab_smem + L.dz);            // [tile][ld]
   float* s_p = reinterpret_cast<float*>(ab_smem + L.p);        // [tile][32]
   float* s_dlcp = reinterpret_cast<float*>(ab_smem + L.dlcp);  // [32][A]
   float* s_q = reinterpret_cast<float*>(ab_smem + L.q);
   float* s_v = reinterpret_cast<float*>(ab_smem + L.v);
-  float* s_dvp = reinterpret_cast<float*>(ab_smem + L.dvp);    // [groups][A]
-  float* s_dqp = reinterpret_cast<float*>(ab_smem + L.dqp);    // [groups][A]
+  float* s_dvp = reinterpret_cast<float*>(ab_smem + L.dvp);    // [A]
+  float* s_dqp = reinterpret_cast<float*>(ab_smem + L.dqp);    // [A]
   float* s_w = reinterpret_cast<float*>(ab_smem + L.w);        // [tile]
   float* s_de = reinterpret_cast<float*>(ab_smem + L.de);      // [tile]
   float* s_dctx = reinterpret_cast<float*>(ab_smem + L.dctx);  // [Mem]
   CT* s_cum = reinterpret_cast<CT*>(ab_smem + L.cum);          // [tile + 32]
+  // float32: cum's TF32 lo halves beside s_cum's hi
+  float* s_cum_lo = reinterpret_cast<float*>(ab_smem + L.cum_lo);
   float* s_red = reinterpret_cast<float*>(ab_smem + L.red);
   // [0] sum_t dw w; the forward family: [1] max, [2] the softmax's sum,
   // [3] the renorm's sum, [4] sum_t denergy energy, [5] dtp, [6] the halo
@@ -1152,7 +1189,13 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
     s_q[a] = q[(size_t)b * A + a];
     s_v[a] = v[a];
   }
-  if constexpr (KIND == ATT_LS) {
+  if constexpr (KIND == ATT_LS && F32) {
+    // lc's copy lands during the dw pass and is split after it
+    band_copy_lc_tf32(s_lc, lc, K, A);
+    cp_async_commit();
+    band_stage_cum_tf32(s_cum, s_cum_lo, tile + BAND_K, cum_s + rowT, t_lo,
+                        half, T);
+  } else if constexpr (KIND == ATT_LS) {
     band_stage_lc(s_lc, ld, lc, K, A);
     band_stage_cum(s_cum, tile + BAND_K, cum_s + rowT, t_lo, half, T);
   } else {
@@ -1213,7 +1256,9 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
     if (lane == 0)
       s_de[i] = t < T ? dw_out[rowT + t] + dcum[rowT + t] + part : 0.0f;
   }
+  if constexpr (KIND == ATT_LS && F32) cp_async_wait<0>();
   __syncthreads();
+  if constexpr (KIND == ATT_LS && F32) tf32_split_words(s_lc, BAND_K * A);
   float s1 = 0.0f;
   for (int i = tid; i < tile; i += AB_THREADS) s1 += s_de[i] * s_w[i];
   s1 = block_reduce<false>(s1, s_red);
@@ -1360,58 +1405,133 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
       s_de[i] = s_w[i] * (s_de[i] - s1);
     __syncthreads();
     if constexpr (F32) {
-      // dz over (position, channel): `groups` shares of the tile's
-      // positions, a thread a channel down its share; loc from the float32
-      // band, nothing rounded
-      const int groups = L.groups;
-      for (int slot = tid; slot < groups * A; slot += AB_THREADS) {
-        const int grp = slot / A, a = slot - grp * A;
-        const float qa = s_q[a], va = s_v[a];
-        float pdv = 0.0f, pdq = 0.0f;
-        for (int i = grp; i < tile; i += groups) {
-          const int t = t_lo + i;
-          float dz = 0.0f;
-          if (t < T) {
-            const size_t o = (rowT + t) * A + a;
-            const float loc = band_loc_f32(s_cum + i, s_lc + a, ld);
-            const float tz = tanhf((loc + qa) + mtb[o]);
-            const float de = s_de[i];
-            dz = de * va * (1.0f - tz * tz);
-            dmt[o] += dz;
-            pdv = fmaf(tz, de, pdv);
-            pdq += dz;
-          }
-          s_dz[i * ldz + a] = dz;
+      const float* lc_lo = s_lc + BAND_K * A;
+      const int mtiles = tile / 16;
+      // dz over (position, channel): loc = band(cum) @ lc in three TF32
+      // passes, a warp per 8 channels down the tile, lc's fragments over
+      // the 32 taps read once; nothing rounded
+      for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+        const int a = n0 + 2 * qd;
+        const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a],
+                    v1 = s_v[a + 1];
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          band_frag_kn(bh[ks], s_lc, A, 8 * ks, n0, lane);
+          band_frag_kn(bl[ks], lc_lo, A, 8 * ks, n0, lane);
         }
-        s_dvp[grp * A + a] = pdv;
-        s_dqp[grp * A + a] = pdq;
+        float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
+        for (int mt = 0; mt < mtiles; ++mt) {
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            uint32_t ah[4], al[4];
+            band_frag_tf32(ah, s_cum + mt * 16 + 8 * ks, lane);
+            band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, lane);
+            mma_tf32x3(acc, ah, al, bh[ks], bl[ks]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = mt * 16 + g + 8 * h, t = t_lo + i;
+            float dz0 = 0.0f, dz1 = 0.0f;
+            if (t < T) {
+              const size_t o = (rowT + t) * A + a;
+              const float2 m2 = *reinterpret_cast<const float2*>(mtb + o);
+              const float tz0 = band_energy_tanh<float>(acc[2 * h], q0, m2.x);
+              const float tz1 =
+                  band_energy_tanh<float>(acc[2 * h + 1], q1, m2.y);
+              const float de = s_de[i];
+              dz0 = de * v0 * (1.0f - tz0 * tz0);
+              dz1 = de * v1 * (1.0f - tz1 * tz1);
+              float2* pm = reinterpret_cast<float2*>(dmt + o);
+              float2 old = *pm;
+              old.x += dz0;
+              old.y += dz1;
+              *pm = old;
+              pdv0 = fmaf(tz0, de, pdv0);
+              pdv1 = fmaf(tz1, de, pdv1);
+              pdq0 += dz0;
+              pdq1 += dz1;
+            }
+            *reinterpret_cast<float2*>(s_dz + band_swz(i, a, A)) =
+                make_float2(dz0, dz1);
+          }
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
+          pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
+          pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
+          pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
+        }
+        if (g == 0) {
+          s_dvp[a] = pdv0;
+          s_dvp[a + 1] = pdv1;
+          s_dqp[a] = pdq0;
+          s_dqp[a + 1] = pdq1;
+        }
       }
       __syncthreads();
-      // the shares' partials in share order (each column its own thread's)
-      for (int a = tid; a < A && groups > 1; a += AB_THREADS) {
-        float sv = s_dvp[a], sq = s_dqp[a];
-        for (int j = 1; j < groups; ++j) {
-          sv += s_dvp[j * A + a];
-          sq += s_dqp[j * A + a];
+
+      // P = dz @ lc^T, [tile][32]: a warp per 16 positions x 8 taps over
+      // K = A, lc's "NK" fragments of two K steps by one ldmatrix
+      for (int it = warp; it < mtiles * 4; it += AB_WARPS) {
+        const int m0 = (it >> 2) * 16, n0 = (it & 3) * 8;
+        float acc[2][4] = {};
+        for (int kk = 0; kk < A; kk += 16) {
+          uint32_t bh[4], bl[4];
+          const int lc_at = band_swz(n0 + (lane & 7), kk + (lane >> 3) * 4, A);
+          ldsm_x4(bh, s_lc + lc_at);
+          ldsm_x4(bl, lc_lo + lc_at);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t ah[4], al[4];
+            ldsm_x4(ah, s_dz + band_swz(m0 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8,
+                                        kk + 8 * h + (lane >> 4) * 4, A));
+            tf32_split<4>(ah, al, ah);
+            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 * h);
+          }
         }
-        s_dvp[a] = sv;
-        s_dqp[a] = sq;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s_p[(m0 + g + 8 * (e >> 1)) * BAND_K + n0 + 2 * qd + (e & 1)] =
+              acc[0][e] + acc[1][e];
       }
-      // dlc's partial band(cum)^T @ dz: a thread a (tap, channel)
-      for (int idx = tid; idx < BAND_K * A; idx += AB_THREADS) {
-        const int k = idx / A, a = idx - k * A;
-        float acc = 0.0f;
-        for (int i = 0; i < tile; ++i)
-          acc = fmaf(s_cum[i + k], s_dz[i * ldz + a], acc);
-        s_dlcp[idx] = acc;
-      }
-      // P = dz @ lc^T, [tile][32]: a warp a position, a lane a tap
-      for (int i = warp; i < tile; i += AB_WARPS) {
-        const float* dzr = s_dz + i * ldz;
-        const float* lcr = s_lc + lane * ld;
-        float acc = 0.0f;
-        for (int a = 0; a < A; ++a) acc = fmaf(dzr[a], lcr[a], acc);
-        s_p[i * BAND_K + lane] = acc;
+      __syncthreads();
+
+      // dlc's partial band(cum)^T @ dz into lc's hi rows (read for the
+      // last time above): a warp per 8 channels, both halves of the 32
+      // taps, each 16-row tile's passes summed apart
+      for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+        float acc[2][4] = {};
+        for (int mt = 0; mt < mtiles; ++mt) {
+          float st[2][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int k0 = mt * 16 + 8 * ks;
+            uint32_t bh[2], bl[2];
+            band_frag_kn(bh, s_dz, A, k0, n0, lane);
+            tf32_split<2>(bh, bl, bh);
+#pragma unroll
+            for (int kh = 0; kh < 2; ++kh) {
+              uint32_t ah[4], al[4];
+              band_frag_tf32(ah, s_cum + k0 + 16 * kh, lane);
+              band_frag_tf32(al, s_cum_lo + k0 + 16 * kh, lane);
+              mma_tf32x3(st[kh], ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[kh][e] += st[kh][e];
+        }
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + 2 * qd + (e & 1)] =
+                acc[kh][e];
       }
     } else {
       // dz over (position, channel): the band product loc = band(cum) @
@@ -1452,7 +1572,7 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
               pdq0 += dz0;
               pdq1 += dz1;
             }
-            *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ldz + a) =
+            *reinterpret_cast<__nv_bfloat162*>(s_dz + i * ld + a) =
                 __floats2bfloat162_rn(dz0, dz1);
           }
         }
@@ -1479,8 +1599,8 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
         for (int mt = 0; mt < mtiles; ++mt)
 #pragma unroll
           for (int kh = 0; kh < 2; ++kh)
-            band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ldz,
-                     ldz, n0, lane);
+            band_dlc(acc[kh], s_cum + mt * 16 + kh * 16, s_dz + mt * 16 * ld,
+                     ld, n0, lane);
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
@@ -1494,7 +1614,7 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
       for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
         const int mt = it >> 1, kh = it & 1;
         float acc[2][4] = {};
-        band_p(acc, s_dz + mt * 16 * ldz, s_lc, ld, kh * 16, A, lane);
+        band_p(acc, s_dz + mt * 16 * ld, s_lc, ld, kh * 16, A, lane);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -1538,6 +1658,35 @@ att_bwd_kernel(const float* __restrict__ q, const CT* __restrict__ cum_s,
   }
   // no CTA leaves while its peers may still read its shared memory
   cluster_sync();
+}
+
+template <int KIND, class CT>
+__global__ void __launch_bounds__(AB_THREADS) att_bwd_kernel(AB_PARAMS) {
+  att_bwd_body<KIND, CT>(AB_ARGS);
+}
+
+// the float32 band products' instance held to 64 registers, four CTAs an
+// SM (80 and three without the bound)
+template <>
+__global__ void __launch_bounds__(AB_THREADS, 4)
+    att_bwd_kernel<ATT_LS, float>(const float* __restrict__ q,
+                                  const float* __restrict__ cum_s,
+                                  const float* __restrict__ w_s,
+                                  const float* __restrict__ memory,
+                                  const float* __restrict__ mtb,
+                                  const float* __restrict__ lc,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ dctx,
+                                  const float* __restrict__ dw_out,
+                                  float* __restrict__ dcum,
+                                  float* __restrict__ dmt,
+                                  float* __restrict__ dlc,
+                                  float* __restrict__ dv,
+                                  float* __restrict__ dq_out,
+                                  float* __restrict__ dctx_out, int T, int A,
+                                  int Mem, int K, int tile, int cl,
+                                  AbFam fa) {
+  att_bwd_body<ATT_LS, float>(AB_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -2096,7 +2245,8 @@ int bwd_gemm_cell_launch(const void* a, int lda, const void* b, int ldb,
 }
 
 // the row's positions in `cl` tiles of `tile` (a multiple of 16; cl <= 8,
-// the last tile not empty); A a multiple of 16, K <= 32 taps
+// the last tile not empty); A a multiple of 16, K <= 32 taps; mtb aligned
+// to two elements, dmt to two floats, and in float32 lc to 16 bytes
 int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                    const void* memory, const void* mtb, const void* lc,
                    const void* v, const void* dctx, const void* dw_out,
@@ -2106,7 +2256,8 @@ int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
   if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || K < 1 ||
       K > BAND_K || tile <= 0 || tile % 16 != 0 || cl < 1 || cl > 8 ||
       (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
-      (uintptr_t)mtb % 4 != 0 || (uintptr_t)dmt % 8 != 0)
+      (uintptr_t)mtb % (f32 ? 8 : 4) != 0 || (uintptr_t)dmt % 8 != 0 ||
+      (f32 && (uintptr_t)lc % 16 != 0))
     return (int)cudaErrorInvalidValue;
   return (f32 ? att_bwd_run<ATT_LS, float> : att_bwd_run<ATT_LS, bf16>)(
       q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc, dv,

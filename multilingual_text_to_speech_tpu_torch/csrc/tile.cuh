@@ -835,13 +835,15 @@ constexpr int SKF_TILE = 64 * SKF_LD > SK_BK * SKF_LD_MN ? 64 * SKF_LD
 constexpr int SKF_SMEM = SK_STAGES * 2 * SKF_TILE * 4;   // dynamic, bytes
 
 // the fragment words (k0 + t, mn0 + g) and (k0 + t + 4, mn0 + g) of a
-// [SK_BK][SKF_LD_MN] float32 tile (g = lane / 4, t = lane % 4): a "KN" B
-// fragment, or half of a "KM" A fragment
+// float32 tile of rows of `ld` words, [SK_BK][SKF_LD_MN] by default (g =
+// lane / 4, t = lane % 4): a "KN" B fragment, or half of a "KM" A
+// fragment; with ld 8 words mod 32 the lanes read 32 distinct banks
 __device__ __forceinline__ void frag_kmn(uint32_t* f, const float* tile,
-                                         int k0, int mn0, int lane) {
-  const float* p = tile + (k0 + (lane & 3)) * SKF_LD_MN + mn0 + (lane >> 2);
+                                         int k0, int mn0, int lane,
+                                         int ld = SKF_LD_MN) {
+  const float* p = tile + (k0 + (lane & 3)) * ld + mn0 + (lane >> 2);
   f[0] = __float_as_uint(p[0]);
-  f[1] = __float_as_uint(p[4 * SKF_LD_MN]);
+  f[1] = __float_as_uint(p[4 * ld]);
 }
 
 // four floats of row i of a matrix at base[i * ld + j ..] into shared
@@ -1463,6 +1465,91 @@ __device__ __forceinline__ float band_loc_f32(const float* p, const float* lc,
 #pragma unroll
   for (int k = 0; k < BAND_K; ++k) loc = fmaf(p[k], lc[k * ld], loc);
   return loc;
+}
+
+// ---------------------------------------------------------------------------
+// The band routine's float32 instance (K3's att_bwd_kernel<ATT_LS, float>;
+// the TPU kernel's band products take full float32, precision None,
+// ops/pallas_train_decoder.py:904-925): the same three products on the
+// tensor cores in three TF32 passes (mma_tf32x3, m16n8k8).  cum and lc are
+// split into their TF32 halves once, when staged; dz, which only the two
+// products after it read, is split in registers where it is read.
+//
+// The float32 operand tiles (lc [BAND_K][A], dz [rows][A]) lie in shared
+// memory as unpadded rows of ld words, swizzled: word (row, col) at
+// band_swz(row, col, ld), which permutes the 16-byte chunks of each
+// aligned 128-byte span by the row (a bijection on a region of whole spans
+// when ld is a multiple of 16; chunks stay whole for cp.async and
+// ldmatrix).  At ld = 128 (the flagship's A) a "KN" fragment's word reads
+// (lane (g, t) at row k0 + t and k0 + t + 4, column n0 + g) and
+// ldmatrix's 8 rows of one 16-byte chunk (the "MK" and "NK" fragments)
+// each fall in 32 distinct banks, so one layout serves both reads of lc
+// (KN for loc, NK for P) and of dz (KN for dlc, MK for P); a padded row of
+// A + 8 or A + 4 words leaves a two-way conflict on one of them.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int band_swz(int row, int col, int ld) {
+  return (row * ld + col) ^ (((row & 3) << 3) | (((row >> 2) & 1) << 2));
+}
+
+// the m16n8k8 TF32 A fragment (16 x 8) of the Hankel matrix M[r][c] =
+// p[r + c] (a[0..3] = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)): the
+// band's rows r0.. and taps c0.. for loc, or the transposed band's taps
+// r0.. and positions c0.. for dlc, p = s_cum + r0 + c0 either way
+__device__ __forceinline__ void band_frag_tf32(uint32_t* a, const float* p,
+                                               int lane) {
+  const int i = (lane >> 2) + (lane & 3);
+  a[0] = __float_as_uint(p[i]);
+  a[1] = __float_as_uint(p[i + 8]);
+  a[2] = __float_as_uint(p[i + 4]);
+  a[3] = __float_as_uint(p[i + 12]);
+}
+
+// a "KN" B fragment, (k0 + t, n0 + g) and (k0 + t + 4, n0 + g), of a
+// swizzled float32 tile
+__device__ __forceinline__ void band_frag_kn(uint32_t* b, const float* s,
+                                             int ld, int k0, int n0,
+                                             int lane) {
+  const int k = k0 + (lane & 3), n = n0 + (lane >> 2);
+  b[0] = __float_as_uint(s[band_swz(k, n, ld)]);
+  b[1] = __float_as_uint(s[band_swz(k + 4, n, ld)]);
+}
+
+// x into its TF32 halves at hi and lo
+__device__ __forceinline__ void tf32_split_store(float* hi, float* lo,
+                                                 float x) {
+  const float h = __uint_as_float(tf32_rna(x));
+  *hi = h;
+  *lo = __uint_as_float(tf32_rna(x - h));
+}
+
+// lc [K, A] float32 into s_lc [BAND_K][A] swizzled, taps K.. zero, with
+// cp.async (the caller commits and waits); lc 16-byte aligned
+__device__ void band_copy_lc_tf32(float* s_lc, const float* lc, int K,
+                                  int A) {
+  const int chunks = A / 4;
+  for (int i = threadIdx.x; i < BAND_K * chunks; i += blockDim.x) {
+    const int k = i / chunks, c = (i - k * chunks) * 4;
+    cp_async16(s_lc + band_swz(k, c, A), k < K ? lc + (size_t)k * A + c : lc,
+               k < K ? 16 : 0);
+  }
+}
+
+// the n words at s split in place into their TF32 halves: s keeps hi, the
+// n words after it get lo (a swizzled tile keeps its swizzle)
+__device__ void tf32_split_words(float* s, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    tf32_split_store(s + i, s + n + i, s[i]);
+}
+
+// band_stage_cum's float32 instance split once: hi[i] + lo[i] = cum[t0 + i
+// - half] for i < n, zero outside [0, T)
+__device__ void band_stage_cum_tf32(float* hi, float* lo, int n,
+                                    const float* cum, int t0, int half,
+                                    int T) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int t = t0 + i - half;
+    tf32_split_store(hi + i, lo + i, t >= 0 && t < T ? cum[t] : 0.0f);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -71,9 +71,11 @@ that the JAX package also leaves outside its kernel
 The compute type (``TrainConfig.dtype``; the JAX package's ``compute_dtype``)
 is bfloat16 or float32.  Every kernel is a template instance on it: float32
 rounds nothing, keeps its residual streams in float32 (the JAX kernels write
-them "in the compute dtype", ``pallas_train_decoder.py:12-17``) and runs every
-product in full float32, in FFMA on the CUDA cores, as the JAX kernels'
-float32 matmuls do (``_mxu_precision``, ``pallas_train_decoder.py:230-239``).
+them "in the compute dtype", ``pallas_train_decoder.py:12-17``) and keeps
+every product float32-accurate, as the JAX kernels' float32 matmuls do
+(``_mxu_precision``, ``pallas_train_decoder.py:230-239``): the gate, split-K,
+head-backward and ``att_bwd`` band products on the tensor cores in three
+TF32 passes, the prenets' and ``train_attention``'s conv in FFMA.
 ``LAUNCHES`` counts each instance under its own name (``train_prenet`` and
 ``train_prenet_f32``, ...: ``instance``; ``path_kernels(att_kind, dtype)``).
 
@@ -1121,9 +1123,9 @@ def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
     cover T, and as many CTAs as the tiles need (none empty).  T=128 gives
     8 CTAs of 16 positions; T=200, 7 of 32; T=512, 8 of 64; T=1500, 8 of
     192.  A tile's per-position rows live in its CTA's shared memory, which
-    holds ``att_bwd``'s up to about T = 3,900 in bf16 and 2,300 in float32
-    at the flagship's widths (``csrc/fused_train_decoder.cu``); past that
-    the launch is refused."""
+    holds ``att_bwd``'s up to about T = 3,900 in bf16 and T = 2,304 (tiles
+    of 288) in float32 at the flagship's widths
+    (``csrc/fused_train_decoder.cu``); past that the launch is refused."""
     if t_len < 1:
         raise ValueError(f"att_bwd needs T >= 1, got {t_len}")
     mma_tiles = _cdiv(t_len, _ATT_TILE_ROWS)

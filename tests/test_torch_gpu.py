@@ -23,6 +23,7 @@ from chip_smoke import (
     ATOL,
     TRAIN_KERNEL_TOL,
     mask_patterns,
+    train_kernel_bound,
     train_kernel_calls,
 )
 from multilingual_text_to_speech_tpu_torch.config import flagship_hparams
@@ -767,13 +768,15 @@ def test_head_matches_plain_through_the_head_row(int8, b):
         assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b", [1, 50, 77])
-def test_bwd_head_matches_plain(b):
+def test_bwd_head_matches_plain(b, dtype):
     """The head backward's one tensor-core launch at the flagship's widths
-    (M = 80 mels, H + Mem = 1316; 77 rows take a second row tile): the bf16
-    da_frame stream bit-exact, dh_gen_tot and dctx_tot within chip_smoke's
-    bound of their largest value (float32 sums in another order), and a
-    second run bit-identical to the first."""
+    (M = 80 mels, H + Mem = 1316; 77 rows take a second row tile), in bf16
+    (mma.sync m16n8k16) and float32 (three TF32 passes): the da_frame
+    stream bit-exact, dh_gen_tot and dctx_tot within chip_smoke's bound of
+    their largest value (float32 sums in another order; F32_TOL in
+    float32), and a second run bit-identical to the first."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
@@ -785,32 +788,36 @@ def test_bwd_head_matches_plain(b):
 
     cfg = SimpleNamespace(mmel=_MELS, hidden=_HIDDEN, mem_dim=_MEM)
     head_w, _ = _head_weights(gen)
+    head_w = head_w.to(dtype)
     dspec, dframe, dstop = rnd(b, _MELS), rnd(b, _MELS), rnd(b)
     dh_gen, dctx = rnd(b, _HIDDEN, scale=0.1), rnd(b, _MEM)
 
     def run(fn):
-        out = [torch.empty(b, _MELS, dtype=torch.bfloat16, device="cuda"),
+        out = [torch.empty(b, _MELS, dtype=dtype, device="cuda"),
                torch.empty(b, _HIDDEN, device="cuda"),
                torch.empty(b, _MEM, device="cuda")]
         fn(dspec, dstop, dframe, head_w, out[0], dh_gen, dctx, out[1],
            out[2], cfg)
         return out
 
-    got, again, ref = run(ftd.bwd_head), run(ftd.bwd_head), run(
-        ftd.PLAIN.bwd_head)
+    ftd.reset_launch_counts()
+    got, again = run(ftd.bwd_head), run(ftd.bwd_head)
+    assert ftd.LAUNCHES[ftd.instance("bwd_head", dtype)] == 2
+    ref = run(ftd.PLAIN.bwd_head)
     assert torch.equal(got[0], ref[0])
-    bound = TRAIN_KERNEL_TOL["bwd_head"]["f32"]
+    bound = train_kernel_bound("bwd_head", dtype)["f32"]
     for g, r in zip(got[1:], ref[1:]):
         assert float((g - r).abs().max()) <= bound * float(r.abs().max())
     for g, a in zip(got, again):
         assert torch.equal(g, a)
 
 
-def _cell_operands(b, regularization, first, seed):
+def _cell_operands(b, regularization, first, seed, dtype=torch.bfloat16):
     """A cell backward's operands at the flagship's widths (H = 1024): the
-    stored bf16 activations (sigmoid/tanh ranges), the previous bf16 cell
-    state (None for the first step), a float32 dc carry, and a train-mode
-    regularization of zoneout 0.1 or h dropout 0.1."""
+    stored activations (sigmoid/tanh ranges) and the previous cell state
+    (None for the first step) in the compute type ``dtype``, a float32 dc
+    carry, and a train-mode regularization of zoneout 0.1 or h dropout
+    0.1."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
@@ -822,22 +829,22 @@ def _cell_operands(b, regularization, first, seed):
 
     act = torch.sigmoid(rnd(b, 4 * _HIDDEN))
     act[:, 2 * _HIDDEN:3 * _HIDDEN] = torch.tanh(rnd(b, _HIDDEN))
-    c_prev = None if first else rnd(b, _HIDDEN).bfloat16()
+    c_prev = None if first else rnd(b, _HIDDEN).to(dtype)
     cfg = ftd.TrainConfig(
         hidden=_HIDDEN, mem_dim=_MEM, prenet_dim=256, n_prenet=2,
         mmel=_MELS, att_dim=_ATT, taps=_TAPS, dropout_rate=0.5,
         zoneout_h=0.1, zoneout_c=0.1 if regularization == "zoneout" else 0.0,
-        use_zoneout=regularization == "zoneout", dtype=torch.bfloat16)
+        use_zoneout=regularization == "zoneout", dtype=dtype)
     reg = cfg.reg("gen", (2654435761, 40503), 5)
-    return act.bfloat16(), c_prev, rnd(b, _HIDDEN, scale=0.1), reg, rnd
+    return act.to(dtype), c_prev, rnd(b, _HIDDEN, scale=0.1), reg, rnd
 
 
-def _check_cell_outputs(got, again, ref, regularization):
+def _check_cell_outputs(got, again, ref, regularization, f32_tol=1e-6):
     """The fused cell's outputs (dc, dg, dh_reg) against the plain cell's:
     its masks bit-exact (the units zoneout keeps old pass dh through to
     dh_reg; the units dropout drops give a zero o-gate gradient), float32
-    within 1e-6 and bf16 within one ulp (2^-7) of the largest output, and a
-    second run bit-identical to the first."""
+    within ``f32_tol`` and bf16 within one ulp (2^-7) of the largest
+    output, and a second run bit-identical to the first."""
     dc, dg, dh_reg = got
     if regularization == "zoneout":
         assert torch.equal(dh_reg != 0, ref[2] != 0)
@@ -847,40 +854,44 @@ def _check_cell_outputs(got, again, ref, regularization):
         assert torch.equal(o_g == 0, o_r == 0)
         assert 0 < int((o_r == 0).sum()) < o_r.numel()
     for g, r in zip(got, ref):
-        bound = 2.0 ** -7 if r.dtype == torch.bfloat16 else 1e-6
+        bound = 2.0 ** -7 if r.dtype == torch.bfloat16 else f32_tol
         assert float((g.float() - r.float()).abs().max()) <= \
             bound * float(r.float().abs().max())
     for g, a in zip(got, again):
         assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("first", [False, True])
 @pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
 @pytest.mark.parametrize("b", [1, 50])
 def test_bwd_head_with_the_generator_cell_matches_plain(b, regularization,
-                                                        first):
+                                                        first, dtype):
     """``bwd_head`` with the generator cell's backward in its epilogue (one
-    launch, counted for ``bwd_head`` and ``bwd_cell``) against
-    ``bwd_head_plain`` followed by ``bwd_cell_plain``: da_frame bit-exact,
-    dctx_tot within chip_smoke's ``bwd_head`` bound, the cell's outputs as
-    ``_check_cell_outputs`` says; the first step's null c_prev included."""
+    launch, counted for ``bwd_head`` and ``bwd_cell``), in bf16 and float32,
+    against ``bwd_head_plain`` followed by ``bwd_cell_plain``: da_frame
+    bit-exact, dctx_tot within chip_smoke's ``bwd_head`` bound (F32_TOL in
+    float32), the cell's outputs as ``_check_cell_outputs`` says (every
+    float32 instance's output within F32_TOL); the first step's null
+    c_prev included."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
 
     act, c_prev, dc0, reg, rnd = _cell_operands(b, regularization, first,
-                                                seed=b + 31)
+                                                seed=b + 31, dtype=dtype)
     cfg = SimpleNamespace(mmel=_MELS, hidden=_HIDDEN, mem_dim=_MEM)
     head_w, _ = _head_weights(torch.Generator(device="cuda").manual_seed(b))
+    head_w = head_w.to(dtype)
     dspec, dframe, dstop = rnd(b, _MELS), rnd(b, _MELS), rnd(b)
     dh_gen, dctx = rnd(b, _HIDDEN, scale=0.1), rnd(b, _MEM)
 
     def run(fn):
         dc = dc0.clone()
         cell = ftd.CellArgs(act, c_prev, dc, torch.empty(
-            b, 4 * _HIDDEN, dtype=torch.bfloat16, device="cuda"),
+            b, 4 * _HIDDEN, dtype=dtype, device="cuda"),
             torch.empty(b, _HIDDEN, device="cuda"), reg)
-        head = [torch.empty(b, _MELS, dtype=torch.bfloat16, device="cuda"),
+        head = [torch.empty(b, _MELS, dtype=dtype, device="cuda"),
                 torch.empty(b, _MEM, device="cuda")]
         fn(dspec, dstop, dframe, head_w, head[0], dh_gen, dctx, None,
            head[1], cfg, cell=cell)
@@ -888,14 +899,16 @@ def test_bwd_head_with_the_generator_cell_matches_plain(b, regularization,
 
     ftd.reset_launch_counts()
     (h_k, c_k), (h_a, c_a) = run(ftd.bwd_head), run(ftd.bwd_head)
-    assert ftd.LAUNCHES["bwd_head"] == ftd.LAUNCHES["bwd_cell"] == 2
+    assert ftd.LAUNCHES[ftd.instance("bwd_head", dtype)] == \
+        ftd.LAUNCHES[ftd.instance("bwd_cell", dtype)] == 2
     h_p, c_p = run(ftd.PLAIN.bwd_head)
     assert torch.equal(h_k[0], h_p[0])
-    bound = TRAIN_KERNEL_TOL["bwd_head"]["f32"]
+    bound = train_kernel_bound("bwd_head", dtype)["f32"]
     assert float((h_k[1] - h_p[1]).abs().max()) <= \
         bound * float(h_p[1].abs().max())
     assert all(torch.equal(g, a) for g, a in zip(h_k, h_a))
-    _check_cell_outputs(c_k, c_a, c_p, regularization)
+    _check_cell_outputs(c_k, c_a, c_p, regularization,
+                        f32_tol=1e-6 if dtype == torch.bfloat16 else bound)
 
 
 @pytest.mark.parametrize("first", [False, True])
@@ -1262,29 +1275,33 @@ def test_lsa_attention_matches_plain_at_flagship_widths(int8, b, t):
     assert torch.equal(again[0], ctx_k) and torch.equal(again[1], cum_k)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [45, 128, 200, 512])
 @pytest.mark.parametrize("b", [1, 50, 96])
-def test_att_bwd_matches_plain_at_flagship_widths(b, t):
+def test_att_bwd_matches_plain_at_flagship_widths(b, t, dtype, _full_f32):
     """``att_bwd`` (a cluster of CTAs over tiles of each row's positions:
     3 of 16 at T=45, whose memory rows are not all 16-byte aligned, 8 of
     16 at T=128, 7 of 32 at T=200 with a part-filled last tile, 8 of 64 at
-    T=512) at A=128, Mem=292, 31 taps, three chained calls so that
-    the dmt, dlc and dv "+=" and the dcum carry are covered: every float32
-    output within chip_smoke's bound of its largest value, the bf16 dq and
-    dctx streams within one ulp; two chains from the same start
-    bit-identical."""
+    T=512) at A=128, Mem=292, 31 taps, in bf16 and float32 (the band
+    products in three TF32 passes), three chained calls so that the dmt,
+    dlc and dv "+=" and the dcum carry are covered: every float32 output
+    within chip_smoke's bound of its largest value (every output of the
+    float32 instance within F32_TOL, against the plain version's conv in
+    full float32), the bf16 dq and dctx streams within one ulp; two chains
+    from the same start bit-identical."""
     from multilingual_text_to_speech_tpu_torch.ops import (
         fused_train_decoder as ftd,
     )
 
     rnd, memory, mtb, mask, cum = _attention_operands(b, t, seed=3 * b + t)
-    lc = rnd(_TAPS, _ATT, scale=0.1).bfloat16()
+    memory, mtb = memory.to(dtype), mtb.to(dtype)
+    lc = rnd(_TAPS, _ATT, scale=0.1).to(dtype)
     v = rnd(_ATT, scale=_ATT ** -0.5)
     steps = []
     for _ in range(3):
         e = torch.where(mask, rnd(b, t), torch.full_like(cum, -1e9))
-        steps.append((rnd(b, _ATT).bfloat16().float(),          # q
-                      (cum + 0.1 * rnd(b, t).abs()).bfloat16(),  # cum_s
+        steps.append((rnd(b, _ATT).to(dtype).float(),           # q
+                      (cum + 0.1 * rnd(b, t).abs()).to(dtype),  # cum_s
                       torch.softmax(e, -1),                     # w_s
                       rnd(b, _MEM), rnd(b, t, scale=0.1)))      # dctx, dw
     dcum0 = rnd(b, t, scale=0.1)
@@ -1295,8 +1312,8 @@ def test_att_bwd_matches_plain_at_flagship_widths(b, t):
                torch.zeros(b, _ATT, device="cuda"), dcum0.clone()]
         outs = []
         for q, cum_s, w_s, dctx, dw in steps:
-            o = [torch.empty(b, _ATT, dtype=torch.bfloat16, device="cuda"),
-                 torch.empty(b, _MEM, dtype=torch.bfloat16, device="cuda")]
+            o = [torch.empty(b, _ATT, dtype=dtype, device="cuda"),
+                 torch.empty(b, _MEM, dtype=dtype, device="cuda")]
             fn(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw, acc[3], acc[0],
                acc[1], acc[2], *o)
             outs += o
@@ -1304,10 +1321,10 @@ def test_att_bwd_matches_plain_at_flagship_widths(b, t):
 
     ftd.reset_launch_counts()
     got = chain(ftd.att_bwd)
-    assert ftd.LAUNCHES["att_bwd"] == 3
+    assert ftd.LAUNCHES[ftd.instance("att_bwd", dtype)] == 3
     again = chain(ftd.att_bwd)
     ref = chain(ftd.PLAIN.att_bwd)
-    bound = TRAIN_KERNEL_TOL["att_bwd"]
+    bound = train_kernel_bound("att_bwd", dtype)
     for g, a, r in zip(got, again, ref):
         kind = "bf16" if r.dtype == torch.bfloat16 else "f32"
         err = float((g.float() - r.float()).abs().max())
@@ -1892,13 +1909,18 @@ def test_family_decode_and_training_run_the_kernels(kind):
 # all three attention kernels on long texts
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("t", [600, 1000, 1500])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kind", ["location_sensitive", *_FAMILY])
+# T = 2,304 (tiles of 288 positions) is the float32 att_bwd's limit at the
+# flagship's widths (ops/fused_train_decoder.py::att_bwd_tiles)
+@pytest.mark.parametrize("kind,dtype,t", [
+    (kind, dtype, t) for kind in ("location_sensitive", *_FAMILY)
+    for dtype in (torch.bfloat16, torch.float32) for t in (600, 1000, 1500)
+] + [("location_sensitive", torch.float32, 2304)])
 def test_attention_kernels_take_long_texts(kind, dtype, t, _full_f32):
     """T = 600, 1000 and 1500 symbols (tiles of 80, 128 and 192 positions,
-    past what a CTA's shared memory holds of the rows in float32) at the
-    flagship's widths, B=3, each attention kind and compute type: K2's
+    past what a CTA's shared memory holds of the rows in float32), and in
+    float32 the 2,304 that the location-sensitive ``att_bwd`` takes at
+    most, at the flagship's widths, B=3, each attention kind and compute
+    type: K2's
     ``train_attention`` (one step with its streams: weights, new state,
     context, t_prob), K3's ``att_bwd`` (two chained calls) and K1's
     ``lsa_attention`` or ``fwd_attention`` against their plain versions on

@@ -1,17 +1,28 @@
 """Why the port's float32 products run three TF32 passes, on the CPU.
 
-Both decoders' float32 instances compute their gate and split-K products on
-the tensor cores as three TF32 passes (``csrc/tile.cuh``: ``tf32_split``,
+Both decoders' float32 instances compute their gate and split-K products,
+K3's head backward and K3's attention-backward band products on the tensor
+cores as three TF32 passes (``csrc/tile.cuh``: ``tf32_split``,
 ``mma_tf32x3``): each float32 operand x is split into hi = tf32(x) and lo =
 tf32(x - hi), rounded to nearest with ties away from zero (``cvt.rna``),
 and each 8-deep K step of ``mma.sync.m16n8k8`` adds a_lo b_hi, a_hi b_lo
 and a_hi b_hi, small terms first, into a float32 accumulator.  This file
 emulates that arithmetic in torch at the flagship's shapes (B=50 rows
 against the gate weights, K = 1572 and 2340 against 4H = 4096, and the
-backward's K = 4H = 4096 against 2340) and holds it against a float64
-product: three passes land within 1e-5 of the largest output (the bound of
+backward's K = 4H = 4096 against 2340; the head backward's K = 80 mels
+against H + Mem = 1316; the band products at A = 128 and 31 taps in
+BAND_K = 32 over tiles of 16 and 192 positions: loc = band(cum) @ lc, dlc
+= band(cum)^T @ dz, P = dz @ lc^T) and holds it against a float64 product:
+three passes land within 1e-5 of the largest output (the bound of
 ``chip_smoke.py``'s float32 checks), one pass does not.  TF32 rounding is
 done on the bits: add half of the 13 dropped mantissa bits, then mask them.
+
+It also holds the float32 band routine's operand maps as
+``csrc/tile.cuh`` writes them: the m16n8k8 TF32 A fragment of the Hankel
+band read from the staged cum row (``band_frag_tf32``), for loc's band and
+dlc's transposed band, and the swizzle of the float32 operand tiles
+(``band_swz``): a permutation of 16-byte chunks whose fragment reads fall
+in distinct shared-memory banks.
 """
 
 import numpy as np
@@ -105,3 +116,157 @@ def test_one_tf32_pass_misses_the_float32_bound(k, n):
     """One pass (the lo terms dropped: 10-bit operands) misses F32_TOL at
     the same shapes, which is why the kernels run three."""
     assert _error(k, n, passes=1) > F32_TOL
+
+
+# ---------------------------------------------------------------------------
+# K3's float32 head backward and attention-backward band products
+# ---------------------------------------------------------------------------
+
+_BAND_K, _TAPS, _ATT = 32, 31, 128
+_MELS, _HEAD_N = 80, 1316
+
+
+def _relative_error(a, w, passes):
+    """Largest |emulated a @ w^T - float64| over the float64 product's
+    largest."""
+    ref = a.double() @ w.double().T
+    got = tf32_product(a, w, passes).double()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _band_operands(rows, seed):
+    """A tile's staged cum row (a cumulative attention: a ramp plus noise,
+    ``rows + 32`` values with the halo), its band [rows, 32] (31 taps and a
+    zero 32nd), the folded filter lc [32, A] (its 32nd tap zero) and a
+    cotangent dz [rows, A] of the energy's scale, float32."""
+    rng = np.random.default_rng(seed)
+    s_cum = np.clip(np.linspace(1.5, -0.5, rows + _BAND_K)
+                    + 0.05 * rng.standard_normal(rows + _BAND_K), 0.0, None)
+    idx = np.arange(rows)[:, None] + np.arange(_BAND_K)[None]
+    band = s_cum[idx]
+    band[:, _TAPS:] = 0.0
+    lc = 0.1 * rng.standard_normal((_BAND_K, _ATT))
+    lc[_TAPS:] = 0.0
+    dz = 0.05 * rng.standard_normal((rows, _ATT))
+    return tuple(torch.from_numpy(x.astype(np.float32))
+                 for x in (s_cum, band, lc, dz))
+
+
+def _k3_products(rows):
+    """The four products of K3's float32 instances as (a [M, K], w [N, K])
+    pairs of ``tf32_product``: bwd_head's round(dspec + dframe) [B, 80] @
+    W[:80] [80, 1316] (W stored one row an output mel: the product's B as
+    it lies), and at a tile of ``rows`` positions loc = band @ lc, dlc =
+    band^T @ dz and P = dz @ lc^T."""
+    rng = np.random.default_rng(rows)
+    dft = rng.standard_normal((_ROWS, _MELS)).astype(np.float32) * 1.4
+    head_w = (rng.standard_normal((_MELS, _HEAD_N))
+              / np.sqrt(_HEAD_N)).astype(np.float32)
+    _, band, lc, dz = _band_operands(rows, seed=rows + 1)
+    return {"bwd_head": (torch.from_numpy(dft), torch.from_numpy(head_w).T),
+            "loc": (band, lc.T), "dlc": (band.T, dz.T), "P": (dz, lc)}
+
+
+_K3_CASES = pytest.mark.parametrize("name,rows", [
+    ("bwd_head", 16), ("loc", 16), ("loc", 192), ("dlc", 16), ("dlc", 192),
+    ("P", 16), ("P", 192)])
+
+
+@_K3_CASES
+def test_three_tf32_passes_hold_k3_float32_products(name, rows):
+    """K3's float32 head backward (K = 80) and band products (K = 32 taps,
+    a tile's 16 or 192 positions, A = 128) in three passes: within F32_TOL
+    of the largest output of the float64 product."""
+    a, w = _k3_products(rows)[name]
+    assert _relative_error(a, w, passes=3) <= F32_TOL
+
+
+@_K3_CASES
+def test_one_tf32_pass_misses_k3_float32_bound(name, rows):
+    """The same products in one pass miss F32_TOL."""
+    a, w = _k3_products(rows)[name]
+    assert _relative_error(a, w, passes=1) > F32_TOL
+
+
+def _hankel_fragment(s_cum, off, lane):
+    """``band_frag_tf32``: lane's a[0..3] of the A fragment at p = s_cum +
+    off, i = lane / 4 + lane % 4: p[i], p[i + 8], p[i + 4], p[i + 12]."""
+    i = lane // 4 + lane % 4
+    return [float(s_cum[off + i + d]) for d in (0, 8, 4, 12)]
+
+
+def _tile_fragment(m, r0, c0, lane):
+    """The m16n8k8 A fragment of the dense matrix ``m`` at rows r0.. and
+    columns c0..: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)."""
+    g, t = lane // 4, lane % 4
+    return [float(m[r0 + g + dr, c0 + t + dc])
+            for dr, dc in ((0, 0), (8, 0), (0, 4), (8, 4))]
+
+
+@pytest.mark.parametrize("r0,c0", [(0, 0), (0, 8), (0, 24), (16, 8),
+                                   (176, 16)])
+def test_hankel_fragment_is_the_band_tile(r0, c0):
+    """loc's A fragment of band(cum) rows r0.. (positions) and taps c0..,
+    read from s_cum + r0 + c0, is the dense band's 16 x 8 tile, lane by
+    lane."""
+    s_cum, band, _, _ = _band_operands(192, seed=7)
+    band = s_cum[np.arange(192)[:, None] + np.arange(_BAND_K)[None]]
+    for lane in range(32):
+        assert _hankel_fragment(s_cum, r0 + c0, lane) == \
+            _tile_fragment(band, r0, c0, lane)
+
+
+@pytest.mark.parametrize("r0,c0", [(0, 0), (0, 8), (16, 0), (16, 8),
+                                   (16, 184)])
+def test_hankel_fragment_is_the_transposed_band_tile(r0, c0):
+    """dlc's A fragment of band(cum)^T taps r0.. (0 or 16) and positions
+    c0.., read from s_cum + c0 + r0 (the kernel's s_cum + k0 + 16 kh), is
+    the dense transposed band's 16 x 8 tile, lane by lane."""
+    s_cum, _, _, _ = _band_operands(192, seed=8)
+    band_t = s_cum[np.arange(192)[:, None] + np.arange(_BAND_K)[None]].T
+    for lane in range(32):
+        assert _hankel_fragment(s_cum, c0 + r0, lane) == \
+            _tile_fragment(band_t, r0, c0, lane)
+
+
+def band_swz(row, col, ld):
+    """``csrc/tile.cuh::band_swz``: the word of (row, col) in a swizzled
+    float32 tile of rows of ``ld`` words."""
+    return (row * ld + col) ^ (((row & 3) << 3) | (((row >> 2) & 1) << 2))
+
+
+@pytest.mark.parametrize("rows,ld", [(32, 16), (32, 128), (16, 48),
+                                     (288, 128)])
+def test_swizzle_permutes_whole_chunks(rows, ld):
+    """On a tile of ``rows`` x ``ld`` words (ld a multiple of 16: lc
+    [32][A] and dz [tile][A] at A = 16, 48 and the flagship's 128) the
+    swizzle is a bijection onto the tile's words that keeps each 16-byte
+    chunk whole and in place within it (cp.async and ldmatrix move
+    chunks)."""
+    r = np.arange(rows)[:, None]
+    c = np.arange(ld)[None]
+    words = band_swz(r, c, ld)
+    assert sorted(words.ravel().tolist()) == list(range(rows * ld))
+    assert (words % 4 == c % 4).all()
+    assert (words[:, ::4][:, :, None] + np.arange(4) == words.reshape(
+        rows, ld // 4, 4)).all()
+
+
+def test_swizzle_reads_are_free_of_bank_conflicts():
+    """At ld = 128 words (A at the flagship's widths) each read of the
+    band routine falls in 32 distinct banks: a "KN" fragment word (lane
+    (g, t) at row k0 + t or k0 + t + 4, column n0 + g), and ldmatrix's 8
+    rows of one 16-byte chunk (the "MK" and "NK" fragments)."""
+    ld = 128
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for k0 in range(0, 32, 8):
+        for n0 in range(0, ld, 8):
+            for dk in (0, 4):
+                banks = band_swz(k0 + t + dk, n0 + g, ld) % 32
+                assert len(set(banks.tolist())) == 32
+    for r0 in range(0, 32, 8):
+        for col in range(0, ld, 4):
+            first = band_swz(r0 + np.arange(8), col, ld) % 32
+            banks = (first[:, None] + np.arange(4)[None]).ravel()
+            assert len(set(banks.tolist())) == 32

@@ -6,6 +6,7 @@ the PyTorch port's CUDA sources, on one NVIDIA GPU.
     python3 tools/torch_kernel_variants.py checks train_attention_taps
     python3 tools/torch_kernel_variants.py checks tf32x3_in_place
     python3 tools/torch_kernel_variants.py time lsa_l2_prefetch att_bwd_l2_prefetch
+    python3 tools/torch_kernel_variants.py time bwd_head_cols_32 att_bwd_f32_split_in_registers band_swz_off
     python3 tools/torch_kernel_variants.py time train_attention_taps
     python3 tools/torch_kernel_variants.py time gate_f32_cluster_1 gate_f32_cluster_4 gate_rows_halved gate_f32_stage_128
 
@@ -42,7 +43,12 @@ operand of a small float32 product rounded to bf16 (the prenet's,
 ``bwd_head``'s and ``bwd_prenet``'s), a float32 stream stored in bf16 (the
 LSTM activations, the cells' gate gradients, ``att_bwd``'s dz, the
 family's energy terms and shifted weights) or the last chunk of each
-float32 memory row left out of the context, and runs the checks of that
+float32 memory row left out of the context; and in K3's float32 head
+backward and attention-backward band products on the tensor cores, each
+product in one TF32 pass (``bwd_head``; ``att_bwd``'s loc, P and dlc),
+the Hankel fragment of cum one tap off, a swizzled "KN" fragment's second
+word read from its first row, one cluster rank's dlc partial left out, or
+lc's TF32 lo halves dropped; and runs the checks of that
 kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
@@ -65,9 +71,15 @@ K3's float32 checks).
 ``time`` times each named variant's kernel and the checkout's own in turns
 (as is, variant, variant, as is): ``lsa_attention`` at the serving path's
 B=240, T=128, W8A8, alone (``chip_smoke.device_ms``) and a step inside a
-32-step chunk (``torch.profiler``); ``att_bwd`` and ``train_attention`` at
-the training path's B=50, T=128 on random inputs of the flagship's widths,
-alone; the float32 gate routine, both of the flagship's LSTMs at B=50
+32-step chunk (``torch.profiler``); ``att_bwd`` (in bf16 and float32) and
+``train_attention`` at the training path's B=50, T=128 on random inputs of
+the flagship's widths, alone, and ``bwd_head`` with the generator cell
+(both types), among them ``bwd_head_cols_32`` (blocks of 32 columns and
+two warps, twice the blocks), ``att_bwd_f32_split_in_registers``
+(the float32 instance's lc and cum split into their TF32 halves in
+registers at each fragment read, where the checkout splits them once when
+staged) and ``band_swz_off`` (its float32 operand tiles unswizzled); the
+float32 gate routine, both of the flagship's LSTMs at B=50
 and 240, for ``gate_f32_cluster_1`` and ``gate_f32_cluster_4`` (K split
 over clusters of one or four CTAs, where the checkout's are of two),
 ``gate_rows_halved`` (blocks of half the rows the launcher picks: 32 at
@@ -132,7 +144,8 @@ def _one_tf32_pass(a: str, b: str) -> str:
 
 # name: (source, piece, replacement, what to run), or (source, [(start,
 # end, replacement), ...], what to run): the text from start up to end
-# replaced
+# replaced (a pair (piece, replacement) in that list replaces the piece),
+# or ({source: [...], ...}, what to run) for pieces of several sources
 VARIANTS = {
     "lsa_location_tap": (
         "fused_decoder.cu",
@@ -252,7 +265,7 @@ VARIANTS = {
         "tile.cuh", "      warp_tf32x3(stage_acc, af, bfr);",
         "      " + _one_tf32_pass("af", "bfr"), "K2f32"),
     "f32_splitk_kn_row_off": (
-        "tile.cuh", "  f[1] = __float_as_uint(p[4 * SKF_LD_MN]);",
+        "tile.cuh", "  f[1] = __float_as_uint(p[4 * ld]);",
         "  f[1] = __float_as_uint(p[0]);", "K3f32"),
     "f32_lstm_act_stored_bf16": (
         "fused_train_decoder.cu", "      a[0] = from_float<CT>(gi);",
@@ -275,18 +288,58 @@ VARIANTS = {
         "K2f32:forward"),
     "f32_bwd_head_dft_bf16": (
         "fused_train_decoder.cu",
-        "for (int k = 0; k < kp; ++k) acc = fmaf(ar[k], bs[k * ldn + c], acc);",
-        "for (int k = 0; k < kp; ++k)\n"
-        "        acc = fmaf(round_bf16(ar[k]), bs[k * ldn + c], acc);",
-        "K3f32"),
+        "        tf32_split<4>(ah[mt], al[mt], ah[mt]);",
+        "        for (int i = 0; i < 4; ++i)\n"
+        "          ah[mt][i] = __float_as_uint(round_bf16("
+        "__uint_as_float(ah[mt][i])));\n"
+        "        tf32_split<4>(ah[mt], al[mt], ah[mt]);", "K3f32"),
     "f32_cell_dg_stored_bf16": (
         "fused_train_decoder.cu",
         "    d[0] = from_float<CT>(dc_new * gg * i * (1.0f - i));",
         "    d[0] = from_float<CT>(round_bf16(dc_new * gg * i * (1.0f - i)));",
         "K3f32"),
     "f32_att_bwd_dz_bf16": (
-        "fused_train_decoder.cu", "          s_dz[i * ldz + a] = dz;",
-        "          s_dz[i * ldz + a] = round_bf16(dz);", "K3f32"),
+        "fused_train_decoder.cu", "                make_float2(dz0, dz1);",
+        "                make_float2(round_bf16(dz0), round_bf16(dz1));",
+        "K3f32"),
+    # K3's float32 head and band products on the tensor cores: each
+    # product in one TF32 pass (bwd_head; att_bwd's loc, P and dlc), the
+    # Hankel fragment of cum one tap off, the second word of a swizzled
+    # "KN" fragment read from its first row, one cluster rank's dlc
+    # partial left out of the row's sum, lc's lo halves dropped
+    "f32_bwd_head_one_tf32_pass": (
+        "fused_train_decoder.cu",
+        "          mma_tf32x3(acc[mt][nt], ah[mt], al[mt], bh[nt], bl[nt]);",
+        "          mma_tf32(acc[mt][nt], ah[mt], bh[nt]);", "K3f32"),
+    "f32_att_loc_one_tf32_pass": (
+        "fused_train_decoder.cu",
+        "            mma_tf32x3(acc, ah, al, bh[ks], bl[ks]);",
+        "            mma_tf32(acc, ah, bh[ks]);", "K3f32"),
+    "f32_att_p_one_tf32_pass": (
+        "fused_train_decoder.cu",
+        "            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 * h);",
+        "            mma_tf32(acc[h], ah, bh + 2 * h);", "K3f32"),
+    "f32_att_dlc_one_tf32_pass": (
+        "fused_train_decoder.cu",
+        "              mma_tf32x3(st[kh], ah, al, bh, bl);",
+        "              mma_tf32(st[kh], ah, bh);", "K3f32"),
+    "f32_att_hankel_tap_off": (
+        "tile.cuh", "  const int i = (lane >> 2) + (lane & 3);\n"
+        "  a[0] = __float_as_uint(p[i]);",
+        "  const int i = (lane >> 2) + (lane & 3) + 1;\n"
+        "  a[0] = __float_as_uint(p[i]);", "K3f32"),
+    "f32_att_kn_row_off": (
+        "tile.cuh", "  b[1] = __float_as_uint(s[band_swz(k + 4, n, ld)]);",
+        "  b[1] = __float_as_uint(s[band_swz(k, n, ld)]);", "K3f32"),
+    "f32_att_dlc_rank_dropped": (
+        "fused_train_decoder.cu",
+        "      for (int j = 0; j < cl; ++j) sum += cluster_peer(s_dlcp, j)[idx];",
+        "      for (int j = 0; j < cl - 1; ++j)\n"
+        "        sum += cluster_peer(s_dlcp, j)[idx];", "K3f32"),
+    "f32_att_lc_lo_dropped": (
+        "tile.cuh", "    tf32_split_store(s + i, s + n + i, s[i]);",
+        "  {\n    tf32_split_store(s + i, s + n + i, s[i]);\n"
+        "    s[n + i] = 0.0f;\n  }", "K3f32"),
     "f32_fwd_att_bwd_tz_bf16": (
         "fused_train_decoder.cu", "            s_tz[i * A + a] = tz;",
         "            s_tz[i * A + a] = round_bf16(tz);",
@@ -336,6 +389,37 @@ VARIANTS = {
           "  if (M > 32)\n    return gate_tile_run<E, 1>(a, lda, w, ldw, "
           "kbytes, M, H, epi, stream);\n")],
         "time gates"),
+    # K3's float32 att_bwd with lc and cum split into their TF32 halves in
+    # registers where each fragment is read, as dz is, instead of once when
+    # staged (their lo tiles then unread)
+    "att_bwd_f32_split_in_registers": ({
+        "fused_train_decoder.cu": [
+            ("  if constexpr (KIND == ATT_LS && F32) tf32_split_words(s_lc, "
+             "BAND_K * A);\n", ""),
+            ("          band_frag_kn(bl[ks], lc_lo, A, 8 * ks, n0, lane);",
+             "          tf32_split<2>(bh[ks], bl[ks], bh[ks]);"),
+            ("            band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, "
+             "lane);", "            tf32_split<4>(ah, al, ah);"),
+            ("          ldsm_x4(bl, lc_lo + lc_at);",
+             "          tf32_split<4>(bh, bl, bh);"),
+            ("              band_frag_tf32(al, s_cum_lo + k0 + 16 * kh, "
+             "lane);", "              tf32_split<4>(ah, al, ah);")],
+        "tile.cuh": [
+            ("    tf32_split_store(hi + i, lo + i, t >= 0 && t < T ? cum[t] "
+             ": 0.0f);", "    hi[i] = t >= 0 && t < T ? cum[t] : 0.0f;")]},
+        "time K3"),
+    # bwd_head in blocks of 32 columns and two warps (168 blocks at B=50),
+    # where the checkout's are of 64 and four (84)
+    "bwd_head_cols_32": (
+        "fused_train_decoder.cu",
+        "constexpr int BH_BM = 16, BH_BN = 64, BH_THREADS = 128;",
+        "constexpr int BH_BM = 16, BH_BN = 32, BH_THREADS = 64;", "time K3"),
+    # the float32 operand tiles of att_bwd unswizzled (rows of A words:
+    # four-way conflicts on the "KN" reads, eight-way on ldmatrix's)
+    "band_swz_off": (
+        "tile.cuh",
+        "  return (row * ld + col) ^ (((row & 3) << 3) | (((row >> 2) & 1) "
+        "<< 2));", "  return row * ld + col;", "time K3"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -451,7 +535,8 @@ print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone,
 """
 
 # att_bwd at B=50, T=128 and the flagship's widths (A=128, Mem=292, 31
-# taps) on random inputs, the accumulators and dcum updated in place
+# taps) on random inputs, the accumulators and dcum updated in place, in
+# both compute types
 _TIME_K3 = _PRELUDE + r"""
 from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
 torch.set_grad_enabled(False)
@@ -459,17 +544,41 @@ b, t, a, mem, k = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 31
 gen = torch.Generator(device="cuda").manual_seed(0)
 def rnd(*shape, scale=1.0):
     return torch.randn(*shape, device="cuda", generator=gen) * scale
-bf = torch.bfloat16
-args = (rnd(b, a).to(bf).float(), rnd(b, t).abs().to(bf),
-        torch.softmax(rnd(b, t), -1), rnd(b, t, mem).to(bf),
-        rnd(b, t, a, scale=0.5).to(bf), rnd(k, a, scale=0.1).to(bf),
-        rnd(a, scale=a ** -0.5), rnd(b, mem), rnd(b, t, scale=0.1),
-        rnd(b, t, scale=0.1), torch.zeros(b, t, a, device="cuda"),
-        torch.zeros(b, k, a, device="cuda"), torch.zeros(b, a, device="cuda"),
-        torch.empty(b, a, dtype=bf, device="cuda"),
-        torch.empty(b, mem, dtype=bf, device="cuda"))
-alone = cs.device_ms(lambda: ftd.att_bwd(*args), ours_only=True)
-print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone}}))
+res = {{}}
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    args = (rnd(b, a).to(ct).float(), rnd(b, t).abs().to(ct),
+            torch.softmax(rnd(b, t), -1), rnd(b, t, mem).to(ct),
+            rnd(b, t, a, scale=0.5).to(ct), rnd(k, a, scale=0.1).to(ct),
+            rnd(a, scale=a ** -0.5), rnd(b, mem), rnd(b, t, scale=0.1),
+            rnd(b, t, scale=0.1), torch.zeros(b, t, a, device="cuda"),
+            torch.zeros(b, k, a, device="cuda"),
+            torch.zeros(b, a, device="cuda"),
+            torch.empty(b, a, dtype=ct, device="cuda"),
+            torch.empty(b, mem, dtype=ct, device="cuda"))
+    res[f"alone_ms_{{name}}"] = cs.device_ms(lambda: ftd.att_bwd(*args),
+                                             ours_only=True)
+# bwd_head with the generator cell (zoneout) at B=50, M=80, H=1024, Mem=292
+from types import SimpleNamespace
+h, m = 1024, 80
+cfg = SimpleNamespace(mmel=m, hidden=h, mem_dim=mem)
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    tc = ftd.TrainConfig(hidden=h, mem_dim=mem, prenet_dim=256, n_prenet=2,
+                         mmel=m, att_dim=a, taps=k, dropout_rate=0.5,
+                         zoneout_h=0.1, zoneout_c=0.1, use_zoneout=True,
+                         dtype=ct)
+    w = torch.zeros(m + 1, 1344, device="cuda")
+    w[:, :h + mem] = rnd(m + 1, h + mem, scale=(h + mem) ** -0.5)
+    cell = ftd.CellArgs(torch.sigmoid(rnd(b, 4 * h)).to(ct),
+                        rnd(b, h).to(ct), rnd(b, h, scale=0.1),
+                        torch.empty(b, 4 * h, dtype=ct, device="cuda"),
+                        torch.empty(b, h, device="cuda"),
+                        tc.reg("gen", (11, 12), 5))
+    hargs = (rnd(b, m), rnd(b), rnd(b, m), w.to(ct),
+             torch.empty(b, m, dtype=ct, device="cuda"), rnd(b, h),
+             rnd(b, mem), None, torch.empty(b, mem, device="cuda"), cfg)
+    res[f"bwd_head_ms_{{name}}"] = cs.device_ms(
+        lambda: ftd.bwd_head(*hargs, cell=cell), ours_only=True)
+print("VARIANT_RESULT " + json.dumps(res))
 """
 
 
@@ -525,24 +634,29 @@ def make_copy(name: str) -> Path:
     """The package under build/variants/<name>/ with the variant's pieces
     replaced; its own build directory starts empty."""
     source, *edits, _ = VARIANTS[name]
-    spans = edits[0] if len(edits) == 1 else [tuple(edits)]
+    if isinstance(source, dict):
+        by_source = source
+    else:
+        by_source = {source: edits[0] if len(edits) == 1 else [tuple(edits)]}
     root = ROOT / "build" / "variants" / name
     if root.exists():
         shutil.rmtree(root)
     shutil.copytree(ROOT / PKG, root / PKG,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = root / PKG / "csrc" / source
-    text = path.read_text()
-    for span in spans:
-        start, end, repl = span if len(span) == 3 else (span[0], None,
-                                                         span[1])
-        if text.count(start) != 1:
-            raise SystemExit(f"kernel_variants: {name}: the piece to replace "
-                             f"occurs {text.count(start)} times in {source}")
-        i = text.index(start)
-        j = i + len(start) if end is None else text.index(end, i)
-        text = text[:i] + repl + text[j:]
-    path.write_text(text)
+    for source, spans in by_source.items():
+        path = root / PKG / "csrc" / source
+        text = path.read_text()
+        for span in spans:
+            start, end, repl = span if len(span) == 3 else (span[0], None,
+                                                             span[1])
+            if text.count(start) != 1:
+                raise SystemExit(
+                    f"kernel_variants: {name}: the piece to replace occurs "
+                    f"{text.count(start)} times in {source}")
+            i = text.index(start)
+            j = i + len(start) if end is None else text.index(end, i)
+            text = text[:i] + repl + text[j:]
+        path.write_text(text)
     return root
 
 

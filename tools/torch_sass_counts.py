@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Count instructions of the PyTorch port's kernels in the compiled SASS, for
+one or more checkouts, on a machine with the CUDA toolkit.
+
+    python3 tools/torch_sass_counts.py [ROOT ...] [--kernel att_bwd_kernel
+        --kernel bwd_head_kernel] [--op HMMA.1688.F32.TF32 --op FFMA ...]
+
+Each ROOT (the checkout itself when none is given) builds
+``csrc/fused_train_decoder.cu`` as the port does (``ops/_build.py``, into
+that checkout's ignored ``build/kernels/``), runs ``cuobjdump -sass`` on
+the library and prints, for each kernel instance whose mangled name holds
+one of ``--kernel``, how many SASS lines hold each ``--op``: a static
+count (a loop's body counts once).  The last line is one JSON object of
+the counts by root and instance.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+_BUILD = ("import sys; sys.path.insert(0, {root!r}); "
+          "from multilingual_text_to_speech_tpu_torch.ops import _build; "
+          "print(_build._target('fused_train_decoder')); "
+          "_build.build(['fused_train_decoder'])")
+
+
+def library(root: Path) -> Path:
+    """The built library of the training decoder's kernels in ``root``."""
+    out = subprocess.run([sys.executable, "-c", _BUILD.format(root=str(root))],
+                         cwd=root, capture_output=True, text=True, check=True)
+    return Path(out.stdout.splitlines()[0])
+
+
+def counts(so: Path, kernels, ops) -> dict:
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(k in m.group(1) for k in kernels) else None
+            if fn:
+                found[fn] = dict.fromkeys(ops, 0)
+        elif fn:
+            for op in ops:
+                found[fn][op] += op in line
+    return found
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*", type=Path, default=[Path(".")])
+    ap.add_argument("--kernel", action="append",
+                    default=None, help="a piece of the mangled name")
+    ap.add_argument("--op", action="append", default=None)
+    args = ap.parse_args()
+    kernels = args.kernel or ["att_bwd_kernel", "bwd_head_kernel"]
+    ops = args.op or ["HMMA.1688.F32.TF32", "HMMA.16816", "FFMA", "LDSM",
+                      "LDGSTS"]
+    result = {}
+    for root in args.roots:
+        res = counts(library(root.resolve()), kernels, ops)
+        result[str(root)] = res
+        for fn, c in res.items():
+            print(f"[sass] {root} {fn}: " + ", ".join(
+                f"{op} {n}" for op, n in c.items()))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
