@@ -156,10 +156,12 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 # the float32 products that run on the tensor cores in three TF32 passes
 # (csrc/tile.cuh mma_tf32x3): bound by three times their products'
 # operations at the TF32 peak and the rest on FFMA (row_ops), the FFMA
-# bound printed beside it.  At the training path's shapes bwd_head and
-# att_bwd stay bound by their bytes either way
+# bound printed beside it.  At the training path's shapes bwd_head,
+# att_bwd, train_attention and bwd_prenet stay bound by their bytes either
+# way
 TF32X3_ROWS = ("gate_lstm", "head", "train_gate_lstm", "train_query",
-               "train_head", "bwd_gemm", "bwd_head", "att_bwd")
+               "train_head", "bwd_gemm", "bwd_head", "att_bwd",
+               "train_attention", "bwd_prenet")
 # Tolerances of kernel vs plain on the same inputs, set a few times above
 # the errors measured on an H100 (PERF.md): float32 sums in another order,
 # and bfloat16 roundings that a one-ulp difference can flip.
@@ -2448,11 +2450,13 @@ def train_work(cfg, b, t_len):
                                    + b * h * bf + 2 * b * h * bf),
                             2 * b * (ka + kg) * 4 * h),
         "train_query": (b * h * bf + h * a * bf + b * a * f32, 2 * b * h * a),
+        # the location conv's band product apart (the third item)
         "train_attention": (b * a * f32 + 2 * b * t_len * f32
                             + b * t_len * (mem + a) * bf + b * t_len * f32
                             + k * a * bf + a * f32 + b * t_len * (f32 + bf)
                             + b * mem * (f32 + 3 * bf),
-                            2 * b * t_len * (a * (k + 1) + mem)),
+                            2 * b * t_len * (a * (k + 1) + mem),
+                            2 * b * t_len * a * k),
         "train_head": (b * kh * bf + (m + 1) * kh * bf + (m + 1) * f32
                        + b * (2 * m + 1) * f32, 2 * b * kh * (m + 1)),
         # with the generator cell: dctx_tot written, dh_gen_tot not; the
@@ -2518,6 +2522,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
     dg = torch.randn(b, 4 * cfg.hidden, device=dev).to(ct)
     dq = torch.randn(b, cfg.att_dim, device=dev).to(ct)
     dfv = torch.randn(b, cfg.mmel + 1, device=dev).to(ct)
+    da_p = torch.randn(b, cfg.prenet_dim, device=dev).to(ct)
     library = {
         "train_gate_lstm": lambda: (
             torch.addmm(ops["att_b"].to(ct), rows_in["att"], ops["att_w"].t()),
@@ -2532,6 +2537,9 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
         "bwd_gemm":lambda: (torch.mm(dg, ops["gen_w"]),
                              torch.mm(dq, ops["wq"].t()),
                              torch.mm(dg, ops["att_w"])),
+        # da @ W^T of each layer, the product only (no masks)
+        "bwd_prenet": lambda: [torch.mm(da_p, w.t()) for w, _ in
+                               ftd.prenet_layers(ops, cfg)],
     }
     work = train_work(cfg, b, TRAIN_T)
     k2, _ = cfg.kernels

@@ -24,11 +24,10 @@
 // rounded and every product is float32-accurate, as the TPU kernel's
 // full-precision float32 matmuls (ops/pallas_train_decoder.py:230-239):
 // the gate products, the split-K products (splitk_f32_kernel), bwd_head's
-// product and att_bwd's three band products on the tensor cores in three
-// TF32 passes (csrc/tile.cuh mma_tf32x3), as the serving decoder's float32
-// instances; train_attention's location conv (band_loc_f32) and
-// bwd_prenet's small products on the CUDA cores in FFMA, a thread an
-// output.  The forward
+// product, train_attention's location conv, att_bwd's three band products
+// and bwd_prenet's products on the tensor cores in three TF32 passes
+// (csrc/tile.cuh mma_tf32x3), as the serving decoder's float32 instances;
+// the other small products on the CUDA cores in FFMA.  The forward
 // prenet runs in prenet_tile_kernel (shared with the serving decoder's
 // prenet): one clustered launch whose CTAs own column slices of each layer
 // and exchange the compute-type rows over distributed shared memory.  The
@@ -258,17 +257,25 @@ struct TrainPrenetOut {
 // columns, summed over the cluster's partials in rank order.  No float
 // atomics: a run repeats bit for bit.
 //
-// In float32 (CT float) nothing is rounded: the energy is a warp a
-// position, a lane every 32nd channel, the location conv band_loc_f32 from
-// the float32 cum and lc (csrc/tile.cuh), tanh((loc + q) + mtb); the
-// context sums float32 products of float32 rows.
+// In float32 (CT float) nothing is rounded: the location conv is the same
+// band product on the tensor cores in three TF32 passes (m16n8k8,
+// mma_tf32x3), the A fragments from cum's TF32 halves, split once when
+// staged (band_stage_cum_tf32, band_frag_tf32), the B fragments from lc
+// in swizzled rows of A words (band_copy_lc_tf32, band_frag_kn), split in
+// registers where they are read (at T <= 128 each lc value is read by one
+// warp once, so a split copy in shared memory would save nothing); then
+// tanh((loc + q) + mtb) from the accumulator fragments, the warps' partial
+// energies summed in warp order as in bf16; the context sums float32
+// products of float32 rows.  The forward family's float32 instances keep
+// a warp a position, a lane every 32nd channel.
 //
 // Long texts: a tile has T / 8 positions or more (att_bwd_tiles), and the
 // tile's copies of its mtb and memory rows are kept only while they fit the
 // CTA's 227 KB of shared memory (ta_stage: both, mtb alone, or neither);
 // otherwise the energy and the context read them from device memory (the
 // context with the same 16-byte loads).  What stays in shared memory grows
-// by under 50 bytes a position.
+// by under 50 bytes a position in bf16 and by 52 in float32 (four float
+// rows, cum's TF32 halves and the eight warps' partial energies).
 //
 // Bound on the H100: the bytes of memory and mtb (B*T*(Mem + A) bf16,
 // 5.4 MB at B=50, T=128) and the rest, 1.69 us at 3.35 TB/s.  What costs
@@ -312,15 +319,19 @@ struct TaAgent {
 constexpr int TA_STAGE_MTB = 1, TA_STAGE_MEM = 2;
 
 // shared-memory layout of train_attention_kernel (byte offsets) for
-// compute-type elements of `es` bytes and the copies `stage` names
+// compute-type elements of `es` bytes and the copies `stage` names; `band`:
+// the location-sensitive kind, whose float32 instance keeps lc in swizzled
+// rows of A words (band_swz) and cum's TF32 lo halves beside its hi
 struct TaLayout {
   int ld, ldm;
   CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
-  size_t lc, mtb, mem, q, v, ep, e, cumf, mask, cum, stat, red, ctxp, cpart,
-      total;
-  __host__ __device__ TaLayout(int tile, int A, int Mem, int es, int stage)
+  size_t lc, mtb, mem, q, v, ep, e, cumf, mask, cum, cum_lo, stat, red, ctxp,
+      cpart, total;
+  __host__ __device__ TaLayout(int tile, int A, int Mem, int es, int stage,
+                               bool band)
       : cs(Mem, TA_THREADS, 16 / es) {
-    ld = A + 16 / es;    // rows of lc
+    const bool tf32 = es == 4 && band;
+    ld = tf32 ? A : A + 16 / es;   // rows of lc
     ldm = A + 16 / es;   // rows of the mtb tile: eight rows g in distinct banks
     lc = 0;
     mtb = lc + align16((size_t)BAND_K * ld * es);
@@ -328,13 +339,14 @@ struct TaLayout {
     q = mem + (stage & TA_STAGE_MEM ? align16((size_t)tile * Mem * es) : 0);
     v = q + align16((size_t)A * 4);
     ep = v + align16((size_t)A * 4);
-    // the warps' partial energies (bf16 only: float32 sums a position in
-    // one warp)
-    e = ep + (es == 2 ? align16((size_t)TA_WARPS * tile * 4) : 0);
+    // the warps' partial energies (not in the forward family's float32
+    // instances, which sum a position in one warp)
+    e = ep + (es == 2 || band ? align16((size_t)TA_WARPS * tile * 4) : 0);
     cumf = e + align16((size_t)tile * 4);
     mask = cumf + align16((size_t)tile * 4);
     cum = mask + align16((size_t)tile * 4);
-    stat = cum + align16((size_t)(tile + BAND_K) * es);
+    cum_lo = cum + align16((size_t)(tile + BAND_K) * es);
+    stat = cum_lo + (tf32 ? align16((size_t)(tile + BAND_K) * 4) : 0);
     red = stat + 32;
     ctxp = red + 32 * 4;
     cpart = ctxp + align16((size_t)Mem * 4);
@@ -343,32 +355,34 @@ struct TaLayout {
 };
 
 // the most of the tile's rows that fit: both copies, mtb's alone, or none
-__host__ inline int ta_stage(int tile, int A, int Mem, int es) {
+__host__ inline int ta_stage(int tile, int A, int Mem, int es, bool band) {
   const int both = TA_STAGE_MTB | TA_STAGE_MEM;
-  if (TaLayout(tile, A, Mem, es, both).total <= SMEM_MAX) return both;
-  if (TaLayout(tile, A, Mem, es, TA_STAGE_MTB).total <= SMEM_MAX)
+  if (TaLayout(tile, A, Mem, es, both, band).total <= SMEM_MAX) return both;
+  if (TaLayout(tile, A, Mem, es, TA_STAGE_MTB, band).total <= SMEM_MAX)
     return TA_STAGE_MTB;
   return 0;
 }
 
+// train_attention_kernel's parameters (CT: the compute type) and arguments
+#define TA_PARAMS(CT)                                                      \
+  const float *__restrict__ q, float *__restrict__ cum,                   \
+      const CT *__restrict__ memory, const CT *__restrict__ mtb,          \
+      const float *__restrict__ mask_add, const CT *__restrict__ lc,      \
+      const float *__restrict__ v, float *__restrict__ w_out,             \
+      CT *__restrict__ cum_out, float *__restrict__ ctx,                  \
+      CT *__restrict__ dst0, int ld0, CT *__restrict__ dst1, int ld1,     \
+      CT *__restrict__ dst2, int ld2, int T, int A, int Mem, int K,       \
+      int tile, int cl, int vec, int stage, TaAgent ag
+#define TA_ARGS                                                            \
+  q, cum, memory, mtb, mask_add, lc, v, w_out, cum_out, ctx, dst0, ld0,    \
+      dst1, ld1, dst2, ld2, T, A, Mem, K, tile, cl, vec, stage, ag
+
 template <int KIND, class CT>
-__global__ void __launch_bounds__(TA_THREADS)
-train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
-                       const CT* __restrict__ memory,
-                       const CT* __restrict__ mtb,
-                       const float* __restrict__ mask_add,
-                       const CT* __restrict__ lc,
-                       const float* __restrict__ v, float* __restrict__ w_out,
-                       CT* __restrict__ cum_out, float* __restrict__ ctx,
-                       CT* __restrict__ dst0, int ld0,
-                       CT* __restrict__ dst1, int ld1,
-                       CT* __restrict__ dst2, int ld2, int T, int A, int Mem,
-                       int K, int tile, int cl, int vec, int stage,
-                       TaAgent ag) {
+__device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
   constexpr bool F32 = std::is_same<CT, float>::value;
   constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t ta_smem[];
-  const TaLayout L(tile, A, Mem, sizeof(CT), stage);
+  const TaLayout L(tile, A, Mem, sizeof(CT), stage, KIND == ATT_LS);
   const int ld = L.ld, ldm = L.ldm;
   CT* s_lc = reinterpret_cast<CT*>(ta_smem + L.lc);            // [32][ld]
   CT* s_mtb = reinterpret_cast<CT*>(ta_smem + L.mtb);          // [tile][ldm]
@@ -380,6 +394,8 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   float* s_cumf = reinterpret_cast<float*>(ta_smem + L.cumf);  // [tile]
   float* s_mask = reinterpret_cast<float*>(ta_smem + L.mask);  // [tile]
   CT* s_cum = reinterpret_cast<CT*>(ta_smem + L.cum);          // [tile + 32]
+  // float32: cum's TF32 lo halves beside s_cum's hi
+  float* s_cum_lo = reinterpret_cast<float*>(ta_smem + L.cum_lo);
   // [0] max, [1] sum, [2] the row's max, [3] the row's sum; the forward
   // family: [4] the renorm's tile sum, [5] the row's, [6] the agent's
   // partial, [7] the halo prev[t_lo - 1]
@@ -400,7 +416,10 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   // every read of device memory is issued here, so that their latencies
   // overlap: lc and the tile's mtb rows (cp.async group 0), the tile's
   // memory rows (group 1, when 16-byte aligned), then q, v, cum and the mask
-  if (KIND == ATT_LS) band_copy_lc(s_lc, ld, lc, K, A);
+  if constexpr (KIND == ATT_LS && F32)
+    band_copy_lc_tf32(s_lc, lc, K, A);
+  else if constexpr (KIND == ATT_LS)
+    band_copy_lc(s_lc, ld, lc, K, A);
   const int a_chunks = A / V;
   if (mtb_staged)
     for (int i = tid; i < tile * a_chunks; i += TA_THREADS) {
@@ -427,7 +446,10 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
     s_cumf[i] = cum[rowT + t_lo + i];
     s_mask[i] = mask_add[rowT + t_lo + i];
   }
-  if (KIND == ATT_LS) {
+  if constexpr (KIND == ATT_LS && F32) {
+    band_stage_cum_tf32(s_cum, s_cum_lo, tile + BAND_K, cum + rowT, t_lo,
+                        half, T);
+  } else if constexpr (KIND == ATT_LS) {
     band_stage_cum(s_cum, tile + BAND_K, cum + rowT, t_lo, half, T);
   } else if (tid == 0) {
     s_stat[7] = t_lo > 0 ? cum[rowT + t_lo - 1] : 0.0f;
@@ -439,21 +461,77 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   // the tile's mtb rows, from the copy or from device memory
   const CT* mt_rows = mtb_staged ? s_mtb : mtb + (rowT + t_lo) * A;
   const int ldmt = mtb_staged ? ldm : A;
-  if constexpr (F32) {
-    // 1. energies: a warp a position, a lane every 32nd channel
+  if constexpr (F32 && KIND != ATT_LS) {
+    // 1. energies: a warp a position, a lane every 32nd channel; the
+    // forward family's softmax is unmasked
     for (int i = warp; i < rows; i += TA_WARPS) {
       float e = 0.0f;
-      for (int a = lane; a < A; a += 32) {
-        const float mt = mt_rows[(size_t)i * ldmt + a];
-        const float z =
-            KIND == ATT_LS
-                ? (band_loc_f32(s_cum + i, s_lc + a, ld) + s_q[a]) + mt
-                : s_q[a] + mt;
-        e = fmaf(s_v[a], tanhf(z), e);
-      }
+      for (int a = lane; a < A; a += 32)
+        e = fmaf(s_v[a], tanhf(s_q[a] + mt_rows[(size_t)i * ldmt + a]), e);
       e = warp_sum(e);
-      // the forward family's softmax is unmasked
-      if (lane == 0) s_e[i] = KIND == ATT_LS ? e + s_mask[i] : e;
+      if (lane == 0) s_e[i] = e;
+    }
+    __syncthreads();
+  } else if constexpr (F32) {
+    // 1. energies: the band product band(cum) @ lc in three TF32 passes,
+    // a warp per 16 channels (two n8 groups) down the tile's 16-row mma
+    // tiles, as in bf16; lc's fragments split in registers where they are
+    // read (at T <= 128 a CTA has one mma tile: each lc value is read and
+    // split by one warp once); each warp's partial of e
+    for (int mt = 0; mt < tile / 16; ++mt) {
+      const int ra = mt * 16 + g, rb = ra + 8;   // rows past T read zeros
+      const bool in_a = mtb_staged || ra < rows;
+      const bool in_b = mtb_staged || rb < rows;
+      float e0 = 0.0f, e1 = 0.0f;
+      for (int n0 = warp * 16; n0 < A; n0 += TA_WARPS * 16) {
+        float acc[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ah[4], al[4];
+          band_frag_tf32(ah, s_cum + mt * 16 + 8 * ks, lane);
+          band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t bh[2], bl[2];
+            band_frag_kn(bh, s_lc, A, 8 * ks, n0 + 8 * h, lane);
+            tf32_split<2>(bh, bl, bh);
+            mma_tf32x3(acc[h], ah, al, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int a = n0 + 8 * h + 2 * qd;
+          const float2 zero2 = make_float2(0.0f, 0.0f);
+          const float2 m0 =
+              in_a ? *reinterpret_cast<const float2*>(
+                         mt_rows + (size_t)ra * ldmt + a)
+                   : zero2;
+          const float2 m1 =
+              in_b ? *reinterpret_cast<const float2*>(
+                         mt_rows + (size_t)rb * ldmt + a)
+                   : zero2;
+          const float q0 = s_q[a], q1 = s_q[a + 1];
+          const float v0 = s_v[a], v1 = s_v[a + 1];
+          e0 = fmaf(v0, band_energy_tanh<float>(acc[h][0], q0, m0.x), e0);
+          e0 = fmaf(v1, band_energy_tanh<float>(acc[h][1], q1, m0.y), e0);
+          e1 = fmaf(v0, band_energy_tanh<float>(acc[h][2], q0, m1.x), e1);
+          e1 = fmaf(v1, band_energy_tanh<float>(acc[h][3], q1, m1.y), e1);
+        }
+      }
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+      if (qd == 0) {
+        s_ep[warp * tile + mt * 16 + g] = e0;
+        s_ep[warp * tile + mt * 16 + g + 8] = e1;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      float e = 0.0f;
+      for (int w = 0; w < TA_WARPS; ++w) e += s_ep[w * tile + i];
+      s_e[i] = e + s_mask[i];
     }
     __syncthreads();
   } else {
@@ -628,6 +706,20 @@ train_attention_kernel(const float* __restrict__ q, float* __restrict__ cum,
   }
   // no CTA leaves while its peers may still read its shared memory
   cluster_sync();
+}
+
+template <int KIND, class CT>
+__global__ void __launch_bounds__(TA_THREADS)
+    train_attention_kernel(TA_PARAMS(CT)) {
+  train_attention_body<KIND, CT>(TA_ARGS);
+}
+
+// the float32 band instance held to 64 registers, four CTAs an SM (80 and
+// three without the bound: 396 slots for the 400 CTAs of B=50, T=128)
+template <>
+__global__ void __launch_bounds__(TA_THREADS, 4)
+    train_attention_kernel<ATT_LS, float>(TA_PARAMS(float)) {
+  train_attention_body<ATT_LS, float>(TA_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1717,9 +1809,18 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
 // m16n8k16 with float32 sums.  Two slices alternate, so one barrier a
 // layer suffices.  No float atomics: a run repeats bit for bit.
 //
-// In float32 the da rows, weights and masks are float32 and a thread sums
-// one output of dx over K in FFMA (float4 reads of the da row and the
-// weight row), the gather moving float32 rows.
+// In float32 the da rows, weights and masks are float32, the gather moves
+// float32 rows, and dx = da @ W^T runs on mma.sync m16n8k8 TF32 in three
+// passes: a warp per (n8 tile, K slice), K split over the warps that the
+// n8 tiles leave (a P x P layer's 4 tiles at np = 32 in two halves, layer
+// 0's 2 tiles at n0 = 16 in four quarters), so that all eight warps run at
+// most 16 k-steps, each pass and k-step parity summed in its own
+// accumulator (chains of at most 8 dependent mma.sync); da's and W's
+// fragments split into their TF32 halves in registers where they are read
+// (each weight is read by one warp once, each da value by the warps of its
+// K slice: a split copy would double s_a and cost the deepest prenet that
+// fits one layer); each warp's 16 x 8 partial goes to shared memory, and
+// the partials are summed in K order before the epilogue.
 //
 // Bound on the H100: 2*B*(M*P + (n-1)*P*P) operations (8.6 M at B=50, two
 // layers) and the weights, masks and cotangents once (0.35 MB), 0.10 us:
@@ -1729,11 +1830,18 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
 // ---------------------------------------------------------------------------
 constexpr int BP_ROWS = 16, BP_THREADS = 256, BP_WARPS = BP_THREADS / 32;
 
+// the K slices of a layer's product over n columns in float32: as many as
+// the warps that its n8 tiles leave (bwd_prenet_kernel<float>)
+__host__ __device__ inline int bp_splits(int n) {
+  return n / 8 < BP_WARPS ? BP_WARPS / (n / 8) : 1;
+}
+
 // shared-memory layout of bwd_prenet_kernel (byte offsets) for elements of
-// `es` bytes; rows padded by 16 bytes
+// `es` bytes; rows padded by 16 bytes (float32: a fragment's 32 words, rows
+// g and columns t, in distinct banks); float32 adds the warps' K partials
 struct BpLayout {
   int kp, ldw, ldo;
-  size_t w, pre, dx, a, own, total;
+  size_t w, pre, dx, a, own, part, total;
   __host__ __device__ BpLayout(int P, int np, int n0, int n_layers, int es) {
     kp = (P + 31) / 32 * 32;   // K of every layer's product, zero-padded
     ldw = kp + 16 / es;        // elements a row of the weights and of da
@@ -1743,7 +1851,10 @@ struct BpLayout {
     dx = pre + align16((size_t)n_layers * BP_ROWS * ldo * es);
     a = dx + align16((size_t)BP_ROWS * np * 4);
     own = a + align16((size_t)BP_ROWS * ldw * es);
-    total = own + 2 * align16((size_t)BP_ROWS * ldo * es);
+    part = own + 2 * align16((size_t)BP_ROWS * ldo * es);
+    const int parts_p = bp_splits(np) * np, parts_0 = bp_splits(n0) * n0;
+    const size_t parts = parts_p > parts_0 ? parts_p : parts_0;
+    total = part + (es == 4 ? align16((size_t)BP_ROWS * parts * 4) : 0);
   }
 };
 
@@ -1767,6 +1878,8 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
   float* s_dx = reinterpret_cast<float*>(bp_smem + L.dx);  // [ROWS][np]
   CT* s_a = reinterpret_cast<CT*>(bp_smem + L.a);          // [ROWS][ldw]
   CT* s_own = reinterpret_cast<CT*>(bp_smem + L.own);      // 2 x [ROWS][ldo]
+  // float32: the warps' K partials, [K slice][ROWS][n_l]
+  float* s_part = reinterpret_cast<float*>(bp_smem + L.part);
   const size_t own_slot = align16((size_t)BP_ROWS * ldo * sizeof(CT)) /
                           sizeof(CT);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1868,23 +1981,61 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
       }
     };
     if constexpr (F32) {
-      // a thread an output, the whole K in k order; a warp's lanes on
-      // consecutive columns (weight rows 16 bytes apart mod 128: no bank
-      // conflict), the da row a broadcast
-      for (int o = tid; o < mtiles * 16 * n_l; o += BP_THREADS) {
-        const int r = o / n_l, c = o - r * n_l;
-        const float* ar = s_a + (size_t)r * ldw;
-        const float* wr = w_l + (size_t)c * ldw;
-        float acc = 0.0f;
-        for (int k = 0; k < kp; k += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(ar + k);
-          const float4 y = *reinterpret_cast<const float4*>(wr + k);
-          acc = fmaf(x.x, y.x, acc);
-          acc = fmaf(x.y, y.y, acc);
-          acc = fmaf(x.z, y.z, acc);
-          acc = fmaf(x.w, y.w, acc);
+      // a warp per (n8 tile, K slice) of the 16 rows, three TF32 passes
+      // over the slice (at most 128 deep) with each pass and each k-step
+      // parity in an accumulator of its own: six chains of at most 8
+      // dependent mma.sync, not one of 48; then the warps' partials in K
+      // order
+      const int tiles = n_l / 8, splits = bp_splits(n_l);
+      const int kslice = (kp / splits + 7) / 8 * 8;
+      for (int pair = warp; pair < tiles * splits; pair += BP_WARPS) {
+        const int nt = pair % tiles, ks = pair / tiles;
+        const int k_lo = ks * kslice, k_hi = min(kp, k_lo + kslice);
+        // A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B "NK" (k t,
+        // n g), (k t + 4, n g): rows of ldw = kp + 4 words, 32 banks
+        const float* ar = s_a + (size_t)g * ldw + qd;
+        const float* wr = w_l + (size_t)(nt * 8 + g) * ldw + qd;
+        // acc[parity][pass]: a_lo b_hi, a_hi b_lo, a_hi b_hi
+        float acc[2][3][4] = {};
+        auto step = [&](int k, float (*c)[4]) {
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          ah[0] = __float_as_uint(ar[k]);
+          ah[1] = __float_as_uint(ar[8 * ldw + k]);
+          ah[2] = __float_as_uint(ar[k + 4]);
+          ah[3] = __float_as_uint(ar[8 * ldw + k + 4]);
+          bh[0] = __float_as_uint(wr[k]);
+          bh[1] = __float_as_uint(wr[k + 4]);
+          tf32_split<4>(ah, al, ah);
+          tf32_split<2>(bh, bl, bh);
+          mma_tf32(c[0], al, bh);
+          mma_tf32(c[1], ah, bl);
+          mma_tf32(c[2], ah, bh);
+        };
+        int k = k_lo;
+        for (; k + 8 < k_hi; k += 16) {
+          step(k, acc[0]);
+          step(k + 8, acc[1]);
         }
-        finish(r, c, acc);
+        if (k < k_hi) step(k, acc[0]);
+        // the small terms first, then the hi products
+        float sum[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sum[e] = ((acc[0][0][e] + acc[0][1][e]) +
+                    (acc[1][0][e] + acc[1][1][e])) +
+                   (acc[0][2][e] + acc[1][2][e]);
+        float* part = s_part + (size_t)ks * BP_ROWS * n_l + nt * 8 + 2 * qd;
+        *reinterpret_cast<float2*>(part + g * n_l) =
+            make_float2(sum[0], sum[1]);
+        *reinterpret_cast<float2*>(part + (g + 8) * n_l) =
+            make_float2(sum[2], sum[3]);
+      }
+      __syncthreads();
+      for (int o = tid; o < BP_ROWS * n_l; o += BP_THREADS) {
+        float acc = s_part[o];
+        for (int ks = 1; ks < splits; ++ks)
+          acc += s_part[(size_t)ks * BP_ROWS * n_l + o];
+        finish(o / n_l, o % n_l, acc);
       }
     } else {
       // a warp per (m tile, n8 tile), mma.sync
@@ -1954,8 +2105,8 @@ int train_attention_run(const void* q, void* cum, const void* memory,
                         int ld2, int B, int T, int A, int Mem, int K,
                         int tile, int cl, const TaAgent& ag, void* stream) {
   constexpr int es = sizeof(CT);
-  const int stage = ta_stage(tile, A, Mem, es);
-  const TaLayout L(tile, A, Mem, es, stage);
+  const int stage = ta_stage(tile, A, Mem, es, KIND == ATT_LS);
+  const TaLayout L(tile, A, Mem, es, stage, KIND == ATT_LS);
   const int vec = (uintptr_t)memory % 16 == 0 &&
                   ((long long)T * Mem) % (16 / es) == 0;
   return (int)launch_cluster(

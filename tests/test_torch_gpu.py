@@ -1456,6 +1456,53 @@ def test_bwd_prenet_matches_plain_at_flagship_widths(b, n_prenet, teacher):
         assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("n_prenet", [1, 2, 6])
+@pytest.mark.parametrize("b", [1, 50])
+def test_f32_bwd_prenet_matches_plain_up_to_its_deepest_prenet(b, n_prenet):
+    """``bwd_prenet``'s float32 instance (its products in three TF32 passes,
+    K split over the warps, the warps' partials summed in K order) at P=256
+    and M=80, a teacher step and a free-running one, up to six layers (the
+    deepest whose weight slices fit a CTA's shared memory in float32):
+    the masks replayed bit-exact, every output within F32_TOL of its
+    largest value, two runs bit-identical."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    p, m = 256, _MELS
+    cfg = ftd.TrainConfig(hidden=_HIDDEN, mem_dim=_MEM, prenet_dim=p,
+                          n_prenet=n_prenet, mmel=m, att_dim=_ATT,
+                          taps=_TAPS, dropout_rate=0.5, zoneout_h=0.1,
+                          zoneout_c=0.1, use_zoneout=True,
+                          dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(b + 10 * n_prenet)
+    n_w = m * p + (n_prenet - 1) * p * p
+    ops = {"pre_w": torch.randn(n_w, device="cuda", generator=gen) / 16.0,
+           "pre_b": torch.zeros(n_prenet * p, device="cuda")}
+    x = torch.randn(n_prenet, b, p, device="cuda", generator=gen)
+    keep = torch.rand(n_prenet, b, p, device="cuda", generator=gen) < 0.5
+    pre = x.clamp(min=0.0) * keep
+    dx = 0.1 * torch.randn(b, p, device="cuda", generator=gen)
+    for teacher in (0, 1):
+        def run(fn):
+            o = [torch.empty(n_prenet, b, p, device="cuda"),
+                 torch.empty(b, m, device="cuda"),
+                 torch.empty(b, m, device="cuda")]
+            fn(dx, pre, ops, cfg, teacher, *o)
+            return o
+
+        ftd.reset_launch_counts()
+        got = run(ftd.bwd_prenet)
+        assert ftd.LAUNCHES["bwd_prenet_f32"] == 1
+        again = run(ftd.bwd_prenet)
+        ref = run(ftd.PLAIN.bwd_prenet)
+        # the masks replayed bit-exact: the da streams' zeros
+        assert torch.equal(got[0] == 0, ref[0] == 0)
+        for g, a, r in zip(got, again, ref):
+            _f32_close(g, r)
+            assert torch.equal(g, a)
+
+
 def _prenet_operands(n_prenet, b, seed):
     """Random bf16 prenet weights and float32 biases at the flagship's
     widths (M=80, P=256), as K1's bundle and as the training decoder's

@@ -270,3 +270,230 @@ def test_swizzle_reads_are_free_of_bank_conflicts():
             first = band_swz(r0 + np.arange(8), col, ld) % 32
             banks = (first[:, None] + np.arange(4)[None]).ravel()
             assert len(set(banks.tolist())) == 32
+
+
+# ---------------------------------------------------------------------------
+# K2's float32 location-sensitive step and K3's float32 prenet backward
+# ---------------------------------------------------------------------------
+
+# the step's bound: every weight within this share of its row's largest
+# weight (the float32 step in three passes: about 1e-7)
+_STEP_TOL = 1e-6
+_PRENET_P, _PRENET_ROWS, _WARPS = 256, 16, 8
+
+
+def _attention_row(t_len, seed):
+    """One batch row of K2's step at the flagship's widths: the cum carry
+    (a ramp of attention mass plus noise), lc [32, A] (31 taps and a zero
+    32nd), q [A], mtb [T, A], v [A] (the init scale, 1/sqrt(A)) and a mask
+    with the last positions off, float32."""
+    rng = np.random.default_rng(seed)
+    cum = np.clip(np.linspace(2.0, -1.0, t_len)
+                  + 0.05 * rng.standard_normal(t_len), 0.0, None)
+    lc = 0.1 * rng.standard_normal((_BAND_K, _ATT))
+    lc[_TAPS:] = 0.0
+    q = 0.5 * rng.standard_normal(_ATT)
+    mtb = 0.5 * rng.standard_normal((t_len, _ATT))
+    v = rng.standard_normal(_ATT) / np.sqrt(_ATT)
+    mask = np.zeros(t_len)
+    mask[t_len - t_len // 10:] = -1e9
+    return tuple(torch.from_numpy(x.astype(np.float32))
+                 for x in (cum, lc, q, mtb, v, mask))
+
+
+def _staged_band(cum, t_len):
+    """band(cum) [T, 32] built as the kernel stages it: tiles of
+    ``att_bwd_tiles(T)`` positions, each CTA's cum row with its halo,
+    s_cum[i] = cum[t_lo + i - half] (zero outside [0, T)), and the tile's
+    rows r read as s_cum[r .. r + 32)."""
+    from multilingual_text_to_speech_tpu_torch.ops.fused_train_decoder import (
+        att_bwd_tiles,
+    )
+
+    tile, cluster = att_bwd_tiles(t_len)
+    half = (_TAPS - 1) // 2
+    padded = torch.zeros(t_len + cluster * tile + _BAND_K)
+    padded[half:half + t_len] = cum
+    rows = []
+    for rank in range(cluster):
+        s_cum = padded[rank * tile:rank * tile + tile + _BAND_K]
+        idx = torch.arange(tile)[:, None] + torch.arange(_BAND_K)[None]
+        rows.append(s_cum[idx])
+    return torch.cat(rows)[:t_len]
+
+
+def _attention_weights(t_len, passes):
+    """The step's weights (loc = band(cum) @ lc in ``passes`` TF32 passes,
+    then tanh((loc + q) + mtb), the v-sum, the mask and the softmax in
+    float32) against the same step in float64: the largest |difference|
+    over the row's largest weight."""
+    cum, lc, q, mtb, v, mask = _attention_row(t_len, seed=t_len)
+    band = _staged_band(cum, t_len)
+    loc = tf32_product(band, lc.T, passes)
+    e = (v * torch.tanh((loc + q) + mtb)).sum(-1) + mask
+    w = torch.softmax(e, -1)
+    band64 = band.double()
+    e64 = ((v.double() * torch.tanh(band64 @ lc.double() + q.double()
+                                    + mtb.double())).sum(-1)
+           + mask.double())
+    w64 = torch.softmax(e64, -1)
+    return float((w.double() - w64).abs().max() / w64.abs().max())
+
+
+@pytest.mark.parametrize("t_len", [128, 1500])
+def test_three_tf32_passes_hold_the_float32_attention_step(t_len):
+    """K2's float32 location-sensitive step with the band product in three
+    TF32 passes (A = 128, 31 taps in BAND_K = 32, 16-position tiles at T =
+    128, 192 at T = 1500): every weight within 1e-6 of the row's largest
+    against the step in float64."""
+    assert _attention_weights(t_len, passes=3) <= _STEP_TOL
+
+
+@pytest.mark.parametrize("t_len", [128, 1500])
+def test_one_tf32_pass_misses_the_float32_attention_step(t_len):
+    """The same step with the band product in one pass misses it."""
+    assert _attention_weights(t_len, passes=1) > _STEP_TOL
+
+
+def bp_splits(n):
+    """``csrc/fused_train_decoder.cu::bp_splits``: the K slices of a
+    float32 ``bwd_prenet`` layer over n columns, as many as the warps that
+    its n8 tiles leave."""
+    return _WARPS // (n // 8) if n // 8 < _WARPS else 1
+
+
+def _warp_partial(a, w, passes):
+    """A warp's partial over its K slice as ``bwd_prenet_kernel<float>``
+    sums it: each pass (a_lo w_hi, a_hi w_lo, a_hi w_hi; one pass: the
+    last alone) and each 8-deep k-step's parity in an accumulator of its
+    own, then the small terms' four sums, then the hi products' two."""
+    a_hi, a_lo = tf32_split(a)
+    w_hi, w_lo = tf32_split(w)
+    terms = [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)]
+    acc = torch.zeros(2, 3, a.shape[0], w.shape[0])
+    for step, k in enumerate(range(0, a.shape[1], 8)):
+        for j, (x, y) in enumerate(terms):
+            if passes == 3 or j == 2:
+                acc[step % 2, j] += x[:, k:k + 8] @ y[:, k:k + 8].T
+    return (((acc[0, 0] + acc[0, 1]) + (acc[1, 0] + acc[1, 1]))
+            + (acc[0, 2] + acc[1, 2]))
+
+
+def _bwd_prenet_layer(n, passes):
+    """One CTA's columns of a layer of K3's float32 prenet backward, dx =
+    da @ W^T at K = P = 256 over n columns and 16 rows: each warp's (n8
+    tile, K slice) partial in ``passes`` TF32 passes (``_warp_partial``),
+    the partials summed in K order in float32, against the float64
+    product: the largest |difference| over the largest output."""
+    rng = np.random.default_rng(n)
+    keep = rng.random((_PRENET_ROWS, _PRENET_P)) < 0.5
+    da = (0.2 * rng.standard_normal((_PRENET_ROWS, _PRENET_P)) * keep)
+    w = rng.standard_normal((n, _PRENET_P)) / np.sqrt(_PRENET_P)
+    da, w = (torch.from_numpy(x.astype(np.float32)) for x in (da, w))
+    splits = bp_splits(n)
+    kslice = (_PRENET_P // splits + 7) // 8 * 8
+    got = torch.zeros(_PRENET_ROWS, n)
+    for ks in range(splits):
+        k = slice(ks * kslice, min(_PRENET_P, (ks + 1) * kslice))
+        got += _warp_partial(da[:, k], w[:, k], passes)
+    ref = da.double() @ w.double().T
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("n", [32, 16])
+def test_three_tf32_passes_hold_bwd_prenet_float32_products(n):
+    """K3's float32 prenet backward: a P x P layer's 32 columns a CTA (4 n8
+    tiles in two K halves) and layer 0's 16 (2 tiles in four quarters),
+    three passes: within 1e-6 of the largest output."""
+    assert _bwd_prenet_layer(n, passes=3) <= _STEP_TOL
+
+
+@pytest.mark.parametrize("n", [32, 16])
+def test_one_tf32_pass_misses_bwd_prenet_float32_bound(n):
+    """The same products in one pass miss it."""
+    assert _bwd_prenet_layer(n, passes=1) > _STEP_TOL
+
+
+@pytest.mark.parametrize("n,p", [(32, 256), (16, 256), (24, 256), (64, 512),
+                                 (8, 32)])
+def test_bwd_prenet_k_split_covers_every_tile_and_k_once(n, p):
+    """The float32 ``bwd_prenet``'s warps (pair = warp, warp + 8, ...; n8
+    tile pair % tiles, K slice pair / tiles) take every (n8 tile, K slice)
+    once, and the K slices, 8-deep steps, tile [0, kp) in order (kp = P
+    rounded up to 32): at the flagship's np = 32 two halves, at n0 = 16
+    four quarters."""
+    kp = (p + 31) // 32 * 32
+    tiles, splits = n // 8, bp_splits(n)
+    kslice = (kp // splits + 7) // 8 * 8
+    seen = []
+    for warp in range(_WARPS):
+        for pair in range(warp, tiles * splits, _WARPS):
+            seen.append((pair % tiles, pair // tiles))
+    assert sorted(seen) == [(t, s) for t in range(tiles)
+                            for s in range(splits)]
+    steps = [k for s in range(splits)
+             for k in range(s * kslice, min(kp, (s + 1) * kslice), 8)]
+    assert steps == list(range(0, kp, 8))
+    assert {(32, 256): 2, (16, 256): 4}.get((n, p), splits) == splits
+
+
+def test_bwd_prenet_fragments_are_the_tiles_and_free_of_conflicts():
+    """The float32 ``bwd_prenet``'s fragment reads at rows of ldw = kp + 4
+    words: lane (g, t)'s A words ar[k], ar[8 ldw + k], ar[k + 4], ar[8 ldw
+    + k + 4] (ar = s_a + g ldw + t) are da's 16 x 8 tile at column k, its B
+    words wr[k], wr[k + 4] (wr = the weight rows + (8 nt + g) ldw + t) the
+    "NK" fragment (k t, n g) of W^T, and each read falls in 32 distinct
+    banks."""
+    kp = _PRENET_P
+    ldw = kp + 4
+    rng = np.random.default_rng(3)
+    da = rng.standard_normal((_PRENET_ROWS, kp)).astype(np.float32)
+    w = rng.standard_normal((32, kp)).astype(np.float32)
+    s_a = np.zeros(_PRENET_ROWS * ldw, np.float32)
+    s_w = np.zeros(32 * ldw, np.float32)
+    for r in range(_PRENET_ROWS):
+        s_a[r * ldw:r * ldw + kp] = da[r]
+    for r in range(32):
+        s_w[r * ldw:r * ldw + kp] = w[r]
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for k in range(0, kp, 8):
+        ar = g * ldw + t
+        a_words = [ar + k, ar + 8 * ldw + k, ar + k + 4, ar + 8 * ldw + k + 4]
+        for lane in range(32):
+            assert [float(s_a[x[lane]]) for x in a_words] == \
+                _tile_fragment(da, 0, k, lane)
+        for words in a_words:
+            assert len(set((words % 32).tolist())) == 32
+        for nt in range(4):
+            wr = (8 * nt + g) * ldw + t
+            for lane in range(32):
+                assert [float(s_w[wr[lane] + k]),
+                        float(s_w[wr[lane] + k + 4])] == \
+                    [float(w[8 * nt + g[lane], k + t[lane]]),
+                     float(w[8 * nt + g[lane], k + t[lane] + 4])]
+            for words in (wr + k, wr + k + 4):
+                assert len(set((words % 32).tolist())) == 32
+
+
+@pytest.mark.parametrize("a_dim", [128, 256])
+def test_swizzled_kn_fragment_is_the_lc_tile(a_dim):
+    """``train_attention``'s lc B fragments: lane (g, t) of the warp whose
+    channels start at n0 (16 a warp, two n8 groups) reads the swizzled
+    words (k0 + t, n0 + g) and (k0 + t + 4, n0 + g) (``band_frag_kn``):
+    the dense lc's (k t, n g) fragment, for every k step and channel group
+    of A = 128 and 256."""
+    rng = np.random.default_rng(a_dim)
+    lc = rng.standard_normal((_BAND_K, a_dim)).astype(np.float32)
+    s_lc = np.zeros(_BAND_K * a_dim, np.float32)
+    r = np.arange(_BAND_K)[:, None]
+    c = np.arange(a_dim)[None]
+    s_lc[band_swz(r, c, a_dim)] = lc
+    for n0 in range(0, a_dim, 8):
+        for k0 in range(0, _BAND_K, 8):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                got = [float(s_lc[band_swz(k0 + t + dk, n0 + g, a_dim)])
+                       for dk in (0, 4)]
+                assert got == [float(lc[k0 + t, n0 + g]),
+                               float(lc[k0 + t + 4, n0 + g])]

@@ -48,7 +48,11 @@ backward and attention-backward band products on the tensor cores, each
 product in one TF32 pass (``bwd_head``; ``att_bwd``'s loc, P and dlc),
 the Hankel fragment of cum one tap off, a swizzled "KN" fragment's second
 word read from its first row, one cluster rank's dlc partial left out, or
-lc's TF32 lo halves dropped; and runs the checks of that
+lc's TF32 lo halves dropped; and in K2's float32 location conv and K3's
+float32 prenet backward on the tensor cores, each product in one TF32
+pass, train_attention's Hankel fragment one tap off, lc's or da's TF32 lo
+halves dropped, one warp's partial energy or one K slice's partial of
+``bwd_prenet`` left out of its sum; and runs the checks of that
 kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
@@ -69,6 +73,8 @@ sum each ring stage's apart and add it on the CUDA cores (K1's, K2's and
 K3's float32 checks).
 
 ``time`` times each named variant's kernel and the checkout's own in turns
+(``--root DIR`` takes another checkout's package, e.g. the parent commit
+unpacked under ``build/``, as the one copied and timed as is)
 (as is, variant, variant, as is): ``lsa_attention`` at the serving path's
 B=240, T=128, W8A8, alone (``chip_smoke.device_ms``) and a step inside a
 32-step chunk (``torch.profiler``); ``att_bwd`` (in bf16 and float32) and
@@ -122,6 +128,15 @@ _TA_TAPS_ENERGIES = r"""  // 1. energies, a warp a position, a lane a channel: l
   __syncthreads();
 
 """
+
+class Alt(tuple):
+    """Alternative spans of one variant: the first whose piece occurs
+    exactly once in the source is replaced (so that one variant applies to
+    an earlier checkout's source, ``--root``, and to this one's)."""
+
+    def __new__(cls, *spans):
+        return super().__new__(cls, spans)
+
 
 # one TF32 pass in place of the three of warp_tf32x3 (the lo terms
 # dropped), on the fragments `a` and `b` of a warp's 32 x 32 tile, into
@@ -346,10 +361,56 @@ VARIANTS = {
         "K3f32:forward_transition_agent"),
     "f32_bwd_prenet_da_bf16": (
         "fused_train_decoder.cu",
-        "          const float4 x = *reinterpret_cast<const float4*>(ar + k);",
-        "          float4 x = *reinterpret_cast<const float4*>(ar + k);\n"
-        "          x = make_float4(round_bf16(x.x), round_bf16(x.y), "
-        "round_bf16(x.z), round_bf16(x.w));", "K3f32"),
+        "          tf32_split<4>(ah, al, ah);\n"
+        "          tf32_split<2>(bh, bl, bh);\n",
+        "          for (int i = 0; i < 4; ++i)\n"
+        "            ah[i] = __float_as_uint(round_bf16(__uint_as_float("
+        "ah[i])));\n"
+        "          tf32_split<4>(ah, al, ah);\n"
+        "          tf32_split<2>(bh, bl, bh);\n", "K3f32"),
+    # K2's float32 location conv and K3's float32 prenet backward on the
+    # tensor cores: each product in one TF32 pass, the Hankel fragment of
+    # cum one tap off (train_attention's own reads), lc's or da's TF32 lo
+    # halves dropped, one warp's partial energy left out of a position's
+    # sum, one K slice's partial left out of bwd_prenet's sum
+    "f32_train_attention_one_tf32_pass": (
+        "fused_train_decoder.cu",
+        "            mma_tf32x3(acc[h], ah, al, bh, bl);",
+        "            mma_tf32(acc[h], ah, bh);", "K2f32"),
+    "f32_train_attention_hankel_tap_off": (
+        "fused_train_decoder.cu",
+        "\n          band_frag_tf32(ah, s_cum + mt * 16 + 8 * ks, lane);\n"
+        "          band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, lane);",
+        "\n          band_frag_tf32(ah, s_cum + mt * 16 + 8 * ks + 1, lane);\n"
+        "          band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks + 1, lane);",
+        "K2f32"),
+    "f32_train_attention_lc_lo_dropped": (
+        "fused_train_decoder.cu",
+        "            tf32_split<2>(bh, bl, bh);\n"
+        "            mma_tf32x3(acc[h],",
+        "            tf32_split<2>(bh, bl, bh);\n"
+        "            bl[0] = bl[1] = 0u;\n"
+        "            mma_tf32x3(acc[h],", "K2f32"),
+    "f32_train_attention_warp_energy_dropped": (
+        "fused_train_decoder.cu",
+        "e += s_ep[w * tile + i];\n      s_e[i] = e + s_mask[i];",
+        "e += w < TA_WARPS - 1 ? s_ep[w * tile + i] : 0.0f;\n"
+        "      s_e[i] = e + s_mask[i];", "K2f32"),
+    "f32_bwd_prenet_one_tf32_pass": (
+        "fused_train_decoder.cu",
+        "          mma_tf32(c[0], al, bh);\n          mma_tf32(c[1], ah, bl);\n",
+        "", "K3f32"),
+    "f32_bwd_prenet_da_lo_dropped": (
+        "fused_train_decoder.cu",
+        "          tf32_split<4>(ah, al, ah);\n"
+        "          tf32_split<2>(bh, bl, bh);\n",
+        "          tf32_split<4>(ah, al, ah);\n"
+        "          tf32_split<2>(bh, bl, bh);\n"
+        "          al[0] = al[1] = al[2] = al[3] = 0u;\n", "K3f32"),
+    "f32_bwd_prenet_k_partial_dropped": (
+        "fused_train_decoder.cu",
+        "        for (int ks = 1; ks < splits; ++ks)",
+        "        for (int ks = 1; ks < splits - 1; ++ks)", "K3f32"),
     "train_attention_taps": (
         "fused_train_decoder.cu",
         [("  // 1. energies: loc = band(cum) @ lc",
@@ -420,6 +481,108 @@ VARIANTS = {
         "tile.cuh",
         "  return (row * ld + col) ^ (((row & 3) << 3) | (((row >> 2) & 1) "
         "<< 2));", "  return row * ld + col;", "time K3"),
+    # what each part of the float32 train_attention and bwd_prenet costs:
+    # the kernel with one part left out (wrong results; timing only).
+    # train_attention: the location conv (loc = 0), the tanh of the energy
+    # (the sum of v * z), the context sum (its partials unwritten);
+    # bwd_prenet: the product (each output from one da and one weight),
+    # the gather of the da rows over distributed shared memory
+    "train_attention_f32_no_band": (
+        "fused_train_decoder.cu", [Alt(
+            ("? (band_loc_f32(s_cum + i, s_lc + a, ld) + s_q[a]) + mt",
+             "? (0.0f + s_q[a]) + mt"),
+            ("            mma_tf32x3(acc[h], ah, al, bh, bl);",
+             "            ;"))],
+        "time K2"),
+    "train_attention_f32_no_tanh": (
+        "fused_train_decoder.cu", [Alt(
+            ("e = fmaf(s_v[a], tanhf(z), e);", "e = fmaf(s_v[a], z, e);"),
+            ("          e0 = fmaf(v0, band_energy_tanh<float>(acc[h][0], q0, "
+             "m0.x), e0);\n"
+             "          e0 = fmaf(v1, band_energy_tanh<float>(acc[h][1], q1, "
+             "m0.y), e0);\n"
+             "          e1 = fmaf(v0, band_energy_tanh<float>(acc[h][2], q0, "
+             "m1.x), e1);\n"
+             "          e1 = fmaf(v1, band_energy_tanh<float>(acc[h][3], q1, "
+             "m1.y), e1);",
+             "          e0 = fmaf(v0, (acc[h][0] + q0) + m0.x, e0);\n"
+             "          e0 = fmaf(v1, (acc[h][1] + q1) + m0.y, e0);\n"
+             "          e1 = fmaf(v0, (acc[h][2] + q0) + m1.x, e1);\n"
+             "          e1 = fmaf(v1, (acc[h][3] + q1) + m1.y, e1);"))],
+        "time K2"),
+    "train_attention_f32_no_ctx": (
+        "fused_train_decoder.cu",
+        [("  ctx_partials<!F32>(L.cs, s_cpart,",
+          "  if constexpr (!F32)\n  ctx_partials<!F32>(L.cs, s_cpart,")],
+        "time K2"),
+    "bwd_prenet_f32_no_product": (
+        "fused_train_decoder.cu", [Alt(
+            ("        for (int k = 0; k < kp; k += 4) {\n"
+             "          const float4 x",
+             "        for (int k = 0; k < 0; k += 4) {\n"
+             "          const float4 x"),
+            ("        for (; k + 8 < k_hi; k += 16) {",
+             "        for (k = k_hi; k + 8 < k_hi; k += 16) {"))],
+        "time K3"),
+    "bwd_prenet_f32_no_gather": (
+        "fused_train_decoder.cu",
+        [("    cluster_gather_rows(s_a, ldw, own, ldo, np, cl, mtiles * 16,",
+          "    if constexpr (!F32)\n"
+          "    cluster_gather_rows(s_a, ldw, own, ldo, np, cl, mtiles * 16,")],
+        "time K3"),
+    # the float32 bwd_prenet with one accumulator a warp, the three passes
+    # summed straight in (one chain of up to 48 dependent mma.sync), where
+    # the checkout keeps six; train_attention's float32 instance without
+    # its launch bound (80 registers, three CTAs an SM)
+    "bwd_prenet_f32_one_chain": (
+        "fused_train_decoder.cu",
+        [("          mma_tf32(c[0], al, bh);\n          mma_tf32(c[1], ah, bl);\n"
+          "          mma_tf32(c[2], ah, bh);",
+          "          mma_tf32x3(c[0], ah, al, bh, bl);"),
+         ("          step(k + 8, acc[1]);", "          step(k + 8, acc[0]);")],
+        "time K3"),
+    # the prenet backward with 512 threads a CTA (both instances; float32:
+    # twice the K slices); the float32 da rows split once into their TF32
+    # halves after the gather (a lo copy of s_a), where the checkout splits
+    # each fragment in registers
+    "bwd_prenet_threads_512": (
+        "fused_train_decoder.cu",
+        "constexpr int BP_ROWS = 16, BP_THREADS = 256,",
+        "constexpr int BP_ROWS = 16, BP_THREADS = 512,", "time K3"),
+    "bwd_prenet_f32_da_split_once": (
+        "fused_train_decoder.cu",
+        [("    total = part + (es == 4 ? align16((size_t)BP_ROWS * parts * 4) "
+          ": 0);",
+          "    total = part + (es == 4 ? align16((size_t)BP_ROWS * parts * 4) "
+          ": 0) + (es == 4 ? align16((size_t)BP_ROWS * ldw * 4) : 0);"),
+         ("  float* s_part = reinterpret_cast<float*>(bp_smem + L.part);",
+          "  float* s_part = reinterpret_cast<float*>(bp_smem + L.part);\n"
+          "  float* s_a_lo = reinterpret_cast<float*>(bp_smem + L.total) - "
+          "BP_ROWS * ldw;"),
+         ("    if (l == n_layers - 1) cp_async_wait<0>();   // the weights\n"
+          "    __syncthreads();\n",
+          "    if (l == n_layers - 1) cp_async_wait<0>();   // the weights\n"
+          "    __syncthreads();\n"
+          "    if constexpr (F32) {\n"
+          "      for (int i = tid; i < BP_ROWS * ldw; i += BP_THREADS)\n"
+          "        tf32_split_store(s_a + i, s_a_lo + i, s_a[i]);\n"
+          "      __syncthreads();\n"
+          "    }\n"),
+         ("        const float* wr = w_l + (size_t)(nt * 8 + g) * ldw + qd;\n",
+          "        const float* wr = w_l + (size_t)(nt * 8 + g) * ldw + qd;\n"
+          "        const float* arl = s_a_lo + (size_t)g * ldw + qd;\n"),
+         ("          tf32_split<4>(ah, al, ah);\n"
+          "          tf32_split<2>(bh, bl, bh);\n",
+          "          al[0] = __float_as_uint(arl[k]);\n"
+          "          al[1] = __float_as_uint(arl[8 * ldw + k]);\n"
+          "          al[2] = __float_as_uint(arl[k + 4]);\n"
+          "          al[3] = __float_as_uint(arl[8 * ldw + k + 4]);\n"
+          "          tf32_split<2>(bh, bl, bh);\n")],
+        "time K3"),
+    "train_attention_f32_unbounded": (
+        "fused_train_decoder.cu",
+        "__global__ void __launch_bounds__(TA_THREADS, 4)",
+        "__global__ void __launch_bounds__(TA_THREADS)", "time K2"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -578,12 +741,31 @@ for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
              rnd(b, mem), None, torch.empty(b, mem, device="cuda"), cfg)
     res[f"bwd_head_ms_{{name}}"] = cs.device_ms(
         lambda: ftd.bwd_head(*hargs, cell=cell), ours_only=True)
+# bwd_prenet at B=50, P=256, M=80, two layers, a teacher step, masks of
+# half the values
+p, n = 256, 2
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    tc = ftd.TrainConfig(hidden=h, mem_dim=mem, prenet_dim=p, n_prenet=n,
+                         mmel=m, att_dim=a, taps=k, dropout_rate=0.5,
+                         zoneout_h=0.1, zoneout_c=0.1, use_zoneout=True,
+                         dtype=ct)
+    pops = {{"pre_w": rnd(m * p + (n - 1) * p * p, scale=1 / 16).to(ct),
+            "pre_b": torch.zeros(n * p, device="cuda")}}
+    keep = torch.rand(n, b, p, device="cuda", generator=gen) < 0.5
+    pre = (rnd(n, b, p).clamp(min=0.0) * keep).to(ct)
+    pargs = (rnd(b, p, scale=0.1), pre, pops, tc, 1,
+             torch.empty(n, b, p, dtype=ct, device="cuda"),
+             torch.empty(b, m, dtype=ct, device="cuda"),
+             torch.empty(b, m, device="cuda"))
+    res[f"bwd_prenet_ms_{{name}}"] = cs.device_ms(
+        lambda: ftd.bwd_prenet(*pargs), ours_only=True)
 print("VARIANT_RESULT " + json.dumps(res))
 """
 
 
 # train_attention at B=50, T=128 and the flagship's widths on random
-# inputs, the cum carry and the context updated in place
+# inputs, the cum carry and the context updated in place, in both compute
+# types
 _TIME_K2 = _PRELUDE + r"""
 from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
 torch.set_grad_enabled(False)
@@ -591,18 +773,20 @@ b, t, a, mem, k = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 31
 gen = torch.Generator(device="cuda").manual_seed(0)
 def rnd(*shape, scale=1.0):
     return torch.randn(*shape, device="cuda", generator=gen) * scale
-bf = torch.bfloat16
-cum = rnd(b, t).abs()
-ctx = torch.empty(b, mem, device="cuda")
-outs = (torch.empty(b, t, device="cuda"), torch.empty(b, t, dtype=bf,
-        device="cuda"))
-dsts = [torch.empty(b, mem, dtype=bf, device="cuda") for _ in range(3)]
-args = (rnd(b, a).to(bf).float(), cum, rnd(b, t, mem).to(bf),
-        rnd(b, t, a, scale=0.5).to(bf), torch.zeros(b, t, device="cuda"),
-        rnd(k, a, scale=0.1).to(bf), rnd(a, scale=a ** -0.5), *outs, ctx,
-        dsts)
-alone = cs.device_ms(lambda: ftd.train_attention(*args), ours_only=True)
-print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone}}))
+res = {{}}
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    cum = rnd(b, t).abs()
+    ctx = torch.empty(b, mem, device="cuda")
+    outs = (torch.empty(b, t, device="cuda"),
+            torch.empty(b, t, dtype=ct, device="cuda"))
+    dsts = [torch.empty(b, mem, dtype=ct, device="cuda") for _ in range(3)]
+    args = (rnd(b, a).to(ct).float(), cum, rnd(b, t, mem).to(ct),
+            rnd(b, t, a, scale=0.5).to(ct), torch.zeros(b, t, device="cuda"),
+            rnd(k, a, scale=0.1).to(ct), rnd(a, scale=a ** -0.5), *outs, ctx,
+            dsts)
+    res[f"alone_ms_{{name}}"] = cs.device_ms(
+        lambda: ftd.train_attention(*args), ours_only=True)
+print("VARIANT_RESULT " + json.dumps(res))
 """
 
 
@@ -647,6 +831,9 @@ def make_copy(name: str) -> Path:
         path = root / PKG / "csrc" / source
         text = path.read_text()
         for span in spans:
+            if isinstance(span, Alt):
+                span = next((x for x in span if text.count(x[0]) == 1),
+                            span[0])
             start, end, repl = span if len(span) == 3 else (span[0], None,
                                                              span[1])
             if text.count(start) != 1:
@@ -769,7 +956,14 @@ def main() -> int:
                     "time: " + ", ".join(
                         k for k in VARIANTS
                         if _kind(k).startswith(("time", "design"))))
+    ap.add_argument("--root", type=Path, default=None,
+                    help="the checkout whose package is copied and timed "
+                    "as is (default: this one), e.g. the parent commit "
+                    "unpacked under build/")
     args = ap.parse_args()
+    if args.root is not None:
+        global ROOT
+        ROOT = args.root.resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -3,7 +3,8 @@
 one or more checkouts, on a machine with the CUDA toolkit.
 
     python3 tools/torch_sass_counts.py [ROOT ...] [--kernel att_bwd_kernel
-        --kernel bwd_head_kernel] [--op HMMA.1688.F32.TF32 --op FFMA ...]
+        --kernel bwd_head_kernel --kernel train_attention_kernel
+        --kernel bwd_prenet_kernel] [--op HMMA.1688.F32.TF32 --op FFMA ...]
 
 Each ROOT (the checkout itself when none is given) builds
 ``csrc/fused_train_decoder.cu`` as the port does (``ops/_build.py``, into
@@ -59,7 +60,8 @@ def main() -> int:
                     default=None, help="a piece of the mangled name")
     ap.add_argument("--op", action="append", default=None)
     args = ap.parse_args()
-    kernels = args.kernel or ["att_bwd_kernel", "bwd_head_kernel"]
+    kernels = args.kernel or ["att_bwd_kernel", "bwd_head_kernel",
+                              "train_attention_kernel", "bwd_prenet_kernel"]
     ops = args.op or ["HMMA.1688.F32.TF32", "HMMA.16816", "FFMA", "LDSM",
                       "LDGSTS"]
     result = {}
