@@ -157,11 +157,11 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 # (csrc/tile.cuh mma_tf32x3): bound by three times their products'
 # operations at the TF32 peak and the rest on FFMA (row_ops), the FFMA
 # bound printed beside it.  At the training path's shapes bwd_head,
-# att_bwd, train_attention and bwd_prenet stay bound by their bytes either
-# way
+# att_bwd, train_attention and both prenets stay bound by their bytes
+# either way
 TF32X3_ROWS = ("gate_lstm", "head", "train_gate_lstm", "train_query",
                "train_head", "bwd_gemm", "bwd_head", "att_bwd",
-               "train_attention", "bwd_prenet")
+               "train_attention", "bwd_prenet", "prenet", "train_prenet")
 # Tolerances of kernel vs plain on the same inputs, set a few times above
 # the errors measured on an H100 (PERF.md): float32 sums in another order,
 # and bfloat16 roundings that a one-ulp difference can flip.
@@ -341,41 +341,84 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# (found, expected) device events of the last device_ms call
+LAST_EVENTS = (0, 0)
+
+
+def _launch_total() -> int:
+    """The port's kernel launches so far, both decoders' wrappers'."""
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    # "bwd_cell" counts launches that bwd_head's and bwd_gemm's keys count
+    return sum(fd.LAUNCHES.values()) + sum(
+        v for k, v in ftd.LAUNCHES.items() if not k.startswith("bwd_cell"))
+
+
 def device_ms(fn, iters: int = 10, warmup: int = 2,
               ours_only: bool = False) -> float:
-    """Device time of one ``fn()`` call: the sum of the device kernels (and
-    copies) that ``torch.profiler`` records over ``iters`` calls, divided by
-    ``iters``; with ``ours_only``, only the port's own kernels (anonymous
+    """Device time of one ``fn()`` call from the device kernels (and
+    copies) that ``torch.profiler`` records over sessions of ``iters``
+    calls; with ``ours_only``, only the port's own kernels (anonymous
     namespace), not PyTorch's copies of the inputs.  Unlike CUDA events
     around the calls, it leaves out the gaps while the host prepares the
     next launch.  The profiler now and then delivers only some of a
-    session's device events, or none: two sessions run, and the one that
-    recorded more events counts; when neither recorded any, a third runs,
-    and after three empty ones the call is timed with CUDA events instead
-    (the whole call, gaps included), which the line printed says."""
+    session's device events, or none, so the time counts only the calls
+    whose events it recorded: for each kernel name its mean event time
+    times its events a call (the most that one session recorded, over
+    ``iters``, rounded up), summed over the names.  Two sessions run, a
+    third when they found no event or (``ours_only``) fewer kernels a call
+    than the port's wrappers launch (``LAUNCHES``); ``LAST_EVENTS`` holds
+    how many of the expected events were found.  After three sessions
+    without an event the call is timed with CUDA events instead (the whole
+    call, gaps included), which the line printed says."""
+    global LAST_EVENTS
+    import math
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    before = _launch_total() if ours_only else 0
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    best = (0, 0.0)            # (events, their total us) of the fullest
+    launches = (_launch_total() - before) / warmup if ours_only else 0
+    spans, most = {}, {}       # every event's us by name; most in a session
     for session in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (not ours_only or "(anonymous namespace)::" in e.name)]
-        if len(spans) > best[0]:
-            best = (len(spans), sum(spans))
-        if best[0] and session >= 1:
-            return best[1] / iters / 1e3
-    say("[time] the profiler recorded no device events in three sessions:"
-        " the next time is CUDA events around the whole call")
+        count = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and (
+                    not ours_only or "(anonymous namespace)::" in e.name):
+                spans.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+                count[e.name] = count.get(e.name, 0) + 1
+        for name, n in count.items():
+            most[name] = max(most.get(name, 0), n)
+        per_call = {k: math.ceil(n / iters) for k, n in most.items()}
+        if session >= 1 and per_call and sum(per_call.values()) >= launches:
+            found = sum(len(v) for v in spans.values())
+            LAST_EVENTS = (found,
+                           (session + 1) * iters * sum(per_call.values()))
+            return sum(sum(spans[k]) / len(spans[k]) * per_call[k]
+                       for k in per_call) / 1e3
+    LAST_EVENTS = (sum(len(v) for v in spans.values()), 0)
+    say("[time] the profiler recorded no device events (or too few kernels)"
+        " in three sessions: the next time is CUDA events around the whole"
+        " call")
     return cuda_ms(fn, iters=iters, warmup=0)
+
+
+def events_note() -> str:
+    """How many of the expected device events the last device_ms found."""
+    found, expected = LAST_EVENTS
+    return (f"events {found}/{expected}" if expected else
+            f"events {found}/?, CUDA events")
 
 
 def bound_ms(n_bytes: float, parts):
@@ -1124,6 +1167,7 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
         if only is not None and name not in only:
             continue
         ms = device_ms(kernel, ours_only=True)
+        events = events_note()
         plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(library[name]) if name in library else None
         n_bytes, ops, op_kind = work[name]
@@ -1140,7 +1184,7 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
             "bound_by": b_by, "library_ms": lib_ms,
         })
         say(f"[time] {inst} (device time, torch.profiler): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{ms:.4f} ms ({events}), plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.5f} ms ({b_by}, "
             f"{row_ops(name, ops, op_kind)[0][1]}){ffma}, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -2558,6 +2602,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
             # what the two cells add to the launches that run them
             ms = (rows_ms["bwd_head"] + alone["dq_product_with_cell"]
                   - alone["bwd_head"] - alone["dq_product"])
+            events = "a difference of readings"
             plain_ms = device_ms(lambda: unfused["cells_alone"](ftd.PLAIN),
                                  iters=5)
             say(f"[train:time] bwd_cell fused: bwd_head {alone['bwd_head']:.4f}"
@@ -2569,6 +2614,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
         else:
             ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True,
                            iters=cell_iters if name == "bwd_head" else 10)
+            events = events_note()
             plain_ms = device_ms(lambda: run(ftd.PLAIN), iters=5)
         rows_ms[name] = ms
         lib_ms = device_ms(library[name]) if name in library else None
@@ -2591,7 +2637,7 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
                       f"{alone['bwd_head']:.4f} ms)"
                       if name == "bwd_head" and "bwd_head" in alone else "")
         say(f"[train:time] {inst} (device time, torch.profiler): kernel "
-            f"{ms:.4f} ms, plain "
+            f"{ms:.4f} ms ({events}), plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){ffma}, "
             f"library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"

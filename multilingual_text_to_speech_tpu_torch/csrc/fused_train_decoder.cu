@@ -1122,10 +1122,14 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 // ops/pallas_train_decoder.py:857-896) has no location conv and no band
 // product.  Each CTA replays its positions' energies (a warp a position,
 // bf16(tanh(bf16(q + mtb))) kept in shared memory for dz) and, with
-// exchanges of tile maxima and sums in rank order, the row's softmax and
-// the recurrence from the stored state (the tile's first position reads
-// its neighbour's last state as a halo), the masked w and the renorm's sum
-// of max(w, 1e-6); then
+// exchanges in rank order, the row's softmax (each tile's max m_j and sum
+// s_j of exp(e - m_j) at one exchange, the row's sum sum_j s_j exp(m_j -
+// m)) and the recurrence from the stored state (the tile's first position
+// reads its neighbour's last state as a halo), the masked w and the
+// renorm's sum of max(w, 1e-6), exchanged with the sums below that need
+// only it as a divisor (pe = sum_t [w_s > 1e-6] (dw - s1) comb energy /
+// sum, and dtp's likewise), so that the replay crosses two cluster
+// barriers and the dv and dq partials a third; then
 //   dwc = (dw - sum_t dw w_s) / sum;  dw_raw = wm > 1e-6 ? dwc : 0
 //   denergy = dw_raw comb;  dcomb = dw_raw energy
 //   dcum[t] = dcomb[t] + bf16(dcomb[t+1])          (assigned: the state is
@@ -1133,7 +1137,11 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 //   dtp = sum_t dcomb (bf16(prev[t-1]) - prev[t])  (into the dtp carry)
 //   de = energy (denergy - sum_t denergy energy)
 // with dcomb[t+1] of the tile's last position read from the next CTA, and
-// dz, dmt, dv and dq as above (a thread a channel down the tile).  With
+// dz, dmt, dv and dq as above, with every thread busy: a thread a channel
+// pair and a group of the tile's positions (AbFamMap), its dmt pairs read
+// as 8-byte loads, AB_DZ_BATCH in flight before the arithmetic, and the
+// groups' dv and dq partials summed in shared memory in group order before
+// the cluster's rank-order sum.  With
 // the transition agent, the prologue runs the agent's backward
 // (pallas_train_decoder.py:759-785, :936-937): dlin = dtp tp (1 - tp) from
 // the dtp carry that the next step left and the step's own tp, which the
@@ -1169,6 +1177,22 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 // widths; the launcher refuses a tile that does not fit.
 // ---------------------------------------------------------------------------
 constexpr int AB_THREADS = 256, AB_WARPS = AB_THREADS / 32;
+// the forward family's dz pass: positions a thread loads at once
+constexpr int AB_DZ_BATCH = 4;
+
+// the forward family's dz pass over a tile of `rows` positions and A
+// channels (A even: the launcher's check): a thread a channel pair (a, a +
+// 1) and a group of the positions, as many groups as the threads leave
+// (A = 128: 64 pairs x 4 groups, 4 positions a thread at T = 128's tiles of
+// 16, 48 at T = 1,500's tiles of 192, looped AB_DZ_BATCH at a time)
+struct AbFamMap {
+  int pairs, groups, per;
+  __host__ __device__ AbFamMap(int A, int rows) {
+    pairs = (A + 1) / 2;
+    groups = pairs < AB_THREADS ? AB_THREADS / pairs : 1;
+    per = (rows + groups - 1) / groups;
+  }
+};
 
 // the forward family's operands of att_bwd (null for location-sensitive;
 // all but mask_add null without the transition agent)
@@ -1186,7 +1210,8 @@ struct AbFam {
 
 // shared-memory layout of att_bwd_kernel (byte offsets) for compute-type
 // elements of `es` bytes; the forward family needs no band operands but
-// five float rows of its tile and the tile's energy terms.  bf16: lc's and
+// five float rows of its tile, the tile's energy terms and its dz pass's
+// dv and dq partials by position group ([groups][A] each, AbFamMap).  bf16: lc's and
 // dz's rows of ld = A + 8 elements, for ldmatrix.  float32 (tf32): lc's hi
 // and lo tiles and dz's, swizzled rows of ld = A words (band_swz); dlc's
 // partial takes lc's hi rows once P has read them, w P's rows until P is
@@ -1195,7 +1220,7 @@ struct AbFam {
 struct AbLayout {
   int ld;
   size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, cum_lo, red, s1,
-      fam, tz, total;
+      fam, tz, gdv, gdq, total;
   __host__ __device__ AbLayout(int tile, int A, int Mem, bool family, int es) {
     const bool tf32 = es == 4 && !family;
     ld = tf32 ? A : A + 8;
@@ -1217,7 +1242,12 @@ struct AbLayout {
     s1 = red + 32 * 4;
     fam = s1 + 32;
     tz = fam + (family ? align16((size_t)5 * tile * 4) : 0);
-    total = tz + (family ? align16((size_t)tile * A * es) : 0);
+    // groups x A <= max(2 x AB_THREADS, A) floats
+    const size_t gp = family ? align16(
+        (size_t)(A > 2 * AB_THREADS ? A : 2 * AB_THREADS) * 4) : 0;
+    gdv = tz + (family ? align16((size_t)tile * A * es) : 0);
+    gdq = gdv + gp;
+    total = gdq + gp;
   }
 };
 
@@ -1269,6 +1299,9 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
   float* s_wm = s_comb + tile;
   float* s_dcb = s_wm + tile;
   CT* s_tz = reinterpret_cast<CT*>(ab_smem + L.tz);            // [tile][A]
+  // the family's dv and dq partials by position group, [groups][A] each
+  float* s_gdv = reinterpret_cast<float*>(ab_smem + L.gdv);
+  float* s_gdq = reinterpret_cast<float*>(ab_smem + L.gdq);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
@@ -1323,7 +1356,9 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
   }
   __syncthreads();
 
-  // dw, a warp per position: 16-byte loads of the row's aligned body
+  // dw, a warp per position: 16-byte loads of the row's aligned body; the
+  // forward family's energy there too, its mtb row read beside the memory
+  // row and its tanh terms kept for dz
   for (int i = warp; i < tile; i += AB_WARPS) {
     const int t = t_lo + i;
     float part = 0.0f;
@@ -1344,6 +1379,32 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
       if (rest + lane < Mem)
         part = fmaf(to_float(row[rest + lane]), s_dctx[rest + lane], part);
     }
+    if constexpr (KIND != ATT_LS) {
+      float e = 0.0f;
+      if (t < T) {
+        if constexpr (F32) {
+          for (int a = lane; a < A; a += 32) {
+            const float tz = fwd_energy_tanh<CT>(s_q[a],
+                                                 mtb[(rowT + t) * A + a]);
+            s_tz[i * A + a] = tz;
+            e = fmaf(s_v[a], tz, e);
+          }
+        } else {
+          for (int a = 2 * lane; a < A; a += 64) {
+            const __nv_bfloat162 m2 = *reinterpret_cast<const __nv_bfloat162*>(
+                mtb + (rowT + t) * A + a);
+            const float tz0 = fwd_energy_tanh(s_q[a], __low2float(m2));
+            const float tz1 = fwd_energy_tanh(s_q[a + 1], __high2float(m2));
+            *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
+                __floats2bfloat162_rn(tz0, tz1);
+            e = fmaf(s_v[a], tz0, e);
+            e = fmaf(s_v[a + 1], tz1, e);
+          }
+        }
+      }
+      e = warp_sum(e);
+      if (lane == 0) s_en[i] = e;
+    }
     part = warp_sum(part);
     if (lane == 0)
       s_de[i] = t < T ? dw_out[rowT + t] + dcum[rowT + t] + part : 0.0f;
@@ -1357,41 +1418,19 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
   if (tid == 0) s_s1[0] = s1;
 
   if constexpr (KIND != ATT_LS) {
-    // the energies of the tile's positions, a warp a position; their
-    // tanh terms kept for dz
-    for (int i = warp; i < tile; i += AB_WARPS) {
-      const int t = t_lo + i;
-      float e = 0.0f;
-      if (t < T) {
-        if constexpr (F32) {
-          for (int a = lane; a < A; a += 32) {
-            const float tz = fwd_energy_tanh<CT>(s_q[a],
-                                                 mtb[(rowT + t) * A + a]);
-            s_tz[i * A + a] = tz;
-            e = fmaf(s_v[a], tz, e);
-          }
-        } else {
-          for (int a = 2 * lane; a < A; a += 64) {
-            const __nv_bfloat162 m2 =
-                *reinterpret_cast<const __nv_bfloat162*>(mtb + (rowT + t) * A +
-                                                         a);
-            const float tz0 = fwd_energy_tanh(s_q[a], __low2float(m2));
-            const float tz1 = fwd_energy_tanh(s_q[a + 1], __high2float(m2));
-            *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
-                __floats2bfloat162_rn(tz0, tz1);
-            e = fmaf(s_v[a], tz0, e);
-            e = fmaf(s_v[a + 1], tz1, e);
-          }
-        }
-      }
-      e = warp_sum(e);
-      if (lane == 0) s_en[i] = e;
-    }
-    __syncthreads();
+    // the tile's max m_j and its sum s_j of exp(e - m_j), published with
+    // s1 at one exchange: the row's sum is sum_j s_j exp(m_j - m), in rank
+    // order
     float mx = -CUDART_INF_F;
     for (int i = tid; i < rows; i += AB_THREADS) mx = fmaxf(mx, s_en[i]);
     mx = block_reduce<true>(mx, s_red);
-    if (tid == 0) s_s1[1] = mx;
+    float psum = 0.0f;
+    for (int i = tid; i < rows; i += AB_THREADS) psum += expf(s_en[i] - mx);
+    psum = block_reduce<false>(psum, s_red);
+    if (tid == 0) {
+      s_s1[1] = mx;
+      s_s1[2] = psum;
+    }
     cluster_sync();
     s1 = 0.0f;
     mx = -CUDART_INF_F;
@@ -1399,22 +1438,17 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
       s1 += cluster_peer(s_s1, j)[0];
       mx = fmaxf(mx, cluster_peer(s_s1, j)[1]);
     }
-    float psum = 0.0f;
-    for (int i = tid; i < rows; i += AB_THREADS) {
-      const float p = expf(s_en[i] - mx);
-      s_en[i] = p;
-      psum += p;
-    }
-    psum = block_reduce<false>(psum, s_red);
-    if (tid == 0) s_s1[2] = psum;
-    cluster_sync();
     psum = 0.0f;
-    for (int j = 0; j < cl; ++j) psum += cluster_peer(s_s1, j)[2];
-    // the replayed recurrence, the mask and the renorm's sum
+    for (int j = 0; j < cl; ++j)
+      psum += cluster_peer(s_s1, j)[2] * expf(cluster_peer(s_s1, j)[1] - mx);
+    // the replayed recurrence, the mask and the renorm's sum, published
+    // with what the renorm's backward sums: over the unfloored positions,
+    // (dw - s1) comb energy (pe times the renorm's sum) and (dw - s1)
+    // energy (shifted - prev) (dtp's)
     const float tp = KIND == ATT_FWD_TRANS ? fa.tp_prev[b] : 0.0f;
-    float nsum = 0.0f;
+    float nsum = 0.0f, pe = 0.0f, pt = 0.0f;
     for (int i = tid; i < rows; i += AB_THREADS) {
-      const float energy = s_en[i] / psum;
+      const float energy = expf(s_en[i] - mx) / psum;
       const float prev = s_prev[i];
       const float sh = i > 0 ? s_prev[i - 1] : s_s1[6];
       const float comb = KIND == ATT_FWD_TRANS
@@ -1426,42 +1460,105 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
       s_comb[i] = comb;
       s_wm[i] = wm;
       nsum += fmaxf(wm, 1e-6f);
+      if (wm > 1e-6f) {
+        const float d = s_de[i] - s1;
+        pe = fmaf(d * comb, energy, pe);
+        if (KIND == ATT_FWD_TRANS) pt = fmaf(d * energy, sh - prev, pt);
+      }
     }
     nsum = block_reduce<false>(nsum, s_red);
-    if (tid == 0) s_s1[3] = nsum;
-    cluster_sync();
-    nsum = 0.0f;
-    for (int j = 0; j < cl; ++j) nsum += cluster_peer(s_s1, j)[3];
-    // the renorm's and the floor's backward, then the recurrence's
-    float pe = 0.0f, pt = 0.0f;
-    for (int i = tid; i < rows; i += AB_THREADS) {
-      const float dwc = (s_de[i] - s1) / nsum;
-      const float dwr = s_wm[i] > 1e-6f ? dwc : 0.0f;
-      const float den = dwr * s_comb[i], dcb = dwr * s_en[i];
-      s_de[i] = den;
-      s_dcb[i] = dcb;
-      pe = fmaf(den, s_en[i], pe);
-      if (KIND == ATT_FWD_TRANS)
-        pt = fmaf(dcb, (i > 0 ? s_prev[i - 1] : s_s1[6]) - s_prev[i], pt);
-    }
     pe = block_reduce<false>(pe, s_red);
     if (KIND == ATT_FWD_TRANS) pt = block_reduce<false>(pt, s_red);
     if (tid == 0) {
+      s_s1[3] = nsum;
       s_s1[4] = pe;
       s_s1[5] = pt;
     }
     cluster_sync();
+    nsum = 0.0f;
     pe = 0.0f;
     pt = 0.0f;
     for (int j = 0; j < cl; ++j) {
+      nsum += cluster_peer(s_s1, j)[3];
       pe += cluster_peer(s_s1, j)[4];
       pt += cluster_peer(s_s1, j)[5];
     }
-    // the softmax's backward; the state's cotangent, assigned, with the
-    // next position's dcomb from the next CTA at the tile's end
+    pe /= nsum;
+    pt /= nsum;
+    // the renorm's and the floor's backward, then the softmax's; dcomb
+    // kept for the state's cotangent after the next exchange
+    for (int i = tid; i < rows; i += AB_THREADS) {
+      const float dwc = (s_de[i] - s1) / nsum;
+      const float dwr = s_wm[i] > 1e-6f ? dwc : 0.0f;
+      s_dcb[i] = dwr * s_en[i];
+      s_de[i] = s_en[i] * (dwr * s_comb[i] - pe);
+    }
+    if (KIND == ATT_FWD_TRANS && rank == 0 && tid == 0) fa.dtp[b] = pt;
+    __syncthreads();
+    // dz, dmt, and the dv and dq partials: a thread a channel pair and a
+    // group of the tile's positions (AbFamMap), its dmt pairs loaded
+    // AB_DZ_BATCH at a time before the arithmetic, then written back; the
+    // groups' partials summed in group order (positions ascending)
+    const AbFamMap fm(A, rows);
+    for (int c = tid; c < fm.pairs * fm.groups; c += AB_THREADS) {
+      const int a = 2 * (c % fm.pairs), grp = c / fm.pairs;
+      const int i_lo = grp * fm.per, i_hi = min(rows, i_lo + fm.per);
+      const float v0 = s_v[a], v1 = s_v[a + 1];
+      float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
+      for (int i0 = i_lo; i0 < i_hi; i0 += AB_DZ_BATCH) {
+        float2 m[AB_DZ_BATCH];
+#pragma unroll
+        for (int j = 0; j < AB_DZ_BATCH; ++j)
+          if (i0 + j < i_hi)
+            m[j] = *reinterpret_cast<const float2*>(
+                dmt + (rowT + t_lo + i0 + j) * A + a);
+#pragma unroll
+        for (int j = 0; j < AB_DZ_BATCH; ++j) {
+          const int i = i0 + j;
+          if (i >= i_hi) continue;
+          float tz0, tz1;
+          if constexpr (F32) {
+            const float2 z = *reinterpret_cast<const float2*>(s_tz + i * A + a);
+            tz0 = z.x;
+            tz1 = z.y;
+          } else {
+            const __nv_bfloat162 z =
+                *reinterpret_cast<const __nv_bfloat162*>(s_tz + i * A + a);
+            tz0 = __low2float(z);
+            tz1 = __high2float(z);
+          }
+          const float de = s_de[i];
+          const float dz0 = de * v0 * (1.0f - tz0 * tz0);
+          const float dz1 = de * v1 * (1.0f - tz1 * tz1);
+          m[j].x += dz0;
+          m[j].y += dz1;
+          *reinterpret_cast<float2*>(dmt + (rowT + t_lo + i) * A + a) = m[j];
+          pdv0 = fmaf(tz0, de, pdv0);
+          pdv1 = fmaf(tz1, de, pdv1);
+          pdq0 += dz0;
+          pdq1 += dz1;
+        }
+      }
+      s_gdv[grp * A + a] = pdv0;
+      s_gdv[grp * A + a + 1] = pdv1;
+      s_gdq[grp * A + a] = pdq0;
+      s_gdq[grp * A + a + 1] = pdq1;
+    }
+    __syncthreads();
+    for (int a = tid; a < A; a += AB_THREADS) {
+      float pdv = 0.0f, pdq = 0.0f;
+      for (int grp = 0; grp < fm.groups; ++grp) {
+        pdv += s_gdv[grp * A + a];
+        pdq += s_gdq[grp * A + a];
+      }
+      s_dvp[a] = pdv;
+      s_dqp[a] = pdq;
+    }
+    cluster_sync();
+    // the state's cotangent, assigned, with the next position's dcomb from
+    // the next CTA at the tile's end
     for (int i = tid; i < rows; i += AB_THREADS) {
       const int t = t_lo + i;
-      s_de[i] = s_en[i] * (s_de[i] - pe);
       const float nxt = t + 1 >= T ? 0.0f
                         : i + 1 < tile ? s_dcb[i + 1]
                                        : cluster_peer(s_dcb, rank + 1)[0];
@@ -1470,25 +1567,6 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
                            ? (1.0f - tp) * dcb + round_to<CT>(tp * nxt)
                            : dcb + round_to<CT>(nxt);
     }
-    if (KIND == ATT_FWD_TRANS && rank == 0 && tid == 0) fa.dtp[b] = pt;
-    __syncthreads();
-    // dz, dmt, and the dv and dq partials: a thread a channel down the
-    // tile
-    for (int a = tid; a < A; a += AB_THREADS) {
-      const float va = s_v[a];
-      float pdv = 0.0f, pdq = 0.0f;
-      for (int i = 0; i < rows; ++i) {
-        const float tz = to_float(s_tz[i * A + a]);
-        const float de = s_de[i];
-        const float dz = de * va * (1.0f - tz * tz);
-        dmt[(rowT + t_lo + i) * A + a] += dz;
-        pdv = fmaf(tz, de, pdv);
-        pdq += dz;
-      }
-      s_dvp[a] = pdv;
-      s_dqp[a] = pdq;
-    }
-    cluster_sync();
   } else {
     cluster_sync();
     s1 = 0.0f;
@@ -1757,6 +1835,24 @@ __global__ void __launch_bounds__(AB_THREADS) att_bwd_kernel(AB_PARAMS) {
   att_bwd_body<KIND, CT>(AB_ARGS);
 }
 
+// the forward family's instances, held to 64 registers, four CTAs an SM
+// (74 to 78 and three without the bound: a step's 50 clusters of 8 then
+// ran in two waves, 0.0287 against 0.0195 ms in bf16 on an H100, PERF.md)
+template <int KIND, class CT>
+__global__ void __launch_bounds__(AB_THREADS, 4)
+    att_bwd_family_kernel(AB_PARAMS) {
+  att_bwd_body<KIND, CT>(AB_ARGS);
+}
+
+// the kernel of att_bwd's instance <KIND, CT>
+template <int KIND, class CT>
+constexpr auto att_bwd_entry() {
+  if constexpr (KIND == ATT_LS)
+    return att_bwd_kernel<KIND, CT>;
+  else
+    return att_bwd_family_kernel<KIND, CT>;
+}
+
 // the float32 band products' instance held to 64 registers, four CTAs an
 // SM (80 and three without the bound)
 template <>
@@ -1811,16 +1907,17 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
 //
 // In float32 the da rows, weights and masks are float32, the gather moves
 // float32 rows, and dx = da @ W^T runs on mma.sync m16n8k8 TF32 in three
-// passes: a warp per (n8 tile, K slice), K split over the warps that the
-// n8 tiles leave (a P x P layer's 4 tiles at np = 32 in two halves, layer
-// 0's 2 tiles at n0 = 16 in four quarters), so that all eight warps run at
-// most 16 k-steps, each pass and k-step parity summed in its own
-// accumulator (chains of at most 8 dependent mma.sync); da's and W's
-// fragments split into their TF32 halves in registers where they are read
-// (each weight is read by one warp once, each da value by the warps of its
-// K slice: a split copy would double s_a and cost the deepest prenet that
-// fits one layer); each warp's 16 x 8 partial goes to shared memory, and
-// the partials are summed in K order before the epilogue.
+// passes through the forward prenet's routine (csrc/tile.cuh::
+// tf32x3_kslices, W's rows read "NK" a word at a time): a warp per (n8
+// tile, K slice), K split over the warps that the n8 tiles leave (a P x P
+// layer's 4 tiles at np = 32 in two halves, layer 0's 2 tiles at n0 = 16
+// in four quarters), so that all eight warps run at most 16 k-steps, each
+// pass and k-step parity summed in its own accumulator (chains of at most
+// 8 dependent mma.sync); da's and W's fragments split into their TF32
+// halves in registers where they are read (a split copy of da would double
+// s_a and cost the deepest prenet that fits one layer); each warp's 16 x 8
+// partial goes to shared memory, and the partials are summed in K order
+// before the epilogue.
 //
 // Bound on the H100: 2*B*(M*P + (n-1)*P*P) operations (8.6 M at B=50, two
 // layers) and the weights, masks and cotangents once (0.35 MB), 0.10 us:
@@ -1829,12 +1926,6 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
 // layer costs one cluster barrier, one gather and one 16-step mma chain.
 // ---------------------------------------------------------------------------
 constexpr int BP_ROWS = 16, BP_THREADS = 256, BP_WARPS = BP_THREADS / 32;
-
-// the K slices of a layer's product over n columns in float32: as many as
-// the warps that its n8 tiles leave (bwd_prenet_kernel<float>)
-__host__ __device__ inline int bp_splits(int n) {
-  return n / 8 < BP_WARPS ? BP_WARPS / (n / 8) : 1;
-}
 
 // shared-memory layout of bwd_prenet_kernel (byte offsets) for elements of
 // `es` bytes; rows padded by 16 bytes (float32: a fragment's 32 words, rows
@@ -1852,7 +1943,8 @@ struct BpLayout {
     a = dx + align16((size_t)BP_ROWS * np * 4);
     own = a + align16((size_t)BP_ROWS * ldw * es);
     part = own + 2 * align16((size_t)BP_ROWS * ldo * es);
-    const int parts_p = bp_splits(np) * np, parts_0 = bp_splits(n0) * n0;
+    const int parts_p = tf32x3_splits(np, BP_WARPS) * np,
+              parts_0 = tf32x3_splits(n0, BP_WARPS) * n0;
     const size_t parts = parts_p > parts_0 ? parts_p : parts_0;
     total = part + (es == 4 ? align16((size_t)BP_ROWS * parts * 4) : 0);
   }
@@ -1981,62 +2073,14 @@ bwd_prenet_kernel(const float* __restrict__ dx_in,
       }
     };
     if constexpr (F32) {
-      // a warp per (n8 tile, K slice) of the 16 rows, three TF32 passes
-      // over the slice (at most 128 deep) with each pass and each k-step
-      // parity in an accumulator of its own: six chains of at most 8
-      // dependent mma.sync, not one of 48; then the warps' partials in K
-      // order
-      const int tiles = n_l / 8, splits = bp_splits(n_l);
-      const int kslice = (kp / splits + 7) / 8 * 8;
-      for (int pair = warp; pair < tiles * splits; pair += BP_WARPS) {
-        const int nt = pair % tiles, ks = pair / tiles;
-        const int k_lo = ks * kslice, k_hi = min(kp, k_lo + kslice);
-        // A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B "NK" (k t,
-        // n g), (k t + 4, n g): rows of ldw = kp + 4 words, 32 banks
-        const float* ar = s_a + (size_t)g * ldw + qd;
-        const float* wr = w_l + (size_t)(nt * 8 + g) * ldw + qd;
-        // acc[parity][pass]: a_lo b_hi, a_hi b_lo, a_hi b_hi
-        float acc[2][3][4] = {};
-        auto step = [&](int k, float (*c)[4]) {
-          uint32_t ah[4], al[4], bh[2], bl[2];
-          ah[0] = __float_as_uint(ar[k]);
-          ah[1] = __float_as_uint(ar[8 * ldw + k]);
-          ah[2] = __float_as_uint(ar[k + 4]);
-          ah[3] = __float_as_uint(ar[8 * ldw + k + 4]);
-          bh[0] = __float_as_uint(wr[k]);
-          bh[1] = __float_as_uint(wr[k + 4]);
-          tf32_split<4>(ah, al, ah);
-          tf32_split<2>(bh, bl, bh);
-          mma_tf32(c[0], al, bh);
-          mma_tf32(c[1], ah, bl);
-          mma_tf32(c[2], ah, bh);
-        };
-        int k = k_lo;
-        for (; k + 8 < k_hi; k += 16) {
-          step(k, acc[0]);
-          step(k + 8, acc[1]);
-        }
-        if (k < k_hi) step(k, acc[0]);
-        // the small terms first, then the hi products
-        float sum[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sum[e] = ((acc[0][0][e] + acc[0][1][e]) +
-                    (acc[1][0][e] + acc[1][1][e])) +
-                   (acc[0][2][e] + acc[1][2][e]);
-        float* part = s_part + (size_t)ks * BP_ROWS * n_l + nt * 8 + 2 * qd;
-        *reinterpret_cast<float2*>(part + g * n_l) =
-            make_float2(sum[0], sum[1]);
-        *reinterpret_cast<float2*>(part + (g + 8) * n_l) =
-            make_float2(sum[2], sum[3]);
-      }
+      // a warp per (n8 tile, K slice) of the 16 rows in three TF32 passes
+      // over the "NK" weight rows (csrc/tile.cuh), then the warps'
+      // partials in K order
+      tf32x3_kslices<false>(s_part, s_a, ldw, w_l, ldw, n_l, kp, warp,
+                            BP_WARPS, lane);
       __syncthreads();
-      for (int o = tid; o < BP_ROWS * n_l; o += BP_THREADS) {
-        float acc = s_part[o];
-        for (int ks = 1; ks < splits; ++ks)
-          acc += s_part[(size_t)ks * BP_ROWS * n_l + o];
-        finish(o / n_l, o % n_l, acc);
-      }
+      for (int o = tid; o < BP_ROWS * n_l; o += BP_THREADS)
+        finish(o / n_l, o % n_l, tf32x3_kslice_sum(s_part, n_l, BP_WARPS, o));
     } else {
       // a warp per (m tile, n8 tile), mma.sync
       for (int pair = warp; pair < mtiles * (n_l / 8); pair += BP_WARPS) {
@@ -2158,7 +2202,7 @@ int att_bwd_run(const void* q, const void* cum_s, const void* w_s,
   const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT));
   if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
   return (int)launch_cluster(
-      att_bwd_kernel<KIND, CT>, B * cl, AB_THREADS, L.total, cl,
+      att_bwd_entry<KIND, CT>(), B * cl, AB_THREADS, L.total, cl,
       (cudaStream_t)stream, (const float*)q, (const CT*)cum_s,
       (const float*)w_s, (const CT*)memory, (const CT*)mtb, (const CT*)lc,
       (const float*)v, (const float*)dctx, (const float*)dw_out, (float*)dcum,
@@ -2416,7 +2460,8 @@ int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
 }
 
 // the forward family's attention backward: dcum [B, T] the state's
-// cotangent (replaced), mask_add [B, T]; with the transition agent
+// cotangent (replaced), mask_add [B, T], A even, mtb aligned to two
+// elements and dmt to two floats; with the transition agent
 // (trans = 1) tp_prev and tp [B] (float32 streams), the dtp carry [B]
 // (replaced), the dlin stream [B], the agent's weight w [Mem + H + P], the
 // attention LSTM's dh_att [B, H] (added to) and the prenet output's dx
@@ -2434,7 +2479,7 @@ int fwd_att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
   if (B <= 0 || T <= 0 || A <= 0 || A % 2 != 0 || Mem <= 0 || tile <= 0 ||
       tile % 16 != 0 || cl < 1 || cl > 8 || (long long)cl * tile < T ||
       (long long)(cl - 1) * tile >= T || (uintptr_t)mtb % 4 != 0 ||
-      mask_add == nullptr ||
+      (uintptr_t)dmt % 8 != 0 || mask_add == nullptr ||
       (trans && (tp_prev == nullptr || tp == nullptr || dtp == nullptr ||
                  dlin == nullptr || w == nullptr || dh_att == nullptr ||
                  dx == nullptr || H <= 0 || P <= 0)))

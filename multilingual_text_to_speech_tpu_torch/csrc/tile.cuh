@@ -188,6 +188,121 @@ __device__ __forceinline__ void warp_tf32x3(float (*acc)[4][4],
       mma_tf32x3(acc[mt][nt], a[mt], a_lo[mt], b[nt], b_lo[nt]);
 }
 
+// The float32 products of the prenet kernels (K1's and K2's forward
+// prenet_tile_kernel<Epi, float>, K3's bwd_prenet_kernel<float>): a 16-row
+// float32 tile A [16][lda] times B over K = kp (a multiple of 8) and n
+// columns (a multiple of 8), on mma.sync m16n8k8 TF32 in three passes.  A
+// warp takes an (n8 tile, K slice) pair, K split over the warps that the n8
+// tiles leave (tf32x3_splits: at n = 32, 4 tiles x 2 slices; at n = 16, 2 x
+// 4), so that all the CTA's warps run short chains; each pass and each
+// k-step parity sums in an accumulator of its own (six chains of at most
+// kp / 16 dependent mma.sync); both operands are split into their TF32
+// halves in registers where they are read (each value is read by one or two
+// warps once: a split copy would double the tiles and cost the deepest
+// prenet that a CTA's shared memory holds); each warp's 16 x 8 partial goes
+// to part[slice][16][n], and tf32x3_kslice_sum adds the slices in K order,
+// so a run repeats bit for bit.
+//
+// B is "KN" ([K][ldb], the forward prenet's W[:, cols] slice) or "NK" ([n]
+// [ldb], the backward's W rows).  "NK" takes the m16n8k8 fragments as they
+// are: lane (g, t) (g = lane / 4, t = lane % 4) reads A's and B's words at
+// k0 + t and k0 + t + 4, one word each, in 32 distinct banks at rows of 4
+// words mod 32.  A "KN" B fragment read so would take rows k0 + t and k0 +
+// t + 4 of column n0 + g, two-way conflicted at rows of np + 4 words.  So
+// "KN" takes the k values of an 8-deep step in pairs, on A and B alike (the
+// same product): the fragment's slot t holds k0 + 2t and slot t + 4 holds
+// k0 + 2t + 1.  B's words then come from rows k0 + 2t and k0 + 2t + 1,
+// banks 8t + g (or 24t + g) plus a constant at ldb = np + 4, np a multiple
+// of 8: 32 distinct; A's two words of a row are one 8-byte read, each
+// half-warp's in 32 distinct banks at rows of 8 words mod 32
+// (tests/test_torch_tf32x3.py).
+__host__ __device__ inline int tf32x3_splits(int n, int warps) {
+  return n / 8 < warps ? warps / (n / 8) : 1;
+}
+
+// the K slice [k_lo, k_hi) (multiples of 8) of a warp's 16 x 8 tile at
+// columns n0: sum[e] of rows g + 8 (e >> 1), columns n0 + 2t + (e & 1)
+template <bool B_KN>
+__device__ __forceinline__ void warp_tf32x3_kslice(float* sum, const float* a,
+                                                   int lda, const float* b,
+                                                   int ldb, int n0, int k_lo,
+                                                   int k_hi, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* ar = a + (size_t)g * lda + (B_KN ? 2 * t : t);
+  const float* br = B_KN ? b + (size_t)(2 * t) * ldb + n0 + g
+                         : b + (size_t)(n0 + g) * ldb + t;
+  // acc[parity][pass]: a_lo b_hi, a_hi b_lo, a_hi b_hi
+  float acc[2][3][4] = {};
+  auto step = [&](int k, float (*c)[4]) {
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    if constexpr (B_KN) {
+      const float2 a0 = *reinterpret_cast<const float2*>(ar + k);
+      const float2 a8 = *reinterpret_cast<const float2*>(ar + 8 * lda + k);
+      ah[0] = __float_as_uint(a0.x);
+      ah[1] = __float_as_uint(a8.x);
+      ah[2] = __float_as_uint(a0.y);
+      ah[3] = __float_as_uint(a8.y);
+      bh[0] = __float_as_uint(br[(size_t)k * ldb]);
+      bh[1] = __float_as_uint(br[(size_t)(k + 1) * ldb]);
+    } else {
+      ah[0] = __float_as_uint(ar[k]);
+      ah[1] = __float_as_uint(ar[8 * lda + k]);
+      ah[2] = __float_as_uint(ar[k + 4]);
+      ah[3] = __float_as_uint(ar[8 * lda + k + 4]);
+      bh[0] = __float_as_uint(br[k]);
+      bh[1] = __float_as_uint(br[k + 4]);
+    }
+    tf32_split<4>(ah, al, ah);
+    tf32_split<2>(bh, bl, bh);
+    mma_tf32(c[0], al, bh);
+    mma_tf32(c[1], ah, bl);
+    mma_tf32(c[2], ah, bh);
+  };
+  int k = k_lo;
+  for (; k + 8 < k_hi; k += 16) {
+    step(k, acc[0]);
+    step(k + 8, acc[1]);
+  }
+  if (k < k_hi) step(k, acc[0]);
+  // the small terms first, then the hi products
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    sum[e] = ((acc[0][0][e] + acc[0][1][e]) + (acc[1][0][e] + acc[1][1][e])) +
+             (acc[0][2][e] + acc[1][2][e]);
+}
+
+// every warp's K partials of A [16][lda] @ B over kp and n columns into
+// part [slice][16][n]; the caller synchronizes before tf32x3_kslice_sum
+template <bool B_KN>
+__device__ __forceinline__ void tf32x3_kslices(float* part, const float* a,
+                                               int lda, const float* b,
+                                               int ldb, int n, int kp,
+                                               int warp, int warps,
+                                               int lane) {
+  const int tiles = n / 8, splits = tf32x3_splits(n, warps);
+  const int kslice = (kp / splits + 7) / 8 * 8;
+  for (int pair = warp; pair < tiles * splits; pair += warps) {
+    const int nt = pair % tiles, ks = pair / tiles;
+    const int k_lo = min(kp, ks * kslice), k_hi = min(kp, k_lo + kslice);
+    float sum[4];
+    warp_tf32x3_kslice<B_KN>(sum, a, lda, b, ldb, nt * 8, k_lo, k_hi, lane);
+    float* p = part + (size_t)ks * 16 * n + nt * 8 + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(p + (lane >> 2) * n) =
+        make_float2(sum[0], sum[1]);
+    *reinterpret_cast<float2*>(p + ((lane >> 2) + 8) * n) =
+        make_float2(sum[2], sum[3]);
+  }
+}
+
+// output o = r * n + c of the product: its K slices' partials in K order
+__device__ __forceinline__ float tf32x3_kslice_sum(const float* part, int n,
+                                                   int warps, int o) {
+  const int splits = tf32x3_splits(n, warps);
+  float acc = part[o];
+  for (int ks = 1; ks < splits; ++ks) acc += part[(size_t)ks * 16 * n + o];
+  return acc;
+}
+
 // ---------------------------------------------------------------------------
 // Thread block clusters: a split barrier (arrive, then wait) across the
 // CTAs of a cluster, and a launch with a cluster size chosen at run time.
@@ -250,9 +365,10 @@ __device__ __forceinline__ void cluster_gather_rows(T* dst, int ldd,
   }
 }
 
-// opts `kernel` in to all of a block's shared memory at its first launch;
-// kernels of one signature (the instances of a template over the attention
-// kind) share the table, keyed by the kernel's address
+// opts `kernel` in to all of a block's shared memory, and to clusters past
+// the portable 8 CTAs, at its first launch; kernels of one signature (the
+// instances of a template over the attention kind) share the table, keyed
+// by the kernel's address
 template <typename... KArgs>
 cudaError_t opt_in_smem(void (*kernel)(KArgs...)) {
   static const void* done[8];
@@ -260,7 +376,10 @@ cudaError_t opt_in_smem(void (*kernel)(KArgs...)) {
   const void* key = reinterpret_cast<const void*>(kernel);
   for (int i = 0; i < n_done; ++i)
     if (done[i] == key) return cudaSuccess;
-  const cudaError_t err = allow_smem(kernel, 227 * 1024);
+  cudaError_t err = allow_smem(kernel, 227 * 1024);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && n_done < 8) done[n_done++] = key;
   return err;
 }
@@ -1027,12 +1146,14 @@ __host__ __device__ inline size_t align16(size_t n) {
 // input bf16(y), as the TPU kernels and the plain versions round.  The
 // epilogue epi sees the input (raw: row, k, bf16(x)) and every layer's
 // output (put: layer, row, col, y, keep) inside [0, B) x [0, P).  The
-// element type T is bf16, or float32 for the serving decoder's float32
-// instance: float32 weights, x and every layer's input unrounded, the
-// products on FFMA, a thread an output, float32 rows exchanged.
+// element type T is bf16, or float32 for both decoders' float32
+// instances: float32 weights, x and every
+// layer's input unrounded, the products on the tensor cores in three TF32
+// passes (tf32x3_kslices), float32 rows exchanged.
 //
-// One launch: a thread-block cluster of `cl` CTAs (<= 8) for each PN_ROWS =
-// 16 rows (one mma row tile).  CTA `rank` owns the columns [rank * np,
+// One launch: a thread-block cluster of `cl` CTAs (<= 8; <= 16, a
+// non-portable cluster, for the float32 instances' launches of few rows,
+// prenet_split's `wide`) for each PN_ROWS = 16 rows (one mma row tile).  CTA `rank` owns the columns [rank * np,
 // rank * np + np) of P in every layer (np a multiple of 8: ops/
 // fused_decoder.py::prenet_split, shared with bwd_prenet).  At the start
 // it copies, with cp.async, the 16 input rows (float32, or bf16 with
@@ -1047,15 +1168,19 @@ __host__ __device__ inline size_t align16(size_t n) {
 // one barrier.  Each CTA sums its own columns over the whole K: nothing is
 // summed across CTAs and no float atomics are used, so a run repeats bit
 // for bit.  The bf16 exchange is exact: the next layer rounds its input to
-// bf16 anyway.  In float32 a thread sums one (row, column) of the CTA's
-// 16 x np outputs at a time over the whole K, in k order.
+// bf16 anyway.  In float32 a warp takes an (n8 tile, K slice) pair of the
+// CTA's 16 x np outputs (4 tiles x 2 slices at np = 32), the "KN" weight
+// slice read two words a k pair (rows of np + 4 words: 32 distinct banks),
+// and the warps' partials are summed in K order before the epilogue.
 //
 // Bound on the H100: 2 * B * (in * P + (n - 1) * P * P) operations (41 M
 // at B=240, two layers of 256) and the weights, biases, input and output
 // once (0.35 to 0.5 MB in bf16, about twice in float32): 0.1 to 0.3 us.
 // What costs is latency, so each CTA reads only its 21 KB (float32: 43 KB)
 // of weight slices (flagship widths), all at once, and a layer is one
-// product chain over K and one barrier.
+// product chain over K (float32: at most 8 dependent mma.sync a chain) and
+// one barrier.  float32 holds up to six layers of 256 over M = 80 in a
+// CTA's shared memory (tests/test_torch_tf32x3.py).
 // ---------------------------------------------------------------------------
 constexpr int PN_ROWS = 16, PN_THREADS = 256, PN_WARPS = PN_THREADS / 32;
 
@@ -1071,23 +1196,31 @@ struct PrenetArgs {
 };
 
 // shared-memory layout of prenet_tile_kernel (byte offsets) for elements of
-// `es` bytes (2: bf16, 4: float32); rows padded by 16 bytes
+// `es` bytes (2: bf16, 4: float32); rows padded by 16 bytes.  float32: the
+// A tile's rows of 8 words mod 32 and the weight slices' of np + 4
+// (tf32x3_kslices' conflict-free "KN" reads), and the warps' K partials in
+// the input rows' place (dead once layer 0's A tile is built)
 struct PnLayout {
   int kp0, kpp, lda, ldw, ldo, ldx;
-  size_t w, bias, x, a, own, total;
+  size_t w, bias, x, part, a, own, total;
   __host__ __device__ PnLayout(int in_dim, int P, int np, int n_layers,
                                int es) {
     const int pad = 16 / es;
     kp0 = (in_dim + 15) / 16 * 16;   // K of layer 0, zero-padded
     kpp = (P + 15) / 16 * 16;        // K of the layers above
-    lda = (kp0 > kpp ? kp0 : kpp) + pad;   // elements a row of the A tile
+    const int kmax = kp0 > kpp ? kp0 : kpp;
+    // elements a row of the A tile (float32: 8 words mod 32)
+    lda = es == 4 ? (kmax + 31) / 32 * 32 + 8 : kmax + pad;
     ldw = np + pad;                  // elements a row of a weight slice
     ldo = np + pad;                  // elements a row of an own slice
     ldx = (int)align16((size_t)in_dim * 4);   // bytes an input row
     w = 0;
     bias = w + align16((size_t)(kp0 + (n_layers - 1) * kpp) * ldw * es);
-    x = bias + align16((size_t)n_layers * np * 4);
-    a = x + (size_t)PN_ROWS * ldx;
+    x = part = bias + align16((size_t)n_layers * np * 4);
+    const size_t parts =
+        es == 4 ? (size_t)tf32x3_splits(np, PN_WARPS) * PN_ROWS * np * 4 : 0;
+    a = x + align16((size_t)PN_ROWS * ldx > parts ? (size_t)PN_ROWS * ldx
+                                                    : parts);
     own = a + align16((size_t)PN_ROWS * lda * es);
     total = own + 2 * align16((size_t)PN_ROWS * ldo * es);
   }
@@ -1142,6 +1275,8 @@ prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
   T* s_w = reinterpret_cast<T*>(pn_smem + L.w);           // layers' slices
   float* s_b = reinterpret_cast<float*>(pn_smem + L.bias);  // [n][np]
   uint8_t* s_x = pn_smem + L.x;                           // input rows
+  // float32: the warps' K partials [slice][ROWS][np], in s_x's place
+  float* s_part = reinterpret_cast<float*>(pn_smem + L.part);
   T* s_a = reinterpret_cast<T*>(pn_smem + L.a);           // [ROWS][lda]
   T* s_own = reinterpret_cast<T*>(pn_smem + L.own);       // 2 x [ROWS][ldo]
   const size_t own_slot = align16((size_t)PN_ROWS * ldo * sizeof(T)) /
@@ -1238,15 +1373,13 @@ prenet_tile_kernel(const void* __restrict__ x_in, int x_bf16, int xvec,
       if (in) epi.put(l, row, col, y, keep);
     };
     if constexpr (F32) {
-      // a thread an output at a time, the whole K in k order
-      for (int o = tid; o < PN_ROWS * np; o += PN_THREADS) {
-        const int r = o / np, c = o - r * np;
-        const float* ar = s_a + (size_t)r * lda;
-        float acc = 0.0f;
-        for (int k = 0; k < kp; ++k)
-          acc = fmaf(ar[k], w_l[(size_t)k * ldw + c], acc);
-        finish(r, c, acc);
-      }
+      // this CTA's columns of y in three TF32 passes: a warp per (n8 tile,
+      // K slice) of the "KN" weight slice, then the partials in K order
+      tf32x3_kslices<true>(s_part, s_a, lda, w_l, ldw, np, kp, warp,
+                           PN_WARPS, lane);
+      __syncthreads();
+      for (int o = tid; o < PN_ROWS * np; o += PN_THREADS)
+        finish(o / np, o % np, tf32x3_kslice_sum(s_part, np, PN_WARPS, o));
     } else {
       // this CTA's columns of y: a warp per 8-column mma tile, K in steps
       // of 32 (16 in the last step when kp is an odd multiple of 16)
@@ -1295,7 +1428,7 @@ cudaError_t prenet_tile_launch(const void* x, int x_bf16,
                                cudaStream_t stream) {
   const int B = args.B, in_dim = args.in_dim, P = args.P;
   if (B <= 0 || in_dim <= 0 || P <= 0 || args.n_layers < 1 || args.cl < 1 ||
-      args.cl > 8 || args.np <= 0 || args.np % 8 != 0 ||
+      args.cl > 16 || args.np <= 0 || args.np % 8 != 0 ||
       (long long)args.cl * args.np < P ||
       (long long)(args.cl - 1) * args.np >= P ||
       (std::is_same<T, float>::value && x_bf16))

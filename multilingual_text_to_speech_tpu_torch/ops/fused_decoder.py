@@ -656,23 +656,35 @@ def _outputs(out, *like: Tuple):
 
 # the prenet kernels' cluster (csrc/tile.cuh prenet_tile_kernel, the
 # training decoder's bwd_prenet): at most this many CTAs, each whole 8-column
-# mma tiles of every layer's output
-_PRENET_CLUSTER_MAX = 8
+# mma tiles of every layer's output; the float32 forward prenets at up to
+# _PRENET_WIDE_ROWS rows take non-portable clusters of up to 16 (on an
+# H100 at B=50, 0.0107 -> 0.0090 ms in float32 and no change in bf16; at
+# B=240 16 read slower, 0.0109 -> 0.0138: PERF.md)
+_PRENET_CLUSTER_MAX, _PRENET_WIDE_CLUSTER_MAX, _PRENET_WIDE_ROWS = 8, 16, 64
 
 
-def prenet_split(in_dim: int, p: int) -> Tuple[int, int, int]:
+def prenet_wide(dtype: torch.dtype, b: int) -> bool:
+    """Whether a forward prenet launch over ``b`` rows in ``dtype`` takes
+    the wide clusters (``prenet_split``'s ``wide``)."""
+    return dtype == torch.float32 and b <= _PRENET_WIDE_ROWS
+
+
+def prenet_split(in_dim: int, p: int, wide: bool = False
+                 ) -> Tuple[int, int, int]:
     """``(cluster, cols_p, cols_in)`` of the prenet kernels (this module's
     ``prenet``, the training decoder's ``train_prenet`` and ``bwd_prenet``):
     each CTA's share of P's columns, the fewest whole 8-column tiles such
-    that at most 8 CTAs cover P, as many CTAs as that needs (none empty),
-    and each CTA's share of the input frame's columns, which only the
-    backward splits (the last shares may reach past M, or be empty).  P=256,
-    M=80 gives 8 CTAs of 32 and 16 columns."""
+    that at most 8 CTAs (16 when ``wide``: the forward prenets only) cover
+    P, as many CTAs as that needs (none empty), and each CTA's share of the
+    input frame's columns, which only the backward splits (the last shares
+    may reach past M, or be empty).  P=256, M=80 gives 8 CTAs of 32 and 16
+    columns, or 16 of 16 when wide."""
     if in_dim < 1 or p < 1:
         raise ValueError(f"the prenet needs M, P >= 1, got {in_dim}, {p}")
     cdiv = _splitk._cdiv
     tiles = cdiv(p, 8)
-    per = cdiv(tiles, _PRENET_CLUSTER_MAX)
+    per = cdiv(tiles, _PRENET_WIDE_CLUSTER_MAX if wide
+               else _PRENET_CLUSTER_MAX)
     cluster = cdiv(tiles, per)
     return cluster, 8 * per, 8 * cdiv(cdiv(in_dim, 8), cluster)
 
@@ -694,7 +706,8 @@ def prenet(frame, bundle, dropout_rate, seeds, step, keep_out=None,
         raise ValueError("keep_out must be uint8")
     _check("prenet", frame, bundle.pre_w, bundle.pre_b, keep_out)
     drop = dropout_rate > 0.0
-    cluster, cols_p, _ = prenet_split(in_dim, p)
+    cluster, cols_p, _ = prenet_split(in_dim, p,
+                                      prenet_wide(bundle.dtype, b))
     err = _lib().prenet_launch(
         _ptr(frame), _ptr(bundle.pre_w), _ptr(bundle.pre_b), _ptr(out),
         _ptr(keep_out), b, in_dim, p, n, seeds[0] & _M32, seeds[1] & _M32,

@@ -119,6 +119,7 @@ from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     instance,
     keep_threshold,
     prenet_split,
+    prenet_wide,
     rand_bits,
 )
 
@@ -927,7 +928,8 @@ def train_prenet(shifted_s, frame, teacher: int, ops, cfg, seeds, gs,
     _require(x_out, torch.float32, "train_prenet x_out")
     b = frame.shape[0]
     rate = cfg.dropout_rate
-    cluster, cols_p, _ = prenet_split(cfg.mmel, cfg.prenet_dim)
+    cluster, cols_p, _ = prenet_split(cfg.mmel, cfg.prenet_dim,
+                                      prenet_wide(d, b))
     _launch("train_prenet", "train_prenet_launch", d,
             _ptr(shifted_s), _ptr(frame), int(bool(teacher)),
             _ptr(ops["pre_w"]), _ptr(ops["pre_b"]), _ptr(raw_out),

@@ -1636,6 +1636,85 @@ def test_prenet_matches_plain_at_flagship_widths(b, n_prenet, kernel):
             assert bool((got_m[-1][:, :p] == 0).any())
 
 
+@pytest.mark.parametrize("kernel", ["prenet", "train_prenet"])
+@pytest.mark.parametrize("n_prenet", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("b", [1, 50, 240])
+def test_f32_prenet_matches_plain_up_to_its_deepest_prenet(b, n_prenet,
+                                                           kernel):
+    """The float32 instances of K1 ``prenet`` and K2 ``train_prenet`` (the
+    layers' products on the tensor cores in three TF32 passes, K split
+    over the warps, the warps' partials summed in K order) at P=256 and
+    M=80, dropout 0.5, up to six layers (the deepest whose float32 weight
+    slices fit a CTA's shared memory, as before the tensor cores), against
+    their plain versions on the same inputs: K1 at steps 0 and 3 with
+    ``keep_out``, K2 at both teacher flags with its raw and per-layer
+    streams; the masks bit-exact (K1's keep masks; K2's zeros with zero
+    weights and positive biases, where every zero is a dropped unit), the
+    raw frame exact, every float32 output within F32_TOL of its largest
+    value, two runs bit-identical, one launch a call."""
+    import dataclasses
+
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    bundle, ops, frame, shifted = _prenet_operands(n_prenet, b,
+                                                   b + 10 * n_prenet)
+    ops = {"pre_w": ops["pre_w"].float(), "pre_b": ops["pre_b"]}
+    bundle = dataclasses.replace(bundle, dtype=torch.float32,
+                                 pre_w=ops["pre_w"])
+    shifted = shifted.float()
+    p, m = 256, _MELS
+    seeds = (123456789, 987654321)
+    if kernel == "prenet":
+        def run(fn, step):
+            k = torch.zeros(n_prenet, b, p, dtype=torch.uint8, device="cuda")
+            return fn(frame, bundle, 0.5, seeds, step, keep_out=k), k
+
+        for step in (0, 3):
+            fd.reset_launch_counts()
+            got, keep_k = run(fd.prenet, step)
+            assert fd.LAUNCHES["prenet_f32"] == 1
+            again, keep_a = run(fd.prenet, step)
+            ref, keep_p = run(fd.prenet_plain, step)
+            assert torch.equal(keep_k, keep_p) and torch.equal(keep_k, keep_a)
+            assert torch.equal(got, again)
+            _f32_close(got, ref)
+        return
+
+    cfg = ftd.TrainConfig(hidden=_HIDDEN, mem_dim=_MEM, prenet_dim=p,
+                          n_prenet=n_prenet, mmel=m, att_dim=_ATT,
+                          taps=_TAPS, dropout_rate=0.5, zoneout_h=0.1,
+                          zoneout_c=0.1, use_zoneout=True,
+                          dtype=torch.float32)
+    masks = {"pre_w": torch.zeros_like(ops["pre_w"]),
+             "pre_b": ops["pre_b"].abs() + 1.0}
+
+    def run(fn, teacher, o=ops):
+        row = torch.zeros(b, p + 96, device="cuda")
+        raw = torch.empty(b, m, device="cuda")
+        pre = torch.empty(n_prenet, b, p, device="cuda")
+        fn(shifted, frame, teacher, o, cfg, seeds, 7, raw, pre, row[:, :p])
+        return [raw, pre, row]
+
+    for teacher in (0, 1):
+        ftd.reset_launch_counts()
+        got = run(ftd.train_prenet, teacher)
+        assert ftd.LAUNCHES["train_prenet_f32"] == 1
+        again = run(ftd.train_prenet, teacher)
+        ref = run(ftd.PLAIN.train_prenet, teacher)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        raw, pre, row = got
+        assert torch.equal(raw, shifted if teacher else frame)
+        assert torch.equal(row[:, :p], pre[-1]) and not row[:, p:].any()
+        for g, r in zip(pre, ref[1]):
+            _f32_close(g, r)
+        got_m = run(ftd.train_prenet, teacher, masks)
+        ref_m = run(ftd.PLAIN.train_prenet, teacher, masks)
+        assert torch.equal(got_m[1] == 0, ref_m[1] == 0)
+        assert bool((got_m[1] == 0).any())
+
+
 @pytest.mark.parametrize("regularization", ["zoneout", "dropout"])
 def test_eval_forward_kernels_match_plain(regularization):
     """The eval forward (``TrainConfig.train`` False) through the K2
@@ -1812,26 +1891,31 @@ def test_train_fwd_attention_matches_plain(kind, b, t):
         state = ref[0]
 
 
-@pytest.mark.parametrize("t", [45, 128, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [45, 128, 512, 1500])
 @pytest.mark.parametrize("b", [1, 50, 96])
 @pytest.mark.parametrize("kind", _FAMILY)
-def test_fwd_att_bwd_matches_plain(kind, b, t):
+def test_fwd_att_bwd_matches_plain(kind, b, t, dtype):
     """K3 ``att_bwd``'s family variant (the replayed softmax and
     recurrence, the renorm, floor and shift backward, the agent's backward
-    in its prologue) against the plain version, three chained calls so
-    that the dmt and dv "+=" and the state and t_prob cotangent carries
-    are covered: every float32 output within chip_smoke's ``att_bwd``
-    bound of its largest value, the bf16 dq and dctx streams within one
-    ulp; two chains from the same start bit-identical."""
+    in its prologue; the dz pass a thread a channel pair and a group of
+    positions) against the plain version, in both compute types, at T = 45
+    (3 tiles of 16), 128 (8 of 16), 512 (8 of 64) and 1500 (8 of 192),
+    three chained calls so that the dmt and dv "+=" and the state and
+    t_prob cotangent carries are covered: bf16, every float32 output within
+    chip_smoke's ``att_bwd_fwd`` bound of its largest value, the bf16 dq
+    and dctx streams within one ulp; float32, every output within F32_TOL;
+    two chains from the same start bit-identical."""
     ftd, rnd, memory, mtb, mask, ta = _family_train_operands(
         kind, b, t, seed=11 * b + t)
+    memory, mtb = memory.to(dtype), mtb.to(dtype)
     mask_add = torch.where(mask, 0.0, -1e9)
     v = rnd(_ATT, scale=_ATT ** -0.5)
     steps = []
     for _ in range(3):
         w_s, tp = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
         prev, tp_prev = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
-        steps.append((rnd(b, _ATT).bfloat16().float(), prev.bfloat16(), w_s,
+        steps.append((rnd(b, _ATT).to(dtype).float(), prev.to(dtype), w_s,
                       rnd(b, _MEM), rnd(b, t, scale=0.1), tp_prev[:, 0],
                       tp[:, 0]))
     dcum0, dtp0 = rnd(b, t, scale=0.1), rnd(b, scale=0.5)
@@ -1843,8 +1927,8 @@ def test_fwd_att_bwd_matches_plain(kind, b, t):
         extra = [dtp0.clone(), dh0.clone()] if ta is not None else []
         outs = []
         for q, cum_s, w_s, dctx, dw, tp_prev, tp in steps:
-            o = [torch.empty(b, _ATT, dtype=torch.bfloat16, device="cuda"),
-                 torch.empty(b, _MEM, dtype=torch.bfloat16, device="cuda")]
+            o = [torch.empty(b, _ATT, dtype=dtype, device="cuda"),
+                 torch.empty(b, _MEM, dtype=dtype, device="cuda")]
             if ta is None:
                 fam = ftd.FamilyBwd(mask_add)
             else:
@@ -1859,10 +1943,12 @@ def test_fwd_att_bwd_matches_plain(kind, b, t):
 
     ftd.reset_launch_counts()
     got = chain(ftd.att_bwd)
-    assert ftd.LAUNCHES["att_bwd_fwd"] == 3 and ftd.LAUNCHES["att_bwd"] == 0
+    inst = ftd.instance("att_bwd_fwd", dtype)
+    assert ftd.LAUNCHES[inst] == 3 and not any(
+        v for k, v in ftd.LAUNCHES.items() if k != inst)
     again = chain(ftd.att_bwd)
     ref = chain(ftd.PLAIN.att_bwd)
-    bound = TRAIN_KERNEL_TOL["att_bwd"]
+    bound = train_kernel_bound("att_bwd_fwd", dtype)
     for g, a, r in zip(got, again, ref):
         kind_ = "bf16" if r.dtype == torch.bfloat16 else "f32"
         err = float((g.float() - r.float()).abs().max())

@@ -355,10 +355,10 @@ def test_one_tf32_pass_misses_the_float32_attention_step(t_len):
     assert _attention_weights(t_len, passes=1) > _STEP_TOL
 
 
-def bp_splits(n):
-    """``csrc/fused_train_decoder.cu::bp_splits``: the K slices of a
-    float32 ``bwd_prenet`` layer over n columns, as many as the warps that
-    its n8 tiles leave."""
+def tf32x3_splits(n):
+    """``csrc/tile.cuh::tf32x3_splits``: the K slices of a float32 prenet
+    layer (``bwd_prenet``'s and the forward prenets') over n columns, as
+    many as the warps that its n8 tiles leave."""
     return _WARPS // (n // 8) if n // 8 < _WARPS else 1
 
 
@@ -390,7 +390,7 @@ def _bwd_prenet_layer(n, passes):
     da = (0.2 * rng.standard_normal((_PRENET_ROWS, _PRENET_P)) * keep)
     w = rng.standard_normal((n, _PRENET_P)) / np.sqrt(_PRENET_P)
     da, w = (torch.from_numpy(x.astype(np.float32)) for x in (da, w))
-    splits = bp_splits(n)
+    splits = tf32x3_splits(n)
     kslice = (_PRENET_P // splits + 7) // 8 * 8
     got = torch.zeros(_PRENET_ROWS, n)
     for ks in range(splits):
@@ -423,7 +423,7 @@ def test_bwd_prenet_k_split_covers_every_tile_and_k_once(n, p):
     rounded up to 32): at the flagship's np = 32 two halves, at n0 = 16
     four quarters."""
     kp = (p + 31) // 32 * 32
-    tiles, splits = n // 8, bp_splits(n)
+    tiles, splits = n // 8, tf32x3_splits(n)
     kslice = (kp // splits + 7) // 8 * 8
     seen = []
     for warp in range(_WARPS):
@@ -435,6 +435,27 @@ def test_bwd_prenet_k_split_covers_every_tile_and_k_once(n, p):
              for k in range(s * kslice, min(kp, (s + 1) * kslice), 8)]
     assert steps == list(range(0, kp, 8))
     assert {(32, 256): 2, (16, 256): 4}.get((n, p), splits) == splits
+
+
+def _pair_fragment(m, r0, c0, lane):
+    """The m16n8k8 A fragment of ``m`` at rows r0.. and the 8-deep step at
+    column c0 with k taken in pairs (``csrc/tile.cuh::warp_tf32x3_kslice``):
+    slot t holds column c0 + 2t and slot t + 4 column c0 + 2t + 1, so lane
+    (g, t) holds (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)."""
+    g, t = lane // 4, lane % 4
+    return [float(m[r0 + g + dr, c0 + 2 * t + dc])
+            for dr, dc in ((0, 0), (8, 0), (0, 1), (8, 1))]
+
+
+def _half_warp_banks_distinct(words):
+    """Each half-warp's 8-byte reads at 32-bit word offsets ``words`` (one
+    a lane) fall in 32 distinct banks (the card serves a warp's 8-byte
+    reads a half-warp at a time)."""
+    for half in (words[:16], words[16:]):
+        banks = np.concatenate([half, half + 1]) % 32
+        if len(set(banks.tolist())) != 32:
+            return False
+    return True
 
 
 def test_bwd_prenet_fragments_are_the_tiles_and_free_of_conflicts():
@@ -474,6 +495,219 @@ def test_bwd_prenet_fragments_are_the_tiles_and_free_of_conflicts():
                      float(w[8 * nt + g[lane], k + t[lane] + 4])]
             for words in (wr + k, wr + k + 4):
                 assert len(set((words % 32).tolist())) == 32
+
+
+# ---------------------------------------------------------------------------
+# K1's and K2's float32 forward prenet (prenet_tile_kernel<Epi, float>)
+# ---------------------------------------------------------------------------
+
+# the flagship's prenet: M = 80 mels in, P = 256, its columns in 8 CTAs of
+# np = 32 (ops/fused_decoder.py::prenet_split); a CTA's shared memory
+_PRENET_M, _SMEM_MAX = 80, 227 * 1024
+
+
+def _prenet_layer(k, n, passes):
+    """One CTA's columns of a float32 forward prenet layer, x [16, k] @ W
+    [k, n] ("KN": W's column slice) over n = 32 columns: each warp's (n8
+    tile, K slice) partial in ``passes`` TF32 passes (``_warp_partial``),
+    the slices summed in K order in float32, against the float64 product:
+    the largest |difference| over the largest output.  Layer 0 reads a mel
+    frame (K = 80), the layers above ReLU outputs with half dropped (K =
+    256); the weights at the init scale 1/sqrt(K)."""
+    rng = np.random.default_rng(k + n)
+    x = rng.standard_normal((_PRENET_ROWS, k))
+    if k != _PRENET_M:
+        x = np.maximum(x, 0.0) * (rng.random(x.shape) < 0.5) * 2.0
+    w = rng.standard_normal((k, n)) / np.sqrt(k)
+    x, w = (torch.from_numpy(v.astype(np.float32)) for v in (x, w))
+    kp = (k + 15) // 16 * 16
+    splits = tf32x3_splits(n)
+    kslice = (kp // splits + 7) // 8 * 8
+    got = torch.zeros(_PRENET_ROWS, n)
+    for ks in range(splits):
+        sl = slice(min(k, ks * kslice), min(k, (ks + 1) * kslice))
+        got += _warp_partial(x[:, sl], w[sl].T, passes)
+    ref = x.double() @ w.double()
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("k", [80, 256])
+def test_three_tf32_passes_hold_the_prenet_float32_layers(k):
+    """The forward prenet's float32 layers in three passes, K split over
+    the warps (4 n8 tiles x 2 slices at np = 32): within F32_TOL of the
+    largest output at layer 0's K = 80 and the layers above's 256 (about
+    1e-7)."""
+    assert _prenet_layer(k, 32, passes=3) <= F32_TOL
+
+
+@pytest.mark.parametrize("k", [80, 256])
+def test_one_tf32_pass_misses_the_prenet_float32_bound(k):
+    """The same layers in one pass miss it."""
+    assert _prenet_layer(k, 32, passes=1) > F32_TOL
+
+
+def pn_layout_total(in_dim, p, np_, n_layers, es=4, kslices=True):
+    """Bytes of ``csrc/tile.cuh::PnLayout`` (``prenet_tile_kernel``'s
+    shared memory); ``kslices`` False: the FFMA layout it replaced (the A
+    tile's rows of kmax + 4 words, no K partials)."""
+    def a16(x):
+        return (x + 15) // 16 * 16
+
+    pad = 16 // es
+    kp0, kpp = (in_dim + 15) // 16 * 16, (p + 15) // 16 * 16
+    kmax = max(kp0, kpp)
+    lda = ((kmax + 31) // 32 * 32 + 8 if es == 4 and kslices
+           else kmax + pad)
+    ldw = ldo = np_ + pad
+    ldx = a16(in_dim * 4)
+    total = a16((kp0 + (n_layers - 1) * kpp) * ldw * es)
+    total += a16(n_layers * np_ * 4)
+    parts = (tf32x3_splits(np_) * _PRENET_ROWS * np_ * 4
+             if es == 4 and kslices else 0)
+    total += a16(max(_PRENET_ROWS * ldx, parts))
+    total += a16(_PRENET_ROWS * lda * es)
+    return total + 2 * a16(_PRENET_ROWS * ldo * es)
+
+
+def _deepest(np_, **kw):
+    n = 1
+    while pn_layout_total(_PRENET_M, _PRENET_P, np_, n + 1, **kw) \
+            <= _SMEM_MAX:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("np_", [32, 16])
+def test_prenet_k_split_covers_every_tile_and_k_once(np_):
+    """The float32 forward prenet's warps (pair = warp, warp + 8, ...; n8
+    tile pair % tiles, K slice pair / tiles) take every (n8 tile, K slice)
+    of each layer once, and the slices' 8-deep steps tile the layer's K
+    (80, then 256) once in order, at every depth from one layer to the
+    deepest a CTA holds: six at the flagship's np = 32, as the FFMA layout
+    held (the K partials reuse the input rows' bytes), ten at np = 16."""
+    tiles, splits = np_ // 8, tf32x3_splits(np_)
+    assert tiles * splits == _WARPS
+    deepest = _deepest(np_)
+    assert deepest == {32: 6, 16: 10}[np_]
+    assert deepest >= _deepest(np_, kslices=False)
+    for n_layers in range(1, deepest + 1):
+        for layer in range(n_layers):
+            kp = (_PRENET_M if layer == 0 else _PRENET_P + 15) // 16 * 16
+            kslice = (kp // splits + 7) // 8 * 8
+            seen = [(pair % tiles, pair // tiles) for warp in range(_WARPS)
+                    for pair in range(warp, tiles * splits, _WARPS)]
+            assert sorted(seen) == [(t, s) for t in range(tiles)
+                                    for s in range(splits)]
+            steps = [k for s in range(splits)
+                     for k in range(min(kp, s * kslice),
+                                    min(kp, (s + 1) * kslice), 8)]
+            assert steps == list(range(0, kp, 8))
+
+
+@pytest.mark.parametrize("np_", [8, 16, 24, 32, 64])
+def test_prenet_kn_fragments_are_the_tiles_and_free_of_conflicts(np_):
+    """The forward prenet's "KN" B fragments at weight rows of ldw = np + 4
+    words (the pitch the bf16 layout already took), k in pairs: lane (g,
+    t) reads rows k0 + 2t and k0 + 2t + 1 of column n0 + g, W's fragment in
+    the A tile's pair order, and each of the two reads falls in 32
+    distinct banks (bank 8t + g or 24t + g plus a constant); the plain
+    order (rows k0 + t and k0 + t + 4) at that pitch would be two-way
+    conflicted.  The A tile's reads, in the same pair order (slot t: k0 +
+    2t, slot t + 4: k0 + 2t + 1), are one 8-byte read a row, which at rows
+    of lda = 8 mod 32 words fall in 32 distinct banks half-warp by
+    half-warp (at 4 mod 32 they would not)."""
+    ldw, kp = np_ + 4, 256
+    rng = np.random.default_rng(np_)
+    w = rng.standard_normal((kp, np_)).astype(np.float32)
+    s_w = np.zeros(kp * ldw, np.float32)
+    for k in range(kp):
+        s_w[k * ldw:k * ldw + np_] = w[k]
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for k0 in range(0, kp, 8):
+        for n0 in range(0, np_, 8):
+            words = [(k0 + 2 * t + d) * ldw + n0 + g for d in (0, 1)]
+            for lane in range(32):
+                assert [float(s_w[x[lane]]) for x in words] == \
+                    [float(w[k0 + 2 * t[lane] + d, n0 + g[lane]])
+                     for d in (0, 1)]
+            for x in words:
+                assert len(set((x % 32).tolist())) == 32
+            plain = (k0 + t) * ldw + n0 + g
+            assert len(set((plain % 32).tolist())) < 32
+    lda = (max(_PRENET_M, _PRENET_P) + 31) // 32 * 32 + 8
+    assert lda % 32 == 8
+    x = rng.standard_normal((_PRENET_ROWS, lda)).astype(np.float32)
+    for k in range(0, kp, 8):
+        ar = g * lda + 2 * t + k
+        for lane in range(32):
+            assert [float(x.ravel()[w_]) for w_ in
+                    (ar[lane], ar[lane] + 8 * lda, ar[lane] + 1,
+                     ar[lane] + 8 * lda + 1)] == _pair_fragment(x, 0, k, lane)
+        for r0 in (0, 8):
+            assert _half_warp_banks_distinct((r0 + g) * lda + 2 * t + k)
+            assert not _half_warp_banks_distinct(
+                (r0 + g) * (lda - 4) + 2 * t + k)
+
+
+# ---------------------------------------------------------------------------
+# the forward family's att_bwd: the dz pass's (channel pair, positions) map
+# ---------------------------------------------------------------------------
+
+_AB_THREADS, _AB_DZ_BATCH = 256, 8
+
+
+def ab_fam_map(a_dim, rows):
+    """``csrc/fused_train_decoder.cu::AbFamMap``: (pairs, groups, per) of
+    the family's dz pass: a thread a channel pair and a group of ``per``
+    positions, as many groups as the 256 threads leave."""
+    pairs = (a_dim + 1) // 2
+    groups = _AB_THREADS // pairs if pairs < _AB_THREADS else 1
+    return pairs, groups, -(-rows // groups)
+
+
+def _dz_visits(a_dim, rows):
+    """Every (position, channel) the family's dz pass updates, in each
+    thread's order: thread tid takes c = tid, tid + 256, ... below pairs x
+    groups, channels 2 (c % pairs) and the next (past A: none), positions
+    [grp per, min(rows, grp per + per)) of grp = c / pairs in batches of
+    AB_DZ_BATCH; and the position groups' order of the partials' sum."""
+    pairs, groups, per = ab_fam_map(a_dim, rows)
+    visits, busy = [], set()
+    for tid in range(_AB_THREADS):
+        for c in range(tid, pairs * groups, _AB_THREADS):
+            busy.add(tid)
+            a, grp = 2 * (c % pairs), c // pairs
+            i_lo, i_hi = grp * per, min(rows, grp * per + per)
+            order = [i0 + j for i0 in range(i_lo, i_hi, _AB_DZ_BATCH)
+                     for j in range(_AB_DZ_BATCH) if i0 + j < i_hi]
+            assert order == list(range(i_lo, i_hi))
+            visits += [(i, ch) for i in order for ch in (a, a + 1)
+                       if ch < a_dim]
+    return visits, busy, groups
+
+
+@pytest.mark.parametrize("a_dim", [128, 127, 90])
+@pytest.mark.parametrize("tile", [16, 64, 192])
+def test_fwd_att_bwd_dz_map_covers_every_position_and_channel_once(tile,
+                                                                   a_dim):
+    """The family ``att_bwd``'s dz pass (a thread a channel pair and a
+    group of positions) updates every (position, channel) of a tile once,
+    at the tiles of 16 (T = 128), 64 (T = 512) and 192 (T = 1,500)
+    positions and at a last tile cut short, at A = 128 (64 pairs x 4
+    groups: every thread busy), at an odd A (the last pair's second channel
+    past A) and at A = 90 (45 pairs x 5 groups); the groups, summed in
+    group order, take the positions in ascending order."""
+    for rows in (tile, tile - 5):
+        visits, busy, groups = _dz_visits(a_dim, rows)
+        assert len(visits) == len(set(visits)) == rows * a_dim
+        assert set(visits) == {(i, ch) for i in range(rows)
+                               for ch in range(a_dim)}
+        _, _, per = ab_fam_map(a_dim, rows)
+        starts = [grp * per for grp in range(groups)]
+        assert starts == sorted(starts) and starts[0] == 0
+    if a_dim == 128:
+        assert busy == set(range(_AB_THREADS)) and groups == 4
 
 
 @pytest.mark.parametrize("a_dim", [128, 256])

@@ -100,6 +100,21 @@ def test_bwd_prenet_split_at_known_widths(in_dim, p, want):
     assert ftd.prenet_split is fd.prenet_split
 
 
+def test_wide_prenet_split_covers_every_width():
+    """The forward prenets' wide split (non-portable clusters): whole
+    8-column tiles, at most 16 CTAs, every column of P owned, none empty;
+    16 CTAs of 16 columns at the flagship's P = 256.  Only float32
+    launches of at most 64 rows take it (``prenet_wide``)."""
+    for p in range(1, 300):
+        cl, cols_p, _ = fd.prenet_split(80, p, wide=True)
+        assert 1 <= cl <= 16 and cols_p % 8 == 0
+        assert (cl - 1) * cols_p < p <= cl * cols_p
+    assert fd.prenet_split(80, 256, wide=True)[:2] == (16, 16)
+    assert [fd.prenet_wide(d, b) for d, b in (
+        (torch.float32, 1), (torch.float32, 64), (torch.float32, 65),
+        (torch.bfloat16, 50))] == [True, True, False, False]
+
+
 def test_bwd_prenet_split_covers_every_width():
     """Whole 8-column tiles, at most 8 CTAs, every column of P and of the
     input frame owned, and no CTA of P's columns empty."""
@@ -174,7 +189,7 @@ def test_bwd_prenet_split_is_the_plain_backward(n_prenet, in_dim):
     assert dx_in.shape[1] >= in_dim
 
 
-def _split_prenet(x, layers, rate, seeds, salt0):
+def _split_prenet(x, layers, rate, seeds, salt0, wide=False):
     """The forward prenet as its kernel splits it: the rows in 16-row tiles
     (the last one ragged, its pad rows zero), each CTA of a tile's cluster
     computing its own columns of a layer, relu(bf16(x) @ W[:, cols] + b),
@@ -184,7 +199,7 @@ def _split_prenet(x, layers, rate, seeds, salt0):
     mask), the pad rows dropped."""
     b, in_dim = x.shape
     p = layers[0][0].shape[1]
-    cl, cols_p, _ = fd.prenet_split(in_dim, p)
+    cl, cols_p, _ = fd.prenet_split(in_dim, p, wide)
     own = [slice(r * cols_p, min(p, (r + 1) * cols_p)) for r in range(cl)]
     rows = -(-b // 16) * 16
     a = torch.zeros(rows, in_dim)
@@ -219,11 +234,14 @@ def _prenet_weights(in_dim, p, n_prenet, seed):
 _PRENET_WIDTHS = [(80, 256), (80, 40), (27, 24)]
 
 
+@pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("in_dim,p", _PRENET_WIDTHS)
 @pytest.mark.parametrize("n_prenet", [1, 2, 3])
-def test_prenet_split_is_the_plain_serving_prenet(n_prenet, in_dim, p):
+def test_prenet_split_is_the_plain_serving_prenet(n_prenet, in_dim, p,
+                                                  wide):
     """The column split and bf16 exchange of the forward prenet kernel, at
-    B=50 (a ragged last 16-row tile), dropout 0.5, step 3, equals
+    B=50 (a ragged last 16-row tile), dropout 0.5, step 3, in clusters of
+    up to 8 CTAs and up to 16 (``wide``), equals
     ``fused_decoder.prenet_plain``: the keep masks exactly, the float32
     output within float32 sum order (rtol 1e-6)."""
     w, bias = _prenet_weights(in_dim, p, n_prenet, 7 * n_prenet + p)
@@ -234,7 +252,7 @@ def test_prenet_split_is_the_plain_serving_prenet(n_prenet, in_dim, p):
     frame = torch.as_tensor(np.random.RandomState(p).randn(b, in_dim),
                             dtype=torch.float32)
     outs, keeps = _split_prenet(frame, bundle.prenet_layers(), 0.5, seeds,
-                                step * n_prenet + 1)
+                                step * n_prenet + 1, wide)
     keep_p = torch.zeros(n_prenet, b, p, dtype=torch.uint8)
     ref = fd.prenet_plain(frame, bundle, 0.5, seeds, step, keep_out=keep_p)
     assert torch.equal(torch.stack(keeps).to(torch.uint8), keep_p)

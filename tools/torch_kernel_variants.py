@@ -9,6 +9,9 @@ the PyTorch port's CUDA sources, on one NVIDIA GPU.
     python3 tools/torch_kernel_variants.py time bwd_head_cols_32 att_bwd_f32_split_in_registers band_swz_off
     python3 tools/torch_kernel_variants.py time train_attention_taps
     python3 tools/torch_kernel_variants.py time gate_f32_cluster_1 gate_f32_cluster_4 gate_rows_halved gate_f32_stage_128
+    python3 tools/torch_kernel_variants.py time prenet_not_wide bwd_prenet_f32_one_chain
+    python3 tools/torch_kernel_variants.py --root PARENT time train_prenet_f32_no_product att_bwd_fwd_no_dz att_bwd_fwd_no_energy att_bwd_fwd_one_exchange
+    python3 tools/torch_kernel_variants.py ab --base PARENT prenet K3fam K3
 
 Each variant copies ``multilingual_text_to_speech_tpu_torch`` under the
 ignored ``build/variants/<name>/``, replaces pieces of a ``csrc`` source
@@ -52,7 +55,13 @@ lc's TF32 lo halves dropped; and in K2's float32 location conv and K3's
 float32 prenet backward on the tensor cores, each product in one TF32
 pass, train_attention's Hankel fragment one tap off, lc's or da's TF32 lo
 halves dropped, one warp's partial energy or one K slice's partial of
-``bwd_prenet`` left out of its sum; and runs the checks of that
+``bwd_prenet`` left out of its sum; and in the float32 forward prenet's
+products (``csrc/tile.cuh::tf32x3_kslices``, shared with ``bwd_prenet``)
+one TF32 pass, one K slice's partial left out of the sum or the weights'
+TF32 lo halves dropped, and in the forward family's ``att_bwd`` dz pass
+(a thread a channel pair and a group of positions) the last group's dv
+and dq partials left out or each group reaching one position into the
+next (a dmt row written twice); and runs the checks of that
 kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
@@ -72,6 +81,11 @@ straight into their float32 sums on the tensor cores, where the kernels
 sum each ring stage's apart and add it on the CUDA cores (K1's, K2's and
 K3's float32 checks).
 
+``ab --base DIR NAME ...`` runs each named timing script (K1, K2, K3,
+K3fam, prenet, gates: those of ``time``) on DIR's package and on the
+checkout's in turns (base, change, change, base), e.g. the parent commit's
+against this one.
+
 ``time`` times each named variant's kernel and the checkout's own in turns
 (``--root DIR`` takes another checkout's package, e.g. the parent commit
 unpacked under ``build/``, as the one copied and timed as is)
@@ -89,7 +103,13 @@ float32 gate routine, both of the flagship's LSTMs at B=50
 and 240, for ``gate_f32_cluster_1`` and ``gate_f32_cluster_4`` (K split
 over clusters of one or four CTAs, where the checkout's are of two),
 ``gate_rows_halved`` (blocks of half the rows the launcher picks: 32 at
-B=50, 64 at B=240) and ``gate_f32_stage_128`` (another ring).
+B=50, 64 at B=240) and ``gate_f32_stage_128`` (another ring); both
+forward prenets (``prenet``: K2's ``train_prenet`` at B=50 with its
+streams, K1's ``prenet`` at B=240 with its masks, both types), among them
+``prenet_not_wide`` (the float32 prenet in clusters of 8 CTAs at B=50 too,
+where the checkout takes non-portable clusters of 16);
+the forward family's ``att_bwd`` (``K3fam``: both kinds, both types, B=50,
+T=128).
 
 Prints every run and, last, one JSON object of the results, also written
 to ``build/variants/kernel_variants_<mode>.json``.
@@ -224,6 +244,20 @@ VARIANTS = {
         "const float tp = KIND == ATT_FWD_TRANS ? fa.tp_prev[b] : 0.0f;",
         "const float tp = KIND == ATT_FWD_TRANS ? fa.tp[b] : 0.0f;",
         "K3:forward_transition_agent"),
+    # the family's dz pass (a thread a channel pair and a group of
+    # positions): the last position group's dv and dq partials left out of
+    # the CTA's sum; each group's positions reaching one into the next
+    # group's, so that a dmt row is loaded, updated and written twice and
+    # its dv and dq terms counted twice
+    "fwd_dz_group_dropped": (
+        "fused_train_decoder.cu",
+        "      for (int grp = 0; grp < fm.groups; ++grp) {",
+        "      for (int grp = 0; grp < fm.groups - 1; ++grp) {", "K3:forward"),
+    "fwd_dz_row_twice": (
+        "fused_train_decoder.cu",
+        "const int i_lo = grp * fm.per, i_hi = min(rows, i_lo + fm.per);",
+        "const int i_lo = grp * fm.per, i_hi = min(rows, i_lo + fm.per + 1);",
+        "K3f32:forward_transition_agent"),
     "fwd_bwd_dcum_added": (
         "fused_train_decoder.cu",
         "dcum[rowT + t] = KIND == ATT_FWD_TRANS",
@@ -286,10 +320,9 @@ VARIANTS = {
         "fused_train_decoder.cu", "      a[0] = from_float<CT>(gi);",
         "      a[0] = from_float<CT>(round_bf16(gi));", "K2f32"),
     "f32_prenet_input_bf16": (
-        "tile.cuh",
-        "          acc = fmaf(ar[k], w_l[(size_t)k * ldw + c], acc);",
-        "          acc = fmaf(round_bf16(ar[k]), w_l[(size_t)k * ldw + c], "
-        "acc);", "K2f32"),
+        "tile.cuh", "        v = reinterpret_cast<const float*>(xr)[k];",
+        "        v = round_bf16(reinterpret_cast<const float*>(xr)[k]);",
+        "K2f32"),
     "f32_ctx_last_chunk_skipped": (
         "tile.cuh",
         "        acc[j] += ROUND ? round_bf16(x[j] * wt) : x[j] * wt;",
@@ -360,14 +393,12 @@ VARIANTS = {
         "            s_tz[i * A + a] = round_bf16(tz);",
         "K3f32:forward_transition_agent"),
     "f32_bwd_prenet_da_bf16": (
-        "fused_train_decoder.cu",
-        "          tf32_split<4>(ah, al, ah);\n"
-        "          tf32_split<2>(bh, bl, bh);\n",
-        "          for (int i = 0; i < 4; ++i)\n"
-        "            ah[i] = __float_as_uint(round_bf16(__uint_as_float("
-        "ah[i])));\n"
-        "          tf32_split<4>(ah, al, ah);\n"
-        "          tf32_split<2>(bh, bl, bh);\n", "K3f32"),
+        "tile.cuh",
+        "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n",
+        "    for (int i = 0; i < 4; ++i)\n"
+        "      ah[i] = __float_as_uint(round_bf16(__uint_as_float(ah[i])));\n"
+        "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n",
+        "K3f32"),
     # K2's float32 location conv and K3's float32 prenet backward on the
     # tensor cores: each product in one TF32 pass, the Hankel fragment of
     # cum one tap off (train_attention's own reads), lc's or da's TF32 lo
@@ -397,20 +428,31 @@ VARIANTS = {
         "e += w < TA_WARPS - 1 ? s_ep[w * tile + i] : 0.0f;\n"
         "      s_e[i] = e + s_mask[i];", "K2f32"),
     "f32_bwd_prenet_one_tf32_pass": (
-        "fused_train_decoder.cu",
-        "          mma_tf32(c[0], al, bh);\n          mma_tf32(c[1], ah, bl);\n",
+        "tile.cuh", "    mma_tf32(c[0], al, bh);\n    mma_tf32(c[1], ah, bl);\n",
         "", "K3f32"),
     "f32_bwd_prenet_da_lo_dropped": (
-        "fused_train_decoder.cu",
-        "          tf32_split<4>(ah, al, ah);\n"
-        "          tf32_split<2>(bh, bl, bh);\n",
-        "          tf32_split<4>(ah, al, ah);\n"
-        "          tf32_split<2>(bh, bl, bh);\n"
-        "          al[0] = al[1] = al[2] = al[3] = 0u;\n", "K3f32"),
+        "tile.cuh",
+        "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n",
+        "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n"
+        "    al[0] = al[1] = al[2] = al[3] = 0u;\n", "K3f32"),
     "f32_bwd_prenet_k_partial_dropped": (
-        "fused_train_decoder.cu",
-        "        for (int ks = 1; ks < splits; ++ks)",
-        "        for (int ks = 1; ks < splits - 1; ++ks)", "K3f32"),
+        "tile.cuh", "  for (int ks = 1; ks < splits; ++ks) acc +=",
+        "  for (int ks = 1; ks < splits - 1; ++ks) acc +=", "K3f32"),
+    # the forward prenet's float32 products (tf32x3_kslices, shared with
+    # bwd_prenet, run under K2's float32 checks): one TF32 pass, one K
+    # slice's partial left out of the sum, the weights' TF32 lo halves
+    # dropped
+    "f32_prenet_one_tf32_pass": (
+        "tile.cuh", "    mma_tf32(c[0], al, bh);\n    mma_tf32(c[1], ah, bl);\n",
+        "", "K2f32"),
+    "f32_prenet_k_partial_dropped": (
+        "tile.cuh", "  for (int ks = 1; ks < splits; ++ks) acc +=",
+        "  for (int ks = 1; ks < splits - 1; ++ks) acc +=", "K2f32"),
+    "f32_prenet_w_lo_dropped": (
+        "tile.cuh",
+        "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n",
+        "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n"
+        "    bl[0] = bl[1] = 0u;\n", "K2f32"),
     "train_attention_taps": (
         "fused_train_decoder.cu",
         [("  // 1. energies: loc = band(cum) @ lc",
@@ -522,7 +564,9 @@ VARIANTS = {
              "        for (int k = 0; k < 0; k += 4) {\n"
              "          const float4 x"),
             ("        for (; k + 8 < k_hi; k += 16) {",
-             "        for (k = k_hi; k + 8 < k_hi; k += 16) {"))],
+             "        for (k = k_hi; k + 8 < k_hi; k += 16) {"),
+            ("      tf32x3_kslices<false>(s_part, s_a, ldw, w_l, ldw, n_l, kp,",
+             "      tf32x3_kslices<false>(s_part, s_a, ldw, w_l, ldw, n_l, 0,"))],
         "time K3"),
     "bwd_prenet_f32_no_gather": (
         "fused_train_decoder.cu",
@@ -530,55 +574,91 @@ VARIANTS = {
           "    if constexpr (!F32)\n"
           "    cluster_gather_rows(s_a, ldw, own, ldo, np, cl, mtiles * 16,")],
         "time K3"),
-    # the float32 bwd_prenet with one accumulator a warp, the three passes
-    # summed straight in (one chain of up to 48 dependent mma.sync), where
-    # the checkout keeps six; train_attention's float32 instance without
-    # its launch bound (80 registers, three CTAs an SM)
+    # the float32 prenet products (tf32x3_kslices: the forward prenets and
+    # bwd_prenet) with one accumulator a warp, the three passes summed
+    # straight in (one chain of up to 48 dependent mma.sync), where the
+    # checkout keeps six; train_attention's float32 instance without its
+    # launch bound (80 registers, three CTAs an SM)
     "bwd_prenet_f32_one_chain": (
-        "fused_train_decoder.cu",
-        [("          mma_tf32(c[0], al, bh);\n          mma_tf32(c[1], ah, bl);\n"
-          "          mma_tf32(c[2], ah, bh);",
-          "          mma_tf32x3(c[0], ah, al, bh, bl);"),
-         ("          step(k + 8, acc[1]);", "          step(k + 8, acc[0]);")],
+        "tile.cuh",
+        [("    mma_tf32(c[0], al, bh);\n    mma_tf32(c[1], ah, bl);\n"
+          "    mma_tf32(c[2], ah, bh);",
+          "    mma_tf32x3(c[0], ah, al, bh, bl);"),
+         ("    step(k + 8, acc[1]);", "    step(k + 8, acc[0]);")],
         "time K3"),
     # the prenet backward with 512 threads a CTA (both instances; float32:
-    # twice the K slices); the float32 da rows split once into their TF32
-    # halves after the gather (a lo copy of s_a), where the checkout splits
-    # each fragment in registers
+    # twice the K slices)
     "bwd_prenet_threads_512": (
         "fused_train_decoder.cu",
         "constexpr int BP_ROWS = 16, BP_THREADS = 256,",
         "constexpr int BP_ROWS = 16, BP_THREADS = 512,", "time K3"),
-    "bwd_prenet_f32_da_split_once": (
+    # what each part of the float32 forward prenet and of the forward
+    # family's att_bwd costs (wrong results; timing only): the prenet's
+    # product left out (each output its bias alone, the epilogue kept); the
+    # family's dz/dmt/dv/dq pass left out; its energy pass left out; every
+    # cluster barrier of its replay but the first made a CTA barrier
+    "train_prenet_f32_no_product": (
+        "tile.cuh", [Alt(
+            ("        for (int k = 0; k < kp; ++k)\n"
+             "          acc = fmaf(ar[k], w_l[(size_t)k * ldw + c], acc);",
+             "        for (int k = 0; k < 0; ++k)\n"
+             "          acc = fmaf(ar[k], w_l[(size_t)k * ldw + c], acc);"),
+            ("      tf32x3_kslices<true>(s_part, s_a, lda, w_l, ldw, np, kp, "
+             "warp,",
+             "      tf32x3_kslices<true>(s_part, s_a, lda, w_l, ldw, np, 0, "
+             "warp,"))],
+        "time prenet"),
+    # the float32 forward prenets in clusters of 8 CTAs of np = 32 at every
+    # B, where the checkout takes non-portable clusters of 16 of np = 16 at
+    # up to 64 rows
+    "prenet_not_wide": (
+        "fused_decoder.py",
+        "_PRENET_CLUSTER_MAX, _PRENET_WIDE_CLUSTER_MAX, _PRENET_WIDE_ROWS = "
+        "8, 16, 64",
+        "_PRENET_CLUSTER_MAX, _PRENET_WIDE_CLUSTER_MAX, _PRENET_WIDE_ROWS = "
+        "8, 16, 0", "time prenet"),
+    # the family's instances without their launch bound (74 to 78
+    # registers, three CTAs an SM), where the checkout holds them to 64 and
+    # four
+    "att_bwd_fwd_unbounded": (
         "fused_train_decoder.cu",
-        [("    total = part + (es == 4 ? align16((size_t)BP_ROWS * parts * 4) "
-          ": 0);",
-          "    total = part + (es == 4 ? align16((size_t)BP_ROWS * parts * 4) "
-          ": 0) + (es == 4 ? align16((size_t)BP_ROWS * ldw * 4) : 0);"),
-         ("  float* s_part = reinterpret_cast<float*>(bp_smem + L.part);",
-          "  float* s_part = reinterpret_cast<float*>(bp_smem + L.part);\n"
-          "  float* s_a_lo = reinterpret_cast<float*>(bp_smem + L.total) - "
-          "BP_ROWS * ldw;"),
-         ("    if (l == n_layers - 1) cp_async_wait<0>();   // the weights\n"
-          "    __syncthreads();\n",
-          "    if (l == n_layers - 1) cp_async_wait<0>();   // the weights\n"
-          "    __syncthreads();\n"
-          "    if constexpr (F32) {\n"
-          "      for (int i = tid; i < BP_ROWS * ldw; i += BP_THREADS)\n"
-          "        tf32_split_store(s_a + i, s_a_lo + i, s_a[i]);\n"
-          "      __syncthreads();\n"
-          "    }\n"),
-         ("        const float* wr = w_l + (size_t)(nt * 8 + g) * ldw + qd;\n",
-          "        const float* wr = w_l + (size_t)(nt * 8 + g) * ldw + qd;\n"
-          "        const float* arl = s_a_lo + (size_t)g * ldw + qd;\n"),
-         ("          tf32_split<4>(ah, al, ah);\n"
-          "          tf32_split<2>(bh, bl, bh);\n",
-          "          al[0] = __float_as_uint(arl[k]);\n"
-          "          al[1] = __float_as_uint(arl[8 * ldw + k]);\n"
-          "          al[2] = __float_as_uint(arl[k + 4]);\n"
-          "          al[3] = __float_as_uint(arl[8 * ldw + k + 4]);\n"
-          "          tf32_split<2>(bh, bl, bh);\n")],
-        "time K3"),
+        "__global__ void __launch_bounds__(AB_THREADS, 4)\n"
+        "    att_bwd_family_kernel(",
+        "__global__ void __launch_bounds__(AB_THREADS)\n"
+        "    att_bwd_family_kernel(", "time K3fam"),
+    "att_bwd_fwd_no_dz": (
+        "fused_train_decoder.cu", [Alt(
+            ("      for (int i = 0; i < rows; ++i) {\n"
+             "        const float tz = to_float(s_tz[i * A + a]);",
+             "      for (int i = 0; i < 0; ++i) {\n"
+             "        const float tz = to_float(s_tz[i * A + a]);"),
+            ("    for (int c = tid; c < fm.pairs * fm.groups; c += AB_THREADS) {",
+             "    for (int c = tid; c < 0; c += AB_THREADS) {"))],
+        "time K3fam"),
+    "att_bwd_fwd_no_energy": (
+        "fused_train_decoder.cu",
+        [("          for (int a = lane; a < A; a += 32) {\n"
+          "            const float tz = fwd_energy_tanh<CT>(",
+          "          for (int a = lane; a < 0; a += 32) {\n"
+          "            const float tz = fwd_energy_tanh<CT>("),
+         ("          for (int a = 2 * lane; a < A; a += 64) {",
+          "          for (int a = 2 * lane; a < 0; a += 64) {")],
+        "time K3fam"),
+    # (the parent's five exchanges, or the checkout's three)
+    "att_bwd_fwd_one_exchange": (
+        "fused_train_decoder.cu",
+        [Alt(("    if (tid == 0) s_s1[2] = psum;\n    cluster_sync();",
+              "    if (tid == 0) s_s1[2] = psum;\n    __syncthreads();"),
+             ("    const AbFamMap fm(A, rows);",
+              "    const AbFamMap fm(A, rows);")),
+         Alt(("    if (tid == 0) s_s1[3] = nsum;\n    cluster_sync();",
+              "    if (tid == 0) s_s1[3] = nsum;\n    __syncthreads();"),
+             ("    pe /= nsum;", "    pe /= nsum;")),
+         ("      s_s1[5] = pt;\n    }\n    cluster_sync();",
+          "      s_s1[5] = pt;\n    }\n    __syncthreads();"),
+         ("      s_dqp[a] = pdq;\n    }\n    cluster_sync();",
+          "      s_dqp[a] = pdq;\n    }\n    __syncthreads();")],
+        "time K3fam"),
     "train_attention_f32_unbounded": (
         "fused_train_decoder.cu",
         "__global__ void __launch_bounds__(TA_THREADS, 4)",
@@ -790,6 +870,87 @@ print("VARIANT_RESULT " + json.dumps(res))
 """
 
 
+# the forward family's att_bwd at B=50, T=128 and the flagship's widths
+# (A=128, Mem=292, H=1024, P=256) on random inputs, both kinds (the
+# transition agent's backward in its prologue) in both compute types, the
+# accumulators and carries updated in place
+_TIME_K3FAM = _PRELUDE + r"""
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+torch.set_grad_enabled(False)
+b, t, a, mem, h, p = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 1024, 256
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape, scale=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * scale
+mask_add = torch.zeros(b, t, device="cuda")
+res = {{}}
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for kind in ("fwd", "trans"):
+        w_s = torch.softmax(rnd(b, t), -1)
+        prev = torch.softmax(rnd(b, t), -1).to(ct)
+        fam = ftd.FamilyBwd(mask_add)
+        if kind == "trans":
+            fam = ftd.FamilyBwd(
+                mask_add, torch.rand(b, device="cuda", generator=gen),
+                torch.rand(b, device="cuda", generator=gen), rnd(b),
+                torch.empty(b, device="cuda"), rnd(mem + h + p, scale=0.03),
+                rnd(b, h), torch.empty(b, p, device="cuda"))
+        args = (rnd(b, a).to(ct).float(), prev, w_s, rnd(b, t, mem).to(ct),
+                rnd(b, t, a, scale=0.5).to(ct), None, rnd(a, scale=a ** -0.5),
+                rnd(b, mem), rnd(b, t, scale=0.1), rnd(b, t, scale=0.1),
+                torch.zeros(b, t, a, device="cuda"), None,
+                torch.zeros(b, a, device="cuda"),
+                torch.empty(b, a, dtype=ct, device="cuda"),
+                torch.empty(b, mem, dtype=ct, device="cuda"))
+        res[f"{{kind}}_ms_{{name}}"] = cs.device_ms(
+            lambda: ftd.att_bwd(*args, fam=fam), ours_only=True)
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+
+
+# the forward prenet of both decoders at the flagship's widths (M=80,
+# P=256, two layers, dropout 0.5) on random inputs, in both compute types:
+# K2's train_prenet at the training step's B=50 (a teacher step with its
+# raw and per-layer streams), K1's prenet at serving's B=240 (with its keep
+# masks)
+_TIME_PRENET = _PRELUDE + r"""
+import dataclasses
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+torch.set_grad_enabled(False)
+m, p, n = 80, 256, 2
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape, scale=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * scale
+seeds = (123456789, 987654321)
+res = {{}}
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    w = rnd(m * p + (n - 1) * p * p, scale=1 / 16).to(ct)
+    bias = rnd(n * p, scale=0.1)
+    b = cs.TRAIN_B
+    tc = ftd.TrainConfig(hidden=1024, mem_dim=292, prenet_dim=p, n_prenet=n,
+                         mmel=m, att_dim=128, taps=31, dropout_rate=0.5,
+                         zoneout_h=0.1, zoneout_c=0.1, use_zoneout=True,
+                         dtype=ct)
+    row = torch.zeros(b, p + 96, dtype=ct, device="cuda")
+    targs = (rnd(b, m).to(ct), rnd(b, m), 1, {{"pre_w": w, "pre_b": bias}},
+             tc, seeds, 7, torch.empty(b, m, dtype=ct, device="cuda"),
+             torch.empty(n, b, p, dtype=ct, device="cuda"), row[:, :p])
+    res[f"train_prenet_ms_{{name}}"] = cs.device_ms(
+        lambda: ftd.train_prenet(*targs), ours_only=True)
+    fields = {{f.name: None for f in dataclasses.fields(fd.DecoderBundle)}}
+    fields.update(dtype=ct, quantized=False, pre_w=w, pre_b=bias,
+                  pre_dims=(m, p, n))
+    bundle = fd.DecoderBundle(**fields)
+    frame = rnd(240, m)
+    keep = torch.empty(n, 240, p, dtype=torch.uint8, device="cuda")
+    out = torch.empty(240, p, device="cuda")
+    res[f"prenet_ms_{{name}}"] = cs.device_ms(
+        lambda: fd.prenet(frame, bundle, 0.5, seeds, 3, keep_out=keep,
+                          out=out), ours_only=True)
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+
+
 # the float32 gate routine (both of the flagship's LSTMs: K = 1600 and 2368
 # zero-padded, H = 1024, train mode) as the build launches it, at the
 # training step's B=50 and serving's B=240: device ms of the two launches
@@ -828,7 +989,8 @@ def make_copy(name: str) -> Path:
     shutil.copytree(ROOT / PKG, root / PKG,
                     ignore=shutil.ignore_patterns("__pycache__"))
     for source, spans in by_source.items():
-        path = root / PKG / "csrc" / source
+        path = root / PKG / ("ops" if source.endswith(".py") else "csrc") \
+            / source
         text = path.read_text()
         for span in spans:
             if isinstance(span, Alt):
@@ -872,14 +1034,17 @@ BUILD_JOBS = 6
 def build_copies(roots: dict) -> None:
     """Build each copy's library of the source its phase loads
     (``fused_decoder`` for K1's phases, ``fused_train_decoder`` for K2's
-    and K3's), BUILD_JOBS nvcc processes at a time."""
+    and K3's, both for the prenets'), BUILD_JOBS copies at a time."""
     from concurrent.futures import ThreadPoolExecutor
 
     def build(name):
-        source = ("fused_decoder" if "K1" in _kind(name)
-                  else "fused_train_decoder")
+        kind = _kind(name)
+        sources = (["fused_decoder", "fused_train_decoder"]
+                   if "prenet" in kind else
+                   ["fused_decoder"] if "K1" in kind
+                   else ["fused_train_decoder"])
         code = (f"import sys; sys.path.insert(0, {str(roots[name])!r}); "
-                f"from {PKG}.ops import _build; _build.build([{source!r}])")
+                f"from {PKG}.ops import _build; _build.build({sources!r})")
         proc = subprocess.run([sys.executable, "-c", code], cwd=roots[name],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -932,9 +1097,8 @@ def time_variants(names) -> dict:
     copies = {name: make_copy(name) for name in names if name in VARIANTS}
     build_copies(copies)
     for name in names:
-        script = {"K1": _TIME_K1, "K2": _TIME_K2, "K3": _TIME_K3,
-                  "gates": _TIME_GATES}.get(
-            _kind(name).split()[1] if name in VARIANTS else None)
+        script = globals().get(_TIMERS.get(
+            _kind(name).split()[1] if name in VARIANTS else None, ""))
         if script is None or not _kind(name).startswith(("time", "design")):
             raise SystemExit(f"kernel_variants: {name} is not a timing "
                              "variant")
@@ -948,19 +1112,46 @@ def time_variants(names) -> dict:
     return out
 
 
+# the timing scripts by name, for ``ab``
+_TIMERS = {"K1": "_TIME_K1", "K2": "_TIME_K2", "K3": "_TIME_K3",
+           "K3fam": "_TIME_K3FAM", "prenet": "_TIME_PRENET",
+           "gates": "_TIME_GATES"}
+
+
+def ab(base: Path, names) -> dict:
+    """Each named timing script on ``base``'s package and on this
+    checkout's, in turns (base, this, this, base)."""
+    out = {}
+    for name in names:
+        if name not in _TIMERS:
+            raise SystemExit(f"kernel_variants: {name} is not a timing "
+                             "script: " + ", ".join(_TIMERS))
+        roots = {"base": base.resolve(), "change": ROOT}
+        out[name] = {k: [] for k in roots}
+        for which in ("base", "change", "change", "base"):
+            res = run(roots[which], globals()[_TIMERS[name]])
+            out[name][which].append(res)
+            print(f"[ab] {name} {which}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in res.items() if v is not None))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("faults", "checks", "time"))
+    ap.add_argument("what", choices=("faults", "checks", "time", "ab"))
     ap.add_argument("names", nargs="*", help="the faults to plant (all "
                     "when none is named), or the variants to check or "
                     "time: " + ", ".join(
                         k for k in VARIANTS
                         if _kind(k).startswith(("time", "design"))))
+    ap.add_argument("--base", type=Path, default=None,
+                    help="ab: the other checkout, e.g. the parent commit "
+                    "unpacked under build/")
     ap.add_argument("--root", type=Path, default=None,
                     help="the checkout whose package is copied and timed "
                     "as is (default: this one), e.g. the parent commit "
                     "unpacked under build/")
-    args = ap.parse_args()
+    args = ap.parse_intermixed_args()
     if args.root is not None:
         global ROOT
         ROOT = args.root.resolve()
@@ -971,7 +1162,8 @@ def main() -> int:
     print(f"[variants] {card}")
     run_mode = {"faults": lambda: faults(args.names),
                 "checks": lambda: checks(args.names),
-                "time": lambda: time_variants(args.names)}[args.what]
+                "time": lambda: time_variants(args.names),
+                "ab": lambda: ab(args.base, args.names)}[args.what]
     result = {"card": card, args.what: run_mode()}
     out_dir = ROOT / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)

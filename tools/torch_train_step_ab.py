@@ -3,7 +3,7 @@
 decoder's kernel rows, from two checkouts in turns, on one NVIDIA GPU.
 
     python3 tools/torch_train_step_ab.py BASE CHANGE [--pairs 4]
-        [--dtype float32]
+        [--dtype float32] [--attention forward_transition_agent]
     python3 tools/torch_train_step_ab.py BASE CHANGE --rows [--pairs 2]
         [--attention forward_transition_agent] [--set q8] [--only head ...]
     python3 tools/torch_train_step_ab.py BASE CHANGE --train-rows
@@ -15,7 +15,8 @@ and ``.``).  Each run is a fresh process that imports ``chip_smoke`` and the
 port from its checkout (the kernels build on the first step) and runs
 ``chip_smoke.phase_train_main`` (the flagship in its bfloat16 compute, or
 with ``--dtype float32`` in float32, as ``chip_smoke.py``'s float32
-training phase runs it): a warm-up step, three timed steps at
+training phase runs it; at ``--attention``, the flagship's widths with
+another attention family): a warm-up step, three timed steps at
 teacher forcing 1.0 and one at 0.5 (host clock, each ending in a
 synchronize), then one step split by CUDA events into forward and loss,
 backward, and clipping and Adam; then two more steps under
@@ -58,10 +59,10 @@ sys.path.insert(0, {root!r})
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK)
+hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK, {attention!r})
 sd = cs.seeded_state_dict(hp)
 if {f32!r}:
-    hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK, **cs.F32)
+    hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK, {attention!r}, **cs.F32)
 _, _, step_s, (model, opt, sched, batch, state) = cs.phase_train_main(hp, sd)
 from torch.profiler import ProfilerActivity, profile
 from multilingual_text_to_speech_tpu_torch.training import trainer
@@ -154,9 +155,10 @@ def rows_ab(roots: dict, order, args, smi: str) -> dict:
             "times": times}
 
 
-def run_once(root: Path, f32: bool) -> dict:
+def run_once(root: Path, f32: bool, attention: str) -> dict:
     proc = subprocess.run([sys.executable, "-c",
-                           _RUN.format(root=str(root), f32=f32)],
+                           _RUN.format(root=str(root), f32=f32,
+                                       attention=attention)],
                           cwd=root, capture_output=True, text=True,
                           timeout=900)
     for line in proc.stdout.splitlines():
@@ -212,14 +214,15 @@ def main() -> int:
     runs = []
     for i, side in enumerate(order):
         print(f"[ab] run {i + 1} of {len(order)}: {side} ({roots[side]})")
-        res = run_once(roots[side], f32)
+        res = run_once(roots[side], f32, args.attention)
         res.update(run=i + 1, side=side)
         runs.append(res)
         print(f"[ab] run {i + 1} {side}: mean step {res['step_s']:.4f} s, "
               f"backward {res.get('backward_ms', float('nan')):.3f} ms; "
               f"device {res['device_ms']:.3f} ms and {res['kernels']:.0f} "
               f"kernel launches a step (torch.profiler)")
-    summary = {"card": smi, "dtype": args.dtype, "runs": runs}
+    summary = {"card": smi, "dtype": args.dtype,
+               "attention": args.attention, "runs": runs}
     for side in roots:
         steps = [r["step_s"] for r in runs if r["side"] == side]
         summary[f"{side}_steps_s"] = steps
@@ -243,7 +246,9 @@ def main() -> int:
               f"{mean['change'].get(k, 0.0):.3f} ms a step")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / f"train_step_ab_{args.dtype}.json").write_text(
+    kind = ("" if args.attention == "location_sensitive"
+            else f"_{args.attention}")
+    (out / f"train_step_ab_{args.dtype}{kind}.json").write_text(
         json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return 0
