@@ -158,10 +158,12 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 # operations at the TF32 peak and the rest on FFMA (row_ops), the FFMA
 # bound printed beside it.  At the training path's shapes bwd_head,
 # att_bwd, train_attention and both prenets stay bound by their bytes
-# either way
+# either way, and so do K1's float32 attention rows (the query product,
+# and the location-sensitive band, in three passes)
 TF32X3_ROWS = ("gate_lstm", "head", "train_gate_lstm", "train_query",
                "train_head", "bwd_gemm", "bwd_head", "att_bwd",
-               "train_attention", "bwd_prenet", "prenet", "train_prenet")
+               "train_attention", "bwd_prenet", "prenet", "train_prenet",
+               "lsa_attention", "fwd_attention")
 # Tolerances of kernel vs plain on the same inputs, set a few times above
 # the errors measured on an H100 (PERF.md): float32 sums in another order,
 # and bfloat16 roundings that a one-ulp difference can flip.
@@ -412,6 +414,24 @@ def device_ms(fn, iters: int = 10, warmup: int = 2,
         " in three sessions: the next time is CUDA events around the whole"
         " call")
     return cuda_ms(fn, iters=iters, warmup=0)
+
+
+# the rows of the attention kernels (K1's, K2's train_attention) are timed
+# in turns with their plain versions: kernel, plain, kernel, plain
+TURN_ROWS = ("lsa_attention", "fwd_attention", "train_attention",
+             "train_attention_fwd")
+
+
+def turns_ms(kernel, plain, iters: int = 10):
+    """(the kernel's mean, the plain version's mean, the kernel's readings,
+    its events note) of device_ms readings in turns: kernel, plain,
+    kernel, plain."""
+    k, pl, notes = [], [], []
+    for _ in range(2):
+        k.append(device_ms(kernel, iters=iters, ours_only=True))
+        notes.append(events_note())
+        pl.append(device_ms(plain, iters=5))
+    return sum(k) / 2, sum(pl) / 2, k, "; ".join(notes)
 
 
 def events_note() -> str:
@@ -1102,7 +1122,9 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
     ss = 1 if bundle.q_streams else es
     scales = (m_dim * f4 + a_dim * es) if bundle.q_streams else 0
     kind = "f32" if f32 else "bf16"
-    work = {   # (bytes each input once + outputs once, operations, type)
+    # (bytes each input once + outputs once, operations, type[, the
+    # products' operations: the query's, and the location conv's band])
+    work = {
         "prenet": (B * in_dim * f4 + (in_dim + (n_pre - 1) * p_dim) * p_dim
                    * es + n_pre * p_dim * f4 + B * p_dim * f4,
                    2 * B * (in_dim + (n_pre - 1) * p_dim) * p_dim, kind),
@@ -1121,7 +1143,8 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
                           + B * m_dim * f4,
                           2 * B * (hidden * a_dim + T_SYMBOLS * a_dim
                                    * (k_taps + 1) + T_SYMBOLS * m_dim),
-                          kind),
+                          kind, 2 * B * (hidden * a_dim
+                                         + T_SYMBOLS * a_dim * k_taps)),
         # h_att, the last weights, memory, mtb and mask read, Wq and v; the
         # weights and the context written; with the transition agent, its
         # t_prob in and out, the prenet output and its weights
@@ -1136,7 +1159,7 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
                                    + T_SYMBOLS * m_dim
                                    + (m_dim + hidden + p_dim if agent
                                       else 0)),
-                          kind),
+                          kind, 2 * B * hidden * a_dim),
         # the head row, the weight, the bias, frame and stop out
         "head": (B * (hidden + m_dim) * es + (hidden + m_dim) * n_head * es
                  + n_head * f4 + B * n_head * f4,
@@ -1166,12 +1189,17 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
     for name, (kernel, plain) in calls.items():
         if only is not None and name not in only:
             continue
-        ms = device_ms(kernel, ours_only=True)
-        events = events_note()
-        plain_ms = device_ms(plain, iters=5)
+        if name in TURN_ROWS:
+            ms, plain_ms, turns, events = turns_ms(kernel, plain)
+            events += ", in turns with plain: " + ", ".join(
+                f"{x:.4f}" for x in turns)
+        else:
+            ms = device_ms(kernel, ours_only=True)
+            events = events_note()
+            plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(library[name]) if name in library else None
-        n_bytes, ops, op_kind = work[name]
-        b_ms, b_by, ffma = row_bound(name, n_bytes, ops, op_kind)
+        n_bytes, ops, op_kind, *mm_ops = work[name]
+        b_ms, b_by, ffma = row_bound(name, n_bytes, ops, op_kind, *mm_ops)
         inst = fd.instance(name, bundle.dtype, bundle.q_streams)
         rows.append({
             "name": f"{inst}[{_LABEL}]" if _LABEL else inst, "route": "cuda",
@@ -1186,7 +1214,7 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
         say(f"[time] {inst} (device time, torch.profiler): kernel "
             f"{ms:.4f} ms ({events}), plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.5f} ms ({b_by}, "
-            f"{row_ops(name, ops, op_kind)[0][1]}){ffma}, library "
+            f"{row_ops(name, ops, op_kind, *mm_ops)[0][1]}){ffma}, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     if not chunk:
         return rows
@@ -1205,8 +1233,10 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
     # a chunk reads its weights and attention operands once and writes its
     # frames once; its products run at their types' peaks, one after the
     # other
-    step_ops_s = sum(n / PEAK_OPS[k] for name, (_, ops, kind) in work.items()
-                     if name in calls for n, k in row_ops(name, ops, kind))
+    step_ops_s = sum(n / PEAK_OPS[k]
+                     for name, (_, ops, kind, *mm) in work.items()
+                     if name in calls for n, k in row_ops(name, ops, kind,
+                                                          *mm))
     chunk_bytes = ((k_att + k_gen) * 4 * hidden * bundle.att_w.element_size()
                    + B * T_SYMBOLS * (m_dim + a_dim) * ss
                    + B * CHUNK * n_head * f4)
@@ -2611,6 +2641,11 @@ def phase_train_timings(hp, errs, launches, per_step, inputs, main,
                   f"{alone['dq_product_with_cell']:.4f} ms with the attention "
                   f"cell; the two cells alone (bwd_cell's own launches) "
                   f"{alone['cells_alone']:.4f} ms")
+        elif name in TURN_ROWS:
+            ms, plain_ms, turns, events = turns_ms(
+                lambda: run(ftd.KERNELS), lambda: run(ftd.PLAIN))
+            events += ", in turns with plain: " + ", ".join(
+                f"{x:.4f}" for x in turns)
         else:
             ms = device_ms(lambda: run(ftd.KERNELS), ours_only=True,
                            iters=cell_iters if name == "bwd_head" else 10)

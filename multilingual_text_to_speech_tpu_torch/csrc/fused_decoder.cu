@@ -10,9 +10,10 @@
 // rounded at the points where the TPU kernel rounds them, so the plain
 // PyTorch version in ops/fused_decoder.py can repeat the arithmetic; in
 // float32 nothing is rounded and every product is float32-accurate (the
-// exact gates and the head on the tensor cores in three TF32 passes,
-// csrc/tile.cuh mma_tf32x3; the rest in FFMA on the CUDA cores), but W8A8's
-// int8 gate product, which float32 keeps.  The attention kernels
+// prenet, the exact gates, the head and the attention's query and location
+// conv on the tensor cores in three TF32 passes, csrc/tile.cuh mma_tf32x3;
+// the rest in FFMA on the CUDA cores), but W8A8's int8 gate product, which
+// float32 keeps.  The attention kernels
 // also read the memory and the memory transform as int8 streams with
 // per-channel scales (the TPU kernel's q_streams, pallas_decoder.py:
 // 985-1003), dequantized where the TPU kernel dequantizes them.
@@ -261,10 +262,23 @@ struct EvalLstm {
 //
 // The compute type CT and the stream type ST: every instance above is CT =
 // ST = bf16.  CT = float32 (the TPU kernel at dtype float32) rounds none of
-// the "bf16(...)" above, and runs steps 1 and 2 on the CUDA cores: the
-// query a thread an output of the cluster's rows, the energy a warp a
-// position and a lane every 32nd channel, the location conv as the float32
-// band product (csrc/tile.cuh band_loc_f32).  ST = int8 (the TPU kernel's
+// the "bf16(...)" above.  Its query product runs on the tensor cores in
+// three TF32 passes (mma.sync m16n8k8; csrc/tile.cuh warp_tf32x3_kslice
+// with k taken in pairs on the float32 rows of h_att, rows 8..15 zero, and
+// Wq's "KN" rows, a warp per n8 tile over the CTA's whole K slice, K in
+// order).  The location-sensitive instances run the location conv as K2's
+// float32 band routine (csrc/fused_train_decoder.cu train_attention; A a
+// multiple of 16): lc copied into swizzled rows of A words (band_copy_lc_tf32, split in
+// registers where read), cum's TF32 halves staged once
+// (band_stage_cum_tf32), band(cum) @ lc on mma.sync m16n8k8 TF32 in three
+// passes (mma_tf32x3), a warp per 16 channels down the row's 16-position
+// mma tiles with its lc fragments held in registers, mtb read as float2
+// pairs in the accumulator layout, each warp's partial energies summed in
+// warp order (in chunks of LSA_EP_ROWS positions).  Before, both products
+// ran on the CUDA cores (the band as 32 FFMA with two shared loads each a
+// (t, a): about 18 us of the 72 a call at B=240, T=128, PERF.md).  The
+// forward family's float32 instances keep their energy loop, a warp a
+// position and a lane every 32nd channel.  ST = int8 (the TPU kernel's
 // q_streams, pallas_decoder.py:571-572, :626-634): mtb is read as int8 and
 // dequantized in the compute type, mtb = CT(q * mts[a]) with the scale row
 // already in CT; the context sums CT(q * w[t]) in float32 and multiplies
@@ -276,6 +290,8 @@ struct EvalLstm {
 // ---------------------------------------------------------------------------
 constexpr int LSA_THREADS = 256, LSA_WARPS = LSA_THREADS / 32;
 constexpr int LSA_ROWS = 8;   // CTAs (batch rows) a cluster
+// positions a chunk of the float32 band's partial energies
+constexpr int LSA_EP_ROWS = 256;
 
 // the forward family's extra operands (all null for location-sensitive)
 template <class CT>
@@ -298,27 +314,38 @@ struct StreamScales {
 };
 
 // shared-memory layout of lsa_attention_kernel (byte offsets) for a
-// compute type of `es` bytes and streams of `ss`
+// compute type of `es` bytes, streams of `ss` and the location-sensitive
+// kind (`ls`).  float32: h_att's rows 8..15 are zero rows of the query's
+// m16 tile (rows of kq + 8 words: the k pairs of a half-warp in distinct
+// banks), and the location-sensitive instances keep lc in swizzled rows of
+// A words (band_swz), cum's TF32 lo halves beside its hi, and each warp's
+// partial energies of a chunk of LSA_EP_ROWS positions
 struct LsaLayout {
-  int kq, ldh, ld, tpad;
+  int kq, ldh, ld, ldl, tpad, ep_rows;
   CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
-  size_t wq, h, qp, q, v, mts, lc, cum, e, red, cpart, total;
-  __host__ __device__ LsaLayout(int T, int H, int A, int M, int es, int ss)
+  size_t wq, h, qp, q, v, mts, lc, cum, cum_lo, ep, e, red, cpart, total;
+  __host__ __device__ LsaLayout(int T, int H, int A, int M, int es, int ss,
+                                bool ls)
       : cs(M, LSA_THREADS, 16 / ss) {
     const int pad = 16 / es;
+    const bool f32 = es == 4, tf32 = f32 && ls;
     kq = ((H + LSA_ROWS - 1) / LSA_ROWS + 31) / 32 * 32;
-    ldh = kq + pad;
-    ld = A + pad;   // rows of Wq and of lc
+    ldh = kq + 8;
+    ld = A + pad;           // rows of Wq
+    ldl = tf32 ? A : ld;    // rows of lc
     tpad = (T + 15) / 16 * 16;
+    ep_rows = tf32 ? min(tpad, LSA_EP_ROWS) : 0;
     wq = 0;
     h = wq + align16((size_t)kq * ld * es);
-    qp = h + align16((size_t)LSA_ROWS * ldh * es);
+    qp = h + align16((size_t)(f32 ? 16 : LSA_ROWS) * ldh * es);
     q = qp + align16((size_t)LSA_ROWS * A * 4);
     v = q + align16((size_t)A * 4);
     mts = v + align16((size_t)A * 4);
     lc = mts + align16((size_t)A * 4);
-    cum = lc + align16((size_t)BAND_K * ld * es);
-    e = cum + align16((size_t)(tpad + BAND_K) * es);
+    cum = lc + align16((size_t)BAND_K * ldl * es);
+    cum_lo = cum + align16((size_t)(tpad + BAND_K) * es);
+    ep = cum_lo + (tf32 ? align16((size_t)(tpad + BAND_K) * 4) : 0);
+    e = ep + align16((size_t)LSA_WARPS * ep_rows * 4);
     red = e + align16((size_t)tpad * 4);
     cpart = red + 32 * 4;
     total = cpart + align16(cs.scratch_floats(M) * 4);
@@ -345,11 +372,102 @@ __device__ __forceinline__ float2 mt_pair(const __nv_bfloat16* p, size_t i,
   return make_float2(__low2float(m), __high2float(m));
 }
 template <class CT>
+__device__ __forceinline__ float2 mt_pair(const float* p, size_t i,
+                                          const float*) {
+  return *reinterpret_cast<const float2*>(p + i);
+}
+template <class CT>
 __device__ __forceinline__ float2 mt_pair(const int8_t* p, size_t i,
                                           const float* s_mts) {
   const char2 c = *reinterpret_cast<const char2*>(p + i);
   return make_float2(round_to<CT>((float)c.x * s_mts[0]),
                      round_to<CT>((float)c.y * s_mts[1]));
+}
+
+// The float32 location-sensitive energies of one batch row: e[t] = sum_a
+// v[a] tanh((loc[t][a] + q[a]) + mtb[t][a]) + mask[t] for t < T, loc =
+// band(cum) @ lc in three TF32 passes (K2's float32 band routine): warp w
+// takes the channels [16 w, 16 w + 16) (and every 128th group past them),
+// holds their lc fragments in registers (split there), and walks the row's
+// 16-position mma tiles in chunks of ep_rows positions; s_ep[w][row] takes
+// the warp's partial, and the chunk's energies sum the partials in warp
+// order.  s_cum / s_cum_lo: cum's TF32 halves (s_cum[i] = cum[i - half]),
+// s_lc: lc [BAND_K][A] swizzled; mtb (float32 or int8 codes scaled by
+// s_mts) is read as pairs in the accumulator layout, zero past T.
+template <class CT, class ST>
+__device__ __forceinline__ void lsa_band_energies_f32(
+    float* s_e, float* s_ep, const float* s_cum, const float* s_cum_lo,
+    const float* s_lc, const float* s_q, const float* s_v,
+    const float* s_mts, const ST* mtb_b, const float* mask, int T, int A,
+    int tpad, int ep_rows) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  for (int c0 = 0; c0 < tpad; c0 += ep_rows) {
+    const int rows = min(ep_rows, tpad - c0);
+    for (int n0 = warp * 16; n0 < A; n0 += LSA_WARPS * 16) {
+      uint32_t bh[4][2][2], bl[4][2][2];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          band_frag_kn(bh[ks][h], s_lc, A, 8 * ks, n0 + 8 * h, lane);
+          tf32_split<2>(bh[ks][h], bl[ks][h], bh[ks][h]);
+        }
+      // two mma tiles' mtb reads in flight
+#pragma unroll 2
+      for (int mt = 0; mt < rows / 16; ++mt) {
+        const int r0 = c0 + mt * 16, ta = r0 + g, tb = ta + 8;
+        float acc[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ah[4], al[4];
+          band_frag_tf32(ah, s_cum + r0 + 8 * ks, lane);
+          band_frag_tf32(al, s_cum_lo + r0 + 8 * ks, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            mma_tf32x3(acc[h], ah, al, bh[ks][h], bl[ks][h]);
+        }
+        float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int a = n0 + 8 * h + 2 * qd;
+          const float2 zero2 = make_float2(0.0f, 0.0f);
+          const float2 m0 =
+              ta < T ? mt_pair<CT>(mtb_b, (size_t)ta * A + a, s_mts + a)
+                     : zero2;
+          const float2 m1 =
+              tb < T ? mt_pair<CT>(mtb_b, (size_t)tb * A + a, s_mts + a)
+                     : zero2;
+          const float q0 = s_q[a], q1 = s_q[a + 1];
+          const float v0 = s_v[a], v1 = s_v[a + 1];
+          e0 = fmaf(v0, band_energy_tanh<float>(acc[h][0], q0, m0.x), e0);
+          e0 = fmaf(v1, band_energy_tanh<float>(acc[h][1], q1, m0.y), e0);
+          e1 = fmaf(v0, band_energy_tanh<float>(acc[h][2], q0, m1.x), e1);
+          e1 = fmaf(v1, band_energy_tanh<float>(acc[h][3], q1, m1.y), e1);
+        }
+        e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+        e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+        e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+        e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+        if (qd == 0) {
+          float* ep = s_ep + warp * ep_rows + mt * 16 + g;
+          // a warp's later channel groups add to its own partial
+          ep[0] = n0 == warp * 16 ? e0 : ep[0] + e0;
+          ep[8] = n0 == warp * 16 ? e1 : ep[8] + e1;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < rows; i += LSA_THREADS) {
+      const int t = c0 + i;
+      if (t >= T) continue;
+      float e = 0.0f;
+      for (int w = 0; w < LSA_WARPS; ++w)
+        e += w * 16 < A ? s_ep[w * ep_rows + i] : 0.0f;
+      s_e[t] = e + mask[t];
+    }
+    __syncthreads();
+  }
 }
 
 template <int KIND, class CT, class ST>
@@ -368,15 +486,18 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   constexpr bool Q8 = std::is_same<ST, int8_t>::value;
   constexpr int VC = 16 / sizeof(CT);   // CT elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t lsa_smem[];
-  const LsaLayout L(T, H, A, M, sizeof(CT), sizeof(ST));
+  const LsaLayout L(T, H, A, M, sizeof(CT), sizeof(ST), KIND == ATT_LS);
   CT* s_wq = reinterpret_cast<CT*>(lsa_smem + L.wq);         // [kq][ld]
-  CT* s_h = reinterpret_cast<CT*>(lsa_smem + L.h);           // [ROWS][ldh]
+  CT* s_h = reinterpret_cast<CT*>(lsa_smem + L.h);  // [ROWS or 16][ldh]
   float* s_qp = reinterpret_cast<float*>(lsa_smem + L.qp);   // [ROWS][A]
   float* s_q = reinterpret_cast<float*>(lsa_smem + L.q);     // [A]
   float* s_v = reinterpret_cast<float*>(lsa_smem + L.v);     // [A]
   float* s_mts = reinterpret_cast<float*>(lsa_smem + L.mts); // [A]
-  CT* s_lc = reinterpret_cast<CT*>(lsa_smem + L.lc);         // [32][ld]
+  CT* s_lc = reinterpret_cast<CT*>(lsa_smem + L.lc);         // [32][ldl]
   CT* s_cum = reinterpret_cast<CT*>(lsa_smem + L.cum);       // [tpad + 32]
+  // float32 band: cum's TF32 lo halves, the warps' partial energies
+  float* s_cum_lo = reinterpret_cast<float*>(lsa_smem + L.cum_lo);
+  float* s_ep = reinterpret_cast<float*>(lsa_smem + L.ep);   // [WARPS][ep_rows]
   float* s_e = reinterpret_cast<float*>(lsa_smem + L.e);     // [tpad]
   float* s_red = reinterpret_cast<float*>(lsa_smem + L.red); // [32]
   float* s_cpart = reinterpret_cast<float*>(lsa_smem + L.cpart);
@@ -397,23 +518,21 @@ lsa_attention_kernel(const float* __restrict__ h_att,
     cp_async16(s_wq + r * L.ld + c, k < H ? wq + (size_t)k * A + c : wq,
                k < H ? 16 : 0);
   }
+  if constexpr (F32)
+    if (KIND == ATT_LS && live) band_copy_lc_tf32(s_lc, lc, K, A);
   cp_async_commit();
-  for (int i = tid; i < LSA_ROWS * L.kq; i += LSA_THREADS) {
+  // float32: rows 8..15 of the query's m16 tile are zero
+  for (int i = tid; i < (F32 ? 16 : LSA_ROWS) * L.kq; i += LSA_THREADS) {
     const int r = i / L.kq, k = i - r * L.kq;
     const int row = row0 + r, kk = k_lo + k;
     s_h[r * L.ldh + k] = from_float<CT>(
-        row < B && kk < H ? h_att[(size_t)row * H + kk] : 0.0f);
+        r < LSA_ROWS && row < B && kk < H ? h_att[(size_t)row * H + kk]
+                                          : 0.0f);
   }
   if (KIND == ATT_LS && live) {
     if constexpr (F32) {
-      for (int i = tid; i < BAND_K * A; i += LSA_THREADS) {
-        const int k = i / A, a = i - k * A;
-        s_lc[k * L.ld + a] = k < K ? lc[(size_t)k * A + a] : 0.0f;
-      }
-      for (int i = tid; i < L.tpad + BAND_K; i += LSA_THREADS) {
-        const int t = i - half;
-        s_cum[i] = t >= 0 && t < T ? cum[(size_t)b * T + t] : 0.0f;
-      }
+      band_stage_cum_tf32(s_cum, s_cum_lo, L.tpad + BAND_K,
+                          cum + (size_t)b * T, 0, half, T);
     } else {
       band_stage_lc(s_lc, L.ld, lc, K, A);
       band_stage_cum(s_cum, L.tpad + BAND_K,
@@ -427,13 +546,13 @@ lsa_attention_kernel(const float* __restrict__ h_att,
 
   // 1. the query's partial over this CTA's slice of H, rows g < 8
   if constexpr (F32) {
-    for (int o = tid; o < LSA_ROWS * A; o += LSA_THREADS) {
-      const int r = o / A, a = o - r * A;
-      const float* hr = s_h + r * L.ldh;
-      float acc = 0.0f;
-      for (int k = 0; k < L.kq; ++k)
-        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);
-      s_qp[r * A + a] = acc;
+    // three TF32 passes, a warp per n8 tile over the slice's K in order
+    for (int n0 = warp * 8; n0 < A; n0 += LSA_WARPS * 8) {
+      float sum[4];
+      warp_tf32x3_kslice<true>(sum, s_h, L.ldh, s_wq, L.ld, n0, 0, L.kq,
+                               lane);
+      *reinterpret_cast<float2*>(s_qp + g * A + n0 + 2 * qd) =
+          make_float2(sum[0], sum[1]);
     }
   } else {
     for (int n0 = warp * 8; n0 < A; n0 += LSA_WARPS * 8) {
@@ -468,20 +587,20 @@ lsa_attention_kernel(const float* __restrict__ h_att,
 
   if (live) {
     // 2. energies
-    if constexpr (F32) {
+    if constexpr (F32 && KIND == ATT_LS) {
+      lsa_band_energies_f32<CT>(s_e, s_ep, s_cum, s_cum_lo, s_lc, s_q, s_v,
+                                s_mts, mtb_b, mask_add + (size_t)b * T, T,
+                                A, L.tpad, L.ep_rows);
+    } else if constexpr (F32) {
       // a warp a position, a lane every 32nd channel
       for (int t = warp; t < T; t += LSA_WARPS) {
         float e = 0.0f;
         for (int a = lane; a < A; a += 32) {
           const float mt = mt_at<CT>(mtb_b, (size_t)t * A + a, s_mts + a);
-          const float z = KIND == ATT_LS
-              ? (band_loc_f32(s_cum + t, s_lc + a, L.ld) + s_q[a]) + mt
-              : s_q[a] + mt;
-          e = fmaf(s_v[a], tanhf(z), e);
+          e = fmaf(s_v[a], tanhf(s_q[a] + mt), e);
         }
         e = warp_sum(e);
-        if (lane == 0)
-          s_e[t] = KIND == ATT_LS ? e + mask_add[(size_t)b * T + t] : e;
+        if (lane == 0) s_e[t] = e;
       }
     } else {
       // one warp per 16 positions
@@ -617,7 +736,8 @@ struct AttCall {
 
 template <int KIND, class CT, class ST>
 cudaError_t att_run(const AttCall& c) {
-  const LsaLayout L(c.T, c.H, c.A, c.M, sizeof(CT), sizeof(ST));
+  const LsaLayout L(c.T, c.H, c.A, c.M, sizeof(CT), sizeof(ST),
+                    KIND == ATT_LS);
   constexpr int V = 16 / sizeof(ST);
   const int vec = (uintptr_t)c.memory % 16 == 0 &&
                   ((long long)c.T * c.M) % V == 0;
@@ -640,9 +760,13 @@ cudaError_t att_run(const AttCall& c) {
 template <int KIND>
 int att_dispatch(const AttCall& c, int f32) {
   const bool q8 = c.mem_scale != nullptr;
+  // the float32 location-sensitive instances read float32 mtb in pairs and
+  // copy lc in 16-byte chunks into swizzled rows (A a multiple of 16)
+  const bool f32_ls = f32 && KIND == ATT_LS;
   if (q8 != (c.mt_scale != nullptr) || c.B <= 0 || c.T <= 0 || c.H <= 0 ||
       c.M <= 0 || c.A <= 0 || c.A % 8 != 0 || (uintptr_t)c.wq % 16 != 0 ||
-      (uintptr_t)c.mtb % (q8 ? 2 : 4) != 0)
+      (uintptr_t)c.mtb % (q8 ? 2 : f32_ls ? 8 : 4) != 0 ||
+      (f32_ls && (c.A % 16 != 0 || (uintptr_t)c.lc % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   if (f32)
     return (int)(q8 ? att_run<KIND, float, int8_t>(c)

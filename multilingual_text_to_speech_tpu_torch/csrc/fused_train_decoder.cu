@@ -291,13 +291,39 @@ struct TrainPrenetOut {
 // tp bf16(prev[t-1]) with the transition agent, prev the float32 carry
 // (the last step's weights; the tile's first position reads its
 // neighbour's last as a halo before any CTA writes); w = mask ? comb *
-// energy : 0, floored at 1e-6, over its sum (a fourth exchange of tile
-// sums); the carry receives w itself.  With the agent, the step's tp' =
-// sigmoid(ctx . wc + h_att . wq + x . wx + b) in float32, each CTA a share
-// of the three dot products, summed in rank order by rank 0 after a
-// further barrier: into the tp carry (in place: every CTA read it before
+// energy : 0, floored at 1e-6, over its sum; the carry receives w itself.
+// With the agent, the step's tp' = sigmoid(ctx . wc + h_att . wq + x . wx
+// + b) in float32: into the tp carry (in place: every CTA read it before
 // the first barrier) and the tp stream.  Bound: the same bytes as the
 // location-sensitive step's (1.7 us at B=50, T=128), less work.
+//
+// What costs the family is its chain of cluster exchanges (about 0.65 us
+// a cluster barrier, PERF.md), so it runs three exchanges, with or
+// without the agent (five and six cluster barriers before):
+// 1. the softmax in one exchange (the online softmax): each tile sends
+//    its maximum m_j and s_j = sum exp(e - m_j); every CTA combines the
+//    pairs in rank order, M = max m_j, S = sum_j s_j exp(m_j - M), lane j
+//    of warp 0 taking rank j's pair;
+// 2. the renorm's tile sums, combined so;
+// 3. the context partials, each CTA's share of the columns to the CTA
+//    that owns it.  The agent has no exchange of its own: its operands
+//    (wc, the CTA's shares of h_att, x and their weights) are copied in
+//    the prologue with the other reads and the h_att and x shares summed
+//    there; ctx . wc is linear in the tiles' partial contexts, so each
+//    tile adds wc . its partial and sends the sum to rank 0 with its
+//    context partials, and rank 0 sums the cl partials in rank order.
+// Each exchange is a one-way message: a CTA stores its values
+// into every receiver's slot with st.async, counted in bytes on the
+// receiver's mbarrier, and waits on its own mbarrier alone; no CTA reads
+// another's shared memory, so none waits for its peers at its exit.  The
+// mbarriers are armed in the prologue, before a split cluster barrier
+// whose wait precedes the first send: one cluster barrier in all.  The
+// measured alternative (1.2 to 1.8 us slower a call, PERF.md;
+// tools/torch_kernel_variants.py train_attention_fam_cluster_barriers)
+// publishes each exchange in the CTA's own shared memory for a cluster
+// barrier and reads of the peers' copies, and ends in a split exit
+// (arrive after the CTA's last read of a peer, wait before it returns):
+// three exchanges and the exit.
 // ---------------------------------------------------------------------------
 constexpr int TA_THREADS = 256, TA_WARPS = TA_THREADS / 32;
 // the shared memory a CTA may opt in to on the H100
@@ -318,17 +344,26 @@ struct TaAgent {
 // which of the tile's rows train_attention copies into shared memory
 constexpr int TA_STAGE_MTB = 1, TA_STAGE_MEM = 2;
 
+// the floats of the transition agent's operands that a CTA of a cluster of
+// cl copies: wc [Mem], then its shares of h_att and wq [ceil(H / cl)] and
+// of x and wx [ceil(P / cl)]
+__host__ __device__ inline int ta_agent_floats(int Mem, int H, int P,
+                                               int cl) {
+  return Mem + 2 * ((H + cl - 1) / cl + (P + cl - 1) / cl);
+}
+
 // shared-memory layout of train_attention_kernel (byte offsets) for
 // compute-type elements of `es` bytes and the copies `stage` names; `band`:
 // the location-sensitive kind, whose float32 instance keeps lc in swizzled
-// rows of A words (band_swz) and cum's TF32 lo halves beside its hi
+// rows of A words (band_swz) and cum's TF32 lo halves beside its hi;
+// `agent`: the transition agent's floats (ta_agent_floats), or 0
 struct TaLayout {
   int ld, ldm;
   CtxScheme cs;   // the context's chunk scheme (csrc/tile.cuh)
   size_t lc, mtb, mem, q, v, ep, e, cumf, mask, cum, cum_lo, stat, red, ctxp,
-      cpart, total;
+      cpart, ag, msg, total;
   __host__ __device__ TaLayout(int tile, int A, int Mem, int es, int stage,
-                               bool band)
+                               bool band, int agent = 0)
       : cs(Mem, TA_THREADS, 16 / es) {
     const bool tf32 = es == 4 && band;
     ld = tf32 ? A : A + 16 / es;   // rows of lc
@@ -350,15 +385,21 @@ struct TaLayout {
     red = stat + 32;
     ctxp = red + 32 * 4;
     cpart = ctxp + align16((size_t)Mem * 4);
-    total = cpart + align16(cs.scratch_floats(Mem) * 4);
+    ag = cpart + align16(cs.scratch_floats(Mem) * 4);
+    msg = ag + align16((size_t)agent * 4);
+    // the forward family's one-way messages: their mbarriers and slots
+    total = msg + (band ? 0 : align16(32 + (40 + Mem) * 4));
   }
 };
 
 // the most of the tile's rows that fit: both copies, mtb's alone, or none
-__host__ inline int ta_stage(int tile, int A, int Mem, int es, bool band) {
+__host__ inline int ta_stage(int tile, int A, int Mem, int es, bool band,
+                            int agent) {
   const int both = TA_STAGE_MTB | TA_STAGE_MEM;
-  if (TaLayout(tile, A, Mem, es, both, band).total <= SMEM_MAX) return both;
-  if (TaLayout(tile, A, Mem, es, TA_STAGE_MTB, band).total <= SMEM_MAX)
+  if (TaLayout(tile, A, Mem, es, both, band, agent).total <= SMEM_MAX)
+    return both;
+  if (TaLayout(tile, A, Mem, es, TA_STAGE_MTB, band, agent).total <=
+      SMEM_MAX)
     return TA_STAGE_MTB;
   return 0;
 }
@@ -382,7 +423,10 @@ __device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
   constexpr bool F32 = std::is_same<CT, float>::value;
   constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t ta_smem[];
-  const TaLayout L(tile, A, Mem, sizeof(CT), stage, KIND == ATT_LS);
+  const int ag_floats =
+      KIND == ATT_FWD_TRANS ? ta_agent_floats(Mem, ag.H, ag.P, cl) : 0;
+  const TaLayout L(tile, A, Mem, sizeof(CT), stage, KIND == ATT_LS,
+                   ag_floats);
   const int ld = L.ld, ldm = L.ldm;
   CT* s_lc = reinterpret_cast<CT*>(ta_smem + L.lc);            // [32][ld]
   CT* s_mtb = reinterpret_cast<CT*>(ta_smem + L.mtb);          // [tile][ldm]
@@ -396,13 +440,23 @@ __device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
   CT* s_cum = reinterpret_cast<CT*>(ta_smem + L.cum);          // [tile + 32]
   // float32: cum's TF32 lo halves beside s_cum's hi
   float* s_cum_lo = reinterpret_cast<float*>(ta_smem + L.cum_lo);
-  // [0] max, [1] sum, [2] the row's max, [3] the row's sum; the forward
-  // family: [4] the renorm's tile sum, [5] the row's, [6] the agent's
-  // partial, [7] the halo prev[t_lo - 1]
+  // [0] max, [1] sum (location-sensitive: the tile's, published), [2] the
+  // row's max, [3] the row's sum; the forward family: [5] the renorm's row
+  // sum, [7] the halo prev[t_lo - 1]
   float* s_stat = reinterpret_cast<float*>(ta_smem + L.stat);  // [8]
   float* s_red = reinterpret_cast<float*>(ta_smem + L.red);    // [32]
   float* s_ctxp = reinterpret_cast<float*>(ta_smem + L.ctxp);  // [Mem]
   float* s_cpart = reinterpret_cast<float*>(ta_smem + L.cpart);
+  // the agent's wc, then its h_att, wq, x and wx shares
+  float* s_ag = reinterpret_cast<float*>(ta_smem + L.ag);
+  // one-way messages: three mbarriers, then the slots of the tiles' pairs
+  // [8][2], renorm sums [8], agent partials [8] and context partials [cl]
+  // [share]
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(ta_smem + L.msg);
+  float* s_pair = reinterpret_cast<float*>(ta_smem + L.msg + 32);
+  float* s_rsum = s_pair + 16;
+  float* s_agin = s_rsum + 8;
+  float* s_ctxin = s_agin + 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
@@ -428,6 +482,28 @@ __device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
                  r < rows ? mtb + (rowT + t_lo + r) * A + c : mtb,
                  r < rows ? 16 : 0);
     }
+  // the transition agent's operands: wc, and this CTA's shares of h_att
+  // and x with their weights (the shares' products need nothing the step
+  // computes)
+  const int sh_h = (ag.H + cl - 1) / cl, sh_p = (ag.P + cl - 1) / cl;
+  const int n_h = max(0, min(ag.H - rank * sh_h, sh_h));
+  const int n_p = max(0, min(ag.P - rank * sh_p, sh_p));
+  if constexpr (KIND == ATT_FWD_TRANS) {
+    const float* h_sh = ag.h_att + (size_t)b * ag.H + rank * sh_h;
+    const float* x_sh = ag.x + (size_t)b * ag.P + rank * sh_p;
+    const float* wq_sh = ag.w + Mem + rank * sh_h;
+    const float* wx_sh = ag.w + Mem + ag.H + rank * sh_p;
+    for (int m = tid; m < Mem; m += TA_THREADS)
+      cp_async4(s_ag + m, ag.w + m);
+    for (int k = tid; k < n_h; k += TA_THREADS) {
+      cp_async4(s_ag + Mem + k, h_sh + k);
+      cp_async4(s_ag + Mem + sh_h + k, wq_sh + k);
+    }
+    for (int k = tid; k < n_p; k += TA_THREADS) {
+      cp_async4(s_ag + Mem + 2 * sh_h + k, x_sh + k);
+      cp_async4(s_ag + Mem + 2 * sh_h + sh_p + k, wx_sh + k);
+    }
+  }
   cp_async_commit();
   const CT* mem_tile = memory + (rowT + t_lo) * Mem;
   if (mem_staged) {
@@ -455,8 +531,35 @@ __device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
     s_stat[7] = t_lo > 0 ? cum[rowT + t_lo - 1] : 0.0f;
   }
   const float tp_prev = KIND == ATT_FWD_TRANS ? ag.tp[b] : 0.0f;
+  // this CTA's share of the context's columns
+  const int share = (Mem + cl - 1) / cl, m_lo = rank * share;
+  const int m_hi = min(Mem, m_lo + share);
+  if constexpr (KIND != ATT_LS) {
+    // each mbarrier armed with the bytes its messages bring: a pair and a
+    // sum from each CTA, each CTA's partials of this share's columns (and,
+    // at rank 0, the agent's partials); the split cluster barrier's wait
+    // precedes the first send
+    if (tid == 0) {
+      mbar_init_expect(s_bar, cl * 8);
+      mbar_init_expect(s_bar + 1, cl * 4);
+      mbar_init_expect(s_bar + 2,
+                       4 * cl * max(0, m_hi - m_lo) +
+                           (KIND == ATT_FWD_TRANS && rank == 0 ? 4 * cl : 0));
+      mbar_init_fence();
+    }
+    cluster_arrive();
+  }
   cp_async_wait<1>();
   __syncthreads();
+  // the agent's h_att and x shares of its pre-sigmoid sum
+  float lin = 0.0f;
+  if constexpr (KIND == ATT_FWD_TRANS) {
+    for (int k = tid; k < n_h; k += TA_THREADS)
+      lin = fmaf(s_ag[Mem + k], s_ag[Mem + sh_h + k], lin);
+    for (int k = tid; k < n_p; k += TA_THREADS)
+      lin = fmaf(s_ag[Mem + 2 * sh_h + k], s_ag[Mem + 2 * sh_h + sh_p + k],
+                 lin);
+  }
 
   // the tile's mtb rows, from the copy or from device memory
   const CT* mt_rows = mtb_staged ? s_mtb : mtb + (rowT + t_lo) * A;
@@ -592,41 +695,108 @@ __device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
     __syncthreads();
   }
 
-  // 2. the row's masked softmax (unmasked for the forward family): tile
-  // maxima, then tile sums, each combined in rank order by every CTA
-  float mx = -CUDART_INF_F;
-  for (int i = tid; i < rows; i += TA_THREADS) mx = fmaxf(mx, s_e[i]);
-  mx = block_reduce<true>(mx, s_red);
-  if (tid == 0) s_stat[0] = mx;
-  cluster_sync();
-  if (tid == 0) {
-    float m = -CUDART_INF_F;
-    for (int j = 0; j < cl; ++j) m = fmaxf(m, cluster_peer(s_stat, j)[0]);
-    s_stat[2] = m;
-  }
-  __syncthreads();
-  mx = s_stat[2];
-  float sum = 0.0f;
-  for (int i = tid; i < rows; i += TA_THREADS) {
-    const float p = expf(s_e[i] - mx);
-    s_e[i] = p;
-    sum += p;
-  }
-  sum = block_reduce<false>(sum, s_red);
-  if (tid == 0) s_stat[1] = sum;
-  cluster_sync();
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int j = 0; j < cl; ++j) s += cluster_peer(s_stat, j)[1];
-    s_stat[3] = s;
-  }
-  __syncthreads();
-  sum = s_stat[3];
-  if (KIND != ATT_LS) {
-    // the recurrence, the mask and the floor; then the row's sum
+  if constexpr (KIND == ATT_LS) {
+    // 2. the row's masked softmax: tile maxima, then tile sums, each
+    // combined in rank order by every CTA
+    float mx = -CUDART_INF_F;
+    for (int i = tid; i < rows; i += TA_THREADS) mx = fmaxf(mx, s_e[i]);
+    mx = block_reduce<true>(mx, s_red);
+    if (tid == 0) s_stat[0] = mx;
+    cluster_sync();
+    if (tid == 0) {
+      float m = -CUDART_INF_F;
+      for (int j = 0; j < cl; ++j) m = fmaxf(m, cluster_peer(s_stat, j)[0]);
+      s_stat[2] = m;
+    }
+    __syncthreads();
+    mx = s_stat[2];
+    float sum = 0.0f;
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      const float p = expf(s_e[i] - mx);
+      s_e[i] = p;
+      sum += p;
+    }
+    sum = block_reduce<false>(sum, s_red);
+    if (tid == 0) s_stat[1] = sum;
+    cluster_sync();
+    if (tid == 0) {
+      float s = 0.0f;
+      for (int j = 0; j < cl; ++j) s += cluster_peer(s_stat, j)[1];
+      s_stat[3] = s;
+    }
+    __syncthreads();
+    sum = s_stat[3];
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      const size_t o = rowT + t_lo + i;
+      const float wt = s_e[i] / sum;
+      w_out[o] = wt;
+      const float c_old = s_cumf[i];
+      if (cum_out != nullptr) cum_out[o] = from_float<CT>(c_old);
+      cum[o] = c_old + wt;
+      s_e[i] = round_to<CT>(wt);
+    }
+    __syncthreads();
+
+    // 3. the context: this tile's partial (from the copy of its memory rows
+    // when there is one), then a share of the columns over the cluster's
+    // partials in rank order
+    cp_async_wait<0>();
+    __syncthreads();
+    ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : mem_tile, s_e,
+                       rows, Mem, vec, TA_THREADS);
+    __syncthreads();
+    for (int m = tid; m < Mem; m += TA_THREADS)
+      s_ctxp[m] = ctx_column(L.cs, s_cpart, Mem, m);
+    cluster_sync();
+    for (int m = m_lo + tid; m < m_hi; m += TA_THREADS) {
+      float acc = 0.0f;
+      for (int j = 0; j < cl; ++j) acc += cluster_peer(s_ctxp, j)[m];
+      ctx[(size_t)b * Mem + m] = acc;
+      const CT cb = from_float<CT>(acc);
+      dst0[(size_t)b * ld0 + m] = cb;
+      dst1[(size_t)b * ld1 + m] = cb;
+      if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
+    }
+    // no CTA leaves while its peers may still read its shared memory
+    cluster_sync();
+  } else {
+    // 2. the row's softmax (unmasked) in one exchange: each tile's maximum
+    // m_j and s_j = sum exp(e - m_j) over the tile, combined in rank order
+    // by every CTA: M = max m_j, S = sum_j s_j exp(m_j - M)
+    float mx = -CUDART_INF_F;
+    for (int i = tid; i < rows; i += TA_THREADS) mx = fmaxf(mx, s_e[i]);
+    mx = block_reduce<true>(mx, s_red);
+    float sum = 0.0f;
+    for (int i = tid; i < rows; i += TA_THREADS) sum += expf(s_e[i] - mx);
+    sum = block_reduce<false>(sum, s_red);
+    cluster_wait();   // every peer's mbarriers are armed
+    if (warp == 0 && lane < cl)
+      st_async(dsmem_addr(s_pair + 2 * rank, lane), mx, sum,
+               dsmem_addr(s_bar, lane));
+    if (warp == 0) {
+      // lane j takes rank j's pair, every lane combines them in rank order
+      mbar_wait0(s_bar);
+      const float mj = lane < cl ? s_pair[2 * lane] : -CUDART_INF_F;
+      const float sj = lane < cl ? s_pair[2 * lane + 1] : 0.0f;
+      float m = -CUDART_INF_F, s = 0.0f;
+      for (int j = 0; j < cl; ++j)
+        m = fmaxf(m, __shfl_sync(0xffffffffu, mj, j));
+      for (int j = 0; j < cl; ++j)
+        s += __shfl_sync(0xffffffffu, sj, j) *
+             expf(__shfl_sync(0xffffffffu, mj, j) - m);
+      if (lane == 0) {
+        s_stat[2] = m;
+        s_stat[3] = s;
+      }
+    }
+    __syncthreads();
+    mx = s_stat[2];
+    sum = s_stat[3];
+    // the recurrence, the mask and the floor; then the row's sum (the
+    // second exchange)
     float wsum = 0.0f;
     for (int i = tid; i < rows; i += TA_THREADS) {
-      const float energy = s_e[i] / sum;
+      const float energy = expf(s_e[i] - mx) / sum;
       const float prev = s_cumf[i];
       const float sh = round_to<CT>(i > 0 ? s_cumf[i - 1] : s_stat[7]);
       const float comb = KIND == ATT_FWD_TRANS
@@ -637,75 +807,70 @@ __device__ __forceinline__ void train_attention_body(TA_PARAMS(CT)) {
       wsum += wt;
     }
     wsum = block_reduce<false>(wsum, s_red);
-    if (tid == 0) s_stat[4] = wsum;
-    cluster_sync();
-    if (tid == 0) {
+    if (warp == 0 && lane < cl)
+      st_async(dsmem_addr(s_rsum + rank, lane), wsum,
+               dsmem_addr(s_bar + 1, lane));
+    if (warp == 0) {
+      mbar_wait0(s_bar + 1);
+      const float x = lane < cl ? s_rsum[lane] : 0.0f;
       float s = 0.0f;
-      for (int j = 0; j < cl; ++j) s += cluster_peer(s_stat, j)[4];
-      s_stat[5] = s;
+      for (int j = 0; j < cl; ++j) s += __shfl_sync(0xffffffffu, x, j);
+      if (lane == 0) s_stat[5] = s;
     }
     __syncthreads();
     sum = s_stat[5];
-  }
-  for (int i = tid; i < rows; i += TA_THREADS) {
-    const size_t o = rowT + t_lo + i;
-    const float wt = s_e[i] / sum;
-    w_out[o] = wt;
-    const float c_old = s_cumf[i];
-    if (cum_out != nullptr) cum_out[o] = from_float<CT>(c_old);
-    cum[o] = KIND == ATT_LS ? c_old + wt : wt;
-    s_e[i] = round_to<CT>(wt);
-  }
-  __syncthreads();
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      const size_t o = rowT + t_lo + i;
+      const float wt = s_e[i] / sum;
+      w_out[o] = wt;
+      if (cum_out != nullptr) cum_out[o] = from_float<CT>(s_cumf[i]);
+      cum[o] = wt;
+      s_e[i] = round_to<CT>(wt);
+    }
+    __syncthreads();
 
-  // 3. the context: this tile's partial (from the copy of its memory rows
-  // when there is one), then a share of the columns over the cluster's
-  // partials in rank order
-  cp_async_wait<0>();
-  __syncthreads();
-  ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : mem_tile, s_e,
-                     rows, Mem, vec, TA_THREADS);
-  __syncthreads();
-  for (int m = tid; m < Mem; m += TA_THREADS)
-    s_ctxp[m] = ctx_column(L.cs, s_cpart, Mem, m);
-  cluster_sync();
-  const int share = (Mem + cl - 1) / cl, m_hi = min(Mem, (rank + 1) * share);
-  float lin = 0.0f;
-  for (int m = rank * share + tid; m < m_hi; m += TA_THREADS) {
-    float acc = 0.0f;
-    for (int j = 0; j < cl; ++j) acc += cluster_peer(s_ctxp, j)[m];
-    ctx[(size_t)b * Mem + m] = acc;
-    const CT cb = from_float<CT>(acc);
-    dst0[(size_t)b * ld0 + m] = cb;
-    dst1[(size_t)b * ld1 + m] = cb;
-    if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
-    if (KIND == ATT_FWD_TRANS) lin = fmaf(acc, ag.w[m], lin);
-  }
-  if (KIND == ATT_FWD_TRANS) {
-    // 4. the transition agent: this CTA's shares of the h_att and x dot
-    // products beside its context columns, the partials in rank order
-    const float* wq = ag.w + Mem;
-    const float* wx = wq + ag.H;
-    const int sh_h = (ag.H + cl - 1) / cl, sh_p = (ag.P + cl - 1) / cl;
-    for (int k = rank * sh_h + tid; k < min(ag.H, (rank + 1) * sh_h);
-         k += TA_THREADS)
-      lin = fmaf(ag.h_att[(size_t)b * ag.H + k], wq[k], lin);
-    for (int k = rank * sh_p + tid; k < min(ag.P, (rank + 1) * sh_p);
-         k += TA_THREADS)
-      lin = fmaf(ag.x[(size_t)b * ag.P + k], wx[k], lin);
-    lin = block_reduce<false>(lin, s_red);
-    if (tid == 0) s_stat[6] = lin;
-    cluster_sync();
-    if (rank == 0 && tid == 0) {
+    // 3. the context: this tile's partial, and with the transition agent
+    // its term ctx . wc taken on the partial (linear in it) beside the
+    // prologue's h_att and x shares; the third exchange sends each CTA's
+    // share of the columns to it, and the agent's partials to rank 0
+    cp_async_wait<0>();
+    __syncthreads();
+    ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : mem_tile, s_e,
+                       rows, Mem, vec, TA_THREADS);
+    __syncthreads();
+    for (int m = tid; m < Mem; m += TA_THREADS) {
+      const float c = ctx_column(L.cs, s_cpart, Mem, m);
+      const int r = m / share;
+      st_async(dsmem_addr(s_ctxin + rank * share + m - r * share, r), c,
+               dsmem_addr(s_bar + 2, r));
+      if (KIND == ATT_FWD_TRANS) lin = fmaf(s_ag[m], c, lin);
+    }
+    if (KIND == ATT_FWD_TRANS) {
+      lin = block_reduce<false>(lin, s_red);
+      if (tid == 0)
+        st_async(dsmem_addr(s_agin + rank, 0), lin, dsmem_addr(s_bar + 2, 0));
+    }
+    // this share's partials (and, at rank 0, the agent's) have landed; no
+    // CTA reads another's shared memory, so none waits for its peers to
+    // leave
+    mbar_wait0(s_bar + 2);
+    for (int m = m_lo + tid; m < m_hi; m += TA_THREADS) {
+      float acc = 0.0f;
+      for (int j = 0; j < cl; ++j) acc += s_ctxin[j * share + m - m_lo];
+      ctx[(size_t)b * Mem + m] = acc;
+      const CT cb = from_float<CT>(acc);
+      dst0[(size_t)b * ld0 + m] = cb;
+      dst1[(size_t)b * ld1 + m] = cb;
+      if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
+    }
+    if (KIND == ATT_FWD_TRANS && rank == 0 && tid == 0) {
       float z = ag.bias[0];
-      for (int j = 0; j < cl; ++j) z += cluster_peer(s_stat, j)[6];
+      for (int j = 0; j < cl; ++j) z += s_agin[j];
       const float tp = 1.0f / (1.0f + expf(-z));
       ag.tp[b] = tp;
       if (ag.tp_out != nullptr) ag.tp_out[b] = tp;
     }
   }
-  // no CTA leaves while its peers may still read its shared memory
-  cluster_sync();
 }
 
 template <int KIND, class CT>
@@ -2149,8 +2314,10 @@ int train_attention_run(const void* q, void* cum, const void* memory,
                         int ld2, int B, int T, int A, int Mem, int K,
                         int tile, int cl, const TaAgent& ag, void* stream) {
   constexpr int es = sizeof(CT);
-  const int stage = ta_stage(tile, A, Mem, es, KIND == ATT_LS);
-  const TaLayout L(tile, A, Mem, es, stage, KIND == ATT_LS);
+  const int ag_floats =
+      KIND == ATT_FWD_TRANS ? ta_agent_floats(Mem, ag.H, ag.P, cl) : 0;
+  const int stage = ta_stage(tile, A, Mem, es, KIND == ATT_LS, ag_floats);
+  const TaLayout L(tile, A, Mem, es, stage, KIND == ATT_LS, ag_floats);
   const int vec = (uintptr_t)memory % 16 == 0 &&
                   ((long long)T * Mem) % (16 / es) == 0;
   return (int)launch_cluster(

@@ -41,6 +41,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
+// one float, 4-byte aligned at both ends
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -327,6 +334,71 @@ __device__ __forceinline__ void cluster_sync() {
 template <class T>
 __device__ __forceinline__ const T* cluster_peer(const T* p, int rank) {
   return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// One-way messages over distributed shared memory: a CTA stores into a
+// peer's shared memory with st.async, which counts its bytes on the peer's
+// mbarrier (complete_tx); the peer waits on its own mbarrier, whose phase
+// completes once every byte it expects (expect_tx at init) has landed.
+// The mbarriers are initialized and armed before a cluster barrier that
+// precedes every send (a split one: arrive after the init, wait before
+// the first send).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the shared::cluster address of this CTA's shared variable `p` in CTA
+// `rank`'s window
+__device__ __forceinline__ uint32_t dsmem_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// one arrival (this thread's, at init) and `bytes` of messages to come
+__device__ __forceinline__ void mbar_init_expect(uint64_t* bar,
+                                                 uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// the inits visible to the cluster's st.async before its barrier
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// phase 0 of `bar` complete: every byte it expects has landed (a count
+// of bytes that never completes traps instead of hanging the card)
+__device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
+  uint32_t done;
+  for (int spins = 0;; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "0;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+    if (done) return;
+    if (spins > (1 << 22)) __trap();
+  }
+}
+
+// x, or the pair (x, y), at `dst` (dsmem_addr) of the peer whose mbarrier
+// is at `bar` (dsmem_addr)
+__device__ __forceinline__ void st_async(uint32_t dst, float x,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(dst), "r"(__float_as_uint(x)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t dst, float x, float y,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst), "r"(__float_as_uint(x)),
+      "r"(__float_as_uint(y)), "r"(bar) : "memory");
 }
 
 // the full rows [0, rows) x [0, k) of the cluster's slices into dst (rows
@@ -1586,26 +1658,13 @@ __device__ __forceinline__ float fwd_energy_tanh(float q, float mtb) {
   return round_to<CT>(tanhf(round_to<CT>(q + mtb)));
 }
 
-// The band product in float32 (the serving decoder's float32 instances,
-// whose TPU kernel folds the conv in a float32 matmul): loc[t][a] =
-// sum_k cum[t + k - half] lc[k][a] over the BAND_K taps in k order, on the
-// CUDA cores from float32 s_cum (s_cum[i] = cum[i - half], zero outside
-// [0, T)) and s_lc [BAND_K][ld] (taps past K zero); p = s_cum + t,
-// lc = s_lc + a.  Nothing is rounded.
-__device__ __forceinline__ float band_loc_f32(const float* p, const float* lc,
-                                             int ld) {
-  float loc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < BAND_K; ++k) loc = fmaf(p[k], lc[k * ld], loc);
-  return loc;
-}
-
 // ---------------------------------------------------------------------------
 // The band routine's float32 instance (K3's att_bwd_kernel<ATT_LS, float>;
 // the TPU kernel's band products take full float32, precision None,
-// ops/pallas_train_decoder.py:904-925): the same three products on the
-// tensor cores in three TF32 passes (mma_tf32x3, m16n8k8).  cum and lc are
-// split into their TF32 halves once, when staged; dz, which only the two
+// ops/pallas_train_decoder.py:904-925; also loc in K2's and K1's float32
+// location-sensitive attention): the same three products on the tensor
+// cores in three TF32 passes (mma_tf32x3, m16n8k8).  cum and lc are split
+// into their TF32 halves once, when staged; dz, which only the two
 // products after it read, is split in registers where it is read.
 //
 // The float32 operand tiles (lc [BAND_K][A], dz [rows][A]) lie in shared

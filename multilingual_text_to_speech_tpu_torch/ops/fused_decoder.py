@@ -63,8 +63,9 @@ the TPU kernel's run with ``block_cap >= B``.
 
 The compute type is bfloat16 or float32 (``DecoderBundle.dtype``, the TPU
 kernel's ``dtype``), each kernel a template instance on it: float32 rounds
-nothing and runs every product in float32 (FFMA on the CUDA cores; W8A8's
-int8 gate product stays).  With ``DecoderBundle.q_streams`` (the TPU
+nothing and keeps every product float32-accurate (the prenet, the exact
+gates, the head and the attention's query and location conv on the tensor
+cores in three TF32 passes; W8A8's int8 gate product stays).  With ``DecoderBundle.q_streams`` (the TPU
 kernel's ``q_streams``) the attention kernels read the memory and the
 memory transform as int8 with per-channel scales (``Int8Stream``,
 quantized per chunk by ``chunk_operands``).  ``LAUNCHES`` counts each

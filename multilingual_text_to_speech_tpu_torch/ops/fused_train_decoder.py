@@ -74,8 +74,8 @@ rounds nothing, keeps its residual streams in float32 (the JAX kernels write
 them "in the compute dtype", ``pallas_train_decoder.py:12-17``) and keeps
 every product float32-accurate, as the JAX kernels' float32 matmuls do
 (``_mxu_precision``, ``pallas_train_decoder.py:230-239``): the gate, split-K,
-head-backward and ``att_bwd`` band products on the tensor cores in three
-TF32 passes, the prenets' and ``train_attention``'s conv in FFMA.
+head-backward, prenet, ``att_bwd`` and ``train_attention`` band products on
+the tensor cores in three TF32 passes.
 ``LAUNCHES`` counts each instance under its own name (``train_prenet`` and
 ``train_prenet_f32``, ...: ``instance``; ``path_kernels(att_kind, dtype)``).
 

@@ -25,7 +25,13 @@ maxima and tile sums combined in rank order, and the context from each
 tile's partial, summed in rank order by the CTA that owns a share of the
 memory columns.  A torch model of that split is held against
 ``train_attention_plain`` in float32, on cum and filter values whose conv
-is exact in any order.
+is exact in any order.  The forward family's step runs three exchanges:
+each tile's (maximum, sum of exp(e - maximum)) pair combined in rank order
+(the online softmax), the renorm's tile sums, and the context partials,
+beside which each tile publishes the transition agent's partial (its
+prologue's h_att and x shares plus wc . the tile's partial context); a
+model of that is held against ``train_fwd_attention_plain`` and
+``transition_plain``.
 """
 
 import numpy as np
@@ -36,6 +42,8 @@ import torch.nn.functional as F
 from multilingual_text_to_speech_tpu_torch.ops.fused_train_decoder import (
     att_bwd_tiles,
     train_attention_plain,
+    train_fwd_attention_plain,
+    transition_plain,
 )
 
 BAND_K = 32
@@ -249,3 +257,109 @@ def test_tiled_train_attention_is_the_plain_attention(t_len):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-7)
     ulp = 2.0 ** -8 * float(ref[0].max()) * float(memory.float().abs().max())
     assert float((got[2] - ref[2]).abs().max()) <= ulp + 1e-6
+
+
+def _tiled_fwd_attention(q, prev, tp, memory, mtb, mask_add, v, agent):
+    """The forward family's ``train_attention`` as its kernel splits a
+    batch row over a cluster (``att_bwd_tiles``), in float32: each tile's
+    energies, its maximum m_j and s_j = sum exp(e - m_j) combined in rank
+    order (M = max m_j, S = sum_j s_j exp(m_j - M)); the recurrence with
+    the halo prev[t_lo - 1], the mask and the 1e-6 floor; the tile sums of
+    the floored weights in rank order; each tile's context partial summed
+    in rank order for each CTA's share of the columns; with the agent
+    ``(h_att, x, w, b)``, CTA j's partial is its share of h_att . wq and
+    x . wx (ceil(H / cl), ceil(P / cl) values) plus wc . its partial
+    context, and rank 0 sums the partials in rank order after the bias.
+    -> (w, ctx, t_prob or None)."""
+    b, t_len, n_mem = memory.shape
+    tile, cluster = att_bwd_tiles(t_len)
+    tiles = [(r * tile, min(tile, t_len - r * tile)) for r in range(cluster)]
+    energies = [(torch.tanh(q[:, None, :] + mtb[:, t0:t0 + rows]) * v).sum(-1)
+                for t0, rows in tiles]
+    pairs = [(e.amax(1), torch.exp(e - e.amax(1)[:, None]).sum(1))
+             for e in energies]
+    big = pairs[0][0]
+    for m, _ in pairs[1:]:
+        big = torch.maximum(big, m)
+    total = torch.zeros(b)
+    for m, s in pairs:
+        total = total + s * torch.exp(m - big)
+    shifted = torch.cat([torch.zeros(b, 1), prev[:, :-1]], dim=1)
+    floored = []
+    for e, (t0, rows) in zip(energies, tiles):
+        energy = torch.exp(e - big[:, None]) / total[:, None]
+        p, sh = prev[:, t0:t0 + rows], shifted[:, t0:t0 + rows]
+        comb = p + sh if tp is None else (1.0 - tp[:, None]) * p \
+            + tp[:, None] * sh
+        keep = mask_add[:, t0:t0 + rows] > -0.5
+        floored.append(torch.clamp(torch.where(keep, comb * energy,
+                                               torch.zeros_like(comb)),
+                                   min=1e-6))
+    wsum = torch.zeros(b)
+    for f in floored:
+        wsum = wsum + f.sum(1)
+    w = torch.cat([f / wsum[:, None] for f in floored], dim=1)
+    partials = [(memory[:, t0:t0 + rows] * w[:, t0:t0 + rows, None]).sum(1)
+                for t0, rows in tiles]
+    share = -(-n_mem // cluster)
+    ctx = torch.zeros(b, n_mem)
+    for r in range(cluster):
+        cols = slice(r * share, min(n_mem, (r + 1) * share))
+        acc = partials[0][:, cols]
+        for part in partials[1:]:
+            acc = acc + part[:, cols]
+        ctx[:, cols] = acc
+    if agent is None:
+        return w, ctx, None
+    h_att, x, aw, ab = agent
+    hidden, n_x = h_att.shape[1], x.shape[1]
+    wc, wq, wx = aw[:n_mem], aw[n_mem:n_mem + hidden], aw[n_mem + hidden:]
+    sh_h, sh_p = -(-hidden // cluster), -(-n_x // cluster)
+    z = ab.expand(b).clone()
+    for r, part in enumerate(partials):
+        hk = slice(r * sh_h, min(hidden, (r + 1) * sh_h))
+        xk = slice(r * sh_p, min(n_x, (r + 1) * sh_p))
+        z = z + ((h_att[:, hk] * wq[hk]).sum(1) + (x[:, xk] * wx[xk]).sum(1)
+                 + (part * wc).sum(1))
+    return w, ctx, torch.sigmoid(z)
+
+
+@pytest.mark.parametrize("agent", [False, True])
+@pytest.mark.parametrize("t_len", [1, 16, 100, 128, 600])
+def test_family_exchanges_are_the_plain_step(t_len, agent):
+    """The forward family's three exchanges (``_tiled_fwd_attention``, at
+    the tiles ``att_bwd_tiles`` picks: one CTA at T = 1 and 16, 7 of 16 at
+    100, 8 of 16 at 128, 8 of 80 at 600) equal ``train_fwd_attention_plain``
+    and ``transition_plain`` in float32 at the training path's memory width
+    (292 columns), H = 64 and P = 32: the weights, the context and the
+    agent's t_prob within 1e-6 (float32 sums in another order)."""
+    rng = np.random.RandomState(t_len + 7 * agent)
+    b, a, n_mem, hidden, n_x = 3, 16, 292, 64, 32
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32)
+
+    q = f32(rng.randn(b, a))
+    prev = torch.softmax(f32(rng.randn(b, t_len)), -1)
+    memory = f32(rng.randn(b, t_len, n_mem))
+    mtb = f32(0.5 * rng.randn(b, t_len, a))
+    v = f32(rng.randn(a) / a ** 0.5)
+    lengths = np.array([t_len, max(1, t_len - 7), max(1, t_len // 2)])
+    mask_add = f32(np.where(np.arange(t_len)[None] < lengths[:, None],
+                            0.0, -1e9))
+    tp, parts = None, None
+    if agent:
+        tp = f32(rng.uniform(0.1, 0.9, b))
+        parts = (f32(np.tanh(rng.randn(b, hidden))),
+                 f32(np.maximum(rng.randn(b, n_x), 0.0)),
+                 f32(0.1 * rng.randn(n_mem + hidden + n_x)),
+                 f32(0.1 * rng.randn(1)))
+    w, ctx, tp_new = _tiled_fwd_attention(q, prev, tp, memory, mtb, mask_add,
+                                          v, parts)
+    w_ref, ctx_ref = train_fwd_attention_plain(q, prev, tp, memory, mtb,
+                                               mask_add, v)
+    torch.testing.assert_close(w, w_ref, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ctx, ctx_ref, rtol=0, atol=1e-6)
+    if agent:
+        tp_ref = transition_plain(ctx_ref, *parts)
+        torch.testing.assert_close(tp_new, tp_ref, rtol=0, atol=1e-6)

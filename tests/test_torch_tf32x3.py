@@ -731,3 +731,68 @@ def test_swizzled_kn_fragment_is_the_lc_tile(a_dim):
                        for dk in (0, 4)]
                 assert got == [float(lc[k0 + t, n0 + g]),
                                float(lc[k0 + t + 4, n0 + g])]
+
+
+# ---------------------------------------------------------------------------
+# K1's float32 location-sensitive attention step
+# ---------------------------------------------------------------------------
+
+_HIDDEN, _K1_ROWS, _K1_CLUSTER = 1024, 8, 8
+
+
+def _k1_step(t_len, passes):
+    """K1's float32 step for one cluster of 8 batch rows as its kernel
+    runs it: each CTA's query partial over its K = 128 slice of H (rows of
+    h_att [8, 1024] against Wq [1024, 128], the init scale 1/sqrt(H)) as
+    ``_warp_partial`` sums a warp's K slice, the 8 partials added in rank
+    order in float32; loc = band(cum) @ lc over the row's T positions
+    (``tf32_product``: each 8-deep tap step's passes summed straight into
+    the accumulator); then row 0's tanh((loc + q) + mtb), the v-sum, the
+    mask and the softmax in float32.  -> {output: largest |emulated -
+    float64| over the float64 output's largest} for the query, loc and the
+    weights."""
+    rng = np.random.default_rng(t_len + 11)
+    h = torch.from_numpy(np.tanh(rng.standard_normal((_K1_ROWS, _HIDDEN)))
+                         .astype(np.float32))
+    wq = torch.from_numpy((rng.standard_normal((_HIDDEN, _ATT))
+                           / np.sqrt(_HIDDEN)).astype(np.float32))
+    kq = _HIDDEN // _K1_CLUSTER
+    q = torch.zeros(_K1_ROWS, _ATT)
+    for rank in range(_K1_CLUSTER):
+        k = slice(rank * kq, (rank + 1) * kq)
+        q = q + _warp_partial(h[:, k], wq[k].T.contiguous(), passes)
+    cum, lc, _, mtb, v, mask = _attention_row(t_len, seed=t_len)
+    half = (_TAPS - 1) // 2
+    padded = torch.zeros(t_len + _BAND_K)
+    padded[half:half + t_len] = cum
+    band = padded[torch.arange(t_len)[:, None] + torch.arange(_BAND_K)[None]]
+    loc = tf32_product(band, lc.T.contiguous(), passes)
+    w = torch.softmax((v * torch.tanh((loc + q[0]) + mtb)).sum(-1) + mask, -1)
+    q64 = h.double() @ wq.double()
+    loc64 = band.double() @ lc.double()
+    w64 = torch.softmax((v.double() * torch.tanh(loc64 + q64[0]
+                                                 + mtb.double())).sum(-1)
+                        + mask.double(), -1)
+    return {name: float((got.double() - ref).abs().max() / ref.abs().max())
+            for name, got, ref in (("query", q, q64), ("loc", loc, loc64),
+                                   ("weights", w, w64))}
+
+
+_K1_CASES = pytest.mark.parametrize("t_len,output", [
+    (t, o) for t in (128, 600) for o in ("query", "loc", "weights")])
+
+
+@_K1_CASES
+def test_three_tf32_passes_hold_k1_float32_attention_step(t_len, output):
+    """K1's float32 location-sensitive step with its query product (K =
+    128 a CTA, the cluster's 8 partials in rank order) and its band
+    product in three TF32 passes: the query, loc and the weights each
+    within F32_TOL of the largest of the step in float64 (about 1e-7)."""
+    assert _k1_step(t_len, passes=3)[output] <= F32_TOL
+
+
+@_K1_CASES
+def test_one_tf32_pass_misses_k1_float32_attention_step(t_len, output):
+    """The same step with both products in one pass misses F32_TOL on each
+    output (about 1e-4 to 3e-4)."""
+    assert _k1_step(t_len, passes=1)[output] > F32_TOL

@@ -12,6 +12,10 @@ the PyTorch port's CUDA sources, on one NVIDIA GPU.
     python3 tools/torch_kernel_variants.py time prenet_not_wide bwd_prenet_f32_one_chain
     python3 tools/torch_kernel_variants.py --root PARENT time train_prenet_f32_no_product att_bwd_fwd_no_dz att_bwd_fwd_no_energy att_bwd_fwd_one_exchange
     python3 tools/torch_kernel_variants.py ab --base PARENT prenet K3fam K3
+    python3 tools/torch_kernel_variants.py --root PARENT time train_attention_fam_no_sum_exchange train_attention_fam_no_agent_tail train_attention_fam_floor lsa_f32_no_band lsa_f32_no_query lsa_f32_no_products
+    python3 tools/torch_kernel_variants.py time train_attention_fam_cluster_barriers
+    python3 tools/torch_kernel_variants.py checks train_attention_fam_cluster_barriers_checks train_attention_fam_exit_probe
+    python3 tools/torch_kernel_variants.py ab --base PARENT K2fam K1f32 K2 K1
 
 Each variant copies ``multilingual_text_to_speech_tpu_torch`` under the
 ignored ``build/variants/<name>/``, replaces pieces of a ``csrc`` source
@@ -61,16 +65,23 @@ one TF32 pass, one K slice's partial left out of the sum or the weights'
 TF32 lo halves dropped, and in the forward family's ``att_bwd`` dz pass
 (a thread a channel pair and a group of positions) the last group's dv
 and dq partials left out or each group reaching one position into the
-next (a dmt row written twice); and runs the checks of that
-kernel's
+next (a dmt row written twice); and in the forward family's
+``train_attention`` (three one-way exchanges) each tile's softmax terms
+left on its own maximum, the transition agent's prologue share of h_att
+left out, the context partials summed before their message lands, and,
+in its cluster-barrier alternative, the exit barrier's arrive moved
+before the last read of a peer; and in K1's float32 location-sensitive
+band on the tensor cores lc's TF32 lo halves dropped; and runs the checks
+of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
 at the 292- and the shared strategy's 548-wide memory) instances,
 ``phase_train_kernels`` for K2 and K3, and at float32 compute for their
 float32 instances, ``K2f32`` and ``K3f32``) with
 ``chip_smoke.fail`` recording each failed check instead of stopping, so
-every check's reading prints.  The run fails unless every fault fails at
-least one check.
+every check's reading prints; a fault whose kernel stops with a CUDA
+error (the phase's process dies) counts as caught by that error.  The run
+fails unless every fault fails at least one check.
 
 ``checks`` runs the same checks on each named design variant and prints
 every reading, failed or not: ``train_attention_taps`` computes K2's
@@ -79,7 +90,12 @@ instead of as the band product on the tensor cores; ``tf32x3_in_place``
 sums the three TF32 passes of the float32 gate and split-K products
 straight into their float32 sums on the tensor cores, where the kernels
 sum each ring stage's apart and add it on the CUDA cores (K1's, K2's and
-K3's float32 checks).
+K3's float32 checks); ``train_attention_fam_cluster_barriers_checks``
+runs the family's exchanges as cluster barriers and peer reads instead of
+one-way messages, and ``train_attention_fam_exit_probe`` that
+alternative with a CTA's context partials overwritten once its exit wait
+returns (the probe of the fault ``fam_exit_arrive_early``, harmless
+alone).
 
 ``ab --base DIR NAME ...`` runs each named timing script (K1, K2, K3,
 K3fam, prenet, gates: those of ``time``) on DIR's package and on the
@@ -109,7 +125,16 @@ streams, K1's ``prenet`` at B=240 with its masks, both types), among them
 ``prenet_not_wide`` (the float32 prenet in clusters of 8 CTAs at B=50 too,
 where the checkout takes non-portable clusters of 16);
 the forward family's ``att_bwd`` (``K3fam``: both kinds, both types, B=50,
-T=128).
+T=128); the family's ``train_attention`` (``K2fam``: both kinds, both
+types, B=50, T=128), among them ``train_attention_fam_cluster_barriers``
+(its exchanges as cluster barriers) and, on the parent, the step-0 parts
+left out (``train_attention_fam_no_sum_exchange``: the tile sums' cluster
+barrier a CTA barrier; ``..._no_agent_tail``; ``..._floor``: both); K1's
+float32 attention (``K1f32``: location-sensitive on float32 and int8
+streams, the family's float32 fwd and agent, B=240, T=128, alone and
+the location-sensitive step in a 32-step chunk), on the parent with its
+band (``lsa_f32_no_band``), its query (``lsa_f32_no_query``) or both
+(``lsa_f32_no_products``) left out.
 
 Prints every run and, last, one JSON object of the results, also written
 to ``build/variants/kernel_variants_<mode>.json``.
@@ -149,6 +174,127 @@ _TA_TAPS_ENERGIES = r"""  // 1. energies, a warp a position, a lane a channel: l
 
 """
 
+# the forward family's train_attention with its exchanges as cluster
+# barriers and reads of the peers' shared memory, ending in a split exit
+# (arrive after the CTA's last read of a peer, wait before it returns),
+# the measured alternative to the checkout's one-way messages: the
+# prologue's mbarrier arming left out, and the exchanges from the first on
+# replaced by this text
+_TA_FAM_BARRIERS = r"""    if (tid == 0) {
+      s_stat[0] = mx;
+      s_stat[1] = sum;
+    }
+    cluster_sync();
+    if (warp == 0) {
+      // lane j reads rank j's pair, every lane combines them in rank order
+      float mj = -CUDART_INF_F, sj = 0.0f;
+      if (lane < cl) {
+        const float* st = cluster_peer(s_stat, lane);
+        mj = st[0];
+        sj = st[1];
+      }
+      float m = -CUDART_INF_F, s = 0.0f;
+      for (int j = 0; j < cl; ++j)
+        m = fmaxf(m, __shfl_sync(0xffffffffu, mj, j));
+      for (int j = 0; j < cl; ++j)
+        s += __shfl_sync(0xffffffffu, sj, j) *
+             expf(__shfl_sync(0xffffffffu, mj, j) - m);
+      if (lane == 0) {
+        s_stat[2] = m;
+        s_stat[3] = s;
+      }
+    }
+    __syncthreads();
+    mx = s_stat[2];
+    sum = s_stat[3];
+    float wsum = 0.0f;
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      const float energy = expf(s_e[i] - mx) / sum;
+      const float prev = s_cumf[i];
+      const float sh = round_to<CT>(i > 0 ? s_cumf[i - 1] : s_stat[7]);
+      const float comb = KIND == ATT_FWD_TRANS
+                             ? (1.0f - tp_prev) * prev + tp_prev * sh
+                             : prev + sh;
+      const float wt = fmaxf(s_mask[i] > -0.5f ? comb * energy : 0.0f, 1e-6f);
+      s_e[i] = wt;
+      wsum += wt;
+    }
+    wsum = block_reduce<false>(wsum, s_red);
+    if (tid == 0) s_stat[4] = wsum;
+    cluster_sync();
+    if (warp == 0) {
+      const float x = lane < cl ? cluster_peer(s_stat, lane)[4] : 0.0f;
+      float s = 0.0f;
+      for (int j = 0; j < cl; ++j) s += __shfl_sync(0xffffffffu, x, j);
+      if (lane == 0) s_stat[5] = s;
+    }
+    __syncthreads();
+    sum = s_stat[5];
+    for (int i = tid; i < rows; i += TA_THREADS) {
+      const size_t o = rowT + t_lo + i;
+      const float wt = s_e[i] / sum;
+      w_out[o] = wt;
+      if (cum_out != nullptr) cum_out[o] = from_float<CT>(s_cumf[i]);
+      cum[o] = wt;
+      s_e[i] = round_to<CT>(wt);
+    }
+    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();
+    ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : mem_tile, s_e,
+                       rows, Mem, vec, TA_THREADS);
+    __syncthreads();
+    for (int m = tid; m < Mem; m += TA_THREADS) {
+      const float c = ctx_column(L.cs, s_cpart, Mem, m);
+      s_ctxp[m] = c;
+      if (KIND == ATT_FWD_TRANS) lin = fmaf(s_ag[m], c, lin);
+    }
+    if (KIND == ATT_FWD_TRANS) {
+      lin = block_reduce<false>(lin, s_red);
+      if (tid == 0) s_stat[6] = lin;
+    }
+    // (every thread's reads of s_cpart above precede the barrier)
+    cluster_sync();
+    // the share's sums into s_cpart (no peer reads it), then the exit
+    // barrier's arrive once this CTA's last read of a peer is done
+    for (int m = m_lo + tid; m < m_hi; m += TA_THREADS) {
+      float acc = 0.0f;
+      for (int j = 0; j < cl; ++j) acc += cluster_peer(s_ctxp, j)[m];
+      s_cpart[m - m_lo] = acc;
+    }
+    float z = 0.0f;
+    if (KIND == ATT_FWD_TRANS && rank == 0 && warp == 0) {
+      const float x = lane < cl ? cluster_peer(s_stat, lane)[6] : 0.0f;
+      z = ag.bias[0];
+      for (int j = 0; j < cl; ++j) z += __shfl_sync(0xffffffffu, x, j);
+    }
+    cluster_arrive();
+    for (int m = m_lo + tid; m < m_hi; m += TA_THREADS) {
+      const float acc = s_cpart[m - m_lo];
+      ctx[(size_t)b * Mem + m] = acc;
+      const CT cb = from_float<CT>(acc);
+      dst0[(size_t)b * ld0 + m] = cb;
+      dst1[(size_t)b * ld1 + m] = cb;
+      if (dst2 != nullptr) dst2[(size_t)b * ld2 + m] = cb;
+    }
+    if (KIND == ATT_FWD_TRANS && rank == 0 && tid == 0) {
+      const float tp = 1.0f / (1.0f + expf(-z));
+      ag.tp[b] = tp;
+      if (ag.tp_out != nullptr) ag.tp_out[b] = tp;
+    }
+    // no CTA leaves while its peers may still read its shared memory
+    cluster_wait();
+  }
+}
+"""
+_TA_FAM_BARRIER_SPANS = [
+    ("  if constexpr (KIND != ATT_LS) {\n    // each mbarrier armed",
+     "  cp_async_wait<1>();\n  __syncthreads();\n  // the agent's h_att", ""),
+    ("    cluster_wait();   // every peer's mbarriers are armed\n",
+     "\ntemplate <int KIND, class CT>\n__global__ void __launch_bounds__("
+     "TA_THREADS)\n    train_attention_kernel(", _TA_FAM_BARRIERS),
+]
+
 class Alt(tuple):
     """Alternative spans of one variant: the first whose piece occurs
     exactly once in the source is replaced (so that one variant applies to
@@ -184,8 +330,10 @@ def _one_tf32_pass(a: str, b: str) -> str:
 VARIANTS = {
     "lsa_location_tap": (
         "fused_decoder.cu",
-        "cum + (size_t)b * T, 0, half, T);",
-        "cum + (size_t)b * T, 0, half + 1, T);", "K1"),
+        "band_stage_cum(s_cum, L.tpad + BAND_K,\n"
+        "                     cum + (size_t)b * T, 0, half, T);",
+        "band_stage_cum(s_cum, L.tpad + BAND_K,\n"
+        "                     cum + (size_t)b * T, 0, half + 1, T);", "K1"),
     "att_bwd_dcum_tap": (
         "fused_train_decoder.cu",
         "const int t2 = t - lane + half;",
@@ -453,6 +601,51 @@ VARIANTS = {
         "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n",
         "    tf32_split<4>(ah, al, ah);\n    tf32_split<2>(bh, bl, bh);\n"
         "    bl[0] = bl[1] = 0u;\n", "K2f32"),
+    # the redesigned forward family's train_attention (each under K2's
+    # family phase): each tile's softmax terms taken on its own maximum
+    # (the pairs combined, but the tile's exp(e - m_j) not rescaled to the
+    # row's maximum); the transition agent's prologue share of h_att . wq
+    # left out; the context partials summed without waiting for their
+    # message to land; and in the cluster-barrier alternative, the exit
+    # barrier's arrive moved before the CTA's reads of its peers' context
+    # partials, with a probe that overwrites a CTA's own partials once its
+    # exit wait returns (harmless where the arrive follows the reads:
+    # train_attention_fam_exit_probe)
+    "fam_tile_stats_local_max": (
+        "fused_train_decoder.cu",
+        "    __syncthreads();\n    mx = s_stat[2];\n    sum = s_stat[3];",
+        "    __syncthreads();\n    sum = s_stat[3];",
+        "K2:forward_transition_agent"),
+    "fam_agent_prologue_dropped": (
+        "fused_train_decoder.cu",
+        "    for (int k = tid; k < n_h; k += TA_THREADS)\n"
+        "      lin = fmaf(s_ag[Mem + k], s_ag[Mem + sh_h + k], lin);",
+        "", "K2f32:forward_transition_agent"),
+    "fam_ctx_message_wait_dropped": (
+        "fused_train_decoder.cu", "    mbar_wait0(s_bar + 2);\n", "",
+        "K2:forward_transition_agent"),
+    "fam_exit_arrive_early": (
+        "fused_train_decoder.cu",
+        _TA_FAM_BARRIER_SPANS + [
+         ("    // (every thread's reads of s_cpart above precede the barrier)\n"
+          "    cluster_sync();\n",
+          "    // (every thread's reads of s_cpart above precede the barrier)\n"
+          "    cluster_sync();\n    cluster_arrive();\n"),
+         ("      for (int j = 0; j < cl; ++j) z += __shfl_sync(0xffffffffu, "
+          "x, j);\n    }\n    cluster_arrive();",
+          "      for (int j = 0; j < cl; ++j) z += __shfl_sync(0xffffffffu, "
+          "x, j);\n    }"),
+         ("    cluster_wait();\n  }\n}\n",
+          "    cluster_wait();\n"
+          "    for (int m = tid; m < Mem; m += TA_THREADS) "
+          "s_ctxp[m] = CUDART_NAN_F;\n  }\n}\n")],
+        "K2:forward_transition_agent"),
+    # K1's float32 location-sensitive band without lc's TF32 lo halves
+    "lsa_f32_lc_lo_dropped": (
+        "fused_decoder.cu",
+        "          tf32_split<2>(bh[ks][h], bl[ks][h], bh[ks][h]);",
+        "          tf32_split<2>(bh[ks][h], bl[ks][h], bh[ks][h]);\n"
+        "          bl[ks][h][0] = bl[ks][h][1] = 0u;", "K1f32"),
     "train_attention_taps": (
         "fused_train_decoder.cu",
         [("  // 1. energies: loc = band(cum) @ lc",
@@ -460,6 +653,26 @@ VARIANTS = {
         "design K2"),
     # the float32 products with their TF32 passes summed straight into the
     # float32 sums on the tensor cores, without tf32x3_promote's stage sums
+    # the forward family's exchanges as cluster barriers and reads of the
+    # peers' shared memory, with a split exit, instead of one-way messages
+    # (the checkout's; an earlier checkout's package, --root, takes the
+    # other alternative): its times, and its checks
+    "train_attention_fam_cluster_barriers": (
+        "fused_train_decoder.cu", _TA_FAM_BARRIER_SPANS, "time K2fam"),
+    "train_attention_fam_cluster_barriers_checks": (
+        "fused_train_decoder.cu", _TA_FAM_BARRIER_SPANS,
+        "design K2:forward,K2:forward_transition_agent,"
+        "K2f32:forward_transition_agent"),
+    # the exit probe of fam_exit_arrive_early alone (in the cluster-barrier
+    # alternative): every check passes
+    "train_attention_fam_exit_probe": (
+        "fused_train_decoder.cu",
+        _TA_FAM_BARRIER_SPANS + [
+         ("    cluster_wait();\n  }\n}\n",
+          "    cluster_wait();\n"
+          "    for (int m = tid; m < Mem; m += TA_THREADS) "
+          "s_ctxp[m] = CUDART_NAN_F;\n  }\n}\n")],
+        "design K2:forward_transition_agent,K2f32:forward_transition_agent"),
     "tf32x3_in_place": (
         "tile.cuh",
         [("        warp_tf32x3(stage_acc, af, bf);",
@@ -554,8 +767,17 @@ VARIANTS = {
         "time K2"),
     "train_attention_f32_no_ctx": (
         "fused_train_decoder.cu",
-        [("  ctx_partials<!F32>(L.cs, s_cpart,",
-          "  if constexpr (!F32)\n  ctx_partials<!F32>(L.cs, s_cpart,")],
+        [Alt(("  ctx_partials<!F32>(L.cs, s_cpart,",
+              "  if constexpr (!F32)\n  ctx_partials<!F32>(L.cs, s_cpart,"),
+             ("    ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : "
+              "mem_tile, s_e,\n                       rows, Mem, vec, "
+              "TA_THREADS);\n    __syncthreads();\n    for (int m = tid; m "
+              "< Mem; m += TA_THREADS)\n      s_ctxp[m]",
+              "    if constexpr (!F32)\n"
+              "    ctx_partials<!F32>(L.cs, s_cpart, mem_staged ? s_mem : "
+              "mem_tile, s_e,\n                       rows, Mem, vec, "
+              "TA_THREADS);\n    __syncthreads();\n    for (int m = tid; m "
+              "< Mem; m += TA_THREADS)\n      s_ctxp[m]"))],
         "time K2"),
     "bwd_prenet_f32_no_product": (
         "fused_train_decoder.cu", [Alt(
@@ -663,6 +885,48 @@ VARIANTS = {
         "fused_train_decoder.cu",
         "__global__ void __launch_bounds__(TA_THREADS, 4)",
         "__global__ void __launch_bounds__(TA_THREADS)", "time K2"),
+    # what the forward family's train_attention spends on its exchanges
+    # (wrong results; timing only): the tile sums' cluster barrier made a
+    # CTA barrier (one softmax exchange, as the online softmax has); the
+    # transition agent's tail (its dot products, block sum and barrier) left
+    # out; both
+    "train_attention_fam_no_sum_exchange": (
+        "fused_train_decoder.cu",
+        "  if (tid == 0) s_stat[1] = sum;\n  cluster_sync();",
+        "  if (tid == 0) s_stat[1] = sum;\n  __syncthreads();", "time K2fam"),
+    "train_attention_fam_no_agent_tail": (
+        "fused_train_decoder.cu",
+        "  if (KIND == ATT_FWD_TRANS) {\n    // 4. the transition agent",
+        "  if (false) {\n    // 4. the transition agent", "time K2fam"),
+    "train_attention_fam_floor": (
+        "fused_train_decoder.cu",
+        [("  if (tid == 0) s_stat[1] = sum;\n  cluster_sync();",
+          "  if (tid == 0) s_stat[1] = sum;\n  __syncthreads();"),
+         ("  if (KIND == ATT_FWD_TRANS) {\n    // 4. the transition agent",
+          "  if (false) {\n    // 4. the transition agent")],
+        "time K2fam"),
+    # what each product of K1's float32 attention costs (wrong results;
+    # timing only): the location conv's band left out (loc = 0), the
+    # query's product left out (each partial 0), both
+    "lsa_f32_no_band": (
+        "fused_decoder.cu",
+        "? (band_loc_f32(s_cum + t, s_lc + a, L.ld) + s_q[a]) + mt",
+        "? (0.0f + s_q[a]) + mt", "time K1f32"),
+    "lsa_f32_no_query": (
+        "fused_decoder.cu",
+        "      for (int k = 0; k < L.kq; ++k)\n"
+        "        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);",
+        "      for (int k = 0; k < 0; ++k)\n"
+        "        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);", "time K1f32"),
+    "lsa_f32_no_products": (
+        "fused_decoder.cu",
+        [("? (band_loc_f32(s_cum + t, s_lc + a, L.ld) + s_q[a]) + mt",
+          "? (0.0f + s_q[a]) + mt"),
+         ("      for (int k = 0; k < L.kq; ++k)\n"
+          "        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);",
+          "      for (int k = 0; k < 0; ++k)\n"
+          "        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);")],
+        "time K1f32"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -907,6 +1171,97 @@ print("VARIANT_RESULT " + json.dumps(res))
 """
 
 
+# the forward family's train_attention at B=50, T=128 and the flagship's
+# widths (A=128, Mem=292, H=1024, P=256) on random inputs, both kinds (the
+# transition agent's t_prob carry updated in place) in both compute types,
+# the weights carry and the context updated in place
+_TIME_K2FAM = _PRELUDE + r"""
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+torch.set_grad_enabled(False)
+b, t, a, mem, h, p = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 1024, 256
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape, scale=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * scale
+res = {{}}
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for kind in ("fwd", "trans"):
+        prev = torch.softmax(rnd(b, t), -1)
+        ctx = torch.empty(b, mem, device="cuda")
+        outs = (torch.empty(b, t, device="cuda"),
+                torch.empty(b, t, dtype=ct, device="cuda"))
+        dsts = [torch.empty(b, mem, dtype=ct, device="cuda")
+                for _ in range(3)]
+        agent = None
+        if kind == "trans":
+            agent = ftd.AgentArgs(
+                torch.rand(b, device="cuda", generator=gen),
+                torch.empty(b, device="cuda"), rnd(b, h), rnd(b, p),
+                rnd(mem + h + p, scale=0.03), rnd(1))
+        args = (rnd(b, a).to(ct).float(), prev, rnd(b, t, mem).to(ct),
+                rnd(b, t, a, scale=0.5).to(ct),
+                torch.zeros(b, t, device="cuda"), None,
+                rnd(a, scale=a ** -0.5), *outs, ctx, dsts)
+        res[f"{{kind}}_ms_{{name}}"] = cs.device_ms(
+            lambda: ftd.train_attention(*args, agent=agent), ours_only=True)
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+
+
+# K1's float32 attention instances at the serving path's B=240, T=128 and
+# the flagship's widths, alone (chip_smoke.device_ms): location-sensitive
+# on float32 and on int8 streams, and the forward family's float32 fwd and
+# agent; the location-sensitive float32 step also inside a 32-step chunk
+# (torch.profiler)
+_TIME_K1F32 = _PRELUDE + r"""
+from torch.profiler import ProfilerActivity, profile
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+torch.set_grad_enabled(False)
+res = {{}}
+for label, kind, cfg in (
+        ("ls", "location_sensitive", cs.F32),
+        ("ls_q8", "location_sensitive", cs.F32_Q8),
+        ("fwd", "forward", cs.F32),
+        ("trans", "forward_transition_agent", cs.F32)):
+    h = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, kind, **cfg)
+    s = hp if kind == "location_sensitive" else cs.flagship(
+        cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, kind)
+    syn = Synthesizer(h, cs.seeded_state_dict(s), device="cuda")
+    bundle, kw = syn.bundle, syn.decode_kwargs
+    memory, mt, mask, carry = cs.encoded_batch(syn, h)
+    mem, mtb, mask_add = fd.chunk_operands(bundle, memory, mt, mask)
+    st = carry["att_state"]
+    if kind == "location_sensitive":
+        call = lambda: fd.lsa_attention(carry["h_att"], st["weights"], mem,
+                                        mtb, mask_add, bundle)
+    else:
+        x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"],
+                            (1, 2), 0)
+        call = lambda: fd.fwd_attention(carry["h_att"], st["weights"],
+                                        st.get("t_prob"), mem, mtb,
+                                        mask_add, x, bundle)
+    res[f"{{label}}_ms"] = cs.device_ms(call, ours_only=True)
+    if label == "ls":
+        steps = 32
+        def chunk():
+            fd.decode_chunk(bundle, carry, memory, mt, mask, (1, 2), steps,
+                            **kw)
+        chunk()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            chunk()
+            torch.cuda.synchronize()
+        busy = cs.device_busy(p)
+        if busy is not None:
+            res["ls_in_chunk_us"] = sum(
+                v for k, v in busy[2].items()
+                if k.startswith("lsa_attention_kernel")) / steps
+    del syn
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+
+
 # the forward prenet of both decoders at the flagship's widths (M=80,
 # P=256, two layers, dropout 0.5) on random inputs, in both compute types:
 # K2's train_prenet at the training step's B=50 (a teacher step with its
@@ -1009,7 +1364,10 @@ def make_copy(name: str) -> Path:
     return root
 
 
-def run(root: Path, script: str, **fmt) -> dict:
+def run(root: Path, script: str, fault: bool = False, **fmt) -> dict:
+    """One run of ``script`` on ``root``'s package.  With ``fault``, a run
+    that a kernel stops with a CUDA error (a planted fault that makes the
+    kernel fault on the card) counts as one failed check."""
     code = script.format(repo=str(ROOT), root=str(root), **fmt)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=900)
@@ -1019,6 +1377,11 @@ def run(root: Path, script: str, **fmt) -> dict:
     for line in proc.stdout.splitlines():
         if line.startswith("VARIANT_RESULT "):
             return json.loads(line[len("VARIANT_RESULT "):])
+    errors = [line for line in proc.stderr.splitlines()
+              if "CUDA error" in line]
+    if fault and errors:
+        print(f"  [variant] the run stopped: {errors[0]}")
+        return {"failed": [f"the run stopped: {errors[0]}"]}
     sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
     raise SystemExit(f"kernel_variants: the run in {root} failed")
 
@@ -1067,7 +1430,7 @@ def faults(names=()) -> dict:
     for name in todo:
         phase = _kind(name)
         print(f"[faults] {name} ({phase})")
-        res = run(roots[name], _CHECKS, phase=phase)
+        res = run(roots[name], _CHECKS, fault=True, phase=phase)
         out[name] = res["failed"]
         caught = caught and bool(res["failed"])
         print(f"[faults] {name}: {len(res['failed'])} check(s) failed")
@@ -1113,9 +1476,9 @@ def time_variants(names) -> dict:
 
 
 # the timing scripts by name, for ``ab``
-_TIMERS = {"K1": "_TIME_K1", "K2": "_TIME_K2", "K3": "_TIME_K3",
-           "K3fam": "_TIME_K3FAM", "prenet": "_TIME_PRENET",
-           "gates": "_TIME_GATES"}
+_TIMERS = {"K1": "_TIME_K1", "K1f32": "_TIME_K1F32", "K2": "_TIME_K2",
+           "K2fam": "_TIME_K2FAM", "K3": "_TIME_K3", "K3fam": "_TIME_K3FAM",
+           "prenet": "_TIME_PRENET", "gates": "_TIME_GATES"}
 
 
 def ab(base: Path, names) -> dict:

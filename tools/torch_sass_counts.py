@@ -5,8 +5,8 @@ one or more checkouts, on a machine with the CUDA toolkit.
     python3 tools/torch_sass_counts.py [ROOT ...] [--kernel att_bwd_kernel
         --kernel bwd_head_kernel --kernel train_attention_kernel
         --kernel bwd_prenet_kernel --kernel prenet_tile_kernel
-        --kernel att_bwd_family_kernel]
-        [--op HMMA.1688.F32.TF32 --op FFMA ...]
+        --kernel att_bwd_family_kernel --kernel lsa_attention_kernel]
+        [--op HMMA.1688.F32.TF32 --op FFMA --op CGABAR_ARV ...]
 
 Each ROOT (the checkout itself when none is given) builds both decoders'
 sources (``csrc/fused_decoder.cu``, ``csrc/fused_train_decoder.cu``) as
@@ -82,9 +82,10 @@ def main() -> int:
     args = ap.parse_args()
     kernels = args.kernel or ["att_bwd_kernel", "bwd_head_kernel",
                               "train_attention_kernel", "bwd_prenet_kernel",
-                              "prenet_tile_kernel", "att_bwd_family_kernel"]
+                              "prenet_tile_kernel", "att_bwd_family_kernel",
+                              "lsa_attention_kernel"]
     ops = args.op or ["HMMA.1688.F32.TF32", "HMMA.16816", "FFMA", "LDSM",
-                      "LDGSTS"]
+                      "LDGSTS", "CGABAR_ARV", "CGABAR_WAIT"]
     result = {}
     for root in args.roots:
         res = {}

@@ -8,6 +8,8 @@ decoder's kernel rows, from two checkouts in turns, on one NVIDIA GPU.
         [--attention forward_transition_agent] [--set q8] [--only head ...]
     python3 tools/torch_train_step_ab.py BASE CHANGE --train-rows
         [--attention forward] [--set f32] [--only att_bwd_fwd ...]
+    python3 tools/torch_train_step_ab.py BASE CHANGE --serve [--set f32]
+        [--attention forward]
 
 BASE and CHANGE are roots of checkouts of the repository (for example a
 ``git archive`` of the parent commit unpacked under the ignored ``build/``,
@@ -39,8 +41,11 @@ decoder's kernels of ``--only`` (every one when none is named) as
 ``chip_smoke.py``'s ``[train:time]`` rows read them, at ``--attention``
 and ``--set`` (``f32``), at the depth of ``chip_smoke.py``'s training
 phase there: the checks (``phase_train_kernels``), one timed step
-(``phase_train_main``), then ``phase_train_timings``.  The last JSON object then holds each row's
-times by side.
+(``phase_train_main``), then ``phase_train_timings``.  With ``--serve``
+each run synthesizes as ``chip_smoke.py``'s main phases do
+(``phase_main``: 240 lines x 256 frames at ``--attention`` and ``--set``,
+after a warm-up run) and reads its mel frames/s (host clock).  The last
+JSON object then holds each row's times (or the frames/s) by side.
 """
 
 from __future__ import annotations
@@ -124,14 +129,35 @@ rows = cs.phase_train_timings(hp, errs, launches, per_step, inputs, main,
                               frames=frames)
 print("AB_RESULT " + json.dumps({{r["name"]: r["ms"] for r in rows}}))
 """
+_SERVE = r"""
+import json, sys
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_grad_enabled(False)
+over = {{"": {{}}, "f32": cs.F32, "f32-exact": cs.F32_EXACT, "q8": cs.Q8,
+         "f32-q8": cs.F32_Q8}}[{setting!r}]
+# the weights of the attention family's bf16 flagship, as chip_smoke's
+# phases take them
+sd = cs.seeded_state_dict(cs.flagship(cs.FAMILY_FRAMES, cs.CHUNK,
+                                      {attention!r}))
+hp = cs.flagship(cs.FAMILY_FRAMES, cs.CHUNK, {attention!r}, **over)
+_, _, fps = cs.phase_main(hp, sd)
+print("AB_RESULT " + json.dumps({{"mel_frames_s": fps}}))
+"""
 _SPLIT = re.compile(r"forward and loss ([\d.]+) ms, backward ([\d.]+) ms, "
                     r"clip and Adam ([\d.]+) ms")
 _STEPS = re.compile(r"steps at teacher forcing 1\.0 ([\d., ]+) s \(mean")
 
 
 def run_rows(root: Path, args) -> dict:
-    """One ``--rows`` or ``--train-rows`` run: each row's device ms."""
-    code = (_TRAIN_ROWS if args.train_rows else _ROWS).format(
+    """One ``--rows``, ``--train-rows`` or ``--serve`` run: each row's
+    device ms, or the mel frames/s."""
+    script = (_TRAIN_ROWS if args.train_rows else
+              _SERVE if args.serve else _ROWS)
+    code = script.format(
         root=str(root), attention=args.attention, setting=args.setting,
         only=list(args.only))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
@@ -150,7 +176,7 @@ def rows_ab(roots: dict, order, args, smi: str) -> dict:
         for name, ms in res.items():
             times[side].setdefault(name, []).append(ms)
         print(f"[ab] run {i + 1} {side}: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in res.items()))
+            f"{k} {v:.4f}" for k, v in res.items()))
     return {"card": smi, "attention": args.attention, "set": args.setting,
             "times": times}
 
@@ -192,6 +218,8 @@ def main() -> int:
                     help="time the serving decoder's kernel rows instead")
     ap.add_argument("--train-rows", action="store_true",
                     help="time the training decoder's kernel rows instead")
+    ap.add_argument("--serve", action="store_true",
+                    help="read the serving flagship's mel frames/s instead")
     ap.add_argument("--attention", default="location_sensitive")
     ap.add_argument("--set", dest="setting", default="",
                     choices=("", "f32", "f32-exact", "q8", "f32-q8"))
@@ -208,7 +236,7 @@ def main() -> int:
     print(smi)
     order = (["base", "change", "change", "base"]
              * args.pairs)[:2 * args.pairs]
-    if args.rows or args.train_rows:
+    if args.rows or args.train_rows or args.serve:
         print(json.dumps(rows_ab(roots, order, args, smi)))
         return 0
     runs = []
