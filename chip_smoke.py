@@ -92,7 +92,11 @@ Phases, each of which fails the run on a failed check:
    a 16-step chunk; ``[kernels:q8]`` and ``[kernels:f32-q8]`` the
    attention kernels on int8 streams in bf16 and float32, their codes and
    scales bit-exact with the CPU's quantization, at the 292-wide memory and
-   the shared strategy's 548 (for the family on random 548-wide streams);
+   the shared strategy's 548 (for the family on random 548-wide streams),
+   and timed at 548 (``[time:E=548]`` and the shared strategy's
+   ``[time]`` rows of ``lsa_attention_q8``, printed, not kept in the
+   kernel rows); every attention check also at T=7, where a row's streams
+   start and end off a 16-byte boundary;
    ``[main:f32]`` synthesis in float32 with W8A8 gates (240 lines x 256
    frames, the card against the CPU with cuDNN at PyTorch's TF32 default),
    ``[main:q8]`` in bf16 on int8 streams (the same), and 240 lines x 32
@@ -698,10 +702,10 @@ def check_attention_step(fd, bundle, tag, h_att, x, carry, memory, mtb,
                              w_p - base)
         return close_weights(f"{name}[{label}]", w_k, w_p, base)
 
-    def context(label, c_k, c_p):
+    def context(label, c_k, c_p, atol=CTX_TOL):
         if f32:
             return close_f32(f"{name} ctx[{label}]", c_k, c_p)
-        return close(f"{name} ctx[{label}]", c_k, c_p, CTX_TOL, CTX_TOL)
+        return close(f"{name} ctx[{label}]", c_k, c_p, atol, CTX_TOL)
 
     def agent(label, t_k, t_p):
         if f32:
@@ -710,6 +714,31 @@ def check_attention_step(fd, bundle, tag, h_att, x, carry, memory, mtb,
 
     err = max(weights(tag, got[1], ref[1], cum),
               context(tag, got[0], ref[0]))
+    # a text of 7 positions: a row's streams then start and end off a
+    # 16-byte boundary (7 rows of 292 int8 or 584 bf16 bytes), so the
+    # staged instances copy the ragged heads and tails with their threads.
+    # Its weights are near 1/7, so one bf16 rounding of a context product
+    # that flips where the kernel's softmax sums in another order than the
+    # plain one moves the context by 2^-8 of that product (an int8 code of
+    # up to 127 times its weight and scale: 0.0039 measured on random
+    # streams): the context within one bf16 ulp, ULP
+    t_odd = 7
+    if name == "lsa_attention":
+        odd = (h_att, cum[:, :t_odd].contiguous(), stream_head(memory, t_odd),
+               stream_head(mtb, t_odd), mask_add[:, :t_odd].contiguous(),
+               bundle)
+        got_o, ref_o = fd.lsa_attention(*odd), fd.lsa_attention_plain(*odd)
+        base = odd[1]
+    else:
+        prev = state["weights"][:, :t_odd]
+        odd = (h_att, (prev / prev.sum(-1, keepdim=True)).contiguous(),
+               state.get("t_prob"), stream_head(memory, t_odd),
+               stream_head(mtb, t_odd), mask_add[:, :t_odd].contiguous(), x,
+               bundle)
+        got_o, ref_o = fd.fwd_attention(*odd), fd.fwd_attention_plain(*odd)
+        base = torch.zeros_like(ref_o[1])
+    weights(f"{tag}, T={t_odd}", got_o[1], ref_o[1], base)
+    context(f"{tag}, T={t_odd}", got_o[0], ref_o[0], ULP)
     if name == "fwd_attention":
         # also at a text bucket that is not a multiple of 16, whose padding
         # in the kernel must take part in neither the softmax nor the floor
@@ -1201,6 +1230,12 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
         n_bytes, ops, op_kind, *mm_ops = work[name]
         b_ms, b_by, ffma = row_bound(name, n_bytes, ops, op_kind, *mm_ops)
         inst = fd.instance(name, bundle.dtype, bundle.q_streams)
+        if name == att_name:
+            # the launch's clusters of 8 rows that the card holds at once
+            resident = fd.attention_clusters(
+                bundle.att_kind, bundle.dtype, bundle.q_streams, B,
+                T_SYMBOLS, hidden, a_dim, m_dim)
+            events += f", clusters resident {resident} of {-(-B // 8)}"
         rows.append({
             "name": f"{inst}[{_LABEL}]" if _LABEL else inst, "route": "cuda",
             "source": "multilingual_text_to_speech_tpu_torch/csrc/"
@@ -1252,7 +1287,12 @@ def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
 def phase_shared_streams(sd) -> None:
     """``[kernels:q8]`` at the shared strategy's 548-wide memory (int8 rows
     of 548 bytes): ``phase_variant_kernels`` on int8 streams in bf16 and
-    float32, W8A8, for the weights ``sd`` of that strategy."""
+    float32, W8A8, for the weights ``sd`` of that strategy; then each
+    instance's ``lsa_attention`` timed there (``phase_timings``, its row
+    printed and not kept: no main run of this configuration counts its
+    launches)."""
+    import collections
+
     from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
 
     for cfg in (Q8, F32_Q8):
@@ -1260,7 +1300,10 @@ def phase_shared_streams(sd) -> None:
         for k, v in cfg.items():
             setattr(hp, k, v)
         syn = Synthesizer(hp, sd, device="cuda")
-        phase_variant_kernels(syn, hp, [(True, True)])
+        errs = phase_variant_kernels(syn, hp, [(True, True)])
+        phase_timings(hp, syn, errs[(True, True)],
+                      collections.defaultdict(int), only=("lsa_attention",),
+                      chunk=False)
         del syn
 
 
@@ -1295,6 +1338,17 @@ def check_wide_streams(syn, hp, bundle, mem_dim: int = 548) -> None:
                                            row)
     say(f"[kernels:E={mem_dim}] {name} on int8 streams of a {mem_dim}-wide "
         f"memory: max abs err {err:.3g}")
+    # its device time there, in turns with the plain version
+    state = carry["att_state"]
+    args = (h_att, state["weights"], state.get("t_prob"), memory, mtb,
+            mask_add, x, wide)
+    ms, plain_ms, turns, events = turns_ms(
+        lambda: fd.fwd_attention(*args), lambda: fd.fwd_attention_plain(*args))
+    say(f"[time:E={mem_dim}] {fd.instance(name, bundle.dtype, True)} on "
+        f"int8 streams of a {mem_dim}-wide memory (B={B}, T={T_SYMBOLS}): "
+        f"kernel {ms:.4f} ms ({events}, in turns: "
+        + ", ".join(f"{t:.4f}" for t in turns) + f"), plain {plain_ms:.4f} "
+        "ms")
 
 
 def phase_k1_variants(sd, kind: str = "location_sensitive"):

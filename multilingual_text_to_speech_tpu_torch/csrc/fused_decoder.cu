@@ -43,7 +43,9 @@
 // reads: bound by those bytes, 7.7 us at B=240, T=128) runs one CTA per
 // row in clusters of 8 rows that share the query product, the location
 // conv on the tensor cores as a band product (csrc/tile.cuh, shared with
-// the training backward's att_bwd) and the context over 16-byte loads.
+// the training backward's att_bwd) and the context over 16-byte loads;
+// on int8 streams, and in the forward family, with the row's streams
+// copied into shared memory by bulk copies while the query runs.
 // prenet (2*B*(M*P + (n-1)*P*P) operations, 41 M at B=240, against 0.5 MB
 // of weights, input and output: a bound of 0.15 us, so its time is
 // latency) is csrc/tile.cuh's prenet_tile_kernel, which the training
@@ -287,6 +289,11 @@ struct EvalLstm {
 // reads it as a flat array (period 4, csrc/tile.cuh CtxScheme).  Bound on
 // the H100: the streams' bytes, 2x in float32 (51.6 MB a step at B=240,
 // T=128: beyond the 50 MB L2), 1/2 in int8.
+//
+// The bf16 instances on int8 streams and the forward family's bf16
+// instances are staged: their streams copied into shared memory while the
+// query runs (lsa_staged_step below); the flagship's bf16
+// location-sensitive instance and the float32 ones run as above.
 // ---------------------------------------------------------------------------
 constexpr int LSA_THREADS = 256, LSA_WARPS = LSA_THREADS / 32;
 constexpr int LSA_ROWS = 8;   // CTAs (batch rows) a cluster
@@ -470,6 +477,742 @@ __device__ __forceinline__ void lsa_band_energies_f32(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The staged instances: bf16 compute on int8 streams (location-sensitive
+// and the forward family) and the forward family on bf16 streams.  A row's
+// streams do not depend on anything the step computes, so they are copied
+// into shared memory while the query runs: once Wq's slice has landed
+// warp 0 issues Hopper's bulk asynchronous copies (csrc/tile.cuh
+// bulk_copy_g2s) of the memory transform's first tiles into a ring of
+// slots (issued at the kernel's start, they delayed Wq's fetch, which the
+// query waits on: PERF.md); once the query product has run, the memory's
+// first tiles into a second ring over Wq's slice and h_att's rows, which
+// are dead from then on, so that they land during the cluster exchange,
+// the energies and the softmax.  Each ring
+// takes the row's positions in tiles (StreamPlan, chosen on the host by
+// ops/fused_decoder.py att_stream_tiles: any T runs), a slot refilled once
+// the block has read it.  A tile's bytes are contiguous in device memory:
+// its 16-byte-aligned span goes in one bulk copy, its ragged head and tail
+// (an int8 row of 292 bytes at T = 1, say) by warp 0's lanes, and the slot
+// keeps the tile's offset within 16 bytes, so the slot's chunks line up as
+// the device memory's do.
+//   Location-sensitive on int8 streams: the band product as the flagship's
+// (a warp per 16 positions, band_loc), with lc's columns permuted within
+// each group of 32 channels (band_stage_lc_grouped) so that a lane's
+// channels over a group's four n8 tiles are 8 contiguous ones: one 8-byte
+// read of staged codes a row and group, the scales, q and v read as float2
+// pairs once a tile.  The forward family: a lane owns 8 contiguous
+// channels (one 16-byte read of staged bf16 mtb, or 8 bytes of codes), their
+// q, v and scales in registers; the shift reads a staged copy of prev; the
+// transition agent's h_att and x terms run in the prologue, ctx . wc in the
+// context's column loop.  Both: the softmax's max and sum in one block
+// reduction of (max, sum) pairs (block_softmax_stats), and the context
+// summed from the staged tiles in CtxScheme's chunks (its scratch over the
+// memory transform's ring, which is dead by then).  Bound on the H100: the
+// streams' bytes (4.4 us for int8 streams, 8.3 us for bf16 at B=240,
+// T=128).
+// ---------------------------------------------------------------------------
+template <int KIND, class CT, class ST>
+__host__ __device__ constexpr bool lsa_staged() {
+  return std::is_same<CT, bf16>::value &&
+         (std::is_same<ST, int8_t>::value || KIND != ATT_LS);
+}
+
+// the rings' mbarriers: LSA_RING slots at most in each ring
+constexpr int LSA_RING = 4;
+
+// the bf16 bit patterns of 2^-8 and 4, the bounds of the tanh table
+// (tanh_table_fill), and its entries
+constexpr uint32_t TANH_LO = 0x3B80u, TANH_HI = 0x4080u;
+constexpr int TANH_N = (int)(TANH_HI - TANH_LO);
+
+// positions a tile and slots, of the memory transform's ring and of the
+// memory's
+struct StreamPlan {
+  int mt_tile, mt_stages, mem_tile, mem_stages;
+};
+
+// a ring of slots of tiles of a row's stream (T positions of `row` bytes):
+// slot s at byte `off + s * slot` of the shared memory, a tile's bytes
+// rounded up to 16 and 16 more for its offset within 16 bytes
+struct StreamRing {
+  size_t off;
+  int slot, stages, tile, row;
+  __host__ __device__ StreamRing() : off(0), slot(0), stages(0), tile(0),
+                                     row(0) {}
+  __host__ __device__ StreamRing(size_t o, int tile_, int stages_, int row_)
+      : off(o), slot((int)align16((size_t)tile_ * row_) + 16),
+        stages(stages_), tile(tile_), row(row_) {}
+  __host__ __device__ size_t bytes() const { return (size_t)slot * stages; }
+  __host__ __device__ int tiles(int T) const {
+    return (T + tile - 1) / tile;
+  }
+};
+
+// tile j of the stream `src` in its slot: the address of its first byte
+__device__ __forceinline__ uint8_t* ring_tile(uint8_t* smem,
+                                              const StreamRing& R,
+                                              const uint8_t* src, int j) {
+  const uint8_t* s = src + (size_t)j * R.tile * R.row;
+  return smem + R.off + (size_t)(j % R.stages) * R.slot +
+         ((uintptr_t)s & 15);
+}
+
+// warp 0: tile j of `src` into its slot, counted on the slot's mbarrier
+// (32 arrivals a phase): the ragged head and tail by the lanes, then the
+// aligned span in one bulk copy
+__device__ void ring_issue(uint8_t* smem, uint64_t* bars,
+                           const StreamRing& R, const uint8_t* src, int T,
+                           int j, int lane) {
+  const int t0 = j * R.tile, n = min(R.tile, T - t0) * R.row;
+  const uint8_t* s = src + (size_t)t0 * R.row;
+  uint8_t* d = ring_tile(smem, R, src, j);
+  uint64_t* bar = bars + j % R.stages;
+  const uintptr_t u = (uintptr_t)s, a = (u + 15) & ~(uintptr_t)15,
+                  z = (u + n) & ~(uintptr_t)15;
+  const int bulk = a < z ? (int)(z - a) : 0;
+  const int head = bulk ? (int)(a - u) : n;
+  const int tail = bulk ? (int)(u + n - z) : 0;
+  for (int i = lane; i < head + tail; i += 32) {
+    const int o = i < head ? i : (int)(z - u) + i - head;
+    d[o] = s[o];
+  }
+  if (lane == 0 && bulk) {
+    fence_proxy_async();
+    mbar_arrive_expect(bar, bulk);
+    bulk_copy_g2s(d + (a - u), reinterpret_cast<const void*>(a), bulk, bar);
+  } else {
+    mbar_arrive(bar);
+  }
+}
+
+// tile j landed
+__device__ __forceinline__ void ring_wait(uint64_t* bars,
+                                          const StreamRing& R, int j) {
+  mbar_wait_parity(bars + j % R.stages, (j / R.stages) & 1);
+}
+
+// shared-memory layout of the staged instances (byte offsets; bf16
+// compute, streams of `ss` bytes): the mbarriers; Wq's slice and h_att's
+// rows, then the memory's ring over them; the query's partials, q, v, the
+// mt scales; lc (location-sensitive); cum with its halo (bf16,
+// location-sensitive) or prev (float32, the family); the energies; the
+// reductions' scratch; the memory transform's ring, then the context's
+// scratch over it
+struct LsaStagedLayout {
+  int kq, ldh, ld, tpad;
+  CtxScheme cs;
+  StreamRing mt, mem;
+  size_t bars, wq, h, qp, q, v, mts, lc, cum, e, red, tanh_tab, cpart,
+      total;
+  __host__ __device__ LsaStagedLayout(int T, int H, int A, int M, int ss,
+                                      bool ls, const StreamPlan& p)
+      : cs(M, LSA_THREADS, 16 / ss) {
+    kq = ((H + LSA_ROWS - 1) / LSA_ROWS + 31) / 32 * 32;
+    ldh = kq + 8;
+    ld = A + 8;
+    tpad = (T + 15) / 16 * 16;
+    bars = 0;
+    wq = align16(2 * LSA_RING * sizeof(uint64_t));
+    h = wq + align16((size_t)kq * ld * 2);
+    const size_t query = h + align16((size_t)LSA_ROWS * ldh * 2) - wq;
+    mem = StreamRing(wq, p.mem_tile, p.mem_stages, M * ss);
+    qp = wq + (query > mem.bytes() ? query : mem.bytes());
+    q = qp + align16((size_t)LSA_ROWS * A * 4);
+    v = q + align16((size_t)A * 4);
+    mts = v + align16((size_t)A * 4);
+    lc = mts + align16((size_t)A * 4);
+    cum = lc + (ls ? align16((size_t)BAND_K * ld * 2) : 0);
+    e = cum + align16(ls ? (size_t)(tpad + BAND_K) * 2 : (size_t)T * 4);
+    red = e + align16((size_t)tpad * 4);
+    tanh_tab = red + 64 * 4;
+    mt = StreamRing(tanh_tab + (size_t)TANH_N * 4, p.mt_tile, p.mt_stages,
+                    A * ss);
+    cpart = mt.off;
+    const size_t scratch = align16(cs.scratch_floats(M) * 4);
+    total = cpart + (mt.bytes() > scratch ? mt.bytes() : scratch);
+  }
+  // the plan's tiles: the memory transform's whole 16-position mma tiles,
+  // the memory's whole periods of the context's chunks, 1 to LSA_RING
+  // slots each, all within a CTA's shared memory
+  __host__ bool ok(const StreamPlan& p) const {
+    return p.mt_tile > 0 && p.mt_tile % 16 == 0 && p.mt_stages >= 1 &&
+           p.mt_stages <= LSA_RING && p.mem_tile > 0 &&
+           p.mem_tile % cs.period == 0 && p.mem_stages >= 1 &&
+           p.mem_stages <= LSA_RING && total <= 227 * 1024;
+  }
+};
+
+// lc [K, A] into s_lc [BAND_K][ld] (bf16, taps K.. zero) with the columns
+// of each whole group of 32 channels permuted: column 8 k + 2 qd + e of a
+// group (its n8 tile k, the lane quad qd's pair e of the accumulator
+// layout) holds channel 8 qd + 2 k + e, so that lane quad qd's channels
+// over the group's four tiles are 8 contiguous ones; the channels past the
+// last whole group as they are
+__device__ void band_stage_lc_grouped(bf16* s_lc, int ld, const bf16* lc,
+                                      int K, int A) {
+  const int a32 = A / 32 * 32;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < BAND_K * A; i += blockDim.x) {
+    const int k = i / A, n = i - k * A, r = n & 31;
+    const int a = n < a32 ? (n - r) + 8 * ((r & 7) >> 1) + 2 * (r >> 3) +
+                                (r & 1)
+                          : n;
+    s_lc[k * ld + n] = k < K ? lc[(size_t)k * A + a] : __float2bfloat16(0.0f);
+  }
+}
+
+// 8 consecutive stream elements at p as compute-type values: bf16 (one
+// 16-byte read where p is aligned), or int8 codes (one 8-byte read where
+// aligned) times their channels' scales s rounded to bf16
+__device__ __forceinline__ void stream8(float* x, const bf16* p,
+                                        const float*, bool aligned) {
+  if (aligned) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    chunk_floats(x, u, p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(p[i]);
+  }
+}
+__device__ __forceinline__ void stream8(float* x, const int8_t* p,
+                                        const float* s, bool aligned) {
+  uint2 w = make_uint2(0u, 0u);
+  if (aligned) {
+    w = *reinterpret_cast<const uint2*>(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w.x |= (uint32_t)(uint8_t)p[i] << (8 * i);
+      w.y |= (uint32_t)(uint8_t)p[4 + i] << (8 * i);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int8_t c = (int8_t)((i < 4 ? w.x : w.y) >> (8 * (i & 3)));
+    x[i] = round_bf16((float)c * s[i]);
+  }
+}
+
+// bf16(tanh(z)) for a bf16 z as a table in shared memory: the energy's
+// tanh takes a bf16 value and is rounded to bf16, so its 1,280 values over
+// [2^-8, 4) in magnitude are filled once a CTA (tanhf, as the unstaged
+// instances compute each term) and read back; below 2^-8 tanh(z) rounds to
+// z (z^3 / 3 is under a quarter of z's half ulp), from 4 on to 1 (tanh(4)
+// is past 1 - 2^-9), and tanh is odd.  A term then costs a table read in
+// place of tanhf's instructions, with the same bits
+
+__device__ void tanh_table_fill(float* s_tanh) {
+  for (int i = threadIdx.x; i < TANH_N; i += blockDim.x)
+    s_tanh[i] = round_bf16(tanhf(
+        __bfloat162float(__ushort_as_bfloat16((unsigned short)(TANH_LO + i)))));
+}
+
+// bf16(tanh(bf16(x)))
+__device__ __forceinline__ float tanh_bf16(float x, const float* s_tanh) {
+  const uint32_t bits = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  const uint32_t t = bits & 0x7fffu;
+  const float a = t >= TANH_HI  ? 1.0f
+                  : t < TANH_LO ? __uint_as_float(t << 16)
+                                : s_tanh[t - TANH_LO];
+  return __uint_as_float(__float_as_uint(a) | ((bits & 0x8000u) << 16));
+}
+
+// band_energy_tanh's term through the table:
+// bf16(tanh(bf16(bf16(bf16(loc) + q) + mtb)))
+__device__ __forceinline__ float band_tanh(float loc, float q, float mtb,
+                                           const float* s_tanh) {
+  return tanh_bf16(round_bf16(round_bf16(loc) + q) + mtb, s_tanh);
+}
+
+// the staged location-sensitive energies of the tile [lo, lo + mt_tile)
+// (its rows of A elements at `tile`, positions from lo): a warp per 16
+// positions, lane quad qd's channels of a 32-channel group 8 contiguous
+// ones (band_stage_lc_grouped), the scales, q and v as float2 pairs
+template <class ST>
+__device__ __forceinline__ void staged_band_energies(
+    float* s_e, const ST* tile, int lo, int hi_pad, const bf16* s_cum,
+    const bf16* s_lc, int ld, const float* s_q, const float* s_v,
+    const float* s_mts, const float* s_tanh, const float* mask, int T,
+    int A) {
+  constexpr bool Q8 = std::is_same<ST, int8_t>::value;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3, a32 = A / 32 * 32;
+  const bool aligned = ((uintptr_t)tile & (Q8 ? 7 : 15)) == 0;
+  for (int t0 = lo + warp * 16; t0 < hi_pad; t0 += LSA_WARPS * 16) {
+    uint32_t af[2][4];
+    band_frags(af, s_cum + t0, lane);
+    const int ta = t0 + g, tb = ta + 8;
+    const ST* ra = tile + (size_t)(ta - lo) * A;
+    const ST* rb = tile + (size_t)(tb - lo) * A;
+    float e0 = 0.0f, e1 = 0.0f;
+    for (int n0 = 0; n0 < a32; n0 += 32) {
+      const int c0 = n0 + 8 * qd;
+      float s8[8], m0[8], m1[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 s = Q8 ? *reinterpret_cast<const float2*>(s_mts + c0 +
+                                                              2 * k)
+                            : make_float2(1.0f, 1.0f);
+        s8[2 * k] = s.x;
+        s8[2 * k + 1] = s.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m0[i] = m1[i] = 0.0f;
+      if (ta < T) stream8(m0, ra + c0, s8, aligned);
+      if (tb < T) stream8(m1, rb + c0, s8, aligned);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int a = c0 + 2 * k;
+        const float2 q = *reinterpret_cast<const float2*>(s_q + a);
+        const float2 v = *reinterpret_cast<const float2*>(s_v + a);
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        band_loc(acc, af, s_lc, ld, n0 + 8 * k, lane);
+        e0 = fmaf(v.x, band_tanh(acc[0], q.x, m0[2 * k], s_tanh), e0);
+        e0 = fmaf(v.y, band_tanh(acc[1], q.y, m0[2 * k + 1], s_tanh), e0);
+        e1 = fmaf(v.x, band_tanh(acc[2], q.x, m1[2 * k], s_tanh), e1);
+        e1 = fmaf(v.y, band_tanh(acc[3], q.y, m1[2 * k + 1], s_tanh), e1);
+      }
+    }
+    // the channels past the last whole group, a pair a lane and n8 tile
+    for (int n0 = a32; n0 < A; n0 += 8) {
+      const int a = n0 + 2 * qd;
+      float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float s = Q8 ? s_mts[a + i] : 1.0f;
+        if (ta < T) m[i] = round_bf16(to_float(ra[a + i]) * s);
+        if (tb < T) m[2 + i] = round_bf16(to_float(rb[a + i]) * s);
+      }
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      band_loc(acc, af, s_lc, ld, n0, lane);
+      e0 = fmaf(s_v[a], band_tanh(acc[0], s_q[a], m[0], s_tanh), e0);
+      e0 = fmaf(s_v[a + 1], band_tanh(acc[1], s_q[a + 1], m[1], s_tanh), e0);
+      e1 = fmaf(s_v[a], band_tanh(acc[2], s_q[a], m[2], s_tanh), e1);
+      e1 = fmaf(s_v[a + 1], band_tanh(acc[3], s_q[a + 1], m[3], s_tanh), e1);
+    }
+    e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+    e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+    e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+    e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+    if (qd == 0) {
+      if (ta < T) s_e[ta] = e0 + mask[ta];
+      if (tb < T) s_e[tb] = e1 + mask[tb];
+    }
+  }
+}
+
+// positions a lane of the forward family's energy loop takes at a time
+constexpr int FE_UNROLL = 4;
+
+// the forward family's energies of the staged tile's positions [lo, hi):
+// `lpr` lanes a position, lane `sub` of them owning the channels [8 sub,
+// 8 sub + 8) with their q, v and scales in registers (qr, vr, sr), and
+// every lpr-th group of 8 past them read from shared memory (A > 256);
+// the lanes' partial energies summed by shuffles
+template <class ST>
+__device__ __forceinline__ void staged_fwd_energies(
+    float* s_e, const ST* tile, int lo, int hi, int A, const float* qr,
+    const float* vr, const float* sr, const float* s_q, const float* s_v,
+    const float* s_mts, const float* s_tanh, int lpr) {
+  constexpr bool Q8 = std::is_same<ST, int8_t>::value;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rpw = 32 / lpr, sub = lane & (lpr - 1), rr = lane / lpr;
+  const int nch = A / 8;
+  const bool aligned = ((uintptr_t)tile & (Q8 ? 7 : 15)) == 0;
+  // FE_UNROLL positions a lane at a time, their sums independent
+  for (int t0 = lo + warp * rpw * FE_UNROLL; t0 < hi;
+       t0 += LSA_WARPS * rpw * FE_UNROLL) {
+    float e[FE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FE_UNROLL; ++u) {
+      const int t = t0 + u * rpw + rr;
+      e[u] = 0.0f;
+      if (t < hi && sub < nch) {
+        const ST* row = tile + (size_t)(t - lo) * A;
+        float m[8];
+        stream8(m, row + 8 * sub, sr, aligned);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          e[u] = fmaf(vr[i], tanh_bf16(qr[i] + m[i], s_tanh), e[u]);
+        for (int c = sub + lpr; c < nch; c += lpr) {
+          stream8(m, row + 8 * c, s_mts + 8 * c, aligned);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            e[u] = fmaf(s_v[8 * c + i],
+                        tanh_bf16(s_q[8 * c + i] + m[i], s_tanh), e[u]);
+        }
+      }
+    }
+    for (int off = lpr >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < FE_UNROLL; ++u)
+        e[u] += __shfl_xor_sync(0xffffffffu, e[u], off);
+#pragma unroll
+    for (int u = 0; u < FE_UNROLL; ++u) {
+      const int t = t0 + u * rpw + rr;
+      if (sub == 0 && t < hi) s_e[t] = e[u];
+    }
+  }
+}
+
+// the softmax's statistics over the block in one reduction of each
+// thread's (max, sum of exp(e - max)) pair: the warp's maximum, each
+// lane's sum rescaled to it by exp(m - M) and the warp's sum, by shuffles;
+// then every thread takes the warps' pairs in warp order (the block's
+// maximum, the warps' sums rescaled to it), so every thread returns the
+// same (M, S).  A sum of nothing (maximum -inf) adds nothing
+__device__ __forceinline__ void block_softmax_stats(float& m, float& s,
+                                                    float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float wm = m;
+  for (int off = 16; off > 0; off >>= 1)
+    wm = fmaxf(wm, __shfl_xor_sync(0xffffffffu, wm, off));
+  float ws = m == -CUDART_INF_F ? 0.0f : s * expf(m - wm);
+  for (int off = 16; off > 0; off >>= 1)
+    ws += __shfl_xor_sync(0xffffffffu, ws, off);
+  __syncthreads();
+  if (lane == 0) {
+    scratch[2 * warp] = wm;
+    scratch[2 * warp + 1] = ws;
+  }
+  __syncthreads();
+  m = -CUDART_INF_F;
+  for (int w = 0; w < LSA_WARPS; ++w) m = fmaxf(m, scratch[2 * w]);
+  s = 0.0f;
+  for (int w = 0; w < LSA_WARPS; ++w) {
+    const float mw = scratch[2 * w];
+    s += mw == -CUDART_INF_F ? 0.0f : scratch[2 * w + 1] * expf(mw - m);
+  }
+}
+
+// a thread's slot of CtxScheme's chunks (group, chunk column c) over a
+// period of P memory rows: with M >= V a chunk's V elements lie in at most
+// two rows, its first `split` in row r0 and the rest in r0 + 1, so a
+// period reads two weights; with M < V each element finds its own row
+struct CtxSlot {
+  int c, grp, r0, split;
+  __device__ CtxSlot(int slot, int C, int M, int V)
+      : c(slot % C), grp(slot / C), r0(V * c / M),
+        split(M >= V ? (V * c / M + 1) * M - V * c : 0) {}
+};
+
+// the slot's chunks over one staged tile of `rows` memory rows (w: their
+// weights), added to acc in period order: acc[i] += bf16(mem * w)
+template <class ST>
+__device__ __forceinline__ void staged_ctx_tile(float* acc, const ST* tile,
+                                                const float* w, int rows,
+                                                int M, int P, int G,
+                                                const CtxSlot& s, bool vec) {
+  constexpr int V = 16 / sizeof(ST);
+  const int PM = P * M;
+  const long long n_el = (long long)rows * M;
+#pragma unroll 2
+  for (int p = s.grp; p < (rows + P - 1) / P; p += G) {
+    const long long base = (long long)p * PM + V * s.c;
+    if (vec && s.split > 0 && base + V <= n_el) {
+      // bf16(mem * w) as bf16x2 products (the exact product rounded once,
+      // as round_bf16 of the float product): the weights are bf16 values,
+      // and so are int8 codes
+      const uint4 u = *reinterpret_cast<const uint4*>(tile + base);
+      const int ra = p * P + s.r0;
+      const __nv_bfloat16 wa = __float2bfloat16_rn(ra < rows ? w[ra] : 0.0f);
+      const __nv_bfloat16 wb =
+          __float2bfloat16_rn(ra + 1 < rows ? w[ra + 1] : 0.0f);
+#pragma unroll
+      for (int k = 0; k < V / 2; ++k) {
+        __nv_bfloat162 xk;
+        if constexpr (sizeof(ST) == 2) {
+          xk = reinterpret_cast<const __nv_bfloat162*>(&u)[k];
+        } else {
+          const uint32_t word = reinterpret_cast<const uint32_t*>(&u)[k / 2];
+          xk = __floats2bfloat162_rn(
+              (float)(int8_t)(word >> (16 * (k & 1))),
+              (float)(int8_t)(word >> (16 * (k & 1) + 8)));
+        }
+        const __nv_bfloat162 pr = __hmul2(
+            xk, __halves2bfloat162(2 * k < s.split ? wa : wb,
+                                   2 * k + 1 < s.split ? wa : wb));
+        acc[2 * k] += __low2float(pr);
+        acc[2 * k + 1] += __high2float(pr);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float x = base + i < n_el ? to_float(tile[base + i]) : 0.0f;
+        const int r = p * P + (V * s.c + i) / M;
+        acc[i] += round_bf16(x * (r < rows ? w[r] : 0.0f));
+      }
+    }
+  }
+}
+
+template <int KIND, class ST>
+__device__ __forceinline__ void lsa_staged_step(
+    const float* __restrict__ h_att, const float* __restrict__ cum,
+    const ST* __restrict__ memory, const ST* __restrict__ mtb,
+    const float* __restrict__ mask_add, const bf16* __restrict__ wq,
+    const bf16* __restrict__ lc, const float* __restrict__ v,
+    float* __restrict__ ctx_out, float* __restrict__ cum_out,
+    bf16* __restrict__ ctx_row, int ld_row, int B, int T, int H, int A,
+    int M, int K, const FwdArgs<bf16>& fa, const StreamScales<bf16>& sc,
+    const StreamPlan& plan) {
+  constexpr bool Q8 = std::is_same<ST, int8_t>::value, LS = KIND == ATT_LS;
+  extern __shared__ __align__(16) uint8_t lsa_smem[];
+  const LsaStagedLayout L(T, H, A, M, sizeof(ST), LS, plan);
+  uint64_t* mt_bars = reinterpret_cast<uint64_t*>(lsa_smem + L.bars);
+  uint64_t* mem_bars = mt_bars + LSA_RING;
+  bf16* s_wq = reinterpret_cast<bf16*>(lsa_smem + L.wq);      // [kq][ld]
+  bf16* s_h = reinterpret_cast<bf16*>(lsa_smem + L.h);        // [ROWS][ldh]
+  float* s_qp = reinterpret_cast<float*>(lsa_smem + L.qp);    // [ROWS][A]
+  float* s_q = reinterpret_cast<float*>(lsa_smem + L.q);      // [A]
+  float* s_v = reinterpret_cast<float*>(lsa_smem + L.v);      // [A]
+  float* s_mts = reinterpret_cast<float*>(lsa_smem + L.mts);  // [A]
+  bf16* s_lc = reinterpret_cast<bf16*>(lsa_smem + L.lc);      // [32][ld]
+  bf16* s_cum = reinterpret_cast<bf16*>(lsa_smem + L.cum);    // [tpad + 32]
+  float* s_prev = reinterpret_cast<float*>(lsa_smem + L.cum); // [T]
+  float* s_e = reinterpret_cast<float*>(lsa_smem + L.e);      // [tpad]
+  float* s_red = reinterpret_cast<float*>(lsa_smem + L.red);  // [64]
+  float* s_tanh = reinterpret_cast<float*>(lsa_smem + L.tanh_tab);
+  float* s_cpart = reinterpret_cast<float*>(lsa_smem + L.cpart);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int b = blockIdx.x, row0 = b - rank;
+  const bool live = b < B;
+  const int half = (K - 1) / 2;
+  const uint8_t* mem_b =
+      reinterpret_cast<const uint8_t*>(memory + (size_t)b * T * M);
+  const uint8_t* mtb_b =
+      reinterpret_cast<const uint8_t*>(mtb + (size_t)b * T * A);
+  const int n_mt = L.mt.tiles(T), n_mem = L.mem.tiles(T);
+
+  // 0. the rings' mbarriers
+  if (warp == 0 && live) {
+    if (lane == 0) {
+      for (int i = 0; i < 2 * LSA_RING; ++i) mbar_init(mt_bars + i, 32);
+      mbar_init_fence();
+      fence_proxy_async();
+    }
+    __syncwarp();
+  }
+  // this CTA's kq rows of Wq (zero past H) and the cluster's rows of
+  // bf16(h_att) over them (zero past B); lc, cum or prev; v and the scales
+  const int k_lo = rank * L.kq, a_chunks = A / 8;
+  for (int i = tid; i < L.kq * a_chunks; i += LSA_THREADS) {
+    const int r = i / a_chunks, c = (i - r * a_chunks) * 8, k = k_lo + r;
+    cp_async16(s_wq + r * L.ld + c, k < H ? wq + (size_t)k * A + c : wq,
+               k < H ? 16 : 0);
+  }
+  if (!LS && live)
+    for (int t = tid; t < T; t += LSA_THREADS)
+      cp_async4(s_prev + t, cum + (size_t)b * T + t);
+  cp_async_commit();
+#pragma unroll 4
+  for (int i = tid; i < LSA_ROWS * L.kq; i += LSA_THREADS) {
+    const int r = i / L.kq, k = i - r * L.kq;
+    const int row = row0 + r, kk = k_lo + k;
+    s_h[r * L.ldh + k] = __float2bfloat16(
+        row < B && kk < H ? h_att[(size_t)row * H + kk] : 0.0f);
+  }
+  if (LS && live) {
+    band_stage_lc_grouped(s_lc, L.ld, lc, K, A);
+    band_stage_cum(s_cum, L.tpad + BAND_K, cum + (size_t)b * T, 0, half, T);
+  }
+  for (int a = tid; a < A; a += LSA_THREADS) {
+    s_v[a] = v[a];
+    if (Q8) s_mts[a] = to_float(sc.mt[a]);
+  }
+  if (live) tanh_table_fill(s_tanh);
+  // the transition agent's h_att and x terms, which need nothing the step
+  // computes (ctx . wc follows in the context's column loop)
+  float lin = 0.0f;
+  if (KIND == ATT_FWD_TRANS && live) {
+#pragma unroll 4
+    for (int k = tid; k < H; k += LSA_THREADS)
+      lin = fmaf(round_bf16(h_att[(size_t)b * H + k]), to_float(fa.wq[k]),
+                 lin);
+    for (int p = tid; p < fa.P; p += LSA_THREADS)
+      lin = fmaf(round_bf16(fa.x[(size_t)b * fa.P + p]), to_float(fa.wx[p]),
+                 lin);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the memory transform's first tiles on their way while the query and
+  // the cluster exchange run; issued once Wq's slice has landed (issued
+  // ahead of it, they delayed its fetch: PERF.md)
+  if (warp == 0 && live)
+    for (int j = 0; j < min(L.mt.stages, n_mt); ++j)
+      ring_issue(lsa_smem, mt_bars, L.mt, mtb_b, T, j, lane);
+
+  // 1. the query's partial over this CTA's slice of H, rows g < 8
+  for (int n0 = warp * 8; n0 < A; n0 += LSA_WARPS * 8) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int kk = 0; kk < L.kq; kk += 32) {
+      uint32_t bq[4], a[4];
+      ldsm_x4_trans(bq, s_wq + (kk + lane) * L.ld + n0);
+      const bf16* hr = s_h + g * L.ldh + kk + 2 * qd;
+      a[1] = a[3] = 0u;
+      a[0] = *reinterpret_cast<const uint32_t*>(hr);
+      a[2] = *reinterpret_cast<const uint32_t*>(hr + 8);
+      mma_bf16(acc, a, bq);
+      a[0] = *reinterpret_cast<const uint32_t*>(hr + 16);
+      a[2] = *reinterpret_cast<const uint32_t*>(hr + 24);
+      mma_bf16(acc, a, bq + 2);
+    }
+    s_qp[g * A + n0 + 2 * qd] = acc[0];
+    s_qp[g * A + n0 + 2 * qd + 1] = acc[1];
+  }
+  // Wq's slice and h_att's rows are read: the memory's first tiles over them
+  __syncthreads();
+  if (warp == 0 && live)
+    for (int j = 0; j < min(L.mem.stages, n_mem); ++j)
+      ring_issue(lsa_smem, mem_bars, L.mem, mem_b, T, j, lane);
+  cluster_sync();
+  for (int a = tid; a < A; a += LSA_THREADS) {
+    float sum = 0.0f;
+    for (int j = 0; j < LSA_ROWS; ++j)
+      sum += cluster_peer(s_qp, j)[rank * A + a];
+    s_q[a] = round_bf16(sum);
+  }
+  // the peers' partials are read: they may exit once this CTA has too
+  cluster_arrive();
+  __syncthreads();
+
+  if (live) {
+    // 2. energies, a tile of the memory transform's ring at a time
+    const int nch = A / 8;
+    int lpr = 1;
+    while (lpr < nch && lpr < 32) lpr <<= 1;
+    const int sub = lane & (lpr - 1);
+    float qr[8], vr[8], sr[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bool own = !LS && sub < nch;
+      qr[i] = own ? s_q[8 * sub + i] : 0.0f;
+      vr[i] = own ? s_v[8 * sub + i] : 0.0f;
+      sr[i] = own && Q8 ? s_mts[8 * sub + i] : 0.0f;
+    }
+    const float* mk = mask_add + (size_t)b * T;
+    for (int j = 0; j < n_mt; ++j) {
+      ring_wait(mt_bars, L.mt, j);
+      const ST* tile =
+          reinterpret_cast<const ST*>(ring_tile(lsa_smem, L.mt, mtb_b, j));
+      const int lo = j * L.mt.tile;
+      if constexpr (LS)
+        staged_band_energies(s_e, tile, lo, min(L.tpad, lo + L.mt.tile),
+                             s_cum, s_lc, L.ld, s_q, s_v, s_mts, s_tanh, mk,
+                             T, A);
+      else
+        staged_fwd_energies(s_e, tile, lo, min(T, lo + L.mt.tile), A, qr,
+                            vr, sr, s_q, s_v, s_mts, s_tanh, lpr);
+      __syncthreads();
+      if (warp == 0 && j + L.mt.stages < n_mt)
+        ring_issue(lsa_smem, mt_bars, L.mt, mtb_b, T, j + L.mt.stages,
+                   lane);
+    }
+
+    // 3. softmax, its max and sum in one block reduction; ls: cum' = cum
+    // + w; the forward family: the recurrence, the mask, the floor and the
+    // renorm, state w.  s_e <- bf16(w)
+    float mx = -CUDART_INF_F, sum = 0.0f;
+    for (int t = tid; t < T; t += LSA_THREADS) mx = fmaxf(mx, s_e[t]);
+    if (mx != -CUDART_INF_F)
+      for (int t = tid; t < T; t += LSA_THREADS) sum += expf(s_e[t] - mx);
+    block_softmax_stats(mx, sum, s_red);
+    const float* cum_b = cum + (size_t)b * T;
+    if (LS) {
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float wt = expf(s_e[t] - mx) / sum;
+        cum_out[(size_t)b * T + t] = cum_b[t] + wt;
+        s_e[t] = round_bf16(wt);
+      }
+    } else {
+      const float tp = KIND == ATT_FWD_TRANS ? fa.tp_in[b] : 0.0f;
+      float wsum = 0.0f;
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float energy = expf(s_e[t] - mx) / sum;
+        const float prev = s_prev[t];
+        const float sh = t > 0 ? round_bf16(s_prev[t - 1]) : 0.0f;
+        const float comb = KIND == ATT_FWD_TRANS
+                               ? (1.0f - tp) * prev + tp * sh
+                               : prev + sh;
+        float wt = mk[t] > -0.5f ? comb * energy : 0.0f;
+        wt = fmaxf(wt, 1e-6f);
+        s_e[t] = wt;
+        wsum += wt;
+      }
+      wsum = block_reduce<false>(wsum, s_red);
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float wt = s_e[t] / wsum;
+        cum_out[(size_t)b * T + t] = wt;
+        s_e[t] = round_bf16(wt);
+      }
+    }
+    __syncthreads();
+
+    // 4. context from the memory's ring: CtxScheme's slots (group, chunk
+    // column) over the chunks of a tile (whole periods), each slot's sums
+    // over the tiles in order, then the groups' and the period's rows in a
+    // fixed order (ctx_column); int8 streams scaled after the sum.  A
+    // thread holds its slot's sums in registers; past LSA_THREADS slots (a
+    // memory row of more than LSA_THREADS chunks) a thread's further slots
+    // keep theirs in the scratch between tiles
+    constexpr int V = 16 / sizeof(ST);
+    const int P = L.cs.period, C = L.cs.chunks, G = L.cs.groups, PM = P * M;
+    const CtxSlot own(tid, C, M, V);
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+    for (int j = 0; j < n_mem; ++j) {
+      ring_wait(mem_bars, L.mem, j);
+      const ST* tile =
+          reinterpret_cast<const ST*>(ring_tile(lsa_smem, L.mem, mem_b, j));
+      const int lo = j * L.mem.tile, rows = min(L.mem.tile, T - lo);
+      const bool vec = ((uintptr_t)tile & 15) == 0;
+      if (tid < G * C)
+        staged_ctx_tile<ST>(acc, tile, s_e + lo, rows, M, P, G, own, vec);
+      for (int slot = tid + LSA_THREADS; slot < G * C;
+           slot += LSA_THREADS) {
+        float* part = s_cpart + (slot / C) * PM + V * (slot % C);
+        float more[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) more[i] = j > 0 ? part[i] : 0.0f;
+        staged_ctx_tile<ST>(more, tile, s_e + lo, rows, M, P, G,
+                            CtxSlot(slot, C, M, V), vec);
+#pragma unroll
+        for (int i = 0; i < V; ++i) part[i] = more[i];
+      }
+      __syncthreads();
+      if (warp == 0 && j + L.mem.stages < n_mem)
+        ring_issue(lsa_smem, mem_bars, L.mem, mem_b, T, j + L.mem.stages,
+                   lane);
+    }
+    if (tid < G * C) {
+      float* part = s_cpart + (tid / C) * PM + V * (tid % C);
+#pragma unroll
+      for (int i = 0; i < V; ++i) part[i] = acc[i];
+    }
+    __syncthreads();
+    for (int m = tid; m < M; m += LSA_THREADS) {
+      float ctx = ctx_column(L.cs, s_cpart, M, m);
+      if (Q8) ctx *= sc.mem[m];
+      ctx_out[(size_t)b * M + m] = ctx;
+      if (ctx_row != nullptr)
+        ctx_row[(size_t)b * ld_row + m] = __float2bfloat16(ctx);
+      if (KIND == ATT_FWD_TRANS)
+        lin = fmaf(round_bf16(ctx), to_float(fa.wc[m]), lin);
+    }
+    if (KIND == ATT_FWD_TRANS) {
+      // 5. the agent's one block sum over [bf16(ctx) | bf16(h_att) |
+      // bf16(x)] . [wc | wq | wx]
+      lin = block_reduce<false>(lin, s_red);
+      if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + fa.bias[0])));
+    }
+  }
+  cluster_wait();
+}
+
 template <int KIND, class CT, class ST>
 __global__ void __launch_bounds__(LSA_THREADS)
 lsa_attention_kernel(const float* __restrict__ h_att,
@@ -481,7 +1224,14 @@ lsa_attention_kernel(const float* __restrict__ h_att,
                      const float* __restrict__ v, float* __restrict__ ctx_out,
                      float* __restrict__ cum_out, CT* __restrict__ ctx_row,
                      int ld_row, int B, int T, int H, int A, int M, int K,
-                     int vec, FwdArgs<CT> fa, StreamScales<CT> sc) {
+                     int vec, FwdArgs<CT> fa, StreamScales<CT> sc,
+                     StreamPlan plan) {
+  if constexpr (lsa_staged<KIND, CT, ST>()) {
+    lsa_staged_step<KIND, ST>(h_att, cum, memory, mtb, mask_add, wq, lc, v,
+                              ctx_out, cum_out, ctx_row, ld_row, B, T, H, A,
+                              M, K, fa, sc, plan);
+    return;
+  }
   constexpr bool F32 = std::is_same<CT, float>::value;
   constexpr bool Q8 = std::is_same<ST, int8_t>::value;
   constexpr int VC = 16 / sizeof(CT);   // CT elements a 16-byte chunk
@@ -721,6 +1471,34 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   cluster_wait();
 }
 
+// the forward family's staged instances on bf16 streams declared at two
+// CTAs an SM (at most 128 registers a thread): under the template's bound
+// alone ptxas held them to 64 registers and spilled
+#define LSA_STAGED_PARAMS(ST)                                               \
+  const float* __restrict__ h_att, const float* __restrict__ cum,           \
+      const ST* __restrict__ memory, const ST* __restrict__ mtb,            \
+      const float* __restrict__ mask_add, const bf16* __restrict__ wq,      \
+      const bf16* __restrict__ lc, const float* __restrict__ v,             \
+      float* __restrict__ ctx_out, float* __restrict__ cum_out,             \
+      bf16* __restrict__ ctx_row, int ld_row, int B, int T, int H, int A,   \
+      int M, int K, int vec, FwdArgs<bf16> fa, StreamScales<bf16> sc,       \
+      StreamPlan plan
+#define LSA_STAGED_ARGS                                                     \
+  h_att, cum, memory, mtb, mask_add, wq, lc, v, ctx_out, cum_out, ctx_row,  \
+      ld_row, B, T, H, A, M, K, fa, sc, plan
+
+template <>
+__global__ void __launch_bounds__(LSA_THREADS, 2)
+lsa_attention_kernel<ATT_FWD, bf16, bf16>(LSA_STAGED_PARAMS(bf16)) {
+  lsa_staged_step<ATT_FWD, bf16>(LSA_STAGED_ARGS);
+}
+
+template <>
+__global__ void __launch_bounds__(LSA_THREADS, 2)
+lsa_attention_kernel<ATT_FWD_TRANS, bf16, bf16>(LSA_STAGED_PARAMS(bf16)) {
+  lsa_staged_step<ATT_FWD_TRANS, bf16>(LSA_STAGED_ARGS);
+}
+
 // the operands of one attention launch, untyped
 struct AttCall {
   const void *h_att, *cum, *memory, *mtb, *mask_add, *wq, *lc, *v;
@@ -731,13 +1509,27 @@ struct AttCall {
   const void *x, *wc, *wq_t, *wx, *bias;
   int P;
   const void *mem_scale, *mt_scale;
+  StreamPlan plan;
   cudaStream_t stream;
 };
 
+// the dynamic shared memory of the instance's launch; 0 for a plan the
+// staged instances do not take
+template <int KIND, class CT, class ST>
+size_t att_smem(const AttCall& c) {
+  if constexpr (lsa_staged<KIND, CT, ST>()) {
+    const LsaStagedLayout L(c.T, c.H, c.A, c.M, sizeof(ST), KIND == ATT_LS,
+                            c.plan);
+    return L.ok(c.plan) ? L.total : 0;
+  }
+  return LsaLayout(c.T, c.H, c.A, c.M, sizeof(CT), sizeof(ST),
+                   KIND == ATT_LS).total;
+}
+
 template <int KIND, class CT, class ST>
 cudaError_t att_run(const AttCall& c) {
-  const LsaLayout L(c.T, c.H, c.A, c.M, sizeof(CT), sizeof(ST),
-                    KIND == ATT_LS);
+  const size_t smem = att_smem<KIND, CT, ST>(c);
+  if (smem == 0) return cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(ST);
   const int vec = (uintptr_t)c.memory % 16 == 0 &&
                   ((long long)c.T * c.M) % V == 0;
@@ -747,18 +1539,49 @@ cudaError_t att_run(const AttCall& c) {
                        (const CT*)c.wx, (const float*)c.bias, c.P};
   const StreamScales<CT> sc{(const float*)c.mem_scale, (const CT*)c.mt_scale};
   return launch_cluster(
-      lsa_attention_kernel<KIND, CT, ST>, grid, LSA_THREADS, L.total,
+      lsa_attention_kernel<KIND, CT, ST>, grid, LSA_THREADS, smem,
       LSA_ROWS, c.stream, (const float*)c.h_att, (const float*)c.cum,
       (const ST*)c.memory, (const ST*)c.mtb, (const float*)c.mask_add,
       (const CT*)c.wq, (const CT*)c.lc, (const float*)c.v,
       (float*)c.ctx_out, (float*)c.cum_out, (CT*)c.ctx_row, c.ld_row, c.B,
-      c.T, c.H, c.A, c.M, c.K, vec, fa, sc);
+      c.T, c.H, c.A, c.M, c.K, vec, fa, sc, c.plan);
+}
+
+// the launch's clusters that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error
+template <int KIND, class CT, class ST>
+int att_clusters(const AttCall& c) {
+  const size_t smem = att_smem<KIND, CT, ST>(c);
+  if (smem == 0) return -(int)cudaErrorInvalidValue;
+  const cudaError_t opt_in = opt_in_smem(lsa_attention_kernel<KIND, CT, ST>);
+  if (opt_in != cudaSuccess) return -(int)opt_in;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = LSA_ROWS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((c.B + LSA_ROWS - 1) / LSA_ROWS * LSA_ROWS);
+  cfg.blockDim = dim3(LSA_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, (void*)lsa_attention_kernel<KIND, CT, ST>, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <int KIND, class CT, class ST>
+int att_call(const AttCall& c, bool clusters) {
+  return clusters ? att_clusters<KIND, CT, ST>(c)
+                  : (int)att_run<KIND, CT, ST>(c);
 }
 
 // the instance of KIND for the compute type (f32) and the streams (int8
 // when the scales are given)
 template <int KIND>
-int att_dispatch(const AttCall& c, int f32) {
+int att_dispatch(const AttCall& c, int f32, bool clusters = false) {
   const bool q8 = c.mem_scale != nullptr;
   // the float32 location-sensitive instances read float32 mtb in pairs and
   // copy lc in 16-byte chunks into swizzled rows (A a multiple of 16)
@@ -767,12 +1590,13 @@ int att_dispatch(const AttCall& c, int f32) {
       c.M <= 0 || c.A <= 0 || c.A % 8 != 0 || (uintptr_t)c.wq % 16 != 0 ||
       (uintptr_t)c.mtb % (q8 ? 2 : f32_ls ? 8 : 4) != 0 ||
       (f32_ls && (c.A % 16 != 0 || (uintptr_t)c.lc % 16 != 0)))
-    return (int)cudaErrorInvalidValue;
+    return clusters ? -(int)cudaErrorInvalidValue
+                    : (int)cudaErrorInvalidValue;
   if (f32)
-    return (int)(q8 ? att_run<KIND, float, int8_t>(c)
-                    : att_run<KIND, float, float>(c));
-  return (int)(q8 ? att_run<KIND, bf16, int8_t>(c)
-                  : att_run<KIND, bf16, bf16>(c));
+    return q8 ? att_call<KIND, float, int8_t>(c, clusters)
+              : att_call<KIND, float, float>(c, clusters);
+  return q8 ? att_call<KIND, bf16, int8_t>(c, clusters)
+            : att_call<KIND, bf16, bf16>(c, clusters);
 }
 
 struct GateArgs {
@@ -882,19 +1706,24 @@ int gate_lstm_launch(const void* s0, int k0, const void* s1, int k1,
 // context.  A multiple of 8, K <= 32 taps, Wq 16-byte aligned.  f32: the
 // float32 instance (h_att, cum as ever; Wq, lc in float32); mem_scale and
 // mt_scale given: int8 memory and mtb, mem_scale [M] float32, mt_scale [A]
-// in the compute type.
+// in the compute type.  mt_tile, mt_stages, mem_tile, mem_stages: the
+// staged instances' rings (StreamPlan; ops/fused_decoder.py
+// att_stream_tiles), which the others ignore.
 int lsa_attention_launch(const void* h_att, const void* cum,
                          const void* memory, const void* mtb,
                          const void* mask_add, const void* wq, const void* lc,
                          const void* v, void* ctx_out, void* cum_out,
                          void* ctx_row, int ld_row, int B, int T, int H,
                          int A, int M, int K, int f32, const void* mem_scale,
-                         const void* mt_scale, void* stream) {
+                         const void* mt_scale, int mt_tile, int mt_stages,
+                         int mem_tile, int mem_stages, void* stream) {
   if (K < 1 || K > BAND_K) return (int)cudaErrorInvalidValue;
   const AttCall c{h_att, cum, memory, mtb, mask_add, wq, lc, v, ctx_out,
                   cum_out, ctx_row, ld_row, B, T, H, A, M, K, nullptr,
                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
-                  mem_scale, mt_scale, (cudaStream_t)stream};
+                  mem_scale, mt_scale,
+                  {mt_tile, mt_stages, mem_tile, mem_stages},
+                  (cudaStream_t)stream};
   return att_dispatch<ATT_LS>(c, f32);
 }
 
@@ -902,8 +1731,8 @@ int lsa_attention_launch(const void* h_att, const void* cum,
 // the new ones (not in place); with the transition agent (trans = 1) tp_in
 // and tp_out [B] (not in place), x [B, P] the prenet output, the agent's
 // weight parts wc [Mem], wq_t [H], wx [P] in the compute type and its
-// bias [1].  ctx_row, the alignments, f32 and the int8 streams as
-// lsa_attention_launch's.
+// bias [1].  ctx_row, the alignments, f32, the int8 streams and the rings
+// as lsa_attention_launch's.
 int fwd_attention_launch(const void* h_att, const void* prev,
                          const void* tp_in, const void* memory,
                          const void* mtb, const void* mask_add,
@@ -913,7 +1742,8 @@ int fwd_attention_launch(const void* h_att, const void* prev,
                          void* tp_out, void* ctx_row, int ld_row, int B,
                          int T, int H, int A, int M, int P, int trans,
                          int f32, const void* mem_scale, const void* mt_scale,
-                         void* stream) {
+                         int mt_tile, int mt_stages, int mem_tile,
+                         int mem_stages, void* stream) {
   if (trans && (P <= 0 || tp_in == nullptr || tp_out == nullptr ||
                 x == nullptr || wc == nullptr || wq_t == nullptr ||
                 wx == nullptr || bias == nullptr))
@@ -921,9 +1751,29 @@ int fwd_attention_launch(const void* h_att, const void* prev,
   const AttCall c{h_att, prev, memory, mtb, mask_add, wq, nullptr, v,
                   ctx_out, w_out, ctx_row, ld_row, B, T, H, A, M, 1, tp_in,
                   tp_out, x, wc, wq_t, wx, bias, P, mem_scale, mt_scale,
+                  {mt_tile, mt_stages, mem_tile, mem_stages},
                   (cudaStream_t)stream};
   return trans ? att_dispatch<ATT_FWD_TRANS>(c, f32)
                : att_dispatch<ATT_FWD>(c, f32);
+}
+
+// the clusters of one attention launch (kind 0 location-sensitive, 1
+// forward, 2 with the transition agent; f32, q8 and the rings as the
+// launchers take them) that the card holds at once, or minus a CUDA error
+int attention_clusters(int kind, int f32, int q8, int B, int T, int H,
+                       int A, int M, int mt_tile, int mt_stages,
+                       int mem_tile, int mem_stages) {
+  // null operands pass the launchers' checks; the scales only mark q8
+  static const float mark = 0.0f;
+  const void* scale = q8 ? &mark : nullptr;
+  const AttCall c{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, 0, B, T, H,
+                  A, M, 1, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, 0, scale, scale,
+                  {mt_tile, mt_stages, mem_tile, mem_stages}, nullptr};
+  return kind == ATT_LS  ? att_dispatch<ATT_LS>(c, f32, true)
+         : kind == ATT_FWD ? att_dispatch<ATT_FWD>(c, f32, true)
+                           : att_dispatch<ATT_FWD_TRANS>(c, f32, true);
 }
 
 // the head row [B, K] (rows of ld_row in the compute type) against the head

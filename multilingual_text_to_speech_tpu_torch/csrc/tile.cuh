@@ -385,6 +385,61 @@ __device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
   }
 }
 
+// Hopper's bulk asynchronous copy (the TMA's 1-D form) into a CTA's own
+// shared memory, counted on an mbarrier of that CTA: an mbarrier of
+// `count` arrivals a phase (mbar_init; its init visible to the copies
+// through fence_proxy_async), one arrival that also expects `bytes` of
+// copies (mbar_arrive_expect), plain arrivals (mbar_arrive), the copy of
+// `bytes` (a multiple of 16) from `gmem` to `smem`, both 16-byte aligned
+// (bulk_copy_g2s), and the wait for a phase of a given parity
+// (mbar_wait_parity).  A slot that the CTA's threads read is copied into
+// again only after a barrier that follows those reads and a
+// fence_proxy_async by the thread that issues the copy.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem,
+                                              uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the phase of `bar` of this parity complete (traps rather than hang)
+__device__ __forceinline__ void mbar_wait_parity(uint64_t* bar,
+                                                 uint32_t parity) {
+  uint32_t done;
+  for (int spins = 0;; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (spins > (1 << 22)) __trap();
+  }
+}
+
 // x, or the pair (x, y), at `dst` (dsmem_addr) of the peer whose mbarrier
 // is at `bar` (dsmem_addr)
 __device__ __forceinline__ void st_async(uint32_t dst, float x,

@@ -79,6 +79,7 @@ the plain version on any device and is what the kernels are held against.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -540,9 +541,12 @@ _SIGNATURES = {
                       _F, _I, _I, _I, _I, _P],
     "gate_lstm_launch": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P,
                          _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _P],
-    "lsa_attention_launch": [_P] * 11 + [_I] * 8 + [_P] * 3,
-    "fwd_attention_launch": [_P] * 17 + [_I] * 9 + [_P] * 3,
+    "lsa_attention_launch": [_P] * 11 + [_I] * 8 + [_P] * 2 + [_I] * 4
+    + [_P],
+    "fwd_attention_launch": [_P] * 17 + [_I] * 9 + [_P] * 2 + [_I] * 4
+    + [_P],
     "head_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P],
+    "attention_clusters": [_I] * 12,
 }
 _LIB = None
 
@@ -766,6 +770,68 @@ def gate_lstm(segments, h, c, bundle, which, zoneout_h, zoneout_c,
     return h_new, c_new
 
 
+# the staged attention instances' rings (csrc/fused_decoder.cu
+# StreamPlan: bf16 compute on int8 streams, and the forward family on bf16
+# streams): bytes of the memory transform's ring and of the memory's, and
+# their slots at most
+_MT_RING_BYTES, _MT_SLOTS = 32 * 1024, 2
+_MEM_RING_BYTES, _MEM_SLOTS = 56 * 1024, 3
+
+
+def ctx_period(mem_dim: int, stream_bytes: int) -> int:
+    """The rows a period of the context's 16-byte chunk scheme
+    (``csrc/tile.cuh`` CtxScheme): a row of ``mem_dim`` elements of
+    ``stream_bytes`` is 16-byte aligned every that many rows."""
+    v = 16 // stream_bytes
+    return v // math.gcd(mem_dim, v)
+
+
+def att_stream_tiles(t: int, a: int, mem_dim: int, stream_bytes: int
+                     ) -> Tuple[int, int, int, int]:
+    """``(mt_tile, mt_stages, mem_tile, mem_stages)``: the positions a tile
+    and the slots of the rings in which the staged attention instances
+    copy a row's memory transform ([T, A]) and memory ([T, Mem]) streams of
+    ``stream_bytes`` an element into shared memory (the launchers take a
+    plan for every instance; the unstaged ones, float32 streams among
+    them, ignore it).  The memory
+    transform's tiles are whole 16-position mma tiles, as many as fill half
+    its ring's bytes (128 positions of int8 at A=128, 64 of bf16), in up to
+    two slots; the memory's whole periods of the context's chunks
+    (``ctx_period``), as many as fill a third of its ring's (64 positions
+    of an int8 row of 292 bytes, 32 of bf16), in up to three.  Tile ``j``
+    covers the positions ``[j * tile, min(T, (j + 1) * tile))`` and takes
+    slot ``j % stages``."""
+    if min(t, a, mem_dim) < 1 or stream_bytes not in (1, 2, 4):
+        raise ValueError("att_stream_tiles: T, A, Mem >= 1 and streams of "
+                         "1, 2 or 4 bytes")
+    cdiv = _splitk._cdiv
+    mt_rows = _MT_RING_BYTES // _MT_SLOTS // (a * stream_bytes)
+    mt_tile = min(cdiv(t, 16) * 16, max(16, mt_rows // 16 * 16))
+    period = ctx_period(mem_dim, stream_bytes)
+    mem_rows = _MEM_RING_BYTES // _MEM_SLOTS // (mem_dim * stream_bytes)
+    mem_tile = min(cdiv(t, period) * period,
+                   max(period, mem_rows // period * period))
+    return (mt_tile, min(_MT_SLOTS, cdiv(t, mt_tile)), mem_tile,
+            min(_MEM_SLOTS, cdiv(t, mem_tile)))
+
+
+def attention_clusters(att_kind: str, dtype: torch.dtype, q_streams: bool,
+                       b: int, t: int, hidden: int, a: int,
+                       mem_dim: int) -> int:
+    """The clusters of 8 CTAs of one K1 attention launch (``lsa_attention``
+    or ``fwd_attention``, ``att_kind`` "ls", "fwd" or "fwd_trans") at
+    these shapes that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); the launch has ceil(B / 8)."""
+    kind = {"ls": 0, "fwd": 1, "fwd_trans": 2}[att_kind]
+    ss = 1 if q_streams else torch.empty(0, dtype=dtype).element_size()
+    n = _lib().attention_clusters(
+        kind, int(dtype == torch.float32), int(q_streams), b, t, hidden, a,
+        mem_dim, *att_stream_tiles(t, a, mem_dim, ss))
+    if n < 0:
+        raise RuntimeError(f"attention_clusters: CUDA error {-n}")
+    return n
+
+
 def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle, ctx_row=None,
                   out=None):
     """Kernel ``lsa_attention`` (see ``lsa_attention_plain``).  ``ctx_row``
@@ -788,7 +854,9 @@ def lsa_attention(h_att, cum, memory, mtb, mask_add, bundle, ctx_row=None,
         _ptr(bundle.wq), _ptr(bundle.lc), _ptr(bundle.v), _ptr(ctx),
         _ptr(cum_new), _ptr(ctx_row), ld_row, b, t, h_att.shape[1],
         bundle.wq.shape[1], mem_dim, bundle.lc.shape[0], f32,
-        _ptr(mem_scale), _ptr(mt_scale), _stream())
+        _ptr(mem_scale), _ptr(mt_scale),
+        *att_stream_tiles(t, bundle.wq.shape[1], mem_dim, mem.element_size()),
+        _stream())
     _launched(instance("lsa_attention", bundle.dtype, _q8(bundle)), err)
     return ctx, cum_new
 
@@ -834,7 +902,9 @@ def fwd_attention(h_att, prev, t_prob, memory, mtb, mask_add, x, bundle,
         *(_ptr(a) for a in agent[1:]), _ptr(ctx), _ptr(w), _ptr(tp),
         _ptr(ctx_row), ld_row, b, t, h_att.shape[1], bundle.wq.shape[1],
         mem_dim, bundle.pre_dims[1], int(trans), f32, _ptr(mem_scale),
-        _ptr(mt_scale), _stream())
+        _ptr(mt_scale),
+        *att_stream_tiles(t, bundle.wq.shape[1], mem_dim, mem.element_size()),
+        _stream())
     _launched(instance("fwd_attention", bundle.dtype, _q8(bundle)), err)
     return ctx, w, tp
 

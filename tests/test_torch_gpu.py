@@ -367,25 +367,29 @@ def _q8_operands(b, t, mem_dim, dtype, seed):
     return mem_q, mtb_q, mask, mask_add, gen
 
 
-@pytest.mark.parametrize("b", [1, 37, 240])
-@pytest.mark.parametrize("mem_dim", [292, 548])
-@pytest.mark.parametrize("t", [1, 17, 45, 128, 600])
+@pytest.mark.parametrize("b", [1, 7, 37, 240])
+@pytest.mark.parametrize("mem_dim", [288, 292, 548])
+@pytest.mark.parametrize("t", [1, 7, 16, 17, 45, 120, 128, 129, 600, 1500])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["ls", "forward", "forward_transition_agent"])
 def test_attention_on_int8_streams_matches_plain(kind, dtype, t, mem_dim, b,
                                                  _full_f32):
     """``lsa_attention`` and ``fwd_attention`` (both kinds) on int8 memory
-    and memory-transform streams, bf16 and float32 (the query, and the
-    location-sensitive band, in three TF32 passes), at the flagship's 292-
-    and the shared strategy's 548-wide memory (int8 rows of 292 and 548
-    bytes, not multiples of 16), B=1, 37 and 240, T from 1 to 600: in
+    and memory-transform streams, bf16 (the staged instances: the streams'
+    rings of tiles, ``att_stream_tiles``) and float32 (the query, and the
+    location-sensitive band, in three TF32 passes), at the separate
+    strategy's 288-, the flagship's 292- and the shared strategy's
+    548-wide memory (int8 rows of 292 and 548 bytes are not multiples of
+    16: at T=1 and 7 a row's tiles start off a 16-byte boundary, their
+    ragged heads and tails copied by the threads), B=1, 7, 37 and 240, T
+    from 1 to 1500 (T=1500 runs the rings' slots round several times): in
     float32 the context, weights and t_prob within F32_TOL of their
     largest (the location-sensitive weights, read back as cum' - cum, past
     T = 128 plus that subtraction's rounding, ``_cum_slack``); in bf16 the
     context within CTX_TOL, the weights within W_TOL of each row's largest,
     t_prob within ATOL; one launch of the ``_q8`` instance; a second run
     bit-identical."""
-    from chip_smoke import CTX_TOL, W_TOL
+    from chip_smoke import CTX_TOL, ULP, W_TOL
 
     mem_q, mtb_q, mask, mask_add, gen = _q8_operands(b, t, mem_dim, dtype,
                                                      seed=t + mem_dim)
@@ -433,7 +437,17 @@ def test_attention_on_int8_streams_matches_plain(kind, dtype, t, mem_dim, b,
             if r is not None:
                 _f32_close(g, r, slack=slack if i == 1 else 0.0)
         return
-    torch.testing.assert_close(got[0], ref[0], atol=CTX_TOL, rtol=CTX_TOL)
+    # one bf16 rounding of a context product (an int8 code of up to 127
+    # times its weight) that flips where a kernel's softmax sums in another
+    # order than the plain one moves the context by 2^-8 of that product
+    # times its scale: up to 0.0040 where a weight is large (the parent
+    # kernel's too, measured at T=7, E=548, B=240).  The shapes the parent
+    # kernel was held at keep CTX_TOL; the others, added with the staged
+    # instances, are held to one bf16 ulp, ULP
+    parent_grid = (t in (1, 17, 45, 128, 600) and mem_dim in (292, 548)
+                   and b in (1, 37, 240))
+    ctx_atol = CTX_TOL if parent_grid else ULP
+    torch.testing.assert_close(got[0], ref[0], atol=ctx_atol, rtol=CTX_TOL)
     assert float(((got[1] - ref[1]).abs().amax(1)
                   / ref[1].amax(1)).max()) < W_TOL
     if kind == "forward_transition_agent":
@@ -1243,7 +1257,7 @@ def test_train_query_and_head_split_k_match_plain(b, dtype):
 # the attention kernels on the band routine, at the flagship's widths
 # ---------------------------------------------------------------------------
 
-def _attention_operands(b, t, seed):
+def _attention_operands(b, t, seed, mem_dim=_MEM):
     """Random bf16 memory [B, T, Mem] and memory transform [B, T, A], the
     additive mask of random lengths, and a cumulative attention of 1 up to
     a point part way through each text."""
@@ -1252,7 +1266,7 @@ def _attention_operands(b, t, seed):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
 
-    memory = rnd(b, t, _MEM).bfloat16()
+    memory = rnd(b, t, mem_dim).bfloat16()
     mtb = rnd(b, t, _ATT, scale=0.5).bfloat16()
     lengths = torch.randint(max(1, t // 2), t + 1, (b,), device="cuda",
                             generator=gen)
@@ -1790,7 +1804,7 @@ def _fwd_state(b, t, mask, seed):
             0.1 + 0.8 * torch.rand(b, 1, device="cuda", generator=gen))
 
 
-def _fwd_bundle(kind, rnd, int8=True):
+def _fwd_bundle(kind, rnd, int8=True, mem_dim=_MEM):
     bundle = _gate_bundle(int8, sum(_SEGMENTS["att"]), seed=7)
     bundle.att_kind = "fwd" if kind == "forward" else "fwd_trans"
     bundle.wq = rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5).bfloat16()
@@ -1798,46 +1812,58 @@ def _fwd_bundle(kind, rnd, int8=True):
     bundle.v = rnd(_ATT, scale=_ATT ** -0.5)
     bundle.pre_dims = (_MELS, 256, 2)
     if kind != "forward":
-        bundle.ta_wc = rnd(_MEM, scale=_MEM ** -0.5).bfloat16()
+        bundle.ta_wc = rnd(mem_dim, scale=mem_dim ** -0.5).bfloat16()
         bundle.ta_wq = rnd(_HIDDEN, scale=_HIDDEN ** -0.5).bfloat16()
         bundle.ta_wx = rnd(256, scale=256 ** -0.5).bfloat16()
         bundle.ta_b = rnd(1, scale=0.1)
     return bundle
 
 
-@pytest.mark.parametrize("t", [45, 128, 200])
-@pytest.mark.parametrize("b", [1, 37, 240])
+@pytest.mark.parametrize("mem_dim", [292, 288, 548])
+@pytest.mark.parametrize("t", [1, 7, 16, 45, 120, 128, 129, 200, 600, 1500])
+@pytest.mark.parametrize("b", [1, 7, 37, 240])
 @pytest.mark.parametrize("kind", _FAMILY)
-def test_fwd_attention_matches_plain_at_flagship_widths(kind, b, t):
+def test_fwd_attention_matches_plain_at_flagship_widths(kind, b, t,
+                                                        mem_dim):
     """K1 ``fwd_attention`` (``lsa_attention``'s kernel without the
-    location conv) at H=1024, A=128, Mem=292, P=256 against
-    ``fwd_attention_plain``: the context within atol and rtol 2e-3, the
+    location conv; the staged bf16 instance: the streams' rings of tiles)
+    at H=1024, A=128, Mem=292 (and the separate and shared strategies' 288
+    and 548), P=256 against ``fwd_attention_plain``, T from 1 to 1500, B
+    1, 7, 37 and 240: the context within atol and rtol 2e-3, the
     weights within 1e-2 of each row's largest, every row a distribution,
     the floored masked positions, t_prob within 2e-3, the head row's
     context bf16(context), one launch, a second run bit-identical."""
-    from chip_smoke import CTX_TOL, W_TOL
+    from chip_smoke import CTX_TOL, ULP, W_TOL
 
-    rnd, memory, mtb, mask, _ = _attention_operands(b, t, seed=b + t)
-    bundle = _fwd_bundle(kind, rnd)
+    rnd, memory, mtb, mask, _ = _attention_operands(b, t, seed=b + t,
+                                                    mem_dim=mem_dim)
+    bundle = _fwd_bundle(kind, rnd, mem_dim=mem_dim)
     prev, tp = _fwd_state(b, t, mask, seed=b * t)
     tp = tp if kind != "forward" else None
     h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
     mask_add = torch.where(mask, 0.0, -1e9)
-    row = torch.zeros(b, 1344, dtype=torch.bfloat16, device="cuda")
+    row = torch.zeros(b, _HIDDEN + mem_dim + 32, dtype=torch.bfloat16,
+                      device="cuda")
     fd.reset_launch_counts()
     ctx_k, w_k, tp_k = fd.fwd_attention(
         h_att, prev, tp, memory, mtb, mask_add, x, bundle,
-        ctx_row=row[:, _HIDDEN:_HIDDEN + _MEM])
+        ctx_row=row[:, _HIDDEN:_HIDDEN + mem_dim])
     assert fd.LAUNCHES["fwd_attention"] == 1
     again = fd.fwd_attention(h_att, prev, tp, memory, mtb, mask_add, x,
                              bundle)
     ctx_p, w_p, tp_p = fd.fwd_attention_plain(h_att, prev, tp, memory, mtb,
                                               mask_add, x, bundle)
-    torch.testing.assert_close(ctx_k, ctx_p, atol=CTX_TOL, rtol=CTX_TOL)
+    # a flipped bf16 rounding of a context product moves the context by
+    # 2^-8 of it (test_attention_on_int8_streams_matches_plain): the shapes
+    # the parent kernel was held at keep CTX_TOL, the others one bf16 ulp
+    parent_grid = (t in (45, 128, 200) and b in (1, 37, 240)
+                   and mem_dim == _MEM)
+    ctx_atol = CTX_TOL if parent_grid else ULP
+    torch.testing.assert_close(ctx_k, ctx_p, atol=ctx_atol, rtol=CTX_TOL)
     assert float(((w_k - w_p).abs().amax(1) / w_p.amax(1)).max()) < W_TOL
     torch.testing.assert_close(w_k.sum(-1), torch.ones_like(w_k[:, 0]))
     assert float(w_k.min()) > 0.0
-    assert torch.equal(row[:, _HIDDEN:_HIDDEN + _MEM], ctx_k.bfloat16())
+    assert torch.equal(row[:, _HIDDEN:_HIDDEN + mem_dim], ctx_k.bfloat16())
     assert torch.equal(again[0], ctx_k) and torch.equal(again[1], w_k)
     if kind == "forward":
         assert tp_k is None and again[2] is None

@@ -16,6 +16,10 @@ the PyTorch port's CUDA sources, on one NVIDIA GPU.
     python3 tools/torch_kernel_variants.py time train_attention_fam_cluster_barriers
     python3 tools/torch_kernel_variants.py checks train_attention_fam_cluster_barriers_checks train_attention_fam_exit_probe
     python3 tools/torch_kernel_variants.py ab --base PARENT K2fam K1f32 K2 K1
+    python3 tools/torch_kernel_variants.py --root PARENT time lsa_streams_in_smem fwd_no_agent_tail lsa_one_reduction_fewer lsa_step0_all
+    python3 tools/torch_kernel_variants.py time lsa_flagship_staged
+    python3 tools/torch_kernel_variants.py checks lsa_flagship_staged_checks
+    python3 tools/torch_kernel_variants.py ab --base PARENT K1q8 K1fam
 
 Each variant copies ``multilingual_text_to_speech_tpu_torch`` under the
 ignored ``build/variants/<name>/``, replaces pieces of a ``csrc`` source
@@ -71,7 +75,14 @@ left on its own maximum, the transition agent's prologue share of h_att
 left out, the context partials summed before their message lands, and,
 in its cluster-barrier alternative, the exit barrier's arrive moved
 before the last read of a peer; and in K1's float32 location-sensitive
-band on the tensor cores lc's TF32 lo halves dropped; and runs the checks
+band on the tensor cores lc's TF32 lo halves dropped; and in K1's
+staged instances (bf16 compute on int8 streams, the forward family on
+bf16 streams: the streams copied into rings of shared-memory slots by
+bulk copies) each ring's mbarrier wait moved after its tile's reads, the
+context's tiles past the first one position off, a scale pair swapped, the
+softmax's (max, sum) pairs summed without their rescale by exp(m_j - M), the
+transition agent's prologue share of h_att and x dropped, or the ragged
+tail of a tile left uncopied; and runs the checks
 of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
@@ -95,10 +106,11 @@ runs the family's exchanges as cluster barriers and peer reads instead of
 one-way messages, and ``train_attention_fam_exit_probe`` that
 alternative with a CTA's context partials overwritten once its exit wait
 returns (the probe of the fault ``fam_exit_arrive_early``, harmless
-alone).
+alone); ``lsa_flagship_staged_checks`` runs K1's checks with the
+flagship's bf16 location-sensitive instance staged as well.
 
-``ab --base DIR NAME ...`` runs each named timing script (K1, K2, K3,
-K3fam, prenet, gates: those of ``time``) on DIR's package and on the
+``ab --base DIR NAME ...`` runs each named timing script (K1, K1f32,
+K1q8, K1fam, K2, K2fam, K3, K3fam, prenet, gates: those of ``time``) on DIR's package and on the
 checkout's in turns (base, change, change, base), e.g. the parent commit's
 against this one.
 
@@ -134,7 +146,20 @@ float32 attention (``K1f32``: location-sensitive on float32 and int8
 streams, the family's float32 fwd and agent, B=240, T=128, alone and
 the location-sensitive step in a 32-step chunk), on the parent with its
 band (``lsa_f32_no_band``), its query (``lsa_f32_no_query``) or both
-(``lsa_f32_no_products``) left out.
+(``lsa_f32_no_products``) left out; K1's bf16 attention on int8 streams
+(``K1q8``: location-sensitive at the 292- and the 548-wide memory beside
+the flagship's bf16 streams, the family's fwd and agent) and the family's
+bf16 instances (``K1fam``), B=240, T=128, alone, among them
+``lsa_flagship_staged`` (the flagship's instance staged too) and, on the
+parent, the step-0 parts left out (``lsa_streams_in_smem``: both streams
+read from shared memory; ``fwd_no_agent_tail``; ``lsa_one_reduction_fewer``:
+the softmax's max reduction; ``lsa_step0_all``: all three), and the staged
+step with a part left out or changed (``staged_no_waits``,
+``staged_no_ctx``, ``staged_no_energy``, ``staged_small_rings``,
+``staged_cp_async``: the rings filled by cp.async, ``staged_mt_at_start``:
+the memory transform issued ahead of Wq's copy); ``staged_phase_clock``
+(timer ``K1trace``) reads each phase's cycles from each CTA's clock, and
+``parent_phase_clock`` the parent kernel's (``--root PARENT``).
 
 Prints every run and, last, one JSON object of the results, also written
 to ``build/variants/kernel_variants_<mode>.json``.
@@ -295,6 +320,26 @@ _TA_FAM_BARRIER_SPANS = [
      "TA_THREADS)\n    train_attention_kernel(", _TA_FAM_BARRIERS),
 ]
 
+_LSA_STREAMS_IN_SMEM = (
+    "  const ST* mem_b = memory + (size_t)b * T * M;\n"
+    "  const ST* mtb_b = mtb + (size_t)b * T * A;\n",
+    "  const ST* mem_b = reinterpret_cast<const ST*>(s_wq);\n"
+    "  const ST* mtb_b = reinterpret_cast<const ST*>(s_wq);\n")
+_CTX_WRAPPED = [
+    ("chunk_floats(x, *reinterpret_cast<const uint4*>(mem + base), mem);",
+     "chunk_floats(x, *reinterpret_cast<const uint4*>(mem + (base & 8191)),"
+     " mem);"),
+    ("x[j] = base + j < n_el ? to_float(mem[base + j]) : 0.0f;",
+     "x[j] = base + j < n_el ? to_float(mem[(base + j) & 8191]) : 0.0f;")]
+_LSA_NO_AGENT_TAIL = (
+    "    if (KIND == ATT_FWD_TRANS) {\n      // 5. the transition agent",
+    "    if (false) {\n      // 5. the transition agent")
+_LSA_NO_MAX_REDUCTION = ("    mx = block_reduce<true>(mx, s_red);\n", "")
+_FLAGSHIP_STAGED = (
+    "         (std::is_same<ST, int8_t>::value || KIND != ATT_LS);\n",
+    "         true;\n")
+
+
 class Alt(tuple):
     """Alternative spans of one variant: the first whose piece occurs
     exactly once in the source is replaced (so that one variant applies to
@@ -381,11 +426,12 @@ VARIANTS = {
     "fwd_floor_on_padding": (
         "fused_decoder.cu",
         "      float wsum = 0.0f;\n      for (int t = tid; t < T; "
-        "t += LSA_THREADS) {",
+        "t += LSA_THREADS) {\n        const float energy = expf(",
         "      float wsum = 0.0f;\n"
         "      for (int t = T + tid; t < L.tpad; t += LSA_THREADS) "
         "wsum += 1e-6f;\n"
-        "      for (int t = tid; t < T; t += LSA_THREADS) {",
+        "      for (int t = tid; t < T; t += LSA_THREADS) {\n"
+        "        const float energy = expf(",
         "K1:forward"),
     "fwd_bwd_current_tp": (
         "fused_train_decoder.cu",
@@ -640,6 +686,213 @@ VARIANTS = {
           "    for (int m = tid; m < Mem; m += TA_THREADS) "
           "s_ctxp[m] = CUDART_NAN_F;\n  }\n}\n")],
         "K2:forward_transition_agent"),
+    # K1's staged instances (bf16 on int8 streams, the family on bf16
+    # streams): each ring's mbarrier wait moved after its tile's reads; the
+    # context's tiles past the first one position off; a scale pair
+    # swapped; the softmax's (max, sum) pairs summed without their rescale
+    # by exp(m_j - M); the transition agent's prologue share of h_att and x
+    # dropped; the ragged tail of a tile left uncopied
+    "staged_wait_after_read": (
+        "fused_decoder.cu",
+        [("      ring_wait(mt_bars, L.mt, j);\n", ""),
+         ("      __syncthreads();\n      if (warp == 0 && j + L.mt.stages < "
+          "n_mt)\n",
+          "      ring_wait(mt_bars, L.mt, j);\n      __syncthreads();\n"
+          "      if (warp == 0 && j + L.mt.stages < n_mt)\n"),
+         ("      ring_wait(mem_bars, L.mem, j);\n", ""),
+         ("      __syncthreads();\n      if (warp == 0 && j + L.mem.stages < "
+          "n_mem)\n",
+          "      ring_wait(mem_bars, L.mem, j);\n      __syncthreads();\n"
+          "      if (warp == 0 && j + L.mem.stages < n_mem)\n")],
+        "K1:forward"),
+    "staged_tile_off_by_one": (
+        "fused_decoder.cu",
+        "      const int lo = j * L.mem.tile, rows = min(L.mem.tile, T - lo);",
+        "      const int lo = j * L.mem.tile + (j > 0),\n"
+        "                rows = min(L.mem.tile, T - lo);", "K1q8"),
+    "staged_scale_pair_swapped": (
+        "fused_decoder.cu",
+        "        s8[2 * k] = s.x;\n        s8[2 * k + 1] = s.y;\n",
+        "        s8[2 * k] = s.y;\n        s8[2 * k + 1] = s.x;\n", "K1q8"),
+    "staged_softmax_no_rescale": (
+        "fused_decoder.cu",
+        [("  float ws = m == -CUDART_INF_F ? 0.0f : s * expf(m - wm);\n",
+          "  float ws = m == -CUDART_INF_F ? 0.0f : s;\n"),
+         ("    s += mw == -CUDART_INF_F ? 0.0f : scratch[2 * w + 1] * "
+          "expf(mw - m);\n",
+          "    s += mw == -CUDART_INF_F ? 0.0f : scratch[2 * w + 1];\n")],
+        "K1q8"),
+    "staged_agent_prologue_dropped": (
+        "fused_decoder.cu",
+        "  if (KIND == ATT_FWD_TRANS && live) {\n#pragma unroll 4\n"
+        "    for (int k = tid; k < H; k += LSA_THREADS)\n",
+        "  if (false) {\n#pragma unroll 4\n"
+        "    for (int k = tid; k < H; k += LSA_THREADS)\n",
+        "K1:forward_transition_agent"),
+    "staged_ragged_tail_dropped": (
+        "fused_decoder.cu", "  const int tail = bulk ? (int)(u + n - z) : 0;\n",
+        "  const int tail = 0;\n", "K1q8"),
+    # the staged instances with smaller rings (the memory transform in one
+    # slot of 16 KB, the memory in two of 19 KB): three CTAs an SM
+    "staged_small_rings": (
+        "fused_decoder.py",
+        "_MT_RING_BYTES, _MT_SLOTS = 32 * 1024, 2\n"
+        "_MEM_RING_BYTES, _MEM_SLOTS = 56 * 1024, 3\n",
+        "_MT_RING_BYTES, _MT_SLOTS = 16 * 1024, 1\n"
+        "_MEM_RING_BYTES, _MEM_SLOTS = 38 * 1024, 2\n", "time K1q8,K1fam"),
+    # what the parts of the staged instances cost (wrong results; timing
+    # only): the rings' mbarrier waits left out (the copies still issued),
+    # the context's sums left out, the energies left out
+    "staged_no_waits": (
+        "fused_decoder.cu",
+        [("      ring_wait(mt_bars, L.mt, j);\n", ""),
+         ("      ring_wait(mem_bars, L.mem, j);\n", "")], "time K1fam"),
+    "staged_no_ctx": (
+        "fused_decoder.cu",
+        "      if (tid < G * C)\n        staged_ctx_tile<ST>(acc,",
+        "      if (false)\n        staged_ctx_tile<ST>(acc,", "time K1fam"),
+    "staged_no_energy": (
+        "fused_decoder.cu", "      else\n        staged_fwd_energies(",
+        "      else if (false)\n        staged_fwd_energies(", "time K1fam"),
+    # the staged step's phases on each CTA's clock (cycles from its start,
+    # thread 0's, written over the first weights of its row): the
+    # prologue, the query, the cluster exchange, the energies, the softmax,
+    # the context, the tail
+    "staged_phase_clock": (
+        "fused_decoder.cu",
+        [("  // 0. the rings' mbarriers\n",
+          "  long long clk[11];\n  clk[0] = clock64();\n"
+          "  // 0. the rings' mbarriers\n"),
+         ("  // 1. the query's partial over this CTA's slice of H, rows g < 8\n"
+          "  for (int n0",
+          "  clk[1] = clock64();\n"
+          "  // 1. the query's partial over this CTA's slice of H, rows g < 8\n"
+          "  for (int n0"),
+         ("  // Wq's slice and h_att's rows are read: the memory's first tiles "
+          "over them\n  __syncthreads();\n",
+          "  // Wq's slice and h_att's rows are read: the memory's first tiles "
+          "over them\n  __syncthreads();\n  clk[2] = clock64();\n"),
+         ("    // 2. energies, a tile of the memory transform's ring at a time\n",
+          "    clk[3] = clock64();\n"
+          "    // 2. energies, a tile of the memory transform's ring at a time\n"),
+         ("    // 3. softmax, its max and sum in one block reduction; ls: cum' = "
+          "cum\n",
+          "    clk[4] = clock64();\n"
+          "    // 3. softmax, its max and sum in one block reduction; ls: cum' = "
+          "cum\n"),
+         ("    // 4. context from the memory's ring: CtxScheme's slots (group, "
+          "chunk\n",
+          "    clk[5] = clock64();\n"
+          "    // 4. context from the memory's ring: CtxScheme's slots (group, "
+          "chunk\n"),
+         ("      ring_wait(mt_bars, L.mt, j);\n",
+          "      ring_wait(mt_bars, L.mt, j);\n"
+          "      if (j == 0) clk[8] = clock64();\n"),
+         ("      ring_wait(mem_bars, L.mem, j);\n",
+          "      ring_wait(mem_bars, L.mem, j);\n"
+          "      if (j == 0) clk[9] = clock64();\n"
+          "      clk[10] = clock64();\n"),
+         ("    for (int m = tid; m < M; m += LSA_THREADS) {\n"
+          "      float ctx = ctx_column(L.cs, s_cpart, M, m);",
+          "    clk[6] = clock64();\n"
+          "    for (int m = tid; m < M; m += LSA_THREADS) {\n"
+          "      float ctx = ctx_column(L.cs, s_cpart, M, m);"),
+         ("      // bf16(x)] . [wc | wq | wx]\n"
+          "      lin = block_reduce<false>(lin, s_red);\n"
+          "      if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + "
+          "fa.bias[0])));\n    }\n",
+          "      // bf16(x)] . [wc | wq | wx]\n"
+          "      lin = block_reduce<false>(lin, s_red);\n"
+          "      if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + "
+          "fa.bias[0])));\n    }\n    __syncthreads();\n"
+          "    clk[7] = clock64();\n    if (tid == 0) {\n"
+          "      for (int k = 1; k < 11; ++k)\n"
+          "        cum_out[(size_t)b * T + k] = (float)(clk[k] - clk[0]);\n"
+          "      cum_out[(size_t)b * T] = -1.0f;\n    }\n")],
+        "time K1trace"),
+    # the parent kernel's phases on each CTA's clock, as
+    # staged_phase_clock reads the staged step's (run with --root PARENT)
+    "parent_phase_clock": (
+        "fused_decoder.cu",
+        [("  const ST* mem_b = memory + (size_t)b * T * M;\n",
+          "  long long clk[8];\n  clk[0] = clock64();\n"
+          "  const ST* mem_b = memory + (size_t)b * T * M;\n"),
+         ("  cp_async_wait<0>();\n  __syncthreads();\n\n"
+          "  // 1. the query's partial over this CTA's slice of H, rows g < 8\n"
+          "  if constexpr (F32) {",
+          "  cp_async_wait<0>();\n  __syncthreads();\n  clk[1] = clock64();\n"
+          "\n  // 1. the query's partial over this CTA's slice of H, rows g < "
+          "8\n  if constexpr (F32) {"),
+         ("  cluster_sync();\n  for (int a = tid; a < A; a += LSA_THREADS) {",
+          "  clk[2] = clock64();\n"
+          "  cluster_sync();\n  for (int a = tid; a < A; a += LSA_THREADS) {"),
+         ("  if (live) {\n    // 2. energies\n",
+          "  if (live) {\n    clk[3] = clock64();\n    // 2. energies\n"),
+         ("    // 3. softmax; ls: cum' = cum + w; the forward family: the "
+          "recurrence,",
+          "    clk[4] = clock64();\n"
+          "    // 3. softmax; ls: cum' = cum + w; the forward family: the "
+          "recurrence,"),
+         ("    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column), int8 "
+          "streams",
+          "    clk[5] = clock64();\n"
+          "    // 4. context (csrc/tile.cuh: ctx_partials, ctx_column), int8 "
+          "streams"),
+         ("    float lin = 0.0f;\n    for (int m = tid; m < M; m += "
+          "LSA_THREADS) {\n",
+          "    clk[6] = clock64();\n"
+          "    float lin = 0.0f;\n    for (int m = tid; m < M; m += "
+          "LSA_THREADS) {\n"),
+         ("      if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + "
+          "fa.bias[0])));\n    }\n  }\n  cluster_wait();\n}",
+          "      if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + "
+          "fa.bias[0])));\n    }\n    __syncthreads();\n"
+          "    clk[7] = clock64();\n    if (tid == 0) {\n"
+          "      for (int k = 1; k < 8; ++k)\n"
+          "        cum_out[(size_t)b * T + k] = (float)(clk[k] - clk[0]);\n"
+          "      for (int k = 8; k < 11; ++k) cum_out[(size_t)b * T + k] = "
+          "0.0f;\n      cum_out[(size_t)b * T] = -1.0f;\n    }\n"
+          "  }\n  cluster_wait();\n}")],
+        "time K1trace"),
+    # the memory transform's first tiles issued at the kernel's start,
+    # ahead of Wq's copy (the order the measured design replaced)
+    "staged_mt_at_start": (
+        "fused_decoder.cu",
+        [("    __syncwarp();\n  }\n",
+          "    __syncwarp();\n"
+          "    for (int j = 0; j < min(L.mt.stages, n_mt); ++j)\n"
+          "      ring_issue(lsa_smem, mt_bars, L.mt, mtb_b, T, j, lane);\n"
+          "  }\n"),
+         ("  if (warp == 0 && live)\n"
+          "    for (int j = 0; j < min(L.mt.stages, n_mt); ++j)\n"
+          "      ring_issue(lsa_smem, mt_bars, L.mt, mtb_b, T, j, lane);\n", "")],
+        "time K1q8,K1fam"),
+    # the rings filled by warp 0's 16-byte cp.async copies, each lane's
+    # completion an arrival on the slot's mbarrier, in place of one bulk
+    # copy (timing only: 16-byte-aligned tiles, as at B=240, T=128)
+    "staged_cp_async": (
+        "fused_decoder.cu",
+        [("__device__ void ring_issue(", "// tile j landed\n",
+          "__device__ void ring_issue(uint8_t* smem, uint64_t* bars,\n"
+          "                           const StreamRing& R, const uint8_t* "
+          "src, int T,\n                           int j, int lane) {\n"
+          "  const int t0 = j * R.tile, n = min(R.tile, T - t0) * R.row;\n"
+          "  const uint8_t* s = src + (size_t)t0 * R.row;\n"
+          "  uint8_t* d = ring_tile(smem, R, src, j);\n"
+          "  for (int i = lane * 16; i < n; i += 32 * 16)\n"
+          "    cp_async16(d + i, s + i, min(16, n - i));\n"
+          "  asm volatile(\"cp.async.mbarrier.arrive.noinc.shared::cta.b64 "
+          "[%0];\\n\" ::\"r\"(smem_addr(bars + j % R.stages)) : "
+          "\"memory\");\n}\n\n")],
+        "time K1q8,K1fam"),
+    # the flagship's bf16 location-sensitive instance staged too: its time
+    # against the checkout's (unstaged) in turns, and its checks
+    "lsa_flagship_staged": (
+        "fused_decoder.cu", _FLAGSHIP_STAGED[0], _FLAGSHIP_STAGED[1],
+        "time K1q8"),
+    "lsa_flagship_staged_checks": (
+        "fused_decoder.cu", _FLAGSHIP_STAGED[0], _FLAGSHIP_STAGED[1],
+        "design K1"),
     # K1's float32 location-sensitive band without lc's TF32 lo halves
     "lsa_f32_lc_lo_dropped": (
         "fused_decoder.cu",
@@ -927,6 +1180,28 @@ VARIANTS = {
           "      for (int k = 0; k < 0; ++k)\n"
           "        acc = fmaf(hr[k], s_wq[k * L.ld + a], acc);")],
         "time K1f32"),
+    # what the parts of K1's bf16 attention step cost on int8 streams and
+    # in the forward family (wrong results; timing only, on the parent's
+    # kernel): both streams read from shared memory (the dead slice of Wq,
+    # the memory's indices wrapped into its first 8192 elements) instead
+    # of device memory; the transition agent's tail left out; the
+    # softmax's max reduction left out (each thread's own maximum); all
+    # three
+    "lsa_streams_in_smem": ({
+        "fused_decoder.cu": [_LSA_STREAMS_IN_SMEM],
+        "tile.cuh": _CTX_WRAPPED},
+        "time K1q8,K1fam"),
+    "fwd_no_agent_tail": (
+        "fused_decoder.cu", _LSA_NO_AGENT_TAIL[0], _LSA_NO_AGENT_TAIL[1],
+        "time K1fam"),
+    "lsa_one_reduction_fewer": (
+        "fused_decoder.cu", _LSA_NO_MAX_REDUCTION[0],
+        _LSA_NO_MAX_REDUCTION[1], "time K1q8,K1fam"),
+    "lsa_step0_all": ({
+        "fused_decoder.cu": [_LSA_STREAMS_IN_SMEM, _LSA_NO_AGENT_TAIL,
+                             _LSA_NO_MAX_REDUCTION],
+        "tile.cuh": _CTX_WRAPPED},
+        "time K1q8,K1fam"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -1262,6 +1537,105 @@ print("VARIANT_RESULT " + json.dumps(res))
 """
 
 
+# K1's bf16 attention instances at the serving path's B=240, T=128 and the
+# flagship's widths, alone (chip_smoke.device_ms): each row (label,
+# attention type, chip_smoke's configuration, strategy: the shared one's
+# 548-wide memory) of @ROWS@
+_TIME_K1_ROWS = _PRELUDE + r"""
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+torch.set_grad_enabled(False)
+res = {{}}
+for label, kind, cfg, strategy in @ROWS@:
+    settings = getattr(cs, cfg) if cfg else {{}}
+    if strategy:
+        s = cs.switching(strategy, cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES)
+        h = cs.switching(strategy, cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES)
+        for k, v in settings.items():
+            setattr(h, k, v)
+    else:
+        s = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, kind)
+        h = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, kind, **settings)
+    syn = Synthesizer(h, cs.seeded_state_dict(s), device="cuda")
+    bundle, kw = syn.bundle, syn.decode_kwargs
+    memory, mt, mask, carry = cs.encoded_batch(syn, h)
+    mem, mtb, mask_add = fd.chunk_operands(bundle, memory, mt, mask)
+    st = carry["att_state"]
+    if kind == "location_sensitive":
+        call = lambda: fd.lsa_attention(carry["h_att"], st["weights"], mem,
+                                        mtb, mask_add, bundle)
+    else:
+        x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"],
+                            (1, 2), 0)
+        call = lambda: fd.fwd_attention(carry["h_att"], st["weights"],
+                                        st.get("t_prob"), mem, mtb,
+                                        mask_add, x, bundle)
+    res[f"{{label}}_ms"] = cs.device_ms(call, ours_only=True)
+    del syn
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+# K1's staged instances at B=240, T=128 (location-sensitive on int8
+# streams, the family's bf16 fwd and agent), one call each on the copy of
+# the variant staged_phase_clock: each phase's cycles (the mean over the
+# CTAs of the cumulative clocks its rows carry back)
+_TIME_K1TRACE = _PRELUDE + r"""
+from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+torch.set_grad_enabled(False)
+phases = ("prologue", "query", "exchange", "energies", "softmax",
+          "context", "tail")
+res = {{}}
+for label, kind, cfg in (("ls_q8", "location_sensitive", cs.Q8),
+                         ("fwd", "forward", {{}}),
+                         ("trans", "forward_transition_agent", {{}})):
+    s = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, kind)
+    h = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, kind, **cfg)
+    syn = Synthesizer(h, cs.seeded_state_dict(s), device="cuda")
+    bundle, kw = syn.bundle, syn.decode_kwargs
+    memory, mt, mask, carry = cs.encoded_batch(syn, h)
+    mem, mtb, mask_add = fd.chunk_operands(bundle, memory, mt, mask)
+    st = carry["att_state"]
+    for _ in range(3):
+        if kind == "location_sensitive":
+            w = fd.lsa_attention(carry["h_att"], st["weights"], mem, mtb,
+                                 mask_add, bundle)[1]
+        else:
+            x = fd.prenet_plain(carry["frame"], bundle, kw["dropout_rate"],
+                                (1, 2), 0)
+            w = fd.fwd_attention(carry["h_att"], st["weights"],
+                                 st.get("t_prob"), mem, mtb, mask_add, x,
+                                 bundle)[1]
+    torch.cuda.synchronize()
+    if float(w[0, 0]) != -1.0:
+        continue
+    clk = w[:, 1:11].double().mean(0).tolist()
+    prev = 0.0
+    for name, c in zip(phases, clk):
+        res[f"{{label}}_{{name}}_cycles"] = c - prev
+        prev = c
+    res[f"{{label}}_total_cycles"] = clk[6]
+    # the ends of the first waits for each ring and of the last memory
+    # wait, cycles from the start
+    for name, c in zip(("mt_wait0_at", "mem_wait0_at", "mem_wait_last_at"),
+                       clk[7:]):
+        res[f"{{label}}_{{name}}"] = c
+    del syn
+print("VARIANT_RESULT " + json.dumps(res))
+"""
+# K1q8: location-sensitive on int8 streams (the 292- and the 548-wide
+# memory) beside the flagship's bf16 streams, and the family on int8
+# streams; K1fam: the family's bf16 fwd and agent
+_TIME_K1Q8 = _TIME_K1_ROWS.replace("@ROWS@", repr([
+    ("ls", "location_sensitive", "", ""),
+    ("ls_q8", "location_sensitive", "Q8", ""),
+    ("ls_q8_548", "location_sensitive", "Q8", "shared"),
+    ("fwd_q8", "forward", "Q8", ""),
+    ("trans_q8", "forward_transition_agent", "Q8", "")]))
+_TIME_K1FAM = _TIME_K1_ROWS.replace("@ROWS@", repr([
+    ("fwd", "forward", "", ""),
+    ("trans", "forward_transition_agent", "", "")]))
+
+
 # the forward prenet of both decoders at the flagship's widths (M=80,
 # P=256, two layers, dropout 0.5) on random inputs, in both compute types:
 # K2's train_prenet at the training step's B=50 (a teacher step with its
@@ -1460,23 +1834,29 @@ def time_variants(names) -> dict:
     copies = {name: make_copy(name) for name in names if name in VARIANTS}
     build_copies(copies)
     for name in names:
-        script = globals().get(_TIMERS.get(
-            _kind(name).split()[1] if name in VARIANTS else None, ""))
-        if script is None or not _kind(name).startswith(("time", "design")):
+        # the variant's timing scripts, comma-separated
+        timers = (_kind(name).split()[1].split(",") if name in VARIANTS
+                  else [])
+        scripts = [globals().get(_TIMERS.get(t, "")) for t in timers]
+        if (not scripts or None in scripts
+                or not _kind(name).startswith(("time", "design"))):
             raise SystemExit(f"kernel_variants: {name} is not a timing "
                              "variant")
         roots = {"as is": ROOT, name: copies[name]}
         out[name] = {k: [] for k in roots}
-        for which in ("as is", name, name, "as is"):
-            res = run(roots[which], script)
-            out[name][which].append(res)
-            print(f"[time] {which}: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in res.items() if v is not None))
+        for script in scripts:
+            for which in ("as is", name, name, "as is"):
+                res = run(roots[which], script)
+                out[name][which].append(res)
+                print(f"[time] {which}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in res.items()
+                    if v is not None))
     return out
 
 
 # the timing scripts by name, for ``ab``
-_TIMERS = {"K1": "_TIME_K1", "K1f32": "_TIME_K1F32", "K2": "_TIME_K2",
+_TIMERS = {"K1": "_TIME_K1", "K1f32": "_TIME_K1F32", "K1q8": "_TIME_K1Q8",
+           "K1fam": "_TIME_K1FAM", "K1trace": "_TIME_K1TRACE", "K2": "_TIME_K2",
            "K2fam": "_TIME_K2FAM", "K3": "_TIME_K3", "K3fam": "_TIME_K3FAM",
            "prenet": "_TIME_PRENET", "gates": "_TIME_GATES"}
 
