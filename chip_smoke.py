@@ -1308,12 +1308,14 @@ def phase_shared_streams(sd) -> None:
 
 
 def check_wide_streams(syn, hp, bundle, mem_dim: int = 548) -> None:
-    """The forward family's attention kernel on int8 streams of the shared
-    strategy's ``mem_dim``-wide memory (int8 rows of 548 bytes: not a
-    multiple of 16), which no model of the family has: ``bundle`` with a
+    """The forward family's attention kernel on the streams of ``bundle``
+    (int8, or float32 for a float32 bundle without ``q_streams``) of the
+    shared strategy's ``mem_dim``-wide memory (int8 rows of 548 bytes: not
+    a multiple of 16), which no model of the family has: ``bundle`` with a
     random agent context weight of that width, random memory and memory
-    transform quantized by ``chunk_operands``, the step's state from
-    ``encoded_batch``; held as ``check_attention_step`` holds it."""
+    transform (quantized) by ``chunk_operands``, the step's state from
+    ``encoded_batch``; held as ``check_attention_step`` holds it, and timed
+    in turns with the plain version (``[time:E=548]``)."""
     import dataclasses
 
     import torch
@@ -1336,7 +1338,9 @@ def check_wide_streams(syn, hp, bundle, mem_dim: int = 548) -> None:
     name, _, _, err = check_attention_step(fd, wide, f"E={mem_dim}", h_att,
                                            x, carry, memory, mtb, mask_add,
                                            row)
-    say(f"[kernels:E={mem_dim}] {name} on int8 streams of a {mem_dim}-wide "
+    q8 = bool(bundle.q_streams)
+    streams = "int8 streams" if q8 else "float32 streams"
+    say(f"[kernels:E={mem_dim}] {name} on {streams} of a {mem_dim}-wide "
         f"memory: max abs err {err:.3g}")
     # its device time there, in turns with the plain version
     state = carry["att_state"]
@@ -1344,8 +1348,8 @@ def check_wide_streams(syn, hp, bundle, mem_dim: int = 548) -> None:
             mask_add, x, wide)
     ms, plain_ms, turns, events = turns_ms(
         lambda: fd.fwd_attention(*args), lambda: fd.fwd_attention_plain(*args))
-    say(f"[time:E={mem_dim}] {fd.instance(name, bundle.dtype, True)} on "
-        f"int8 streams of a {mem_dim}-wide memory (B={B}, T={T_SYMBOLS}): "
+    say(f"[time:E={mem_dim}] {fd.instance(name, bundle.dtype, q8)} on "
+        f"{streams} of a {mem_dim}-wide memory (B={B}, T={T_SYMBOLS}): "
         f"kernel {ms:.4f} ms ({events}, in turns: "
         + ", ".join(f"{t:.4f}" for t in turns) + f"), plain {plain_ms:.4f} "
         "ms")
@@ -1379,8 +1383,9 @@ def phase_k1_variants(sd, kind: str = "location_sensitive"):
             syn = Synthesizer(hp, sd, device="cuda")
             for v, e in phase_variant_kernels(syn, hp, variants).items():
                 errs[(label, v[0])] = e
-            if q8 and not ls:
-                check_wide_streams(syn, hp, variant_bundle(syn, True, True))
+            if not ls:
+                # int8 streams, and the float32 instance's float32 ones
+                check_wide_streams(syn, hp, variant_bundle(syn, True, q8))
             del syn
 
     rows = []

@@ -279,8 +279,18 @@ struct EvalLstm {
 // warp order (in chunks of LSA_EP_ROWS positions).  Before, both products
 // ran on the CUDA cores (the band as 32 FFMA with two shared loads each a
 // (t, a): about 18 us of the 72 a call at B=240, T=128, PERF.md).  The
-// forward family's float32 instances keep their energy loop, a warp a
-// position and a lane every 32nd channel.  ST = int8 (the TPU kernel's
+// forward family's float32 instances run the family's energy loop
+// (fam_energies, as its staged bf16 instances do) on the batch row in
+// global memory: a lane four consecutive channels of a float32 mtb row
+// (one 16-byte read) or eight int8 codes (one 8-byte read), their q, v
+// and scales in registers, each lane reading FE32_UNROLL positions'
+// groups before it computes any, the positions' lane partials then summed
+// by shuffles; they copy
+// prev beside Wq's slice, take the transition agent's h_att and x terms
+// in the prologue, the softmax's max and sum in one reduction
+// (block_softmax_stats), read the context's chunks 8 (float32) or 4
+// (int8) periods at a time (ctx32_batch), and are declared two CTAs an
+// SM.  ST = int8 (the TPU kernel's
 // q_streams, pallas_decoder.py:571-572, :626-634): mtb is read as int8 and
 // dequantized in the compute type, mtb = CT(q * mts[a]) with the scale row
 // already in CT; the context sums CT(q * w[t]) in float32 and multiplies
@@ -349,7 +359,7 @@ struct LsaLayout {
     v = q + align16((size_t)A * 4);
     mts = v + align16((size_t)A * 4);
     lc = mts + align16((size_t)A * 4);
-    cum = lc + align16((size_t)BAND_K * ldl * es);
+    cum = lc + (ls ? align16((size_t)BAND_K * ldl * es) : 0);
     cum_lo = cum + align16((size_t)(tpad + BAND_K) * es);
     ep = cum_lo + (tf32 ? align16((size_t)(tpad + BAND_K) * 4) : 0);
     e = ep + align16((size_t)LSA_WARPS * ep_rows * 4);
@@ -359,19 +369,9 @@ struct LsaLayout {
   }
 };
 
-// the memory transform (plus bias) at i, and at i and i + 1, as the energy
-// reads it: the compute type's value, or int8 * the channel's scale
-// rounded to it (s_mts: the scale row, float of CT)
-template <class CT>
-__device__ __forceinline__ float mt_at(const float* p, size_t i,
-                                       const float*) {
-  return p[i];
-}
-template <class CT>
-__device__ __forceinline__ float mt_at(const int8_t* p, size_t i,
-                                       const float* s_mts) {
-  return round_to<CT>((float)p[i] * *s_mts);
-}
+// the memory transform (plus bias) at i and i + 1, as the energy reads
+// it: the compute type's value, or int8 * the channel's scale rounded to
+// it (s_mts: the scale row, float of CT)
 template <class CT>
 __device__ __forceinline__ float2 mt_pair(const __nv_bfloat16* p, size_t i,
                                           const float*) {
@@ -802,54 +802,157 @@ __device__ __forceinline__ void staged_band_energies(
   }
 }
 
-// positions a lane of the forward family's energy loop takes at a time
+// positions a lane of the forward family's energy loop takes at a time:
+// the staged bf16 instances, whose rows lie in shared memory, and the
+// float32 instances, which read theirs from global memory
 constexpr int FE_UNROLL = 4;
+constexpr int FE32_UNROLL = 8;
 
-// the forward family's energies of the staged tile's positions [lo, hi):
-// `lpr` lanes a position, lane `sub` of them owning the channels [8 sub,
-// 8 sub + 8) with their q, v and scales in registers (qr, vr, sr), and
-// every lpr-th group of 8 past them read from shared memory (A > 256);
-// the lanes' partial energies summed by shuffles
+// a group of consecutive channels of a row of the memory transform at p
+// as it lies: four float32 or eight bf16 in one 16-byte read, eight int8
+// codes in one 8-byte read (`aligned`: p is aligned to the group's size),
+// and its channel i as float: int8 codes times their channel's scale s,
+// rounded to bf16 where ROUND (a bf16 decoder; float32 the plain
+// version's mt = q * scale)
+__device__ __forceinline__ float4 mt_group(const float* p, bool aligned) {
+  if (aligned) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+__device__ __forceinline__ uint4 mt_group(const bf16* p, bool aligned) {
+  if (aligned) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__bfloat16_as_ushort(p[2 * i]) |
+           (uint32_t)__bfloat16_as_ushort(p[2 * i + 1]) << 16;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint2 mt_group(const int8_t* p, bool aligned) {
+  if (aligned) return *reinterpret_cast<const uint2*>(p);
+  uint2 w = make_uint2(0u, 0u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w.x |= (uint32_t)(uint8_t)p[i] << (8 * i);
+    w.y |= (uint32_t)(uint8_t)p[4 + i] << (8 * i);
+  }
+  return w;
+}
+template <bool ROUND>
+__device__ __forceinline__ float mt_channel(const float4& g, int i, float) {
+  return i == 0 ? g.x : i == 1 ? g.y : i == 2 ? g.z : g.w;
+}
+template <bool ROUND>
+__device__ __forceinline__ float mt_channel(const uint4& g, int i, float) {
+  const uint32_t w = i < 2 ? g.x : i < 4 ? g.y : i < 6 ? g.z : g.w;
+  return __uint_as_float(i & 1 ? w & 0xFFFF0000u : w << 16);
+}
+template <bool ROUND>
+__device__ __forceinline__ float mt_channel(const uint2& g, int i, float s) {
+  const float x = (float)(int8_t)((i < 4 ? g.x : g.y) >> (8 * (i & 3))) * s;
+  return ROUND ? round_bf16(x) : x;
+}
+
+// the channels of a group (mt_group) of the stream type
 template <class ST>
-__device__ __forceinline__ void staged_fwd_energies(
-    float* s_e, const ST* tile, int lo, int hi, int A, const float* qr,
-    const float* vr, const float* sr, const float* s_q, const float* s_v,
-    const float* s_mts, const float* s_tanh, int lpr) {
+__host__ __device__ constexpr int fam_width() {
+  return sizeof(ST) == 4 ? 4 : 8;
+}
+// the lanes that take a position of the family's energy loop: the least
+// power of two at least its ng groups, at most 32
+__device__ __forceinline__ int fam_lanes(int ng) {
+  int lpr = 1;
+  while (lpr < ng && lpr < 32) lpr <<= 1;
+  return lpr;
+}
+// the q, v and scales of lane `sub`'s own group in registers (zero where
+// the lane owns none)
+template <int FW>
+__device__ __forceinline__ void fam_lane_regs(float* qr, float* vr,
+                                              float* sr, bool own, int sub,
+                                              const float* s_q,
+                                              const float* s_v,
+                                              const float* s_mts, bool q8) {
+#pragma unroll
+  for (int i = 0; i < FW; ++i) {
+    const int a = FW * sub + i;
+    qr[i] = own ? s_q[a] : 0.0f;
+    vr[i] = own ? s_v[a] : 0.0f;
+    sr[i] = own && q8 ? s_mts[a] : 1.0f;
+  }
+}
+
+// The forward family's energies e[t] = sum_a v[a] tanh(q[a] + mt[t][a])
+// of the positions [lo, hi) (unmasked), position t's row of the memory
+// transform at rows + (t - lo) A (a staged tile, or the batch row in
+// global memory); A a multiple of 8 (att_dispatch).  `lpr` lanes take a
+// position (fam_lanes), lane `sub` of them the FW consecutive channels
+// [FW sub, FW sub + FW) with their q, v and scales in registers (qr, vr,
+// sr: fam_lane_regs), and every lpr-th group past them from shared
+// memory.  A lane reads U positions' own groups before it computes any,
+// so that a warp has that many rows' reads in flight; each position's sum
+// runs in channel order within a lane, then over the lanes by xor
+// shuffles, the same order on every run.  The compute type CT rounds
+// int8 streams' values to bf16 (bf16) or not (float); tanh_fn is the
+// energy's tanh (the bf16 table, or tanhf)
+template <int U, class CT, class ST, class Tanh>
+__device__ __forceinline__ void fam_energies(
+    float* s_e, const ST* __restrict__ rows, int lo, int hi, int A,
+    int lpr, const float* qr, const float* vr, const float* sr,
+    const float* s_q, const float* s_v, const float* s_mts,
+    Tanh tanh_fn) {
   constexpr bool Q8 = std::is_same<ST, int8_t>::value;
+  constexpr bool ROUND = std::is_same<CT, bf16>::value;
+  constexpr int FW = fam_width<ST>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ng = A / FW;
   const int rpw = 32 / lpr, sub = lane & (lpr - 1), rr = lane / lpr;
-  const int nch = A / 8;
-  const bool aligned = ((uintptr_t)tile & (Q8 ? 7 : 15)) == 0;
-  // FE_UNROLL positions a lane at a time, their sums independent
-  for (int t0 = lo + warp * rpw * FE_UNROLL; t0 < hi;
-       t0 += LSA_WARPS * rpw * FE_UNROLL) {
-    float e[FE_UNROLL];
+  const bool own = sub < ng;
+  const bool aligned = ((uintptr_t)rows & (FW * sizeof(ST) - 1)) == 0;
+  using Group = decltype(mt_group(rows, true));
+  for (int t0 = lo + warp * rpw * U; t0 < hi; t0 += LSA_WARPS * rpw * U) {
+    Group m[U];
 #pragma unroll
-    for (int u = 0; u < FE_UNROLL; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int t = t0 + u * rpw + rr;
+      m[u] = {};
+      if (t < hi && own)
+        m[u] = mt_group(rows + (size_t)(t - lo) * A + FW * sub, aligned);
+    }
+    float e[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
       e[u] = 0.0f;
-      if (t < hi && sub < nch) {
-        const ST* row = tile + (size_t)(t - lo) * A;
-        float m[8];
-        stream8(m, row + 8 * sub, sr, aligned);
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[u] = fmaf(vr[i], tanh_bf16(qr[i] + m[i], s_tanh), e[u]);
-        for (int c = sub + lpr; c < nch; c += lpr) {
-          stream8(m, row + 8 * c, s_mts + 8 * c, aligned);
+      for (int i = 0; i < FW; ++i)
+        e[u] = fmaf(vr[i],
+                    tanh_fn(qr[i] + mt_channel<ROUND>(m[u], i, sr[i])), e[u]);
+    }
+    if (ng > lpr) {
+      // the groups past the lanes' own
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            e[u] = fmaf(s_v[8 * c + i],
-                        tanh_bf16(s_q[8 * c + i] + m[i], s_tanh), e[u]);
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * rpw + rr;
+        if (t >= hi) continue;
+        const ST* row = rows + (size_t)(t - lo) * A;
+        for (int c = sub + lpr; c < ng; c += lpr) {
+          const Group x = mt_group(row + FW * c, aligned);
+#pragma unroll
+          for (int i = 0; i < FW; ++i) {
+            const int a = FW * c + i;
+            e[u] = fmaf(s_v[a],
+                        tanh_fn(s_q[a] + mt_channel<ROUND>(
+                                             x, i, Q8 ? s_mts[a] : 1.0f)),
+                        e[u]);
+          }
         }
       }
     }
     for (int off = lpr >> 1; off > 0; off >>= 1)
 #pragma unroll
-      for (int u = 0; u < FE_UNROLL; ++u)
+      for (int u = 0; u < U; ++u)
         e[u] += __shfl_xor_sync(0xffffffffu, e[u], off);
 #pragma unroll
-    for (int u = 0; u < FE_UNROLL; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int t = t0 + u * rpw + rr;
       if (sub == 0 && t < hi) s_e[t] = e[u];
     }
@@ -884,6 +987,14 @@ __device__ __forceinline__ void block_softmax_stats(float& m, float& s,
     const float mw = scratch[2 * w];
     s += mw == -CUDART_INF_F ? 0.0f : scratch[2 * w + 1] * expf(mw - m);
   }
+}
+
+// periods of the memory a slot of its context reads at once: 8 chunks of
+// float32, 4 of int8 codes (PERF.md: 16 of either, and 4 of float32, read
+// slower)
+template <class ST>
+__host__ __device__ constexpr int ctx32_batch() {
+  return std::is_same<ST, int8_t>::value ? 4 : 8;
 }
 
 // a thread's slot of CtxScheme's chunks (group, chunk column c) over a
@@ -1081,18 +1192,10 @@ __device__ __forceinline__ void lsa_staged_step(
 
   if (live) {
     // 2. energies, a tile of the memory transform's ring at a time
-    const int nch = A / 8;
-    int lpr = 1;
-    while (lpr < nch && lpr < 32) lpr <<= 1;
-    const int sub = lane & (lpr - 1);
+    const int lpr = fam_lanes(A / 8), sub = lane & (lpr - 1);
     float qr[8], vr[8], sr[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const bool own = !LS && sub < nch;
-      qr[i] = own ? s_q[8 * sub + i] : 0.0f;
-      vr[i] = own ? s_v[8 * sub + i] : 0.0f;
-      sr[i] = own && Q8 ? s_mts[8 * sub + i] : 0.0f;
-    }
+    fam_lane_regs<8>(qr, vr, sr, !LS && sub < A / 8, sub, s_q, s_v, s_mts,
+                     Q8);
     const float* mk = mask_add + (size_t)b * T;
     for (int j = 0; j < n_mt; ++j) {
       ring_wait(mt_bars, L.mt, j);
@@ -1104,8 +1207,9 @@ __device__ __forceinline__ void lsa_staged_step(
                              s_cum, s_lc, L.ld, s_q, s_v, s_mts, s_tanh, mk,
                              T, A);
       else
-        staged_fwd_energies(s_e, tile, lo, min(T, lo + L.mt.tile), A, qr,
-                            vr, sr, s_q, s_v, s_mts, s_tanh, lpr);
+        fam_energies<FE_UNROLL, bf16>(
+            s_e, tile, lo, min(T, lo + L.mt.tile), A, lpr, qr, vr, sr, s_q,
+            s_v, s_mts, [s_tanh](float z) { return tanh_bf16(z, s_tanh); });
       __syncthreads();
       if (warp == 0 && j + L.mt.stages < n_mt)
         ring_issue(lsa_smem, mt_bars, L.mt, mtb_b, T, j + L.mt.stages,
@@ -1213,27 +1317,29 @@ __device__ __forceinline__ void lsa_staged_step(
   cluster_wait();
 }
 
+#define LSA_PARAMS(CT, ST)                                                  \
+  const float* __restrict__ h_att, const float* __restrict__ cum,           \
+      const ST* __restrict__ memory, const ST* __restrict__ mtb,            \
+      const float* __restrict__ mask_add, const CT* __restrict__ wq,        \
+      const CT* __restrict__ lc, const float* __restrict__ v,               \
+      float* __restrict__ ctx_out, float* __restrict__ cum_out,             \
+      CT* __restrict__ ctx_row, int ld_row, int B, int T, int H, int A,     \
+      int M, int K, int vec, FwdArgs<CT> fa, StreamScales<CT> sc,           \
+      StreamPlan plan
+#define LSA_ARGS                                                            \
+  h_att, cum, memory, mtb, mask_add, wq, lc, v, ctx_out, cum_out, ctx_row,  \
+      ld_row, B, T, H, A, M, K, vec, fa, sc, plan
+#define LSA_STAGED_ARGS                                                     \
+  h_att, cum, memory, mtb, mask_add, wq, lc, v, ctx_out, cum_out, ctx_row,  \
+      ld_row, B, T, H, A, M, K, fa, sc, plan
+
+// the unstaged step: the flagship's bf16 location-sensitive instance and
+// every float32 one (the forward family's bf16 instances are staged)
 template <int KIND, class CT, class ST>
-__global__ void __launch_bounds__(LSA_THREADS)
-lsa_attention_kernel(const float* __restrict__ h_att,
-                     const float* __restrict__ cum,
-                     const ST* __restrict__ memory,
-                     const ST* __restrict__ mtb,
-                     const float* __restrict__ mask_add,
-                     const CT* __restrict__ wq, const CT* __restrict__ lc,
-                     const float* __restrict__ v, float* __restrict__ ctx_out,
-                     float* __restrict__ cum_out, CT* __restrict__ ctx_row,
-                     int ld_row, int B, int T, int H, int A, int M, int K,
-                     int vec, FwdArgs<CT> fa, StreamScales<CT> sc,
-                     StreamPlan plan) {
-  if constexpr (lsa_staged<KIND, CT, ST>()) {
-    lsa_staged_step<KIND, ST>(h_att, cum, memory, mtb, mask_add, wq, lc, v,
-                              ctx_out, cum_out, ctx_row, ld_row, B, T, H, A,
-                              M, K, fa, sc, plan);
-    return;
-  }
+__device__ __forceinline__ void lsa_unstaged_step(LSA_PARAMS(CT, ST)) {
   constexpr bool F32 = std::is_same<CT, float>::value;
   constexpr bool Q8 = std::is_same<ST, int8_t>::value;
+  static_assert(F32 || KIND == ATT_LS, "the bf16 family runs staged");
   constexpr int VC = 16 / sizeof(CT);   // CT elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t lsa_smem[];
   const LsaLayout L(T, H, A, M, sizeof(CT), sizeof(ST), KIND == ATT_LS);
@@ -1270,6 +1376,11 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   }
   if constexpr (F32)
     if (KIND == ATT_LS && live) band_copy_lc_tf32(s_lc, lc, K, A);
+  // the forward family: prev (the state) copied beside Wq's slice
+  float* s_prev = reinterpret_cast<float*>(s_cum);
+  if (KIND != ATT_LS && live)
+    for (int t = tid; t < T; t += LSA_THREADS)
+      cp_async4(s_prev + t, cum + (size_t)b * T + t);
   cp_async_commit();
   // float32: rows 8..15 of the query's m16 tile are zero
   for (int i = tid; i < (F32 ? 16 : LSA_ROWS) * L.kq; i += LSA_THREADS) {
@@ -1291,6 +1402,17 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   }
   if (Q8)
     for (int a = tid; a < A; a += LSA_THREADS) s_mts[a] = to_float(sc.mt[a]);
+  // the transition agent's h_att and x terms, which need nothing the step
+  // computes, while the copies land (ctx . wc follows in the context's
+  // column loop)
+  float lin = 0.0f;
+  if (KIND == ATT_FWD_TRANS && live) {
+#pragma unroll 4
+    for (int k = tid; k < H; k += LSA_THREADS)
+      lin = fmaf(h_att[(size_t)b * H + k], to_float(fa.wq[k]), lin);
+    for (int p = tid; p < fa.P; p += LSA_THREADS)
+      lin = fmaf(fa.x[(size_t)b * fa.P + p], to_float(fa.wx[p]), lin);
+  }
   cp_async_wait<0>();
   __syncthreads();
 
@@ -1342,21 +1464,18 @@ lsa_attention_kernel(const float* __restrict__ h_att,
                                 s_mts, mtb_b, mask_add + (size_t)b * T, T,
                                 A, L.tpad, L.ep_rows);
     } else if constexpr (F32) {
-      // a warp a position, a lane every 32nd channel
-      for (int t = warp; t < T; t += LSA_WARPS) {
-        float e = 0.0f;
-        for (int a = lane; a < A; a += 32) {
-          const float mt = mt_at<CT>(mtb_b, (size_t)t * A + a, s_mts + a);
-          e = fmaf(s_v[a], tanhf(s_q[a] + mt), e);
-        }
-        e = warp_sum(e);
-        if (lane == 0) s_e[t] = e;
-      }
+      constexpr int FW = fam_width<ST>();
+      const int lpr = fam_lanes(A / FW), sub = lane & (lpr - 1);
+      float qr[FW], vr[FW], sr[FW];
+      fam_lane_regs<FW>(qr, vr, sr, sub < A / FW, sub, s_q, s_v, s_mts, Q8);
+      fam_energies<FE32_UNROLL, float>(s_e, mtb_b, 0, T, A, lpr, qr, vr, sr,
+                                       s_q, s_v, s_mts,
+                                       [](float z) { return tanhf(z); });
     } else {
-      // one warp per 16 positions
+      // bf16 location-sensitive: one warp per 16 positions
       for (int t0 = warp * 16; t0 < L.tpad; t0 += LSA_WARPS * 16) {
         uint32_t af[2][4];
-        if (KIND == ATT_LS) band_frags(af, s_cum + t0, lane);
+        band_frags(af, s_cum + t0, lane);
         const int ta = t0 + g, tb = ta + 8;
         float e0 = 0.0f, e1 = 0.0f;
 #pragma unroll 4
@@ -1371,48 +1490,47 @@ lsa_attention_kernel(const float* __restrict__ h_att,
                      : zero2;
           const float q0 = s_q[a], q1 = s_q[a + 1];
           const float v0 = s_v[a], v1 = s_v[a + 1];
-          if (KIND == ATT_LS) {
-            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            band_loc(acc, af, s_lc, L.ld, n0, lane);
-            e0 = fmaf(v0, band_energy_tanh(acc[0], q0, m0.x), e0);
-            e0 = fmaf(v1, band_energy_tanh(acc[1], q1, m0.y), e0);
-            e1 = fmaf(v0, band_energy_tanh(acc[2], q0, m1.x), e1);
-            e1 = fmaf(v1, band_energy_tanh(acc[3], q1, m1.y), e1);
-          } else {
-            e0 = fmaf(v0, fwd_energy_tanh(q0, m0.x), e0);
-            e0 = fmaf(v1, fwd_energy_tanh(q1, m0.y), e0);
-            e1 = fmaf(v0, fwd_energy_tanh(q0, m1.x), e1);
-            e1 = fmaf(v1, fwd_energy_tanh(q1, m1.y), e1);
-          }
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          band_loc(acc, af, s_lc, L.ld, n0, lane);
+          e0 = fmaf(v0, band_energy_tanh(acc[0], q0, m0.x), e0);
+          e0 = fmaf(v1, band_energy_tanh(acc[1], q1, m0.y), e0);
+          e1 = fmaf(v0, band_energy_tanh(acc[2], q0, m1.x), e1);
+          e1 = fmaf(v1, band_energy_tanh(acc[3], q1, m1.y), e1);
         }
         e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
         e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
         e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
         e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
         if (qd == 0) {
-          // the forward family's softmax is unmasked
           const float* mk = mask_add + (size_t)b * T;
-          if (ta < T) s_e[ta] = KIND == ATT_LS ? e0 + mk[ta] : e0;
-          if (tb < T) s_e[tb] = KIND == ATT_LS ? e1 + mk[tb] : e1;
+          if (ta < T) s_e[ta] = e0 + mk[ta];
+          if (tb < T) s_e[tb] = e1 + mk[tb];
         }
       }
     }
     __syncthreads();
 
     // 3. softmax; ls: cum' = cum + w; the forward family: the recurrence,
-    // the mask, the floor and the renorm, state w.  s_e <- CT(w)
-    float mx = -CUDART_INF_F;
+    // the mask, the floor and the renorm, state w.  s_e <- CT(w).  The
+    // forward family takes the softmax's max and sum in one block
+    // reduction (block_softmax_stats) and leaves s_e = e
+    float mx = -CUDART_INF_F, sum = 0.0f;
     for (int t = tid; t < T; t += LSA_THREADS) mx = fmaxf(mx, s_e[t]);
-    mx = block_reduce<true>(mx, s_red);
-    float sum = 0.0f;
-    for (int t = tid; t < T; t += LSA_THREADS) {
-      const float p = expf(s_e[t] - mx);
-      s_e[t] = p;
-      sum += p;
+    if constexpr (KIND != ATT_LS) {
+      if (mx != -CUDART_INF_F)
+        for (int t = tid; t < T; t += LSA_THREADS) sum += expf(s_e[t] - mx);
+      block_softmax_stats(mx, sum, s_red);
+    } else {
+      mx = block_reduce<true>(mx, s_red);
+      for (int t = tid; t < T; t += LSA_THREADS) {
+        const float p = expf(s_e[t] - mx);
+        s_e[t] = p;
+        sum += p;
+      }
+      sum = block_reduce<false>(sum, s_red);
     }
-    sum = block_reduce<false>(sum, s_red);
-    const float* cum_b = cum + (size_t)b * T;
     if (KIND == ATT_LS) {
+      const float* cum_b = cum + (size_t)b * T;
       for (int t = tid; t < T; t += LSA_THREADS) {
         const float wt = s_e[t] / sum;
         cum_out[(size_t)b * T + t] = cum_b[t] + wt;
@@ -1422,9 +1540,9 @@ lsa_attention_kernel(const float* __restrict__ h_att,
       const float tp = KIND == ATT_FWD_TRANS ? fa.tp_in[b] : 0.0f;
       float wsum = 0.0f;
       for (int t = tid; t < T; t += LSA_THREADS) {
-        const float energy = s_e[t] / sum;
-        const float prev = cum_b[t];
-        const float sh = t > 0 ? round_to<CT>(cum_b[t - 1]) : 0.0f;
+        const float energy = expf(s_e[t] - mx) / sum;
+        const float prev = s_prev[t];
+        const float sh = t > 0 ? s_prev[t - 1] : 0.0f;
         const float comb = KIND == ATT_FWD_TRANS
                                ? (1.0f - tp) * prev + tp * sh
                                : prev + sh;
@@ -1444,9 +1562,9 @@ lsa_attention_kernel(const float* __restrict__ h_att,
 
     // 4. context (csrc/tile.cuh: ctx_partials, ctx_column), int8 streams
     // scaled after the sum; the agent's context term on the way
-    ctx_partials<!F32>(L.cs, s_cpart, mem_b, s_e, T, M, vec, LSA_THREADS);
+    ctx_partials<!F32, KIND != ATT_LS ? ctx32_batch<ST>() : 1>(
+        L.cs, s_cpart, mem_b, s_e, T, M, vec, LSA_THREADS);
     __syncthreads();
-    float lin = 0.0f;
     for (int m = tid; m < M; m += LSA_THREADS) {
       float acc = ctx_column(L.cs, s_cpart, M, m);
       if (Q8) acc *= sc.mem[m];
@@ -1457,13 +1575,8 @@ lsa_attention_kernel(const float* __restrict__ h_att,
         lin = fmaf(round_to<CT>(acc), to_float(fa.wc[m]), lin);
     }
     if (KIND == ATT_FWD_TRANS) {
-      // 5. the transition agent over [CT(ctx) | CT(h_att) | CT(x)]
-      for (int k = tid; k < H; k += LSA_THREADS)
-        lin = fmaf(round_to<CT>(h_att[(size_t)b * H + k]),
-                   to_float(fa.wq[k]), lin);
-      for (int p = tid; p < fa.P; p += LSA_THREADS)
-        lin = fmaf(round_to<CT>(fa.x[(size_t)b * fa.P + p]),
-                   to_float(fa.wx[p]), lin);
+      // 5. the transition agent over [ctx | h_att | x] (the h_att and x
+      // terms taken in the prologue)
       lin = block_reduce<false>(lin, s_red);
       if (tid == 0) fa.tp_out[b] = 1.0f / (1.0f + expf(-(lin + fa.bias[0])));
     }
@@ -1471,33 +1584,38 @@ lsa_attention_kernel(const float* __restrict__ h_att,
   cluster_wait();
 }
 
-// the forward family's staged instances on bf16 streams declared at two
-// CTAs an SM (at most 128 registers a thread): under the template's bound
-// alone ptxas held them to 64 registers and spilled
-#define LSA_STAGED_PARAMS(ST)                                               \
-  const float* __restrict__ h_att, const float* __restrict__ cum,           \
-      const ST* __restrict__ memory, const ST* __restrict__ mtb,            \
-      const float* __restrict__ mask_add, const bf16* __restrict__ wq,      \
-      const bf16* __restrict__ lc, const float* __restrict__ v,             \
-      float* __restrict__ ctx_out, float* __restrict__ cum_out,             \
-      bf16* __restrict__ ctx_row, int ld_row, int B, int T, int H, int A,   \
-      int M, int K, int vec, FwdArgs<bf16> fa, StreamScales<bf16> sc,       \
-      StreamPlan plan
-#define LSA_STAGED_ARGS                                                     \
-  h_att, cum, memory, mtb, mask_add, wq, lc, v, ctx_out, cum_out, ctx_row,  \
-      ld_row, B, T, H, A, M, K, fa, sc, plan
-
-template <>
-__global__ void __launch_bounds__(LSA_THREADS, 2)
-lsa_attention_kernel<ATT_FWD, bf16, bf16>(LSA_STAGED_PARAMS(bf16)) {
-  lsa_staged_step<ATT_FWD, bf16>(LSA_STAGED_ARGS);
+template <int KIND, class CT, class ST>
+__global__ void __launch_bounds__(LSA_THREADS)
+lsa_attention_kernel(LSA_PARAMS(CT, ST)) {
+  if constexpr (lsa_staged<KIND, CT, ST>())
+    lsa_staged_step<KIND, ST>(LSA_STAGED_ARGS);
+  else
+    lsa_unstaged_step<KIND, CT, ST>(LSA_ARGS);
 }
 
-template <>
-__global__ void __launch_bounds__(LSA_THREADS, 2)
-lsa_attention_kernel<ATT_FWD_TRANS, bf16, bf16>(LSA_STAGED_PARAMS(bf16)) {
-  lsa_staged_step<ATT_FWD_TRANS, bf16>(LSA_STAGED_ARGS);
-}
+// the forward family's staged instances on bf16 streams, and its float32
+// instances, declared at two CTAs an SM (at most 128 registers a thread):
+// under the template's bound alone ptxas held the staged ones to 64
+// registers and spilled, and gave the float32 ones more than 128 (one CTA
+// an SM: half of B=240's 30 clusters at once)
+#define LSA_INSTANCE_2(KIND, CT, ST, STEP)                                   \
+  template <>                                                               \
+  __global__ void __launch_bounds__(LSA_THREADS, 2)                         \
+      lsa_attention_kernel<KIND, CT, ST>(LSA_PARAMS(CT, ST)) {              \
+    STEP;                                                                   \
+  }
+LSA_INSTANCE_2(ATT_FWD, bf16, bf16,
+               (lsa_staged_step<ATT_FWD, bf16>(LSA_STAGED_ARGS)))
+LSA_INSTANCE_2(ATT_FWD_TRANS, bf16, bf16,
+               (lsa_staged_step<ATT_FWD_TRANS, bf16>(LSA_STAGED_ARGS)))
+LSA_INSTANCE_2(ATT_FWD, float, float,
+               (lsa_unstaged_step<ATT_FWD, float, float>(LSA_ARGS)))
+LSA_INSTANCE_2(ATT_FWD_TRANS, float, float,
+               (lsa_unstaged_step<ATT_FWD_TRANS, float, float>(LSA_ARGS)))
+LSA_INSTANCE_2(ATT_FWD, float, int8_t,
+               (lsa_unstaged_step<ATT_FWD, float, int8_t>(LSA_ARGS)))
+LSA_INSTANCE_2(ATT_FWD_TRANS, float, int8_t,
+               (lsa_unstaged_step<ATT_FWD_TRANS, float, int8_t>(LSA_ARGS)))
 
 // the operands of one attention launch, untyped
 struct AttCall {

@@ -887,6 +887,33 @@ __global__ void __launch_bounds__(TA_THREADS, 4)
   train_attention_body<ATT_LS, float>(TA_ARGS);
 }
 
+// four consecutive elements of the compute type as float (16 or 8 bytes),
+// and stored from float (rounded to CT)
+__device__ __forceinline__ float4 load4ct(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4ct(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
+                     __high2float(hi));
+}
+__device__ __forceinline__ void store4ct(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4ct(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float elem4(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
 // ---------------------------------------------------------------------------
 // The LSTM cell's backward with its regularization for one (row, unit)
 // (ops/pallas_train_decoder.py:668-713), over the stored i|f|g|o
@@ -899,7 +926,11 @@ __global__ void __launch_bounds__(TA_THREADS, 4)
 // generator's cell, the dq @ Wq^T product (splitk_kernel or its reduction,
 // CellOut) for the attention cell; bwd_cell_kernel runs it alone.  Each
 // (row, unit) is one thread's: the in-place dc update reads and writes only
-// its own element.
+// its own element.  Where a thread takes four consecutive units (apply4:
+// bwd_head's epilogue, H a multiple of 4), their four cells are
+// independent work in flight at once and the outputs leave in 16-byte
+// stores: the epilogue runs at low occupancy (84 blocks of 4 warps at
+// B=50).
 // ---------------------------------------------------------------------------
 template <class CT>
 struct CellBwd {
@@ -918,10 +949,51 @@ struct CellBwd {
           to_float(a[3 * H]), c_prev != nullptr ? to_float(c_prev[o]) : 0.0f,
           dc[o]);
   }
+  // the outputs of one (row, unit): dc, dh_reg and the four gate
+  // gradients (before their rounding to CT)
+  struct Out {
+    float dc, dh_reg, d[4];
+  };
   // on operands already read: the gates i, f, g, o, the previous c and dc
   __device__ void apply(int row, int unit, float dht, float i, float f,
                         float gg, float og, float cp, float dct) const {
+    const Out r = compute(row, unit, dht, i, f, gg, og, cp, dct);
     const size_t o = (size_t)row * H + unit;
+    dc[o] = r.dc;
+    dh_reg[o] = r.dh_reg;
+    CT* d = dg + (size_t)row * 4 * H + unit;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q * H] = from_float<CT>(r.d[q]);
+  }
+  // four consecutive units [unit, unit + 4) of a row at once (four
+  // independent cells in flight a thread), on operands already read: dht,
+  // the gates g[q] (i, f, g, o), the previous c and dc of each; unit a
+  // multiple of 4 and the rows 16-byte aligned (H a multiple of 4): dc and
+  // dh_reg stored as float4, each gate gradient as four CT
+  __device__ __forceinline__ void apply4(int row, int unit, const float4& dht,
+                                         const float4 (&g)[4],
+                                         const float4& cp,
+                                         const float4& dct) const {
+    Out r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = compute(row, unit + j, elem4(dht, j), elem4(g[0], j),
+                     elem4(g[1], j), elem4(g[2], j), elem4(g[3], j),
+                     elem4(cp, j), elem4(dct, j));
+    const size_t o = (size_t)row * H + unit;
+    store4ct(dc + o, make_float4(r[0].dc, r[1].dc, r[2].dc, r[3].dc));
+    store4ct(dh_reg + o, make_float4(r[0].dh_reg, r[1].dh_reg,
+                                     r[2].dh_reg, r[3].dh_reg));
+    CT* d = dg + (size_t)row * 4 * H + unit;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      store4ct(d + (size_t)q * H,
+               make_float4(r[0].d[q], r[1].d[q], r[2].d[q], r[3].d[q]));
+  }
+  __device__ __forceinline__ Out compute(int row, int unit, float dht,
+                                         float i, float f, float gg,
+                                         float og, float cp,
+                                         float dct) const {
     const float tanh_c = tanhf(f * cp + i * gg);
     float dh_new = dht, dh_prev = 0.0f, dc_state = dct, dc_prev = 0.0f;
     if (reg.mode == 1) {
@@ -939,26 +1011,43 @@ struct CellBwd {
       dh_new = keep ? dht * reg.scale : 0.0f;
     }
     const float dc_new = dc_state + dh_new * og * (1.0f - tanh_c * tanh_c);
-    dc[o] = dc_prev + dc_new * f;
-    dh_reg[o] = dh_prev;
-    CT* d = dg + (size_t)row * 4 * H + unit;
-    d[0] = from_float<CT>(dc_new * gg * i * (1.0f - i));
-    d[H] = from_float<CT>(dc_new * cp * f * (1.0f - f));
-    d[2 * H] = from_float<CT>(dc_new * i * (1.0f - gg * gg));
-    d[3 * H] = from_float<CT>(dh_new * tanh_c * og * (1.0f - og));
+    return Out{dc_prev + dc_new * f,
+               dh_prev,
+               {dc_new * gg * i * (1.0f - i), dc_new * cp * f * (1.0f - f),
+                dc_new * i * (1.0f - gg * gg),
+                dh_new * tanh_c * og * (1.0f - og)}};
   }
 };
 
 // the dq @ Wq^T product's epilogue (N = H): dh_tot = add + v, the final sum
 // (splitk_kernel's own when K is whole, splitk_reduce_kernel's when it is
-// split, never a slice's partial), then the attention cell's backward
+// split, never a slice's partial), then the attention cell's backward.
+// The reduction reads the cell's operands (prefetch) before the partials,
+// so that both round trips overlap (at the flagship's B=50 the product's K
+// is always split: splitk_slices)
 template <class CT>
 struct CellOut {
   const float* add;
   int ldadd;
   CellBwd<CT> cell;
+  struct Ops {
+    float add, i, f, g, o, cp, dc;
+  };
   __device__ __forceinline__ void put(int row, int col, float v) const {
-    cell(row, col, add[(size_t)row * ldadd + col] + v);
+    put(row, col, v, prefetch(row, col));
+  }
+  __device__ __forceinline__ Ops prefetch(int row, int col) const {
+    const size_t o = (size_t)row * cell.H + col;
+    const CT* a = cell.act + (size_t)row * 4 * cell.H + col;
+    return Ops{add[(size_t)row * ldadd + col], to_float(a[0]),
+               to_float(a[cell.H]), to_float(a[2 * cell.H]),
+               to_float(a[3 * cell.H]),
+               cell.c_prev != nullptr ? to_float(cell.c_prev[o]) : 0.0f,
+               cell.dc[o]};
+  }
+  __device__ __forceinline__ void put(int row, int col, float v,
+                                      const Ops& x) const {
+    cell.apply(row, col, x.add + v, x.i, x.f, x.g, x.o, x.cp, x.dc);
   }
 };
 
@@ -973,7 +1062,8 @@ struct CellOut {
 // (the four gate slices, c_prev, dc) into shared memory with cp.async
 // beside its weight tile, so that their latency overlaps, parks its
 // dh_gen_tot tile in shared memory after the product, and then runs the
-// cells a thread a unit, consecutive threads on consecutive units.  W is
+// cells a thread four consecutive units (CellBwd::apply4), consecutive
+// threads on consecutive groups.  W is
 // the head weight [M + 1, ldw] (one row per output, inputs
 // contiguous), so W[:M] is the product's B as it lies ("KN", n contiguous).
 //
@@ -1235,14 +1325,35 @@ bwd_head_kernel(const float* __restrict__ dspec,
                base[mt][nt][e]);
   if (!fused) return;
   __syncthreads();
-  for (int p = tid; p < BH_BM * BH_BN; p += BH_THREADS) {
-    const int r = p / BH_BN, c = p % BH_BN;
+  // the cells four consecutive units a thread (CellBwd::apply4: four
+  // independent cells in flight, 16-byte stores) where H and the outputs'
+  // rows allow, else one unit at a time
+  const bool v4 = H % 4 == 0 &&
+                  ((uintptr_t)cell.dc | (uintptr_t)cell.dh_reg) % 16 == 0 &&
+                  (uintptr_t)cell.dg % (4 * sizeof(CT)) == 0;
+  for (int p = tid; p < BH_BM * (BH_BN / 4); p += BH_THREADS) {
+    const int r = p / (BH_BN / 4), c = (p % (BH_BN / 4)) * 4;
     const int row = row0 + r, col = col0 + c;
     if (row >= B || col >= H) continue;
     const CT* a = s_act + r * 4 * BH_BN + c;
-    cell.apply(row, col, s_dht[p], to_float(a[0]), to_float(a[BH_BN]),
-               to_float(a[2 * BH_BN]), to_float(a[3 * BH_BN]),
-               cell.c_prev != nullptr ? to_float(s_cp[p]) : 0.0f, s_dc[p]);
+    const int e = r * BH_BN + c;
+    if (v4 && col + 4 <= H) {
+      float4 g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) g[q] = load4ct(a + q * BH_BN);
+      cell.apply4(row, col, *reinterpret_cast<const float4*>(s_dht + e), g,
+                  cell.c_prev != nullptr
+                      ? load4ct(s_cp + e)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                  *reinterpret_cast<const float4*>(s_dc + e));
+      continue;
+    }
+    for (int j = 0; j < 4 && col + j < H; ++j)
+      cell.apply(row, col + j, s_dht[e + j], to_float(a[j]),
+                 to_float(a[BH_BN + j]), to_float(a[2 * BH_BN + j]),
+                 to_float(a[3 * BH_BN + j]),
+                 cell.c_prev != nullptr ? to_float(s_cp[e + j]) : 0.0f,
+                 s_dc[e + j]);
   }
 }
 

@@ -1022,16 +1022,35 @@ splitk_kernel(const bf16* __restrict__ A, int lda, int avec,
       }
 }
 
-// the S partials of each (row, col), summed in slice order
+// an epilogue that reads operands of its own: `prefetch(row, col)` reads
+// them and `put(row, col, v, ops)` takes them back (CellOut)
+template <class E, class = void>
+struct epi_prefetches : std::false_type {};
+template <class E>
+struct epi_prefetches<E, std::void_t<decltype(std::declval<const E&>()
+                                                  .prefetch(0, 0))>>
+    : std::true_type {};
+
+// the S partials of each (row, col), summed in slice order; an epilogue's
+// own operands are read before the partials, so that their latencies
+// overlap
 template <class Epi>
 __global__ void splitk_reduce_kernel(const float* __restrict__ part, int S,
                                      int M, int N, Epi epi) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t mn = (size_t)M * N;
   if (idx >= mn) return;
-  float v = part[idx];
-  for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + idx];
-  epi.put((int)(idx / N), (int)(idx % N), v);
+  const int row = (int)(idx / N), col = (int)(idx % N);
+  if constexpr (epi_prefetches<Epi>::value) {
+    const auto ops = epi.prefetch(row, col);
+    float v = part[idx];
+    for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + idx];
+    epi.put(row, col, v, ops);
+  } else {
+    float v = part[idx];
+    for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + idx];
+    epi.put(row, col, v);
+  }
 }
 
 // K is split into `slices` of `kslice`; with slices > 1, `scratch` holds
@@ -1858,8 +1877,11 @@ __device__ __forceinline__ void chunk_floats(float* x, const uint4& u,
 }
 
 // ROUND: round each product to bf16 (ST bf16, and int8 streams of a bf16
-// decoder); otherwise float32 products
-template <bool ROUND = true, class ST>
+// decoder); otherwise float32 products.  BATCH > 1: a slot reads that many
+// of its periods' chunks at once before it adds any (the same sums in the
+// same order), so that as many reads are in flight (the forward family's
+// float32 instances)
+template <bool ROUND = true, int BATCH = 1, class ST>
 __device__ __forceinline__ void ctx_partials(
     const CtxScheme& S, float* __restrict__ scratch,
     const ST* __restrict__ mem, const float* __restrict__ w, int rows,
@@ -1876,10 +1898,9 @@ __device__ __forceinline__ void ctx_partials(
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
-#pragma unroll 2
-    for (int p = grp; p < n_per; p += G) {
+    // the chunk of period p as floats, zero past the rows
+    auto chunk = [&](float* x, int p) {
       const long long base = (long long)p * PM + V * c;
-      float x[V];
       if (vec && base + V <= n_el) {
         chunk_floats(x, *reinterpret_cast<const uint4*>(mem + base), mem);
       } else {
@@ -1887,11 +1908,47 @@ __device__ __forceinline__ void ctx_partials(
         for (int j = 0; j < V; ++j)
           x[j] = base + j < n_el ? to_float(mem[base + j]) : 0.0f;
       }
+    };
+    auto add = [&](const float* x, int p) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const int r = p * P + rr[j];
         const float wt = r < rows ? w[r] : 0.0f;
         acc[j] += ROUND ? round_bf16(x[j] * wt) : x[j] * wt;
+      }
+    };
+    if constexpr (BATCH == 1) {
+#pragma unroll 2
+      for (int p = grp; p < n_per; p += G) {
+        float x[V];
+        chunk(x, p);
+        add(x, p);
+      }
+    } else {
+      // the chunks held as they lie (16 bytes each) until they are added;
+      // a chunk past the rows or not 16-byte aligned is read as elements
+      // when it is added
+      for (int p0 = grp; p0 < n_per; p0 += G * BATCH) {
+        uint4 raw[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const long long base = (long long)(p0 + u * G) * PM + V * c;
+          raw[u] = p0 + u * G < n_per && vec && base + V <= n_el
+                       ? *reinterpret_cast<const uint4*>(mem + base)
+                       : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int p = p0 + u * G;
+          if (p >= n_per) continue;
+          const long long base = (long long)p * PM + V * c;
+          float x[V];
+          if (vec && base + V <= n_el)
+            chunk_floats(x, raw[u], mem);
+          else
+            chunk(x, p);
+          add(x, p);
+        }
       }
     }
 #pragma unroll

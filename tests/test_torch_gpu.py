@@ -986,6 +986,107 @@ def test_dq_product_with_the_attention_cell_matches_plain(b, k,
     _check_cell_outputs(got, again, run(ftd.PLAIN.bwd_gemm), regularization)
 
 
+def _f32_cell_operands(b, h, regularization, seed):
+    """A float32 cell backward's operands at H units (the flagship's 1024,
+    or a ragged width): the stored activations, the previous cell state, a
+    dc carry, and a train-mode regularization of zoneout 0.1, h dropout 0.1
+    or none."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    act = torch.sigmoid(rnd(b, 4 * h))
+    act[:, 2 * h:3 * h] = torch.tanh(rnd(b, h))
+    cfg = ftd.TrainConfig(
+        hidden=h, mem_dim=_MEM, prenet_dim=256, n_prenet=2, mmel=_MELS,
+        att_dim=_ATT, taps=_TAPS, dropout_rate=0.5,
+        zoneout_h=0.0 if regularization == "none" else 0.1,
+        zoneout_c=0.1 if regularization == "zoneout" else 0.0,
+        use_zoneout=regularization == "zoneout", dtype=torch.float32)
+    reg = cfg.reg("gen", (2654435761, 40503), 5)
+    assert reg[6] == {"none": 0, "zoneout": 1, "dropout": 2}[regularization]
+    return act, rnd(b, h), rnd(b, h, scale=0.1), reg, rnd
+
+
+@pytest.mark.parametrize("regularization", ["zoneout", "dropout", "none"])
+@pytest.mark.parametrize("h", [1024, 1001])
+@pytest.mark.parametrize("b", [1, 50])
+@pytest.mark.parametrize("host", ["bwd_head", "dq_split", "dq_whole"])
+def test_f32_cells_match_plain(host, b, h, regularization):
+    """Both float32 LSTM cell backwards as the training path runs them: the
+    generator cell in ``bwd_head``'s epilogue, the attention cell in the dq
+    @ Wq^T product's, with K = 128 split (the cell in the reduction, its
+    operands read before the partials) and K = 64 whole (the cell in the
+    product's own epilogue), at the flagship's H = 1024 and a ragged H =
+    1001 (the generator cell's scalar fallback), B=1
+    and 50, zoneout, dropout and no regularization: against the plain
+    product or head followed by ``bwd_cell_plain``, the regularization's
+    choices bit-exact, every output within the float32 instances' bound
+    (F32_TOL of its largest; their products' sums in another order than
+    plain move dh_tot, measured up to 7.7e-7 of the largest output), a
+    second run bit-identical."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        _splitk,
+        fused_train_decoder as ftd,
+    )
+
+    act, c_prev, dc0, reg, rnd = _f32_cell_operands(b, h, regularization,
+                                                    seed=b + h)
+    if host == "bwd_head":
+        cfg = SimpleNamespace(mmel=_MELS, hidden=h, mem_dim=_MEM)
+        head_w = torch.zeros(_MELS + 1, h + _MEM + 4, device="cuda")
+        head_w[:, :h + _MEM] = rnd(_MELS + 1, h + _MEM,
+                                   scale=(h + _MEM) ** -0.5)
+        ops = (rnd(b, _MELS), rnd(b), rnd(b, _MELS), head_w,
+               rnd(b, h, scale=0.1), rnd(b, _MEM))
+    else:
+        k = 128 if host == "dq_split" else 64
+        dq, wq = rnd(b, k, scale=0.1), rnd(h, k, scale=k ** -0.5)
+        add = rnd(b, h, scale=0.1)
+        slices, _, _ = _splitk.split(ftd._lib(), b, h, k, None, dq.device)
+        assert (slices > 1) == (host == "dq_split")
+
+    def run(kernels):
+        dc = dc0.clone()
+        cell = ftd.CellArgs(act, c_prev, dc, torch.empty(b, 4 * h,
+                                                         device="cuda"),
+                            torch.empty(b, h, device="cuda"), reg)
+        if host == "bwd_head":
+            dspec, dstop, dframe, w, dh_gen, dctx = ops
+            kernels.bwd_head(dspec, dstop, dframe, w,
+                             torch.empty(b, _MELS, device="cuda"), dh_gen,
+                             dctx, None, torch.empty(b, _MEM, device="cuda"),
+                             cfg, cell=cell)
+        else:
+            kernels.bwd_gemm(dq, wq, False, [(0, h, None, add)], cell=cell)
+        return [dc, cell.dg, cell.dh_reg]
+
+    ftd.reset_launch_counts()
+    got, again = run(ftd.KERNELS), run(ftd.KERNELS)
+    assert ftd.LAUNCHES["bwd_cell_f32"] == 2, ftd.LAUNCHES
+    ref = run(ftd.PLAIN)
+    dc, dg, dh_reg = got
+    if regularization == "zoneout":
+        assert torch.equal(dh_reg != 0, ref[2] != 0)
+        assert 0 < int((ref[2] != 0).sum()) < ref[2].numel()
+    elif regularization == "dropout":
+        o_g, o_r = dg[:, 3 * h:], ref[1][:, 3 * h:]
+        assert torch.equal(o_g == 0, o_r == 0)
+        assert 0 < int((o_r == 0).sum()) < o_r.numel()
+    else:
+        assert not dh_reg.any() and not ref[2].any()
+    bound = train_kernel_bound("bwd_cell", torch.float32)["f32"]
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= bound * float(r.abs().max())
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
 @pytest.mark.parametrize("phase", ["serving", "training"])
 @pytest.mark.parametrize("strategy", ["shared", "separate"])
 def test_kernels_match_plain_at_the_strategies_widths(strategy, phase):
@@ -1870,6 +1971,60 @@ def test_fwd_attention_matches_plain_at_flagship_widths(kind, b, t,
     else:
         torch.testing.assert_close(tp_k, tp_p, atol=2e-3, rtol=0)
         assert torch.equal(again[2], tp_k)
+
+
+@pytest.mark.parametrize("mem_dim", [288, 292, 548])
+@pytest.mark.parametrize("t", [1, 7, 120, 128, 600, 1500])
+@pytest.mark.parametrize("b", [1, 7, 240])
+@pytest.mark.parametrize("kind", _FAMILY)
+def test_f32_fwd_attention_matches_plain_at_every_shape(kind, b, t,
+                                                        mem_dim, _full_f32):
+    """K1 ``fwd_attention``'s float32 instance on float32 streams (the
+    energy a lane per four channels with FE32_UNROLL positions' reads in
+    flight, the softmax's max and sum in one reduction, the agent's h_att
+    and x terms in the prologue) at the separate, flagship and shared
+    strategies' 288-, 292- and 548-wide memory, B=1, 7 and 240, T from 1
+    to 1500: the context, the weights and t_prob within F32_TOL of their
+    largest, every row a floored distribution, one launch, a second run
+    bit-identical.  Its instance on int8 streams is held by
+    ``test_attention_on_int8_streams_matches_plain``."""
+    gen = torch.Generator(device="cuda").manual_seed(3 * b + t + mem_dim)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    memory, mtb = rnd(b, t, mem_dim), rnd(b, t, _ATT, scale=0.5)
+    lengths = torch.randint(max(1, t // 2), t + 1, (b,), device="cuda",
+                            generator=gen)
+    mask = torch.arange(t, device="cuda")[None] < lengths[:, None]
+    mask_add = torch.where(mask, 0.0, -1e9)
+    bundle = SimpleNamespace(
+        dtype=torch.float32, q_streams=False,
+        att_kind="fwd" if kind == "forward" else "fwd_trans",
+        wq=rnd(_HIDDEN, _ATT, scale=_HIDDEN ** -0.5), lc=None,
+        v=rnd(_ATT, scale=_ATT ** -0.5), pre_dims=(_MELS, 256, 2))
+    if kind != "forward":
+        bundle.ta_wc = rnd(mem_dim, scale=mem_dim ** -0.5)
+        bundle.ta_wq = rnd(_HIDDEN, scale=_HIDDEN ** -0.5)
+        bundle.ta_wx = rnd(256, scale=1 / 16)
+        bundle.ta_b = rnd(1, scale=0.1)
+    prev, tp = _fwd_state(b, t, mask, seed=b * t + 1)
+    tp = tp if kind != "forward" else None
+    h_att, x = rnd(b, _HIDDEN), rnd(b, 256).relu()
+    args = (h_att, prev, tp, memory, mtb, mask_add, x, bundle)
+    fd.reset_launch_counts()
+    got = fd.fwd_attention(*args)
+    assert fd.LAUNCHES["fwd_attention_f32"] == 1
+    again = fd.fwd_attention(*args)
+    ref = fd.fwd_attention_plain(*args)
+    for g, a, r in zip(got, again, ref):
+        if r is None:
+            assert g is None and a is None
+            continue
+        _f32_close(g, r)
+        assert torch.equal(g, a)
+    torch.testing.assert_close(got[1].sum(-1), torch.ones_like(got[1][:, 0]))
+    assert float(got[1].min()) > 0.0
 
 
 def _family_train_operands(kind, b, t, seed):

@@ -20,6 +20,9 @@ the PyTorch port's CUDA sources, on one NVIDIA GPU.
     python3 tools/torch_kernel_variants.py time lsa_flagship_staged
     python3 tools/torch_kernel_variants.py checks lsa_flagship_staged_checks
     python3 tools/torch_kernel_variants.py ab --base PARENT K1q8 K1fam
+    python3 tools/torch_kernel_variants.py --root PARENT time f32fam_no_energy f32fam_no_tanh f32fam_one_reduction_fewer f32fam_no_ctx f32fam_no_agent_tail f32fam_floor cell_no_tanh
+    python3 tools/torch_kernel_variants.py time f32fam_new_no_energy f32fam_new_no_ctx f32fam_l2_prefetch f32fam_l2_prefetch_mt f32fam_l2_prefetch_mt_late f32fam_unroll_16 f32fam_ctx_batch_16 f32fam_ctx_batch_4
+    python3 tools/torch_kernel_variants.py ab --base PARENT K1f32 K1f32fam K1f32fam548 K3cell K1
 
 Each variant copies ``multilingual_text_to_speech_tpu_torch`` under the
 ignored ``build/variants/<name>/``, replaces pieces of a ``csrc`` source
@@ -82,7 +85,15 @@ bulk copies) each ring's mbarrier wait moved after its tile's reads, the
 context's tiles past the first one position off, a scale pair swapped, the
 softmax's (max, sum) pairs summed without their rescale by exp(m_j - M), the
 transition agent's prologue share of h_att and x dropped, or the ragged
-tail of a tile left uncopied; and runs the checks
+tail of a tile left uncopied; and in the forward family's energy loop
+(``fam_energies``, the float32 and the staged instances) the last lane's
+partial of each position dropped, each lane's stream group read one
+group on, or an int8 lane's scales a channel off, and in its float32 step
+the (max, sum) rescale or the agent's prologue share dropped (phases
+``K1f32:forward``, ``K1f32:forward_transition_agent``, ``K1q8:forward``:
+the checks at that attention type); and in K3's cells the attention
+cell's c_prev read a unit off in the reduction's prefetch, or a four-unit
+cell's c_prev taken from the next unit (``K3f32``); and runs the checks
 of that kernel's
 ``chip_smoke`` phase (``phase_kernels`` for K1, ``phase_variant_kernels``
 for its float32 (``K1f32``) and int8-stream (``K1q8``: bf16 and float32,
@@ -110,7 +121,8 @@ alone); ``lsa_flagship_staged_checks`` runs K1's checks with the
 flagship's bf16 location-sensitive instance staged as well.
 
 ``ab --base DIR NAME ...`` runs each named timing script (K1, K1f32,
-K1q8, K1fam, K2, K2fam, K3, K3fam, prenet, gates: those of ``time``) on DIR's package and on the
+K1f32fam, K1f32fam548, K1q8, K1fam, K2, K2fam, K3, K3fam, K3cell, prenet,
+gates: those of ``time``) on DIR's package and on the
 checkout's in turns (base, change, change, base), e.g. the parent commit's
 against this one.
 
@@ -159,7 +171,20 @@ step with a part left out or changed (``staged_no_waits``,
 ``staged_cp_async``: the rings filled by cp.async, ``staged_mt_at_start``:
 the memory transform issued ahead of Wq's copy); ``staged_phase_clock``
 (timer ``K1trace``) reads each phase's cycles from each CTA's clock, and
-``parent_phase_clock`` the parent kernel's (``--root PARENT``).
+``parent_phase_clock`` the parent kernel's (``--root PARENT``); the
+forward family's float32 instances (``K1f32fam``: fwd and agent on float32
+and on int8 streams, B=240, T=128, with the clusters each launch holds at
+once; ``K1f32fam548``: on float32 streams at the 548-wide memory), on the
+parent with a part left out (``f32fam_no_energy``, ``f32fam_no_tanh``,
+``f32fam_one_reduction_fewer``, ``f32fam_no_ctx``, ``f32fam_no_agent_tail``,
+``f32fam_floor``: energy and context), the redesigned step with a part
+left out (``f32fam_new_no_energy``, ``f32fam_new_no_ctx``), its streams
+hinted to L2 (``f32fam_l2_prefetch``, ``..._mt``, ``..._mt_late``) or
+other reads in flight (``f32fam_unroll_16``, ``f32fam_ctx_batch_16``,
+``f32fam_ctx_batch_4``); K3's cells (``K3cell``: B=50, both types, each
+host with and without its cell, what each cell adds, both alone, and a
+digest of each host's cell outputs), also with the cell's tanhf left out
+(``cell_no_tanh``).
 
 Prints every run and, last, one JSON object of the results, also written
 to ``build/variants/kernel_variants_<mode>.json``.
@@ -335,6 +360,8 @@ _LSA_NO_AGENT_TAIL = (
     "    if (KIND == ATT_FWD_TRANS) {\n      // 5. the transition agent",
     "    if (false) {\n      // 5. the transition agent")
 _LSA_NO_MAX_REDUCTION = ("    mx = block_reduce<true>(mx, s_red);\n", "")
+_F32FAM_CTX = ("    ctx_partials<!F32>(L.cs, s_cpart, mem_b, s_e, T, M, vec, "
+               "LSA_THREADS);\n")
 _FLAGSHIP_STAGED = (
     "         (std::is_same<ST, int8_t>::value || KIND != ATT_LS);\n",
     "         true;\n")
@@ -426,12 +453,16 @@ VARIANTS = {
     "fwd_floor_on_padding": (
         "fused_decoder.cu",
         "      float wsum = 0.0f;\n      for (int t = tid; t < T; "
-        "t += LSA_THREADS) {\n        const float energy = expf(",
+        "t += LSA_THREADS) {\n        const float energy = expf(s_e[t] - mx) "
+        "/ sum;\n        const float prev = s_prev[t];\n"
+        "        const float sh = t > 0 ? round_bf16(",
         "      float wsum = 0.0f;\n"
         "      for (int t = T + tid; t < L.tpad; t += LSA_THREADS) "
         "wsum += 1e-6f;\n"
         "      for (int t = tid; t < T; t += LSA_THREADS) {\n"
-        "        const float energy = expf(",
+        "        const float energy = expf(s_e[t] - mx) / sum;\n"
+        "        const float prev = s_prev[t];\n"
+        "        const float sh = t > 0 ? round_bf16(",
         "K1:forward"),
     "fwd_bwd_current_tp": (
         "fused_train_decoder.cu",
@@ -537,8 +568,11 @@ VARIANTS = {
         "        tf32_split<4>(ah[mt], al[mt], ah[mt]);", "K3f32"),
     "f32_cell_dg_stored_bf16": (
         "fused_train_decoder.cu",
-        "    d[0] = from_float<CT>(dc_new * gg * i * (1.0f - i));",
-        "    d[0] = from_float<CT>(round_bf16(dc_new * gg * i * (1.0f - i)));",
+        [Alt(("    d[0] = from_float<CT>(dc_new * gg * i * (1.0f - i));",
+              "    d[0] = from_float<CT>(round_bf16(dc_new * gg * i * "
+              "(1.0f - i)));"),
+             ("               {dc_new * gg * i * (1.0f - i), ",
+              "               {round_bf16(dc_new * gg * i * (1.0f - i)), "))],
         "K3f32"),
     "f32_att_bwd_dz_bf16": (
         "fused_train_decoder.cu", "                make_float2(dz0, dz1);",
@@ -725,13 +759,70 @@ VARIANTS = {
     "staged_agent_prologue_dropped": (
         "fused_decoder.cu",
         "  if (KIND == ATT_FWD_TRANS && live) {\n#pragma unroll 4\n"
-        "    for (int k = tid; k < H; k += LSA_THREADS)\n",
+        "    for (int k = tid; k < H; k += LSA_THREADS)\n"
+        "      lin = fmaf(round_bf16(h_att",
         "  if (false) {\n#pragma unroll 4\n"
-        "    for (int k = tid; k < H; k += LSA_THREADS)\n",
+        "    for (int k = tid; k < H; k += LSA_THREADS)\n"
+        "      lin = fmaf(round_bf16(h_att",
         "K1:forward_transition_agent"),
     "staged_ragged_tail_dropped": (
         "fused_decoder.cu", "  const int tail = bulk ? (int)(u + n - z) : 0;\n",
         "  const int tail = 0;\n", "K1q8"),
+    # K1's forward family (fam_energies: a lane per group of 4 float32
+    # channels or 8 int8 codes or bf16, U positions' reads in flight; the
+    # float32 step's one (max, sum) reduction and agent's terms in the
+    # prologue): the last lane's partial of each position dropped; each
+    # lane's stream group read one group on (its q and v its own); the
+    # (max, sum) pairs summed without their rescale; the agent's prologue
+    # share of h_att and x dropped; an int8 lane's scales taken a channel
+    # off.  And K3's cell backward: the attention cell's c_prev read one
+    # unit off in the reduction's prefetch; a four-unit cell's c_prev taken
+    # from the next unit (CellBwd::apply4, the generator cell in bwd_head)
+    "f32fam_position_partial_dropped": (
+        "fused_decoder.cu",
+        "    for (int off = lpr >> 1; off > 0; off >>= 1)\n#pragma unroll\n"
+        "      for (int u = 0; u < U; ++u)\n",
+        "#pragma unroll\n    for (int u = 0; u < U; ++u)\n"
+        "      if (sub == lpr - 1) e[u] = 0.0f;\n"
+        "    for (int off = lpr >> 1; off > 0; off >>= 1)\n#pragma unroll\n"
+        "      for (int u = 0; u < U; ++u)\n", "K1f32:forward"),
+    "f32fam_channel_group_off": (
+        "fused_decoder.cu",
+        "        m[u] = mt_group(rows + (size_t)(t - lo) * A + FW * sub, "
+        "aligned);",
+        "        m[u] = mt_group(rows + (size_t)(t - lo) * A + FW * ((sub + 1) "
+        "% ng),\n                        aligned);", "K1f32:forward"),
+    "f32fam_softmax_no_rescale": (
+        "fused_decoder.cu",
+        [("  float ws = m == -CUDART_INF_F ? 0.0f : s * expf(m - wm);\n",
+          "  float ws = m == -CUDART_INF_F ? 0.0f : s;\n"),
+         ("    s += mw == -CUDART_INF_F ? 0.0f : scratch[2 * w + 1] * "
+          "expf(mw - m);\n",
+          "    s += mw == -CUDART_INF_F ? 0.0f : scratch[2 * w + 1];\n")],
+        "K1f32:forward"),
+    "f32fam_agent_prologue_dropped": (
+        "fused_decoder.cu",
+        "  if (KIND == ATT_FWD_TRANS && live) {\n#pragma unroll 4\n"
+        "    for (int k = tid; k < H; k += LSA_THREADS)\n"
+        "      lin = fmaf(h_att[",
+        "  if (false) {\n#pragma unroll 4\n"
+        "    for (int k = tid; k < H; k += LSA_THREADS)\n"
+        "      lin = fmaf(h_att[",
+        "K1f32:forward_transition_agent"),
+    "f32fam_q8_scale_off": (
+        "fused_decoder.cu",
+        "    sr[i] = own && q8 ? s_mts[a] : 1.0f;",
+        "    sr[i] = own && q8 ? s_mts[a ^ 1] : 1.0f;", "K1q8:forward"),
+    "cell_prefetch_unit_off": (
+        "fused_train_decoder.cu",
+        "               cell.c_prev != nullptr ? to_float(cell.c_prev[o]) : "
+        "0.0f,",
+        "               cell.c_prev != nullptr ? to_float(cell.c_prev[o + 1])"
+        " : 0.0f,", "K3f32"),
+    "cell_apply4_unit_off": (
+        "fused_train_decoder.cu",
+        "                     elem4(cp, j), elem4(dct, j));",
+        "                     elem4(cp, (j + 1) & 3), elem4(dct, j));", "K3f32"),
     # the staged instances with smaller rings (the memory transform in one
     # slot of 16 KB, the memory in two of 19 KB): three CTAs an SM
     "staged_small_rings": (
@@ -752,8 +843,9 @@ VARIANTS = {
         "      if (tid < G * C)\n        staged_ctx_tile<ST>(acc,",
         "      if (false)\n        staged_ctx_tile<ST>(acc,", "time K1fam"),
     "staged_no_energy": (
-        "fused_decoder.cu", "      else\n        staged_fwd_energies(",
-        "      else if (false)\n        staged_fwd_energies(", "time K1fam"),
+        "fused_decoder.cu", "      else\n        fam_energies<FE_UNROLL, bf16>(",
+        "      else if (false)\n        fam_energies<FE_UNROLL, bf16>(",
+        "time K1fam"),
     # the staged step's phases on each CTA's clock (cycles from its start,
     # thread 0's, written over the first weights of its row): the
     # prologue, the query, the cluster exchange, the energies, the softmax,
@@ -1202,6 +1294,118 @@ VARIANTS = {
                              _LSA_NO_MAX_REDUCTION],
         "tile.cuh": _CTX_WRAPPED},
         "time K1q8,K1fam"),
+    # what the parts of K1's float32 forward-family step cost (wrong
+    # results; timing only, on the parent's kernel: a warp a position in
+    # the energy loop): the energy loop left out (s_e zero), its tanhf left
+    # out (the identity), the softmax's max reduction left out, the context
+    # left out (ctx_partials), the transition agent's tail left out; the
+    # energy loop and the context both left out
+    "f32fam_no_energy": (
+        "fused_decoder.cu",
+        [("      // a warp a position, a lane every 32nd channel\n",
+          "    } else {\n      // one warp per 16 positions",
+          "      for (int t = tid; t < T; t += LSA_THREADS) s_e[t] = 0.0f;\n")],
+        "time K1f32fam"),
+    "f32fam_no_tanh": (
+        "fused_decoder.cu",
+        "          e = fmaf(s_v[a], tanhf(s_q[a] + mt), e);",
+        "          e = fmaf(s_v[a], s_q[a] + mt, e);", "time K1f32fam"),
+    "f32fam_one_reduction_fewer": (
+        "fused_decoder.cu", _LSA_NO_MAX_REDUCTION[0],
+        _LSA_NO_MAX_REDUCTION[1], "time K1f32fam"),
+    "f32fam_no_ctx": (
+        "fused_decoder.cu", _F32FAM_CTX, "", "time K1f32fam"),
+    "f32fam_no_agent_tail": (
+        "fused_decoder.cu", _LSA_NO_AGENT_TAIL[0], _LSA_NO_AGENT_TAIL[1],
+        "time K1f32fam"),
+    "f32fam_floor": (
+        "fused_decoder.cu",
+        [("      // a warp a position, a lane every 32nd channel\n",
+          "    } else {\n      // one warp per 16 positions",
+          "      for (int t = tid; t < T; t += LSA_THREADS) s_e[t] = 0.0f;\n"),
+         (_F32FAM_CTX, "")],
+        "time K1f32fam"),
+    # the redesigned float32 family step with a part left out (timing
+    # only): its energy loop, its context; and with hints to L2 of the
+    # streams it reads later: the row's memory transform at the start, its
+    # memory once the query has run
+    "f32fam_new_no_energy": (
+        "fused_decoder.cu",
+        [("      fam_energies<FE32_UNROLL, float>(", "    } else {",
+          "      for (int t = tid; t < T; t += LSA_THREADS) s_e[t] = 0.0f;\n")],
+        "time K1f32fam"),
+    "f32fam_new_no_ctx": (
+        "fused_decoder.cu",
+        "    ctx_partials<!F32, KIND != ATT_LS ? ctx32_batch<ST>() : 1>(",
+        "    if (KIND == ATT_LS)\n"
+        "      ctx_partials<!F32, KIND != ATT_LS ? ctx32_batch<ST>() : 1>(",
+        "time K1f32fam"),
+    "f32fam_l2_prefetch": (
+        "fused_decoder.cu",
+        [("  float* s_prev = reinterpret_cast<float*>(s_cum);\n",
+          "  float* s_prev = reinterpret_cast<float*>(s_cum);\n"
+          "  if (KIND != ATT_LS && live)\n"
+          "    for (size_t off = tid * 128; off < (size_t)T * A * sizeof(ST);"
+          "\n         off += LSA_THREADS * 128)\n"
+          "      asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
+          "(const char*)mtb_b + off));\n"),
+         ("  // the peers' partials are read: they may exit once this CTA has "
+          "too\n  cluster_arrive();\n  __syncthreads();\n\n  if (live) {\n"
+          "    // 2. energies\n",
+          "  // the peers' partials are read: they may exit once this CTA has "
+          "too\n  cluster_arrive();\n  __syncthreads();\n\n  if (live) {\n"
+          "    if (KIND != ATT_LS)\n"
+          "      for (size_t off = tid * 128; off < (size_t)T * M * sizeof(ST);"
+          "\n           off += LSA_THREADS * 128)\n"
+          "        asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
+          "(const char*)mem_b + off));\n"
+          "    // 2. energies\n")],
+        "time K1f32fam"),
+    # the memory transform's row alone hinted to L2: at the start (once
+    # Wq's copy is issued), or once the query has run (before the cluster
+    # exchange)
+    "f32fam_l2_prefetch_mt": (
+        "fused_decoder.cu",
+        "  float* s_prev = reinterpret_cast<float*>(s_cum);\n",
+        "  float* s_prev = reinterpret_cast<float*>(s_cum);\n"
+        "  if (KIND != ATT_LS && live)\n"
+        "    for (size_t off = tid * 128; off < (size_t)T * A * sizeof(ST);"
+        "\n         off += LSA_THREADS * 128)\n"
+        "      asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
+        "(const char*)mtb_b + off));\n", "time K1f32fam"),
+    "f32fam_l2_prefetch_mt_late": (
+        "fused_decoder.cu",
+        "  cluster_sync();\n  for (int a = tid; a < A; a += LSA_THREADS) {\n"
+        "    float sum = 0.0f;\n    for (int j = 0; j < LSA_ROWS; ++j)\n"
+        "      sum += cluster_peer(s_qp, j)[rank * A + a];\n"
+        "    s_q[a] = round_to<CT>(sum);",
+        "  if (KIND != ATT_LS && live)\n"
+        "    for (size_t off = tid * 128; off < (size_t)T * A * sizeof(ST);"
+        "\n         off += LSA_THREADS * 128)\n"
+        "      asm volatile(\"prefetch.global.L2 [%0];\" :: \"l\"("
+        "(const char*)mtb_b + off));\n"
+        "  cluster_sync();\n  for (int a = tid; a < A; a += LSA_THREADS) {\n"
+        "    float sum = 0.0f;\n    for (int j = 0; j < LSA_ROWS; ++j)\n"
+        "      sum += cluster_peer(s_qp, j)[rank * A + a];\n"
+        "    s_q[a] = round_to<CT>(sum);", "time K1f32fam"),
+    # the float32 family's reads in flight: 16 positions a lane in the
+    # energy loop (8 in the checkout), 16 or 4 periods a slot in the
+    # context on either stream (8 of float32, 4 of int8 in the checkout)
+    "f32fam_unroll_16": (
+        "fused_decoder.cu", "constexpr int FE32_UNROLL = 8;",
+        "constexpr int FE32_UNROLL = 16;", "time K1f32fam"),
+    "f32fam_ctx_batch_16": (
+        "fused_decoder.cu", "  return std::is_same<ST, int8_t>::value ? 4 : 8;",
+        "  return 16;", "time K1f32fam"),
+    "f32fam_ctx_batch_4": (
+        "fused_decoder.cu", "  return std::is_same<ST, int8_t>::value ? 4 : 8;",
+        "  return 4;", "time K1f32fam"),
+    # what K3's LSTM cell backward costs with its tanhf left out (the
+    # identity; wrong results, timing only), in both hosts and both types
+    "cell_no_tanh": (
+        "fused_train_decoder.cu",
+        "    const float tanh_c = tanhf(f * cp + i * gg);",
+        "    const float tanh_c = f * cp + i * gg;", "time K3cell"),
     # a hint to L2 at the start, one prefetch per 128-byte line, of the
     # bytes the kernel reads later (lsa_attention: the row's memory and
     # memory transform; att_bwd: its tile's memory transform and dmt)
@@ -1275,7 +1479,8 @@ elif phase in ("K1f32", "K1q8"):
               if phase == "K1f32" else
               [(cs.Q8, [(True, True)]), (cs.F32_Q8, [(True, True)])])
     for cfg, variants in groups:
-        h = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES, **cfg)
+        h = cs.flagship(cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES,
+                        attention or "location_sensitive", **cfg)
         cs.phase_variant_kernels(Synthesizer(h, sd, device="cuda"), h,
                                  variants)
     if phase == "K1q8":
@@ -1551,6 +1756,7 @@ for label, kind, cfg, strategy in @ROWS@:
     if strategy:
         s = cs.switching(strategy, cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES)
         h = cs.switching(strategy, cs.LAUNCH_FRAMES, cs.LAUNCH_FRAMES)
+        s.attention_type = h.attention_type = kind
         for k, v in settings.items():
             setattr(h, k, v)
     else:
@@ -1571,6 +1777,11 @@ for label, kind, cfg, strategy in @ROWS@:
                                         st.get("t_prob"), mem, mtb,
                                         mask_add, x, bundle)
     res[f"{{label}}_ms"] = cs.device_ms(call, ours_only=True)
+    if hasattr(fd, "attention_clusters"):
+        b, t, e = getattr(mem, "q", mem).shape
+        res[f"{{label}}_clusters"] = fd.attention_clusters(
+            bundle.att_kind, bundle.dtype, bundle.q_streams, b, t,
+            carry["h_att"].shape[1], getattr(mtb, "q", mtb).shape[-1], e)
     del syn
 print("VARIANT_RESULT " + json.dumps(res))
 """
@@ -1634,6 +1845,91 @@ _TIME_K1Q8 = _TIME_K1_ROWS.replace("@ROWS@", repr([
 _TIME_K1FAM = _TIME_K1_ROWS.replace("@ROWS@", repr([
     ("fwd", "forward", "", ""),
     ("trans", "forward_transition_agent", "", "")]))
+
+# K1f32fam: the family's float32 instances on float32 and on int8
+# streams; K1f32fam548: on float32 streams at the shared strategy's
+# 548-wide memory
+_TIME_K1F32FAM = _TIME_K1_ROWS.replace("@ROWS@", repr([
+    ("fwd", "forward", "F32", ""),
+    ("trans", "forward_transition_agent", "F32", ""),
+    ("fwd_q8", "forward", "F32_Q8", ""),
+    ("trans_q8", "forward_transition_agent", "F32_Q8", "")]))
+_TIME_K1F32FAM548 = _TIME_K1_ROWS.replace("@ROWS@", repr([
+    ("fwd_548", "forward", "F32", "shared"),
+    ("trans_548", "forward_transition_agent", "F32", "shared")]))
+
+
+# K3's LSTM cell backward at the training step's B=50 and the flagship's
+# widths (H=1024, A=128, M=80, Mem=292; zoneout), in both compute types:
+# its two hosts with and without their cell (the generator's in
+# bwd_head, the attention cell in the dq @ Wq^T product, whose K = 128 is
+# split in two: the cell runs in the reduction), what each cell adds, and
+# both cells alone (bwd_cell's own launch), and a digest of each host's
+# cell outputs
+_TIME_K3CELL = _PRELUDE + r"""
+import hashlib
+from types import SimpleNamespace
+from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
+torch.set_grad_enabled(False)
+b, a, mem, k, h, m = cs.TRAIN_B, 128, 292, 31, 1024, 80
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape, scale=1.0):
+    return torch.randn(*shape, device="cuda", generator=gen) * scale
+cfg = SimpleNamespace(mmel=m, hidden=h, mem_dim=mem)
+res = {{}}
+for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    tc = ftd.TrainConfig(hidden=h, mem_dim=mem, prenet_dim=256, n_prenet=2,
+                         mmel=m, att_dim=a, taps=k, dropout_rate=0.5,
+                         zoneout_h=0.1, zoneout_c=0.1, use_zoneout=True,
+                         dtype=ct)
+    act = torch.sigmoid(rnd(b, 4 * h))
+    act[:, 2 * h:3 * h] = torch.tanh(rnd(b, h))
+    cell = ftd.CellArgs(act.to(ct), rnd(b, h).to(ct), rnd(b, h, scale=0.1),
+                        torch.empty(b, 4 * h, dtype=ct, device="cuda"),
+                        torch.empty(b, h, device="cuda"),
+                        tc.reg("gen", (11, 12), 5))
+    w = torch.zeros(m + 1, 1344, device="cuda")
+    w[:, :h + mem] = rnd(m + 1, h + mem, scale=(h + mem) ** -0.5)
+    hargs = (rnd(b, m), rnd(b), rnd(b, m), w.to(ct),
+             torch.empty(b, m, dtype=ct, device="cuda"), rnd(b, h),
+             rnd(b, mem))
+    dht = torch.empty(b, h, device="cuda")
+    dctx = torch.empty(b, mem, device="cuda")
+    dq, wq = rnd(b, a, scale=0.1).to(ct), rnd(h, a, scale=a ** -0.5).to(ct)
+    add, out = rnd(b, h, scale=0.1), torch.empty(b, h, device="cuda")
+    runs = {{
+        "head": lambda: ftd.bwd_head(*hargs, dht, dctx, cfg),
+        "head_cell": lambda: ftd.bwd_head(*hargs, None, dctx, cfg,
+                                          cell=cell),
+        "dq": lambda: ftd.bwd_gemm(dq, wq, False, [(0, h, out, add)]),
+        "dq_cell": lambda: ftd.bwd_gemm(dq, wq, False, [(0, h, None, add)],
+                                        cell=cell),
+        "alone": lambda: ftd.bwd_cell(cell.act, cell.c_prev, add, cell.dc,
+                                      cell.dg, cell.dh_reg, cell.reg)}}
+    # the outputs of one run of each host with its cell from the same dc,
+    # as a number (the first 24 bits of their bytes' SHA-256): two
+    # checkouts whose cells agree bit for bit print the same
+    dc_init = cell.dc.clone()
+    def digest(run):
+        cell.dc.copy_(dc_init)
+        run()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for o in (cell.dc, cell.dg, cell.dh_reg):
+            h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return float(int(h.hexdigest()[:6], 16))
+    res[f"head_cell_digest_{{name}}"] = digest(runs["head_cell"])
+    res[f"dq_cell_digest_{{name}}"] = digest(runs["dq_cell"])
+    got = {{key: cs.device_ms(run, iters=50, ours_only=True)
+           for key, run in runs.items()}}
+    for key, v in got.items():
+        res[f"{{key}}_ms_{{name}}"] = v
+    res[f"gen_cell_ms_{{name}}"] = got["head_cell"] - got["head"]
+    res[f"att_cell_ms_{{name}}"] = got["dq_cell"] - got["dq"]
+    res[f"cells_ms_{{name}}"] = (res[f"gen_cell_ms_{{name}}"]
+                                 + res[f"att_cell_ms_{{name}}"])
+print("VARIANT_RESULT " + json.dumps(res))
+"""
 
 
 # the forward prenet of both decoders at the flagship's widths (M=80,
@@ -1858,7 +2154,9 @@ def time_variants(names) -> dict:
 _TIMERS = {"K1": "_TIME_K1", "K1f32": "_TIME_K1F32", "K1q8": "_TIME_K1Q8",
            "K1fam": "_TIME_K1FAM", "K1trace": "_TIME_K1TRACE", "K2": "_TIME_K2",
            "K2fam": "_TIME_K2FAM", "K3": "_TIME_K3", "K3fam": "_TIME_K3FAM",
-           "prenet": "_TIME_PRENET", "gates": "_TIME_GATES"}
+           "prenet": "_TIME_PRENET", "gates": "_TIME_GATES",
+           "K1f32fam": "_TIME_K1F32FAM", "K1f32fam548": "_TIME_K1F32FAM548",
+           "K3cell": "_TIME_K3CELL"}
 
 
 def ab(base: Path, names) -> dict:
