@@ -28,6 +28,14 @@ Phases, each of which fails the run on a failed check:
    kernel's bound; CUDA-event times of a decode step and chunk; then the
    host's enqueue time against the device time of one chunk, and the
    device's busy share and time by kernel under ``torch.profiler``;
+   then ``[serve:checkpoint]``: the port saves the flagship's weights to a
+   checkpoint file, ``Synthesizer.from_checkpoint`` restores them on the
+   card bit-identical, 16 lines through it (launch counts reset just
+   before and read just after) match an in-memory synthesizer's bit for
+   bit, the synthesis CLI writes ``.npy`` files and WAVs for 4 lines,
+   ``vocode_batch`` of 16 x 512 frames is timed, and Griffin-Lim on the
+   card is held against the CPU from shared initial phases (10 iterations
+   sample by sample, 60 by spectral convergence);
    then ``[main:shared]`` and ``[main:separate]``: the same synthesis, 256
    frames, at the paper's shared strategy (``shared_switching_hparams``:
    the simple BiLSTM encoder, 548-wide memory; its K1 kernels also held
@@ -254,6 +262,19 @@ TRAIN_E2E_ENCODER_TOL = 0.5
 # the same step in float32 (train_step, which runs cuDNN without TF32):
 # the losses and every parameter's gradient, relative
 TRAIN_F32_E2E_TOL = 1e-4
+# the serving entry point from a checkpoint ([serve:checkpoint]): lines
+# restored and synthesized, lines through the CLI, and Griffin-Lim's batch
+# (spectrograms of MAX_FRAMES frames) timed and held card against CPU
+CKPT_LINES, CLI_LINES, VOCODE_B, VOCODE_CHECK_B = 16, 4, 16, 2
+# Griffin-Lim on identical initial phases, two FFT libraries: at up to 10
+# iterations every sample within GL_TOL of the waveform's peak, a few times
+# the largest reading (2.4e-4: the card against the CPU on the flagship's
+# mel path, whose 50 NNLS updates run in each device's float32 products;
+# 7.3e-5: the port against the JAX package on the CPU); the momentum grows
+# float32 differences to a few 1e-3 by 60 iterations, where each output's
+# spectral convergence is held within SC_TOL of the other's (read: 2.1e-6)
+GL_TOL = 1e-3
+SC_TOL = 1e-4
 
 
 def kind_group(cfg) -> str:
@@ -1080,6 +1101,178 @@ def phase_main(hp, sd, small=None, full=True):
         f"{'; cuDNN at its TF32 default' if f32 else ''}): max relative "
         f"error {max(errs):.3g} (bound {bound})")
     return syn, launches, frames / seconds
+
+
+def phase_checkpoint(hp, sd) -> None:
+    """``[serve:checkpoint]``: the user's serving entry point from a file.
+    The port writes a checkpoint of the flagship's seeded weights
+    (``training.checkpoint.save_checkpoint``); ``Synthesizer.
+    from_checkpoint`` restores it on the card, its state dict bit-identical
+    to the one saved; CKPT_LINES lines through the restored synthesizer,
+    with the launch counts reset just before and read just after (every
+    kernel of the path launched, no other), give spectrograms bit-identical
+    to an in-memory synthesizer's at the same seed; the synthesis CLI runs
+    on CLI_LINES lines (``--batch_size 4 --save_spec``), its ``.npy`` files
+    bit-identical to the restored synthesizer's and its WAVs ``hop * (F -
+    1)`` samples at full scale; ``vocode_batch`` of VOCODE_B spectrograms
+    of MAX_FRAMES frames is timed; and Griffin-Lim on the card is held
+    against the CPU on VOCODE_CHECK_B of them from shared initial phases,
+    at 10 iterations sample by sample and at 60 by spectral convergence."""
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from multilingual_text_to_speech_tpu_torch.cli import synthesize as cli
+    from multilingual_text_to_speech_tpu_torch.config import HParams
+    from multilingual_text_to_speech_tpu_torch.ops import audio
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+    from multilingual_text_to_speech_tpu_torch.ops import mel, stft
+    from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+    from multilingual_text_to_speech_tpu_torch.training import checkpoint
+
+    lines = lines_for(hp, -(-CKPT_LINES // len(hp.languages)),
+                      SEED + 5)[:CKPT_LINES]
+    hop = audio.ms_to_frames(hp.stft_shift_ms, hp)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.ckpt")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, epoch=0, step=0, state_dict=sd,
+                                   hp=hp,
+                                   criterion_state={"guided_att_weight": 1.0})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = Synthesizer.from_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got_sd = restored.model.state_dict()
+        if restored.device.type != "cuda" or set(got_sd) != set(sd):
+            fail("from_checkpoint: not on the card, or other tensors")
+        differ = [k for k, t in sd.items()
+                  if not torch.equal(got_sd[k].cpu(), t)]
+        if differ:
+            fail(f"from_checkpoint: {len(differ)} tensors differ from the "
+                 f"saved state dict, e.g. {differ[:3]}")
+        say(f"[serve:checkpoint] saved {os.path.getsize(path) / 2**20:.1f} "
+            f"MiB in {save_s:.3f} s; Synthesizer.from_checkpoint on the card"
+            f" in {load_s:.3f} s (host clock, synchronized): {len(sd)} "
+            "tensors bit-identical to the saved state dict")
+
+        ref = Synthesizer(hp, sd, device="cuda").synthesize_batch_lines(
+            lines, seed=7)
+        torch.cuda.synchronize()
+        fd.reset_launch_counts()
+        specs = restored.synthesize_batch_lines(lines, seed=7)
+        torch.cuda.synchronize()
+        launches = dict(fd.LAUNCHES)
+        b = restored.bundle
+        kernels = fd.path_kernels(b.att_kind, b.dtype, b.q_streams)
+        if any(launches[k] == 0 for k in kernels) or any(
+                launches[k] for k in launches if k not in kernels):
+            fail(f"restored synthesizer's kernels {kernels}: launches "
+                 f"{launches}")
+        if any(not np.array_equal(g, r) for g, r in zip(specs, ref)) or any(
+                g.shape != (hp.num_mels, hp.max_output_length) for g in specs):
+            fail("restored synthesizer: spectrograms differ from the "
+                 "in-memory synthesizer's")
+        say(f"[serve:checkpoint] {len(lines)} lines x "
+            f"{hp.max_output_length} frames through the restored "
+            "synthesizer: bit-identical to the in-memory one's; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+
+        out_dir = os.path.join(tmp, "cli")
+        stdin = sys.stdin
+        sys.stdin = io.StringIO("\n".join(lines[:CLI_LINES]) + "\n")
+        t0 = time.perf_counter()
+        try:
+            cli.main(["--checkpoint", path, "--output", out_dir,
+                      "--batch_size", str(CLI_LINES), "--save_spec",
+                      "--seed", "7"])
+        finally:
+            sys.stdin = stdin
+        cli_s = time.perf_counter() - t0
+        ref4 = restored.synthesize_batch_lines(lines[:CLI_LINES], seed=7)
+        for line, r in zip(lines[:CLI_LINES], ref4):
+            item = line.split("|")[0]
+            spec = np.load(os.path.join(out_dir, f"{item}.npy"))
+            rate, wav = wavfile.read(os.path.join(out_dir, f"{item}.wav"))
+            if not np.array_equal(spec, r):
+                fail(f"CLI: {item}.npy differs from the synthesizer's")
+            if (rate != hp.sample_rate or wav.shape != (
+                    hop * (spec.shape[1] - 1),)
+                    or np.abs(wav.astype(np.int32)).max() != 32767):
+                fail(f"CLI: {item}.wav has {wav.shape} samples at {rate} "
+                     f"Hz, peak {np.abs(wav.astype(np.int32)).max()}")
+        say(f"[serve:checkpoint] CLI --batch_size {CLI_LINES} --save_spec on "
+            f"the card: {CLI_LINES} .npy (bit-identical) and WAVs of "
+            f"{hop * (hp.max_output_length - 1)} samples at full scale in "
+            f"{cli_s:.2f} s (host clock, model load included)")
+
+    restored.vocode_batch(specs[:2], seed=1)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = restored.vocode_batch(specs[:VOCODE_B], seed=2)
+    torch.cuda.synchronize()
+    vocode_s = time.perf_counter() - t0
+    if any(w.shape != (hop * (hp.max_output_length - 1),)
+           or not np.isfinite(w).all() or w.max() != 1.0 for w in wavs):
+        fail("vocode_batch: wrong lengths, non-finite or not peak-normalized")
+    n_fft, win = hp.num_fft, audio.ms_to_frames(hp.stft_window_ms, hp)
+    batch = torch.as_tensor(np.stack(specs[:VOCODE_B]), device="cuda")
+    mag = mel.mel_to_linear_nnls(mel.db_to_amplitude(batch), hp.sample_rate,
+                                 n_fft, hp.num_mels) ** hp.griffin_lim_power
+    gl_ms = cuda_ms(lambda: stft.griffin_lim(
+        mag, n_fft, hop, win, n_iter=hp.griffin_lim_iters,
+        generator=torch.Generator("cuda").manual_seed(0)), iters=3,
+        warmup=1)
+    audio_s = VOCODE_B * hop * (hp.max_output_length - 1) / hp.sample_rate
+    say(f"[serve:checkpoint] vocode_batch of {VOCODE_B} x "
+        f"{hp.max_output_length} frames (n_fft {n_fft}, hop {hop}, "
+        f"{hp.griffin_lim_iters} iterations) on the card: {vocode_s:.4f} s "
+        f"(host clock, synchronized, NNLS, de-emphasis and copies included)"
+        f" = {audio_s / vocode_s:.1f} audio-seconds/s; Griffin-Lim alone "
+        f"{gl_ms:.3f} ms (CUDA events)")
+
+    # the card against the CPU from the same initial phases
+    pair = np.stack(specs[:VOCODE_CHECK_B])
+    angles = stft.random_angles((VOCODE_CHECK_B, n_fft // 2 + 1,
+                                 pair.shape[2]),
+                                torch.Generator().manual_seed(SEED), "cpu")
+    target = mel.mel_to_linear_nnls(
+        mel.db_to_amplitude(torch.from_numpy(pair)), hp.sample_rate, n_fft,
+        hp.num_mels) ** hp.griffin_lim_power
+    for n_iter in (10, 60):
+        hp_n = HParams.from_state_dict(hp.state_dict())
+        hp_n.griffin_lim_iters = n_iter
+        card, cpu = (audio.inverse_spectrogram_batch(
+            pair, hp_n, mel=True, angles=angles, device=dev)
+            for dev in ("cuda", "cpu"))
+        if n_iter <= 10:
+            errs = [float(np.abs(c - r).max() / np.abs(r).max())
+                    for c, r in zip(card, cpu)]
+            if max(errs) > GL_TOL:
+                fail(f"Griffin-Lim card vs CPU at {n_iter} iterations: "
+                     f"{errs} of the peak (bound {GL_TOL})")
+            say(f"[serve:checkpoint] Griffin-Lim card vs CPU, {n_iter} "
+                f"iterations, shared phases: max |diff| "
+                f"{max(errs):.3g} of the peak (bound {GL_TOL})")
+        else:
+            if hp.use_preemphasis:      # undo the de-emphasis
+                card, cpu = (audio.preemphasis(y, hp.preemphasis)
+                             for y in (card, cpu))
+            sc = [stft.spectral_convergence(torch.from_numpy(y), target,
+                                            n_fft, hop, win).numpy()
+                  for y in (card, cpu)]
+            diff = float(np.abs(sc[0] - sc[1]).max())
+            if diff > SC_TOL:
+                fail(f"Griffin-Lim card vs CPU at {n_iter} iterations: "
+                     f"spectral convergence {sc} (bound {SC_TOL})")
+            say(f"[serve:checkpoint] Griffin-Lim card vs CPU, {n_iter} "
+                f"iterations: spectral convergence {sc[0].tolist()} vs "
+                f"{sc[1].tolist()}, max |diff| {diff:.3g} (bound {SC_TOL})")
 
 
 def phase_timings(hp, syn, errs, launches, only=None, chunk=True):
@@ -2841,6 +3034,10 @@ def main() -> int:
     with phase("time"):
         rows = phase_timings(hp, syn, errs, launches)
     del syn
+    # from a checkpoint file to WAVs: from_checkpoint, synthesis, the CLI
+    # and Griffin-Lim on the card
+    with phase("serve:checkpoint"):
+        phase_checkpoint(hp, sd)
     # float32 compute and int8 streams at the flagship's widths
     rows += phase_k1_variants(sd)
     # serving at the shared strategy's 548-wide memory (K1 against plain

@@ -25,7 +25,9 @@ The port's module names mirror the flax parameter paths (``/`` becomes
   ``encoders.{L-1}``.
 
 Every module of every encoder type maps over, the speaker classifier
-included.
+included.  ``params_to_jax`` is the inverse: the port's state_dict back to
+the ``{"params", "batch_stats"}`` tree that the JAX ``Tacotron.init`` makes
+(the checkpoint writer's model section).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _LSTM_CELLS = {"OptimizedLSTMCell_0": "", "OptimizedLSTMCell_1": "_reverse"}
 _GATES = ("i", "f", "g", "o")
@@ -122,3 +125,98 @@ def params_from_jax(variables_np: Dict[str, Any], hp=None
     for name, arr in _lstm_weights(cells):
         put(name, arr)
     return out
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _stacked(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stacked([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _restacked(tree):
+    """``encoders.{0..L-1}`` subtrees -> one ``encoders`` subtree whose
+    leaves stack the languages ``[L, ...]`` (flax's vmapped module)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "encoders" and isinstance(v, dict) and all(
+                s.isdigit() for s in v):
+            v = _stacked([v[str(i)] for i in range(len(v))])
+        out[k] = _restacked(v)
+    return out
+
+
+def _lstm_cells(scope, weights: Dict[str, np.ndarray]):
+    """An ``nn.LSTM``'s tensors -> ``(path, array)`` of the flax
+    OptimizedLSTMCells' per-gate kernels and biases.  flax's cell has one
+    bias a gate, so it takes ``bias_ih + bias_hh``."""
+    for cell, suffix in _LSTM_CELLS.items():
+        w_ih = weights["weight_ih_l0" + suffix]
+        w_hh = weights["weight_hh_l0" + suffix]
+        bias = weights["bias_ih_l0" + suffix] + weights["bias_hh_l0" + suffix]
+        h = w_hh.shape[1]
+        for g, gate in enumerate(_GATES):
+            rows = slice(g * h, (g + 1) * h)
+            yield scope + (cell, f"i{gate}", "kernel"), w_ih[rows].T
+            yield scope + (cell, f"h{gate}", "kernel"), w_hh[rows].T
+            yield scope + (cell, f"h{gate}", "bias"), bias[rows]
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], hp
+                  ) -> Dict[str, Any]:
+    """The port's state_dict -> the JAX package's ``{"params",
+    "batch_stats"}`` tree of float32 numpy arrays, the inverse of
+    ``params_from_jax``: the key set is exactly the one the JAX
+    ``Tacotron.init`` makes for ``hp``, which flax's ``from_state_dict``
+    requires.  Each ``weight``'s flax name and layout follows the type of
+    its module in ``Tacotron(hp)`` (built on the meta device): a Linear's
+    transposed ``kernel``, a Conv1d's ``(2, 1, 0)`` ``kernel``, an
+    Embedding's ``embedding``, a batch norm's ``scale``; buffers go to
+    ``batch_stats`` (``running_*`` as ``mean``/``var``,
+    ``num_batches_tracked`` dropped)."""
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
+
+    with torch.device("meta"):
+        model = Tacotron(hp)
+    modules = dict(model.named_modules())
+    buffers = {name for name, _ in model.named_buffers()}
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    lstms: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
+    for name, tensor in state_dict.items():
+        *parents, leaf = name.split(".")
+        module = modules[".".join(parents)]
+        arr = np.ascontiguousarray(tensor.detach().cpu().numpy())
+        if leaf == "num_batches_tracked":
+            continue
+        if isinstance(module, nn.LSTM):
+            lstms.setdefault(tuple(parents[:-1]), {})[leaf] = arr
+            continue
+        if name in buffers:
+            leaf = {"running_mean": "mean", "running_var": "var"}.get(
+                leaf, leaf)
+            _put(tree["batch_stats"], parents + [leaf], arr)
+            continue
+        if leaf == "weight":
+            if isinstance(module, nn.Linear):
+                leaf, arr = "kernel", arr.T
+            elif isinstance(module, nn.Conv1d):
+                leaf, arr = "kernel", np.transpose(arr, (2, 1, 0))
+            elif isinstance(module, nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(module, nn.modules.batchnorm._BatchNorm):
+                leaf = "scale"
+            else:
+                raise ValueError(f"no flax name for {name} "
+                                 f"({type(module).__name__})")
+        _put(tree["params"], parents + [leaf], arr)
+    for scope, weights in lstms.items():
+        for path, arr in _lstm_cells(scope, weights):
+            _put(tree["params"], list(path), np.ascontiguousarray(arr))
+    return _restacked(tree)

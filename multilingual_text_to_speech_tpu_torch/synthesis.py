@@ -22,7 +22,10 @@ False (the JAX package's XLA scan) decodes with exact gates on full
 streams.  In float32
 the encoder's and postnet's cuDNN calls run in full float32
 (``device.exact_float32``), not in PyTorch's default TF32.
-Checkpoint loading and vocoding are not ported yet.
+``Synthesizer.from_checkpoint`` reads the JAX package's single-file
+checkpoint (``training.checkpoint``), and ``vocode``/``vocode_batch`` turn
+spectrograms into waveforms by Griffin-Lim on the same device
+(``ops.audio``).
 """
 
 from __future__ import annotations
@@ -39,10 +42,14 @@ from multilingual_text_to_speech_tpu_torch.device import (
     exact_float32,
     resolve_device,
 )
+from multilingual_text_to_speech_tpu_torch.interop import params_from_jax
 from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
 from multilingual_text_to_speech_tpu_torch.ops import audio as audio_ops
 from multilingual_text_to_speech_tpu_torch.ops import fused_decoder
 from multilingual_text_to_speech_tpu_torch.text import SymbolTable, clean_text
+from multilingual_text_to_speech_tpu_torch.training.checkpoint import (
+    load_checkpoint,
+)
 
 
 def parse_language_spec(spec: str, hp, t_length: int) -> np.ndarray:
@@ -144,9 +151,11 @@ class Synthesizer:
 
     ``state_dict`` is the port's (see ``interop.params_from_jax`` for JAX
     weights).  ``device`` defaults to ``cuda``; pass ``"cpu"`` for the plain
-    PyTorch path."""
+    PyTorch path.  ``max_chunks`` caps the decode chunks of an utterance
+    (default: enough for ``hp.max_output_length`` frames)."""
 
-    def __init__(self, hp, state_dict, device: DeviceLike = None):
+    def __init__(self, hp, state_dict, device: DeviceLike = None,
+                 max_chunks: Optional[int] = None):
         self.hp = hp
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if hp.compute_dtype == "bfloat16"
@@ -155,7 +164,8 @@ class Synthesizer:
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
         self.chunk = int(hp.decode_chunk_frames)
-        self.max_chunks = (hp.max_output_length + self.chunk - 1) // self.chunk
+        self.max_chunks = max_chunks or (
+            (hp.max_output_length + self.chunk - 1) // self.chunk)
         # the JAX package decodes on its XLA scan, exact gates on full
         # streams, unless hp.use_pallas_decoder: W8A8 and int8 streams are
         # settings of its fused decoder alone
@@ -165,6 +175,16 @@ class Synthesizer:
             quantize_gates=fused and bool(hp.pallas_decoder_int8),
             q_streams=fused and bool(hp.pallas_decoder_int8_streams))
         self.decode_kwargs = self.model.decoder.decode_kwargs
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device: DeviceLike = None,
+                        **kwargs) -> "Synthesizer":
+        """A synthesizer of the checkpoint's hyper-parameters and weights
+        (a file of the JAX package's ``save_checkpoint`` or the port's),
+        loaded strictly, on ``device`` (the card unless ``"cpu"``)."""
+        payload = load_checkpoint(path)
+        return cls(payload["hp"], params_from_jax(payload["model"]),
+                   device=device, **kwargs)
 
     def _tensor(self, a, dtype=torch.long):
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
@@ -346,3 +366,39 @@ class Synthesizer:
         return self.spectrograms_from_batch(
             sequences, speakers if hp.multi_speaker else None,
             weights if hp.multi_language else None, seed)
+
+    def synthesize_line(self, input_line: str, seed: int = 0) -> np.ndarray:
+        """One ``id|text|speaker|langs`` line -> its denormalized
+        spectrogram [bins, frames]."""
+        hp = self.hp
+        item = input_line.split("|")
+        text = clean_text(item[1], hp)
+        sequence = np.asarray(SymbolTable(hp).encode(text), np.int64)
+        weights = (parse_language_spec(item[3], hp, len(text) + 1)
+                   if hp.multi_language else None)
+        speaker = _speaker_index(hp, item[2]) if hp.multi_speaker else None
+        return self.spectrogram_from_ids(sequence, speaker, weights, seed)
+
+    def vocode(self, spectrogram_db: np.ndarray, seed: int = 0) -> np.ndarray:
+        """Griffin-Lim on this synthesizer's device: a [bins, F] dB
+        spectrogram -> its waveform (numpy), phases drawn from a generator
+        seeded with ``seed``."""
+        return audio_ops.inverse_spectrogram(
+            spectrogram_db, self.hp, mel=not self.hp.predict_linear,
+            seed=seed, device=self.device)
+
+    def vocode_batch(self, spectrograms, seed: int = 0) -> List[np.ndarray]:
+        """Griffin-Lim of a list of [bins, F_i] spectrograms as one batch:
+        padded to the longest with -100 dB, each waveform cropped to
+        ``hop * max(F_i - 1, 1)`` samples."""
+        hp = self.hp
+        hop = audio_ops.ms_to_frames(hp.stft_shift_ms, hp)
+        frames = [s.shape[1] for s in spectrograms]
+        batch = np.full((len(spectrograms), spectrograms[0].shape[0],
+                         max(frames)), -100.0, np.float32)
+        for i, s in enumerate(spectrograms):
+            batch[i, :, :s.shape[1]] = s
+        wavs = audio_ops.inverse_spectrogram_batch(
+            batch, hp, mel=not hp.predict_linear, seed=seed,
+            device=self.device)
+        return [w[:hop * max(f - 1, 1)] for w, f in zip(wavs, frames)]

@@ -21,6 +21,7 @@ import torch
 
 from chip_smoke import (
     ATOL,
+    GL_TOL,
     TRAIN_KERNEL_TOL,
     mask_patterns,
     train_kernel_bound,
@@ -2450,3 +2451,114 @@ def test_attention_kernels_take_long_texts(kind, dtype, t, b, _full_f32):
               slack=_cum_slack(t, cum_p) if f32 else 0.0)
         k1 = "lsa_attention"
     assert fd.LAUNCHES[fd.instance(k1, dtype)] == 1, fd.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# from a checkpoint to a waveform on the card
+# ---------------------------------------------------------------------------
+
+def _serving_weights():
+    hp = _hp(True)
+    sd = init_random_weights(Tacotron(hp), 0).state_dict()
+    sd["decoder.cell.stop_prediction.bias"].fill_(-10.0)
+    return hp, sd
+
+
+def test_from_checkpoint_on_cuda(tmp_path):
+    """A port-written checkpoint restored on the card (its default device):
+    the state dict bit-identical, spectrograms bit-identical to an
+    in-memory synthesizer's, every kernel of the path launched."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.training import checkpoint
+
+    hp, sd = _serving_weights()
+    path = str(tmp_path / "model.ckpt")
+    checkpoint.save_checkpoint(path, epoch=2, step=40, state_dict=sd, hp=hp,
+                               criterion_state={"guided_att_weight": 0.5})
+    syn = Synthesizer.from_checkpoint(path)
+    assert syn.device.type == "cuda"
+    got_sd = syn.model.state_dict()
+    assert set(got_sd) == set(sd)
+    for k, t in sd.items():
+        assert torch.equal(got_sd[k].cpu(), t), k
+    lines = ["a|hallo welt|a|de", "b|bonjour|b|fr", "c|mix|c|de*0.5:fr*0.5"]
+    ref = Synthesizer(hp, sd, device="cuda").synthesize_batch_lines(
+        lines, seed=3)
+    fd.reset_launch_counts()
+    got = syn.synthesize_batch_lines(lines, seed=3)
+    b = syn.bundle
+    assert all(fd.LAUNCHES[k] > 0
+               for k in fd.path_kernels(b.att_kind, b.dtype, b.q_streams))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("shape", [(300,), (2, 22050), (3, 4096)])
+def test_stft_istft_on_cuda_match_cpu(shape):
+    """cuFFT against the CPU's FFT: each output within 1e-5 of its largest
+    magnitude (n_fft 1102 = 2 x 19 x 29, unpadded)."""
+    from multilingual_text_to_speech_tpu_torch.ops import stft
+
+    y = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    ref = stft.stft(y, 1102, 275)
+    got = stft.stft(y.cuda(), 1102, 275)
+    assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+    back_ref = stft.istft(ref, 1102, 275)
+    back = stft.istft(ref.cuda(), 1102, 275)
+    assert back.shape == back_ref.shape
+    assert (back.cpu() - back_ref).abs().max() <= (
+        1e-5 * back_ref.abs().max())
+
+
+@pytest.mark.parametrize("n_iter", [0, 2, 10])
+@pytest.mark.parametrize("frames", [2, 7, 120, 512])
+def test_griffin_lim_on_cuda_matches_cpu(n_iter, frames):
+    """The same initial phases on both devices: every sample within
+    GL_TOL of the waveform's peak at up to 10 iterations."""
+    from multilingual_text_to_speech_tpu_torch.ops import stft
+
+    g = torch.Generator().manual_seed(frames)
+    mag = torch.rand((2, 552, frames), generator=g) ** 2
+    angles = stft.random_angles(mag.shape, g)
+    ref = stft.griffin_lim(mag, 1102, 275, n_iter=n_iter, angles=angles)
+    got = stft.griffin_lim(mag.cuda(), 1102, 275, n_iter=n_iter,
+                           angles=angles.cuda())
+    assert got.shape == ref.shape
+    if ref.numel():
+        assert (got.cpu() - ref).abs().max() <= GL_TOL * ref.abs().max()
+
+
+def test_vocode_batch_on_cuda():
+    """``vocode_batch`` on the card: cropped lengths, finite,
+    peak-normalized, the same seed the same waveforms; from shared
+    phases the card's batch within GL_TOL of the CPU's at 10 iterations."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.config import HParams
+    from multilingual_text_to_speech_tpu_torch.ops import audio, stft
+
+    hp, sd = _serving_weights()
+    hp.griffin_lim_iters = 10
+    syn = Synthesizer(hp, sd, device="cuda")
+    specs = syn.synthesize_batch_lines(["a|hallo welt|a|de",
+                                        "b|bonjour|b|fr"], seed=1)
+    specs[1] = specs[1][:, :15]
+    wavs = syn.vocode_batch(specs, seed=4)
+    assert [len(w) for w in wavs] == [275 * (s.shape[1] - 1) for s in specs]
+    assert all(np.isfinite(w).all() for w in wavs)
+    assert wavs[0].max() == 1.0
+    again = syn.vocode_batch(specs, seed=4)
+    for w, a in zip(wavs, again):
+        np.testing.assert_array_equal(w, a)
+
+    full = np.stack([specs[0], specs[0][::-1]])
+    hp_cpu = HParams.from_state_dict(hp.state_dict())
+    angles = stft.random_angles((2, 552, full.shape[2]),
+                                torch.Generator().manual_seed(2))
+    got = audio.inverse_spectrogram_batch(full, hp, mel=True, angles=angles,
+                                          device="cuda")
+    ref = audio.inverse_spectrogram_batch(full, hp_cpu, mel=True,
+                                          angles=angles, device="cpu")
+    for g, r in zip(got, ref):
+        assert np.abs(g - r).max() <= GL_TOL * np.abs(r).max()

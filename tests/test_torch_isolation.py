@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and runs a tiny synthesis and a tiny training step on the CPU with
-``jax`` blocked."""
+package, nor ``msgpack`` or ``flax`` (the machine with the card has
+neither), and runs a tiny synthesis, a checkpoint round trip, a vocoding
+and a tiny training step on the CPU with all of them blocked."""
 
 import os
 import re
@@ -25,6 +26,7 @@ def _port_sources():
 @pytest.mark.parametrize("pattern", [
     r"^\s*(import|from)\s+jax\b",
     r"multilingual_text_to_speech_tpu\.",
+    r"^\s*(import|from)\s+(msgpack|flax)\b",
 ])
 def test_port_sources_do_not_reach_jax(pattern):
     hits = []
@@ -38,8 +40,9 @@ def test_port_sources_do_not_reach_jax(pattern):
 
 def test_port_synthesizes_with_jax_blocked():
     script = textwrap.dedent("""
-        import sys
-        sys.modules["jax"] = None
+        import os, sys, tempfile
+        for blocked in ("jax", "msgpack", "flax"):
+            sys.modules[blocked] = None
         import numpy as np, torch
         from multilingual_text_to_speech_tpu_torch import (
             Synthesizer, flagship_hparams)
@@ -64,6 +67,19 @@ def test_port_synthesizes_with_jax_blocked():
         out = syn.synthesize_batch_lines(
             ["1|hallo|a|de", "2|salut|b|fr", "3|mix|c|de*0.5:ru*0.5"])
         assert all(o.shape[0] == 20 and np.isfinite(o).all() for o in out)
+        hp.griffin_lim_iters = 2
+        with tempfile.TemporaryDirectory() as tmp:
+            from multilingual_text_to_speech_tpu_torch.training import (
+                checkpoint)
+            path = os.path.join(tmp, "ckpt")
+            checkpoint.save_checkpoint(path, epoch=0, step=0, state_dict=sd,
+                                       hp=hp, criterion_state={})
+            restored = Synthesizer.from_checkpoint(path, device="cpu")
+            again = restored.synthesize_batch_lines(
+                ["1|hallo|a|de", "2|salut|b|fr", "3|mix|c|de*0.5:ru*0.5"])
+            assert all(np.array_equal(a, o) for a, o in zip(again, out))
+            wavs = restored.vocode_batch(again, seed=1)
+            assert all(np.isfinite(w).all() for w in wavs)
         from multilingual_text_to_speech_tpu_torch.models.tacotron import (
             TacotronLossState)
         from multilingual_text_to_speech_tpu_torch.training import trainer
@@ -82,8 +98,8 @@ def test_port_synthesizes_with_jax_blocked():
                                  torch.Generator().manual_seed(0),
                                  device="cpu")
         assert all(np.isfinite(float(v)) for v in res.losses.values())
-        assert not any(m == "jax" or m.startswith(
-            ("jax.", "multilingual_text_to_speech_tpu."))
+        assert not any(m in ("jax", "msgpack", "flax") or m.startswith(
+            ("jax.", "msgpack.", "flax.", "multilingual_text_to_speech_tpu."))
             for m in sys.modules if sys.modules[m] is not None)
         print("OK")
     """)
