@@ -128,6 +128,20 @@ Phases, each of which fails the run on a failed check:
    kind and compute type: K2's ``train_attention``, K3's ``att_bwd`` and
    K1's attention kernel against their plain versions, their device times,
    and a bf16 train step at T=600 on the card against the CPU.
+13. ``[train:loop]`` (after 7): the flagship trained from a corpus on disk
+   (``phase_train_loop``): 250 items in 5 languages and 16 speakers, texts
+   from ``tests/data/css_comvoi/val.txt``, audio generated at 48 + 4 frames
+   a character up to 512, written and their caches filled on the card by
+   ``cli/prepare.py --fill_metafile`` before the build (``loop_setup``,
+   which starts the CPU's two training steps in a child process that runs
+   while nvcc builds; the run waits for it before its first host-clock
+   timing); host batches/s through ``batch_iterator`` and ``prefetch``
+   alone; a ``Trainer`` epoch at B=50 (4 steps; every K2/K3 kernel
+   launched, no other), ``evaluate`` (K2 only) and ``save``; a new
+   ``Trainer`` from the checkpoint bit-identical, and its epoch; the first
+   two steps on the card against the CPU's; ``cli/gta.py`` over the
+   training set and its first batch against ``--cpu``; each number beside
+   the card's name and power limit.
 
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -141,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2568,6 +2583,462 @@ def phase_train_eval(hp, sd) -> None:
           f"{ {k: launches[k] for k in k2} }; K3 none")
 
 
+# [train:loop]: training from a corpus on disk, at the flagship's width.
+# 16 speakers over the 5 languages, 40 training and 10 dev items a language
+# (4 steps an epoch at B=50), texts from tests/data/css_comvoi/val.txt, each
+# item's audio (a speaker's tone under a slow envelope, and noise) 48 + 4
+# frames a character, at most LOOP_MAX_FRAMES frames
+LOOP_SPEAKERS = (4, 3, 3, 3, 3)
+LOOP_TRAIN, LOOP_DEV, LOOP_MAX_FRAMES, LOOP_B = 40, 10, 512, 50
+# GTA files held card against CPU: the --cpu run exports cli/gta.py's first
+# batch (its default 16 rounded down to the 5 languages), whose files the
+# card's run writes too
+LOOP_GTA_CHECK = 2
+
+
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def loop_corpus(root: Path, hp) -> int:
+    """Write the corpus's WAVs and its ``train.txt``/``val.txt`` (8 fields,
+    empty cache columns; items interleaved by language, so that a prefix
+    of ``train.txt`` holds the first items of every language); returns the
+    largest item's frame count."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.ops.io import save_wav
+
+    n_items = LOOP_TRAIN + LOOP_DEV
+    texts = {lang: [] for lang in hp.languages}
+    with open(ROOT / "tests" / "data" / "css_comvoi" / "val.txt",
+              encoding="utf-8") as f:
+        for line in f:
+            cols = line.rstrip("\n").split("|")
+            if cols[2] in texts and len(texts[cols[2]]) < n_items:
+                texts[cols[2]].append(cols[6])
+    hop = int(hp.sample_rate * hp.stft_shift_ms / 1000)
+    rng = np.random.RandomState(SEED)
+    rows = {"train": [], "val": []}
+    longest, serial = 0, 0
+    for k in range(n_items):
+        for li, lang in enumerate(hp.languages):
+            text = texts[lang][k]
+            spk = k % LOOP_SPEAKERS[li]
+            frames = min(LOOP_MAX_FRAMES, 48 + 4 * len(text))
+            n = (frames - 1) * hop
+            t = np.arange(n) / hp.sample_rate
+            f0 = 100.0 + 30.0 * (4 * li + spk)
+            wav = (0.2 * np.sin(2 * np.pi * f0 * t)
+                   * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
+                   + 0.01 * rng.randn(n))
+            rel_path = f"{lang}/{serial:06}.wav"
+            (root / lang).mkdir(parents=True, exist_ok=True)
+            save_wav(wav, str(root / rel_path), hp.sample_rate)
+            rows["train" if k < LOOP_TRAIN else "val"].append(
+                f"{serial:06}|{spk:02}-{lang}|{lang}|{rel_path}|||{text}|")
+            longest = max(longest, frames)
+            serial += 1
+    for name, lines in rows.items():
+        (root / f"{name}.txt").write_text("\n".join(lines) + "\n",
+                                          encoding="utf-8")
+    return longest
+
+
+def _moments(trainer):
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    return {names[id(p)]: {k: v.detach().clone() for k, v in st.items()}
+            for p, st in trainer.optimizer.state.items()}
+
+
+def _train_records(trainer, kind="train"):
+    trainer.logger._jsonl.flush()
+    with open(Path(trainer.logger.log_dir) / "metrics.jsonl",
+              encoding="utf-8") as f:
+        return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+
+def _finite_losses(records, what):
+    import math
+
+    for r in records:
+        vals = [v for k, v in r.items()
+                if k.startswith("loss_") or k in ("total_loss",
+                                                  "gradient_norm", "mcd")]
+        if not vals or not all(math.isfinite(v) for v in vals):
+            fail(f"{what}: non-finite losses {r}")
+
+
+LOOP_BASE = ROOT / "build" / "train_loop"
+
+
+def loop_hp():
+    from multilingual_text_to_speech_tpu_torch import flagship_hparams
+
+    hp = flagship_hparams()
+    hp.batch_size, hp.dataset = LOOP_B, "loop"
+    return hp
+
+
+def state_digest(model) -> str:
+    """sha256 of a model's state dict, tensor by tensor in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def no_conv_dropout(model) -> None:
+    """The encoder's and postnet's dropout off (their masks come from each
+    device's own generator); the prenet's and zoneout's hashed masks stay."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+
+
+def loop_setup():
+    """``[train:loop]``'s corpus, written and its caches filled on the card
+    by ``cli/prepare.py --fill_metafile`` before the kernels' build; then
+    the CPU's two training steps started in a child process
+    (``chip_smoke.py --loop-cpu-steps``, ``loop_cpu_steps``), which runs
+    while nvcc builds.  Returns the child (stopped at exit)."""
+    import atexit
+    import shutil
+
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.cli import prepare
+
+    card = card_label()
+    shutil.rmtree(LOOP_BASE, ignore_errors=True)
+    root = LOOP_BASE / "data" / "loop"
+    hp = loop_hp()
+    t0 = time.perf_counter()
+    longest = loop_corpus(root, hp)
+    t1 = time.perf_counter()
+    for name in ("train.txt", "val.txt"):
+        prepare.main(["--fill_metafile", str(root / name), "--root",
+                      str(root), "--sample_rate", str(hp.sample_rate),
+                      "--num_fft", str(hp.num_fft)])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_lang = len(hp.languages)
+    say(f"[train:loop] corpus: {n_lang * (LOOP_TRAIN + LOOP_DEV)} items "
+        f"({n_lang} languages, {sum(LOOP_SPEAKERS)} speakers, at most "
+        f"{longest} frames) written in {t1 - t0:.3f} s; mel and linear "
+        f"caches filled on the card by cli/prepare.py --fill_metafile in "
+        f"{t2 - t1:.3f} s (host clock; {card})")
+    with open(LOOP_BASE / "cpu_steps.log", "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--loop-cpu-steps"],
+            stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    atexit.register(stop)
+    return child
+
+
+def loop_wait(child) -> float:
+    """Wait for the CPU steps' child (before the phases that time on the
+    host clock); returns the seconds waited."""
+    t0 = time.perf_counter()
+    if child.wait() != 0:
+        log = (LOOP_BASE / "cpu_steps.log").read_text()[-2000:]
+        fail(f"[train:loop] the CPU steps' process failed:\n{log}")
+    return time.perf_counter() - t0
+
+
+def loop_cpu_steps() -> int:
+    """The child: the first two steps of a ``Trainer`` on the CPU (seed
+    SEED, as the card's; the conv dropouts off), its records, seconds and
+    initial weights' digest written to ``cpu_steps.json``."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.data import (
+        TextToSpeechDatasetCollection,
+    )
+    from multilingual_text_to_speech_tpu_torch.training.trainer import Trainer
+
+    # leave cores to the two nvcc processes of the build
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+    hp = loop_hp()
+    tr = Trainer(hp, TextToSpeechDatasetCollection(
+        str(LOOP_BASE / "data" / "loop"), hp, device="cpu"), device="cpu",
+        seed=SEED, log_dir=str(LOOP_BASE / "logs_cpu"))
+    digest = state_digest(tr.model)
+    no_conv_dropout(tr.model)
+    t0 = time.perf_counter()
+    tr.train_epoch(max_steps=2)
+    seconds = time.perf_counter() - t0
+    (LOOP_BASE / "cpu_steps.json").write_text(json.dumps({
+        "records": _train_records(tr), "seconds": seconds,
+        "digest": digest, "threads": torch.get_num_threads()}))
+    return 0
+
+
+def phase_train_loop(cpu_waited: float) -> None:
+    """``[train:loop]``: the flagship (``config.flagship_hparams()``, B=50)
+    trained from the corpus of ``loop_setup``: host batches/s through
+    ``batch_iterator`` and ``prefetch`` alone; a ``Trainer`` epoch (every
+    K2/K3 kernel launched, no other), ``evaluate`` (K2's eval variant, no
+    K3; DTW-MCD; the Griffin-Lim render), ``save``; a new ``Trainer`` from
+    the checkpoint bit-identical (weights, batch-norm statistics, Adam
+    moments, step, epoch) and one more epoch; the first two steps on the
+    card against the CPU's (``loop_cpu_steps``, ``cpu_waited`` the
+    seconds the run waited for it) from the same weights, flags and seeds
+    (``no_conv_dropout``) within TRAIN_E2E_TOL;
+    ``cli/gta.py`` on the checkpoint (a file per training item) and
+    LOOP_GTA_CHECK files against a ``--cpu`` run within the eval forward's
+    bound (TRAIN_E2E_TOL)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.cli import gta
+    from multilingual_text_to_speech_tpu_torch.data import (
+        PerfectBatchSampler,
+        TextToSpeechDatasetCollection,
+        batch_iterator,
+    )
+    from multilingual_text_to_speech_tpu_torch.data.prefetch import prefetch
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+    from multilingual_text_to_speech_tpu_torch.training.checkpoint import (
+        load_checkpoint,
+    )
+    from multilingual_text_to_speech_tpu_torch.training.trainer import Trainer
+
+    card = card_label()
+    base = LOOP_BASE
+    root = base / "data" / "loop"
+    hp = loop_hp()
+    n_lang = len(hp.languages)
+
+    data = TextToSpeechDatasetCollection(str(root), hp, device="cuda")
+    frames = [int(np.load(root / it["spectrogram"], mmap_mode="r").shape[1])
+              for it in data.train.items]
+    if max(frames) > LOOP_MAX_FRAMES or len(data.train) != n_lang * \
+            LOOP_TRAIN:
+        fail(f"[train:loop] corpus: {len(data.train)} items, frames up to "
+             f"{max(frames)}")
+    t0 = time.perf_counter()
+    tr = Trainer(hp, data, device="cuda", seed=SEED,
+                 log_dir=str(base / "logs"),
+                 checkpoint_dir=str(base / "ckpt"))
+    init_s = time.perf_counter() - t0
+
+    # the host's input pipeline alone: two epochs of collated batches from
+    # the caches on disk (read warm: just written) through prefetch
+    langs = [it["language"] for it in data.train.items]
+    sampler = PerfectBatchSampler(langs, n_lang, LOOP_B, shuffle=True,
+                                  drop_last=True, seed=SEED + 1)
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in range(2) for _ in prefetch(
+        batch_iterator(data.train, sampler, tr.collate)))
+    host_s = time.perf_counter() - t0
+    host_bps = n_batches / host_s
+
+    k2, k3 = ftd.TrainConfig.from_hp(hp, tr.model.decoder.memory_dim,
+                                     tr.model.dtype).kernels
+
+    def check_launches(what, want):
+        launches = {k: v for k, v in ftd.LAUNCHES.items() if v}
+        missing = [k for k in want if not ftd.LAUNCHES[k]]
+        stray = [k for k in launches if k not in want] + [
+            k for k, v in fd.LAUNCHES.items() if v]
+        if missing or stray:
+            fail(f"[train:loop] {what}: kernels never launched {missing}, "
+                 f"other kernels launched {stray}")
+        return launches
+
+    ftd.reset_launch_counts()
+    fd.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = tr.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = check_launches("epoch", k2 + k3)
+    records = _train_records(tr)
+    _finite_losses(records, "[train:loop] epoch")
+    if steps != n_lang * LOOP_TRAIN // LOOP_B or len(records) != steps:
+        fail(f"[train:loop] epoch of {steps} steps, {len(records)} logged")
+    say(f"[train:loop] Trainer.train_epoch B={LOOP_B} (flagship, "
+        f"{dtype_label(tr.model.dtype)}, frames up to {max(frames)}): "
+        f"{steps} steps in {epoch_s:.4f} s = {steps / epoch_s:.3f} steps/s "
+        f"(host clock, the first epoch of the process, metrics logged each "
+        f"step; {card}); Trainer built in {init_s:.3f} s")
+    say(f"[train:loop] host input pipeline alone (batch_iterator + "
+        f"prefetch, caches read warm): {n_batches} batches in {host_s:.4f} "
+        f"s = {host_bps:.3f} batches/s against the epoch's "
+        f"{steps / epoch_s:.3f} steps/s ({card})")
+    say("[train:loop] losses: " + "; ".join(
+        f"step {r['step']} total {r['total_loss']:.5f}, grad norm "
+        f"{r['gradient_norm']:.4f}" for r in records))
+    say(f"[train:loop] launches over the epoch: {launches}")
+
+    ftd.reset_launch_counts()
+    t0 = time.perf_counter()
+    eval_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    check_launches("evaluate", k2)
+    (ev,) = _train_records(tr, "eval")
+    _finite_losses([ev], "[train:loop] evaluate")
+    if not math.isfinite(eval_loss) or ev["audio_generated_samples"] <= 0:
+        fail(f"[train:loop] evaluate: loss {eval_loss}, record {ev}")
+    parts = tr.eval_seconds
+    say(f"[train:loop] evaluate ({len(data.dev)} dev items): {eval_s:.4f} s"
+        f" = teacher-forced pass {parts['forced']:.4f} + free-running pass "
+        f"{parts['free']:.4f} + DTW-MCD {parts['mcd']:.4f} + Griffin-Lim "
+        f"render {parts['render']:.4f} s (host clock; {card}); eval loss "
+        f"{eval_loss:.5f}, MCD {ev['mcd']:.4f}, classifier accuracy "
+        f"{ev.get('classifier_acc', 0.0):.4f}")
+
+    t0 = time.perf_counter()
+    path = tr.save(eval_loss)
+    save_s = time.perf_counter() - t0
+    saved = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    saved_moments = _moments(tr)
+    t0 = time.perf_counter()
+    hp2 = load_checkpoint(path)["hp"]
+    tr2 = Trainer(hp2, TextToSpeechDatasetCollection(str(root), hp2,
+                                                     device="cuda"),
+                  device="cuda", seed=SEED + 1, from_checkpoint=path,
+                  log_dir=str(base / "logs_resumed"))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    diffs = [k for k, v in tr2.model.state_dict().items()
+             if not k.endswith("num_batches_tracked")
+             and not torch.equal(v, saved[k])]
+    moments = _moments(tr2)
+    diffs += [f"{n}.{k}" for n, st in saved_moments.items()
+              for k in ("exp_avg", "exp_avg_sq", "step")
+              if n not in moments or not torch.equal(st[k], moments[n][k])]
+    if set(moments) != set(saved_moments):
+        diffs.append("the set of parameters with Adam state")
+    if (tr2.step, tr2.epoch, tr2.scheduler.last_epoch) != (
+            tr.step, tr.epoch + 1, tr.scheduler.last_epoch):
+        diffs.append(f"step/epoch/schedule {tr2.step}, {tr2.epoch}, "
+                     f"{tr2.scheduler.last_epoch}")
+    if diffs:
+        fail(f"[train:loop] resume is not bit-identical: {diffs[:8]}")
+    mib = os.path.getsize(path) / 2 ** 20
+    say(f"[train:loop] save {mib:.1f} MiB (weights and Adam moments) in "
+        f"{save_s:.3f} s; a new Trainer from the checkpoint on the card in "
+        f"{resume_s:.3f} s (host clock; {card}): weights, batch-norm "
+        f"statistics, Adam moments ({len(moments)} parameters), step "
+        f"{tr2.step} and epoch {tr2.epoch} bit-identical")
+    ftd.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps2 = tr2.train_epoch()
+    torch.cuda.synchronize()
+    epoch2_s = time.perf_counter() - t0
+    check_launches("resumed epoch", k2 + k3)
+    records2 = _train_records(tr2)
+    _finite_losses(records2, "[train:loop] resumed epoch")
+    say(f"[train:loop] resumed epoch: {steps2} steps (steps "
+        f"{records2[0]['step']}-{records2[-1]['step']}) in {epoch2_s:.4f} s "
+        f"= {steps2 / epoch2_s:.3f} steps/s ({card}); losses "
+        + ", ".join(f"{r['total_loss']:.5f}" for r in records2))
+    del tr2
+
+    # the first two steps on the card against the CPU's (loop_cpu_steps):
+    # the same weights, batches, flags and seeds (each trainer's Draws from
+    # the same seed)
+    cpu = json.loads((base / "cpu_steps.json").read_text())
+    hp_c = hp.copy()
+    t = Trainer(hp_c, TextToSpeechDatasetCollection(str(root), hp_c,
+                                                    device="cuda"),
+                device="cuda", seed=SEED, log_dir=str(base / "logs_cuda"))
+    if state_digest(t.model) != cpu["digest"]:
+        fail("[train:loop] the card's and the CPU's trainers start from "
+             "other weights")
+    no_conv_dropout(t.model)
+    t0 = time.perf_counter()
+    t.train_epoch(max_steps=2)
+    torch.cuda.synchronize()
+    sk = time.perf_counter() - t0
+    rk, rp = _train_records(t), cpu["records"]
+    del t
+    checks = {f"step {a['step']} {k}": abs(a[k] - b[k]) / (abs(b[k]) + 1e-12)
+              for a, b in zip(rk, rp) for k in b
+              if k.startswith("loss_") or k in ("total_loss",
+                                                "gradient_norm")}
+    name, top = max(checks.items(), key=lambda kv: kv[1])
+    if len(rk) != 2 or len(rp) != 2 or top > TRAIN_E2E_TOL:
+        fail(f"[train:loop] first two steps card vs CPU: {name} off by "
+             f"relative {top}")
+    say(f"[train:loop] first two steps B={LOOP_B}, card ({sk:.3f} s; "
+        f"{card}) vs CPU plain path ({cpu['seconds']:.3f} s on "
+        f"{cpu['threads']} threads, in a process that ran during the "
+        f"kernels' build; waited for {cpu_waited:.3f} s after it), bf16, "
+        f"encoder and postnet dropout off: loss terms and gradient norms "
+        f"within relative {top:.3g} ({name}; bound {TRAIN_E2E_TOL})")
+
+    # GTA on the card over the whole training set, then the first batch on
+    # the CPU from a prefix of train.txt (the same batch, serials, seeds
+    # and speaker indices)
+    out = base / "gta"
+    t0 = time.perf_counter()
+    gta.main(["--checkpoint", path, "--data_root", str(base / "data"),
+              "--output", str(out / "card")])
+    torch.cuda.synchronize()
+    gta_s = time.perf_counter() - t0
+    names = sorted(os.listdir(out / "card"))
+    if len(names) != len(data.train):
+        fail(f"[train:loop] cli/gta.py wrote {len(names)} files for "
+             f"{len(data.train)} training items")
+    gta_b = 16 // n_lang * n_lang
+    cpu_root = base / "data_cpu" / "loop"
+    cpu_root.mkdir(parents=True)
+    lines = (root / "train.txt").read_text(encoding="utf-8").splitlines()
+    (cpu_root / "train.txt").write_text("\n".join(lines[:gta_b]) + "\n",
+                                        encoding="utf-8")
+    for d in ("spectrograms", "linear_spectrograms", *hp.languages):
+        os.symlink(root / d, cpu_root / d)
+    t0 = time.perf_counter()
+    gta.main(["--checkpoint", path, "--data_root", str(base / "data_cpu"),
+              "--output", str(out / "cpu"), "--cpu"])
+    gta_cpu_s = time.perf_counter() - t0
+    cpu_names = sorted(os.listdir(out / "cpu"))
+    if cpu_names != names[:gta_b]:
+        fail(f"[train:loop] cli/gta.py --cpu wrote {cpu_names[:4]}..., the "
+             f"card {names[:4]}...")
+    errs = {}
+    for n in cpu_names[:LOOP_GTA_CHECK]:
+        a, b = np.load(out / "card" / n), np.load(out / "cpu" / n)
+        errs[n] = (float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                   if a.shape == b.shape and np.isfinite(a).all()
+                   else math.inf)
+    worst = max(errs.values())
+    if worst > TRAIN_E2E_TOL:
+        fail(f"[train:loop] GTA card vs CPU: relative errors {errs}")
+    say(f"[train:loop] cli/gta.py on the checkpoint: {len(names)} files "
+        f"([bins, F]) in {gta_s:.3f} s on the card (model load included; "
+        f"{card}); the first batch ({gta_b}) with --cpu in {gta_cpu_s:.3f} "
+        f"s: {', '.join(f'{n} {e:.3g}' for n, e in errs.items())} relative "
+        f"error (bound {TRAIN_E2E_TOL})")
+    say(f"[train:loop] peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+
+
 # F3: the attention kernels of all three decoders on long texts
 LONG_T, LONG_B = (600, 1000, 1500), 8
 # float32 weights of a long row: each carries the absolute float32 error of
@@ -3010,8 +3481,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == ["--loop-cpu-steps"]:
+        return loop_cpu_steps()
     from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
 
+    # [train:loop]'s corpus, and its CPU steps in a process during the build
+    cpu_steps = loop_setup()
     torch.set_grad_enabled(False)
     # PyTorch runs float32 matrix products in full float32 by default: the
     # plain versions and the library yardsticks rely on it
@@ -3029,6 +3504,8 @@ def main() -> int:
     sd = seeded_state_dict(hp)
     with phase("kernels"):
         errs = phase_kernels(hp, sd)
+    # no CPU work of another process under the host-clock timings below
+    cpu_waited = loop_wait(cpu_steps)
     with phase("main"):
         syn, launches, _ = phase_main(hp, sd, flagship(32, 16))
     with phase("time"):
@@ -3090,6 +3567,11 @@ def main() -> int:
         rows += phase_train_timings(hp, train_errs, t_launches, t_per_step,
                                     train_inputs, main_state)
     del main_state, train_inputs
+    # training from a corpus on disk at the flagship's width: the data
+    # pipeline, the Trainer's epochs, evaluation, checkpoint and resume, the
+    # first steps on the card against the CPU, and GTA
+    with phase("train:loop"):
+        phase_train_loop(cpu_waited)
     # training steps of both strategies (K2/K3 against plain and timed at
     # the shared strategy's 548-wide memory)
     for name in SWITCHING:

@@ -6,9 +6,11 @@ synthesis (encoder, decoder with its step as hand-written CUDA kernels in
 ``ops/fused_decoder.py``, postnet) and the training step
 (``training/trainer.py::train_step``: the train-mode forward, the loss, the
 teacher-forced decoder's forward and backward as hand-written CUDA kernels
-in ``ops/fused_train_decoder.py``, clipping and Adam), for the flagship
-model and for every encoder of the paper's parameter-sharing strategies
-(``shared_switching_hparams``, ``separate_switching_hparams``).
+in ``ops/fused_train_decoder.py``, clipping and Adam) and the training
+runtime around it (``data/``, ``training/trainer.py::Trainer``, the
+prepare, train and GTA CLIs), for the flagship model and for every encoder
+of the paper's parameter-sharing strategies (``shared_switching_hparams``,
+``separate_switching_hparams``).
 """
 
 from multilingual_text_to_speech_tpu_torch.config import (

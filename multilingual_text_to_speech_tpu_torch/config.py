@@ -186,6 +186,9 @@ class HParams:
     def from_json(cls, json_path: str) -> "HParams":
         return cls().overlay(json_path)
 
+    def copy(self) -> "HParams":
+        return HParams.from_state_dict(copy.deepcopy(self.state_dict()))
+
     def symbols_count(self) -> int:
         count = len(self.phonemes if self.use_phonemes else self.characters)
         if self.use_punctuation:

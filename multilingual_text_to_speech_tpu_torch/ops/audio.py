@@ -10,13 +10,13 @@ functions do.  De-emphasis, a first-order IIR filter, runs on the host with
 Griffin-Lim draws its initial phases from a ``torch.Generator`` on the
 device seeded with ``seed``; ``angles`` (complex, the magnitudes' shape)
 replaces that draw, which is how a comparison with the JAX package feeds
-in its ``jax.random`` phases.  The mel cepstral distortion waits for the
-port's trainer loop, its first user.
+in its ``jax.random`` phases.  The mel cepstral distortion takes its MFCCs
+on the device and aligns them on the host (``ops.dtw``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Literal, Optional
 
 import numpy as np
 import scipy.signal
@@ -27,6 +27,7 @@ from multilingual_text_to_speech_tpu_torch.device import (
     resolve_device,
 )
 from multilingual_text_to_speech_tpu_torch.ops import mel as mel_ops
+from multilingual_text_to_speech_tpu_torch.ops.dtw import dtw_path
 from multilingual_text_to_speech_tpu_torch.ops import stft as stft_ops
 from multilingual_text_to_speech_tpu_torch.ops.io import (  # noqa: F401
     load,
@@ -200,6 +201,46 @@ def get_spectrogram_mfcc(S, hp, device: DeviceLike = None) -> np.ndarray:
 def get_mfcc(y, hp, device: DeviceLike = None) -> np.ndarray:
     """MFCCs of a waveform."""
     return get_spectrogram_mfcc(mel_spectrogram(y, hp, device), hp, device)
+
+
+def mel_cepstral_distortion(
+    S1, S2, hp, mode: Literal["cut", "stretch", "dtw"] = "dtw",
+    device: DeviceLike = None,
+) -> float:
+    """MCD between two dB mel spectrograms [bins, F1] and [bins, F2]: the
+    mean over aligned frames of the Euclidean distance between their MFCCs
+    without c0.  ``mode`` "cut" truncates the longer sequence, "stretch"
+    resamples the shorter one by nearest index, "dtw" aligns them by exact
+    DTW on the host."""
+
+    def mcd(a: np.ndarray, b: np.ndarray) -> float:
+        diff = a - b
+        return float(np.mean(np.sqrt(np.sum(diff * diff, axis=0))))
+
+    x = get_spectrogram_mfcc(S1, hp, device)[1:]  # drop c0
+    y = get_spectrogram_mfcc(S2, hp, device)[1:]
+
+    if mode == "cut":
+        n = min(x.shape[1], y.shape[1])
+        x, y = x[:, :n], y[:, :n]
+    elif mode == "stretch":
+        if x.shape[1] > y.shape[1]:
+            m = x.shape[1]
+            y = y[:, [i * y.shape[1] // m for i in range(m)]]
+        else:
+            m = y.shape[1]
+            x = x[:, [i * x.shape[1] // m for i in range(m)]]
+    elif mode == "dtw":
+        px, py = dtw_path(x.T, y.T)
+        x, y = x[:, px], y[:, py]
+    else:
+        raise ValueError(f"unknown MCD mode: {mode}")
+
+    return mcd(x, y)
+
+
+# the reference's spelling, kept as an alias
+mel_cepstral_distorision = mel_cepstral_distortion
 
 
 # ---------------------------------------------------------------------------

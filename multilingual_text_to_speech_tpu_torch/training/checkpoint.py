@@ -14,11 +14,12 @@ The model section is the JAX layout (``interop.params_to_jax`` writes it,
 restores: the JAX ``Synthesizer.from_checkpoint`` reads a port-written file
 and the port's reads a JAX-written one.
 
-The optimizer section is read and written as it is, a nested dict of
-arrays: mapping torch's Adam state onto optax's chain state waits for the
-port's trainer loop.  So the JAX ``Trainer`` does not resume from a
-port-written file (its optimizer section is what the caller passed, empty by
-default), and the port resumes no optimizer from a JAX file.
+The optimizer section is optax's state of the JAX package's
+``make_optimizer`` chain; ``interop.optax_state`` maps torch's Adam state
+and ``LambdaLR`` step onto it and back, so the JAX ``Trainer`` resumes a
+file the port's ``Trainer`` wrote, with its Adam moments, and the other way
+round.  ``save_checkpoint`` writes the section it is given (empty by
+default) as it is.
 """
 
 from __future__ import annotations

@@ -1,52 +1,73 @@
-"""One training step, for every encoder the port builds.
+"""The training runtime: one step, the epoch loop, evaluation and
+checkpoints.
 
-Port of the step machinery of the JAX package's ``training/trainer.py``:
-``make_optimizer`` (global-norm clipping, then Adam with the L2 weight
-decay folded into the gradient, then the step-decay learning rate, with an
-encoder learning-rate group when ``hp.encoder_optimizer`` is set),
-``Trainer._train_step_impl`` as ``train_step``, and the classifier
-accuracy.  The epoch loop, evaluation and checkpoints are not ported.
+Port of the JAX package's ``training/trainer.py``: ``make_optimizer``
+(global-norm clipping, then Adam with the L2 weight decay folded into the
+gradient, then the step-decay learning rate, with an encoder learning-rate
+group when ``hp.encoder_optimizer`` is set), ``Trainer._train_step_impl``
+as ``train_step``, the classifier accuracy, and ``Trainer``: the samplers,
+``train_epoch`` over ``train_step`` with the metrics logger and a
+``torch.profiler`` trace, ``evaluate`` (the teacher-forced and the
+free-running pass in ``model.eval()``, DTW-MCD, the classifier accuracy and
+a Griffin-Lim render of one sample), ``save`` and ``fit``, and the resume
+from a checkpoint of either package (``interop.optax_state`` maps the Adam
+state).  Data parallel over several cards is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import os
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from multilingual_text_to_speech_tpu_torch.data.batching import (  # noqa: F401
+    Batch,
+    Collate,
+    batch_iterator,
+)
+from multilingual_text_to_speech_tpu_torch.data.prefetch import prefetch
+from multilingual_text_to_speech_tpu_torch.data.sampling import (
+    BalancedBatchSampler,
+    PerfectBatchSampler,
+    SimpleBatchSampler,
+)
 from multilingual_text_to_speech_tpu_torch.device import (
     DeviceLike,
     exact_float32,
     resolve_device,
 )
+from multilingual_text_to_speech_tpu_torch.interop.optax_state import (
+    optimizer_from_optax,
+    optimizer_to_optax,
+)
 from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+    Tacotron,
     TacotronLossState,
+    init_random_weights,
     lengths_to_mask,
     tacotron_loss,
 )
+from multilingual_text_to_speech_tpu_torch.ops import audio as audio_ops
 from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     draw_seeds,
+)
+from multilingual_text_to_speech_tpu_torch.training.checkpoint import (
+    load_checkpoint,
+    restore,
+    save_checkpoint,
+)
+from multilingual_text_to_speech_tpu_torch.training.logging import (
+    MetricsLogger,
 )
 from multilingual_text_to_speech_tpu_torch.training.schedule import (
     step_decay_schedule,
     teacher_forcing_ratio,
 )
-
-
-class Batch(NamedTuple):
-    """One padded training batch (channels-last spectrograms); a copy of
-    the JAX package's ``data/batching.py::Batch``."""
-
-    utterances: np.ndarray            # [B, T] int32
-    utterance_lengths: np.ndarray     # [B] int32
-    mel_spectrograms: np.ndarray      # [B, F, num_mels] float32
-    linear_spectrograms: Optional[np.ndarray]  # [B, F, bins] or None
-    spectrogram_lengths: np.ndarray   # [B] int32
-    stop_tokens: np.ndarray           # [B, F] float32
-    speakers: Optional[np.ndarray]    # [B] int32 or None
-    languages: Optional[np.ndarray]   # [B] int32 or None
 
 
 class StepResult(NamedTuple):
@@ -187,3 +208,395 @@ def train_step(model, optimizer, scheduler, batch: Batch,
            if hp.reversal_classifier else torch.zeros((), device=dev))
     return StepResult({k: v.detach() for k, v in losses.items()}, grad_norm,
                       acc, loss_state.update())
+
+
+# ---------------------------------------------------------------------------
+# the epoch loop
+# ---------------------------------------------------------------------------
+
+class Draws:
+    """The trainer's random choices, from a CPU ``torch.Generator`` of its
+    seed: each training step's F teacher-forcing flags (Bernoulli at the
+    step's ratio) and decoder seeds, the evaluation passes' seeds, and the
+    sample that ``evaluate`` logs.  An object with the same three methods
+    can stand in (the tests replay the JAX package's draws)."""
+
+    def __init__(self, seed: int):
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def train(self, frames: int, ratio: float
+              ) -> Tuple[List[int], Tuple[int, int]]:
+        teacher = (torch.rand(frames, generator=self.generator)
+                   < ratio).int().tolist()
+        return teacher, draw_seeds(self.generator)
+
+    def eval(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """The seeds of the teacher-forced pass and of the free-running
+        pass (their flags are all 1 and all 0)."""
+        return draw_seeds(self.generator), draw_seeds(self.generator)
+
+    def pick(self, n: int) -> int:
+        return int(torch.randint(n, (1,), generator=self.generator))
+
+
+def _criterion(payload) -> TacotronLossState:
+    c = payload["criterion"]
+    return TacotronLossState(
+        guided_att_variance=float(c["guided_att_variance"]),
+        guided_att_steps=int(c["guided_att_steps"]),
+        guided_att_gamma=float(c["guided_att_gamma"]))
+
+
+class Trainer:
+    """The training loop: ``fit`` runs ``train_epoch``,
+    ``evaluate`` and, every ``hp.checkpoint_each_epochs``, ``save``.
+
+    The model and its optimizer live on ``device``, the card unless the
+    caller passes ``"cpu"`` (raising without a card).  As in the JAX
+    package, ``hp`` is completed from the training set (speaker count,
+    language count, speaker list and normalization constants) unless the
+    run resumes ``from_checkpoint``, which restores the weights (partially,
+    by path and shape), the epoch (the saved one + 1), the step, the
+    guided-attention state and the Adam state; an optimizer section that
+    does not match the model is reported and training goes on with fresh
+    moments.  The weights start from ``initial_state`` (a state dict) when
+    given, else from ``init_random_weights(seed)``; ``draws`` replaces the
+    trainer's ``Draws(seed)``."""
+
+    def __init__(self, hp, dataset_collection, *,
+                 checkpoint_dir: Optional[str] = None,
+                 log_dir: Optional[str] = None, seed: int = 42,
+                 device: DeviceLike = None,
+                 from_checkpoint: Optional[str] = None,
+                 flush_seconds: int = 60,
+                 initial_state: Optional[Dict[str, torch.Tensor]] = None,
+                 draws=None):
+        self.hp = hp
+        self.data = dataset_collection
+        self.device = resolve_device(device)
+
+        # dataset-dependent hp mutation (reference: train.py:238-250)
+        hp.speaker_number = (
+            dataset_collection.train.get_num_speakers() if hp.multi_speaker
+            else 0)
+        hp.language_number = len(hp.languages) if hp.multi_language else 0
+        if hp.multi_speaker and not from_checkpoint:
+            hp.unique_speakers = list(dataset_collection.train.unique_speakers)
+        if not from_checkpoint and hp.normalize_spectrogram:
+            if hp.mel_normalization() is None:
+                train_ds = dataset_collection.train
+                mean, var = train_ds.get_normalization_constants(True)
+                hp.mel_normalize_mean, hp.mel_normalize_variance = mean, var
+                if hp.predict_linear:
+                    mean, var = train_ds.get_normalization_constants(False)
+                    hp.lin_normalize_mean, hp.lin_normalize_variance = (
+                        mean, var)
+
+        dtype = (torch.bfloat16 if hp.compute_dtype == "bfloat16"
+                 else torch.float32)
+        model = Tacotron(hp, dtype)
+        if initial_state is not None:
+            model.load_state_dict(initial_state, strict=True)
+        else:
+            init_random_weights(model, seed)
+        self.loss_state = TacotronLossState.init(hp)
+        self.epoch = 0
+        self.step = 0
+        payload = None
+        if from_checkpoint:
+            payload = load_checkpoint(from_checkpoint)
+            restore(payload, model, hp, partial=True)
+            self.epoch = int(payload["epoch"]) + 1
+            self.step = int(payload["step"])
+            self.loss_state = _criterion(payload)
+        self.model = model.to(self.device)
+        self.optimizer, self.scheduler = make_optimizer(self.model, hp)
+        if payload is not None:
+            try:
+                optimizer_from_optax(payload["optimizer"], self.model,
+                                     self.optimizer, self.scheduler, hp)
+            except (ValueError, KeyError, TypeError) as e:
+                # expected when fine-tuning a changed architecture
+                print("WARNING: optimizer state in checkpoint does not match "
+                      f"the current model ({e}); starting with fresh Adam "
+                      "moments.", flush=True)
+
+        self.draws = draws if draws is not None else Draws(seed)
+        self.collate = Collate(hp)
+        self._make_samplers(seed)
+        self._lr_schedule = step_decay_schedule(hp)
+        # seconds of the last evaluate() by part (forced and free-running
+        # passes, DTW-MCD, Griffin-Lim render)
+        self.eval_seconds: Dict[str, float] = {}
+
+        self.logger = None
+        if log_dir is not None:
+            stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
+            self.logger = MetricsLogger(
+                os.path.join(log_dir, f"{hp.version}-{stamp}"),
+                flush_seconds=flush_seconds)
+        self.checkpoint_dir = checkpoint_dir
+        if checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+
+    # -- data ------------------------------------------------------------------
+
+    def _make_samplers(self, seed: int):
+        hp = self.hp
+        train_langs = [it["language"] for it in self.data.train.items]
+        dev_langs = [it["language"] for it in self.data.dev.items]
+        if hp.multi_language and hp.balanced_sampling and hp.perfect_sampling:
+            self.train_sampler = PerfectBatchSampler(
+                train_langs, len(hp.languages), hp.batch_size, shuffle=True,
+                drop_last=True, seed=seed)
+            self.eval_sampler = PerfectBatchSampler(
+                dev_langs, len(hp.languages), hp.batch_size, shuffle=False,
+                drop_last=False, seed=seed)
+        elif hp.multi_language and hp.balanced_sampling:
+            self.train_sampler = BalancedBatchSampler(
+                train_langs, hp.batch_size, drop_last=True, seed=seed)
+            self.eval_sampler = SimpleBatchSampler(
+                len(self.data.dev), hp.batch_size, shuffle=False,
+                drop_last=False, seed=seed)
+        else:
+            self.train_sampler = SimpleBatchSampler(
+                len(self.data.train), hp.batch_size, shuffle=True,
+                drop_last=True, seed=seed)
+            self.eval_sampler = SimpleBatchSampler(
+                len(self.data.dev), hp.batch_size, shuffle=False,
+                drop_last=False, seed=seed)
+
+    def _train_batches(self):
+        """The epoch's collated batches, prefetched by one thread."""
+        return prefetch(batch_iterator(self.data.train, self.train_sampler,
+                                       self.collate), depth=2)
+
+    def _eval_batches(self):
+        return batch_iterator(self.data.dev, self.eval_sampler, self.collate)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- epochs ------------------------------------------------------------------
+
+    def train_epoch(self, logging_start_epoch: int = 0,
+                    profile_steps: int = 0,
+                    profile_dir: Optional[str] = None,
+                    max_steps: Optional[int] = None) -> int:
+        """One training epoch (reference: train.py:29-95), or its first
+        ``max_steps`` steps; returns the steps run.  With ``profile_steps >
+        0`` a ``torch.profiler`` trace of that many steps is written to
+        ``profile_dir/trace.json``."""
+        hp = self.hp
+        steps = 0
+        t0 = time.time()
+        prof = None
+        for batch in self._train_batches():
+            if profile_steps and steps == 0:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.__enter__()
+            step = self.step
+            teacher, seeds = self.draws.train(
+                batch.mel_spectrograms.shape[1],
+                teacher_forcing_ratio(hp, step))
+            res = train_step(self.model, self.optimizer, self.scheduler,
+                             batch, self.loss_state, None, teacher=teacher,
+                             seeds=seeds, device=self.device)
+            self.step += 1
+            if self.logger is not None and self.epoch >= logging_start_epoch:
+                self.logger.training(
+                    step, {k: float(v) for k, v in res.losses.items()},
+                    float(res.grad_norm), float(self._lr_schedule(step)),
+                    time.time() - t0, float(res.accuracy))
+            self.loss_state = res.loss_state
+            t0 = time.time()
+            steps += 1
+            if prof is not None and steps >= profile_steps:
+                self._stop_profile(prof, profile_dir)
+                prof = None
+            if steps == max_steps:
+                break
+        if prof is not None:
+            self._stop_profile(prof, profile_dir)
+        return steps
+
+    def _stop_profile(self, prof, profile_dir: Optional[str]) -> None:
+        self._sync()
+        prof.__exit__(None, None, None)
+        out = profile_dir or os.path.join(
+            self.logger.log_dir if self.logger else ".", "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+    def _inputs(self, batch: Batch):
+        dev = self.device
+        return (_on(dev, batch.utterances, torch.long),
+                _on(dev, batch.utterance_lengths, torch.long),
+                _on(dev, batch.mel_spectrograms, torch.float32),
+                _on(dev, batch.spectrogram_lengths, torch.long),
+                _on(dev, batch.speakers, torch.long),
+                _on(dev, batch.languages, torch.long))
+
+    @torch.no_grad()
+    def evaluate(self) -> float:
+        """Eval epoch (reference: train.py:98-170): per batch, the
+        teacher-forced pass (its loss and classifier accuracy) and the
+        free-running pass, both in ``model.eval()``; each free-running
+        prediction cut ``hp.stop_frames`` after its first stop and scored
+        by DTW-MCD against its target; with a logger, one random sample's
+        spectrograms and alignment logged and both passes' predictions
+        rendered by Griffin-Lim on the device.  Returns the summed mean
+        eval loss; ``eval_seconds`` holds the parts' seconds."""
+        hp = self.hp
+        eval_losses: Dict[str, float] = {}
+        mcd, mcd_count = 0.0, 0
+        cla, cla_count = 0.0, 0
+        n_batches = 0
+        last = None
+        seconds = dict(forced=0.0, free=0.0, mcd=0.0, render=0.0)
+        ga_active = self.loss_state.guided_att_steps > 0
+        is_mel = not hp.predict_linear
+
+        self.model.eval()
+        for batch in self._eval_batches():
+            frames = batch.mel_spectrograms.shape[1]
+            seeds_forced, seeds_free = self.draws.eval()
+            text, text_len, mels, mel_len, speakers, languages = (
+                self._inputs(batch))
+            t0 = time.perf_counter()
+            out_forced = self.model(text, text_len, mels, mel_len, speakers,
+                                    languages, [1] * frames, seeds_forced)
+            post_target = (mels if batch.linear_spectrograms is None else
+                           _on(self.device, batch.linear_spectrograms,
+                               torch.float32))
+            _, losses = tacotron_loss(
+                out_forced, hp=hp, input_lengths=text_len,
+                target_lengths=mel_len, pre_target=mels,
+                post_target=post_target,
+                stop_target=_on(self.device, batch.stop_tokens,
+                                torch.float32),
+                speakers=speakers,
+                guided_att_variance=self.loss_state.guided_att_variance,
+                guided_att_active=ga_active)
+            losses = {k: float(v) for k, v in losses.items()}
+            acc = (float(classifier_accuracy(out_forced["speaker_prediction"],
+                                             speakers, text_len))
+                   if hp.reversal_classifier else 0.0)
+            t1 = time.perf_counter()
+            out_free = self.model(text, text_len, mels, mel_len, speakers,
+                                  languages, [0] * frames, seeds_free)
+            post_free = out_free["post_prediction"].float().cpu().numpy()
+            stop_probs = torch.sigmoid(
+                out_free["stop_token"].float()).cpu().numpy()
+            t2 = time.perf_counter()
+
+            for j in range(post_free.shape[0]):
+                gen = post_free[j].T       # [bins, F]
+                ref = np.asarray(batch.mel_spectrograms[j]).T
+                stop_idx = np.where(stop_probs[j] > 0.5)[0]
+                cut = (min(int(stop_idx.min()) + hp.stop_frames, gen.shape[1])
+                       if len(stop_idx) else gen.shape[1])
+                gen = gen[:, :cut]
+                ref = ref[:, :int(batch.spectrogram_lengths[j])]
+                if hp.normalize_spectrogram:
+                    gen = audio_ops.denormalize_spectrogram(gen, hp, is_mel)
+                    ref = audio_ops.denormalize_spectrogram(ref, hp, True)
+                if hp.predict_linear:
+                    gen = audio_ops.linear_to_mel(gen, hp, self.device)
+                mcd = (mcd_count * mcd + audio_ops.mel_cepstral_distortion(
+                    gen, ref, hp, "dtw", device=self.device)) / (mcd_count + 1)
+                mcd_count += 1
+            t3 = time.perf_counter()
+            seconds["forced"] += t1 - t0
+            seconds["free"] += t2 - t1
+            seconds["mcd"] += t3 - t2
+
+            if hp.reversal_classifier:
+                cla = (cla_count * cla + acc) / (cla_count + 1)
+                cla_count += 1
+            for k, v in losses.items():
+                eval_losses[k] = eval_losses.get(k, 0.0) + v
+            n_batches += 1
+            last = (batch, out_forced["post_prediction"], post_free,
+                    out_free["alignment"], stop_probs)
+
+        for k in eval_losses:
+            eval_losses[k] /= max(n_batches, 1)
+
+        if self.logger is not None and last is not None:
+            t0 = time.perf_counter()
+            self._log_sample(eval_losses, mcd, cla, *last)
+            seconds["render"] = time.perf_counter() - t0
+        self.eval_seconds = seconds
+        return float(sum(eval_losses.values()))
+
+    def _log_sample(self, eval_losses, mcd, cla, batch, forced, free_np,
+                    alignment, stop_probs):
+        """One random eval sample to the logger: the target, generated and
+        teacher-forced spectrograms (denormalized, cropped to the target's
+        length), its alignment, stop probabilities and both predictions
+        rendered by Griffin-Lim on the device (reference:
+        utils/logging.py:101-119)."""
+        from multilingual_text_to_speech_tpu_torch.text import SymbolTable
+
+        hp = self.hp
+        idx = self.draws.pick(batch.utterances.shape[0])
+        f_len = int(batch.spectrogram_lengths[idx])
+        s_len = int(batch.utterance_lengths[idx])
+        source_text = SymbolTable(hp).decode(
+            np.asarray(batch.utterances[idx]))
+        is_mel = not hp.predict_linear
+        gen = free_np[idx][:f_len].T
+        forced = forced[idx, :f_len].float().cpu().numpy().T
+        target = np.asarray(batch.mel_spectrograms[idx][:f_len]).T
+        if hp.normalize_spectrogram:
+            gen = audio_ops.denormalize_spectrogram(gen, hp, is_mel)
+            forced = audio_ops.denormalize_spectrogram(forced, hp, is_mel)
+            target = audio_ops.denormalize_spectrogram(target, hp, True)
+        audio_generated = audio_ops.inverse_spectrogram(
+            gen, hp, mel=is_mel, device=self.device)
+        audio_forced = audio_ops.inverse_spectrogram(
+            forced, hp, mel=is_mel, device=self.device)
+        self.logger.evaluation(
+            self.epoch + 1, eval_losses, mcd, cla,
+            alignment=alignment[idx, :f_len, :s_len].float().cpu().numpy(),
+            target_spec=target.T, predicted_spec=gen.T, forced_spec=forced.T,
+            stop_probs=stop_probs[idx],
+            stop_target=np.asarray(batch.stop_tokens[idx]),
+            audio_generated=audio_generated, audio_forced=audio_forced,
+            source_text=source_text, sample_rate=hp.sample_rate)
+
+    def save(self, eval_loss: float) -> str:
+        """Write the checkpoint (weights, Adam state as optax's, step,
+        epoch, hp, guided-attention state); returns its path."""
+        path = os.path.join(
+            self.checkpoint_dir,
+            f"{self.hp.version}_loss-{self.epoch}-{eval_loss:2.3f}")
+        save_checkpoint(
+            path, epoch=self.epoch, step=self.step,
+            state_dict=self.model.state_dict(), hp=self.hp,
+            criterion_state=self.loss_state.state_dict(),
+            optimizer=optimizer_to_optax(self.model, self.optimizer,
+                                         self.scheduler, self.hp))
+        return path
+
+    def fit(self, epochs: Optional[int] = None,
+            logging_start_epoch: int = 0) -> float:
+        """The training loop (reference: train.py:292-310); returns the best
+        eval loss."""
+        hp = self.hp
+        epochs = epochs if epochs is not None else hp.epochs
+        best_eval = float("inf")
+        while self.epoch < epochs:
+            self.train_epoch(logging_start_epoch)
+            eval_loss = self.evaluate()
+            best_eval = min(best_eval, eval_loss)
+            if (self.checkpoint_dir
+                    and (self.epoch + 1) % hp.checkpoint_each_epochs == 0):
+                self.save(eval_loss)
+            self.epoch += 1
+        return best_eval

@@ -2562,3 +2562,161 @@ def test_vocode_batch_on_cuda():
                                           angles=angles, device="cpu")
     for g, r in zip(got, ref):
         assert np.abs(g - r).max() <= GL_TOL * np.abs(r).max()
+
+
+# ---------------------------------------------------------------------------
+# the training loop: data on disk, Trainer, the optimizer mapping
+# ---------------------------------------------------------------------------
+
+def _loop_corpus(root, hp, n_per_lang=5):
+    """A CSS10-layout corpus in ``hp.languages`` (tones and noise), its
+    metafile and caches made on the card, split 4 train / 1 val a
+    language."""
+    import os
+
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.data import create_meta_file
+    from multilingual_text_to_speech_tpu_torch.ops.io import save_wav
+
+    rng = np.random.RandomState(0)
+    for li, lang in enumerate(hp.languages):
+        os.makedirs(os.path.join(root, lang, "wavs"))
+        with open(os.path.join(root, lang, "transcript.txt"), "w",
+                  encoding="utf-8") as f:
+            for i in range(n_per_lang):
+                t = np.arange(2500 + 400 * i) / 22050
+                save_wav(0.2 * np.sin(2 * np.pi * (180 + 40 * li) * t)
+                         + 0.01 * rng.randn(len(t)),
+                         os.path.join(root, lang, "wavs", f"{i}.wav"), 22050)
+                print(f"wavs/{i}.wav|x|hallo welt {i} {lang}", file=f)
+    create_meta_file("css10", root, "all.txt", hp, 22050, 1102,
+                     phonemes=False, device="cuda")
+    lines = open(os.path.join(root, "all.txt"), encoding="utf-8"
+                 ).read().splitlines()
+    for name, keep in (("train.txt", lambda i: i % n_per_lang != 0),
+                       ("val.txt", lambda i: i % n_per_lang == 0)):
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(l for i, l in enumerate(lines) if keep(i))
+                    + "\n")
+
+
+def _loop_hp():
+    hp = _hp(False)
+    hp.batch_size = 10
+    hp.mel_normalize_mean = hp.mel_normalize_variance = None
+    hp.speaker_number = 0
+    return hp
+
+
+def test_trainer_epoch_and_evaluate_launch_the_kernels(tmp_path):
+    """``Trainer.train_epoch`` on the card launches every K2 and K3 kernel
+    of the path; ``evaluate`` every K2 kernel (the eval variant) and no K3;
+    losses, eval loss and MCD finite; a checkpoint resumes bit-identical,
+    Adam moments on the card."""
+    import math
+
+    from multilingual_text_to_speech_tpu_torch.data import (
+        TextToSpeechDatasetCollection,
+    )
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+    from multilingual_text_to_speech_tpu_torch.training.trainer import Trainer
+
+    hp = _loop_hp()
+    _loop_corpus(str(tmp_path / "corpus"), hp)
+    data = TextToSpeechDatasetCollection(str(tmp_path / "corpus"), hp,
+                                         device="cuda")
+    tr = Trainer(hp, data, device="cuda", seed=0,
+                 log_dir=str(tmp_path / "logs"),
+                 checkpoint_dir=str(tmp_path / "ckpt"))
+    k2, k3 = ftd.TrainConfig.from_hp(hp, tr.model.decoder.memory_dim,
+                                     tr.model.dtype).kernels
+    ftd.reset_launch_counts()
+    assert tr.train_epoch() == 2
+    torch.cuda.synchronize()
+    missing = [k for k in k2 + k3 if ftd.LAUNCHES[k] == 0]
+    assert not missing, missing
+    ftd.reset_launch_counts()
+    loss = tr.evaluate()
+    torch.cuda.synchronize()
+    assert math.isfinite(loss)
+    assert all(ftd.LAUNCHES[k] > 0 for k in k2)
+    assert not any(ftd.LAUNCHES[k] for k in k3)
+    path = tr.save(loss)
+    again = Trainer(hp.copy(), data, device="cuda", seed=0,
+                    from_checkpoint=path)
+    saved = tr.model.state_dict()
+    for name, t in again.model.state_dict().items():
+        if not name.endswith("num_batches_tracked"):
+            assert torch.equal(t, saved[name]), name
+    for p, st in again.optimizer.state.items():
+        assert st["exp_avg"].is_cuda and st["exp_avg_sq"].is_cuda
+    assert (again.epoch, again.step) == (1, 2)
+
+
+def test_optimizer_mapping_round_trips_cuda_tensors():
+    """Adam's state on the card -> the optax section (numpy) -> a fresh
+    optimizer on the card: bit-identical, both group layouts."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.interop.optax_state import (
+        optimizer_from_optax,
+        optimizer_to_optax,
+    )
+    from multilingual_text_to_speech_tpu_torch.training.trainer import (
+        make_optimizer,
+    )
+
+    for encoder_optimizer in (False, True):
+        hp = _hp(False)
+        hp.encoder_optimizer = encoder_optimizer
+        model = init_random_weights(Tacotron(hp, torch.bfloat16), 1).cuda()
+        opt, sched = make_optimizer(model, hp)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for _ in range(2):
+            for p in model.parameters():
+                if p.requires_grad:
+                    p.grad = torch.randn(p.shape, device="cuda",
+                                         generator=gen)
+            opt.step()
+            sched.step()
+        section = optimizer_to_optax(model, opt, sched, hp)
+        leaf = section["1"]["1"]["mu"] if not encoder_optimizer else \
+            section["1"]["inner_states"]["other"]["inner_state"]["1"]["mu"]
+        assert isinstance(leaf["decoder"]["cell"]["stop_prediction"][
+            "kernel"], np.ndarray)
+        opt2, sched2 = make_optimizer(model, hp)
+        optimizer_from_optax(section, model, opt2, sched2, hp)
+        assert sched2.last_epoch == 2
+        for p in model.parameters():
+            if not p.requires_grad:
+                continue
+            a, b = opt.state[p], opt2.state[p]
+            assert b["exp_avg"].is_cuda
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(a[k], b[k]), k
+            assert int(a["step"]) == int(b["step"]) == 2
+
+
+def test_dataset_computes_uncached_spectrograms_on_the_card(tmp_path):
+    """``cache_spectrograms`` off: the dataset's spectrogram from the audio
+    on the card, within 1e-5 of the largest amplitude of the CPU's."""
+    import numpy as np
+
+    from multilingual_text_to_speech_tpu_torch.data import TextToSpeechDataset
+
+    hp = _loop_hp()
+    root = str(tmp_path / "corpus")
+    _loop_corpus(root, hp)
+    hp.cache_spectrograms = False
+    hp.normalize_spectrogram = False
+    meta = str(tmp_path / "corpus" / "train.txt")
+    card = TextToSpeechDataset(meta, root, hp, device="cuda")
+    cpu = TextToSpeechDataset(meta, root, hp, device="cpu")
+    assert card.device.type == "cuda"
+    for i in (0, 7):
+        a, b = 10.0 ** (card[i][3] / 20.0), 10.0 ** (cpu[i][3] / 20.0)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()

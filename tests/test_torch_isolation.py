@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, nor ``msgpack`` or ``flax`` (the machine with the card has
-neither), and runs a tiny synthesis, a checkpoint round trip, a vocoding
-and a tiny training step on the CPU with all of them blocked."""
+neither), and runs a tiny synthesis, a checkpoint round trip, a vocoding,
+a tiny training step, and a corpus on disk through the prepare step, an
+epoch of the ``Trainer``, its evaluation, checkpoint and resume and the
+GTA export on the CPU with all of them blocked; every module imports."""
 
 import os
 import re
@@ -98,6 +100,46 @@ def test_port_synthesizes_with_jax_blocked():
                                  torch.Generator().manual_seed(0),
                                  device="cpu")
         assert all(np.isfinite(float(v)) for v in res.losses.values())
+
+        # every module of the package imports; a corpus on disk through
+        # prepare, the Trainer (an epoch, evaluate, save, resume) and GTA
+        import importlib, pkgutil
+        import multilingual_text_to_speech_tpu_torch as pkg
+        for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(info.name)
+        from multilingual_text_to_speech_tpu_torch.cli import gta
+        from multilingual_text_to_speech_tpu_torch.data import (
+            TextToSpeechDatasetCollection, create_meta_file)
+        from multilingual_text_to_speech_tpu_torch.ops.io import save_wav
+        sys.modules["torch.utils.tensorboard"] = None
+        hp.languages = ["de", "fr"]
+        hp.speaker_number, hp.batch_size, hp.dataset = 0, 2, "corpus"
+        hp.mel_normalize_mean = hp.mel_normalize_variance = None
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "corpus")
+            for lang in hp.languages:
+                os.makedirs(os.path.join(root, lang, "wavs"))
+                with open(os.path.join(root, lang, "transcript.txt"), "w") as f:
+                    for i in range(3):
+                        save_wav(0.1 * rng.randn(2200 + 300 * i),
+                                 os.path.join(root, lang, "wavs", f"{i}.wav"),
+                                 22050)
+                        print(f"wavs/{i}.wav|x|hallo {i}", file=f)
+            create_meta_file("css10", root, "train.txt", hp, 22050, 1102,
+                             phonemes=False, device="cpu")
+            os.link(os.path.join(root, "train.txt"),
+                    os.path.join(root, "val.txt"))
+            data = TextToSpeechDatasetCollection(root, hp, device="cpu")
+            tr = trainer.Trainer(hp, data, device="cpu", seed=0,
+                                 checkpoint_dir=os.path.join(tmp, "ckpt"))
+            assert tr.train_epoch() == 3
+            path = tr.save(tr.evaluate())
+            again = trainer.Trainer(hp, data, device="cpu", seed=0,
+                                    from_checkpoint=path)
+            assert (again.epoch, again.step) == (1, 3)
+            gta.main(["--checkpoint", path, "--data_root", tmp, "--output",
+                      os.path.join(tmp, "gta"), "--cpu"])
+            assert len(os.listdir(os.path.join(tmp, "gta"))) == 6
         assert not any(m in ("jax", "msgpack", "flax") or m.startswith(
             ("jax.", "msgpack.", "flax.", "multilingual_text_to_speech_tpu."))
             for m in sys.modules if sys.modules[m] is not None)
