@@ -142,6 +142,19 @@ Phases, each of which fails the run on a failed check:
    two steps on the card against the CPU's; ``cli/gta.py`` over the
    training set and its first batch against ``--cpu``; each number beside
    the card's name and power limit.
+14. ``[cbhg]`` (after 13): the flagship with the CBHG linear postnet and
+   the cosine-similarity classifier (``phase_cbhg``): a bf16 training step
+   at B=50, T=128, F=512 (``[train:cbhg]``: every K2/K3 kernel launched, no
+   other) against 6's conv-postnet step, each postnet's forward and
+   backward alone and the CBHG's GRU alone; a B=10 step card against CPU;
+   16 lines x 512 frames of linear spectrograms through K1 (every K1
+   kernel launched, no other), 2 lines card against CPU; ``vocode_batch``
+   on them (no NNLS) timed and Griffin-Lim card against CPU; a
+   reference-layout checkpoint (``tests/torch_reference_layout.py``)
+   through the port's import CLI to ``Synthesizer.from_checkpoint`` on the
+   card, bit-identical; in float32 the synthesis CLI on card and CPU into
+   the evaluation layout, ``evaluation.mcd`` card against CPU and
+   ``evaluation.asr``/``cer`` with a recognizer that echoes the metafile.
 
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1711,7 +1724,9 @@ REPLACES = {
 def train_batch(hp, b: int, t: int, f: int, seed: int):
     """A language-interleaved batch (sample k*g + j has language j) of
     random texts and mel targets, lengths drawn as bench.py's
-    ``_make_batch`` draws them."""
+    ``_make_batch`` draws them; with ``hp.predict_linear`` also linear
+    targets (from a generator of their own, so that the rest of the batch
+    is the one without them)."""
     import numpy as np
 
     from multilingual_text_to_speech_tpu_torch.training.trainer import Batch
@@ -1726,7 +1741,12 @@ def train_batch(hp, b: int, t: int, f: int, seed: int):
     stop = np.ones((b, f), np.float32)
     for i, n in enumerate(flen):
         stop[i, :max(int(n) - hp.stop_frames, 0)] = 0.0
-    return Batch(text, lengths, mels, None, flen, stop,
+    linear = None
+    if hp.predict_linear:
+        linear = np.random.RandomState(seed + 1).randn(
+            b, f, hp.num_fft // 2 + 1).astype(np.float32)
+        linear[np.arange(f)[None] >= flen[:, None]] = 0.0
+    return Batch(text, lengths, mels, linear, flen, stop,
                  rng.randint(0, hp.speaker_number, b),
                  np.arange(b) % hp.language_number)
 
@@ -2245,6 +2265,7 @@ def phase_train_main(hp, sd, timed: int = 3, frames: int = TRAIN_F):
     from multilingual_text_to_speech_tpu_torch.device import exact_float32
     from multilingual_text_to_speech_tpu_torch.models.tacotron import (
         TacotronLossState,
+        classifier_kernel,
         tacotron_loss,
     )
     from multilingual_text_to_speech_tpu_torch.ops import (
@@ -2320,6 +2341,8 @@ def phase_train_main(hp, sd, timed: int = 3, frames: int = TRAIN_F):
         torch.as_tensor(x, device="cuda") for x in (
             batch.utterances, batch.utterance_lengths, batch.mel_spectrograms,
             batch.spectrogram_lengths, batch.speakers, batch.languages))
+    post_target = (mels if batch.linear_spectrograms is None else
+                   torch.as_tensor(batch.linear_spectrograms, device="cuda"))
     # as train_step runs it: a float32 model's cuDNN calls in float32
     with (exact_float32() if model.dtype == torch.float32
           else contextlib.nullcontext()):
@@ -2327,9 +2350,10 @@ def phase_train_main(hp, sd, timed: int = 3, frames: int = TRAIN_F):
         out = model(text, lengths, mels, flen, spk, langs, full, (3, 4))
         total, _ = tacotron_loss(
             out, hp=hp, input_lengths=lengths, target_lengths=flen,
-            pre_target=mels, post_target=mels,
+            pre_target=mels, post_target=post_target,
             stop_target=torch.as_tensor(batch.stop_tokens, device="cuda"),
-            speakers=spk, guided_att_variance=state.guided_att_variance)
+            speakers=spk, guided_att_variance=state.guided_att_variance,
+            classifier_kernel=classifier_kernel(model))
         ev[1].record()
         opt.zero_grad(set_to_none=True)
         total.backward()
@@ -2354,6 +2378,7 @@ def phase_train_vs_cpu(hp, sd, t_len: int = 32) -> None:
     import torch
 
     from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+        classifier_kernel,
         tacotron_loss,
     )
     from multilingual_text_to_speech_tpu_torch.ops import (
@@ -2372,12 +2397,16 @@ def phase_train_vs_cpu(hp, sd, t_len: int = 32) -> None:
         o = m(t["utterances"], t["utterance_lengths"], t["mel_spectrograms"],
               t["spectrogram_lengths"], t["speakers"], t["languages"],
               teacher, (77, 88))
+        post_target = (t["mel_spectrograms"] if small.linear_spectrograms is
+                       None else torch.as_tensor(small.linear_spectrograms,
+                                                 device=dev))
         tot, losses = tacotron_loss(
             o, hp=hp, input_lengths=t["utterance_lengths"],
             target_lengths=t["spectrogram_lengths"],
             pre_target=t["mel_spectrograms"],
-            post_target=t["mel_spectrograms"], stop_target=t["stop_tokens"],
-            speakers=t["speakers"], guided_att_variance=0.25)
+            post_target=post_target, stop_target=t["stop_tokens"],
+            speakers=t["speakers"], guided_att_variance=0.25,
+            classifier_kernel=classifier_kernel(m))
         tot.backward()
         got[dev] = ({k: float(v) for k, v in losses.items()},
                     {n: p.grad.detach().float().cpu()
@@ -3467,6 +3496,311 @@ def phase_train_f32_and_long(sd) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the CBHG linear postnet and the cosine-similarity classifier
+# ---------------------------------------------------------------------------
+
+# [cbhg]: lines synthesized (MAX_FRAMES frames each), of them checked card
+# against CPU (32 frames) and vocoded card against CPU; lines of the float32
+# evaluation chain (EVAL_FRAMES frames)
+CBHG_LINES, CBHG_CHECK_LINES, EVAL_LINES, EVAL_FRAMES = 16, 2, 4, 32
+# the evaluation chain's MCD of the card's CLI output against the CPU's,
+# float32 on both (dB; DTW over equal lengths)
+EVAL_MCD_TOL = 0.1
+
+
+def reference_layout():
+    """``tests/torch_reference_layout.py`` (a weight tree as the reference
+    model's PyTorch checkpoint), loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_reference_layout", ROOT / "tests" / "torch_reference_layout.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def cbhg_hp(max_frames: int, chunk: int, **over):
+    """The flagship with the CBHG postnet (``predict_linear``) and the
+    cosine-similarity classifier, served, with linear normalization
+    constants; ``over`` as ``flagship``'s."""
+    hp = flagship(max_frames, chunk, **{
+        "predict_linear": True, "reversal_classifier_type": "cosine",
+        **over})
+    bins = hp.num_fft // 2 + 1
+    hp.lin_normalize_mean = [float(-3.0 + 0.002 * i) for i in range(bins)]
+    hp.lin_normalize_variance = [float(1.0 + 0.001 * i)
+                                 for i in range(bins)]
+    return hp
+
+
+def postnet_ms(hp, sd, frames: int):
+    """CUDA-event times of ``model.postnet``'s forward and backward (its
+    weights' and its input's gradients) at B=TRAIN_B, ``frames`` frames,
+    in train mode, and of the CBHG's GRU alone (None for the conv
+    postnet): its packed forward and backward on the highway layers'
+    width."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    model = train_model(hp, sd)
+    pre = torch.randn(TRAIN_B, frames, hp.num_mels, device="cuda",
+                      requires_grad=True)
+    lengths = torch.full((TRAIN_B,), frames, device="cuda")
+
+    def run():
+        model.postnet(pre, lengths).float().sum().backward()
+    total = cuda_ms(run, iters=5, warmup=2)
+    if not hp.predict_linear:
+        return total, None
+    gru = model.postnet.bigru
+    x = torch.randn(TRAIN_B, frames, gru.input_size, device="cuda",
+                    requires_grad=True)
+
+    def run_gru():
+        packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True)
+        gru(packed)[0].data.sum().backward()
+    return total, cuda_ms(run_gru, iters=5, warmup=2)
+
+
+def phase_cbhg(flagship_step_s: float) -> None:
+    """``[cbhg]``: the flagship with the CBHG postnet and the cosine
+    classifier (``cbhg_hp``, seeded weights).  A bf16 training step at
+    B=50, T=128, F=512 (``phase_train_main``: every K2/K3 kernel launched,
+    no other) against the flagship's conv-postnet step, and each postnet's
+    forward and backward alone; the B=10 step card against CPU
+    (``phase_train_vs_cpu``, the [train:*] bounds); CBHG_LINES lines x
+    MAX_FRAMES frames through K1 (launch counts reset just before and read
+    just after), CBHG_CHECK_LINES of them at 32 frames card against CPU;
+    ``vocode_batch`` of the linear spectrograms (no NNLS) timed, and
+    Griffin-Lim card against CPU from shared phases; a reference-layout
+    checkpoint through the port's import CLI to ``from_checkpoint`` on the
+    card; in float32, the synthesis CLI on card and CPU writing the
+    evaluation layout, ``evaluation.mcd`` scoring the card against the CPU
+    and ``evaluation.asr`` + ``cer`` with a local recognizer that echoes
+    the metafile."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.cli import (
+        import_reference_checkpoint as import_cli,
+    )
+    from multilingual_text_to_speech_tpu_torch.cli import synthesize as cli
+    from multilingual_text_to_speech_tpu_torch.config import HParams
+    from multilingual_text_to_speech_tpu_torch.evaluation import asr, cer, mcd
+    from multilingual_text_to_speech_tpu_torch.interop import params_to_jax
+    from multilingual_text_to_speech_tpu_torch.ops import audio
+    from multilingual_text_to_speech_tpu_torch.ops import fused_decoder as fd
+    from multilingual_text_to_speech_tpu_torch.ops import mel, stft
+    from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
+    from multilingual_text_to_speech_tpu_torch.training import checkpoint
+
+    label = card_label()
+    hp = cbhg_hp(MAX_FRAMES, CHUNK)
+    sd = seeded_state_dict(hp)
+    bins = hp.num_fft // 2 + 1
+
+    # training: the step, its share beside the conv postnet's, the card
+    # against the CPU
+    with torch.enable_grad(), labelled("cbhg"):
+        _, _, step_s, state = phase_train_main(hp, sd, timed=2)
+        del state
+        cbhg_ms, gru_ms = postnet_ms(hp, sd, TRAIN_F)
+        conv_hp = flagship(MAX_FRAMES, CHUNK)
+        conv_ms, _ = postnet_ms(conv_hp, seeded_state_dict(conv_hp),
+                                TRAIN_F)
+        phase_train_vs_cpu(hp, sd)
+    say(f"[cbhg] train_step B={TRAIN_B} T={TRAIN_T} F={TRAIN_F} bf16 with "
+        f"the CBHG and the cosine classifier: {step_s:.4f} s, "
+        f"{step_s / flagship_step_s:.3f} x the conv postnet's "
+        f"{flagship_step_s:.4f} s ([train:main]); the postnet's forward "
+        f"and backward alone: CBHG {cbhg_ms:.3f} ms "
+        f"({cbhg_ms / 1e3 / step_s:.1%} of its step; its GRU alone "
+        f"{gru_ms:.3f} ms), conv {conv_ms:.3f} ms (CUDA events); {label}")
+
+    # synthesis through K1 and the card against the CPU
+    lines = lines_for(hp, -(-CBHG_LINES // len(hp.languages)),
+                      SEED + 20)[:CBHG_LINES]
+    syn = Synthesizer(hp, sd, device="cuda")
+    syn.synthesize_batch_lines(lines[:2], seed=1)          # warm-up
+    torch.cuda.synchronize()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    specs = syn.synthesize_batch_lines(lines, seed=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fd.LAUNCHES)
+    b = syn.bundle
+    path = fd.path_kernels(b.att_kind, b.dtype, b.q_streams)
+    if any(launches[k] == 0 for k in path) or any(
+            launches[k] for k in launches if k not in path):
+        fail(f"[cbhg] synthesis kernels {path}: launches {launches}")
+    if any(s.shape != (bins, MAX_FRAMES) or not np.isfinite(s).all()
+           for s in specs):
+        fail("[cbhg] synthesis: wrong shapes or non-finite spectrograms")
+    frames = CBHG_LINES * MAX_FRAMES
+    say(f"[cbhg] {CBHG_LINES} lines x {MAX_FRAMES} frames through K1 "
+        f"({mode_of(b)}) and the CBHG: [{bins}, {MAX_FRAMES}] linear "
+        f"spectrograms, {frames} frames in {seconds:.4f} s = "
+        f"{frames / seconds:.1f} mel frames/s (host clock, after a warm-up"
+        f"); launches { {k: v for k, v in launches.items() if v} }; {label}")
+    small = cbhg_hp(32, 16)
+    check = lines[:CBHG_CHECK_LINES]
+    got = Synthesizer(small, sd, device="cuda").synthesize_batch_lines(
+        check, seed=4)
+    ref = Synthesizer(small, sd, device="cpu").synthesize_batch_lines(
+        check, seed=4)
+    errs = [float(np.linalg.norm(g - r) / np.linalg.norm(r))
+            for g, r in zip(got, ref)]
+    if max(errs) > E2E_REL_TOL or any(g.shape != r.shape
+                                      for g, r in zip(got, ref)):
+        fail(f"[cbhg] synthesis card vs CPU: relative errors {errs}")
+    say(f"[cbhg] {len(check)} lines x 32 frames, card vs CPU plain path "
+        f"(bf16): max relative error {max(errs):.3g} (bound {E2E_REL_TOL})")
+
+    # Griffin-Lim on the linear spectrograms
+    hop = audio.ms_to_frames(hp.stft_shift_ms, hp)
+    syn.vocode_batch(specs[:2], seed=1)                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = syn.vocode_batch(specs, seed=2)
+    torch.cuda.synchronize()
+    vocode_s = time.perf_counter() - t0
+    if any(w.shape != (hop * (MAX_FRAMES - 1),) or not np.isfinite(w).all()
+           for w in wavs):
+        fail("[cbhg] vocode_batch: wrong lengths or non-finite waveforms")
+    audio_s = CBHG_LINES * hop * (MAX_FRAMES - 1) / hp.sample_rate
+    n_fft, win = hp.num_fft, audio.ms_to_frames(hp.stft_window_ms, hp)
+    mag = mel.db_to_amplitude(torch.as_tensor(
+        np.stack(specs), device="cuda")) ** hp.griffin_lim_power
+    gl_ms = cuda_ms(lambda: stft.griffin_lim(
+        mag, n_fft, hop, win, n_iter=hp.griffin_lim_iters,
+        generator=torch.Generator("cuda").manual_seed(0)), iters=3,
+        warmup=1)
+    pair = np.stack(specs[:CBHG_CHECK_LINES])
+    angles = stft.random_angles(pair.shape, torch.Generator().manual_seed(
+        SEED), "cpu")
+    hp10 = HParams.from_state_dict(hp.state_dict())
+    hp10.griffin_lim_iters = 10
+    card, cpu = (audio.inverse_spectrogram_batch(
+        pair, hp10, mel=False, angles=angles, device=dev)
+        for dev in ("cuda", "cpu"))
+    gl_err = max(float(np.abs(c - r).max() / np.abs(r).max())
+                 for c, r in zip(card, cpu))
+    if gl_err > GL_TOL:
+        fail(f"[cbhg] Griffin-Lim on linear spectrograms, card vs CPU: "
+             f"{gl_err} of the peak (bound {GL_TOL})")
+    say(f"[cbhg] vocode_batch of {CBHG_LINES} linear spectrograms x "
+        f"{MAX_FRAMES} frames ({hp.griffin_lim_iters} iterations, no NNLS) "
+        f"on the card: {vocode_s:.4f} s (host clock, synchronized) = "
+        f"{audio_s / vocode_s:.1f} audio-seconds/s, Griffin-Lim alone "
+        f"{gl_ms:.3f} ms (CUDA events); 10 iterations card vs "
+        f"CPU from shared phases: max |diff| {gl_err:.3g} of the peak "
+        f"(bound {GL_TOL}); {label}")
+    del syn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a reference-layout checkpoint through the import CLI (the
+        # importer ports the reversal classifier only, as the JAX one)
+        hp_ref = cbhg_hp(32, 16, reversal_classifier_type="reversal")
+        sd_ref = seeded_state_dict(hp_ref)
+        src = os.path.join(tmp, "reference.pt")
+        reference_layout().save_reference_checkpoint(
+            src, params_to_jax(sd_ref, hp_ref), hp_ref)
+        out = os.path.join(tmp, "imported.ckpt")
+        t0 = time.perf_counter()
+        import_cli.main([src, "-o", out])
+        import_s = time.perf_counter() - t0
+        restored = Synthesizer.from_checkpoint(out)
+        got_sd = restored.model.state_dict()
+        differ = [k for k, t in sd_ref.items()
+                  if not torch.equal(got_sd[k].cpu(), t)]
+        if restored.device.type != "cuda" or differ:
+            fail(f"[cbhg] imported checkpoint: on {restored.device}, "
+                 f"tensors differing {differ[:3]}")
+        got = restored.synthesize_batch_lines(check, seed=5)
+        ref = Synthesizer(hp_ref, sd_ref, device="cuda"
+                          ).synthesize_batch_lines(check, seed=5)
+        if any(not np.array_equal(g, r) for g, r in zip(got, ref)):
+            fail("[cbhg] imported checkpoint: spectrograms differ from the "
+                 "in-memory synthesizer's")
+        say(f"[cbhg] reference-layout checkpoint -> import CLI in "
+            f"{import_s:.2f} s -> Synthesizer.from_checkpoint on the card: "
+            f"{len(sd_ref)} tensors and {len(check)} lines' spectrograms "
+            "bit-identical to the in-memory model's")
+        del restored
+
+        # the evaluation chain in float32: the CLI on the card and on the
+        # CPU, MCD of one against the other, ASR and CER
+        hp32 = cbhg_hp(EVAL_FRAMES, 16, compute_dtype="float32")
+        hp32.griffin_lim_iters = 10
+        ckpt = os.path.join(tmp, "f32.ckpt")
+        checkpoint.save_checkpoint(ckpt, epoch=0, step=0, state_dict=sd,
+                                   hp=hp32, criterion_state={})
+        where = os.path.join(tmp, "eval")
+        language = "german"
+        eval_lines = [f"{i:06d}|{line.split('|')[1][:40]}|"
+                      f"{line.split('|')[2]}|de"
+                      for i, line in enumerate(lines[:EVAL_LINES])]
+        os.makedirs(os.path.join(where, "all_meta_files"))
+        with open(os.path.join(where, "all_meta_files", f"{language}.txt"),
+                  "w", encoding="utf-8") as f:
+            for line in eval_lines:
+                idx, text = line.split("|")[:2]
+                print(f"{idx}|{text}|", file=f)
+        runs = {"card": [], "cpu": ["--cpu"]}
+        for name, extra in runs.items():
+            stdin = sys.stdin
+            sys.stdin = io.StringIO("\n".join(eval_lines) + "\n")
+            try:
+                cli.main(["--checkpoint", ckpt, "--output",
+                          os.path.join(tmp, name), "--batch_size",
+                          str(EVAL_LINES), "--save_spec", "--seed", "3"]
+                         + extra)
+            finally:
+                sys.stdin = stdin
+        specs_dir = os.path.join(where, "card", "spectrograms", language)
+        audios_dir = os.path.join(where, "card", "audios", language)
+        truth_dir = os.path.join(where, "ground-truth", "spectrograms")
+        for d in (specs_dir, audios_dir, truth_dir):
+            os.makedirs(d)
+        for line in eval_lines:
+            idx = line.split("|")[0]
+            shutil.move(os.path.join(tmp, "card", f"{idx}.npy"), specs_dir)
+            shutil.move(os.path.join(tmp, "card", f"{idx}.wav"), audios_dir)
+            shutil.move(os.path.join(tmp, "cpu", f"{idx}.npy"), truth_dir)
+        mcds = mcd.evaluate_language(language, "card", where)
+        texts = dict(line.split("|")[:2] for line in eval_lines)
+
+        def echo(path, code, rate):
+            idx = os.path.basename(path)[:-4]
+            return [{"alternatives": [{"transcript": texts[idx]}]}]
+
+        n = asr.transcribe_language(language, "card", where,
+                                    hp32.sample_rate, recognize_fn=echo)
+        cers = cer.evaluate_language(language, "card", where)
+        cer.write_report(cers, os.path.join(where, "card", "cer",
+                                            f"{language}.txt"))
+        worst = max(v for _, v in mcds)
+        if (len(mcds) != EVAL_LINES or worst > EVAL_MCD_TOL
+                or n != EVAL_LINES or [c for _, c in cers]
+                != [0.0] * EVAL_LINES):
+            fail(f"[cbhg] evaluation chain: MCD {mcds} (bound "
+                 f"{EVAL_MCD_TOL}), {n} transcribed, CER {cers}")
+        say(f"[cbhg] evaluation chain in float32: the synthesis CLI wrote "
+            f"{EVAL_LINES} lines x {EVAL_FRAMES} frames on the card and on "
+            f"the CPU; evaluation.mcd card vs CPU at most {worst:.4g} dB "
+            f"(bound {EVAL_MCD_TOL}); evaluation.asr with a local "
+            f"recognizer echoing the metafile: {n} transcripts, CER "
+            f"{max(c for _, c in cers)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3558,7 +3892,8 @@ def main() -> int:
     with phase("train:kernels"):
         train_errs, train_inputs = phase_train_kernels(hp, sd)
     with phase("train:main"):
-        t_launches, t_per_step, _, main_state = phase_train_main(hp, sd)
+        t_launches, t_per_step, step_s, main_state = phase_train_main(hp,
+                                                                      sd)
     with phase("train:cpu"):
         phase_train_vs_cpu(hp, sd)
     with phase("train:eval"):
@@ -3572,6 +3907,10 @@ def main() -> int:
     # first steps on the card against the CPU, and GTA
     with phase("train:loop"):
         phase_train_loop(cpu_waited)
+    # the CBHG postnet and the cosine classifier: training, synthesis,
+    # vocoding, the import CLI and the evaluation chain
+    with phase("cbhg"):
+        phase_cbhg(step_s)
     # training steps of both strategies (K2/K3 against plain and timed at
     # the shared strategy's 548-wide memory)
     for name in SWITCHING:

@@ -20,12 +20,21 @@ The port's module names mirror the flax parameter paths (``/`` becomes
   backward cell), the ``h*`` biases into ``bias_ih_l0`` and a zero
   ``bias_hh_l0`` (the inverse of the JAX package's
   ``interop/torch_port.py::bilstm``);
+- the CBHG postnet's two flax ``GRUCell``s, ``GRUCell_0`` (forward) and
+  ``GRUCell_1`` (backward) in the postnet's scope, become its ``bigru``
+  (``nn.GRU``): the kernels ``ir/iz/in`` and ``hr/hz/hn`` [in, units],
+  gate order r, z, n, stack into ``weight_ih_l0`` and ``weight_hh_l0``
+  (``_reverse`` for the backward cell), the ``i*`` biases into
+  ``bias_ih_l0``, and ``hn``'s bias into the last third of
+  ``bias_hh_l0``, whose r and z thirds are zero (flax's ``hr`` and ``hz``
+  have no bias; the inverse of the JAX package's
+  ``interop/torch_port.py::bigru``);
 - ``MultiEncoder``'s ``encoders`` (one flax module vmapped over the
   languages, every leaf stacked ``[L, ...]``) become ``encoders.0`` ..
   ``encoders.{L-1}``.
 
-Every module of every encoder type maps over, the speaker classifier
-included.  ``params_to_jax`` is the inverse: the port's state_dict back to
+Every module of every encoder type and of both postnets maps over, both
+speaker classifiers included.  ``params_to_jax`` is the inverse: the port's state_dict back to
 the ``{"params", "batch_stats"}`` tree that the JAX ``Tacotron.init`` makes
 (the checkpoint writer's model section).
 """
@@ -40,6 +49,8 @@ from torch import nn
 
 _LSTM_CELLS = {"OptimizedLSTMCell_0": "", "OptimizedLSTMCell_1": "_reverse"}
 _GATES = ("i", "f", "g", "o")
+_GRU_CELLS = {"GRUCell_0": "", "GRUCell_1": "_reverse"}
+_GRU_GATES = ("r", "z", "n")
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()
@@ -98,6 +109,27 @@ def _lstm_weights(cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]]):
             yield f"{prefix}.bias_hh_l0{suffix}", np.zeros_like(bias)
 
 
+def _gru_weights(cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]]):
+    """``{(*scope, cell, gate_dense): {"kernel"[, "bias"]}}`` of the
+    GRUCells -> ``(name, array)`` of each ``nn.GRU`` tensor."""
+    scopes = {key[:-2] for key in cells}
+    for scope in sorted(scopes):
+        for cell, suffix in _GRU_CELLS.items():
+            def dense(name, leaf):
+                return cells[scope + (cell, name)][leaf]
+
+            hn_bias = dense("hn", "bias")
+            prefix = ".".join(scope + ("bigru",))
+            yield f"{prefix}.weight_ih_l0{suffix}", np.concatenate(
+                [dense(f"i{g}", "kernel").T for g in _GRU_GATES])
+            yield f"{prefix}.weight_hh_l0{suffix}", np.concatenate(
+                [dense(f"h{g}", "kernel").T for g in _GRU_GATES])
+            yield f"{prefix}.bias_ih_l0{suffix}", np.concatenate(
+                [dense(f"i{g}", "bias") for g in _GRU_GATES])
+            yield f"{prefix}.bias_hh_l0{suffix}", np.concatenate(
+                [np.zeros_like(hn_bias), np.zeros_like(hn_bias), hn_bias])
+
+
 def params_from_jax(variables_np: Dict[str, Any], hp=None
                     ) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` tree of numpy arrays -> a state_dict
@@ -111,11 +143,15 @@ def params_from_jax(variables_np: Dict[str, Any], hp=None
                                                           dtype=np.float32))
 
     cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
+    gru_cells: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
     for collection in ("params", "batch_stats"):
         for leaf_path, leaf in _leaves(variables_np.get(collection, {})):
             for path, value in _unstacked(leaf_path, leaf):
                 if any(p in _LSTM_CELLS for p in path):
                     cells.setdefault(path[:-1], {})[path[-1]] = value
+                    continue
+                if any(p in _GRU_CELLS for p in path):
+                    gru_cells.setdefault(path[:-1], {})[path[-1]] = value
                     continue
                 names, arr = _convert(path, value, collection)
                 put(".".join(names), arr)
@@ -123,6 +159,8 @@ def params_from_jax(variables_np: Dict[str, Any], hp=None
                     out[".".join(names[:-1] + ["num_batches_tracked"])] = (
                         torch.tensor(0, dtype=torch.long))
     for name, arr in _lstm_weights(cells):
+        put(name, arr)
+    for name, arr in _gru_weights(gru_cells):
         put(name, arr)
     return out
 
@@ -169,6 +207,26 @@ def _lstm_cells(scope, weights: Dict[str, np.ndarray]):
             yield scope + (cell, f"h{gate}", "bias"), bias[rows]
 
 
+def _gru_cells(scope, weights: Dict[str, np.ndarray]):
+    """An ``nn.GRU``'s tensors -> ``(path, array)`` of the flax GRUCells'
+    per-gate kernels and biases: ``ir``/``iz`` take ``bias_ih + bias_hh``
+    of their gate (torch's r and z biases act the same from either
+    side), ``in`` takes ``bias_ih``'s n third and ``hn`` ``bias_hh``'s."""
+    for cell, suffix in _GRU_CELLS.items():
+        w_ih = weights["weight_ih_l0" + suffix]
+        w_hh = weights["weight_hh_l0" + suffix]
+        b_ih = weights["bias_ih_l0" + suffix]
+        b_hh = weights["bias_hh_l0" + suffix]
+        h = w_hh.shape[1]
+        for g, gate in enumerate(_GRU_GATES):
+            rows = slice(g * h, (g + 1) * h)
+            yield scope + (cell, f"i{gate}", "kernel"), w_ih[rows].T
+            yield scope + (cell, f"h{gate}", "kernel"), w_hh[rows].T
+            yield scope + (cell, f"i{gate}", "bias"), (
+                b_ih[rows] if gate == "n" else b_ih[rows] + b_hh[rows])
+        yield scope + (cell, "hn", "bias"), b_hh[2 * h:]
+
+
 def params_to_jax(state_dict: Dict[str, torch.Tensor], hp
                   ) -> Dict[str, Any]:
     """The port's state_dict -> the JAX package's ``{"params",
@@ -180,7 +238,8 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], hp
     transposed ``kernel``, a Conv1d's ``(2, 1, 0)`` ``kernel``, an
     Embedding's ``embedding``, a batch norm's ``scale``; buffers go to
     ``batch_stats`` (``running_*`` as ``mean``/``var``,
-    ``num_batches_tracked`` dropped)."""
+    ``num_batches_tracked`` dropped); an ``nn.LSTM``'s and an
+    ``nn.GRU``'s tensors become flax's per-gate cells."""
     from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
 
     with torch.device("meta"):
@@ -189,6 +248,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], hp
     buffers = {name for name, _ in model.named_buffers()}
     tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     lstms: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
+    grus: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
     for name, tensor in state_dict.items():
         *parents, leaf = name.split(".")
         module = modules[".".join(parents)]
@@ -197,6 +257,9 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], hp
             continue
         if isinstance(module, nn.LSTM):
             lstms.setdefault(tuple(parents[:-1]), {})[leaf] = arr
+            continue
+        if isinstance(module, nn.GRU):
+            grus.setdefault(tuple(parents[:-1]), {})[leaf] = arr
             continue
         if name in buffers:
             leaf = {"running_mean": "mean", "running_var": "var"}.get(
@@ -218,5 +281,8 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], hp
         _put(tree["params"], parents + [leaf], arr)
     for scope, weights in lstms.items():
         for path, arr in _lstm_cells(scope, weights):
+            _put(tree["params"], list(path), np.ascontiguousarray(arr))
+    for scope, weights in grus.items():
+        for path, arr in _gru_cells(scope, weights):
             _put(tree["params"], list(path), np.ascontiguousarray(arr))
     return _restacked(tree)

@@ -1,8 +1,9 @@
-"""The adversarial speaker classifier behind gradient reversal.
+"""The adversarial speaker classifiers: behind gradient reversal, and the
+cosine-similarity one behind gradient clipping.
 
-Port of ``GradientReversal``, ``ReversalClassifier`` and
-``reversal_classifier_loss`` in the JAX package's ``models/classifier.py``.
-The cosine-similarity classifier is not ported.
+Port of the JAX package's ``models/classifier.py``: ``GradientReversal``,
+``ReversalClassifier``, ``reversal_classifier_loss``, ``GradientClipping``,
+``CosineSimilarityClassifier`` and ``cosine_similarity_classifier_loss``.
 """
 
 from __future__ import annotations
@@ -59,3 +60,55 @@ def reversal_classifier_loss(input_lengths: torch.Tensor,
         b, t, 1))[..., 0]
     return (torch.where(mask, nll, torch.zeros_like(nll)).sum()
             / torch.clamp(mask.sum(), min=1))
+
+
+class GradientClipping(torch.autograd.Function):
+    """Identity forward; backward ``clamp(g, -clip, clip)``."""
+
+    @staticmethod
+    def forward(ctx, x, clip: float):
+        ctx.clip = clip
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, -ctx.clip, ctx.clip), None
+
+
+class CosineSimilarityClassifier(nn.Module):
+    """One dense layer (``fc``) behind gradient clipping; the product runs
+    in the compute type, the logits come out in float32."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 gradient_clipping_bounds: float = 0.25,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc = nn.Linear(input_dim, output_dim)
+        self.clip = gradient_clipping_bounds
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = GradientClipping.apply(x, self.clip).to(self.dtype)
+        return F.linear(x, self.fc.weight.to(self.dtype),
+                        self.fc.bias.to(self.dtype)).float()
+
+
+def cosine_similarity_classifier_loss(input_lengths: torch.Tensor,
+                                      speakers: torch.Tensor,
+                                      prediction: torch.Tensor,
+                                      embeddings: torch.Tensor,
+                                      classifier_kernel: torch.Tensor
+                                      ) -> torch.Tensor:
+    """``reversal_classifier_loss`` plus the mean over all B x T positions,
+    padding included, of ``sum_s |cos(embeddings[b, t], kernel[:, s])|``
+    with the norms' product clamped at 1e-8: ``embeddings`` [B, T, C] the
+    encoder outputs, ``classifier_kernel`` [C, n_speakers] (the
+    classifier's ``fc.weight`` transposed, flax's layout).  An all-zero
+    embedding row has no cosine term and no gradient: the JAX package's
+    norm gives a NaN gradient there, PyTorch's norm a zero one."""
+    loss = reversal_classifier_loss(input_lengths, speakers, prediction)
+    dot = torch.einsum("btc,cs->bts", embeddings, classifier_kernel)
+    norm_e = torch.linalg.vector_norm(embeddings, dim=2, keepdim=True)
+    norm_w = torch.linalg.vector_norm(classifier_kernel, dim=0)[None, None]
+    cosine = torch.abs(dot / torch.clamp(norm_e * norm_w, min=1e-8))
+    return loss + cosine.sum(dim=2).mean()

@@ -4,9 +4,11 @@
 Port of ``Tacotron``, ``TacotronLossState`` and ``tacotron_loss`` in the JAX
 package's ``models/tacotron.py``: every encoder of the paper's strategies
 (``simple``, ``shared``, ``separate``, ``convolutional`` and the flagship's
-``generated``), the reversal speaker classifier, location-sensitive
-attention and the conv postnet.  Spectrograms are channels-last ``[batch, frames, bins]``
-like the JAX package.  ``Tacotron.forward`` is the training forward: call
+``generated``), both speaker classifiers (gradient reversal and cosine
+similarity), every attention type, and both postnets (the conv stack, and
+the CBHG predicting linear spectrograms with ``hp.predict_linear``).
+Spectrograms are channels-last ``[batch, frames, bins]`` like the JAX
+package.  ``Tacotron.forward`` is the training forward: call
 ``model.train()`` first for batch-statistics batch norm and dropout.
 """
 
@@ -25,7 +27,9 @@ from multilingual_text_to_speech_tpu_torch.models.attention import (
     LocationSensitiveAttention,
 )
 from multilingual_text_to_speech_tpu_torch.models.classifier import (
+    CosineSimilarityClassifier,
     ReversalClassifier,
+    cosine_similarity_classifier_loss,
     reversal_classifier_loss,
 )
 from multilingual_text_to_speech_tpu_torch.models.decoder import Decoder
@@ -40,7 +44,10 @@ from multilingual_text_to_speech_tpu_torch.models.layers import (
     BatchNorm1dGenerated,
     Conv1dGenerated,
 )
-from multilingual_text_to_speech_tpu_torch.models.postnet import Postnet
+from multilingual_text_to_speech_tpu_torch.models.postnet import (
+    Postnet,
+    PostnetCBHG,
+)
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -82,26 +89,32 @@ def make_encoder(hp, dtype: torch.dtype) -> nn.Module:
 class Tacotron(nn.Module):
     def __init__(self, hp, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if hp.predict_linear:
-            raise NotImplementedError("the CBHG postnet is not ported")
-        if (hp.reversal_classifier
-                and hp.reversal_classifier_type != "reversal"):
-            raise NotImplementedError(
-                "the cosine-similarity classifier is not ported")
         self.hp = hp
         self.dtype = dtype
         self.embedding = nn.Embedding(hp.total_symbols(),
                                       hp.embedding_dimension)
         self.encoder = make_encoder(hp, dtype)
         if hp.reversal_classifier:
-            self.classifier = ReversalClassifier(
-                hp.encoder_dimension, hp.reversal_classifier_dim,
-                hp.speaker_number, hp.reversal_gradient_clipping,
-                dtype=dtype)
+            if hp.reversal_classifier_type == "reversal":
+                self.classifier = ReversalClassifier(
+                    hp.encoder_dimension, hp.reversal_classifier_dim,
+                    hp.speaker_number, hp.reversal_gradient_clipping,
+                    dtype=dtype)
+            else:
+                self.classifier = CosineSimilarityClassifier(
+                    hp.encoder_dimension, hp.speaker_number,
+                    hp.reversal_gradient_clipping, dtype=dtype)
         self.decoder = Decoder(hp, dtype)
-        self.postnet = Postnet(hp.num_mels, hp.postnet_dimension,
-                               hp.postnet_blocks, hp.postnet_kernel_size,
-                               dtype, hp.dropout)
+        if hp.predict_linear:
+            self.postnet = PostnetCBHG(
+                hp.num_mels, hp.num_fft // 2 + 1, hp.cbhg_bank_kernels,
+                hp.cbhg_bank_dimension, hp.cbhg_projection_dimension,
+                hp.cbhg_projection_kernel_size, hp.cbhg_highway_dimension,
+                hp.cbhg_rnn_dim, hp.cbhg_dropout, dtype)
+        else:
+            self.postnet = Postnet(hp.num_mels, hp.postnet_dimension,
+                                   hp.postnet_blocks, hp.postnet_kernel_size,
+                                   dtype, hp.dropout)
 
     def _language_weights(self, languages: torch.Tensor, t: int):
         """[B] language ids or [B, T, L] weights -> [B, T, L] weights."""
@@ -161,7 +174,7 @@ class Tacotron(nn.Module):
         pre, stop, alignment = self.decoder(
             encoded, text_lengths, target, teacher, seeds, speakers,
             torch.argmax(langs_w, dim=2))
-        post = self.postnet(pre).float()
+        post = self.postnet(pre, target_lengths).float()
         target_mask = lengths_to_mask(target_lengths, target.shape[1])
         stop = torch.where(target_mask, stop, torch.full_like(stop, 1000.0))
         pre = pre * target_mask[..., None]
@@ -202,9 +215,13 @@ class Tacotron(nn.Module):
                                          mask, seeds, chunk_frames)
 
     @torch.no_grad()
-    def apply_postnet(self, pre: torch.Tensor) -> torch.Tensor:
-        """[B, F, M] -> [B, F, M] float32."""
-        return self.postnet(pre).float()
+    def apply_postnet(self, pre: torch.Tensor,
+                      lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, F, M] decoder frames and their [B] lengths -> [B, F, M] mels
+        (the conv postnet takes no lengths) or, with ``hp.predict_linear``,
+        [B, F, num_fft/2+1] linear spectrograms (the CBHG's GRU runs over
+        each length), float32."""
+        return self.postnet(pre, lengths).float()
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +288,15 @@ def guided_attention_loss(alignments: torch.Tensor,
 
 def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
                   post_target, stop_target, speakers, guided_att_variance,
-                  guided_att_active=True
+                  guided_att_active=True, classifier_kernel=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``2 MSE(pre) + MSE(post) + stop BCE (pos_weight 100) / (M + 2)``, the
-    classifier's cross-entropy times ``reversal_classifier_w / (M + 2)`` and
-    the guided-attention penalty.  Means run over all elements, padding
-    included.  A Python ``False`` for ``guided_att_active`` skips the
-    penalty (the schedule has expired)."""
+    classifier's loss times ``reversal_classifier_w / (M + 2)`` and the
+    guided-attention penalty.  Means run over all elements, padding
+    included.  The cosine-similarity classifier's loss needs
+    ``classifier_kernel``, its ``fc.weight`` transposed [C, n_speakers]
+    (``classifier_kernel(model)``).  A Python ``False`` for
+    ``guided_att_active`` skips the penalty (the schedule has expired)."""
     losses = {
         "mel_pre": 2.0 * torch.mean(
             (outputs["pre_prediction"] - pre_target) ** 2),
@@ -286,9 +305,15 @@ def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
             outputs["stop_token"], stop_target, 100.0) / (hp.num_mels + 2),
     }
     if hp.reversal_classifier:
-        losses["lang_class"] = reversal_classifier_loss(
-            input_lengths, speakers, outputs["speaker_prediction"]) * (
-                hp.reversal_classifier_w / (hp.num_mels + 2))
+        if hp.reversal_classifier_type == "reversal":
+            cls_loss = reversal_classifier_loss(
+                input_lengths, speakers, outputs["speaker_prediction"])
+        else:
+            cls_loss = cosine_similarity_classifier_loss(
+                input_lengths, speakers, outputs["speaker_prediction"],
+                outputs["encoder_output"], classifier_kernel)
+        losses["lang_class"] = cls_loss * (
+            hp.reversal_classifier_w / (hp.num_mels + 2))
     if hp.guided_attention_loss:
         if (isinstance(guided_att_active, (bool, int))
                 and not guided_att_active):
@@ -301,6 +326,16 @@ def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
     return sum(losses.values()), losses
 
 
+def classifier_kernel(model: Tacotron) -> Optional[torch.Tensor]:
+    """The cosine-similarity classifier's ``fc`` weight as the loss's
+    kernel [C, n_speakers] (the gradient flows into the weight through
+    it), None for any other model."""
+    hp = model.hp
+    if hp.reversal_classifier and hp.reversal_classifier_type == "cosine":
+        return model.classifier.fc.weight.t()
+    return None
+
+
 @torch.no_grad()
 def init_random_weights(model: Tacotron, seed: int) -> Tacotron:
     """Seeded random weights that keep activations near unit scale, for
@@ -311,7 +346,9 @@ def init_random_weights(model: Tacotron, seed: int) -> Tacotron:
     PyTorch's default init would let the 14 generated blocks of the encoder
     grow the activations by orders of magnitude.  An LSTM's weights and
     trained biases are uniform in +-1/sqrt(units), PyTorch's default,
-    drawn from the seed; its frozen second biases are zero."""
+    drawn from the seed; its frozen second biases are zero.  A GRU's
+    weights and biases are uniform in the same bound, the r and z thirds
+    of its ``bias_hh`` zero."""
     gen = torch.Generator().manual_seed(seed)
 
     def normal_(t: torch.Tensor, var: float) -> None:
@@ -330,6 +367,13 @@ def init_random_weights(model: Tacotron, seed: int) -> Tacotron:
             for p in m.parameters():
                 p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0)
                         * bound if p.requires_grad else 0.0)
+        elif isinstance(m, nn.GRU):
+            bound = m.hidden_size ** -0.5
+            for name, p in m.named_parameters():
+                p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0)
+                        * bound)
+                if name.startswith("bias_hh"):
+                    p[:2 * m.hidden_size] = 0.0
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 1.0)
         elif isinstance(m, LocationSensitiveAttention):

@@ -198,16 +198,18 @@ class Synthesizer:
     def _postnet_denormalized(self, pre: torch.Tensor, cuts: np.ndarray):
         """[B, F, M] decoder frames and per-sample lengths -> the list of
         denormalized [bins, F_i] postnet outputs (numpy), run as one batch
-        at one padded length."""
+        at one padded length; the lengths go to the postnet too (the CBHG's
+        GRU runs over each sample's own frames)."""
         hp = self.hp
         b, frames, bins = pre.shape
         f_pad = _bucket(int(cuts.max()), hp.bucket_frame_multiple)
         padded = torch.zeros(b, f_pad, bins, device=self.device)
         n = min(f_pad, frames)
         padded[:, :n] = pre[:, :n]
+        lengths = self._tensor(cuts)
         keep = (torch.arange(f_pad, device=self.device)[None, :]
-                < self._tensor(cuts)[:, None])
-        post = self.model.apply_postnet(padded * keep[..., None])
+                < lengths[:, None])
+        post = self.model.apply_postnet(padded * keep[..., None], lengths)
         post = post.cpu().numpy()
         out = []
         for i in range(b):

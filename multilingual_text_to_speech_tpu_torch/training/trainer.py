@@ -48,6 +48,7 @@ from multilingual_text_to_speech_tpu_torch.interop.optax_state import (
 from multilingual_text_to_speech_tpu_torch.models.tacotron import (
     Tacotron,
     TacotronLossState,
+    classifier_kernel,
     init_random_weights,
     lengths_to_mask,
     tacotron_loss,
@@ -195,7 +196,8 @@ def train_step(model, optimizer, scheduler, batch: Batch,
             stop_target=_on(dev, batch.stop_tokens, torch.float32),
             speakers=speakers,
             guided_att_variance=loss_state.guided_att_variance,
-            guided_att_active=loss_state.guided_att_steps > 0)
+            guided_att_active=loss_state.guided_att_steps > 0,
+            classifier_kernel=classifier_kernel(model))
         optimizer.zero_grad(set_to_none=True)
         total.backward()
     params: List[torch.Tensor] = [p for g in optimizer.param_groups
@@ -481,7 +483,8 @@ class Trainer:
                                 torch.float32),
                 speakers=speakers,
                 guided_att_variance=self.loss_state.guided_att_variance,
-                guided_att_active=ga_active)
+                guided_att_active=ga_active,
+                classifier_kernel=classifier_kernel(self.model))
             losses = {k: float(v) for k, v in losses.items()}
             acc = (float(classifier_accuracy(out_forced["speaker_prediction"],
                                              speakers, text_len))
