@@ -155,6 +155,18 @@ Phases, each of which fails the run on a failed check:
    card, bit-identical; in float32 the synthesis CLI on card and CPU into
    the evaluation layout, ``evaluation.mcd`` card against CPU and
    ``evaluation.asr``/``cer`` with a recognizer that echoes the metafile.
+15. ``[train:dp]`` (after 13): data-parallel training on the one card
+   (``phase_train_dp``): a mesh of one over NCCL (a store in the process)
+   takes the flagship's bf16 step at B=50 bit-identical to the plain
+   ``train_step``, both timed in turns; two ranks over gloo in child
+   processes (``chip_smoke.py --dp-child RANK PORT``, ``dp_child``), 25
+   rows each: their first step in bf16 and float32 against this process's
+   on the global batch (``DP_STEP_TOL``), the gradient all-reduce timed
+   with its bytes, each rank's step timed against the single process's, a
+   ``Trainer`` epoch on 13's corpus (every K2/K3 kernel launched on every
+   rank), ``evaluate`` (K2 only) and rank 0's save, after which the ranks'
+   weights, batch-norm statistics and Adam moments are bit-identical;
+   each rank's peak memory.
 
 It prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -2727,6 +2739,22 @@ def state_digest(model) -> str:
     return h.hexdigest()
 
 
+def moments_digest(trainer) -> str:
+    """sha256 of a trainer's Adam state, parameter by parameter in name
+    order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, st in sorted(_moments(trainer).items()):
+        h.update(name.encode())
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            h.update(torch.as_tensor(st[k]).detach().cpu().contiguous()
+                     .view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def no_conv_dropout(model) -> None:
     """The encoder's and postnet's dropout off (their masks come from each
     device's own generator); the prenet's and zoneout's hashed masks stay."""
@@ -3066,6 +3094,415 @@ def phase_train_loop(cpu_waited: float) -> None:
         f"error (bound {TRAIN_E2E_TOL})")
     say(f"[train:loop] peak device memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+
+
+# [train:dp]: data-parallel training on the one card (parallel/,
+# Trainer(mesh=)): the mesh of one over NCCL against the plain step, then
+# DP_WORLD ranks over gloo in child processes (chip_smoke.py --dp-child),
+# each running K2/K3 on its rows of the global B=50
+DP_WORLD = 2
+DP_BASE = ROOT / "build" / "train_dp"
+# each child process and each collective: a hang fails the run
+DP_TIMEOUT = 240
+# the first step of the ranks against the single process on the same global
+# batch, dropout and zoneout off (the shards' masks differ by design): each
+# loss term, the gradient norm and each parameter's gradient as its max
+# |difference| over its largest |value|, by group (dp_group).  bf16 at the
+# bounds of the training check card against CPU (phase_train_vs_cpu): the
+# ranks' batch moments and loss sums add in another order and bf16
+# roundings follow them, and the generated encoder's gradients sum
+# bf16-rounded products with much cancellation; float32, under
+# device.exact_float32, within 1e-4 throughout
+DP_STEP_TOL = {
+    "bfloat16": {"loss": TRAIN_E2E_TOL, "encoder": TRAIN_E2E_ENCODER_TOL,
+                 "other": TRAIN_E2E_PARAM_TOL},
+    "float32": {"loss": 1e-4, "encoder": 1e-4, "other": 1e-4}}
+# timed steps after each side's first step, and timed gradient all-reduces
+DP_TIMED = 3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_hp(dtype: str):
+    """The flagship for the first-step check: ``dtype`` compute, the
+    global batch TRAIN_B, prenet dropout and zoneout off."""
+    hp = flagship(MAX_FRAMES, CHUNK, compute_dtype=dtype)
+    hp.batch_size = TRAIN_B
+    hp.dropout = 0.0
+    hp.zoneout_hidden = hp.zoneout_cell = 0.0
+    return hp
+
+
+def dp_step(hp, mesh, sd=None, shape=(TRAIN_B, TRAIN_T, TRAIN_F),
+            device="cuda"):
+    """``train_step`` of the seeded model (``sd``, ``seeded_state_dict(hp)``
+    by default; encoder and postnet dropout off) on ``device``, on the
+    global batch ``train_batch(hp, *shape)`` or, with a
+    mesh of several ranks, this rank's rows of it; teacher forcing 1.0.
+    Returns (model, loss terms, gradient norm, each parameter's gradient on
+    the CPU after the step, the weights' digest after it, a function that
+    runs one more step and returns its seconds)."""
+    import torch
+
+    from multilingual_text_to_speech_tpu_torch.models.tacotron import (
+        Tacotron,
+        TacotronLossState,
+    )
+    from multilingual_text_to_speech_tpu_torch.parallel import shard_batch
+    from multilingual_text_to_speech_tpu_torch.training.trainer import (
+        make_optimizer,
+        train_step,
+    )
+
+    model = Tacotron(hp, compute_type(hp), mesh=mesh)
+    model.load_state_dict(seeded_state_dict(hp) if sd is None else sd)
+    no_conv_dropout(model)
+    model = model.to(device)
+    opt, sched = make_optimizer(model, hp)
+    batch = train_batch(hp, *shape, SEED + 20)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    teacher, state = [1] * shape[2], TacotronLossState.init(hp)
+
+    def step():
+        return train_step(model, opt, sched, batch, state, None,
+                          teacher=teacher, seeds=(11, 12), device=device)
+
+    def timed() -> float:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    res = step()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return (model, {k: float(v) for k, v in res.losses.items()},
+            float(res.grad_norm), grads, state_digest(model), timed)
+
+
+def dp_errors(got, ref):
+    """Each loss term's, the gradient norm's and each parameter's gradient's
+    max |got - ref| over its largest |ref| (``dp_step``'s results)."""
+    (_, lg, ng, gg, _, _), (_, lr, nr, gr, _, _) = got, ref
+    if set(lg) != set(lr) or set(gg) != set(gr):
+        fail("[train:dp] the ranks' step and the single process's differ "
+             "in their loss terms or in which parameters get gradients")
+    errs = {f"loss {k}": abs(lg[k] - lr[k]) / (abs(lr[k]) + 1e-30)
+            for k in lr}
+    errs["gradient norm"] = abs(ng - nr) / nr
+    errs.update({f"grad {n}": float((gg[n] - g).abs().max())
+                 / (float(g.abs().max()) + 1e-30) for n, g in gr.items()})
+    return errs
+
+
+def dp_group(name: str) -> str:
+    """``dp_errors``'s key -> its DP_STEP_TOL group."""
+    if not name.startswith("grad "):
+        return "loss"
+    return "encoder" if name.startswith("grad encoder.") else "other"
+
+
+def dp_child(rank: int, port: int) -> int:
+    """A rank of ``[train:dp]``'s gloo group on the card: the first-step
+    check in bf16 and float32 (rank 0 saves its results), DP_TIMED gradient
+    all-reduces timed, then a ``Trainer`` epoch on ``[train:loop]``'s
+    corpus, ``evaluate`` and ``save``, each with its K2/K3 launches;
+    writes ``rank{rank}.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from multilingual_text_to_speech_tpu_torch.data import (
+        TextToSpeechDatasetCollection,
+    )
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+    from multilingual_text_to_speech_tpu_torch.parallel import (
+        all_reduce_gradients,
+        make_mesh,
+    )
+    from multilingual_text_to_speech_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False      # as the parent runs
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=DP_WORLD,
+        rank=rank, timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    out = {"rank": rank}
+    # one state dict for both compute types (the parameters are float32)
+    sd = seeded_state_dict(dp_hp("float32"))
+    for dtype in ("bfloat16", "float32"):
+        hp = dp_hp(dtype)
+        mesh = make_mesh(hp, device="cuda")
+        ftd.reset_launch_counts()
+        model, *res, timed = dp_step(hp, mesh, sd)
+        out[dtype] = {"launches": {k: v for k, v in ftd.LAUNCHES.items()
+                                   if v},
+                      "want": [k for ks in ftd.TrainConfig.from_hp(
+                          hp, model.decoder.memory_dim, model.dtype).kernels
+                               for k in ks],
+                      "seconds": [timed() for _ in range(
+                          DP_TIMED if dtype == "bfloat16" else 0)]}
+        if rank == 0:
+            torch.save(res, DP_BASE / f"step_{dtype}.pt")
+        if dtype == "bfloat16":
+            params = [p for p in model.parameters() if p.grad is not None]
+            ms = []
+            for _ in range(DP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_gradients(params, mesh)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            out["all_reduce"] = {"ms": ms, "bytes": 4 * sum(
+                p.numel() + 1 for p in params)}
+        del model, res, timed
+        torch.cuda.empty_cache()
+
+    hp = loop_hp()
+    mesh = make_mesh(hp, device="cuda")
+    data = TextToSpeechDatasetCollection(
+        str(LOOP_BASE / "data" / "loop"), hp, device="cuda")
+    tr = Trainer(hp, data, seed=SEED, mesh=mesh,
+                 log_dir=str(DP_BASE / "logs"),
+                 checkpoint_dir=str(DP_BASE / "ckpt"))
+    k2, k3 = ftd.TrainConfig.from_hp(hp, tr.model.decoder.memory_dim,
+                                     tr.model.dtype).kernels
+    torch.cuda.reset_peak_memory_stats()
+    ftd.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = tr.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_launches = {k: v for k, v in ftd.LAUNCHES.items() if v}
+    ftd.reset_launch_counts()
+    t0 = time.perf_counter()
+    eval_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = {k: v for k, v in ftd.LAUNCHES.items() if v}
+    path = tr.save(eval_loss)
+    out.update(
+        k2=list(k2), k3=list(k3), steps=steps, epoch_s=epoch_s,
+        eval_s=eval_s, eval_loss=eval_loss, path=path,
+        epoch_launches=epoch_launches, eval_launches=eval_launches,
+        digest=state_digest(tr.model), moments=moments_digest(tr),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        logs=tr.logger is not None)
+    (DP_BASE / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms inside the block, cuDNN's and PyTorch's own
+    where it has one (the embeddings' backward accumulates by atomics
+    otherwise), so that two runs of the same step agree bit for bit;
+    restored on leaving."""
+    import torch
+
+    old = (torch.backends.cudnn.deterministic,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old[0]
+        torch.use_deterministic_algorithms(old[1], warn_only=old[2])
+
+
+def phase_train_dp() -> None:
+    """``[train:dp]``: (a) a mesh of one over NCCL (a store in the process)
+    takes the flagship's bf16 step at B=50 bit-identical to the plain
+    ``train_step`` (both under ``deterministic``), each timed; (b)
+    DP_WORLD ranks on the one card over gloo (``dp_child``): their first
+    steps in bf16 and float32 against this process's single-process steps
+    on the same global batch (DP_STEP_TOL), the gradient all-reduce timed
+    with its bytes, a ``Trainer`` epoch on ``[train:loop]``'s corpus (every
+    K2/K3 kernel launched on every rank), ``evaluate`` (K2 only) and rank
+    0's save, after which every rank's weights, batch-norm statistics and
+    Adam moments are bit-identical; each rank's peak memory."""
+    import datetime
+    import math
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from multilingual_text_to_speech_tpu_torch.parallel import make_mesh
+
+    card = card_label()
+    shutil.rmtree(DP_BASE, ignore_errors=True)
+    DP_BASE.mkdir(parents=True)
+
+    # (a) the mesh of one over NCCL against the plain step; one state dict
+    # for every step here (the parameters are float32 in both types)
+    hp = dp_hp("bfloat16")
+    sd = seeded_state_dict(hp)
+    hp.dropout, hp.zoneout_hidden, hp.zoneout_cell = 0.5, 0.1, 0.1
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        mesh = make_mesh(hp, device="cuda")
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            fail(f"[train:dp] the NCCL mesh of one: size {mesh.size}, "
+                 f"backend {mesh.backend}")
+        with deterministic():
+            plain = dp_step(hp, None, sd)
+            one = dp_step(hp, mesh, sd)
+            # timed in turns: plain, mesh, mesh, plain, plain, mesh
+            secs = {id(plain): [], id(one): []}
+            for i in range(2 * DP_TIMED):
+                r = (plain, one)[(i + i // 2) % 2]
+                secs[id(r)].append(r[5]())
+    finally:
+        dist.destroy_process_group()
+    same = (plain[1] == one[1] and plain[2] == one[2]
+            and plain[4] == one[4] and plain[3].keys() == one[3].keys()
+            and all(torch.equal(g, one[3][n]) for n, g in plain[3].items()))
+    if not same:
+        diffs = {k: v for k, v in dp_errors(one, plain).items() if v}
+        fail(f"[train:dp] the NCCL mesh of one is not bit-identical to the "
+             f"plain step: {diffs or 'the weights after the step'}")
+    p_ms, o_ms = (1e3 * sum(secs[id(r)]) / DP_TIMED for r in (plain, one))
+    say(f"[train:dp] NCCL mesh of one (store in the process) vs the plain "
+        f"train_step, flagship bf16 B={TRAIN_B} T={TRAIN_T} F={TRAIN_F}, "
+        f"prenet dropout and zoneout on (encoder and postnet dropout off), "
+        f"deterministic algorithms: loss terms, gradient "
+        f"norm, every gradient and the weights after the step bit-identical;"
+        f" step {o_ms:.2f} ms against {p_ms:.2f} ms plain (mean of "
+        f"{DP_TIMED} each, in turns, host clock, synchronized; {card})")
+    del plain, one
+
+    # the single process's first steps on the global batch, then the ranks
+    single, single_s = {}, []
+    for dtype in ("bfloat16", "float32"):
+        model, *single[dtype], timed = dp_step(dp_hp(dtype), None, sd)
+        if dtype == "bfloat16":
+            single_s = [timed() for _ in range(DP_TIMED)]
+        del model, timed
+        torch.cuda.empty_cache()
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    port = free_port()
+    logs = [open(DP_BASE / f"rank{r}.log", "w") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    children = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-child", str(r),
+         str(port)], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(DP_WORLD)]
+    try:
+        for c in children:
+            c.wait(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, c in enumerate(children):
+        if c.returncode != 0:
+            tail = (DP_BASE / f"rank{r}.log").read_text()[-3000:]
+            fail(f"[train:dp] rank {r} exited {c.returncode}:\n{tail}")
+    ranks = [json.loads((DP_BASE / f"rank{r}.json").read_text())
+             for r in range(DP_WORLD)]
+
+    over = []
+    for dtype in ("bfloat16", "float32"):
+        got = (None, *torch.load(DP_BASE / f"step_{dtype}.pt",
+                                 weights_only=False), None)
+        errs = dp_errors(got, (None, *single[dtype], None))
+        for r in ranks:
+            missing = [k for k in r[dtype]["want"]
+                       if not r[dtype]["launches"].get(k)]
+            if missing:
+                fail(f"[train:dp] rank {r['rank']}'s {dtype} step never "
+                     f"launched {missing}")
+        worst = {}
+        for name, e in errs.items():
+            g = dp_group(name)
+            if e > DP_STEP_TOL[dtype][g]:
+                over.append(f"{dtype} {name} {e:.3g}")
+            if e >= worst.get(g, ("", -1.0))[1]:
+                worst[g] = (name, e)
+        say(f"[train:dp] {DP_WORLD} gloo ranks on one card, "
+            f"{TRAIN_B // DP_WORLD} rows each, vs the single process on the "
+            f"global batch B={TRAIN_B} T={TRAIN_T} F={TRAIN_F} ({dtype}, "
+            f"dropout and zoneout off), each tensor's max |difference| over "
+            f"its largest: " + "; ".join(
+                f"{g} at most {e:.3g} ({n}; bound {DP_STEP_TOL[dtype][g]})"
+                for g, (n, e) in worst.items())
+            + f"; each rank's K2/K3 launches {ranks[0][dtype]['launches']}")
+    if over:
+        fail(f"[train:dp] the ranks' first step vs the single process over "
+             f"its bounds: {over[:12]}")
+
+    a, b = ranks[0], ranks[1]
+    diffs = [k for k in ("digest", "moments", "eval_loss", "steps", "path")
+             if a[k] != b[k]]
+    if diffs:
+        fail(f"[train:dp] the ranks differ after the epoch in {diffs}")
+    for r in ranks:
+        missing = [k for k in r["k2"] + r["k3"] if not r["epoch_launches"]
+                   .get(k)]
+        missing += [k for k in r["k2"] if not r["eval_launches"].get(k)]
+        stray = [k for k in r["k3"] if r["eval_launches"].get(k)]
+        if missing or stray:
+            fail(f"[train:dp] rank {r['rank']}: kernels never launched "
+                 f"{missing}, K3 in evaluate {stray}")
+    if (a["logs"], b["logs"]) != (True, False) or os.listdir(
+            DP_BASE / "ckpt") != [os.path.basename(a["path"])]:
+        fail("[train:dp] logs or checkpoints written by another rank than 0")
+    if not math.isfinite(a["eval_loss"]):
+        fail(f"[train:dp] eval loss {a['eval_loss']}")
+    say(f"[train:dp] Trainer on {DP_WORLD} gloo ranks (one card), "
+        f"[train:loop]'s corpus at global B={LOOP_B}: {a['steps']} steps in "
+        f"{a['epoch_s']:.4f} / {b['epoch_s']:.4f} s by rank, evaluate "
+        f"{a['eval_s']:.4f} / {b['eval_s']:.4f} s (eval loss "
+        f"{a['eval_loss']:.5f} on both), rank 0 saved; weights, batch-norm "
+        f"statistics and Adam moments bit-identical across the ranks (state "
+        f"sha256 {a['digest'][:12]}); epoch launches per rank "
+        f"{a['epoch_launches']} (host clock; {card})")
+    red = [sum(r["all_reduce"]["ms"]) / DP_TIMED for r in ranks]
+    mib = a["all_reduce"]["bytes"] / 2 ** 20
+    say(f"[train:dp] gradient all-reduce over gloo (CUDA tensors staged "
+        f"through the host), {a['all_reduce']['bytes']} bytes = {mib:.1f} "
+        f"MiB float32: {red[0]:.2f} / {red[1]:.2f} ms by rank (mean of "
+        f"{DP_TIMED}, each " + ", ".join(f"{m:.2f}" for m in
+                                        a["all_reduce"]["ms"])
+        + f" on rank 0; host clock, synchronized; {card})")
+    s1 = 1e3 * sum(single_s) / DP_TIMED
+    s2 = [1e3 * sum(r["bfloat16"]["seconds"]) / DP_TIMED for r in ranks]
+    say(f"[train:dp] bf16 step on the global batch B={TRAIN_B}: {DP_WORLD} "
+        f"ranks on one card " + " / ".join(f"{v:.2f}" for v in s2)
+        + f" ms by rank against the single process's {s1:.2f} ms (mean of "
+        f"{DP_TIMED}, host clock, synchronized; one card shows no scaling: "
+        f"the ranks share its SMs; {card})")
+    say(f"[train:dp] peak device memory by rank " + " / ".join(
+        f"{r['peak_gib']:.2f}" for r in ranks) + f" GiB (the epoch), the "
+        f"single process's steps {single_peak:.2f} GiB; the children's run "
+        f"{wall:.1f} s ({card})")
 
 
 # F3: the attention kernels of all three decoders on long texts
@@ -3817,6 +4254,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == ["--loop-cpu-steps"]:
         return loop_cpu_steps()
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(int(sys.argv[2]), int(sys.argv[3]))
     from multilingual_text_to_speech_tpu_torch.synthesis import Synthesizer
 
     # [train:loop]'s corpus, and its CPU steps in a process during the build
@@ -3907,6 +4346,10 @@ def main() -> int:
     # first steps on the card against the CPU, and GTA
     with phase("train:loop"):
         phase_train_loop(cpu_waited)
+    # data parallel: the mesh of one over NCCL, then two ranks over gloo on
+    # the one card, on [train:loop]'s corpus
+    with phase("train:dp"):
+        phase_train_dp()
     # the CBHG postnet and the cosine classifier: training, synthesis,
     # vocoding, the import CLI and the evaluation chain
     with phase("cbhg"):

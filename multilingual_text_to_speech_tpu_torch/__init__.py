@@ -8,7 +8,8 @@ synthesis (encoder, decoder with its step as hand-written CUDA kernels in
 teacher-forced decoder's forward and backward as hand-written CUDA kernels
 in ``ops/fused_train_decoder.py``, clipping and Adam) and the training
 runtime around it (``data/``, ``training/trainer.py::Trainer``, the
-prepare, train and GTA CLIs), for the flagship model and for every encoder
+prepare, train and GTA CLIs, data parallel over processes in
+``parallel/``), for the flagship model and for every encoder
 of the paper's parameter-sharing strategies (``shared_switching_hparams``,
 ``separate_switching_hparams``).
 """

@@ -9,8 +9,19 @@ in the checkpoint directory, or with ``--resume`` the newest file there)
 first, then the JSON overlay of ``--hyper_parameters``, a path or a name
 looked up as ``<base_directory>/params/<name>.json``.  The corpus is
 ``<data_root>/<hp.dataset>`` with ``train.txt`` and ``val.txt``.  It trains
-on the card, and raises without one, unless ``--cpu`` is given; data
-parallel over several cards (``--distributed``) is not ported.
+on the card, and raises without one, unless ``--cpu`` is given.
+
+Data parallel: start one process a rank with ``torch.distributed.run`` and
+pass ``--distributed``, e.g. two ranks on the CPU::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m multilingual_text_to_speech_tpu_torch.cli.train \
+        --distributed --cpu --hyper_parameters ... --data_root ...
+
+Each rank takes ``cuda:LOCAL_RANK % device_count`` (or the CPU with
+``--cpu``) and its rows of every global batch of ``hp.batch_size``
+(``parallel.make_mesh``: ``hp.mesh_data_parallel`` x
+``hp.mesh_model_parallel`` ranks); rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -52,8 +63,8 @@ def main(argv=None):
                         help="Override hp.epochs.")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--distributed", action="store_true",
-                        help="Data parallel over several cards (not "
-                             "ported).")
+                        help="Data parallel over the ranks that "
+                             "torch.distributed.run starts.")
     parser.add_argument("--profile_steps", type=int, default=0,
                         help="Trace this many steps of the first epoch with "
                              "torch.profiler.")
@@ -61,16 +72,15 @@ def main(argv=None):
                         help="Train on the CPU instead of the card.")
     args = parser.parse_args(argv)
 
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: data parallel over several cards is not ported "
-            "(ROADMAP Queue 1 item 8)")
-
     from multilingual_text_to_speech_tpu_torch.config import HParams
     from multilingual_text_to_speech_tpu_torch.data import (
         TextToSpeechDatasetCollection,
     )
     from multilingual_text_to_speech_tpu_torch.device import resolve_device
+    from multilingual_text_to_speech_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+    )
     from multilingual_text_to_speech_tpu_torch.training.checkpoint import (
         find_latest_checkpoint,
         load_checkpoint,
@@ -79,7 +89,10 @@ def main(argv=None):
         Trainer,
     )
 
-    device = resolve_device("cpu" if args.cpu else None)
+    if args.distributed:
+        device = init_distributed(cpu=args.cpu)
+    else:
+        device = resolve_device("cpu" if args.cpu else None)
     checkpoint_dir = os.path.join(args.base_directory, args.checkpoint_root)
     os.makedirs(checkpoint_dir, exist_ok=True)
 
@@ -107,6 +120,7 @@ def main(argv=None):
         device=device,
         from_checkpoint=checkpoint_path,
         flush_seconds=args.flush_seconds,
+        mesh=make_mesh(hp, device=device),
     )
     if args.profile_steps:
         trainer.train_epoch(args.logging_start,
@@ -115,6 +129,10 @@ def main(argv=None):
     trainer.fit(epochs=args.epochs, logging_start_epoch=args.logging_start)
     if trainer.logger is not None:
         trainer.logger.close()
+    if args.distributed:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -49,17 +49,21 @@ class ReversalClassifier(nn.Module):
 
 def reversal_classifier_loss(input_lengths: torch.Tensor,
                              speakers: torch.Tensor,
-                             prediction: torch.Tensor) -> torch.Tensor:
+                             prediction: torch.Tensor,
+                             count=None) -> torch.Tensor:
     """Per-character speaker cross-entropy over the valid characters:
-    ``prediction`` [B, T, n_speakers] logits."""
+    ``prediction`` [B, T, n_speakers] logits.  ``count``, the valid
+    characters of the global batch, makes it this shard's contribution:
+    its masked sum over that count."""
     b, t, _ = prediction.shape
     mask = (torch.arange(t, device=prediction.device)[None, :]
             < input_lengths[:, None])
     logp = torch.log_softmax(prediction, dim=-1)
     nll = -torch.gather(logp, 2, speakers.long()[:, None, None].expand(
         b, t, 1))[..., 0]
+    count = mask.sum() if count is None else count
     return (torch.where(mask, nll, torch.zeros_like(nll)).sum()
-            / torch.clamp(mask.sum(), min=1))
+            / torch.clamp(count, min=1))
 
 
 class GradientClipping(torch.autograd.Function):
@@ -97,7 +101,8 @@ def cosine_similarity_classifier_loss(input_lengths: torch.Tensor,
                                       speakers: torch.Tensor,
                                       prediction: torch.Tensor,
                                       embeddings: torch.Tensor,
-                                      classifier_kernel: torch.Tensor
+                                      classifier_kernel: torch.Tensor,
+                                      count=None, positions=None
                                       ) -> torch.Tensor:
     """``reversal_classifier_loss`` plus the mean over all B x T positions,
     padding included, of ``sum_s |cos(embeddings[b, t], kernel[:, s])|``
@@ -105,10 +110,15 @@ def cosine_similarity_classifier_loss(input_lengths: torch.Tensor,
     encoder outputs, ``classifier_kernel`` [C, n_speakers] (the
     classifier's ``fc.weight`` transposed, flax's layout).  An all-zero
     embedding row has no cosine term and no gradient: the JAX package's
-    norm gives a NaN gradient there, PyTorch's norm a zero one."""
-    loss = reversal_classifier_loss(input_lengths, speakers, prediction)
+    norm gives a NaN gradient there, PyTorch's norm a zero one.  With the
+    global batch's valid characters ``count`` and B x T ``positions``, it
+    is this shard's contribution: both sums over the global counts."""
+    loss = reversal_classifier_loss(input_lengths, speakers, prediction,
+                                    count)
     dot = torch.einsum("btc,cs->bts", embeddings, classifier_kernel)
     norm_e = torch.linalg.vector_norm(embeddings, dim=2, keepdim=True)
     norm_w = torch.linalg.vector_norm(classifier_kernel, dim=0)[None, None]
     cosine = torch.abs(dot / torch.clamp(norm_e * norm_w, min=1e-8))
-    return loss + cosine.sum(dim=2).mean()
+    if positions is None:
+        return loss + cosine.sum(dim=2).mean()
+    return loss + cosine.sum() / positions

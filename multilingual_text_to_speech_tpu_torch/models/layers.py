@@ -12,6 +12,12 @@ mode (``module.train()``) batch norm normalizes by the batch's own
 statistics and updates the running ones, and dropout is on, as the JAX
 blocks do with ``train=True``.  Parameters stay float32; ``dtype`` is the
 compute type of the convolutions.
+
+A block's ``mesh`` (``Tacotron(mesh=)`` sets it, ``None`` by default) makes
+its batch statistics those of the global batch, as JAX computes them under
+SPMD: the first and second moments' sums and the count are summed over the
+ranks with autograd (``batch_moments``), so the running statistics move
+identically on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +27,11 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multilingual_text_to_speech_tpu_torch.parallel.collectives import (
+    all_sum,
+    single,
+)
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -37,6 +48,24 @@ def same_pad_amounts(kernel: int, dilation: int) -> tuple[int, int]:
     """'same' padding, even kernels included (one more on the right)."""
     p = (kernel - 1) * dilation // 2
     return (p, p) if kernel % 2 != 0 else (p, p + 1)
+
+
+def batch_moments(y: torch.Tensor, dims, mesh=None):
+    """``(mean, mean of squares, count)`` of ``y`` over ``dims``: this
+    process's batch alone, or with a mesh of several ranks the global
+    batch's (the sums and counts summed over the ranks, differentiably;
+    the count, a tensor then, counts each row once where ranks share
+    it)."""
+    n = 1
+    for d in dims:
+        n *= y.shape[d]
+    if single(mesh):
+        return y.mean(dim=dims), (y * y).mean(dim=dims), n
+    sums = torch.stack([y.sum(dim=dims), (y * y).sum(dim=dims)])
+    flat = all_sum(torch.cat([sums.reshape(-1), sums.new_full((1,), n)]),
+                   mesh)
+    moments = flat[:-1].reshape(sums.shape) / flat[-1]
+    return moments[0], moments[1], flat[-1].detach() / mesh.replicas
 
 
 def highway_gate(gate: torch.Tensor, value: torch.Tensor,
@@ -87,6 +116,7 @@ class ConvBlock(nn.Module):
         self.activation = get_activation(activation)
         self.dtype = dtype
         self.dropout = dropout
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:      # [B, F, C]
         xx = F.pad(x.to(self.dtype).transpose(1, 2),
@@ -95,8 +125,8 @@ class ConvBlock(nn.Module):
         bn = self.BatchNorm_0
         if not self.training:
             return self.activation(bn(y)).transpose(1, 2)
-        mean = y.mean(dim=(0, 2))
-        var = torch.clamp((y * y).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        mean, mean_sq, _ = batch_moments(y, (0, 2), self.mesh)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.mul_(0.9).add_(0.1 * mean)
             bn.running_var.mul_(0.9).add_(0.1 * var)
@@ -133,6 +163,7 @@ class GroupedConvBlock(nn.Module):
         self.dilation = dilation
         self.dtype = dtype
         self.dropout = dropout
+        self.mesh = None
 
     def forward(self, x4: torch.Tensor,
                 group_langs: torch.Tensor | None = None) -> torch.Tensor:
@@ -150,8 +181,8 @@ class GroupedConvBlock(nn.Module):
             if group_langs is not None:
                 raise ValueError("row-group language gathers are "
                                  "inference-only")
-            mean = y.mean(dim=(1, 2))                            # [g, cout]
-            var = (y * y).mean(dim=(1, 2)) - mean * mean
+            mean, mean_sq, _ = batch_moments(y, (1, 2), self.mesh)
+            var = mean_sq - mean * mean                          # [g, cout]
             with torch.no_grad():
                 bn.running_mean.mul_(0.9).add_(0.1 * mean.reshape(-1))
                 bn.running_var.mul_(0.9).add_(0.1 * var.reshape(-1))
@@ -228,6 +259,7 @@ class BatchNorm1dGenerated(nn.Module):
         self.affine = nn.Linear(bottleneck_dim, 2 * self.c)
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        self.mesh = None
 
     def normalize_train(self, embedding: torch.Tensor,
                         x4: torch.Tensor) -> torch.Tensor:
@@ -238,11 +270,11 @@ class BatchNorm1dGenerated(nn.Module):
         affine = self.affine(self.bottleneck(embedding))
         scale, bias = affine[:, :self.c], affine[:, self.c:]
         x32 = x4.float()
-        mean = x32.mean(dim=(1, 2))                             # [g, c]
-        var = (x32 * x32).mean(dim=(1, 2)) - mean * mean
-        n = x32[0, :, :, 0].numel()
+        mean, mean_sq, n = batch_moments(x32, (1, 2), self.mesh)  # [g, c]
+        var = mean_sq - mean * mean
         with torch.no_grad():
-            unbiased = var * (n / max(n - 1.0, 1.0))
+            unbiased = var * (n / (max(n - 1.0, 1.0) if isinstance(n, int)
+                                   else torch.clamp(n - 1.0, min=1.0)))
             self.mean.mul_(0.9).add_(0.1 * mean.reshape(-1))
             self.var.mul_(0.9).add_(0.1 * unbiased.reshape(-1))
         inv = torch.rsqrt(var + self.eps) * scale

@@ -43,6 +43,12 @@ from multilingual_text_to_speech_tpu_torch.models.encoder import (
 from multilingual_text_to_speech_tpu_torch.models.layers import (
     BatchNorm1dGenerated,
     Conv1dGenerated,
+    ConvBlock,
+    GroupedConvBlock,
+)
+from multilingual_text_to_speech_tpu_torch.parallel.collectives import (
+    single,
+    total,
 )
 from multilingual_text_to_speech_tpu_torch.models.postnet import (
     Postnet,
@@ -57,6 +63,8 @@ def lengths_to_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
 
 # the encoders that take a language-interleaved batch and row groups
 GROUPED_ENCODERS = ("convolutional", "generated")
+# the modules whose train mode normalizes by batch statistics
+BATCH_NORM_SITES = (ConvBlock, GroupedConvBlock, BatchNorm1dGenerated)
 
 
 def make_encoder(hp, dtype: torch.dtype) -> nn.Module:
@@ -87,10 +95,16 @@ def make_encoder(hp, dtype: torch.dtype) -> nn.Module:
 
 
 class Tacotron(nn.Module):
-    def __init__(self, hp, dtype: torch.dtype = torch.float32):
+    """``mesh`` (``parallel.make_mesh``), as JAX's ``Tacotron(mesh=)``:
+    with several ranks, each runs this model on its rows of the global
+    batch, and train mode's batch statistics are the global batch's (every
+    batch-norm site's moments summed over the ranks)."""
+
+    def __init__(self, hp, dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.hp = hp
         self.dtype = dtype
+        self.mesh = mesh
         self.embedding = nn.Embedding(hp.total_symbols(),
                                       hp.embedding_dimension)
         self.encoder = make_encoder(hp, dtype)
@@ -115,6 +129,9 @@ class Tacotron(nn.Module):
             self.postnet = Postnet(hp.num_mels, hp.postnet_dimension,
                                    hp.postnet_blocks, hp.postnet_kernel_size,
                                    dtype, hp.dropout)
+        for m in self.modules():
+            if isinstance(m, BATCH_NORM_SITES):
+                m.mesh = mesh
 
     def _language_weights(self, languages: torch.Tensor, t: int):
         """[B] language ids or [B, T, L] weights -> [B, T, L] weights."""
@@ -259,20 +276,33 @@ class TacotronLossState:
         return cls(**d)
 
 
-def _bce_with_logits_pos_weight(logits, targets, pos_weight):
-    """``binary_cross_entropy_with_logits`` with ``pos_weight``, mean."""
+def shard_mean(x: torch.Tensor, shards: int = 1) -> torch.Tensor:
+    """The mean of ``x`` over all its elements, or with ``shards`` equal
+    shards of a global tensor this shard's contribution to the global
+    mean: the sum over ``shards`` times its element count."""
+    if shards == 1:
+        return torch.mean(x)
+    return x.sum() / (x.numel() * shards)
+
+
+def _bce_with_logits_pos_weight(logits, targets, pos_weight, shards=1):
+    """``binary_cross_entropy_with_logits`` with ``pos_weight``, mean
+    (``shard_mean``)."""
     log_sig = -F.softplus(-logits)
     log_one_minus = -F.softplus(logits)
-    return torch.mean(-(pos_weight * targets * log_sig
-                        + (1.0 - targets) * log_one_minus))
+    return shard_mean(-(pos_weight * targets * log_sig
+                        + (1.0 - targets) * log_one_minus), shards)
 
 
 def guided_attention_loss(alignments: torch.Tensor,
                           input_lengths: torch.Tensor,
                           target_lengths: torch.Tensor,
-                          variance) -> torch.Tensor:
+                          variance, batch: Optional[int] = None
+                          ) -> torch.Tensor:
     """Diagonal-band penalty: ``W[b, f, l] = 1 - exp(-(l/L_b - f/F_b)^2 /
-    (2 g^2))`` in the valid rectangle; ``mean_b sum(W * A) / F_b``."""
+    (2 g^2))`` in the valid rectangle; ``mean_b sum(W * A) / F_b``, or with
+    the global batch's ``batch`` rows this shard's contribution, the sum
+    over its samples divided by ``batch``."""
     _, frames, tokens = alignments.shape
     dev = alignments.device
     f = torch.arange(frames, device=dev, dtype=torch.float32)[None, :, None]
@@ -283,12 +313,12 @@ def guided_attention_loss(alignments: torch.Tensor,
     w = torch.where((f < fl) & (l < ll), w, torch.zeros_like(w))
     per_sample = (w * alignments).sum((1, 2)) / torch.clamp(
         target_lengths.float(), min=1.0)
-    return per_sample.mean()
+    return per_sample.mean() if batch is None else per_sample.sum() / batch
 
 
 def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
                   post_target, stop_target, speakers, guided_att_variance,
-                  guided_att_active=True, classifier_kernel=None
+                  guided_att_active=True, classifier_kernel=None, mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``2 MSE(pre) + MSE(post) + stop BCE (pos_weight 100) / (M + 2)``, the
     classifier's loss times ``reversal_classifier_w / (M + 2)`` and the
@@ -296,22 +326,41 @@ def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
     included.  The cosine-similarity classifier's loss needs
     ``classifier_kernel``, its ``fc.weight`` transposed [C, n_speakers]
     (``classifier_kernel(model)``).  A Python ``False`` for
-    ``guided_att_active`` skips the penalty (the schedule has expired)."""
+    ``guided_att_active`` skips the penalty (the schedule has expired).
+
+    With a ``mesh`` of several ranks, each holding equal shards of the
+    global batch, every term is this rank's contribution to the global
+    loss: the means over the global element count, the guided penalty's
+    sum over the global batch, the classifier's masked sums over the valid
+    characters summed over the ranks.  The ranks' contributions sum to the
+    loss of the global batch (counting a row that ``replicas`` ranks share
+    once), and so do their gradients."""
+    shards = 1 if single(mesh) else mesh.size
+    rows = None if shards == 1 else pre_target.shape[0] * shards
     losses = {
-        "mel_pre": 2.0 * torch.mean(
-            (outputs["pre_prediction"] - pre_target) ** 2),
-        "mel_pos": torch.mean((outputs["post_prediction"] - post_target) ** 2),
+        "mel_pre": 2.0 * shard_mean(
+            (outputs["pre_prediction"] - pre_target) ** 2, shards),
+        "mel_pos": shard_mean(
+            (outputs["post_prediction"] - post_target) ** 2, shards),
         "stop_token": _bce_with_logits_pos_weight(
-            outputs["stop_token"], stop_target, 100.0) / (hp.num_mels + 2),
+            outputs["stop_token"], stop_target, 100.0, shards)
+        / (hp.num_mels + 2),
     }
     if hp.reversal_classifier:
+        count = positions = None
+        if shards > 1:
+            b, t = outputs["speaker_prediction"].shape[:2]
+            count = total(lengths_to_mask(input_lengths, t).sum(), mesh)
+            positions = b * t * shards
         if hp.reversal_classifier_type == "reversal":
             cls_loss = reversal_classifier_loss(
-                input_lengths, speakers, outputs["speaker_prediction"])
+                input_lengths, speakers, outputs["speaker_prediction"],
+                count)
         else:
             cls_loss = cosine_similarity_classifier_loss(
                 input_lengths, speakers, outputs["speaker_prediction"],
-                outputs["encoder_output"], classifier_kernel)
+                outputs["encoder_output"], classifier_kernel, count,
+                positions)
         losses["lang_class"] = cls_loss * (
             hp.reversal_classifier_w / (hp.num_mels + 2))
     if hp.guided_attention_loss:
@@ -322,7 +371,7 @@ def tacotron_loss(outputs, *, hp, input_lengths, target_lengths, pre_target,
         else:
             losses["guided_att"] = guided_attention_loss(
                 outputs["alignment"], input_lengths, target_lengths,
-                guided_att_variance) * guided_att_active
+                guided_att_variance, rows) * guided_att_active
     return sum(losses.values()), losses
 
 

@@ -11,7 +11,15 @@ as ``train_step``, the classifier accuracy, and ``Trainer``: the samplers,
 free-running pass in ``model.eval()``, DTW-MCD, the classifier accuracy and
 a Griffin-Lim render of one sample), ``save`` and ``fit``, and the resume
 from a checkpoint of either package (``interop.optax_state`` maps the Adam
-state).  Data parallel over several cards is not ported.
+state).
+
+Data parallel (``Trainer(mesh=)``, ``parallel.make_mesh``): every rank
+collates the global batch and runs the model on its rows; the batch
+statistics and the loss denominators are the global batch's, each rank's
+loss is its contribution to the global loss, and the gradients are summed
+over the ranks before clipping, so that a step equals the single-device
+step on the global batch, as the JAX package's SPMD step does.  Only rank 0
+logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -56,6 +64,19 @@ from multilingual_text_to_speech_tpu_torch.models.tacotron import (
 from multilingual_text_to_speech_tpu_torch.ops import audio as audio_ops
 from multilingual_text_to_speech_tpu_torch.ops.fused_decoder import (
     draw_seeds,
+)
+from multilingual_text_to_speech_tpu_torch.parallel import (
+    all_gather_rows,
+    all_reduce_gradients,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_seeds,
+    total,
+)
+from multilingual_text_to_speech_tpu_torch.parallel.collectives import (
+    barrier,
+    single,
 )
 from multilingual_text_to_speech_tpu_torch.training.checkpoint import (
     load_checkpoint,
@@ -118,12 +139,14 @@ def clip_grad_global_norm_(params: Sequence[torch.Tensor],
 
 def classifier_accuracy(speaker_prediction: torch.Tensor,
                         speakers: torch.Tensor,
-                        lengths: torch.Tensor) -> torch.Tensor:
-    """Masked per-character speaker accuracy."""
+                        lengths: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Masked per-character speaker accuracy; with a ``mesh`` of several
+    ranks this rank's contribution (its matches over the valid characters
+    of all ranks)."""
     pred = torch.argmax(speaker_prediction, dim=-1)
     mask = lengths_to_mask(lengths, pred.shape[1])
     matches = (pred == speakers.long()[:, None]) & mask
-    return matches.sum() / torch.clamp(mask.sum(), min=1)
+    return matches.sum() / torch.clamp(total(mask.sum(), mesh), min=1)
 
 
 def _on(device, x, dtype=None):
@@ -163,8 +186,16 @@ def train_step(model, optimizer, scheduler, batch: Batch,
     ``generated``) needs a language-interleaved batch (sample ``k*g + j``
     has language j); the others take any order.  A float32 model
     (``hp.compute_dtype``) runs its forward, loss and backward in
-    ``device.exact_float32``."""
+    ``device.exact_float32``.
+
+    A model with a mesh of several ranks (``Tacotron(mesh=)``) takes this
+    rank's rows of the global batch, and ``seeds`` its shard's: the loss
+    terms are the rank's contributions, the gradients are summed over the
+    ranks (``parallel.all_reduce_gradients``) before the clipping, and the
+    returned losses and accuracy are the sums over the ranks, the global
+    batch's."""
     hp = model.hp
+    mesh = model.mesh
     dev = resolve_device(device)
     _check_model_device(model, dev)
     frames = batch.mel_spectrograms.shape[1]
@@ -189,7 +220,7 @@ def train_step(model, optimizer, scheduler, batch: Batch,
           else contextlib.nullcontext()):
         out = model(text, text_lengths, mels, mel_lengths, speakers,
                     languages, [int(t) for t in teacher], seeds)
-        total, losses = tacotron_loss(
+        loss, losses = tacotron_loss(
             out, hp=hp, input_lengths=text_lengths,
             target_lengths=mel_lengths, pre_target=mels,
             post_target=post_target,
@@ -197,19 +228,23 @@ def train_step(model, optimizer, scheduler, batch: Batch,
             speakers=speakers,
             guided_att_variance=loss_state.guided_att_variance,
             guided_att_active=loss_state.guided_att_steps > 0,
-            classifier_kernel=classifier_kernel(model))
+            classifier_kernel=classifier_kernel(model), mesh=mesh)
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        loss.backward()
     params: List[torch.Tensor] = [p for g in optimizer.param_groups
                                   for p in g["params"]]
+    all_reduce_gradients(params, mesh)
     grad_norm = clip_grad_global_norm_(params, hp.gradient_clipping)
     optimizer.step()
     scheduler.step()
     acc = (classifier_accuracy(out["speaker_prediction"], speakers,
-                               text_lengths)
+                               text_lengths, mesh)
            if hp.reversal_classifier else torch.zeros((), device=dev))
-    return StepResult({k: v.detach() for k, v in losses.items()}, grad_norm,
-                      acc, loss_state.update())
+    losses = {k: v.detach() for k, v in losses.items()}
+    if not single(mesh):
+        summed = total(torch.stack([*losses.values(), acc.float()]), mesh)
+        losses, acc = dict(zip(losses, summed[:-1])), summed[-1]
+    return StepResult(losses, grad_norm, acc, loss_state.update())
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +255,10 @@ class Draws:
     """The trainer's random choices, from a CPU ``torch.Generator`` of its
     seed: each training step's F teacher-forcing flags (Bernoulli at the
     step's ratio) and decoder seeds, the evaluation passes' seeds, and the
-    sample that ``evaluate`` logs.  An object with the same three methods
-    can stand in (the tests replay the JAX package's draws)."""
+    sample that ``evaluate`` logs, drawn in the same order on every rank;
+    with several ranks, each data shard's decoder seeds
+    (``shard_seeds``).  An object with the same four methods can stand in
+    (the tests replay the JAX package's draws)."""
 
     def __init__(self, seed: int):
         self.generator = torch.Generator().manual_seed(seed)
@@ -239,6 +276,13 @@ class Draws:
 
     def pick(self, n: int) -> int:
         return int(torch.randint(n, (1,), generator=self.generator))
+
+    def shard_seeds(self, seeds: Tuple[int, int], index: int
+                    ) -> Tuple[int, int]:
+        """The decoder seeds of shard ``index`` of a step or pass whose
+        seeds are ``seeds`` (where JAX folds the shard index into the
+        decode key)."""
+        return shard_seeds(seeds, index)
 
 
 def _criterion(payload) -> TacotronLossState:
@@ -263,7 +307,15 @@ class Trainer:
     does not match the model is reported and training goes on with fresh
     moments.  The weights start from ``initial_state`` (a state dict) when
     given, else from ``init_random_weights(seed)``; ``draws`` replaces the
-    trainer's ``Draws(seed)``."""
+    trainer's ``Draws(seed)``.
+
+    With a ``mesh`` of several ranks (one ``Trainer`` a rank, on the
+    mesh's device; ``hp.batch_size`` is the global batch), the ranks start
+    from rank 0's weights (``parallel.replicate``) and resume from the
+    same checkpoint, the samplers keep each data shard's rows
+    language-balanced, the dropout outside the decoder draws from a
+    generator seeded by the shard, and only rank 0 keeps the logger and
+    writes checkpoints."""
 
     def __init__(self, hp, dataset_collection, *,
                  checkpoint_dir: Optional[str] = None,
@@ -272,10 +324,19 @@ class Trainer:
                  from_checkpoint: Optional[str] = None,
                  flush_seconds: int = 60,
                  initial_state: Optional[Dict[str, torch.Tensor]] = None,
-                 draws=None):
+                 draws=None, mesh=None):
         self.hp = hp
         self.data = dataset_collection
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            hp, device=self.device)
+        if self.mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {self.mesh.device}, "
+                             f"the trainer on {self.device}")
+        # the global batch must split over the ranks (raises otherwise)
+        self.mesh.shard_rows(hp.batch_size)
 
         # dataset-dependent hp mutation (reference: train.py:238-250)
         hp.speaker_number = (
@@ -296,7 +357,7 @@ class Trainer:
 
         dtype = (torch.bfloat16 if hp.compute_dtype == "bfloat16"
                  else torch.float32)
-        model = Tacotron(hp, dtype)
+        model = Tacotron(hp, dtype, mesh=self.mesh)
         if initial_state is not None:
             model.load_state_dict(initial_state, strict=True)
         else:
@@ -311,7 +372,11 @@ class Trainer:
             self.epoch = int(payload["epoch"]) + 1
             self.step = int(payload["step"])
             self.loss_state = _criterion(payload)
-        self.model = model.to(self.device)
+        self.model = replicate(model.to(self.device), self.mesh)
+        if not single(self.mesh):
+            # the encoder's and postnet's dropout masks differ by shard
+            index = self.mesh.seed_index(hp.batch_size)
+            torch.manual_seed(shard_seeds((seed, 0), index)[0])
         self.optimizer, self.scheduler = make_optimizer(self.model, hp)
         if payload is not None:
             try:
@@ -331,8 +396,10 @@ class Trainer:
         # passes, DTW-MCD, Griffin-Lim render)
         self.eval_seconds: Dict[str, float] = {}
 
+        # every rank draws the logged sample; rank 0 logs it
+        self._logging = log_dir is not None
         self.logger = None
-        if log_dir is not None:
+        if log_dir is not None and self.mesh.rank == 0:
             stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
             self.logger = MetricsLogger(
                 os.path.join(log_dir, f"{hp.version}-{stamp}"),
@@ -347,13 +414,16 @@ class Trainer:
         hp = self.hp
         train_langs = [it["language"] for it in self.data.train.items]
         dev_langs = [it["language"] for it in self.data.dev.items]
+        dp = self.mesh.data
         if hp.multi_language and hp.balanced_sampling and hp.perfect_sampling:
             self.train_sampler = PerfectBatchSampler(
-                train_langs, len(hp.languages), hp.batch_size, shuffle=True,
-                drop_last=True, seed=seed)
+                train_langs, len(hp.languages), hp.batch_size,
+                data_parallel_shards=dp, shuffle=True, drop_last=True,
+                seed=seed)
             self.eval_sampler = PerfectBatchSampler(
-                dev_langs, len(hp.languages), hp.batch_size, shuffle=False,
-                drop_last=False, seed=seed)
+                dev_langs, len(hp.languages), hp.batch_size,
+                data_parallel_shards=dp, shuffle=False, drop_last=False,
+                seed=seed)
         elif hp.multi_language and hp.balanced_sampling:
             self.train_sampler = BalancedBatchSampler(
                 train_langs, hp.batch_size, drop_last=True, seed=seed)
@@ -375,6 +445,13 @@ class Trainer:
 
     def _eval_batches(self):
         return batch_iterator(self.data.dev, self.eval_sampler, self.collate)
+
+    def _shard_seeds(self, seeds, batch: Batch):
+        """This rank's decoder seeds for the global ``batch``: the step's
+        own on a mesh of one."""
+        index = self.mesh.seed_index(len(batch.utterances))
+        return seeds if index is None else self.draws.shard_seeds(seeds,
+                                                                  index)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -406,8 +483,10 @@ class Trainer:
                 batch.mel_spectrograms.shape[1],
                 teacher_forcing_ratio(hp, step))
             res = train_step(self.model, self.optimizer, self.scheduler,
-                             batch, self.loss_state, None, teacher=teacher,
-                             seeds=seeds, device=self.device)
+                             shard_batch(batch, self.mesh), self.loss_state,
+                             None, teacher=teacher,
+                             seeds=self._shard_seeds(seeds, batch),
+                             device=self.device)
             self.step += 1
             if self.logger is not None and self.epoch >= logging_start_epoch:
                 self.logger.training(
@@ -452,7 +531,11 @@ class Trainer:
         by DTW-MCD against its target; with a logger, one random sample's
         spectrograms and alignment logged and both passes' predictions
         rendered by Griffin-Lim on the device.  Returns the summed mean
-        eval loss; ``eval_seconds`` holds the parts' seconds."""
+        eval loss; ``eval_seconds`` holds the parts' seconds.  With
+        several ranks each runs both passes on its rows; the losses and
+        accuracy are summed over the ranks and the free-running outputs
+        gathered, so every rank scores the whole batch and returns the same
+        eval loss."""
         hp = self.hp
         eval_losses: Dict[str, float] = {}
         mcd, mcd_count = 0.0, 0
@@ -464,37 +547,46 @@ class Trainer:
         is_mel = not hp.predict_linear
 
         self.model.eval()
+        mesh = self.mesh
         for batch in self._eval_batches():
             frames = batch.mel_spectrograms.shape[1]
-            seeds_forced, seeds_free = self.draws.eval()
+            n = len(batch.utterances)
+            seeds_forced, seeds_free = (self._shard_seeds(s, batch)
+                                        for s in self.draws.eval())
+            rows = shard_batch(batch, mesh)
             text, text_len, mels, mel_len, speakers, languages = (
-                self._inputs(batch))
+                self._inputs(rows))
             t0 = time.perf_counter()
             out_forced = self.model(text, text_len, mels, mel_len, speakers,
                                     languages, [1] * frames, seeds_forced)
-            post_target = (mels if batch.linear_spectrograms is None else
-                           _on(self.device, batch.linear_spectrograms,
+            post_target = (mels if rows.linear_spectrograms is None else
+                           _on(self.device, rows.linear_spectrograms,
                                torch.float32))
             _, losses = tacotron_loss(
                 out_forced, hp=hp, input_lengths=text_len,
                 target_lengths=mel_len, pre_target=mels,
                 post_target=post_target,
-                stop_target=_on(self.device, batch.stop_tokens,
+                stop_target=_on(self.device, rows.stop_tokens,
                                 torch.float32),
                 speakers=speakers,
                 guided_att_variance=self.loss_state.guided_att_variance,
                 guided_att_active=ga_active,
-                classifier_kernel=classifier_kernel(self.model))
-            losses = {k: float(v) for k, v in losses.items()}
-            acc = (float(classifier_accuracy(out_forced["speaker_prediction"],
-                                             speakers, text_len))
-                   if hp.reversal_classifier else 0.0)
+                classifier_kernel=classifier_kernel(self.model), mesh=mesh)
+            acc = (classifier_accuracy(out_forced["speaker_prediction"],
+                                       speakers, text_len, mesh)
+                   if hp.reversal_classifier
+                   else torch.zeros((), device=self.device))
+            values = total(torch.stack([*(v.float() for v in
+                                          losses.values()), acc.float()]),
+                           mesh).tolist()
+            losses, acc = dict(zip(losses, values[:-1])), values[-1]
             t1 = time.perf_counter()
             out_free = self.model(text, text_len, mels, mel_len, speakers,
                                   languages, [0] * frames, seeds_free)
-            post_free = out_free["post_prediction"].float().cpu().numpy()
-            stop_probs = torch.sigmoid(
-                out_free["stop_token"].float()).cpu().numpy()
+            post_free = all_gather_rows(
+                out_free["post_prediction"].float(), mesh, n).cpu().numpy()
+            stop_probs = torch.sigmoid(all_gather_rows(
+                out_free["stop_token"].float(), mesh, n)).cpu().numpy()
             t2 = time.perf_counter()
 
             for j in range(post_free.shape[0]):
@@ -530,16 +622,24 @@ class Trainer:
         for k in eval_losses:
             eval_losses[k] /= max(n_batches, 1)
 
-        if self.logger is not None and last is not None:
-            t0 = time.perf_counter()
-            self._log_sample(eval_losses, mcd, cla, *last)
-            seconds["render"] = time.perf_counter() - t0
+        if self._logging and last is not None:
+            batch, forced, post_free, alignment, stop_probs = last
+            n = len(batch.utterances)
+            # collectives and the draw on every rank; rank 0 logs
+            forced = all_gather_rows(forced.float(), mesh, n)
+            alignment = all_gather_rows(alignment.float(), mesh, n)
+            idx = self.draws.pick(n)
+            if self.logger is not None:
+                t0 = time.perf_counter()
+                self._log_sample(eval_losses, mcd, cla, idx, batch, forced,
+                                 post_free, alignment, stop_probs)
+                seconds["render"] = time.perf_counter() - t0
         self.eval_seconds = seconds
         return float(sum(eval_losses.values()))
 
-    def _log_sample(self, eval_losses, mcd, cla, batch, forced, free_np,
-                    alignment, stop_probs):
-        """One random eval sample to the logger: the target, generated and
+    def _log_sample(self, eval_losses, mcd, cla, idx, batch, forced,
+                    free_np, alignment, stop_probs):
+        """Eval sample ``idx`` to the logger: the target, generated and
         teacher-forced spectrograms (denormalized, cropped to the target's
         length), its alignment, stop probabilities and both predictions
         rendered by Griffin-Lim on the device (reference:
@@ -547,7 +647,6 @@ class Trainer:
         from multilingual_text_to_speech_tpu_torch.text import SymbolTable
 
         hp = self.hp
-        idx = self.draws.pick(batch.utterances.shape[0])
         f_len = int(batch.spectrogram_lengths[idx])
         s_len = int(batch.utterance_lengths[idx])
         source_text = SymbolTable(hp).decode(
@@ -575,16 +674,20 @@ class Trainer:
 
     def save(self, eval_loss: float) -> str:
         """Write the checkpoint (weights, Adam state as optax's, step,
-        epoch, hp, guided-attention state); returns its path."""
+        epoch, hp, guided-attention state); returns its path.  With
+        several ranks, rank 0 writes it and every rank returns once it is
+        written."""
         path = os.path.join(
             self.checkpoint_dir,
             f"{self.hp.version}_loss-{self.epoch}-{eval_loss:2.3f}")
-        save_checkpoint(
-            path, epoch=self.epoch, step=self.step,
-            state_dict=self.model.state_dict(), hp=self.hp,
-            criterion_state=self.loss_state.state_dict(),
-            optimizer=optimizer_to_optax(self.model, self.optimizer,
-                                         self.scheduler, self.hp))
+        if self.mesh.rank == 0:
+            save_checkpoint(
+                path, epoch=self.epoch, step=self.step,
+                state_dict=self.model.state_dict(), hp=self.hp,
+                criterion_state=self.loss_state.state_dict(),
+                optimizer=optimizer_to_optax(self.model, self.optimizer,
+                                             self.scheduler, self.hp))
+        barrier(self.mesh)
         return path
 
     def fit(self, epochs: Optional[int] = None,

@@ -153,6 +153,11 @@ def test_clis_need_the_card_unless_asked(cli, trained, tmp_path):
         argv[0](argv[1:])
 
 
-def test_train_cli_refuses_distributed(workspace):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+def test_train_cli_refuses_distributed(workspace, monkeypatch):
+    """``--distributed`` outside ``torch.distributed.run`` (no rank in the
+    environment) raises before it trains; ``tests/test_torch_data_parallel
+    .py`` runs it under the launcher."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         train.main(["--distributed", "--cpu"])

@@ -2720,3 +2720,100 @@ def test_dataset_computes_uncached_spectrograms_on_the_card(tmp_path):
         a, b = 10.0 ** (card[i][3] / 20.0), 10.0 ** (cpu[i][3] / 20.0)
         assert a.shape == b.shape
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+# ---------------------------------------------------------------------------
+# data parallel: the mesh of one over NCCL, two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+DP_SHAPE = (10, 16, 16)
+
+
+def _dp_hp(dtype):
+    hp = _hp(False)
+    hp.compute_dtype = dtype
+    hp.batch_size = DP_SHAPE[0]
+    hp.dropout = 0.0
+    hp.zoneout_hidden = hp.zoneout_cell = 0.0
+    return hp
+
+
+def test_nccl_mesh_of_one_is_bit_identical_to_the_plain_step():
+    """A one-rank NCCL group (a store in the process): the mesh's
+    ``train_step`` and the plain one give bit-identical loss terms,
+    gradient norm, gradients and weights, prenet dropout and zoneout on."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from chip_smoke import deterministic, dp_step
+    from multilingual_text_to_speech_tpu_torch.parallel import make_mesh
+
+    hp = _dp_hp("bfloat16")
+    hp.dropout, hp.zoneout_hidden, hp.zoneout_cell = 0.5, 0.1, 0.1
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(hp, device="cuda")
+        assert (mesh.size, mesh.backend) == (1, "nccl")
+        with deterministic():
+            plain = dp_step(hp, None, shape=DP_SHAPE)
+            one = dp_step(hp, mesh, shape=DP_SHAPE)
+    finally:
+        dist.destroy_process_group()
+    assert plain[1] == one[1] and plain[2] == one[2] and plain[4] == one[4]
+    assert plain[3].keys() == one[3].keys()
+    for name, g in plain[3].items():
+        assert torch.equal(g, one[3][name]), name
+
+
+def test_two_gloo_ranks_on_the_card_match_the_single_process(tmp_path):
+    """Two ranks on the one card over gloo (child processes, 5 rows each)
+    against the single process on the global batch, float32: every loss
+    term, the gradient norm and each parameter's gradient within 1e-4 of
+    its largest value."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from chip_smoke import dp_errors, dp_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = (
+        "import datetime, sys, torch, torch.distributed as dist\n"
+        f"sys.path[:0] = [{repo!r}, {os.path.join(repo, 'tests')!r}]\n"
+        "from chip_smoke import dp_step\n"
+        "from test_torch_gpu import DP_SHAPE, _dp_hp\n"
+        "from multilingual_text_to_speech_tpu_torch.parallel import "
+        "make_mesh\n"
+        "rank = int(sys.argv[1])\n"
+        "torch.cuda.set_device(0)\n"
+        f"dist.init_process_group('gloo', init_method='tcp://127.0.0.1:"
+        f"{port}', world_size=2, rank=rank, "
+        "timeout=datetime.timedelta(seconds=120))\n"
+        "hp = _dp_hp('float32')\n"
+        "res = dp_step(hp, make_mesh(hp, device='cuda'), shape=DP_SHAPE)\n"
+        f"if rank == 0: torch.save(res[1:5], {str(tmp_path / 'r0.pt')!r})\n"
+        "dist.destroy_process_group()\n")
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r)],
+                              cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    got = (None, *torch.load(tmp_path / "r0.pt", weights_only=False), None)
+    errs = dp_errors(got, dp_step(_dp_hp("float32"), None, shape=DP_SHAPE))
+    name, top = max(errs.items(), key=lambda kv: kv[1])
+    assert top <= 1e-4, (name, top)
