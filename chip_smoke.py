@@ -124,10 +124,13 @@ Phases, each of which fails the run on a failed check:
    out and cuDNN at its TF32 default (printed, not gated); the float32 eval
    forward; the instances' device times; then the forward family in
    float32 at 128 frames (``f32:fwd``, ``f32:fwd_trans``);
-12. ``[train:long]``: texts of 600, 1000 and 1500 symbols, each attention
-   kind and compute type: K2's ``train_attention``, K3's ``att_bwd`` and
-   K1's attention kernel against their plain versions, their device times,
-   and a bf16 train step at T=600 on the card against the CPU.
+12. ``[train:long]``: texts of 600, 1000, 1500, 2304, 4096 and 8192
+   symbols at B=8, each attention kind and compute type: K2's
+   ``train_attention``, K3's ``att_bwd`` (past its single tile in
+   sub-tiles) and K1's attention kernel against their plain versions,
+   their device times beside ``att_bwd``'s bound, a bf16 train step at
+   T=600 on the card against the CPU, and the flagship's bf16 and float32
+   steps at B=5, T=4096, F=32 on the card against the CPU.
 13. ``[train:loop]`` (after 7): the flagship trained from a corpus on disk
    (``phase_train_loop``): 250 items in 5 languages and 16 speakers, texts
    from ``tests/data/css_comvoi/val.txt``, audio generated at 48 + 4 frames
@@ -2383,10 +2386,11 @@ def phase_train_main(hp, sd, timed: int = 3, frames: int = TRAIN_F):
     return launches, per_step, step_s, (model, opt, sched, batch, state)
 
 
-def phase_train_vs_cpu(hp, sd, t_len: int = 32) -> None:
-    """A small step (B=10, T=``t_len``, F=32) on the card against the same step
-    on the CPU plain path: the same weights, batch, flags and seeds,
-    dropout off; every K2/K3 kernel of the path launched on the card."""
+def phase_train_vs_cpu(hp, sd, t_len: int = 32, b: int = 10) -> None:
+    """A small step (B=``b``, T=``t_len``, F=32) on the card against the
+    same step on the CPU plain path: the same weights, batch, flags and
+    seeds, dropout off; every K2/K3 kernel of the path launched on the
+    card."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.models.tacotron import (
@@ -2397,7 +2401,7 @@ def phase_train_vs_cpu(hp, sd, t_len: int = 32) -> None:
         fused_train_decoder as ftd,
     )
 
-    small = train_batch(hp, 10, t_len, 32, SEED + 10)
+    small = train_batch(hp, b, t_len, 32, SEED + 10)
     teacher = [1] * 32
     got = {}
     for dev in ("cuda", "cpu"):
@@ -2456,7 +2460,7 @@ def phase_train_vs_cpu(hp, sd, t_len: int = 32) -> None:
             ("encoder gradients",
              [k for k in checks if k.startswith("grad encoder.")])):
         worst = max(keys, key=lambda k: checks[k][0])
-        say(f"[train:main] B=10 T={t_len} F=32 step, card vs CPU plain path "
+        say(f"[train:main] B={b} T={t_len} F=32 step, card vs CPU plain path "
             f"(bf16, dropout off), {label} ({len(keys)}): relative error at "
             f"most {checks[worst][0]:.3g} ({worst}; bound "
             f"{checks[worst][1]})")
@@ -2477,15 +2481,18 @@ def unguarded():
         tacotron.exact_float32, trainer.exact_float32 = saved
 
 
-def phase_train_f32_vs_cpu(hp, sd) -> None:
-    """A float32 ``train_step`` at B=10, T=32, F=32 on the card against the
-    same step on the CPU plain path (the same weights, batch, flags and
-    seeds, dropout off): every loss term and every parameter's gradient
-    (as the step leaves it, clipped by the same global norm on both sides)
-    within TRAIN_F32_E2E_TOL, relative.  Then the same step on the card
-    with the port's guard of its cuDNN calls taken out and cuDNN at
-    PyTorch's TF32 default: its reading is printed, not gated (what the
-    guard keeps out)."""
+def phase_train_f32_vs_cpu(hp, sd, b: int = 10, t_len: int = 32,
+                           frames: int = 32, unguarded_too: bool = True
+                           ) -> None:
+    """A float32 ``train_step`` at B=``b``, T=``t_len``, F=``frames`` on
+    the card against the same step on the CPU plain path (the same
+    weights, batch, flags and seeds, dropout off): every loss term and
+    every parameter's gradient (as the step leaves it, clipped by the same
+    global norm on both sides) within TRAIN_F32_E2E_TOL, relative.  Then,
+    with ``unguarded_too``, the same step on the card with the port's
+    guard of its cuDNN calls taken out and cuDNN at PyTorch's TF32
+    default: its reading is printed, not gated (what the guard keeps
+    out)."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.models.tacotron import (
@@ -2493,14 +2500,14 @@ def phase_train_f32_vs_cpu(hp, sd) -> None:
     )
     from multilingual_text_to_speech_tpu_torch.training import trainer
 
-    small = train_batch(hp, 10, 32, 32, SEED + 10)
+    small = train_batch(hp, b, t_len, frames, SEED + 10)
 
     def step(dev):
         m = train_model(hp, sd, dev, dropout=False)
         opt, sched = trainer.make_optimizer(m, hp)
         res = trainer.train_step(m, opt, sched, small,
                                  TacotronLossState.init(hp),
-                                 torch.Generator(), teacher=[1] * 32,
+                                 torch.Generator(), teacher=[1] * frames,
                                  seeds=(77, 88), device=dev)
         return ({k: float(v) for k, v in res.losses.items()},
                 {n: p.grad.detach().float().cpu()
@@ -2523,10 +2530,12 @@ def phase_train_f32_vs_cpu(hp, sd) -> None:
     if errs[worst] > TRAIN_F32_E2E_TOL:
         fail(f"float32 train step card vs CPU: {worst} off by relative "
              f"{errs[worst]} (bound {TRAIN_F32_E2E_TOL})")
-    say(f"[train:main] B=10 T=32 F=32 float32 train_step, card vs CPU plain "
-        f"path (dropout off), {len(errs)} loss terms and parameter "
-        f"gradients: relative error at most {errs[worst]:.3g} ({worst}; "
-        f"bound {TRAIN_F32_E2E_TOL})")
+    say(f"[train:main] B={b} T={t_len} F={frames} float32 train_step, card "
+        f"vs CPU plain path (dropout off), {len(errs)} loss terms and "
+        f"parameter gradients: relative error at most {errs[worst]:.3g} "
+        f"({worst}; bound {TRAIN_F32_E2E_TOL})")
+    if not unguarded_too:
+        return
     with cudnn_default(), unguarded():
         errs, worst = errors(step("cuda"))
     say(f"[train:main] the same step with the guard taken out "
@@ -3505,8 +3514,15 @@ def phase_train_dp() -> None:
         f"{wall:.1f} s ({card})")
 
 
-# F3: the attention kernels of all three decoders on long texts
-LONG_T, LONG_B = (600, 1000, 1500), 8
+# F3: the attention kernels of all three decoders on long texts; past T =
+# 2,304 att_bwd runs its sub-tiled layout (ops/fused_train_decoder.py::
+# att_bwd_plan: location-sensitive float32 past 2,304, bf16 past 3,968;
+# the family past 3,328 and 6,272)
+LONG_T, LONG_B = (600, 1000, 1500, 2304, 4096, 8192), 8
+# the flagship's train step on a long text, card against CPU in both
+# compute types: B, T, F (the generated encoder takes batches of whole
+# language groups: 5 rows, its 5 languages, is the smallest)
+LONG_STEP = (5, 4096, 32)
 # float32 weights of a long row: each carries the absolute float32 error of
 # its energy (sums over 128 channels in another order), within this share
 # of the row's largest weight
@@ -3514,17 +3530,22 @@ LONG_W_F32_TOL = 1e-4
 
 
 def phase_train_long(sd_by_kind) -> None:
-    """Texts of 600, 1000 and 1500 symbols (``att_bwd_tiles``: 8 CTAs of 80,
-    128 and 192 positions; in float32 the tile's rows stay in device
-    memory) at the flagship's widths, B=8, each attention kind and compute
-    type: K2's ``train_attention`` (one step with its streams), K3's
-    ``att_bwd`` and K1's ``lsa_attention`` or ``fwd_attention`` against
-    their plain versions on the same random inputs.  float32: the weights
-    within LONG_W_F32_TOL of each row's largest, every other output within
-    F32_TOL of its largest; bf16: the bounds of the T=128 checks (W_TOL,
-    CTX_TOL, ``att_bwd``'s TRAIN_KERNEL_TOL).  Then the device time of
-    ``train_attention`` and ``att_bwd`` at each length, and a bf16 train
-    step at T=600 on the card against the CPU."""
+    """Texts of 600 to 8,192 symbols (``att_bwd_tiles``: 8 CTAs of 80 to
+    1,024 positions; in float32 the tile's rows stay in device memory in
+    ``train_attention``; ``att_bwd`` in sub-tiles past its single tile,
+    ``att_bwd_plan``) at the flagship's widths, B=8, each attention kind
+    and compute type: K2's ``train_attention`` (one step with its streams),
+    K3's ``att_bwd`` and K1's ``lsa_attention`` or ``fwd_attention`` (on
+    the compute type's streams and on int8 streams) against their plain
+    versions on the same random inputs.  float32: the
+    weights within LONG_W_F32_TOL of each row's largest, every other
+    output within F32_TOL of its largest; bf16: the bounds of the T=128
+    checks (W_TOL, CTX_TOL, ``att_bwd``'s TRAIN_KERNEL_TOL).  Then the
+    device time of ``train_attention`` and ``att_bwd`` (location-sensitive)
+    at each length and of the family's ``att_bwd`` past T = 1,500, beside
+    ``att_bwd``'s bound, a bf16 train step at T=600 on the card
+    against the CPU, and the flagship's step at LONG_STEP in bf16 and in
+    float32 on the card against the CPU."""
     import torch
 
     from multilingual_text_to_speech_tpu_torch.models.tacotron import Tacotron
@@ -3539,20 +3560,24 @@ def phase_train_long(sd_by_kind) -> None:
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
 
-    def check(name, got, ref, f32, rows=False, bound=None):
-        """max |got - ref| over the largest |ref| (of each row: rows)."""
+    def check(what, got, ref, f32, rows=False, bound=None, slack=0.0):
+        """max |got - ref| over the largest |ref| (of each row: rows, less
+        ``slack`` of each row's absolute error); the check of ``what`` at
+        the loop's ``tag``."""
         g, r = got.detach().float(), ref.detach().float()
         if not torch.isfinite(g).all():
-            fail(f"{name}: non-finite values")
+            fail(f"{tag} {what}: non-finite values")
         if rows:
-            err = float(((g - r).abs().amax(1) / r.abs().amax(1)).max())
+            err = float((((g - r).abs().amax(1) - slack)
+                         / r.abs().amax(1)).max())
             bound = LONG_W_F32_TOL if f32 else W_TOL
         else:
             err = float((g - r).abs().max() / (r.abs().max() + 1e-30))
             bound = bound if bound is not None else (F32_TOL if f32
                                                      else CTX_TOL)
         if err > bound:
-            fail(f"{name}: kernel vs plain off by {err:.3g} (bound {bound})")
+            fail(f"{tag} {what}: kernel vs plain off by {err:.3g} (bound "
+                 f"{bound})")
         return err
 
     times = {}
@@ -3569,6 +3594,9 @@ def phase_train_long(sd_by_kind) -> None:
             ops = ftd.compute_operands(ftd.train_operands(cell, cfg), cfg)
             bundle = fd.extract_decoder_bundle(cell, dtype,
                                                quantize_gates=True)
+            bundle_q8 = fd.extract_decoder_bundle(cell, dtype,
+                                                  quantize_gates=True,
+                                                  q_streams=True)
             for t in LONG_T:
                 worst = {}
                 tag = f"{label} {dtype_label(dtype)} T={t}"
@@ -3609,12 +3637,14 @@ def phase_train_long(sd_by_kind) -> None:
 
                 got = forward(ftd.train_attention)
                 ref = forward(ftd.PLAIN.train_attention)
-                worst["train_attention w"] = check(tag, got[1], ref[1], f32,
-                                                   rows=True)
-                worst["train_attention ctx"] = check(tag, got[3], ref[3], f32)
+                worst["train_attention w"] = check(
+                    "train_attention w", got[1], ref[1], f32, rows=True)
+                worst["train_attention ctx"] = check(
+                    "train_attention ctx", got[3], ref[3], f32)
                 if cfg.agent:
-                    worst["train_attention tp"] = check(tag, got[-1], ref[-1],
-                                                        f32, bound=ATOL)
+                    worst["train_attention tp"] = check(
+                        "train_attention tp", got[-1], ref[-1], f32,
+                        bound=ATOL)
                 if not torch.equal(got[2], ref[2]):
                     fail(f"{tag}: train_attention's state stream differs")
 
@@ -3644,47 +3674,97 @@ def phase_train_long(sd_by_kind) -> None:
                        dctx, dw, acc[3], acc[0], acc[1], acc[2], *o, fam=fam)
                     return [x for x in acc if x is not None] + o + extra
 
+                ftd.reset_launch_counts()
                 got, ref_b = backward(ftd.att_bwd), backward(ftd.PLAIN.att_bwd)
+                inst = ftd.instance("att_bwd_fwd" if cfg.family
+                                    else "att_bwd", dtype)
+                if ftd.LAUNCHES[inst] != 1:
+                    fail(f"{tag}: {inst} launched {ftd.LAUNCHES[inst]} times "
+                         f"for one call")
                 bound = TRAIN_KERNEL_TOL["att_bwd"]
                 for i, (g, r) in enumerate(zip(got, ref_b)):
                     worst[f"att_bwd output {i}"] = check(
-                        tag, g, r, f32, bound=F32_TOL if f32 else bound[
+                        f"att_bwd output {i}", g, r, f32,
+                        bound=F32_TOL if f32 else bound[
                             "bf16" if r.dtype == torch.bfloat16 else "f32"])
 
-                if cfg.family:
-                    tp = tp0[:, None] if cfg.agent else None
-                    got = fd.fwd_attention(h_att, state, tp, memory, mtb,
-                                           mask_add, x, bundle)
-                    ref_k = fd.fwd_attention_plain(h_att, state, tp, memory,
-                                                   mtb, mask_add, x, bundle)
-                    worst["K1 ctx"] = check(tag, got[0], ref_k[0], f32)
-                    worst["K1 w"] = check(tag, got[1], ref_k[1], f32,
-                                          rows=True)
-                else:
-                    got = fd.lsa_attention(h_att, state, memory, mtb,
-                                           mask_add, bundle)
-                    ref_k = fd.lsa_attention_plain(h_att, state, memory, mtb,
-                                                   mask_add, bundle)
-                    worst["K1 ctx"] = check(tag, got[0], ref_k[0], f32)
-                    worst["K1 w"] = check(tag, got[1] - state,
-                                          ref_k[1] - state, f32, rows=True)
+                # K1 on the compute type's streams, then on int8 streams
+                # (the _q8 instances; in bf16 the staged ones), quantized
+                # as a serving chunk quantizes them
+                mem_q, mtb_q, _ = fd.chunk_operands(bundle_q8, memory, mtb,
+                                                    mask)
+                for k1, bnd, mm, mt in (("K1", bundle, memory, mtb),
+                                        ("K1 q8", bundle_q8, mem_q, mtb_q)):
+                    fd.reset_launch_counts()
+                    if cfg.family:
+                        tp = tp0[:, None] if cfg.agent else None
+                        got = fd.fwd_attention(h_att, state, tp, mm, mt,
+                                               mask_add, x, bnd)
+                        ref_k = fd.fwd_attention_plain(h_att, state, tp, mm,
+                                                       mt, mask_add, x, bnd)
+                        w_k, w_p, slack = got[1], ref_k[1], 0.0
+                    else:
+                        got = fd.lsa_attention(h_att, state, mm, mt,
+                                               mask_add, bnd)
+                        ref_k = fd.lsa_attention_plain(h_att, state, mm, mt,
+                                                       mask_add, bnd)
+                        # the weights read back as cum' - cum: in float32
+                        # each side's cum + w carries its own rounding, one
+                        # ulp of the largest cum', which past T = 2,304
+                        # exceeds LONG_W_F32_TOL of a row's largest weight
+                        # (as tests/test_torch_gpu.py::_cum_slack); taken
+                        # out of the reading there
+                        w_k, w_p = got[1] - state, ref_k[1] - state
+                        slack = (torch.finfo(torch.float32).eps
+                                 * float(ref_k[1].abs().max())
+                                 if f32 and t > 2304 else 0.0)
+                    name = fd.instance("fwd_attention" if cfg.family
+                                       else "lsa_attention", dtype,
+                                       bnd.q_streams)
+                    if fd.LAUNCHES[name] != 1:
+                        fail(f"{tag}: {name} launched {fd.LAUNCHES[name]} "
+                             f"times for one call")
+                    worst[f"{k1} ctx"] = check(f"{k1} ctx", got[0],
+                                               ref_k[0], f32)
+                    worst[f"{k1} w"] = check(f"{k1} w", w_k, w_p, f32,
+                                             rows=True, slack=slack)
                 top = max(worst, key=worst.get)
+                plan = ftd.att_bwd_plan(t, a, mem, cfg.family, dtype)
+                layout = (f"sub-tiles of {plan.sub}" if plan.sub
+                          else "single tile")
                 say(f"[train:long] {tag} B={b}: train_attention, att_bwd "
-                    f"and K1's attention vs plain, {len(worst)} outputs, "
-                    f"each within its bound; the worst {top} "
-                    f"{worst[top]:.3g}")
-                if kind == "location_sensitive":
-                    times[(dtype_label(dtype), t)] = (
-                        device_ms(lambda: forward(ftd.train_attention),
-                                  ours_only=True),
-                        device_ms(lambda: backward(ftd.att_bwd),
-                                  ours_only=True))
-    say("[train:long] device time (torch.profiler, B=8, location-sensitive)"
-        " of train_attention / att_bwd: " + "; ".join(
-            f"{d} T={t} {f:.4f} / {g:.4f} ms"
-            for (d, t), (f, g) in times.items()))
-    hp = flagship(32, 16)
-    phase_train_vs_cpu(hp, sd_by_kind["location_sensitive"], t_len=LONG_T[0])
+                    f"({plan.cluster} CTAs of {plan.tile}, {layout}) and "
+                    f"K1's attention (also on int8 streams) vs plain, "
+                    f"{len(worst)} outputs, each within its bound; the worst "
+                    f"{top} {worst[top]:.3g}")
+                # the device times: location-sensitive at every length,
+                # the family's att_bwd past T = 1,500
+                if cfg.family and t <= 1500:
+                    continue
+                n_bytes, ops_n, *mm_ops = train_work(cfg, b, t)[
+                    "att_bwd_fwd" if cfg.family else "att_bwd"]
+                b_ms, b_by, _ = row_bound("att_bwd", n_bytes, ops_n,
+                                          "f32" if f32 else "bf16", *mm_ops)
+                times.setdefault((label, dtype_label(dtype)), []).append(
+                    (t, None if cfg.family else device_ms(
+                        lambda: forward(ftd.train_attention), ours_only=True),
+                     device_ms(lambda: backward(ftd.att_bwd),
+                               ours_only=True), b_ms, b_by, layout))
+    for (label, d), rows in times.items():
+        what = "att_bwd" if label in FAMILY.values() else (
+            "train_attention / att_bwd")
+        say(f"[train:long] {label} {d} device time (torch.profiler, B={b}) "
+            f"of {what}, att_bwd's bound: " + "; ".join(
+                f"T={t} " + ("" if f is None else f"{f:.4f} / ")
+                + f"{g:.4f} ms, bound {bm:.5f} ms ({by}; {layout})"
+                for t, f, g, bm, by, layout in rows)
+            + f" ({card_label()})")
+    hp, sd = flagship(32, 16), sd_by_kind["location_sensitive"]
+    phase_train_vs_cpu(hp, sd, t_len=LONG_T[0])
+    b, t, f = LONG_STEP
+    phase_train_vs_cpu(hp, sd, t_len=t, b=b)
+    phase_train_f32_vs_cpu(flagship(32, 16, **F32), sd, b=b, t_len=t,
+                           frames=f, unguarded_too=False)
 
 
 def train_work(cfg, b, t_len):
@@ -3927,7 +4007,7 @@ def phase_train_f32_and_long(sd) -> list:
                                         main_f, frames=F32_FAMILY_FRAMES)
             del main_f, inputs_f
     # texts over 512 symbols: all three attention kernels, both compute
-    # types, and a train step at T=600
+    # types, a train step at T=600, and the flagship's steps at T=4,096
     with phase("train:long"):
         phase_train_long(sd_kind)
     return rows

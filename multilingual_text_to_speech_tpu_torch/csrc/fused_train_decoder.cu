@@ -1446,11 +1446,24 @@ __global__ void bwd_cell_kernel(const float* __restrict__ dh_tot, int B,
 // compiler's choice (64 registers).
 // Bound as the bf16 instance's: bytes (5.7 us at B=50, T=128).
 //
-// Long texts: the tile grows with T (att_bwd_tiles); every per-position row
-// lives in shared memory (about 410 bytes a position in bf16 and 650 in
-// float32 at A = 128, location-sensitive), which bounds T at about 3,900
-// (bf16) and 2,304 (float32: a tile of 288 positions) at the flagship's
-// widths; the launcher refuses a tile that does not fit.
+// Long texts: the tile grows with T (att_bwd_tiles); in the single tile's
+// layout every per-position row lives in shared memory (about 410 bytes a
+// position in bf16 and 650 in float32 at A = 128, location-sensitive; 284
+// and 540 in the forward family, its tanh terms), which holds T up to
+// about 3,900 (bf16) and 2,304 (float32: a tile of 288 positions), and
+// 6,200 and 3,200 in the family, at the flagship's widths.  Past that the
+// planner (ops/fused_train_decoder.py::att_bwd_plan) picks the sub-tiled
+// layout (AbLayout sub > 0, att_bwd_sub_kernel): the location-sensitive
+// passes walk the tile in sub-tiles of 64 positions (att_bwd_ls_sub), and
+// the family's dz pass recomputes its tanh terms from mtb instead of
+// keeping them (one more read of mtb, B*T*A elements, where a scratch in
+// device memory would move them twice, written and read), so that what
+// stays in shared memory grows by 14 bytes a position in bf16 and 20 in
+// float32 (location-sensitive; the family 28): T = 8,192's tiles of 1,024
+// take 69 KB in bf16 and 115 KB in float32 at the flagship's widths (the
+// family 37 KB).  The single tile's shapes
+// run the single tile's code, unchanged; the launcher refuses a layout
+// that does not fit.
 // ---------------------------------------------------------------------------
 constexpr int AB_THREADS = 256, AB_WARPS = AB_THREADS / 32;
 // the forward family's dz pass: positions a thread loads at once
@@ -1492,36 +1505,49 @@ struct AbFam {
 // and lo tiles and dz's, swizzled rows of ld = A words (band_swz); dlc's
 // partial takes lc's hi rows once P has read them, w P's rows until P is
 // written, and cum is kept as its TF32 halves: per position the bytes of
-// the FFMA design that it replaced
+// the FFMA design that it replaced.
+//
+// `sub` > 0 is the sub-tiled layout of long texts, where the single tile's
+// rows do not fit (ops/fused_train_decoder.py::att_bwd_plan): dz's and P's
+// rows for `sub` positions only, dlc's partial in its own [32][A] floats,
+// w in its own row, and the cum cotangent's sums over the tile with
+// BAND_K positions each side (acc, at fam); the forward family keeps no
+// tanh terms (tz empty: the dz pass recomputes them from mtb).  sub = 0
+// gives the single tile's offsets, unchanged.
 struct AbLayout {
   int ld;
   size_t lc, dz, p, dlcp, q, v, dvp, dqp, w, de, dctx, cum, cum_lo, red, s1,
       fam, tz, gdv, gdq, total;
-  __host__ __device__ AbLayout(int tile, int A, int Mem, bool family, int es) {
+  __host__ __device__ AbLayout(int tile, int A, int Mem, bool family, int es,
+                               int sub = 0) {
     const bool tf32 = es == 4 && !family;
+    // the single tile's float32 band layout, with its aliased rows
+    const bool alias = tf32 && sub == 0;
+    const int rows = sub > 0 ? sub : tile;   // dz's and P's rows
     ld = tf32 ? A : A + 8;
     lc = 0;
     dz = lc + (family ? 0 : align16((size_t)(tf32 ? 2 : 1) * BAND_K * ld * es));
-    p = dz + (family ? 0 : align16((size_t)tile * ld * es));
-    dlcp = tf32 ? lc : p + (family ? 0 : align16((size_t)tile * BAND_K * 4));
-    q = tf32 ? p + align16((size_t)tile * BAND_K * 4)
-             : dlcp + (family ? 0 : align16((size_t)BAND_K * A * 4));
+    p = dz + (family ? 0 : align16((size_t)rows * ld * es));
+    dlcp = alias ? lc : p + (family ? 0 : align16((size_t)rows * BAND_K * 4));
+    q = alias ? p + align16((size_t)tile * BAND_K * 4)
+              : dlcp + (family ? 0 : align16((size_t)BAND_K * A * 4));
     v = q + align16((size_t)A * 4);
     dvp = v + align16((size_t)A * 4);
     dqp = dvp + align16((size_t)A * 4);
-    w = tf32 ? p : dqp + align16((size_t)A * 4);
-    de = tf32 ? dqp + align16((size_t)A * 4) : w + align16((size_t)tile * 4);
+    w = alias ? p : dqp + align16((size_t)A * 4);
+    de = alias ? dqp + align16((size_t)A * 4) : w + align16((size_t)tile * 4);
     dctx = de + align16((size_t)tile * 4);
     cum = dctx + align16((size_t)Mem * 4);
     cum_lo = cum + (family ? 0 : align16((size_t)(tile + BAND_K) * es));
     red = cum_lo + (tf32 ? align16((size_t)(tile + BAND_K) * 4) : 0);
     s1 = red + 32 * 4;
     fam = s1 + 32;
-    tz = fam + (family ? align16((size_t)5 * tile * 4) : 0);
+    tz = fam + (family ? align16((size_t)5 * tile * 4)
+                : sub > 0 ? align16((size_t)(tile + 2 * BAND_K) * 4) : 0);
     // groups x A <= max(2 x AB_THREADS, A) floats
     const size_t gp = family ? align16(
         (size_t)(A > 2 * AB_THREADS ? A : 2 * AB_THREADS) * 4) : 0;
-    gdv = tz + (family ? align16((size_t)tile * A * es) : 0);
+    gdv = tz + (family && sub == 0 ? align16((size_t)tile * A * es) : 0);
     gdq = gdv + gp;
     total = gdq + gp;
   }
@@ -1537,17 +1563,253 @@ struct AbLayout {
       float *__restrict__ dmt, float *__restrict__ dlc,                   \
       float *__restrict__ dv, CT *__restrict__ dq_out,                    \
       CT *__restrict__ dctx_out, int T, int A, int Mem, int K, int tile,  \
-      int cl, AbFam fa
+      int cl, int sub, AbFam fa
 #define AB_ARGS                                                            \
   q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc, dv,     \
-      dq_out, dctx_out, T, A, Mem, K, tile, cl, fa
+      dq_out, dctx_out, T, A, Mem, K, tile, cl, sub, fa
 
-template <int KIND, class CT>
+// att_bwd's location-sensitive passes in the sub-tiled layout (AbLayout
+// sub > 0, texts whose single tile does not fit): the CTA walks its tile in
+// sub-tiles of `sub` positions (whole mma tiles), each through the single
+// tile's three passes on its own rows: dz over (position, channel) with
+// the dmt update and the dv and dq partials in the band product's
+// epilogue, dlc's partial band(cum)^T @ dz and P = dz @ lc^T.  The dv, dq
+// and dlc partials are added into the CTA's sums (s_dvp, s_dqp, s_dlcp) in
+// sub-tile order, and P's diagonals into the cum cotangent's sums s_acc
+// [BAND_K + i] for the positions i they reach, from -half (the left
+// neighbour's last ones) to tile + K - 2 - half (the right neighbour's
+// first ones).  After the cluster barrier each own position adds its left
+// and right neighbours' edge sums, in that order, into dcum.  cum stays
+// staged for the whole tile (s_cum; in float32 with its TF32 lo halves,
+// lc split once), as in the single tile.  No float atomics, sums in a
+// fixed order: a run repeats bit for bit.  The passes repeat the single
+// tile's code rather than share it: one routine for both raised the
+// float32 single tile's spills (held to 64 registers) from 48 to 156 bytes
+// of loads and its time at T = 128 by 4.6 % (PERF.md).
+template <class CT>
+__device__ void att_bwd_ls_sub(
+    const CT* s_lc, CT* s_dz, float* s_p, float* s_dlcp, const float* s_q,
+    const float* s_v, float* s_dvp, float* s_dqp, const float* s_de,
+    const CT* s_cum, const float* s_cum_lo, float* s_acc,
+    const CT* __restrict__ mtb, float* __restrict__ dmt,
+    float* __restrict__ dcum, size_t rowT, int t_lo, int rows, int tile,
+    int T, int A, int K, int ld, int sub, int rank, int cl) {
+  constexpr bool F32 = std::is_same<CT, float>::value;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int half = (K - 1) / 2;
+  for (int i = tid; i < BAND_K * A; i += AB_THREADS) s_dlcp[i] = 0.0f;
+  for (int a = tid; a < A; a += AB_THREADS) s_dvp[a] = s_dqp[a] = 0.0f;
+  for (int i = tid; i < tile + 2 * BAND_K; i += AB_THREADS) s_acc[i] = 0.0f;
+  __syncthreads();
+  for (int s0 = 0; s0 < rows; s0 += sub) {
+    const int n = min(sub, tile - s0), mtiles = n / 16, mt0 = s0 / 16;
+    // dz over the sub-tile's (position, channel): loc = band(cum) @ lc, a
+    // warp per 8 channels down the sub-tile
+    for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+      const int a = n0 + 2 * qd;
+      const float q0 = s_q[a], q1 = s_q[a + 1], v0 = s_v[a],
+                  v1 = s_v[a + 1];
+      uint32_t bh[4][2], bl[4][2];
+      if constexpr (F32) {
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          band_frag_kn(bh[ks], s_lc, A, 8 * ks, n0, lane);
+          band_frag_kn(bl[ks], s_lc + BAND_K * A, A, 8 * ks, n0, lane);
+        }
+      }
+      float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
+      for (int mt = 0; mt < mtiles; ++mt) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if constexpr (F32) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            uint32_t ah[4], al[4];
+            band_frag_tf32(ah, s_cum + (mt0 + mt) * 16 + 8 * ks, lane);
+            band_frag_tf32(al, s_cum_lo + (mt0 + mt) * 16 + 8 * ks, lane);
+            mma_tf32x3(acc, ah, al, bh[ks], bl[ks]);
+          }
+        } else {
+          uint32_t af[2][4];
+          band_frags(af, s_cum + (mt0 + mt) * 16, lane);
+          band_loc(acc, af, s_lc, ld, n0, lane);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g + 8 * h, i = s0 + r, t = t_lo + i;
+          float dz0 = 0.0f, dz1 = 0.0f;
+          if (t < T) {
+            const size_t o = (rowT + t) * A + a;
+            float m0, m1;
+            if constexpr (F32) {
+              const float2 m2 = *reinterpret_cast<const float2*>(mtb + o);
+              m0 = m2.x;
+              m1 = m2.y;
+            } else {
+              const __nv_bfloat162 m2 =
+                  *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
+              m0 = __low2float(m2);
+              m1 = __high2float(m2);
+            }
+            const float tz0 = band_energy_tanh<CT>(acc[2 * h], q0, m0);
+            const float tz1 = band_energy_tanh<CT>(acc[2 * h + 1], q1, m1);
+            const float de = s_de[i];
+            dz0 = de * v0 * (1.0f - tz0 * tz0);
+            dz1 = de * v1 * (1.0f - tz1 * tz1);
+            float2* pm = reinterpret_cast<float2*>(dmt + o);
+            float2 old = *pm;
+            old.x += dz0;
+            old.y += dz1;
+            *pm = old;
+            pdv0 = fmaf(tz0, de, pdv0);
+            pdv1 = fmaf(tz1, de, pdv1);
+            pdq0 += dz0;
+            pdq1 += dz1;
+          }
+          if constexpr (F32)
+            *reinterpret_cast<float2*>(s_dz + band_swz(r, a, A)) =
+                make_float2(dz0, dz1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(s_dz + r * ld + a) =
+                __floats2bfloat162_rn(dz0, dz1);
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        pdv0 += __shfl_xor_sync(0xffffffffu, pdv0, off);
+        pdv1 += __shfl_xor_sync(0xffffffffu, pdv1, off);
+        pdq0 += __shfl_xor_sync(0xffffffffu, pdq0, off);
+        pdq1 += __shfl_xor_sync(0xffffffffu, pdq1, off);
+      }
+      if (g == 0) {
+        s_dvp[a] += pdv0;
+        s_dvp[a + 1] += pdv1;
+        s_dqp[a] += pdq0;
+        s_dqp[a + 1] += pdq1;
+      }
+    }
+    __syncthreads();
+    if constexpr (F32) {
+      const float* lc_lo = s_lc + BAND_K * A;
+      // P = dz @ lc^T, [n][32]: a warp per 16 positions x 8 taps over K =
+      // A, as the single tile's
+      for (int it = warp; it < mtiles * 4; it += AB_WARPS) {
+        const int m0 = (it >> 2) * 16, n0 = (it & 3) * 8;
+        float acc[2][4] = {};
+        for (int kk = 0; kk < A; kk += 16) {
+          uint32_t bh[4], bl[4];
+          const int lc_at = band_swz(n0 + (lane & 7), kk + (lane >> 3) * 4, A);
+          ldsm_x4(bh, s_lc + lc_at);
+          ldsm_x4(bl, lc_lo + lc_at);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t ah[4], al[4];
+            ldsm_x4(ah, s_dz + band_swz(m0 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8,
+                                        kk + 8 * h + (lane >> 4) * 4, A));
+            tf32_split<4>(ah, al, ah);
+            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 * h);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s_p[(m0 + g + 8 * (e >> 1)) * BAND_K + n0 + 2 * qd + (e & 1)] =
+              acc[0][e] + acc[1][e];
+      }
+      // dlc's partial band(cum)^T @ dz, a warp per 8 channels, each 16-row
+      // tile's passes summed apart, added into s_dlcp
+      for (int n0 = warp * 8; n0 < A; n0 += AB_WARPS * 8) {
+        float acc[2][4] = {};
+        for (int mt = 0; mt < mtiles; ++mt) {
+          float st[2][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int k0 = mt * 16 + 8 * ks;
+            uint32_t bh[2], bl[2];
+            band_frag_kn(bh, s_dz, A, k0, n0, lane);
+            tf32_split<2>(bh, bl, bh);
+#pragma unroll
+            for (int kh = 0; kh < 2; ++kh) {
+              uint32_t ah[4], al[4];
+              band_frag_tf32(ah, s_cum + s0 + k0 + 16 * kh, lane);
+              band_frag_tf32(al, s_cum_lo + s0 + k0 + 16 * kh, lane);
+              mma_tf32x3(st[kh], ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[kh][e] += st[kh][e];
+        }
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + 2 * qd + (e & 1)] +=
+                acc[kh][e];
+      }
+    } else {
+      // dlc's partial band(cum)^T @ bf16(dz), a warp per 16 channels, both
+      // halves of the 32 taps, added into s_dlcp
+      for (int n0 = warp * 16; n0 < A; n0 += AB_WARPS * 16) {
+        float acc[2][2][4] = {};
+        for (int mt = 0; mt < mtiles; ++mt)
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh)
+            band_dlc(acc[kh], s_cum + s0 + mt * 16 + kh * 16,
+                     s_dz + mt * 16 * ld, ld, n0, lane);
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s_dlcp[(kh * 16 + g + 8 * (e >> 1)) * A + n0 + nt * 8 + 2 * qd +
+                     (e & 1)] += acc[kh][nt][e];
+      }
+      // P = bf16(dz) @ lc^T, [n][32]: a warp per 16 positions x 16 taps
+      for (int it = warp; it < mtiles * 2; it += AB_WARPS) {
+        const int mt = it >> 1, kh = it & 1;
+        float acc[2][4] = {};
+        band_p(acc, s_dz + mt * 16 * ld, s_lc, ld, kh * 16, A, lane);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s_p[(mt * 16 + g + 8 * (e >> 1)) * BAND_K + kh * 16 + nt * 8 +
+                2 * qd + (e & 1)] = acc[nt][e];
+      }
+    }
+    __syncthreads();
+    // P's diagonals: row r = i - k + half of the sub-tile reaches position
+    // i at tap k, a warp a position, a lane a tap
+    for (int i = s0 - half + warp; i <= s0 + n + K - 2 - half;
+         i += AB_WARPS) {
+      const int r = i - lane + half - s0;
+      float part = lane < K && r >= 0 && r < n ? s_p[r * BAND_K + lane] : 0.0f;
+      part = warp_sum(part);
+      if (lane == 0) s_acc[BAND_K + i] += part;
+    }
+    __syncthreads();
+  }
+  cluster_sync();
+  // each own position's sum, then the left and right neighbours' edges
+  for (int i = tid; i < rows; i += AB_THREADS) {
+    float part = s_acc[BAND_K + i];
+    if (rank > 0 && i < BAND_K)
+      part += cluster_peer(s_acc, rank - 1)[BAND_K + tile + i];
+    if (rank + 1 < cl && i >= tile - BAND_K)
+      part += cluster_peer(s_acc, rank + 1)[BAND_K + i - tile];
+    dcum[rowT + t_lo + i] += part;
+  }
+}
+
+template <int KIND, class CT, bool SUB = false>
 __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
   constexpr bool F32 = std::is_same<CT, float>::value;
   constexpr int V = 16 / sizeof(CT);   // elements a 16-byte chunk
   extern __shared__ __align__(16) uint8_t ab_smem[];
-  const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT));
+  const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT), SUB ? sub : 0);
   const int ld = L.ld;
   CT* s_lc = reinterpret_cast<CT*>(ab_smem + L.lc);            // [32][ld]
   CT* s_dz = reinterpret_cast<CT*>(ab_smem + L.dz);            // [tile][ld]
@@ -1662,7 +1924,7 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
           for (int a = lane; a < A; a += 32) {
             const float tz = fwd_energy_tanh<CT>(s_q[a],
                                                  mtb[(rowT + t) * A + a]);
-            s_tz[i * A + a] = tz;
+            if constexpr (!SUB) s_tz[i * A + a] = tz;
             e = fmaf(s_v[a], tz, e);
           }
         } else {
@@ -1671,8 +1933,9 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
                 mtb + (rowT + t) * A + a);
             const float tz0 = fwd_energy_tanh(s_q[a], __low2float(m2));
             const float tz1 = fwd_energy_tanh(s_q[a + 1], __high2float(m2));
-            *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
-                __floats2bfloat162_rn(tz0, tz1);
+            if constexpr (!SUB)
+              *reinterpret_cast<__nv_bfloat162*>(s_tz + i * A + a) =
+                  __floats2bfloat162_rn(tz0, tz1);
             e = fmaf(s_v[a], tz0, e);
             e = fmaf(s_v[a + 1], tz1, e);
           }
@@ -1782,18 +2045,31 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
       const float v0 = s_v[a], v1 = s_v[a + 1];
       float pdv0 = 0.0f, pdv1 = 0.0f, pdq0 = 0.0f, pdq1 = 0.0f;
       for (int i0 = i_lo; i0 < i_hi; i0 += AB_DZ_BATCH) {
-        float2 m[AB_DZ_BATCH];
+        float2 m[AB_DZ_BATCH], mt[AB_DZ_BATCH];
 #pragma unroll
         for (int j = 0; j < AB_DZ_BATCH; ++j)
-          if (i0 + j < i_hi)
-            m[j] = *reinterpret_cast<const float2*>(
-                dmt + (rowT + t_lo + i0 + j) * A + a);
+          if (i0 + j < i_hi) {
+            const size_t o = (rowT + t_lo + i0 + j) * A + a;
+            m[j] = *reinterpret_cast<const float2*>(dmt + o);
+            // the sub-tiled layout keeps no tanh terms: mtb's pair, for
+            // the dw pass's op sequence again (the same values)
+            if constexpr (SUB && F32) {
+              mt[j] = make_float2(mtb[o], mtb[o + 1]);
+            } else if constexpr (SUB) {
+              const __nv_bfloat162 m2 =
+                  *reinterpret_cast<const __nv_bfloat162*>(mtb + o);
+              mt[j] = make_float2(__low2float(m2), __high2float(m2));
+            }
+          }
 #pragma unroll
         for (int j = 0; j < AB_DZ_BATCH; ++j) {
           const int i = i0 + j;
           if (i >= i_hi) continue;
           float tz0, tz1;
-          if constexpr (F32) {
+          if constexpr (SUB) {
+            tz0 = fwd_energy_tanh<CT>(s_q[a], mt[j].x);
+            tz1 = fwd_energy_tanh<CT>(s_q[a + 1], mt[j].y);
+          } else if constexpr (F32) {
             const float2 z = *reinterpret_cast<const float2*>(s_tz + i * A + a);
             tz0 = z.x;
             tz1 = z.y;
@@ -1850,7 +2126,14 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
     for (int i = tid; i < tile; i += AB_THREADS)
       s_de[i] = s_w[i] * (s_de[i] - s1);
     __syncthreads();
-    if constexpr (F32) {
+    if constexpr (SUB) {
+      // ends after its cluster barrier, the cum cotangent written
+      att_bwd_ls_sub<CT>(s_lc, s_dz, s_p, s_dlcp, s_q, s_v, s_dvp, s_dqp,
+                         s_de, s_cum, s_cum_lo,
+                         reinterpret_cast<float*>(ab_smem + L.fam), mtb, dmt,
+                         dcum, rowT, t_lo, rows, tile, T, A, K, ld, sub, rank,
+                         cl);
+    } else if constexpr (F32) {
       const float* lc_lo = s_lc + BAND_K * A;
       const int mtiles = tile / 16;
       // dz over (position, channel): loc = band(cum) @ lc in three TF32
@@ -2069,20 +2352,21 @@ __device__ __forceinline__ void att_bwd_body(AB_PARAMS) {
                 2 * qd + (e & 1)] = acc[nt][e];
       }
     }
-    cluster_sync();
-
-    // the cum cotangent of each own position: a diagonal of P, halo rows
-    // from the neighbours, a lane per tap
-    for (int i = warp; i < tile && t_lo + i < T; i += AB_WARPS) {
-      const int t = t_lo + i;
-      float part = 0.0f;
-      const int t2 = t - lane + half;
-      if (lane < K && t2 >= 0 && t2 < T) {
-        const int r = t2 / tile;
-        part = cluster_peer(s_p, r)[(t2 - r * tile) * BAND_K + lane];
+    if constexpr (!SUB) {
+      cluster_sync();
+      // the cum cotangent of each own position: a diagonal of P, halo rows
+      // from the neighbours, a lane per tap
+      for (int i = warp; i < tile && t_lo + i < T; i += AB_WARPS) {
+        const int t = t_lo + i;
+        float part = 0.0f;
+        const int t2 = t - lane + half;
+        if (lane < K && t2 >= 0 && t2 < T) {
+          const int r = t2 / tile;
+          part = cluster_peer(s_p, r)[(t2 - r * tile) * BAND_K + lane];
+        }
+        part = warp_sum(part);
+        if (lane == 0) dcum[rowT + t] += part;
       }
-      part = warp_sum(part);
-      if (lane == 0) dcum[rowT + t] += part;
     }
     // this CTA's share of the row's dlc, partials in rank order
     for (int idx = rank * AB_THREADS + tid; idx < K * A;
@@ -2129,6 +2413,13 @@ constexpr auto att_bwd_entry() {
     return att_bwd_family_kernel<KIND, CT>;
 }
 
+// the sub-tiled layout's instances (long texts: AbLayout sub > 0), one CTA
+// or two an SM at the tiles they run, the compiler's choice of registers
+template <int KIND, class CT>
+__global__ void __launch_bounds__(AB_THREADS) att_bwd_sub_kernel(AB_PARAMS) {
+  att_bwd_body<KIND, CT, true>(AB_ARGS);
+}
+
 // the float32 band products' instance held to 64 registers, four CTAs an
 // SM (80 and three without the bound)
 template <>
@@ -2148,7 +2439,7 @@ __global__ void __launch_bounds__(AB_THREADS, 4)
                                   float* __restrict__ dv,
                                   float* __restrict__ dq_out,
                                   float* __restrict__ dctx_out, int T, int A,
-                                  int Mem, int K, int tile, int cl,
+                                  int Mem, int K, int tile, int cl, int sub,
                                   AbFam fa) {
   att_bwd_body<ATT_LS, float>(AB_ARGS);
 }
@@ -2468,7 +2759,8 @@ int bwd_head_run(const void* dspec, const void* dstop, const void* dframe,
   return (int)cudaGetLastError();
 }
 
-// the launch of att_bwd_kernel<KIND, CT> over B rows; a tile whose rows do
+// the launch of att_bwd's instance <KIND, CT> over B rows, in the single
+// tile's layout (sub 0) or the sub-tiled one (sub > 0); a layout that does
 // not fit a CTA's shared memory is refused
 template <int KIND, class CT>
 int att_bwd_run(const void* q, const void* cum_s, const void* w_s,
@@ -2476,16 +2768,17 @@ int att_bwd_run(const void* q, const void* cum_s, const void* w_s,
                 const void* v, const void* dctx, const void* dw_out,
                 void* dcum, void* dmt, void* dlc, void* dv, void* dq_out,
                 void* dctx_out, int B, int T, int A, int Mem, int K, int tile,
-                int cl, const AbFam& fa, void* stream) {
-  const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT));
+                int cl, int sub, const AbFam& fa, void* stream) {
+  const AbLayout L(tile, A, Mem, KIND != ATT_LS, sizeof(CT), sub);
   if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
   return (int)launch_cluster(
-      att_bwd_entry<KIND, CT>(), B * cl, AB_THREADS, L.total, cl,
-      (cudaStream_t)stream, (const float*)q, (const CT*)cum_s,
-      (const float*)w_s, (const CT*)memory, (const CT*)mtb, (const CT*)lc,
-      (const float*)v, (const float*)dctx, (const float*)dw_out, (float*)dcum,
-      (float*)dmt, (float*)dlc, (float*)dv, (CT*)dq_out, (CT*)dctx_out, T, A,
-      Mem, K, tile, cl, fa);
+      sub > 0 ? &att_bwd_sub_kernel<KIND, CT> : att_bwd_entry<KIND, CT>(),
+      B * cl, AB_THREADS, L.total, cl, (cudaStream_t)stream, (const float*)q,
+      (const CT*)cum_s, (const float*)w_s, (const CT*)memory, (const CT*)mtb,
+      (const CT*)lc, (const float*)v, (const float*)dctx,
+      (const float*)dw_out, (float*)dcum, (float*)dmt, (float*)dlc,
+      (float*)dv, (CT*)dq_out, (CT*)dctx_out, T, A, Mem, K, tile, cl, sub,
+      fa);
 }
 
 }  // namespace
@@ -2717,24 +3010,39 @@ int bwd_gemm_cell_launch(const void* a, int lda, const void* b, int ldb,
                         0, stream);
 }
 
+// the bytes of shared memory of att_bwd's layout at a tile of `tile`
+// positions (AbLayout; sub 0: the single tile, sub > 0: sub-tiles of that
+// many positions), for the forward family (family = 1) or the
+// location-sensitive kind, float32 (f32 = 1) or bf16 compute: the Python
+// planner's mirror (ops/fused_train_decoder.py::att_bwd_smem_bytes) is
+// held to it
+long long att_bwd_smem_bytes(int tile, int A, int Mem, int family, int f32,
+                             int sub) {
+  return (long long)AbLayout(tile, A, Mem, family != 0, f32 ? 4 : 2, sub)
+      .total;
+}
+
 // the row's positions in `cl` tiles of `tile` (a multiple of 16; cl <= 8,
-// the last tile not empty); A a multiple of 16, K <= 32 taps; mtb aligned
-// to two elements, dmt to two floats, and in float32 lc to 16 bytes
+// the last tile not empty), walked in sub-tiles of `sub` positions (a
+// multiple of 16) or whole (sub 0); A a multiple of 16, K <= 32 taps; mtb
+// aligned to two elements, dmt to two floats, and in float32 lc to 16
+// bytes
 int att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                    const void* memory, const void* mtb, const void* lc,
                    const void* v, const void* dctx, const void* dw_out,
                    void* dcum, void* dmt, void* dlc, void* dv, void* dq_out,
                    void* dctx_out, int B, int T, int A, int Mem, int K,
-                   int tile, int cl, int f32, void* stream) {
+                   int tile, int cl, int sub, int f32, void* stream) {
   if (B <= 0 || T <= 0 || A <= 0 || A % 16 != 0 || Mem <= 0 || K < 1 ||
       K > BAND_K || tile <= 0 || tile % 16 != 0 || cl < 1 || cl > 8 ||
       (long long)cl * tile < T || (long long)(cl - 1) * tile >= T ||
+      sub < 0 || sub % 16 != 0 ||
       (uintptr_t)mtb % (f32 ? 8 : 4) != 0 || (uintptr_t)dmt % 8 != 0 ||
       (f32 && (uintptr_t)lc % 16 != 0))
     return (int)cudaErrorInvalidValue;
   return (f32 ? att_bwd_run<ATT_LS, float> : att_bwd_run<ATT_LS, bf16>)(
       q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc, dv,
-      dq_out, dctx_out, B, T, A, Mem, K, tile, cl, AbFam{}, stream);
+      dq_out, dctx_out, B, T, A, Mem, K, tile, cl, sub, AbFam{}, stream);
 }
 
 // the forward family's attention backward: dcum [B, T] the state's
@@ -2752,11 +3060,12 @@ int fwd_att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                        void* dq_out, void* dctx_out, const void* tp_prev,
                        const void* tp, void* dtp, void* dlin, const void* w,
                        void* dh_att, void* dx, int B, int T, int A, int Mem,
-                       int H, int P, int tile, int cl, int trans, int f32,
-                       void* stream) {
+                       int H, int P, int tile, int cl, int sub, int trans,
+                       int f32, void* stream) {
   if (B <= 0 || T <= 0 || A <= 0 || A % 2 != 0 || Mem <= 0 || tile <= 0 ||
       tile % 16 != 0 || cl < 1 || cl > 8 || (long long)cl * tile < T ||
-      (long long)(cl - 1) * tile >= T || (uintptr_t)mtb % 4 != 0 ||
+      (long long)(cl - 1) * tile >= T || sub < 0 || sub % 16 != 0 ||
+      (uintptr_t)mtb % 4 != 0 ||
       (uintptr_t)dmt % 8 != 0 || mask_add == nullptr ||
       (trans && (tp_prev == nullptr || tp == nullptr || dtp == nullptr ||
                  dlin == nullptr || w == nullptr || dh_att == nullptr ||
@@ -2770,8 +3079,8 @@ int fwd_att_bwd_launch(const void* q, const void* cum_s, const void* w_s,
                    : (f32 ? att_bwd_run<ATT_FWD, float>
                           : att_bwd_run<ATT_FWD, bf16>);
   return run(q, cum_s, w_s, memory, mtb, nullptr, v, dctx, dw_out, dcum, dmt,
-             nullptr, dv, dq_out, dctx_out, B, T, A, Mem, 1, tile, cl, fa,
-             stream);
+             nullptr, dv, dq_out, dctx_out, B, T, A, Mem, 1, tile, cl, sub,
+             fa, stream);
 }
 
 // the columns of P and of the input frame in `cl` shares of np and n0

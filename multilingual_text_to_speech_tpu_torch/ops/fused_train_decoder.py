@@ -31,8 +31,9 @@ launches the kernels of ``csrc/fused_train_decoder.cu``:
   (the energy's query, recomputed),
   ``att_bwd`` (softmax, energy and location-conv backward, with the dmt,
   dlc and dv accumulators per batch row; a cluster of CTAs per batch row
-  over tiles of its positions, ``att_bwd_tiles``, the location conv's
-  three products on the tensor cores as band products) and
+  over tiles of its positions, ``att_bwd_tiles``, each tile whole or on
+  long texts in sub-tiles, ``att_bwd_plan``; the location conv's three
+  products on the tensor cores as band products) and
   ``bwd_prenet`` (one clustered launch over all rows, each CTA a column
   slice of every layer, ``prenet_split``, the products on the tensor
   cores); after the last step one ``bwd_gemm`` reduces dWq over all steps
@@ -824,8 +825,8 @@ _SIGNATURES = {
     "bwd_cell_launch": [_P, _I] + _CELL,
     "bwd_gemm_cell_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I]
                             + _CELL,
-    "att_bwd_launch": [_P] * 15 + [_I] * 7,
-    "fwd_att_bwd_launch": [_P] * 21 + [_I] * 9,
+    "att_bwd_launch": [_P] * 15 + [_I] * 8,
+    "fwd_att_bwd_launch": [_P] * 21 + [_I] * 10,
     "bwd_prenet_launch": [_P, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I,
                           _I, _F, _I, _I, _I],
 }
@@ -842,6 +843,9 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = argtypes + [_I, _P]
             fn.restype = ctypes.c_int
+        # att_bwd_smem_bytes' own count, which the mirror is held to
+        lib.att_bwd_smem_bytes.argtypes = [_I] * 6
+        lib.att_bwd_smem_bytes.restype = _L
         _LIB = lib
     return _LIB
 
@@ -1117,6 +1121,12 @@ def bwd_gemm(a, b, b_kn: bool, segments, a_km: bool = False, scratch=None,
 # most this many CTAs (the portable cluster size), in tiles of whole
 # 16-row mma tiles
 _ATT_CLUSTER_MAX, _ATT_TILE_ROWS = 8, 16
+# the shared memory a CTA may opt in to on the H100
+# (csrc/fused_train_decoder.cu SMEM_MAX), att_bwd's threads a CTA
+# (AB_THREADS), the band product's taps (csrc/tile.cuh BAND_K) and the
+# positions a sub-tile of att_bwd's sub-tiled layout
+SMEM_MAX = 227 * 1024
+_AB_THREADS, _BAND_K, _AB_SUB = 256, 32, 64
 
 
 def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
@@ -1124,10 +1134,8 @@ def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
     ``t_len``: the fewest 16-row mma tiles a CTA such that at most 8 CTAs
     cover T, and as many CTAs as the tiles need (none empty).  T=128 gives
     8 CTAs of 16 positions; T=200, 7 of 32; T=512, 8 of 64; T=1500, 8 of
-    192.  A tile's per-position rows live in its CTA's shared memory, which
-    holds ``att_bwd``'s up to about T = 3,900 in bf16 and T = 2,304 (tiles
-    of 288) in float32 at the flagship's widths
-    (``csrc/fused_train_decoder.cu``); past that the launch is refused."""
+    192; T=8,192, 8 of 1,024.  ``att_bwd_plan`` picks ``att_bwd``'s layout
+    of a tile."""
     if t_len < 1:
         raise ValueError(f"att_bwd needs T >= 1, got {t_len}")
     mma_tiles = _cdiv(t_len, _ATT_TILE_ROWS)
@@ -1135,24 +1143,101 @@ def att_bwd_tiles(t_len: int) -> Tuple[int, int]:
     return tile, _cdiv(t_len, tile)
 
 
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def att_bwd_smem_bytes(tile: int, a: int, mem_dim: int, family: bool,
+                       elem_bytes: int, sub: int = 0) -> int:
+    """The shared memory of an ``att_bwd`` CTA at a tile of ``tile``
+    positions: the mirror of ``csrc/fused_train_decoder.cu::AbLayout``'s
+    ``total`` (which the C side exports as ``att_bwd_smem_bytes``), for the
+    forward ``family`` or the location-sensitive kind, compute-type
+    elements of ``elem_bytes``; ``sub`` 0 the single tile's layout, > 0 the
+    sub-tiled one."""
+    tf32 = elem_bytes == 4 and not family
+    rows = sub if sub > 0 else tile
+    ld = a if tf32 else a + 8
+    n = 0 if family else (
+        _align16((2 if tf32 else 1) * _BAND_K * ld * elem_bytes)
+        + _align16(rows * ld * elem_bytes)            # lc, dz
+        + _align16(rows * _BAND_K * 4)                # P
+        + (0 if tf32 and sub == 0 else _align16(_BAND_K * a * 4)))  # dlc's
+    n += 4 * _align16(a * 4)                          # q, v, dv's, dq's
+    n += (0 if tf32 and sub == 0 else _align16(tile * 4))   # w
+    n += _align16(tile * 4) + _align16(mem_dim * 4)   # de, dctx
+    if not family:
+        n += _align16((tile + _BAND_K) * elem_bytes)  # cum
+        n += _align16((tile + _BAND_K) * 4) if tf32 else 0   # its lo halves
+    n += 32 * 4 + 32                                  # reductions, sums
+    if family:
+        n += _align16(5 * tile * 4)                   # the tile's rows
+        n += _align16(tile * a * elem_bytes) if sub == 0 else 0   # tanh
+        n += 2 * _align16(max(a, 2 * _AB_THREADS) * 4)   # dv's, dq's groups
+    elif sub > 0:
+        n += _align16((tile + 2 * _BAND_K) * 4)       # the cum cotangent's
+    return n
+
+
+class AttBwdPlan(NamedTuple):
+    """``att_bwd``'s launch at one T: ``cluster`` CTAs a batch row, each a
+    ``tile`` of positions; ``sub`` 0 keeps the tile's rows in shared memory
+    whole (the single tile's layout), ``sub`` > 0 walks it in sub-tiles of
+    that many positions (the sub-tiled layout of long texts)."""
+    tile: int
+    cluster: int
+    sub: int
+
+
+def att_bwd_plan(t_len: int, a: int, mem_dim: int, family: bool,
+                 dtype: torch.dtype, *, sub_tiled: bool = False
+                 ) -> AttBwdPlan:
+    """``att_bwd``'s plan at T = ``t_len`` (``att_bwd_tiles``): the single
+    tile's layout wherever it fits a CTA's shared memory (at the
+    flagship's widths, A = 128 and Mem = 292, up to T = 3,968 in bf16 and
+    2,304 in float32, location-sensitive; 6,272 and 3,328 in the forward
+    ``family``), the sub-tiled one of ``_AB_SUB`` positions past that, or
+    with ``sub_tiled`` at any T.  Raises where even the sub-tiled layout
+    does not fit (at A = 128 and the 548-wide memory past T = 54,912 in
+    float32, 101,120 in bf16, location-sensitive, and 63,872 in the
+    family)."""
+    tile, cluster = att_bwd_tiles(t_len)
+    es = torch.empty(0, dtype=dtype).element_size()
+    if not sub_tiled and att_bwd_smem_bytes(
+            tile, a, mem_dim, family, es) <= SMEM_MAX:
+        return AttBwdPlan(tile, cluster, 0)
+    sub = min(_AB_SUB, tile)
+    need = att_bwd_smem_bytes(tile, a, mem_dim, family, es, sub)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"att_bwd at T={t_len} (A={a}, Mem={mem_dim}, {dtype}): tiles of "
+            f"{tile} positions need {need} bytes of shared memory a CTA even "
+            f"in sub-tiles of {sub}, past the {SMEM_MAX} a CTA holds")
+    return AttBwdPlan(tile, cluster, sub)
+
+
 def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
-            dv, dq_out, dctx_out, fam: Optional[FamilyBwd] = None):
+            dv, dq_out, dctx_out, fam: Optional[FamilyBwd] = None, *,
+            sub_tiled: bool = False):
     """Kernel ``att_bwd``: adds into the per-row accumulators ``dmt`` [B, T,
     A], ``dlc`` [B, K, A], ``dv`` [B, A] and the cum cotangent ``dcum``;
     writes ``dq_out`` [B, A] and ``dctx_out`` [B, Mem] (compute type).  Each
-    batch
-    row is a cluster of CTAs over tiles of its positions
-    (``att_bwd_tiles``).  With ``fam`` it runs the forward family's variant
-    (``LAUNCHES["att_bwd_fwd"]``; ``lc`` and ``dlc`` None; ``dcum`` is the
-    state's cotangent and is replaced), with the transition agent's
-    backward in its prologue when ``fam.dtp`` is given."""
+    batch row is a cluster of CTAs over tiles of its positions, each tile
+    whole or, on long texts, in sub-tiles (``att_bwd_plan``; ``sub_tiled``
+    forces the sub-tiled layout, for the tests).  With ``fam`` it runs the
+    forward family's variant (``LAUNCHES["att_bwd_fwd"]``; ``lc`` and
+    ``dlc`` None; ``dcum`` is the state's cotangent and is replaced), with
+    the transition agent's backward in its prologue when ``fam.dtp`` is
+    given."""
     if not _is_cuda(q):
         return _att_bwd_plain_into(q, cum_s, w_s, memory, mtb, lc, v, dctx,
                                    dw_out, dcum, dmt, dlc, dv, dq_out,
                                    dctx_out, fam)
     d = _compute_type("att_bwd", memory, cum_s, mtb, lc, dq_out, dctx_out)
     b, t_len, mem_dim = memory.shape
-    tile, cluster = att_bwd_tiles(t_len)
+    tile, cluster, sub = att_bwd_plan(t_len, q.shape[1], mem_dim,
+                                      fam is not None, d,
+                                      sub_tiled=sub_tiled)
     if fam is not None:
         trans = fam.dtp is not None
         for t in (fam.mask_add, *((fam.tp_prev, fam.tp, fam.dtp, fam.dlin,
@@ -1167,13 +1252,14 @@ def att_bwd(q, cum_s, w_s, memory, mtb, lc, v, dctx, dw_out, dcum, dmt, dlc,
                 _ptr(fam.tp), _ptr(fam.dtp), _ptr(fam.dlin), _ptr(fam.w),
                 _ptr(fam.dh_att), _ptr(fam.dx), b, t_len, q.shape[1],
                 mem_dim, fam.dh_att.shape[1] if trans else 0,
-                fam.dx.shape[1] if trans else 0, tile, cluster, int(trans))
+                fam.dx.shape[1] if trans else 0, tile, cluster, sub,
+                int(trans))
         return
     _launch("att_bwd", "att_bwd_launch", d, _ptr(q), _ptr(cum_s), _ptr(w_s),
             _ptr(memory), _ptr(mtb), _ptr(lc), _ptr(v), _ptr(dctx),
             _ptr(dw_out), _ptr(dcum), _ptr(dmt), _ptr(dlc), _ptr(dv),
             _ptr(dq_out), _ptr(dctx_out), b, t_len, lc.shape[1], mem_dim,
-            lc.shape[0], tile, cluster)
+            lc.shape[0], tile, cluster, sub)
 
 
 def bwd_prenet(dx, pre_s, ops, cfg, teacher: int, da_out, dshift_out,

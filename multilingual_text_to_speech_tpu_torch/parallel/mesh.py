@@ -22,6 +22,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from multilingual_text_to_speech_tpu_torch.device import resolve_device
+
 # a hang in a collective raises after this long instead of blocking
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -95,8 +97,9 @@ def make_mesh(hp=None, *, world: Optional[int] = None,
     ``data * model`` must equal ``world``; ``hp.batch_size`` sets
     ``replicas``.  ``hp.parallelization = False``
     pins training to one device, as in JAX: a single process then, and a
-    raise where more were started.  ``device`` is this rank's (``cpu``
-    unless given)."""
+    raise where more were started.  ``device`` is this rank's: the card
+    unless given (``device.resolve_device``: ``None`` raises without one),
+    the CPU only for ``device="cpu"``."""
     group = None
     if dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
@@ -115,7 +118,7 @@ def make_mesh(hp=None, *, world: Optional[int] = None,
         data = world // model
     assert data * model == world, (
         f"mesh {data}x{model} does not match {world} processes")
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     backend = dist.get_backend(group) if group is not None else None
     batch = getattr(hp, "batch_size", 0) if hp is not None else 0
     replicas = model if batch % world and batch % data == 0 else 1

@@ -368,11 +368,16 @@ def _q8_operands(b, t, mem_dim, dtype, seed):
     return mem_q, mtb_q, mask, mask_add, gen
 
 
-@pytest.mark.parametrize("b", [1, 7, 37, 240])
-@pytest.mark.parametrize("mem_dim", [288, 292, 548])
-@pytest.mark.parametrize("t", [1, 7, 16, 17, 45, 120, 128, 129, 600, 1500])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kind", ["ls", "forward", "forward_transition_agent"])
+@pytest.mark.parametrize("kind,dtype,t,mem_dim,b", [
+    (kind, dtype, t, mem_dim, b)
+    for kind in ("ls", "forward", "forward_transition_agent")
+    for dtype in (torch.bfloat16, torch.float32)
+    for t in (1, 7, 16, 17, 45, 120, 128, 129, 600, 1500)
+    for mem_dim in (288, 292, 548) for b in (1, 7, 37, 240)] + [
+    (kind, dtype, t, mem_dim, b)
+    for kind in ("ls", "forward", "forward_transition_agent")
+    for dtype in (torch.bfloat16, torch.float32) for t in (4096, 8192)
+    for mem_dim in (292, 548) for b in (1, 8)])
 def test_attention_on_int8_streams_matches_plain(kind, dtype, t, mem_dim, b,
                                                  _full_f32):
     """``lsa_attention`` and ``fwd_attention`` (both kinds) on int8 memory
@@ -383,7 +388,8 @@ def test_attention_on_int8_streams_matches_plain(kind, dtype, t, mem_dim, b,
     548-wide memory (int8 rows of 292 and 548 bytes are not multiples of
     16: at T=1 and 7 a row's tiles start off a 16-byte boundary, their
     ragged heads and tails copied by the threads), B=1, 7, 37 and 240, T
-    from 1 to 1500 (T=1500 runs the rings' slots round several times): in
+    from 1 to 1500 (T=1500 runs the rings' slots round several times), and
+    long texts, T=4,096 and 8,192 at B=1 and 8 (memory 292 and 548): in
     float32 the context, weights and t_prob within F32_TOL of their
     largest (the location-sensitive weights, read back as cum' - cum, past
     T = 128 plus that subtraction's rounding, ``_cum_slack``); in bf16 the
@@ -2272,19 +2278,90 @@ def test_family_decode_and_training_run_the_kernels(kind):
 # all three attention kernels on long texts
 # ---------------------------------------------------------------------------
 
-# T = 2,304 (tiles of 288 positions) is the float32 att_bwd's limit at the
-# flagship's widths (ops/fused_train_decoder.py::att_bwd_tiles)
-@pytest.mark.parametrize("kind,dtype,t", [
-    (kind, dtype, t) for kind in ("location_sensitive", *_FAMILY)
+def _check_att_bwd_chain(att_bwd, kind, dtype, b, t, rnd, memory, mtb, mask,
+                         mask_add, cum0, lc, v, ta):
+    """Two chained ``att_bwd`` calls (the accumulators and carries passed
+    on) against its plain version on the same random inputs: float32
+    outputs within F32_TOL of their largest value, bf16 within its
+    chip_smoke bound; the instance launched twice."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    f32 = dtype == torch.float32
+    family = kind != "location_sensitive"
+    steps = []
+    for _ in range(2):
+        if family:
+            w_s, tp = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
+            prev, tp_prev = _fwd_state(b, t, mask,
+                                       seed=int(rnd(1).abs() * 1e4))
+            cum_s, tps = prev.to(dtype), (tp_prev[:, 0], tp[:, 0])
+        else:
+            e = torch.where(mask, rnd(b, t), torch.full_like(cum0, -1e9))
+            w_s = torch.softmax(e, -1)
+            cum_s, tps = (cum0 + 0.1 * rnd(b, t).abs()).to(dtype), None
+        steps.append((rnd(b, _ATT).to(dtype).float(), cum_s, w_s,
+                      rnd(b, _MEM), rnd(b, t, scale=0.1), tps))
+    dcum0, dtp0 = rnd(b, t, scale=0.1), rnd(b, scale=0.5)
+    dh0 = rnd(b, _HIDDEN, scale=0.1)
+
+    def backward(fn):
+        acc = [torch.zeros(b, t, _ATT, device="cuda"),
+               None if family else torch.zeros(b, _TAPS, _ATT, device="cuda"),
+               torch.zeros(b, _ATT, device="cuda"), dcum0.clone()]
+        extra = [dtp0.clone(), dh0.clone()] if ta is not None else []
+        outs = []
+        for q_s, cum_s, w_s, dctx, dw, tps in steps:
+            o = [torch.empty(b, _ATT, dtype=dtype, device="cuda"),
+                 torch.empty(b, _MEM, dtype=dtype, device="cuda")]
+            fam = None
+            if ta is not None:
+                o += [torch.empty(b, device="cuda"),
+                      torch.empty(b, 256, device="cuda")]
+                fam = ftd.FamilyBwd(mask_add, tps[0], tps[1], extra[0], o[2],
+                                    ta.w, extra[1], o[3])
+            elif family:
+                fam = ftd.FamilyBwd(mask_add)
+            fn(q_s, cum_s, w_s, memory, mtb, lc, v, dctx, dw, acc[3], acc[0],
+               acc[1], acc[2], o[0], o[1], fam=fam)
+            outs += o
+        return [a for a in acc if a is not None] + extra + outs
+
+    ftd.reset_launch_counts()
+    got, ref = backward(att_bwd), backward(ftd.PLAIN.att_bwd)
+    bwd = "att_bwd_fwd" if family else "att_bwd"
+    assert ftd.LAUNCHES[ftd.instance(bwd, dtype)] == 2, ftd.LAUNCHES
+    bound = TRAIN_KERNEL_TOL["att_bwd"]
+    for g, r in zip(got, ref):
+        if f32:
+            _f32_close(g, r)
+        else:
+            kind_ = "bf16" if r.dtype == torch.bfloat16 else "f32"
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= bound[kind_] * float(r.float().abs().max()), kind_
+
+
+# T = 2,304 (tiles of 288 positions) is the float32 att_bwd's single-tile
+# limit at the flagship's widths; 4,096 and 8,192 (tiles of 512 and 1,024)
+# run its sub-tiled layout in every instance
+# (ops/fused_train_decoder.py::att_bwd_plan)
+@pytest.mark.parametrize("kind,dtype,t,b", [
+    (kind, dtype, t, b) for kind in ("location_sensitive", *_FAMILY)
     for dtype in (torch.bfloat16, torch.float32) for t in (600, 1000, 1500)
-] + [("location_sensitive", torch.float32, 2304)])
-@pytest.mark.parametrize("b", [1, 3, 50, 240])
+    for b in (1, 3, 50, 240)
+] + [("location_sensitive", torch.float32, 2304, b)
+     for b in (1, 3, 50, 240)] + [
+    (kind, dtype, t, b) for kind in ("location_sensitive", *_FAMILY)
+    for dtype in (torch.bfloat16, torch.float32) for t in (4096, 8192)
+    for b in (1, 3, 8)])
 def test_attention_kernels_take_long_texts(kind, dtype, t, b, _full_f32):
     """T = 600, 1000 and 1500 symbols (tiles of 80, 128 and 192 positions,
-    past what a CTA's shared memory holds of the rows in float32), and in
-    float32 the 2,304 that the location-sensitive ``att_bwd`` takes at
-    most, at the flagship's widths, B = 1, 3, 50 and 240, each attention
-    kind and compute type: K2's
+    past what a CTA's shared memory holds of the rows in float32) at B = 1,
+    3, 50 and 240, in float32 the 2,304 that the location-sensitive
+    ``att_bwd``'s single tile takes at most, and 4,096 and 8,192 at B = 1,
+    3 and 8, at the flagship's widths, each attention kind and compute
+    type: K2's
     ``train_attention`` (one step with its streams: weights, new state,
     context, t_prob), K3's ``att_bwd`` (two chained calls) and K1's
     ``lsa_attention`` or ``fwd_attention`` against their plain versions on
@@ -2367,55 +2444,8 @@ def test_attention_kernels_take_long_texts(kind, dtype, t, b, _full_f32):
         assert torch.equal(row, ctx_k.to(dtype))
 
     # K3: two chained calls
-    steps = []
-    for _ in range(2):
-        if family:
-            w_s, tp = _fwd_state(b, t, mask, seed=int(rnd(1).abs() * 1e4))
-            prev, tp_prev = _fwd_state(b, t, mask,
-                                       seed=int(rnd(1).abs() * 1e4))
-            cum_s, tps = prev.to(dtype), (tp_prev[:, 0], tp[:, 0])
-        else:
-            e = torch.where(mask, rnd(b, t), torch.full_like(cum0, -1e9))
-            w_s = torch.softmax(e, -1)
-            cum_s, tps = (cum0 + 0.1 * rnd(b, t).abs()).to(dtype), None
-        steps.append((rnd(b, _ATT).to(dtype).float(), cum_s, w_s,
-                      rnd(b, _MEM), rnd(b, t, scale=0.1), tps))
-    dcum0, dtp0 = rnd(b, t, scale=0.1), rnd(b, scale=0.5)
-    dh0 = rnd(b, _HIDDEN, scale=0.1)
-
-    def backward(fn):
-        acc = [torch.zeros(b, t, _ATT, device="cuda"),
-               None if family else torch.zeros(b, _TAPS, _ATT, device="cuda"),
-               torch.zeros(b, _ATT, device="cuda"), dcum0.clone()]
-        extra = [dtp0.clone(), dh0.clone()] if ta is not None else []
-        outs = []
-        for q_s, cum_s, w_s, dctx, dw, tps in steps:
-            o = [torch.empty(b, _ATT, dtype=dtype, device="cuda"),
-                 torch.empty(b, _MEM, dtype=dtype, device="cuda")]
-            fam = None
-            if ta is not None:
-                o += [torch.empty(b, device="cuda"),
-                      torch.empty(b, 256, device="cuda")]
-                fam = ftd.FamilyBwd(mask_add, tps[0], tps[1], extra[0], o[2],
-                                    ta.w, extra[1], o[3])
-            elif family:
-                fam = ftd.FamilyBwd(mask_add)
-            fn(q_s, cum_s, w_s, memory, mtb, lc, v, dctx, dw, acc[3], acc[0],
-               acc[1], acc[2], o[0], o[1], fam=fam)
-            outs += o
-        return [a for a in acc if a is not None] + extra + outs
-
-    got, ref = backward(ftd.att_bwd), backward(ftd.PLAIN.att_bwd)
-    bwd = "att_bwd_fwd" if family else "att_bwd"
-    assert ftd.LAUNCHES[ftd.instance(bwd, dtype)] == 2, ftd.LAUNCHES
-    bound = TRAIN_KERNEL_TOL["att_bwd"]
-    for g, r in zip(got, ref):
-        if f32:
-            _f32_close(g, r)
-        else:
-            kind_ = "bf16" if r.dtype == torch.bfloat16 else "f32"
-            err = float((g.float() - r.float()).abs().max())
-            assert err <= bound[kind_] * float(r.float().abs().max()), kind_
+    _check_att_bwd_chain(ftd.att_bwd, kind, dtype, b, t, rnd, memory, mtb,
+                         mask, mask_add, cum0, lc, v, ta)
 
     # K1: one serving step
     if f32:
@@ -2451,6 +2481,135 @@ def test_attention_kernels_take_long_texts(kind, dtype, t, b, _full_f32):
               slack=_cum_slack(t, cum_p) if f32 else 0.0)
         k1 = "lsa_attention"
     assert fd.LAUNCHES[fd.instance(k1, dtype)] == 1, fd.LAUNCHES
+
+
+def _att_bwd_setup(kind, dtype, b, t, seed):
+    """``_check_att_bwd_chain``'s operands of the long-text test's kind:
+    random bf16 streams in the compute type, lc (location-sensitive), v and
+    the transition agent's weights."""
+    rnd, memory, mtb, mask, cum0 = _attention_operands(b, t, seed=seed)
+    memory, mtb = memory.to(dtype), mtb.to(dtype)
+    mask_add = torch.where(mask, 0.0, -1e9)
+    family = kind != "location_sensitive"
+    lc = None if family else rnd(_TAPS, _ATT, scale=0.1).to(dtype)
+    v = rnd(_ATT, scale=_ATT ** -0.5)
+    if family:
+        cum0, _ = _fwd_state(b, t, mask, seed=t)
+    ta = (SimpleNamespace(w=rnd(_MEM + _HIDDEN + 256, scale=0.03),
+                          b=rnd(1, scale=0.1))
+          if kind == "forward_transition_agent" else None)
+    return (rnd, memory, mtb, mask, mask_add, cum0, lc, v, ta)
+
+
+@pytest.mark.parametrize("kind", ["location_sensitive", *_FAMILY])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [128, 600])
+@pytest.mark.parametrize("b", [1, 50])
+def test_att_bwd_sub_tiled_layout_matches_plain(kind, dtype, t, b,
+                                                _full_f32):
+    """``att_bwd``'s sub-tiled layout of long texts, forced at T = 128 and
+    600 (tiles of 16 and 80 positions in sub-tiles of 16 and 64: a tile's
+    last sub-tile short, P's diagonals reaching past the neighbour's first
+    sub-tile), at the flagship's widths, each kind and compute type,
+    against the plain version at the bounds of the single tile's tests."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    plan = ftd.att_bwd_plan(t, _ATT, _MEM, kind != "location_sensitive",
+                            dtype, sub_tiled=True)
+    assert plan.sub == min(64, plan.tile) > 0
+    rnd, memory, mtb, mask, mask_add, cum0, lc, v, ta = _att_bwd_setup(
+        kind, dtype, b, t, seed=t + 7)
+    _check_att_bwd_chain(functools.partial(ftd.att_bwd, sub_tiled=True),
+                         kind, dtype, b, t, rnd, memory, mtb, mask, mask_add,
+                         cum0, lc, v, ta)
+
+
+@pytest.mark.parametrize("kind", ["location_sensitive", *_FAMILY])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_att_bwd_takes_the_single_tile_at_t128(kind, dtype, monkeypatch):
+    """At T = 128 (B = 50) ``att_bwd``'s plan is the single tile (8 CTAs of
+    16, no sub-tiles), and its outputs are bit-identical to those of a call
+    whose plan is pinned to the single tile's layout: the shapes that fit
+    the single tile run its code."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    b, t = 50, 128
+    family = kind != "location_sensitive"
+    assert ftd.att_bwd_plan(t, _ATT, _MEM, family, dtype) == (16, 8, 0)
+    rnd, memory, mtb, mask, mask_add, cum0, lc, v, ta = _att_bwd_setup(
+        kind, dtype, b, t, seed=11)
+    w_s = torch.softmax(torch.where(mask, rnd(b, t), -1e9), -1)
+    q = rnd(b, _ATT).to(dtype).float()
+    dctx, dw, dcum = rnd(b, _MEM), rnd(b, t, scale=0.1), rnd(b, t, scale=0.1)
+    tp_prev, tp = torch.rand(b, device="cuda"), torch.rand(b, device="cuda")
+    dtp, dh = rnd(b, scale=0.5), rnd(b, _HIDDEN, scale=0.1)
+
+    def run():
+        outs = [dcum.clone(), torch.zeros(b, t, _ATT, device="cuda"),
+                None if family else torch.zeros(b, _TAPS, _ATT,
+                                                device="cuda"),
+                torch.zeros(b, _ATT, device="cuda"),
+                torch.empty(b, _ATT, dtype=dtype, device="cuda"),
+                torch.empty(b, _MEM, dtype=dtype, device="cuda")]
+        fam = None
+        if ta is not None:
+            outs += [dtp.clone(), torch.empty(b, device="cuda"), dh.clone(),
+                     torch.empty(b, 256, device="cuda")]
+            fam = ftd.FamilyBwd(mask_add, tp_prev, tp, outs[6], outs[7],
+                                ta.w, outs[8], outs[9])
+        elif family:
+            fam = ftd.FamilyBwd(mask_add)
+        ftd.att_bwd(q, cum0.to(dtype), w_s, memory, mtb, lc, v, dctx, dw,
+                    *outs[:6], fam=fam)
+        return [o for o in outs if o is not None]
+
+    got = run()
+
+    def single(t_len, *args, **kw):
+        return ftd.AttBwdPlan(*ftd.att_bwd_tiles(t_len), 0)
+
+    monkeypatch.setattr(ftd, "att_bwd_plan", single)
+    for g, r in zip(got, run()):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("family", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_att_bwd_smem_mirror_matches_the_kernels_count(family, dtype):
+    """The planner's byte mirror (``ftd.att_bwd_smem_bytes``) equals the
+    count the built library exports (``AbLayout``), single tile and
+    sub-tiled, over T from 1 to 8,192, memories of 288, 292 and 548, and
+    attention widths of 128 and 256."""
+    from multilingual_text_to_speech_tpu_torch.ops import (
+        fused_train_decoder as ftd,
+    )
+
+    es, f32 = dtype.itemsize, int(dtype == torch.float32)
+    lib = ftd._lib()
+    for t in (1, 17, 128, 600, 1500, 2304, 2320, 3200, 3968, 3984, 4096,
+              6272, 6288, 8192):
+        tile, _ = ftd.att_bwd_tiles(t)
+        for mem in (288, 292, 548):
+            for a in (128, 256):
+                for sub in (0, 16, min(64, tile)):
+                    assert ftd.att_bwd_smem_bytes(tile, a, mem, family, es,
+                                                  sub) == \
+                        lib.att_bwd_smem_bytes(tile, a, mem, int(family), f32,
+                                               sub), (t, mem, a, sub)
+
+
+def test_make_mesh_runs_on_the_card_by_default():
+    """``make_mesh`` without a device puts the rank on the card, as every
+    other entry point of the port."""
+    from multilingual_text_to_speech_tpu_torch.config import HParams
+    from multilingual_text_to_speech_tpu_torch.parallel import make_mesh
+
+    assert make_mesh(HParams()).device.type == "cuda"
+    assert make_mesh(HParams(), device="cpu").device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -82,10 +82,10 @@ def test_mesh_shape_matches_jax(data, model, world, fits):
         with pytest.raises(AssertionError):
             jax_mesh(jhp, devices=devices)
         with pytest.raises(AssertionError):
-            make_mesh(php, world=world, rank=0)
+            make_mesh(php, world=world, rank=0, device="cpu")
         return
     ref = jax_mesh(jhp, devices=devices)
-    got = make_mesh(php, world=world, rank=world - 1)
+    got = make_mesh(php, world=world, rank=world - 1, device="cpu")
     assert got.shape == dict(ref.shape)
     assert got.size == ref.size == world
     assert got.data_index == got.data - 1
@@ -94,10 +94,10 @@ def test_mesh_shape_matches_jax(data, model, world, fits):
 def test_parallelization_false_pins_one_device():
     jhp, php = _hps(-1, 1, parallelization=False)
     assert jax_mesh(jhp, devices=jax.devices()[:8]).size == 1
-    mesh = make_mesh(php)
+    mesh = make_mesh(php, device="cpu")
     assert mesh.size == 1 and mesh.seed_index(50) is None
     with pytest.raises(ValueError, match="parallelization"):
-        make_mesh(php, world=8, rank=3)
+        make_mesh(php, world=8, rank=3, device="cpu")
 
 
 def _jax_layout(mesh, batch, axes):
@@ -157,7 +157,7 @@ def test_shard_batch_takes_each_arrays_rows():
         if x is not None:
             np.testing.assert_array_equal(g, x[9:12])
     # a mesh of one keeps the whole batch
-    for g, x in zip(shard_batch(batch, make_mesh()), batch):
+    for g, x in zip(shard_batch(batch, make_mesh(device="cpu")), batch):
         assert g is x or np.array_equal(g, x)
 
 
@@ -258,7 +258,7 @@ def test_shard_seeds_are_pure_distinct_and_kept_at_world_one():
     assert shard_seeds((seeds[1], seeds[0]), 0) != got[0]
     assert Draws(0).shard_seeds(seeds, 3) == got[3]
     # a mesh of one: no index, the step's seeds
-    assert make_mesh(HParams()).seed_index(50) is None
+    assert make_mesh(HParams(), device="cpu").seed_index(50) is None
     assert Mesh(2, 1, 1, torch.device("cpu")).seed_index(50) == 1
 
 

@@ -41,6 +41,7 @@ from multilingual_text_to_speech_tpu.data import (
 from multilingual_text_to_speech_tpu.models import tacotron as jtac
 from multilingual_text_to_speech_tpu.parallel import make_mesh
 from multilingual_text_to_speech_tpu.training import Trainer as JaxTrainer
+from multilingual_text_to_speech_tpu_torch import parallel
 from multilingual_text_to_speech_tpu_torch.config import HParams
 from multilingual_text_to_speech_tpu_torch.data import (
     TextToSpeechDatasetCollection,
@@ -466,6 +467,23 @@ def test_trainer_needs_the_card_unless_asked(run):
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(run.php.copy(), run.pt.data, seed=0)
+
+
+def test_make_mesh_needs_the_card_unless_asked(run):
+    """``parallel.make_mesh`` without a device puts the rank on the card, as
+    every entry point of the port: without one it raises, and only
+    ``device="cpu"`` gives the CPU, on which a trainer given that mesh
+    and no device runs its steps."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh(run.php)
+    mesh = parallel.make_mesh(run.php, device="cpu")
+    assert mesh.device == torch.device("cpu")
+    pt = Trainer(run.php.copy(), run.pt.data, seed=0, mesh=mesh)
+    assert pt.device == pt.mesh.device == torch.device("cpu")
+    assert pt.train_epoch(max_steps=1) == 1
+    assert all(p.device.type == "cpu" for p in pt.model.parameters())
 
 
 def test_fit_saves_every_checkpoint_epochs_and_profiles(run, tmp_path):

@@ -124,7 +124,10 @@ flagship's bf16 location-sensitive instance staged as well.
 K1f32fam, K1f32fam548, K1q8, K1fam, K2, K2fam, K3, K3fam, K3cell, prenet,
 gates: those of ``time``) on DIR's package and on the
 checkout's in turns (base, change, change, base), e.g. the parent commit's
-against this one.
+against this one.  K3 and K3fam also print a digest of ``att_bwd``'s
+outputs from one run on the same inputs (``alone_digest_*``,
+``fwd_digest_*``, ``trans_digest_*``): equal digests on both checkouts,
+bit-identical outputs.
 
 ``time`` times each named variant's kernel and the checkout's own in turns
 (``--root DIR`` takes another checkout's package, e.g. the parent commit
@@ -575,8 +578,11 @@ VARIANTS = {
               "               {round_bf16(dc_new * gg * i * (1.0f - i)), "))],
         "K3f32"),
     "f32_att_bwd_dz_bf16": (
-        "fused_train_decoder.cu", "                make_float2(dz0, dz1);",
-        "                make_float2(round_bf16(dz0), round_bf16(dz1));",
+        "fused_train_decoder.cu",
+        "                make_float2(dz0, dz1);\n"
+        "          }",
+        "                make_float2(round_bf16(dz0), round_bf16(dz1));\n"
+        "          }",
         "K3f32"),
     # K3's float32 head and band products on the tensor cores: each
     # product in one TF32 pass (bwd_head; att_bwd's loc, P and dlc), the
@@ -589,16 +595,61 @@ VARIANTS = {
         "          mma_tf32(acc[mt][nt], ah[mt], bh[nt]);", "K3f32"),
     "f32_att_loc_one_tf32_pass": (
         "fused_train_decoder.cu",
-        "            mma_tf32x3(acc, ah, al, bh[ks], bl[ks]);",
-        "            mma_tf32(acc, ah, bh[ks]);", "K3f32"),
+        "            band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, lane);\n"
+        "            mma_tf32x3(acc, ah, al, bh[ks], bl[ks]);\n"
+        "          }",
+        "            band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, lane);\n"
+        "            mma_tf32(acc, ah, bh[ks]);\n"
+        "          }",
+        "K3f32"),
     "f32_att_p_one_tf32_pass": (
         "fused_train_decoder.cu",
-        "            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 * h);",
-        "            mma_tf32(acc[h], ah, bh + 2 * h);", "K3f32"),
+        "#pragma unroll\n"
+        "          for (int h = 0; h < 2; ++h) {\n"
+        "            uint32_t ah[4], al[4];\n"
+        "            ldsm_x4(ah, s_dz + band_swz(m0 + (lane & 7) +\n"
+        "                                            ((lane >> 3) & 1) * 8,\n"
+        "                                        kk + 8 * h + (lane >> 4) *"
+        " 4, A));\n"
+        "            tf32_split<4>(ah, al, ah);\n"
+        "            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 * h);\n"
+        "          }\n"
+        "        }\n"
+        "#pragma unroll\n"
+        "        for (int e = 0; e < 4; ++e)\n"
+        "          s_p[(m0 + g + 8 * (e >> 1)) * BAND_K + n0 + 2 * qd + (e &"
+        " 1)] =\n"
+        "              acc[0][e] + acc[1][e];\n"
+        "      }\n"
+        "      __syncthreads();",
+        "#pragma unroll\n"
+        "          for (int h = 0; h < 2; ++h) {\n"
+        "            uint32_t ah[4], al[4];\n"
+        "            ldsm_x4(ah, s_dz + band_swz(m0 + (lane & 7) +\n"
+        "                                            ((lane >> 3) & 1) * 8,\n"
+        "                                        kk + 8 * h + (lane >> 4) *"
+        " 4, A));\n"
+        "            tf32_split<4>(ah, al, ah);\n"
+        "            mma_tf32(acc[h], ah, bh + 2 * h);\n"
+        "          }\n"
+        "        }\n"
+        "#pragma unroll\n"
+        "        for (int e = 0; e < 4; ++e)\n"
+        "          s_p[(m0 + g + 8 * (e >> 1)) * BAND_K + n0 + 2 * qd + (e &"
+        " 1)] =\n"
+        "              acc[0][e] + acc[1][e];\n"
+        "      }\n"
+        "      __syncthreads();",
+        "K3f32"),
     "f32_att_dlc_one_tf32_pass": (
         "fused_train_decoder.cu",
-        "              mma_tf32x3(st[kh], ah, al, bh, bl);",
-        "              mma_tf32(st[kh], ah, bh);", "K3f32"),
+        "              band_frag_tf32(al, s_cum_lo + k0 + 16 * kh, lane);\n"
+        "              mma_tf32x3(st[kh], ah, al, bh, bl);\n"
+        "            }",
+        "              band_frag_tf32(al, s_cum_lo + k0 + 16 * kh, lane);\n"
+        "              mma_tf32(st[kh], ah, bh);\n"
+        "            }",
+        "K3f32"),
     "f32_att_hankel_tap_off": (
         "tile.cuh", "  const int i = (lane >> 2) + (lane & 3);\n"
         "  a[0] = __float_as_uint(p[i]);",
@@ -617,8 +668,9 @@ VARIANTS = {
         "  {\n    tf32_split_store(s + i, s + n + i, s[i]);\n"
         "    s[n + i] = 0.0f;\n  }", "K3f32"),
     "f32_fwd_att_bwd_tz_bf16": (
-        "fused_train_decoder.cu", "            s_tz[i * A + a] = tz;",
-        "            s_tz[i * A + a] = round_bf16(tz);",
+        "fused_train_decoder.cu",
+        "            if constexpr (!SUB) s_tz[i * A + a] = tz;",
+        "            if constexpr (!SUB) s_tz[i * A + a] = round_bf16(tz);",
         "K3f32:forward_transition_agent"),
     "f32_bwd_prenet_da_bf16": (
         "tile.cuh",
@@ -1061,8 +1113,49 @@ VARIANTS = {
              "          tf32_split<2>(bh[ks], bl[ks], bh[ks]);"),
             ("            band_frag_tf32(al, s_cum_lo + mt * 16 + 8 * ks, "
              "lane);", "            tf32_split<4>(ah, al, ah);"),
-            ("          ldsm_x4(bl, lc_lo + lc_at);",
-             "          tf32_split<4>(bh, bl, bh);"),
+            ('      // K = A, lc\'s "NK" fragments of two K steps by one '
+             'ldmatrix\n'
+             "      for (int it = warp; it < mtiles * 4; it += AB_WARPS) {\n"
+             "        const int m0 = (it >> 2) * 16, n0 = (it & 3) * 8;\n"
+             "        float acc[2][4] = {};\n"
+             "        for (int kk = 0; kk < A; kk += 16) {\n"
+             "          uint32_t bh[4], bl[4];\n"
+             "          const int lc_at = band_swz(n0 + (lane & 7), kk +"
+             " (lane >> 3) * 4, A);\n"
+             "          ldsm_x4(bh, s_lc + lc_at);\n"
+             "          ldsm_x4(bl, lc_lo + lc_at);\n"
+             "#pragma unroll\n"
+             "          for (int h = 0; h < 2; ++h) {\n"
+             "            uint32_t ah[4], al[4];\n"
+             "            ldsm_x4(ah, s_dz + band_swz(m0 + (lane & 7) +\n"
+             "                                            ((lane >> 3) & 1)"
+             " * 8,\n"
+             "                                        kk + 8 * h + (lane >>"
+             " 4) * 4, A));\n"
+             "            tf32_split<4>(ah, al, ah);\n"
+             "            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 * h);",
+             '      // K = A, lc\'s "NK" fragments of two K steps by one '
+             'ldmatrix\n'
+             "      for (int it = warp; it < mtiles * 4; it += AB_WARPS) {\n"
+             "        const int m0 = (it >> 2) * 16, n0 = (it & 3) * 8;\n"
+             "        float acc[2][4] = {};\n"
+             "        for (int kk = 0; kk < A; kk += 16) {\n"
+             "          uint32_t bh[4], bl[4];\n"
+             "          const int lc_at = band_swz(n0 + (lane & 7), kk +"
+             " (lane >> 3) * 4, A);\n"
+             "          ldsm_x4(bh, s_lc + lc_at);\n"
+             "          tf32_split<4>(bh, bl, bh);\n"
+             "#pragma unroll\n"
+             "          for (int h = 0; h < 2; ++h) {\n"
+             "            uint32_t ah[4], al[4];\n"
+             "            ldsm_x4(ah, s_dz + band_swz(m0 + (lane & 7) +\n"
+             "                                            ((lane >> 3) & 1)"
+             " * 8,\n"
+             "                                        kk + 8 * h + (lane >>"
+             " 4) * 4, A));\n"
+             "            tf32_split<4>(ah, al, ah);\n"
+             "            mma_tf32x3(acc[h], ah, al, bh + 2 * h, bl + 2 *"
+             " h);"),
             ("              band_frag_tf32(al, s_cum_lo + k0 + 16 * kh, "
              "lane);", "              tf32_split<4>(ah, al, ah);")],
         "tile.cuh": [
@@ -1451,6 +1544,23 @@ hp = cs.flagship(cs.MAX_FRAMES, cs.CHUNK)
 sd = cs.seeded_state_dict(hp)
 """
 
+# the outputs of one run of `fn` from the tensors as given, as a number
+# (the first 24 bits of their bytes' SHA-256), the tensors restored after
+# it: two checkouts whose kernels agree bit for bit print the same
+_DIGEST = r"""
+import hashlib
+def _digest(fn, outs):
+    saved = [o.clone() for o in outs]
+    fn()
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    for o, s in zip(outs, saved):
+        o.copy_(s)
+    return float(int(h.hexdigest()[:6], 16))
+"""
+
 _CHECKS = _PRELUDE + r"""
 failed = []
 def record(msg):
@@ -1524,7 +1634,7 @@ print("VARIANT_RESULT " + json.dumps({{"alone_ms": alone,
 # att_bwd at B=50, T=128 and the flagship's widths (A=128, Mem=292, 31
 # taps) on random inputs, the accumulators and dcum updated in place, in
 # both compute types
-_TIME_K3 = _PRELUDE + r"""
+_TIME_K3 = _PRELUDE + _DIGEST + r"""
 from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
 torch.set_grad_enabled(False)
 b, t, a, mem, k = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 31
@@ -1542,6 +1652,8 @@ for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             torch.zeros(b, a, device="cuda"),
             torch.empty(b, a, dtype=ct, device="cuda"),
             torch.empty(b, mem, dtype=ct, device="cuda"))
+    res[f"alone_digest_{{name}}"] = _digest(lambda: ftd.att_bwd(*args),
+                                            args[9:])
     res[f"alone_ms_{{name}}"] = cs.device_ms(lambda: ftd.att_bwd(*args),
                                              ours_only=True)
 # bwd_head with the generator cell (zoneout) at B=50, M=80, H=1024, Mem=292
@@ -1618,7 +1730,7 @@ print("VARIANT_RESULT " + json.dumps(res))
 # (A=128, Mem=292, H=1024, P=256) on random inputs, both kinds (the
 # transition agent's backward in its prologue) in both compute types, the
 # accumulators and carries updated in place
-_TIME_K3FAM = _PRELUDE + r"""
+_TIME_K3FAM = _PRELUDE + _DIGEST + r"""
 from multilingual_text_to_speech_tpu_torch.ops import fused_train_decoder as ftd
 torch.set_grad_enabled(False)
 b, t, a, mem, h, p = cs.TRAIN_B, cs.TRAIN_T, 128, 292, 1024, 256
@@ -1645,6 +1757,11 @@ for name, ct in (("bf16", torch.bfloat16), ("f32", torch.float32)):
                 torch.zeros(b, a, device="cuda"),
                 torch.empty(b, a, dtype=ct, device="cuda"),
                 torch.empty(b, mem, dtype=ct, device="cuda"))
+        outs = [x for x in args[9:] if x is not None] + (
+            [fam.dtp, fam.dlin, fam.dh_att, fam.dx] if kind == "trans"
+            else [])
+        res[f"{{kind}}_digest_{{name}}"] = _digest(
+            lambda: ftd.att_bwd(*args, fam=fam), outs)
         res[f"{{kind}}_ms_{{name}}"] = cs.device_ms(
             lambda: ftd.att_bwd(*args, fam=fam), ours_only=True)
 print("VARIANT_RESULT " + json.dumps(res))
